@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `csrc/` are compiled at first use by `nvcc` into a shared
+library with a plain C interface, loaded with ctypes. The library lands in
+`build/cge_tpu_torch/` at the repository root, named by a hash of the
+sources and flags, so a changed source rebuilds and an unchanged one loads
+at once. Nothing here runs at import time: a machine without `nvcc` (the
+CPU test machine) imports the package and never calls `library()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SOURCES = (os.path.join(_PKG, "csrc", "cluster_sweep.cu"),)
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cge_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # rays, boxes, keys, NB, S, BR, stream
+    "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _P),
+    # order, skeys, rays, tiles, best_t, best_i, visits, NB, n_sc, BR,
+    # sc_n, C, field_major, any_hit, shared_origin, stream
+    "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P),
+}
+
+
+class KernelLibrary:
+    """The loaded library plus what its build reported."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self._lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
+        self._lib.cge_error_string.argtypes = [ctypes.c_int]
+        self._lib.cge_error_string.restype = ctypes.c_char_p
+
+    def check(self, err: int, name: str) -> None:
+        """Raise on a nonzero cudaError_t returned by a launch."""
+        if err != 0:
+            msg = self._lib.cge_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_LIBRARY: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"cge_kernels_{h.hexdigest()[:16]}.so")
+    log_path = path + ".log"
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        with open(log_path, "w") as f:
+            f.write(log)
+        os.replace(tmp, path)    # atomic: concurrent builds agree
+    seconds = time.perf_counter() - t0
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+    _LIBRARY = KernelLibrary(path, seconds, log)
+    return _LIBRARY
+

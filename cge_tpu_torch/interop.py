@@ -1,0 +1,27 @@
+"""Carry scenes and cameras across from the JAX package as numpy.
+
+The JAX package's `SceneArrays` leaves and `Camera` fields, converted to
+numpy by the caller, become the port's tensors. Tests build a scene once in
+JAX and hand the same arrays to both renderers; this is the port's way of
+loading the other side's "weights". Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from cge_tpu_torch.camera import Camera
+from cge_tpu_torch.scene.scene import TENSOR_FIELDS, scene_from_numpy
+
+
+def camera_from_numpy(fovy, distance, look_at, rotation,
+                      aspect) -> Camera:
+    """Camera fields (numpy scalars or arrays) -> the port's Camera."""
+    return Camera(fovy=float(np.asarray(fovy)),
+                  distance=float(np.asarray(distance)),
+                  look_at=tuple(float(x) for x in np.asarray(look_at)),
+                  rotation=tuple(float(x) for x in np.asarray(rotation)),
+                  aspect=float(np.asarray(aspect)))
+
+
+__all__ = ["TENSOR_FIELDS", "camera_from_numpy", "scene_from_numpy"]

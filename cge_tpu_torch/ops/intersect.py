@@ -1,0 +1,128 @@
+"""Ray-primitive intersection (counterpart of cge_tpu/ops/intersect.py).
+
+The reference's prebuilt intersection semantics (see the JAX module's
+docstring): triangles accept 0 <= t <= ray.t with three edge sign tests, so
+the later triangle wins an exact tie; spheres solve the quadratic with
+a == 1 (unit direction assumed) and accept strictly t < ray.t, so a sphere
+never displaces an equal-t triangle.
+
+Only the cluster-accelerated path is ported: `closest_hit` and
+`any_hit_occlusion` take an `Accel` and run the K1/K2 sweep
+(ops.cluster_sweep), reporting triangle hits as perm-space slots.
+Hit selection is a discrete oracle, so everything here runs under
+`torch.no_grad()`; the continuous hit quantities are recomputed from the
+ids by render.wavefront.hit_attributes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cge_tpu_torch.ops import cluster_sweep
+
+
+def _dot(a, b):
+    return (a * b).sum(dim=-1)
+
+
+def triangle_plane(v0, v1, v2):
+    """trianglePlane: n = normalize(cross(v1-v0, v2-v0)), D = dot(n, v0);
+    degenerate triangles get n = 0."""
+    n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    n2 = _dot(n, n)[..., None]
+    pos = n2 > 0
+    n = torch.where(pos, n / torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+    return n, _dot(n, v0)
+
+
+def intersect_spheres_t(o, d, tmax, center, radius):
+    """Batched ray x sphere with the a == 1 quirk. o, d: [R, 3]; tmax [R];
+    center [S, 3]; radius [S]. Returns t [R, S], +inf on miss. Accept:
+    disc >= 0, smallest non-negative root, t < tmax (strict)."""
+    oc = o[:, None, :] - center[None, :, :]
+    b = 2.0 * _dot(d[:, None, :], oc)
+    c = _dot(oc, oc) - radius[None, :] ** 2
+    disc = b * b - 4.0 * c
+    sq = torch.sqrt(disc.clamp_min(0.0))
+    t0 = (-b - sq) / 2.0
+    t1 = (-b + sq) / 2.0
+    t = torch.where(t0 >= 0, t0, t1)
+    ok = (disc >= 0) & (t >= 0) & (t < tmax[:, None])
+    return torch.where(ok, t, torch.inf)
+
+
+@dataclasses.dataclass(frozen=True)
+class HitIds:
+    """Discrete closest-hit result."""
+
+    hit: torch.Tensor        # [R] bool
+    t: torch.Tensor          # [R] f32, inf on miss
+    is_sphere: torch.Tensor  # [R] bool
+    prim: torch.Tensor       # [R] i64: perm-space triangle slot or sphere index
+
+
+@dataclasses.dataclass(frozen=True)
+class Accel:
+    """The packed cluster stack, built once per scene and shared by every
+    sweep. `layout` names the tile layout explicitly ("triangle": [L, C,
+    16]; "field": [L, 16, C])."""
+
+    perm: torch.Tensor     # [L, C] triangle ids, -1 pad
+    aabbs: torch.Tensor    # [L, 8] cluster boxes (lo3, hi3, pad2)
+    tiles: torch.Tensor    # packed triangle constants
+    layout: str
+
+
+@torch.no_grad()
+def build_accel(scene, layout: str | None = None) -> Accel:
+    """Pack the scene's clusters for the sweep."""
+    aabbs, tiles, layout = cluster_sweep.pack_cluster_tiles(
+        scene.vertices, scene.tris, scene.cluster_perm, layout)
+    return Accel(perm=scene.cluster_perm, aabbs=aabbs, tiles=tiles,
+                 layout=layout)
+
+
+def _sphere_hits(scene, o, d, budget):
+    ts = intersect_spheres_t(o, d, budget, scene.sph_center,
+                             scene.sph_radius)
+    return torch.where(scene.sph_mask[None, :], ts, torch.inf)
+
+
+@torch.no_grad()
+def closest_hit(scene, o, d, tmax, accel: Accel, *,
+                shared_origin: bool = False, br: int = 512,
+                sc_n: int | None = None) -> HitIds:
+    """Closest hit over the scene's triangles (cluster sweep, perm-space
+    ids) and then its spheres, which test under the budget
+    min(best_t, tmax) (ctor order, bounding_volume_hierarchy.cpp:158-171)."""
+    best_t, best_i, _ = cluster_sweep.cluster_tris(
+        o, d, tmax, accel.aabbs, accel.tiles, accel.layout, br=br,
+        sc_n=sc_n, shared_origin=shared_origin)
+    ts = _sphere_hits(scene, o, d, torch.minimum(best_t, tmax))
+    ts_min, s_idx = ts.min(dim=1)       # first index among equal minima
+    sphere_wins = torch.isfinite(ts_min)
+    t = torch.where(sphere_wins, ts_min, best_t)
+    hit = torch.isfinite(t)
+    prim = torch.where(sphere_wins, s_idx, best_i.long())
+    return HitIds(hit=hit, t=t, is_sphere=sphere_wins,
+                  prim=torch.where(hit, prim, 0))
+
+
+@torch.no_grad()
+def any_hit_occlusion(scene, o, d, tmax, accel: Accel, *, br: int = 512,
+                      tri_rays=None, sc_n: int | None = None):
+    """True where any primitive blocks the ray within its budget.
+
+    tri_rays: optional (o2, d2), another parameterization of the same
+    segments used only for the triangle sweep (the shadow path passes the
+    budget-1 query reversed from the light). Triangle acceptance is
+    invariant under that reversal; the sphere quadratic's a == 1 quirk is
+    not, so spheres always test the forward (o, d)."""
+    to, td = tri_rays if tri_rays is not None else (o, d)
+    tri_hit, _ = cluster_sweep.cluster_tris(
+        to, td, tmax, accel.aabbs, accel.tiles, accel.layout, br=br,
+        sc_n=sc_n, any_hit=True)
+    ts = _sphere_hits(scene, o, d, tmax)
+    return tri_hit | torch.isfinite(ts.amin(dim=1))

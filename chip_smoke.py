@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (cge_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root with no arguments: `python3 chip_smoke.py`.
+It needs a CUDA card, builds the port's kernels from csrc/ with nvcc, and
+exits non-zero if any phase fails:
+
+  1. the card's name and power limit, and the kernel build;
+  2. each kernel against its plain PyTorch twin on the card, on the full
+     614,400-triangle dragon stand-in (tools/make_large_asset.py): primary
+     rays and a bounce-like batch (scattered directions, a dead third), in
+     the walk's four modes (closest with a shared origin; closest with
+     per-ray origins; any-hit shadow rays; 4 clusters per visit), with the
+     times of both;
+  3. the main path: the dragon at 512x512 through render_image_u8 with
+     shading, hard shadows, recursive mirrors, interpolated normals and the
+     accel, with the launch counters showing it ran through both kernels,
+     and its median frame time;
+  4. correctness: the dragon at 256x256 against the compiled reference's
+     golden image (tests/golden/images/dragon_scale_256.raw), and a small
+     scene rendered with the kernels on the card against the twins on the
+     CPU.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+W = H = 512
+GOLDEN = os.path.join(REPO, "tests", "golden", "images",
+                      "dragon_scale_256.raw")
+# bench.py's scale512 knobs: one cluster per visit, 16k-ray trace chunks
+MAIN_PARAMS = dict(sweep_sc_n=1, sweep_anyhit_sc_n=1, trace_chunk=16384)
+HEADLINE = dict(enable_shading=True, enable_hard_shadow=True,
+                enable_recursive=True, enable_normal_interp=True,
+                enable_accel_structure=True)
+GOLDEN_FEATURES = dict(enable_shading=True, enable_hard_shadow=True,
+                       enable_normal_interp=True, enable_accel_structure=True)
+LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean ms per call by CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their twins
+# ---------------------------------------------------------------------------
+
+def sweep_batches(scene, ctx, device):
+    """The batches the main path hands the sweep, at its chunk size:
+    primary rays (shared origin), a bounce-like batch and shadow rays."""
+    import numpy as np
+    import torch
+
+    from cge_tpu_torch.camera import Camera, pixel_grid
+    from cge_tpu_torch.ops.intersect import closest_hit
+    from cge_tpu_torch.render.renderer import _swizzle_rows
+
+    n = MAIN_PARAMS["trace_chunk"]
+    grid = _swizzle_rows(pixel_grid(W, H, device).reshape(-1, 2), W, H)
+    # the chunk in the middle of the frame: it sees the dragon
+    mid = (W * H // n // 2) * n
+    o, d = Camera().generate_rays(grid[mid:mid + n])
+    inf = torch.full((n,), torch.inf, device=device)
+    ids = closest_hit(scene, o, d, inf, ctx.accel, shared_origin=True)
+    p = o + torch.where(ids.hit, ids.t, 0.0)[:, None] * d
+    rng = np.random.default_rng(SEED)
+    sd = rng.normal(size=(n, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    dead = torch.from_numpy(np.arange(n) % 3 == 0).to(device)
+    bounce_tmax = torch.where(ids.hit & ~dead, torch.inf, -1.0)
+    light = torch.tensor(LIGHT[0], device=device).expand(n, 3)
+    shadow_tmax = torch.where(ids.hit, 1.0, -1.0)
+    return {
+        "a_primary": (o, d, inf, True, False, 1),
+        "b_bounce": (p, torch.from_numpy(sd).to(device), bounce_tmax, False,
+                     False, 1),
+        "c_shadow": (light.contiguous(), (p - light).contiguous(),
+                     shadow_tmax, False, True, 1),
+        "d_sc4": (o, d, inf, True, False, 4),
+        "d_sc4_bounce": (p, torch.from_numpy(sd).to(device), bounce_tmax,
+                         False, False, 4),
+    }
+
+
+def check_kernels(scene, ctx, device, timing: bool):
+    """Each kernel vs its twin on the same inputs. Tolerances: K1 keys and
+    K2 t's are compared to 1e-6 relative; hit flags, ids and visit counts
+    must agree exactly. Both sides round identically (the kernels are
+    built with --fmad=false and the twins run one rounding per op), so
+    the expected error is 0; the relative slack covers a reciprocal that
+    rounds differently."""
+    import torch
+
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    acc = ctx.accel
+    report = {"keys": {"err": 0.0}, "walk": {"err": 0.0}}
+    for name, (o, d, tmax, shared, any_hit, sc_n) in sweep_batches(
+            scene, ctx, device).items():
+        rays, boxes, tiles, sc_n = cs.sweep_setup(o, d, tmax, acc.aabbs,
+                                                  acc.tiles, acc.layout,
+                                                  cs.DEFAULT_BR, sc_n)
+        keys = cs.block_entry_keys(rays, boxes)
+        keys_p = cs.block_entry_keys_plain(rays, boxes)
+        fin = torch.isfinite(keys_p)
+        if not torch.equal(fin, torch.isfinite(keys)):
+            raise AssertionError(f"{name}: K1 finite-key masks differ")
+        kerr = float((keys - keys_p)[fin].abs().max()) if fin.any() else 0.0
+        if fin.any() and kerr > 1e-6 * max(1.0, float(keys_p[fin].abs().max())):
+            raise AssertionError(f"{name}: K1 keys differ by {kerr}")
+        skeys, order = torch.sort(keys_p, dim=-1, stable=True)
+        order = order.int().contiguous()
+        kw = dict(layout=acc.layout, sc_n=sc_n, any_hit=any_hit,
+                  shared_origin=shared)
+        bt, bi, vis = cs.cluster_walk(order, skeys, rays, tiles, **kw)
+        bt_p, bi_p, vis_p = cs.cluster_walk_plain(order, skeys, rays, tiles,
+                                                  **kw)
+        if not torch.equal(vis, vis_p):
+            raise AssertionError(f"{name}: K2 visit counts differ")
+        if not torch.equal(bi, bi_p):
+            raise AssertionError(
+                f"{name}: K2 ids differ on {int((bi != bi_p).sum())} rays")
+        hit = torch.isfinite(bt_p) & (bt_p > cs.DONE)
+        werr = float((bt - bt_p)[hit].abs().max()) if hit.any() else 0.0
+        if hit.any() and werr > 1e-6 * max(1.0, float(bt_p[hit].abs().max())):
+            raise AssertionError(f"{name}: K2 t differs by {werr}")
+        report["keys"]["err"] = max(report["keys"]["err"], kerr)
+        report["walk"]["err"] = max(report["walk"]["err"], werr)
+        line = (f"  {name}: rays {o.shape[0]} blocks {rays.shape[0]} "
+                f"boxes {boxes.shape[0]} live {int((tmax >= 0).sum())} "
+                f"hits {int((bi_p >= 0).sum())} visits mean "
+                f"{float(vis.float().mean()):.1f} max {int(vis.max())} | "
+                f"K1 err {kerr:.3g} K2 err {werr:.3g}")
+        if timing:
+            t = dict(
+                keys=cuda_ms(lambda: cs.block_entry_keys(rays, boxes)),
+                keys_plain=cuda_ms(lambda: cs.block_entry_keys_plain(
+                    rays, boxes), reps=2),
+                walk=cuda_ms(lambda: cs.cluster_walk(order, skeys, rays,
+                                                     tiles, **kw)),
+                walk_plain=cuda_ms(lambda: cs.cluster_walk_plain(
+                    order, skeys, rays, tiles, **kw), reps=1))
+            line += (f" | ms K1 {t['keys']:.4f} (twin {t['keys_plain']:.3f})"
+                     f" K2 {t['walk']:.4f} (twin {t['walk_plain']:.3f})")
+            if name == "a_primary":
+                report["keys"].update(ms=t["keys"], plain_ms=t["keys_plain"])
+                report["walk"].update(ms=t["walk"], plain_ms=t["walk_plain"])
+        log(line)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the main path, the golden, GPU against CPU
+# ---------------------------------------------------------------------------
+
+def golden_check(img, path=GOLDEN):
+    """test_golden_images.py:200-205: >= 99.5% of pixels close, and the
+    99.99th-percentile error below 0.05."""
+    import numpy as np
+
+    raw = np.fromfile(path, dtype=np.float32)
+    w, h = raw[:2].view(np.int32)
+    ref = raw[2:].reshape(int(h), int(w), 3)
+    both = np.isfinite(ref) & np.isfinite(img)
+    close = np.isclose(img, ref, rtol=1e-4, atol=2e-4) | ~both
+    frac = float(close.all(axis=-1).mean())
+    q = float(np.quantile(np.abs(np.where(both, img - ref, 0.0)), 0.9999))
+    return frac, q
+
+
+def small_scene_check(device, tmp):
+    """The 41x32 dragon at 64x64 with the headline features: kernels on the
+    card against the twins on the CPU, under the golden rules."""
+    import numpy as np
+
+    import cge_tpu_torch as ct
+    from tools.make_large_asset import write_obj
+
+    path = os.path.join(tmp, "dragon_small.obj")
+    write_obj(path, 41, 32)
+    light = [ct.PointLight(*LIGHT)]
+    f = ct.Features(**HEADLINE)
+    p = ct.RenderParams(trace_chunk=1024)
+    imgs = []
+    for dev in (device, "cpu"):
+        s = ct.load_scene_from_file(path, light, device=dev)
+        imgs.append(ct.render_image(s, ct.Camera(), f, p, 64, 64).cpu()
+                    .numpy())
+    gpu, cpu = imgs
+    nan_agree = float((np.isnan(gpu) == np.isnan(cpu)).mean())
+    both = np.isfinite(gpu) & np.isfinite(cpu)
+    frac = float((np.isclose(gpu, cpu, rtol=1e-4, atol=2e-4)
+                  | ~both).all(axis=-1).mean())
+    return nan_agree, frac
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        log("FAIL: torch is not installed")
+        return 1
+    if not torch.cuda.is_available():
+        log("FAIL: no CUDA device (torch.cuda.is_available() is false)")
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import cge_tpu_torch as ct
+        from cge_tpu_torch import _kernels
+        from cge_tpu_torch.ops import cluster_sweep as cs
+        from tools.make_large_asset import write_obj
+    except ImportError as e:
+        log(f"FAIL: the port is not importable next to this script: {e}")
+        return 1
+    import numpy as np
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+        else f"nvidia-smi: {smi.stderr.strip()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+
+    # phase 1: build
+    lib = _kernels.library()
+    log(f"[1] kernels built in {lib.build_seconds:.1f} s -> "
+        f"{os.path.relpath(lib.path, REPO)}")
+    for ln in lib.build_log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            log("    " + ln.strip())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "dragon.obj")
+        t0 = time.perf_counter()
+        write_obj(obj)
+        t1 = time.perf_counter()
+        scene = ct.load_scene_from_file(obj, [ct.PointLight(*LIGHT)],
+                                        device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        feats = ct.Features(**HEADLINE)
+        params = ct.RenderParams(**MAIN_PARAMS)
+        ctx = ct.prepare_render(scene, feats, params)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        log(f"    dragon: {int(scene.tri_mask.sum())} triangles, "
+            f"{scene.cluster_perm.shape[0]} clusters, tiles "
+            f"{tuple(ctx.accel.tiles.shape)} ({ctx.accel.layout}), "
+            f"write {t1 - t0:.1f} s load {t2 - t1:.1f} s "
+            f"prepare {t3 - t2:.2f} s")
+
+        # phase 2: kernels vs twins
+        log("[2] kernels vs twins (same inputs on the card)")
+        report = check_kernels(scene, ctx, device, timing=True)
+
+        # phase 3: the main path
+        for k in cs.LAUNCHES:
+            cs.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = ct.render_image_u8(scene, ct.Camera(), feats, params, W, H,
+                                 ctx=ctx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(cs.LAUNCHES)
+        if img.shape != (H, W, 3) or img.dtype != torch.uint8:
+            raise AssertionError(f"image {tuple(img.shape)} {img.dtype}")
+        lit = float((img.float().sum(-1) > 0).float().mean())
+        if lit < 0.05:
+            raise AssertionError(f"image is blank: {lit:.4f} lit pixels")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"main path never launched kernel {k}")
+        frames = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ct.render_image_u8(scene, ct.Camera(), feats, params, W, H,
+                               ctx=ctx)
+            end.record()
+            torch.cuda.synchronize()
+            frames.append(start.elapsed_time(end))
+        ms = float(np.median(frames))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"[3] main path 512x512: launches {launches}, lit {lit:.3f}, "
+            f"first frame {first_s:.2f} s, frames ms "
+            f"{[round(x, 2) for x in frames]}, median {ms:.2f} ms, "
+            f"{W * H * 2 / ms / 1e3:.3f} Mrays/s (primary + one shadow ray "
+            f"per pixel), peak memory {peak:.0f} MiB")
+
+        # phase 4: golden and GPU-vs-CPU
+        gimg = ct.render_image(scene, ct.Camera(),
+                               ct.Features(**GOLDEN_FEATURES),
+                               ct.RenderParams(), 256, 256).cpu().numpy()
+        frac, q = golden_check(gimg)
+        log(f"[4] golden dragon_scale_256: {frac:.4%} pixels close, "
+            f"99.99th pct err {q:.3g} (need >= 99.5%, < 0.05)")
+        if frac < 0.995 or q >= 0.05:
+            raise AssertionError("golden mismatch")
+        nan_agree, frac = small_scene_check(device, tmp)
+        log(f"    small dragon 64x64, card vs CPU twins: NaN agree "
+            f"{nan_agree:.4f}, {frac:.4%} pixels close")
+        if nan_agree < 0.999 or frac < 0.995:
+            raise AssertionError("card and CPU renders disagree")
+
+    src = "cge_tpu_torch/csrc/cluster_sweep.cu"
+    kernels = [
+        dict(name="block_entry_keys", route="cuda", source=src,
+             replaces="cge_tpu/ops/pallas/cluster_sweep.py:187",
+             launches=launches["keys"], max_abs_err=report["keys"]["err"],
+             ms=report["keys"]["ms"], plain_ms=report["keys"]["plain_ms"]),
+        dict(name="cluster_walk", route="cuda", source=src,
+             replaces="cge_tpu/ops/pallas/cluster_sweep.py:309",
+             launches=launches["walk"], max_abs_err=report["walk"]["err"],
+             ms=report["walk"]["ms"], plain_ms=report["walk"]["plain_ms"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,284 @@
+"""The port's cluster sweep (cge_tpu_torch.ops.cluster_sweep) against the JAX
+package's Pallas kernels run in interpret mode, on the 41x32 dragon
+stand-in (2,560 triangles, 20 clusters).
+
+The kernels' plain twins run here (CPU tensors); the CUDA kernels are held
+against the same twins by the `cuda`-marked cases, which skip without a
+card. Inputs are made with numpy from a fixed seed and handed to both
+sides; the scene and its packed tile stack are built once by JAX and
+carried across, so the walk is compared on identical constants.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cge_tpu.camera import Camera as JCamera
+from cge_tpu.camera import pixel_grid as jpixel_grid
+from cge_tpu.ops.bvh import build_clusters as jbuild_clusters
+from cge_tpu.ops.pallas.cluster_sweep import (_block_entry_keys,
+                                              pack_cluster_tiles,
+                                              pallas_cluster_tris)
+from cge_tpu.scene.scene import PointLight as JPointLight
+from cge_tpu.scene.scene import load_scene_from_file as jload
+from cge_tpu_torch.ops import cluster_sweep as cs
+from cge_tpu_torch.ops.bvh import build_clusters
+from tools.make_large_asset import write_obj
+
+torch.set_num_threads(2)
+
+BR = 128
+SEED = 1234
+
+
+@pytest.fixture(scope="module")
+def dragon(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("sweep") / "dragon_small.obj")
+    write_obj(path, 41, 32)
+    return jload(path, [JPointLight((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))])
+
+
+@pytest.fixture(scope="module")
+def stacks(dragon):
+    """JAX-packed stacks in both layouts, as numpy."""
+    out = {}
+    for layout, hbm in (("triangle", False), ("field", True)):
+        a, t = pack_cluster_tiles(dragon.vertices, dragon.tris,
+                                  dragon.cluster_perm, hbm=hbm)
+        out[layout] = (np.asarray(a), np.asarray(t))
+    return out
+
+
+@pytest.fixture(scope="module")
+def batches(dragon):
+    """Primary rays (shared origin) and, from their hits, a bounce-like
+    batch (scattered directions; a third dead, a third with a finite
+    budget) and reversed shadow rays toward the light."""
+    o, d = JCamera().generate_rays(jpixel_grid(32, 32).reshape(-1, 2))
+    o, d = np.asarray(o), np.asarray(d)
+    n = o.shape[0]
+    aabbs, tiles = pack_cluster_tiles(dragon.vertices, dragon.tris,
+                                      dragon.cluster_perm, hbm=False)
+    t, _ = pallas_cluster_tris(jnp.asarray(o), jnp.asarray(d),
+                               jnp.full(n, jnp.inf), aabbs, tiles,
+                               dragon.cluster_perm, br=BR, interpret=True)
+    t = np.asarray(t)
+    hit = np.isfinite(t)
+    # hit points pulled back toward the camera, as the renderer offsets its
+    # secondary origins: a ray starting exactly on a surface meets it at
+    # t ~ 0, where the t >= 0 test is a coin toss of rounding
+    p = o + np.where(hit, t - 1e-3, 0.0)[:, None] * d
+    rng = np.random.default_rng(SEED)
+    sd = rng.normal(size=(n, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    third = np.arange(n) % 3
+    budget = np.where(third == 0, -1.0,
+                      np.where(third == 1, rng.uniform(0.05, 1.5, n), np.inf))
+    light = np.broadcast_to(np.float32([-1.0, 1.0, -1.0]), (n, 3))
+    return {
+        "primary": (o, d, np.full(n, np.inf, np.float32)),
+        "bounce": (p.astype(np.float32), sd, budget.astype(np.float32)),
+        "shadow": (np.ascontiguousarray(light),
+                   (p - light).astype(np.float32),
+                   np.where(hit, 1.0, -1.0).astype(np.float32)),
+    }
+
+
+def _t(x, dtype=None):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+def test_build_clusters_same_sets_as_jax(dragon):
+    """The port's numpy builder and the JAX package's (native) builder give
+    the same clusters in the same order; member order inside a cluster may
+    differ (argpartition vs nth_element)."""
+    V, T, M = (np.asarray(x) for x in (dragon.vertices, dragon.tris,
+                                       dragon.tri_mask))
+    mine = build_clusters(V, T, M)
+    ref = jbuild_clusters(V, T, M)
+    assert mine.shape == ref.shape
+    assert all(set(a) == set(b) for a, b in zip(mine, ref))
+    assert sorted(mine[mine >= 0].tolist()) == np.nonzero(M)[0].tolist()
+
+
+@pytest.mark.parametrize("layout", ["triangle", "field"])
+def test_pack_cluster_tiles_matches(dragon, stacks, layout):
+    """Tile constants agree to f32 rounding (rtol 1e-6: XLA contracts the
+    cross products into FMAs, torch rounds each product); boxes exactly.
+    The stand-in's tail tip has zero-area triangles (two equal corners):
+    their exact-zero cross product gives NaN constants here, while XLA's
+    FMA leaves a rounding residue and finite constants. Either way such a
+    triangle has no interior to hit, so those rows are left out."""
+    V, T, P = (np.asarray(x) for x in (dragon.vertices, dragon.tris,
+                                       dragon.cluster_perm))
+    aabbs, tiles, got_layout = cs.pack_cluster_tiles(
+        _t(V), _t(T, torch.long), _t(P, torch.long), layout)
+    ja, jt = stacks[layout]
+    assert got_layout == layout and tuple(tiles.shape) == jt.shape
+    np.testing.assert_array_equal(aabbs.numpy(), ja)
+    tv = V[T[np.maximum(P, 0)]]
+    zero_area = ((tv[:, :, 0] == tv[:, :, 1]).all(-1)
+                 | (tv[:, :, 1] == tv[:, :, 2]).all(-1)
+                 | (tv[:, :, 2] == tv[:, :, 0]).all(-1)) & (P >= 0)
+    got, want = tiles.numpy(), jt
+    if layout == "field":
+        got, want = got.transpose(0, 2, 1), want.transpose(0, 2, 1)
+    assert 0 < zero_area.sum() < 0.05 * zero_area.size
+    keep = ~zero_area
+    np.testing.assert_allclose(got[keep], want[keep], rtol=1e-6, atol=1e-6)
+    assert np.isnan(got[zero_area]).all()
+
+
+def _setup(batch, stack, layout, sc_n):
+    o, d, tmax = (_t(x) for x in batch)
+    aabbs, tiles = (_t(x) for x in stack)
+    return cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, BR, sc_n)
+
+
+@pytest.mark.parametrize("which", ["primary", "bounce", "shadow"])
+def test_block_entry_keys_twin_matches_pallas(batches, stacks, which):
+    """K1's twin against _block_entry_keys(interpret=True) on the same
+    packed rays and supercluster boxes: equal keys (the same f32 ops in
+    the same order), +inf in the same places."""
+    rays, boxes, _, _ = _setup(batches[which], stacks["field"], "field", 4)
+    keys = cs.block_entry_keys(rays, boxes)
+    ref = np.asarray(_block_entry_keys(jnp.asarray(rays.numpy()),
+                                       jnp.asarray(boxes.numpy()),
+                                       interpret=True))
+    np.testing.assert_array_equal(keys.numpy(), ref)
+    assert np.isfinite(ref).any() and not np.isfinite(ref).all()
+
+
+# (batch, layout, clusters per visit, any-hit, shared origin): the walk's
+# modes (a) primary closest hit with a shared origin, (b) per-ray origins
+# with budgets and dead rays, (c) any-hit shadow rays, (d) field-major
+# tiles with 4 clusters per visit
+MODES = {
+    "a_shared_origin": ("primary", "triangle", 1, False, True),
+    "b_per_ray_origin": ("bounce", "triangle", 1, False, False),
+    "c_any_hit": ("shadow", "triangle", 1, True, False),
+    "d_field_sc4": ("bounce", "field", 4, False, False),
+    "d_field_sc4_primary": ("primary", "field", 4, False, True),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cluster_walk_twin_matches_pallas(dragon, batches, stacks, mode):
+    """The port's sweep (K1 twin, stable sort, K2 twin) against
+    pallas_cluster_tris(interpret=True): same hit mask, same perm-space ids,
+    the same per-block visit counts, and t to rtol 1e-5 / atol 2e-6: XLA
+    contracts o.n and the edge sums into FMAs where torch rounds each op,
+    and D - o.n cancels for hits close to a secondary ray's origin.
+    Both walks visit in the same order over the same constants, so exact-t
+    ties resolve alike and ids are compared everywhere."""
+    which, layout, sc_n, any_hit, shared = MODES[mode]
+    o, d, tmax = batches[which]
+    aabbs, tiles = stacks[layout]
+    got = cs.cluster_tris(_t(o), _t(d), _t(tmax), _t(aabbs), _t(tiles),
+                          layout, br=BR, sc_n=sc_n, any_hit=any_hit,
+                          shared_origin=shared)
+    ref = pallas_cluster_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(aabbs),
+        jnp.asarray(tiles), dragon.cluster_perm, br=BR, sc_n=sc_n,
+        any_hit=any_hit, shared_origin=shared, interpret=True,
+        with_stats=True, perm_ids=True)
+    ref = [np.asarray(x) for x in ref]
+    if any_hit:
+        hit, visits = got
+        np.testing.assert_array_equal(hit.numpy(), ref[0])
+        assert ref[0].any() and not ref[0].all()
+    else:
+        t, ids, visits = got
+        np.testing.assert_array_equal(np.isfinite(t.numpy()),
+                                      np.isfinite(ref[0]))
+        h = np.isfinite(ref[0])
+        assert h.any()
+        np.testing.assert_allclose(t.numpy()[h], ref[0][h], rtol=1e-5,
+                                   atol=2e-6)
+        np.testing.assert_array_equal(ids.numpy(), ref[1])
+    np.testing.assert_array_equal(visits.numpy(), ref[2])
+    if which != "primary":
+        # the dead third of each block is skipped; some blocks stop early
+        assert (visits.numpy() < (aabbs.shape[0] + sc_n - 1) // sc_n).any()
+
+
+def test_exit_bound_boundary_hit():
+    """test_bvh.py:198-226's case: a triangle on the union box's far face
+    is still hit (the exit bound is padded past slab rounding), and rays
+    that provably miss the box make no hits."""
+    V = np.float32([[-0.2, -0.2, 1.0], [0.2, -0.2, 1.0], [0.0, 0.25, 1.0],
+                    [-2.0, -2.0, 4.0], [2.0, -2.0, 4.0], [0.0, 2.5, 4.0]])
+    T = np.int64([[0, 1, 2], [3, 4, 5]])
+    perm = build_clusters(V, T, np.ones(2, bool))
+    aabbs, tiles, layout = cs.pack_cluster_tiles(_t(V), _t(T), _t(perm, torch.long))
+    o = _t(np.float32([[0, 0, 0], [1, 0, 0], [0, 0, 5], [10, 0, 0]]))
+    d = _t(np.float32([[0, 0, 1]] * 3 + [[0, 0, -1]]))
+    t, ids, _ = cs.cluster_tris(o, d, torch.full((4,), torch.inf), aabbs,
+                                tiles, layout, br=BR)
+    t = t.numpy()
+    np.testing.assert_allclose(t[0], 1.0, rtol=1e-6)
+    np.testing.assert_allclose(t[1], 4.0, rtol=1e-6)
+    assert not np.isfinite(t[2:]).any() and (ids.numpy()[2:] == -1).all()
+
+
+def test_cpu_wrappers_run_the_twins(batches, stacks):
+    """On CPU tensors the wrappers return the twins' results and launch
+    nothing."""
+    rays, boxes, tiles, sc_n = _setup(batches["bounce"], stacks["field"],
+                                      "field", 4)
+    before = dict(cs.LAUNCHES)
+    keys = cs.block_entry_keys(rays, boxes)
+    torch.testing.assert_close(keys, cs.block_entry_keys_plain(rays, boxes),
+                               rtol=0, atol=0)
+    skeys, order = torch.sort(keys, dim=-1, stable=True)
+    a = cs.cluster_walk(order.int(), skeys, rays, tiles, layout="field",
+                        sc_n=sc_n)
+    b = cs.cluster_walk_plain(order.int(), skeys, rays, tiles,
+                              layout="field", sc_n=sc_n)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert cs.LAUNCHES == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+def test_kernels_match_twins_on_card(batches, stacks, mode, cuda_device):
+    """K1 and K2 on the card against their twins on the same inputs on the
+    card: equal keys, ids, visit counts and t (the kernels are built with
+    --fmad=false, so both sides round alike)."""
+    which, layout, sc_n, any_hit, shared = MODES[mode]
+    rays, boxes, tiles, sc_n = _setup(batches[which], stacks[layout], layout,
+                                      sc_n)
+    rays, boxes, tiles = (x.to(cuda_device) for x in (rays, boxes, tiles))
+    n_keys = cs.LAUNCHES["keys"]
+    keys = cs.block_entry_keys(rays, boxes)
+    assert cs.LAUNCHES["keys"] == n_keys + 1
+    torch.testing.assert_close(keys, cs.block_entry_keys_plain(rays, boxes),
+                               rtol=0, atol=0)
+    skeys, order = torch.sort(keys, dim=-1, stable=True)
+    kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
+              shared_origin=shared)
+    got = cs.cluster_walk(order.int(), skeys, rays, tiles, **kw)
+    want = cs.cluster_walk_plain(order.int(), skeys, rays, tiles, **kw)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_inputs_on_card(stacks, batches, cuda_device):
+    rays, boxes, tiles, _ = _setup(batches["primary"], stacks["field"],
+                                   "field", 4)
+    with pytest.raises(ValueError):
+        cs.block_entry_keys(rays.to(cuda_device).double(),
+                            boxes.to(cuda_device))
+    with pytest.raises(ValueError):
+        cs.block_entry_keys(rays.to(cuda_device), boxes)   # wrong device
+
