@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `csrc/` are compiled at first use by `nvcc` into a shared
-library with a plain C interface, loaded with ctypes. The library lands in
+The sources under `csrc/` are compiled at first use by `nvcc`, one process
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes. The library lands in
 `build/cge_tpu_torch/` at the repository root, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 at once. Nothing here runs at import time: a machine without `nvcc` (the
@@ -18,10 +19,11 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_PKG, "csrc", "cluster_sweep.cu"),)
+SOURCES = tuple(os.path.join(_PKG, "csrc", name)
+                for name in ("cluster_sweep.cu", "sweep.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cge_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
@@ -33,6 +35,10 @@ _SIGNATURES = {
     # sc_n, C, field_major, any_hit, shared_origin, stream
     "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P),
+    # o, d, tmax, table, best_t, best_i, part_t, part_i, R, T, n_split,
+    # stream
+    "cge_closest_tris_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P),
 }
 
 
@@ -87,11 +93,26 @@ def library() -> KernelLibrary:
     t0 = time.perf_counter()
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        nvcc = _nvcc()
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [src for src, p in zip(SOURCES, procs) if p.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode:
+                failed = ["link"]
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         with open(log_path, "w") as f:
             f.write(log)
         os.replace(tmp, path)    # atomic: concurrent builds agree

@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from cge_tpu_torch.camera import Camera
+from cge_tpu_torch.diff.gradients import DIFF_FIELDS
 from cge_tpu_torch.scene.scene import TENSOR_FIELDS, scene_from_numpy
 
 
@@ -24,4 +27,15 @@ def camera_from_numpy(fovy, distance, look_at, rotation,
                   aspect=float(np.asarray(aspect)))
 
 
-__all__ = ["TENSOR_FIELDS", "camera_from_numpy", "scene_from_numpy"]
+def params_from_numpy(params: dict, device="cpu") -> dict:
+    """The JAX package's `scene_params` (numpy leaves) -> the port's
+    differentiable leaves, f32 tensors on `device`, for `with_params`."""
+    missing = [k for k in DIFF_FIELDS if k not in params]
+    if missing:
+        raise KeyError(f"differentiable leaves missing: {missing}")
+    return {k: torch.from_numpy(np.asarray(params[k], np.float32).copy())
+            .to(device) for k in DIFF_FIELDS}
+
+
+__all__ = ["DIFF_FIELDS", "TENSOR_FIELDS", "camera_from_numpy",
+           "params_from_numpy", "scene_from_numpy"]

@@ -11,6 +11,11 @@ ray batch through a bounded loop of levels. Each level is one closest-hit
 sweep, one gather of the packed attribute rows, Phong shading with one
 any-hit shadow sweep per point light, and the mirror child ray. A level
 whose rays are all dead is skipped, at the cost of one device sync.
+
+The trace is differentiable: hit selection (the accel, the brute-force
+table, both sweeps) runs under no_grad as a discrete oracle, and every
+continuous quantity is recomputed from the ids with autograd, so gradients
+flow scene -> attribute rows -> radiance.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ import torch
 
 from cge_tpu_torch.ops.interpolate import barycentric_coord, interpolate_normal
 from cge_tpu_torch.ops.intersect import (Accel, HitIds, build_accel,
-                                         closest_hit, triangle_plane)
+                                         closest_hit, triangle_plane,
+                                         uses_cluster_sweep)
+from cge_tpu_torch.ops.sweep import pack_tri_table
 from cge_tpu_torch.ops.shading import _normalize, compute_reflection_ray
 from cge_tpu_torch.render.lights import light_contribution
 from cge_tpu_torch.types import check_supported
@@ -51,6 +58,14 @@ class HitAttrs:
 _ATTR_W = 40
 
 
+def _take(x, idx):
+    """x[idx] along dim 0 as index_select: its backward scatters with an
+    atomic index_add_, where advanced indexing's backward accumulates
+    repeated indices serially (every miss gathers row 0, every triangle
+    one of a few materials)."""
+    return x.index_select(0, idx)
+
+
 def pack_attr_table(scene, tri_ids=None):
     """Per-triangle attribute rows [T, 40]. tri_ids: optional triangle ids
     giving the row order (the cluster permutation's flat slots, -1 pads
@@ -59,13 +74,15 @@ def pack_attr_table(scene, tri_ids=None):
     if tri_ids is not None:
         safe = tri_ids.reshape(-1).clamp_min(0)
         T, mid = T[safe], mid[safe]
-    V, Nr, UV = scene.vertices, scene.normals, scene.uvs
-    rows = torch.cat([V[T[:, 0]], V[T[:, 1]], V[T[:, 2]],
-                      Nr[T[:, 0]], Nr[T[:, 1]], Nr[T[:, 2]],
-                      scene.mat_kd[mid], scene.mat_ks[mid],
-                      scene.mat_shininess[mid][:, None],
-                      scene.mat_transparency[mid][:, None],
-                      UV[T[:, 0]], UV[T[:, 1]], UV[T[:, 2]],
+
+    def corners(x):
+        return [_take(x, T[:, k]) for k in range(3)]
+
+    rows = torch.cat([*corners(scene.vertices), *corners(scene.normals),
+                      _take(scene.mat_kd, mid), _take(scene.mat_ks, mid),
+                      _take(scene.mat_shininess, mid)[:, None],
+                      _take(scene.mat_transparency, mid)[:, None],
+                      *corners(scene.uvs),
                       scene.mat_tex[mid][:, None].float()], dim=1)
     return torch.nn.functional.pad(rows, (0, _ATTR_W - rows.shape[1]))
 
@@ -74,7 +91,8 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
                    attr_rows) -> HitAttrs:
     """Gather and recompute hit attributes from discrete hit ids.
 
-    `ids.prim` is a perm-space triangle slot or a sphere index, so each
+    `ids.prim` is a triangle id in attr_rows' order (perm-space with the
+    accel, scene order without) or a sphere index, so each
     gather clamps its index into its own table: a triangle slot can exceed
     the sphere table and a sphere index is meaningless in the row table.
     Clamping is what the JAX package's gathers do implicitly; the
@@ -82,7 +100,7 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     if features.enable_texture_mapping:
         raise NotImplementedError("texture mapping: see ROADMAP 1.1")
     prim, is_sphere, hit = ids.prim, ids.is_sphere, ids.hit
-    row = attr_rows[prim.clamp(0, attr_rows.shape[0] - 1)]       # [N, 40]
+    row = _take(attr_rows, prim.clamp(0, attr_rows.shape[0] - 1))  # [N, 40]
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n_geo, D = triangle_plane(v0, v1, v2)
     denom = _dot(d, n_geo)
@@ -90,8 +108,8 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     t_tri = (D - _dot(o, n_geo)) / denom
 
     sp = prim.clamp(0, scene.sph_center.shape[0] - 1)
-    ctr = scene.sph_center[sp]
-    rad = scene.sph_radius[sp]
+    ctr = _take(scene.sph_center, sp)
+    rad = _take(scene.sph_radius, sp)
     oc = o - ctr
     b = 2.0 * _dot(d, oc)
     c = _dot(oc, oc) - rad * rad
@@ -118,28 +136,30 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
 
     smid = scene.sph_mat[sp]
     s1 = is_sphere[:, None]
-    kd = torch.where(s1, scene.mat_kd[smid], row[:, 18:21])
-    ks = torch.where(s1, scene.mat_ks[smid], row[:, 21:24])
-    shininess = torch.where(is_sphere, scene.mat_shininess[smid], row[:, 24])
-    transparency = torch.where(is_sphere, scene.mat_transparency[smid],
+    kd = torch.where(s1, _take(scene.mat_kd, smid), row[:, 18:21])
+    ks = torch.where(s1, _take(scene.mat_ks, smid), row[:, 21:24])
+    shininess = torch.where(is_sphere, _take(scene.mat_shininess, smid),
+                            row[:, 24])
+    transparency = torch.where(is_sphere,
+                               _take(scene.mat_transparency, smid),
                                row[:, 25])
     return HitAttrs(hit=hit, t=t, normal=normal, kd=kd, ks=ks,
                     shininess=shininess, transparency=transparency)
 
 
 def _intersect_and_shade(scene, o, d, features, params, alive, accel,
-                         shared_origin: bool, tables, ray_ids=None):
+                         tri_table, shared_origin: bool, tables, ray_ids=None):
     """One bounce: closest hit, attributes, local radiance. Dead rays get
     tmax = -1, which the sweep treats as an unconditional miss."""
     tmax = torch.where(alive, torch.inf, -1.0)
-    ids = closest_hit(scene, o, d, tmax, accel,
+    ids = closest_hit(scene, o, d, tmax, accel, tri_table=tri_table,
                       shared_origin=shared_origin and params.sweep_shared_origin,
                       br=params.sweep_br, sc_n=params.sweep_sc_n)
     attrs = hit_attributes(scene, o, d, ids, features, tables)
     local = light_contribution(scene, o, d, attrs.t, attrs.normal, attrs.kd,
                                attrs.ks, attrs.shininess, features, params,
                                alive=alive & attrs.hit, accel=accel,
-                               ray_ids=ray_ids)
+                               tri_table=tri_table, ray_ids=ray_ids)
     return attrs, torch.where(attrs.hit[:, None], local, 0.0)
 
 
@@ -185,10 +205,11 @@ def _unroll_depth(scene, params, features) -> int:
     return 1
 
 
-def trace_chain(scene, o, d, features, params, accel: Accel, tables,
-                shared_origin: bool = False, ray_ids=None):
+def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
+                tri_table=None, shared_origin: bool = False, ray_ids=None):
     """Linear-chain trace over levels: [N, 3] radiance. Level 0 takes the
-    shared-origin fast path when the caller promises one origin."""
+    shared-origin fast path when the caller promises one origin. accel /
+    tri_table: what hit selection sweeps (ops.intersect.closest_hit)."""
     N = o.shape[0]
     acc = torch.zeros((N, 3), dtype=torch.float32, device=o.device)
     W = torch.ones(N, dtype=torch.float32, device=o.device)
@@ -197,7 +218,7 @@ def trace_chain(scene, o, d, features, params, accel: Accel, tables,
         if level > 0 and not bool(alive.any()):     # dead-level skip
             break
         attrs, local = _intersect_and_shade(
-            scene, o, d, features, params, alive, accel,
+            scene, o, d, features, params, alive, accel, tri_table,
             shared_origin=shared_origin and level == 0, tables=tables,
             ray_ids=ray_ids)
         live_hit = alive & attrs.hit
@@ -212,16 +233,43 @@ def trace_chain(scene, o, d, features, params, accel: Accel, tables,
     return acc
 
 
-@torch.no_grad()
+def scene_accel(scene, features) -> Accel | None:
+    """The cluster accel, built only when the features ask for it and the
+    scene has clusters; None sends hit selection to the brute-force sweep."""
+    if features.enable_accel_structure and scene.cluster_perm is not None:
+        return build_accel(scene)
+    return None
+
+
+def scene_tables(scene, accel: Accel | None):
+    """Attribute rows in the id space closest_hit reports for this accel:
+    perm-ordered for the cluster sweep, scene-ordered otherwise (the
+    intersect.uses_cluster_sweep predicate)."""
+    return pack_attr_table(
+        scene, tri_ids=accel.perm if uses_cluster_sweep(accel) else None)
+
+
+def scene_tri_table(scene, accel: Accel | None):
+    """K3's packed triangle table when there is no accel, else None."""
+    if uses_cluster_sweep(accel):
+        return None
+    return pack_tri_table(scene.vertices, scene.tris, scene.tri_mask)
+
+
 def trace(scene, o, d, features, params, accel: Accel | None = None,
-          tables=None, shared_origin: bool = False, ray_ids=None):
+          tables=None, tri_table=None, shared_origin: bool = False,
+          ray_ids=None):
     """Dispatch to the trace shape for the feature set; only the chain is
-    ported. accel / tables: prebuilt by renderer.prepare_render, or built
-    here."""
+    ported. accel / tables / tri_table: prebuilt by
+    renderer.prepare_render, or built here. Differentiable callers pass
+    none of them, so the attribute rows are built inside the graph."""
     check_supported(features, params)
     if accel is None:
-        accel = build_accel(scene)
+        accel = scene_accel(scene, features)
     if tables is None:
-        tables = pack_attr_table(scene, tri_ids=accel.perm)
+        tables = scene_tables(scene, accel)
+    if tri_table is None:
+        tri_table = scene_tri_table(scene, accel)
     return trace_chain(scene, o, d, features, params, accel, tables,
-                       shared_origin=shared_origin, ray_ids=ray_ids)
+                       tri_table=tri_table, shared_origin=shared_origin,
+                       ray_ids=ray_ids)

@@ -99,10 +99,6 @@ def check_supported(features: Features, params: RenderParams) -> None:
     if features.enable_transparency and features.enable_recursive:
         raise NotImplementedError(
             "transparency + recursive (TRANS+REC tree): see ROADMAP 1.5")
-    if not features.enable_accel_structure:
-        raise NotImplementedError(
-            "enable_accel_structure=False takes the brute-force sweep (K3), "
-            "not ported yet: see ROADMAP section 2")
     if params.prims_axis is not None:
         raise NotImplementedError("prims_axis: multi-device, ROADMAP 1.8")
     if params.sweep_sort_bounce or params.sweep_sort_shadow:

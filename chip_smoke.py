@@ -19,10 +19,20 @@ exits non-zero if any phase fails:
   4. correctness: the dragon at 256x256 against the compiled reference's
      golden image (tests/golden/images/dragon_scale_256.raw), and a small
      scene rendered with the kernels on the card against the twins on the
-     CPU.
+     CPU;
+  5. the brute-force sweep (K3) against its twin on the card, on the
+     15,360-triangle stand-in (teapot size): primary rays, a bounce-like
+     batch with a dead third and forward shadow rays, with both times;
+  6. the second path: the accel-off 512x512 render of that scene through
+     render_image_u8 (K3 only, no K1 or K2 launch), its median frame time
+     and peak memory, held against the accel-on render of the same scene;
+  7. the third path: the differentiable train step (loss_and_grads and
+     sgd_step) over 128x128 camera rays of that scene, its ms per step, and
+     the same step on the card against the CPU twins for the small scene.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+Each path is driven with the launch counters set to 0 just before it and
+read just after. The line before the last is a JSON object with one entry
+per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,6 +55,13 @@ HEADLINE = dict(enable_shading=True, enable_hard_shadow=True,
                 enable_accel_structure=True)
 GOLDEN_FEATURES = dict(enable_shading=True, enable_hard_shadow=True,
                        enable_normal_interp=True, enable_accel_structure=True)
+# the default accel-off feature set of the second and third paths
+BRUTE = {k: v for k, v in HEADLINE.items() if k != "enable_accel_structure"}
+# the stand-in at teapot size: 2 * 40 * 192 = 15,360 triangles (the
+# reference teapot has 15,704, bench.py:6)
+TEAPOT_GRID = (41, 192)
+TRAIN_SIDE = 128
+TRAIN_LR = 2.0
 LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
 SEED = 0
 
@@ -221,6 +238,252 @@ def small_scene_check(device, tmp):
     return nan_agree, frac
 
 
+# ---------------------------------------------------------------------------
+# phases 5-7: K3, the accel-off render, the train step
+# ---------------------------------------------------------------------------
+
+def brute_batches(scene, ctx, device):
+    """16,384-ray batches of the accel-off path: primary rays, a
+    bounce-like batch (scattered directions, a dead third) and forward
+    shadow rays from the hits to the light."""
+    import numpy as np
+    import torch
+
+    from cge_tpu_torch.camera import Camera, pixel_grid
+    from cge_tpu_torch.ops import sweep
+    from cge_tpu_torch.render.renderer import _swizzle_rows
+
+    n = MAIN_PARAMS["trace_chunk"]
+    grid = _swizzle_rows(pixel_grid(W, H, device).reshape(-1, 2), W, H)
+    mid = (W * H // n // 2) * n
+    o, d = Camera().generate_rays(grid[mid:mid + n])
+    inf = torch.full((n,), torch.inf, device=device)
+    t, i = sweep.closest_tris_plain(o, d, inf, ctx.tri_table)
+    hit = i >= 0
+    p = (o + torch.where(hit, t - 1e-3, 0.0)[:, None] * d).contiguous()
+    rng = np.random.default_rng(SEED)
+    sd = rng.normal(size=(n, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    dead = torch.from_numpy(np.arange(n) % 3 == 0).to(device)
+    light = torch.tensor(LIGHT[0], device=device).expand(n, 3)
+    return {
+        "a_primary": (o.contiguous(), d.contiguous(), inf),
+        "b_bounce": (p, torch.from_numpy(sd).to(device),
+                     torch.where(hit & ~dead, torch.inf, -1.0)),
+        "c_shadow": (p, (light - p).contiguous(),
+                     torch.where(hit, 1.0, -1.0)),
+    }
+
+
+def check_sweep(scene, ctx, device):
+    """K3 against its twin on the same inputs on the card: ids and hit
+    flags equal, t within 1e-6 relative (both round alike: --fmad=false
+    and the same operation order, so the expected error is 0)."""
+    import torch
+
+    from cge_tpu_torch.ops import sweep
+
+    report = {"err": 0.0}
+    table = ctx.tri_table
+    for name, (o, d, tmax) in brute_batches(scene, ctx, device).items():
+        bt, bi = sweep.closest_tris(o, d, tmax, table)
+        bt_p, bi_p = sweep.closest_tris_plain(o, d, tmax, table)
+        if not torch.equal(bi, bi_p):
+            raise AssertionError(
+                f"{name}: K3 ids differ on {int((bi != bi_p).sum())} rays")
+        hit = bi_p >= 0
+        if not torch.equal(torch.isfinite(bt), hit):
+            raise AssertionError(f"{name}: K3 hit flags differ")
+        err = float((bt - bt_p)[hit].abs().max()) if hit.any() else 0.0
+        if hit.any() and err > 1e-6 * max(1.0, float(bt_p[hit].abs().max())):
+            raise AssertionError(f"{name}: K3 t differs by {err}")
+        report["err"] = max(report["err"], err)
+        ms = cuda_ms(lambda: sweep.closest_tris(o, d, tmax, table), reps=10)
+        plain = cuda_ms(lambda: sweep.closest_tris_plain(o, d, tmax, table),
+                        reps=2)
+        log(f"  {name}: rays {o.shape[0]} triangles {table.shape[0]} live "
+            f"{int((tmax >= 0).sum())} hits {int(hit.sum())} splits "
+            f"{sweep.split_count(table.shape[0])} | err {err:.3g} | "
+            f"ms K3 {ms:.4f} (twin {plain:.3f})")
+        if name == "a_primary":
+            report.update(ms=ms, plain_ms=plain)
+    return report
+
+
+def reset_launches():
+    from cge_tpu_torch.ops import cluster_sweep, sweep
+
+    for counts in (cluster_sweep.LAUNCHES, sweep.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from cge_tpu_torch.ops import cluster_sweep, sweep
+
+    return {**cluster_sweep.LAUNCHES, **sweep.LAUNCHES}
+
+
+def compare_images(a, b):
+    """(NaN-mask agreement, fraction of pixels close) under the image
+    rules: rtol 1e-4, atol 2e-4 where both are finite."""
+    import numpy as np
+
+    nan_agree = float((np.isnan(a) == np.isnan(b)).mean())
+    both = np.isfinite(a) & np.isfinite(b)
+    frac = float((np.isclose(a, b, rtol=1e-4, atol=2e-4)
+                  | ~both).all(axis=-1).mean())
+    return nan_agree, frac
+
+
+def brute_path(scene, ctx, device):
+    """The accel-off 512x512 frame: launches, median of 5 frames, peak
+    memory; then its image against the accel-on render of the scene."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+
+    feats = ct.Features(**BRUTE)
+    params = ct.RenderParams()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = ct.render_image_u8(scene, ct.Camera(), feats, params, W, H, ctx=ctx)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if img.shape != (H, W, 3) or img.dtype != torch.uint8:
+        raise AssertionError(f"image {tuple(img.shape)} {img.dtype}")
+    lit = float((img.float().sum(-1) > 0).float().mean())
+    if lit < 0.05:
+        raise AssertionError(f"accel-off image is blank: {lit:.4f} lit")
+    if launches["sweep"] <= 0:
+        raise AssertionError("the accel-off path never launched K3")
+    if launches["keys"] or launches["walk"]:
+        raise AssertionError(f"the accel-off path launched K1/K2: {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    frames = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ct.render_image_u8(scene, ct.Camera(), feats, params, W, H, ctx=ctx)
+        end.record()
+        torch.cuda.synchronize()
+        frames.append(start.elapsed_time(end))
+    ms = float(np.median(frames))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[6] accel-off 512x512 ({int(scene.tri_mask.sum())} triangles): "
+        f"launches {launches}, lit {lit:.3f}, first frame {first_s:.2f} s, "
+        f"frames ms {[round(x, 2) for x in frames]}, median {ms:.2f} ms, "
+        f"{W * H * 2 / ms / 1e3:.3f} Mrays/s, peak memory {peak:.0f} MiB")
+    off = ct.render_image(scene, ct.Camera(), feats, params, W, H,
+                          ctx=ctx).cpu().numpy()
+    on = ct.render_image(scene, ct.Camera(), ct.Features(**HEADLINE),
+                         params, W, H).cpu().numpy()
+    nan_agree, frac = compare_images(off, on)
+    log(f"    accel off vs on (same scene, card): NaN agree "
+        f"{nan_agree:.5f}, {frac:.4%} pixels close")
+    if nan_agree < 0.999 or frac < 0.995:
+        raise AssertionError("accel-off and accel-on renders disagree")
+    return launches
+
+
+def camera_rays(side: int, device):
+    import cge_tpu_torch as ct
+
+    return ct.Camera().generate_rays(
+        ct.camera.pixel_grid(side, side, device).reshape(-1, 2))
+
+
+def train_path(scene, device):
+    """loss_and_grads + sgd_step over TRAIN_SIDE^2 camera rays against a
+    target rendered from perturbed mat_kd and point_pos, stepping those two
+    leaves back (inverse rendering): launches, ms per step (median of 5),
+    finite gradients, and a loss that falls."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.render.wavefront import trace
+
+    feats, params = ct.Features(**BRUTE), ct.RenderParams()
+    o, d = camera_rays(TRAIN_SIDE, device)
+    leaves = ct.scene_params(scene)
+    perturbed = ct.with_params(scene, {
+        **leaves, "mat_kd": leaves["mat_kd"] * 0.8,
+        "point_pos": leaves["point_pos"] + 0.1})
+    with torch.no_grad():
+        target = torch.nan_to_num(trace(perturbed, o, d, feats, params))
+    def step(s):
+        loss, grads = ct.loss_and_grads(s, o, d, target, feats, params)
+        return loss, grads, ct.sgd_step(s, {
+            k: g if k in ("mat_kd", "point_pos") else torch.zeros_like(g)
+            for k, g in grads.items()}, TRAIN_LR)
+
+    reset_launches()
+    loss, grads, s = step(scene)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["sweep"] <= 0 or launches["keys"] or launches["walk"]:
+        raise AssertionError(f"train step launches {launches}")
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite loss or gradients: {bad}")
+    losses, steps = [float(loss)], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, grads, s = step(s)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    ms = float(np.median(steps))
+    log(f"[7] train step, {TRAIN_SIDE}x{TRAIN_SIDE} rays, "
+        f"{int(scene.tri_mask.sum())} triangles: launches {launches}, "
+        f"ms per step {[round(x, 2) for x in steps]}, median {ms:.2f} ms; "
+        f"losses {[f'{x:.6g}' for x in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("the train steps did not lower the loss")
+    return ms
+
+
+def small_train_check(device, tmp):
+    """The same step on the card and on the CPU twins for the 41x32
+    stand-in at 64x64 rays: loss to 1e-3 relative, each gradient within
+    1e-2 of its norm (the card sums in another order, with atomics in the
+    gathers' backward, and a ray that grazes an edge may land on either
+    side)."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+
+    path = os.path.join(tmp, "dragon_small.obj")
+    if not os.path.exists(path):
+        from tools.make_large_asset import write_obj
+        write_obj(path, 41, 32)
+    feats, params = ct.Features(**BRUTE), ct.RenderParams()
+    rng = np.random.default_rng(SEED)
+    target = torch.from_numpy(
+        rng.uniform(0.0, 0.5, (64 * 64, 3)).astype(np.float32))
+    o, d = camera_rays(64, "cpu")      # both sides trace the same rays
+    out = []
+    for dev in (device, torch.device("cpu")):
+        s = ct.load_scene_from_file(path, [ct.PointLight(*LIGHT)],
+                                    device=dev)
+        loss, g = ct.loss_and_grads(s, o.to(dev), d.to(dev), target.to(dev),
+                                    feats, params)
+        out.append((float(loss), {k: v.cpu() for k, v in g.items()}))
+    (gl, gg), (cl, cg) = out
+    rel = {k: float((gg[k] - cg[k]).norm() / cg[k].norm())
+           for k in cg if float(cg[k].norm()) > 0}
+    worst = max(rel, key=rel.get)
+    log(f"    small train step, card vs CPU twins: loss {gl:.8g} vs "
+        f"{cl:.8g}, worst gradient {worst} at {rel[worst]:.3g} of its norm")
+    if abs(gl - cl) > 1e-3 * abs(cl) or rel[worst] > 1e-2:
+        raise AssertionError("card and CPU train steps disagree")
+
+
 def main() -> int:
     try:
         import torch
@@ -287,23 +550,24 @@ def main() -> int:
         report = check_kernels(scene, ctx, device, timing=True)
 
         # phase 3: the main path
-        for k in cs.LAUNCHES:
-            cs.LAUNCHES[k] = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         img = ct.render_image_u8(scene, ct.Camera(), feats, params, W, H,
                                  ctx=ctx)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = dict(cs.LAUNCHES)
+        launches = read_launches()
         if img.shape != (H, W, 3) or img.dtype != torch.uint8:
             raise AssertionError(f"image {tuple(img.shape)} {img.dtype}")
         lit = float((img.float().sum(-1) > 0).float().mean())
         if lit < 0.05:
             raise AssertionError(f"image is blank: {lit:.4f} lit pixels")
-        for k, v in launches.items():
-            if v <= 0:
+        for k in cs.LAUNCHES:
+            if launches[k] <= 0:
                 raise AssertionError(f"main path never launched kernel {k}")
+        if launches["sweep"]:
+            raise AssertionError("the accel path launched K3")
         frames = []
         for _ in range(5):
             start = torch.cuda.Event(enable_timing=True)
@@ -337,6 +601,22 @@ def main() -> int:
         if nan_agree < 0.999 or frac < 0.995:
             raise AssertionError("card and CPU renders disagree")
 
+        # phase 5: K3 vs its twin on the teapot-size stand-in
+        tobj = os.path.join(tmp, "dragon_teapot.obj")
+        write_obj(tobj, *TEAPOT_GRID)
+        tscene = ct.load_scene_from_file(tobj, [ct.PointLight(*LIGHT)],
+                                         device=device)
+        tctx = ct.prepare_render(tscene, ct.Features(**BRUTE),
+                                 ct.RenderParams())
+        log(f"[5] K3 vs twin ({int(tscene.tri_mask.sum())} triangles, "
+            f"table {tuple(tctx.tri_table.shape)})")
+        report["sweep"] = check_sweep(tscene, tctx, device)
+
+        # phases 6 and 7: the accel-off render and the train step
+        brute_launches = brute_path(tscene, tctx, device)
+        train_path(tscene, device)
+        small_train_check(device, tmp)
+
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     kernels = [
         dict(name="block_entry_keys", route="cuda", source=src,
@@ -347,6 +627,12 @@ def main() -> int:
              replaces="cge_tpu/ops/pallas/cluster_sweep.py:309",
              launches=launches["walk"], max_abs_err=report["walk"]["err"],
              ms=report["walk"]["ms"], plain_ms=report["walk"]["plain_ms"]),
+        dict(name="closest_tris_sweep", route="cuda",
+             source="cge_tpu_torch/csrc/sweep.cu",
+             replaces="cge_tpu/ops/pallas/sweep.py:65",
+             launches=brute_launches["sweep"],
+             max_abs_err=report["sweep"]["err"], ms=report["sweep"]["ms"],
+             plain_ms=report["sweep"]["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The port's hit queries and renders against the JAX package.
 
 The JAX side runs its cluster path in interpret mode
-(`intersect.FORCE_CLUSTER_INTERPRET`, as its own tests do); the port runs
-its kernels' plain twins on the CPU. Scenes are built once by JAX and
+(`intersect.FORCE_CLUSTER_INTERPRET`, as its own tests do) and, with the
+accel off, its brute-force XLA sweep; the port runs its kernels' plain
+twins on the CPU. Scenes are built once by JAX and
 carried across with `interop.scene_from_numpy`, so both trace the same
 cluster permutation. Fixtures need nothing outside the repository: the
 41x32 dragon stand-in (tools/make_large_asset.py), the same dragon with
@@ -28,7 +29,7 @@ from cge_tpu.scene.mesh_io import Material, load_mesh
 from cge_tpu.scene.scene import PointLight as JPointLight
 from cge_tpu.scene.scene import SphereDef, build_scene_arrays
 from cge_tpu_torch.interop import TENSOR_FIELDS, scene_from_numpy
-from cge_tpu_torch.ops import intersect
+from cge_tpu_torch.ops import cluster_sweep, intersect, sweep
 from cge_tpu_torch.render import wavefront
 from tools.make_large_asset import write_obj
 
@@ -292,15 +293,107 @@ def _golden(name):
     ("spheres_shadow", dict(enable_shading=True, enable_hard_shadow=True),
      0.99)])
 def test_spheres_goldens(name, features, min_frac):
-    """The compiled reference's Spheres images (no triangles: the accel is
-    one empty cluster that no block ever visits)."""
+    """The compiled reference's Spheres images with the feature sets they
+    were made with (test_golden_images.py:45-46, accel off): the
+    brute-force sweep over the scene's 8 masked pad rows, then the
+    spheres."""
     ref = _golden(name)
     h, w = ref.shape[:2]
     scene = ct.load_scene_prebuilt(ct.SceneType.Spheres)
+    before = sweep.LAUNCHES["sweep"]
     img = ct.render_image(scene, ct.Camera(aspect=w / h),
-                          ct.Features(enable_accel_structure=True, **features),
-                          ct.RenderParams(), w, h)
+                          ct.Features(**features), ct.RenderParams(), w, h)
+    assert sweep.LAUNCHES["sweep"] == before      # CPU: the twin ran
     _compare(img.numpy(), ref, min_frac)
+
+
+# accel-off feature sets: the defaults' brute-force sweep (K3)
+BRUTE = {k: v for k, v in HEADLINE.items() if k != "enable_accel_structure"}
+
+
+@pytest.mark.parametrize("which", ["dragon", "mixed"])
+def test_closest_hit_without_accel_matches_jax(scenes, which):
+    """The brute-force branch (K3's twin, scene-order ids) against JAX's
+    brute closest hit (jint.closest_hit(use_pallas=False)): primary rays
+    and scattered rays from the hit points, a third dead. Hits, sphere
+    flags and ids are equal; t to rtol 1e-5 / atol 2e-6 (JAX's brute path
+    computes o.n and d.n as HIGHEST-precision matmuls)."""
+    js, ps = scenes[which]
+    o, d = _primary()
+    n = o.shape[0]
+    inf = torch.full((n,), torch.inf)
+    first = intersect.closest_hit(ps, o, d, inf)
+    p = o + torch.where(first.hit, first.t - 1e-3, 0.0)[:, None] * d
+    rng = np.random.default_rng(11)
+    sd = rng.normal(size=(n, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
+    tm = torch.where(torch.arange(n) % 3 == 0, -1.0, torch.inf)
+    for oo, dd, tt in ((o, d, inf), (p, torch.from_numpy(sd), tm)):
+        got = intersect.closest_hit(ps, oo, dd, tt)
+        ref = jint.closest_hit(js, jnp.asarray(oo.numpy()),
+                               jnp.asarray(dd.numpy()),
+                               jnp.asarray(tt.numpy()), use_pallas=False)
+        np.testing.assert_array_equal(got.hit.numpy(), np.asarray(ref.hit))
+        np.testing.assert_array_equal(got.is_sphere.numpy(),
+                                      np.asarray(ref.is_sphere))
+        np.testing.assert_array_equal(got.prim.numpy(), np.asarray(ref.prim))
+        h = got.hit.numpy()
+        np.testing.assert_allclose(got.t.numpy()[h], np.asarray(ref.t)[h],
+                                   rtol=1e-5, atol=2e-6)
+    if which == "mixed":
+        assert first.is_sphere.any() and (first.hit & ~first.is_sphere).any()
+
+
+def test_shadow_rays_without_accel_match_jax(scenes):
+    """Forward shadow rays from the hit points to the light, with no accel:
+    the closest-hit fallback of both packages gives the same blocked set."""
+    js, ps = scenes["mixed"]
+    o, d = _primary()
+    ids = intersect.closest_hit(ps, o, d, torch.full((o.shape[0],),
+                                                     torch.inf))
+    p = o + torch.where(ids.hit, ids.t - 1e-3, 0.0)[:, None] * d
+    light = torch.tensor(LIGHT[0]).expand_as(p)
+    tm = torch.where(ids.hit, 1.0, -1.0)
+    got = intersect.any_hit_occlusion(ps, p, light - p, tm)
+    ref = jint.any_hit_occlusion(js, jnp.asarray(p.numpy()),
+                                 jnp.asarray((light - p).numpy()),
+                                 jnp.asarray(tm.numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.any() and not got[ids.hit].all()
+
+
+@pytest.mark.parametrize("which,w,h", [
+    ("dragon", RES, RES), ("mixed", RES, RES), ("dragon", 40, 36)])
+def test_render_without_accel_matches_jax(scenes, which, w, h):
+    """The default accel-off render (K3's twin for closest hits and
+    shadows, scene-ordered attribute rows) against JAX render_image with
+    the accel off, under the image rules; 40x36 takes the gather swizzle
+    and a padded last chunk."""
+    js, ps = scenes[which]
+    params = dict(trace_chunk=1024)
+    ref = np.asarray(cge_tpu.render_image(
+        js, cge_tpu.Camera(), cge_tpu.Features(**BRUTE),
+        cge_tpu.RenderParams(**params), w, h))
+    ctx = ct.prepare_render(ps, ct.Features(**BRUTE), ct.RenderParams())
+    assert ctx.accel is None and ctx.tri_table.shape == (ps.tris.shape[0], 16)
+    assert ctx.tables.shape[0] == ps.tris.shape[0]
+    img = ct.render_image(ps, ct.Camera(), ct.Features(**BRUTE),
+                          ct.RenderParams(**params), w, h, ctx=ctx)
+    assert img.shape == (h, w, 3) and not img.requires_grad
+    assert np.nanmax(ref) > 0.05
+    _compare(img.numpy(), ref)
+
+
+@pytest.mark.parametrize("which", ["dragon", "mixed"])
+def test_accel_on_and_off_render_alike(scenes, which, interpret):
+    """The same scene with the accel on (cluster sweep, perm-ordered rows)
+    and off (brute sweep, scene-ordered rows): the same image under the
+    image rules. Shading with rows of the other id space would not be."""
+    _, ps = scenes[which]
+    p = ct.RenderParams(trace_chunk=1024)
+    on = ct.render_image(ps, ct.Camera(), ct.Features(**HEADLINE), p, 48, 32)
+    off = ct.render_image(ps, ct.Camera(), ct.Features(**BRUTE), p, 48, 32)
+    _compare(off.numpy(), on.numpy())
 
 
 @pytest.mark.cuda
@@ -315,5 +408,24 @@ def test_render_on_card_matches_cpu(scenes):
         all_opaque=ps.all_opaque, all_diffuse=ps.all_diffuse, device="cuda")
     f, p = ct.Features(**HEADLINE), ct.RenderParams(trace_chunk=1024)
     a = ct.render_image(gpu, ct.Camera(), f, p, RES, RES).cpu().numpy()
+    b = ct.render_image(ps, ct.Camera(), f, p, RES, RES).numpy()
+    _compare(a, b)
+
+
+@pytest.mark.cuda
+def test_render_without_accel_on_card_matches_cpu(scenes):
+    """The accel-off render on the card runs K3 (and neither cluster
+    kernel) and matches the twin's render on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    _, ps = scenes["mixed"]
+    gpu = scene_from_numpy(
+        {k: getattr(ps, k).numpy() for k in TENSOR_FIELDS},
+        all_opaque=ps.all_opaque, all_diffuse=ps.all_diffuse, device="cuda")
+    f, p = ct.Features(**BRUTE), ct.RenderParams(trace_chunk=1024)
+    before = (sweep.LAUNCHES["sweep"], dict(cluster_sweep.LAUNCHES))
+    a = ct.render_image(gpu, ct.Camera(), f, p, RES, RES).cpu().numpy()
+    assert sweep.LAUNCHES["sweep"] > before[0]
+    assert cluster_sweep.LAUNCHES == before[1]
     b = ct.render_image(ps, ct.Camera(), f, p, RES, RES).numpy()
     _compare(a, b)

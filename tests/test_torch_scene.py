@@ -205,7 +205,10 @@ def test_port_never_imports_jax():
     jax, no cge_tpu. (A sys.modules check cannot work here: the
     interpreter's startup already imports jax.)"""
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 18
+    names = {f.relative_to(PKG.parent).as_posix() for f in files}
+    assert {"cge_tpu_torch/ops/sweep.py", "cge_tpu_torch/diff/gradients.py",
+            "cge_tpu_torch/diff/__init__.py"} <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "cge_tpu")]
     assert bad == []
@@ -224,7 +227,9 @@ def test_unported_features_raise(flag):
 
 
 @pytest.mark.parametrize("change", [
-    dict(features=dict(enable_accel_structure=False)),
+    # transparency shadows (the closest blocker's transparency)
+    dict(features=dict(enable_recursive=False, enable_transparency=True,
+                       enable_hard_shadow=True)),
     dict(features=dict(enable_transparency=True)),
     dict(params=dict(sweep_exact_keys=False)),
     dict(params=dict(prims_axis="prims")),
