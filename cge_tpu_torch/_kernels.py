@@ -20,7 +20,8 @@ import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name)
-                for name in ("cluster_sweep.cu", "sweep.cu"))
+                for name in ("cluster_sweep.cu", "sweep.cu",
+                             "stream_probe.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cge_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -28,17 +29,22 @@ NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # rays, boxes, keys, NB, S, BR, stream
     "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _P),
-    # order, skeys, rays, tiles, best_t, best_i, visits, NB, n_sc, BR,
-    # sc_n, C, field_major, any_hit, shared_origin, stream
-    "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P),
+    # order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, NB,
+    # n_sc, BR, sc_n, C, field_major, any_hit, shared_origin, refine, mxu,
+    # stream
+    "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P),
     # o, d, tmax, table, best_t, best_i, part_t, part_i, R, T, n_split,
     # stream
     "cge_closest_tris_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _P),
+    # stack, partial, out, step_floats, n_steps, steps_per_block, n_blocks,
+    # w, stream
+    "cge_stream_sum": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 

@@ -37,6 +37,31 @@
 //     rule exactly. The stack stays in device memory at every size; the
 //     TPU's VMEM-resident / streamed split does not carry over, so the tile
 //     layout is only an addressing parameter here.
+//     Opt-in modes (the Pallas kernel's refine_members and mxu flags):
+//     - refine: before a member cluster's tile is staged, every ray takes
+//       its slab entry into the member's box (as K1 does per pair, with
+//       tmax), and the block runs the tile only if some lane has entry <=
+//       its best t (__syncthreads_or, so the skip is block-uniform). A dead
+//       lane has entry = best = +inf and always votes to run, as in JAX.
+//       Visits, t and ids are those of the default walk; only the number
+//       of dense tiles changes, and every mode reports it per block.
+//     - mxu (triangle layout only): the dense tile is one contraction of
+//       the quantity-major tile [4C, 8] with the rays' (o, -1) and (d, 0)
+//       rows, giving o.n - D, d.n, o.m_k - b_k and d.m_k per pair, then
+//       t = -(o.n - D) / d.n and the edge tests (o.m_k - b_k) + t d.m_k >=
+//       0. Each warp runs it on the tensor cores with nvcuda::wmma TF32
+//       m16n16k8 fragments (K = 8 is one k-step). Every operand is split
+//       into three TF32 pieces (v = p0 + p1 + p2, 33 significant bits) and
+//       the six products down to the 2^-22 terms are accumulated in f32,
+//       smallest first: the counterpart of the TPU's Precision.HIGHEST,
+//       which splits f32 into three bf16 pieces the same way. (A 2-piece
+//       "3xTF32" split keeps 22 bits per operand; on grazing rays, where
+//       d.n is small, that left t 1.1e-5 relative from the f32 twin.) The
+//       products go through a per-warp staging tile in shared memory, so
+//       each thread reads its own ray's values.
+//       Bound: the tensor-core issue rate (24 mma per 16 triangles per 32
+//       rays) plus the staging round trip; the SIMT side keeps only the
+//       divide, three edge tests and the accept.
 //
 // The file is built with --fmad=false so that the kernels round every
 // product and sum as the plain PyTorch twins do: both compute bit-identical
@@ -44,6 +69,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <mma.h>
 #include <stdint.h>
 
 #define CGE_FLT_MAX 3.4028234663852886e38f
@@ -60,6 +86,31 @@ __device__ __forceinline__ float jmax(float a, float b) {
     float r;
     asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
     return r;
+}
+
+// Clipped slab entry t of one ray into one box (the JAX package's
+// _entry_slab): +inf where the ray misses the box, is dead (tm < 0) or
+// enters past tm. A zero direction component passes its slab (nz bit 0);
+// an inverted box (lo > hi on an axis) never enters.
+__device__ __forceinline__ float slab_entry(const float o[3],
+                                            const float inv[3], int nz_bits,
+                                            float tm, const float lo[3],
+                                            const float hi[3]) {
+    float tnear = 0.0f, tfar = 0.0f;
+    bool box_ok = true;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+        const bool nz = (nz_bits >> ax) & 1;
+        const float t1 = nz ? (lo[ax] - o[ax]) * inv[ax] : -CGE_FLT_MAX;
+        const float t2 = nz ? (hi[ax] - o[ax]) * inv[ax] : CGE_FLT_MAX;
+        const float a = jmin(t1, t2);
+        const float c = jmax(t1, t2);
+        tnear = ax == 0 ? a : jmax(tnear, a);
+        tfar = ax == 0 ? c : jmin(tfar, c);
+        box_ok = box_ok && lo[ax] <= hi[ax];
+    }
+    return (tnear <= tfar && tfar >= 0.0f && tm >= 0.0f && tnear <= tm &&
+            box_ok) ? jmax(tnear, 0.0f) : INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -111,22 +162,9 @@ __global__ void block_entry_keys_kernel(const float* __restrict__ rays,
             const float tm = s_tm[r];
             if (!(tm >= 0.0f))
                 continue;
-            const int nz_bits = s_nz[r];
-            float tnear = 0.0f, tfar = 0.0f;
-#pragma unroll
-            for (int ax = 0; ax < 3; ++ax) {
-                const float o = s_o[ax * BR + r];
-                const float inv = s_inv[ax * BR + r];
-                const bool nz = (nz_bits >> ax) & 1;
-                const float t1 = nz ? (lo[ax] - o) * inv : -CGE_FLT_MAX;
-                const float t2 = nz ? (hi[ax] - o) * inv : CGE_FLT_MAX;
-                const float a = jmin(t1, t2);
-                const float c = jmax(t1, t2);
-                tnear = ax == 0 ? a : jmax(tnear, a);
-                tfar = ax == 0 ? c : jmin(tfar, c);
-            }
-            if (tnear <= tfar && tfar >= 0.0f && tnear <= tm)
-                key = jmin(key, jmax(tnear, 0.0f));
+            const float o[3] = {s_o[r], s_o[BR + r], s_o[2 * BR + r]};
+            const float inv[3] = {s_inv[r], s_inv[BR + r], s_inv[2 * BR + r]};
+            key = jmin(key, slab_entry(o, inv, s_nz[r], tm, lo, hi));
         }
     }
     keys[(size_t)b * S + s] = key;
@@ -158,22 +196,82 @@ __device__ __forceinline__ bool past(float key, float need) {
     return key > need || key >= CGE_FLT_MAX;
 }
 
-__global__ void cluster_walk_kernel(const int* __restrict__ order,
+// The accept step of one (ray, triangle) pair, in slot order: closest hit
+// takes t <= best (the later slot wins an exact tie, as the Pallas tile's
+// max-slot rule does); any hit marks the ray done.
+__device__ __forceinline__ void accept(float t, bool ok, int slot,
+                                       int any_hit, float& bt, int& bi) {
+    if (any_hit) {
+        if (ok) {
+            bt = CGE_DONE;
+            bi = 1;
+        }
+    } else if (ok && isfinite(t) && t <= bt) {
+        bt = t;
+        bi = slot;
+    }
+}
+
+// The mxu mode's shared memory, in floats: the staged tile as three TF32
+// pieces ([4C][8] each); per warp, a [64][MXU_LD] staging tile (rows 0:32
+// the o side, 32:64 the d side of the warp's 32 rays) and the rays' third
+// TF32 pieces ([2][32][8], the A operand read from shared memory); the
+// reduction scratch.
+#define MXU_LD 20          // staging row stride: conflict-free float4 reads
+#define MXU_STAGE_FLOATS (64 * MXU_LD)
+#define MXU_WARP_FLOATS (MXU_STAGE_FLOATS + 512)
+#define CGE_MAX_SMEM (227 * 1024)
+
+static size_t mxu_walk_smem_floats(int C, int BR) {
+    return (size_t)96 * C + (size_t)(BR / 32) * MXU_WARP_FLOATS + 32;
+}
+
+namespace wmma = nvcuda::wmma;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
+                             wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
+                             wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
+
+// v = p[0] + p[1] + p[2] in TF32 pieces; each difference is exact.
+__device__ __forceinline__ void tf32_split3(float v, float p[3]) {
+    p[0] = wmma::__float_to_tf32(v);
+    const float r = v - p[0];
+    p[1] = wmma::__float_to_tf32(r);
+    p[2] = wmma::__float_to_tf32(r - p[1]);
+}
+
+// The mxu mode keeps its ray fragments and 16 t's in registers: at most
+// MXU_MAX_BR threads a block leaves it 128 registers a thread.
+#define MXU_MAX_BR 512
+
+template <bool MXU>
+__global__ void __launch_bounds__(MXU ? MXU_MAX_BR : 1024)
+cluster_walk_kernel(const int* __restrict__ order,
                                     const float* __restrict__ skeys,
                                     const float* __restrict__ rays,
                                     const float* __restrict__ tiles,
+                                    const float* __restrict__ aabbs,
                                     float* __restrict__ best_t,
                                     int* __restrict__ best_i,
                                     int* __restrict__ visits,
+                                    int* __restrict__ dense,
                                     int n_sc, int sc_n, int C,
                                     int field_major, int any_hit,
-                                    int shared_origin) {
+                                    int shared_origin, int refine) {
     extern __shared__ __align__(16) float smem[];
-    float* s_tri = smem;              // [C][16] constants, triangle-major
-    float* s_on = smem + C * 16;      // [C] o.n for the shared origin
-    float* s_red = s_on + C;          // [32] reduction scratch
-
     const int b = blockIdx.x, r = threadIdx.x, BR = blockDim.x;
+    const int lane = r & 31;
+    // default layout: s_tri [C][16] (triangle-major), s_on [C]; mxu layout:
+    // s_q [3][4C][8] (the tile's TF32 pieces), the warps' regions
+    float* s_tri = smem;
+    float* s_on = smem + C * 16;
+    float* s_q = smem;
+    float* s_warp = smem + 96 * C + (r >> 5) * MXU_WARP_FLOATS;
+    float* s_ray2 = s_warp + MXU_STAGE_FLOATS;
+    float* s_red = MXU ? smem + 96 * C + (BR / 32) * MXU_WARP_FLOATS
+                       : smem + C * 17;
+
     const float* rb = rays + (size_t)b * 8 * BR;
     const float ox = rb[r], oy = rb[BR + r], oz = rb[2 * BR + r];
     const float dx = rb[3 * BR + r], dy = rb[4 * BR + r], dz = rb[5 * BR + r];
@@ -185,9 +283,53 @@ __global__ void cluster_walk_kernel(const int* __restrict__ order,
     const float o0x = rb[0], o0y = rb[BR], o0z = rb[2 * BR];
     const int* ord = order + (size_t)b * n_sc;
     const float* sk = skeys + (size_t)b * n_sc;
+    // refine mode: the ray's slab terms, as K1 stages them
+    const float o3[3] = {ox, oy, oz};
+    const float d3[3] = {dx, dy, dz};
+    float inv[3];
+    int nz_bits = 0;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+        const bool nz = d3[ax] != 0.0f;
+        inv[ax] = nz ? 1.0f / d3[ax] : 0.0f;
+        nz_bits |= (nz ? 1 : 0) << ax;
+    }
+
+    // mxu mode: the warp's ray rows as TF32 pieces, built once. a0 / a1
+    // [side][mt] are A fragments of pieces 0 and 1 for rays mt*16 ..
+    // mt*16+15 of the warp, side 0 the (o, -1, 0...) rows, side 1 the
+    // (d, 0...) rows; piece 2 stays in s_ray2 ([side][ray][8]) and is
+    // loaded where it is used, which keeps the kernel in 128 registers.
+    FragA a0[2][2], a1[2][2];
+    if constexpr (MXU) {
+        const float ext[2][8] = {{ox, oy, oz, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f},
+                                 {dx, dy, dz, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+        for (int side = 0; side < 2; ++side)
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                float p[3];
+                tf32_split3(ext[side][k], p);
+                s_warp[side * 512 + lane * 8 + k] = p[0];
+                s_warp[side * 512 + 256 + lane * 8 + k] = p[1];
+                s_ray2[side * 256 + lane * 8 + k] = p[2];
+            }
+        __syncwarp();
+#pragma unroll
+        for (int side = 0; side < 2; ++side)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                wmma::load_matrix_sync(a0[side][mt],
+                                       s_warp + side * 512 + mt * 128, 8);
+                wmma::load_matrix_sync(a1[side][mt],
+                                       s_warp + side * 512 + 256 + mt * 128, 8);
+            }
+        __syncwarp();
+    }
 
     float bt = INFINITY;
     int bi = -1;
+    int n_dense = 0;
     // first-key guard: an all-dead or no-overlap block makes zero visits
     float need = block_max(live ? tm_eff : -INFINITY, s_red);
     bool stop = past(sk[0], need);
@@ -196,46 +338,125 @@ __global__ void cluster_walk_kernel(const int* __restrict__ order,
         const int sc = ord[step];
         for (int m = 0; m < sc_n; ++m) {
             const int cl = sc * sc_n + m;
-            const float* src = tiles + (size_t)cl * C * 16;
-            __syncthreads();         // the previous cluster is fully used
-            for (int i = r; i < C * 16; i += BR) {
-                const int c = field_major ? i % C : i / 16;
-                const int k = field_major ? i / C : i % 16;
-                s_tri[c * 16 + k] = src[i];
+            if (refine) {
+                const float* box = aabbs + (size_t)cl * 8;
+                const float lo[3] = {box[0], box[1], box[2]};
+                const float hi[3] = {box[3], box[4], box[5]};
+                const float e = slab_entry(o3, inv, nz_bits, tm, lo, hi);
+                // block-uniform, decided before the tile is staged; the
+                // barrier also retires the previous cluster's reads
+                if (!__syncthreads_or(e <= bt))
+                    continue;
             }
-            __syncthreads();
-            if (shared_origin) {
-                for (int c = r; c < C; c += BR) {
-                    const float* q = s_tri + c * 16;
-                    s_on[c] = (o0x * q[0] + o0y * q[1]) + o0z * q[2];
+            ++n_dense;
+            __syncthreads();         // the previous cluster is fully used
+            // dead rays accept nothing (t <= tmax < 0 <= t), and a done
+            // any-hit ray stays done, so both skip the accept exactly
+            const bool active = live && !(any_hit && bi == 1);
+            if constexpr (MXU) {
+                const float* src = tiles + (size_t)cl * C * 32;
+                for (int i = r; i < C * 32; i += BR) {
+                    float p[3];
+                    tf32_split3(src[i], p);
+                    s_q[i] = p[0];
+                    s_q[32 * C + i] = p[1];
+                    s_q[64 * C + i] = p[2];
                 }
                 __syncthreads();
-            }
-            // dead rays accept nothing (t <= tmax < 0 <= t), and a done
-            // any-hit ray stays done, so both skip the tests exactly
-            if (!live || (any_hit && bi == 1))
-                continue;
-            for (int c = 0; c < C; ++c) {
-                const float4* q = reinterpret_cast<const float4*>(s_tri + c * 16);
-                const float4 n = q[0], e0 = q[1], e1 = q[2], e2 = q[3];
-                const float dn = (dx * n.x + dy * n.y) + dz * n.z;
-                const float on = shared_origin
-                    ? s_on[c] : (ox * n.x + oy * n.y) + oz * n.z;
-                const float t = (n.w - on) / dn;
-                const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
-                const bool inside =
-                    ((px * e0.x - e0.w) + py * e0.y) + pz * e0.z >= 0.0f &&
-                    ((px * e1.x - e1.w) + py * e1.y) + pz * e1.z >= 0.0f &&
-                    ((px * e2.x - e2.w) + py * e2.y) + pz * e2.z >= 0.0f;
-                const bool ok = t >= 0.0f && t <= tm && inside;
-                if (any_hit) {
-                    if (ok) {
-                        bt = CGE_DONE;
-                        bi = 1;
+                // every lane takes part in the warp's contractions
+                for (int g = 0; g < C / 16; ++g) {
+                    float t[16];
+                    unsigned inside = 0xffffu;
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        FragB b0, b1, b2;
+                        const float* row = s_q + (q * C + g * 16) * 8;
+                        wmma::load_matrix_sync(b0, row, 8);
+                        wmma::load_matrix_sync(b1, row + 32 * C, 8);
+                        wmma::load_matrix_sync(b2, row + 64 * C, 8);
+#pragma unroll
+                        for (int side = 0; side < 2; ++side)
+#pragma unroll
+                            for (int mt = 0; mt < 2; ++mt) {
+                                FragA a2;
+                                wmma::load_matrix_sync(
+                                    a2, s_ray2 + side * 256 + mt * 128, 8);
+                                FragC acc;
+                                wmma::fill_fragment(acc, 0.0f);
+                                wmma::mma_sync(acc, a2, b0, acc);
+                                wmma::mma_sync(acc, a1[side][mt], b1, acc);
+                                wmma::mma_sync(acc, a0[side][mt], b2, acc);
+                                wmma::mma_sync(acc, a1[side][mt], b0, acc);
+                                wmma::mma_sync(acc, a0[side][mt], b1, acc);
+                                wmma::mma_sync(acc, a0[side][mt], b0, acc);
+                                wmma::store_matrix_sync(
+                                    s_warp + (side * 32 + mt * 16) * MXU_LD,
+                                    acc, MXU_LD, wmma::mem_row_major);
+                            }
+                        __syncwarp();
+                        const float4* ov = reinterpret_cast<const float4*>(
+                            s_warp + lane * MXU_LD);
+                        const float4* dv = reinterpret_cast<const float4*>(
+                            s_warp + (32 + lane) * MXU_LD);
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            const float4 o4 = ov[j], d4 = dv[j];
+                            const float oq[4] = {o4.x, o4.y, o4.z, o4.w};
+                            const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+                            for (int u = 0; u < 4; ++u) {
+                                const int n = 4 * j + u;
+                                if (q == 0)
+                                    t[n] = -oq[u] / dq[u];
+                                else if (!(oq[u] + t[n] * dq[u] >= 0.0f))
+                                    inside &= ~(1u << n);
+                            }
+                        }
+                        __syncwarp();
                     }
-                } else if (ok && isfinite(t) && t <= bt) {
-                    bt = t;
-                    bi = cl * C + c;
+                    if (active) {
+#pragma unroll
+                        for (int n = 0; n < 16; ++n) {
+                            const bool ok = t[n] >= 0.0f && t[n] <= tm &&
+                                            ((inside >> n) & 1u);
+                            accept(t[n], ok, cl * C + g * 16 + n, any_hit, bt,
+                                   bi);
+                        }
+                    }
+                }
+            } else {
+                const float* src = tiles + (size_t)cl * C * 16;
+                for (int i = r; i < C * 16; i += BR) {
+                    const int c = field_major ? i % C : i / 16;
+                    const int k = field_major ? i / C : i % 16;
+                    s_tri[c * 16 + k] = src[i];
+                }
+                __syncthreads();
+                if (shared_origin) {
+                    for (int c = r; c < C; c += BR) {
+                        const float* q = s_tri + c * 16;
+                        s_on[c] = (o0x * q[0] + o0y * q[1]) + o0z * q[2];
+                    }
+                    __syncthreads();
+                }
+                if (!active)
+                    continue;
+                for (int c = 0; c < C; ++c) {
+                    const float4* q =
+                        reinterpret_cast<const float4*>(s_tri + c * 16);
+                    const float4 n = q[0], e0 = q[1], e1 = q[2], e2 = q[3];
+                    const float dn = (dx * n.x + dy * n.y) + dz * n.z;
+                    const float on = shared_origin
+                        ? s_on[c] : (ox * n.x + oy * n.y) + oz * n.z;
+                    const float t = (n.w - on) / dn;
+                    const float px = ox + t * dx, py = oy + t * dy,
+                                pz = oz + t * dz;
+                    const bool inside =
+                        ((px * e0.x - e0.w) + py * e0.y) + pz * e0.z >= 0.0f &&
+                        ((px * e1.x - e1.w) + py * e1.y) + pz * e1.z >= 0.0f &&
+                        ((px * e2.x - e2.w) + py * e2.y) + pz * e2.z >= 0.0f;
+                    accept(t, t >= 0.0f && t <= tm && inside, cl * C + c,
+                           any_hit, bt, bi);
                 }
             }
         }
@@ -245,8 +466,10 @@ __global__ void cluster_walk_kernel(const int* __restrict__ order,
     }
     best_t[(size_t)b * BR + r] = bt;
     best_i[(size_t)b * BR + r] = bi;
-    if (r == 0)
+    if (r == 0) {
         visits[b] = step;
+        dense[b] = n_dense;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -268,23 +491,28 @@ extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
 
 extern "C" int cge_cluster_walk(const int* order, const float* skeys,
                                 const float* rays, const float* tiles,
-                                float* best_t, int* best_i, int* visits,
-                                int NB, int n_sc, int BR, int sc_n, int C,
+                                const float* aabbs, float* best_t,
+                                int* best_i, int* visits, int* dense, int NB,
+                                int n_sc, int BR, int sc_n, int C,
                                 int field_major, int any_hit,
-                                int shared_origin, void* stream) {
+                                int shared_origin, int refine, int mxu,
+                                void* stream) {
     if (NB == 0)
         return 0;
-    const size_t smem = ((size_t)C * 17 + 32) * sizeof(float);
+    const size_t smem = mxu ? mxu_walk_smem_floats(C, BR) * sizeof(float)
+                            : ((size_t)C * 17 + 32) * sizeof(float);
+    if (smem > CGE_MAX_SMEM || (mxu && (BR > MXU_MAX_BR || C % 16)))
+        return (int)cudaErrorInvalidValue;
+    auto kernel = mxu ? cluster_walk_kernel<true> : cluster_walk_kernel<false>;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            cluster_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess)
             return (int)e;
     }
-    cluster_walk_kernel<<<NB, BR, smem, (cudaStream_t)stream>>>(
-        order, skeys, rays, tiles, best_t, best_i, visits, n_sc, sc_n, C,
-        field_major, any_hit, shared_origin);
+    kernel<<<NB, BR, smem, (cudaStream_t)stream>>>(
+        order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, n_sc,
+        sc_n, C, field_major, any_hit, shared_origin, refine);
     return (int)cudaGetLastError();
 }
 

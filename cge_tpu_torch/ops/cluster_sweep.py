@@ -4,30 +4,39 @@
 Triangles are pre-permuted into clusters of CLUSTER_SIZE (ops.bvh), grouped
 into superclusters of `sc_n` consecutive clusters. One sweep runs:
 
-  1. K1, the key pass: for every (ray block, supercluster) pair the entry t
-     of the block's nearest live ray (`block_entry_keys`);
+  1. the key pass: for every (ray block, supercluster) pair a lower bound
+     of the entry t of the block's live rays. K1 (`block_entry_keys`, exact
+     keys) takes the nearest live ray's entry; the frustum pass
+     (`block_frustum_keys`, exact_keys=False) bounds it by interval
+     arithmetic over the block's origin and direction hulls;
   2. a stable sort of each block's keys into its front-to-back visit order
      (`torch.sort`, in place of the JAX package's `lax.sort`);
   3. K2, the ordered walk: each ray block visits its superclusters in that
      order, tests every member cluster's triangles, and stops once the next
-     key is behind every live ray's best t (`cluster_walk`).
+     key is behind every live ray's best t (`cluster_walk`). Two opt-in
+     modes: `refine_members` re-culls each member cluster against the
+     block's current best before its dense tile; `mxu` computes the dense
+     tile's eight dot products as one contraction on the tensor cores
+     (triangle layout only).
 
 K1 and K2 are CUDA kernels (csrc/cluster_sweep.cu). Beside each stands its
 plain PyTorch twin (`block_entry_keys_plain`, `cluster_walk_plain`) with the
 same visit order, stop bound, sentinels and tie rules. A wrapper runs the
 twin for a tensor on the CPU and launches the kernel for a CUDA tensor;
-there is no fallback between the two. `LAUNCHES` counts kernel launches, so
-a run can show that it went through the kernels.
+there is no fallback between the two. `LAUNCHES` counts kernel launches by
+mode, so a run can show that it went through the kernels.
 
 Sentinels (as in the JAX package):
   - pad rays carry tmax = -1 and exit t = -FLT_MAX; a ray that provably
     misses the scene box has exit t = -inf;
   - empty clusters have lo = +inf, hi = -inf; pad clusters FLT_MAX/-FLT_MAX;
-    both are inverted boxes, which K1 never enters;
+    both are inverted boxes, which no key pass enters;
   - any-hit marks a blocked ray with best t = -3e38 and flag 1.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,13 +48,17 @@ SUPERCLUSTER = 4
 # does; the layout then also sets the default clusters per visit
 RESIDENT_TILE_BYTES = 4 * 1024 * 1024
 FLT_MAX = 3.4028234663852886e38
+FLT_MIN = 1.1754943508222875e-38
 DONE = -3.0e38                  # any-hit sentinel
 LAYOUTS = ("triangle", "field")
+# the mxu walk's block size limit (csrc/cluster_sweep.cu's MXU_MAX_BR)
+MXU_MAX_BR = 512
 
 # b_i = 1 kills every edge test of a pad triangle
 _INVALID_ROW = [0.0] * 4 + [0.0, 0.0, 0.0, 1.0] * 3
 
-LAUNCHES = {"keys": 0, "walk": 0}
+# launches by kernel and walk mode: K1; K2 default, refine_members, mxu
+LAUNCHES = {"keys": 0, "walk": 0, "walk_refine": 0, "walk_mxu": 0}
 
 
 def _cross(a, b):
@@ -158,38 +171,97 @@ def pack_rays(o, d, tmax, exit_t, br: int):
 
 
 # ---------------------------------------------------------------------------
-# K1: block entry keys
+# the key passes: K1 (exact keys) and the frustum bound
 # ---------------------------------------------------------------------------
+
+def _entry_slab(o, d, tm, lo, hi):
+    """Clipped slab entry t of rays into boxes (the JAX package's
+    _entry_slab, cluster_sweep.py:153-184): +inf where the ray misses the
+    box, is dead (tm < 0) or enters past tm. o, d: 3-tuples of ray
+    coordinates; lo, hi: 3-tuples of box coordinates that broadcast against
+    them. A zero direction component passes its slab; inverted boxes (lo >
+    hi on an axis: empty and pad clusters) never enter."""
+    tnear = tfar = box_ok = None
+    for ax in range(3):
+        nz = d[ax] != 0
+        inv = torch.where(nz, 1.0 / torch.where(nz, d[ax], 1.0), 0.0)
+        t1 = torch.where(nz, (lo[ax] - o[ax]) * inv, -FLT_MAX)
+        t2 = torch.where(nz, (hi[ax] - o[ax]) * inv, FLT_MAX)
+        a, b = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        ok = lo[ax] <= hi[ax]
+        tnear = a if tnear is None else torch.maximum(tnear, a)
+        tfar = b if tfar is None else torch.minimum(tfar, b)
+        box_ok = ok if box_ok is None else box_ok & ok
+    geo = (tnear <= tfar) & (tfar >= 0) & (tm >= 0) & (tnear <= tm) & box_ok
+    return torch.where(geo, tnear.clamp_min(0.0), torch.inf)
+
 
 def block_entry_keys_plain(rays, boxes, pairs_per_chunk: int = 1 << 24):
     """Plain twin of K1. rays [NB, 8, BR], boxes [S, 8] -> keys [NB, S]."""
     NB, _, BR = rays.shape
     S = boxes.shape[0]
-    o, d, tm = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
-    nz = d != 0
-    inv = torch.where(nz, 1.0 / torch.where(nz, d, 1.0), 0.0)
-    live = tm >= 0
+    o = [rays[:, ax, None, :] for ax in range(3)]           # [NB, 1, BR]
+    d = [rays[:, 3 + ax, None, :] for ax in range(3)]
+    tm = rays[:, 6, None, :]
     keys = torch.empty((NB, S), dtype=torch.float32, device=rays.device)
     kc = max(1, pairs_per_chunk // max(1, NB * BR))
     for s0 in range(0, S, kc):
-        lo = boxes[s0:s0 + kc, 0:3]
-        hi = boxes[s0:s0 + kc, 3:6]
-        box_ok = (lo <= hi).all(dim=1)[None, :, None]
-        tnear = tfar = None
-        for ax in range(3):
-            oo = o[:, ax, None, :]
-            ii = inv[:, ax, None, :]
-            nn = nz[:, ax, None, :]
-            t1 = torch.where(nn, (lo[None, :, ax, None] - oo) * ii, -FLT_MAX)
-            t2 = torch.where(nn, (hi[None, :, ax, None] - oo) * ii, FLT_MAX)
-            a, b = torch.minimum(t1, t2), torch.maximum(t1, t2)
-            tnear = a if tnear is None else torch.maximum(tnear, a)
-            tfar = b if tfar is None else torch.minimum(tfar, b)
-        geo = ((tnear <= tfar) & (tfar >= 0) & live[:, None, :]
-               & (tnear <= tm[:, None, :]) & box_ok)
-        entry = torch.where(geo, tnear.clamp_min(0.0), torch.inf)
-        keys[:, s0:s0 + kc] = entry.amin(dim=2)
+        b = boxes[s0:s0 + kc]
+        lo = [b[None, :, ax, None] for ax in range(3)]      # [1, k, 1]
+        hi = [b[None, :, 3 + ax, None] for ax in range(3)]
+        keys[:, s0:s0 + kc] = _entry_slab(o, d, tm, lo, hi).amin(dim=2)
     return keys
+
+
+def block_frustum_keys(rays, boxes):
+    """Conservative per-block entry keys [NB, S] by interval arithmetic
+    (the JAX package's _block_frustum_keys, cluster_sweep.py:203-273).
+    Each block is summarized by the hulls of its live rays' origins and
+    directions, and the slab test runs once per (block, box) pair instead
+    of once per (ray, box) pair. The key is a lower bound on every live
+    ray's clipped entry t, so the walk's ordered stop stays exact; +inf
+    where no live ray can enter. A plain torch op on every device: the
+    JAX package computes it in XLA, outside any kernel.
+
+    Where a direction interval spans 0, its zero endpoints are nudged to
+    -/+FLT_MIN (huge, conservative candidates); an origin hull that may
+    lie inside the slab then enters at -FLT_MAX, and the exit bound is
+    +FLT_MAX either way."""
+    o, d, tm = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    live = tm >= 0
+    lv = live[:, None, :]
+    ol = torch.where(lv, o, torch.inf).amin(dim=-1)          # [NB, 3]
+    oh = torch.where(lv, o, -torch.inf).amax(dim=-1)
+    dl = torch.where(lv, d, torch.inf).amin(dim=-1)
+    dh = torch.where(lv, d, -torch.inf).amax(dim=-1)
+    tmx = torch.where(live, tm, -torch.inf).amax(dim=-1)     # [NB]
+    any_live = live.any(dim=-1)
+    blo, bhi = boxes[:, 0:3], boxes[:, 3:6]
+    box_ok = (blo <= bhi).all(dim=-1)                        # [S]
+    tnear = tfar = None
+    for ax in range(3):
+        bl, bh = blo[None, :, ax], bhi[None, :, ax]          # [1, S]
+        o0, o1 = ol[:, ax, None], oh[:, ax, None]            # [NB, 1]
+        d0, d1 = dl[:, ax, None], dh[:, ax, None]
+        n1a, n1b = bl - o1, bl - o0
+        n2a, n2b = bh - o1, bh - o0
+        spans0 = (d0 <= 0) & (d1 >= 0)
+        safe0 = torch.where(d0 != 0, d0, -FLT_MIN)
+        safe1 = torch.where(d1 != 0, d1, FLT_MIN)
+        cands = [n1a / safe0, n1a / safe1, n1b / safe0, n1b / safe1,
+                 n2a / safe0, n2a / safe1, n2b / safe0, n2b / safe1]
+        lo_ax = hi_ax = cands[0]
+        for c in cands[1:]:
+            lo_ax = torch.minimum(lo_ax, c)
+            hi_ax = torch.maximum(hi_ax, c)
+        o_in_slab = (o1 >= bl) & (o0 <= bh)
+        lo_ax = torch.where(spans0 & o_in_slab, -FLT_MAX, lo_ax)
+        hi_ax = torch.where(spans0, FLT_MAX, hi_ax)
+        tnear = lo_ax if tnear is None else torch.maximum(tnear, lo_ax)
+        tfar = hi_ax if tfar is None else torch.minimum(tfar, hi_ax)
+    maybe = ((tnear <= tfar) & (tfar >= 0) & (tnear <= tmx[:, None])
+             & any_live[:, None] & box_ok[None, :])
+    return torch.where(maybe, tnear.clamp_min(0.0), torch.inf)
 
 
 def _check(t, name, dtype, ndim, device=None):
@@ -232,9 +304,42 @@ def block_entry_keys(rays, boxes):
     return keys
 
 
+def sweep_order(rays, boxes, exact_keys: bool = True):
+    """Each block's visit order (skeys [NB, S] f32, order [NB, S] i32):
+    the keys of K1 (exact_keys) or of the frustum bound, sorted stably, as
+    lax.sort((keys, iota), num_keys=1) orders equal keys by box index."""
+    keys = (block_entry_keys(rays, boxes) if exact_keys
+            else block_frustum_keys(rays, boxes))
+    skeys, order = torch.sort(keys, dim=-1, stable=True)
+    return skeys, order.int().contiguous()
+
+
 # ---------------------------------------------------------------------------
 # K2: ordered cluster walk
 # ---------------------------------------------------------------------------
+
+WALK_MODES = {"default": "walk", "refine": "walk_refine", "mxu": "walk_mxu"}
+
+
+def walk_mode(layout: str, refine_members: bool = False,
+              mxu: bool = False) -> str:
+    """The walk mode a call runs, by the JAX package's rules
+    (cluster_sweep.py:472-476, 556-558): mxu acts on the triangle layout
+    only and there takes precedence over refine_members."""
+    if mxu and layout == "triangle":
+        return "mxu"
+    return "refine" if refine_members else "default"
+
+
+def mxu_tiles(tiles):
+    """Quantity-major repack of a triangle-major stack [Lp, C, 16] for the
+    mxu walk (cluster_sweep.py:641-643): [Lp, 4C, 8], rows [0:C] = (n, D),
+    [C:2C] = (m0, b0), [2C:3C] = (m1, b1), [3C:4C] = (m2, b2), each row
+    zero-padded from 4 to 8 columns."""
+    Lp, C, _ = tiles.shape
+    q = tiles.reshape(Lp, C, 4, 4).transpose(1, 2).reshape(Lp, 4 * C, 4)
+    return torch.nn.functional.pad(q, (0, 4)).contiguous()
+
 
 def _past(key, need):
     # inf > inf is False: the FLT_MAX test stops blocks whose next box no
@@ -242,21 +347,83 @@ def _past(key, need):
     return (key > need) | (key >= FLT_MAX)
 
 
+def _tile_vpu(T, r, shared_origin):
+    """The dense tile's t and edge tests [A, C, BR] in the hit-point form:
+    t = (D - o.n) / d.n, p = o + t d, m_k.p - b_k >= 0."""
+    def col(k):
+        return T[:, :, k, None]                                 # [A, C, 1]
+
+    ox, oy, oz = r[:, 0, None], r[:, 1, None], r[:, 2, None]    # [A, 1, BR]
+    dx, dy, dz = r[:, 3, None], r[:, 4, None], r[:, 5, None]
+    nx, ny, nz, D = col(0), col(1), col(2), col(3)
+    dn = (dx * nx + dy * ny) + dz * nz
+    if shared_origin:
+        on = (r[:, 0, None, :1] * nx + r[:, 1, None, :1] * ny) \
+            + r[:, 2, None, :1] * nz
+    else:
+        on = (ox * nx + oy * ny) + oz * nz
+    t = (D - on) / dn
+    px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+    inside = None
+    for k in range(3):
+        e = ((px * col(4 * k + 4) - col(4 * k + 7)) + py * col(4 * k + 5)) \
+            + pz * col(4 * k + 6)
+        inside = (e >= 0) if inside is None else inside & (e >= 0)
+    return t, inside
+
+
+def _tile_mxu(Q, ray_ext):
+    """The dense tile's t and edge tests [A, C, BR] in the two-dot form of
+    the mxu mode (cluster_sweep.py:361-389): one contraction [A, 4C, 8] x
+    [A, 8, 2BR] gives o.n - D, d.n, o.m_k - b_k and d.m_k; t = -(o.n - D)
+    / d.n and each edge passes if (o.m_k - b_k) + t (d.m_k) >= 0. Pad rows
+    give t = -0/0 = NaN, which every accept test rejects."""
+    C, BR = Q.shape[1] // 4, ray_ext.shape[2] // 2
+    out = torch.matmul(Q, ray_ext)                              # [A, 4C, 2BR]
+    t = -out[:, :C, :BR] / out[:, :C, BR:]
+    inside = None
+    for k in range(1, 4):
+        e = out[:, k * C:(k + 1) * C, :BR] \
+            + t * out[:, k * C:(k + 1) * C, BR:] >= 0
+        inside = e if inside is None else inside & e
+    return t, inside
+
+
+def _ray_ext(r):
+    """[A, 8, 2BR]: o_ext = (ox, oy, oz, -1, 0, 0, 0, 0) in columns 0:BR,
+    d_ext = (dx, dy, dz, 0, ...) in columns BR:2BR."""
+    A, _, BR = r.shape
+    z = torch.zeros((A, 4, BR), dtype=r.dtype, device=r.device)
+    o_ext = torch.cat([r[:, 0:3], torch.full_like(r[:, :1], -1.0), z], dim=1)
+    d_ext = torch.cat([r[:, 3:6], torch.zeros_like(r[:, :1]), z], dim=1)
+    return torch.cat([o_ext, d_ext], dim=2)
+
+
 def cluster_walk_plain(order, skeys, rays, tiles, *, layout: str, sc_n: int,
-                       any_hit: bool = False, shared_origin: bool = False):
+                       any_hit: bool = False, shared_origin: bool = False,
+                       aabbs=None, refine_members: bool = False,
+                       mxu: bool = False):
     """Plain twin of K2: every block's walk at once, one visit per loop
     iteration. Returns (best_t [NB, BR], best_i [NB, BR] i32 flat
-    perm-space slot or -1 (any-hit: 1 = blocked), visits [NB] i32)."""
+    perm-space slot or -1 (any-hit: 1 = blocked), visits [NB] i32, dense
+    tiles run [NB] i32). aabbs: the [Lp, 8] member boxes, needed by
+    refine_members. The mxu contraction is a torch.matmul in f32 and
+    wants TF32 off on a card (torch's default)."""
+    mode = walk_mode(layout, refine_members, mxu)
+    if mode == "refine" and aabbs is None:
+        raise ValueError("refine_members needs the member boxes (aabbs)")
     NB, _, BR = rays.shape
     n_sc = order.shape[1]
     dev = rays.device
     tri = tiles.transpose(1, 2) if layout == "field" else tiles   # [Lp, C, 16]
     C = tri.shape[1]
+    quant = mxu_tiles(tiles) if mode == "mxu" else None
     tm, tm_eff = rays[:, 6], torch.minimum(rays[:, 6], rays[:, 7])
     live = tm >= 0
     bt = torch.full((NB, BR), torch.inf, dtype=torch.float32, device=dev)
     bi = torch.full((NB, BR), -1, dtype=torch.int32, device=dev)
     step = torch.zeros(NB, dtype=torch.int64, device=dev)
+    dense = torch.zeros(NB, dtype=torch.int32, device=dev)
     need = torch.where(live, tm_eff, -torch.inf).amax(dim=1)
     stop = _past(skeys[:, 0], need)               # first-key guard
     slot = torch.arange(C, dtype=torch.int32, device=dev)
@@ -265,68 +432,74 @@ def cluster_walk_plain(order, skeys, rays, tiles, *, layout: str, sc_n: int,
         if act.numel() == 0:
             break
         r = rays[act]
-        ox, oy, oz = r[:, 0, None], r[:, 1, None], r[:, 2, None]   # [A, 1, BR]
-        dx, dy, dz = r[:, 3, None], r[:, 4, None], r[:, 5, None]
         tm_a = r[:, 6, None]
+        ext = _ray_ext(r) if mode == "mxu" else None
         bt_a, bi_a = bt[act], bi[act]
         sc = order[act, step[act]].long()
         for m in range(sc_n):
             cl = sc * sc_n + m
-            T = tri[cl]                                             # [A, C, 16]
-
-            def col(k):
-                return T[:, :, k, None]                             # [A, C, 1]
-
-            nx, ny, nz, D = col(0), col(1), col(2), col(3)
-            dn = (dx * nx + dy * ny) + dz * nz
-            if shared_origin:
-                on = (r[:, 0, None, :1] * nx + r[:, 1, None, :1] * ny) \
-                    + r[:, 2, None, :1] * nz
+            run = None
+            if mode == "refine":
+                # the member's slab entry against the block's current best;
+                # dead lanes (entry = best = +inf) always vote to run
+                box = aabbs[cl]                                     # [A, 8]
+                entry = _entry_slab(
+                    [r[:, k] for k in range(3)], [r[:, 3 + k] for k in range(3)],
+                    r[:, 6], [box[:, k, None] for k in range(3)],
+                    [box[:, 3 + k, None] for k in range(3)])        # [A, BR]
+                run = (entry <= bt_a).any(dim=1)                    # [A]
+            if mode == "mxu":
+                t, inside = _tile_mxu(quant[cl], ext)
             else:
-                on = (ox * nx + oy * ny) + oz * nz
-            t = (D - on) / dn
-            px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-            inside = None
-            for k in range(3):
-                e = ((px * col(4 * k + 4) - col(4 * k + 7)) + py * col(4 * k + 5)) \
-                    + pz * col(4 * k + 6)
-                inside = (e >= 0) if inside is None else inside & (e >= 0)
+                t, inside = _tile_vpu(tri[cl], r, shared_origin)
             ok = (t >= 0) & (t <= tm_a) & inside
             if any_hit:
                 hit = ok.any(dim=1)
-                bt_a = torch.where(hit, DONE, bt_a)
-                bi_a = torch.where(hit, 1, bi_a)
+                new_t = torch.where(hit, DONE, bt_a)
+                new_i = torch.where(hit, 1, bi_a)
             else:
                 t = torch.where(ok, t, torch.inf)
                 tmin = t.amin(dim=1)                                # [A, BR]
                 flat = (cl[:, None].int() * C + slot)[:, :, None]   # [A, C, 1]
                 idx = torch.where(t == tmin[:, None], flat, -1).amax(dim=1)
                 take = (tmin <= bt_a) & torch.isfinite(tmin)
-                bt_a = torch.where(take, tmin, bt_a)
-                bi_a = torch.where(take, idx.int(), bi_a)
+                new_t = torch.where(take, tmin, bt_a)
+                new_i = torch.where(take, idx.int(), bi_a)
+            if run is None:
+                bt_a, bi_a = new_t, new_i
+                dense[act] += 1
+            else:
+                bt_a = torch.where(run[:, None], new_t, bt_a)
+                bi_a = torch.where(run[:, None], new_i, bi_a)
+                dense[act] += run.int()
         bt[act], bi[act] = bt_a, bi_a
         step[act] += 1
         need = torch.where(live[act], torch.minimum(bt_a, tm_eff[act]),
                            -torch.inf).amax(dim=1)
         nxt = skeys[act, step[act].clamp_max(n_sc - 1)]
         stop[act] = (step[act] >= n_sc) | _past(nxt, need)
-    return bt, bi, step.int()
+    return bt, bi, step.int(), dense
 
 
 def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
-                 any_hit: bool = False, shared_origin: bool = False):
+                 any_hit: bool = False, shared_origin: bool = False,
+                 aabbs=None, refine_members: bool = False, mxu: bool = False):
     """K2: the ordered cluster walk. order [NB, n_sc] i32 and skeys [NB,
     n_sc] f32 (each block's sorted keys), rays [NB, 8, BR], tiles [Lp, C,
-    16] or [Lp, 16, C] with Lp = n_sc * sc_n. Returns (best_t [NB, BR],
-    best_i [NB, BR] i32, visits [NB] i32)."""
+    16] or [Lp, 16, C] with Lp = n_sc * sc_n, aabbs [Lp, 8] (needed by
+    refine_members). Returns (best_t [NB, BR], best_i [NB, BR] i32, visits
+    [NB] i32, dense tiles run [NB] i32). The mode follows walk_mode; the
+    mxu mode needs C a multiple of 16 and BR <= MXU_MAX_BR."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
-              shared_origin=shared_origin)
+              shared_origin=shared_origin, aabbs=aabbs,
+              refine_members=refine_members, mxu=mxu)
     if rays.device.type == "cpu":
         return cluster_walk_plain(order, skeys, rays, tiles, **kw)
     if rays.device.type != "cuda":
         raise ValueError(f"cluster_walk: unsupported device {rays.device}")
+    mode = walk_mode(layout, refine_members, mxu)
     _check_rays(rays)
     dev = rays.device
     _check(order, "order", torch.int32, 2, dev)
@@ -342,28 +515,54 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
             f"cluster_walk: shapes disagree: order {tuple(order.shape)}, "
             f"skeys {tuple(skeys.shape)}, rays {tuple(rays.shape)}, tiles "
             f"{tuple(tiles.shape)} ({layout}), sc_n {sc_n}")
+    if mode == "refine":
+        if aabbs is None:
+            raise ValueError("refine_members needs the member boxes (aabbs)")
+        _check(aabbs, "aabbs", torch.float32, 2, dev)
+        if tuple(aabbs.shape) != (tiles.shape[0], 8):
+            raise ValueError(f"aabbs must be [{tiles.shape[0]}, 8], got "
+                             f"{tuple(aabbs.shape)}")
+    if mode == "mxu":
+        if C % 16 or BR > MXU_MAX_BR:
+            raise ValueError(f"the mxu walk needs C a multiple of 16 and BR "
+                             f"<= {MXU_MAX_BR}, got C {C}, BR {BR}")
+        tiles = mxu_tiles(tiles)
     best_t = torch.empty((NB, BR), dtype=torch.float32, device=dev)
     best_i = torch.empty((NB, BR), dtype=torch.int32, device=dev)
     visits = torch.empty(NB, dtype=torch.int32, device=dev)
+    dense = torch.empty(NB, dtype=torch.int32, device=dev)
     lib = _kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib.check(lib.cge_cluster_walk(
         order.data_ptr(), skeys.data_ptr(), rays.data_ptr(), tiles.data_ptr(),
+        aabbs.data_ptr() if mode == "refine" else None,
         best_t.data_ptr(), best_i.data_ptr(), visits.data_ptr(),
-        NB, n_sc, BR, sc_n, C, int(layout == "field"), int(any_hit),
-        int(shared_origin), stream), "cge_cluster_walk")
-    LAUNCHES["walk"] += 1
-    return best_t, best_i, visits
+        dense.data_ptr(), NB, n_sc, BR, sc_n, C, int(layout == "field"),
+        int(any_hit), int(shared_origin), int(mode == "refine"),
+        int(mode == "mxu"), stream), "cge_cluster_walk")
+    LAUNCHES[WALK_MODES[mode]] += 1
+    return best_t, best_i, visits, dense
 
 
 # ---------------------------------------------------------------------------
-# one sweep: pack, K1, sort, K2
+# one sweep: pack, key pass, sort, K2
 # ---------------------------------------------------------------------------
+
+class SweepInputs(NamedTuple):
+    """What the key pass and K2 take for one sweep."""
+
+    rays: torch.Tensor     # [NB, 8, BR] packed rays
+    boxes: torch.Tensor    # [n_sc, 8] supercluster boxes
+    tiles: torch.Tensor    # the stack padded to n_sc * sc_n clusters
+    sc_n: int
+    aabbs: torch.Tensor    # [n_sc * sc_n, 8] member boxes, padded alike
+
 
 def sweep_setup(o, d, tmax, aabbs, tiles, layout: str, br: int,
-                sc_n: int | None):
-    """Everything K1 and K2 take for one sweep: (rays, sc_aabbs, tiles,
-    sc_n). Pads the stack to a multiple of sc_n clusters."""
+                sc_n: int | None) -> SweepInputs:
+    """Pack the rays and pad the stack to a multiple of sc_n clusters
+    (None: 1 for the triangle layout, SUPERCLUSTER for the field layout,
+    as in the JAX package)."""
     if sc_n is None:
         sc_n = SUPERCLUSTER if layout == "field" else 1
     L = tiles.shape[0]
@@ -371,26 +570,44 @@ def sweep_setup(o, d, tmax, aabbs, tiles, layout: str, br: int,
     if padL:
         aabbs, tiles = pad_cluster_stack(aabbs, tiles, padL, layout)
     rays = pack_rays(o, d, tmax, scene_exit_t(o, d, aabbs), br)
-    return rays, supercluster_boxes(aabbs, sc_n), tiles, sc_n
+    return SweepInputs(rays, supercluster_boxes(aabbs, sc_n), tiles, sc_n,
+                       aabbs)
+
+
+@torch.no_grad()
+def sweep_blocks(o, d, tmax, aabbs, tiles, layout: str, *,
+                 br: int = DEFAULT_BR, sc_n: int | None = None,
+                 any_hit: bool = False, shared_origin: bool = False,
+                 exact_keys: bool = True, refine_members: bool = False,
+                 mxu: bool = False):
+    """One sweep, reported per ray block: (best_t [NB, BR], best_i [NB,
+    BR], visits [NB], dense tiles run [NB]); see cluster_tris."""
+    inp = sweep_setup(o, d, tmax, aabbs, tiles, layout, br, sc_n)
+    skeys, order = sweep_order(inp.rays, inp.boxes, exact_keys)
+    return cluster_walk(order, skeys, inp.rays, inp.tiles, layout=layout,
+                        sc_n=inp.sc_n, any_hit=any_hit,
+                        shared_origin=shared_origin, aabbs=inp.aabbs,
+                        refine_members=refine_members, mxu=mxu)
 
 
 @torch.no_grad()
 def cluster_tris(o, d, tmax, aabbs, tiles, layout: str, *,
                  br: int = DEFAULT_BR, sc_n: int | None = None,
-                 any_hit: bool = False, shared_origin: bool = False):
+                 any_hit: bool = False, shared_origin: bool = False,
+                 exact_keys: bool = True, refine_members: bool = False,
+                 mxu: bool = False):
     """Cluster-accelerated triangle sweep. o, d: [R, 3]; tmax: [R] per-ray
     budget (-1 = dead ray). Closest mode returns (best_t [R], flat [R] i32
     perm-space slot, -1 on miss, visits [NB]); any-hit mode returns
     (hit [R] bool, visits [NB]). sc_n None: 1 for the triangle-major
-    layout, SUPERCLUSTER for field-major, as in the JAX package."""
+    layout, SUPERCLUSTER for field-major, as in the JAX package.
+    exact_keys=False orders the visits by the frustum bound; refine_members
+    and mxu select K2's opt-in modes (walk_mode)."""
     R = o.shape[0]
-    rays, sc_boxes, tiles, sc_n = sweep_setup(o, d, tmax, aabbs, tiles,
-                                              layout, br, sc_n)
-    keys = block_entry_keys(rays, sc_boxes)
-    skeys, order = torch.sort(keys, dim=-1, stable=True)
-    bt, bi, visits = cluster_walk(order.int().contiguous(), skeys, rays, tiles,
-                                  layout=layout, sc_n=sc_n, any_hit=any_hit,
-                                  shared_origin=shared_origin)
+    bt, bi, visits, _ = sweep_blocks(
+        o, d, tmax, aabbs, tiles, layout, br=br, sc_n=sc_n, any_hit=any_hit,
+        shared_origin=shared_origin, exact_keys=exact_keys,
+        refine_members=refine_members, mxu=mxu)
     flat = bi.reshape(-1)[:R]
     if any_hit:
         return flat > 0, visits

@@ -94,6 +94,43 @@ def uses_cluster_sweep(accel: Accel | None) -> bool:
     return accel is not None
 
 
+def coherent_sweep_order(point, d, tmax):
+    """Sweep-local coherence permutation (cge_tpu/ops/intersect.py:178-213):
+    live rays bucketed by direction octant (x*4 + y*2 + z on d > 0), dead
+    rays (tmax < 0) last, stable within buckets. A 9-bucket counting
+    permutation, as in the JAX package. Returns (order, inv) [N] i64:
+    sorted slot j holds ray order[j], and ray i lands in slot inv[i].
+    `point` is kept in the signature for future locality keys."""
+    del point
+    N = d.shape[0]
+    pos_d = (d > 0).long()
+    octant = pos_d[:, 0] * 4 + pos_d[:, 1] * 2 + pos_d[:, 2]
+    bucket = torch.where(tmax >= 0, octant, 8)               # dead last
+    onehot = (bucket[:, None] == torch.arange(9, device=d.device)).long()
+    within = onehot.cumsum(dim=0) - 1                        # [N, 9]
+    totals = onehot.sum(dim=0)
+    offsets = totals.cumsum(dim=0) - totals                  # exclusive
+    inv = within.gather(1, bucket[:, None])[:, 0] + offsets[bucket]
+    order = torch.empty_like(inv)
+    order[inv] = torch.arange(N, device=d.device)
+    return order, inv
+
+
+def _cluster_tris(accel: Accel, o, d, tmax, sort_rays: bool, **kw):
+    """The cluster sweep over accel; with sort_rays it runs on
+    coherent_sweep_order's permutation of the rays, and the per-ray
+    results come back in the caller's order (visits stay per sorted
+    block)."""
+    if not sort_rays:
+        return cluster_sweep.cluster_tris(o, d, tmax, accel.aabbs,
+                                          accel.tiles, accel.layout, **kw)
+    order, inv = coherent_sweep_order(o, d, tmax)
+    *per_ray, visits = cluster_sweep.cluster_tris(
+        o[order], d[order], tmax[order], accel.aabbs, accel.tiles,
+        accel.layout, **kw)
+    return (*(x[inv] for x in per_ray), visits)
+
+
 def _sphere_hits(scene, o, d, budget):
     ts = intersect_spheres_t(o, d, budget, scene.sph_center,
                              scene.sph_radius)
@@ -103,17 +140,22 @@ def _sphere_hits(scene, o, d, budget):
 @torch.no_grad()
 def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
                 tri_table=None, shared_origin: bool = False, br: int = 512,
-                sc_n: int | None = None) -> HitIds:
+                sc_n: int | None = None, exact_keys: bool = True,
+                sort_rays: bool = False) -> HitIds:
     """Closest hit over the scene's triangles and then its spheres, which
     test under the budget min(best_t, tmax) (ctor order,
     bounding_volume_hierarchy.cpp:158-171). With an accel the triangles go
     through the cluster sweep (perm-space ids); without one through K3
     over tri_table (scene-order ids), packed here when not given.
-    shared_origin, br and sc_n tune the cluster sweep only."""
+    shared_origin, br, sc_n, exact_keys and sort_rays tune the cluster
+    sweep only. sort_rays runs it on coherent_sweep_order's permutation
+    (without the shared-origin hoist, as the JAX package does); exact-t
+    ties then resolve in the permuted visit order."""
     if uses_cluster_sweep(accel):
-        best_t, best_i, _ = cluster_sweep.cluster_tris(
-            o, d, tmax, accel.aabbs, accel.tiles, accel.layout, br=br,
-            sc_n=sc_n, shared_origin=shared_origin)
+        best_t, best_i, _ = _cluster_tris(
+            accel, o, d, tmax, sort_rays, br=br, sc_n=sc_n,
+            exact_keys=exact_keys,
+            shared_origin=shared_origin and not sort_rays)
     else:
         if tri_table is None:
             tri_table = sweep.pack_tri_table(scene.vertices, scene.tris,
@@ -133,7 +175,8 @@ def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
 @torch.no_grad()
 def any_hit_occlusion(scene, o, d, tmax, accel: Accel | None = None, *,
                       tri_table=None, br: int = 512, tri_rays=None,
-                      sc_n: int | None = None):
+                      sc_n: int | None = None, exact_keys: bool = True,
+                      sort_rays: bool = False):
     """True where any primitive blocks the ray within its budget.
 
     With an accel this is the cluster sweep's any-hit mode. tri_rays:
@@ -142,12 +185,13 @@ def any_hit_occlusion(scene, o, d, tmax, accel: Accel | None = None, *,
     reversed from the light). Triangle acceptance is invariant under that
     reversal; the sphere quadratic's a == 1 quirk is not, so spheres always
     test the forward (o, d). Without an accel the query is the forward
-    closest hit (K3), as in the JAX package, and tri_rays is not used."""
+    closest hit (K3), as in the JAX package, and tri_rays is not used.
+    sort_rays permutes the triangle query by coherent_sweep_order, whose
+    key is the query's direction and liveness."""
     if not uses_cluster_sweep(accel):
         return closest_hit(scene, o, d, tmax, tri_table=tri_table).hit
     to, td = tri_rays if tri_rays is not None else (o, d)
-    tri_hit, _ = cluster_sweep.cluster_tris(
-        to, td, tmax, accel.aabbs, accel.tiles, accel.layout, br=br,
-        sc_n=sc_n, any_hit=True)
+    tri_hit, _ = _cluster_tris(accel, to, td, tmax, sort_rays, br=br,
+                               sc_n=sc_n, any_hit=True, exact_keys=exact_keys)
     ts = _sphere_hits(scene, o, d, tmax)
     return tri_hit | torch.isfinite(ts.amin(dim=1))

@@ -48,7 +48,9 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
     blocked = any_hit_occlusion(scene, p, sdir, tmax, accel,
                                 tri_table=tri_table, br=params.sweep_br,
                                 tri_rays=rev,
-                                sc_n=params.sweep_anyhit_sc_n)
+                                sc_n=params.sweep_anyhit_sc_n,
+                                exact_keys=params.sweep_anyhit_exact_keys,
+                                sort_rays=bool(params.sweep_sort_shadow))
     return torch.where(blocked, 0.0, 1.0)
 
 

@@ -154,7 +154,9 @@ def _intersect_and_shade(scene, o, d, features, params, alive, accel,
     tmax = torch.where(alive, torch.inf, -1.0)
     ids = closest_hit(scene, o, d, tmax, accel, tri_table=tri_table,
                       shared_origin=shared_origin and params.sweep_shared_origin,
-                      br=params.sweep_br, sc_n=params.sweep_sc_n)
+                      br=params.sweep_br, sc_n=params.sweep_sc_n,
+                      exact_keys=params.sweep_exact_keys,
+                      sort_rays=bool(params.sweep_sort_bounce))
     attrs = hit_attributes(scene, o, d, ids, features, tables)
     local = light_contribution(scene, o, d, attrs.t, attrs.normal, attrs.kd,
                                attrs.ks, attrs.shininess, features, params,

@@ -101,10 +101,3 @@ def check_supported(features: Features, params: RenderParams) -> None:
             "transparency + recursive (TRANS+REC tree): see ROADMAP 1.5")
     if params.prims_axis is not None:
         raise NotImplementedError("prims_axis: multi-device, ROADMAP 1.8")
-    if params.sweep_sort_bounce or params.sweep_sort_shadow:
-        raise NotImplementedError(
-            "sweep_sort_*: coherence ray order, ROADMAP 1.11")
-    if not (params.sweep_exact_keys and params.sweep_anyhit_exact_keys):
-        raise NotImplementedError(
-            "sweep_exact_keys=False needs the frustum key pass "
-            "(_block_frustum_keys), ROADMAP section 2")

@@ -28,7 +28,20 @@ exits non-zero if any phase fails:
      and peak memory, held against the accel-on render of the same scene;
   7. the third path: the differentiable train step (loss_and_grads and
      sgd_step) over 128x128 camera rays of that scene, its ms per step, and
-     the same step on the card against the CPU twins for the small scene.
+     the same step on the card against the CPU twins for the small scene;
+  8. K2's opt-in modes against their twins on the card: refine_members on
+     the dragon at 2 clusters per visit (field layout) and on the
+     15,360-triangle stand-in (triangle layout), closest and any-hit, bit
+     for bit and against the walk without refine, with the dense tiles it
+     skipped; the tensor-core mxu mode on the stand-in against its twin
+     and the default walk, within MXU_TOL; the times of every mode and
+     twin;
+  9. the fourth path, kernel tuning: each tool of cge_tpu_torch.tools at
+     a quick size, then a 512x512 render of the stand-in with the accel,
+     frustum keys for both sweeps and the coherence ray order for bounces
+     and shadows, held against the default accel render;
+ 10. K4, the streaming probe, against its twin on the three tile layouts
+     at the dragon's scale, with GB/s per layout.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after. The line before the last is a JSON object with one entry
@@ -64,6 +77,20 @@ TRAIN_SIDE = 128
 TRAIN_LR = 2.0
 LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
 SEED = 0
+# the knobs of the tuning path's render: frustum keys and ray sorting
+ALL_KNOBS = dict(sweep_exact_keys=False, sweep_anyhit_exact_keys=False,
+                 sweep_sort_bounce=True, sweep_sort_shadow=True)
+# mxu against its twin or the default walk: the two-dot form on 3xTF32
+# products rounds differently, so a grazing ray may flip
+MXU_TOL = dict(hit_frac=0.9999, id_frac=0.9999, t_rel=1e-5)
+# each tool of the tuning path at a quick size
+TOOL_RUNS = (
+    ("sweep_grid", ["--cs", "128", "--brs", "512", "--reps", "2"]),
+    ("dragon_grid", ["--rings", "201", "--res", "256", "--sub", "512",
+                     "--reps", "2"]),
+    ("mxu_grid", ["all", "--res", "256", "--reps", "2"]),
+    ("stream_layout", ["--clusters", "1200", "--reps", "3"]),
+)
 
 
 def log(msg: str) -> None:
@@ -89,9 +116,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
 # phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
-def sweep_batches(scene, ctx, device):
+def sweep_batches(scene, accel, device, pullback: float = 0.0):
     """The batches the main path hands the sweep, at its chunk size:
-    primary rays (shared origin), a bounce-like batch and shadow rays."""
+    primary rays (shared origin), a bounce-like batch and shadow rays.
+    Each is (o, d, tmax, shared origin, any-hit, clusters per visit). The
+    secondary rays start (bounce) or end (shadow) at the primary hits,
+    moved `pullback` back toward the camera."""
     import numpy as np
     import torch
 
@@ -105,8 +135,8 @@ def sweep_batches(scene, ctx, device):
     mid = (W * H // n // 2) * n
     o, d = Camera().generate_rays(grid[mid:mid + n])
     inf = torch.full((n,), torch.inf, device=device)
-    ids = closest_hit(scene, o, d, inf, ctx.accel, shared_origin=True)
-    p = o + torch.where(ids.hit, ids.t, 0.0)[:, None] * d
+    ids = closest_hit(scene, o, d, inf, accel, shared_origin=True)
+    p = o + torch.where(ids.hit, ids.t - pullback, 0.0)[:, None] * d
     rng = np.random.default_rng(SEED)
     sd = rng.normal(size=(n, 3)).astype(np.float32)
     sd /= np.linalg.norm(sd, axis=1, keepdims=True)
@@ -140,10 +170,9 @@ def check_kernels(scene, ctx, device, timing: bool):
     acc = ctx.accel
     report = {"keys": {"err": 0.0}, "walk": {"err": 0.0}}
     for name, (o, d, tmax, shared, any_hit, sc_n) in sweep_batches(
-            scene, ctx, device).items():
-        rays, boxes, tiles, sc_n = cs.sweep_setup(o, d, tmax, acc.aabbs,
-                                                  acc.tiles, acc.layout,
-                                                  cs.DEFAULT_BR, sc_n)
+            scene, ctx.accel, device).items():
+        rays, boxes, tiles, sc_n, _ = cs.sweep_setup(
+            o, d, tmax, acc.aabbs, acc.tiles, acc.layout, cs.DEFAULT_BR, sc_n)
         keys = cs.block_entry_keys(rays, boxes)
         keys_p = cs.block_entry_keys_plain(rays, boxes)
         fin = torch.isfinite(keys_p)
@@ -156,9 +185,9 @@ def check_kernels(scene, ctx, device, timing: bool):
         order = order.int().contiguous()
         kw = dict(layout=acc.layout, sc_n=sc_n, any_hit=any_hit,
                   shared_origin=shared)
-        bt, bi, vis = cs.cluster_walk(order, skeys, rays, tiles, **kw)
-        bt_p, bi_p, vis_p = cs.cluster_walk_plain(order, skeys, rays, tiles,
-                                                  **kw)
+        bt, bi, vis, _ = cs.cluster_walk(order, skeys, rays, tiles, **kw)
+        bt_p, bi_p, vis_p, _ = cs.cluster_walk_plain(order, skeys, rays,
+                                                     tiles, **kw)
         if not torch.equal(vis, vis_p):
             raise AssertionError(f"{name}: K2 visit counts differ")
         if not torch.equal(bi, bi_p):
@@ -310,18 +339,20 @@ def check_sweep(scene, ctx, device):
     return report
 
 
-def reset_launches():
-    from cge_tpu_torch.ops import cluster_sweep, sweep
+def _counters():
+    from cge_tpu_torch.ops import cluster_sweep, stream_probe, sweep
 
-    for counts in (cluster_sweep.LAUNCHES, sweep.LAUNCHES):
+    return (cluster_sweep.LAUNCHES, sweep.LAUNCHES, stream_probe.LAUNCHES)
+
+
+def reset_launches():
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    from cge_tpu_torch.ops import cluster_sweep, sweep
-
-    return {**cluster_sweep.LAUNCHES, **sweep.LAUNCHES}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def compare_images(a, b):
@@ -484,6 +515,226 @@ def small_train_check(device, tmp):
         raise AssertionError("card and CPU train steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: K2's opt-in modes against their twins
+# ---------------------------------------------------------------------------
+
+def _mode_batches(scene, accel, device, pullback: float = 0.0):
+    """(o, d, tmax, any-hit) of sweep_batches' primary, bounce-like and
+    shadow batches for this scene and accel."""
+    batches = sweep_batches(scene, accel, device, pullback)
+    return {k: (v[0], v[1], v[2], v[4]) for k, v in batches.items()
+            if k in ("a_primary", "b_bounce", "c_shadow")}
+
+
+def _walk_inputs(batch, accel, sc_n):
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    o, d, tmax, any_hit = batch
+    inp = cs.sweep_setup(o, d, tmax, accel.aabbs, accel.tiles, accel.layout,
+                         cs.DEFAULT_BR, sc_n)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout=accel.layout, sc_n=inp.sc_n, any_hit=any_hit,
+              aabbs=inp.aabbs)
+    return (order, skeys, inp.rays, inp.tiles), kw
+
+
+def check_refine(scene, accel, device, sc_n: int, label: str, stats):
+    """refine_members on the card: t, ids, visits and dense tiles equal to
+    the twin's bit for bit, and t, ids and visits equal to the default
+    kernel's. Adds the tiles skipped to stats."""
+    import torch
+
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    for name, batch in _mode_batches(scene, accel, device).items():
+        args, kw = _walk_inputs(batch, accel, sc_n)
+        base = cs.cluster_walk(*args, **kw)
+        got = cs.cluster_walk(*args, refine_members=True, **kw)
+        twin = cs.cluster_walk_plain(*args, refine_members=True, **kw)
+        for what, a, b in zip(("t", "ids", "visits", "dense tiles"), got,
+                              twin):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} {name}: refine {what} differ "
+                                     f"from the twin")
+        for what, a, b in zip(("t", "ids", "visits"), got, base):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} {name}: refine {what} differ "
+                                     f"from the walk without refine")
+        tiles = int(base[3].sum())
+        kept = int(got[3].sum())
+        if tiles != int(base[2].sum()) * kw["sc_n"]:
+            raise AssertionError(f"{label} {name}: dense tiles != visits x "
+                                 f"sc_n without refine")
+        stats["skipped"] += tiles - kept
+        t = dict(walk=cuda_ms(lambda: cs.cluster_walk(*args, **kw)),
+                 refine=cuda_ms(lambda: cs.cluster_walk(
+                     *args, refine_members=True, **kw)),
+                 twin=cuda_ms(lambda: cs.cluster_walk_plain(
+                     *args, refine_members=True, **kw), reps=1))
+        log(f"  {label} sc_n={kw['sc_n']} {name}: blocks "
+            f"{args[2].shape[0]} visits {int(base[2].sum())} dense tiles "
+            f"{tiles} -> {kept} with refine | ms K2 {t['walk']:.4f} refine "
+            f"{t['refine']:.4f} (twin {t['twin']:.3f})")
+        if label == "dragon" and name == "a_primary":
+            stats.update(ms=t["refine"], plain_ms=t["twin"])
+
+
+def mxu_agreement(got, want, any_hit: bool):
+    """(hit fraction, id fraction over rays that hit on both sides, max
+    |dt| / max(1, t) over rays with equal ids, max |dt| there)."""
+    import torch
+
+    t, i = got[0].reshape(-1), got[1].reshape(-1)
+    tw, iw = want[0].reshape(-1), want[1].reshape(-1)
+    h = (i > 0) if any_hit else torch.isfinite(t)
+    hw = (iw > 0) if any_hit else torch.isfinite(tw)
+    hit_frac = float((h == hw).float().mean())
+    if any_hit:
+        return hit_frac, 1.0, 0.0, 0.0
+    both = h & hw
+    same = both & (i == iw)
+    id_frac = float(same.sum()) / max(1, int(both.sum()))
+    if not same.any():
+        return hit_frac, id_frac, 0.0, 0.0
+    err = (t - tw).abs()[same]
+    rel = float((err / tw.abs()[same].clamp_min(1.0)).max())
+    return hit_frac, id_frac, rel, float(err.max())
+
+
+def check_mxu(scene, accel, device, stats):
+    """The tensor-core mode on the card against its twin (torch.matmul,
+    TF32 off) and against the default walk, within MXU_TOL. The secondary
+    rays start or end 1e-3 off the surface, as the renderer's offsets and
+    the CPU fixtures put them: a ray that starts on a surface meets it at
+    t ~ 0, where the t >= 0 test flips under any change of rounding."""
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    for name, batch in _mode_batches(scene, accel, device, 1e-3).items():
+        args, kw = _walk_inputs(batch, accel, 1)
+        any_hit = kw["any_hit"]
+        got = cs.cluster_walk(*args, mxu=True, **kw)
+        twin = cs.cluster_walk_plain(*args, mxu=True, **kw)
+        base = cs.cluster_walk(*args, **kw)
+        rows = []
+        for other, ref in (("twin", twin), ("default walk", base)):
+            hit, idf, rel, err = mxu_agreement(got, ref, any_hit)
+            rows.append(f"vs {other}: hits {hit:.6f} ids {idf:.6f} "
+                        f"max |dt|/max(1,t) {rel:.3g}")
+            if (hit < MXU_TOL["hit_frac"] or idf < MXU_TOL["id_frac"]
+                    or rel > MXU_TOL["t_rel"]):
+                raise AssertionError(f"stand-in {name}: mxu disagrees with "
+                                     f"the {other}: {rows[-1]}")
+            if other == "twin":
+                stats["err"] = max(stats["err"], err)
+        t = dict(walk=cuda_ms(lambda: cs.cluster_walk(*args, **kw)),
+                 mxu=cuda_ms(lambda: cs.cluster_walk(*args, mxu=True, **kw)),
+                 twin=cuda_ms(lambda: cs.cluster_walk_plain(
+                     *args, mxu=True, **kw), reps=1))
+        log(f"  stand-in mxu {name}: {' | '.join(rows)} | ms K2 "
+            f"{t['walk']:.4f} mxu {t['mxu']:.4f} (twin {t['twin']:.3f})")
+        if name == "a_primary":
+            stats.update(ms=t["mxu"], plain_ms=t["twin"])
+
+
+def check_modes(scene, accel, tscene, device):
+    """Phase 8: refine on the dragon (sc_n = 2, field layout) and the
+    stand-in (sc_n = 1, triangle layout), mxu on the stand-in."""
+    from cge_tpu_torch.ops.intersect import build_accel
+
+    taccel = build_accel(tscene, "triangle")
+    refine = {"err": 0.0, "skipped": 0}
+    check_refine(scene, accel, device, 2, "dragon", refine)
+    check_refine(tscene, taccel, device, 1, "stand-in", refine)
+    if refine["skipped"] <= 0:
+        raise AssertionError("refine_members skipped no dense tile")
+    log(f"    refine: bit-equal everywhere, {refine['skipped']} dense tiles "
+        f"skipped in all")
+    mxu = {"err": 0.0}
+    check_mxu(tscene, taccel, device, mxu)
+    return {"refine": refine, "mxu": mxu}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the tuning path, K4
+# ---------------------------------------------------------------------------
+
+def tuning_path(tscene, device):
+    """Each tool's main at a quick size with the counters read around the
+    lot; then the stand-in's 512x512 accel render with every sweep knob of
+    ALL_KNOBS against the default accel render. Returns the tools'
+    launches."""
+    import importlib
+
+    import torch
+
+    import cge_tpu_torch as ct
+
+    log("[9] tuning path: cge_tpu_torch.tools at quick sizes")
+    reset_launches()
+    for name, argv in TOOL_RUNS:
+        t0 = time.perf_counter()
+        rc = importlib.import_module(f"cge_tpu_torch.tools.{name}").main(argv)
+        log(f"    ({name} {' '.join(argv)}: exit {rc}, "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if rc != 0:
+            raise AssertionError(f"tool {name} exited {rc}")
+    launches = read_launches()
+    log(f"    tools' launches {launches}")
+    for k in ("walk_refine", "walk_mxu", "stream_probe"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the tuning path never launched {k}")
+
+    feats = ct.Features(**HEADLINE)
+    params = ct.RenderParams(**ALL_KNOBS)
+    ctx = ct.prepare_render(tscene, feats, params)
+    reset_launches()
+    img = ct.render_image(tscene, ct.Camera(), feats, params, W, H, ctx=ctx)
+    torch.cuda.synchronize()
+    knobs = read_launches()
+    if knobs["walk"] <= 0 or knobs["keys"] or knobs["sweep"]:
+        raise AssertionError(f"the all-knobs render launched {knobs}")
+    ms = cuda_ms(lambda: ct.render_image(tscene, ct.Camera(), feats, params,
+                                         W, H, ctx=ctx), reps=3)
+    base_params = ct.RenderParams()
+    base_ctx = ct.prepare_render(tscene, feats, base_params)
+    base = ct.render_image(tscene, ct.Camera(), feats, base_params, W, H,
+                           ctx=base_ctx)
+    base_ms = cuda_ms(lambda: ct.render_image(
+        tscene, ct.Camera(), feats, base_params, W, H, ctx=base_ctx), reps=3)
+    nan_agree, frac = compare_images(img.cpu().numpy(), base.cpu().numpy())
+    log(f"    all-knobs render 512x512 ({int(tscene.tri_mask.sum())} "
+        f"triangles, {ALL_KNOBS}): launches {knobs}, {ms:.2f} ms vs "
+        f"{base_ms:.2f} ms default accel render; NaN agree {nan_agree:.5f}, "
+        f"{frac:.4%} pixels close")
+    if nan_agree < 0.999 or frac < 0.995:
+        raise AssertionError("the all-knobs render disagrees with the default")
+    return launches
+
+
+def check_stream(device):
+    """Phase 10: K4 against its twin on the three layouts at L = 4800,
+    C = 128, within stream_layout's bound; GB/s per layout."""
+    from cge_tpu_torch.ops import stream_probe
+    from cge_tpu_torch.tools import stream_layout
+
+    report = {"err": 0.0}
+    log("[10] K4 stream_sum vs twin (L = 4800 clusters, C = 128)")
+    for name, stack in stream_layout.make_stacks(4800, 128, device).items():
+        m = stream_layout.measure(stack, device, reps=20)
+        gb = stream_probe.stream_bytes(stack) / 1e9
+        log(f"  {name}: {gb * 1e3:.1f} MB | warm {m['ms']:.4f} ms "
+            f"{gb / (m['ms'] / 1e3):.1f} GB/s, cold {m['cold_ms']:.4f} ms "
+            f"{gb / (m['cold_ms'] / 1e3):.1f} GB/s | twin {m['plain_ms']:.4f}"
+            f" ms | max |K4 - twin| {m['err']:.3g} (bound {m['bound']:.3g})")
+        if m["err"] > m["bound"]:
+            raise AssertionError(f"{name}: K4 disagrees with its twin")
+        report["err"] = max(report["err"], m["err"])
+        if name.startswith("A"):
+            report.update(ms=m["ms"], plain_ms=m["plain_ms"])
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -563,11 +814,11 @@ def main() -> int:
         lit = float((img.float().sum(-1) > 0).float().mean())
         if lit < 0.05:
             raise AssertionError(f"image is blank: {lit:.4f} lit pixels")
-        for k in cs.LAUNCHES:
+        for k in ("keys", "walk"):
             if launches[k] <= 0:
                 raise AssertionError(f"main path never launched kernel {k}")
-        if launches["sweep"]:
-            raise AssertionError("the accel path launched K3")
+        if launches["sweep"] or launches["walk_refine"] or launches["walk_mxu"]:
+            raise AssertionError(f"the accel path launched {launches}")
         frames = []
         for _ in range(5):
             start = torch.cuda.Event(enable_timing=True)
@@ -617,6 +868,14 @@ def main() -> int:
         train_path(tscene, device)
         small_train_check(device, tmp)
 
+        # phase 8: K2's refine and mxu modes against their twins
+        log("[8] K2 refine_members and mxu vs twins (same inputs, card)")
+        modes = check_modes(scene, ctx.accel, tscene, device)
+
+        # phases 9 and 10: the tuning path, then K4 against its twin
+        tool_launches = tuning_path(tscene, device)
+        report["stream"] = check_stream(device)
+
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     kernels = [
         dict(name="block_entry_keys", route="cuda", source=src,
@@ -633,6 +892,23 @@ def main() -> int:
              launches=brute_launches["sweep"],
              max_abs_err=report["sweep"]["err"], ms=report["sweep"]["ms"],
              plain_ms=report["sweep"]["plain_ms"]),
+        dict(name="cluster_walk_refine", route="cuda", source=src,
+             replaces="cge_tpu/ops/pallas/cluster_sweep.py:437",
+             launches=tool_launches["walk_refine"],
+             max_abs_err=modes["refine"]["err"], ms=modes["refine"]["ms"],
+             plain_ms=modes["refine"]["plain_ms"]),
+        dict(name="cluster_walk_mxu", route="cuda", source=src,
+             replaces="cge_tpu/ops/pallas/cluster_sweep.py:361",
+             launches=tool_launches["walk_mxu"],
+             max_abs_err=modes["mxu"]["err"], ms=modes["mxu"]["ms"],
+             plain_ms=modes["mxu"]["plain_ms"]),
+        dict(name="stream_sum", route="cuda",
+             source="cge_tpu_torch/csrc/stream_probe.cu",
+             replaces="tools/exp_dma_layout.py:28",
+             launches=tool_launches["stream_probe"],
+             max_abs_err=report["stream"]["err"],
+             ms=report["stream"]["ms"],
+             plain_ms=report["stream"]["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

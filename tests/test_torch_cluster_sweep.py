@@ -141,7 +141,7 @@ def test_block_entry_keys_twin_matches_pallas(batches, stacks, which):
     """K1's twin against _block_entry_keys(interpret=True) on the same
     packed rays and supercluster boxes: equal keys (the same f32 ops in
     the same order), +inf in the same places."""
-    rays, boxes, _, _ = _setup(batches[which], stacks["field"], "field", 4)
+    rays, boxes = _setup(batches[which], stacks["field"], "field", 4)[:2]
     keys = cs.block_entry_keys(rays, boxes)
     ref = np.asarray(_block_entry_keys(jnp.asarray(rays.numpy()),
                                        jnp.asarray(boxes.numpy()),
@@ -225,8 +225,8 @@ def test_exit_bound_boundary_hit():
 def test_cpu_wrappers_run_the_twins(batches, stacks):
     """On CPU tensors the wrappers return the twins' results and launch
     nothing."""
-    rays, boxes, tiles, sc_n = _setup(batches["bounce"], stacks["field"],
-                                      "field", 4)
+    rays, boxes, tiles, sc_n, _ = _setup(batches["bounce"], stacks["field"],
+                                         "field", 4)
     before = dict(cs.LAUNCHES)
     keys = cs.block_entry_keys(rays, boxes)
     torch.testing.assert_close(keys, cs.block_entry_keys_plain(rays, boxes),
@@ -255,8 +255,8 @@ def test_kernels_match_twins_on_card(batches, stacks, mode, cuda_device):
     card: equal keys, ids, visit counts and t (the kernels are built with
     --fmad=false, so both sides round alike)."""
     which, layout, sc_n, any_hit, shared = MODES[mode]
-    rays, boxes, tiles, sc_n = _setup(batches[which], stacks[layout], layout,
-                                      sc_n)
+    rays, boxes, tiles, sc_n, _ = _setup(batches[which], stacks[layout],
+                                         layout, sc_n)
     rays, boxes, tiles = (x.to(cuda_device) for x in (rays, boxes, tiles))
     n_keys = cs.LAUNCHES["keys"]
     keys = cs.block_entry_keys(rays, boxes)
@@ -274,8 +274,8 @@ def test_kernels_match_twins_on_card(batches, stacks, mode, cuda_device):
 
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs_on_card(stacks, batches, cuda_device):
-    rays, boxes, tiles, _ = _setup(batches["primary"], stacks["field"],
-                                   "field", 4)
+    rays, boxes, tiles = _setup(batches["primary"], stacks["field"],
+                                "field", 4)[:3]
     with pytest.raises(ValueError):
         cs.block_entry_keys(rays.to(cuda_device).double(),
                             boxes.to(cuda_device))

@@ -208,7 +208,12 @@ def test_port_never_imports_jax():
     assert len(files) >= 18
     names = {f.relative_to(PKG.parent).as_posix() for f in files}
     assert {"cge_tpu_torch/ops/sweep.py", "cge_tpu_torch/diff/gradients.py",
-            "cge_tpu_torch/diff/__init__.py"} <= names
+            "cge_tpu_torch/diff/__init__.py",
+            "cge_tpu_torch/ops/stream_probe.py"} <= names
+    tools = {f"cge_tpu_torch/tools/{m}.py" for m in (
+        "__init__", "common", "sweep_grid", "dragon_grid", "mxu_grid",
+        "stream_layout")}
+    assert tools <= names
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "cge_tpu")]
     assert bad == []
@@ -231,14 +236,35 @@ def test_unported_features_raise(flag):
     dict(features=dict(enable_recursive=False, enable_transparency=True,
                        enable_hard_shadow=True)),
     dict(features=dict(enable_transparency=True)),
-    dict(params=dict(sweep_exact_keys=False)),
+    # ported since: the frustum key pass and the coherence ray order
+    dict(params=dict(sweep_exact_keys=False), renders=True),
     dict(params=dict(prims_axis="prims")),
-    dict(params=dict(sweep_sort_bounce=True))])
-def test_unported_paths_raise(change):
+    dict(params=dict(sweep_sort_bounce=True), renders=True)])
+def test_unported_paths_raise(change, monkeypatch):
+    """Paths outside the port raise NotImplementedError. The cases marked
+    `renders` are the sweep knobs ported since (frustum keys, the
+    coherence ray order): they render, and match the JAX package's render
+    with its cluster path in interpret mode under the image rules (NaN
+    masks agree; >= 99.5% of pixels within rtol 1e-4 / atol 2e-4)."""
     scene = ct.load_scene_prebuilt(ct.SceneType.Spheres)
-    f = ct.Features(enable_shading=True, enable_recursive=True,
-                    enable_accel_structure=True).replace(
-                        **change.get("features", {}))
-    p = ct.RenderParams().replace(**change.get("params", {}))
-    with pytest.raises(NotImplementedError):
-        ct.render_image(scene, ct.Camera(), f, p, 32, 16)
+    feats = {**dict(enable_shading=True, enable_recursive=True,
+                    enable_accel_structure=True), **change.get("features", {})}
+    params = change.get("params", {})
+    f = ct.Features(**feats)
+    p = ct.RenderParams().replace(**params)
+    if not change.get("renders"):
+        with pytest.raises(NotImplementedError):
+            ct.render_image(scene, ct.Camera(), f, p, 32, 16)
+        return
+    from cge_tpu.ops import intersect as jint
+    monkeypatch.setattr(jint, "FORCE_CLUSTER_INTERPRET", True)
+    ref = np.asarray(cge_tpu.render_image(
+        cge_tpu.load_scene_prebuilt(cge_tpu.SceneType.Spheres),
+        cge_tpu.Camera(), cge_tpu.Features(**feats),
+        cge_tpu.RenderParams(**params), 32, 16))
+    img = ct.render_image(scene, ct.Camera(), f, p, 32, 16).numpy()
+    assert np.nanmax(ref) > 0.05
+    assert (np.isnan(img) == np.isnan(ref)).mean() > 0.999
+    both = np.isfinite(img) & np.isfinite(ref)
+    close = np.isclose(img, ref, rtol=1e-4, atol=2e-4) | ~both
+    assert close.all(axis=-1).mean() >= 0.995
