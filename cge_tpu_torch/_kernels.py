@@ -22,6 +22,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name)
                 for name in ("cluster_sweep.cu", "sweep.cu",
                              "stream_probe.cu"))
+# included by the sources: part of the build's hash
+HEADERS = (os.path.join(_PKG, "csrc", "async_copy.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cge_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -38,6 +40,10 @@ _SIGNATURES = {
     # stream
     "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P),
+    # order, skeys, rays, tiles, best_t, best_i, visits, dense, NB, n_sc,
+    # BR, sc_n, C, field_major, any_hit, shared_origin, cs, lanes, stream
+    "cge_cluster_walk_split": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
     # o, d, tmax, table, best_t, best_i, part_t, part_i, R, T, n_split,
     # stream
     "cge_closest_tris_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -90,7 +96,7 @@ def library() -> KernelLibrary:
     if _LIBRARY is not None:
         return _LIBRARY
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

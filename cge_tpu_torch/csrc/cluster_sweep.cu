@@ -15,28 +15,67 @@
 //     precomputed (BR divides instead of S * BR); each thread owns one box
 //     and loops over the live rays, keeping the minimum.
 //
-// K2  cge_cluster_walk  replaces the Pallas kernel `_cluster_kernel`
-//     (cge_tpu/ops/pallas/cluster_sweep.py, launched by pallas_cluster_tris).
-//     One block per ray block walks that block's supercluster order (sorted
-//     by K1's keys) front to back. Per visited cluster every ray is tested
-//     against the cluster's C triangles (plane t, then three edge planes);
-//     a hit is accepted when 0 <= t <= tmax. The walk stops when the next
-//     key is past every live ray's min(best t, tmax, scene exit t), or the
-//     key is >= FLT_MAX. Modes: closest hit (last accepted wins on equal t:
-//     the largest slot within a cluster, the later visit across clusters),
-//     any hit (a hit ray is marked done with the -3e38 sentinel and flag 1),
-//     and the shared-origin hoist of o.n for primary rays.
-//     Bound on this card: arithmetic and the serial walk. Each visit is
-//     C * BR ray-triangle tests (~40 flops each) on 8 KB of constants that
-//     every ray reuses; the walk length is data-dependent, and a block-wide
-//     reduction per step decides the stop.
-//     Design: one thread per ray (BR threads). Per visited cluster the block
-//     stages its C x 16 constants in shared memory, triangle-major whatever
-//     the stack's layout, and each thread runs the C tests in slot order,
-//     taking a hit when t <= best: that reproduces the Pallas tile's tie
-//     rule exactly. The stack stays in device memory at every size; the
-//     TPU's VMEM-resident / streamed split does not carry over, so the tile
-//     layout is only an addressing parameter here.
+// K2  cge_cluster_walk_split / cge_cluster_walk  replace the Pallas kernel
+//     `_cluster_kernel` (cge_tpu/ops/pallas/cluster_sweep.py, launched by
+//     pallas_cluster_tris). Each ray block of BR rays walks its
+//     supercluster order (sorted by K1's keys) front to back. Per visited
+//     cluster every ray is tested against the cluster's C triangles (plane
+//     t, then three edge planes); a hit is accepted when 0 <= t <= tmax.
+//     The walk stops when the next key is past every live ray's min(best
+//     t, tmax, scene exit t), or the key is >= FLT_MAX. Modes: closest hit
+//     (the tile's smallest t, the largest slot on a tie, taken when t <=
+//     best: the later visit wins across clusters), any hit (a hit ray is
+//     marked done with the -3e38 sentinel and flag 1), and the shared
+//     origin of primary rays (o.n from the block's first ray).
+//     Bound on this card: arithmetic. A visit is C tests (31-36 flops and a
+//     divide each) per live ray on 8 KB of constants that every ray of the
+//     block reuses. In practice the walk is bound by its latency: a 16k-ray
+//     chunk is 32 ray blocks, each walks its visits one after the other,
+//     and the kernel lasts as long as the longest walk (161 visits where
+//     the mean is 40 on the dragon's primary chunk), each visit ending in a
+//     max over the whole ray block.
+//
+//     The default walk (cluster_walk_split_kernel) replaces a
+//     one-thread-per-ray block (32 blocks of 512 threads on 132 SMs, the
+//     tile staged synchronously between two barriers, two more barriers for
+//     the stop). Its design:
+//     - A ray block is a thread block cluster of CS CTAs, BR / CS rays
+//       each. The stop's max is formed from the CTAs' partials through
+//       distributed shared memory (remote stores, then the cluster
+//       barrier), so every CTA takes exactly the block's visits.
+//     - The stop is pipelined: visit k + 1 is tested while the stop after
+//       visit k is reduced across the cluster (barrier.cluster arrive,
+//       then wait after the tests). Its result is committed only when that
+//       stop is known to be false. This is exact because a visit's result
+//       (the smallest t, the largest id on a tie) does not depend on the
+//       ray's best until it is taken (t <= best).
+//     - L lanes of one warp share a ray and split each tile's C slots
+//       (lane l takes slots l, l + L, ...). A lane keeps its smallest
+//       accepted t and, on a tie, its largest slot; the lanes merge by
+//       shuffles under the same rule, members fold in visit order, and the
+//       ray takes the result when t <= best: the twin's rule, so t, ids,
+//       visits and dense tiles are bit-equal.
+//     - A plane t that cannot be taken (t < 0, past tmax, past the lane's
+//       or the ray's best) skips the edge tests; the skip changes no result.
+//     - The next tile is in flight while a tile is tested: a two-slot ring
+//       filled by cp.async (the counterpart of the Pallas kernel's
+//       make_async_copy), with the visit order read two visits ahead. The
+//       next visit's first tile is fetched before the stop is known; the
+//       walk waits for it before it leaves, so no copy is in flight at
+//       exit.
+//     - The copies scatter each tile, whatever its layout in the stack,
+//       into a quad-major buffer: float4 (k4, c) at k4 * C + c holds
+//       fields 4 k4 .. 4 k4 + 3 of slot c. The lanes of a warp then read
+//       neighbouring float4s, free of bank conflicts.
+//     - Each CTA orders its rays live first before the walk. The ray set
+//       is unchanged, so the visits are too, and warps of dead rays skip
+//       the tests on bounce levels.
+//     A per-tile hoist of the shared origin's o.n would add a barrier to
+//     every visit, which costs the latency-bound walk more than the five
+//     flops a test it saves; each lane computes it from the block's first
+//     ray instead, as the twin does.
+//     The one-thread-per-ray kernel (cluster_walk_kernel below) still runs
+//     the opt-in modes.
 //     Opt-in modes (the Pallas kernel's refine_members and mxu flags):
 //     - refine: before a member cluster's tile is staged, every ray takes
 //       its slab entry into the member's box (as K1 does per pair, with
@@ -67,13 +106,19 @@
 // product and sum as the plain PyTorch twins do: both compute bit-identical
 // t's, and an edge test at a silhouette cannot flip between them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 #define CGE_FLT_MAX 3.4028234663852886e38f
 #define CGE_DONE (-3.0e38f)
+#define FULL_MASK 0xffffffffu
+
+namespace cg = cooperative_groups;
 
 // NaN-propagating min / max, as jnp.minimum / jnp.maximum and torch's.
 __device__ __forceinline__ float jmin(float a, float b) {
@@ -473,6 +518,318 @@ cluster_walk_kernel(const int* __restrict__ order,
 }
 
 // ---------------------------------------------------------------------------
+// K2, default walk: a thread block cluster per ray block, L lanes per ray
+// ---------------------------------------------------------------------------
+
+// Start the copies of cluster cl's tile into a quad-major buffer [4][C]
+// of float4: (k4, c) holds fields 4 k4 .. 4 k4 + 3 of slot c. The
+// triangle layout [C][16] moves as float4s, the field layout [16][C] as
+// single floats (neighbouring threads read neighbouring slots).
+__device__ __forceinline__ void issue_tile(float* dst,
+                                           const float* __restrict__ tiles,
+                                           int cl, int C, int field_major) {
+    const float* src = tiles + (size_t)cl * C * 16;
+    if (field_major) {
+        for (int i = threadIdx.x; i < C * 16; i += blockDim.x) {
+            const int k = i / C, c = i - k * C;
+            cp_async4(dst + ((k >> 2) * C + c) * 4 + (k & 3), src + i);
+        }
+    } else {
+        for (int i = threadIdx.x; i < C * 4; i += blockDim.x)
+            cp_async16(dst + ((i & 3) * C + (i >> 2)) * 4, src + 4 * i);
+    }
+    cp_async_commit();
+}
+
+// The stop's max over the cluster, in two halves so that the next visit's
+// tests run while it is in flight. push_partial: this CTA's max of v goes
+// into slot `rank` of s_part[parity] in every CTA of the cluster (remote
+// stores), then the cluster barrier is arrived at with release semantics.
+// wait_max: the barrier is waited on with acquire semantics and the CS
+// partials are read locally. A slot is written again two reductions later,
+// after the next barrier, which no CTA passes before it has read it.
+#define SPLIT_MAX_CS 8      // the portable cluster size
+
+template <int CS>
+__device__ __forceinline__ void push_partial(float v, float* s_red,
+                                             float* s_part, int parity,
+                                             int rank) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int off = 16; off > 0; off >>= 1)
+        v = jmax(v, __shfl_xor_sync(FULL_MASK, v, off));
+    if (lane == 0)
+        s_red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        float w = lane < (int)(blockDim.x >> 5) ? s_red[lane] : -INFINITY;
+        for (int off = 16; off > 0; off >>= 1)
+            w = jmax(w, __shfl_xor_sync(FULL_MASK, w, off));
+        if (lane < CS)
+            *cg::this_cluster().map_shared_rank(
+                s_part + parity * SPLIT_MAX_CS + rank, lane) = w;
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+template <int CS>
+__device__ __forceinline__ float wait_max(const float* s_part, int parity) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    float need = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < CS; ++r)
+        need = jmax(need, s_part[parity * SPLIT_MAX_CS + r]);
+    return need;
+}
+
+// Shared memory of the split walk, in 4-byte words: two quad-major tile
+// buffers, the reduction scratch, the cluster partials, the live-ray scan
+// and the CTA's ray order.
+static size_t split_walk_smem_words(int C, int rays_per_cta) {
+    return (size_t)32 * C + 32 + 2 * SPLIT_MAX_CS + 32 + rays_per_cta;
+}
+
+#define SPLIT_MAX_THREADS 1024
+
+// One visit's test of this lane's slots of the tile at q, merged over the
+// ray's L lanes: (smallest accepted t, its largest slot) or, any hit, the
+// OR of the hits. A plane t that cannot be accepted (behind the origin,
+// past tmax, or past the ray's best bt, which the tile's result must reach
+// to be taken) skips the edge tests. (o0x, o0y, o0z) is the origin of o.n:
+// the block's first ray in the shared-origin mode. Every lane of the warp
+// takes part in the shuffles.
+template <int L>
+__device__ __forceinline__ void test_tile(
+        const float4* q, int C, int l, float ox, float oy, float oz,
+        float o0x, float o0y, float o0z, float dx, float dy, float dz,
+        float tm, float bt, int any_hit, float& lt, int& li, bool& lh) {
+    lt = INFINITY;
+    li = -1;
+    lh = false;
+#pragma unroll 4
+    for (int c = l; c < C; c += L) {
+        const float4 n = q[c];
+        const float dn = (dx * n.x + dy * n.y) + dz * n.z;
+        const float on = (o0x * n.x + o0y * n.y) + o0z * n.z;
+        const float t = (n.w - on) / dn;
+        if (!(t >= 0.0f && t <= tm &&
+              (any_hit || (t < INFINITY && t <= lt && t <= bt))))
+            continue;
+        const float4 e0 = q[C + c], e1 = q[2 * C + c], e2 = q[3 * C + c];
+        const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+        if (((px * e0.x - e0.w) + py * e0.y) + pz * e0.z >= 0.0f &&
+            ((px * e1.x - e1.w) + py * e1.y) + pz * e1.z >= 0.0f &&
+            ((px * e2.x - e2.w) + py * e2.y) + pz * e2.z >= 0.0f) {
+            lh = true;
+            lt = t;                  // slots rise: the later one wins a tie
+            li = c;
+        }
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(FULL_MASK, lt, off);
+        const int oi = __shfl_xor_sync(FULL_MASK, li, off);
+        if (ot < lt || (ot == lt && oi > li)) {
+            lt = ot;
+            li = oi;
+        }
+        lh = __shfl_xor_sync(FULL_MASK, (int)lh, off) || lh;
+    }
+}
+
+template <int CS, int L>
+__global__ void __launch_bounds__(SPLIT_MAX_THREADS)
+cluster_walk_split_kernel(const int* __restrict__ order,
+                          const float* __restrict__ skeys,
+                          const float* __restrict__ rays,
+                          const float* __restrict__ tiles,
+                          float* __restrict__ best_t,
+                          int* __restrict__ best_i,
+                          int* __restrict__ visits,
+                          int* __restrict__ dense,
+                          int n_sc, int BR, int sc_n, int C, int field_major,
+                          int any_hit, int shared_origin) {
+    extern __shared__ __align__(16) float smem[];
+    float* s_q = smem;                       // [2][4][C] float4
+    float* s_red = smem + 32 * C;            // [32]
+    float* s_part = s_red + 32;              // [2][SPLIT_MAX_CS]
+    int* s_cnt = reinterpret_cast<int*>(s_part + 2 * SPLIT_MAX_CS);  // [32]
+    int* s_perm = s_cnt + 32;                // [BR / CS]
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int b = blockIdx.x / CS;
+    const int rpc = BR / CS;                 // rays of this CTA
+    const float* rb = rays + (size_t)b * 8 * BR;
+    const int* ord = order + (size_t)b * n_sc;
+    const float* sk = skeys + (size_t)b * n_sc;
+
+    // the CTA's rays, live ones first in their order, then the dead ones
+    const int scan_warps = (rpc + 31) >> 5;
+    const bool lv = tid < rpc && rb[6 * BR + rank * rpc + tid] >= 0.0f;
+    unsigned ballot = 0;
+    if (warp < scan_warps) {
+        ballot = __ballot_sync(FULL_MASK, lv);
+        if (lane == 0)
+            s_cnt[warp] = __popc(ballot);
+    }
+    __syncthreads();
+    if (tid < rpc) {
+        int before = 0, n_live = 0;
+        for (int w = 0; w < scan_warps; ++w) {
+            before += w < warp ? s_cnt[w] : 0;
+            n_live += s_cnt[w];
+        }
+        const int lb = before + __popc(ballot & ((1u << lane) - 1u));
+        s_perm[lv ? lb : n_live + tid - lb] = tid;
+    }
+    __syncthreads();
+
+    // lanes l of group g share ray r
+    const int g = tid / L, l = tid % L;
+    const int r = rank * rpc + s_perm[g];
+    const float ox = rb[r], oy = rb[BR + r], oz = rb[2 * BR + r];
+    const float dx = rb[3 * BR + r], dy = rb[4 * BR + r], dz = rb[5 * BR + r];
+    const float tm = rb[6 * BR + r];
+    const float tm_eff = jmin(tm, rb[7 * BR + r]);
+    const bool live = tm >= 0.0f;
+    // the origin of o.n: the block's first ray in the shared-origin mode
+    const float o0x = shared_origin ? rb[0] : ox;
+    const float o0y = shared_origin ? rb[BR] : oy;
+    const float o0z = shared_origin ? rb[2 * BR] : oz;
+
+    float bt = INFINITY;
+    int bi = -1;
+    // first-key guard: an all-dead or no-overlap block makes zero visits
+    push_partial<CS>(live ? tm_eff : -INFINITY, s_red, s_part, 0, rank);
+    bool stop = past(sk[0], wait_max<CS>(s_part, 0));
+    int parity = 1;
+    // The walk tests visit `step` while the stop after visit step - 1 is
+    // still being reduced (pending); the visit's result is committed only
+    // once that stop is known to be false, so exactly the twin's visits
+    // change (best t, id).
+    bool pending = false;
+    float key = 0.0f;                        // sk[step] for the pending stop
+    int step = 0, k = 0;
+    // the order is read two visits ahead, the keys one
+    int sc = stop ? 0 : ord[0];
+    int next_sc = !stop && n_sc > 1 ? ord[1] : 0;
+    if (!stop)
+        issue_tile(s_q, tiles, sc * sc_n, C, field_major);
+    while (!stop) {
+        const int after_sc = step + 2 < n_sc ? ord[step + 2] : 0;
+        const float next_key = sk[step + 1 < n_sc ? step + 1 : n_sc - 1];
+        // dead rays accept nothing, a done any-hit ray stays done
+        const bool active = live && !(any_hit && bi == 1);
+        float vt = INFINITY;
+        int vi = -1;
+        bool vh = false;
+        for (int m = 0; m < sc_n; ++m, ++k) {
+            const int cl = sc * sc_n + m;
+            cp_async_wait<0>();
+            __syncthreads();     // tile k has landed; tile k - 1 is used up
+            float* next = s_q + ((k + 1) & 1) * 16 * C;
+            if (m + 1 < sc_n)
+                issue_tile(next, tiles, cl + 1, C, field_major);
+            else if (step + 1 < n_sc)
+                issue_tile(next, tiles, next_sc * sc_n, C, field_major);
+            if (!__any_sync(FULL_MASK, active))
+                continue;
+            float lt;
+            int li;
+            bool lh;
+            test_tile<L>(
+                reinterpret_cast<const float4*>(s_q + (k & 1) * 16 * C), C,
+                l, ox, oy, oz, o0x, o0y, o0z, dx, dy, dz, tm, bt, any_hit,
+                lt, li, lh);
+            // members fold in visit order as the twin applies them: the
+            // smallest t, the later member on a tie
+            if (li >= 0 && lt <= vt) {
+                vt = lt;
+                vi = cl * C + li;
+            }
+            vh = vh || lh;
+        }
+        if (pending) {
+            stop = past(key, wait_max<CS>(s_part, parity ^ 1));
+            if (stop)
+                break;           // visit `step` does not happen
+        }
+        if (active) {
+            if (any_hit) {
+                if (vh) {
+                    bt = CGE_DONE;
+                    bi = 1;
+                }
+            } else if (vi >= 0 && vt <= bt) {
+                bt = vt;
+                bi = vi;
+            }
+        }
+        ++step;
+        if (step >= n_sc)
+            break;
+        push_partial<CS>(live ? jmin(bt, tm_eff) : -INFINITY, s_red, s_part,
+                         parity, rank);
+        parity ^= 1;
+        pending = true;
+        key = next_key;
+        sc = next_sc;
+        next_sc = after_sc;
+    }
+    cp_async_wait<0>();         // the next visit's tile may be in flight
+    if (l == 0) {
+        best_t[(size_t)b * BR + r] = bt;
+        best_i[(size_t)b * BR + r] = bi;
+    }
+    if (rank == 0 && tid == 0) {
+        visits[b] = step;
+        dense[b] = step * sc_n;
+    }
+}
+
+template <int CS, int L>
+static int launch_split_walk(const int* order, const float* skeys,
+                             const float* rays, const float* tiles,
+                             float* best_t, int* best_i, int* visits,
+                             int* dense, int NB, int n_sc, int BR, int sc_n,
+                             int C, int field_major, int any_hit,
+                             int shared_origin, cudaStream_t stream) {
+    static_assert(CS <= SPLIT_MAX_CS && 32 % L == 0, "split walk shape");
+    const int threads = BR / CS * L;
+    if (BR % CS || threads % 32 || threads > SPLIT_MAX_THREADS)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = split_walk_smem_words(C, BR / CS) * 4;
+    if (smem > CGE_MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
+    auto kernel = cluster_walk_split_kernel<CS, L>;
+    cudaError_t e;
+    if (smem > 48 * 1024) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess)
+            return (int)e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(NB * CS);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kernel, order, skeys, rays, tiles, best_t,
+                           best_i, visits, dense, n_sc, BR, sc_n, C,
+                           field_major, any_hit, shared_origin);
+    if (e != cudaSuccess)
+        return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // C interface (ctypes): pointers and the stream as void*, sizes as int.
 // ---------------------------------------------------------------------------
 
@@ -514,6 +871,30 @@ extern "C" int cge_cluster_walk(const int* order, const float* skeys,
         order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, n_sc,
         sc_n, C, field_major, any_hit, shared_origin, refine);
     return (int)cudaGetLastError();
+}
+
+// The default walk: (cs, lanes) picks CTAs per cluster and lanes per ray
+// among the compiled shapes; BR / cs * lanes threads a CTA.
+extern "C" int cge_cluster_walk_split(const int* order, const float* skeys,
+                                      const float* rays, const float* tiles,
+                                      float* best_t, int* best_i,
+                                      int* visits, int* dense, int NB,
+                                      int n_sc, int BR, int sc_n, int C,
+                                      int field_major, int any_hit,
+                                      int shared_origin, int cs, int lanes,
+                                      void* stream) {
+    if (NB == 0)
+        return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+#define CGE_SPLIT_SHAPE(CS_, L_)                                            \
+    if (cs == CS_ && lanes == L_)                                           \
+        return launch_split_walk<CS_, L_>(                                  \
+            order, skeys, rays, tiles, best_t, best_i, visits, dense, NB,   \
+            n_sc, BR, sc_n, C, field_major, any_hit, shared_origin, st);
+    CGE_SPLIT_SHAPE(8, 16)
+    CGE_SPLIT_SHAPE(8, 8)
+#undef CGE_SPLIT_SHAPE
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* cge_error_string(int err) {

@@ -25,23 +25,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 #define SP_THREADS 256
 #define SP_CHUNK 8192      // floats per pipeline stage
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 __global__ void __launch_bounds__(SP_THREADS)
 stream_sum_kernel(const float* __restrict__ stack, float* __restrict__ partial,

@@ -14,7 +14,8 @@ import torch
 
 from cge_tpu_torch.camera import Camera
 from cge_tpu_torch.diff.gradients import DIFF_FIELDS
-from cge_tpu_torch.scene.scene import TENSOR_FIELDS, scene_from_numpy
+from cge_tpu_torch.scene.scene import (TENSOR_FIELDS, resolve_device,
+                                       scene_from_numpy)
 
 
 def camera_from_numpy(fovy, distance, look_at, rotation,
@@ -27,12 +28,14 @@ def camera_from_numpy(fovy, distance, look_at, rotation,
                   aspect=float(np.asarray(aspect)))
 
 
-def params_from_numpy(params: dict, device="cpu") -> dict:
+def params_from_numpy(params: dict, device=None) -> dict:
     """The JAX package's `scene_params` (numpy leaves) -> the port's
-    differentiable leaves, f32 tensors on `device`, for `with_params`."""
+    differentiable leaves, f32 tensors on `device` (the card by default),
+    for `with_params`."""
     missing = [k for k in DIFF_FIELDS if k not in params]
     if missing:
         raise KeyError(f"differentiable leaves missing: {missing}")
+    device = resolve_device(device)
     return {k: torch.from_numpy(np.asarray(params[k], np.float32).copy())
             .to(device) for k in DIFF_FIELDS}
 

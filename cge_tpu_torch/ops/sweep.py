@@ -10,7 +10,9 @@ rules:
     valid; rays with tmax < 0 are dead;
   - the closest finite t wins, and on equal t the largest triangle id.
 
-K3 is a CUDA kernel (csrc/sweep.cu). Beside it stands its plain PyTorch
+K3 is a CUDA kernel (csrc/sweep.cu): 2 rays a thread, the edge vectors
+hoisted per triangle, the triangle range split over the grid
+(split_count) and merged in id order. Beside it stands its plain PyTorch
 twin (`closest_tris_plain`), which computes in the Pallas kernel's operation
 order, so on the card the two agree bit for bit. A CPU tensor runs the twin;
 a CUDA tensor launches the kernel or raises: there is no fallback between
@@ -24,13 +26,17 @@ import torch
 from cge_tpu_torch import _kernels
 from cge_tpu_torch.ops.cluster_sweep import _cross, _dot3
 
-TILE = 256            # triangle rows per tile: csrc/sweep.cu's SWEEP_TILE
-# The triangle range is split every TILES_PER_SPLIT tiles, up to MAX_SPLIT
-# splits: a block whose few live rays sweep all T rows on a few threads
-# would take as long as a full one (bounce levels of a 65k-ray chunk keep
-# ~100 live rays), and the splits also fill the card at small ray counts.
+TILE = 128            # triangle rows per tile: csrc/sweep.cu's SWEEP_TILE
+# The triangle range is split every TILES_PER_SPLIT tiles (256 rows), up to
+# MAX_SPLIT splits: a block whose few live rays sweep all T rows on a few
+# threads would take as long as a full one (bounce levels of a 65k-ray
+# chunk keep ~100 live rays), and the splits fill the card at small ray
+# counts. At the main path's 16k-ray batches a split every tile ran 1-7%
+# faster than every 2 tiles and every 4 tiles 8-20% slower
+# (tools/kernel_bench.py --shapes); every 2 keeps the partials at half the
+# memory of every tile.
 TILES_PER_SPLIT = 2
-MAX_SPLIT = 32
+MAX_SPLIT = 64
 
 LAUNCHES = {"sweep": 0}
 
@@ -133,6 +139,8 @@ def closest_tris(o, d, tmax, table):
     _check(d, "d", (R, 3), torch.float32, dev)
     _check(tmax, "tmax", (R,), torch.float32, dev)
     _check(table, "table", (T, 16), torch.float32, dev)
+    if table.data_ptr() % 16:
+        raise ValueError("closest_tris: the table must be 16-byte aligned")
     best_t = torch.empty(R, dtype=torch.float32, device=dev)
     best_i = torch.empty(R, dtype=torch.int32, device=dev)
     n_split = split_count(T)

@@ -10,8 +10,10 @@ exits non-zero if any phase fails:
      614,400-triangle dragon stand-in (tools/make_large_asset.py): primary
      rays and a bounce-like batch (scattered directions, a dead third), in
      the walk's four modes (closest with a shared origin; closest with
-     per-ray origins; any-hit shadow rays; 4 clusters per visit), with the
-     times of both;
+     per-ray origins; any-hit shadow rays; 4 clusters per visit); K2's t,
+     ids, visits and dense tiles exactly. Each kernel's time beside its
+     bound (cge_tpu_torch/tools/roofline.py) and its share of it, and K2
+     beside its per-ray design (one thread per ray) on the same inputs;
   3. the main path: the dragon at 512x512 through render_image_u8 with
      shading, hard shadows, recursive mirrors, interpolated normals and the
      accel, with the launch counters showing it ran through both kernels,
@@ -22,7 +24,8 @@ exits non-zero if any phase fails:
      CPU;
   5. the brute-force sweep (K3) against its twin on the card, on the
      15,360-triangle stand-in (teapot size): primary rays, a bounce-like
-     batch with a dead third and forward shadow rays, with both times;
+     batch with a dead third and forward shadow rays, t and ids exactly,
+     with its time, bound and share;
   6. the second path: the accel-off 512x512 render of that scene through
      render_image_u8 (K3 only, no K1 or K2 launch), its median frame time
      and peak memory, held against the accel-on render of the same scene;
@@ -44,8 +47,10 @@ exits non-zero if any phase fails:
      at the dragon's scale, with GB/s per layout.
 
 Each path is driven with the launch counters set to 0 just before it and
-read just after. The line before the last is a JSON object with one entry
-per kernel; the last line is {"ok": true, "device": {...}}.
+read just after. A summary gives each kernel's time beside its earlier
+design's (PERF.md), its bound, share and launches per frame. The line
+before the last is a JSON object with one entry per kernel; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -83,6 +88,12 @@ ALL_KNOBS = dict(sweep_exact_keys=False, sweep_anyhit_exact_keys=False,
 # mxu against its twin or the default walk: the two-dot form on 3xTF32
 # products rounds differently, so a grazing ray may flip
 MXU_TOL = dict(hit_frac=0.9999, id_frac=0.9999, t_rel=1e-5)
+# each kernel's time in its earlier design, before K2's default walk and
+# K3 were redesigned (PERF.md's kernel table; NVIDIA H100 80GB HBM3,
+# 700 W): K1, K2, K3 on phase 2's and 5's primary batches, refine and mxu
+# on phase 8's, K4 on the padded stack
+EARLIER_MS = {"keys": 0.2069, "walk": 4.5493, "sweep": 0.8987,
+          "walk_refine": 6.4224, "walk_mxu": 1.5974, "stream_probe": 0.1144}
 # each tool of the tuning path at a quick size
 TOOL_RUNS = (
     ("sweep_grid", ["--cs", "128", "--brs", "512", "--reps", "2"]),
@@ -90,6 +101,8 @@ TOOL_RUNS = (
                      "--reps", "2"]),
     ("mxu_grid", ["all", "--res", "256", "--reps", "2"]),
     ("stream_layout", ["--clusters", "1200", "--reps", "3"]),
+    ("kernel_bench", ["--dragon", "201", "96", "--standin", "41", "48",
+                      "--rays", "4096", "--reps", "2"]),
 )
 
 
@@ -116,61 +129,26 @@ def cuda_ms(fn, reps: int = 5) -> float:
 # phase 2: kernels against their twins
 # ---------------------------------------------------------------------------
 
-def sweep_batches(scene, accel, device, pullback: float = 0.0):
-    """The batches the main path hands the sweep, at its chunk size:
-    primary rays (shared origin), a bounce-like batch and shadow rays.
-    Each is (o, d, tmax, shared origin, any-hit, clusters per visit). The
-    secondary rays start (bounce) or end (shadow) at the primary hits,
-    moved `pullback` back toward the camera."""
-    import numpy as np
-    import torch
-
-    from cge_tpu_torch.camera import Camera, pixel_grid
-    from cge_tpu_torch.ops.intersect import closest_hit
-    from cge_tpu_torch.render.renderer import _swizzle_rows
-
-    n = MAIN_PARAMS["trace_chunk"]
-    grid = _swizzle_rows(pixel_grid(W, H, device).reshape(-1, 2), W, H)
-    # the chunk in the middle of the frame: it sees the dragon
-    mid = (W * H // n // 2) * n
-    o, d = Camera().generate_rays(grid[mid:mid + n])
-    inf = torch.full((n,), torch.inf, device=device)
-    ids = closest_hit(scene, o, d, inf, accel, shared_origin=True)
-    p = o + torch.where(ids.hit, ids.t - pullback, 0.0)[:, None] * d
-    rng = np.random.default_rng(SEED)
-    sd = rng.normal(size=(n, 3)).astype(np.float32)
-    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
-    dead = torch.from_numpy(np.arange(n) % 3 == 0).to(device)
-    bounce_tmax = torch.where(ids.hit & ~dead, torch.inf, -1.0)
-    light = torch.tensor(LIGHT[0], device=device).expand(n, 3)
-    shadow_tmax = torch.where(ids.hit, 1.0, -1.0)
-    return {
-        "a_primary": (o, d, inf, True, False, 1),
-        "b_bounce": (p, torch.from_numpy(sd).to(device), bounce_tmax, False,
-                     False, 1),
-        "c_shadow": (light.contiguous(), (p - light).contiguous(),
-                     shadow_tmax, False, True, 1),
-        "d_sc4": (o, d, inf, True, False, 4),
-        "d_sc4_bounce": (p, torch.from_numpy(sd).to(device), bounce_tmax,
-                         False, False, 4),
-    }
+def _bound_line(bound, ms) -> str:
+    return f"bound {bound[0]:.4f} ms ({bound[1]}) share {bound[0] / ms:.3f}"
 
 
-def check_kernels(scene, ctx, device, timing: bool):
-    """Each kernel vs its twin on the same inputs. Tolerances: K1 keys and
-    K2 t's are compared to 1e-6 relative; hit flags, ids and visit counts
-    must agree exactly. Both sides round identically (the kernels are
-    built with --fmad=false and the twins run one rounding per op), so
-    the expected error is 0; the relative slack covers a reciprocal that
-    rounds differently."""
+def check_kernels(scene, ctx, device):
+    """Each kernel vs its twin on the same inputs. K1 keys to 1e-6
+    relative (both sides round alike, so the expected error is 0; the
+    slack covers a reciprocal that rounds differently); K2's t, ids, visits
+    and dense tiles exactly (the kernels are built with --fmad=false and
+    the twins run one rounding per op). K2 is timed beside its per-ray
+    design on the same inputs."""
     import torch
 
     from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import kernel_bench, roofline
 
     acc = ctx.accel
     report = {"keys": {"err": 0.0}, "walk": {"err": 0.0}}
-    for name, (o, d, tmax, shared, any_hit, sc_n) in sweep_batches(
-            scene, ctx.accel, device).items():
+    for name, (o, d, tmax, shared, any_hit, sc_n) in \
+            kernel_bench.walk_batches(scene, acc, device).items():
         rays, boxes, tiles, sc_n, _ = cs.sweep_setup(
             o, d, tmax, acc.aabbs, acc.tiles, acc.layout, cs.DEFAULT_BR, sc_n)
         keys = cs.block_entry_keys(rays, boxes)
@@ -185,40 +163,41 @@ def check_kernels(scene, ctx, device, timing: bool):
         order = order.int().contiguous()
         kw = dict(layout=acc.layout, sc_n=sc_n, any_hit=any_hit,
                   shared_origin=shared)
-        bt, bi, vis, _ = cs.cluster_walk(order, skeys, rays, tiles, **kw)
-        bt_p, bi_p, vis_p, _ = cs.cluster_walk_plain(order, skeys, rays,
-                                                     tiles, **kw)
-        if not torch.equal(vis, vis_p):
-            raise AssertionError(f"{name}: K2 visit counts differ")
-        if not torch.equal(bi, bi_p):
-            raise AssertionError(
-                f"{name}: K2 ids differ on {int((bi != bi_p).sum())} rays")
-        hit = torch.isfinite(bt_p) & (bt_p > cs.DONE)
-        werr = float((bt - bt_p)[hit].abs().max()) if hit.any() else 0.0
-        if hit.any() and werr > 1e-6 * max(1.0, float(bt_p[hit].abs().max())):
-            raise AssertionError(f"{name}: K2 t differs by {werr}")
+        got = cs.cluster_walk(order, skeys, rays, tiles, **kw)
+        kernel_bench.check_equal(
+            got, cs.cluster_walk_plain(order, skeys, rays, tiles, **kw),
+            f"{name}: K2")
+        C = tiles.shape[2] if acc.layout == "field" else tiles.shape[1]
+        k1_bound = roofline.keys_bound(rays, boxes.shape[0])
+        k2_bound = roofline.walk_bound(rays, C, sc_n, got[2], got[3],
+                                       tiles.shape[0], shared_origin=shared)
         report["keys"]["err"] = max(report["keys"]["err"], kerr)
-        report["walk"]["err"] = max(report["walk"]["err"], werr)
-        line = (f"  {name}: rays {o.shape[0]} blocks {rays.shape[0]} "
-                f"boxes {boxes.shape[0]} live {int((tmax >= 0).sum())} "
-                f"hits {int((bi_p >= 0).sum())} visits mean "
-                f"{float(vis.float().mean()):.1f} max {int(vis.max())} | "
-                f"K1 err {kerr:.3g} K2 err {werr:.3g}")
-        if timing:
-            t = dict(
-                keys=cuda_ms(lambda: cs.block_entry_keys(rays, boxes)),
-                keys_plain=cuda_ms(lambda: cs.block_entry_keys_plain(
-                    rays, boxes), reps=2),
-                walk=cuda_ms(lambda: cs.cluster_walk(order, skeys, rays,
-                                                     tiles, **kw)),
-                walk_plain=cuda_ms(lambda: cs.cluster_walk_plain(
-                    order, skeys, rays, tiles, **kw), reps=1))
-            line += (f" | ms K1 {t['keys']:.4f} (twin {t['keys_plain']:.3f})"
-                     f" K2 {t['walk']:.4f} (twin {t['walk_plain']:.3f})")
-            if name == "a_primary":
-                report["keys"].update(ms=t["keys"], plain_ms=t["keys_plain"])
-                report["walk"].update(ms=t["walk"], plain_ms=t["walk_plain"])
-        log(line)
+        t = dict(
+            keys=cuda_ms(lambda: cs.block_entry_keys(rays, boxes)),
+            keys_plain=cuda_ms(lambda: cs.block_entry_keys_plain(
+                rays, boxes), reps=2),
+            walk=cuda_ms(lambda: cs.cluster_walk(order, skeys, rays, tiles,
+                                                 **kw)),
+            per_ray=cuda_ms(lambda: kernel_bench.per_ray_walk(
+                order, skeys, rays, tiles, **kw)),
+            walk_plain=cuda_ms(lambda: cs.cluster_walk_plain(
+                order, skeys, rays, tiles, **kw), reps=1))
+        earlier = (f", earlier {EARLIER_MS['walk']}" if name == "a_primary"
+                   else "")
+        log(f"  {name}: rays {o.shape[0]} blocks {rays.shape[0]} boxes "
+            f"{boxes.shape[0]} live {int((tmax >= 0).sum())} hits "
+            f"{int((got[1] >= 0).sum())} visits mean "
+            f"{float(got[2].float().mean()):.1f} max {int(got[2].max())} | "
+            f"K1 err {kerr:.3g}, K2 t/ids/visits/dense equal")
+        log(f"    K1 {t['keys']:.4f} ms (twin {t['keys_plain']:.3f}) "
+            f"{_bound_line(k1_bound, t['keys'])} | K2 {t['walk']:.4f} ms "
+            f"(per-ray design in this call {t['per_ray']:.4f}{earlier}; twin "
+            f"{t['walk_plain']:.3f}) {_bound_line(k2_bound, t['walk'])}")
+        if name == "a_primary":
+            report["keys"].update(ms=t["keys"], plain_ms=t["keys_plain"],
+                                  bound=k1_bound)
+            report["walk"].update(ms=t["walk"], plain_ms=t["walk_plain"],
+                                  bound=k2_bound)
     return report
 
 
@@ -271,71 +250,33 @@ def small_scene_check(device, tmp):
 # phases 5-7: K3, the accel-off render, the train step
 # ---------------------------------------------------------------------------
 
-def brute_batches(scene, ctx, device):
-    """16,384-ray batches of the accel-off path: primary rays, a
-    bounce-like batch (scattered directions, a dead third) and forward
-    shadow rays from the hits to the light."""
-    import numpy as np
-    import torch
-
-    from cge_tpu_torch.camera import Camera, pixel_grid
+def check_sweep(ctx, device):
+    """K3 against its twin on the same inputs on the card: t and ids
+    exactly (--fmad=false and the same operation order), with its time,
+    bound and share."""
     from cge_tpu_torch.ops import sweep
-    from cge_tpu_torch.render.renderer import _swizzle_rows
-
-    n = MAIN_PARAMS["trace_chunk"]
-    grid = _swizzle_rows(pixel_grid(W, H, device).reshape(-1, 2), W, H)
-    mid = (W * H // n // 2) * n
-    o, d = Camera().generate_rays(grid[mid:mid + n])
-    inf = torch.full((n,), torch.inf, device=device)
-    t, i = sweep.closest_tris_plain(o, d, inf, ctx.tri_table)
-    hit = i >= 0
-    p = (o + torch.where(hit, t - 1e-3, 0.0)[:, None] * d).contiguous()
-    rng = np.random.default_rng(SEED)
-    sd = rng.normal(size=(n, 3)).astype(np.float32)
-    sd /= np.linalg.norm(sd, axis=1, keepdims=True)
-    dead = torch.from_numpy(np.arange(n) % 3 == 0).to(device)
-    light = torch.tensor(LIGHT[0], device=device).expand(n, 3)
-    return {
-        "a_primary": (o.contiguous(), d.contiguous(), inf),
-        "b_bounce": (p, torch.from_numpy(sd).to(device),
-                     torch.where(hit & ~dead, torch.inf, -1.0)),
-        "c_shadow": (p, (light - p).contiguous(),
-                     torch.where(hit, 1.0, -1.0)),
-    }
-
-
-def check_sweep(scene, ctx, device):
-    """K3 against its twin on the same inputs on the card: ids and hit
-    flags equal, t within 1e-6 relative (both round alike: --fmad=false
-    and the same operation order, so the expected error is 0)."""
-    import torch
-
-    from cge_tpu_torch.ops import sweep
+    from cge_tpu_torch.tools import kernel_bench, roofline
 
     report = {"err": 0.0}
     table = ctx.tri_table
-    for name, (o, d, tmax) in brute_batches(scene, ctx, device).items():
-        bt, bi = sweep.closest_tris(o, d, tmax, table)
-        bt_p, bi_p = sweep.closest_tris_plain(o, d, tmax, table)
-        if not torch.equal(bi, bi_p):
-            raise AssertionError(
-                f"{name}: K3 ids differ on {int((bi != bi_p).sum())} rays")
-        hit = bi_p >= 0
-        if not torch.equal(torch.isfinite(bt), hit):
-            raise AssertionError(f"{name}: K3 hit flags differ")
-        err = float((bt - bt_p)[hit].abs().max()) if hit.any() else 0.0
-        if hit.any() and err > 1e-6 * max(1.0, float(bt_p[hit].abs().max())):
-            raise AssertionError(f"{name}: K3 t differs by {err}")
-        report["err"] = max(report["err"], err)
+    for name, (o, d, tmax) in kernel_bench.brute_batches(table,
+                                                         device).items():
+        got = sweep.closest_tris(o, d, tmax, table)
+        kernel_bench.check_equal(
+            got, sweep.closest_tris_plain(o, d, tmax, table), f"{name}: K3")
+        bound = roofline.sweep_bound(tmax, table.shape[0])
         ms = cuda_ms(lambda: sweep.closest_tris(o, d, tmax, table), reps=10)
         plain = cuda_ms(lambda: sweep.closest_tris_plain(o, d, tmax, table),
                         reps=2)
+        earlier = (f", earlier {EARLIER_MS['sweep']}" if name == "a_primary"
+                   else "")
         log(f"  {name}: rays {o.shape[0]} triangles {table.shape[0]} live "
-            f"{int((tmax >= 0).sum())} hits {int(hit.sum())} splits "
-            f"{sweep.split_count(table.shape[0])} | err {err:.3g} | "
-            f"ms K3 {ms:.4f} (twin {plain:.3f})")
+            f"{int((tmax >= 0).sum())} hits {int((got[1] >= 0).sum())} "
+            f"splits {sweep.split_count(table.shape[0])} | t/ids equal | "
+            f"K3 {ms:.4f} ms (twin {plain:.3f}{earlier}) "
+            f"{_bound_line(bound, ms)}")
         if name == "a_primary":
-            report.update(ms=ms, plain_ms=plain)
+            report.update(ms=ms, plain_ms=plain, bound=bound)
     return report
 
 
@@ -520,9 +461,12 @@ def small_train_check(device, tmp):
 # ---------------------------------------------------------------------------
 
 def _mode_batches(scene, accel, device, pullback: float = 0.0):
-    """(o, d, tmax, any-hit) of sweep_batches' primary, bounce-like and
-    shadow batches for this scene and accel."""
-    batches = sweep_batches(scene, accel, device, pullback)
+    """(o, d, tmax, any-hit) of the primary, bounce-like and shadow batches
+    of kernel_bench.walk_batches for this scene and accel."""
+    from cge_tpu_torch.tools import kernel_bench
+
+    batches = kernel_bench.walk_batches(scene, accel, device,
+                                        pullback=pullback)
     return {k: (v[0], v[1], v[2], v[4]) for k, v in batches.items()
             if k in ("a_primary", "b_bounce", "c_shadow")}
 
@@ -539,17 +483,30 @@ def _walk_inputs(batch, accel, sc_n):
     return (order, skeys, inp.rays, inp.tiles), kw
 
 
+def _walk_bound(args, kw, out, **mode):
+    from cge_tpu_torch.tools import roofline
+
+    tiles = args[3]
+    C = tiles.shape[2] if kw["layout"] == "field" else tiles.shape[1]
+    return roofline.walk_bound(args[2], C, kw["sc_n"], out[2], out[3],
+                               tiles.shape[0], **mode)
+
+
 def check_refine(scene, accel, device, sc_n: int, label: str, stats):
     """refine_members on the card: t, ids, visits and dense tiles equal to
     the twin's bit for bit, and t, ids and visits equal to the default
-    kernel's. Adds the tiles skipped to stats."""
+    kernel's, which equals its own twin. Adds the tiles skipped to
+    stats."""
     import torch
 
     from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import kernel_bench
 
     for name, batch in _mode_batches(scene, accel, device).items():
         args, kw = _walk_inputs(batch, accel, sc_n)
         base = cs.cluster_walk(*args, **kw)
+        kernel_bench.check_equal(base, cs.cluster_walk_plain(*args, **kw),
+                                 f"{label} {name}: K2")
         got = cs.cluster_walk(*args, refine_members=True, **kw)
         twin = cs.cluster_walk_plain(*args, refine_members=True, **kw)
         for what, a, b in zip(("t", "ids", "visits", "dense tiles"), got,
@@ -572,12 +529,17 @@ def check_refine(scene, accel, device, sc_n: int, label: str, stats):
                      *args, refine_members=True, **kw)),
                  twin=cuda_ms(lambda: cs.cluster_walk_plain(
                      *args, refine_members=True, **kw), reps=1))
+        bound = _walk_bound(args, kw, got, refine=True)
+        first = label == "dragon" and name == "a_primary"
         log(f"  {label} sc_n={kw['sc_n']} {name}: blocks "
             f"{args[2].shape[0]} visits {int(base[2].sum())} dense tiles "
-            f"{tiles} -> {kept} with refine | ms K2 {t['walk']:.4f} refine "
-            f"{t['refine']:.4f} (twin {t['twin']:.3f})")
-        if label == "dragon" and name == "a_primary":
-            stats.update(ms=t["refine"], plain_ms=t["twin"])
+            f"{tiles} -> {kept} with refine | ms K2 {t['walk']:.4f} "
+            f"({_bound_line(_walk_bound(args, kw, base), t['walk'])}) refine "
+            f"{t['refine']:.4f} (twin {t['twin']:.3f}"
+            f"{', earlier %s' % EARLIER_MS['walk_refine'] if first else ''}) "
+            f"{_bound_line(bound, t['refine'])}")
+        if first:
+            stats.update(ms=t["refine"], plain_ms=t["twin"], bound=bound)
 
 
 def mxu_agreement(got, want, any_hit: bool):
@@ -609,6 +571,7 @@ def check_mxu(scene, accel, device, stats):
     the CPU fixtures put them: a ray that starts on a surface meets it at
     t ~ 0, where the t >= 0 test flips under any change of rounding."""
     from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import kernel_bench
 
     for name, batch in _mode_batches(scene, accel, device, 1e-3).items():
         args, kw = _walk_inputs(batch, accel, 1)
@@ -616,6 +579,8 @@ def check_mxu(scene, accel, device, stats):
         got = cs.cluster_walk(*args, mxu=True, **kw)
         twin = cs.cluster_walk_plain(*args, mxu=True, **kw)
         base = cs.cluster_walk(*args, **kw)
+        kernel_bench.check_equal(base, cs.cluster_walk_plain(*args, **kw),
+                                 f"stand-in {name}: K2")
         rows = []
         for other, ref in (("twin", twin), ("default walk", base)):
             hit, idf, rel, err = mxu_agreement(got, ref, any_hit)
@@ -631,10 +596,15 @@ def check_mxu(scene, accel, device, stats):
                  mxu=cuda_ms(lambda: cs.cluster_walk(*args, mxu=True, **kw)),
                  twin=cuda_ms(lambda: cs.cluster_walk_plain(
                      *args, mxu=True, **kw), reps=1))
+        bound = _walk_bound(args, kw, got, mxu=True)
+        earlier = (f", earlier {EARLIER_MS['walk_mxu']}"
+                   if name == "a_primary" else "")
         log(f"  stand-in mxu {name}: {' | '.join(rows)} | ms K2 "
-            f"{t['walk']:.4f} mxu {t['mxu']:.4f} (twin {t['twin']:.3f})")
+            f"{t['walk']:.4f} mxu {t['mxu']:.4f} (twin {t['twin']:.3f}"
+            f"{earlier})"
+            f" {_bound_line(bound, t['mxu'])}")
         if name == "a_primary":
-            stats.update(ms=t["mxu"], plain_ms=t["twin"])
+            stats.update(ms=t["mxu"], plain_ms=t["twin"], bound=bound)
 
 
 def check_modes(scene, accel, tscene, device):
@@ -716,7 +686,7 @@ def check_stream(device):
     """Phase 10: K4 against its twin on the three layouts at L = 4800,
     C = 128, within stream_layout's bound; GB/s per layout."""
     from cge_tpu_torch.ops import stream_probe
-    from cge_tpu_torch.tools import stream_layout
+    from cge_tpu_torch.tools import common, roofline, stream_layout
 
     report = {"err": 0.0}
     log("[10] K4 stream_sum vs twin (L = 4800 clusters, C = 128)")
@@ -731,7 +701,15 @@ def check_stream(device):
             raise AssertionError(f"{name}: K4 disagrees with its twin")
         report["err"] = max(report["err"], m["err"])
         if name.startswith("A"):
-            report.update(ms=m["ms"], plain_ms=m["plain_ms"])
+            n = stack.shape[0] // stream_probe.SC_N * stream_probe.SC_N
+            lib_ms = common.device_ms(
+                lambda: stack[:n].sum(dim=(0, 1)), device, reps=20)
+            bound = roofline.stream_bound(
+                stream_probe.stream_bytes(stack) // 4, stack.shape[2])
+            log(f"    {_bound_line(bound, m['ms'])}; one torch.sum "
+                f"{lib_ms:.4f} ms; earlier {EARLIER_MS['stream_probe']}")
+            report.update(ms=m["ms"], plain_ms=m["plain_ms"], bound=bound,
+                          library_ms=lib_ms)
     return report
 
 
@@ -798,7 +776,7 @@ def main() -> int:
 
         # phase 2: kernels vs twins
         log("[2] kernels vs twins (same inputs on the card)")
-        report = check_kernels(scene, ctx, device, timing=True)
+        report = check_kernels(scene, ctx, device)
 
         # phase 3: the main path
         reset_launches()
@@ -861,7 +839,7 @@ def main() -> int:
                                  ct.RenderParams())
         log(f"[5] K3 vs twin ({int(tscene.tri_mask.sum())} triangles, "
             f"table {tuple(tctx.tri_table.shape)})")
-        report["sweep"] = check_sweep(tscene, tctx, device)
+        report["sweep"] = check_sweep(tctx, device)
 
         # phases 6 and 7: the accel-off render and the train step
         brute_launches = brute_path(tscene, tctx, device)
@@ -877,39 +855,37 @@ def main() -> int:
         report["stream"] = check_stream(device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
-    kernels = [
-        dict(name="block_entry_keys", route="cuda", source=src,
-             replaces="cge_tpu/ops/pallas/cluster_sweep.py:187",
-             launches=launches["keys"], max_abs_err=report["keys"]["err"],
-             ms=report["keys"]["ms"], plain_ms=report["keys"]["plain_ms"]),
-        dict(name="cluster_walk", route="cuda", source=src,
-             replaces="cge_tpu/ops/pallas/cluster_sweep.py:309",
-             launches=launches["walk"], max_abs_err=report["walk"]["err"],
-             ms=report["walk"]["ms"], plain_ms=report["walk"]["plain_ms"]),
-        dict(name="closest_tris_sweep", route="cuda",
-             source="cge_tpu_torch/csrc/sweep.cu",
-             replaces="cge_tpu/ops/pallas/sweep.py:65",
-             launches=brute_launches["sweep"],
-             max_abs_err=report["sweep"]["err"], ms=report["sweep"]["ms"],
-             plain_ms=report["sweep"]["plain_ms"]),
-        dict(name="cluster_walk_refine", route="cuda", source=src,
-             replaces="cge_tpu/ops/pallas/cluster_sweep.py:437",
-             launches=tool_launches["walk_refine"],
-             max_abs_err=modes["refine"]["err"], ms=modes["refine"]["ms"],
-             plain_ms=modes["refine"]["plain_ms"]),
-        dict(name="cluster_walk_mxu", route="cuda", source=src,
-             replaces="cge_tpu/ops/pallas/cluster_sweep.py:361",
-             launches=tool_launches["walk_mxu"],
-             max_abs_err=modes["mxu"]["err"], ms=modes["mxu"]["ms"],
-             plain_ms=modes["mxu"]["plain_ms"]),
-        dict(name="stream_sum", route="cuda",
-             source="cge_tpu_torch/csrc/stream_probe.cu",
-             replaces="tools/exp_dma_layout.py:28",
-             launches=tool_launches["stream_probe"],
-             max_abs_err=report["stream"]["err"],
-             ms=report["stream"]["ms"],
-             plain_ms=report["stream"]["plain_ms"]),
-    ]
+    pallas = "cge_tpu/ops/pallas/cluster_sweep.py"
+    # (name, counter, source, the TPU kernel's pallas_call, its report);
+    # launches: K1, K2 per 512x512 dragon frame (phase 3), K3 per
+    # accel-off frame (phase 6), the opt-in modes and K4 on the tuning
+    # path (phase 9)
+    rows = (
+        ("block_entry_keys", "keys", src, f"{pallas}:292", report["keys"],
+         launches),
+        ("cluster_walk", "walk", src, f"{pallas}:652", report["walk"],
+         launches),
+        ("closest_tris_sweep", "sweep", "cge_tpu_torch/csrc/sweep.cu",
+         "cge_tpu/ops/pallas/sweep.py:150", report["sweep"], brute_launches),
+        ("cluster_walk_refine", "walk_refine", src, f"{pallas}:652",
+         modes["refine"], tool_launches),
+        ("cluster_walk_mxu", "walk_mxu", src, f"{pallas}:652", modes["mxu"],
+         tool_launches),
+        ("stream_sum", "stream_probe", "cge_tpu_torch/csrc/stream_probe.cu",
+         "tools/exp_dma_layout.py:53", report["stream"], tool_launches),
+    )
+    log("[summary] kernel: ms (earlier ms) | bound ms (kind), share | "
+        "launches (per frame for K1, K2, K3; tuning path for the rest)")
+    kernels = []
+    for name, counter, source, replaces, r, counts in rows:
+        log(f"  {name}: {r['ms']:.4f} ({EARLIER_MS[counter]}) | "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]}), "
+            f"{r['bound'][0] / r['ms']:.3f} | {counts[counter]}")
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts[counter], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -518,6 +518,18 @@ def test_mxu_grid_tool(capsys):
     assert out.count("trace_chunk=") == 3
 
 
+def test_kernel_bench_tool(capsys):
+    """kernel_bench on the twins: every K2 and K3 batch equal to its twin,
+    bounds computed, no device time claimed."""
+    from cge_tpu_torch.tools import kernel_bench
+    out = _run_tool(kernel_bench, ["--device", "cpu", "--dragon", "41", "32",
+                                   "--standin", "41", "16", "--res", "64",
+                                   "--rays", "1024", "--reps", "1"], capsys)
+    rows = re.findall(r"^(K[23]) \w+: .*equal to the twin .*ms not measured"
+                      r" \| bound [\d.]+ ms \((operations|bytes)\)", out, re.M)
+    assert [k for k, _ in rows] == ["K2"] * 5 + ["K3"] * 3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -203,6 +203,196 @@ def test_cluster_walk_twin_matches_pallas(dragon, batches, stacks, mode):
         assert (visits.numpy() < (aabbs.shape[0] + sc_n - 1) // sc_n).any()
 
 
+@pytest.fixture(scope="module")
+def tied_stacks(stacks, batches):
+    """The stacks with forced exact-t ties: in the cluster the primary rays
+    hit most, slots C-1-i repeat slots i (ties inside a tile, across
+    lanes: the larger slot must win), and the next cluster repeats that
+    whole tile with its box grown to cover it (ties across visits: the
+    later visit must win)."""
+    a, t = (x.copy() for x in stacks["triangle"])
+    o, d, tmax = (_t(x) for x in batches["primary"])
+    _, ids, _ = cs.cluster_tris(o, d, tmax, _t(a), _t(t), "triangle", br=BR)
+    C = t.shape[1]
+    hot = int(np.bincount(ids.numpy()[ids.numpy() >= 0] // C).argmax())
+    other = (hot + 1) % t.shape[0]
+    t[hot, C // 2:] = t[hot, :C // 2][::-1]
+    t[other] = t[hot]
+    a[other, 0:3] = np.minimum(a[other, 0:3], a[hot, 0:3])
+    a[other, 3:6] = np.maximum(a[other, 3:6], a[hot, 3:6])
+    return {"triangle": (a, t),
+            "field": (a, np.ascontiguousarray(t.transpose(0, 2, 1)))}
+
+
+def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
+                     any_hit=False, shared_origin=False,
+                     shape=cs.SPLIT_SHAPE):
+    """A plain model of the CUDA default walk's decomposition
+    (csrc/cluster_sweep.cu, cluster_walk_split_kernel): a ray block is CS
+    CTAs of BR / CS rays, and the stop's max is the max of the CTAs'
+    partials; L lanes a ray take slots l, l + L, ... in order, each keeping
+    (smallest t, largest slot) and skipping a t that cannot be taken; the
+    lanes merge under the same rule and a visit's members fold in order;
+    visit k + 1 is tested before the stop after visit k is known and is
+    committed only if the walk goes on. The tile arithmetic is the twin's
+    (_tile_vpu)."""
+    n_cta, L = shape
+    NB, _, BR = rays.shape
+    n_sc = order.shape[1]
+    tri = tiles.transpose(1, 2) if layout == "field" else tiles
+    C, rpc = tri.shape[1], BR // n_cta
+    lane_ids = torch.arange(L, dtype=torch.int32)[:, None]
+    best_t = torch.full((NB, BR), torch.inf)
+    best_i = torch.full((NB, BR), -1, dtype=torch.int32)
+    visits = torch.zeros(NB, dtype=torch.int32)
+    for b in range(NB):
+        r = rays[b:b + 1]
+        tm = r[0, 6]
+        tm_eff = torch.minimum(tm, r[0, 7])
+        live = tm >= 0
+        bt = torch.full((BR,), torch.inf)
+        bi = torch.full((BR,), -1, dtype=torch.int32)
+
+        def cluster_need():
+            v = torch.where(live, torch.minimum(bt, tm_eff), -torch.inf)
+            return torch.stack([v[k * rpc:(k + 1) * rpc].amax()
+                                for k in range(n_cta)]).amax()
+
+        need = cluster_need()
+        stop = bool(cs._past(skeys[b, 0], need))
+        step = 0
+        while not stop:
+            active = live & ~(any_hit & (bi == 1))
+            vt = torch.full((BR,), torch.inf)
+            vi = torch.full((BR,), -1, dtype=torch.int32)
+            vh = torch.zeros(BR, dtype=torch.bool)
+            for m in range(sc_n):
+                cl = int(order[b, step]) * sc_n + m
+                t, inside = (x[0] for x in cs._tile_vpu(tri[cl][None], r,
+                                                        shared_origin))
+                # lane l takes slots l, l + L, ...: [C / L, L, BR]
+                tl, il = t.reshape(-1, L, BR), inside.reshape(-1, L, BR)
+                lt = torch.full((L, BR), torch.inf)
+                li = torch.full((L, BR), -1, dtype=torch.int32)
+                lh = torch.zeros((L, BR), dtype=torch.bool)
+                for j in range(C // L):
+                    tc = tl[j]
+                    pre = (tc >= 0) & (tc <= tm)
+                    if not any_hit:
+                        pre &= (tc < torch.inf) & (tc <= lt) & (tc <= bt)
+                    take = pre & il[j]
+                    lh |= take
+                    lt = torch.where(take, tc, lt)
+                    li = torch.where(take, j * L + lane_ids, li)
+                # the shuffle butterfly: smallest t, largest slot on a tie
+                off = L // 2
+                while off:
+                    p = lane_ids[:, 0] ^ off
+                    ot, oi = lt[p], li[p]
+                    take = (ot < lt) | ((ot == lt) & (oi > li))
+                    lt, li = torch.where(take, ot, lt), torch.where(take, oi,
+                                                                    li)
+                    lh = lh | lh[p]
+                    off //= 2
+                lt, li, lh = lt[0], li[0], lh[0]
+                take = (li >= 0) & (lt <= vt)
+                vt = torch.where(take, lt, vt)
+                vi = torch.where(take, cl * C + li, vi)
+                vh |= lh
+            if step > 0:
+                stop = bool(cs._past(skeys[b, step], need))
+                if stop:
+                    break
+            if any_hit:
+                hit = active & vh
+                bt = torch.where(hit, cs.DONE, bt)
+                bi = torch.where(hit, 1, bi).int()
+            else:
+                take = active & (vi >= 0) & (vt <= bt)
+                bt, bi = torch.where(take, vt, bt), torch.where(take, vi, bi)
+            step += 1
+            if step >= n_sc:
+                break
+            need = cluster_need()
+        best_t[b], best_i[b], visits[b] = bt, bi, step
+    return best_t, best_i, visits, visits * sc_n
+
+
+# (batch, any-hit, shared origin) of the split model's cases
+MODEL_BATCHES = {"primary": (False, True), "bounce": (False, False),
+                 "shadow": (True, False)}
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["plain", "tied"])
+@pytest.mark.parametrize("sc_n", [1, 4])
+@pytest.mark.parametrize("layout", ["triangle", "field"])
+@pytest.mark.parametrize("which", list(MODEL_BATCHES))
+def test_split_walk_model_matches_twin_and_pallas(
+        dragon, batches, stacks, tied_stacks, which, layout, sc_n, tied):
+    """The CUDA default walk's decomposition (split_walk_model) equals the
+    twin bit for bit (t, ids, visits, dense tiles) and matches
+    pallas_cluster_tris(interpret=True): hits, perm-space ids and visits
+    exactly, t to rtol 1e-5 / atol 2e-6 (XLA's FMAs). The tied stacks
+    force exact-t ties inside a tile across lanes and across visits."""
+    any_hit, shared = MODEL_BATCHES[which]
+    aabbs, tiles = (tied_stacks if tied else stacks)[layout]
+    inp = _setup(batches[which], (aabbs, tiles), layout, sc_n)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout=layout, sc_n=inp.sc_n, any_hit=any_hit,
+              shared_origin=shared)
+    got = split_walk_model(order, skeys, inp.rays, inp.tiles, **kw)
+    for x, y in zip(got, cs.cluster_walk_plain(order, skeys, inp.rays,
+                                               inp.tiles, **kw)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    o, d, tmax = batches[which]
+    R = o.shape[0]
+    ref = [np.asarray(x) for x in pallas_cluster_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(aabbs),
+        jnp.asarray(tiles), dragon.cluster_perm, br=BR, sc_n=sc_n,
+        any_hit=any_hit, shared_origin=shared, interpret=True,
+        with_stats=True, perm_ids=True)]
+    t, ids = got[0].reshape(-1)[:R].numpy(), got[1].reshape(-1)[:R].numpy()
+    np.testing.assert_array_equal(got[2].numpy(), ref[2])
+    if any_hit:
+        np.testing.assert_array_equal(ids > 0, ref[0])
+        return
+    np.testing.assert_array_equal(ids, ref[1])
+    h = np.isfinite(ref[0])
+    np.testing.assert_array_equal(np.isfinite(t), h)
+    np.testing.assert_allclose(t[h], ref[0][h], rtol=1e-5, atol=2e-6)
+    if tied and which == "primary":
+        # the ties were taken: hits land on the later copies
+        C = tiles.shape[2] if layout == "field" else tiles.shape[1]
+        slots = ids[ids >= 0] % C
+        assert (slots >= C // 2).any()
+
+
+@pytest.mark.parametrize("shape", cs.SPLIT_SHAPES)
+def test_split_walk_model_shapes_agree(batches, tied_stacks, shape):
+    """Every compiled (CTAs, lanes) shape gives the same walk: the
+    decomposition does not change t, ids or visits."""
+    inp = _setup(batches["bounce"], tied_stacks["triangle"], "triangle", 1)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout="triangle", sc_n=1)
+    got = split_walk_model(order, skeys, inp.rays, inp.tiles, shape=shape,
+                           **kw)
+    for x, y in zip(got, cs.cluster_walk_plain(order, skeys, inp.rays,
+                                               inp.tiles, **kw)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_split_shape_fits_every_block_size():
+    """split_shape picks SPLIT_SHAPE where its CTAs fit, else a compiled
+    shape that does, for every block size the wrapper accepts."""
+    assert cs.split_shape(cs.DEFAULT_BR) == cs.SPLIT_SHAPE
+    for br in range(32, 1025, 32):
+        n_cta, lanes = cs.split_shape(br)
+        threads = br // n_cta * lanes
+        assert (n_cta, lanes) in cs.SPLIT_SHAPES
+        assert br % n_cta == 0 and threads % 32 == 0
+        assert threads <= cs.SPLIT_MAX_THREADS
+
+
 def test_exit_bound_boundary_hit():
     """test_bvh.py:198-226's case: a triangle on the union box's far face
     is still hit (the exit bound is padded past slab rounding), and rays
@@ -270,6 +460,34 @@ def test_kernels_match_twins_on_card(batches, stacks, mode, cuda_device):
     want = cs.cluster_walk_plain(order.int(), skeys, rays, tiles, **kw)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cs.SPLIT_SHAPES)
+@pytest.mark.parametrize("which", list(MODEL_BATCHES))
+def test_split_walk_shapes_match_twin_on_card(batches, tied_stacks, which,
+                                              shape, cuda_device,
+                                              monkeypatch):
+    """The default walk in every compiled (CTAs, lanes) shape, on the
+    tied stacks at 1 and 4 clusters per visit in both layouts: t, ids,
+    visits and dense tiles equal to the twin's on the card, one launch a
+    call."""
+    any_hit, shared = MODEL_BATCHES[which]
+    monkeypatch.setattr(cs, "SPLIT_SHAPE", shape)
+    for layout in cs.LAYOUTS:
+        for sc_n in (1, 4):
+            inp = _setup(batches[which], tied_stacks[layout], layout, sc_n)
+            rays, boxes, tiles = (x.to(cuda_device)
+                                  for x in (inp.rays, inp.boxes, inp.tiles))
+            skeys, order = cs.sweep_order(rays, boxes)
+            kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
+                      shared_origin=shared)
+            n = cs.LAUNCHES["walk"]
+            got = cs.cluster_walk(order, skeys, rays, tiles, **kw)
+            assert cs.LAUNCHES["walk"] == n + 1
+            want = cs.cluster_walk_plain(order, skeys, rays, tiles, **kw)
+            for x, y in zip(got, want):
+                torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

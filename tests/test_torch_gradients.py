@@ -192,7 +192,8 @@ def test_with_params_keeps_the_scene(setup):
     numpy interop gives the port the JAX package's scene_params."""
     js, ps, *_ = setup
     leaves = params_from_numpy({k: np.asarray(v) for k, v in
-                                jgrad.scene_params(js).items()})
+                                jgrad.scene_params(js).items()},
+                               device="cpu")
     assert set(leaves) == set(ct.DIFF_FIELDS)
     for k, v in leaves.items():
         assert v.dtype == torch.float32
@@ -204,7 +205,7 @@ def test_with_params_keeps_the_scene(setup):
     assert s.tris is ps.tris and s.cluster_perm is ps.cluster_perm
     assert torch.equal(s.mat_kd, ps.mat_kd + 1.0)
     with pytest.raises(KeyError):
-        params_from_numpy({"vertices": np.zeros((1, 3))})
+        params_from_numpy({"vertices": np.zeros((1, 3))}, device="cpu")
 
 
 def test_render_image_stays_off_the_graph(setup):

@@ -299,7 +299,7 @@ def test_spheres_goldens(name, features, min_frac):
     spheres."""
     ref = _golden(name)
     h, w = ref.shape[:2]
-    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres)
+    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     before = sweep.LAUNCHES["sweep"]
     img = ct.render_image(scene, ct.Camera(aspect=w / h),
                           ct.Features(**features), ct.RenderParams(), w, h)

@@ -15,8 +15,9 @@ from cge_tpu.scene import mesh_io as jmesh
 from cge_tpu.scene.scene import PointLight as JPointLight
 from cge_tpu_torch.camera import pixel_grid
 from cge_tpu_torch.interop import (TENSOR_FIELDS, camera_from_numpy,
-                                   scene_from_numpy)
+                                   params_from_numpy, scene_from_numpy)
 from cge_tpu_torch.scene import mesh_io
+from cge_tpu_torch.scene.scene import build_scene_arrays
 from tools.make_large_asset import write_obj
 
 torch.set_num_threads(2)
@@ -42,7 +43,8 @@ def test_loader_matches_jax(dragon_obj, jax_dragon):
     (native loader); the clusters hold the same triangles in the same
     cluster order, members possibly reordered (argpartition vs
     nth_element)."""
-    mine = ct.load_scene_from_file(dragon_obj, [ct.PointLight(*LIGHT)])
+    mine = ct.load_scene_from_file(dragon_obj, [ct.PointLight(*LIGHT)],
+                                   device="cpu")
     for k in TENSOR_FIELDS:
         got = getattr(mine, k).numpy()
         want = np.asarray(getattr(jax_dragon, k))
@@ -174,7 +176,7 @@ def test_camera_matches_jax(cam):
 
 
 def test_spheres_registry_matches_jax():
-    mine = ct.load_scene_prebuilt(ct.SceneType.Spheres)
+    mine = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     ref = cge_tpu.load_scene_prebuilt(cge_tpu.SceneType.Spheres)
     for k in TENSOR_FIELDS:
         np.testing.assert_array_equal(
@@ -186,9 +188,36 @@ def test_spheres_registry_matches_jax():
 def test_registry_needs_its_data_dir(tmp_path):
     """Scenes that need reference data fail loudly where it is missing."""
     with pytest.raises(FileNotFoundError):
-        ct.load_scene_prebuilt(ct.SceneType.Teapot, data_dir=str(tmp_path))
+        ct.load_scene_prebuilt(ct.SceneType.Teapot, data_dir=str(tmp_path),
+                               device="cpu")
     with pytest.raises(FileNotFoundError, match="data_dir"):
-        ct.load_scene_prebuilt(ct.SceneType.CornellBox)
+        ct.load_scene_prebuilt(ct.SceneType.CornellBox, device="cpu")
+
+
+DEFAULT_DEVICE_CALLS = {
+    "build_scene_arrays": lambda obj: build_scene_arrays(
+        (), (), [ct.PointLight(*LIGHT)]),
+    "load_scene_prebuilt": lambda obj: ct.load_scene_prebuilt(
+        ct.SceneType.Spheres),
+    "load_scene_from_file": lambda obj: ct.load_scene_from_file(
+        obj, [ct.PointLight(*LIGHT)]),
+    "params_from_numpy": lambda obj: params_from_numpy(
+        {k: np.zeros((2, 3), np.float32) for k in ct.DIFF_FIELDS}),
+}
+
+
+@pytest.mark.parametrize("entry", list(DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(dragon_obj, entry):
+    """Without a device argument the entry points build on the card; on a
+    machine without one they raise instead of falling back to the CPU."""
+    call = DEFAULT_DEVICE_CALLS[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(dragon_obj)
+        return
+    out = call(dragon_obj)
+    tensors = out.values() if isinstance(out, dict) else [out.vertices]
+    assert all(t.device.type == "cuda" for t in tensors)
 
 
 def _imports(path):
@@ -224,7 +253,7 @@ def test_port_never_imports_jax():
     "enable_multiple_rays_per_pixel", "enable_depth_of_field",
     "enable_glossy_reflection"])
 def test_unported_features_raise(flag):
-    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres)
+    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     f = ct.Features(enable_shading=True, enable_recursive=True,
                     enable_accel_structure=True).replace(**{flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -246,7 +275,7 @@ def test_unported_paths_raise(change, monkeypatch):
     coherence ray order): they render, and match the JAX package's render
     with its cluster path in interpret mode under the image rules (NaN
     masks agree; >= 99.5% of pixels within rtol 1e-4 / atol 2e-4)."""
-    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres)
+    scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     feats = {**dict(enable_shading=True, enable_recursive=True,
                     enable_accel_structure=True), **change.get("features", {})}
     params = change.get("params", {})

@@ -71,7 +71,7 @@ def _case(name, dragon):
         V, T, M = dragon.vertices, dragon.tris, dragon.tri_mask
     else:
         # "soup": R and T multiples of nothing; "ragged": R one past a
-        # 128-ray block, T one past a 256-row tile
+        # 128-ray block, T one past two 128-row tiles
         R, n_tris = {"soup": (700, 333), "ragged": (129, 257)}[name]
         V, T, M = _soup(rng, n_tris)
         o, d, tmax = _rays(rng, R)
@@ -169,10 +169,82 @@ def test_cpu_wrapper_runs_the_twin(dragon):
     assert sweep.LAUNCHES == before
 
 
+def split_sweep_model(o, d, tmax, table):
+    """A plain model of the CUDA sweep's decomposition (csrc/sweep.cu): the
+    edge vectors b - a hoisted once per triangle; the triangle range cut
+    into split_count(T) splits of whole TILE-row tiles; in each split every
+    ray tests the triangles in id order, a t that cannot be taken skips
+    the edge tests and an accepted t replaces the best on t <= best; the
+    splits' partials then merge in split order under the same rule. The
+    kernel's rays a thread only group the rays, so the model has no such
+    knob."""
+    R, T = o.shape[0], table.shape[0]
+    v = [table[:, 3 * j:3 * j + 3] for j in range(3)]
+    e = [v[(j + 1) % 3] - v[j] for j in range(3)]            # hoisted
+    n, D, valid = table[:, 9:12], table[:, 12], table[:, 13]
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    n_tiles = -(-T // sweep.TILE)
+    n_split = sweep.split_count(T)
+    per = -(-n_tiles // n_split) * sweep.TILE if n_tiles else sweep.TILE
+    best_t = torch.full((R,), torch.inf)
+    best_i = torch.full((R,), -1, dtype=torch.int32)
+    for s in range(n_split):
+        bt = torch.full((R,), torch.inf)
+        bi = torch.full((R,), -1, dtype=torch.int32)
+        for c in range(s * per, min(T, (s + 1) * per)):
+            nx, ny, nz = n[c]
+            denom = (dx * nx + dy * ny) + dz * nz
+            t = (D[c] - ((ox * nx + oy * ny) + oz * nz)) / denom
+            take = ((t >= 0) & (t <= tmax) & (t < torch.inf) & (t <= bt)
+                    & (valid[c] > 0))
+            px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+            for j in range(3):
+                (ax, ay, az), (ex, ey, ez) = v[j][c], e[j][c]
+                wx, wy, wz = px - ax, py - ay, pz - az
+                cx = ey * wz - ez * wy
+                cy = ez * wx - ex * wz
+                cz = ex * wy - ey * wx
+                take &= (cx * nx + cy * ny) + cz * nz >= 0
+            bt, bi = torch.where(take, t, bt), torch.where(take, c, bi)
+        take = torch.isfinite(bt) & (bt <= best_t)
+        best_t = torch.where(take, bt, best_t)
+        best_i = torch.where(take, bi, best_i)
+    return best_t, best_i
+
+
+@pytest.mark.parametrize("tiles_per_split", [1, 2, 4])
+@pytest.mark.parametrize("name", ["soup", "ragged", "dragon_primary"])
+def test_split_sweep_model_matches_twin_and_pallas(dragon, name,
+                                                   tiles_per_split,
+                                                   monkeypatch):
+    """The CUDA sweep's decomposition (split_sweep_model) equals the twin
+    bit for bit and matches pallas_closest_tris(interpret=True): ids and
+    hit flags exactly, t to rtol 1e-5 / atol 2e-6. The soup's duplicated
+    rows 4 and T - 2 are an exact-t tie that lies in one split or spans
+    two, by the split rule; the later row wins either way."""
+    monkeypatch.setattr(sweep, "TILES_PER_SPLIT", tiles_per_split)
+    o, d, tmax, table = _case(name, dragon)
+    got = split_sweep_model(_t(o), _t(d), _t(tmax), _t(table))
+    for x, y in zip(got, sweep.closest_tris_plain(_t(o), _t(d), _t(tmax),
+                                                  _t(table))):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    rt, ri = (np.asarray(x) for x in pallas_closest_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(table),
+        interpret=True))
+    t, i = got[0].numpy(), got[1].numpy()
+    np.testing.assert_array_equal(i, ri)
+    h = ri >= 0
+    np.testing.assert_array_equal(np.isfinite(t), h)
+    np.testing.assert_allclose(t[h], rt[h], rtol=1e-5, atol=2e-6)
+    if name == "soup":
+        assert (i == table.shape[0] - 2).any() and not (i == 4).any()
+
+
 @pytest.mark.parametrize("T,want", [
-    (15360, 30),                # 60 tiles: a split every 2 tiles
-    (614400, 32),               # at most MAX_SPLIT
-    (257, 1), (513, 2), (0, 1)])
+    (15360, 60),                # 120 tiles of 128 rows: a split every 2
+    (614400, 64),               # at most MAX_SPLIT
+    (257, 2), (513, 3), (0, 1)])
 def test_split_count(T, want):
     assert sweep.split_count(T) == want
 
@@ -200,6 +272,22 @@ def test_kernel_matches_twin_on_card(dragon, name, cuda_device):
     t, i = sweep.closest_tris(o, d, tmax, torch.zeros((0, 16),
                                                       device=cuda_device))
     assert torch.isinf(t).all() and (i == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles_per_split", [1, 2, 4])
+def test_kernel_split_rules_match_twin_on_card(dragon, tiles_per_split,
+                                               cuda_device, monkeypatch):
+    """K3 under three split rules equals its twin on the card on every
+    case."""
+    monkeypatch.setattr(sweep, "TILES_PER_SPLIT", tiles_per_split)
+    for name in ("soup", "ragged", "dragon_primary"):
+        o, d, tmax, table = (_t(x).to(cuda_device)
+                             for x in _case(name, dragon))
+        got = sweep.closest_tris(o, d, tmax, table)
+        want = sweep.closest_tris_plain(o, d, tmax, table)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
