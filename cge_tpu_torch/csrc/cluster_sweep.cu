@@ -27,10 +27,12 @@
 //     best: the later visit wins across clusters), any hit (a hit ray is
 //     marked done with the -3e38 sentinel and flag 1), and the shared
 //     origin of primary rays (o.n from the block's first ray).
-//     Bound on this card: arithmetic. A visit is C tests (31-36 flops and a
-//     divide each) per live ray on 8 KB of constants that every ray of the
-//     block reuses. In practice the walk is bound by its latency: a 16k-ray
-//     chunk is 32 ray blocks, each walks its visits one after the other,
+//     Bound on this card: arithmetic. A visit is C plane t's (7-12 flops
+//     and a divide each) per live ray on 8 KB of constants that every ray
+//     of the block reuses, and the edge tests (24 flops) of a pair whose t
+//     could be the answer (tools/roofline.py counts them from the run).
+//     In practice the walk is bound by its latency: a 16k-ray chunk is 32
+//     ray blocks, each walks its visits one after the other,
 //     and the kernel lasts as long as the longest walk (161 visits where
 //     the mean is 40 on the dragon's primary chunk), each visit ending in a
 //     max over the whole ray block.
@@ -43,6 +45,13 @@
 //       each. The stop's max is formed from the CTAs' partials through
 //       distributed shared memory (remote stores, then the cluster
 //       barrier), so every CTA takes exactly the block's visits.
+//       Entry invariant: no CTA stores into another's shared memory before
+//       a cluster barrier has shown that every CTA of the cluster has
+//       started (arrived at entry, waited on before the first remote
+//       store; the live-first scan runs in between). Exit invariant: each
+//       remote store is followed by a barrier that every CTA waits on, and
+//       all CTAs take the same stop, so none exits while a store into its
+//       shared memory may still come.
 //     - The stop is pipelined: visit k + 1 is tested while the stop after
 //       visit k is reduced across the cluster (barrier.cluster arrive,
 //       then wait after the tests). Its result is committed only when that
@@ -662,6 +671,9 @@ cluster_walk_split_kernel(const int* __restrict__ order,
     const float* rb = rays + (size_t)b * 8 * BR;
     const int* ord = order + (size_t)b * n_sc;
     const float* sk = skeys + (size_t)b * n_sc;
+    // distributed shared memory is written only once every CTA of the
+    // cluster has started: arrive now, wait before the first remote store
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
     // the CTA's rays, live ones first in their order, then the dead ones
     const int scan_warps = (rpc + 31) >> 5;
@@ -700,6 +712,7 @@ cluster_walk_split_kernel(const int* __restrict__ order,
     float bt = INFINITY;
     int bi = -1;
     // first-key guard: an all-dead or no-overlap block makes zero visits
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     push_partial<CS>(live ? tm_eff : -INFINITY, s_red, s_part, 0, rank);
     bool stop = past(sk[0], wait_max<CS>(s_part, 0));
     int parity = 1;

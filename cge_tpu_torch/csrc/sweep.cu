@@ -11,11 +11,13 @@
 //     tmax < 0 are dead. The closest accepted finite t wins, and on equal t
 //     the largest triangle id: the Pallas rule (largest id at a tile's
 //     minimum, a later tile replacing on t <= best).
-//     Bound on this card: arithmetic. R * T tests of 78 flops and one
-//     divide each (69 once the edge vectors are hoisted), against 64 bytes
-//     per triangle that every ray reuses. Built without FMA contraction,
-//     every flop is an instruction of its own, so the kernel can reach at
-//     most about half of the card's 67 TFLOP/s, which counts an FMA as two.
+//     Bound on this card: arithmetic. R * T plane t's of 12 flops and one
+//     divide each, and the edge tests (57 flops once the edge vectors are
+//     hoisted) of a pair whose t could be the answer (tools/roofline.py
+//     counts them from the run), against 64 bytes per triangle that every
+//     ray reuses. Built without FMA contraction, every flop is an
+//     instruction of its own, while the card's 67 TFLOP/s counts an FMA as
+//     two.
 //
 //     Design (its first version ran one ray per thread, re-read 14
 //     scalars from shared memory per test, recomputed the edge vectors per

@@ -20,7 +20,7 @@ into superclusters of `sc_n` consecutive clusters. One sweep runs:
      (triangle layout only).
 
 K1 and K2 are CUDA kernels (csrc/cluster_sweep.cu). K2's default walk runs
-each ray block as a thread block cluster (SPLIT_SHAPE: CTAs per block,
+each ray block as a thread block cluster (split_shape: CTAs per block,
 lanes per ray) with the stop pipelined one visit ahead; the opt-in modes
 run one block of one thread per ray. Beside each stands its
 plain PyTorch twin (`block_entry_keys_plain`, `cluster_walk_plain`) with the
@@ -56,14 +56,13 @@ DONE = -3.0e38                  # any-hit sentinel
 LAYOUTS = ("triangle", "field")
 # the mxu walk's block size limit (csrc/cluster_sweep.cu's MXU_MAX_BR)
 MXU_MAX_BR = 512
-# The default walk's thread block cluster: (CTAs per ray block, lanes per
-# ray), one of csrc/cluster_sweep.cu's compiled SPLIT_SHAPES. A CTA runs
-# BR / CTAs * lanes threads, at most SPLIT_MAX_THREADS. 8 x 16 was the
-# fastest portable shape (clusters of up to 8 CTAs run on every Hopper
+# The default walk's thread block clusters: (CTAs per ray block, lanes per
+# ray), csrc/cluster_sweep.cu's compiled shapes in order of preference. A
+# CTA runs BR / CTAs * lanes threads, at most SPLIT_MAX_THREADS. 8 x 16 was
+# the fastest portable shape (clusters of up to 8 CTAs run on every Hopper
 # part) at the main path's 16k-ray batches (tools/kernel_bench.py
 # --shapes); 8 x 8 takes the blocks of 1024 rays.
 SPLIT_SHAPES = ((8, 16), (8, 8))
-SPLIT_SHAPE = (8, 16)
 SPLIT_MAX_THREADS = 1024
 
 # b_i = 1 kills every edge test of a pad triangle
@@ -495,9 +494,8 @@ def cluster_walk_plain(order, skeys, rays, tiles, *, layout: str, sc_n: int,
 
 def split_shape(br: int) -> tuple[int, int]:
     """The default walk's (CTAs per cluster, lanes per ray) for blocks of
-    br rays: SPLIT_SHAPE where its CTAs fit, else the first of
-    SPLIT_SHAPES that does."""
-    for cs, lanes in (SPLIT_SHAPE, *SPLIT_SHAPES):
+    br rays: the first of SPLIT_SHAPES whose CTAs fit."""
+    for cs, lanes in SPLIT_SHAPES:
         threads = br // cs * lanes
         if br % cs == 0 and threads % 32 == 0 and threads <= SPLIT_MAX_THREADS:
             return cs, lanes
@@ -506,7 +504,8 @@ def split_shape(br: int) -> tuple[int, int]:
 
 def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
                  any_hit: bool = False, shared_origin: bool = False,
-                 aabbs=None, refine_members: bool = False, mxu: bool = False):
+                 aabbs=None, refine_members: bool = False, mxu: bool = False,
+                 _shape: tuple[int, int] | None = None):
     """K2: the ordered cluster walk. order [NB, n_sc] i32 and skeys [NB,
     n_sc] f32 (each block's sorted keys), rays [NB, 8, BR], tiles [Lp, C,
     16] or [Lp, 16, C] with Lp = n_sc * sc_n, aabbs [Lp, 8] (needed by
@@ -514,7 +513,8 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
     [NB] i32, dense tiles run [NB] i32). The mode follows walk_mode; the
     default walk launches a thread block cluster per ray block
     (split_shape), the opt-in modes one block per ray block; the mxu mode
-    needs C a multiple of 16 and BR <= MXU_MAX_BR."""
+    needs C a multiple of 16 and BR <= MXU_MAX_BR. _shape forces one of
+    SPLIT_SHAPES on the default walk (tools/kernel_bench.py --shapes)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
@@ -562,7 +562,7 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
         if tiles.data_ptr() % 16:
             raise ValueError("cluster_walk: the tile stack must be 16-byte "
                              "aligned")
-        cs, lanes = split_shape(BR)
+        cs, lanes = _shape or split_shape(BR)
         lib.check(lib.cge_cluster_walk_split(
             order.data_ptr(), skeys.data_ptr(), rays.data_ptr(),
             tiles.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),

@@ -1,22 +1,23 @@
-"""K2's default walk and K3 on the main path's batches, against their twins,
-their bounds and K2's earlier design.
+"""K1, K2's default walk and K3 on the main path's batches, each against
+its plain twin, timed beside the twin and its bound; chip_smoke.py phases 2
+and 5 report these rows. --shapes also times K2 in every compiled split
+shape (CTAs per cluster, lanes per ray) and in its one-thread-per-ray
+kernel (cge_cluster_walk, which runs the opt-in modes), and K3 under three
+split rules.
 
-K2 runs on the dragon stand-in (614,400 triangles, field-major tiles) with
-the 16,384-ray batches of the 512x512 frame's middle chunk, the main
-path's trace_chunk: primary rays with a shared origin, a bounce-like
-batch (scattered directions from the hits, a dead third), any-hit shadow
-rays toward them, and the first two again at 4 clusters per visit. K3
-runs on the stand-in at teapot size (15,360 triangles) with its primary,
-bounce-like and shadow batches. Each kernel is held against its plain twin
-on the same inputs (t, ids, visits and dense tiles equal), then timed with
-CUDA events beside its bound (tools/roofline.py) and its share of it. K2
-is also timed in its per-ray design, one thread per ray in one block per
-ray block (cge_cluster_walk, which still runs the opt-in modes), on the
-same inputs. --shapes times every compiled split shape of K2 (CTAs per cluster,
-lanes per ray), and K3 under three split rules.
+K1 and K2 run on the dragon stand-in (614,400 triangles, field-major tiles)
+with the 16,384-ray batches of the 512x512 frame's middle chunk, the main
+path's trace_chunk: primary rays with a shared origin, a bounce-like batch
+(scattered directions from the hits, a dead third), any-hit shadow rays
+toward them, and the first two again at 4 clusters per visit. K3 runs on
+the stand-in at teapot size (15,360 triangles) with its primary,
+bounce-like and shadow batches. K1's keys match the twin's to 1e-6
+relative; K2's t, ids, visits and dense tiles and K3's t and ids equal the
+twins'. Times are CUDA events (tools/common.py device_ms); bounds and
+shares come from tools/roofline.py.
 
     python -m cge_tpu_torch.tools.kernel_bench             # on the card
-    python -m cge_tpu_torch.tools.kernel_bench --shapes    # the shape grid
+    python -m cge_tpu_torch.tools.kernel_bench --shapes    # and the shapes
     python -m cge_tpu_torch.tools.kernel_bench --device cpu --dragon 41 32 \\
         --standin 41 16 --res 64 --rays 1024 --reps 1      # tiny, twins
 """
@@ -102,9 +103,9 @@ def brute_batches(table, dev, res: int = 512, n: int = 16384) -> dict:
 
 def per_ray_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
                  any_hit: bool = False, shared_origin: bool = False):
-    """K2's default walk in its per-ray design (one thread per ray, one
-    block per ray block), the opt-in modes' kernel with both modes off.
-    Card tensors only; not counted in cluster_sweep.LAUNCHES."""
+    """K2's default walk in its one-thread-per-ray kernel (one block per ray
+    block), the opt-in modes' kernel with both modes off. Card tensors
+    only; not counted in cluster_sweep.LAUNCHES."""
     NB, _, BR = rays.shape
     C = tiles.shape[2] if layout == "field" else tiles.shape[1]
     dev = rays.device
@@ -121,94 +122,165 @@ def per_ray_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
     return out
 
 
-def walk_case(batch, accel):
-    """(positional args, keyword args) of one batch's K2 call: the rays
-    packed, keyed by K1 and sorted once."""
-    o, d, tmax, shared, any_hit, sc_n = batch
-    inp = cs.sweep_setup(o, d, tmax, accel.aabbs, accel.tiles, accel.layout,
-                         cs.DEFAULT_BR, sc_n)
-    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
-    kw = dict(layout=accel.layout, sc_n=inp.sc_n, any_hit=any_hit,
-              shared_origin=shared)
-    return (order, skeys, inp.rays, inp.tiles), kw
-
-
 def check_equal(got, want, what: str) -> None:
     for name, a, b in zip(("t", "ids", "visits", "dense tiles"), got, want):
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {name} differ from the twin")
 
 
-def _share(bound_ms: float, ms) -> str:
-    return "share not measured" if ms is None else f"share {bound_ms / ms:.3f}"
+def keys_error(keys, keys_p, what: str) -> float:
+    """Max |K1 - twin| over the finite keys; the finite masks must agree
+    and the error stay within 1e-6 of the largest key (both sides round
+    alike, so it is 0 unless a reciprocal rounds differently)."""
+    fin = torch.isfinite(keys_p)
+    if not torch.equal(fin, torch.isfinite(keys)):
+        raise AssertionError(f"{what}: K1 finite-key masks differ")
+    if not fin.any():
+        return 0.0
+    err = float((keys - keys_p)[fin].abs().max())
+    if err > 1e-6 * max(1.0, float(keys_p[fin].abs().max())):
+        raise AssertionError(f"{what}: K1 keys differ by {err}")
+    return err
 
 
-def bench_walk(scene, accel, dev, args) -> None:
-    for name, batch in walk_batches(scene, accel, dev, args.res,
-                                    args.rays).items():
-        call, kw = walk_case(batch, accel)
+def timed(ms, plain_ms, bound) -> str:
+    """'ms (twin ms) bound ms (kind) share', with 'not measured' off the
+    card."""
+    share = ("share not measured" if ms is None
+             else f"share {bound[0] / ms:.3f}")
+    return (f"{common.fmt_ms(ms)} (twin {common.fmt_ms(plain_ms)}) bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) {share}")
+
+
+def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
+              reps: int = 5, shapes: bool = False) -> list:
+    """One row per batch of walk_batches: K1 against its twin, K2 on the
+    twin's sorted keys against its twin, their times, the twins' times
+    and the bounds; with shapes, K2's time in every split shape and in its
+    one-thread-per-ray kernel."""
+    rows = []
+    for name, batch in walk_batches(scene, accel, dev, res, n).items():
+        o, d, tmax, shared, any_hit, sc_n = batch
+        inp = cs.sweep_setup(o, d, tmax, accel.aabbs, accel.tiles,
+                             accel.layout, cs.DEFAULT_BR, sc_n)
+        rays, boxes = inp.rays, inp.boxes
+        keys_p = cs.block_entry_keys_plain(rays, boxes)
+        kerr = keys_error(cs.block_entry_keys(rays, boxes), keys_p,
+                          f"K1 {name}")
+        skeys, order = torch.sort(keys_p, dim=-1, stable=True)
+        call = (order.int().contiguous(), skeys, rays, inp.tiles)
+        kw = dict(layout=accel.layout, sc_n=inp.sc_n, any_hit=any_hit,
+                  shared_origin=shared)
         got = cs.cluster_walk(*call, **kw)
         check_equal(got, cs.cluster_walk_plain(*call, **kw), f"K2 {name}")
-        rays, tiles = call[2], call[3]
-        C = tiles.shape[2] if accel.layout == "field" else tiles.shape[1]
-        b_ms, b_by = roofline.walk_bound(
-            rays, C, kw["sc_n"], got[2], got[3], tiles.shape[0],
-            shared_origin=kw["shared_origin"])
-        ms = common.device_ms(lambda: cs.cluster_walk(*call, **kw), dev,
-                              args.reps)
-        line = (f"K2 {name}: rays {rays.shape[0] * rays.shape[2]} live "
-                f"{int((rays[:, 6] >= 0).sum())} sc_n {kw['sc_n']} visits "
-                f"mean {float(got[2].float().mean()):.2f} max "
-                f"{int(got[2].max())} | equal to the "
-                f"twin | {common.fmt_ms(ms)} | bound {b_ms:.4f} ms ({b_by}) "
-                f"{_share(b_ms, ms)}")
-        if dev.type == "cuda":
-            old = per_ray_walk(*call, **kw)
-            check_equal(old, got, f"K2 {name} (per-ray design)")
-            old_ms = common.device_ms(lambda: per_ray_walk(*call, **kw), dev,
-                                      args.reps)
-            line += f" | per-ray design {old_ms:.4f} ms ({old_ms / ms:.2f}x)"
-        print(line, flush=True)
-        if args.shapes:
-            keep = cs.SPLIT_SHAPE
-            for shape in cs.SPLIT_SHAPES:
-                cs.SPLIT_SHAPE = shape
-                check_equal(cs.cluster_walk(*call, **kw), got,
-                            f"K2 {name} shape {shape}")
-                s_ms = common.device_ms(
-                    lambda: cs.cluster_walk(*call, **kw), dev, args.reps)
-                print(f"  shape {shape} (CTAs, lanes): {common.fmt_ms(s_ms)}",
-                      flush=True)
-            cs.SPLIT_SHAPE = keep
+        row = dict(
+            name=name, rays=o.shape[0], blocks=rays.shape[0],
+            boxes=boxes.shape[0], live=int((tmax >= 0).sum()),
+            hits=int((got[1] >= 0).sum()), sc_n=inp.sc_n,
+            visits_mean=float(got[2].float().mean()),
+            visits_max=int(got[2].max()), keys_err=kerr,
+            keys_ms=common.device_ms(lambda: cs.block_entry_keys(rays, boxes),
+                                     dev, reps),
+            keys_plain_ms=common.device_ms(
+                lambda: cs.block_entry_keys_plain(rays, boxes), dev, 2),
+            keys_bound=roofline.keys_bound(rays, boxes.shape[0]),
+            ms=common.device_ms(lambda: cs.cluster_walk(*call, **kw), dev,
+                                reps),
+            plain_ms=common.device_ms(
+                lambda: cs.cluster_walk_plain(*call, **kw), dev, 1),
+            bound=roofline.walk_bound(call[0], rays, inp.tiles, got, **kw))
+        if shapes:
+            row["shapes"] = walk_shapes(call, kw, got, dev, reps)
+        rows.append(row)
+    return rows
 
 
-def bench_sweep(table, dev, args) -> None:
-    for name, (o, d, tmax) in brute_batches(table, dev, args.res,
-                                            args.rays).items():
+def walk_shapes(call, kw, got, dev, reps: int) -> list:
+    """(label, ms) of K2 in every compiled split shape and, on the card, in
+    its one-thread-per-ray kernel; each equal to got."""
+    out = []
+    for shape in cs.SPLIT_SHAPES:
+        check_equal(cs.cluster_walk(*call, _shape=shape, **kw), got,
+                    f"K2 shape {shape}")
+        out.append((f"{shape[0]} CTAs x {shape[1]} lanes", common.device_ms(
+            lambda: cs.cluster_walk(*call, _shape=shape, **kw), dev, reps)))
+    if dev.type == "cuda":
+        check_equal(per_ray_walk(*call, **kw), got, "K2 one thread a ray")
+        out.append(("one thread a ray", common.device_ms(
+            lambda: per_ray_walk(*call, **kw), dev, reps)))
+    return out
+
+
+def walk_line(row, earlier=None) -> str:
+    """A walk row as two lines; earlier: K2's time in an earlier design."""
+    ref = "" if earlier is None else f" | earlier {earlier} ms"
+    k1 = timed(row["keys_ms"], row["keys_plain_ms"], row["keys_bound"])
+    return (f"K2 {row['name']}: rays {row['rays']} blocks {row['blocks']} "
+            f"boxes {row['boxes']} live {row['live']} hits {row['hits']} "
+            f"sc_n {row['sc_n']} visits mean {row['visits_mean']:.2f} max "
+            f"{row['visits_max']} | K1 err {row['keys_err']:.3g}, K2 t/ids/"
+            f"visits/dense equal to the twin\n"
+            f"    K1 {k1} | K2 {timed(row['ms'], row['plain_ms'], row['bound'])}"
+            f"{ref}")
+
+
+def sweep_rows(table, dev, res: int = 512, n: int = 16384, reps: int = 5,
+               shapes: bool = False) -> list:
+    """One row per batch of brute_batches: K3 against its twin, its time,
+    the twin's and the bound; with shapes, its time under each split rule
+    of SPLIT_RULES."""
+    rows = []
+    for name, (o, d, tmax) in brute_batches(table, dev, res, n).items():
         got = sweep.closest_tris(o, d, tmax, table)
         check_equal(got, sweep.closest_tris_plain(o, d, tmax, table),
                     f"K3 {name}")
-        b_ms, b_by = roofline.sweep_bound(tmax, table.shape[0])
-        ms = common.device_ms(lambda: sweep.closest_tris(o, d, tmax, table),
-                              dev, args.reps)
-        print(f"K3 {name}: rays {o.shape[0]} live {int((tmax >= 0).sum())} "
-              f"triangles {table.shape[0]} splits "
-              f"{sweep.split_count(table.shape[0])} | equal to the twin | "
-              f"{common.fmt_ms(ms)} | bound {b_ms:.4f} ms ({b_by}) "
-              f"{_share(b_ms, ms)}", flush=True)
-        if args.shapes:
-            keep = sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT
-            for rule in SPLIT_RULES:
-                sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT = rule
-                check_equal(sweep.closest_tris(o, d, tmax, table), got,
-                            f"K3 {name} split rule {rule}")
-                s_ms = common.device_ms(
-                    lambda: sweep.closest_tris(o, d, tmax, table), dev,
-                    args.reps)
-                print(f"  a split every {rule[0]} tiles, at most {rule[1]} "
-                      f"({sweep.split_count(table.shape[0])}): "
-                      f"{common.fmt_ms(s_ms)}", flush=True)
-            sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT = keep
+        row = dict(
+            name=name, rays=o.shape[0], live=int((tmax >= 0).sum()),
+            hits=int((got[1] >= 0).sum()), triangles=table.shape[0],
+            splits=sweep.split_count(table.shape[0]),
+            ms=common.device_ms(lambda: sweep.closest_tris(o, d, tmax, table),
+                                dev, reps),
+            plain_ms=common.device_ms(
+                lambda: sweep.closest_tris_plain(o, d, tmax, table), dev, 1),
+            bound=roofline.sweep_bound(o, d, tmax, table, got[0]))
+        if shapes:
+            row["shapes"] = sweep_shapes(o, d, tmax, table, got, dev, reps)
+        rows.append(row)
+    return rows
+
+
+def sweep_shapes(o, d, tmax, table, got, dev, reps: int) -> list:
+    """(label, ms) of K3 under each split rule; each equal to got."""
+    out = []
+    keep = sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT
+    try:
+        for rule in SPLIT_RULES:
+            sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT = rule
+            check_equal(sweep.closest_tris(o, d, tmax, table), got,
+                        f"K3 split rule {rule}")
+            out.append((f"a split every {rule[0]} tiles, at most {rule[1]} "
+                        f"({sweep.split_count(table.shape[0])})",
+                        common.device_ms(
+                            lambda: sweep.closest_tris(o, d, tmax, table),
+                            dev, reps)))
+    finally:
+        sweep.TILES_PER_SPLIT, sweep.MAX_SPLIT = keep
+    return out
+
+
+def sweep_line(row, earlier=None) -> str:
+    ref = "" if earlier is None else f" | earlier {earlier} ms"
+    return (f"K3 {row['name']}: rays {row['rays']} live {row['live']} hits "
+            f"{row['hits']} triangles {row['triangles']} splits "
+            f"{row['splits']} | t/ids equal to the twin\n"
+            f"    K3 {timed(row['ms'], row['plain_ms'], row['bound'])}{ref}")
+
+
+def print_rows(rows, line) -> None:
+    for row in rows:
+        print(line(row), flush=True)
+        for label, ms in row.get("shapes", ()):
+            print(f"      {label}: {common.fmt_ms(ms)}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -221,16 +293,20 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=16384,
                     help="rays a batch (the main path's trace_chunk)")
     ap.add_argument("--shapes", action="store_true",
-                    help="also time every split shape and K3 variant")
+                    help="also time K2 in every split shape and its "
+                         "one-thread-per-ray kernel, K3 under each split "
+                         "rule")
     args = ap.parse_args(argv)
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)
     scene = common.standin_scene(tuple(args.dragon), dev)
-    bench_walk(scene, build_accel(scene), dev, args)
+    print_rows(walk_rows(scene, build_accel(scene), dev, args.res, args.rays,
+                         args.reps, args.shapes), walk_line)
     tscene = common.standin_scene(tuple(args.standin), dev)
     table = sweep.pack_tri_table(tscene.vertices, tscene.tris,
                                  tscene.tri_mask)
-    bench_sweep(table, dev, args)
+    print_rows(sweep_rows(table, dev, args.res, args.rays, args.reps,
+                          args.shapes), sweep_line)
     return 0
 
 

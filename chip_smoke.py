@@ -6,14 +6,14 @@ It needs a CUDA card, builds the port's kernels from csrc/ with nvcc, and
 exits non-zero if any phase fails:
 
   1. the card's name and power limit, and the kernel build;
-  2. each kernel against its plain PyTorch twin on the card, on the full
-     614,400-triangle dragon stand-in (tools/make_large_asset.py): primary
-     rays and a bounce-like batch (scattered directions, a dead third), in
-     the walk's four modes (closest with a shared origin; closest with
-     per-ray origins; any-hit shadow rays; 4 clusters per visit); K2's t,
-     ids, visits and dense tiles exactly. Each kernel's time beside its
-     bound (cge_tpu_torch/tools/roofline.py) and its share of it, and K2
-     beside its per-ray design (one thread per ray) on the same inputs;
+  2. K1 and K2 against their plain PyTorch twins on the card, on the full
+     614,400-triangle dragon stand-in (tools/make_large_asset.py), through
+     cge_tpu_torch/tools/kernel_bench.py's rows: primary rays and a
+     bounce-like batch (scattered directions, a dead third), in the walk's
+     four modes (closest with a shared origin; closest with per-ray
+     origins; any-hit shadow rays; 4 clusters per visit); K2's t, ids,
+     visits and dense tiles exactly. Each kernel's time beside its twin's,
+     its bound (cge_tpu_torch/tools/roofline.py) and its share of it;
   3. the main path: the dragon at 512x512 through render_image_u8 with
      shading, hard shadows, recursive mirrors, interpolated normals and the
      accel, with the launch counters showing it ran through both kernels,
@@ -23,9 +23,9 @@ exits non-zero if any phase fails:
      scene rendered with the kernels on the card against the twins on the
      CPU;
   5. the brute-force sweep (K3) against its twin on the card, on the
-     15,360-triangle stand-in (teapot size): primary rays, a bounce-like
-     batch with a dead third and forward shadow rays, t and ids exactly,
-     with its time, bound and share;
+     15,360-triangle stand-in (teapot size), through kernel_bench's rows:
+     primary rays, a bounce-like batch with a dead third and forward
+     shadow rays, t and ids exactly, with its time, bound and share;
   6. the second path: the accel-off 512x512 render of that scene through
      render_image_u8 (K3 only, no K1 or K2 launch), its median frame time
      and peak memory, held against the accel-on render of the same scene;
@@ -40,7 +40,8 @@ exits non-zero if any phase fails:
      and the default walk, within MXU_TOL; the times of every mode and
      twin;
   9. the fourth path, kernel tuning: each tool of cge_tpu_torch.tools at
-     a quick size, then a 512x512 render of the stand-in with the accel,
+     a quick size (kernel_bench with --shapes: K2 in every split shape and
+     its one-thread-per-ray kernel, K3 under each split rule), then a 512x512 render of the stand-in with the accel,
      frustum keys for both sweeps and the coherence ray order for bounces
      and shadows, held against the default accel render;
  10. K4, the streaming probe, against its twin on the three tile layouts
@@ -101,8 +102,8 @@ TOOL_RUNS = (
                      "--reps", "2"]),
     ("mxu_grid", ["all", "--res", "256", "--reps", "2"]),
     ("stream_layout", ["--clusters", "1200", "--reps", "3"]),
-    ("kernel_bench", ["--dragon", "201", "96", "--standin", "41", "48",
-                      "--rays", "4096", "--reps", "2"]),
+    ("kernel_bench", ["--shapes", "--dragon", "201", "96", "--standin",
+                      "41", "48", "--rays", "4096", "--reps", "2"]),
 )
 
 
@@ -134,70 +135,26 @@ def _bound_line(bound, ms) -> str:
 
 
 def check_kernels(scene, ctx, device):
-    """Each kernel vs its twin on the same inputs. K1 keys to 1e-6
-    relative (both sides round alike, so the expected error is 0; the
-    slack covers a reciprocal that rounds differently); K2's t, ids, visits
-    and dense tiles exactly (the kernels are built with --fmad=false and
-    the twins run one rounding per op). K2 is timed beside its per-ray
-    design on the same inputs."""
-    import torch
+    """Phase 2: K1 and K2 against their twins on the main path's batches
+    (kernel_bench.walk_rows): K1's keys to 1e-6 relative (both sides round
+    alike, so the expected error is 0; the slack covers a reciprocal that
+    rounds differently), K2's t, ids, visits and dense tiles exactly (the
+    kernels are built with --fmad=false and the twins run one rounding per
+    op); each kernel's time beside its twin's and its bound."""
+    from cge_tpu_torch.tools import kernel_bench
 
-    from cge_tpu_torch.ops import cluster_sweep as cs
-    from cge_tpu_torch.tools import kernel_bench, roofline
-
-    acc = ctx.accel
     report = {"keys": {"err": 0.0}, "walk": {"err": 0.0}}
-    for name, (o, d, tmax, shared, any_hit, sc_n) in \
-            kernel_bench.walk_batches(scene, acc, device).items():
-        rays, boxes, tiles, sc_n, _ = cs.sweep_setup(
-            o, d, tmax, acc.aabbs, acc.tiles, acc.layout, cs.DEFAULT_BR, sc_n)
-        keys = cs.block_entry_keys(rays, boxes)
-        keys_p = cs.block_entry_keys_plain(rays, boxes)
-        fin = torch.isfinite(keys_p)
-        if not torch.equal(fin, torch.isfinite(keys)):
-            raise AssertionError(f"{name}: K1 finite-key masks differ")
-        kerr = float((keys - keys_p)[fin].abs().max()) if fin.any() else 0.0
-        if fin.any() and kerr > 1e-6 * max(1.0, float(keys_p[fin].abs().max())):
-            raise AssertionError(f"{name}: K1 keys differ by {kerr}")
-        skeys, order = torch.sort(keys_p, dim=-1, stable=True)
-        order = order.int().contiguous()
-        kw = dict(layout=acc.layout, sc_n=sc_n, any_hit=any_hit,
-                  shared_origin=shared)
-        got = cs.cluster_walk(order, skeys, rays, tiles, **kw)
-        kernel_bench.check_equal(
-            got, cs.cluster_walk_plain(order, skeys, rays, tiles, **kw),
-            f"{name}: K2")
-        C = tiles.shape[2] if acc.layout == "field" else tiles.shape[1]
-        k1_bound = roofline.keys_bound(rays, boxes.shape[0])
-        k2_bound = roofline.walk_bound(rays, C, sc_n, got[2], got[3],
-                                       tiles.shape[0], shared_origin=shared)
-        report["keys"]["err"] = max(report["keys"]["err"], kerr)
-        t = dict(
-            keys=cuda_ms(lambda: cs.block_entry_keys(rays, boxes)),
-            keys_plain=cuda_ms(lambda: cs.block_entry_keys_plain(
-                rays, boxes), reps=2),
-            walk=cuda_ms(lambda: cs.cluster_walk(order, skeys, rays, tiles,
-                                                 **kw)),
-            per_ray=cuda_ms(lambda: kernel_bench.per_ray_walk(
-                order, skeys, rays, tiles, **kw)),
-            walk_plain=cuda_ms(lambda: cs.cluster_walk_plain(
-                order, skeys, rays, tiles, **kw), reps=1))
-        earlier = (f", earlier {EARLIER_MS['walk']}" if name == "a_primary"
-                   else "")
-        log(f"  {name}: rays {o.shape[0]} blocks {rays.shape[0]} boxes "
-            f"{boxes.shape[0]} live {int((tmax >= 0).sum())} hits "
-            f"{int((got[1] >= 0).sum())} visits mean "
-            f"{float(got[2].float().mean()):.1f} max {int(got[2].max())} | "
-            f"K1 err {kerr:.3g}, K2 t/ids/visits/dense equal")
-        log(f"    K1 {t['keys']:.4f} ms (twin {t['keys_plain']:.3f}) "
-            f"{_bound_line(k1_bound, t['keys'])} | K2 {t['walk']:.4f} ms "
-            f"(per-ray design in this call {t['per_ray']:.4f}{earlier}; twin "
-            f"{t['walk_plain']:.3f}) {_bound_line(k2_bound, t['walk'])}")
-        if name == "a_primary":
-            report["keys"].update(ms=t["keys"], plain_ms=t["keys_plain"],
-                                  bound=k1_bound)
-            report["walk"].update(ms=t["walk"], plain_ms=t["walk_plain"],
-                                  bound=k2_bound)
+    for row in kernel_bench.walk_rows(scene, ctx.accel, device):
+        first = row["name"] == "a_primary"
+        log("  " + kernel_bench.walk_line(
+            row, EARLIER_MS["walk"] if first else None))
+        report["keys"]["err"] = max(report["keys"]["err"], row["keys_err"])
+        if first:
+            report["keys"].update(ms=row["keys_ms"],
+                                  plain_ms=row["keys_plain_ms"],
+                                  bound=row["keys_bound"])
+            report["walk"].update(ms=row["ms"], plain_ms=row["plain_ms"],
+                                  bound=row["bound"])
     return report
 
 
@@ -251,32 +208,19 @@ def small_scene_check(device, tmp):
 # ---------------------------------------------------------------------------
 
 def check_sweep(ctx, device):
-    """K3 against its twin on the same inputs on the card: t and ids
-    exactly (--fmad=false and the same operation order), with its time,
-    bound and share."""
-    from cge_tpu_torch.ops import sweep
-    from cge_tpu_torch.tools import kernel_bench, roofline
+    """Phase 5: K3 against its twin on the accel-off path's batches
+    (kernel_bench.sweep_rows): t and ids exactly (--fmad=false and the same
+    operation order), with its time, the twin's and its bound."""
+    from cge_tpu_torch.tools import kernel_bench
 
     report = {"err": 0.0}
-    table = ctx.tri_table
-    for name, (o, d, tmax) in kernel_bench.brute_batches(table,
-                                                         device).items():
-        got = sweep.closest_tris(o, d, tmax, table)
-        kernel_bench.check_equal(
-            got, sweep.closest_tris_plain(o, d, tmax, table), f"{name}: K3")
-        bound = roofline.sweep_bound(tmax, table.shape[0])
-        ms = cuda_ms(lambda: sweep.closest_tris(o, d, tmax, table), reps=10)
-        plain = cuda_ms(lambda: sweep.closest_tris_plain(o, d, tmax, table),
-                        reps=2)
-        earlier = (f", earlier {EARLIER_MS['sweep']}" if name == "a_primary"
-                   else "")
-        log(f"  {name}: rays {o.shape[0]} triangles {table.shape[0]} live "
-            f"{int((tmax >= 0).sum())} hits {int((got[1] >= 0).sum())} "
-            f"splits {sweep.split_count(table.shape[0])} | t/ids equal | "
-            f"K3 {ms:.4f} ms (twin {plain:.3f}{earlier}) "
-            f"{_bound_line(bound, ms)}")
-        if name == "a_primary":
-            report.update(ms=ms, plain_ms=plain, bound=bound)
+    for row in kernel_bench.sweep_rows(ctx.tri_table, device):
+        first = row["name"] == "a_primary"
+        log("  " + kernel_bench.sweep_line(
+            row, EARLIER_MS["sweep"] if first else None))
+        if first:
+            report.update(ms=row["ms"], plain_ms=row["plain_ms"],
+                          bound=row["bound"])
     return report
 
 
@@ -486,10 +430,9 @@ def _walk_inputs(batch, accel, sc_n):
 def _walk_bound(args, kw, out, **mode):
     from cge_tpu_torch.tools import roofline
 
-    tiles = args[3]
-    C = tiles.shape[2] if kw["layout"] == "field" else tiles.shape[1]
-    return roofline.walk_bound(args[2], C, kw["sc_n"], out[2], out[3],
-                               tiles.shape[0], **mode)
+    return roofline.walk_bound(args[0], args[2], args[3], out,
+                               layout=kw["layout"], sc_n=kw["sc_n"],
+                               any_hit=kw["any_hit"], **mode)
 
 
 def check_refine(scene, accel, device, sc_n: int, label: str, stats):

@@ -519,15 +519,22 @@ def test_mxu_grid_tool(capsys):
 
 
 def test_kernel_bench_tool(capsys):
-    """kernel_bench on the twins: every K2 and K3 batch equal to its twin,
-    bounds computed, no device time claimed."""
+    """kernel_bench on the twins: K1 and every K2 and K3 batch equal to
+    its twin, bounds computed, no device time claimed; --shapes runs every
+    split shape and split rule."""
     from cge_tpu_torch.tools import kernel_bench
     out = _run_tool(kernel_bench, ["--device", "cpu", "--dragon", "41", "32",
                                    "--standin", "41", "16", "--res", "64",
-                                   "--rays", "1024", "--reps", "1"], capsys)
-    rows = re.findall(r"^(K[23]) \w+: .*equal to the twin .*ms not measured"
-                      r" \| bound [\d.]+ ms \((operations|bytes)\)", out, re.M)
-    assert [k for k, _ in rows] == ["K2"] * 5 + ["K3"] * 3
+                                   "--rays", "1024", "--reps", "1",
+                                   "--shapes"], capsys)
+    rows = re.findall(r"^(K[23]) \w+: .*equal to the twin$", out, re.M)
+    assert rows == ["K2"] * 5 + ["K3"] * 3
+    bounds = re.findall(r"(K[123]) ms not measured \(twin ms not measured\)"
+                        r" bound [\d.]+ ms \((?:operations|bytes)\) share "
+                        r"not measured", out)
+    assert bounds == ["K1", "K2"] * 5 + ["K3"] * 3
+    shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
+    assert len(shapes) == 5 * len(cs.SPLIT_SHAPES) + 3 * 3
 
 
 @pytest.fixture

@@ -226,7 +226,7 @@ def tied_stacks(stacks, batches):
 
 def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
                      any_hit=False, shared_origin=False,
-                     shape=cs.SPLIT_SHAPE):
+                     shape=cs.SPLIT_SHAPES[0], tested=None):
     """A plain model of the CUDA default walk's decomposition
     (csrc/cluster_sweep.cu, cluster_walk_split_kernel): a ray block is CS
     CTAs of BR / CS rays, and the stop's max is the max of the CTAs'
@@ -235,7 +235,9 @@ def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
     lanes merge under the same rule and a visit's members fold in order;
     visit k + 1 is tested before the stop after visit k is known and is
     committed only if the walk goes on. The tile arithmetic is the twin's
-    (_tile_vpu)."""
+    (_tile_vpu). tested, a list, gets the number of (ray, slot) pairs of
+    rays that can still take a hit whose plane t passes the lanes' test and
+    goes on to the edge tests, per tile."""
     n_cta, L = shape
     NB, _, BR = rays.shape
     n_sc = order.shape[1]
@@ -280,6 +282,8 @@ def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
                     pre = (tc >= 0) & (tc <= tm)
                     if not any_hit:
                         pre &= (tc < torch.inf) & (tc <= lt) & (tc <= bt)
+                    if tested is not None:
+                        tested.append(int((pre & active).sum()))
                     take = pre & il[j]
                     lh |= take
                     lt = torch.where(take, tc, lt)
@@ -381,10 +385,39 @@ def test_split_walk_model_shapes_agree(batches, tied_stacks, shape):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("which", list(MODEL_BATCHES))
+def test_walk_bound_counts_no_more_than_the_model_tests(batches,
+                                                        tied_stacks, which):
+    """The bound's edge tests (roofline.walk_edge_pairs, from the final
+    best t) are at most those the decomposition runs with its running best,
+    and at least one a hit; the plane t's are counted for every live ray
+    and slot of a visited tile, so the operations bound the kernel."""
+    from cge_tpu_torch.tools import roofline
+    any_hit, shared = MODEL_BATCHES[which]
+    inp = _setup(batches[which], tied_stacks["field"], "field", 4)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout="field", sc_n=4, any_hit=any_hit, shared_origin=shared)
+    tested = []
+    out = split_walk_model(order, skeys, inp.rays, inp.tiles, tested=tested,
+                           **kw)
+    edges = roofline.walk_edge_pairs(order, inp.rays, inp.tiles, out, **kw)
+    hits = int((out[1] == 1).sum() if any_hit else (out[1] >= 0).sum())
+    assert 0 < hits <= edges <= sum(tested)
+    ms, kind = roofline.walk_bound(order, inp.rays, inp.tiles, out, **kw)
+    live = (inp.rays[:, 6] >= 0).sum(dim=1)
+    C = inp.tiles.shape[2]
+    plane = (roofline.WALK_PLANE_OPS_SHARED if shared
+             else roofline.WALK_PLANE_OPS)
+    ops = (int((out[3] * live).sum()) * C * plane
+           + edges * roofline.WALK_EDGE_OPS)
+    assert kind == "operations" or ops / roofline.FP32_PEAK * 1e3 < ms
+    assert ms >= ops / roofline.FP32_PEAK * 1e3 * (1 - 1e-9)
+
+
 def test_split_shape_fits_every_block_size():
-    """split_shape picks SPLIT_SHAPE where its CTAs fit, else a compiled
-    shape that does, for every block size the wrapper accepts."""
-    assert cs.split_shape(cs.DEFAULT_BR) == cs.SPLIT_SHAPE
+    """split_shape picks the first of SPLIT_SHAPES whose CTAs fit, for
+    every block size the wrapper accepts: the first at the default size."""
+    assert cs.split_shape(cs.DEFAULT_BR) == cs.SPLIT_SHAPES[0]
     for br in range(32, 1025, 32):
         n_cta, lanes = cs.split_shape(br)
         threads = br // n_cta * lanes
@@ -466,14 +499,12 @@ def test_kernels_match_twins_on_card(batches, stacks, mode, cuda_device):
 @pytest.mark.parametrize("shape", cs.SPLIT_SHAPES)
 @pytest.mark.parametrize("which", list(MODEL_BATCHES))
 def test_split_walk_shapes_match_twin_on_card(batches, tied_stacks, which,
-                                              shape, cuda_device,
-                                              monkeypatch):
+                                              shape, cuda_device):
     """The default walk in every compiled (CTAs, lanes) shape, on the
     tied stacks at 1 and 4 clusters per visit in both layouts: t, ids,
     visits and dense tiles equal to the twin's on the card, one launch a
     call."""
     any_hit, shared = MODEL_BATCHES[which]
-    monkeypatch.setattr(cs, "SPLIT_SHAPE", shape)
     for layout in cs.LAYOUTS:
         for sc_n in (1, 4):
             inp = _setup(batches[which], tied_stacks[layout], layout, sc_n)
@@ -483,7 +514,8 @@ def test_split_walk_shapes_match_twin_on_card(batches, tied_stacks, which,
             kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
                       shared_origin=shared)
             n = cs.LAUNCHES["walk"]
-            got = cs.cluster_walk(order, skeys, rays, tiles, **kw)
+            got = cs.cluster_walk(order, skeys, rays, tiles, _shape=shape,
+                                  **kw)
             assert cs.LAUNCHES["walk"] == n + 1
             want = cs.cluster_walk_plain(order, skeys, rays, tiles, **kw)
             for x, y in zip(got, want):

@@ -169,7 +169,7 @@ def test_cpu_wrapper_runs_the_twin(dragon):
     assert sweep.LAUNCHES == before
 
 
-def split_sweep_model(o, d, tmax, table):
+def split_sweep_model(o, d, tmax, table, tested=None):
     """A plain model of the CUDA sweep's decomposition (csrc/sweep.cu): the
     edge vectors b - a hoisted once per triangle; the triangle range cut
     into split_count(T) splits of whole TILE-row tiles; in each split every
@@ -177,7 +177,8 @@ def split_sweep_model(o, d, tmax, table):
     the edge tests and an accepted t replaces the best on t <= best; the
     splits' partials then merge in split order under the same rule. The
     kernel's rays a thread only group the rays, so the model has no such
-    knob."""
+    knob. tested, a list, gets the number of rays whose plane t passes the
+    test and goes on to the edge tests, per triangle."""
     R, T = o.shape[0], table.shape[0]
     v = [table[:, 3 * j:3 * j + 3] for j in range(3)]
     e = [v[(j + 1) % 3] - v[j] for j in range(3)]            # hoisted
@@ -198,6 +199,8 @@ def split_sweep_model(o, d, tmax, table):
             t = (D[c] - ((ox * nx + oy * ny) + oz * nz)) / denom
             take = ((t >= 0) & (t <= tmax) & (t < torch.inf) & (t <= bt)
                     & (valid[c] > 0))
+            if tested is not None:
+                tested.append(int(take.sum()))
             px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
             for j in range(3):
                 (ax, ay, az), (ex, ey, ez) = v[j][c], e[j][c]
@@ -239,6 +242,27 @@ def test_split_sweep_model_matches_twin_and_pallas(dragon, name,
     np.testing.assert_allclose(t[h], rt[h], rtol=1e-5, atol=2e-6)
     if name == "soup":
         assert (i == table.shape[0] - 2).any() and not (i == 4).any()
+
+
+@pytest.mark.parametrize("name", ["soup", "ragged", "dragon_primary"])
+def test_sweep_bound_counts_no_more_than_the_model_tests(dragon, name):
+    """The bound's edge tests (roofline.sweep_edge_pairs, from the final
+    best t) are at most those the decomposition runs with its running best,
+    at least one a hit, and the same in any ray piece; the plane t's are
+    counted for every live ray and valid row."""
+    from cge_tpu_torch.tools import roofline
+    o, d, tmax, table = (_t(x) for x in _case(name, dragon))
+    tested = []
+    best_t, best_i = split_sweep_model(o, d, tmax, table, tested=tested)
+    edges = roofline.sweep_edge_pairs(o, d, tmax, table, best_t)
+    assert edges == roofline.sweep_edge_pairs(o, d, tmax, table, best_t,
+                                              ray_tile=37)
+    assert 0 < int((best_i >= 0).sum()) <= edges <= sum(tested)
+    ms, kind = roofline.sweep_bound(o, d, tmax, table, best_t)
+    pairs = int((tmax >= 0).sum()) * int((table[:, 13] > 0).sum())
+    ops = pairs * roofline.SWEEP_PLANE_OPS + edges * roofline.SWEEP_EDGE_OPS
+    assert ms >= ops / roofline.FP32_PEAK * 1e3 * (1 - 1e-9)
+    assert kind == "operations" or ops / roofline.FP32_PEAK * 1e3 < ms
 
 
 @pytest.mark.parametrize("T,want", [
