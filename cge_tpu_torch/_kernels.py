@@ -33,17 +33,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # rays, boxes, keys, NB, S, BR, stream
-    "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _P),
-    # order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, NB,
-    # n_sc, BR, sc_n, C, field_major, any_hit, shared_origin, refine, mxu,
-    # stream
-    "cge_cluster_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _P),
+    # rays, boxes, keys, NB, S, BR, threads, bpt, octant, stream
+    "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # order, skeys, rays, tiles, best_t, best_i, visits, dense, NB, n_sc,
-    # BR, sc_n, C, field_major, any_hit, shared_origin, cs, lanes, stream
-    "cge_cluster_walk_split": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P),
+    # BR, sc_n, C, any_hit, stream
+    "cge_cluster_walk_mxu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P),
+    # order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, NB,
+    # n_sc, BR, sc_n, C, field_major, any_hit, shared_origin, refine, cs,
+    # lanes, stream
+    "cge_cluster_walk_split": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # o, d, tmax, table, best_t, best_i, part_t, part_i, R, T, n_split,
     # stream
     "cge_closest_tris_sweep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

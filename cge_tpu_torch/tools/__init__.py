@@ -8,8 +8,12 @@
   mxu_grid       K2's tensor-core mode against the default walk, and the
                  render's trace_chunk sweep (tools/tune_mxu.py);
   stream_layout  streaming bandwidth of the tile layouts through K4
-                 (tools/exp_dma_layout.py).
+                 (tools/exp_dma_layout.py);
+  kernel_bench   K1, K2 and K3 on the main path's batches against their
+                 twins, with their bounds, and every compiled shape;
+  sass_count     K1's inner loops counted by instruction kind from the
+                 built library's SASS (the card's machine only).
 
-Each takes `--device cpu` and small sizes for a run on the plain twins,
-which reports no times.
+All but sass_count take `--device cpu` and small sizes for a run on the
+plain twins, which reports no times.
 """

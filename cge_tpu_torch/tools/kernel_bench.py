@@ -1,9 +1,10 @@
 """K1, K2's default walk and K3 on the main path's batches, each against
 its plain twin, timed beside the twin and its bound; chip_smoke.py phases 2
-and 5 report these rows. --shapes also times K2 in every compiled split
-shape (CTAs per cluster, lanes per ray) and in its one-thread-per-ray
-kernel (cge_cluster_walk, which runs the opt-in modes), and K3 under three
-split rules.
+and 5 report these rows. Beside K1 stands the rest of the key pass: the
+stable torch.sort of each block's keys and the cast of the order to int32
+(cluster_sweep.sweep_order). --shapes also times K1 in every compiled shape
+(threads a block, boxes a thread), K2 in every compiled split shape (CTAs
+per cluster, lanes per ray) and K3 under three split rules.
 
 K1 and K2 run on the dragon stand-in (614,400 triangles, field-major tiles)
 with the 16,384-ray batches of the 512x512 frame's middle chunk, the main
@@ -11,9 +12,9 @@ path's trace_chunk: primary rays with a shared origin, a bounce-like batch
 (scattered directions from the hits, a dead third), any-hit shadow rays
 toward them, and the first two again at 4 clusters per visit. K3 runs on
 the stand-in at teapot size (15,360 triangles) with its primary,
-bounce-like and shadow batches. K1's keys match the twin's to 1e-6
-relative; K2's t, ids, visits and dense tiles and K3's t and ids equal the
-twins'. Times are CUDA events (tools/common.py device_ms); bounds and
+bounce-like and shadow batches. K1's keys, K2's t, ids, visits and
+dense tiles and K3's t and ids equal the twins' bit for bit. Times are
+CUDA events (tools/common.py device_ms); bounds and
 shares come from tools/roofline.py.
 
     python -m cge_tpu_torch.tools.kernel_bench             # on the card
@@ -29,7 +30,6 @@ import argparse
 import numpy as np
 import torch
 
-from cge_tpu_torch import _kernels
 from cge_tpu_torch.camera import Camera, pixel_grid
 from cge_tpu_torch.ops import cluster_sweep as cs
 from cge_tpu_torch.ops import sweep
@@ -101,46 +101,29 @@ def brute_batches(table, dev, res: int = 512, n: int = 16384) -> dict:
     }
 
 
-def per_ray_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
-                 any_hit: bool = False, shared_origin: bool = False):
-    """K2's default walk in its one-thread-per-ray kernel (one block per ray
-    block), the opt-in modes' kernel with both modes off. Card tensors
-    only; not counted in cluster_sweep.LAUNCHES."""
-    NB, _, BR = rays.shape
-    C = tiles.shape[2] if layout == "field" else tiles.shape[1]
-    dev = rays.device
-    out = (torch.empty((NB, BR), dtype=torch.float32, device=dev),
-           torch.empty((NB, BR), dtype=torch.int32, device=dev),
-           torch.empty(NB, dtype=torch.int32, device=dev),
-           torch.empty(NB, dtype=torch.int32, device=dev))
-    lib = _kernels.library()
-    lib.check(lib.cge_cluster_walk(
-        order.data_ptr(), skeys.data_ptr(), rays.data_ptr(), tiles.data_ptr(),
-        None, *(x.data_ptr() for x in out), NB, order.shape[1], BR, sc_n, C,
-        int(layout == "field"), int(any_hit), int(shared_origin), 0, 0,
-        torch.cuda.current_stream(dev).cuda_stream), "cge_cluster_walk")
-    return out
-
-
 def check_equal(got, want, what: str) -> None:
     for name, a, b in zip(("t", "ids", "visits", "dense tiles"), got, want):
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {name} differ from the twin")
 
 
-def keys_error(keys, keys_p, what: str) -> float:
-    """Max |K1 - twin| over the finite keys; the finite masks must agree
-    and the error stay within 1e-6 of the largest key (both sides round
-    alike, so it is 0 unless a reciprocal rounds differently)."""
-    fin = torch.isfinite(keys_p)
-    if not torch.equal(fin, torch.isfinite(keys)):
-        raise AssertionError(f"{what}: K1 finite-key masks differ")
-    if not fin.any():
-        return 0.0
-    err = float((keys - keys_p)[fin].abs().max())
-    if err > 1e-6 * max(1.0, float(keys_p[fin].abs().max())):
-        raise AssertionError(f"{what}: K1 keys differ by {err}")
-    return err
+def check_keys(keys, keys_p, what: str) -> float:
+    """K1's keys against the twin's, bit for bit (torch.equal: both round
+    alike, and a +-0 key compares equal); returns the max |difference| over
+    the finite keys, 0."""
+    if not torch.equal(keys, keys_p):
+        fin = torch.isfinite(keys_p) & torch.isfinite(keys)
+        err = float((keys - keys_p)[fin].abs().max()) if fin.any() else 0.0
+        raise AssertionError(f"{what}: K1 keys differ from the twin "
+                             f"(max |difference| over finite keys {err})")
+    return 0.0
+
+
+def sort_keys(keys):
+    """The rest of the key pass (cluster_sweep.sweep_order): each block's
+    keys sorted stably, the order cast to int32."""
+    skeys, order = torch.sort(keys, dim=-1, stable=True)
+    return skeys, order.int().contiguous()
 
 
 def timed(ms, plain_ms, bound) -> str:
@@ -154,10 +137,10 @@ def timed(ms, plain_ms, bound) -> str:
 
 def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
               reps: int = 5, shapes: bool = False) -> list:
-    """One row per batch of walk_batches: K1 against its twin, K2 on the
-    twin's sorted keys against its twin, their times, the twins' times
-    and the bounds; with shapes, K2's time in every split shape and in its
-    one-thread-per-ray kernel."""
+    """One row per batch of walk_batches: K1 against its twin, the sort of
+    its keys, K2 on the twin's sorted keys against its twin, their times,
+    the twins' times and the bounds; with shapes, K1's time in every
+    compiled shape and K2's in every split shape."""
     rows = []
     for name, batch in walk_batches(scene, accel, dev, res, n).items():
         o, d, tmax, shared, any_hit, sc_n = batch
@@ -165,10 +148,10 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
                              accel.layout, cs.DEFAULT_BR, sc_n)
         rays, boxes = inp.rays, inp.boxes
         keys_p = cs.block_entry_keys_plain(rays, boxes)
-        kerr = keys_error(cs.block_entry_keys(rays, boxes), keys_p,
+        kerr = check_keys(cs.block_entry_keys(rays, boxes), keys_p,
                           f"K1 {name}")
-        skeys, order = torch.sort(keys_p, dim=-1, stable=True)
-        call = (order.int().contiguous(), skeys, rays, inp.tiles)
+        skeys, order = sort_keys(keys_p)
+        call = (order, skeys, rays, inp.tiles)
         kw = dict(layout=accel.layout, sc_n=inp.sc_n, any_hit=any_hit,
                   shared_origin=shared)
         got = cs.cluster_walk(*call, **kw)
@@ -184,30 +167,42 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
             keys_plain_ms=common.device_ms(
                 lambda: cs.block_entry_keys_plain(rays, boxes), dev, 2),
             keys_bound=roofline.keys_bound(rays, boxes.shape[0]),
+            sort_ms=common.device_ms(lambda: sort_keys(keys_p), dev, reps),
             ms=common.device_ms(lambda: cs.cluster_walk(*call, **kw), dev,
                                 reps),
             plain_ms=common.device_ms(
                 lambda: cs.cluster_walk_plain(*call, **kw), dev, 1),
             bound=roofline.walk_bound(call[0], rays, inp.tiles, got, **kw))
         if shapes:
-            row["shapes"] = walk_shapes(call, kw, got, dev, reps)
+            row["shapes"] = (keys_shapes(rays, boxes, keys_p, dev, reps)
+                             + walk_shapes(call, kw, got, dev, reps))
         rows.append(row)
     return rows
 
 
+def keys_shapes(rays, boxes, keys_p, dev, reps: int) -> list:
+    """(label, ms) of K1 in every compiled shape; each equal to keys_p."""
+    out = []
+    for shape in cs.KEYS_SHAPES:
+        check_keys(cs.block_entry_keys(rays, boxes, _shape=shape), keys_p,
+                   f"K1 shape {shape}")
+        order = "octant order" if shape[2] else "min / max"
+        out.append((f"K1 {shape[0]} threads x {shape[1]} boxes, {order}",
+                    common.device_ms(lambda: cs.block_entry_keys(
+                        rays, boxes, _shape=shape), dev, reps)))
+    return out
+
+
 def walk_shapes(call, kw, got, dev, reps: int) -> list:
-    """(label, ms) of K2 in every compiled split shape and, on the card, in
-    its one-thread-per-ray kernel; each equal to got."""
+    """(label, ms) of K2 in every compiled split shape; each equal to
+    got."""
     out = []
     for shape in cs.SPLIT_SHAPES:
         check_equal(cs.cluster_walk(*call, _shape=shape, **kw), got,
                     f"K2 shape {shape}")
-        out.append((f"{shape[0]} CTAs x {shape[1]} lanes", common.device_ms(
-            lambda: cs.cluster_walk(*call, _shape=shape, **kw), dev, reps)))
-    if dev.type == "cuda":
-        check_equal(per_ray_walk(*call, **kw), got, "K2 one thread a ray")
-        out.append(("one thread a ray", common.device_ms(
-            lambda: per_ray_walk(*call, **kw), dev, reps)))
+        out.append((f"K2 {shape[0]} CTAs x {shape[1]} lanes",
+                    common.device_ms(lambda: cs.cluster_walk(
+                        *call, _shape=shape, **kw), dev, reps)))
     return out
 
 
@@ -218,10 +213,10 @@ def walk_line(row, earlier=None) -> str:
     return (f"K2 {row['name']}: rays {row['rays']} blocks {row['blocks']} "
             f"boxes {row['boxes']} live {row['live']} hits {row['hits']} "
             f"sc_n {row['sc_n']} visits mean {row['visits_mean']:.2f} max "
-            f"{row['visits_max']} | K1 err {row['keys_err']:.3g}, K2 t/ids/"
-            f"visits/dense equal to the twin\n"
-            f"    K1 {k1} | K2 {timed(row['ms'], row['plain_ms'], row['bound'])}"
-            f"{ref}")
+            f"{row['visits_max']} | K1 keys, K2 t/ids/visits/dense equal to "
+            f"the twin\n"
+            f"    K1 {k1} | sort {common.fmt_ms(row['sort_ms'])} | K2 "
+            f"{timed(row['ms'], row['plain_ms'], row['bound'])}{ref}")
 
 
 def sweep_rows(table, dev, res: int = 512, n: int = 16384, reps: int = 5,
@@ -293,9 +288,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=16384,
                     help="rays a batch (the main path's trace_chunk)")
     ap.add_argument("--shapes", action="store_true",
-                    help="also time K2 in every split shape and its "
-                         "one-thread-per-ray kernel, K3 under each split "
-                         "rule")
+                    help="also time K1 in every compiled shape, K2 in every "
+                         "split shape, K3 under each split rule")
     args = ap.parse_args(argv)
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)

@@ -520,8 +520,8 @@ def test_mxu_grid_tool(capsys):
 
 def test_kernel_bench_tool(capsys):
     """kernel_bench on the twins: K1 and every K2 and K3 batch equal to
-    its twin, bounds computed, no device time claimed; --shapes runs every
-    split shape and split rule."""
+    its twin, bounds computed, no device time claimed (the sort beside K1
+    included); --shapes runs every K1 shape, split shape and split rule."""
     from cge_tpu_torch.tools import kernel_bench
     out = _run_tool(kernel_bench, ["--device", "cpu", "--dragon", "41", "32",
                                    "--standin", "41", "16", "--res", "64",
@@ -533,8 +533,48 @@ def test_kernel_bench_tool(capsys):
                         r" bound [\d.]+ ms \((?:operations|bytes)\) share "
                         r"not measured", out)
     assert bounds == ["K1", "K2"] * 5 + ["K3"] * 3
+    assert len(re.findall(r"\| sort ms not measured \|", out)) == 5
     shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
-    assert len(shapes) == 5 * len(cs.SPLIT_SHAPES) + 3 * 3
+    assert len(shapes) == 5 * (len(cs.KEYS_SHAPES)
+                               + len(cs.SPLIT_SHAPES)) + 3 * 3
+
+
+def _sass_pair(base: int) -> list:
+    """One slab test's instructions in cuobjdump -sass form at `base`:
+    per axis two FADDs, two FMULs and two FMNMX, then the entry test."""
+    ops = (["FADD R1, R2, -R3", "FADD R4, R5, -R3", "FMUL R1, R1, R6",
+            "FMUL R4, R4, R6", "FMNMX R7, R1, R4, PT",
+            "FMNMX.NAN R8, R1, R4, !PT"] * 3
+           + ["FSETP.GTU.AND P1, PT, R7, R8, PT", "@!P1 FMNMX R9, R9, R7, PT"])
+    return [f"        /*{base + 16 * i:04x}*/  {op} ;  /* 0x0 */"
+            for i, op in enumerate(ops)]
+
+
+@pytest.mark.parametrize("pairs", [1, 2])
+def test_sass_count_tool(pairs):
+    """sass_count on a synthetic listing: the loop is found from its
+    backward branch, its slab tests from the FMULs, and each kind is
+    counted per pair (the load and the branch are shared by the pairs)."""
+    from cge_tpu_torch.tools import sass_count
+    body = ["        /*0100*/  LDS.128 R2, [R10] ;  /* 0x0 */"]
+    for p in range(pairs):
+        body += _sass_pair(0x110 + p * 20 * 16)
+    end = 0x110 + pairs * 20 * 16
+    body += [f"        /*{end:04x}*/  @P0 BRA 0x100 ;  /* 0x0 */",
+             f"        /*{end + 16:04x}*/  EXIT ;  /* 0x0 */"]
+    sass = "\n".join([
+        "\t\tFunction : _Z23block_entry_keys_kernelILi2EEvPKfS1_Pfii",
+        "        /*0000*/  MOV R1, c[0x0][0x28] ;  /* 0x0 */",
+        "        /*0010*/  BRA 0x40 ;  /* 0x0 */", *body,
+        "\t\tFunction : _Z9other_kernelv",
+        "        /*0000*/  @P0 BRA 0x0 ;  /* 0x0 */"])
+    lines = sass_count.report(sass)
+    assert len(lines) == 1
+    line = lines[0]
+    assert f"{pairs:g} pairs an iteration" in line
+    assert "FP32 12.00, FMNMX 7.00, compare/select 1.00" in line
+    assert f"LDS {1 / pairs:.2f}, branch {1 / pairs:.2f}" in line
+    assert sass_count.report(sass, "no_such_kernel") == []
 
 
 @pytest.fixture

@@ -136,6 +136,127 @@ def _setup(batch, stack, layout, sc_n):
     return cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, BR, sc_n)
 
 
+def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
+    """A plain model of K1's decomposition (csrc/cluster_sweep.cu,
+    block_entry_keys_kernel): a block of T threads per (ray block, T * BPT
+    boxes), thread t holding boxes col * T * BPT + j * T + t; the block's
+    live rays staged as (o, tmax), (1/d, d != 0), grouped by direction
+    octant (bit ax: d < 0); a box's lo <= hi test outside the loop; the
+    zero-direction selects only where some live ray of the block has a
+    zero component; otherwise, in octant order, each axis's near plane
+    taken from the octant (lo where d > 0, hi where d < 0) in place of the
+    min / max; each thread's running minimum over the staged rays in
+    order, with the entry test folded to max(tnear, 0) <= min(tfar,
+    tmax)."""
+    T, bpt, octant = shape
+    NB, _, BR = rays.shape
+    S = boxes.shape[0]
+    cols = -(-S // (T * bpt))
+    # s = col * T * bpt + j * T + t, [cols, bpt, T]
+    s = (torch.arange(cols)[:, None, None] * T * bpt
+         + torch.arange(bpt)[None, :, None] * T + torch.arange(T))
+    inside = s < S
+    box = boxes[s.clamp_max(S - 1)]                     # [cols, bpt, T, 8]
+    lo, hi = box[..., 0:3], box[..., 3:6]
+    ok = inside & (lo <= hi).all(dim=-1)
+    keys = torch.full((NB, S), torch.inf)
+    for b in range(NB):
+        d_all = rays[b, 3:6]
+        oct_ = ((d_all < 0).int() * torch.tensor([[1], [2], [4]])).sum(dim=0)
+        oct_ = torch.where(rays[b, 6] >= 0, oct_, 8)
+        live = torch.argsort(oct_, stable=True)[:int((oct_ < 8).sum())]
+        o, d, tm = rays[b, 0:3, live].T, rays[b, 3:6, live].T, rays[b, 6, live]
+        nz = d != 0
+        inv = torch.where(nz, 1.0 / torch.where(nz, d, 1.0), 0.0)
+        zero = bool((~nz).any())                             # block-uniform
+        key = torch.full(s.shape, torch.inf)
+        for r in range(live.numel()):
+            tnear = tfar = None
+            for ax in range(3):
+                by_octant = octant and not zero and bool(d[r, ax] < 0)
+                near, far = (hi, lo) if by_octant else (lo, hi)
+                t1 = (near[..., ax] - o[r, ax]) * inv[r, ax]
+                t2 = (far[..., ax] - o[r, ax]) * inv[r, ax]
+                if zero and not nz[r, ax]:
+                    t1 = torch.full_like(t1, -cs.FLT_MAX)
+                    t2 = torch.full_like(t2, cs.FLT_MAX)
+                if octant and not zero:
+                    n0, f0 = t1, t2
+                else:
+                    n0, f0 = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                tnear = n0 if tnear is None else torch.maximum(tnear, n0)
+                tfar = f0 if tfar is None else torch.minimum(tfar, f0)
+            v = torch.maximum(tnear, torch.zeros(()))
+            key = torch.where(v <= torch.minimum(tfar, tm[r]),
+                              torch.minimum(key, v), key)
+        key = torch.where(ok, key, torch.inf)
+        keys[b, s[inside]] = key[inside]
+    return keys
+
+
+@pytest.fixture(scope="module")
+def keys_inputs(batches, stacks):
+    """Packed ray blocks and boxes for K1: the three batches (dead rays,
+    pad rays of a ragged last block) and a synthetic set with exact zero
+    direction components in some blocks, a dead block and pad rays; the
+    field stack's supercluster boxes at 2 per visit with its pad
+    supercluster (FLT_MAX / -FLT_MAX) and an empty box (+inf / -inf)."""
+    aabbs, tiles = (_t(x) for x in stacks["field"])
+    boxes = cs.supercluster_boxes(
+        cs.pad_cluster_stack(aabbs, tiles, 4, "field")[0], 2)
+    empty = torch.tensor([[np.inf] * 3 + [-np.inf] * 3 + [0, 0]],
+                         dtype=torch.float32)
+    boxes = torch.cat([boxes, empty]).contiguous()
+    out = {}
+    for key in ("primary", "bounce", "shadow"):
+        o, d, tmax = (_t(x) for x in batches[key])
+        keep = o.shape[0] - BR // 2                          # pad rays
+        out[key] = cs.sweep_setup(o[:keep], d[:keep], tmax[:keep], aabbs,
+                                  tiles, "field", BR, 2).rays
+    rng = np.random.default_rng(SEED + 7)
+    n = 4 * BR - 40
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[BR:BR + 9, 1] = 0.0                    # a few exact zeros
+    d[BR + 20, 0] = -0.0
+    d[2 * BR:3 * BR, 2] = 0.0                # a whole block on one axis
+    tmax = np.where(rng.uniform(size=n) < 0.25, -1.0,
+                    rng.uniform(0.5, 4.0, n)).astype(np.float32)
+    tmax[:BR] = -1.0                         # a dead block
+    tmax[BR + 9] = -1.0                      # a dead ray with d = 0
+    d[BR + 9, 2] = 0.0
+    out["synthetic"] = cs.sweep_setup(_t(o), _t(d), _t(tmax), aabbs, tiles,
+                                      "field", BR, 2).rays
+    return out, boxes
+
+
+@pytest.mark.parametrize("shape", cs.KEYS_SHAPES)
+@pytest.mark.parametrize("which", ["primary", "bounce", "shadow",
+                                   "synthetic"])
+def test_keys_model_matches_twin_and_pallas(keys_inputs, which, shape):
+    """K1's decomposition (keys_model) equals the twin bit for bit and
+    _block_entry_keys(interpret=True) exactly, in every compiled shape, on
+    blocks with dead rays, pad rays, zero direction components and a dead
+    block, against boxes that include inverted ones."""
+    rays_by, boxes = keys_inputs
+    rays = rays_by[which]
+    got = keys_model(rays, boxes, shape)
+    twin = cs.block_entry_keys_plain(rays, boxes)
+    torch.testing.assert_close(got, twin, rtol=0, atol=0)
+    ref = np.asarray(_block_entry_keys(jnp.asarray(rays.numpy()),
+                                       jnp.asarray(boxes.numpy()),
+                                       interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert np.isinf(ref[:, -1]).all() and np.isfinite(ref).any()
+    dead = (rays[:, 6] < 0).all(dim=1)
+    assert np.isinf(ref[dead.numpy()]).all()
+    if which == "synthetic":
+        assert dead.any()
+        live = rays[:, 6] >= 0
+        zero = ((rays[:, 3:6] == 0).any(dim=1) & live).any(dim=1)
+        assert zero.sum() >= 2 and (~zero & ~dead).any()
+
+
 @pytest.mark.parametrize("which", ["primary", "bounce", "shadow"])
 def test_block_entry_keys_twin_matches_pallas(batches, stacks, which):
     """K1's twin against _block_entry_keys(interpret=True) on the same
@@ -226,18 +347,24 @@ def tied_stacks(stacks, batches):
 
 def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
                      any_hit=False, shared_origin=False,
-                     shape=cs.SPLIT_SHAPES[0], tested=None):
-    """A plain model of the CUDA default walk's decomposition
+                     shape=cs.SPLIT_SHAPES[0], tested=None, aabbs=None,
+                     refine=False):
+    """A plain model of the CUDA default and refine walks' decomposition
     (csrc/cluster_sweep.cu, cluster_walk_split_kernel): a ray block is CS
     CTAs of BR / CS rays, and the stop's max is the max of the CTAs'
     partials; L lanes a ray take slots l, l + L, ... in order, each keeping
     (smallest t, largest slot) and skipping a t that cannot be taken; the
     lanes merge under the same rule and a visit's members fold in order;
     visit k + 1 is tested before the stop after visit k is known and is
-    committed only if the walk goes on. The tile arithmetic is the twin's
-    (_tile_vpu). tested, a list, gets the number of (ray, slot) pairs of
-    rays that can still take a hit whose plane t passes the lanes' test and
-    goes on to the edge tests, per tile."""
+    committed only if the walk goes on. refine: each member runs only if
+    some CTA's vote is true, a CTA voting true if one of its rays' slab
+    entry into the member's box (aabbs) is at most the ray's tentative
+    best (bt folded with the members run so far); the first visit's first
+    member runs unvoted (every best is +inf, so the vote is true), and a
+    member that does not run contributes nothing. The tile arithmetic is
+    the twin's (_tile_vpu). tested, a list, gets the number of (ray, slot)
+    pairs of rays that can still take a hit whose plane t passes the
+    lanes' test and goes on to the edge tests, per tile run."""
     n_cta, L = shape
     NB, _, BR = rays.shape
     n_sc = order.shape[1]
@@ -247,6 +374,7 @@ def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
     best_t = torch.full((NB, BR), torch.inf)
     best_i = torch.full((NB, BR), -1, dtype=torch.int32)
     visits = torch.zeros(NB, dtype=torch.int32)
+    dense = torch.zeros(NB, dtype=torch.int32)
     for b in range(NB):
         r = rays[b:b + 1]
         tm = r[0, 6]
@@ -268,8 +396,27 @@ def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
             vt = torch.full((BR,), torch.inf)
             vi = torch.full((BR,), -1, dtype=torch.int32)
             vh = torch.zeros(BR, dtype=torch.bool)
+            n_run = 0
             for m in range(sc_n):
                 cl = int(order[b, step]) * sc_n + m
+                if refine:
+                    box = aabbs[cl]
+                    entry = cs._entry_slab(
+                        [r[0, k] for k in range(3)],
+                        [r[0, 3 + k] for k in range(3)], r[0, 6],
+                        [box[k] for k in range(3)],
+                        [box[3 + k] for k in range(3)])
+                    if any_hit:
+                        tb = torch.where(vh, cs.DONE, bt)
+                    else:
+                        tb = torch.where((vi >= 0) & (vt <= bt), vt, bt)
+                    votes = (entry <= tb).reshape(n_cta, rpc).any(dim=1)
+                    run = bool(votes.any())
+                    if step == 0 and m == 0:
+                        assert run
+                    if not run:
+                        continue
+                n_run += 1
                 t, inside = (x[0] for x in cs._tile_vpu(tri[cl][None], r,
                                                         shared_origin))
                 # lane l takes slots l, l + L, ...: [C / L, L, BR]
@@ -314,12 +461,13 @@ def split_walk_model(order, skeys, rays, tiles, *, layout, sc_n,
             else:
                 take = active & (vi >= 0) & (vt <= bt)
                 bt, bi = torch.where(take, vt, bt), torch.where(take, vi, bi)
+            dense[b] += n_run
             step += 1
             if step >= n_sc:
                 break
             need = cluster_need()
         best_t[b], best_i[b], visits[b] = bt, bi, step
-    return best_t, best_i, visits, visits * sc_n
+    return best_t, best_i, visits, dense
 
 
 # (batch, any-hit, shared origin) of the split model's cases
@@ -383,6 +531,138 @@ def test_split_walk_model_shapes_agree(batches, tied_stacks, shape):
     for x, y in zip(got, cs.cluster_walk_plain(order, skeys, inp.rays,
                                                inp.tiles, **kw)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["plain", "tied"])
+@pytest.mark.parametrize("layout,sc_n", [("triangle", 1), ("field", 2)])
+@pytest.mark.parametrize("which", list(MODEL_BATCHES))
+def test_refine_model_matches_twin_and_pallas(
+        dragon, batches, stacks, tied_stacks, which, layout, sc_n, tied):
+    """The CUDA refine walk's decomposition (split_walk_model with refine:
+    the cluster-wide per-member vote and the member fold) equals the
+    refine twin bit for bit (t, ids, visits, dense tiles) and matches
+    pallas_cluster_tris(refine_members=True, interpret=True): hits,
+    perm-space ids and visits exactly, t to rtol 1e-5 / atol 2e-6 (XLA's
+    FMAs)."""
+    any_hit, shared = MODEL_BATCHES[which]
+    aabbs, tiles = (tied_stacks if tied else stacks)[layout]
+    inp = _setup(batches[which], (aabbs, tiles), layout, sc_n)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout=layout, sc_n=inp.sc_n, any_hit=any_hit,
+              shared_origin=shared)
+    got = split_walk_model(order, skeys, inp.rays, inp.tiles, refine=True,
+                           aabbs=inp.aabbs, **kw)
+    twin = cs.cluster_walk_plain(order, skeys, inp.rays, inp.tiles,
+                                 aabbs=inp.aabbs, refine_members=True, **kw)
+    for x, y in zip(got, twin):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    o, d, tmax = batches[which]
+    R = o.shape[0]
+    ref = [np.asarray(x) for x in pallas_cluster_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(aabbs),
+        jnp.asarray(tiles), dragon.cluster_perm, br=BR, sc_n=sc_n,
+        any_hit=any_hit, shared_origin=shared, refine_members=True,
+        interpret=True, with_stats=True, perm_ids=True)]
+    t, ids = got[0].reshape(-1)[:R].numpy(), got[1].reshape(-1)[:R].numpy()
+    np.testing.assert_array_equal(got[2].numpy(), ref[2])
+    assert (got[3] <= got[2] * sc_n).all()
+    if any_hit:
+        np.testing.assert_array_equal(ids > 0, ref[0])
+        return
+    np.testing.assert_array_equal(ids, ref[1])
+    h = np.isfinite(ref[0])
+    np.testing.assert_array_equal(np.isfinite(t), h)
+    np.testing.assert_allclose(t[h], ref[0][h], rtol=1e-5, atol=2e-6)
+
+
+def _grid_plane(z, half, n=8):
+    """n x n quads at depth z over [-half, half]^2: 2 n^2 triangles."""
+    xs = np.linspace(-half, half, n + 1, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    v = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, z, np.float32)],
+                 axis=1)
+    i = (np.arange(n)[:, None] * (n + 1) + np.arange(n)).ravel()
+    tris = np.concatenate([np.stack([i, i + 1, i + n + 2], axis=1),
+                           np.stack([i, i + n + 2, i + n + 1], axis=1)])
+    return v, tris
+
+
+@pytest.fixture(scope="module")
+def discard_scene():
+    """Two planes of 128 triangles, one cluster each and one supercluster
+    of both: member 0 the far plane (z = 3), member 1 the near one (z =
+    2). The member boxes handed to the sweep move the near plane's box
+    behind the far plane (z in [10, 10.1]). Two blocks of the same 128
+    rays from the origin, every one hitting both planes: in the first all
+    are live, so after member 0 every ray has a hit at the far plane, its
+    entry into the moved box lies past it, and the vote skips member 1
+    although its tile holds a nearer hit; in the second one lane is dead
+    (entry = best = +inf), so member 1 runs."""
+    vb, tb = _grid_plane(3.0, 2.0)
+    va, ta = _grid_plane(2.0, 1.2)
+    V = np.concatenate([vb, va])
+    T = np.concatenate([tb, ta + len(vb)]).astype(np.int32)
+    perm = np.arange(2 * 128, dtype=np.int32).reshape(2, 128)
+    stacks_ = {}
+    for layout, hbm in (("triangle", False), ("field", True)):
+        a, t = pack_cluster_tiles(jnp.asarray(V), jnp.asarray(T),
+                                  jnp.asarray(perm), hbm=hbm)
+        a = np.array(a)
+        a[1, 2], a[1, 5] = 10.0, 10.1
+        stacks_[layout] = (a, np.asarray(t))
+    rng = np.random.default_rng(SEED + 3)
+    xy = rng.uniform(-0.45, 0.45, (BR, 2)).astype(np.float32)
+    d = np.concatenate([xy, np.ones((BR, 1), np.float32)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.concatenate([d, d])
+    o = np.zeros_like(d)
+    tmax = np.full(2 * BR, np.inf, np.float32)
+    tmax[BR + 5] = -1.0
+    return stacks_, perm, (o, d, tmax)
+
+
+@pytest.mark.parametrize("layout", ["triangle", "field"])
+def test_refine_vote_discards_a_tile_hit(discard_scene, layout):
+    """Where the vote says skip, the member's tile contributes nothing,
+    even a hit with t <= best: the first block keeps the far plane (t =
+    3 / d.z) and runs one dense tile a visit, the second (a dead lane)
+    takes the near plane (t = 2 / d.z) and runs both. The refine model,
+    the twin and pallas_cluster_tris(refine_members=True, interpret=True)
+    agree (t to rtol 1e-5 / atol 2e-6, ids and visits exactly); without
+    refine every ray takes the near plane."""
+    stacks_, perm, batch = discard_scene
+    aabbs, tiles = stacks_[layout]
+    inp = _setup(batch, (aabbs, tiles), layout, 2)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    kw = dict(layout=layout, sc_n=2)
+    twin = cs.cluster_walk_plain(order, skeys, inp.rays, inp.tiles,
+                                 aabbs=inp.aabbs, refine_members=True, **kw)
+    model = split_walk_model(order, skeys, inp.rays, inp.tiles, refine=True,
+                             aabbs=inp.aabbs, **kw)
+    for x, y in zip(model, twin):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    base = cs.cluster_walk_plain(order, skeys, inp.rays, inp.tiles, **kw)
+    dz = torch.from_numpy(batch[1][:, 2]).reshape(2, BR)
+    live = torch.from_numpy(batch[2]).reshape(2, BR) >= 0
+    torch.testing.assert_close(twin[0][0], 3.0 / dz[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(twin[0][1][live[1]], 2.0 / dz[1][live[1]],
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(base[0][live], (2.0 / dz)[live], rtol=1e-5,
+                               atol=0)
+    assert twin[3].tolist() == [1, 2] and twin[2].tolist() == [1, 1]
+    assert (twin[1][0] < 128).all() and (twin[1][1][live[1]] >= 128).all()
+    o, d, tmax = batch
+    ref = [np.asarray(x) for x in pallas_cluster_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(aabbs),
+        jnp.asarray(tiles), jnp.asarray(perm), br=BR, sc_n=2,
+        refine_members=True, interpret=True, with_stats=True,
+        perm_ids=True)]
+    t, ids = twin[0].reshape(-1).numpy(), twin[1].reshape(-1).numpy()
+    np.testing.assert_array_equal(ids, ref[1])
+    np.testing.assert_array_equal(twin[2].numpy(), ref[2])
+    h = np.isfinite(ref[0])
+    np.testing.assert_array_equal(np.isfinite(t), h)
+    np.testing.assert_allclose(t[h], ref[0][h], rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("which", list(MODEL_BATCHES))
@@ -532,3 +812,48 @@ def test_wrappers_reject_bad_inputs_on_card(stacks, batches, cuda_device):
     with pytest.raises(ValueError):
         cs.block_entry_keys(rays.to(cuda_device), boxes)   # wrong device
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cs.KEYS_SHAPES)
+def test_keys_kernel_shapes_match_twin_on_card(keys_inputs, shape,
+                                               cuda_device):
+    """K1 in every compiled shape on the card against the twin on the
+    card, on the model's inputs (dead and pad rays, zero direction
+    components, inverted boxes): keys equal, one launch a call."""
+    rays_by, boxes = keys_inputs
+    boxes = boxes.to(cuda_device)
+    for which, rays in rays_by.items():
+        rays = rays.to(cuda_device)
+        n = cs.LAUNCHES["keys"]
+        got = cs.block_entry_keys(rays, boxes, _shape=shape)
+        assert cs.LAUNCHES["keys"] == n + 1
+        assert torch.equal(got, cs.block_entry_keys_plain(rays, boxes)), which
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", cs.SPLIT_SHAPES)
+def test_refine_walk_matches_twin_on_card(batches, tied_stacks, discard_scene,
+                                          shape, cuda_device):
+    """The refine walk (the split walk with its per-member vote) in every
+    compiled shape on the card: t, ids, visits and dense tiles equal to
+    the refine twin's on the card, on the tied dragon stacks at 1 and 2
+    clusters per visit and on the discard fixture."""
+    cases = [(batches[w], tied_stacks[lay], lay, sc_n, MODEL_BATCHES[w][0])
+             for w in MODEL_BATCHES for lay, sc_n in (("triangle", 1),
+                                                      ("field", 2))]
+    stacks_, _, batch = discard_scene
+    cases += [(batch, stacks_[lay], lay, 2, False) for lay in cs.LAYOUTS]
+    for batch, stack, layout, sc_n, any_hit in cases:
+        inp = _setup(batch, stack, layout, sc_n)
+        rays, boxes, tiles, aabbs = (x.to(cuda_device) for x in (
+            inp.rays, inp.boxes, inp.tiles, inp.aabbs))
+        skeys, order = cs.sweep_order(rays, boxes)
+        kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit, aabbs=aabbs,
+                  refine_members=True)
+        n = cs.LAUNCHES["walk_refine"]
+        got = cs.cluster_walk(order, skeys, rays, tiles, _shape=shape, **kw)
+        assert cs.LAUNCHES["walk_refine"] == n + 1
+        want = cs.cluster_walk_plain(order, skeys, rays, tiles, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)

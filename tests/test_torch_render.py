@@ -87,7 +87,7 @@ def interpret(monkeypatch):
 
 def _primary(n_side=32):
     o, d = ct.Camera().generate_rays(
-        ct.camera.pixel_grid(n_side, n_side).reshape(-1, 2))
+        ct.camera.pixel_grid(n_side, n_side, "cpu").reshape(-1, 2))
     return o, d
 
 

@@ -165,10 +165,10 @@ def test_camera_matches_jax(cam):
     mine = camera_from_numpy(jcam.fovy, jcam.distance, jcam.look_at,
                              jcam.rotation, jcam.aspect)
     from cge_tpu.camera import pixel_grid as jgrid
-    np.testing.assert_array_equal(pixel_grid(24, 16).numpy(),
+    np.testing.assert_array_equal(pixel_grid(24, 16, device="cpu").numpy(),
                                   np.asarray(jgrid(24, 16)))
     jo, jd = jcam.generate_rays(jgrid(24, 16))
-    o, d = mine.generate_rays(pixel_grid(24, 16))
+    o, d = mine.generate_rays(pixel_grid(24, 16, device="cpu"))
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-6,
                                atol=1e-6)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6,
@@ -203,20 +203,24 @@ DEFAULT_DEVICE_CALLS = {
         obj, [ct.PointLight(*LIGHT)]),
     "params_from_numpy": lambda obj: params_from_numpy(
         {k: np.zeros((2, 3), np.float32) for k in ct.DIFF_FIELDS}),
+    "pixel_grid": lambda obj: pixel_grid(4, 2),
+    "camera_position": lambda obj: ct.Camera().position(),
 }
 
 
 @pytest.mark.parametrize("entry", list(DEFAULT_DEVICE_CALLS))
 def test_entry_points_default_to_the_card(dragon_obj, entry):
-    """Without a device argument the entry points build on the card; on a
-    machine without one they raise instead of falling back to the CPU."""
+    """Without a device argument the entry points and the camera helpers
+    build on the card; on a machine without one they raise instead of
+    falling back to the CPU."""
     call = DEFAULT_DEVICE_CALLS[entry]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call(dragon_obj)
         return
     out = call(dragon_obj)
-    tensors = out.values() if isinstance(out, dict) else [out.vertices]
+    tensors = (out.values() if isinstance(out, dict) else
+               [out] if isinstance(out, torch.Tensor) else [out.vertices])
     assert all(t.device.type == "cuda" for t in tensors)
 
 
