@@ -8,21 +8,27 @@
 //     no live ray enters. A zero direction component passes its slab;
 //     inverted boxes (lo > hi: empty clusters, pad boxes) never enter.
 //     Bound on this card: the instruction issue rate. Each (live ray, box)
-//     pair is a slab test of 12 float adds and multiplies and 13 min / max
-//     against a few bytes per pair, and the min / max and the compare and
-//     select issue on the ALU pipe at half the FMA pipe's rate
+//     pair is a slab test of 12 float adds and multiplies and 7 to 13
+//     min / max against a few bytes per pair; the min / max and the
+//     compares issue on the ALU pipe at half the FMA pipes' rate
 //     (tools/sass_count.py counts the loop's instructions by kind).
 //     Design: a block of T threads per (ray block, T * BPT boxes).
-//     - The block's live rays are staged once, live first, as two float4s
-//       each: (o, tmax) and (1/d, the d != 0 bits). The loop runs over the
-//       live rays only, without a branch; a block without a live ray
-//       writes +inf without looping.
+//     - The block's live rays are staged once, grouped by direction octant,
+//       as two float4s each: (o, tmax) and (1/d, the d != 0 bits). The
+//       loop runs over the live rays only, without a branch; a block
+//       without a live ray writes +inf without looping.
+//     - Within an octant the order of each axis's two plane t's is known:
+//       (lo - o) / d <= (hi - o) / d where d > 0, the reverse where d < 0.
+//       So the near and far planes are picked once per octant and box, and
+//       the loop takes no min / max per axis: 7 min / max a pair in place
+//       of 13. A NaN plane t still reaches tnear or tfar and fails the test.
 //     - Each thread holds BPT boxes in registers, so one pair of 16-byte
 //       broadcast loads from shared memory serves BPT slab tests, and the
 //       ray loop is unrolled so that independent tests overlap.
-//     - A box's lo <= hi test runs once, outside the loop. The zero
-//       direction selects run only in blocks where some live ray has a
-//       zero component: a block-uniform flag set while staging.
+//     - A box's lo <= hi test runs once, outside the loop. A block where
+//       some live ray has a zero direction component (a block-uniform flag
+//       set while staging) takes the general loop instead: min / max per
+//       axis and the zero-direction selects.
 //     - The entry test max(tnear, 0) <= min(tfar, tmax) holds, for tmax >=
 //       0, exactly when the twin's tnear <= tfar, tfar >= 0 and tnear <=
 //       tmax all hold (a NaN fails both through min.NaN / max.NaN). Every
@@ -209,17 +215,14 @@ __device__ __forceinline__ int slab_terms(const float d[3], float inv[3]) {
 
 #define KEYS_MAX_THREADS 256
 
-// How a slab test orders an axis's two plane t's: GENERAL by min / max,
-// each ray's zero direction components passing their slab; MINMAX the
-// same for rays without a zero component; OCTANT takes the near plane of
-// the rays' direction octant as the entry (lo on an axis where d > 0, hi
-// where d < 0), since (lo - o) / d <= (hi - o) / d there, for rays
-// without a zero component.
-enum KeysMode { GENERAL, MINMAX, OCTANT };
-
 // The running minimum of BPT boxes' keys over the n staged live rays. A
-// box is (a, b) per axis: (lo, hi), or in OCTANT mode (near, far).
-template <int BPT, int MODE>
+// box is (a, b) per axis. OCTANT: the rays share a direction octant and
+// have no zero component, and (a, b) is the octant's (near, far) plane
+// pair: (lo, hi) on an axis where d > 0, (hi, lo) where d < 0, so that
+// (a - o) / d <= (b - o) / d and the min / max of the twin's pair is the
+// pair itself. Otherwise (a, b) = (lo, hi), ordered by min / max, and a
+// zero direction component passes its slab.
+template <int BPT, bool OCTANT>
 __device__ __forceinline__ void keys_over_rays(
         const float4* __restrict__ s_ray, int n, const float (&a3)[BPT][3],
         const float (&b3)[BPT][3], float (&key)[BPT]) {
@@ -236,12 +239,12 @@ __device__ __forceinline__ void keys_over_rays(
             for (int ax = 0; ax < 3; ++ax) {
                 float t1 = (a3[j][ax] - o[ax]) * inv[ax];
                 float t2 = (b3[j][ax] - o[ax]) * inv[ax];
-                if (MODE == GENERAL && !((nz_bits >> ax) & 1)) {
+                if (!OCTANT && !((nz_bits >> ax) & 1)) {
                     t1 = -CGE_FLT_MAX;
                     t2 = CGE_FLT_MAX;
                 }
-                const float n0 = MODE == OCTANT ? t1 : jmin(t1, t2);
-                const float f0 = MODE == OCTANT ? t2 : jmax(t1, t2);
+                const float n0 = OCTANT ? t1 : jmin(t1, t2);
+                const float f0 = OCTANT ? t2 : jmax(t1, t2);
                 tnear = ax == 0 ? n0 : jmax(tnear, n0);
                 tfar = ax == 0 ? f0 : jmin(tfar, f0);
             }
@@ -252,7 +255,7 @@ __device__ __forceinline__ void keys_over_rays(
     }
 }
 
-template <int BPT, bool OCT>
+template <int BPT>
 __global__ void __launch_bounds__(KEYS_MAX_THREADS)
 block_entry_keys_kernel(const float* __restrict__ rays,
                         const float* __restrict__ boxes,
@@ -335,9 +338,7 @@ block_entry_keys_kernel(const float* __restrict__ rays,
         any_ok = any_ok || ok[j];
     }
     if (any_ok && zero) {
-        keys_over_rays<BPT, GENERAL>(s_ray, n_live, lo, hi, key);
-    } else if (any_ok && !OCT) {
-        keys_over_rays<BPT, MINMAX>(s_ray, n_live, lo, hi, key);
+        keys_over_rays<BPT, false>(s_ray, n_live, lo, hi, key);
     } else if (any_ok) {
         for (int oc = 0; oc < 8; ++oc) {
             const int beg = s_off[oc], n = s_off[oc + 1] - beg;
@@ -352,7 +353,7 @@ block_entry_keys_kernel(const float* __restrict__ rays,
                     nr[j][ax] = neg ? hi[j][ax] : lo[j][ax];
                     fr[j][ax] = neg ? lo[j][ax] : hi[j][ax];
                 }
-            keys_over_rays<BPT, OCTANT>(s_ray + 2 * beg, n, nr, fr, key);
+            keys_over_rays<BPT, true>(s_ray + 2 * beg, n, nr, fr, key);
         }
     }
     float* out = keys + (size_t)blockIdx.x * S;
@@ -1013,8 +1014,7 @@ static int launch_split_walk(const int* order, const float* skeys,
 // among the compiled shapes; rays and boxes 16-byte aligned.
 extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
                                     float* keys, int NB, int S, int BR,
-                                    int threads, int bpt, int octant,
-                                    void* stream) {
+                                    int threads, int bpt, void* stream) {
     if (NB == 0 || S == 0)
         return 0;
     if (threads % 32 || threads <= 0 || threads > KEYS_MAX_THREADS ||
@@ -1024,18 +1024,15 @@ extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
     const dim3 grid(NB, (S + per_block - 1) / per_block);
     const size_t smem = (size_t)BR * (2 * sizeof(float4) + sizeof(int));
     cudaStream_t st = (cudaStream_t)stream;
-#define CGE_KEYS_SHAPE(BPT_, OCT_)                                          \
-    if (bpt == BPT_ && octant == OCT_) {                                    \
-        block_entry_keys_kernel<BPT_, OCT_><<<grid, threads, smem, st>>>(   \
+#define CGE_KEYS_SHAPE(BPT_)                                                \
+    if (bpt == BPT_) {                                                      \
+        block_entry_keys_kernel<BPT_><<<grid, threads, smem, st>>>(         \
             rays, boxes, keys, S, BR);                                      \
         return (int)cudaGetLastError();                                     \
     }
-    CGE_KEYS_SHAPE(1, true)
-    CGE_KEYS_SHAPE(2, true)
-    CGE_KEYS_SHAPE(4, true)
-    CGE_KEYS_SHAPE(1, false)
-    CGE_KEYS_SHAPE(2, false)
-    CGE_KEYS_SHAPE(4, false)
+    CGE_KEYS_SHAPE(1)
+    CGE_KEYS_SHAPE(2)
+    CGE_KEYS_SHAPE(4)
 #undef CGE_KEYS_SHAPE
     return (int)cudaErrorInvalidValue;
 }

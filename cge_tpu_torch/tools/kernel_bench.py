@@ -186,8 +186,7 @@ def keys_shapes(rays, boxes, keys_p, dev, reps: int) -> list:
     for shape in cs.KEYS_SHAPES:
         check_keys(cs.block_entry_keys(rays, boxes, _shape=shape), keys_p,
                    f"K1 shape {shape}")
-        order = "octant order" if shape[2] else "min / max"
-        out.append((f"K1 {shape[0]} threads x {shape[1]} boxes, {order}",
+        out.append((f"K1 {shape[0]} threads x {shape[1]} boxes",
                     common.device_ms(lambda: cs.block_entry_keys(
                         rays, boxes, _shape=shape), dev, reps)))
     return out

@@ -143,12 +143,12 @@ def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
     live rays staged as (o, tmax), (1/d, d != 0), grouped by direction
     octant (bit ax: d < 0); a box's lo <= hi test outside the loop; the
     zero-direction selects only where some live ray of the block has a
-    zero component; otherwise, in octant order, each axis's near plane
-    taken from the octant (lo where d > 0, hi where d < 0) in place of the
-    min / max; each thread's running minimum over the staged rays in
+    zero component; otherwise each axis's near plane taken from the octant
+    (lo where d > 0, hi where d < 0) in place of the min / max; each
+    thread's running minimum over the staged rays in
     order, with the entry test folded to max(tnear, 0) <= min(tfar,
     tmax)."""
-    T, bpt, octant = shape
+    T, bpt = shape
     NB, _, BR = rays.shape
     S = boxes.shape[0]
     cols = -(-S // (T * bpt))
@@ -173,14 +173,14 @@ def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
         for r in range(live.numel()):
             tnear = tfar = None
             for ax in range(3):
-                by_octant = octant and not zero and bool(d[r, ax] < 0)
+                by_octant = not zero and bool(d[r, ax] < 0)
                 near, far = (hi, lo) if by_octant else (lo, hi)
                 t1 = (near[..., ax] - o[r, ax]) * inv[r, ax]
                 t2 = (far[..., ax] - o[r, ax]) * inv[r, ax]
                 if zero and not nz[r, ax]:
                     t1 = torch.full_like(t1, -cs.FLT_MAX)
                     t2 = torch.full_like(t2, cs.FLT_MAX)
-                if octant and not zero:
+                if not zero:
                     n0, f0 = t1, t2
                 else:
                     n0, f0 = torch.minimum(t1, t2), torch.maximum(t1, t2)
