@@ -2,7 +2,7 @@
 its plain twin, timed beside the twin and its bound; chip_smoke.py phases 2
 and 5 report these rows. Beside K1 stands the rest of the key pass: the
 stable torch.sort of each block's keys and the cast of the order to int32
-(cluster_sweep.sweep_order). --shapes also times K1 in every compiled shape
+(cluster_sweep.sort_keys). --shapes also times K1 in every compiled shape
 (threads a block, boxes a thread), K2 in every compiled split shape (CTAs
 per cluster, lanes per ray) and K3 under three split rules.
 
@@ -107,23 +107,14 @@ def check_equal(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {name} differ from the twin")
 
 
-def check_keys(keys, keys_p, what: str) -> float:
+def check_keys(keys, keys_p, what: str) -> None:
     """K1's keys against the twin's, bit for bit (torch.equal: both round
-    alike, and a +-0 key compares equal); returns the max |difference| over
-    the finite keys, 0."""
+    alike, and a +-0 key compares equal)."""
     if not torch.equal(keys, keys_p):
         fin = torch.isfinite(keys_p) & torch.isfinite(keys)
         err = float((keys - keys_p)[fin].abs().max()) if fin.any() else 0.0
         raise AssertionError(f"{what}: K1 keys differ from the twin "
                              f"(max |difference| over finite keys {err})")
-    return 0.0
-
-
-def sort_keys(keys):
-    """The rest of the key pass (cluster_sweep.sweep_order): each block's
-    keys sorted stably, the order cast to int32."""
-    skeys, order = torch.sort(keys, dim=-1, stable=True)
-    return skeys, order.int().contiguous()
 
 
 def timed(ms, plain_ms, bound) -> str:
@@ -148,9 +139,8 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
                              accel.layout, cs.DEFAULT_BR, sc_n)
         rays, boxes = inp.rays, inp.boxes
         keys_p = cs.block_entry_keys_plain(rays, boxes)
-        kerr = check_keys(cs.block_entry_keys(rays, boxes), keys_p,
-                          f"K1 {name}")
-        skeys, order = sort_keys(keys_p)
+        check_keys(cs.block_entry_keys(rays, boxes), keys_p, f"K1 {name}")
+        skeys, order = cs.sort_keys(keys_p)
         call = (order, skeys, rays, inp.tiles)
         kw = dict(layout=accel.layout, sc_n=inp.sc_n, any_hit=any_hit,
                   shared_origin=shared)
@@ -161,13 +151,13 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
             boxes=boxes.shape[0], live=int((tmax >= 0).sum()),
             hits=int((got[1] >= 0).sum()), sc_n=inp.sc_n,
             visits_mean=float(got[2].float().mean()),
-            visits_max=int(got[2].max()), keys_err=kerr,
+            visits_max=int(got[2].max()),
             keys_ms=common.device_ms(lambda: cs.block_entry_keys(rays, boxes),
                                      dev, reps),
             keys_plain_ms=common.device_ms(
                 lambda: cs.block_entry_keys_plain(rays, boxes), dev, 2),
             keys_bound=roofline.keys_bound(rays, boxes.shape[0]),
-            sort_ms=common.device_ms(lambda: sort_keys(keys_p), dev, reps),
+            sort_ms=common.device_ms(lambda: cs.sort_keys(keys_p), dev, reps),
             ms=common.device_ms(lambda: cs.cluster_walk(*call, **kw), dev,
                                 reps),
             plain_ms=common.device_ms(
