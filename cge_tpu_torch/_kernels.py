@@ -33,8 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # rays, boxes, keys, NB, S, BR, threads, bpt, stream
-    "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # rays, boxes, keys, NB, S, BR, stream
+    "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _P),
     # order, skeys, rays, tiles, best_t, best_i, visits, dense, NB, n_sc,
     # BR, sc_n, C, any_hit, stream
     "cge_cluster_walk_mxu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -12,7 +12,8 @@
 //     min / max against a few bytes per pair; the min / max and the
 //     compares issue on the ALU pipe at half the FMA pipes' rate
 //     (tools/sass_count.py counts the loop's instructions by kind).
-//     Design: a block of T threads per (ray block, T * BPT boxes).
+//     Design: a block of 128 threads per (ray block, 128 boxes), one box
+//     a thread.
 //     - The block's live rays are staged once, grouped by direction octant,
 //       as two float4s each: (o, tmax) and (1/d, the d != 0 bits). The
 //       loop runs over the live rays only, without a branch; a block
@@ -22,9 +23,9 @@
 //       So the near and far planes are picked once per octant and box, and
 //       the loop takes no min / max per axis: 7 min / max a pair in place
 //       of 13. A NaN plane t still reaches tnear or tfar and fails the test.
-//     - Each thread holds BPT boxes in registers, so one pair of 16-byte
-//       broadcast loads from shared memory serves BPT slab tests, and the
-//       ray loop is unrolled so that independent tests overlap.
+//     - Each thread holds its box in registers; a ray is two 16-byte
+//       broadcast loads from shared memory, and the ray loop is unrolled
+//       so that independent tests overlap.
 //     - A box's lo <= hi test runs once, outside the loop. A block where
 //       some live ray has a zero direction component (a block-uniform flag
 //       set while staging) takes the general loop instead: min / max per
@@ -213,50 +214,47 @@ __device__ __forceinline__ int slab_terms(const float d[3], float inv[3]) {
 // K1: block entry keys
 // ---------------------------------------------------------------------------
 
-#define KEYS_MAX_THREADS 256
+#define KEYS_THREADS 128
 
-// The running minimum of BPT boxes' keys over the n staged live rays. A
+// The running minimum of one box's key over the n staged live rays. The
 // box is (a, b) per axis. OCTANT: the rays share a direction octant and
 // have no zero component, and (a, b) is the octant's (near, far) plane
 // pair: (lo, hi) on an axis where d > 0, (hi, lo) where d < 0, so that
 // (a - o) / d <= (b - o) / d and the min / max of the twin's pair is the
 // pair itself. Otherwise (a, b) = (lo, hi), ordered by min / max, and a
 // zero direction component passes its slab.
-template <int BPT, bool OCTANT>
-__device__ __forceinline__ void keys_over_rays(
-        const float4* __restrict__ s_ray, int n, const float (&a3)[BPT][3],
-        const float (&b3)[BPT][3], float (&key)[BPT]) {
+template <bool OCTANT>
+__device__ __forceinline__ float keys_over_rays(
+        const float4* __restrict__ s_ray, int n, const float (&a3)[3],
+        const float (&b3)[3], float key) {
 #pragma unroll 4
     for (int r = 0; r < n; ++r) {
         const float4 a = s_ray[2 * r], c = s_ray[2 * r + 1];
         const float o[3] = {a.x, a.y, a.z};
         const float inv[3] = {c.x, c.y, c.z};
         const int nz_bits = __float_as_int(c.w);
+        float tnear = 0.0f, tfar = 0.0f;
 #pragma unroll
-        for (int j = 0; j < BPT; ++j) {
-            float tnear = 0.0f, tfar = 0.0f;
-#pragma unroll
-            for (int ax = 0; ax < 3; ++ax) {
-                float t1 = (a3[j][ax] - o[ax]) * inv[ax];
-                float t2 = (b3[j][ax] - o[ax]) * inv[ax];
-                if (!OCTANT && !((nz_bits >> ax) & 1)) {
-                    t1 = -CGE_FLT_MAX;
-                    t2 = CGE_FLT_MAX;
-                }
-                const float n0 = OCTANT ? t1 : jmin(t1, t2);
-                const float f0 = OCTANT ? t2 : jmax(t1, t2);
-                tnear = ax == 0 ? n0 : jmax(tnear, n0);
-                tfar = ax == 0 ? f0 : jmin(tfar, f0);
+        for (int ax = 0; ax < 3; ++ax) {
+            float t1 = (a3[ax] - o[ax]) * inv[ax];
+            float t2 = (b3[ax] - o[ax]) * inv[ax];
+            if (!OCTANT && !((nz_bits >> ax) & 1)) {
+                t1 = -CGE_FLT_MAX;
+                t2 = CGE_FLT_MAX;
             }
-            const float v = jmax(tnear, 0.0f);
-            if (v <= jmin(tfar, a.w))
-                key[j] = jmin(key[j], v);
+            const float n0 = OCTANT ? t1 : jmin(t1, t2);
+            const float f0 = OCTANT ? t2 : jmax(t1, t2);
+            tnear = ax == 0 ? n0 : jmax(tnear, n0);
+            tfar = ax == 0 ? f0 : jmin(tfar, f0);
         }
+        const float v = jmax(tnear, 0.0f);
+        if (v <= jmin(tfar, a.w))
+            key = jmin(key, v);
     }
+    return key;
 }
 
-template <int BPT>
-__global__ void __launch_bounds__(KEYS_MAX_THREADS)
+__global__ void __launch_bounds__(KEYS_THREADS)
 block_entry_keys_kernel(const float* __restrict__ rays,
                         const float* __restrict__ boxes,
                         float* __restrict__ keys, int S, int BR) {
@@ -266,17 +264,17 @@ block_entry_keys_kernel(const float* __restrict__ rays,
     int* s_slot = reinterpret_cast<int*>(s_ray + 2 * BR);
     __shared__ int s_cnt[8], s_off[9];
 
-    const int tid = threadIdx.x, lane = tid & 31, T = blockDim.x;
+    const int tid = threadIdx.x, lane = tid & 31;
     if (tid < 8)
         s_cnt[tid] = 0;
     __syncthreads();
     // stage the live rays grouped by direction octant (bit ax: d < 0), in
     // two passes: count and take slots, then place (the order within an
-    // octant is free: min is exact). BR and T are multiples of 32, so a
-    // warp is wholly in or out of range.
+    // octant is free: min is exact). BR is a multiple of 32, so a warp is
+    // wholly in or out of range.
     const float* rb = rays + (size_t)blockIdx.x * 8 * BR;
     int zero = 0;
-    for (int r = tid; r - tid < BR; r += T) {
+    for (int r = tid; r - tid < BR; r += KEYS_THREADS) {
         const float tm = r < BR ? rb[6 * BR + r] : -1.0f;
         int oct = 8;
         if (tm >= 0.0f) {
@@ -302,7 +300,7 @@ block_entry_keys_kernel(const float* __restrict__ rays,
             s_off[i + 1] = s_off[i] + s_cnt[i];
     }
     __syncthreads();
-    for (int r = tid; r < BR; r += T) {
+    for (int r = tid; r < BR; r += KEYS_THREADS) {
         const int v = s_slot[r];
         if (v < 0)
             continue;
@@ -318,51 +316,33 @@ block_entry_keys_kernel(const float* __restrict__ rays,
     __syncthreads();
     const int n_live = s_off[8];
 
-    const int s0 = blockIdx.y * T * BPT + tid;
-    float lo[BPT][3], hi[BPT][3], key[BPT];
-    bool ok[BPT];
-    bool any_ok = false;
+    const int s = blockIdx.y * KEYS_THREADS + tid;
+    if (s >= S)
+        return;
     const float4* bx = reinterpret_cast<const float4*>(boxes);
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-        const int s = s0 + j * T;
-        float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f), q = p;
-        if (s < S) {
-            p = bx[2 * s];
-            q = bx[2 * s + 1];
-        }
-        lo[j][0] = p.x, lo[j][1] = p.y, lo[j][2] = p.z;
-        hi[j][0] = p.w, hi[j][1] = q.x, hi[j][2] = q.y;
-        ok[j] = s < S && p.x <= p.w && p.y <= q.x && p.z <= q.y;
-        key[j] = INFINITY;
-        any_ok = any_ok || ok[j];
-    }
-    if (any_ok && zero) {
-        keys_over_rays<BPT, false>(s_ray, n_live, lo, hi, key);
-    } else if (any_ok) {
-        for (int oc = 0; oc < 8; ++oc) {
-            const int beg = s_off[oc], n = s_off[oc + 1] - beg;
-            if (n == 0)
-                continue;
-            float nr[BPT][3], fr[BPT][3];
-#pragma unroll
-            for (int j = 0; j < BPT; ++j)
+    const float4 p = bx[2 * s], q = bx[2 * s + 1];
+    const float lo[3] = {p.x, p.y, p.z}, hi[3] = {p.w, q.x, q.y};
+    float key = INFINITY;
+    if (p.x <= p.w && p.y <= q.x && p.z <= q.y) {
+        if (zero) {
+            key = keys_over_rays<false>(s_ray, n_live, lo, hi, key);
+        } else {
+            for (int oc = 0; oc < 8; ++oc) {
+                const int beg = s_off[oc], n = s_off[oc + 1] - beg;
+                if (n == 0)
+                    continue;
+                float nr[3], fr[3];
 #pragma unroll
                 for (int ax = 0; ax < 3; ++ax) {
                     const bool neg = (oc >> ax) & 1;
-                    nr[j][ax] = neg ? hi[j][ax] : lo[j][ax];
-                    fr[j][ax] = neg ? lo[j][ax] : hi[j][ax];
+                    nr[ax] = neg ? hi[ax] : lo[ax];
+                    fr[ax] = neg ? lo[ax] : hi[ax];
                 }
-            keys_over_rays<BPT, true>(s_ray + 2 * beg, n, nr, fr, key);
+                key = keys_over_rays<true>(s_ray + 2 * beg, n, nr, fr, key);
+            }
         }
     }
-    float* out = keys + (size_t)blockIdx.x * S;
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-        const int s = s0 + j * T;
-        if (s < S)
-            out[s] = ok[j] ? key[j] : INFINITY;
-    }
+    keys[(size_t)blockIdx.x * S + s] = key;
 }
 
 // ---------------------------------------------------------------------------
@@ -1010,31 +990,20 @@ static int launch_split_walk(const int* order, const float* skeys,
 // C interface (ctypes): pointers and the stream as void*, sizes as int.
 // ---------------------------------------------------------------------------
 
-// K1: (threads, bpt) picks the threads a block and the boxes a thread
-// among the compiled shapes; rays and boxes 16-byte aligned.
+// K1: rays and boxes 16-byte aligned.
 extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
                                     float* keys, int NB, int S, int BR,
-                                    int threads, int bpt, void* stream) {
+                                    void* stream) {
     if (NB == 0 || S == 0)
         return 0;
-    if (threads % 32 || threads <= 0 || threads > KEYS_MAX_THREADS ||
-        BR % 32)
+    if (BR % 32)
         return (int)cudaErrorInvalidValue;
-    const int per_block = threads * bpt;
-    const dim3 grid(NB, (S + per_block - 1) / per_block);
+    const dim3 grid(NB, (S + KEYS_THREADS - 1) / KEYS_THREADS);
     const size_t smem = (size_t)BR * (2 * sizeof(float4) + sizeof(int));
-    cudaStream_t st = (cudaStream_t)stream;
-#define CGE_KEYS_SHAPE(BPT_)                                                \
-    if (bpt == BPT_) {                                                      \
-        block_entry_keys_kernel<BPT_><<<grid, threads, smem, st>>>(         \
-            rays, boxes, keys, S, BR);                                      \
-        return (int)cudaGetLastError();                                     \
-    }
-    CGE_KEYS_SHAPE(1)
-    CGE_KEYS_SHAPE(2)
-    CGE_KEYS_SHAPE(4)
-#undef CGE_KEYS_SHAPE
-    return (int)cudaErrorInvalidValue;
+    block_entry_keys_kernel<<<grid, KEYS_THREADS, smem,
+                              (cudaStream_t)stream>>>(rays, boxes, keys, S,
+                                                      BR);
+    return (int)cudaGetLastError();
 }
 
 // The mxu walk: one block of BR threads per ray block, the quantity-major

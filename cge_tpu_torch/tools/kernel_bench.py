@@ -2,9 +2,8 @@
 its plain twin, timed beside the twin and its bound; chip_smoke.py phases 2
 and 5 report these rows. Beside K1 stands the rest of the key pass: the
 stable torch.sort of each block's keys and the cast of the order to int32
-(cluster_sweep.sort_keys). --shapes also times K1 in every compiled shape
-(threads a block, boxes a thread), K2 in every compiled split shape (CTAs
-per cluster, lanes per ray) and K3 under three split rules.
+(cluster_sweep.sort_keys). --shapes also times K2 in every compiled split
+shape (CTAs per cluster, lanes per ray) and K3 under three split rules.
 
 K1 and K2 run on the dragon stand-in (614,400 triangles, field-major tiles)
 with the 16,384-ray batches of the 512x512 frame's middle chunk, the main
@@ -130,8 +129,8 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
               reps: int = 5, shapes: bool = False) -> list:
     """One row per batch of walk_batches: K1 against its twin, the sort of
     its keys, K2 on the twin's sorted keys against its twin, their times,
-    the twins' times and the bounds; with shapes, K1's time in every
-    compiled shape and K2's in every split shape."""
+    the twins' times and the bounds; with shapes, K2's time in every
+    split shape."""
     rows = []
     for name, batch in walk_batches(scene, accel, dev, res, n).items():
         o, d, tmax, shared, any_hit, sc_n = batch
@@ -164,22 +163,9 @@ def walk_rows(scene, accel, dev, res: int = 512, n: int = 16384,
                 lambda: cs.cluster_walk_plain(*call, **kw), dev, 1),
             bound=roofline.walk_bound(call[0], rays, inp.tiles, got, **kw))
         if shapes:
-            row["shapes"] = (keys_shapes(rays, boxes, keys_p, dev, reps)
-                             + walk_shapes(call, kw, got, dev, reps))
+            row["shapes"] = walk_shapes(call, kw, got, dev, reps)
         rows.append(row)
     return rows
-
-
-def keys_shapes(rays, boxes, keys_p, dev, reps: int) -> list:
-    """(label, ms) of K1 in every compiled shape; each equal to keys_p."""
-    out = []
-    for shape in cs.KEYS_SHAPES:
-        check_keys(cs.block_entry_keys(rays, boxes, _shape=shape), keys_p,
-                   f"K1 shape {shape}")
-        out.append((f"K1 {shape[0]} threads x {shape[1]} boxes",
-                    common.device_ms(lambda: cs.block_entry_keys(
-                        rays, boxes, _shape=shape), dev, reps)))
-    return out
 
 
 def walk_shapes(call, kw, got, dev, reps: int) -> list:
@@ -277,8 +263,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=16384,
                     help="rays a batch (the main path's trace_chunk)")
     ap.add_argument("--shapes", action="store_true",
-                    help="also time K1 in every compiled shape, K2 in every "
-                         "split shape, K3 under each split rule")
+                    help="also time K2 in every split shape, K3 under each "
+                         "split rule")
     args = ap.parse_args(argv)
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)

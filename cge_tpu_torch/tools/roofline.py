@@ -31,9 +31,10 @@ TF32_PEAK = 495e12
 MEM_BW = 3.35e12
 
 # operations per (live ray, box) pair of K1: per axis two subtractions
-# and two multiplies, a min and a max, then the nearest / farthest
-# combine (4), the clamp and the running minimum
-KEYS_OPS = 24
+# and two multiplies (12; where the direction's octant is known, the near
+# and far planes need no per-axis min / max), the nearest / farthest
+# combine (4), the clamp at 0, tfar against tmax and the running minimum
+KEYS_OPS = 19
 # per (live ray, triangle slot) pair of K2's dense tile, the plane t: d.n
 # (5), o.n (5, hoisted per tile with a shared origin), D - o.n and the
 # divide (2); per pair that needs them, the hit point (6) and three edge
@@ -41,8 +42,9 @@ KEYS_OPS = 24
 WALK_PLANE_OPS = 12
 WALK_PLANE_OPS_SHARED = 7
 WALK_EDGE_OPS = 24
-# refine's per (live ray, member) slab entry, as K1's
-REFINE_OPS = KEYS_OPS
+# refine's per (live ray, member) slab entry: K1's without the running
+# minimum
+REFINE_OPS = KEYS_OPS - 1
 # the mxu tile: six TF32 products of the [4C, 8] x [8, 2] contraction per
 # pair (768 flops on the tensor cores); on the float32 units the divide
 # per pair and three edge tests (2 each) per pair that needs them

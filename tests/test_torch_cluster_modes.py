@@ -521,7 +521,7 @@ def test_mxu_grid_tool(capsys):
 def test_kernel_bench_tool(capsys):
     """kernel_bench on the twins: K1 and every K2 and K3 batch equal to
     its twin, bounds computed, no device time claimed (the sort beside K1
-    included); --shapes runs every K1 shape, split shape and split rule."""
+    included); --shapes runs every split shape and split rule."""
     from cge_tpu_torch.tools import kernel_bench
     out = _run_tool(kernel_bench, ["--device", "cpu", "--dragon", "41", "32",
                                    "--standin", "41", "16", "--res", "64",
@@ -535,8 +535,7 @@ def test_kernel_bench_tool(capsys):
     assert bounds == ["K1", "K2"] * 5 + ["K3"] * 3
     assert len(re.findall(r"\| sort ms not measured \|", out)) == 5
     shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
-    assert len(shapes) == 5 * (len(cs.KEYS_SHAPES)
-                               + len(cs.SPLIT_SHAPES)) + 3 * 3
+    assert len(shapes) == 5 * len(cs.SPLIT_SHAPES) + 3 * 3
 
 
 def _sass_pair(base: int) -> list:

@@ -136,10 +136,9 @@ def _setup(batch, stack, layout, sc_n):
     return cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, BR, sc_n)
 
 
-def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
+def keys_model(rays, boxes):
     """A plain model of K1's decomposition (csrc/cluster_sweep.cu,
-    block_entry_keys_kernel): a block of T threads per (ray block, T * BPT
-    boxes), thread t holding boxes col * T * BPT + j * T + t; the block's
+    block_entry_keys_kernel): a thread per (ray block, box); the block's
     live rays staged as (o, tmax), (1/d, d != 0), grouped by direction
     octant (bit ax: d < 0); a box's lo <= hi test outside the loop; the
     zero-direction selects only where some live ray of the block has a
@@ -148,18 +147,10 @@ def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
     thread's running minimum over the staged rays in
     order, with the entry test folded to max(tnear, 0) <= min(tfar,
     tmax)."""
-    T, bpt = shape
     NB, _, BR = rays.shape
-    S = boxes.shape[0]
-    cols = -(-S // (T * bpt))
-    # s = col * T * bpt + j * T + t, [cols, bpt, T]
-    s = (torch.arange(cols)[:, None, None] * T * bpt
-         + torch.arange(bpt)[None, :, None] * T + torch.arange(T))
-    inside = s < S
-    box = boxes[s.clamp_max(S - 1)]                     # [cols, bpt, T, 8]
-    lo, hi = box[..., 0:3], box[..., 3:6]
-    ok = inside & (lo <= hi).all(dim=-1)
-    keys = torch.full((NB, S), torch.inf)
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    ok = (lo <= hi).all(dim=-1)
+    keys = torch.full((NB, boxes.shape[0]), torch.inf)
     for b in range(NB):
         d_all = rays[b, 3:6]
         oct_ = ((d_all < 0).int() * torch.tensor([[1], [2], [4]])).sum(dim=0)
@@ -169,7 +160,7 @@ def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
         nz = d != 0
         inv = torch.where(nz, 1.0 / torch.where(nz, d, 1.0), 0.0)
         zero = bool((~nz).any())                             # block-uniform
-        key = torch.full(s.shape, torch.inf)
+        key = torch.full(ok.shape, torch.inf)
         for r in range(live.numel()):
             tnear = tfar = None
             for ax in range(3):
@@ -189,24 +180,29 @@ def keys_model(rays, boxes, shape=cs.KEYS_SHAPES[0]):
             v = torch.maximum(tnear, torch.zeros(()))
             key = torch.where(v <= torch.minimum(tfar, tm[r]),
                               torch.minimum(key, v), key)
-        key = torch.where(ok, key, torch.inf)
-        keys[b, s[inside]] = key[inside]
+        keys[b] = torch.where(ok, key, torch.inf)
     return keys
+
+
+# clusters per visit of K1's test boxes
+KEYS_SC_N = (1, 2, 4, 8)
 
 
 @pytest.fixture(scope="module")
 def keys_inputs(batches, stacks):
     """Packed ray blocks and boxes for K1: the three batches (dead rays,
     pad rays of a ragged last block) and a synthetic set with exact zero
-    direction components in some blocks, a dead block and pad rays; the
-    field stack's supercluster boxes at 2 per visit with its pad
-    supercluster (FLT_MAX / -FLT_MAX) and an empty box (+inf / -inf)."""
+    direction components in some blocks, a dead block and pad rays; by
+    clusters per visit (KEYS_SC_N), the field stack's supercluster boxes
+    with its pad superclusters (FLT_MAX / -FLT_MAX) and an empty box (+inf
+    / -inf)."""
     aabbs, tiles = (_t(x) for x in stacks["field"])
-    boxes = cs.supercluster_boxes(
-        cs.pad_cluster_stack(aabbs, tiles, 4, "field")[0], 2)
+    padded = cs.pad_cluster_stack(aabbs, tiles, 8 + (-aabbs.shape[0]) % 8,
+                                  "field")[0]
     empty = torch.tensor([[np.inf] * 3 + [-np.inf] * 3 + [0, 0]],
                          dtype=torch.float32)
-    boxes = torch.cat([boxes, empty]).contiguous()
+    boxes = {sc_n: torch.cat([cs.supercluster_boxes(padded, sc_n),
+                              empty]).contiguous() for sc_n in KEYS_SC_N}
     out = {}
     for key in ("primary", "bounce", "shadow"):
         o, d, tmax = (_t(x) for x in batches[key])
@@ -230,17 +226,18 @@ def keys_inputs(batches, stacks):
     return out, boxes
 
 
-@pytest.mark.parametrize("shape", cs.KEYS_SHAPES)
+@pytest.mark.parametrize("sc_n", KEYS_SC_N)
 @pytest.mark.parametrize("which", ["primary", "bounce", "shadow",
                                    "synthetic"])
-def test_keys_model_matches_twin_and_pallas(keys_inputs, which, shape):
+def test_keys_model_matches_twin_and_pallas(keys_inputs, which, sc_n):
     """K1's decomposition (keys_model) equals the twin bit for bit and
-    _block_entry_keys(interpret=True) exactly, in every compiled shape, on
-    blocks with dead rays, pad rays, zero direction components and a dead
-    block, against boxes that include inverted ones."""
-    rays_by, boxes = keys_inputs
-    rays = rays_by[which]
-    got = keys_model(rays, boxes, shape)
+    _block_entry_keys(interpret=True) exactly, on blocks with dead rays,
+    pad rays, zero direction components and a dead block, against the
+    supercluster boxes at 1 to 8 clusters per visit, inverted ones
+    included."""
+    rays_by, boxes_by = keys_inputs
+    rays, boxes = rays_by[which], boxes_by[sc_n]
+    got = keys_model(rays, boxes)
     twin = cs.block_entry_keys_plain(rays, boxes)
     torch.testing.assert_close(got, twin, rtol=0, atol=0)
     ref = np.asarray(_block_entry_keys(jnp.asarray(rays.numpy()),
@@ -815,18 +812,17 @@ def test_wrappers_reject_bad_inputs_on_card(stacks, batches, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", cs.KEYS_SHAPES)
-def test_keys_kernel_shapes_match_twin_on_card(keys_inputs, shape,
-                                               cuda_device):
-    """K1 in every compiled shape on the card against the twin on the
-    card, on the model's inputs (dead and pad rays, zero direction
-    components, inverted boxes): keys equal, one launch a call."""
-    rays_by, boxes = keys_inputs
-    boxes = boxes.to(cuda_device)
+@pytest.mark.parametrize("sc_n", KEYS_SC_N)
+def test_keys_kernel_matches_twin_on_card(keys_inputs, sc_n, cuda_device):
+    """K1 on the card against the twin on the card, on the model's inputs
+    (dead and pad rays, zero direction components, inverted boxes): keys
+    equal, one launch a call."""
+    rays_by, boxes_by = keys_inputs
+    boxes = boxes_by[sc_n].to(cuda_device)
     for which, rays in rays_by.items():
         rays = rays.to(cuda_device)
         n = cs.LAUNCHES["keys"]
-        got = cs.block_entry_keys(rays, boxes, _shape=shape)
+        got = cs.block_entry_keys(rays, boxes)
         assert cs.LAUNCHES["keys"] == n + 1
         assert torch.equal(got, cs.block_entry_keys_plain(rays, boxes)), which
 
