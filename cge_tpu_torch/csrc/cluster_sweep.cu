@@ -123,33 +123,57 @@
 //     every visit, which costs the latency-bound walk more than the five
 //     flops a test it saves; each lane computes it from the block's first
 //     ray instead, as the twin does.
-//     - mxu (the Pallas kernel's mxu flag, triangle layout only; the
-//       one-thread-per-ray kernel cluster_walk_mxu_kernel): the dense tile
-//       is one contraction of the quantity-major tile [4C, 8] with the
-//       rays' (o, -1) and (d, 0) rows, giving o.n - D, d.n, o.m_k - b_k and
-//       d.m_k per pair, then t = -(o.n - D) / d.n and the edge tests
-//       (o.m_k - b_k) + t d.m_k >= 0. Each warp runs it on the tensor cores
-//       with nvcuda::wmma TF32 m16n16k8 fragments (K = 8 is one k-step).
-//       Every operand is split into three TF32 pieces (v = p0 + p1 + p2, 33
+//
+//     The mxu mode (the Pallas kernel's mxu flag, triangle layout only;
+//     cluster_walk_mxu_kernel) computes the dense tile in the two-dot
+//     form: a contraction of the rays' o_ext = (o, -1) and d_ext = (d, 0)
+//     rows with each slot's quads (n, D), (m_k, b_k) gives o.n - D, d.n,
+//     o.m_k - b_k and d.m_k per pair, then t = -(o.n - D) / d.n and the
+//     edge tests (o.m_k - b_k) + t d.m_k >= 0. Its results are not
+//     bit-equal to the f32 twin's (a grazing ray may land on either side).
+//     It replaces a one-thread-per-ray kernel (32 blocks, WMMA m16n16k8 at
+//     K = 8, half of it the TPU's zero pad, every product staged through
+//     shared memory, a blocking stop). Bound on this card: the tensor
+//     cores, 384 TF32 flops a (live ray, slot) pair (six piece products x
+//     4 quantities x K = 4 x 2 sides x 2); the lanes add a divide and three
+//     edge tests a pair and the B operand's split. As the other walks it
+//     lasts as long as its longest block walk. Its design:
+//     - The split walk's skeleton and invariants: a cluster of CS CTAs a
+//       ray block, live rays first, the cp.async ring, the stop pipelined
+//       one visit ahead. The quad-major buffer is [quantity][slot][k], B's
+//       column-major order, so the walk reads the triangle stack as it is.
+//     - mma.sync m16n8k4 TF32, accumulators in registers: M = 16 rays (a
+//       CTA's rays in M tiles, padded with dead rows), N = 8 slots, K = 4
+//       (x, y, z, -1 or 0 against a quad). Per quantity and side, the six
+//       piece products run into one accumulator, so the eight values of a
+//       pair sit at one register position of one lane: t and the edge
+//       tests need no staging. The A fragments (2 sides x 3 pieces) are
+//       built once per walk; a B element is one 4-byte shared load, 32
+//       consecutive words a warp.
+//     - Every operand is split into three TF32 pieces (v = p0 + p1 + p2, 33
 //       significant bits) and the six products down to the 2^-22 terms are
 //       accumulated in f32, smallest first: the counterpart of the TPU's
 //       Precision.HIGHEST, which splits f32 into three bf16 pieces the same
 //       way. (A 2-piece "3xTF32" split keeps 22 bits per operand; on
 //       grazing rays, where d.n is small, that left t 1.1e-5 relative from
-//       the f32 twin.) The products go through a per-warp staging tile in
-//       shared memory, so each thread reads its own ray's values.
-//       Bound: the tensor-core issue rate (24 mma per 16 triangles per 32
-//       rays) plus the staging round trip; the SIMT side keeps only the
-//       divide, three edge tests and the accept.
+//       the f32 twin.) PRESPLIT splits each landed tile once into piece
+//       buffers; otherwise each lane splits its B elements as it loads them.
+//     - WPM warps share an M tile and take its 8-slot groups in turn. A
+//       lane folds its slots and the visit's members (slots and members
+//       rise, so t <= best keeps the largest flat id), the four lanes of a
+//       row merge by shuffles and the M tile's warps through shared memory
+//       once a visit, before the stop's partial, under the twin's rule:
+//       the smallest t, the largest id. A warp whose 16 rows are all
+//       inactive skips the contraction.
 //
 // The file is built with --fmad=false so that the kernels round every
-// product and sum as the plain PyTorch twins do: both compute bit-identical
-// t's, and an edge test at a silhouette cannot flip between them.
+// product and sum as the plain PyTorch twins do: K1 and the default and
+// refine walks compute bit-identical t's, and an edge test at a silhouette
+// cannot flip between them.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
@@ -349,230 +373,11 @@ block_entry_keys_kernel(const float* __restrict__ rays,
 // K2: ordered cluster walk
 // ---------------------------------------------------------------------------
 
-// Max over the block, NaN-propagating; every thread gets the result.
-__device__ float block_max(float v, float* s_red) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = jmax(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();                 // s_red may still be read by a prior call
-    if (lane == 0)
-        s_red[warp] = v;
-    __syncthreads();
-    v = lane < (int)(blockDim.x >> 5) ? s_red[lane] : -INFINITY;
-    for (int off = 16; off > 0; off >>= 1)
-        v = jmax(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
 // No remaining supercluster can help: the next key is behind every live
 // ray's need, or +inf (no live ray enters it; inf > inf is false, so the
 // FLT_MAX test is needed for blocks of unbounded rays that miss everything).
 __device__ __forceinline__ bool past(float key, float need) {
     return key > need || key >= CGE_FLT_MAX;
-}
-
-// The accept step of one (ray, triangle) pair, in slot order: closest hit
-// takes t <= best (the later slot wins an exact tie, as the Pallas tile's
-// max-slot rule does); any hit marks the ray done.
-__device__ __forceinline__ void accept(float t, bool ok, int slot,
-                                       int any_hit, float& bt, int& bi) {
-    if (any_hit) {
-        if (ok) {
-            bt = CGE_DONE;
-            bi = 1;
-        }
-    } else if (ok && isfinite(t) && t <= bt) {
-        bt = t;
-        bi = slot;
-    }
-}
-
-// The mxu mode's shared memory, in floats: the staged tile as three TF32
-// pieces ([4C][8] each); per warp, a [64][MXU_LD] staging tile (rows 0:32
-// the o side, 32:64 the d side of the warp's 32 rays) and the rays' third
-// TF32 pieces ([2][32][8], the A operand read from shared memory); the
-// reduction scratch.
-#define MXU_LD 20          // staging row stride: conflict-free float4 reads
-#define MXU_STAGE_FLOATS (64 * MXU_LD)
-#define MXU_WARP_FLOATS (MXU_STAGE_FLOATS + 512)
-
-static size_t mxu_walk_smem_floats(int C, int BR) {
-    return (size_t)96 * C + (size_t)(BR / 32) * MXU_WARP_FLOATS + 32;
-}
-
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
-                             wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-
-// v = p[0] + p[1] + p[2] in TF32 pieces; each difference is exact.
-__device__ __forceinline__ void tf32_split3(float v, float p[3]) {
-    p[0] = wmma::__float_to_tf32(v);
-    const float r = v - p[0];
-    p[1] = wmma::__float_to_tf32(r);
-    p[2] = wmma::__float_to_tf32(r - p[1]);
-}
-
-// The mxu mode keeps its ray fragments and 16 t's in registers: at most
-// MXU_MAX_BR threads a block leaves it 128 registers a thread.
-#define MXU_MAX_BR 512
-
-// The mxu walk: one block of one thread per ray, the triangle layout's
-// quantity-major tiles [Lp, 4C, 8].
-__global__ void __launch_bounds__(MXU_MAX_BR)
-cluster_walk_mxu_kernel(const int* __restrict__ order,
-                        const float* __restrict__ skeys,
-                        const float* __restrict__ rays,
-                        const float* __restrict__ tiles,
-                        float* __restrict__ best_t, int* __restrict__ best_i,
-                        int* __restrict__ visits, int* __restrict__ dense,
-                        int n_sc, int sc_n, int C, int any_hit) {
-    extern __shared__ __align__(16) float smem[];
-    const int b = blockIdx.x, r = threadIdx.x, BR = blockDim.x;
-    const int lane = r & 31;
-    // s_q [3][4C][8] (the tile's TF32 pieces), the warps' regions
-    float* s_q = smem;
-    float* s_warp = smem + 96 * C + (r >> 5) * MXU_WARP_FLOATS;
-    float* s_ray2 = s_warp + MXU_STAGE_FLOATS;
-    float* s_red = smem + 96 * C + (BR / 32) * MXU_WARP_FLOATS;
-
-    const float* rb = rays + (size_t)b * 8 * BR;
-    const float ox = rb[r], oy = rb[BR + r], oz = rb[2 * BR + r];
-    const float dx = rb[3 * BR + r], dy = rb[4 * BR + r], dz = rb[5 * BR + r];
-    const float tm = rb[6 * BR + r];
-    const float tm_eff = jmin(tm, rb[7 * BR + r]);
-    const bool live = tm >= 0.0f;
-    const int* ord = order + (size_t)b * n_sc;
-    const float* sk = skeys + (size_t)b * n_sc;
-
-    // the warp's ray rows as TF32 pieces, built once. a0 / a1 [side][mt]
-    // are A fragments of pieces 0 and 1 for rays mt*16 .. mt*16+15 of the
-    // warp, side 0 the (o, -1, 0...) rows, side 1 the (d, 0...) rows; piece
-    // 2 stays in s_ray2 ([side][ray][8]) and is loaded where it is used,
-    // which keeps the kernel in 128 registers.
-    FragA a0[2][2], a1[2][2];
-    {
-        const float ext[2][8] = {{ox, oy, oz, -1.0f, 0.0f, 0.0f, 0.0f, 0.0f},
-                                 {dx, dy, dz, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-        for (int side = 0; side < 2; ++side)
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                float p[3];
-                tf32_split3(ext[side][k], p);
-                s_warp[side * 512 + lane * 8 + k] = p[0];
-                s_warp[side * 512 + 256 + lane * 8 + k] = p[1];
-                s_ray2[side * 256 + lane * 8 + k] = p[2];
-            }
-        __syncwarp();
-#pragma unroll
-        for (int side = 0; side < 2; ++side)
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-                wmma::load_matrix_sync(a0[side][mt],
-                                       s_warp + side * 512 + mt * 128, 8);
-                wmma::load_matrix_sync(
-                    a1[side][mt], s_warp + side * 512 + 256 + mt * 128, 8);
-            }
-        __syncwarp();
-    }
-
-    float bt = INFINITY;
-    int bi = -1;
-    // first-key guard: an all-dead or no-overlap block makes zero visits
-    float need = block_max(live ? tm_eff : -INFINITY, s_red);
-    bool stop = past(sk[0], need);
-    int step = 0;
-    while (!stop) {
-        const int sc = ord[step];
-        for (int m = 0; m < sc_n; ++m) {
-            const int cl = sc * sc_n + m;
-            __syncthreads();         // the previous cluster is fully used
-            // dead rays accept nothing (t <= tmax < 0 <= t), and a done
-            // any-hit ray stays done, so both skip the accept exactly
-            const bool active = live && !(any_hit && bi == 1);
-            const float* src = tiles + (size_t)cl * C * 32;
-            for (int i = r; i < C * 32; i += BR) {
-                float p[3];
-                tf32_split3(src[i], p);
-                s_q[i] = p[0];
-                s_q[32 * C + i] = p[1];
-                s_q[64 * C + i] = p[2];
-            }
-            __syncthreads();
-            // every lane takes part in the warp's contractions
-            for (int g = 0; g < C / 16; ++g) {
-                float t[16];
-                unsigned inside = 0xffffu;
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    FragB b0, b1, b2;
-                    const float* row = s_q + (q * C + g * 16) * 8;
-                    wmma::load_matrix_sync(b0, row, 8);
-                    wmma::load_matrix_sync(b1, row + 32 * C, 8);
-                    wmma::load_matrix_sync(b2, row + 64 * C, 8);
-#pragma unroll
-                    for (int side = 0; side < 2; ++side)
-#pragma unroll
-                        for (int mt = 0; mt < 2; ++mt) {
-                            FragA a2;
-                            wmma::load_matrix_sync(
-                                a2, s_ray2 + side * 256 + mt * 128, 8);
-                            FragC acc;
-                            wmma::fill_fragment(acc, 0.0f);
-                            wmma::mma_sync(acc, a2, b0, acc);
-                            wmma::mma_sync(acc, a1[side][mt], b1, acc);
-                            wmma::mma_sync(acc, a0[side][mt], b2, acc);
-                            wmma::mma_sync(acc, a1[side][mt], b0, acc);
-                            wmma::mma_sync(acc, a0[side][mt], b1, acc);
-                            wmma::mma_sync(acc, a0[side][mt], b0, acc);
-                            wmma::store_matrix_sync(
-                                s_warp + (side * 32 + mt * 16) * MXU_LD, acc,
-                                MXU_LD, wmma::mem_row_major);
-                        }
-                    __syncwarp();
-                    const float4* ov = reinterpret_cast<const float4*>(
-                        s_warp + lane * MXU_LD);
-                    const float4* dv = reinterpret_cast<const float4*>(
-                        s_warp + (32 + lane) * MXU_LD);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const float4 o4 = ov[j], d4 = dv[j];
-                        const float oq[4] = {o4.x, o4.y, o4.z, o4.w};
-                        const float dq[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            const int n = 4 * j + u;
-                            if (q == 0)
-                                t[n] = -oq[u] / dq[u];
-                            else if (!(oq[u] + t[n] * dq[u] >= 0.0f))
-                                inside &= ~(1u << n);
-                        }
-                    }
-                    __syncwarp();
-                }
-                if (active) {
-#pragma unroll
-                    for (int n = 0; n < 16; ++n) {
-                        const bool ok = t[n] >= 0.0f && t[n] <= tm &&
-                                        ((inside >> n) & 1u);
-                        accept(t[n], ok, cl * C + g * 16 + n, any_hit, bt, bi);
-                    }
-                }
-            }
-        }
-        ++step;
-        need = block_max(live ? jmin(bt, tm_eff) : -INFINITY, s_red);
-        stop = step >= n_sc || past(sk[step < n_sc ? step : n_sc - 1], need);
-    }
-    best_t[(size_t)b * BR + r] = bt;
-    best_i[(size_t)b * BR + r] = bi;
-    if (r == 0) {
-        visits[b] = step;
-        dense[b] = step * sc_n;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -671,6 +476,65 @@ __device__ __forceinline__ bool cluster_any(const int* s_vote, int parity) {
     return any != 0;
 }
 
+// The CTA's rpc rays from `first` of the ray block rb [8][BR], live ones
+// first in their order, then the dead ones: s_perm[i] is the CTA-local
+// index of the i-th. Needs a thread a ray, rounded up to a warp; ends in a
+// CTA barrier.
+__device__ __forceinline__ void order_live_first(const float* __restrict__ rb,
+                                                 int BR, int first, int rpc,
+                                                 int* s_cnt, int* s_perm) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int scan_warps = (rpc + 31) >> 5;
+    const bool lv = tid < rpc && rb[6 * BR + first + tid] >= 0.0f;
+    unsigned ballot = 0;
+    if (warp < scan_warps) {
+        ballot = __ballot_sync(FULL_MASK, lv);
+        if (lane == 0)
+            s_cnt[warp] = __popc(ballot);
+    }
+    __syncthreads();
+    if (tid < rpc) {
+        int before = 0, n_live = 0;
+        for (int w = 0; w < scan_warps; ++w) {
+            before += w < warp ? s_cnt[w] : 0;
+            n_live += s_cnt[w];
+        }
+        const int lb = before + __popc(ballot & ((1u << lane) - 1u));
+        s_perm[lv ? lb : n_live + tid - lb] = tid;
+    }
+    __syncthreads();
+}
+
+// Launch kernel on grid CTAs of `threads` in thread block clusters of cs.
+template <typename... Params, typename... Args>
+static int launch_in_clusters(void (*kernel)(Params...), int grid,
+                              int threads, size_t smem, int cs,
+                              cudaStream_t stream, Args... args) {
+    cudaError_t e;
+    if (smem > 48 * 1024) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess)
+            return (int)e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (e != cudaSuccess)
+        return (int)e;
+    return (int)cudaGetLastError();
+}
+
 // Shared memory of the split walk, in 4-byte words: two quad-major tile
 // buffers, the reduction scratch, the cluster partials and votes, the
 // live-ray scan and the CTA's ray order.
@@ -747,7 +611,7 @@ cluster_walk_split_kernel(const int* __restrict__ order,
     int* s_cnt = s_vote + 2 * SPLIT_MAX_CS;  // [32]
     int* s_perm = s_cnt + 32;                // [BR / CS]
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int tid = threadIdx.x;
     const int rank = (int)cg::this_cluster().block_rank();
     const int b = blockIdx.x / CS;
     const int rpc = BR / CS;                 // rays of this CTA
@@ -758,26 +622,7 @@ cluster_walk_split_kernel(const int* __restrict__ order,
     // cluster has started: arrive now, wait before the first remote store
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-    // the CTA's rays, live ones first in their order, then the dead ones
-    const int scan_warps = (rpc + 31) >> 5;
-    const bool lv = tid < rpc && rb[6 * BR + rank * rpc + tid] >= 0.0f;
-    unsigned ballot = 0;
-    if (warp < scan_warps) {
-        ballot = __ballot_sync(FULL_MASK, lv);
-        if (lane == 0)
-            s_cnt[warp] = __popc(ballot);
-    }
-    __syncthreads();
-    if (tid < rpc) {
-        int before = 0, n_live = 0;
-        for (int w = 0; w < scan_warps; ++w) {
-            before += w < warp ? s_cnt[w] : 0;
-            n_live += s_cnt[w];
-        }
-        const int lb = before + __popc(ballot & ((1u << lane) - 1u));
-        s_perm[lv ? lb : n_live + tid - lb] = tid;
-    }
-    __syncthreads();
+    order_live_first(rb, BR, rank * rpc, rpc, s_cnt, s_perm);
 
     // lanes l of group g share ray r
     const int g = tid / L, l = tid % L;
@@ -958,32 +803,357 @@ static int launch_split_walk(const int* order, const float* skeys,
     const size_t smem = split_walk_smem_words(C, BR / CS) * 4;
     if (smem > CGE_MAX_SMEM)
         return (int)cudaErrorInvalidValue;
-    auto kernel = cluster_walk_split_kernel<CS, L, REFINE>;
-    cudaError_t e;
-    if (smem > 48 * 1024) {
-        e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess)
-            return (int)e;
+    return launch_in_clusters(cluster_walk_split_kernel<CS, L, REFINE>,
+                              NB * CS, threads, smem, CS, stream, order,
+                              skeys, rays, tiles, aabbs, best_t, best_i,
+                              visits, dense, n_sc, BR, sc_n, C, field_major,
+                              any_hit, shared_origin);
+}
+
+// ---------------------------------------------------------------------------
+// K2, mxu walk: the dense tile on the tensor cores, in the cluster walk
+// ---------------------------------------------------------------------------
+
+// v rounded to TF32 (cvt.rna: to nearest, ties away from zero), as an f32
+// bit pattern whose 13 low bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+    return r & 0xffffe000u;
+}
+
+// v = p[0] + p[1] + p[2] in TF32 pieces; each difference is exact.
+__device__ __forceinline__ void tf32_split3(float v, uint32_t p[3]) {
+    p[0] = tf32_rna(v);
+    const float r = v - __uint_as_float(p[0]);
+    p[1] = tf32_rna(r);
+    p[2] = tf32_rna(r - __uint_as_float(p[1]));
+}
+
+// c += a b on the tensor cores, m16n8k4: lane (g, tig) = (lane / 4, lane %
+// 4) holds A's (row g, column tig) and (g + 8, tig), B's (row tig, column
+// g), and the accumulator's (g, 2 tig), (g, 2 tig + 1), (g + 8, 2 tig),
+// (g + 8, 2 tig + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[2],
+                                         uint32_t b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// One member tile's test for this warp's 8-slot groups n0 = 8 wn, 8 (wn +
+// WPM), ... of the quad-major tile q (PRESPLIT: q holds piece 0, pc pieces
+// 1 and 2). a [side][piece] are the A fragments of the lane's rows g and g
+// + 8: side 0 o_ext = (o, -1), side 1 d_ext = (d, 0). Per quantity (n, D),
+// (m_k, b_k) and side, the six piece products, smallest first, go into one
+// accumulator: o.n - D, d.n, o.m_k - b_k and d.m_k of the lane's four
+// (ray, slot) pairs land in the same register position. Each pair is then
+// t = -(o.n - D) / d.n and three edge tests, and folds into the row's
+// (vt, vi), slots rising (the later slot wins a tie), or, any hit, vh.
+template <int WPM, bool PRESPLIT>
+__device__ __forceinline__ void test_tile_mxu(
+        const float* q, const float* pc, int C, int wn, int g, int tig,
+        const uint32_t (&a)[2][3][2], const float (&tm)[2], int base,
+        int any_hit, float (&vt)[2], int (&vi)[2], bool (&vh)[2]) {
+    // (A piece, B piece) of the six products; a1 b2, a2 b1 and a2 b2 lie
+    // below the f32 rounding of the sum
+    constexpr int PA[6] = {2, 1, 0, 1, 0, 0};
+    constexpr int PB[6] = {0, 1, 2, 0, 1, 0};
+    for (int n0 = wn * 8; n0 < C; n0 += WPM * 8) {
+        // B (k = tig, slot n0 + g) of each quantity: 32 consecutive words
+        uint32_t bq[4][3];
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+            const int i = (qd * C + n0 + g) * 4 + tig;
+            if (PRESPLIT) {
+                bq[qd][0] = __float_as_uint(q[i]);
+                bq[qd][1] = __float_as_uint(pc[i]);
+                bq[qd][2] = __float_as_uint(pc[16 * C + i]);
+            } else {
+                tf32_split3(q[i], bq[qd]);
+            }
+        }
+        float acc[4][2][4];
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd)
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[qd][s][j] = 0.0f;
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+            for (int qd = 0; qd < 4; ++qd)
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+                    mma_tf32(acc[qd][s], a[s][PA[p]], bq[qd][PB[p]]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int h = j >> 1;
+            const float t = -acc[0][0][j] / acc[0][1][j];
+            bool ok = t >= 0.0f && t <= tm[h];
+#pragma unroll
+            for (int qd = 1; qd < 4; ++qd)
+                ok = ok & (acc[qd][0][j] + t * acc[qd][1][j] >= 0.0f);
+            const bool take = !any_hit && ok && t < INFINITY && t <= vt[h];
+            vt[h] = take ? t : vt[h];
+            vi[h] = take ? base + n0 + 2 * tig + (j & 1) : vi[h];
+            vh[h] = vh[h] || ok;
+        }
     }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(NB * CS);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CS;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, kernel, order, skeys, rays, tiles, aabbs,
-                           best_t, best_i, visits, dense, n_sc, BR, sc_n, C,
-                           field_major, any_hit, shared_origin);
-    if (e != cudaSuccess)
-        return (int)e;
-    return (int)cudaGetLastError();
+}
+
+// Shared memory of the mxu walk, in 4-byte words: the tile ring (and,
+// presplit, pieces 1 and 2 of the landed tile), the reduction scratch, the
+// cluster partials and votes, the live-ray scan, the warps' candidates
+// (t and id per row and warp) and the CTA's ray order.
+static size_t mxu_walk_smem_words(int C, int rpc, int rows, int wpm,
+                                  int presplit) {
+    return (size_t)(presplit ? 64 : 32) * C + 32 + 4 * SPLIT_MAX_CS + 32
+           + 2 * (size_t)rows * wpm + rpc;
+}
+
+#define MXU_MAX_THREADS 512
+
+// The mxu walk: the split walk's skeleton (CS CTAs of BR / CS rays a ray
+// block, live rays first, the cp.async ring, the stop pipelined one visit
+// ahead) with each CTA's rows in 16-ray M tiles of WPM warps. Row i < BR /
+// CS is the i-th ray of the live-first order; the rows past it are pads
+// (zero A rows, tmax -1), as are dead rays: neither accepts.
+template <int CS, int WPM, bool PRESPLIT>
+__global__ void __launch_bounds__(MXU_MAX_THREADS)
+cluster_walk_mxu_kernel(const int* __restrict__ order,
+                        const float* __restrict__ skeys,
+                        const float* __restrict__ rays,
+                        const float* __restrict__ tiles,
+                        float* __restrict__ best_t, int* __restrict__ best_i,
+                        int* __restrict__ visits, int* __restrict__ dense,
+                        int n_sc, int BR, int sc_n, int C, int any_hit) {
+    extern __shared__ __align__(16) float smem[];
+    const int rpc = BR / CS;                 // rays of this CTA
+    const int rows = (int)blockDim.x / (32 * WPM) * 16;
+    float* s_q = smem;                       // [2][4][C] float4
+    float* s_pc = smem + 32 * C;             // presplit: pieces 1, 2 [16 C]
+    float* s_red = smem + (PRESPLIT ? 64 : 32) * C;    // [32]
+    float* s_part = s_red + 32;              // [2][SPLIT_MAX_CS]
+    int* s_vote = reinterpret_cast<int*>(s_part + 2 * SPLIT_MAX_CS);
+    int* s_cnt = s_vote + 2 * SPLIT_MAX_CS;  // [32]
+    // the warps' candidates [rows / 16][WPM][16]: t, and id or hit
+    float* s_mt = reinterpret_cast<float*>(s_cnt + 32);
+    int* s_mi = reinterpret_cast<int*>(s_mt + rows * WPM);
+    int* s_perm = s_mi + rows * WPM;         // [rpc]
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int b = blockIdx.x / CS;
+    const float* rb = rays + (size_t)b * 8 * BR;
+    const int* ord = order + (size_t)b * n_sc;
+    const float* sk = skeys + (size_t)b * n_sc;
+    // distributed shared memory is written only once every CTA of the
+    // cluster has started: arrive now, wait before the first remote store
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    order_live_first(rb, BR, rank * rpc, rpc, s_cnt, s_perm);
+
+    // warp (mt, wn): the wn-th of M tile mt's warps; lane (g, tig) holds
+    // rows mt * 16 + g + 8 h, h = 0, 1, and their A pieces in column tig
+    const int mt = warp / WPM, wn = warp % WPM;
+    const int g = lane >> 2, tig = lane & 3;
+    int ray[2];
+    float tm[2], tm_eff[2];
+    bool live[2];
+    uint32_t a[2][3][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + g + 8 * h;
+        float ov = 0.0f, dv = 0.0f;
+        ray[h] = -1;
+        tm[h] = -1.0f;
+        tm_eff[h] = -CGE_FLT_MAX;
+        if (row < rpc) {
+            const int r = rank * rpc + s_perm[row];
+            ray[h] = r;
+            ov = tig < 3 ? rb[tig * BR + r] : -1.0f;
+            dv = tig < 3 ? rb[(3 + tig) * BR + r] : 0.0f;
+            tm[h] = rb[6 * BR + r];
+            tm_eff[h] = jmin(tm[h], rb[7 * BR + r]);
+        }
+        live[h] = tm[h] >= 0.0f;
+        uint32_t po[3], pd[3];
+        tf32_split3(ov, po);
+        tf32_split3(dv, pd);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            a[0][p][h] = po[p];
+            a[1][p][h] = pd[p];
+        }
+    }
+
+    float bt[2] = {INFINITY, INFINITY};
+    int bi[2] = {-1, -1};
+    // first-key guard: an all-dead or no-overlap block makes zero visits
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    push_partial<CS, false>(jmax(live[0] ? tm_eff[0] : -INFINITY,
+                                 live[1] ? tm_eff[1] : -INFINITY),
+                            0, s_red, s_part, s_vote, 0, rank);
+    bool stop = past(sk[0], wait_max<CS>(s_part, 0));
+    int parity = 1;
+    // visit `step` is tested while the stop after visit step - 1 is still
+    // being reduced (pending), and committed once that stop is false
+    bool pending = false;
+    float key = 0.0f;                        // sk[step] for the pending stop
+    int step = 0, k = 0;
+    int sc = stop ? 0 : ord[0];
+    int next_sc = !stop && n_sc > 1 ? ord[1] : 0;
+    if (!stop)
+        issue_tile(s_q, tiles, sc * sc_n, C, 0);
+    while (!stop) {
+        const int after_sc = step + 2 < n_sc ? ord[step + 2] : 0;
+        const float next_key = sk[step + 1 < n_sc ? step + 1 : n_sc - 1];
+        // dead rays accept nothing, a done any-hit ray stays done; a warp
+        // whose 16 rows are all inactive skips the contraction
+        bool active[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            active[h] = live[h] && !(any_hit && bi[h] == 1);
+        const bool warp_active =
+            __any_sync(FULL_MASK, active[0] || active[1]);
+        // the visit's candidates: a lane's slots and members rise, so
+        // t <= vt keeps the largest flat id among equal t
+        float vt[2] = {INFINITY, INFINITY};
+        int vi[2] = {-1, -1};
+        bool vh[2] = {false, false};
+        for (int m = 0; m < sc_n; ++m, ++k) {
+            const int cl = sc * sc_n + m;
+            // the member whose tile is fetched next, -1 after the last visit
+            const int ncl = m + 1 < sc_n ? cl + 1
+                          : step + 1 < n_sc ? next_sc * sc_n : -1;
+            cp_async_wait<0>();
+            __syncthreads();         // tile k has landed; tile k - 1 is used up
+            if (ncl >= 0)
+                issue_tile(s_q + ((k + 1) & 1) * 16 * C, tiles, ncl, C, 0);
+            float* q = s_q + (k & 1) * 16 * C;
+            if (PRESPLIT) {
+                for (int i = tid; i < 16 * C; i += blockDim.x) {
+                    uint32_t p[3];
+                    tf32_split3(q[i], p);
+                    q[i] = __uint_as_float(p[0]);
+                    s_pc[i] = __uint_as_float(p[1]);
+                    s_pc[16 * C + i] = __uint_as_float(p[2]);
+                }
+                __syncthreads();
+            }
+            if (warp_active)
+                test_tile_mxu<WPM, PRESPLIT>(q, s_pc, C, wn, g, tig, a, tm,
+                                             cl * C, any_hit, vt, vi, vh);
+        }
+        // each row's candidate over its four lanes, then over the M tile's
+        // warps: the smallest t, the largest id on a tie
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+                const float ot = __shfl_xor_sync(FULL_MASK, vt[h], off);
+                const int oi = __shfl_xor_sync(FULL_MASK, vi[h], off);
+                if (ot < vt[h] || (ot == vt[h] && oi > vi[h])) {
+                    vt[h] = ot;
+                    vi[h] = oi;
+                }
+                vh[h] = __shfl_xor_sync(FULL_MASK, (int)vh[h], off) || vh[h];
+            }
+        if (WPM > 1) {
+            if (tig == 0) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int s = (mt * WPM + wn) * 16 + g + 8 * h;
+                    s_mt[s] = vt[h];
+                    s_mi[s] = any_hit ? (int)vh[h] : vi[h];
+                }
+            }
+            __syncthreads();
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                for (int w = 0; w < WPM; ++w) {
+                    const int s = (mt * WPM + w) * 16 + g + 8 * h;
+                    const float ot = s_mt[s];
+                    const int oi = s_mi[s];
+                    if (any_hit)
+                        vh[h] = vh[h] || oi != 0;
+                    else if (ot < vt[h] || (ot == vt[h] && oi > vi[h])) {
+                        vt[h] = ot;
+                        vi[h] = oi;
+                    }
+                }
+        }
+        if (pending) {
+            stop = past(key, wait_max<CS>(s_part, parity ^ 1));
+            if (stop)
+                break;               // visit `step` does not happen
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (!active[h])
+                continue;
+            if (any_hit) {
+                if (vh[h]) {
+                    bt[h] = CGE_DONE;
+                    bi[h] = 1;
+                }
+            } else if (vi[h] >= 0 && vt[h] <= bt[h]) {
+                bt[h] = vt[h];
+                bi[h] = vi[h];
+            }
+        }
+        ++step;
+        if (step >= n_sc)
+            break;
+        push_partial<CS, false>(
+            jmax(live[0] ? jmin(bt[0], tm_eff[0]) : -INFINITY,
+                 live[1] ? jmin(bt[1], tm_eff[1]) : -INFINITY),
+            0, s_red, s_part, s_vote, parity, rank);
+        parity ^= 1;
+        pending = true;
+        key = next_key;
+        sc = next_sc;
+        next_sc = after_sc;
+    }
+    cp_async_wait<0>();         // the next visit's tile may be in flight
+    if (wn == 0 && tig == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            if (ray[h] >= 0) {
+                best_t[(size_t)b * BR + ray[h]] = bt[h];
+                best_i[(size_t)b * BR + ray[h]] = bi[h];
+            }
+    }
+    if (rank == 0 && tid == 0) {
+        visits[b] = step;
+        dense[b] = step * sc_n;
+    }
+}
+
+template <int CS, int WPM, bool PRESPLIT>
+static int launch_mxu_walk(const int* order, const float* skeys,
+                           const float* rays, const float* tiles,
+                           float* best_t, int* best_i, int* visits,
+                           int* dense, int NB, int n_sc, int BR, int sc_n,
+                           int C, int any_hit, cudaStream_t stream) {
+    static_assert(CS <= SPLIT_MAX_CS, "mxu walk shape");
+    if (BR % CS || C % 8)
+        return (int)cudaErrorInvalidValue;
+    const int rpc = BR / CS, rows = (rpc + 15) / 16 * 16;
+    const int threads = rows / 16 * WPM * 32;
+    if (threads > MXU_MAX_THREADS)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        mxu_walk_smem_words(C, rpc, rows, WPM, PRESPLIT) * 4;
+    if (smem > CGE_MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
+    return launch_in_clusters(cluster_walk_mxu_kernel<CS, WPM, PRESPLIT>,
+                              NB * CS, threads, smem, CS, stream, order,
+                              skeys, rays, tiles, best_t, best_i, visits,
+                              dense, n_sc, BR, sc_n, C, any_hit);
 }
 
 // ---------------------------------------------------------------------------
@@ -1006,30 +1176,35 @@ extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
     return (int)cudaGetLastError();
 }
 
-// The mxu walk: one block of BR threads per ray block, the quantity-major
-// tiles [Lp, 4C, 8].
+// The mxu walk on the triangle layout's tiles [Lp, C, 16], 16-byte aligned:
+// (cs, wpm, presplit) picks CTAs per cluster, warps per 16-ray M tile and
+// whether each landed tile is split into TF32 pieces once (or each B
+// element as it is loaded) among the compiled shapes.
 extern "C" int cge_cluster_walk_mxu(const int* order, const float* skeys,
                                     const float* rays, const float* tiles,
                                     float* best_t, int* best_i, int* visits,
                                     int* dense, int NB, int n_sc, int BR,
-                                    int sc_n, int C, int any_hit,
-                                    void* stream) {
+                                    int sc_n, int C, int any_hit, int cs,
+                                    int wpm, int presplit, void* stream) {
     if (NB == 0)
         return 0;
-    const size_t smem = mxu_walk_smem_floats(C, BR) * sizeof(float);
-    if (smem > CGE_MAX_SMEM || BR > MXU_MAX_BR || C % 16)
-        return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            cluster_walk_mxu_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess)
-            return (int)e;
-    }
-    cluster_walk_mxu_kernel<<<NB, BR, smem, (cudaStream_t)stream>>>(
-        order, skeys, rays, tiles, best_t, best_i, visits, dense, n_sc, sc_n,
-        C, any_hit);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+#define CGE_MXU_SHAPE(CS_, W_)                                              \
+    if (cs == CS_ && wpm == W_)                                             \
+        return presplit                                                     \
+            ? launch_mxu_walk<CS_, W_, true>(                               \
+                  order, skeys, rays, tiles, best_t, best_i, visits, dense, \
+                  NB, n_sc, BR, sc_n, C, any_hit, st)                       \
+            : launch_mxu_walk<CS_, W_, false>(                              \
+                  order, skeys, rays, tiles, best_t, best_i, visits, dense, \
+                  NB, n_sc, BR, sc_n, C, any_hit, st);
+    CGE_MXU_SHAPE(8, 1)
+    CGE_MXU_SHAPE(8, 2)
+    CGE_MXU_SHAPE(8, 4)
+    CGE_MXU_SHAPE(4, 1)
+    CGE_MXU_SHAPE(4, 2)
+#undef CGE_MXU_SHAPE
+    return (int)cudaErrorInvalidValue;
 }
 
 // The default and refine walks: (cs, lanes) picks CTAs per cluster and

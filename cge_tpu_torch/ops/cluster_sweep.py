@@ -20,10 +20,12 @@ into superclusters of `sc_n` consecutive clusters. One sweep runs:
      (triangle layout only).
 
 K1 and K2 are CUDA kernels (csrc/cluster_sweep.cu). K1 runs a block of
-128 threads per (ray block, 128 boxes) over the block's live rays. K2's default walk and its refine_members mode run
-each ray block as a thread block cluster (split_shape: CTAs per block,
-lanes per ray) with the stop pipelined one visit ahead; the mxu mode runs
-one block of one thread per ray. Beside each stands its
+128 threads per (ray block, 128 boxes) over the block's live rays. K2 runs
+each ray block as a thread block cluster with the stop pipelined one visit
+ahead: the default walk and its refine_members mode with lanes splitting
+each tile's slots (split_shape: CTAs per block, lanes per ray), the mxu
+mode with 16-ray M tiles of warps on the tensor cores (mxu_shape: CTAs per
+block, warps per M tile, where the tile is split). Beside each stands its
 plain PyTorch twin (`block_entry_keys_plain`, `cluster_walk_plain`) with the
 same visit order, stop bound, sentinels and tie rules. A wrapper runs the
 twin for a tensor on the CPU and launches the kernel for a CUDA tensor;
@@ -55,8 +57,6 @@ FLT_MAX = 3.4028234663852886e38
 FLT_MIN = 1.1754943508222875e-38
 DONE = -3.0e38                  # any-hit sentinel
 LAYOUTS = ("triangle", "field")
-# the mxu walk's block size limit (csrc/cluster_sweep.cu's MXU_MAX_BR)
-MXU_MAX_BR = 512
 # The default and refine walks' thread block clusters: (CTAs per ray
 # block, lanes per ray), csrc/cluster_sweep.cu's compiled shapes in order
 # of preference. A CTA runs BR / CTAs * lanes threads, at most
@@ -66,6 +66,17 @@ MXU_MAX_BR = 512
 # --shapes); 8 x 8 takes the blocks of 1024 rays.
 SPLIT_SHAPES = ((8, 16), (8, 8))
 SPLIT_MAX_THREADS = 1024
+# The mxu walk's compiled shapes: (CTAs per ray block, warps per 16-ray M
+# tile, 1 if each landed tile is split into TF32 pieces once, 0 if each
+# lane splits its B elements as it loads them). A CTA runs ceil(BR / CTAs
+# / 16) * warps * 32 threads, at most MXU_MAX_THREADS. MXU_SHAPES: the
+# ones mxu_shape picks from, in order of preference; MXU_VARIANTS: every
+# compiled one (tools/kernel_bench.py --shapes).
+MXU_VARIANTS = tuple((cs, w, split) for cs, w in ((8, 1), (8, 2), (8, 4),
+                                                  (4, 1), (4, 2))
+                     for split in (0, 1))
+MXU_SHAPES = ((8, 2, 0), (8, 1, 0))
+MXU_MAX_THREADS = 512
 
 # b_i = 1 kills every edge test of a pad triangle
 _INVALID_ROW = [0.0] * 4 + [0.0, 0.0, 0.0, 1.0] * 3
@@ -352,9 +363,10 @@ def walk_mode(layout: str, refine_members: bool = False,
 
 def mxu_tiles(tiles):
     """Quantity-major repack of a triangle-major stack [Lp, C, 16] for the
-    mxu walk (cluster_sweep.py:641-643): [Lp, 4C, 8], rows [0:C] = (n, D),
-    [C:2C] = (m0, b0), [2C:3C] = (m1, b1), [3C:4C] = (m2, b2), each row
-    zero-padded from 4 to 8 columns."""
+    mxu twin, as the JAX package packs it (cluster_sweep.py:641-643): [Lp,
+    4C, 8], rows [0:C] = (n, D), [C:2C] = (m0, b0), [2C:3C] = (m1, b1),
+    [3C:4C] = (m2, b2), each row zero-padded from 4 to 8 columns. The CUDA
+    walk reads the stack as it is: its tile copies give the same order."""
     Lp, C, _ = tiles.shape
     q = tiles.reshape(Lp, C, 4, 4).transpose(1, 2).reshape(Lp, 4 * C, 4)
     return torch.nn.functional.pad(q, (0, 4)).contiguous()
@@ -510,19 +522,36 @@ def split_shape(br: int) -> tuple[int, int]:
     raise ValueError(f"no split walk shape fits blocks of {br} rays")
 
 
+def mxu_threads(br: int, shape) -> int:
+    """Threads of an mxu walk CTA: its BR / CTAs rays in 16-ray M tiles,
+    each of `warps` warps."""
+    n_cta, warps = shape[0], shape[1]
+    return -(-(br // n_cta) // 16) * warps * 32
+
+
+def mxu_shape(br: int) -> tuple[int, int, int]:
+    """The mxu walk's (CTAs per cluster, warps per M tile, split once)
+    for blocks of br rays: the first of MXU_SHAPES whose CTAs fit."""
+    for shape in MXU_SHAPES:
+        if br % shape[0] == 0 and mxu_threads(br, shape) <= MXU_MAX_THREADS:
+            return shape
+    raise ValueError(f"no mxu walk shape fits blocks of {br} rays")
+
+
 def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
                  any_hit: bool = False, shared_origin: bool = False,
                  aabbs=None, refine_members: bool = False, mxu: bool = False,
-                 _shape: tuple[int, int] | None = None):
+                 _shape: tuple[int, ...] | None = None):
     """K2: the ordered cluster walk. order [NB, n_sc] i32 and skeys [NB,
     n_sc] f32 (each block's sorted keys), rays [NB, 8, BR], tiles [Lp, C,
     16] or [Lp, 16, C] with Lp = n_sc * sc_n, aabbs [Lp, 8] (needed by
     refine_members). Returns (best_t [NB, BR], best_i [NB, BR] i32, visits
-    [NB] i32, dense tiles run [NB] i32). The mode follows walk_mode; the
-    default and refine walks launch a thread block cluster per ray block
-    (split_shape), the mxu mode one block per ray block and needs C a
-    multiple of 16 and BR <= MXU_MAX_BR. _shape forces one of SPLIT_SHAPES
-    on the default and refine walks (tools/kernel_bench.py --shapes)."""
+    [NB] i32, dense tiles run [NB] i32). The mode follows walk_mode; each
+    launches a thread block cluster per ray block, in split_shape's shape
+    for the default and refine walks and in mxu_shape's for the mxu mode,
+    which needs C a multiple of 8. _shape forces one of SPLIT_SHAPES on the
+    default and refine walks, one of MXU_VARIANTS on the mxu mode
+    (tools/kernel_bench.py --shapes)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     kw = dict(layout=layout, sc_n=sc_n, any_hit=any_hit,
@@ -555,11 +584,12 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
         if tuple(aabbs.shape) != (tiles.shape[0], 8):
             raise ValueError(f"aabbs must be [{tiles.shape[0]}, 8], got "
                              f"{tuple(aabbs.shape)}")
-    if mode == "mxu":
-        if C % 16 or BR > MXU_MAX_BR:
-            raise ValueError(f"the mxu walk needs C a multiple of 16 and BR "
-                             f"<= {MXU_MAX_BR}, got C {C}, BR {BR}")
-        tiles = mxu_tiles(tiles)
+    if mode == "mxu" and C % 8:
+        raise ValueError(f"the mxu walk needs C a multiple of 8, got {C}")
+    refine = mode == "refine"
+    if tiles.data_ptr() % 16 or (refine and aabbs.data_ptr() % 16):
+        raise ValueError("cluster_walk: the tile stack and the member boxes "
+                         "must be 16-byte aligned")
     best_t = torch.empty((NB, BR), dtype=torch.float32, device=dev)
     best_i = torch.empty((NB, BR), dtype=torch.int32, device=dev)
     visits = torch.empty(NB, dtype=torch.int32, device=dev)
@@ -569,15 +599,12 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
     outs = (best_t.data_ptr(), best_i.data_ptr(), visits.data_ptr(),
             dense.data_ptr())
     if mode == "mxu":
+        n_cta, warps, split = _shape or mxu_shape(BR)
         lib.check(lib.cge_cluster_walk_mxu(
             order.data_ptr(), skeys.data_ptr(), rays.data_ptr(),
             tiles.data_ptr(), *outs, NB, n_sc, BR, sc_n, C, int(any_hit),
-            stream), "cge_cluster_walk_mxu")
+            n_cta, warps, split, stream), "cge_cluster_walk_mxu")
     else:
-        refine = mode == "refine"
-        if tiles.data_ptr() % 16 or (refine and aabbs.data_ptr() % 16):
-            raise ValueError("cluster_walk: the tile stack and the member "
-                             "boxes must be 16-byte aligned")
         cs, lanes = _shape or split_shape(BR)
         lib.check(lib.cge_cluster_walk_split(
             order.data_ptr(), skeys.data_ptr(), rays.data_ptr(),

@@ -9,11 +9,14 @@
                  render's trace_chunk sweep (tools/tune_mxu.py);
   stream_layout  streaming bandwidth of the tile layouts through K4
                  (tools/exp_dma_layout.py);
-  kernel_bench   K1, K2 and K3 on the main path's batches against their
-                 twins, with their bounds, and every compiled shape;
+  kernel_bench   K1, K2 (its default walk and mxu mode) and K3 on the main
+                 path's batches against their twins, with their bounds,
+                 and every compiled shape;
   sass_count     K1's inner loops counted by instruction kind from the
                  built library's SASS (the card's machine only).
 
 All but sass_count take `--device cpu` and small sizes for a run on the
-plain twins, which reports no times.
+plain twins, which reports no times. Beside them, roofline.py holds the
+bounds and op_diff.py finds the first op at which two runs of the same
+code (the card and the CPU twins) part.
 """

@@ -1,18 +1,23 @@
-"""K1, K2's default walk and K3 on the main path's batches, each against
-its plain twin, timed beside the twin and its bound; chip_smoke.py phases 2
-and 5 report these rows. Beside K1 stands the rest of the key pass: the
-stable torch.sort of each block's keys and the cast of the order to int32
-(cluster_sweep.sort_keys). --shapes also times K2 in every compiled split
-shape (CTAs per cluster, lanes per ray) and K3 under three split rules.
+"""K1, K2's default walk, K2's tensor-core mxu mode and K3 on the main
+path's batches, each against its plain twin, timed beside the twin and its
+bound; chip_smoke.py phases 2, 5 and 8 report these rows. Beside K1 stands
+the rest of the key pass: the stable torch.sort of each block's keys and
+the cast of the order to int32 (cluster_sweep.sort_keys). --shapes also
+times K2 in every compiled split shape (CTAs per cluster, lanes per ray),
+the mxu mode in every compiled variant (CTAs per cluster, warps per M
+tile, where the tile is split) and K3 under three split rules.
 
 K1 and K2 run on the dragon stand-in (614,400 triangles, field-major tiles)
 with the 16,384-ray batches of the 512x512 frame's middle chunk, the main
 path's trace_chunk: primary rays with a shared origin, a bounce-like batch
 (scattered directions from the hits, a dead third), any-hit shadow rays
-toward them, and the first two again at 4 clusters per visit. K3 runs on
-the stand-in at teapot size (15,360 triangles) with its primary,
-bounce-like and shadow batches. K1's keys, K2's t, ids, visits and
-dense tiles and K3's t and ids equal the twins' bit for bit. Times are
+toward them, and the first two again at 4 clusters per visit. The mxu mode
+(triangle layout only) and K3 run on the stand-in at teapot size (15,360
+triangles) with its primary, bounce-like and shadow batches. K1's keys,
+K2's t, ids, visits and dense tiles and K3's t and ids equal the twins'
+bit for bit; the mxu mode agrees with its twin and with the default walk
+within MXU_TOL, at 512 rays a block and, on primary rays, at
+MXU_CHECK_BRS. Times are
 CUDA events (tools/common.py device_ms); bounds and
 shares come from tools/roofline.py.
 
@@ -39,6 +44,13 @@ from cge_tpu_torch.tools import common, roofline
 SEED = 0
 # K3's split rules of --shapes: (tiles per split, most splits)
 SPLIT_RULES = ((1, 128), (2, 64), (4, 32))
+# the mxu mode against its twin (torch.matmul, TF32 off) or the default
+# walk: the two-dot form on 3-piece TF32 products rounds differently, so a
+# grazing ray may flip
+MXU_TOL = dict(hit_frac=0.9999, id_frac=0.9999, t_rel=1e-5)
+# the other block sizes the mxu rows check on primary rays: those the split
+# walk's shapes take besides the default 512
+MXU_CHECK_BRS = (128, 1024)
 
 
 def _middle_chunk(res: int, n: int, dev):
@@ -194,6 +206,140 @@ def walk_line(row, earlier=None) -> str:
             f"{timed(row['ms'], row['plain_ms'], row['bound'])}{ref}")
 
 
+def mxu_agreement(got, want, any_hit: bool):
+    """(hit fraction, id fraction over rays that hit on both sides, max
+    |dt| / max(1, t) over rays with equal ids, max |dt| there)."""
+    t, i = got[0].reshape(-1), got[1].reshape(-1)
+    tw, iw = want[0].reshape(-1), want[1].reshape(-1)
+    h = (i > 0) if any_hit else torch.isfinite(t)
+    hw = (iw > 0) if any_hit else torch.isfinite(tw)
+    hit_frac = float((h == hw).float().mean())
+    if any_hit:
+        return hit_frac, 1.0, 0.0, 0.0
+    both = h & hw
+    same = both & (i == iw)
+    id_frac = float(same.sum()) / max(1, int(both.sum()))
+    if not same.any():
+        return hit_frac, id_frac, 0.0, 0.0
+    err = (t - tw).abs()[same]
+    rel = float((err / tw.abs()[same].clamp_min(1.0)).max())
+    return hit_frac, id_frac, rel, float(err.max())
+
+
+def check_mxu(got, want, any_hit: bool, what: str) -> tuple:
+    """mxu_agreement of got against want; raises outside MXU_TOL."""
+    agree = mxu_agreement(got, want, any_hit)
+    hit, idf, rel, _ = agree
+    if (hit < MXU_TOL["hit_frac"] or idf < MXU_TOL["id_frac"]
+            or rel > MXU_TOL["t_rel"]):
+        raise AssertionError(f"{what}: hits {hit:.6f} ids {idf:.6f} max "
+                             f"|dt|/max(1,t) {rel:.3g} outside {MXU_TOL}")
+    return agree
+
+
+def _mxu_call(o, d, tmax, accel, any_hit: bool, br: int):
+    """K2's arguments for one batch on the triangle-layout accel, one
+    cluster a visit, with K1's keys sorted."""
+    inp = cs.sweep_setup(o, d, tmax, accel.aabbs, accel.tiles, accel.layout,
+                         br, 1)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    return ((order, skeys, inp.rays, inp.tiles),
+            dict(layout=accel.layout, sc_n=1, any_hit=any_hit))
+
+
+def mxu_rows(scene, dev, res: int = 512, n: int = 16384, reps: int = 5,
+             shapes: bool = False) -> list:
+    """One row per primary, bounce-like and shadow batch of walk_batches on
+    the scene's triangle-layout accel, the secondary rays 1e-3 off the
+    surface (as the renderer's offsets put them: a ray that starts on a
+    surface meets it at t ~ 0, where the t >= 0 test flips under any change
+    of rounding): the default walk equal to its twin, the mxu mode within
+    MXU_TOL of its twin and of the default walk, the primary batch also at
+    MXU_CHECK_BRS rays a block; the mxu mode's time beside the default
+    walk's and its twin's, and its bound; with shapes, its time in every
+    compiled variant that fits, each equal to the default shape's result."""
+    accel = build_accel(scene, "triangle")
+    batches = walk_batches(scene, accel, dev, res, n, pullback=1e-3)
+    rows = []
+    for name in ("a_primary", "b_bounce", "c_shadow"):
+        o, d, tmax, _, any_hit, _ = batches[name]
+        call, kw = _mxu_call(o, d, tmax, accel, any_hit, cs.DEFAULT_BR)
+        base = cs.cluster_walk(*call, **kw)
+        check_equal(base, cs.cluster_walk_plain(*call, **kw), f"K2 {name}")
+        got = cs.cluster_walk(*call, mxu=True, **kw)
+        twin = cs.cluster_walk_plain(*call, mxu=True, **kw)
+        agree = {"twin": check_mxu(got, twin, any_hit, f"mxu {name} vs twin"),
+                 "default walk": check_mxu(got, base, any_hit,
+                                           f"mxu {name} vs the default walk")}
+        row = dict(
+            name=name, rays=o.shape[0], blocks=call[2].shape[0],
+            live=int((tmax >= 0).sum()),
+            hits=int(((got[1] == 1) if any_hit else (got[1] >= 0)).sum()),
+            visits_mean=float(got[2].float().mean()),
+            visits_max=int(got[2].max()), agree=agree,
+            err=agree["twin"][3],
+            ms=common.device_ms(lambda: cs.cluster_walk(*call, mxu=True, **kw),
+                                dev, reps),
+            walk_ms=common.device_ms(lambda: cs.cluster_walk(*call, **kw), dev,
+                                     reps),
+            plain_ms=common.device_ms(lambda: cs.cluster_walk_plain(
+                *call, mxu=True, **kw), dev, 1),
+            bound=roofline.walk_bound(call[0], call[2], call[3], got, mxu=True,
+                                      **kw))
+        if name == "a_primary":
+            row["brs"] = []
+            for br in MXU_CHECK_BRS:
+                c, k = _mxu_call(o, d, tmax, accel, any_hit, br)
+                row["brs"].append((br, check_mxu(
+                    cs.cluster_walk(*c, mxu=True, **k),
+                    cs.cluster_walk_plain(*c, mxu=True, **k), any_hit,
+                    f"mxu {name} at {br} rays a block vs twin")))
+        if shapes:
+            row["shapes"] = mxu_shapes(call, kw, got, dev, reps)
+        rows.append(row)
+    return rows
+
+
+def mxu_shapes(call, kw, got, dev, reps: int) -> list:
+    """(label, ms) of the mxu mode in every compiled variant that fits the
+    block size; each equal to got."""
+    out = []
+    br = call[2].shape[2]
+    for shape in cs.MXU_VARIANTS:
+        if br % shape[0] or cs.mxu_threads(br, shape) > cs.MXU_MAX_THREADS:
+            continue
+        check_equal(cs.cluster_walk(*call, mxu=True, _shape=shape, **kw), got,
+                    f"K2 mxu variant {shape}")
+        warps = f"{shape[1]} warp{'s' if shape[1] > 1 else ''}"
+        out.append((f"K2 mxu {shape[0]} CTAs x {warps} an M tile, "
+                    f"{'split once' if shape[2] else 'split on load'}",
+                    common.device_ms(lambda: cs.cluster_walk(
+                        *call, mxu=True, _shape=shape, **kw), dev, reps)))
+    return out
+
+
+def mxu_line(row, earlier=None) -> str:
+    """An mxu row as lines; earlier: the mode's time in an earlier
+    design."""
+    ref = "" if earlier is None else f" | earlier {earlier} ms"
+    ratio = ("not measured" if row["ms"] is None
+             else f"{row['ms'] / row['walk_ms']:.2f}")
+    agree = " | ".join(
+        f"vs {k}: hits {h:.6f} ids {i:.6f} max |dt|/max(1,t) {r:.3g}"
+        for k, (h, i, r, _) in row["agree"].items())
+    lines = [f"K2 mxu {row['name']}: rays {row['rays']} blocks "
+             f"{row['blocks']} live {row['live']} hits {row['hits']} visits "
+             f"mean {row['visits_mean']:.2f} max {row['visits_max']} | "
+             f"{agree}",
+             f"    K2 mxu {timed(row['ms'], row['plain_ms'], row['bound'])} "
+             f"| default walk {common.fmt_ms(row['walk_ms'])}, mxu / default "
+             f"{ratio}{ref}"]
+    for br, (h, i, r, _) in row.get("brs", ()):
+        lines.append(f"    at {br} rays a block, vs twin: hits {h:.6f} ids "
+                     f"{i:.6f} max |dt|/max(1,t) {r:.3g}")
+    return "\n".join(lines)
+
+
 def sweep_rows(table, dev, res: int = 512, n: int = 16384, reps: int = 5,
                shapes: bool = False) -> list:
     """One row per batch of brute_batches: K3 against its twin, its time,
@@ -263,8 +409,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=16384,
                     help="rays a batch (the main path's trace_chunk)")
     ap.add_argument("--shapes", action="store_true",
-                    help="also time K2 in every split shape, K3 under each "
-                         "split rule")
+                    help="also time K2 in every split shape, its mxu mode "
+                         "in every variant, K3 under each split rule")
     args = ap.parse_args(argv)
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)
@@ -272,6 +418,8 @@ def main(argv=None) -> int:
     print_rows(walk_rows(scene, build_accel(scene), dev, args.res, args.rays,
                          args.reps, args.shapes), walk_line)
     tscene = common.standin_scene(tuple(args.standin), dev)
+    print_rows(mxu_rows(tscene, dev, args.res, args.rays, args.reps,
+                        args.shapes), mxu_line)
     table = sweep.pack_tri_table(tscene.vertices, tscene.tris,
                                  tscene.tri_mask)
     print_rows(sweep_rows(table, dev, args.res, args.rays, args.reps,

@@ -40,10 +40,11 @@ exits non-zero if any phase fails:
      the split walk) on the dragon at 2 clusters per visit (field layout)
      and on the 15,360-triangle stand-in (triangle layout), closest and
      any-hit, bit for bit and against the walk without refine, with the
-     dense tiles it skipped; the tensor-core mxu mode (the one-thread-per-
-     ray kernel) on the stand-in against its twin
-     and the default walk, within MXU_TOL; the times of every mode and
-     twin;
+     dense tiles it skipped; the tensor-core mxu mode (in the cluster
+     walk) on the stand-in through kernel_bench's mxu rows, against its
+     twin and the default walk within kernel_bench.MXU_TOL, at 512 rays a
+     block and on primary rays at 128 and 1024; the times of every mode
+     and twin, and the mxu mode's ratio to the default walk;
   9. the fourth path, kernel tuning: each tool of cge_tpu_torch.tools at
      a quick size (kernel_bench with --shapes: K2 in every split shape,
      K3 under each split rule), then a 512x512
@@ -62,6 +63,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -92,9 +94,6 @@ SEED = 0
 # the knobs of the tuning path's render: frustum keys and ray sorting
 ALL_KNOBS = dict(sweep_exact_keys=False, sweep_anyhit_exact_keys=False,
                  sweep_sort_bounce=True, sweep_sort_shadow=True)
-# mxu against its twin or the default walk: the two-dot form on 3xTF32
-# products rounds differently, so a grazing ray may flip
-MXU_TOL = dict(hit_frac=0.9999, id_frac=0.9999, t_rel=1e-5)
 # each kernel's time in its earlier design, before K1, K2's default and
 # refine walks and K3 were redesigned (PERF.md's kernel table; NVIDIA H100
 # 80GB HBM3, 700 W): K1, K2, K3 on phase 2's and 5's primary batches,
@@ -368,12 +367,111 @@ def train_path(scene, device):
     return ms
 
 
+def table_report(card, cpu) -> list:
+    """The tables the small train step reads, built on the card and on
+    the CPU, compared bit for bit (NaN equal to NaN): (name, differing
+    elements, those that differ only in the sign of a zero, max |card -
+    CPU|) for the scene's leaves, K3's triangle table, the accel's boxes
+    and tiles in both layouts and the attribute rows."""
+    import torch
+
+    from cge_tpu_torch.ops.intersect import build_accel
+    from cge_tpu_torch.ops.sweep import pack_tri_table
+    from cge_tpu_torch.render.wavefront import pack_attr_table
+    from cge_tpu_torch.tools import op_diff
+
+    def tables(s):
+        out = {k: getattr(s, k) for k in ("vertices", "normals", "tris",
+                                          "mat_kd", "mat_ks", "point_pos")}
+        out["tri_table"] = pack_tri_table(s.vertices, s.tris, s.tri_mask)
+        for layout in ("triangle", "field"):
+            acc = build_accel(s, layout)
+            out[f"aabbs ({layout})"] = acc.aabbs
+            out[f"tiles ({layout})"] = acc.tiles
+        out["attribute rows"] = pack_attr_table(s)
+        return out
+
+    a, b = tables(card), tables(cpu)
+    rows = []
+    for k in a:
+        x, y = a[k].cpu(), b[k]
+        differ = op_diff._differ(x, y)
+        zeros = differ & (x == y)                 # +0 against -0
+        gap = (x.double() - y.double()).abs()[differ & ~zeros]
+        gap = gap[torch.isfinite(gap)]
+        rows.append((k, int(differ.sum()), int(zeros.sum()),
+                     float(gap.max()) if gap.numel() else 0.0))
+    return rows
+
+
+def pack_divergence(card, cpu) -> None:
+    """K3's triangle table packed on the card and on the CPU with every op
+    recorded: the first ops at which the two part."""
+    import torch
+
+    from cge_tpu_torch.ops.sweep import pack_tri_table
+    from cge_tpu_torch.tools import op_diff
+
+    runs = []
+    for s in (card, cpu):
+        with torch.no_grad(), op_diff.Recorder() as rec:
+            pack_tri_table(s.vertices, s.tris, s.tri_mask)
+        runs.append(rec.entries)
+    log(f"    K3's table, first ops where card and CPU part: "
+        f"{_show_partings(itertools.islice(op_diff.partings(*runs), 4))}")
+
+
+def _show_partings(parts) -> str:
+    return "; ".join(f"#{i} {name} ({n} elements, card/CPU {vals})"
+                     for i, name, n, vals in parts) or "none"
+
+
+def train_divergence(card, cpu, o, d, feats, params) -> list:
+    """The small train step's forward trace on the card and on the CPU
+    twins with every op recorded (cge_tpu_torch/tools/op_diff.py): the
+    rays whose K3 ids differ in each sweep call, the first ops at which the
+    runs part, and the first ops at which one ray whose ids differ parts.
+    Returns the per-call counts."""
+    import torch
+
+    from cge_tpu_torch.ops import sweep
+    from cge_tpu_torch.render.wavefront import trace
+    from cge_tpu_torch.tools import op_diff
+
+    runs = []
+    for s in (card, cpu):
+        so, sd = o.to(s.vertices.device), d.to(s.vertices.device)
+        with torch.no_grad(), op_diff.Recorder(
+                pause=[(sweep, "closest_tris")]) as rec:
+            trace(s, so, sd, feats, params)
+        runs.append(rec.entries)
+    a, b = runs
+    counts, ray = [], None
+    for (_, ea), (_, eb) in zip(op_diff.named(a, "closest_tris"),
+                                op_diff.named(b, "closest_tris")):
+        differ = ea[1][1] != eb[1][1]
+        counts.append(int(differ.sum()))
+        if ray is None and differ.any():
+            ray = int(differ.nonzero()[0, 0])
+
+    log(f"    forward trace: {len(a)} / {len(b)} ops recorded (card / CPU); "
+        f"rays whose K3 ids differ, per sweep call: {counts}")
+    log(f"    first ops where card and CPU part: "
+        f"{_show_partings(itertools.islice(op_diff.partings(a, b), 4))}")
+    if ray is not None:
+        rparts = op_diff.partings(a, b, row=ray, rows=o.shape[0])
+        log(f"    ray {ray} (its ids differ): first ops where it parts: "
+            f"{_show_partings(itertools.islice(rparts, 6))}")
+    return counts
+
+
 def small_train_check(device, tmp):
     """The same step on the card and on the CPU twins for the 41x32
-    stand-in at 64x64 rays: loss to 1e-3 relative, each gradient within
-    1e-2 of its norm (the card sums in another order, with atomics in the
-    gathers' backward, and a ray that grazes an edge may land on either
-    side)."""
+    stand-in at 64x64 rays. First the tables both build (table_report) and
+    where their forward traces part (train_divergence); then the loss to
+    1e-3 relative, each gradient within 1e-2 of its norm (the card sums in
+    another order, with atomics in the gathers' backward, and a ray that
+    grazes an edge may land on either side)."""
     import numpy as np
     import torch
 
@@ -388,10 +486,18 @@ def small_train_check(device, tmp):
     target = torch.from_numpy(
         rng.uniform(0.0, 0.5, (64 * 64, 3)).astype(np.float32))
     o, d = camera_rays(64, "cpu")      # both sides trace the same rays
+    scenes = [ct.load_scene_from_file(path, [ct.PointLight(*LIGHT)],
+                                      device=dev)
+              for dev in (device, torch.device("cpu"))]
+    log("    small train step, tables built on the card vs the CPU: "
+        + ", ".join(f"{k} equal" if n == 0 else
+                    f"{k} {n} differ ({z} only in a zero's sign, max |gap| "
+                    f"{gap:.3g})" for k, n, z, gap in table_report(*scenes)))
+    pack_divergence(*scenes)
+    train_divergence(*scenes, o, d, feats, params)
     out = []
-    for dev in (device, torch.device("cpu")):
-        s = ct.load_scene_from_file(path, [ct.PointLight(*LIGHT)],
-                                    device=dev)
+    for s in scenes:
+        dev = s.vertices.device
         loss, g = ct.loss_and_grads(s, o.to(dev), d.to(dev), target.to(dev),
                                     feats, params)
         out.append((float(loss), {k: v.cpu() for k, v in g.items()}))
@@ -409,13 +515,12 @@ def small_train_check(device, tmp):
 # phase 8: K2's opt-in modes against their twins
 # ---------------------------------------------------------------------------
 
-def _mode_batches(scene, accel, device, pullback: float = 0.0):
+def _mode_batches(scene, accel, device):
     """(o, d, tmax, any-hit) of the primary, bounce-like and shadow batches
     of kernel_bench.walk_batches for this scene and accel."""
     from cge_tpu_torch.tools import kernel_bench
 
-    batches = kernel_bench.walk_batches(scene, accel, device,
-                                        pullback=pullback)
+    batches = kernel_bench.walk_batches(scene, accel, device)
     return {k: (v[0], v[1], v[2], v[4]) for k, v in batches.items()
             if k in ("a_primary", "b_bounce", "c_shadow")}
 
@@ -490,69 +595,22 @@ def check_refine(scene, accel, device, sc_n: int, label: str, stats):
             stats.update(ms=t["refine"], plain_ms=t["twin"], bound=bound)
 
 
-def mxu_agreement(got, want, any_hit: bool):
-    """(hit fraction, id fraction over rays that hit on both sides, max
-    |dt| / max(1, t) over rays with equal ids, max |dt| there)."""
-    import torch
-
-    t, i = got[0].reshape(-1), got[1].reshape(-1)
-    tw, iw = want[0].reshape(-1), want[1].reshape(-1)
-    h = (i > 0) if any_hit else torch.isfinite(t)
-    hw = (iw > 0) if any_hit else torch.isfinite(tw)
-    hit_frac = float((h == hw).float().mean())
-    if any_hit:
-        return hit_frac, 1.0, 0.0, 0.0
-    both = h & hw
-    same = both & (i == iw)
-    id_frac = float(same.sum()) / max(1, int(both.sum()))
-    if not same.any():
-        return hit_frac, id_frac, 0.0, 0.0
-    err = (t - tw).abs()[same]
-    rel = float((err / tw.abs()[same].clamp_min(1.0)).max())
-    return hit_frac, id_frac, rel, float(err.max())
-
-
-def check_mxu(scene, accel, device, stats):
-    """The tensor-core mode on the card against its twin (torch.matmul,
-    TF32 off) and against the default walk, within MXU_TOL. The secondary
-    rays start or end 1e-3 off the surface, as the renderer's offsets and
-    the CPU fixtures put them: a ray that starts on a surface meets it at
-    t ~ 0, where the t >= 0 test flips under any change of rounding."""
-    from cge_tpu_torch.ops import cluster_sweep as cs
+def check_mxu(tscene, device, stats):
+    """The tensor-core mode on the stand-in through kernel_bench.mxu_rows:
+    against its twin (torch.matmul, TF32 off) and the default walk within
+    MXU_TOL on the primary, bounce-like and shadow batches, and against the
+    twin at kernel_bench.MXU_CHECK_BRS rays a block on primary rays; its
+    time, its ratio to the default walk's on the same batch, its bound."""
     from cge_tpu_torch.tools import kernel_bench
 
-    for name, batch in _mode_batches(scene, accel, device, 1e-3).items():
-        args, kw = _walk_inputs(batch, accel, 1)
-        any_hit = kw["any_hit"]
-        got = cs.cluster_walk(*args, mxu=True, **kw)
-        twin = cs.cluster_walk_plain(*args, mxu=True, **kw)
-        base = cs.cluster_walk(*args, **kw)
-        kernel_bench.check_equal(base, cs.cluster_walk_plain(*args, **kw),
-                                 f"stand-in {name}: K2")
-        rows = []
-        for other, ref in (("twin", twin), ("default walk", base)):
-            hit, idf, rel, err = mxu_agreement(got, ref, any_hit)
-            rows.append(f"vs {other}: hits {hit:.6f} ids {idf:.6f} "
-                        f"max |dt|/max(1,t) {rel:.3g}")
-            if (hit < MXU_TOL["hit_frac"] or idf < MXU_TOL["id_frac"]
-                    or rel > MXU_TOL["t_rel"]):
-                raise AssertionError(f"stand-in {name}: mxu disagrees with "
-                                     f"the {other}: {rows[-1]}")
-            if other == "twin":
-                stats["err"] = max(stats["err"], err)
-        t = dict(walk=cuda_ms(lambda: cs.cluster_walk(*args, **kw)),
-                 mxu=cuda_ms(lambda: cs.cluster_walk(*args, mxu=True, **kw)),
-                 twin=cuda_ms(lambda: cs.cluster_walk_plain(
-                     *args, mxu=True, **kw), reps=1))
-        bound = _walk_bound(args, kw, got, mxu=True)
-        earlier = (f", earlier {EARLIER_MS['walk_mxu']}"
-                   if name == "a_primary" else "")
-        log(f"  stand-in mxu {name}: {' | '.join(rows)} | ms K2 "
-            f"{t['walk']:.4f} mxu {t['mxu']:.4f} (twin {t['twin']:.3f}"
-            f"{earlier})"
-            f" {_bound_line(bound, t['mxu'])}")
-        if name == "a_primary":
-            stats.update(ms=t["mxu"], plain_ms=t["twin"], bound=bound)
+    for row in kernel_bench.mxu_rows(tscene, device):
+        first = row["name"] == "a_primary"
+        log("  " + kernel_bench.mxu_line(
+            row, EARLIER_MS["walk_mxu"] if first else None))
+        stats["err"] = max(stats["err"], row["err"])
+        if first:
+            stats.update(ms=row["ms"], plain_ms=row["plain_ms"],
+                         bound=row["bound"])
 
 
 def check_modes(scene, accel, tscene, device):
@@ -569,7 +627,7 @@ def check_modes(scene, accel, tscene, device):
     log(f"    refine: bit-equal everywhere, {refine['skipped']} dense tiles "
         f"skipped in all")
     mxu = {"err": 0.0}
-    check_mxu(tscene, taccel, device, mxu)
+    check_mxu(tscene, device, mxu)
     return {"refine": refine, "mxu": mxu}
 
 

@@ -249,6 +249,351 @@ def test_mxu_twin_matches_pallas_default(dragon, batches, stacks, which):
             <= 1e-5 * np.maximum(1.0, ref[0][same])).all()
 
 
+def tf32_rna(x):
+    """cvt.rna.tf32.f32 in integer bit operations: the f32's 13 low
+    mantissa bits rounded to nearest, ties away from zero. The sign bit
+    stands apart, so adding half a TF32 ulp to the bit pattern rounds the
+    magnitude; a carry into the exponent is the next binade's TF32 value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split3(x):
+    """x = p0 + p1 + p2 in TF32 pieces, as csrc/cluster_sweep.cu splits
+    every operand of the mxu walk's contraction."""
+    p0 = tf32_rna(x)
+    r = x - p0
+    p1 = tf32_rna(r)
+    return p0, p1, tf32_rna(r - p1)
+
+
+def test_tf32_three_pieces_reconstruct_f32():
+    """Three TF32 pieces hold every f32 of a seeded sample exactly (2^-100
+    <= |x| <= 2^100, the range where each piece is a normal number and no
+    rounding reaches past FLT_MAX, and +-0): the pieces' 13 low bits are
+    zero and p0 + p1 + p2 == x in float64. Two pieces (22 significant
+    bits, signed) miss a quarter of them, by up to 2^-22 relative: the
+    24-bit significand's last bits are lost."""
+    rng = np.random.default_rng(SEED)
+    n = 100_000
+    x = (rng.choice([-1.0, 1.0], n) * 2.0 ** rng.uniform(-100, 100, n)
+         * rng.uniform(1.0, 2.0, n)).astype(np.float32)
+    x = np.concatenate([x, np.float32([0.0, -0.0, 1.0, -1.0])])
+    pieces = tf32_split3(torch.from_numpy(x))
+    for p in pieces:
+        assert not (p.view(torch.int32) & 0x1FFF).any()
+    p0, p1, p2 = (p.double().numpy() for p in pieces)
+    x64 = x.astype(np.float64)
+    np.testing.assert_array_equal(p0 + p1 + p2, x64)
+    assert (p0 + p1 != x64).mean() > 0.2
+    rel = np.abs(p0 + p1 - x64) / np.maximum(np.abs(x64), 1e-300)
+    assert 0 < rel.max() <= 2.0 ** -22
+
+
+# the six products of the split operands, smallest first: (A piece, B piece)
+MXU_PRODUCTS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+# m16n8k4's lane map: lane 4 g + tig holds the accumulator's (row, column)
+# (g, 2 tig), (g, 2 tig + 1), (g + 8, 2 tig), (g + 8, 2 tig + 1)
+_LANE = torch.arange(32)
+LANE_ROW = (_LANE // 4)[:, None] + torch.tensor([0, 0, 8, 8])
+LANE_COL = 2 * (_LANE % 4)[:, None] + torch.tensor([0, 1, 0, 1])
+
+
+def _mma(c, a, b):
+    """c + a b of one m16n8k4 TF32 product: the products of two TF32
+    pieces are exact, and the sum is rounded to f32 once."""
+    return (c.double() + torch.matmul(a.double(), b.double())).float()
+
+
+def mxu_walk_model(order, skeys, rays, tiles, *, sc_n, any_hit=False,
+                   shape=cs.MXU_SHAPES[0]):
+    """A plain model of the CUDA mxu walk's decomposition
+    (csrc/cluster_sweep.cu, cluster_walk_mxu_kernel) on the triangle stack
+    [Lp, C, 16]. A ray block is CS CTAs of BR / CS rays, each ordered live
+    first and cut into 16-row M tiles (rows past BR / CS are pads: zero A
+    rows, tmax -1); WPM warps share an M tile and take its 8-slot groups
+    in turn. Per group, the A pieces (o_ext = (o, -1), d_ext = (d, 0)) and
+    the B pieces (the quads (n, D), (m_k, b_k) at K = 4) run the six
+    products, smallest first, into one m16n8k4 accumulator per quantity
+    and side; lane (g, tig) reads its four (row, slot) pairs at the same
+    register position of every accumulator, forms t and the edge tests, and
+    folds its pairs and the visit's members in order (t <= best: the later
+    id wins a tie). The four lanes of a row merge by the shuffle butterfly,
+    the M tile's warps in order, both under (smallest t, largest id); a
+    warp whose 16 rows are all inactive skips the group. The stop's max is
+    the max of the CTAs' partials, pipelined one visit ahead. Returns
+    (best_t [NB, BR], best_i, visits [NB], dense [NB])."""
+    n_cta, wpm = shape[0], shape[1]
+    NB, _, BR = rays.shape
+    n_sc, C = order.shape[1], tiles.shape[1]
+    rpc = BR // n_cta
+    MT = -(-rpc // 16)
+    rows = MT * 16
+    # each CTA's rays, live first in their order, then the dead; pad rows -1
+    live_r = (rays[:, 6] >= 0).reshape(NB, n_cta, rpc)
+    first = torch.sort((~live_r).int(), dim=-1, stable=True)[1]
+    perm = torch.full((NB, n_cta, rows), -1, dtype=torch.long)
+    perm[..., :rpc] = first + torch.arange(n_cta)[:, None] * rpc
+    valid = perm >= 0
+    R = rays.transpose(1, 2)[torch.arange(NB)[:, None, None],
+                             perm.clamp_min(0)]              # [NB, CTA, rows, 8]
+    R = torch.where(valid[..., None], R, 0.0)
+    o_ext = torch.cat([R[..., 0:3], torch.full_like(R[..., :1], -1.0)], -1)
+    d_ext = torch.cat([R[..., 3:6], torch.zeros_like(R[..., :1])], -1)
+    o_ext = torch.where(valid[..., None], o_ext, 0.0)
+    # A [piece] [NB, CTA, MT, 1 quantity, 2 sides, 16, 4]
+    A = [torch.stack([po.reshape(NB, n_cta, MT, 16, 4),
+                      pd.reshape(NB, n_cta, MT, 16, 4)], dim=3)[:, :, :, None]
+         for po, pd in zip(tf32_split3(o_ext), tf32_split3(d_ext))]
+    tm = torch.where(valid, R[..., 6], -1.0)
+    tm_eff = torch.where(valid, torch.minimum(R[..., 6], R[..., 7]),
+                         -cs.FLT_MAX)
+    live = tm >= 0
+    bt = torch.full((NB, n_cta, rows), torch.inf)
+    bi = torch.full((NB, n_cta, rows), -1, dtype=torch.int32)
+
+    def need_of(b):
+        v = torch.where(live[b], torch.minimum(bt[b], tm_eff[b]), -torch.inf)
+        return v.amax(dim=-1).amax(dim=-1)          # CTAs' partials, then max
+
+    lane_slot = LANE_COL                            # [32, 4]
+    tm_lane = tm.reshape(NB, n_cta, MT, 16)[..., LANE_ROW]  # [.., 32, 4]
+    steps = torch.zeros(NB, dtype=torch.long)
+    need = need_of(torch.arange(NB))
+    stop = cs._past(skeys[:, 0], need)              # first-key guard
+    while not bool(stop.all()):
+        act = torch.nonzero(~stop)[:, 0]
+        Aa = len(act)
+        st = steps[act]
+        active = live[act] & ~(any_hit & (bi[act] == 1))
+        warp_on = active.reshape(Aa, n_cta, MT, 16).any(-1)[..., None, None]
+        # per warp and lane: [A, CTA, MT, WPM, 32 lanes, rows g and g + 8]
+        vt = torch.full((Aa, n_cta, MT, wpm, 32, 2), torch.inf)
+        vi = torch.full((Aa, n_cta, MT, wpm, 32, 2), -1, dtype=torch.int32)
+        vh = torch.zeros((Aa, n_cta, MT, wpm, 32, 2), dtype=torch.bool)
+        tml = tm_lane[act]
+        for m in range(sc_n):
+            cl = order[act, st].long() * sc_n + m                   # [A]
+            for wn in range(wpm):
+                for n0 in range(8 * wn, C, 8 * wpm):
+                    # B [A, 1, 1, 4 quantities, 1, k, 8 slots]
+                    quad = tiles[cl, n0:n0 + 8].reshape(Aa, 8, 4, 4)
+                    B = [p.permute(0, 2, 3, 1)[:, None, None, :, None]
+                         for p in tf32_split3(quad.contiguous())]
+                    acc = torch.zeros((Aa, n_cta, MT, 4, 2, 16, 8))
+                    for pa, pb in MXU_PRODUCTS:
+                        acc = _mma(acc, A[pa][act], B[pb])
+                    lanes = acc[..., LANE_ROW, LANE_COL]   # [.., 4, 2, 32, 4]
+                    t = -lanes[..., 0, 0, :, :] / lanes[..., 0, 1, :, :]
+                    ok = (t >= 0) & (t <= tml) & warp_on
+                    for q in range(1, 4):
+                        ok &= (lanes[..., q, 0, :, :]
+                               + t * lanes[..., q, 1, :, :]) >= 0
+                    ids = (cl[:, None, None, None, None].int() * C + n0
+                           + lane_slot)
+                    for j in range(4):
+                        h = j // 2
+                        tj, okj = t[..., j], ok[..., j]
+                        cur_t, cur_i = vt[..., wn, :, h], vi[..., wn, :, h]
+                        take = (not any_hit) & okj & (tj < torch.inf) \
+                            & (tj <= cur_t)
+                        vt[..., wn, :, h] = torch.where(take, tj, cur_t)
+                        vi[..., wn, :, h] = torch.where(take, ids[..., j],
+                                                        cur_i)
+                        vh[..., wn, :, h] |= okj
+        # the shuffle butterfly over a row's four lanes
+        for off in (1, 2):
+            p = _LANE ^ off
+            ot, oi = vt[..., p, :], vi[..., p, :]
+            take = (ot < vt) | ((ot == vt) & (oi > vi))
+            vt, vi = torch.where(take, ot, vt), torch.where(take, oi, vi)
+            vh = vh | vh[..., p, :]
+        # the M tile's warps, merged in order by each warp: rows g + 8 h
+        # from lane 4 g -> [A, CTA, MT, WPM, 16]
+        rt = vt[..., ::4, :].transpose(-1, -2).reshape(Aa, n_cta, MT, wpm, 16)
+        ri = vi[..., ::4, :].transpose(-1, -2).reshape(Aa, n_cta, MT, wpm, 16)
+        rh = vh[..., ::4, :].transpose(-1, -2).reshape(Aa, n_cta, MT, wpm, 16)
+        merged = []
+        for wn in range(wpm):
+            mt_, mi_, mh_ = rt[:, :, :, wn], ri[:, :, :, wn], rh[:, :, :, wn]
+            for w in range(wpm):
+                ot, oi = rt[:, :, :, w], ri[:, :, :, w]
+                take = (ot < mt_) | ((ot == mt_) & (oi > mi_))
+                mt_, mi_ = torch.where(take, ot, mt_), torch.where(take, oi,
+                                                                  mi_)
+                mh_ = mh_ | rh[:, :, :, w]
+            merged.append((mt_, mi_, mh_))
+        for other in merged[1:]:                  # every warp agrees
+            for x, y in zip(merged[0], other):
+                assert torch.equal(x, y)
+        vt_r, vi_r, vh_r = (x.reshape(Aa, n_cta, rows) for x in merged[0])
+        # the stop after the previous visit, known only now
+        go = (st == 0) | ~cs._past(skeys[act, st], need[act])
+        b_go = act[go]
+        bt_a, bi_a = bt[b_go], bi[b_go]
+        actv = active[go]
+        if any_hit:
+            hit = actv & vh_r[go]
+            bt[b_go] = torch.where(hit, cs.DONE, bt_a)
+            bi[b_go] = torch.where(hit, 1, bi_a).int()
+        else:
+            take = actv & (vi_r[go] >= 0) & (vt_r[go] <= bt_a)
+            bt[b_go] = torch.where(take, vt_r[go], bt_a)
+            bi[b_go] = torch.where(take, vi_r[go], bi_a)
+        steps[b_go] += 1
+        stop[act[~go]] = True
+        stop[b_go] = steps[b_go] >= n_sc
+        need[b_go] = need_of(b_go)
+    best_t = torch.full((NB, BR), torch.inf)
+    best_i = torch.full((NB, BR), -1, dtype=torch.int32)
+    bb = torch.arange(NB)[:, None, None].expand_as(perm)
+    best_t[bb[valid], perm[valid]] = bt[valid]
+    best_i[bb[valid], perm[valid]] = bi[valid]
+    return best_t, best_i, steps.int(), (steps * sc_n).int()
+
+
+@pytest.fixture(scope="module")
+def mxu_stacks(stacks, batches):
+    """The triangle stack with exact-t ties and pad rows: in the cluster
+    the primary rays hit most, slots C-1-i repeat slots i (ties across a
+    row's lanes and across warps: the larger slot must win); the next
+    cluster repeats that tile with its box grown to cover it (ties across
+    visits, or across members at 2 clusters a visit: the later must win);
+    in the second most hit cluster, 8 slots are pad rows (n = 0, b = 1:
+    t = NaN, never accepted)."""
+    a, t = (x.copy() for x in stacks["triangle"])
+    o, d, tmax = (_t(x) for x in batches["primary"])
+    _, ids, _ = cs.cluster_tris(o, d, tmax, _t(a), _t(t), "triangle", br=BR)
+    C = t.shape[1]
+    counts = np.bincount(ids.numpy()[ids.numpy() >= 0] // C,
+                         minlength=t.shape[0])
+    hot, second = (int(x) for x in np.argsort(counts)[::-1][:2])
+    other = (hot + 1) % t.shape[0]
+    t[hot, C // 2:] = t[hot, :C // 2][::-1]
+    t[other] = t[hot]
+    a[other, 0:3] = np.minimum(a[other, 0:3], a[hot, 0:3])
+    a[other, 3:6] = np.maximum(a[other, 3:6], a[hot, 3:6])
+    pad = second if second != other else int(np.argsort(counts)[::-1][2])
+    t[pad, 40:48] = np.float32(cs._INVALID_ROW)
+    return a, t, (hot, other)
+
+
+def _mxu_inputs(batch, stack, sc_n, br=BR):
+    inp = cs.sweep_setup(*(_t(x) for x in batch), *(_t(x) for x in stack),
+                         "triangle", br, sc_n)
+    skeys, order = cs.sweep_order(inp.rays, inp.boxes)
+    return order, skeys, inp.rays, inp.tiles, inp.sc_n
+
+
+def _hold_mxu_model(got, twin, any_hit):
+    """The model against the mxu twin: hits, ids and visits exact, t where
+    both hit to rtol 1e-6 / atol 2e-6. The split products round once a
+    product step from 33-bit operands, the twin's f32 matmul once a term:
+    they part by a few ulps of o.n and D, which on a ray that starts 1e-3
+    off a surface is 1.1e-6 of its t ~ 1e-3 (the atol of the package's
+    other t comparisons covers it)."""
+    for x, y in zip(got[1:], twin[1:]):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    if not any_hit:
+        h = torch.isfinite(twin[0])
+        assert torch.equal(torch.isfinite(got[0]), h) and h.any()
+        torch.testing.assert_close(got[0][h], twin[0][h], rtol=1e-6,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("sc_n", [1, 2])
+@pytest.mark.parametrize("tied", [False, True], ids=["plain", "tied"])
+@pytest.mark.parametrize("which", list(MXU))
+def test_mxu_walk_model_matches_twin_and_pallas(dragon, batches, stacks,
+                                                mxu_stacks, which, tied,
+                                                sc_n):
+    """The CUDA mxu walk's decomposition (mxu_walk_model: the 16x8x4 tiling,
+    the lane map, the merges over lanes and warps, the member fold) against
+    the mxu twin (hits, ids, visits exact, t to rtol 1e-6) and against
+    pallas_cluster_tris(interpret=True), which drops mxu off the TPU, under
+    the MXU rules of test_mxu_twin_matches_pallas_default; on the bounce
+    batch's dead third, the tied stack's exact-t ties across lanes, warps,
+    visits and members, and its pad rows."""
+    key, any_hit, _ = MXU[which]
+    stack = mxu_stacks[:2] if tied else stacks["triangle"]
+    order, skeys, rays, tiles, sc = _mxu_inputs(batches[key], stack, sc_n)
+    got = mxu_walk_model(order, skeys, rays, tiles, sc_n=sc, any_hit=any_hit)
+    twin = cs.cluster_walk_plain(order, skeys, rays, tiles, layout="triangle",
+                                 sc_n=sc, any_hit=any_hit, mxu=True)
+    _hold_mxu_model(got, twin, any_hit)
+    n = batches[key][0].shape[0]
+    ref = _jax_sweep(dragon, batches[key], stack, sc_n, any_hit, mxu=True)
+    t, ids = _flat(got, n)
+    if any_hit:
+        assert ((ids > 0) == ref[0]).mean() >= 0.9999 and ref[0].any()
+    else:
+        h, hr = np.isfinite(t), np.isfinite(ref[0])
+        assert (h == hr).mean() >= 0.9999
+        same = h & hr & (ids == ref[1])
+        assert same.sum() >= 0.9999 * (h & hr).sum() > 100
+        assert (np.abs(t[same] - ref[0][same])
+                <= 1e-5 * np.maximum(1.0, ref[0][same])).all()
+    if tied and which == "primary":
+        C = tiles.shape[1]
+        slots = ids[(ids >= 0) & np.isin(ids // C, mxu_stacks[2])] % C
+        assert (slots >= C // 2).any()           # the larger slot won ties
+
+
+@pytest.mark.parametrize("shape,br", [((8, 1), 128), ((8, 2), 128),
+                                      ((8, 4), 128), ((4, 1), 128),
+                                      ((4, 2), 128), ((8, 2), 32),
+                                      ((4, 1), 96)])
+def test_mxu_walk_model_shapes_agree(batches, mxu_stacks, shape, br):
+    """Every compiled (CTAs, warps per M tile) shape, and blocks whose CTAs
+    hold fewer than 16 rays or not a multiple of 16 (pad rows), give the
+    same walk: on the tied stack's bounce batch, the model equals the
+    default shape's model bit for bit and holds against the twin."""
+    order, skeys, rays, tiles, sc = _mxu_inputs(batches["bounce"],
+                                                mxu_stacks[:2], 1, br)
+    got = mxu_walk_model(order, skeys, rays, tiles, sc_n=sc, shape=shape)
+    base = mxu_walk_model(order, skeys, rays, tiles, sc_n=sc)
+    for x, y in zip(got, base):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    _hold_mxu_model(got, cs.cluster_walk_plain(
+        order, skeys, rays, tiles, layout="triangle", sc_n=sc, mxu=True),
+        False)
+
+
+def test_mxu_shape_fits_every_block_size():
+    """mxu_shape takes the first of MXU_SHAPES whose CTAs fit for every
+    block size the wrapper accepts (the split walk's: multiples of 32 up
+    to 1024), and every shape it takes is compiled."""
+    assert cs.mxu_shape(cs.DEFAULT_BR) == cs.MXU_SHAPES[0]
+    for br in range(32, 1025, 32):
+        shape = cs.mxu_shape(br)
+        assert shape in cs.MXU_VARIANTS and br % shape[0] == 0
+        assert cs.mxu_threads(br, shape) <= cs.MXU_MAX_THREADS
+
+
+def test_mxu_bound_counts_the_contraction_at_depth_4(batches, stacks):
+    """roofline's mxu bound on a small batch: per (live ray, slot) pair of
+    a dense tile, six piece products x 4 quantities x K = 4 x 2 sides x 2
+    flops = 384 tensor flops (the zero pad to 8 columns is no work), beside
+    a divide per pair and 6 flops per pair that needs the edge tests; the
+    bound is the larger of those times and the bytes'."""
+    from cge_tpu_torch.tools import roofline
+    assert roofline.MXU_TENSOR_OPS == 6 * 4 * 4 * 2 * 2 == 384
+    order, skeys, rays, tiles, sc = _mxu_inputs(batches["bounce"],
+                                                stacks["triangle"], 1)
+    kw = dict(layout="triangle", sc_n=sc)
+    out = cs.cluster_walk_plain(order, skeys, rays, tiles, mxu=True, **kw)
+    live = (rays[:, 6] >= 0).sum(dim=1)
+    pairs = int((out[3] * live).sum()) * tiles.shape[1]
+    assert pairs > 0
+    edges = roofline.walk_edge_pairs(order, rays, tiles, out, **kw)
+    ms, kind = roofline.walk_bound(order, rays, tiles, out, mxu=True, **kw)
+    tensor_ms = pairs * 384 / roofline.TF32_PEAK * 1e3
+    simt_ms = (pairs + 6 * edges) / roofline.FP32_PEAK * 1e3
+    assert ms >= max(tensor_ms, simt_ms) * (1 - 1e-12)
+    if kind == "operations":
+        assert ms == pytest.approx(max(tensor_ms, simt_ms), rel=1e-12)
+
+
 def test_mxu_repack_matches_jnp(stacks):
     """mxu_tiles against the JAX package's expression
     (cluster_sweep.py:641-643), bit for bit."""
@@ -520,8 +865,11 @@ def test_mxu_grid_tool(capsys):
 
 def test_kernel_bench_tool(capsys):
     """kernel_bench on the twins: K1 and every K2 and K3 batch equal to
-    its twin, bounds computed, no device time claimed (the sort beside K1
-    included); --shapes runs every split shape and split rule."""
+    its twin, the mxu mode's three batches within MXU_TOL of its twin and
+    the default walk (and at 128 and 1024 rays a block on primary rays),
+    bounds computed, no device time claimed (the sort beside K1 and the mxu
+    mode's ratio included); --shapes runs every split shape, mxu variant
+    and split rule."""
     from cge_tpu_torch.tools import kernel_bench
     out = _run_tool(kernel_bench, ["--device", "cpu", "--dragon", "41", "32",
                                    "--standin", "41", "16", "--res", "64",
@@ -534,8 +882,21 @@ def test_kernel_bench_tool(capsys):
                         r"not measured", out)
     assert bounds == ["K1", "K2"] * 5 + ["K3"] * 3
     assert len(re.findall(r"\| sort ms not measured \|", out)) == 5
+    mxu = re.findall(r"^K2 mxu (\w+): .* vs twin: hits ([\d.]+) ids ([\d.]+)"
+                     r" .* vs default walk: hits ([\d.]+)", out, re.M)
+    assert [m[0] for m in mxu] == ["a_primary", "b_bounce", "c_shadow"]
+    assert all(float(x) >= 0.9999 for m in mxu for x in m[1:])
+    assert len(re.findall(r"^    K2 mxu ms not measured \(twin ms not "
+                          r"measured\) bound [\d.]+ ms \(operations\) share "
+                          r"not measured \| default walk ms not measured, "
+                          r"mxu / default not measured", out, re.M)) == 3
+    assert len(re.findall(r"^    at (?:128|1024) rays a block, vs twin", out,
+                          re.M)) == 2
     shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
-    assert len(shapes) == 5 * len(cs.SPLIT_SHAPES) + 3 * 3
+    fit = [v for v in cs.MXU_VARIANTS
+           if cs.mxu_threads(cs.DEFAULT_BR, v) <= cs.MXU_MAX_THREADS]
+    assert len(shapes) == (5 * len(cs.SPLIT_SHAPES) + 3 * len(fit)
+                           + 3 * 3)
 
 
 def _sass_pair(base: int) -> list:
@@ -605,20 +966,24 @@ def test_refine_kernel_matches_twin_on_card(batches, stacks, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("br", [128, 512, 1024])
 @pytest.mark.parametrize("which", list(MXU))
-def test_mxu_kernel_matches_twin_on_card(batches, stacks, which,
+def test_mxu_kernel_matches_twin_on_card(batches, stacks, which, br,
                                          cuda_device):
     """K2's tensor-core mode on the card against its twin on the card
-    (torch.matmul, TF32 off): the rules of
-    test_mxu_twin_matches_pallas_default."""
+    (torch.matmul, TF32 off), at 128, 512 and 1024 rays a block (mxu_shape
+    takes a smaller shape at 1024): the rules of
+    test_mxu_twin_matches_pallas_default, one launch a call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     key, any_hit, _ = MXU[which]
     inp = cs.sweep_setup(*(_t(x).to(cuda_device) for x in batches[key]),
                          *(_t(x).to(cuda_device) for x in stacks["triangle"]),
-                         "triangle", BR, 1)
+                         "triangle", br, 1)
     skeys, order = cs.sweep_order(inp.rays, inp.boxes)
     kw = dict(layout="triangle", sc_n=1, any_hit=any_hit, mxu=True)
+    n = cs.LAUNCHES["walk_mxu"]
     got = cs.cluster_walk(order, skeys, inp.rays, inp.tiles, **kw)
+    assert cs.LAUNCHES["walk_mxu"] == n + 1
     want = cs.cluster_walk_plain(order, skeys, inp.rays, inp.tiles, **kw)
     t, ids = got[0].cpu().numpy().ravel(), got[1].cpu().numpy().ravel()
     tr, idr = want[0].cpu().numpy().ravel(), want[1].cpu().numpy().ravel()
