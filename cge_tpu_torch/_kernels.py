@@ -36,9 +36,9 @@ _SIGNATURES = {
     # rays, boxes, keys, NB, S, BR, stream
     "cge_block_entry_keys": (_P, _P, _P, _I, _I, _I, _P),
     # order, skeys, rays, tiles, best_t, best_i, visits, dense, NB, n_sc,
-    # BR, sc_n, C, any_hit, cs, wpm, presplit, stream
+    # BR, sc_n, C, any_hit, cs, wpm, stream
     "cge_cluster_walk_mxu": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _P),
+                             _I, _I, _I, _I, _P),
     # order, skeys, rays, tiles, aabbs, best_t, best_i, visits, dense, NB,
     # n_sc, BR, sc_n, C, field_major, any_hit, shared_origin, refine, cs,
     # lanes, stream

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from cge_tpu_torch.ops import fp32
 from cge_tpu_torch.scene.scene import resolve_device
 
 
@@ -69,7 +70,7 @@ class Camera:
         cam_dir = torch.stack([-pixels[..., 0] * half_w,      # negated x
                                pixels[..., 1] * half_h,
                                torch.ones_like(pixels[..., 0])], dim=-1)
-        cam_dir = cam_dir / torch.sqrt((cam_dir * cam_dir).sum(-1,
+        cam_dir = cam_dir / fp32.sqrt_rn((cam_dir * cam_dir).sum(-1,
                                                               keepdim=True))
         world_dir = quat_rotate(self._quat(dev), cam_dir)
         origin = self.position(dev).expand(world_dir.shape)

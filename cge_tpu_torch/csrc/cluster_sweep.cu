@@ -156,8 +156,9 @@
 //       Precision.HIGHEST, which splits f32 into three bf16 pieces the same
 //       way. (A 2-piece "3xTF32" split keeps 22 bits per operand; on
 //       grazing rays, where d.n is small, that left t 1.1e-5 relative from
-//       the f32 twin.) PRESPLIT splits each landed tile once into piece
-//       buffers; otherwise each lane splits its B elements as it loads them.
+//       the f32 twin.) Each lane splits its B elements as it loads them:
+//       splitting each landed tile once into piece buffers, behind one
+//       more barrier, ran no faster.
 //     - WPM warps share an M tile and take its 8-slot groups in turn. A
 //       lane folds its slots and the visit's members (slots and members
 //       rise, so t <= best keeps the largest flat id), the four lanes of a
@@ -843,17 +844,16 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[2],
 }
 
 // One member tile's test for this warp's 8-slot groups n0 = 8 wn, 8 (wn +
-// WPM), ... of the quad-major tile q (PRESPLIT: q holds piece 0, pc pieces
-// 1 and 2). a [side][piece] are the A fragments of the lane's rows g and g
+// WPM), ... of the quad-major tile q. a [side][piece] are the A fragments of the lane's rows g and g
 // + 8: side 0 o_ext = (o, -1), side 1 d_ext = (d, 0). Per quantity (n, D),
 // (m_k, b_k) and side, the six piece products, smallest first, go into one
 // accumulator: o.n - D, d.n, o.m_k - b_k and d.m_k of the lane's four
 // (ray, slot) pairs land in the same register position. Each pair is then
 // t = -(o.n - D) / d.n and three edge tests, and folds into the row's
 // (vt, vi), slots rising (the later slot wins a tie), or, any hit, vh.
-template <int WPM, bool PRESPLIT>
+template <int WPM>
 __device__ __forceinline__ void test_tile_mxu(
-        const float* q, const float* pc, int C, int wn, int g, int tig,
+        const float* q, int C, int wn, int g, int tig,
         const uint32_t (&a)[2][3][2], const float (&tm)[2], int base,
         int any_hit, float (&vt)[2], int (&vi)[2], bool (&vh)[2]) {
     // (A piece, B piece) of the six products; a1 b2, a2 b1 and a2 b2 lie
@@ -864,16 +864,8 @@ __device__ __forceinline__ void test_tile_mxu(
         // B (k = tig, slot n0 + g) of each quantity: 32 consecutive words
         uint32_t bq[4][3];
 #pragma unroll
-        for (int qd = 0; qd < 4; ++qd) {
-            const int i = (qd * C + n0 + g) * 4 + tig;
-            if (PRESPLIT) {
-                bq[qd][0] = __float_as_uint(q[i]);
-                bq[qd][1] = __float_as_uint(pc[i]);
-                bq[qd][2] = __float_as_uint(pc[16 * C + i]);
-            } else {
-                tf32_split3(q[i], bq[qd]);
-            }
-        }
+        for (int qd = 0; qd < 4; ++qd)
+            tf32_split3(q[(qd * C + n0 + g) * 4 + tig], bq[qd]);
         float acc[4][2][4];
 #pragma unroll
         for (int qd = 0; qd < 4; ++qd)
@@ -905,13 +897,11 @@ __device__ __forceinline__ void test_tile_mxu(
     }
 }
 
-// Shared memory of the mxu walk, in 4-byte words: the tile ring (and,
-// presplit, pieces 1 and 2 of the landed tile), the reduction scratch, the
-// cluster partials and votes, the live-ray scan, the warps' candidates
-// (t and id per row and warp) and the CTA's ray order.
-static size_t mxu_walk_smem_words(int C, int rpc, int rows, int wpm,
-                                  int presplit) {
-    return (size_t)(presplit ? 64 : 32) * C + 32 + 4 * SPLIT_MAX_CS + 32
+// Shared memory of the mxu walk, in 4-byte words: the tile ring, the
+// reduction scratch, the cluster partials and votes, the live-ray scan, the
+// warps' candidates (t and id per row and warp) and the CTA's ray order.
+static size_t mxu_walk_smem_words(int C, int rpc, int rows, int wpm) {
+    return (size_t)32 * C + 32 + 4 * SPLIT_MAX_CS + 32
            + 2 * (size_t)rows * wpm + rpc;
 }
 
@@ -922,7 +912,7 @@ static size_t mxu_walk_smem_words(int C, int rpc, int rows, int wpm,
 // ahead) with each CTA's rows in 16-ray M tiles of WPM warps. Row i < BR /
 // CS is the i-th ray of the live-first order; the rows past it are pads
 // (zero A rows, tmax -1), as are dead rays: neither accepts.
-template <int CS, int WPM, bool PRESPLIT>
+template <int CS, int WPM>
 __global__ void __launch_bounds__(MXU_MAX_THREADS)
 cluster_walk_mxu_kernel(const int* __restrict__ order,
                         const float* __restrict__ skeys,
@@ -935,8 +925,7 @@ cluster_walk_mxu_kernel(const int* __restrict__ order,
     const int rpc = BR / CS;                 // rays of this CTA
     const int rows = (int)blockDim.x / (32 * WPM) * 16;
     float* s_q = smem;                       // [2][4][C] float4
-    float* s_pc = smem + 32 * C;             // presplit: pieces 1, 2 [16 C]
-    float* s_red = smem + (PRESPLIT ? 64 : 32) * C;    // [32]
+    float* s_red = smem + 32 * C;            // [32]
     float* s_part = s_red + 32;              // [2][SPLIT_MAX_CS]
     int* s_vote = reinterpret_cast<int*>(s_part + 2 * SPLIT_MAX_CS);
     int* s_cnt = s_vote + 2 * SPLIT_MAX_CS;  // [32]
@@ -1033,20 +1022,9 @@ cluster_walk_mxu_kernel(const int* __restrict__ order,
             __syncthreads();         // tile k has landed; tile k - 1 is used up
             if (ncl >= 0)
                 issue_tile(s_q + ((k + 1) & 1) * 16 * C, tiles, ncl, C, 0);
-            float* q = s_q + (k & 1) * 16 * C;
-            if (PRESPLIT) {
-                for (int i = tid; i < 16 * C; i += blockDim.x) {
-                    uint32_t p[3];
-                    tf32_split3(q[i], p);
-                    q[i] = __uint_as_float(p[0]);
-                    s_pc[i] = __uint_as_float(p[1]);
-                    s_pc[16 * C + i] = __uint_as_float(p[2]);
-                }
-                __syncthreads();
-            }
             if (warp_active)
-                test_tile_mxu<WPM, PRESPLIT>(q, s_pc, C, wn, g, tig, a, tm,
-                                             cl * C, any_hit, vt, vi, vh);
+                test_tile_mxu<WPM>(s_q + (k & 1) * 16 * C, C, wn, g, tig, a,
+                                   tm, cl * C, any_hit, vt, vi, vh);
         }
         // each row's candidate over its four lanes, then over the M tile's
         // warps: the smallest t, the largest id on a tie
@@ -1133,7 +1111,7 @@ cluster_walk_mxu_kernel(const int* __restrict__ order,
     }
 }
 
-template <int CS, int WPM, bool PRESPLIT>
+template <int CS, int WPM>
 static int launch_mxu_walk(const int* order, const float* skeys,
                            const float* rays, const float* tiles,
                            float* best_t, int* best_i, int* visits,
@@ -1146,11 +1124,10 @@ static int launch_mxu_walk(const int* order, const float* skeys,
     const int threads = rows / 16 * WPM * 32;
     if (threads > MXU_MAX_THREADS)
         return (int)cudaErrorInvalidValue;
-    const size_t smem =
-        mxu_walk_smem_words(C, rpc, rows, WPM, PRESPLIT) * 4;
+    const size_t smem = mxu_walk_smem_words(C, rpc, rows, WPM) * 4;
     if (smem > CGE_MAX_SMEM)
         return (int)cudaErrorInvalidValue;
-    return launch_in_clusters(cluster_walk_mxu_kernel<CS, WPM, PRESPLIT>,
+    return launch_in_clusters(cluster_walk_mxu_kernel<CS, WPM>,
                               NB * CS, threads, smem, CS, stream, order,
                               skeys, rays, tiles, best_t, best_i, visits,
                               dense, n_sc, BR, sc_n, C, any_hit);
@@ -1177,32 +1154,24 @@ extern "C" int cge_block_entry_keys(const float* rays, const float* boxes,
 }
 
 // The mxu walk on the triangle layout's tiles [Lp, C, 16], 16-byte aligned:
-// (cs, wpm, presplit) picks CTAs per cluster, warps per 16-ray M tile and
-// whether each landed tile is split into TF32 pieces once (or each B
-// element as it is loaded) among the compiled shapes.
+// (cs, wpm) picks CTAs per cluster and warps per 16-ray M tile among the
+// compiled shapes; ceil(BR / cs / 16) * wpm warps a CTA.
 extern "C" int cge_cluster_walk_mxu(const int* order, const float* skeys,
                                     const float* rays, const float* tiles,
                                     float* best_t, int* best_i, int* visits,
                                     int* dense, int NB, int n_sc, int BR,
                                     int sc_n, int C, int any_hit, int cs,
-                                    int wpm, int presplit, void* stream) {
+                                    int wpm, void* stream) {
     if (NB == 0)
         return 0;
     cudaStream_t st = (cudaStream_t)stream;
 #define CGE_MXU_SHAPE(CS_, W_)                                              \
     if (cs == CS_ && wpm == W_)                                             \
-        return presplit                                                     \
-            ? launch_mxu_walk<CS_, W_, true>(                               \
-                  order, skeys, rays, tiles, best_t, best_i, visits, dense, \
-                  NB, n_sc, BR, sc_n, C, any_hit, st)                       \
-            : launch_mxu_walk<CS_, W_, false>(                              \
-                  order, skeys, rays, tiles, best_t, best_i, visits, dense, \
-                  NB, n_sc, BR, sc_n, C, any_hit, st);
-    CGE_MXU_SHAPE(8, 1)
-    CGE_MXU_SHAPE(8, 2)
+        return launch_mxu_walk<CS_, W_>(order, skeys, rays, tiles, best_t,  \
+                                        best_i, visits, dense, NB, n_sc, BR, \
+                                        sc_n, C, any_hit, st);
     CGE_MXU_SHAPE(8, 4)
-    CGE_MXU_SHAPE(4, 1)
-    CGE_MXU_SHAPE(4, 2)
+    CGE_MXU_SHAPE(8, 2)
 #undef CGE_MXU_SHAPE
     return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,7 @@ each ray block as a thread block cluster with the stop pipelined one visit
 ahead: the default walk and its refine_members mode with lanes splitting
 each tile's slots (split_shape: CTAs per block, lanes per ray), the mxu
 mode with 16-ray M tiles of warps on the tensor cores (mxu_shape: CTAs per
-block, warps per M tile, where the tile is split). Beside each stands its
+block, warps per M tile). Beside each stands its
 plain PyTorch twin (`block_entry_keys_plain`, `cluster_walk_plain`) with the
 same visit order, stop bound, sentinels and tie rules. A wrapper runs the
 twin for a tensor on the CPU and launches the kernel for a CUDA tensor;
@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from cge_tpu_torch import _kernels
+from cge_tpu_torch.ops import fp32
 
 DEFAULT_BR = 512
 SUPERCLUSTER = 4
@@ -67,15 +68,11 @@ LAYOUTS = ("triangle", "field")
 SPLIT_SHAPES = ((8, 16), (8, 8))
 SPLIT_MAX_THREADS = 1024
 # The mxu walk's compiled shapes: (CTAs per ray block, warps per 16-ray M
-# tile, 1 if each landed tile is split into TF32 pieces once, 0 if each
-# lane splits its B elements as it loads them). A CTA runs ceil(BR / CTAs
-# / 16) * warps * 32 threads, at most MXU_MAX_THREADS. MXU_SHAPES: the
-# ones mxu_shape picks from, in order of preference; MXU_VARIANTS: every
-# compiled one (tools/kernel_bench.py --shapes).
-MXU_VARIANTS = tuple((cs, w, split) for cs, w in ((8, 1), (8, 2), (8, 4),
-                                                  (4, 1), (4, 2))
-                     for split in (0, 1))
-MXU_SHAPES = ((8, 2, 0), (8, 1, 0))
+# tile), in order of preference. A CTA runs ceil(BR / CTAs / 16) * warps *
+# 32 threads, at most MXU_MAX_THREADS. 8 x 4 was the fastest of ten
+# variants at the main path's 16k-ray batches (PERF.md, PR 6); 8 x 2 takes
+# the blocks of 1024 rays.
+MXU_SHAPES = ((8, 4), (8, 2))
 MXU_MAX_THREADS = 512
 
 # b_i = 1 kills every edge test of a pad triangle
@@ -110,7 +107,7 @@ def pack_cluster_tiles(vertices, tris, perm, layout: str | None = None):
     tv = vertices[tris[perm.clamp_min(0)]]              # [L, C, 3, 3]
     v0, v1, v2 = tv[:, :, 0], tv[:, :, 1], tv[:, :, 2]
     n = _cross(v1 - v0, v2 - v0)
-    n = n / torch.sqrt(_dot3(n, n))[..., None]
+    n = n / fp32.sqrt_rn(_dot3(n, n))[..., None]
     D = _dot3(n, v0)
 
     def edge_consts(va, vb):
@@ -522,16 +519,16 @@ def split_shape(br: int) -> tuple[int, int]:
     raise ValueError(f"no split walk shape fits blocks of {br} rays")
 
 
-def mxu_threads(br: int, shape) -> int:
+def mxu_threads(br: int, shape: tuple[int, int]) -> int:
     """Threads of an mxu walk CTA: its BR / CTAs rays in 16-ray M tiles,
     each of `warps` warps."""
-    n_cta, warps = shape[0], shape[1]
+    n_cta, warps = shape
     return -(-(br // n_cta) // 16) * warps * 32
 
 
-def mxu_shape(br: int) -> tuple[int, int, int]:
-    """The mxu walk's (CTAs per cluster, warps per M tile, split once)
-    for blocks of br rays: the first of MXU_SHAPES whose CTAs fit."""
+def mxu_shape(br: int) -> tuple[int, int]:
+    """The mxu walk's (CTAs per cluster, warps per M tile) for blocks of
+    br rays: the first of MXU_SHAPES whose CTAs fit."""
     for shape in MXU_SHAPES:
         if br % shape[0] == 0 and mxu_threads(br, shape) <= MXU_MAX_THREADS:
             return shape
@@ -550,7 +547,7 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
     launches a thread block cluster per ray block, in split_shape's shape
     for the default and refine walks and in mxu_shape's for the mxu mode,
     which needs C a multiple of 8. _shape forces one of SPLIT_SHAPES on the
-    default and refine walks, one of MXU_VARIANTS on the mxu mode
+    default and refine walks, one of MXU_SHAPES on the mxu mode
     (tools/kernel_bench.py --shapes)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
@@ -599,11 +596,11 @@ def cluster_walk(order, skeys, rays, tiles, *, layout: str, sc_n: int,
     outs = (best_t.data_ptr(), best_i.data_ptr(), visits.data_ptr(),
             dense.data_ptr())
     if mode == "mxu":
-        n_cta, warps, split = _shape or mxu_shape(BR)
+        n_cta, warps = _shape or mxu_shape(BR)
         lib.check(lib.cge_cluster_walk_mxu(
             order.data_ptr(), skeys.data_ptr(), rays.data_ptr(),
             tiles.data_ptr(), *outs, NB, n_sc, BR, sc_n, C, int(any_hit),
-            n_cta, warps, split, stream), "cge_cluster_walk_mxu")
+            n_cta, warps, stream), "cge_cluster_walk_mxu")
     else:
         cs, lanes = _shape or split_shape(BR)
         lib.check(lib.cge_cluster_walk_split(

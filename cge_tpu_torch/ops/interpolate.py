@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from cge_tpu_torch.ops import fp32
+
 
 def _dot(a, b):
     return (a * b).sum(dim=-1)
@@ -27,7 +29,7 @@ def interpolate_normal(n0, n1, n2, bary):
     n = (n0 * bary[..., :1] + n1 * bary[..., 1:2] + n2 * bary[..., 2:3]) / 3.0
     n2s = _dot(n, n)[..., None]
     pos = n2s > 0
-    return torch.where(pos, n / torch.sqrt(torch.where(pos, n2s, 1.0)), 0.0)
+    return torch.where(pos, n / fp32.sqrt_rn(torch.where(pos, n2s, 1.0)), 0.0)
 
 
 def interpolate_texcoord(t0, t1, t2, bary):

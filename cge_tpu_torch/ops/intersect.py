@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from cge_tpu_torch.ops import cluster_sweep, sweep
+from cge_tpu_torch.ops import cluster_sweep, fp32, sweep
 
 
 def _dot(a, b):
@@ -34,7 +34,7 @@ def triangle_plane(v0, v1, v2):
     n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
     n2 = _dot(n, n)[..., None]
     pos = n2 > 0
-    n = torch.where(pos, n / torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+    n = torch.where(pos, n / fp32.sqrt_rn(torch.where(pos, n2, 1.0)), 0.0)
     return n, _dot(n, v0)
 
 
@@ -46,7 +46,7 @@ def intersect_spheres_t(o, d, tmax, center, radius):
     b = 2.0 * _dot(d[:, None, :], oc)
     c = _dot(oc, oc) - radius[None, :] ** 2
     disc = b * b - 4.0 * c
-    sq = torch.sqrt(disc.clamp_min(0.0))
+    sq = fp32.sqrt_rn(disc.clamp_min(0.0))
     t0 = (-b - sq) / 2.0
     t1 = (-b + sq) / 2.0
     t = torch.where(t0 >= 0, t0, t1)

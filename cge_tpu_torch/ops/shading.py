@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from cge_tpu_torch.ops import fp32
+
 
 def _dot(a, b):
     return (a * b).sum(dim=-1)
@@ -23,7 +25,7 @@ def _normalize(v):
     """Normalize; zero vectors map to zero."""
     n2 = _dot(v, v)[..., None]
     pos = n2 > 0
-    return torch.where(pos, v / torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+    return torch.where(pos, v / fp32.sqrt_rn(torch.where(pos, n2, 1.0)), 0.0)
 
 
 def cpp_pow_masked(base, exp):

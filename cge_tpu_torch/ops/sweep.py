@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from cge_tpu_torch import _kernels
+from cge_tpu_torch.ops import fp32
 from cge_tpu_torch.ops.cluster_sweep import _cross, _dot3
 
 TILE = 128            # triangle rows per tile: csrc/sweep.cu's SWEEP_TILE
@@ -51,7 +52,7 @@ def pack_tri_table(vertices, tris, mask):
     v = vertices.detach()
     v0, v1, v2 = v[tris[:, 0]], v[tris[:, 1]], v[tris[:, 2]]
     n = _cross(v1 - v0, v2 - v0)
-    n = n / torch.sqrt(_dot3(n, n))[:, None]
+    n = n / fp32.sqrt_rn(_dot3(n, n))[:, None]
     D = _dot3(n, v0)
     zero = torch.zeros_like(D)
     return torch.cat([v0, v1, v2, n, D[:, None], mask.float()[:, None],

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from cge_tpu_torch.ops import fp32
 from cge_tpu_torch.ops.intersect import any_hit_occlusion
 from cge_tpu_torch.ops.shading import compute_shading
 
@@ -32,7 +33,7 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
             "light.cpp:65-68): see ROADMAP 1.5")
     d2 = (ray_d * ray_d).sum(dim=-1, keepdim=True)
     dpos = d2 > 0
-    dlen = torch.where(dpos, torch.sqrt(torch.where(dpos, d2, 1.0)), 0.0)
+    dlen = torch.where(dpos, fp32.sqrt_rn(torch.where(dpos, d2, 1.0)), 0.0)
     dhat = torch.where(dpos, ray_d / torch.where(dpos, dlen, 1.0), 0.0)
     p = ray_o + dhat * (ray_t * dlen[..., 0] - 1e-5)[..., None]
     sdir = sample_pos - p

@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from cge_tpu_torch.ops import fp32
 from cge_tpu_torch.ops.interpolate import barycentric_coord, interpolate_normal
 from cge_tpu_torch.ops.intersect import (Accel, HitIds, build_accel,
                                          closest_hit, triangle_plane,
@@ -115,7 +116,7 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     c = _dot(oc, oc) - rad * rad
     disc = b * b - 4.0 * c
     disc_pos = disc > 0
-    sq = torch.where(disc_pos, torch.sqrt(torch.where(disc_pos, disc, 1.0)),
+    sq = torch.where(disc_pos, fp32.sqrt_rn(torch.where(disc_pos, disc, 1.0)),
                      0.0)
     t0 = (-b - sq) / 2.0
     t1 = (-b + sq) / 2.0

@@ -4,8 +4,8 @@ bound; chip_smoke.py phases 2, 5 and 8 report these rows. Beside K1 stands
 the rest of the key pass: the stable torch.sort of each block's keys and
 the cast of the order to int32 (cluster_sweep.sort_keys). --shapes also
 times K2 in every compiled split shape (CTAs per cluster, lanes per ray),
-the mxu mode in every compiled variant (CTAs per cluster, warps per M
-tile, where the tile is split) and K3 under three split rules.
+the mxu mode in every compiled shape (CTAs per cluster, warps per M tile)
+and K3 under three split rules.
 
 K1 and K2 run on the dragon stand-in (614,400 triangles, field-major tiles)
 with the 16,384-ray batches of the 512x512 frame's middle chunk, the main
@@ -257,7 +257,7 @@ def mxu_rows(scene, dev, res: int = 512, n: int = 16384, reps: int = 5,
     MXU_TOL of its twin and of the default walk, the primary batch also at
     MXU_CHECK_BRS rays a block; the mxu mode's time beside the default
     walk's and its twin's, and its bound; with shapes, its time in every
-    compiled variant that fits, each equal to the default shape's result."""
+    compiled shape that fits, each equal to the default shape's result."""
     accel = build_accel(scene, "triangle")
     batches = walk_batches(scene, accel, dev, res, n, pullback=1e-3)
     rows = []
@@ -301,18 +301,16 @@ def mxu_rows(scene, dev, res: int = 512, n: int = 16384, reps: int = 5,
 
 
 def mxu_shapes(call, kw, got, dev, reps: int) -> list:
-    """(label, ms) of the mxu mode in every compiled variant that fits the
+    """(label, ms) of the mxu mode in every compiled shape that fits the
     block size; each equal to got."""
     out = []
     br = call[2].shape[2]
-    for shape in cs.MXU_VARIANTS:
+    for shape in cs.MXU_SHAPES:
         if br % shape[0] or cs.mxu_threads(br, shape) > cs.MXU_MAX_THREADS:
             continue
         check_equal(cs.cluster_walk(*call, mxu=True, _shape=shape, **kw), got,
-                    f"K2 mxu variant {shape}")
-        warps = f"{shape[1]} warp{'s' if shape[1] > 1 else ''}"
-        out.append((f"K2 mxu {shape[0]} CTAs x {warps} an M tile, "
-                    f"{'split once' if shape[2] else 'split on load'}",
+                    f"K2 mxu shape {shape}")
+        out.append((f"K2 mxu {shape[0]} CTAs x {shape[1]} warps an M tile",
                     common.device_ms(lambda: cs.cluster_walk(
                         *call, mxu=True, _shape=shape, **kw), dev, reps)))
     return out
@@ -410,7 +408,7 @@ def main(argv=None) -> int:
                     help="rays a batch (the main path's trace_chunk)")
     ap.add_argument("--shapes", action="store_true",
                     help="also time K2 in every split shape, its mxu mode "
-                         "in every variant, K3 under each split rule")
+                         "in every shape, K3 under each split rule")
     args = ap.parse_args(argv)
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)

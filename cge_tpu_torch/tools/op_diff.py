@@ -10,7 +10,10 @@ ray's row.
 
 A Recorder is a TorchDispatchMode: each op's name and a CPU copy of its
 tensor outputs become one entry, except ops whose outputs are not yet
-written (`empty*`). Each (module, name) of `pause` is wrapped while the
+written (`empty*`) or copy or alias their input (`clone`, `_to_copy`,
+`detach`, ...): a copy that one device makes and the other does not (a
+`.contiguous()` of another stride order) leaves the runs aligned. Each
+(module, name) of `pause` is wrapped while the
 recorder is active: its own ops are not recorded (a sweep's CPU twin and
 its CUDA kernel run different ops) and its outputs become one entry named
 `name`.
@@ -25,6 +28,11 @@ import functools
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+
+# op names (without leading underscores) that start so are not recorded
+_SKIP = ("empty", "new_empty", "clone", "contiguous", "to_copy", "copy_",
+         "detach", "alias", "lift_fresh")
 
 
 def _tensors(out) -> list:
@@ -59,21 +67,21 @@ class Recorder(TorchDispatchMode):
     def _wrap(self, name, fn):
         @functools.wraps(fn)
         def run(*args, **kwargs):
+            outer = not self._paused
             self._paused += 1
             try:
                 out = fn(*args, **kwargs)
+                if outer:
+                    self.entries.append((name, _tensors(out)))
             finally:
                 self._paused -= 1
-            if not self._paused:
-                self.entries.append((name, _tensors(out)))
             return out
         return run
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = func.overloadpacket.__name__
-        if not self._paused and not name.lstrip("_").startswith(
-                ("empty", "new_empty")):
+        if not self._paused and not name.lstrip("_").startswith(_SKIP):
             self.entries.append((name, _tensors(out)))
         return out
 

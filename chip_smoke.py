@@ -404,6 +404,34 @@ def table_report(card, cpu) -> list:
     return rows
 
 
+def rounding_report(device) -> list:
+    """PyTorch's float32 sqrt, division and pow on the card and on the CPU
+    against the same op in float64 rounded to float32 (exact for sqrt and
+    division), over a seeded sample: (op, device, elements that differ)."""
+    import numpy as np
+    import torch
+
+    from cge_tpu_torch.ops import fp32
+
+    rng = np.random.default_rng(SEED)
+    n = 1 << 20
+    x = torch.from_numpy((2.0 ** rng.uniform(-40, 40, n)
+                          * rng.uniform(1, 2, n)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    base = x.clamp(0.0, 4.0)
+    ops = (("sqrt", torch.sqrt, (x,)), ("sqrt_rn", fp32.sqrt_rn, (x,)),
+           ("div", torch.div, (x, y)), ("pow", torch.pow, (base, y)))
+    rows = []
+    for name, fn, args in ops:
+        ref = (fn(*(a.double() for a in args)).float()
+               if name != "sqrt_rn" else torch.sqrt(x.double()).float())
+        for dev in (device, torch.device("cpu")):
+            got = fn(*(a.to(dev) for a in args)).cpu()
+            differ = (got != ref) & ~(got.isnan() & ref.isnan())
+            rows.append((name, dev.type, int(differ.sum())))
+    return rows
+
+
 def pack_divergence(card, cpu) -> None:
     """K3's triangle table packed on the card and on the CPU with every op
     recorded: the first ops at which the two part."""
@@ -493,6 +521,9 @@ def small_train_check(device, tmp):
         + ", ".join(f"{k} equal" if n == 0 else
                     f"{k} {n} differ ({z} only in a zero's sign, max |gap| "
                     f"{gap:.3g})" for k, n, z, gap in table_report(*scenes)))
+    log("    float32 ops against float64 rounded, elements that differ of "
+        "2^20: " + ", ".join(f"{name} {dev} {n}" for name, dev, n
+                             in rounding_report(device)))
     pack_divergence(*scenes)
     train_divergence(*scenes, o, d, feats, params)
     out = []

@@ -560,13 +560,13 @@ def test_mxu_walk_model_shapes_agree(batches, mxu_stacks, shape, br):
 
 
 def test_mxu_shape_fits_every_block_size():
-    """mxu_shape takes the first of MXU_SHAPES whose CTAs fit for every
-    block size the wrapper accepts (the split walk's: multiples of 32 up
-    to 1024), and every shape it takes is compiled."""
+    """mxu_shape takes the first of MXU_SHAPES (the compiled shapes) whose
+    CTAs fit, for every block size the wrapper accepts (the split walk's:
+    multiples of 32 up to 1024): the first at the default size."""
     assert cs.mxu_shape(cs.DEFAULT_BR) == cs.MXU_SHAPES[0]
     for br in range(32, 1025, 32):
         shape = cs.mxu_shape(br)
-        assert shape in cs.MXU_VARIANTS and br % shape[0] == 0
+        assert shape in cs.MXU_SHAPES and br % shape[0] == 0
         assert cs.mxu_threads(br, shape) <= cs.MXU_MAX_THREADS
 
 
@@ -893,7 +893,7 @@ def test_kernel_bench_tool(capsys):
     assert len(re.findall(r"^    at (?:128|1024) rays a block, vs twin", out,
                           re.M)) == 2
     shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
-    fit = [v for v in cs.MXU_VARIANTS
+    fit = [v for v in cs.MXU_SHAPES
            if cs.mxu_threads(cs.DEFAULT_BR, v) <= cs.MXU_MAX_THREADS]
     assert len(shapes) == (5 * len(cs.SPLIT_SHAPES) + 3 * len(fit)
                            + 3 * 3)
