@@ -33,8 +33,8 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vectors v (..., 3) by quaternion q (..., 4) = (w, x, y, z)."""
     w = q[..., :1]
     u = q[..., 1:].expand(v.shape)
-    uv = torch.linalg.cross(u, v, dim=-1)
-    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=-1))
+    uv = fp32.cross(u, v)
+    return v + 2.0 * (w * uv + fp32.cross(u, uv))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +70,8 @@ class Camera:
         cam_dir = torch.stack([-pixels[..., 0] * half_w,      # negated x
                                pixels[..., 1] * half_h,
                                torch.ones_like(pixels[..., 0])], dim=-1)
-        cam_dir = cam_dir / fp32.sqrt_rn((cam_dir * cam_dir).sum(-1,
-                                                              keepdim=True))
+        cam_dir = cam_dir / fp32.sqrt_rn(fp32.dot3(cam_dir, cam_dir))[...,
+                                                                     None]
         world_dir = quat_rotate(self._quat(dev), cam_dir)
         origin = self.position(dev).expand(world_dir.shape)
         return origin, world_dir

@@ -136,8 +136,12 @@
 //     shared memory, a blocking stop). Bound on this card: the tensor
 //     cores, 384 TF32 flops a (live ray, slot) pair (six piece products x
 //     4 quantities x K = 4 x 2 sides x 2); the lanes add a divide and three
-//     edge tests a pair and the B operand's split. As the other walks it
-//     lasts as long as its longest block walk. Its design:
+//     edge tests a pair and the B operand's split. In practice, as the
+//     other walks, it lasts as long as its longest block walk, visit after
+//     visit (26 visits where the mean is 9 on the stand-in's primary
+//     chunk), and at 100 registers a thread one 512-thread CTA fills an
+//     SM, so about half of a chunk's 32 block walks (clusters of 8 on 132
+//     SMs) run at a time. Its design:
 //     - The split walk's skeleton and invariants: a cluster of CS CTAs a
 //       ray block, live rays first, the cp.async ring, the stop pipelined
 //       one visit ahead. The quad-major buffer is [quantity][slot][k], B's

@@ -82,16 +82,6 @@ _INVALID_ROW = [0.0] * 4 + [0.0, 0.0, 0.0, 1.0] * 3
 LAUNCHES = {"keys": 0, "walk": 0, "walk_refine": 0, "walk_mxu": 0}
 
 
-def _cross(a, b):
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
-
-
-def _dot3(a, b):
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
-
-
 def pack_cluster_tiles(vertices, tris, perm, layout: str | None = None):
     """Per-cluster constants for the sweep. perm: [L, C] triangle ids (-1 =
     pad). Returns (aabbs [L, 8]: lo3, hi3, pad2; tiles; layout), where tiles
@@ -106,13 +96,13 @@ def pack_cluster_tiles(vertices, tris, perm, layout: str | None = None):
     valid = perm >= 0
     tv = vertices[tris[perm.clamp_min(0)]]              # [L, C, 3, 3]
     v0, v1, v2 = tv[:, :, 0], tv[:, :, 1], tv[:, :, 2]
-    n = _cross(v1 - v0, v2 - v0)
-    n = n / fp32.sqrt_rn(_dot3(n, n))[..., None]
-    D = _dot3(n, v0)
+    n = fp32.cross(v1 - v0, v2 - v0)
+    n = n / fp32.sqrt_rn(fp32.dot3(n, n))[..., None]
+    D = fp32.dot3(n, v0)
 
     def edge_consts(va, vb):
-        m = _cross(n, vb - va)
-        return m, _dot3(m, va)
+        m = fp32.cross(n, vb - va)
+        return m, fp32.dot3(m, va)
 
     m0, b0 = edge_consts(v0, v1)
     m1, b1 = edge_consts(v1, v2)

@@ -2,15 +2,31 @@
 
 The card and the CPU twins build the same tables and rays only where each
 op rounds its exact result once, to nearest, as IEEE addition,
-multiplication and division do on both. PyTorch's float32 square root is
-not rounded that way on every build and device (chip_smoke.py phase 7
-compares both against float64; PERF.md, PR 6), so the port takes its
-square roots here.
+multiplication and division do on both, in the same order. Three PyTorch
+forms do not: a fused torch.linalg.cross may contract a multiply into its
+subtract (the CPU build does), a .sum over a 3-vector adds in another
+order on the card than on the CPU, and the float32 square root is not
+rounded to nearest on every build (chip_smoke.py phase 7 finds where the
+two devices part and compares both against float64; PERF.md, PR 6). So
+the port spells its cross and dot products as separate multiplies and
+adds in a fixed order, and takes its square roots here.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def cross(a, b):
+    """a x b over the last axis, one rounding per multiply and subtract."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def dot3(a, b):
+    """a . b over the last axis of 3, summed (x + y) + z."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -24,18 +24,15 @@ import torch
 from cge_tpu_torch.ops import cluster_sweep, fp32, sweep
 
 
-def _dot(a, b):
-    return (a * b).sum(dim=-1)
-
-
 def triangle_plane(v0, v1, v2):
     """trianglePlane: n = normalize(cross(v1-v0, v2-v0)), D = dot(n, v0);
-    degenerate triangles get n = 0."""
-    n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
-    n2 = _dot(n, n)[..., None]
+    degenerate triangles get n = 0; fp32's cross and square root, so that
+    every device rounds alike."""
+    n = fp32.cross(v1 - v0, v2 - v0)
+    n2 = fp32.dot3(n, n)[..., None]
     pos = n2 > 0
     n = torch.where(pos, n / fp32.sqrt_rn(torch.where(pos, n2, 1.0)), 0.0)
-    return n, _dot(n, v0)
+    return n, fp32.dot3(n, v0)
 
 
 def intersect_spheres_t(o, d, tmax, center, radius):
@@ -43,8 +40,8 @@ def intersect_spheres_t(o, d, tmax, center, radius):
     center [S, 3]; radius [S]. Returns t [R, S], +inf on miss. Accept:
     disc >= 0, smallest non-negative root, t < tmax (strict)."""
     oc = o[:, None, :] - center[None, :, :]
-    b = 2.0 * _dot(d[:, None, :], oc)
-    c = _dot(oc, oc) - radius[None, :] ** 2
+    b = 2.0 * fp32.dot3(d[:, None, :], oc)
+    c = fp32.dot3(oc, oc) - radius[None, :] ** 2
     disc = b * b - 4.0 * c
     sq = fp32.sqrt_rn(disc.clamp_min(0.0))
     t0 = (-b - sq) / 2.0

@@ -17,13 +17,9 @@ import torch
 from cge_tpu_torch.ops import fp32
 
 
-def _dot(a, b):
-    return (a * b).sum(dim=-1)
-
-
 def _normalize(v):
     """Normalize; zero vectors map to zero."""
-    n2 = _dot(v, v)[..., None]
+    n2 = fp32.dot3(v, v)[..., None]
     pos = n2 > 0
     return torch.where(pos, v / fp32.sqrt_rn(torch.where(pos, n2, 1.0)), 0.0)
 
@@ -57,12 +53,12 @@ def compute_shading(light_pos, light_color, ray_o, ray_d, ray_t,
     n = _normalize(normal)
     p = ray_d * ray_t[..., None] + ray_o
     light = _normalize(light_pos - p)
-    ndl = _dot(n, light)
+    ndl = fp32.dot3(n, light)
     diffuse = kd * light_color * ndl.clamp_min(0.0)[..., None]
     camera = _normalize(ray_d)
-    gate = (ndl > 0) & (_dot(n, camera) > 0)
+    gate = (ndl > 0) & (fp32.dot3(n, camera) > 0)
     reflection = 2.0 * ndl[..., None] * n - light
-    spec_raw, spec_nan = cpp_pow_masked(_dot(camera, reflection), shininess)
+    spec_raw, spec_nan = cpp_pow_masked(fp32.dot3(camera, reflection), shininess)
     spec = torch.where(gate, spec_raw, 0.0)
     out = diffuse + ks * light_color * spec[..., None]
     return torch.where((gate & spec_nan)[..., None], torch.nan, out)
@@ -75,7 +71,7 @@ def compute_reflection_ray(ray_o, ray_d, ray_t, normal, ks):
     p = ray_t[..., None] * ray_d + ray_o
     n = _normalize(normal)
     r = _normalize(-ray_d)
-    refl = _normalize(2.0 * _dot(n, r)[..., None] * n - r)
+    refl = _normalize(2.0 * fp32.dot3(n, r)[..., None] * n - r)
     origin = p + 1e-5 * n
     v = valid[..., None]
     return (torch.where(v, origin, 0.0), torch.where(v, refl, 0.0), valid)

@@ -25,7 +25,6 @@ import torch
 
 from cge_tpu_torch import _kernels
 from cge_tpu_torch.ops import fp32
-from cge_tpu_torch.ops.cluster_sweep import _cross, _dot3
 
 TILE = 128            # triangle rows per tile: csrc/sweep.cu's SWEEP_TILE
 # The triangle range is split every TILES_PER_SPLIT tiles (256 rows), up to
@@ -51,9 +50,9 @@ def pack_tri_table(vertices, tris, mask):
     the table is built from detached vertices."""
     v = vertices.detach()
     v0, v1, v2 = v[tris[:, 0]], v[tris[:, 1]], v[tris[:, 2]]
-    n = _cross(v1 - v0, v2 - v0)
-    n = n / fp32.sqrt_rn(_dot3(n, n))[:, None]
-    D = _dot3(n, v0)
+    n = fp32.cross(v1 - v0, v2 - v0)
+    n = n / fp32.sqrt_rn(fp32.dot3(n, n))[:, None]
+    D = fp32.dot3(n, v0)
     zero = torch.zeros_like(D)
     return torch.cat([v0, v1, v2, n, D[:, None], mask.float()[:, None],
                       zero[:, None], zero[:, None]], dim=1).float().contiguous()

@@ -31,7 +31,7 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
         raise NotImplementedError(
             "transparency shadows (closest blocker's transparency, "
             "light.cpp:65-68): see ROADMAP 1.5")
-    d2 = (ray_d * ray_d).sum(dim=-1, keepdim=True)
+    d2 = fp32.dot3(ray_d, ray_d)[..., None]
     dpos = d2 > 0
     dlen = torch.where(dpos, fp32.sqrt_rn(torch.where(dpos, d2, 1.0)), 0.0)
     dhat = torch.where(dpos, ray_d / torch.where(dpos, dlen, 1.0), 0.0)

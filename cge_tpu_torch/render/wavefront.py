@@ -35,10 +35,6 @@ from cge_tpu_torch.render.lights import light_contribution
 from cge_tpu_torch.types import check_supported
 
 
-def _dot(a, b):
-    return (a * b).sum(dim=-1)
-
-
 @dataclasses.dataclass(frozen=True)
 class HitAttrs:
     """Per-ray hit attributes (the reference's HitInfo + material fill,
@@ -104,16 +100,16 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     row = _take(attr_rows, prim.clamp(0, attr_rows.shape[0] - 1))  # [N, 40]
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n_geo, D = triangle_plane(v0, v1, v2)
-    denom = _dot(d, n_geo)
+    denom = fp32.dot3(d, n_geo)
     denom = torch.where(denom.abs() > 0, denom, 1.0)
-    t_tri = (D - _dot(o, n_geo)) / denom
+    t_tri = (D - fp32.dot3(o, n_geo)) / denom
 
     sp = prim.clamp(0, scene.sph_center.shape[0] - 1)
     ctr = _take(scene.sph_center, sp)
     rad = _take(scene.sph_radius, sp)
     oc = o - ctr
-    b = 2.0 * _dot(d, oc)
-    c = _dot(oc, oc) - rad * rad
+    b = 2.0 * fp32.dot3(d, oc)
+    c = fp32.dot3(oc, oc) - rad * rad
     disc = b * b - 4.0 * c
     disc_pos = disc > 0
     sq = torch.where(disc_pos, fp32.sqrt_rn(torch.where(disc_pos, disc, 1.0)),
@@ -130,9 +126,9 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
         bary = barycentric_coord(v0, v1, v2, p)
         n_i = interpolate_normal(row[:, 9:12], row[:, 12:15], row[:, 15:18],
                                  bary)
-        n_tri = torch.where((_dot(n_i, d) > 0)[:, None], -n_i, n_i)  # flip
+        n_tri = torch.where((fp32.dot3(n_i, d) > 0)[:, None], -n_i, n_i)  # flip
     else:
-        n_tri = _normalize(torch.linalg.cross(v1 - v0, v2 - v0, dim=-1))
+        n_tri = _normalize(fp32.cross(v1 - v0, v2 - v0))
     normal = torch.where(is_sphere[:, None], _normalize(p - ctr), n_tri)
 
     smid = scene.sph_mat[sp]
