@@ -2,14 +2,16 @@
 
 The card and the CPU twins build the same tables and rays only where each
 op rounds its exact result once, to nearest, as IEEE addition,
-multiplication and division do on both, in the same order. Three PyTorch
+multiplication and division do on both, in the same order. Five PyTorch
 forms do not: a fused torch.linalg.cross may contract a multiply into its
 subtract (the CPU build does), a .sum over a 3-vector adds in another
-order on the card than on the CPU, and the float32 square root is not
-rounded to nearest on every build (chip_smoke.py phase 7 finds where the
-two devices part and compares both against float64; PERF.md, PR 6). So
-the port spells its cross and dot products as separate multiplies and
-adds in a fixed order, and takes its square roots here.
+order on the card than on the CPU, a CUDA division by a Python number
+multiplies by its reciprocal, and the float32 square root and power are
+not rounded to nearest on every build (chip_smoke.py phase 7 finds where
+the two devices part and compares both against float64; PERF.md, PR 6).
+So the port spells its cross and dot products as separate multiplies and
+adds in a fixed order, and takes those divisions, square roots and powers
+here.
 """
 
 from __future__ import annotations
@@ -27,6 +29,22 @@ def cross(a, b):
 def dot3(a, b):
     """a . b over the last axis of 3, summed (x + y) + z."""
     return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def div(x, c: float):
+    """x / c for a Python number c, rounded once on every device: c as a
+    0-dim tensor on x's device (a CPU scalar divisor makes CUDA multiply by
+    its reciprocal, which rounds twice)."""
+    return x / x.new_full((), c)
+
+
+def pow_f64(base, exp):
+    """base ** exp for float32 tensors, taken in float64 and rounded to
+    float32. Neither device's float64 power is exact, but both round to
+    the same float32 unless their results straddle a float32 midpoint
+    (about 2^-28 of values), where the float32 powers of the two devices
+    part on a few percent of values."""
+    return torch.pow(base.double(), exp.double()).to(base.dtype)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,8 @@ def barycentric_coord(v0, v1, v2, p):
 def interpolate_normal(n0, n1, n2, bary):
     """interpolateNormal (interpolate.cpp:19-23): normalize of the blend / 3
     (the / 3 is kept for parity of intermediates); |n| = 0 maps to 0."""
-    n = (n0 * bary[..., :1] + n1 * bary[..., 1:2] + n2 * bary[..., 2:3]) / 3.0
+    n = fp32.div(n0 * bary[..., :1] + n1 * bary[..., 1:2]
+                 + n2 * bary[..., 2:3], 3.0)
     n2s = fp32.dot3(n, n)[..., None]
     pos = n2s > 0
     return torch.where(pos, n / fp32.sqrt_rn(torch.where(pos, n2s, 1.0)), 0.0)

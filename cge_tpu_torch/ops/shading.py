@@ -32,7 +32,7 @@ def cpp_pow_masked(base, exp):
     odd = torch.remainder(ip, 2.0).abs() == 1.0
     absb = base.abs()
     nonzero = absb > 0
-    mag = torch.pow(torch.where(nonzero, absb, 1.0), exp)
+    mag = fp32.pow_f64(torch.where(nonzero, absb, 1.0), exp)
     zero_val = torch.where(exp == 0, 1.0,
                            torch.where(exp > 0, 0.0, torch.inf))
     mag = torch.where(nonzero, mag, zero_val)

@@ -415,9 +415,11 @@ def table_report(card, cpu) -> list:
 
 
 def rounding_report(device) -> list:
-    """PyTorch's float32 sqrt, division and pow on the card and on the CPU
-    against the same op in float64 rounded to float32 (exact for sqrt and
-    division), over a seeded sample: (op, device, elements that differ)."""
+    """PyTorch's float32 sqrt, division (by a tensor and by a Python
+    number) and pow on the card and on the CPU, and fp32's forms of them,
+    against the same op in float64 rounded to float32 (the nearest float32
+    for sqrt and division), over a seeded sample: (op, device, elements
+    that differ)."""
     import numpy as np
     import torch
 
@@ -430,11 +432,14 @@ def rounding_report(device) -> list:
     y = torch.from_numpy(rng.normal(size=n).astype(np.float32))
     base = x.clamp(0.0, 4.0)
     ops = (("sqrt", torch.sqrt, (x,)), ("sqrt_rn", fp32.sqrt_rn, (x,)),
-           ("div", torch.div, (x, y)), ("pow", torch.pow, (base, y)))
+           ("div", torch.div, (x, y)), ("div by 3.0", lambda a: a / 3.0, (x,)),
+           ("fp32.div by 3.0", lambda a: fp32.div(a, 3.0), (x,)),
+           ("pow", torch.pow, (base, y)), ("pow_f64", fp32.pow_f64, (base, y)))
     rows = []
+    exact = {"sqrt_rn": torch.sqrt, "fp32.div by 3.0": lambda a: a / 3.0,
+             "pow_f64": torch.pow}
     for name, fn, args in ops:
-        ref = (fn(*(a.double() for a in args)).float()
-               if name != "sqrt_rn" else torch.sqrt(x.double()).float())
+        ref = exact.get(name, fn)(*(a.double() for a in args)).float()
         for dev in (device, torch.device("cpu")):
             got = fn(*(a.to(dev) for a in args)).cpu()
             differ = (got != ref) & ~(got.isnan() & ref.isnan())
@@ -449,8 +454,8 @@ def _show_partings(parts) -> str:
 
 def train_divergence(card, cpu, o, d, feats, params) -> list:
     """The small train step's forward trace on the card and on the CPU
-    twins with every op recorded (cge_tpu_torch/tools/op_diff.py; a sweep
-    and a square root each as one op): the rays whose K3 ids differ in each
+    twins with every op recorded (cge_tpu_torch/tools/op_diff.py; a sweep,
+    a square root and a power each as one op): the rays whose K3 ids differ in each
     sweep call, the first ops at which the runs part, and the first ops at
     which one ray whose ids differ parts. Returns the per-call counts."""
     import torch
@@ -463,7 +468,8 @@ def train_divergence(card, cpu, o, d, feats, params) -> list:
     for s in (card, cpu):
         so, sd = o.to(s.vertices.device), d.to(s.vertices.device)
         with torch.no_grad(), op_diff.Recorder(
-                pause=[(sweep, "closest_tris"), (fp32, "sqrt_rn")]) as rec:
+                pause=[(sweep, "closest_tris"), (fp32, "sqrt_rn"),
+                       (fp32, "pow_f64")]) as rec:
             trace(s, so, sd, feats, params)
         runs.append(rec.entries)
     a, b = runs
