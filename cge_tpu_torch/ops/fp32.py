@@ -28,7 +28,8 @@ def cross(a, b):
 
 def dot3(a, b):
     """a . b over the last axis of 3, summed (x + y) + z."""
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
+            + a[..., 2] * b[..., 2])
 
 
 def div(x, c: float):

@@ -86,7 +86,7 @@ class Recorder(TorchDispatchMode):
         return out
 
 
-def _differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise: the bits differ (any NaN equals any NaN)."""
     if a.dtype.is_floating_point:
         bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
@@ -108,7 +108,7 @@ def entry_differs(ea, eb, row: int | None = None, rows: int | None = None):
             if a.dim() == 0 or a.shape[0] != rows:
                 continue
             a, b = a[row], b[row]
-        diff = _differ(a, b)
+        diff = bits_differ(a, b)
         k = int(diff.sum())
         if k and first is None:
             idx = tuple(int(i) for i in diff.nonzero()[0]) if a.dim() else ()

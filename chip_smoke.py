@@ -405,7 +405,7 @@ def table_report(card, cpu) -> list:
     rows = []
     for k in a:
         x, y = a[k].cpu(), b[k]
-        differ = op_diff._differ(x, y)
+        differ = op_diff.bits_differ(x, y)
         zeros = differ & (x == y)                 # +0 against -0
         gap = (x.double() - y.double()).abs()[differ & ~zeros]
         gap = gap[torch.isfinite(gap)]
@@ -455,9 +455,10 @@ def _show_partings(parts) -> str:
 def train_divergence(card, cpu, o, d, feats, params) -> list:
     """The small train step's forward trace on the card and on the CPU
     twins with every op recorded (cge_tpu_torch/tools/op_diff.py; a sweep,
-    a square root and a power each as one op): the rays whose K3 ids differ in each
-    sweep call, the first ops at which the runs part, and the first ops at
-    which one ray whose ids differ parts. Returns the per-call counts."""
+    a square root and a power each as one op): the rays whose K3 ids
+    differ in each sweep call, the first ops at which the runs part, and
+    the first ops at which one ray whose ids differ parts. Returns the
+    per-call counts."""
     import torch
 
     from cge_tpu_torch.ops import fp32, sweep
