@@ -20,16 +20,20 @@ import torch
 
 
 def cross(a, b):
-    """a x b over the last axis, one rounding per multiply and subtract."""
-    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
-                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
-                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+    """a x b over the last axis, one rounding per multiply and subtract:
+    (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0)."""
+    return (torch.roll(a, -1, dims=-1) * torch.roll(b, 1, dims=-1)
+            - torch.roll(a, 1, dims=-1) * torch.roll(b, -1, dims=-1))
 
 
 def dot3(a, b):
-    """a . b over the last axis of 3, summed (x + y) + z."""
-    return ((a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1])
-            + a[..., 2] * b[..., 2])
+    """a . b over the last axis of 3, summed (x + y) + z on every device:
+    the order of the CPU build's .sum and of the JAX package's sums, which
+    the CPU tests hold the port to. CUDA's .sum over a 3-vector adds
+    (x + z) + y (chip_smoke.py phase 7 measures it), so the order is spelt
+    out: one multiply and two adds, a kernel more than a .sum."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
 def div(x, c: float):
@@ -50,14 +54,18 @@ def pow_f64(base, exp):
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The square root of a float32 tensor rounded to nearest on every
-    device. It is taken in float64 and rounded to float32, which is the
-    nearest float32 when the float64 root is correctly rounded (53 bits >=
-    2 x 24 + 2). A float64 root an ulp off could still cross a float32
-    midpoint, so the result s is checked against its neighbours exactly:
-    the midpoint m of s and a neighbour has 25 significant bits, so m * m
-    is exact in float64, and x lies beyond m only if the neighbour is the
-    nearer root (no float32 root lies exactly on a midpoint). The check
-    moves the value only; the gradient is the float64 root's."""
+    device. CUDA's float32 square root is IEEE's (sqrt.rn), so a CUDA
+    tensor takes torch.sqrt. Elsewhere the root is taken in float64 and
+    rounded to float32, which is the nearest float32 when the float64 root
+    is correctly rounded (53 bits >= 2 x 24 + 2); a float64 root an ulp
+    off could still cross a float32 midpoint, so the result s is checked
+    against its neighbours exactly: the midpoint m of s and a neighbour
+    has 25 significant bits, so m * m is exact in float64, and x lies
+    beyond m only if the neighbour is the nearer root (no float32 root
+    lies exactly on a midpoint). The check moves the value only; the
+    gradient is the float64 root's."""
+    if x.is_cuda:
+        return torch.sqrt(x)
     root = torch.sqrt(x.double()).to(x.dtype)
     with torch.no_grad():
         xd, s = x.double(), root.double()

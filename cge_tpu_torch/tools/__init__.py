@@ -17,6 +17,7 @@
 
 All but sass_count take `--device cpu` and small sizes for a run on the
 plain twins, which reports no times. Beside them, roofline.py holds the
-bounds and op_diff.py finds the first op at which two runs of the same
-code (the card and the CPU twins) part.
+bounds, op_diff.py finds the first op at which two runs of the same code
+(the card and the CPU twins) part, and fp32_cost.py measures what the
+port's float32 forms (ops/fp32.py) cost a frame and a train step.
 """

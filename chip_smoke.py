@@ -414,12 +414,17 @@ def table_report(card, cpu) -> list:
     return rows
 
 
+# fp32's forms that must round alike on the card and the CPU
+EXACT_FORMS = ("sqrt_rn", "fp32.div by 3.0", "dot3")
+
+
 def rounding_report(device) -> list:
     """PyTorch's float32 sqrt, division (by a tensor and by a Python
     number) and pow on the card and on the CPU, and fp32's forms of them,
     against the same op in float64 rounded to float32 (the nearest float32
-    for sqrt and division), over a seeded sample: (op, device, elements
-    that differ)."""
+    for sqrt and division); a 3-vector's .sum and fp32.dot3 against the
+    sum (x + y) + z. Over seeded samples: (op, device, elements that
+    differ)."""
     import numpy as np
     import torch
 
@@ -430,16 +435,24 @@ def rounding_report(device) -> list:
     x = torch.from_numpy((2.0 ** rng.uniform(-40, 40, n)
                           * rng.uniform(1, 2, n)).astype(np.float32))
     y = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    u, v = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+            for _ in range(2))
     base = x.clamp(0.0, 4.0)
+    f64 = {"sqrt_rn": torch.sqrt, "fp32.div by 3.0": lambda a: a / 3.0,
+           "pow_f64": torch.pow}
     ops = (("sqrt", torch.sqrt, (x,)), ("sqrt_rn", fp32.sqrt_rn, (x,)),
            ("div", torch.div, (x, y)), ("div by 3.0", lambda a: a / 3.0, (x,)),
            ("fp32.div by 3.0", lambda a: fp32.div(a, 3.0), (x,)),
-           ("pow", torch.pow, (base, y)), ("pow_f64", fp32.pow_f64, (base, y)))
+           ("pow", torch.pow, (base, y)), ("pow_f64", fp32.pow_f64, (base, y)),
+           (".sum of a 3-vector", lambda a, b: (a * b).sum(dim=-1), (u, v)),
+           ("dot3", fp32.dot3, (u, v)))
     rows = []
-    exact = {"sqrt_rn": torch.sqrt, "fp32.div by 3.0": lambda a: a / 3.0,
-             "pow_f64": torch.pow}
     for name, fn, args in ops:
-        ref = exact.get(name, fn)(*(a.double() for a in args)).float()
+        if args[0] is u:
+            p = u * v
+            ref = (p[:, 0] + p[:, 1]) + p[:, 2]
+        else:
+            ref = f64.get(name, fn)(*(a.double() for a in args)).float()
         for dev in (device, torch.device("cpu")):
             got = fn(*(a.to(dev) for a in args)).cpu()
             differ = (got != ref) & ~(got.isnan() & ref.isnan())
@@ -495,11 +508,11 @@ def train_divergence(card, cpu, o, d, feats, params) -> list:
 
 def small_train_check(device, tmp):
     """The same step on the card and on the CPU twins for the 41x32
-    stand-in at 64x64 rays. The tables both build are equal bit for bit
-    (a zero's sign aside), no ray's K3 ids differ in any sweep of the
-    forward trace (the first ops at which the traces part are printed),
-    the loss agrees to TRAIN_LOSS_REL and each gradient to TRAIN_GRAD_REL
-    of its norm."""
+    stand-in at 64x64 rays. fp32's exact forms (EXACT_FORMS) agree on both
+    devices, the tables both build are equal bit for bit (a zero's sign
+    aside), no ray's K3 ids differ in any sweep of the forward trace (the
+    first ops at which the traces part are printed), the loss agrees to
+    TRAIN_LOSS_REL and each gradient to TRAIN_GRAD_REL of its norm."""
     import numpy as np
     import torch
 
@@ -522,12 +535,15 @@ def small_train_check(device, tmp):
         + ", ".join(f"{k} equal" if n == 0 else
                     f"{k} {n} differ ({z} only in a zero's sign, max |gap| "
                     f"{gap:.3g})" for k, n, z, gap in tables))
-    log("    float32 ops against float64 rounded, elements that differ of "
-        "2^20: " + ", ".join(f"{name} {dev} {n}" for name, dev, n
-                             in rounding_report(device)))
+    rounding = rounding_report(device)
+    log("    float32 ops against float64 rounded (3-vector dots against "
+        "(x + y) + z), elements that differ of 2^20: " + ", ".join(
+            f"{name} {dev} {n}" for name, dev, n in rounding))
     rays = train_divergence(*scenes, o, d, feats, params)
-    if any(n > z for _, n, z, _ in tables) or any(rays):
-        raise AssertionError("card and CPU build different tables or hits")
+    if (any(n > z for _, n, z, _ in tables) or any(rays)
+            or any(n for name, _, n in rounding if name in EXACT_FORMS)):
+        raise AssertionError("card and CPU round apart, build different "
+                             "tables or hit different triangles")
     out = []
     for s in scenes:
         dev = s.vertices.device

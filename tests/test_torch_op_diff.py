@@ -2,10 +2,12 @@
 first op at which two runs of the same PyTorch code part (chip_smoke.py
 runs it on the small train step, card against CPU). Here both runs are on
 the CPU, one with an input nudged by an ulp, so the parting is known. And
-the square root the port takes so that both devices round alike
-(cge_tpu_torch/ops/fp32.py)."""
+the float32 forms the port takes so that both devices round alike
+(cge_tpu_torch/ops/fp32.py), with the tool that measures their cost
+(cge_tpu_torch/tools/fp32_cost.py)."""
 
 import dataclasses
+import re
 import types
 
 import numpy as np
@@ -130,3 +132,47 @@ def test_sqrt_rn_is_the_nearest_float32():
     y = x[:64].clone().requires_grad_(True)
     sqrt_rn(y).sum().backward()
     torch.testing.assert_close(y.grad, 0.5 / torch.sqrt(x[:64]))
+
+
+def test_fp32_products_in_a_fixed_order():
+    """fp32.dot3 adds (x + y) + z and fp32.cross is the textbook component
+    form, each product and sum rounded once (chip_smoke.py phase 7 holds
+    the card's to the same bits): on the CPU, dot3 equals the CPU build's
+    .sum, while torch.linalg.cross, which contracts a multiply into its
+    subtract there, parts from cross on many values."""
+    from cge_tpu_torch.ops import fp32
+    rng = np.random.default_rng(SEED)
+    a, b = (torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
+            for _ in range(2))
+    p = a * b
+    assert torch.equal(fp32.dot3(a, b), (p[:, 0] + p[:, 1]) + p[:, 2])
+    assert torch.equal(fp32.dot3(a[:, None], b[None, :8])[5, 3],
+                       fp32.dot3(a[5], b[3]))
+    c = fp32.cross(a, b)
+    want = torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=-1)
+    assert torch.equal(c, want)
+    assert (c != torch.linalg.cross(a, b, dim=-1)).any()
+
+
+def test_fp32_cost_tool(capsys):
+    """fp32_cost at a tiny size on the CPU: both sets of forms render and
+    step in turns (ops counted, no device time claimed), the forms are
+    restored after, and the CPU build's .sum adds (x + y) + z."""
+    from cge_tpu_torch.ops import fp32
+    from cge_tpu_torch.tools import fp32_cost
+    keep = fp32.dot3
+    assert fp32_cost.main(["--device", "cpu", "--res", "32", "--side", "8",
+                           "--segments", "8", "--reps", "1", "--values",
+                           "2048"]) == 0
+    assert fp32.dot3 is keep
+    out = capsys.readouterr().out
+    rows = re.findall(r"^(fp32|torch) forms: (\d+) torch ops a frame, frame "
+                      r"ms not measured, step ms not measured$", out, re.M)
+    assert [r[0] for r in rows] == ["fp32", "torch", "torch", "fp32"]
+    assert rows[0][1] == rows[3][1] and rows[1][1] == rows[2][1]
+    assert int(rows[0][1]) > int(rows[1][1])
+    orders = re.findall(r"values that each order misses: \(x \+ y\) \+ z "
+                        r"(\d+),", out)
+    assert orders == ["0", "0", "0"]
