@@ -31,9 +31,11 @@ def dot3(a, b):
     the order of the CPU build's .sum and of the JAX package's sums, which
     the CPU tests hold the port to. CUDA's .sum over a 3-vector adds
     (x + z) + y (chip_smoke.py phase 7 measures it), so the order is spelt
-    out: one multiply and two adds, a kernel more than a .sum."""
-    p = a * b
-    return (p[..., 0] + p[..., 1]) + p[..., 2]
+    out: one multiply and two adds, a kernel more than a .sum. The
+    products are unbound, not indexed, so the backward stacks their
+    gradients in one op."""
+    x, y, z = (a * b).unbind(dim=-1)
+    return (x + y) + z
 
 
 def div(x, c: float):

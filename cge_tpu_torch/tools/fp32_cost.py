@@ -3,8 +3,8 @@ train step: the brute512 frame (the teapot-size stand-in, 512x512, the
 headline features with the accel off) and the train128 step, each with
 fp32's forms and with PyTorch's own (torch.sqrt, .sum, torch.linalg.cross,
 torch.pow, division by a number) swapped in, in turns: torch ops
-dispatched a frame, the median frame ms (CUDA events) and the median step
-ms (host clock around work that ends in a synchronize). Then the order in
+dispatched a frame and a step, the median frame ms (CUDA events) and the
+median step ms (host clock around work that ends in a synchronize). Then the order in
 which a .sum adds a 3-vector on the device, in three layouts the port
 passes it (contiguous, a slice of a wider row, broadcast): the number of
 values, of 2^20 a layout, that each order misses.
@@ -50,8 +50,8 @@ class OpCount(TorchDispatchMode):
 
 
 def forms_cost(scene, dev, res: int, side: int, reps: int) -> list:
-    """(forms, ops a frame, frame ms, step ms) for fp32's forms and
-    PyTorch's, in the order fp32, torch, torch, fp32."""
+    """(forms, ops a frame, ops a step, frame ms, step ms) for fp32's forms
+    and PyTorch's, in the order fp32, torch, torch, fp32."""
     feats, params = ct.Features(**BRUTE), ct.RenderParams()
     o, d = ct.Camera().generate_rays(
         ct.camera.pixel_grid(side, side, dev).reshape(-1, 2))
@@ -73,6 +73,8 @@ def forms_cost(scene, dev, res: int, side: int, reps: int) -> list:
             step()
             with OpCount() as count:
                 frame()
+            with OpCount() as step_count:
+                step()
             frame_ms = step_ms = None
             if dev.type == "cuda":
                 frame_ms = float(np.median([common.device_ms(frame, dev, 1)
@@ -84,7 +86,7 @@ def forms_cost(scene, dev, res: int, side: int, reps: int) -> list:
                     torch.cuda.synchronize()
                     steps.append((time.perf_counter() - t0) * 1e3)
                 step_ms = float(np.median(steps))
-            rows.append((name, count.n, frame_ms, step_ms))
+            rows.append((name, count.n, step_count.n, frame_ms, step_ms))
     finally:
         for k, v in FP32.items():
             setattr(fp32, k, v)
@@ -124,11 +126,11 @@ def main(argv=None) -> int:
     dev = common.device_from(args.device)
     print(common.card_line(dev), flush=True)
     scene = common.standin_scene((common.TEAPOT_GRID[0], args.segments), dev)
-    for name, ops, frame_ms, step_ms in forms_cost(
+    for name, ops, step_ops, frame_ms, step_ms in forms_cost(
             scene, dev, args.res, args.side, args.reps):
-        print(f"{name} forms: {ops} torch ops a frame, frame "
-              f"{common.fmt_ms(frame_ms)}, step {common.fmt_ms(step_ms)}",
-              flush=True)
+        print(f"{name} forms: {ops} torch ops a frame, {step_ops} a step, "
+              f"frame {common.fmt_ms(frame_ms)}, step "
+              f"{common.fmt_ms(step_ms)}", flush=True)
     for name, misses in sum_orders(dev, args.values).items():
         print(f".sum of a 3-vector ({name}), values that each order misses: "
               + ", ".join(f"{k} {v}" for k, v in misses.items()), flush=True)

@@ -168,10 +168,11 @@ def test_fp32_cost_tool(capsys):
                            "2048"]) == 0
     assert fp32.dot3 is keep
     out = capsys.readouterr().out
-    rows = re.findall(r"^(fp32|torch) forms: (\d+) torch ops a frame, frame "
-                      r"ms not measured, step ms not measured$", out, re.M)
+    rows = re.findall(r"^(fp32|torch) forms: (\d+) torch ops a frame, "
+                      r"(\d+) a step, frame ms not measured, step ms not "
+                      r"measured$", out, re.M)
     assert [r[0] for r in rows] == ["fp32", "torch", "torch", "fp32"]
-    assert rows[0][1] == rows[3][1] and rows[1][1] == rows[2][1]
+    assert rows[0][1:] == rows[3][1:] and rows[1][1:] == rows[2][1:]
     assert int(rows[0][1]) > int(rows[1][1])
     orders = re.findall(r"values that each order misses: \(x \+ y\) \+ z "
                         r"(\d+),", out)
