@@ -70,7 +70,7 @@ SPLIT_MAX_THREADS = 1024
 # The mxu walk's compiled shapes: (CTAs per ray block, warps per 16-ray M
 # tile), in order of preference. A CTA runs ceil(BR / CTAs / 16) * warps *
 # 32 threads, at most MXU_MAX_THREADS. 8 x 4 was the fastest of ten
-# variants at the main path's 16k-ray batches (PERF.md, PR 6); 8 x 2 takes
+# variants at the main path's 16k-ray batches (PERF.md); 8 x 2 takes
 # the blocks of 1024 rays.
 MXU_SHAPES = ((8, 4), (8, 2))
 MXU_MAX_THREADS = 512

@@ -8,7 +8,7 @@ subtract (the CPU build does), a .sum over a 3-vector adds in another
 order on the card than on the CPU, a CUDA division by a Python number
 multiplies by its reciprocal, and the float32 square root and power are
 not rounded to nearest on every build (chip_smoke.py phase 7 finds where
-the two devices part and compares both against float64; PERF.md, PR 6).
+the two devices part and compares both against float64; PERF.md).
 So the port spells its cross and dot products as separate multiplies and
 adds in a fixed order, and takes those divisions, square roots and powers
 here.

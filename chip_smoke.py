@@ -96,7 +96,7 @@ TRAIN_SIDE = 128
 TRAIN_LR = 2.0
 # the small train step, card against CPU twins: with the same tables and
 # hits, the loss's mean and the gradients' sums (atomics in the gathers'
-# backward) add in another order; measured 1.4e-7 and 8.7e-6 (PERF.md, PR 6)
+# backward) add in another order; measured 1.4e-7 and 8.8e-6 (PERF.md)
 TRAIN_LOSS_REL = 1e-6
 TRAIN_GRAD_REL = 1e-4
 LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
