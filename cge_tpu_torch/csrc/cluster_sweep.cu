@@ -134,8 +134,9 @@
 //     It replaces a one-thread-per-ray kernel (32 blocks, WMMA m16n16k8 at
 //     K = 8, half of it the TPU's zero pad, every product staged through
 //     shared memory, a blocking stop). Bound on this card: the tensor
-//     cores, 384 TF32 flops a (live ray, slot) pair (six piece products x
-//     4 quantities x K = 4 x 2 sides x 2); the lanes add a divide and three
+//     cores, 336 TF32 flops a (live ray, slot) pair (six piece products x
+//     4 quantities x (K = 4 on the o side + 3 on the d side, whose fourth
+//     column is 0) x 2); the lanes add a divide and three
 //     edge tests a pair and the B operand's split. In practice, as the
 //     other walks, it lasts as long as its longest block walk, visit after
 //     visit (26 visits where the mean is 9 on the stand-in's primary

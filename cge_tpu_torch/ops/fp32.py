@@ -7,11 +7,12 @@ forms do not: a fused torch.linalg.cross may contract a multiply into its
 subtract (the CPU build does), a .sum over a 3-vector adds in another
 order on the card than on the CPU, a CUDA division by a Python number
 multiplies by its reciprocal, and the float32 square root and power are
-not rounded to nearest on every build (chip_smoke.py phase 7 finds where
-the two devices part and compares both against float64; PERF.md).
+not rounded to nearest on every build (PERF.md has the measurements).
 So the port spells its cross and dot products as separate multiplies and
 adds in a fixed order, and takes those divisions, square roots and powers
-here.
+here. tests/test_torch_op_diff.py holds the forms to the same bits on the
+CPU and the card; chip_smoke.py phase 7 holds the small train step's
+tables, hits, loss and gradients on both devices to each other.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def dot3(a, b):
     """a . b over the last axis of 3, summed (x + y) + z on every device:
     the order of the CPU build's .sum and of the JAX package's sums, which
     the CPU tests hold the port to. CUDA's .sum over a 3-vector adds
-    (x + z) + y (chip_smoke.py phase 7 measures it), so the order is spelt
+    (x + z) + y (measured on an H100, PERF.md), so the order is spelt
     out: one multiply and two adds, a kernel more than a .sum. The
     products are unbound, not indexed, so the backward stacks their
     gradients in one op."""
@@ -57,23 +58,10 @@ def pow_f64(base, exp):
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The square root of a float32 tensor rounded to nearest on every
     device. CUDA's float32 square root is IEEE's (sqrt.rn), so a CUDA
-    tensor takes torch.sqrt. Elsewhere the root is taken in float64 and
-    rounded to float32, which is the nearest float32 when the float64 root
-    is correctly rounded (53 bits >= 2 x 24 + 2); a float64 root an ulp
-    off could still cross a float32 midpoint, so the result s is checked
-    against its neighbours exactly: the midpoint m of s and a neighbour
-    has 25 significant bits, so m * m is exact in float64, and x lies
-    beyond m only if the neighbour is the nearer root (no float32 root
-    lies exactly on a midpoint). The check moves the value only; the
-    gradient is the float64 root's."""
+    tensor takes torch.sqrt. Elsewhere the root is taken in float64, where
+    IEEE's square root is correctly rounded, and rounded to float32: a
+    correctly rounded root of 53 bits >= 2 x 24 + 2 rounds to the nearest
+    float32 root."""
     if x.is_cuda:
         return torch.sqrt(x)
-    root = torch.sqrt(x.double()).to(x.dtype)
-    with torch.no_grad():
-        xd, s = x.double(), root.double()
-        up = torch.nextafter(root, torch.full_like(root, torch.inf)).double()
-        down = torch.nextafter(root, torch.zeros_like(root)).double()
-        near = torch.where(((s + up) * 0.5) ** 2 < xd, up,
-                           torch.where(((s + down) * 0.5) ** 2 > xd, down,
-                                       s)).to(x.dtype)
-    return torch.where(near != root, root + (near - root).detach(), root)
+    return torch.sqrt(x.double()).to(x.dtype)

@@ -17,7 +17,6 @@
 
 All but sass_count take `--device cpu` and small sizes for a run on the
 plain twins, which reports no times. Beside them, roofline.py holds the
-bounds, op_diff.py finds the first op at which two runs of the same code
-(the card and the CPU twins) part, and fp32_cost.py measures what the
-port's float32 forms (ops/fp32.py) cost a frame and a train step.
+bounds and op_diff.py finds the first op at which two runs of the same
+code (the card and the CPU twins) part.
 """

@@ -17,7 +17,9 @@ triangles) with its primary, bounce-like and shadow batches. K1's keys,
 K2's t, ids, visits and dense tiles and K3's t and ids equal the twins'
 bit for bit; the mxu mode agrees with its twin and with the default walk
 within MXU_TOL, at 512 rays a block and, on primary rays, at
-MXU_CHECK_BRS. Times are
+MXU_CHECK_BRS; on primary rays it also walks a copy of the stack with
+exact-t ties and pad rows (tied_stack) at every block size, where the ids
+of rays that hit the tied clusters equal the twin's. Times are
 CUDA events (tools/common.py device_ms); bounds and
 shares come from tools/roofline.py.
 
@@ -30,6 +32,7 @@ shares come from tools/roofline.py.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -237,6 +240,72 @@ def check_mxu(got, want, any_hit: bool, what: str) -> tuple:
     return agree
 
 
+def tied_stack(aabbs, tiles, hot: int, pad: int):
+    """A copy of the triangle stack ([Lp, 8] boxes, [Lp, C, 16] tiles)
+    with exact-t ties and pad rows: in cluster hot, slots C-1-i repeat
+    slots i (ties across a row's lanes and across warps: the larger slot
+    must win); the next cluster repeats that tile with its box grown to
+    cover it (ties across visits, or across members at 2 clusters a
+    visit: the later must win); in cluster pad, slots 40-47 are pad rows
+    (n = 0, b = 1: t = NaN, never accepted). Returns (aabbs, tiles, the
+    two tied clusters)."""
+    a, t = aabbs.clone(), tiles.clone()
+    C = t.shape[1]
+    other = (hot + 1) % t.shape[0]
+    t[hot, C // 2:] = t[hot, :C // 2].flip(0)
+    t[other] = t[hot]
+    a[other, 0:3] = torch.minimum(a[other, 0:3], a[hot, 0:3])
+    a[other, 3:6] = torch.maximum(a[other, 3:6], a[hot, 3:6])
+    t[pad, 40:48] = torch.tensor(cs._INVALID_ROW, device=t.device)
+    return a, t, (hot, other)
+
+
+def check_ties(got, want, C: int, tied, what: str, least: int = 1) -> int:
+    """The mxu walk on a tied_stack against its twin: every ray that hits
+    the tied clusters on both sides has the twin's id, and its slot lies in
+    the upper half (the larger of two tied slots won). Returns the number
+    of those rays; raises if there are fewer than least or one breaks the
+    rule."""
+    i, iw = got[1].reshape(-1).long(), want[1].reshape(-1).long()
+    cl = torch.tensor(tied, device=i.device)
+    on = ((i >= 0) & (iw >= 0) & torch.isin(i // C, cl)
+          & torch.isin(iw // C, cl))
+    n = int(on.sum())
+    if n < least:
+        raise AssertionError(f"{what}: {n} rays hit the tied clusters")
+    if not torch.equal(i[on], iw[on]):
+        raise AssertionError(f"{what}: {int((i[on] != iw[on]).sum())} of {n}"
+                             f" rays on the tied clusters differ from the twin")
+    if bool((i[on] % C < C // 2).any()):
+        raise AssertionError(f"{what}: a smaller tied slot won")
+    return n
+
+
+def _mxu_ties(o, d, tmax, accel, ids) -> list:
+    """(block size, tied rays) of the mxu walk on a tied_stack of the
+    accel (the cluster the ids hit most tied, the second pad rows) against
+    its twin, at DEFAULT_BR and MXU_CHECK_BRS, within MXU_TOL and under
+    check_ties."""
+    L, C = accel.tiles.shape[0], accel.tiles.shape[1]
+    flat = ids.reshape(-1)
+    counts = torch.bincount((flat[flat >= 0] // C).long(), minlength=L)
+    hot, second = (int(x) for x in torch.argsort(counts, descending=True,
+                                                 stable=True)[:2])
+    pad = second if second != (hot + 1) % L else int(
+        torch.argsort(counts, descending=True, stable=True)[2])
+    a, t, tied = tied_stack(accel.aabbs, accel.tiles, hot, pad)
+    tacc = dataclasses.replace(accel, aabbs=a, tiles=t)
+    out = []
+    for br in (cs.DEFAULT_BR, *MXU_CHECK_BRS):
+        call, kw = _mxu_call(o, d, tmax, tacc, False, br)
+        got = cs.cluster_walk(*call, mxu=True, **kw)
+        twin = cs.cluster_walk_plain(*call, mxu=True, **kw)
+        what = f"mxu tied stack at {br} rays a block"
+        check_mxu(got, twin, False, f"{what} vs twin")
+        out.append((br, check_ties(got, twin, C, tied, what)))
+    return out
+
+
 def _mxu_call(o, d, tmax, accel, any_hit: bool, br: int):
     """K2's arguments for one batch on the triangle-layout accel, one
     cluster a visit, with K1's keys sorted."""
@@ -255,7 +324,8 @@ def mxu_rows(scene, dev, res: int = 512, n: int = 16384, reps: int = 5,
     surface meets it at t ~ 0, where the t >= 0 test flips under any change
     of rounding): the default walk equal to its twin, the mxu mode within
     MXU_TOL of its twin and of the default walk, the primary batch also at
-    MXU_CHECK_BRS rays a block; the mxu mode's time beside the default
+    MXU_CHECK_BRS rays a block and on a tied_stack at every block size
+    (_mxu_ties); the mxu mode's time beside the default
     walk's and its twin's, and its bound; with shapes, its time in every
     compiled shape that fits, each equal to the default shape's result."""
     accel = build_accel(scene, "triangle")
@@ -294,6 +364,7 @@ def mxu_rows(scene, dev, res: int = 512, n: int = 16384, reps: int = 5,
                     cs.cluster_walk(*c, mxu=True, **k),
                     cs.cluster_walk_plain(*c, mxu=True, **k), any_hit,
                     f"mxu {name} at {br} rays a block vs twin")))
+            row["ties"] = _mxu_ties(o, d, tmax, accel, base[1])
         if shapes:
             row["shapes"] = mxu_shapes(call, kw, got, dev, reps)
         rows.append(row)
@@ -335,6 +406,10 @@ def mxu_line(row, earlier=None) -> str:
     for br, (h, i, r, _) in row.get("brs", ()):
         lines.append(f"    at {br} rays a block, vs twin: hits {h:.6f} ids "
                      f"{i:.6f} max |dt|/max(1,t) {r:.3g}")
+    for br, n in row.get("ties", ()):
+        lines.append(f"    tied stack at {br} rays a block: {n} rays on the "
+                     f"tied clusters, ids equal to the twin, the larger slot "
+                     f"won")
     return "\n".join(lines)
 
 

@@ -46,12 +46,13 @@ WALK_EDGE_OPS = 24
 # minimum
 REFINE_OPS = KEYS_OPS - 1
 # the mxu tile: per pair, six TF32 piece products of the contraction of
-# 4 quantities at its true depth K = 4 (x, y, z and the -1 or 0 column;
-# the JAX package's zero pad to 8 columns is no work) for the o and d
-# sides, 2 flops a multiply-add: 384 flops on the tensor cores; on the
-# float32 units the divide per pair and three edge tests (2 each) per pair
-# that needs them
-MXU_TENSOR_OPS = 6 * 4 * 4 * 2 * 2
+# 4 quantities at the depth each side needs, 2 flops a multiply-add: K = 4
+# on the o side ((o, -1) against (n, D) or (m_k, b_k)), K = 3 on the d
+# side (its fourth column is 0, like the JAX package's zero pad to 8
+# columns, and no work): 336 flops on the tensor cores; on the float32
+# units the divide per pair and three edge tests (2 each) per pair that
+# needs them
+MXU_TENSOR_OPS = 6 * 4 * (4 + 3) * 2
 MXU_PLANE_OPS = 1
 MXU_EDGE_OPS = 6
 # per (live ray, valid triangle) pair of K3, the plane t: d.n (5), o.n (5),

@@ -36,10 +36,9 @@ exits non-zero if any phase fails:
   7. the third path: the differentiable train step (loss_and_grads and
      sgd_step) over 128x128 camera rays of that scene, its ms per step, and
      the same step on the card against the CPU twins for the small scene:
-     the tables both build compared bit for bit, PyTorch's float32 sqrt,
-     division and pow on both against float64, the rays whose hits differ
-     and the first ops at which the two runs part
-     (cge_tpu_torch/tools/op_diff.py), then the loss and gradients;
+     the tables both build bit for bit, the hits of every sweep, the loss
+     and the gradients, with the first ops at which the two runs part
+     (cge_tpu_torch/tools/op_diff.py) printed where they disagree;
   8. K2's opt-in modes against their twins on the card: refine_members (in
      the split walk) on the dragon at 2 clusters per visit (field layout)
      and on the 15,360-triangle stand-in (triangle layout), closest and
@@ -47,8 +46,10 @@ exits non-zero if any phase fails:
      dense tiles it skipped; the tensor-core mxu mode (in the cluster
      walk) on the stand-in through kernel_bench's mxu rows, against its
      twin and the default walk within kernel_bench.MXU_TOL, at 512 rays a
-     block and on primary rays at 128 and 1024; the times of every mode
-     and twin, and the mxu mode's ratio to the default walk;
+     block and on primary rays at 128 and 1024, and on a copy of the stack
+     with exact-t ties and pad rows at all three (ids equal to the twin's
+     on the tied clusters); the times of every mode and twin, and the mxu
+     mode's ratio to the default walk;
   9. the fourth path, kernel tuning: each tool of cge_tpu_torch.tools at
      a quick size (kernel_bench with --shapes: K2 in every split shape,
      the mxu mode in both of its shapes, K3 under each split rule), then a
@@ -414,64 +415,16 @@ def table_report(card, cpu) -> list:
     return rows
 
 
-# fp32's forms that must round alike on the card and the CPU
-EXACT_FORMS = ("sqrt_rn", "fp32.div by 3.0", "dot3")
-
-
-def rounding_report(device) -> list:
-    """PyTorch's float32 sqrt, division (by a tensor and by a Python
-    number) and pow on the card and on the CPU, and fp32's forms of them,
-    against the same op in float64 rounded to float32 (the nearest float32
-    for sqrt and division); a 3-vector's .sum and fp32.dot3 against the
-    sum (x + y) + z. Over seeded samples: (op, device, elements that
-    differ)."""
-    import numpy as np
-    import torch
-
-    from cge_tpu_torch.ops import fp32
-
-    rng = np.random.default_rng(SEED)
-    n = 1 << 20
-    x = torch.from_numpy((2.0 ** rng.uniform(-40, 40, n)
-                          * rng.uniform(1, 2, n)).astype(np.float32))
-    y = torch.from_numpy(rng.normal(size=n).astype(np.float32))
-    u, v = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
-            for _ in range(2))
-    base = x.clamp(0.0, 4.0)
-    f64 = {"sqrt_rn": torch.sqrt, "fp32.div by 3.0": lambda a: a / 3.0,
-           "pow_f64": torch.pow}
-    ops = (("sqrt", torch.sqrt, (x,)), ("sqrt_rn", fp32.sqrt_rn, (x,)),
-           ("div", torch.div, (x, y)), ("div by 3.0", lambda a: a / 3.0, (x,)),
-           ("fp32.div by 3.0", lambda a: fp32.div(a, 3.0), (x,)),
-           ("pow", torch.pow, (base, y)), ("pow_f64", fp32.pow_f64, (base, y)),
-           (".sum of a 3-vector", lambda a, b: (a * b).sum(dim=-1), (u, v)),
-           ("dot3", fp32.dot3, (u, v)))
-    rows = []
-    for name, fn, args in ops:
-        if args[0] is u:
-            p = u * v
-            ref = (p[:, 0] + p[:, 1]) + p[:, 2]
-        else:
-            ref = f64.get(name, fn)(*(a.double() for a in args)).float()
-        for dev in (device, torch.device("cpu")):
-            got = fn(*(a.to(dev) for a in args)).cpu()
-            differ = (got != ref) & ~(got.isnan() & ref.isnan())
-            rows.append((name, dev.type, int(differ.sum())))
-    return rows
-
-
 def _show_partings(parts) -> str:
     return "; ".join(f"#{i} {name} ({n} elements, card/CPU {vals})"
                      for i, name, n, vals in parts) or "none"
 
 
-def train_divergence(card, cpu, o, d, feats, params) -> list:
+def record_traces(card, cpu, o, d, feats, params) -> list:
     """The small train step's forward trace on the card and on the CPU
-    twins with every op recorded (cge_tpu_torch/tools/op_diff.py; a sweep,
-    a square root and a power each as one op): the rays whose K3 ids
-    differ in each sweep call, the first ops at which the runs part, and
-    the first ops at which one ray whose ids differ parts. Returns the
-    per-call counts."""
+    twins, every op recorded (cge_tpu_torch/tools/op_diff.py; a sweep, a
+    square root and a power each as one op): [card entries, CPU
+    entries]."""
     import torch
 
     from cge_tpu_torch.ops import fp32, sweep
@@ -486,7 +439,14 @@ def train_divergence(card, cpu, o, d, feats, params) -> list:
                        (fp32, "pow_f64")]) as rec:
             trace(s, so, sd, feats, params)
         runs.append(rec.entries)
-    a, b = runs
+    return runs
+
+
+def sweep_ids_differ(a, b) -> tuple:
+    """(rays whose K3 ids differ, per sweep call of the traces a and b;
+    the first such ray or None)."""
+    from cge_tpu_torch.tools import op_diff
+
     counts, ray = [], None
     for (_, ea), (_, eb) in zip(op_diff.named(a, "closest_tris"),
                                 op_diff.named(b, "closest_tris")):
@@ -494,25 +454,30 @@ def train_divergence(card, cpu, o, d, feats, params) -> list:
         counts.append(int(differ.sum()))
         if ray is None and differ.any():
             ray = int(differ.nonzero()[0, 0])
+    return counts, ray
+
+
+def log_partings(a, b, ray, rows: int) -> None:
+    """The first ops at which the card's and the CPU's traces part, and
+    those at which one ray whose ids differ parts."""
+    from cge_tpu_torch.tools import op_diff
 
     log(f"    forward trace: {len(a)} / {len(b)} ops recorded (card / CPU); "
-        f"rays whose K3 ids differ, per sweep call: {counts}")
-    log(f"    first ops where card and CPU part: "
+        f"first ops where they part: "
         f"{_show_partings(itertools.islice(op_diff.partings(a, b), 4))}")
     if ray is not None:
-        rparts = op_diff.partings(a, b, row=ray, rows=o.shape[0])
+        rparts = op_diff.partings(a, b, row=ray, rows=rows)
         log(f"    ray {ray} (its ids differ): first ops where it parts: "
             f"{_show_partings(itertools.islice(rparts, 6))}")
-    return counts
 
 
 def small_train_check(device, tmp):
     """The same step on the card and on the CPU twins for the 41x32
-    stand-in at 64x64 rays. fp32's exact forms (EXACT_FORMS) agree on both
-    devices, the tables both build are equal bit for bit (a zero's sign
-    aside), no ray's K3 ids differ in any sweep of the forward trace (the
-    first ops at which the traces part are printed), the loss agrees to
-    TRAIN_LOSS_REL and each gradient to TRAIN_GRAD_REL of its norm."""
+    stand-in at 64x64 rays: the tables both build are equal bit for bit (a
+    zero's sign aside), no ray's K3 ids differ in any sweep of the forward
+    trace, the loss agrees to TRAIN_LOSS_REL and each gradient to
+    TRAIN_GRAD_REL of its norm. Where one fails, the tables that differ
+    and the first ops at which the traces part are printed."""
     import numpy as np
     import torch
 
@@ -531,19 +496,9 @@ def small_train_check(device, tmp):
                                       device=dev)
               for dev in (device, torch.device("cpu"))]
     tables = table_report(*scenes)
-    log("    small train step, tables built on the card vs the CPU: "
-        + ", ".join(f"{k} equal" if n == 0 else
-                    f"{k} {n} differ ({z} only in a zero's sign, max |gap| "
-                    f"{gap:.3g})" for k, n, z, gap in tables))
-    rounding = rounding_report(device)
-    log("    float32 ops against float64 rounded (3-vector dots against "
-        "(x + y) + z), elements that differ of 2^20: " + ", ".join(
-            f"{name} {dev} {n}" for name, dev, n in rounding))
-    rays = train_divergence(*scenes, o, d, feats, params)
-    if (any(n > z for _, n, z, _ in tables) or any(rays)
-            or any(n for name, _, n in rounding if name in EXACT_FORMS)):
-        raise AssertionError("card and CPU round apart, build different "
-                             "tables or hit different triangles")
+    bad_tables = [row for row in tables if row[1] > row[2]]
+    a, b = record_traces(*scenes, o, d, feats, params)
+    counts, ray = sweep_ids_differ(a, b)
     out = []
     for s in scenes:
         dev = s.vertices.device
@@ -554,9 +509,16 @@ def small_train_check(device, tmp):
     rel = {k: float((gg[k] - cg[k]).norm() / cg[k].norm())
            for k in cg if float(cg[k].norm()) > 0}
     worst = max(rel, key=rel.get)
-    log(f"    small train step, card vs CPU twins: loss {gl:.8g} vs "
-        f"{cl:.8g}, worst gradient {worst} at {rel[worst]:.3g} of its norm")
-    if abs(gl - cl) > TRAIN_LOSS_REL * abs(cl) or rel[worst] > TRAIN_GRAD_REL:
+    log(f"    small train step, card vs CPU twins: {len(tables)} tables, "
+        f"{len(bad_tables)} differ; rays whose K3 ids differ, per sweep "
+        f"call: {counts}; loss {gl:.8g} vs {cl:.8g}, worst gradient {worst} "
+        f"at {rel[worst]:.3g} of its norm")
+    if (bad_tables or any(counts) or abs(gl - cl) > TRAIN_LOSS_REL * abs(cl)
+            or rel[worst] > TRAIN_GRAD_REL):
+        for k, n, z, gap in bad_tables:
+            log(f"    table {k}: {n} elements differ ({z} only in a zero's "
+                f"sign), max |gap| {gap:.3g}")
+        log_partings(a, b, ray, o.shape[0])
         raise AssertionError("card and CPU train steps disagree")
 
 
@@ -648,8 +610,9 @@ def check_mxu(tscene, device, stats):
     """The tensor-core mode on the stand-in through kernel_bench.mxu_rows:
     against its twin (torch.matmul, TF32 off) and the default walk within
     MXU_TOL on the primary, bounce-like and shadow batches, and against the
-    twin at kernel_bench.MXU_CHECK_BRS rays a block on primary rays; its
-    time, its ratio to the default walk's on the same batch, its bound."""
+    twin at kernel_bench.MXU_CHECK_BRS rays a block and on a tied stack
+    (kernel_bench.check_ties) on primary rays; its time, its ratio to the
+    default walk's on the same batch, its bound."""
     from cge_tpu_torch.tools import kernel_bench
 
     for row in kernel_bench.mxu_rows(tscene, device):

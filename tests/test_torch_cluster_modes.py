@@ -454,28 +454,25 @@ def mxu_walk_model(order, skeys, rays, tiles, *, sc_n, any_hit=False,
 
 @pytest.fixture(scope="module")
 def mxu_stacks(stacks, batches):
-    """The triangle stack with exact-t ties and pad rows: in the cluster
-    the primary rays hit most, slots C-1-i repeat slots i (ties across a
-    row's lanes and across warps: the larger slot must win); the next
-    cluster repeats that tile with its box grown to cover it (ties across
-    visits, or across members at 2 clusters a visit: the later must win);
-    in the second most hit cluster, 8 slots are pad rows (n = 0, b = 1:
-    t = NaN, never accepted)."""
-    a, t = (x.copy() for x in stacks["triangle"])
+    """The triangle stack with exact-t ties and pad rows
+    (kernel_bench.tied_stack): the cluster the primary rays hit most has
+    its slots C-1-i repeat slots i (ties across a row's lanes and across
+    warps: the larger slot must win), and the next cluster repeats it
+    (ties across visits, or across members at 2 clusters a visit: the
+    later must win); in the second most hit cluster, 8 slots are pad rows
+    (n = 0, b = 1: t = NaN, never accepted)."""
+    from cge_tpu_torch.tools.kernel_bench import tied_stack
+    a, t = (_t(x) for x in stacks["triangle"])
     o, d, tmax = (_t(x) for x in batches["primary"])
-    _, ids, _ = cs.cluster_tris(o, d, tmax, _t(a), _t(t), "triangle", br=BR)
+    _, ids, _ = cs.cluster_tris(o, d, tmax, a, t, "triangle", br=BR)
     C = t.shape[1]
     counts = np.bincount(ids.numpy()[ids.numpy() >= 0] // C,
                          minlength=t.shape[0])
     hot, second = (int(x) for x in np.argsort(counts)[::-1][:2])
     other = (hot + 1) % t.shape[0]
-    t[hot, C // 2:] = t[hot, :C // 2][::-1]
-    t[other] = t[hot]
-    a[other, 0:3] = np.minimum(a[other, 0:3], a[hot, 0:3])
-    a[other, 3:6] = np.maximum(a[other, 3:6], a[hot, 3:6])
     pad = second if second != other else int(np.argsort(counts)[::-1][2])
-    t[pad, 40:48] = np.float32(cs._INVALID_ROW)
-    return a, t, (hot, other)
+    a, t, tied = tied_stack(a, t, hot, pad)
+    return a.numpy(), t.numpy(), tied
 
 
 def _mxu_inputs(batch, stack, sc_n, br=BR):
@@ -533,10 +530,10 @@ def test_mxu_walk_model_matches_twin_and_pallas(dragon, batches, stacks,
         assert same.sum() >= 0.9999 * (h & hr).sum() > 100
         assert (np.abs(t[same] - ref[0][same])
                 <= 1e-5 * np.maximum(1.0, ref[0][same])).all()
-    if tied and which == "primary":
-        C = tiles.shape[1]
-        slots = ids[(ids >= 0) & np.isin(ids // C, mxu_stacks[2])] % C
-        assert (slots >= C // 2).any()           # the larger slot won ties
+    if tied and not any_hit:                     # the larger slot won ties
+        from cge_tpu_torch.tools.kernel_bench import check_ties
+        check_ties(got, twin, tiles.shape[1], mxu_stacks[2], f"model {which}",
+                   least=int(which == "primary"))
 
 
 @pytest.mark.parametrize("shape,br", [((8, 1), 128), ((8, 2), 128),
@@ -572,12 +569,13 @@ def test_mxu_shape_fits_every_block_size():
 
 def test_mxu_bound_counts_the_contraction_at_depth_4(batches, stacks):
     """roofline's mxu bound on a small batch: per (live ray, slot) pair of
-    a dense tile, six piece products x 4 quantities x K = 4 x 2 sides x 2
-    flops = 384 tensor flops (the zero pad to 8 columns is no work), beside
-    a divide per pair and 6 flops per pair that needs the edge tests; the
-    bound is the larger of those times and the bytes'."""
+    a dense tile, six piece products x 4 quantities x (K = 4 on the o side
+    + K = 3 on the d side) x 2 flops = 336 tensor flops (the d side's zero
+    column and the zero pad to 8 columns are no work), beside a divide per
+    pair and 6 flops per pair that needs the edge tests; the bound is the
+    larger of those times and the bytes'."""
     from cge_tpu_torch.tools import roofline
-    assert roofline.MXU_TENSOR_OPS == 6 * 4 * 4 * 2 * 2 == 384
+    assert roofline.MXU_TENSOR_OPS == 6 * 4 * (4 + 3) * 2 == 336
     order, skeys, rays, tiles, sc = _mxu_inputs(batches["bounce"],
                                                 stacks["triangle"], 1)
     kw = dict(layout="triangle", sc_n=sc)
@@ -587,7 +585,7 @@ def test_mxu_bound_counts_the_contraction_at_depth_4(batches, stacks):
     assert pairs > 0
     edges = roofline.walk_edge_pairs(order, rays, tiles, out, **kw)
     ms, kind = roofline.walk_bound(order, rays, tiles, out, mxu=True, **kw)
-    tensor_ms = pairs * 384 / roofline.TF32_PEAK * 1e3
+    tensor_ms = pairs * 336 / roofline.TF32_PEAK * 1e3
     simt_ms = (pairs + 6 * edges) / roofline.FP32_PEAK * 1e3
     assert ms >= max(tensor_ms, simt_ms) * (1 - 1e-12)
     if kind == "operations":
@@ -866,7 +864,8 @@ def test_mxu_grid_tool(capsys):
 def test_kernel_bench_tool(capsys):
     """kernel_bench on the twins: K1 and every K2 and K3 batch equal to
     its twin, the mxu mode's three batches within MXU_TOL of its twin and
-    the default walk (and at 128 and 1024 rays a block on primary rays),
+    the default walk (and at 128 and 1024 rays a block on primary rays,
+    and on the tied stack at all three),
     bounds computed, no device time claimed (the sort beside K1 and the mxu
     mode's ratio included); --shapes runs every split shape, mxu variant
     and split rule."""
@@ -892,6 +891,10 @@ def test_kernel_bench_tool(capsys):
                           r"mxu / default not measured", out, re.M)) == 3
     assert len(re.findall(r"^    at (?:128|1024) rays a block, vs twin", out,
                           re.M)) == 2
+    ties = re.findall(r"^    tied stack at (\d+) rays a block: (\d+) rays on "
+                      r"the tied clusters, ids equal to the twin", out, re.M)
+    assert [int(t[0]) for t in ties] == [512, 128, 1024]
+    assert all(int(t[1]) > 0 for t in ties)
     shapes = re.findall(r"^      (.*): ms not measured$", out, re.M)
     fit = [v for v in cs.MXU_SHAPES
            if cs.mxu_threads(cs.DEFAULT_BR, v) <= cs.MXU_MAX_THREADS]
@@ -966,18 +969,24 @@ def test_refine_kernel_matches_twin_on_card(batches, stacks, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True], ids=["plain", "tied"])
 @pytest.mark.parametrize("br", [128, 512, 1024])
 @pytest.mark.parametrize("which", list(MXU))
-def test_mxu_kernel_matches_twin_on_card(batches, stacks, which, br,
-                                         cuda_device):
+def test_mxu_kernel_matches_twin_on_card(batches, stacks, mxu_stacks, which,
+                                         br, tied, cuda_device):
     """K2's tensor-core mode on the card against its twin on the card
     (torch.matmul, TF32 off), at 128, 512 and 1024 rays a block (mxu_shape
     takes a smaller shape at 1024): the rules of
-    test_mxu_twin_matches_pallas_default, one launch a call."""
+    test_mxu_twin_matches_pallas_default, one launch a call. On the tied
+    stack (exact-t ties across lanes, warps and visits; pad rows), every
+    ray that hits the tied clusters on both sides has the twin's id, and
+    the larger tied slot won (kernel_bench.check_ties)."""
+    from cge_tpu_torch.tools.kernel_bench import check_ties
     torch.backends.cuda.matmul.allow_tf32 = False
     key, any_hit, _ = MXU[which]
+    stack = mxu_stacks[:2] if tied else stacks["triangle"]
     inp = cs.sweep_setup(*(_t(x).to(cuda_device) for x in batches[key]),
-                         *(_t(x).to(cuda_device) for x in stacks["triangle"]),
+                         *(_t(x).to(cuda_device) for x in stack),
                          "triangle", br, 1)
     skeys, order = cs.sweep_order(inp.rays, inp.boxes)
     kw = dict(layout="triangle", sc_n=1, any_hit=any_hit, mxu=True)
@@ -994,3 +1003,6 @@ def test_mxu_kernel_matches_twin_on_card(batches, stacks, which, br,
         assert same.sum() >= 0.9999 * (h & hr).sum()
         assert (np.abs(t[same] - tr[same])
                 <= 1e-5 * np.maximum(1.0, tr[same])).all()
+        if tied:
+            check_ties(got, want, inp.tiles.shape[1], mxu_stacks[2],
+                       f"{which} at {br}", least=int(which == "primary"))

@@ -3,11 +3,10 @@ first op at which two runs of the same PyTorch code part (chip_smoke.py
 runs it on the small train step, card against CPU). Here both runs are on
 the CPU, one with an input nudged by an ulp, so the parting is known. And
 the float32 forms the port takes so that both devices round alike
-(cge_tpu_torch/ops/fp32.py), with the tool that measures their cost
-(cge_tpu_torch/tools/fp32_cost.py)."""
+(cge_tpu_torch/ops/fp32.py), on the CPU and, where there is one, on the
+card."""
 
 import dataclasses
-import re
 import types
 
 import numpy as np
@@ -156,24 +155,35 @@ def test_fp32_products_in_a_fixed_order():
     assert (c != torch.linalg.cross(a, b, dim=-1)).any()
 
 
-def test_fp32_cost_tool(capsys):
-    """fp32_cost at a tiny size on the CPU: both sets of forms render and
-    step in turns (ops counted, no device time claimed), the forms are
-    restored after, and the CPU build's .sum adds (x + y) + z."""
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_fp32_forms_round_alike_on_every_device(device):
+    """The forms that must give the card's and the CPU's bits (sqrt_rn, div
+    by a number, dot3, cross) on each device, over a seeded sample, against
+    their exact results taken on the CPU: the square root and the quotient
+    in float64 rounded to float32 (the nearest float32, 53 bits >= 2 x 24 +
+    2), the products summed (x + y) + z and in the textbook component
+    form. NaN equals NaN."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the card's rounding is under test")
     from cge_tpu_torch.ops import fp32
-    from cge_tpu_torch.tools import fp32_cost
-    keep = fp32.dot3
-    assert fp32_cost.main(["--device", "cpu", "--res", "32", "--side", "8",
-                           "--segments", "8", "--reps", "1", "--values",
-                           "2048"]) == 0
-    assert fp32.dot3 is keep
-    out = capsys.readouterr().out
-    rows = re.findall(r"^(fp32|torch) forms: (\d+) torch ops a frame, "
-                      r"(\d+) a step, frame ms not measured, step ms not "
-                      r"measured$", out, re.M)
-    assert [r[0] for r in rows] == ["fp32", "torch", "torch", "fp32"]
-    assert rows[0][1:] == rows[3][1:] and rows[1][1:] == rows[2][1:]
-    assert int(rows[0][1]) > int(rows[1][1])
-    orders = re.findall(r"values that each order misses: \(x \+ y\) \+ z "
-                        r"(\d+),", out)
-    assert orders == ["0", "0", "0"]
+    rng = np.random.default_rng(SEED)
+    n = 1 << 18
+    x = torch.from_numpy((2.0 ** rng.uniform(-40, 40, n)
+                          * rng.uniform(1, 2, n)).astype(np.float32))
+    a, b = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+            for _ in range(2))
+    p = a * b
+    want = {
+        "sqrt_rn": torch.sqrt(x.double()).float(),
+        "div by 3.0": (x.double() / 3.0).float(),
+        "dot3": (p[:, 0] + p[:, 1]) + p[:, 2],
+        "cross": torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                              a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                              a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)}
+    xd, ad, bd = (v.to(device) for v in (x, a, b))
+    got = {"sqrt_rn": fp32.sqrt_rn(xd), "div by 3.0": fp32.div(xd, 3.0),
+           "dot3": fp32.dot3(ad, bd), "cross": fp32.cross(ad, bd)}
+    differ = {k: int(op_diff.bits_differ(got[k].cpu(), want[k]).sum())
+              for k in want}
+    assert differ == dict.fromkeys(want, 0)
