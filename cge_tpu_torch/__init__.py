@@ -1,9 +1,11 @@
 """cge_tpu_torch: the PyTorch and CUDA port of cge_tpu.
 
-The Whitted chain (Phong shading, hard shadows from point lights, recursive
-mirrors, interpolated normals) renders on one device given to the scene
-loader, with the cluster accel or without it, and trains through the same
-trace (diff.gradients). Its three hot kernels, the cluster key pass and the
+The Whitted chain (Phong shading, hard shadows from point lights, soft
+shadows from segment and parallelogram lights, recursive mirrors,
+interpolated normals, textures), with MSAA, depth of field and bloom,
+renders on one device given to the scene loader, with the cluster accel or
+without it, and trains through the same trace (diff.gradients). Its
+samples come from threefry streams equal to jax.random's (ops/rng.py). Its three hot kernels, the cluster key pass and the
 ordered cluster walk (csrc/cluster_sweep.cu) and the brute-force sweep
 (csrc/sweep.cu), are hand-written CUDA for Hopper; on CPU tensors their
 plain PyTorch twins run. The package imports torch and numpy, never JAX.

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from cge_tpu_torch.ops import rng
 from cge_tpu_torch.render.wavefront import trace
 
 # SceneArrays leaves that participate in differentiation (the JAX names)
@@ -48,12 +49,11 @@ def render_loss(params, scene, rays_o, rays_d, target, features,
     """Mean-squared error of the traced radiance against target, over a ray
     batch. NaN radiance (the reference's pow-quirk pixels) maps to 0, the
     value the image writer emits for it, so the loss stays finite and those
-    rays give no gradient. seed stands where the JAX package takes its
-    PRNG key; the deterministic features use no randomness, so it is not
-    read until the stochastic features are ported (ROADMAP 1.2)."""
-    del seed
+    rays give no gradient. The trace draws from prng_key(seed), so seed s
+    gives what the JAX package's render_loss(key=PRNGKey(s)) does."""
     s = with_params(scene, params)
-    col = trace(s, rays_o, rays_d, features, render_params, ray_ids=ray_ids)
+    col = trace(s, rays_o, rays_d, features, render_params,
+                rng.prng_key(seed), ray_ids=ray_ids)
     return ((torch.nan_to_num(col) - target) ** 2).mean()
 
 

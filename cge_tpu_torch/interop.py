@@ -40,5 +40,16 @@ def params_from_numpy(params: dict, device=None) -> dict:
             .to(device) for k in DIFF_FIELDS}
 
 
+def key_from_numpy(key) -> tuple:
+    """A JAX PRNG key's raw uint32[2] (np.asarray(jax.random.PRNGKey(s)) or
+    jax.random.key_data of a typed key) -> the port's key (ops.rng), so
+    both packages draw the same streams."""
+    k = np.asarray(key)
+    if k.shape != (2,) or k.dtype != np.uint32:
+        raise ValueError(f"a threefry key is uint32[2], got {k.dtype}"
+                         f"{list(k.shape)}")
+    return int(k[0]), int(k[1])
+
+
 __all__ = ["DIFF_FIELDS", "TENSOR_FIELDS", "camera_from_numpy",
-           "params_from_numpy", "scene_from_numpy"]
+           "key_from_numpy", "params_from_numpy", "scene_from_numpy"]

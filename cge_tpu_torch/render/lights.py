@@ -1,19 +1,23 @@
-"""Shadow visibility and per-hit radiance from point lights
-(counterpart of cge_tpu/render/lights.py:45-107, 130-175; reference
-src/light.cpp).
+"""Shadow visibility, light sampling and per-hit radiance (counterpart of
+cge_tpu/render/lights.py; reference src/light.cpp).
 
 testVisibilityLightSample (light.cpp:49-73): the hit point is pulled back
 1e-5 along the normalized ray and a budget-1 shadow segment runs to the
 light sample; with transparency off only the existence of a blocker
 matters (light.cpp:60-63), so the any-hit sweep answers it. Without the
 accel the query is the forward closest hit of the brute-force sweep (K3).
+
+Segment and parallelogram lights (soft shadows) draw their jitter from
+threefry streams keyed per ray by global ray id (ops/rng.py), as the JAX
+package does, so the same seed gives the same samples on both packages and
+on every device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cge_tpu_torch.ops import fp32
+from cge_tpu_torch.ops import fp32, rng
 from cge_tpu_torch.ops.intersect import any_hit_occlusion
 from cge_tpu_torch.ops.shading import compute_shading
 
@@ -55,21 +59,62 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
     return torch.where(blocked, 0.0, 1.0)
 
 
+def sample_segment_light(p0, p1, c0, c1, index, n_samples: int, r):
+    """sampleSegmentLight (light.cpp:19-26): w = (index + r) / samples."""
+    w = fp32.div(index + r, float(n_samples))[..., None]
+    return (p1 - p0) * w + p0, w * c1 + (1.0 - w) * c0
+
+
+def sample_parallelogram_light(v0, e01, e02, c0, c1, c2, c3, hi, vi,
+                               na: int, nb: int, r1, r2):
+    """sampleParallelogramLight (light.cpp:30-45): stratified jitter,
+    bilinear colour."""
+    hw = fp32.div(hi + r1, float(na))[..., None]
+    vw = fp32.div(vi + r2, float(nb))[..., None]
+    pos = v0 + hw * e01 + vw * e02
+    bottom = hw * c1 + (1.0 - hw) * c0
+    top = hw * c3 + (1.0 - hw) * c2
+    return pos, vw * top + (1.0 - vw) * bottom
+
+
+def _repeat(x, m: int):
+    """jnp.repeat(x, m, axis=0): each row m times in a row."""
+    return x[:, None].expand(x.shape[0], m, *x.shape[1:]).reshape(
+        x.shape[0] * m, *x.shape[1:])
+
+
+def _sampled_light(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
+                   features, params, alive, accel, tri_table, pos, col):
+    """The mean over a light's M samples a ray (pos, col: [N, M, 3]) of
+    the shaded, shadowed sample: the samples flattened into the ray axis
+    for one batched shadow sweep (lights.py:189-204)."""
+    n, m = pos.shape[:2]
+    rep = [_repeat(x, m) for x in (ray_o, ray_d, ray_t, normal, kd, ks,
+                                   shininess)]
+    pos_f, col_f = pos.reshape(-1, 3), col.reshape(-1, 3)
+    sh = compute_shading(pos_f, col_f, *rep)
+    vis = shadow_visibility(scene, *rep[:3], pos_f, features, params,
+                            None if alive is None else _repeat(alive, m),
+                            accel, tri_table)
+    return fp32.div((sh * vis[..., None]).reshape(n, m, 3).sum(dim=1),
+                    float(m))
+
+
 def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
-                       features, params, alive=None, accel=None,
+                       features, params, key, alive=None, accel=None,
                        tri_table=None, ray_ids=None):
-    """computeLightContribution (light.cpp:108-165) for point lights,
-    batched over rays: [N, 3]. ray_ids (global ray ids) key the stochastic
-    light samples, which arrive with soft shadows (ROADMAP 1.2)."""
-    del ray_ids
+    """computeLightContribution (light.cpp:108-165), batched over rays:
+    [N, 3]. Point lights, then (with soft shadows) segment lights of
+    `segment_light_samples` jittered samples and parallelogram lights of
+    `parallelogram_light_direction_samples`^2. key: the level's key
+    (ops.rng); ray_ids (global ray ids, arange(N) when None) key each
+    ray's samples, so chunking does not change them. Dead light slots are
+    skipped from the host copies of the masks: no device sync."""
     if not features.enable_shading:
         return kd                                  # light.cpp:161-164
-    if features.enable_soft_shadow:
-        raise NotImplementedError(
-            "soft shadows (segment/parallelogram lights): see ROADMAP 1.2")
     N = ray_o.shape[0]
-    result = torch.zeros((N, 3), dtype=torch.float32, device=ray_o.device)
-    # dead slots are skipped from the host copy of the mask: no device sync
+    dev = ray_o.device
+    result = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     for li, on in enumerate(scene.point_mask_host):
         if not on:
             continue
@@ -82,4 +127,37 @@ def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
                                         features, params, alive, accel,
                                         tri_table)[..., None]
         result = result + sh
+    if not features.enable_soft_shadow:
+        return result
+    if ray_ids is None:
+        ray_ids = torch.arange(N, dtype=torch.int64, device=dev)
+    shade = (scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
+             features, params, alive, accel, tri_table)
+
+    ss = params.segment_light_samples
+    idx = torch.arange(ss, dtype=torch.float32, device=dev)
+    for li, on in enumerate(scene.seg_mask_host):
+        if not on:
+            continue
+        r = rng.per_ray_uniform(rng.fold_in(key, 1000 + li), ray_ids, (ss,))
+        pos, col = sample_segment_light(
+            scene.seg_p0[li], scene.seg_p1[li], scene.seg_c0[li],
+            scene.seg_c1[li], idx, ss, r)
+        result = result + _sampled_light(*shade, pos, col)
+
+    ps = params.parallelogram_light_direction_samples
+    grid = torch.arange(ps, dtype=torch.float32, device=dev)
+    hi = grid[:, None].expand(ps, ps).reshape(-1)      # sample a * ps + b:
+    vi = grid[None, :].expand(ps, ps).reshape(-1)      # hi = a, vi = b
+    for li, on in enumerate(scene.par_mask_host):
+        if not on:
+            continue
+        k = rng.fold_in(key, 2000 + li)
+        r1 = rng.per_ray_uniform(rng.fold_in(k, 0), ray_ids, (ps * ps,))
+        r2 = rng.per_ray_uniform(rng.fold_in(k, 1), ray_ids, (ps * ps,))
+        pos, col = sample_parallelogram_light(
+            scene.par_v0[li], scene.par_e01[li], scene.par_e02[li],
+            scene.par_c0[li], scene.par_c1[li], scene.par_c2[li],
+            scene.par_c3[li], hi, vi, ps, ps, r1, r2)
+        result = result + _sampled_light(*shade, pos, col)
     return result

@@ -1,10 +1,13 @@
 """Image renderer (counterpart of cge_tpu/render/renderer.py:30-267).
 
-renderRayTracing (src/render.cpp:273-329) for the single-sample pinhole
-path: one primary ray per pixel at the pixel corner, traced as one
-wavefront in chunks of `trace_chunk` rays, then the setPixel y-flip
-(screen.cpp:41-47) so row 0 is the top of the image. Pixels are traced in
-32x16 screen tiles, so a 512-ray block of the sweep is a compact frustum.
+renderRayTracing (src/render.cpp:273-329): one primary ray per pixel at the
+pixel corner, or an MSAA grid and / or depth-of-field samples with the
+reference's weighting (DoF counts 3x, render.cpp:305-314), traced as one
+wavefront in chunks of `trace_chunk` rays; then the setPixel y-flip
+(screen.cpp:41-47) so row 0 is the top of the image, then the optional
+bloom pass. Pixels are traced in 32x16 screen tiles, so a 512-ray block of
+the sweep is a compact frustum. Every draw comes from the frame key
+prng_key(seed) (ops/rng.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import numpy as np
 import torch
 
 from cge_tpu_torch.camera import Camera, pixel_grid
+from cge_tpu_torch.ops import fp32, rng
 from cge_tpu_torch.ops.intersect import Accel
+from cge_tpu_torch.render.bloom import render_bloom_filter
+from cge_tpu_torch.render.sampling import dof_rays, msaa_sample_positions
 from cge_tpu_torch.render.wavefront import (scene_accel, scene_tables,
                                             scene_tri_table, trace)
 from cge_tpu_torch.types import Features, RenderParams, check_supported
@@ -46,15 +52,16 @@ def prepare_render(scene, features: Features,
                          tri_table=scene_tri_table(scene, accel))
 
 
-def _trace_rays(scene, o, d, features, params, shared_origin: bool,
+def _trace_rays(scene, o, d, features, params, key, shared_origin: bool,
                 ctx: RenderContext):
-    """Trace [N] rays in chunks of params.trace_chunk, passing each chunk
-    its global ray ids. The last chunk is padded with rays at the origin
-    along +z, as in the JAX package, so every chunk has one shape."""
+    """Trace [N] rays under `key` in chunks of params.trace_chunk, passing
+    each chunk its global ray ids. The last chunk is padded with rays at
+    the origin along +z, as in the JAX package, so every chunk has one
+    shape."""
     N = o.shape[0]
     C = params.trace_chunk
-    kw = dict(accel=ctx.accel, tables=ctx.tables, tri_table=ctx.tri_table,
-              shared_origin=shared_origin)
+    kw = dict(key=key, accel=ctx.accel, tables=ctx.tables,
+              tri_table=ctx.tri_table, shared_origin=shared_origin)
     if N <= C:
         return trace(scene, o, d, features, params, **kw)
     pad = (-N) % C
@@ -100,12 +107,12 @@ def render_image(scene, camera: Camera, features: Features,
                  params: RenderParams, width: int, height: int, seed: int = 0,
                  ctx: Optional[RenderContext] = None) -> torch.Tensor:
     """Render [height, width, 3] f32 radiance on the scene's device, row 0
-    = top. The headline path is deterministic, so `seed` is unused until
-    the stochastic features arrive (ROADMAP 1.2)."""
-    del seed
+    = top. seed: the frame key's seed (the MSAA jitter, the DoF disk and
+    the light samples draw from it)."""
     check_supported(features, params)
     if ctx is None:
         ctx = prepare_render(scene, features, params)
+    key = rng.prng_key(seed)
     grid = pixel_grid(width, height, scene.device).reshape(-1, 2)
     tiled = width % 32 == 0 and height % 16 == 0
     if tiled:
@@ -113,14 +120,47 @@ def render_image(scene, camera: Camera, features: Features,
     else:
         swizzle, unswizzle = _tile_swizzle(width, height)
         grid = grid[torch.from_numpy(swizzle).to(grid.device)]
-    o, d = camera.generate_rays(grid)
-    col = _trace_rays(scene, o, d, features, params, shared_origin=True,
-                      ctx=ctx)
+    N = grid.shape[0]
+    color_sum = torch.zeros((N, 3), dtype=torch.float32, device=grid.device)
+    weight = 0
+    if features.enable_multiple_rays_per_pixel:
+        n = params.rays_per_pixel_side
+        pixel_size = torch.tensor([2.0 / width, 2.0 / height],
+                                  dtype=torch.float32, device=grid.device)
+        pos = msaa_sample_positions(grid, pixel_size, n,
+                                    rng.fold_in(key, 101))
+        o, d = camera.generate_rays(pos.reshape(-1, 2))
+        col = _trace_rays(scene, o, d, features, params,
+                          rng.fold_in(key, 1), shared_origin=True, ctx=ctx)
+        color_sum = color_sum + fp32.div(col.reshape(N, n * n, 3).sum(dim=1),
+                                         float(n * n))
+        weight += 1
+    if features.enable_depth_of_field:
+        n = params.samples_dof
+        o, d = dof_rays(grid, camera, params.focus_plane_distance,
+                        params.blur_strength, n, rng.fold_in(key, 202))
+        col = _trace_rays(scene, o.reshape(-1, 3), d.reshape(-1, 3),
+                          features, params, rng.fold_in(key, 2),
+                          shared_origin=False, ctx=ctx)
+        color_sum = color_sum + fp32.div(col.reshape(N, n, 3).sum(dim=1),
+                                         float(n)) * 3.0
+        weight += 3
+    if not (features.enable_multiple_rays_per_pixel
+            or features.enable_depth_of_field):
+        o, d = camera.generate_rays(grid)
+        col = _trace_rays(scene, o, d, features, params,
+                          rng.fold_in(key, 3), shared_origin=True, ctx=ctx)
+        color_sum = color_sum + col
+        weight += 1
+    final = fp32.div(color_sum, float(weight))
     if tiled:
-        col = _unswizzle_rows(col, width, height)
+        final = _unswizzle_rows(final, width, height)
     else:
-        col = col[torch.from_numpy(unswizzle).to(col.device)]
-    return torch.flip(col.reshape(height, width, 3), dims=(0,))
+        final = final[torch.from_numpy(unswizzle).to(final.device)]
+    buffer = torch.flip(final.reshape(height, width, 3), dims=(0,))
+    if features.enable_bloom_effect:
+        buffer = render_bloom_filter(buffer, params)
+    return buffer
 
 
 def render_image_u8(scene, camera: Camera, features: Features,

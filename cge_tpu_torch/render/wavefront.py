@@ -8,9 +8,12 @@ each bounce's single child ray on every deterministic path:
 
 so the trace carries (origin, direction, weight, accumulator) for the whole
 ray batch through a bounded loop of levels. Each level is one closest-hit
-sweep, one gather of the packed attribute rows, Phong shading with one
-any-hit shadow sweep per point light, and the mirror child ray. A level
-whose rays are all dead is skipped, at the cost of one device sync.
+sweep, one gather of the packed attribute rows (and of the texels, with
+texture mapping), Phong shading with one any-hit shadow sweep per point
+light and one batched sweep over the samples of each segment or
+parallelogram light, and the mirror child ray. Level l draws its light
+samples from fold_in(key, l). A level whose rays are all dead is skipped,
+at the cost of one device sync.
 
 The trace is differentiable: hit selection (the accel, the brute-force
 table, both sweeps) runs under no_grad as a discrete oracle, and every
@@ -24,13 +27,16 @@ import dataclasses
 
 import torch
 
-from cge_tpu_torch.ops import fp32
-from cge_tpu_torch.ops.interpolate import barycentric_coord, interpolate_normal
+from cge_tpu_torch.ops import fp32, rng
+from cge_tpu_torch.ops.interpolate import (barycentric_coord,
+                                           interpolate_normal,
+                                           interpolate_texcoord)
 from cge_tpu_torch.ops.intersect import (Accel, HitIds, build_accel,
                                          closest_hit, triangle_plane,
                                          uses_cluster_sweep)
 from cge_tpu_torch.ops.sweep import pack_tri_table
 from cge_tpu_torch.ops.shading import _normalize, compute_reflection_ray
+from cge_tpu_torch.ops.texture import acquire_texel
 from cge_tpu_torch.render.lights import light_contribution
 from cge_tpu_torch.types import check_supported
 
@@ -94,8 +100,6 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     the sphere table and a sphere index is meaningless in the row table.
     Clamping is what the JAX package's gathers do implicitly; the
     clamped rows are selected away by is_sphere."""
-    if features.enable_texture_mapping:
-        raise NotImplementedError("texture mapping: see ROADMAP 1.1")
     prim, is_sphere, hit = ids.prim, ids.is_sphere, ids.hit
     row = _take(attr_rows, prim.clamp(0, attr_rows.shape[0] - 1))  # [N, 40]
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
@@ -122,8 +126,9 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     t = torch.where(hit, t, 0.0)
     p = o + t[:, None] * d
 
+    bary = (barycentric_coord(v0, v1, v2, p) if features.enable_normal_interp
+            or features.enable_texture_mapping else None)
     if features.enable_normal_interp:
-        bary = barycentric_coord(v0, v1, v2, p)
         n_i = interpolate_normal(row[:, 9:12], row[:, 12:15], row[:, 15:18],
                                  bary)
         n_tri = torch.where((fp32.dot3(n_i, d) > 0)[:, None], -n_i, n_i)  # flip
@@ -140,14 +145,26 @@ def hit_attributes(scene, o, d, ids: HitIds, features,
     transparency = torch.where(is_sphere,
                                _take(scene.mat_transparency, smid),
                                row[:, 25])
+
+    if features.enable_texture_mapping:           # bvh cpp:409-417
+        tex_id = torch.where(is_sphere, scene.mat_tex[smid],
+                             row[:, 32].detach().to(torch.int64))
+        uv = interpolate_texcoord(row[:, 26:28], row[:, 28:30],
+                                  row[:, 30:32], bary)
+        texel = acquire_texel(scene.textures, scene.tex_hw, tex_id, uv,
+                              features.enable_bilinear_texture_filtering)
+        use_tex = (tex_id >= 0) & ~is_sphere
+        kd = torch.where(use_tex[:, None], texel, kd)
     return HitAttrs(hit=hit, t=t, normal=normal, kd=kd, ks=ks,
                     shininess=shininess, transparency=transparency)
 
 
 def _intersect_and_shade(scene, o, d, features, params, alive, accel,
-                         tri_table, shared_origin: bool, tables, ray_ids=None):
+                         tri_table, shared_origin: bool, tables, key,
+                         ray_ids=None):
     """One bounce: closest hit, attributes, local radiance. Dead rays get
-    tmax = -1, which the sweep treats as an unconditional miss."""
+    tmax = -1, which the sweep treats as an unconditional miss. key: the
+    level's key for the light samples."""
     tmax = torch.where(alive, torch.inf, -1.0)
     ids = closest_hit(scene, o, d, tmax, accel, tri_table=tri_table,
                       shared_origin=shared_origin and params.sweep_shared_origin,
@@ -157,8 +174,9 @@ def _intersect_and_shade(scene, o, d, features, params, alive, accel,
     attrs = hit_attributes(scene, o, d, ids, features, tables)
     local = light_contribution(scene, o, d, attrs.t, attrs.normal, attrs.kd,
                                attrs.ks, attrs.shininess, features, params,
-                               alive=alive & attrs.hit, accel=accel,
-                               tri_table=tri_table, ray_ids=ray_ids)
+                               key, alive=alive & attrs.hit,
+                               accel=accel, tri_table=tri_table,
+                               ray_ids=ray_ids)
     return attrs, torch.where(attrs.hit[:, None], local, 0.0)
 
 
@@ -205,10 +223,13 @@ def _unroll_depth(scene, params, features) -> int:
 
 
 def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
-                tri_table=None, shared_origin: bool = False, ray_ids=None):
+                key, tri_table=None, shared_origin: bool = False,
+                ray_ids=None):
     """Linear-chain trace over levels: [N, 3] radiance. Level 0 takes the
     shared-origin fast path when the caller promises one origin. accel /
-    tri_table: what hit selection sweeps (ops.intersect.closest_hit)."""
+    tri_table: what hit selection sweeps (ops.intersect.closest_hit).
+    Level l draws its light samples from fold_in(key, l)
+    (cge_tpu/render/wavefront.py:412)."""
     N = o.shape[0]
     acc = torch.zeros((N, 3), dtype=torch.float32, device=o.device)
     W = torch.ones(N, dtype=torch.float32, device=o.device)
@@ -219,7 +240,7 @@ def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
         attrs, local = _intersect_and_shade(
             scene, o, d, features, params, alive, accel, tri_table,
             shared_origin=shared_origin and level == 0, tables=tables,
-            ray_ids=ray_ids)
+            key=rng.fold_in(key, level), ray_ids=ray_ids)
         live_hit = alive & attrs.hit
         A, B = _chain_coefficients(attrs, params.ray_depth - level, features)
         co, cd = _child_ray(o, d, attrs, features)
@@ -255,13 +276,14 @@ def scene_tri_table(scene, accel: Accel | None):
     return pack_tri_table(scene.vertices, scene.tris, scene.tri_mask)
 
 
-def trace(scene, o, d, features, params, accel: Accel | None = None,
-          tables=None, tri_table=None, shared_origin: bool = False,
-          ray_ids=None):
+def trace(scene, o, d, features, params, key,
+          accel: Accel | None = None, tables=None, tri_table=None,
+          shared_origin: bool = False, ray_ids=None):
     """Dispatch to the trace shape for the feature set; only the chain is
-    ported. accel / tables / tri_table: prebuilt by
-    renderer.prepare_render, or built here. Differentiable callers pass
-    none of them, so the attribute rows are built inside the graph."""
+    ported. key: the trace's key (ops.rng; the JAX package's `key`).
+    accel / tables / tri_table: prebuilt by renderer.prepare_render, or
+    built here. Differentiable callers pass none of them, so the
+    attribute rows are built inside the graph."""
     check_supported(features, params)
     if accel is None:
         accel = scene_accel(scene, features)
@@ -269,6 +291,6 @@ def trace(scene, o, d, features, params, accel: Accel | None = None,
         tables = scene_tables(scene, accel)
     if tri_table is None:
         tri_table = scene_tri_table(scene, accel)
-    return trace_chain(scene, o, d, features, params, accel, tables,
+    return trace_chain(scene, o, d, features, params, accel, tables, key,
                        tri_table=tri_table, shared_origin=shared_origin,
                        ray_ids=ray_ids)

@@ -1,5 +1,6 @@
-"""What the tuning tools share: the device, the stand-in scenes, the
-tile-swizzled primary rays and the device timer."""
+"""What the tuning tools and the smoke test share: the device, the
+stand-in scenes (also textured), the tile-swizzled primary rays and the
+device timer."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import os
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 from cge_tpu_torch.camera import Camera, pixel_grid
@@ -63,6 +65,30 @@ def standin_scene(grid, dev: torch.device):
         path = os.path.join(tmp, "dragon.obj")
         write_obj(path, *grid)
         return load_scene_from_file(path, [PointLight(*LIGHT)], device=dev)
+
+
+def write_textured_obj(path: str, rings: int, segments: int,
+                       tex_hw=(64, 96), seed: int = 0) -> str:
+    """The stand-in's OBJ and MTL at (rings, segments), its body material
+    textured through `map_Kd` with a seeded random PNG of tex_hw = (height,
+    width), written by the port's write_png with every row filter; the
+    belly stays untextured. Non-square, so a swapped height and width
+    shows. Returns the PNG's path."""
+    from cge_tpu_torch.scene.image_io import write_png
+    from tools.make_large_asset import write_obj
+
+    write_obj(path, rings, segments)
+    base = os.path.splitext(path)[0]
+    png = base + "_kd.png"
+    texels = np.random.default_rng(seed).integers(
+        0, 256, (*tex_hw, 3), dtype=np.uint8)
+    write_png(png, texels, filters=(0, 1, 2, 3, 4))
+    with open(base + ".mtl") as f:
+        mtl = f.read()
+    body = "newmtl dragonBody\n"
+    with open(base + ".mtl", "w") as f:
+        f.write(mtl.replace(body, body + f"map_Kd {os.path.basename(png)}\n"))
+    return png
 
 
 def primary_rays(res: int, dev: torch.device):

@@ -5,7 +5,7 @@ and the CPU twins compute different bits, over all elements and for one
 ray's row.
 
     with op_diff.Recorder(pause=[(sweep, "closest_tris")]) as rec:
-        trace(scene, o, d, feats, params)
+        trace(scene, o, d, feats, params, key)
     first = op_diff.first_parting(rec_card.entries, rec_cpu.entries)
 
 A Recorder is a TorchDispatchMode: each op's name and a CPU copy of its

@@ -82,11 +82,6 @@ class RenderParams:
 # reference BVH of the debug views), and the texture filter modes, which
 # act only under enable_texture_mapping.
 _UNPORTED_FEATURES = {
-    "enable_texture_mapping": "texture (ROADMAP 1.1)",
-    "enable_soft_shadow": "stochastic features (ROADMAP 1.2)",
-    "enable_bloom_effect": "bloom (ROADMAP 1.3)",
-    "enable_multiple_rays_per_pixel": "MSAA/DoF (ROADMAP 1.4)",
-    "enable_depth_of_field": "MSAA/DoF (ROADMAP 1.4)",
     "enable_glossy_reflection": "glossy (ROADMAP 1.6)",
 }
 

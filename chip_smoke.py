@@ -58,17 +58,36 @@ exits non-zero if any phase fails:
      frustum keys for both sweeps and the coherence ray order for bounces
      and shadows, held against the default accel render;
  10. K4, the streaming probe, against its twin on the three tile layouts
-     at the dragon's scale, with GB/s per layout.
+     at the dragon's scale, with GB/s per layout;
+ 11. the fifth path, the sampling and image-space features: 512x512 frames
+     of the 15,360-triangle stand-in through render_image_u8, each with
+     its launches, median frame and peak memory, and the calls, device ms
+     and kernels of its plain-op parts (threefry draws, texel lookups,
+     bloom) read from torch.profiler's trace of its first frame: the
+     stand-in textured through map_Kd by a 96x64 PNG (nearest, bilinear),
+     soft shadows from a 5x5 parallelogram light (accel off: K3; accel on:
+     K1 and K2) and from a 25-sample segment light, the headline frame
+     without and with bloom, MSAA 3x3, DoF 5 and both; K3, and K1 and K2,
+     on one full 1,638,400-ray shadow batch of the soft frames (recorded
+     as the frame hands it over) and K1 and K2 on one of that size over
+     the dragon's 4,800 clusters, each timed, with the key table's bytes,
+     and held to the twins on blocks spread over the batch; the reader of
+     the plain-op parts against torch.profiler's own parse on two 64x64
+     frames; then the card's threefry draws against the CPU's bit for
+     bit, and each feature set on the 41x32 stand-in at 64x64 on the card
+     against the CPU twins under phase 4's rule.
 
 Each path is driven with the launch counters set to 0 just before it and
-read just after. A summary gives each kernel's time beside its earlier
-design's (PERF.md), its bound, share and launches per frame. The line
-before the last is a JSON object with one entry per kernel; the last line
-is {"ok": true, "device": {...}}.
+read just after; each phase's line ends with the seconds since the start.
+A summary gives each kernel's time beside its earlier design's (PERF.md),
+its bound, share and launches per frame. The line before the last is a
+JSON object with one entry per kernel; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -123,7 +142,14 @@ TOOL_RUNS = (
 )
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's line (and the summary's) ends with the
+    seconds since the start."""
+    if msg.startswith("["):
+        msg = f"{msg} [t = {time.perf_counter() - START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -336,6 +362,7 @@ def train_path(scene, device):
     import torch
 
     import cge_tpu_torch as ct
+    from cge_tpu_torch.ops import rng
     from cge_tpu_torch.render.wavefront import trace
 
     feats, params = ct.Features(**BRUTE), ct.RenderParams()
@@ -345,7 +372,8 @@ def train_path(scene, device):
         **leaves, "mat_kd": leaves["mat_kd"] * 0.8,
         "point_pos": leaves["point_pos"] + 0.1})
     with torch.no_grad():
-        target = torch.nan_to_num(trace(perturbed, o, d, feats, params))
+        target = torch.nan_to_num(trace(perturbed, o, d, feats, params,
+                                        rng.prng_key(SEED)))
     def step(s):
         loss, grads = ct.loss_and_grads(s, o, d, target, feats, params)
         return loss, grads, ct.sgd_step(s, {
@@ -427,7 +455,7 @@ def record_traces(card, cpu, o, d, feats, params) -> list:
     entries]."""
     import torch
 
-    from cge_tpu_torch.ops import fp32, sweep
+    from cge_tpu_torch.ops import fp32, rng, sweep
     from cge_tpu_torch.render.wavefront import trace
     from cge_tpu_torch.tools import op_diff
 
@@ -437,7 +465,7 @@ def record_traces(card, cpu, o, d, feats, params) -> list:
         with torch.no_grad(), op_diff.Recorder(
                 pause=[(sweep, "closest_tris"), (fp32, "sqrt_rn"),
                        (fp32, "pow_f64")]) as rec:
-            trace(s, so, sd, feats, params)
+            trace(s, so, sd, feats, params, rng.prng_key(SEED))
         runs.append(rec.entries)
     return runs
 
@@ -731,6 +759,470 @@ def check_stream(device):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 11: texture, soft shadows, bloom, MSAA and DoF
+# ---------------------------------------------------------------------------
+
+# the soft lights near the point light: a parallelogram with four corner
+# colours (bench.py's soft feature set samples it 5x5) and a segment
+PAR_LIGHT = ((-1.2, 1.0, -1.2), (0.4, 0.0, 0.0), (0.0, 0.0, 0.4),
+             (1.0, 0.2, 0.2), (0.2, 1.0, 0.2), (0.2, 0.2, 1.0),
+             (1.0, 1.0, 0.2))
+SEG_LIGHT = ((-1.4, 1.0, -0.8), (-0.6, 1.2, -1.4), (1.0, 0.6, 0.2),
+             (0.2, 0.6, 1.0))
+# bench.py's soft feature set, with interpolated normals: the stand-in's
+# geometric normals face inward and shade it black
+SOFT = dict(enable_shading=True, enable_soft_shadow=True,
+            enable_normal_interp=True)
+TEX_HW = (64, 96)               # (height, width): a swapped pair shows
+# a soft512 frame's shadow batch: a 65,536-ray chunk's hits x 5 x 5 samples
+SHADOW_BATCH = 65536 * 25
+# the 512-ray blocks the twins check of a full shadow batch (slice_blocks)
+SLICE_BLOCKS = 8
+FIFTH_FRAMES = 2
+FIFTH_SEED = 1
+SMALL_SIDE = 64
+# (label, scene, features) of each 512x512 frame; accel off must launch K3
+# only, accel on K1 and K2 only; bloom's row is timed beside the same frame
+# without it
+FIFTH_ROWS = (
+    ("texture nearest", "tex", dict(BRUTE, enable_texture_mapping=True)),
+    ("texture bilinear", "tex", dict(
+        BRUTE, enable_texture_mapping=True,
+        enable_bilinear_texture_filtering=True)),
+    ("soft512, accel off", "par", SOFT),
+    ("soft512, accel on", "par", dict(SOFT, enable_accel_structure=True)),
+    ("segment light", "seg", SOFT),
+    ("headline (bloom's baseline)", "point", HEADLINE),
+    ("bloom", "point", dict(HEADLINE, enable_bloom_effect=True)),
+    ("MSAA 3x3", "point", dict(HEADLINE, enable_multiple_rays_per_pixel=True)),
+    ("DoF 5", "point", dict(HEADLINE, enable_depth_of_field=True)),
+    ("MSAA 3x3 + DoF 5", "point", dict(
+        HEADLINE, enable_multiple_rays_per_pixel=True,
+        enable_depth_of_field=True)),
+)
+
+
+def plain_labels() -> dict:
+    """torch.profiler label -> name of each plain-op part of a frame: the
+    threefry draws, the texel lookups and bloom (record_function spans)."""
+    from cge_tpu_torch.ops import rng, texture
+    from cge_tpu_torch.render import bloom
+
+    return {rng.LABELS["uniform"]: "threefry",
+            rng.LABELS["per_ray_uniform"]: "threefry per ray",
+            texture.LABEL: "texels", bloom.LABEL: "bloom"}
+
+
+def plain_ops(prof, labels) -> dict:
+    """name -> (calls, device ms, kernels) of each labelled part of one
+    frame profiled with torch.profiler, from its raw events (its own parse
+    of a 512x512 frame's events takes seconds): a CPU op that starts inside
+    a label's span, on its thread, owns the device events (kernels, copies,
+    fills) whose linked correlation id is its correlation id. Only ops
+    own: an event linked to an op (a CUDA runtime call) has a correlation
+    id of another count, which may equal an op's. Raises where a part ran
+    and the trace holds no kernel of it."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    cpu = [e for e in events
+           if e.device_type() == DeviceType.CPU and not e.is_async()
+           and not e.linked_correlation_id()]
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(),
+                    e.start_thread_id(), labels[e.name()])
+                   for e in cpu if e.name() in labels)
+    starts = [s[0] for s in spans]
+    owner = {}
+    for e in cpu:
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if (i >= 0 and e.start_ns() < spans[i][1]
+                and e.start_thread_id() == spans[i][2]):
+            owner[e.correlation_id()] = spans[i][3]
+    out = {name: [0, 0.0, 0] for name in labels.values()}
+    for span in spans:
+        out[span[3]][0] += 1
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            name = owner.get(e.linked_correlation_id())
+            if name is not None:
+                out[name][1] += e.duration_ns() / 1e6
+                out[name][2] += 1
+    missing = [k for k, (calls, _, n) in out.items() if calls and not n]
+    if missing:
+        raise AssertionError(f"torch.profiler holds no kernel of {missing}")
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def fifth_scenes(tmp, grid, device):
+    """The stand-in at `grid` on `device` under each light set: textured
+    with a point light, the parallelogram light, the segment light, the
+    point light."""
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.scene.scene import ParallelogramLight, SegmentLight
+    from cge_tpu_torch.tools.common import write_textured_obj
+
+    tag = "x".join(map(str, grid))
+    tex = os.path.join(tmp, f"standin_tex_{tag}.obj")
+    if not os.path.exists(tex):
+        write_textured_obj(tex, *grid, tex_hw=TEX_HW, seed=SEED)
+    plain = os.path.join(tmp, f"standin_{tag}.obj")
+    if not os.path.exists(plain):
+        from tools.make_large_asset import write_obj
+        write_obj(plain, *grid)
+    point = [ct.PointLight(*LIGHT)]
+    return {"tex": ct.load_scene_from_file(tex, point, device=device),
+            "par": ct.load_scene_from_file(
+                plain, [ParallelogramLight(*PAR_LIGHT)], device=device),
+            "seg": ct.load_scene_from_file(
+                plain, [SegmentLight(*SEG_LIGHT)], device=device),
+            "point": ct.load_scene_from_file(plain, point, device=device)}
+
+
+def fifth_frame(label, scene, feats, labels):
+    """One row of phase 11: the first frame with the counters reset around
+    it, under torch.profiler for its plain-op parts, then FIFTH_FRAMES
+    timed frames (CUDA events) with peak memory. Returns the row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cge_tpu_torch as ct
+
+    f, params = ct.Features(**feats), ct.RenderParams()
+    ctx = ct.prepare_render(scene, f, params)
+    reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        img = ct.render_image_u8(scene, ct.Camera(), f, params, W, H,
+                                 FIFTH_SEED, ctx=ctx)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    plain = plain_ops(prof, labels)
+    del prof
+    if img.shape != (H, W, 3) or img.dtype != torch.uint8:
+        raise AssertionError(f"{label}: image {tuple(img.shape)} {img.dtype}")
+    lit = float((img.float().sum(-1) > 0).float().mean())
+    if lit < 0.05:
+        raise AssertionError(f"{label}: image is blank ({lit:.4f} lit)")
+    want = ("keys", "walk") if feats.get("enable_accel_structure") else (
+        "sweep",)
+    other = {"keys", "walk", "sweep"} - set(want)
+    if (any(launches[k] <= 0 for k in want)
+            or any(launches[k] for k in other)):
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    torch.cuda.reset_peak_memory_stats()
+    frames = []
+    for _ in range(FIFTH_FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ct.render_image_u8(scene, ct.Camera(), f, params, W, H, FIFTH_SEED,
+                           ctx=ctx)
+        end.record()
+        torch.cuda.synchronize()
+        frames.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = float(np.median(frames))
+    n_px = W * H
+    spp = (params.rays_per_pixel_side ** 2
+           if feats.get("enable_multiple_rays_per_pixel") else 0) + (
+        params.samples_dof if feats.get("enable_depth_of_field") else 0)
+    primary = n_px * max(spp, 1)
+    shadow = (primary * params.parallelogram_light_direction_samples ** 2
+              if feats.get("enable_soft_shadow") else 0)
+    row = dict(label=label, ms=ms, frames=frames, first_s=first_s,
+               peak_mib=peak, lit=lit, primary=primary, shadow=shadow,
+               launches={k: launches[k] for k in ("keys", "walk", "sweep")},
+               plain=plain)
+    ops_txt = "; ".join(f"{k} {c} calls {t:.3f} ms {n} kernels"
+                        for k, (c, t, n) in plain.items() if c)
+    rays = (f", {shadow} shadow rays a frame (5x5 a primary ray), "
+            f"{n_px * (1 + 25) / ms / 1e3:.3f} Mrays/s as bench.py:206 "
+            f"counts" if shadow else "")
+    log(f"  {label}: {primary} primary rays, launches "
+        f"{row['launches']}, lit {lit:.3f}, first frame (profiled) "
+        f"{first_s:.2f} s, frames ms {[round(x, 2) for x in frames]}, "
+        f"median {ms:.2f} ms{rays}, peak memory {peak:.0f} MiB | plain ops "
+        f"in the first frame: {ops_txt or 'none'}")
+    return row
+
+
+@contextlib.contextmanager
+def recorded_batches(module, name, n_rays: int):
+    """While open, records the arguments ((args), kwargs) of each call of
+    module.name whose first argument holds at least n_rays rays; the calls
+    run as before."""
+    fn = getattr(module, name)
+    calls = []
+
+    def spy(o, *args, **kw):
+        if o.shape[0] >= n_rays:
+            calls.append(((o, *args), kw))
+        return fn(o, *args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def slice_blocks(live):
+    """The blocks the twins check of a batch: SLICE_BLOCKS - 2 spread over
+    the blocks that hold a live ray, and the last two. live: [NB] bool."""
+    import torch
+
+    nb = live.shape[0]
+    cand = torch.nonzero(live[:nb - 2]).flatten()
+    if cand.numel():
+        cand = cand[torch.linspace(0, cand.numel() - 1, SLICE_BLOCKS - 2,
+                                   device=cand.device).round().long()]
+    return torch.cat([cand, torch.tensor([nb - 2, nb - 1],
+                                         device=cand.device)]).unique()
+
+
+def shadow_batch(scene, feats, module, name):
+    """One soft512 frame with each SHADOW_BATCH-ray call of module.name
+    recorded: the arguments of the call with the most live rays (the third
+    argument is the rays' budget, -1 for a dead ray)."""
+    import cge_tpu_torch as ct
+
+    f, params = ct.Features(**feats), ct.RenderParams()
+    with recorded_batches(module, name, SHADOW_BATCH) as calls:
+        ct.render_image(scene, ct.Camera(), f, params, W, H, FIFTH_SEED)
+    if not calls:
+        raise AssertionError(f"the soft512 frame sent {name} no batch of "
+                             f"{SHADOW_BATCH} rays")
+    return max(calls, key=lambda c: int((c[0][2] >= 0).sum()))
+
+
+def check_shadow_k3(scene, device):
+    """K3 on a full shadow batch of the accel-off soft512 frame: its ms,
+    bound and share, and t and ids equal to the twin's on the rays of
+    slice_blocks."""
+    import torch
+
+    from cge_tpu_torch.ops import sweep
+    from cge_tpu_torch.tools import common, roofline
+
+    (o, d, tmax, table), _ = shadow_batch(scene, SOFT, sweep, "closest_tris")
+    got = sweep.closest_tris(o, d, tmax, table)
+    live = torch.nn.functional.pad(tmax >= 0, (0, (-o.shape[0]) % 512))
+    rows = (slice_blocks(live.reshape(-1, 512).any(dim=1))[:, None] * 512
+            + torch.arange(512, device=device)).reshape(-1)
+    rows = rows[rows < o.shape[0]]
+    want = sweep.closest_tris_plain(o[rows], d[rows], tmax[rows], table)
+    for what, a, b in zip(("t", "ids"), got, want):
+        if not bool((a[rows] == b).all()):
+            raise AssertionError(f"K3 on the full shadow batch: {what} "
+                                 f"differ from the twin")
+    ms = common.device_ms(lambda: sweep.closest_tris(o, d, tmax, table),
+                          device, 3)
+    bound = roofline.sweep_bound(o, d, tmax, table, got[0])
+    log(f"    K3 on one full shadow batch (accel off): {o.shape[0]} rays, "
+        f"{int((tmax >= 0).sum())} live, {int((got[1] >= 0).sum())} "
+        f"blocked, {table.shape[0]} triangles | {ms:.4f} ms, "
+        f"{_bound_line(bound, ms)} | t and ids equal to the twin on "
+        f"{rows.numel()} rays ({int((tmax[rows] >= 0).sum())} live) in "
+        f"runs of 512, the last two among them")
+
+
+def check_shadow_walk(scene, device):
+    """K1 and K2's any-hit walk on a full shadow batch of the accel-on
+    soft512 frame (check_walk_batch)."""
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    args, kw = shadow_batch(scene, dict(SOFT, enable_accel_structure=True),
+                            cs, "cluster_tris")
+    if not kw.get("any_hit") or not kw.get("exact_keys", True):
+        raise AssertionError(f"the shadow sweep ran with {kw}")
+    check_walk_batch("the stand-in's soft512 frame (accel on, reversed)",
+                     *args, kw.get("br", cs.DEFAULT_BR), kw.get("sc_n"),
+                     device)
+
+
+def check_dragon_shadow_walk(scene, accel, device):
+    """K1 and K2's any-hit walk on a shadow batch of SHADOW_BATCH rays over
+    the dragon's 4,800 clusters at one a visit (the main path's sc_n):
+    kernel_bench's shadow rays toward the hits of the 1280x1280 frame
+    (check_walk_batch)."""
+    from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import kernel_bench
+
+    side = int(round(SHADOW_BATCH ** 0.5))
+    batch = kernel_bench.walk_batches(scene, accel, device, side,
+                                      SHADOW_BATCH)["c_shadow"]
+    o, d, tmax = batch[:3]
+    check_walk_batch(f"the dragon, shadow rays of a {side}x{side} frame",
+                     o, d, tmax, accel.aabbs, accel.tiles, accel.layout,
+                     cs.DEFAULT_BR, MAIN_PARAMS["sweep_anyhit_sc_n"], device)
+
+
+def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
+                     device):
+    """K1, the sort of its keys and K2's any-hit walk on one full batch:
+    the key table's bytes, each one's ms with K1's and K2's bounds; K1's
+    keys and K2's results bit for bit against the twins on the blocks of
+    slice_blocks."""
+    from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import common, kernel_bench, roofline
+
+    inp = cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, br, sc_n)
+    keys = cs.block_entry_keys(inp.rays, inp.boxes)
+    skeys, order = cs.sort_keys(keys)
+    walk = dict(layout=layout, sc_n=inp.sc_n, any_hit=True)
+    out = cs.cluster_walk(order, skeys, inp.rays, inp.tiles, **walk)
+    blocks = slice_blocks((inp.rays[:, 6] >= 0).any(dim=1))
+    kernel_bench.check_keys(
+        keys[blocks], cs.block_entry_keys_plain(inp.rays[blocks], inp.boxes),
+        f"K1 on {what}")
+    kernel_bench.check_equal(
+        [x[blocks] for x in out],
+        cs.cluster_walk_plain(order[blocks], skeys[blocks], inp.rays[blocks],
+                              inp.tiles, **walk),
+        f"K2 on {what}")
+    keys_ms = common.device_ms(
+        lambda: cs.block_entry_keys(inp.rays, inp.boxes), device, 3)
+    sort_ms = common.device_ms(lambda: cs.sort_keys(keys), device, 3)
+    walk_ms = common.device_ms(lambda: cs.cluster_walk(
+        order, skeys, inp.rays, inp.tiles, **walk), device, 3)
+    keys_bound = roofline.keys_bound(inp.rays, inp.boxes.shape[0])
+    walk_bound = roofline.walk_bound(order, inp.rays, inp.tiles, out, **walk)
+    NB, _, BR = inp.rays.shape
+    log(f"    K1 + K2 on one full shadow batch, {what}: {o.shape[0]} rays "
+        f"in {NB} blocks of {BR}, {int((tmax >= 0).sum())} live, "
+        f"{int((out[1] == 1).sum())} blocked, {inp.boxes.shape[0]} boxes, "
+        f"key table {keys.numel() * 4} bytes | K1 {keys_ms:.4f} ms, "
+        f"{_bound_line(keys_bound, keys_ms)} | sort {sort_ms:.4f} ms | K2 "
+        f"{walk_ms:.4f} ms, {_bound_line(walk_bound, walk_ms)}, visits mean "
+        f"{float(out[2].float().mean()):.2f} max {int(out[2].max())} | K1's "
+        f"keys and K2's t, ids, visits and dense tiles equal to the twins "
+        f"on {blocks.numel()} blocks ({int((inp.rays[blocks, 6] >= 0).sum())}"
+        f" live rays), the last two among them")
+
+
+def check_plain_ops_reader(tmp, device) -> None:
+    """plain_ops against torch.profiler's own parse of the same trace
+    (each label's events with their child ops' kernels) on two 64x64 frames
+    of the small stand-in that run every labelled part: equal calls and
+    kernels, and device ms within 1e-6."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cge_tpu_torch as ct
+
+    def parsed(prof, labels):
+        def kernels(e):
+            return len(e.kernels) + sum(kernels(c) for c in e.cpu_children)
+
+        out = {name: [0, 0.0, 0] for name in labels.values()}
+        for e in prof.events():
+            if e.name in labels and e.device_type.name == "CPU":
+                row = out[labels[e.name]]
+                row[0] += 1
+                row[1] += e.device_time_total / 1e3
+                row[2] += kernels(e)
+        return out
+
+    scenes = fifth_scenes(tmp, (41, 32), device)
+    labels = plain_labels()
+    for which, feats in (("tex", dict(
+            HEADLINE, enable_texture_mapping=True,
+            enable_bilinear_texture_filtering=True, enable_bloom_effect=True,
+            enable_multiple_rays_per_pixel=True)), ("par", SOFT)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ct.render_image(scenes[which], ct.Camera(), ct.Features(**feats),
+                            ct.RenderParams(), SMALL_SIDE, SMALL_SIDE,
+                            FIFTH_SEED)
+            torch.cuda.synchronize()
+        got, want = plain_ops(prof, labels), parsed(prof, labels)
+        for k, (calls, ms, n) in got.items():
+            w_calls, w_ms, w_n = want[k]
+            if calls != w_calls or n != w_n or abs(ms - w_ms) > 1e-6:
+                raise AssertionError(f"plain_ops read {k} as {got[k]}, "
+                                     f"torch.profiler's parse as {want[k]}")
+    log("    plain_ops equals torch.profiler's own parse on two 64x64 frames "
+        "that run every labelled part")
+
+
+def threefry_check(device) -> None:
+    """The card's threefry draws equal the CPU's bit for bit: one chunk's
+    per-ray soft-shadow streams (65,536 global ids from the second chunk,
+    25 samples each), the 64x64 frame's MSAA jitter and its DoF split."""
+    import torch
+
+    from cge_tpu_torch.ops import rng
+
+    key = rng.fold_in(rng.prng_key(FIFTH_SEED), 3)
+    ids = torch.arange(65536, 2 * 65536)
+    draws = [
+        lambda dev: rng.per_ray_uniform(rng.fold_in(key, 2000), ids.to(dev),
+                                        (25,)),
+        lambda dev: rng.uniform(rng.fold_in(key, 101), (64 * 64, 9, 2), dev),
+        lambda dev: rng.uniform(rng.split(rng.fold_in(key, 202))[1],
+                                (64 * 64, 5), dev)]
+    for i, draw in enumerate(draws):
+        a, b = draw(device).cpu(), draw(torch.device("cpu"))
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"threefry draw {i}: card and CPU differ")
+    log(f"    threefry: {len(draws)} draws (a chunk's per-ray streams, "
+        f"MSAA jitter, DoF disk) equal on card and CPU bit for bit")
+
+
+def fifth_small_check(tmp, device) -> list:
+    """Each phase-11 feature set on the 41x32 stand-in at 64x64 with the
+    same seed on the card and the CPU twins, under phase 4's rule."""
+    import torch
+
+    import cge_tpu_torch as ct
+
+    card = fifth_scenes(tmp, (41, 32), device)
+    cpu = fifth_scenes(tmp, (41, 32), torch.device("cpu"))
+    out = []
+    for label, which, feats in FIFTH_ROWS:
+        f = ct.Features(**feats)
+        p = ct.RenderParams(trace_chunk=1024)
+        a, b = (ct.render_image(s[which], ct.Camera(), f, p, SMALL_SIDE,
+                                SMALL_SIDE, FIFTH_SEED).cpu().numpy()
+                for s in (card, cpu))
+        nan_agree, frac = compare_images(a, b)
+        out.append((label, nan_agree, frac))
+        if nan_agree < 0.999 or frac < 0.995:
+            raise AssertionError(f"{label}: card and CPU disagree "
+                                 f"({nan_agree:.4f} NaN, {frac:.4%} close)")
+    log("    64x64 card vs CPU twins: " + "; ".join(
+        f"{label} {frac:.2%}" for label, _, frac in out))
+    return out
+
+
+def fifth_path(tmp, dragon, accel, device) -> list:
+    """Phase 11; dragon and accel: the main path's scene and accel."""
+    log(f"[11] fifth path: texture, soft shadows, bloom, MSAA, DoF at "
+        f"{W}x{H} on the {2 * (TEAPOT_GRID[0] - 1) * TEAPOT_GRID[1]}-"
+        f"triangle stand-in (seed {FIFTH_SEED}; texture {TEX_HW[1]}x"
+        f"{TEX_HW[0]})")
+    scenes = fifth_scenes(tmp, TEAPOT_GRID, device)
+    tex = scenes["tex"]
+    if tuple(tex.tex_hw[0].tolist()) != TEX_HW:
+        raise AssertionError(f"texture loaded as {tex.tex_hw[0].tolist()}")
+    labels = plain_labels()
+    rows = [fifth_frame(label, scenes[which], feats, labels)
+            for label, which, feats in FIFTH_ROWS]
+    check_shadow_k3(scenes["par"], device)
+    check_shadow_walk(scenes["par"], device)
+    check_dragon_shadow_walk(dragon, accel, device)
+    check_plain_ops_reader(tmp, device)
+    threefry_check(device)
+    fifth_small_check(tmp, device)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -880,6 +1372,9 @@ def main() -> int:
         # phases 9 and 10: the tuning path, then K4 against its twin
         tool_launches = tuning_path(tscene, device)
         report["stream"] = check_stream(device)
+
+        # phase 11: the sampling and image-space features
+        fifth_path(tmp, scene, ctx.accel, device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"

@@ -4,9 +4,12 @@ against the JAX package's, on the same numpy leaves.
 The scene is the 9x8 dragon stand-in (tools/make_large_asset.py, 128
 triangles) with two spheres, one a mirror; 12x12 camera rays; shading, hard
 shadows and recursive mirrors, with the accel off, so hit selection is the
-brute-force sweep (K3's twin here, JAX's XLA sweep there). The scene is
-built once by JAX and carried across with `interop.scene_from_numpy`; the
-JAX side runs `jax.value_and_grad(render_loss)` under jit.
+brute-force sweep (K3's twin here, JAX's XLA sweep there). Two more cases
+of the train step: the stand-in's body textured (bilinear), and a
+parallelogram light's soft shadows, whose samples both sides draw from
+key 0. The scene is built once by JAX and carried across with
+`interop.scene_from_numpy`; the JAX side runs
+`jax.value_and_grad(render_loss)` under jit.
 
 Gradients are compared per DIFF_FIELDS leaf with rtol 2e-3 and atol 1e-4 x
 the leaf's max |g|: both sides differentiate the same ops, but XLA:CPU
@@ -27,11 +30,13 @@ import cge_tpu_torch as ct
 from cge_tpu.camera import pixel_grid as jpixel_grid
 from cge_tpu.diff import gradients as jgrad
 from cge_tpu.scene.mesh_io import Material, load_mesh
+from cge_tpu.scene.scene import ParallelogramLight as JParLight
 from cge_tpu.scene.scene import PointLight as JPointLight
 from cge_tpu.scene.scene import SphereDef, build_scene_arrays
 from cge_tpu_torch.interop import (TENSOR_FIELDS, params_from_numpy,
                                    scene_from_numpy)
 from cge_tpu_torch.ops import sweep
+from cge_tpu_torch.tools.common import write_textured_obj
 from tools.make_large_asset import write_obj
 
 torch.set_num_threads(2)
@@ -46,15 +51,30 @@ FEATURES = {
     # gradients are nonzero
     "interp": dict(enable_shading=True, enable_hard_shadow=True,
                    enable_recursive=True, enable_normal_interp=True),
+    # the stand-in's body textured (bilinear): gradients reach the texels
+    # and the uvs
+    "texture": dict(enable_shading=True, enable_hard_shadow=True,
+                    enable_recursive=True, enable_normal_interp=True,
+                    enable_texture_mapping=True,
+                    enable_bilinear_texture_filtering=True),
+    # a parallelogram light's 5x5 jittered samples, drawn from the same
+    # threefry streams on both sides (bench.py's soft feature set with
+    # interpolated normals): gradients reach its corner, edges and colours
+    "soft": dict(enable_shading=True, enable_soft_shadow=True,
+                 enable_normal_interp=True),
 }
+# the leaves each feature set must move, beyond those of every set
+LIVE = {"geometric": set(), "interp": {"vertices", "normals"},
+        "texture": {"vertices", "normals", "textures", "uvs"},
+        "soft": {"vertices", "normals", "par_v0", "par_e01", "par_e02",
+                 "par_c0", "par_c1", "par_c2", "par_c3"}}
+PAR = ((-1.2, 1.0, -1.2), (0.4, 0.0, 0.0), (0.0, 0.0, 0.4), (1.0, 0.2, 0.2),
+       (0.2, 1.0, 0.2), (0.2, 0.2, 1.0), (1.0, 1.0, 0.2))
 SIDE = 12
 SEED = 5
 
 
-@pytest.fixture(scope="module")
-def setup(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("grad") / "dragon_tiny.obj")
-    write_obj(path, 9, 8)
+def _build(path, lights):
     spheres = [
         SphereDef((0.0, 0.1, 0.0), 0.3,
                   Material(kd=np.float32([0.9, 0.3, 0.2]),
@@ -62,7 +82,7 @@ def setup(tmp_path_factory):
         SphereDef((0.55, 0.45, -0.7), 0.2,
                   Material(kd=np.float32([0.2, 0.3, 0.9]))),
     ]
-    js = build_scene_arrays(load_mesh(path), spheres, [JPointLight(*LIGHT)])
+    js = build_scene_arrays(load_mesh(path), spheres, lights)
     ps = scene_from_numpy({k: np.asarray(getattr(js, k))
                            for k in TENSOR_FIELDS},
                           all_opaque=js.all_opaque,
@@ -73,6 +93,27 @@ def setup(tmp_path_factory):
     rng = np.random.default_rng(SEED)
     target = rng.uniform(0.0, 0.5, (o.shape[0], 3)).astype(np.float32)
     return js, ps, o, d, target
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("grad") / "dragon_tiny.obj")
+    write_obj(path, 9, 8)
+    return _build(path, [JPointLight(*LIGHT)])
+
+
+@pytest.fixture(scope="module")
+def setups(setup, tmp_path_factory):
+    """The scene of each feature set: the textured stand-in
+    (tools/common.write_textured_obj) for texture, a parallelogram light
+    beside the point light for soft shadows, else `setup`'s."""
+    path = str(tmp_path_factory.mktemp("grad_tex") / "dragon_tiny.obj")
+    write_textured_obj(path, 9, 8)
+    out = {"texture": _build(path, [JPointLight(*LIGHT)])}
+    path = str(tmp_path_factory.mktemp("grad_par") / "dragon_tiny.obj")
+    write_obj(path, 9, 8)
+    out["soft"] = _build(path, [JPointLight(*LIGHT), JParLight(*PAR)])
+    return {k: out.get(k, setup) for k in FEATURES}
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,11 +138,12 @@ def _port(ps, o, d, target, feats):
 
 
 @pytest.mark.parametrize("which", list(FEATURES))
-def test_loss_and_grads_match_jax(setup, which):
+def test_loss_and_grads_match_jax(setups, which):
     """The loss to rtol 1e-5 and every DIFF_FIELDS gradient to rtol 2e-3,
     atol 1e-4 x max |g|; every gradient finite (JAX's are, on this view,
-    which has no pow-quirk rays)."""
-    js, ps, o, d, target = setup
+    which has no pow-quirk rays). Both sides draw the soft shadows'
+    samples from key 0 (the port's seed 0)."""
+    js, ps, o, d, target = setups[which]
     jv, jg = _jax(js, o, d, target, FEATURES[which])
     before = sweep.LAUNCHES["sweep"]
     pv, pg = _port(ps, o, d, target, FEATURES[which])
@@ -115,10 +157,9 @@ def test_loss_and_grads_match_jax(setup, which):
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4 * scale,
                                    err_msg=k)
-    live = {"mat_kd", "sph_center", "sph_radius", "point_pos", "point_color"}
-    if which == "interp":
-        live |= {"vertices", "normals"}
-    assert all(np.abs(pg[k]).max() > 0 for k in live)
+    live = {"mat_kd", "sph_center", "sph_radius", "point_pos",
+            "point_color"} | LIVE[which]
+    assert [k for k in live if not np.abs(pg[k]).max() > 0] == []
 
 
 def _fd(ps, o, d, target, feats, field, idx, eps):

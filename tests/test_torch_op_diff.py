@@ -15,6 +15,7 @@ import torch
 
 import cge_tpu_torch as ct
 from cge_tpu_torch.ops import sweep
+from cge_tpu_torch.ops.rng import prng_key
 from cge_tpu_torch.render.wavefront import trace
 from cge_tpu_torch.tools import op_diff
 from tools.make_large_asset import write_obj
@@ -96,15 +97,16 @@ def test_train_trace_parts_where_a_vertex_moves(small_scene):
         ct.camera.pixel_grid(16, 16, "cpu").reshape(-1, 2))
     feats, params = ct.Features(**BRUTE), ct.RenderParams()
     pause = [(sweep, "closest_tris")]
-    a = _record(trace, small_scene, o, d, feats, params, pause=pause)
-    b = _record(trace, small_scene, o, d, feats, params, pause=pause)
+    key = prng_key(SEED)
+    a = _record(trace, small_scene, o, d, feats, params, key, pause=pause)
+    b = _record(trace, small_scene, o, d, feats, params, key, pause=pause)
     assert op_diff.first_parting(a, b) is None
     calls = op_diff.named(a, "closest_tris")
     assert len(calls) >= 2 and calls[0][1][1][1].shape == (o.shape[0],)
     v = small_scene.vertices.clone()
     v[3, 0] = torch.nextafter(v[3, 0], torch.tensor(np.inf))
     moved = dataclasses.replace(small_scene, vertices=v)
-    c = _record(trace, moved, o, d, feats, params, pause=pause)
+    c = _record(trace, moved, o, d, feats, params, key, pause=pause)
     first = op_diff.first_parting(a, c)
     assert first is not None and first[1] in ("index", "index_select")
     assert all(name != "end of one run" for _, name, _, _ in
