@@ -1,11 +1,13 @@
 """cge_tpu_torch: the PyTorch and CUDA port of cge_tpu.
 
-The Whitted chain (Phong shading, hard shadows from point lights, soft
-shadows from segment and parallelogram lights, recursive mirrors,
-interpolated normals, textures), with MSAA, depth of field and bloom,
-renders on one device given to the scene loader, with the cluster accel or
-without it, and trains through the same trace (diff.gradients). Its
-samples come from threefry streams equal to jax.random's (ops/rng.py). Its three hot kernels, the cluster key pass and the
+The Whitted chain (Phong shading, hard and transparency shadows from point
+lights, soft shadows from segment and parallelogram lights, recursive
+mirrors, interpolated normals, textures), the transparency + recursion
+tree and glossy reflections, with MSAA, depth of field and bloom, render
+on one device given to the scene loader, one camera or a batch, with the
+cluster accel or without it, and train through the same trace
+(diff.gradients). Their samples come from threefry streams equal to
+jax.random's (ops/rng.py). Its three hot kernels, the cluster key pass and the
 ordered cluster walk (csrc/cluster_sweep.cu) and the brute-force sweep
 (csrc/sweep.cu), are hand-written CUDA for Hopper; on CPU tensors their
 plain PyTorch twins run. The package imports torch and numpy, never JAX.
@@ -16,7 +18,9 @@ from cge_tpu_torch.diff.gradients import (DIFF_FIELDS, loss_and_grads,
                                           render_loss, scene_params,
                                           sgd_step, with_params)
 from cge_tpu_torch.render.renderer import (RenderContext, prepare_render,
-                                           render_image, render_image_u8)
+                                           render_image, render_image_u8,
+                                           render_images, render_images_u8,
+                                           stack_cameras)
 from cge_tpu_torch.scene.scene import (PointLight, SceneArrays, SceneType,
                                        load_scene_from_file,
                                        load_scene_prebuilt)
@@ -26,6 +30,6 @@ __all__ = [
     "Camera", "DIFF_FIELDS", "Features", "PointLight", "RenderContext",
     "RenderParams", "SceneArrays", "SceneType", "load_scene_from_file",
     "load_scene_prebuilt", "loss_and_grads", "prepare_render", "render_image",
-    "render_image_u8", "render_loss", "scene_params", "sgd_step",
-    "with_params",
+    "render_image_u8", "render_images", "render_images_u8", "render_loss",
+    "scene_params", "sgd_step", "stack_cameras", "with_params",
 ]

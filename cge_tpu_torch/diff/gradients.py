@@ -74,6 +74,13 @@ def loss_and_grads(scene, rays_o, rays_d, target, features, render_params,
 
 @torch.no_grad()
 def sgd_step(scene, grads: dict, lr: float):
-    """Plain SGD on the differentiable leaves."""
-    return with_params(scene, {k: v - lr * grads[k]
-                               for k, v in scene_params(scene).items()})
+    """Plain SGD on the differentiable leaves. The host flags all_diffuse
+    and all_opaque are recomputed from the stepped materials, with one host
+    copy of the ks and transparency columns: a stale all_diffuse would
+    collapse the TRANS+REC tree after mat_ks moved off zero (the JAX
+    package carries both across unchanged)."""
+    s = with_params(scene, {k: v - lr * grads[k]
+                            for k, v in scene_params(scene).items()})
+    mat = torch.cat([s.mat_ks, s.mat_transparency[:, None]], dim=1).cpu()
+    return dataclasses.replace(s, all_diffuse=bool((mat[:, :3] == 0).all()),
+                               all_opaque=bool((mat[:, 3] == 1).all()))

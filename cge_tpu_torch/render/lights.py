@@ -3,9 +3,13 @@ cge_tpu/render/lights.py; reference src/light.cpp).
 
 testVisibilityLightSample (light.cpp:49-73): the hit point is pulled back
 1e-5 along the normalized ray and a budget-1 shadow segment runs to the
-light sample; with transparency off only the existence of a blocker
-matters (light.cpp:60-63), so the any-hit sweep answers it. Without the
-accel the query is the forward closest hit of the brute-force sweep (K3).
+light sample. With transparency off only the existence of a blocker
+matters (light.cpp:60-63), so the any-hit sweep answers it; without the
+accel that query is the forward closest hit of the brute-force sweep (K3).
+With transparency on the visibility is the closest blocker's material
+transparency (light.cpp:65-68), so the query is a forward closest hit on
+either sweep, with the closest-hit knobs and no reversal or ray sort
+(cge_tpu/render/lights.py:95-106).
 
 Segment and parallelogram lights (soft shadows) draw their jitter from
 threefry streams keyed per ray by global ray id (ops/rng.py), as the JAX
@@ -18,23 +22,21 @@ from __future__ import annotations
 import torch
 
 from cge_tpu_torch.ops import fp32, rng
-from cge_tpu_torch.ops.intersect import any_hit_occlusion
+from cge_tpu_torch.ops.intersect import (any_hit_occlusion, closest_hit,
+                                         uses_cluster_sweep)
 from cge_tpu_torch.ops.shading import compute_shading
 
 
 def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
                       params, alive=None, accel=None, tri_table=None):
-    """Visibility [N] in {0, 1} of `sample_pos` from each hit point. alive:
-    optional [N] bool; dead rays get a -1 budget and cost the sweep
-    nothing. accel / tri_table: what the triangle sweep runs over (see
+    """Visibility [N] of `sample_pos` from each hit point: in {0, 1}, or
+    with transparency the closest blocker's transparency. alive: optional
+    [N] bool; dead rays get a -1 budget and cost the sweep nothing. accel /
+    tri_table: what the triangle sweep runs over (see
     ops.intersect.closest_hit)."""
     N = ray_o.shape[0]
     if not (features.enable_hard_shadow or features.enable_soft_shadow):
         return torch.ones(N, dtype=torch.float32, device=ray_o.device)
-    if features.enable_transparency:
-        raise NotImplementedError(
-            "transparency shadows (closest blocker's transparency, "
-            "light.cpp:65-68): see ROADMAP 1.5")
     d2 = fp32.dot3(ray_d, ray_d)[..., None]
     dpos = d2 > 0
     dlen = torch.where(dpos, fp32.sqrt_rn(torch.where(dpos, d2, 1.0)), 0.0)
@@ -45,6 +47,9 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
         tmax = torch.ones(N, dtype=torch.float32, device=p.device)
     else:
         tmax = torch.where(alive, 1.0, -1.0)
+    if features.enable_transparency:
+        return blocker_transparency(scene, p, sdir, tmax, params, accel,
+                                    tri_table)
     # the cluster sweep runs reversed, from the light sample toward the
     # hit point: the same [p, sample] segment and budget-1 acceptance set,
     # with a tight origin hull per block; spheres test forward
@@ -57,6 +62,30 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
                                 exact_keys=params.sweep_anyhit_exact_keys,
                                 sort_rays=bool(params.sweep_sort_shadow))
     return torch.where(blocked, 0.0, 1.0)
+
+
+def blocker_transparency(scene, p, sdir, tmax, params, accel=None,
+                         tri_table=None):
+    """The closest blocker's material transparency on each segment, 1
+    where none blocks it. The hit ids are perm-space slots with the accel,
+    so they go back to scene triangles through accel.perm before the
+    material gather; every index is clamped into its own table (a miss
+    reports 0, a sphere index is no triangle id). The gathers sit outside
+    the sweep's no_grad, so mat_transparency gets its gradient."""
+    ids = closest_hit(scene, p, sdir, tmax, accel, tri_table=tri_table,
+                      br=params.sweep_br, sc_n=params.sweep_sc_n,
+                      exact_keys=params.sweep_exact_keys)
+    tri = ids.prim
+    if uses_cluster_sweep(accel):
+        slots = accel.perm.reshape(-1)
+        tri = slots.index_select(0, tri.clamp(0, slots.shape[0] - 1))
+    tri = tri.clamp(0, scene.tri_mat.shape[0] - 1)
+    sph = ids.prim.clamp(0, scene.sph_mat.shape[0] - 1)
+    tr = scene.mat_transparency
+    blocker = torch.where(ids.is_sphere,
+                          tr.index_select(0, scene.sph_mat[sph]),
+                          tr.index_select(0, scene.tri_mat[tri]))
+    return torch.where(ids.hit, blocker, 1.0)
 
 
 def sample_segment_light(p0, p1, c0, c1, index, n_samples: int, r):

@@ -1,13 +1,14 @@
-"""Image renderer (counterpart of cge_tpu/render/renderer.py:30-267).
+"""Image renderer (counterpart of cge_tpu/render/renderer.py:30-274).
 
 renderRayTracing (src/render.cpp:273-329): one primary ray per pixel at the
 pixel corner, or an MSAA grid and / or depth-of-field samples with the
 reference's weighting (DoF counts 3x, render.cpp:305-314), traced as one
 wavefront in chunks of `trace_chunk` rays; then the setPixel y-flip
 (screen.cpp:41-47) so row 0 is the top of the image, then the optional
-bloom pass. Pixels are traced in 32x16 screen tiles, so a 512-ray block of
-the sweep is a compact frustum. Every draw comes from the frame key
-prng_key(seed) (ops/rng.py), as in the JAX package.
+bloom pass; a batch of cameras renders one after another. Pixels are
+traced in 32x16 screen tiles, so a 512-ray block of the sweep is a compact
+frustum. Every draw comes from the frame key prng_key(seed) (ops/rng.py),
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def prepare_render(scene, features: Features,
     """Build the per-scene render state once; pass it to render_image.
     Gradients do not flow from a prepared context back to the scene:
     differentiable callers trace without one (diff.gradients)."""
-    check_supported(features, params)
+    check_supported(params)
     accel = scene_accel(scene, features)
     return RenderContext(accel=accel, tables=scene_tables(scene, accel),
                          tri_table=scene_tri_table(scene, accel))
@@ -109,7 +110,7 @@ def render_image(scene, camera: Camera, features: Features,
     """Render [height, width, 3] f32 radiance on the scene's device, row 0
     = top. seed: the frame key's seed (the MSAA jitter, the DoF disk and
     the light samples draw from it)."""
-    check_supported(features, params)
+    check_supported(params)
     if ctx is None:
         ctx = prepare_render(scene, features, params)
     key = rng.prng_key(seed)
@@ -163,13 +164,47 @@ def render_image(scene, camera: Camera, features: Features,
     return buffer
 
 
+def _to_u8(img):
+    """Screen::writeBitmapToFile's quantization (screen.cpp:49-60), on the
+    device: NaN -> 0, clamp to [0, 1], x255, truncate to u8."""
+    return (torch.nan_to_num(img).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
 def render_image_u8(scene, camera: Camera, features: Features,
                     params: RenderParams, width: int, height: int,
                     seed: int = 0,
                     ctx: Optional[RenderContext] = None) -> torch.Tensor:
-    """render_image quantized on the device like Screen::writeBitmapToFile
-    (screen.cpp:49-60): NaN -> 0, clamp to [0, 1], x255, truncate to u8."""
-    img = render_image(scene, camera, features, params, width, height, seed,
-                       ctx)
-    img = torch.nan_to_num(img)
-    return (img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    """render_image quantized on the device (_to_u8)."""
+    return _to_u8(render_image(scene, camera, features, params, width,
+                               height, seed, ctx))
+
+
+def stack_cameras(cameras) -> tuple:
+    """The cameras of a batch for render_images. The port's Camera holds
+    Python floats, so the batch is a tuple of cameras (the JAX package
+    stacks its Camera pytree along a leading axis)."""
+    return tuple(cameras)
+
+
+@torch.no_grad()
+def render_images(scene, cameras, features: Features, params: RenderParams,
+                  width: int, height: int, seed: int = 0,
+                  ctx: Optional[RenderContext] = None) -> torch.Tensor:
+    """[C, height, width, 3] f32: camera i of the batch rendered with seed
+    seed + i through one RenderContext, one camera after another, as the
+    JAX package's lax.map over cameras does (cge_tpu/render/renderer.py:
+    210-237)."""
+    if ctx is None:
+        ctx = prepare_render(scene, features, params)
+    return torch.stack([render_image(scene, cam, features, params, width,
+                                     height, seed + i, ctx)
+                        for i, cam in enumerate(cameras)])
+
+
+def render_images_u8(scene, cameras, features: Features,
+                     params: RenderParams, width: int, height: int,
+                     seed: int = 0,
+                     ctx: Optional[RenderContext] = None) -> torch.Tensor:
+    """render_images quantized on the device: [C, height, width, 3] u8."""
+    return _to_u8(render_images(scene, cameras, features, params, width,
+                                height, seed, ctx))

@@ -1,5 +1,4 @@
-"""The wavefront chain trace (counterpart of cge_tpu/render/wavefront.py:
-52-463, 697-729).
+"""The wavefront trace (counterpart of cge_tpu/render/wavefront.py).
 
 The reference's per-pixel recursion (src/render.cpp:27-150) is affine in
 each bounce's single child ray on every deterministic path:
@@ -9,11 +8,14 @@ each bounce's single child ray on every deterministic path:
 so the trace carries (origin, direction, weight, accumulator) for the whole
 ray batch through a bounded loop of levels. Each level is one closest-hit
 sweep, one gather of the packed attribute rows (and of the texels, with
-texture mapping), Phong shading with one any-hit shadow sweep per point
-light and one batched sweep over the samples of each segment or
-parallelogram light, and the mirror child ray. Level l draws its light
-samples from fold_in(key, l). A level whose rays are all dead is skipped,
-at the cost of one device sync.
+texture mapping), Phong shading with one shadow sweep per point light and
+one batched sweep over the samples of each segment or parallelogram light,
+and the child rays. Level l draws its light samples from fold_in(key, l).
+A level whose rays are all dead is skipped, at the cost of one device
+sync. Two shapes are not a chain: with transparency and recursion both on,
+the mirror and the continuation children fold into the ray axis
+(trace_tree_trans_recursive); with glossy reflections the first bounce
+fans out a cone of samples (trace_glossy).
 
 The trace is differentiable: hit selection (the accel, the brute-force
 table, both sweeps) runs under no_grad as a discrete oracle, and every
@@ -222,28 +224,41 @@ def _unroll_depth(scene, params, features) -> int:
     return 1
 
 
-def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
-                key, tri_table=None, shared_origin: bool = False,
-                ray_ids=None):
-    """Linear-chain trace over levels: [N, 3] radiance. Level 0 takes the
-    shared-origin fast path when the caller promises one origin. accel /
-    tri_table: what hit selection sweeps (ops.intersect.closest_hit).
-    Level l draws its light samples from fold_in(key, l)
-    (cge_tpu/render/wavefront.py:412)."""
+def _run_chain(scene, o, d, W, features, params, accel, tables, key,
+               levels: range, tail_trans: bool = False, tri_table=None,
+               shared_origin: bool = False, ray_ids=None):
+    """The affine chain over `levels`, from weights W ([N]; None: every
+    ray live with weight 1): [N, 3] radiance (_scan_chain,
+    cge_tpu/render/wavefront.py:346-446). Level l draws its light samples
+    from fold_in(key, l); the first level takes the shared-origin fast
+    path when the caller promises one origin. tail_trans selects the TRANS+
+    REC tree's tail coefficients (A = 1 - t, B = t on t != 1, the
+    continuation child: render.cpp:122-130 with the depth gates closed). A
+    level whose rays are all dead is skipped, and so is every later one:
+    they would add exact zeros."""
     N = o.shape[0]
     acc = torch.zeros((N, 3), dtype=torch.float32, device=o.device)
-    W = torch.ones(N, dtype=torch.float32, device=o.device)
+    fresh = W is None
+    if fresh:
+        W = torch.ones(N, dtype=torch.float32, device=o.device)
     alive = W != 0.0
-    for level in range(_unroll_depth(scene, params, features)):
-        if level > 0 and not bool(alive.any()):     # dead-level skip
+    for level in levels:
+        if not (fresh and level == levels.start) and not bool(alive.any()):
             break
         attrs, local = _intersect_and_shade(
             scene, o, d, features, params, alive, accel, tri_table,
-            shared_origin=shared_origin and level == 0, tables=tables,
-            key=rng.fold_in(key, level), ray_ids=ray_ids)
+            shared_origin=shared_origin and level == levels.start,
+            tables=tables, key=rng.fold_in(key, level), ray_ids=ray_ids)
         live_hit = alive & attrs.hit
-        A, B = _chain_coefficients(attrs, params.ray_depth - level, features)
-        co, cd = _child_ray(o, d, attrs, features)
+        if tail_trans:
+            trans_ne1 = attrs.transparency != 1.0
+            A = torch.where(trans_ne1, 1.0 - attrs.transparency, 1.0)
+            B = torch.where(trans_ne1, attrs.transparency, 0.0)
+            co, cd = (1e-5 + attrs.t)[:, None] * d + o, d
+        else:
+            A, B = _chain_coefficients(attrs, params.ray_depth - level,
+                                       features)
+            co, cd = _child_ray(o, d, attrs, features)
         acc = acc + torch.where(live_hit[:, None], (W * A)[:, None] * local,
                                 0.0)
         W = torch.where(live_hit, W * B, 0.0)
@@ -251,6 +266,193 @@ def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
         o = torch.where(alive[:, None], co, o)
         d = torch.where(alive[:, None], cd, d)
     return acc
+
+
+def trace_chain(scene, o, d, features, params, accel: Accel | None, tables,
+                key, tri_table=None, shared_origin: bool = False,
+                ray_ids=None):
+    """Linear-chain trace (every mode but TRANS+REC and glossy): [N, 3]
+    radiance over _unroll_depth levels from level 0. accel / tri_table:
+    what hit selection sweeps (ops.intersect.closest_hit)."""
+    return _run_chain(scene, o, d, None, features, params, accel, tables,
+                      key, range(_unroll_depth(scene, params, features)),
+                      tri_table=tri_table, shared_origin=shared_origin,
+                      ray_ids=ray_ids)
+
+
+def trace_tree_trans_recursive(scene, o, d, features, params,
+                               accel: Accel | None, tables, key,
+                               tri_table=None, shared_origin: bool = False,
+                               ray_ids=None):
+    """TRANS + REC (glossy off): two children per bounce folded into the
+    ray axis (cge_tpu/render/wavefront.py:466-561; the derivation of the
+    weights is there). For a hit of transparency t:
+
+        A = 1 - t on t != 1, else 1   (local)
+        wM = A * [ks != 0]            (the mirror child)
+        wS = A + t on t != 1, else [ks != 0]   (the second child: the
+             continuation on t != 1, the mirror again on t == 1)
+
+    Level l < ray_depth traces N * 2^l rays, children concatenated as
+    [mirror; second] with global ids 2i and 2i + 1, so the soft-shadow
+    streams do not depend on the chunking; radiance folds back onto the
+    N parents with reshape(-1, N, 3).sum(0). Level 0 runs with every ray
+    live and takes the shared-origin fast path. The 2^ray_depth leaves then
+    run the ungated t != 1 continuation tail from level ray_depth. With
+    scene.all_diffuse (ks == 0 everywhere) every mirror child is the dead
+    zero sentinel, so only the second child is kept, with id 2i + 1: the
+    same radiance. Once every ray of a level is dead the rest would add
+    exact zeros, so it is skipped."""
+    N = o.shape[0]
+    acc = torch.zeros((N, 3), dtype=torch.float32, device=o.device)
+    cw = torch.ones(N, dtype=torch.float32, device=o.device)
+    ids = (torch.arange(N, dtype=torch.int64, device=o.device)
+           if ray_ids is None else ray_ids)
+    for level in range(params.ray_depth):
+        alive = cw != 0.0
+        if level > 0 and not bool(alive.any()):
+            return acc
+        attrs, local = _intersect_and_shade(
+            scene, o, d, features, params, alive, accel, tri_table,
+            shared_origin=shared_origin and level == 0, tables=tables,
+            key=rng.fold_in(key, level), ray_ids=ids)
+        live_hit = alive & attrs.hit
+        t_mat = attrs.transparency
+        trans_ne1 = t_mat != 1.0
+        g1 = torch.where((attrs.ks != 0.0).any(dim=-1), 1.0, 0.0)
+        mo, md, _ = compute_reflection_ray(o, d, attrs.t, attrs.normal,
+                                           attrs.ks)
+        cono = (1e-5 + attrs.t)[:, None] * d + o      # the continuation
+        so = torch.where(trans_ne1[:, None], cono, mo)
+        sd = torch.where(trans_ne1[:, None], d, md)
+        g2 = torch.where(trans_ne1, 1.0, g1)
+        A = torch.where(trans_ne1, 1.0 - t_mat, 1.0)
+        wS = torch.where(trans_ne1, A * g2 + t_mat, g2)
+        contrib = torch.where(live_hit[:, None], (cw * A)[:, None] * local,
+                              0.0)
+        acc = acc + contrib.reshape(-1, N, 3).sum(dim=0)
+        if scene.all_diffuse:
+            o, d = so, sd
+            cw = torch.where(live_hit, cw * wS, 0.0)
+            ids = ids * 2 + 1
+        else:
+            o, d = torch.cat([mo, so]), torch.cat([md, sd])
+            cw = torch.cat([torch.where(live_hit, cw * (A * g1), 0.0),
+                            torch.where(live_hit, cw * wS, 0.0)])
+            ids = torch.cat([ids * 2, ids * 2 + 1])
+    tail = _unroll_depth(scene, params, features) - params.ray_depth
+    tail_acc = _run_chain(scene, o, d, cw, features, params, accel, tables,
+                          key, range(params.ray_depth,
+                                     params.ray_depth + tail),
+                          tail_trans=True, tri_table=tri_table, ray_ids=ids)
+    return acc + tail_acc.reshape(-1, N, 3).sum(dim=0)
+
+
+def _orthonormal_cone_basis(w):
+    """The min-component basis (render.cpp:57-71): t = w with its first
+    minimum component set to 1, u = normalize(t x w), v = w x u. Returns
+    (u, v, ok): where t x w vanishes (w = 0, the zero mirror sentinel of
+    ks == 0) ok is false and u = v = 0; the JAX package divides 0 by 0
+    there, and its sample directions come out 0 all the same."""
+    first_min = torch.nn.functional.one_hot(torch.argmin(w, dim=-1), 3)
+    t = torch.where(first_min.bool(), 1.0, w)
+    u = fp32.cross(t, w)
+    n2 = fp32.dot3(u, u)[:, None]
+    ok = n2 > 0
+    u = torch.where(ok, u / fp32.sqrt_rn(torch.where(ok, n2, 1.0)), 0.0)
+    return u, fp32.cross(w, u), ok[:, 0]
+
+
+def _glossy_sample_dirs(attrs: HitAttrs, md, n_samples: int, params, key,
+                        ray_ids):
+    """Cone sample directions (render.cpp:84-90) about the mirror
+    direction md: (dirs [N, S, 3], above [N, S]), the jitter drawn from
+    each ray's streams fold_in(key, 0) and fold_in(key, 1)."""
+    w = _normalize(md)
+    u, v, ok = _orthonormal_cone_basis(w)
+    sh = attrs.shininess
+    a = (torch.ones_like(sh) / torch.where(sh != 0, sh, 1.0)
+         * params.alpha_modifier)[:, None]
+    r1 = rng.per_ray_uniform(rng.fold_in(key, 0), ray_ids, (n_samples,))
+    r2 = rng.per_ray_uniform(rng.fold_in(key, 1), ray_ids, (n_samples,))
+    wu = (-a / 2.0 + r1 * a)[..., None]
+    wv = (-a / 2.0 + r2 * a)[..., None]
+    dirs = _normalize(w[:, None, :] + wu * u[:, None, :] + wv * v[:, None, :])
+    dirs = torch.where(ok[:, None, None], dirs, 0.0)
+    return dirs, fp32.dot3(attrs.normal[:, None, :], dirs) > 0
+
+
+def trace_glossy(scene, o, d, features, params, accel: Accel | None, tables,
+                 key, tri_table=None, shared_origin: bool = False,
+                 ray_ids=None):
+    """Glossy reflections (render.cpp:56-99; cge_tpu/render/wavefront.py:
+    594-694): the first bounce fans out rays_per_reflection (S) cone
+    samples into the ray axis, sample s of ray i with id i * S + s, each
+    weighted ks / S where it leaves above the surface; shininess-0
+    materials take the plain mirror, with full weight on sample 0. Then
+    ray_depth levels trace one cone sample a ray with per-ray vec3 weights
+    and depth: min(depth - 1, glossy_reflections_cap) after a glossy
+    bounce, depth - 1 after a mirror. Keys: fold_in(key, 0) shades the
+    first bounce and fold_in(fold_in(key, 0), 100) draws its cone; level
+    l uses fold_in(key, 1000 + l) and its cone fold_in(that, 5). A level
+    whose weights are all zero ends the loop: it and every later level
+    would change nothing."""
+    N, S, dev = o.shape[0], params.rays_per_reflection, o.device
+    if ray_ids is None:
+        ray_ids = torch.arange(N, dtype=torch.int64, device=dev)
+    k0 = rng.fold_in(key, 0)
+    attrs, local = _intersect_and_shade(
+        scene, o, d, features, params, torch.ones(N, dtype=torch.bool,
+                                                  device=dev),
+        accel, tri_table, shared_origin=shared_origin, tables=tables,
+        key=k0, ray_ids=ray_ids)
+    valid_mirror = (attrs.ks != 0.0).any(dim=-1)
+    glossy = (valid_mirror & (attrs.shininess != 0.0))[:, None, None]
+    mo, md, _ = compute_reflection_ray(o, d, attrs.t, attrs.normal, attrs.ks)
+    gdirs, above = _glossy_sample_dirs(attrs, md, S, params,
+                                       rng.fold_in(k0, 100), ray_ids)
+    w_glossy = fp32.div(torch.where(above[..., None], attrs.ks[:, None, :],
+                                    0.0), float(S))
+    w_plain = (torch.arange(S, device=dev) == 0).float()[None, :, None]
+    spawn = (valid_mirror & attrs.hit & (params.ray_depth >= 1))
+    W = torch.where(spawn[:, None, None],
+                    torch.where(glossy, w_glossy, w_plain), 0.0)
+    depth = torch.where(glossy[:, 0, 0],
+                        min(params.ray_depth - 1,
+                            params.glossy_reflections_cap),
+                        params.ray_depth - 1)[:, None].expand(N, S)
+    ids = (ray_ids[:, None] * S
+           + torch.arange(S, dtype=torch.int64, device=dev)).reshape(-1)
+    fo = mo[:, None, :].expand(N, S, 3).reshape(-1, 3)
+    fd = torch.where(glossy, gdirs, md[:, None, :]).reshape(-1, 3)
+    W, depth = W.reshape(-1, 3), depth.reshape(-1)
+    acc = torch.zeros((N * S, 3), dtype=torch.float32, device=dev)
+    cap = params.glossy_reflections_cap
+    for level in range(params.ray_depth):
+        live_in = (W != 0.0).any(dim=-1)
+        if not bool(live_in.any()):
+            break
+        k = rng.fold_in(key, 1000 + level)
+        at, lo = _intersect_and_shade(
+            scene, fo, fd, features, params, live_in, accel, tri_table,
+            shared_origin=False, tables=tables, key=k, ray_ids=ids)
+        alive = live_in & at.hit
+        acc = acc + torch.where(alive[:, None], W * lo, 0.0)
+        vm = (at.ks != 0.0).any(dim=-1)
+        ga = vm & (at.shininess != 0.0)
+        mo, md, _ = compute_reflection_ray(fo, fd, at.t, at.normal, at.ks)
+        gdir, abv = _glossy_sample_dirs(at, md, 1, params,
+                                        rng.fold_in(k, 5), ids)
+        spawn = alive & vm & (depth >= 1)
+        step = torch.where(ga[:, None],
+                           torch.where(abv[:, 0][:, None], at.ks, 0.0), 1.0)
+        W = torch.where(spawn[:, None], W * step, 0.0)
+        depth = torch.where(ga, torch.clamp(depth - 1, max=cap), depth - 1)
+        fo = torch.where(spawn[:, None], mo, fo)
+        fd = torch.where(spawn[:, None],
+                         torch.where(ga[:, None], gdir[:, 0], md), fd)
+    radiance = local + acc.reshape(N, S, 3).sum(dim=1)
+    return torch.where(attrs.hit[:, None], radiance, 0.0)
 
 
 def scene_accel(scene, features) -> Accel | None:
@@ -279,18 +481,25 @@ def scene_tri_table(scene, accel: Accel | None):
 def trace(scene, o, d, features, params, key,
           accel: Accel | None = None, tables=None, tri_table=None,
           shared_origin: bool = False, ray_ids=None):
-    """Dispatch to the trace shape for the feature set; only the chain is
-    ported. key: the trace's key (ops.rng; the JAX package's `key`).
-    accel / tables / tri_table: prebuilt by renderer.prepare_render, or
-    built here. Differentiable callers pass none of them, so the
-    attribute rows are built inside the graph."""
-    check_supported(features, params)
+    """Dispatch to the trace shape for the feature set, as the JAX package
+    does (cge_tpu/render/wavefront.py:697-729): glossy with recursion, the
+    TRANS+REC tree, else the chain. key: the trace's key (ops.rng; the JAX
+    package's `key`). accel / tables / tri_table: prebuilt by
+    renderer.prepare_render, or built here. Differentiable callers pass
+    none of them, so the attribute rows are built inside the graph."""
+    check_supported(params)
     if accel is None:
         accel = scene_accel(scene, features)
     if tables is None:
         tables = scene_tables(scene, accel)
     if tri_table is None:
         tri_table = scene_tri_table(scene, accel)
-    return trace_chain(scene, o, d, features, params, accel, tables, key,
-                       tri_table=tri_table, shared_origin=shared_origin,
-                       ray_ids=ray_ids)
+    if features.enable_recursive and features.enable_glossy_reflection:
+        shape = trace_glossy
+    elif features.enable_recursive and features.enable_transparency:
+        shape = trace_tree_trans_recursive
+    else:
+        shape = trace_chain
+    return shape(scene, o, d, features, params, accel, tables, key,
+                 tri_table=tri_table, shared_origin=shared_origin,
+                 ray_ids=ray_ids)

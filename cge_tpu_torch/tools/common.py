@@ -91,6 +91,44 @@ def write_textured_obj(path: str, rings: int, segments: int,
     return png
 
 
+# the stand-in's material variants (write_variant_obj): each MTL statement
+# rewritten, per material name ("" for both)
+MATERIAL_VARIANTS = {
+    # the body seen through (d 0.45), its Ks kept, so the TRANS+REC tree
+    # branches
+    "glass": {"dragonBody": {"d": "0.45"}},
+    # bench.py's transrec shape (bench.py:224-227): Ks 0 everywhere and
+    # d 0.45, the all-diffuse collapse of the tree
+    "diffuse_glass": {"": {"Ks": "0 0 0", "d": "0.45"}},
+    # glossy as written, with the belly at Ns 0: both the cone and the plain
+    # mirror branch run
+    "glossy": {"dragonBelly": {"Ns": "0"}},
+}
+
+
+def write_variant_obj(path: str, rings: int, segments: int,
+                      variant: str) -> None:
+    """The stand-in's OBJ and MTL at (rings, segments) with the material
+    statements of MATERIAL_VARIANTS[variant] rewritten."""
+    from tools.make_large_asset import write_obj
+
+    write_obj(path, rings, segments)
+    mtl = os.path.splitext(path)[0] + ".mtl"
+    edits = MATERIAL_VARIANTS[variant]
+    out, name = [], None
+    with open(mtl) as f:
+        for line in f.read().splitlines():
+            key, _, _ = line.partition(" ")
+            if key == "newmtl":
+                name = line.split()[1]
+            for scope in ("", name):
+                if key in edits.get(scope, {}):
+                    line = f"{key} {edits[scope][key]}"
+            out.append(line)
+    with open(mtl, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
 def primary_rays(res: int, dev: torch.device):
     """res x res pinhole rays in 32x16 screen-tile order: (o, d) [res^2, 3]."""
     grid = _swizzle_rows(pixel_grid(res, res, dev).reshape(-1, 2), res, res)

@@ -2,9 +2,8 @@
 
 `Features` and `RenderParams` carry the same fields and defaults as the JAX
 package, so configs carry across unchanged. Knobs that only the JAX path
-implements are still accepted as fields; `check_supported` names the ones
-this port cannot honour yet and raises for them, so no flag is silently
-ignored.
+implements are still accepted as fields; `check_supported` raises for the
+one this port cannot honour yet, so no knob is silently ignored.
 """
 
 from __future__ import annotations
@@ -75,24 +74,11 @@ class RenderParams:
         return dataclasses.replace(self, **kw)
 
 
-# feature flag -> the ROADMAP.md item (section 1, "Modules to port") that
-# ports it. Flags that change nothing in the JAX package's render are not
-# listed and change nothing here either: environment mapping and motion
-# blur (no code path in either package), SAH binning (it shapes only the
-# reference BVH of the debug views), and the texture filter modes, which
-# act only under enable_texture_mapping.
-_UNPORTED_FEATURES = {
-    "enable_glossy_reflection": "glossy (ROADMAP 1.6)",
-}
-
-
-def check_supported(features: Features, params: RenderParams) -> None:
-    """Raise NotImplementedError for any flag or knob outside the port."""
-    for name, item in _UNPORTED_FEATURES.items():
-        if getattr(features, name):
-            raise NotImplementedError(f"{name}: not ported yet, see {item}")
-    if features.enable_transparency and features.enable_recursive:
-        raise NotImplementedError(
-            "transparency + recursive (TRANS+REC tree): see ROADMAP 1.5")
+def check_supported(params: RenderParams) -> None:
+    """Raise NotImplementedError for a knob outside the port: only
+    prims_axis (multi-device, ROADMAP 1.8). Every feature flag that changes
+    the JAX package's render renders here; the flags that change nothing
+    there (environment mapping, motion blur, SAH binning, the texture
+    filter modes without texture mapping) change nothing here either."""
     if params.prims_axis is not None:
         raise NotImplementedError("prims_axis: multi-device, ROADMAP 1.8")

@@ -75,7 +75,22 @@ exits non-zero if any phase fails:
      the plain-op parts against torch.profiler's own parse on two 64x64
      frames; then the card's threefry draws against the CPU's bit for
      bit, and each feature set on the 41x32 stand-in at 64x64 on the card
-     against the CPU twins under phase 4's rule.
+     against the CPU twins under phase 4's rule;
+ 12. the sixth path, transparency shadows, the TRANS+REC tree, glossy and
+     batched cameras: frames of the 15,360-triangle stand-in in its
+     material variants (cge_tpu_torch/tools/common.py MATERIAL_VARIANTS)
+     through render_image_u8, each with its launches, lit share, first
+     frame, median of 2 timed frames, peak memory and rays per level: the
+     tree with hard shadows (glass: the body at d 0.45) at 512x512 with
+     the accel off (K3 only) and on (K1 and K2 only), its all-diffuse
+     collapse (Ks 0, d 0.45) with the accel off, glossy (the belly at Ns
+     0) at 256x256 in 16,384-ray chunks with 40 cone samples a
+     reflection, off and on; K1, the sort and K2's closest-mode walk on
+     the fullest forward transparency-shadow batch of the accel-on tree,
+     timed and held to the twins on blocks spread over it; three headline
+     cameras of the dragon through render_images_u8, equal to three
+     render_image_u8 calls; each feature set on the 41x32 stand-in at
+     64x64 on the card against the CPU twins under phase 4's rule.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase's line ends with the seconds since the start.
@@ -1064,18 +1079,18 @@ def check_dragon_shadow_walk(scene, accel, device):
 
 
 def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
-                     device):
-    """K1, the sort of its keys and K2's any-hit walk on one full batch:
-    the key table's bytes, each one's ms with K1's and K2's bounds; K1's
-    keys and K2's results bit for bit against the twins on the blocks of
-    slice_blocks."""
+                     device, any_hit: bool = True):
+    """K1, the sort of its keys and K2's walk (any-hit, or closest) on one
+    full batch: the key table's bytes, each one's ms with K1's and K2's
+    bounds; K1's keys and K2's results bit for bit against the twins on
+    the blocks of slice_blocks."""
     from cge_tpu_torch.ops import cluster_sweep as cs
     from cge_tpu_torch.tools import common, kernel_bench, roofline
 
     inp = cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, br, sc_n)
     keys = cs.block_entry_keys(inp.rays, inp.boxes)
     skeys, order = cs.sort_keys(keys)
-    walk = dict(layout=layout, sc_n=inp.sc_n, any_hit=True)
+    walk = dict(layout=layout, sc_n=inp.sc_n, any_hit=any_hit)
     out = cs.cluster_walk(order, skeys, inp.rays, inp.tiles, **walk)
     blocks = slice_blocks((inp.rays[:, 6] >= 0).any(dim=1))
     kernel_bench.check_keys(
@@ -1094,9 +1109,11 @@ def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
     keys_bound = roofline.keys_bound(inp.rays, inp.boxes.shape[0])
     walk_bound = roofline.walk_bound(order, inp.rays, inp.tiles, out, **walk)
     NB, _, BR = inp.rays.shape
-    log(f"    K1 + K2 on one full shadow batch, {what}: {o.shape[0]} rays "
+    blocked = (out[1] == 1) if any_hit else (out[1] >= 0)
+    log(f"    K1 + K2 ({'any-hit' if any_hit else 'closest'}) on one full "
+        f"shadow batch, {what}: {o.shape[0]} rays "
         f"in {NB} blocks of {BR}, {int((tmax >= 0).sum())} live, "
-        f"{int((out[1] == 1).sum())} blocked, {inp.boxes.shape[0]} boxes, "
+        f"{int(blocked.sum())} blocked, {inp.boxes.shape[0]} boxes, "
         f"key table {keys.numel() * 4} bytes | K1 {keys_ms:.4f} ms, "
         f"{_bound_line(keys_bound, keys_ms)} | sort {sort_ms:.4f} ms | K2 "
         f"{walk_ms:.4f} ms, {_bound_line(walk_bound, walk_ms)}, visits mean "
@@ -1220,6 +1237,264 @@ def fifth_path(tmp, dragon, accel, device) -> list:
     check_plain_ops_reader(tmp, device)
     threefry_check(device)
     fifth_small_check(tmp, device)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: transparency shadows, the TRANS+REC tree, glossy, batches
+# ---------------------------------------------------------------------------
+
+TREE = dict(enable_shading=True, enable_hard_shadow=True,
+            enable_recursive=True, enable_transparency=True,
+            enable_normal_interp=True)
+GLOSSY = dict(enable_shading=True, enable_hard_shadow=True,
+              enable_recursive=True, enable_glossy_reflection=True,
+              enable_normal_interp=True)
+# bench.py:230-234: glossy at 256x256 in 16,384-ray chunks, 40 cone
+# samples a reflection (the default rays_per_reflection)
+GLOSSY_PARAMS = dict(trace_chunk=16384)
+SIXTH_FRAMES = 2
+BATCH_CAMERAS = (dict(), dict(rotation=(0.5, -0.4, 0.0)),
+                 dict(distance=2.4, rotation=(0.2, 1.1, 0.0)))
+# (label, material variant of the stand-in (tools/common.py
+# MATERIAL_VARIANTS), features, params, side) of each frame; accel off
+# must launch K3 only, accel on K1 and K2 only
+SIXTH_ROWS = (
+    ("transrec512, accel off", "glass", TREE, {}, 512),
+    ("transrec512, accel on", "glass",
+     dict(TREE, enable_accel_structure=True), {}, 512),
+    ("transrec512 all-diffuse, accel off", "diffuse_glass", TREE, {}, 512),
+    ("glossy256, accel off", "glossy", GLOSSY, GLOSSY_PARAMS, 256),
+    ("glossy256, accel on", "glossy",
+     dict(GLOSSY, enable_accel_structure=True), GLOSSY_PARAMS, 256),
+)
+# the same feature sets on the 41x32 stand-in at 64x64, card against the
+# CPU twins (and the transparency-only chain with shadows); the accel-off
+# tree and glossy at a cut depth: K3's CPU twin takes 60-80 s at full
+SIXTH_SMALL = (
+    ("transparency chain + shadows", "glass",
+     dict(TREE, enable_recursive=False), {}),
+    ("transrec, accel on", "glass", dict(TREE, enable_accel_structure=True),
+     {}),
+    ("transrec, accel off, depth 2", "glass", TREE, dict(ray_depth=2)),
+    ("transrec all-diffuse", "diffuse_glass", TREE, {}),
+    ("glossy, accel on", "glossy", dict(GLOSSY, enable_accel_structure=True),
+     {}),
+    ("glossy, accel off, depth 2, 8 a reflection", "glossy", GLOSSY,
+     dict(ray_depth=2, rays_per_reflection=8)),
+)
+
+
+def sixth_scenes(tmp, grid, device):
+    """The stand-in at `grid` on `device` in each material variant, lit by
+    the point light."""
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.tools.common import (MATERIAL_VARIANTS,
+                                            write_variant_obj)
+
+    out = {}
+    for variant in MATERIAL_VARIANTS:
+        path = os.path.join(tmp, f"standin_{variant}_{grid[0]}x{grid[1]}.obj")
+        if not os.path.exists(path):
+            write_variant_obj(path, *grid, variant)
+        out[variant] = ct.load_scene_from_file(path, [ct.PointLight(*LIGHT)],
+                                               device=device)
+    return out
+
+
+@contextlib.contextmanager
+def level_rays():
+    """While open, records the rays and live rays of each trace level:
+    yields a list that ends up with [rays, live] per level, summed over
+    the chunks (each chunk a call of the renderer's trace)."""
+    from cge_tpu_torch.render import renderer, wavefront
+
+    shade, trace = wavefront._intersect_and_shade, renderer.trace
+    chunks = []
+
+    def trace_spy(*args, **kw):
+        chunks.append([])
+        return trace(*args, **kw)
+
+    def shade_spy(scene, o, d, features, params, alive, *args, **kw):
+        chunks[-1].append((o.shape[0], int(alive.sum())))
+        return shade(scene, o, d, features, params, alive, *args, **kw)
+
+    levels = []
+    wavefront._intersect_and_shade, renderer.trace = shade_spy, trace_spy
+    try:
+        yield levels
+    finally:
+        wavefront._intersect_and_shade, renderer.trace = shade, trace
+        for chunk in chunks:
+            for i, (n, live) in enumerate(chunk):
+                if i == len(levels):
+                    levels.append([0, 0])
+                levels[i][0] += n
+                levels[i][1] += live
+
+
+def sixth_frame(label, scene, feats, pdict, side):
+    """One row of phase 12: the first frame with the counters reset around
+    it and the rays of each level recorded, then SIXTH_FRAMES timed frames
+    (CUDA events) with peak memory. Returns the row."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+
+    f, params = ct.Features(**feats), ct.RenderParams(**pdict)
+    ctx = ct.prepare_render(scene, f, params)
+    reset_launches()
+    t0 = time.perf_counter()
+    with level_rays() as levels:
+        img = ct.render_image_u8(scene, ct.Camera(), f, params, side, side,
+                                 FIFTH_SEED, ctx=ctx)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    if img.shape != (side, side, 3) or img.dtype != torch.uint8:
+        raise AssertionError(f"{label}: image {tuple(img.shape)} {img.dtype}")
+    lit = float((img.float().sum(-1) > 0).float().mean())
+    if lit < 0.05:
+        raise AssertionError(f"{label}: image is blank ({lit:.4f} lit)")
+    want = ("keys", "walk") if feats.get("enable_accel_structure") else (
+        "sweep",)
+    other = {"keys", "walk", "sweep", "walk_refine", "walk_mxu"} - set(want)
+    if (any(launches[k] <= 0 for k in want)
+            or any(launches[k] for k in other)):
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    torch.cuda.reset_peak_memory_stats()
+    frames = []
+    for _ in range(SIXTH_FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ct.render_image_u8(scene, ct.Camera(), f, params, side, side,
+                           FIFTH_SEED, ctx=ctx)
+        end.record()
+        torch.cuda.synchronize()
+        frames.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = float(np.median(frames))
+    row = dict(label=label, ms=ms, frames=frames, first_s=first_s,
+               peak_mib=peak, lit=lit, levels=levels,
+               launches={k: launches[k] for k in ("keys", "walk", "sweep")})
+    log(f"  {label}: {side}x{side}, launches {row['launches']}, lit "
+        f"{lit:.3f}, first frame {first_s:.2f} s, frames ms "
+        f"{[round(x, 2) for x in frames]}, median {ms:.2f} ms, peak memory "
+        f"{peak:.0f} MiB | rays per level (live), summed over chunks: "
+        f"{', '.join(f'{n} ({live})' for n, live in levels)}")
+    return row
+
+
+def check_transparency_shadow_walk(scene, device):
+    """K1 + sort + K2's closest-mode walk on the fullest forward
+    transparency-shadow batch of the accel-on transrec512 frame (the
+    batch of lights.closest_hit with the most live rays), bit for bit
+    against the twins (check_walk_batch)."""
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.render import lights
+
+    fn, best = lights.closest_hit, {"live": -1}
+
+    def spy(scene_, o, d, tmax, accel=None, **kw):
+        live = int((tmax >= 0).sum())
+        if live > best["live"]:
+            best.update(live=live, args=(o, d, tmax, accel, kw))
+        return fn(scene_, o, d, tmax, accel, **kw)
+
+    lights.closest_hit = spy
+    try:
+        ct.render_image(scene, ct.Camera(),
+                        ct.Features(**TREE, enable_accel_structure=True),
+                        ct.RenderParams(), W, H, FIFTH_SEED)
+    finally:
+        lights.closest_hit = fn
+    if best["live"] < 0 or best["args"][3] is None:
+        raise AssertionError("the accel-on transrec512 frame sent no "
+                             "transparency-shadow batch through the accel")
+    o, d, tmax, accel, kw = best["args"]
+    if not kw.get("exact_keys", True):
+        raise AssertionError(f"the transparency-shadow sweep ran with {kw}")
+    check_walk_batch(
+        "the stand-in's transrec512 frame (transparency shadows, forward)",
+        o, d, tmax, accel.aabbs, accel.tiles, accel.layout, kw["br"],
+        kw["sc_n"], device, any_hit=False)
+
+
+def batch_check(scene, ctx, device) -> dict:
+    """Three headline cameras of the main path's scene through
+    render_images_u8 (the counters reset around it: K1 and K2 only), equal
+    to three render_image_u8 calls with seeds SEED + i bit for bit."""
+    import torch
+
+    import cge_tpu_torch as ct
+
+    feats, params = ct.Features(**HEADLINE), ct.RenderParams(**MAIN_PARAMS)
+    cams = ct.stack_cameras(ct.Camera(**c) for c in BATCH_CAMERAS)
+    reset_launches()
+    t0 = time.perf_counter()
+    batch = ct.render_images_u8(scene, cams, feats, params, W, H, SEED,
+                                ctx=ctx)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["keys"] <= 0 or launches["walk"] <= 0 or launches["sweep"]:
+        raise AssertionError(f"the batch launched {launches}")
+    singles = [ct.render_image_u8(scene, cam, feats, params, W, H, SEED + i,
+                                  ctx=ctx) for i, cam in enumerate(cams)]
+    if batch.shape != (len(cams), H, W, 3) or not all(
+            torch.equal(batch[i], one) for i, one in enumerate(singles)):
+        raise AssertionError("render_images_u8 differs from render_image_u8")
+    if torch.equal(batch[0], batch[1]):
+        raise AssertionError("two cameras of the batch gave one image")
+    counts = {k: launches[k] for k in ("keys", "walk", "sweep")}
+    log(f"  batch: {len(cams)} headline cameras of the dragon at {W}x{H} "
+        f"through render_images_u8 in {batch_s:.2f} s, launches {counts}, "
+        f"equal to {len(cams)} render_image_u8 calls bit for bit")
+    return launches
+
+
+def sixth_small_check(tmp, device) -> list:
+    """Each SIXTH_SMALL feature set on the 41x32 stand-in at 64x64 with the
+    same seed on the card and the CPU twins, under phase 4's rule."""
+    import torch
+
+    import cge_tpu_torch as ct
+
+    card = sixth_scenes(tmp, (41, 32), device)
+    cpu = sixth_scenes(tmp, (41, 32), torch.device("cpu"))
+    out = []
+    for label, which, feats, pdict in SIXTH_SMALL:
+        f = ct.Features(**feats)
+        p = ct.RenderParams(trace_chunk=1024, **pdict)
+        t0 = time.perf_counter()
+        a, b = (ct.render_image(s[which], ct.Camera(), f, p, SMALL_SIDE,
+                                SMALL_SIDE, FIFTH_SEED).cpu().numpy()
+                for s in (card, cpu))
+        nan_agree, frac = compare_images(a, b)
+        out.append((label, nan_agree, frac, time.perf_counter() - t0))
+        if nan_agree < 0.999 or frac < 0.995:
+            raise AssertionError(f"{label}: card and CPU disagree "
+                                 f"({nan_agree:.4f} NaN, {frac:.4%} close)")
+    log("    64x64 card vs CPU twins: " + "; ".join(
+        f"{label} {frac:.2%} ({s:.1f} s)" for label, _, frac, s in out))
+    return out
+
+
+def sixth_path(tmp, dragon, ctx, device) -> list:
+    """Phase 12; dragon and ctx: the main path's scene and context."""
+    log(f"[12] sixth path: transparency shadows, the TRANS+REC tree, glossy "
+        f"and batched cameras on the "
+        f"{2 * (TEAPOT_GRID[0] - 1) * TEAPOT_GRID[1]}-triangle stand-in "
+        f"(seed {FIFTH_SEED})")
+    scenes = sixth_scenes(tmp, TEAPOT_GRID, device)
+    rows = [sixth_frame(label, scenes[which], feats, pdict, side)
+            for label, which, feats, pdict, side in SIXTH_ROWS]
+    check_transparency_shadow_walk(scenes["glass"], device)
+    batch_check(dragon, ctx, device)
+    sixth_small_check(tmp, device)
     return rows
 
 
@@ -1375,6 +1650,9 @@ def main() -> int:
 
         # phase 11: the sampling and image-space features
         fifth_path(tmp, scene, ctx.accel, device)
+
+        # phase 12: transparency shadows, the tree, glossy, batches
+        sixth_path(tmp, scene, ctx, device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"

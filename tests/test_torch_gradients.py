@@ -4,11 +4,13 @@ against the JAX package's, on the same numpy leaves.
 The scene is the 9x8 dragon stand-in (tools/make_large_asset.py, 128
 triangles) with two spheres, one a mirror; 12x12 camera rays; shading, hard
 shadows and recursive mirrors, with the accel off, so hit selection is the
-brute-force sweep (K3's twin here, JAX's XLA sweep there). Two more cases
-of the train step: the stand-in's body textured (bilinear), and a
-parallelogram light's soft shadows, whose samples both sides draw from
-key 0. The scene is built once by JAX and carried across with
-`interop.scene_from_numpy`; the JAX side runs
+brute-force sweep (K3's twin here, JAX's XLA sweep there). More cases of
+the train step: the stand-in's body textured (bilinear), a parallelogram
+light's soft shadows, whose samples both sides draw from key 0, the
+TRANS+REC tree with the body at d 0.45 and glossy cones with the belly at
+Ns 0 (cge_tpu_torch/tools/common.write_variant_obj); and sgd_step's
+recomputed host flags. The scene is built once by JAX and carried across
+with `interop.scene_from_numpy`; the JAX side runs
 `jax.value_and_grad(render_loss)` under jit.
 
 Gradients are compared per DIFF_FIELDS leaf with rtol 2e-3 and atol 1e-4 x
@@ -17,6 +19,7 @@ contracts products into FMAs and sums in its own order, and a gradient
 accumulates over every ray that sees a leaf.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -36,7 +39,7 @@ from cge_tpu.scene.scene import SphereDef, build_scene_arrays
 from cge_tpu_torch.interop import (TENSOR_FIELDS, params_from_numpy,
                                    scene_from_numpy)
 from cge_tpu_torch.ops import sweep
-from cge_tpu_torch.tools.common import write_textured_obj
+from cge_tpu_torch.tools.common import write_textured_obj, write_variant_obj
 from tools.make_large_asset import write_obj
 
 torch.set_num_threads(2)
@@ -62,12 +65,34 @@ FEATURES = {
     # interpolated normals): gradients reach its corner, edges and colours
     "soft": dict(enable_shading=True, enable_soft_shadow=True,
                  enable_normal_interp=True),
+    # the TRANS+REC tree on the stand-in with its body at d 0.45
+    # (write_variant_obj "glass"): gradients reach the transparencies
+    # through the blends and the transparency shadows
+    "transrec": dict(enable_shading=True, enable_hard_shadow=True,
+                     enable_recursive=True, enable_transparency=True,
+                     enable_normal_interp=True),
+    # glossy cones on the stand-in with its belly at Ns 0 (write_variant_obj
+    # "glossy"): gradients reach the shininess through the cone's spread
+    "glossy": dict(enable_shading=True, enable_hard_shadow=True,
+                   enable_recursive=True, enable_glossy_reflection=True,
+                   enable_normal_interp=True),
 }
+# the RenderParams of each feature set beyond the defaults: the tree and
+# the cone fan-out cut to a CPU test's size
+PARAMS = {"transrec": dict(ray_depth=3, extra_transparency_unroll=2),
+          "glossy": dict(ray_depth=2, rays_per_reflection=4)}
+# the loss's rtol where it is not 1e-5: the tree sums one ray's radiance
+# to ~6 through pow(., 28) specular terms, and JAX's jit-compiled loss
+# moves 4.8e-5 from JAX's own eager trace of the same rays (XLA contracts
+# FMAs differently), where the port's loss is within 1.5e-6 of the eager
+LOSS_RTOL = {"transrec": 1e-4}
 # the leaves each feature set must move, beyond those of every set
 LIVE = {"geometric": set(), "interp": {"vertices", "normals"},
         "texture": {"vertices", "normals", "textures", "uvs"},
         "soft": {"vertices", "normals", "par_v0", "par_e01", "par_e02",
-                 "par_c0", "par_c1", "par_c2", "par_c3"}}
+                 "par_c0", "par_c1", "par_c2", "par_c3"},
+        "transrec": {"vertices", "normals", "mat_transparency"},
+        "glossy": {"vertices", "normals", "mat_ks", "mat_shininess"}}
 PAR = ((-1.2, 1.0, -1.2), (0.4, 0.0, 0.0), (0.0, 0.0, 0.4), (1.0, 0.2, 0.2),
        (0.2, 1.0, 0.2), (0.2, 0.2, 1.0), (1.0, 1.0, 0.2))
 SIDE = 12
@@ -113,6 +138,11 @@ def setups(setup, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("grad_par") / "dragon_tiny.obj")
     write_obj(path, 9, 8)
     out["soft"] = _build(path, [JPointLight(*LIGHT), JParLight(*PAR)])
+    for variant, which in (("glass", "transrec"), ("glossy", "glossy")):
+        path = str(tmp_path_factory.mktemp(f"grad_{variant}")
+                   / "dragon_tiny.obj")
+        write_variant_obj(path, 9, 8, variant)
+        out[which] = _build(path, [JPointLight(*LIGHT)])
     return {k: out.get(k, setup) for k in FEATURES}
 
 
@@ -122,41 +152,48 @@ def _jax_value_and_grad():
                    static_argnames=("features", "render_params"))
 
 
-def _jax(js, o, d, target, feats):
+def _jax(js, o, d, target, feats, params=None):
     v, g = _jax_value_and_grad()(
         jgrad.scene_params(js), js, jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(target), features=cge_tpu.Features(**feats),
-        render_params=cge_tpu.RenderParams(), key=jax.random.PRNGKey(0))
+        render_params=cge_tpu.RenderParams(**(params or {})),
+        key=jax.random.PRNGKey(0))
     return float(v), {k: np.asarray(x) for k, x in g.items()}
 
 
-def _port(ps, o, d, target, feats):
+def _port(ps, o, d, target, feats, params=None):
     loss, g = ct.loss_and_grads(ps, torch.from_numpy(o), torch.from_numpy(d),
                                 torch.from_numpy(target),
-                                ct.Features(**feats), ct.RenderParams())
+                                ct.Features(**feats),
+                                ct.RenderParams(**(params or {})))
     return float(loss), {k: x.numpy() for k, x in g.items()}
 
 
 @pytest.mark.parametrize("which", list(FEATURES))
 def test_loss_and_grads_match_jax(setups, which):
-    """The loss to rtol 1e-5 and every DIFF_FIELDS gradient to rtol 2e-3,
-    atol 1e-4 x max |g|; every gradient finite (JAX's are, on this view,
-    which has no pow-quirk rays). Both sides draw the soft shadows'
-    samples from key 0 (the port's seed 0)."""
+    """The loss to rtol 1e-5 (LOSS_RTOL) and every DIFF_FIELDS gradient to
+    rtol 2e-3, atol 1e-4 x max |g|; every gradient of the port finite, and
+    JAX's too (this view has no pow-quirk rays) but for glossy's
+    mat_shininess, where JAX's fault makes NaN. Both sides draw the soft
+    shadows' samples from key 0 (the port's seed 0)."""
     js, ps, o, d, target = setups[which]
-    jv, jg = _jax(js, o, d, target, FEATURES[which])
+    jv, jg = _jax(js, o, d, target, FEATURES[which], PARAMS.get(which))
     before = sweep.LAUNCHES["sweep"]
-    pv, pg = _port(ps, o, d, target, FEATURES[which])
+    pv, pg = _port(ps, o, d, target, FEATURES[which], PARAMS.get(which))
     assert sweep.LAUNCHES["sweep"] == before          # CPU: the twin ran
-    np.testing.assert_allclose(pv, jv, rtol=1e-5)
+    np.testing.assert_allclose(pv, jv, rtol=LOSS_RTOL.get(which, 1e-5))
     assert set(pg) == set(ct.DIFF_FIELDS)
     for k in ct.DIFF_FIELDS:
         want, got = jg[k], pg[k]
         assert got.shape == want.shape and got.dtype == np.float32, k
-        assert np.isfinite(want).all() and np.isfinite(got).all(), k
-        scale = float(np.abs(want).max())
-        np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4 * scale,
-                                   err_msg=k)
+        assert np.isfinite(got).all(), k
+        ok = np.isfinite(want)
+        # JAX's one non-finite gradient: glossy's cone basis divides 0 by 0
+        # (ROADMAP section 3); compared where JAX's is finite
+        assert ok.all() or (which, k) == ("glossy", "mat_shininess"), k
+        scale = float(np.abs(want[ok]).max())
+        np.testing.assert_allclose(got[ok], want[ok], rtol=2e-3,
+                                   atol=1e-4 * scale, err_msg=k)
     live = {"mat_kd", "sph_center", "sph_radius", "point_pos",
             "point_color"} | LIVE[which]
     assert [k for k in live if not np.abs(pg[k]).max() > 0] == []
@@ -285,3 +322,46 @@ def test_loss_and_grads_on_card_match_cpu(setup):
     for k in ct.DIFF_FIELDS:
         diff = np.linalg.norm(gg[k].cpu().numpy() - cg[k])
         assert diff <= 1e-2 * max(np.linalg.norm(cg[k]), 1e-12), k
+
+
+def test_sgd_step_recomputes_the_host_flags(tmp_path):
+    """A step that moves an all-diffuse scene's mat_ks off zero: the
+    port's sgd_step recomputes all_diffuse (False) and all_opaque (still
+    False: d 0.45), so its next TRANS+REC render runs the generic two-child
+    tree and equals JAX's render of the stepped scene with all_diffuse
+    set False by hand (image rules: NaN masks agree, >= 99.5% of pixels
+    within rtol 1e-4 / atol 2e-4). JAX's sgd_step keeps the stale flag,
+    and its collapsed tree drops the mirror children: another image."""
+    path = str(tmp_path / "dragon_tiny.obj")
+    write_variant_obj(path, 9, 8, "diffuse_glass")
+    js = build_scene_arrays(load_mesh(path), (), [JPointLight(*LIGHT)])
+    ps = scene_from_numpy({k: np.asarray(getattr(js, k))
+                           for k in TENSOR_FIELDS},
+                          all_opaque=js.all_opaque,
+                          all_diffuse=js.all_diffuse, device="cpu")
+    assert ps.all_diffuse and not ps.all_opaque
+    step = {k: np.zeros_like(np.asarray(v))
+            for k, v in jgrad.scene_params(js).items()}
+    step["mat_ks"] = np.full_like(step["mat_ks"], -1.0)
+    ps = ct.sgd_step(ps, {k: torch.from_numpy(v) for k, v in step.items()},
+                     0.5)
+    js = jgrad.sgd_step(js, {k: jnp.asarray(v) for k, v in step.items()},
+                        0.5)
+    assert not ps.all_diffuse and not ps.all_opaque
+    assert js.all_diffuse                       # the JAX package's stale flag
+    feats = dict(enable_shading=True, enable_hard_shadow=True,
+                 enable_recursive=True, enable_transparency=True,
+                 enable_normal_interp=True)
+    params = dict(ray_depth=3, extra_transparency_unroll=2)
+    img = ct.render_image(ps, ct.Camera(), ct.Features(**feats),
+                          ct.RenderParams(**params), 16, 16).numpy()
+    jimgs = [np.asarray(cge_tpu.render_image(
+        s, cge_tpu.Camera(), cge_tpu.Features(**feats),
+        cge_tpu.RenderParams(**params), 16, 16))
+        for s in (dataclasses.replace(js, all_diffuse=False), js)]
+    generic, stale = jimgs
+    assert (np.isnan(img) == np.isnan(generic)).mean() > 0.999
+    both = np.isfinite(img) & np.isfinite(generic)
+    close = np.isclose(img, generic, rtol=1e-4, atol=2e-4) | ~both
+    assert close.all(axis=-1).mean() >= 0.995
+    assert np.nanmax(np.abs(stale - generic)) > 1e-2

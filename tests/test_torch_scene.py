@@ -264,19 +264,15 @@ def test_port_never_imports_jax():
     "enable_multiple_rays_per_pixel", "enable_depth_of_field",
     "enable_glossy_reflection"])
 def test_unported_features_raise(flag, monkeypatch):
-    """Glossy raises, naming its ROADMAP item. The flags ported since
-    (texture, soft shadows, bloom, MSAA, DoF) render the Spheres scene and
-    match the JAX package's render with the same seed, its cluster path in
-    interpret mode, under the image rules (NaN masks agree; >= 99.5% of
+    """No feature flag raises any more: each flag ported since (texture,
+    soft shadows, bloom, MSAA, DoF, glossy) renders the Spheres scene and
+    matches the JAX package's render with the same seed, its cluster path
+    in interpret mode, under the image rules (NaN masks agree; >= 99.5% of
     pixels within rtol 1e-4 / atol 2e-4)."""
     scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     feats = {**dict(enable_shading=True, enable_recursive=True,
                     enable_accel_structure=True), flag: True}
     f = ct.Features(**feats)
-    if flag == "enable_glossy_reflection":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ct.render_image(scene, ct.Camera(), f, ct.RenderParams(), 32, 16)
-        return
     from cge_tpu.ops import intersect as jint
     monkeypatch.setattr(jint, "FORCE_CLUSTER_INTERPRET", True)
     ref = np.asarray(cge_tpu.render_image(
@@ -293,20 +289,22 @@ def test_unported_features_raise(flag, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    # transparency shadows (the closest blocker's transparency)
+    # ported since: transparency shadows (the closest blocker's
+    # transparency) on the chain, and the TRANS+REC tree
     dict(features=dict(enable_recursive=False, enable_transparency=True,
-                       enable_hard_shadow=True)),
-    dict(features=dict(enable_transparency=True)),
+                       enable_hard_shadow=True), renders=True),
+    dict(features=dict(enable_transparency=True), renders=True),
     # ported since: the frustum key pass and the coherence ray order
     dict(params=dict(sweep_exact_keys=False), renders=True),
     dict(params=dict(prims_axis="prims")),
     dict(params=dict(sweep_sort_bounce=True), renders=True)])
 def test_unported_paths_raise(change, monkeypatch):
-    """Paths outside the port raise NotImplementedError. The cases marked
-    `renders` are the sweep knobs ported since (frustum keys, the
-    coherence ray order): they render, and match the JAX package's render
-    with its cluster path in interpret mode under the image rules (NaN
-    masks agree; >= 99.5% of pixels within rtol 1e-4 / atol 2e-4)."""
+    """Paths outside the port raise NotImplementedError: only prims_axis
+    (multi-device) is left. The cases marked `renders` were ported since
+    (transparency shadows, the TRANS+REC tree, frustum keys, the coherence
+    ray order): they render, and match the JAX package's render with its
+    cluster path in interpret mode under the image rules (NaN masks agree;
+    >= 99.5% of pixels within rtol 1e-4 / atol 2e-4)."""
     scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     feats = {**dict(enable_shading=True, enable_recursive=True,
                     enable_accel_structure=True), **change.get("features", {})}
