@@ -51,6 +51,63 @@ class Camera:
         return quat_from_euler(torch.tensor(self.rotation, dtype=torch.float32,
                                             device=device))
 
+    @property
+    def half_screen_h(self) -> float:
+        """tan(fovy / 2), taken in float32."""
+        return float(np.tan(np.float32(self.fovy) / np.float32(2.0)))
+
+    @property
+    def half_screen_w(self) -> float:
+        return float(np.float32(self.aspect) * np.float32(self.half_screen_h))
+
+    def _axis(self, v, device) -> torch.Tensor:
+        device = resolve_device(device)
+        return quat_rotate(self._quat(device),
+                           torch.tensor(v, dtype=torch.float32,
+                                        device=device))
+
+    def forward(self, device=None) -> torch.Tensor:
+        return self._axis((0.0, 0.0, 1.0), device)
+
+    def up(self, device=None) -> torch.Tensor:
+        return self._axis((0.0, 1.0, 0.0), device)
+
+    def left(self, device=None) -> torch.Tensor:
+        """trackball.cpp:122-126 (+x is camera-left in the right-handed GL
+        frame)."""
+        return self._axis((1.0, 0.0, 0.0), device)
+
+    # the mouse handlers (trackball.cpp:136-164) as functions returning a
+    # new Camera; deltas in pixels of cursor motion, + = right / up
+    _ROTATION_SPEED = 0.3       # trackball.cpp:13
+    _TRANSLATION_SPEED = 0.005  # trackball.cpp:14
+    _ZOOM_SPEED = 0.5           # trackball.cpp:15
+
+    def orbit(self, dx: float, dy: float) -> "Camera":
+        """Left-drag rotate (trackball.cpp:145-148): pitch clamped to
+        +-pi/2, yaw unbounded."""
+        rx, ry, rz = self.rotation
+        rx = float(np.clip(rx - np.radians(dy * self._ROTATION_SPEED),
+                           -np.pi / 2, np.pi / 2))
+        ry = float(ry - np.radians(dx * self._ROTATION_SPEED))
+        return dataclasses.replace(self, rotation=(rx, ry, rz))
+
+    def pan(self, dx: float, dy: float) -> "Camera":
+        """Right-drag translate in the image plane (trackball.cpp:150-153):
+        mouse right moves the camera left, mouse up moves it down."""
+        look = np.asarray(self.look_at, np.float32)
+        look = look + dx * self._TRANSLATION_SPEED * self.left("cpu").numpy()
+        look = look - dy * self._TRANSLATION_SPEED * self.up("cpu").numpy()
+        return dataclasses.replace(self,
+                                   look_at=tuple(float(v) for v in look))
+
+    def zoom(self, scroll_y: float) -> "Camera":
+        """Scroll dolly (trackball.cpp:159-163): distance clamped to
+        [0.1, 100]."""
+        d = float(np.clip(self.distance - scroll_y * self._ZOOM_SPEED,
+                          0.1, 100.0))
+        return dataclasses.replace(self, distance=d)
+
     def position(self, device=None) -> torch.Tensor:
         """trackball.cpp:71-74, on `device` (resolve_device: the card by
         default)."""

@@ -1,4 +1,5 @@
-"""PNG images without Pillow (counterpart of cge_tpu/scene/image_io.py).
+"""PNG and BMP images without Pillow (counterpart of
+cge_tpu/scene/image_io.py).
 
 `load_image` decodes PNG with zlib and struct alone, as the reference's
 stb_image loads a texture (framework/src/image.cpp:22-34): forced RGB, u8 /
@@ -6,8 +7,9 @@ stb_image loads a texture (framework/src/image.cpp:22-34): forced RGB, u8 /
 PNG of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6
 (RGBA) with any of the five row filters; alpha is dropped, as stb's and
 Pillow's RGB conversions drop it. Other PNGs raise an error that names
-their format. `write_png` writes the same kinds, each row with a chosen
-filter.
+their format. `png_bytes` and `write_png` write the same kinds, each row
+with a chosen filter. `write_bmp` writes the CLI's 24-bit BMP byte for
+byte as the JAX package does, and `read_bmp` reads it back.
 """
 
 from __future__ import annotations
@@ -177,13 +179,13 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, pixels: np.ndarray, filters=(0,),
-              palette: np.ndarray | None = None) -> None:
-    """Write an 8-bit PNG. pixels: float [H, W, 3] radiance (quantised as
-    the image writer does, to_u8), or uint8 [H, W] / [H, W, C] with C = 1,
-    2, 3 or 4 samples a pixel (grey, grey + alpha, RGB, RGBA), or palette
-    indices [H, W] with `palette` [K, 3] uint8. filters: the filter type
-    of each row, repeated over the rows."""
+def png_bytes(pixels: np.ndarray, filters=(0,),
+              palette: np.ndarray | None = None) -> bytes:
+    """An 8-bit PNG file's bytes. pixels: float [H, W, 3] radiance
+    (quantised as the image writer does, to_u8), or uint8 [H, W] /
+    [H, W, C] with C = 1, 2, 3 or 4 samples a pixel (grey, grey + alpha,
+    RGB, RGBA), or palette indices [H, W] with `palette` [K, 3] uint8.
+    filters: the filter type of each row, repeated over the rows."""
     px = np.asarray(pixels)
     if px.dtype != np.uint8:
         px = to_u8(px)
@@ -200,5 +202,52 @@ def write_png(path: str, pixels: np.ndarray, filters=(0,),
     if palette is not None:
         out.append(_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
     out += [_chunk(b"IDAT", body), _chunk(b"IEND", b"")]
+    return b"".join(out)
+
+
+def write_png(path: str, pixels: np.ndarray, filters=(0,),
+              palette: np.ndarray | None = None) -> None:
+    """Write png_bytes(pixels, filters, palette) to path."""
     with open(path, "wb") as f:
-        f.write(b"".join(out))
+        f.write(png_bytes(pixels, filters, palette))
+
+
+_BMP_HEADER = "<2sIHHIIiiHHIIiiII"
+
+
+def write_bmp(path: str, img_f32: np.ndarray) -> None:
+    """Write a 24-bit BMP as stbi_write_bmp does (screen.cpp:49-60):
+    img_f32 [H, W, 3] radiance, row 0 the top, quantised by to_u8; rows
+    bottom-up in BGR order, each padded to 4 bytes."""
+    u8 = to_u8(img_f32)
+    h, w = u8.shape[:2]
+    row_stride = (w * 3 + 3) & ~3
+    data_size = row_stride * h
+    header = struct.pack(_BMP_HEADER, b"BM", 54 + data_size, 0, 0, 54,
+                         40, w, h, 1, 24, 0, data_size, 2835, 2835, 0, 0)
+    rows = np.zeros((h, row_stride), np.uint8)
+    rows[:, :w * 3] = u8[::-1, :, ::-1].reshape(h, w * 3)
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """A BMP as write_bmp writes it (24-bit, uncompressed) back as
+    [H, W, 3] float32 / 255, row 0 the top; other BMPs raise an error
+    that names their format."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 54 or data[:2] != b"BM":
+        raise ValueError(f"{path}: not a BMP file")
+    (_, _, _, _, offset, _, w, h, _, bpp, comp, *_) = struct.unpack(
+        _BMP_HEADER, data[:54])
+    if bpp != 24 or comp != 0:
+        raise ValueError(f"{path}: {bpp}-bit BMP with compression {comp}: "
+                         f"only uncompressed 24-bit BMP is supported")
+    stride = (w * 3 + 3) & ~3
+    rows = np.frombuffer(data, np.uint8, stride * abs(h), offset)
+    rgb = rows.reshape(abs(h), stride)[:, :w * 3].reshape(abs(h), w, 3)
+    rgb = rgb[:, :, ::-1]
+    if h > 0:                                   # bottom-up rows
+        rgb = rgb[::-1]
+    return rgb.astype(np.float32) / 255.0

@@ -36,6 +36,42 @@ class SceneType(enum.IntEnum):
     Custom = 9
 
 
+# serialize / deserialize: src/config.cpp:376-431
+_SCENE_NAMES = {
+    SceneType.SingleTriangle: "single_triangle",
+    SceneType.Cube: "cube",
+    SceneType.CubeTextured: "cube_textured",
+    SceneType.CornellBox: "cornell_box",
+    SceneType.CornellBoxParallelogramLight: "cornell_box_parallelogram_light",
+    SceneType.Monkey: "monkey",
+    SceneType.Teapot: "teapot",
+    SceneType.Dragon: "dragon",
+    SceneType.Spheres: "spheres",
+    SceneType.Custom: "custom",
+}
+
+# The reference engine's data directory (its OBJ files and textures). The
+# port assumes no place for it: empty, so a scene read from it needs its
+# directory named (data_path in a config, data_dir / --data-dir in the app),
+# and a config's relative OBJ path without data_path is read from the
+# current directory.
+DEFAULT_DATA_DIR = ""
+
+
+def serialize_scene_type(t: SceneType) -> str:
+    return _SCENE_NAMES.get(t, "unknown")
+
+
+def deserialize_scene_type(name: str) -> SceneType | None:
+    """A scene name as the config file writes it: snake_case, or without
+    the underscores, or with dashes; any case. None for an unknown name."""
+    lowered = name.lower()
+    for t, n in _SCENE_NAMES.items():
+        if lowered in (n, n.replace("_", ""), n.replace("_", "-")):
+            return t
+    return None
+
+
 @dataclasses.dataclass
 class PointLight:
     position: Sequence[float]
@@ -170,6 +206,35 @@ def _f(x):
     return np.asarray(x, np.float32)
 
 
+_LIGHT_FIELDS = (
+    (PointLight, ("point_pos", "point_color"), "point_mask",
+     ("position", "color")),
+    (SegmentLight, ("seg_p0", "seg_p1", "seg_c0", "seg_c1"), "seg_mask",
+     ("endpoint0", "endpoint1", "color0", "color1")),
+    (ParallelogramLight, ("par_v0", "par_e01", "par_e02", "par_c0", "par_c1",
+                          "par_c2", "par_c3"), "par_mask",
+     ("v0", "edge01", "edge02", "color0", "color1", "color2", "color3")),
+)
+
+
+def _light_leaves(lights: Sequence[Light], min_slots: int) -> dict:
+    """The light leaves as numpy: each kind's lights in order, padded with
+    masked-off slots to at least min_slots."""
+    leaves = {}
+    for kind, names, mask_name, attrs in _LIGHT_FIELDS:
+        items = [l for l in lights if isinstance(l, kind)]
+        n = max(min_slots, len(items))
+        mask = np.zeros(n, bool)
+        mask[:len(items)] = True
+        for name, attr in zip(names, attrs):
+            a = np.zeros((n, 3), np.float32)
+            for i, it in enumerate(items):
+                a[i] = _f(getattr(it, attr))
+            leaves[name] = a
+        leaves[mask_name] = mask
+    return leaves
+
+
 def build_scene_arrays(meshes: Sequence[SubMesh],
                        spheres: Sequence[SphereDef] = (),
                        lights: Sequence[Light] = (),
@@ -264,55 +329,32 @@ def build_scene_arrays(meshes: Sequence[SubMesh],
         sm[i] = len(mat_kd) - len(spheres) + i
         smask[i] = True
 
-    def pack(kind, getters):
-        items = [l for l in lights if isinstance(l, kind)]
-        n = max(1, len(items))
-        arrs = [np.zeros((n, 3), np.float32) for _ in getters]
-        mask = np.zeros(n, bool)
-        for i, it in enumerate(items):
-            for a, g in zip(arrs, getters):
-                a[i] = _f(g(it))
-            mask[i] = True
-        return arrs, mask
-
-    (pp, pc), pmask = pack(PointLight, [lambda l: l.position,
-                                        lambda l: l.color])
-    (s0, s1, sc0, sc1), lmask = pack(
-        SegmentLight, [lambda l: l.endpoint0, lambda l: l.endpoint1,
-                       lambda l: l.color0, lambda l: l.color1])
-    (q0, qe1, qe2, qc0, qc1, qc2, qc3), qmask = pack(
-        ParallelogramLight, [lambda l: l.v0, lambda l: l.edge01,
-                             lambda l: l.edge02, lambda l: l.color0,
-                             lambda l: l.color1, lambda l: l.color2,
-                             lambda l: l.color3])
-
     leaves = dict(
         vertices=V, normals=N, uvs=UV, tris=T, tri_mat=TM, tri_mask=tri_mask,
         mat_kd=kd, mat_ks=ks, mat_shininess=sh, mat_transparency=tr,
         mat_tex=tx, textures=stack, tex_hw=hw,
         sph_center=sc, sph_radius=sr, sph_mat=sm, sph_mask=smask,
-        point_pos=pp, point_color=pc, point_mask=pmask,
-        seg_p0=s0, seg_p1=s1, seg_c0=sc0, seg_c1=sc1, seg_mask=lmask,
-        par_v0=q0, par_e01=qe1, par_e02=qe2, par_c0=qc0, par_c1=qc1,
-        par_c2=qc2, par_c3=qc3, par_mask=qmask,
+        **_light_leaves(lights, 1),
         cluster_perm=build_clusters(V, T, tri_mask))
     return scene_from_numpy(leaves, all_opaque=bool(np.all(tr == 1.0)),
                            all_diffuse=bool(np.all(ks == 0.0)),
                            device=device)
 
 
-def load_scene_prebuilt(scene_type: SceneType, data_dir: str | None = None,
+def load_scene_prebuilt(scene_type: SceneType,
+                        data_dir: str = DEFAULT_DATA_DIR,
                         device=None) -> SceneArrays:
     """The hardcoded scene registry (src/scene.cpp:5-92), on `device` (the
     card by default). Spheres needs no data files; the mesh scenes load
     their OBJ from `data_dir`, the reference's data directory, and raise
-    FileNotFoundError without it."""
+    FileNotFoundError where it is not named (DEFAULT_DATA_DIR)."""
     device = resolve_device(device)
     meshes, spheres, lights = prebuilt_scene_parts(scene_type, data_dir)
     return build_scene_arrays(meshes, spheres, lights, device=device)
 
 
-def prebuilt_scene_parts(scene_type: SceneType, data_dir: str | None = None):
+def prebuilt_scene_parts(scene_type: SceneType,
+                         data_dir: str = DEFAULT_DATA_DIR):
     """The registry's host-side parts (meshes, spheres, lights)."""
     t = SceneType(scene_type)
     if t == SceneType.Spheres:
@@ -346,7 +388,7 @@ def prebuilt_scene_parts(scene_type: SceneType, data_dir: str | None = None):
         SceneType.Custom: ("custom.obj", False, [white]),
     }
     name, normalize, lights = registry[t]
-    if data_dir is None:
+    if not data_dir:
         raise FileNotFoundError(
             f"{t.name} loads {name}: pass data_dir, the directory of the "
             "reference's data files")
@@ -363,3 +405,15 @@ def load_scene_from_file(path: str, lights: Sequence[Light],
     device = resolve_device(device)
     return build_scene_arrays(load_mesh(path), (), lights, device=device)
 
+
+def replace_lights(scene: SceneArrays, lights: Sequence[Light],
+                   min_slots: int = 8) -> SceneArrays:
+    """A new SceneArrays with only the lights rebuilt, on the scene's
+    device: the interactive light editor's path (main.cpp:275-368). Each
+    kind's slots are padded to min_slots, as the JAX package pads them."""
+    leaves = _light_leaves(lights, min_slots)
+    dev = scene.device
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in leaves.items()}
+    host = {f"{k}_host": tuple(bool(x) for x in leaves[k])
+            for k in ("point_mask", "seg_mask", "par_mask")}
+    return dataclasses.replace(scene, **tensors, **host)

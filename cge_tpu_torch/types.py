@@ -9,6 +9,7 @@ one this port cannot honour yet, so no knob is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,26 @@ class Features:
 
     def replace(self, **kw) -> "Features":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_nested(cls, base: dict, extra: dict | None = None) -> "Features":
+        """Build from the reference's nested camelCase layout
+        (common.h:54-77): `base` maps the seven Features members, `extra`
+        the ExtraFeatures members (or pass base['extra']). An unknown flag
+        raises KeyError."""
+        merged = dict(base)
+        nested = merged.pop("extra", None)
+        if extra is None:
+            extra = nested or {}
+        merged.update(extra)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {}
+        for k, v in merged.items():
+            s = re.sub(r"(?<!^)(?=[A-Z])", "_", k).lower()
+            if s not in fields:
+                raise KeyError(f"unknown feature flag: {k!r}")
+            kw[s] = bool(v)
+        return cls(**kw)
 
 
 @dataclasses.dataclass(frozen=True)

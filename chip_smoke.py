@@ -90,7 +90,27 @@ exits non-zero if any phase fails:
      timed and held to the twins on blocks spread over it; three headline
      cameras of the dragon through render_images_u8, equal to three
      render_image_u8 calls; each feature set on the 41x32 stand-in at
-     64x64 on the card against the CPU twins under phase 4's rule.
+     64x64 on the card against the CPU twins under phase 4's rule;
+ 13. the seventh path, the CLI and config, the reference BVH, the debugger,
+     the preview and the app: `python -m cge_tpu_torch.cli` on a config of
+     the dragon (512x512, the headline features with the accel, three
+     cameras, one point light) in a subprocess and cli.run in this process
+     with the launch counters reset (K1 and K2 only), and the same on the
+     15,360-triangle stand-in with the accel off (K3 only), every BMP equal
+     byte for byte to write_bmp of render_images of the same cameras, with
+     the CLI's "Rendering took" lines; two cameras of the 41x32 stand-in
+     at 64x64 through the CLI on the card against the CPU twins; the
+     reference BVH of the stand-in (median and SAH, build ms) and its
+     parity traversal of 256x256 primary rays on the card against K3
+     (hit masks equal, t within rtol 5e-6 / atol 1e-7, ids off exact-t
+     ties) and the CPU run bit for bit, with its ms; debug_trace of a 4x4
+     fan into the dragon with mirrors on against the CPU twins; the
+     preview of the stand-in at 256x256 (the share of pixels whose
+     triangle id the card and the CPU agree on, its ms), an AppState of
+     the stand-in's OBJ on the card (a ray-traced frame through K1 and K2,
+     a raster frame) served on a free port, its GET /api/frame PNG equal
+     to state.frame(); utils.profiling.trace around one CLI frame naming
+     K2's kernel, and a checkpoint round trip of scene_params on the card.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase's line ends with the seconds since the start.
@@ -1017,34 +1037,85 @@ def shadow_batch(scene, feats, module, name):
 
 
 def check_shadow_k3(scene, device):
-    """K3 on a full shadow batch of the accel-off soft512 frame: its ms,
-    bound and share, and t and ids equal to the twin's on the rays of
-    slice_blocks."""
+    """K3 on a full shadow batch of the accel-off soft512 frame
+    (check_sweep_batch)."""
+    from cge_tpu_torch.ops import sweep
+
+    (o, d, tmax, table), _ = shadow_batch(scene, SOFT, sweep, "closest_tris")
+    check_sweep_batch("one full shadow batch (accel off)", o, d, tmax, table,
+                      device)
+
+
+def check_sweep_batch(what, o, d, tmax, table, device):
+    """K3 on one full batch: its ms, bound and share, and t and ids equal
+    to the twin's on the rays of slice_blocks."""
     import torch
 
     from cge_tpu_torch.ops import sweep
     from cge_tpu_torch.tools import common, roofline
 
-    (o, d, tmax, table), _ = shadow_batch(scene, SOFT, sweep, "closest_tris")
     got = sweep.closest_tris(o, d, tmax, table)
     live = torch.nn.functional.pad(tmax >= 0, (0, (-o.shape[0]) % 512))
     rows = (slice_blocks(live.reshape(-1, 512).any(dim=1))[:, None] * 512
             + torch.arange(512, device=device)).reshape(-1)
     rows = rows[rows < o.shape[0]]
     want = sweep.closest_tris_plain(o[rows], d[rows], tmax[rows], table)
-    for what, a, b in zip(("t", "ids"), got, want):
+    for name, a, b in zip(("t", "ids"), got, want):
         if not bool((a[rows] == b).all()):
-            raise AssertionError(f"K3 on the full shadow batch: {what} "
-                                 f"differ from the twin")
+            raise AssertionError(f"K3 on {what}: {name} differ from the "
+                                 f"twin")
     ms = common.device_ms(lambda: sweep.closest_tris(o, d, tmax, table),
                           device, 3)
     bound = roofline.sweep_bound(o, d, tmax, table, got[0])
-    log(f"    K3 on one full shadow batch (accel off): {o.shape[0]} rays, "
+    log(f"    K3 on {what}: {o.shape[0]} rays, "
         f"{int((tmax >= 0).sum())} live, {int((got[1] >= 0).sum())} "
-        f"blocked, {table.shape[0]} triangles | {ms:.4f} ms, "
+        f"hit, {table.shape[0]} triangles | {ms:.4f} ms, "
         f"{_bound_line(bound, ms)} | t and ids equal to the twin on "
         f"{rows.numel()} rays ({int((tmax[rows] >= 0).sum())} live) in "
         f"runs of 512, the last two among them")
+
+
+def _live(call) -> int:
+    """The live rays (budget >= 0) of a recorded call."""
+    return int((call[0][2] >= 0).sum())
+
+
+def _fullest(calls):
+    """The recorded call with the most live rays; among equals the middle
+    one in call order (of a frame's primary chunks, one across the
+    image's middle rather than its top rows)."""
+    most = max(_live(c) for c in calls)
+    tied = [c for c in calls if _live(c) == most]
+    return tied[len(tied) // 2]
+
+
+def check_recorded(what, calls, accel: bool, device):
+    """The kernels of a recorded run held to their twins at the run's own
+    shapes: with the accel, K1 and K2 on its fullest closest batch and
+    its fullest any-hit batch (check_walk_batch); without, K3 on its
+    fullest batch (check_sweep_batch); the fullest as _fullest picks it."""
+    from cge_tpu_torch.ops import cluster_sweep as cs
+
+    if not calls:
+        raise AssertionError(f"{what}: no batch was recorded")
+    if not accel:
+        (o, d, tmax, table), _ = _fullest(calls)
+        check_sweep_batch(f"{what}, its fullest batch", o, d, tmax, table,
+                          device)
+        return
+    for any_hit in (False, True):
+        mode = "any-hit" if any_hit else "closest"
+        batches = [c for c in calls if bool(c[1].get("any_hit")) == any_hit]
+        if not batches:
+            raise AssertionError(f"{what}: no {mode} batch")
+        (o, d, tmax, aabbs, tiles, layout), kw = _fullest(batches)
+        if (not kw.get("exact_keys", True) or kw.get("refine_members")
+                or kw.get("mxu")):
+            raise AssertionError(f"{what}: the {mode} sweep ran with {kw}")
+        check_walk_batch(f"{what}, its fullest {mode} batch", o, d, tmax,
+                         aabbs, tiles, layout, kw.get("br", cs.DEFAULT_BR),
+                         kw.get("sc_n"), device, any_hit=any_hit,
+                         shared_origin=kw.get("shared_origin", False))
 
 
 def check_shadow_walk(scene, device):
@@ -1056,7 +1127,8 @@ def check_shadow_walk(scene, device):
                             cs, "cluster_tris")
     if not kw.get("any_hit") or not kw.get("exact_keys", True):
         raise AssertionError(f"the shadow sweep ran with {kw}")
-    check_walk_batch("the stand-in's soft512 frame (accel on, reversed)",
+    check_walk_batch("one full shadow batch, the stand-in's soft512 frame "
+                     "(accel on, reversed)",
                      *args, kw.get("br", cs.DEFAULT_BR), kw.get("sc_n"),
                      device)
 
@@ -1073,14 +1145,17 @@ def check_dragon_shadow_walk(scene, accel, device):
     batch = kernel_bench.walk_batches(scene, accel, device, side,
                                       SHADOW_BATCH)["c_shadow"]
     o, d, tmax = batch[:3]
-    check_walk_batch(f"the dragon, shadow rays of a {side}x{side} frame",
+    check_walk_batch(f"one full shadow batch, the dragon, shadow rays of a "
+                     f"{side}x{side} frame",
                      o, d, tmax, accel.aabbs, accel.tiles, accel.layout,
                      cs.DEFAULT_BR, MAIN_PARAMS["sweep_anyhit_sc_n"], device)
 
 
 def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
-                     device, any_hit: bool = True):
-    """K1, the sort of its keys and K2's walk (any-hit, or closest) on one
+                     device, any_hit: bool = True,
+                     shared_origin: bool = False):
+    """K1, the sort of its keys and K2's walk (any-hit, or closest, with
+    the shared-origin hoist where the batch was swept with it) on one
     full batch: the key table's bytes, each one's ms with K1's and K2's
     bounds; K1's keys and K2's results bit for bit against the twins on
     the blocks of slice_blocks."""
@@ -1090,7 +1165,8 @@ def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
     inp = cs.sweep_setup(o, d, tmax, aabbs, tiles, layout, br, sc_n)
     keys = cs.block_entry_keys(inp.rays, inp.boxes)
     skeys, order = cs.sort_keys(keys)
-    walk = dict(layout=layout, sc_n=inp.sc_n, any_hit=any_hit)
+    walk = dict(layout=layout, sc_n=inp.sc_n, any_hit=any_hit,
+                shared_origin=shared_origin)
     out = cs.cluster_walk(order, skeys, inp.rays, inp.tiles, **walk)
     blocks = slice_blocks((inp.rays[:, 6] >= 0).any(dim=1))
     kernel_bench.check_keys(
@@ -1110,10 +1186,12 @@ def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
     walk_bound = roofline.walk_bound(order, inp.rays, inp.tiles, out, **walk)
     NB, _, BR = inp.rays.shape
     blocked = (out[1] == 1) if any_hit else (out[1] >= 0)
-    log(f"    K1 + K2 ({'any-hit' if any_hit else 'closest'}) on one full "
-        f"shadow batch, {what}: {o.shape[0]} rays "
+    log(f"    K1 + K2 ({'any-hit' if any_hit else 'closest'}"
+        f"{', shared origin' if shared_origin else ''}) on {what}: "
+        f"{o.shape[0]} rays "
         f"in {NB} blocks of {BR}, {int((tmax >= 0).sum())} live, "
-        f"{int(blocked.sum())} blocked, {inp.boxes.shape[0]} boxes, "
+        f"{int(blocked.sum())} {'blocked' if any_hit else 'hit'}, "
+        f"{inp.boxes.shape[0]} boxes, "
         f"key table {keys.numel() * 4} bytes | K1 {keys_ms:.4f} ms, "
         f"{_bound_line(keys_bound, keys_ms)} | sort {sort_ms:.4f} ms | K2 "
         f"{walk_ms:.4f} ms, {_bound_line(walk_bound, walk_ms)}, visits mean "
@@ -1418,7 +1496,8 @@ def check_transparency_shadow_walk(scene, device):
     if not kw.get("exact_keys", True):
         raise AssertionError(f"the transparency-shadow sweep ran with {kw}")
     check_walk_batch(
-        "the stand-in's transrec512 frame (transparency shadows, forward)",
+        "one full shadow batch, the stand-in's transrec512 frame "
+        "(transparency shadows, forward)",
         o, d, tmax, accel.aabbs, accel.tiles, accel.layout, kw["br"],
         kw["sc_n"], device, any_hit=False)
 
@@ -1498,6 +1577,416 @@ def sixth_path(tmp, dragon, ctx, device) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the CLI and config, the reference BVH, the debugger, the app
+# ---------------------------------------------------------------------------
+
+CLI_CAMERAS = """
+[[cameras]]
+
+[[cameras]]
+field_of_view = 40.0
+distance_from_look_at = 2.5
+rotation = [10.0, -30.0, 0.0]
+
+[[cameras]]
+field_of_view = 60.0
+look_at = [0.1, 0.0, 0.0]
+rotation = [30.0, 60.0, 0.0]
+"""
+# the traversal's tolerance against K3 (tests/test_bvh_traverse.py)
+TRAVERSAL_RTOL, TRAVERSAL_ATOL = 5e-6, 1e-7
+SMI = {"line": ""}
+
+
+def cli_toml(tmp, name, obj, side, accel, cameras=CLI_CAMERAS) -> tuple:
+    """A config file of the CLI for obj with the headline features, the
+    given cameras and one point light at (-1, 1, -1); (path, output
+    directory)."""
+    out = os.path.join(tmp, f"{name}_out")
+    path = os.path.join(tmp, f"{name}.toml")
+    with open(path, "w") as f:
+        f.write(f"""window_size = [{side}, {side}]
+data_path = "{os.path.dirname(obj)}"
+scene = "{os.path.basename(obj)}"
+output_dir = "{out}"
+
+[features]
+enable_shading = true
+enable_hard_shadow = true
+enable_recursive = true
+enable_normal_interp = true
+enable_accel_structure = {str(accel).lower()}
+{cameras}
+[[lights]]
+type = "point"
+position = [-1.0, 1.0, -1.0]
+color = [1.0, 1.0, 1.0]
+""")
+    return path, out
+
+
+def _bmps(out) -> list:
+    """The CLI's BMPs in an output directory, by camera index."""
+    names = [n for n in os.listdir(out) if n.endswith(".bmp")]
+    return [os.path.join(out, n) for n in
+            sorted(names, key=lambda n: int(n[:-4].rsplit("_", 1)[1]))]
+
+
+def cli_row(tmp, label, obj, ref_scene, accel, device) -> dict:
+    """One config through `python -m cge_tpu_torch.cli` in a subprocess
+    and through cli.run in this process with the launch counters reset;
+    every BMP of both must equal, byte for byte, write_bmp of
+    render_images for the same cameras on ref_scene (the same OBJ loaded
+    in this process). The in-process run's batches are recorded and its
+    kernels held to their twins on them (check_recorded)."""
+    import io
+
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import cli
+    from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.ops import sweep
+    from cge_tpu_torch.scene.image_io import read_bmp, write_bmp
+
+    toml, out = cli_toml(tmp, label, obj, W, accel)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cge_tpu_torch.cli", toml],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{label}: the CLI exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    sub_took = [ln for ln in r.stdout.splitlines()
+                if ln.startswith("Rendering took")]
+    sub_paths = _bmps(out)
+    for p in sub_paths:
+        os.rename(p, p[:-4] + ".sub.bmp")
+    sub_paths = [p[:-4] + ".sub.bmp" for p in sub_paths]
+
+    config = ct.read_config_file(toml)
+    spied = (cs, "cluster_tris") if accel else (sweep, "closest_tris")
+    reset_launches()
+    buf = io.StringIO()
+    with recorded_batches(*spied, 1) as calls, \
+            contextlib.redirect_stdout(buf):
+        paths = cli.run(config, device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    took = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("Rendering took")]
+    if len(paths) != 3 or len(sub_paths) != 3 or len(took) != 1:
+        raise AssertionError(f"{label}: {len(paths)} / {len(sub_paths)} "
+                             f"BMPs, output {buf.getvalue()!r}")
+    kernels = ("keys", "walk") if accel else ("sweep",)
+    for k in ("keys", "walk", "sweep"):
+        if (launches[k] > 0) != (k in kernels):
+            raise AssertionError(f"{label}: launches {launches}")
+
+    cams = [c.to_camera(aspect=1.0) for c in config.cameras]
+    params = ct.RenderParams()
+    imgs = ct.render_images(ref_scene, cams, config.features, params, W, H,
+                            0, ct.prepare_render(ref_scene, config.features,
+                                                 params)).cpu().numpy()
+    lit = []
+    for i, img in enumerate(imgs):
+        ref = os.path.join(tmp, f"{label}_ref_{i}.bmp")
+        write_bmp(ref, img)
+        with open(ref, "rb") as f:
+            want = f.read()
+        for p in (paths[i], sub_paths[i]):
+            with open(p, "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"{label}: {p} differs from "
+                                         f"write_bmp of render_images")
+            if not (read_bmp(p) == read_bmp(ref)).all():
+                raise AssertionError(f"{label}: read_bmp({p}) differs")
+        lit.append(float((read_bmp(ref).sum(-1) > 0).mean()))
+    if min(lit) < 0.05:
+        raise AssertionError(f"{label}: a blank camera, lit {lit}")
+    log(f"  {label}: {int(ref_scene.tri_mask.sum())} triangles, 3 cameras "
+        f"at {W}x{H}, launches {launches}; in process: {took[0]}; "
+        f"subprocess {sub_s:.1f} s: {sub_took[0] if sub_took else '-'}; "
+        f"lit {[round(x, 3) for x in lit]}; 6 BMPs equal to write_bmp of "
+        f"render_images byte for byte | {SMI['line']}")
+    check_recorded(f"the {label} run", calls, accel, device)
+    return dict(launches=launches, took=took[0])
+
+
+def cli_small_check(tmp, device) -> None:
+    """Two cameras of the 41x32 stand-in at 64x64 through cli.run on the
+    card and on the CPU twins, under phase 4's rule."""
+    import numpy as np
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import cli
+    from cge_tpu_torch.scene.image_io import read_bmp
+
+    obj = os.path.join(tmp, "dragon_small.obj")
+    two = CLI_CAMERAS.rsplit("[[cameras]]", 1)[0]
+    rows = []
+    for dev in (device, "cpu"):
+        name = "small_" + str(dev).replace(":", "")
+        toml, _ = cli_toml(tmp, name, obj, 64, True, two)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            paths = cli.run(ct.read_config_file(toml), device=dev)
+        rows.append([read_bmp(p) for p in paths])
+    res = [compare_images(a, b) for a, b in zip(*rows)]
+    log(f"    CLI 41x32 stand-in, 2 cameras at 64x64, card vs CPU twins: "
+        f"{[(round(n, 5), f'{f:.4%}') for n, f in res]}")
+    if len(res) != 2 or any(n < 0.999 or f < 0.995 for n, f in res):
+        raise AssertionError("CLI card and CPU images disagree")
+    if not np.any(rows[0][0]):
+        raise AssertionError("CLI small image is blank")
+
+
+def to_cpu(scene):
+    """A CPU copy of a scene on the card."""
+    import dataclasses
+
+    from cge_tpu_torch.scene.scene import TENSOR_FIELDS
+
+    return dataclasses.replace(scene, **{k: getattr(scene, k).cpu()
+                                         for k in TENSOR_FIELDS})
+
+
+def bvh_check(tscene, device) -> dict:
+    """The reference BVH of the stand-in, median and SAH, and its parity
+    traversal for 256x256 primary rays on the card: against K3's closest
+    hit (hit masks equal, t within the traversal tolerance, ids equal off
+    exact-t ties) and, for the median BVH, the CPU run bit for bit."""
+    import torch
+
+    from cge_tpu_torch.ops import bvh_traverse as bt
+    from cge_tpu_torch.ops.intersect import closest_hit
+    from cge_tpu_torch.utils.profiling import timed_bvh_build
+
+    o, d = camera_rays(256, device)
+    tm = torch.full((o.shape[0],), torch.inf, device=device)
+    reset_launches()
+    k3 = closest_hit(tscene, o, d, tm)
+    k3_launches = read_launches()["sweep"]
+    rows = {}
+    for sah in (False, True):
+        bvh, stats = timed_bvh_build(tscene, sah_binning=sah)
+        db = bt.device_bvh(bvh, tscene)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit, t, sph, prim = bt.bvh_closest_hit(db, o, d, tm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(hit, k3.hit):
+            raise AssertionError(f"traversal (sah={sah}) and K3 disagree on "
+                                 f"{int((hit != k3.hit).sum())} hit masks")
+        h = hit
+        close = torch.isclose(t[h], k3.t[h], rtol=TRAVERSAL_RTOL,
+                              atol=TRAVERSAL_ATOL)
+        if not bool(close.all()):
+            raise AssertionError(f"traversal t off K3's on "
+                                 f"{int((~close).sum())} rays")
+        ties = int((h & (prim != k3.prim)).sum())
+        if ties > max(1, int(h.sum()) // 100):
+            raise AssertionError(f"traversal ids differ from K3's on {ties} "
+                                 f"rays")
+        name = "sah" if sah else "median"
+        rows[name] = dict(build_ms=stats.build_ms, ms=ms)
+        line = (f"    reference BVH {name}: build {stats.build_ms:.1f} ms, "
+                f"{stats.num_levels} levels, {stats.num_leaves} leaves, max "
+                f"{stats.max_per_leaf} a leaf; traversal of {o.shape[0]} "
+                f"primary rays {ms:.1f} ms; {int(h.sum())} hits, equal to "
+                f"K3's hit mask "
+                f"({k3_launches} K3 launch), t within rtol "
+                f"{TRAVERSAL_RTOL} / atol {TRAVERSAL_ATOL}, ids differ on "
+                f"{ties} exact-t ties")
+        if not sah:
+            t0 = time.perf_counter()
+            cpu = bt.bvh_closest_hit(bt.device_bvh(bvh, to_cpu(tscene)),
+                                     o.cpu(), d.cpu(), tm.cpu())
+            cpu_s = time.perf_counter() - t0
+            for a, b in zip((hit, t, sph, prim), cpu):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError("traversal: card and CPU differ")
+            line += f"; the CPU run ({cpu_s:.1f} s) equal bit for bit"
+        log(line + f" | {SMI['line']}")
+    return rows
+
+
+def debugger_check(dragon, device) -> None:
+    """debug_trace of a 4x4 pixel fan into the dragon with mirrors on,
+    card (K3) against the CPU twins: the same levels, rays a level and
+    hit masks."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.viz.debug import debug_trace
+
+    feats = ct.Features(**BRUTE)
+    grid = ct.camera.pixel_grid(4, 4, device).reshape(-1, 2) * 0.3
+    o, d = ct.Camera().generate_rays(grid)
+    reset_launches()
+    t0 = time.perf_counter()
+    card = debug_trace(dragon, o, d, feats, ct.RenderParams())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    cpu = debug_trace(to_cpu(dragon), o.cpu(), d.cpu(), feats,
+                      ct.RenderParams())
+    counts = [len(lv.hit) for lv in card]
+    if counts != [len(lv.hit) for lv in cpu] or len(card) < 2:
+        raise AssertionError(f"debugger levels: card {counts}, CPU "
+                             f"{[len(lv.hit) for lv in cpu]}")
+    for a, b in zip(card, cpu):
+        if not np.array_equal(a.hit, b.hit):
+            raise AssertionError("debugger hit masks differ")
+    if launches["sweep"] <= 0:
+        raise AssertionError(f"debug_trace launched {launches}")
+    log(f"    debugger: a 4x4 fan into the dragon with mirrors, {len(card)} "
+        f"levels, rays a level {counts}, hits a level "
+        f"{[int(lv.hit.sum()) for lv in card]}, equal to the CPU twins'; "
+        f"{ms:.1f} ms, launches {launches}")
+
+
+def preview_app_check(tmp, tobj, tscene, device) -> dict:
+    """The preview of the stand-in at 256x256, card against CPU (the share
+    of pixels with the same triangle id); an AppState of the stand-in's
+    OBJ on the card, a ray-traced frame (its kernels held to their twins
+    on its recorded batches, check_recorded) and a raster frame, and its
+    HTTP frame decoded against state.frame()."""
+    import http.client
+
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.app.server import serve
+    from cge_tpu_torch.app.state import AppState
+    from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.raster import preview, rasterize
+    from cge_tpu_torch.raster.matrices import (camera_matrices,
+                                               project_vertices)
+    from cge_tpu_torch.scene.image_io import decode_png
+
+    side = 256
+    cam = ct.Camera()
+    soup = preview.preview_soup(tscene, cam, side)
+    ids = []
+    for dev in (device, "cpu"):
+        verts, tris, _ = (torch.from_numpy(a).to(dev) for a in soup)
+        view, proj = camera_matrices(cam, side, side, dev)
+        xy, z, w = project_vertices(verts, view, proj, side, side)
+        ids.append(rasterize(xy, z, w, tris, side, side)[0].cpu())
+    same = float((ids[0] == ids[1]).float().mean())
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = preview.render_preview(tscene, cam, side, side)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    covered = float((ids[0] >= 0).float().mean())
+    log(f"    preview {side}x{side}: {len(soup[1])} triangles, "
+        f"{covered:.3f} covered, {same:.4%} of pixels with the card's and "
+        f"the CPU's triangle id equal; render_preview ms "
+        f"{[round(x, 1) for x in times]} | {SMI['line']}")
+    if same < 0.999 or covered < 0.05 or float(img.max()) <= 0.05:
+        raise AssertionError("preview: card and CPU differ, or blank")
+
+    state = AppState(scene=tobj, width=side, height=side, device=device,
+                     output_dir=os.path.join(tmp, "app_out"))
+    state.update_features(HEADLINE)
+    state.set_view(mode="raytrace")
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_batches(cs, "cluster_tris", 1) as calls:
+        rt = state.frame()
+    rt_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    if launches["keys"] <= 0 or launches["walk"] <= 0 or rt.max() < 20:
+        raise AssertionError(f"app ray trace: launches {launches}")
+    check_recorded("the app's ray-traced frame", calls, True, device)
+    state.set_view(mode="raster")
+    raster = state.frame()
+    httpd = serve(state, port=0, background=True)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=120)
+        conn.request("GET", "/api/frame")
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if resp.status != 200 or resp.getheader("Content-Type") != "image/png":
+        raise AssertionError(f"GET /api/frame: {resp.status}")
+    served = decode_png(body)
+    if not np.array_equal(served, state.frame()) \
+            or not np.array_equal(served, raster):
+        raise AssertionError("GET /api/frame differs from state.frame()")
+    log(f"    app on the card: ray-traced frame {rt_ms:.1f} ms (first), "
+        f"launches {launches}, lit {float((rt.sum(-1) > 0).mean()):.3f}; "
+        f"raster frame; GET /api/frame ({len(body)} bytes of PNG) equal to "
+        f"state.frame()")
+    return dict(preview_ms=times[-1])
+
+
+def profiler_checkpoint_check(tmp, tobj, tscene, device) -> None:
+    """utils.profiling.trace around one CLI frame (the stand-in, accel on,
+    one camera) must write a trace naming K2's kernel; utils.checkpoint
+    saves and restores scene_params on the card unchanged."""
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import cli
+    from cge_tpu_torch.utils import checkpoint, profiling
+
+    one = CLI_CAMERAS.split("[[cameras]]")[0] + "[[cameras]]\n"
+    toml, _ = cli_toml(tmp, "traced", tobj, W, True, one)
+    log_dir = os.path.join(tmp, "trace")
+    config = ct.read_config_file(toml)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        with profiling.trace(log_dir):
+            cli.run(config, device=device)
+            torch.cuda.synchronize()
+    files = os.listdir(log_dir)
+    with open(os.path.join(log_dir, files[0])) as f:
+        text = f.read()
+    n = text.count("cluster_walk_split_kernel")
+    if len(files) != 1 or n == 0:
+        raise AssertionError(f"trace {files}: K2 named {n} times")
+    ck = os.path.join(tmp, "ckpt")
+    params = ct.scene_params(tscene)
+    checkpoint.save(ck, 3, params)
+    back = checkpoint.restore(ck, device=device)
+    bad = [k for k, v in params.items()
+           if back[k].device != v.device or not torch.equal(back[k], v)]
+    if bad or checkpoint.latest_step(ck) != 3:
+        raise AssertionError(f"checkpoint round trip: {bad}")
+    log(f"    profiler: one CLI frame's Chrome trace ({len(text)} bytes) "
+        f"names cluster_walk_split_kernel {n} times; checkpoint: "
+        f"{len(params)} scene_params on the card restored unchanged")
+
+
+def seventh_path(tmp, dragon, tobj, tscene, device) -> dict:
+    """Phase 13; dragon and tscene: phase 3's and phase 5's scenes."""
+    log(f"[13] seventh path: the CLI and config, the reference BVH and its "
+        f"traversal, the debugger, the preview and the app | {SMI['line']}")
+    obj = os.path.join(tmp, "dragon.obj")
+    rows = {"cli_accel": cli_row(tmp, "cli_dragon_accel", obj, dragon, True,
+                                 device),
+            "cli_brute": cli_row(tmp, "cli_standin_brute", tobj, tscene,
+                                 False, device)}
+    cli_small_check(tmp, device)
+    rows["bvh"] = bvh_check(tscene, device)
+    debugger_check(dragon, device)
+    rows.update(preview_app_check(tmp, tobj, tscene, device))
+    profiler_checkpoint_check(tmp, tobj, tscene, device)
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1525,8 +2014,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi: {smi.stderr.strip()}")
+    SMI["line"] = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                   else f"nvidia-smi: {smi.stderr.strip()}")
+    log(SMI["line"])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
@@ -1653,6 +2143,10 @@ def main() -> int:
 
         # phase 12: transparency shadows, the tree, glossy, batches
         sixth_path(tmp, scene, ctx, device)
+
+        # phase 13: the CLI and config, the reference BVH, the debugger,
+        # the preview and the app
+        seventh_path(tmp, scene, tobj, tscene, device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"
