@@ -58,13 +58,14 @@ def render_loss(params, scene, rays_o, rays_d, target, features,
 
 
 def loss_and_grads(scene, rays_o, rays_d, target, features, render_params,
-                   seed: int = 0):
+                   seed: int = 0, ray_ids=None):
     """(loss, {field: gradient}) for every DIFF_FIELDS leaf; a leaf the
-    trace does not read gets a zero gradient, as under JAX."""
+    trace does not read gets a zero gradient, as under JAX. ray_ids: the
+    rays' global ids (render_loss), as a sharded step passes them."""
     params = {k: v.detach().requires_grad_(True)
               for k, v in scene_params(scene).items()}
     loss = render_loss(params, scene, rays_o, rays_d, target, features,
-                       render_params, seed)
+                       render_params, seed, ray_ids)
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     return loss.detach(), {

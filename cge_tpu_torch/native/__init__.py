@@ -1,0 +1,183 @@
+"""The native host library: OBJ loader, cluster builder and reference BVH
+builder in C++ (counterpart of cge_tpu/native).
+
+`cge_host.cpp` is this package's own copy of the JAX package's source. It
+is compiled at first use by `g++` with the flags of the JAX package's
+Makefile (CXXFLAGS, warnings as errors) into `build/cge_tpu_torch/` at the
+repository root, named by a hash of the source, compiler and flags, and
+loaded with ctypes; no binary is committed. A failed build raises with the
+compiler's output: nothing falls back to the numpy code. The numpy
+loader and builders (scene/mesh_io.py, ops/bvh.py) are the library's twins
+and run where a caller passes `use_native=False`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+
+import numpy as np
+
+from cge_tpu_torch import _kernels
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "cge_host.cpp")
+CXX = "g++"
+CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name: (restype, argtypes)
+_SIGNATURES = {
+    "cge_load_obj": (_P, [ctypes.c_char_p, _I]),
+    "cge_error": (ctypes.c_char_p, [_P]),
+    "cge_n_submeshes": (_I, [_P]),
+    "cge_submesh_counts": (None, [_P, _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I)]),
+    "cge_submesh_data": (None, [_P, _I, _P, _P, _P, _P]),
+    "cge_submesh_material": (_I, [_P, _I, _P, ctypes.c_char_p, _I]),
+    "cge_release": (None, [_P]),
+    "cge_build_clusters": (_I, [_P, _I, _I, _P, _I]),
+    "cge_build_bvh": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+}
+
+
+class HostLibrary:
+    """The loaded library and what its build took."""
+
+    def __init__(self, path: str, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        lib = ctypes.CDLL(path)
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+            setattr(self, name, fn)
+        self._lib = lib
+
+
+def build(cxx: str = CXX, flags=CXXFLAGS,
+          build_dir: str = _kernels.BUILD_DIR) -> HostLibrary:
+    """Compile cge_host.cpp (unless a build of the same source, compiler
+    and flags is there) and load it. RuntimeError with the compiler's
+    output when the compiler is missing or fails."""
+    h = hashlib.sha256(" ".join((cxx,) + tuple(flags)).encode())
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    os.makedirs(build_dir, exist_ok=True)
+    path = os.path.join(build_dir, f"libcge_host_{h.hexdigest()[:16]}.so")
+    t0 = time.perf_counter()
+    log = ""
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [cxx, *flags, "-shared", "-o", tmp, SOURCE]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"native build: cannot run {cxx!r}: {e}") \
+                from e
+        log = r.stdout + r.stderr
+        if r.returncode:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n"
+                               f"{log}")
+        os.replace(tmp, path)     # atomic: concurrent builds agree
+    return HostLibrary(path, time.perf_counter() - t0, log)
+
+
+_LIBRARY: HostLibrary | None = None
+
+
+def library() -> HostLibrary:
+    """The default build, built once per process at first use."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = build()
+    return _LIBRARY
+
+
+def load_obj(path: str, center_and_normalize: bool) -> list:
+    """The native loadMesh: [(positions [V, 3] f32, normals [V, 3] f32,
+    texcoords [V, 2] f32, triangles [T, 3] u32, material dict)] per
+    sub-mesh; the dict holds kd, ks, shininess, dissolve, map_kd (None
+    when absent) and default. FileNotFoundError for a missing file."""
+    lib = library()
+    h = lib.cge_load_obj(os.fsencode(path), int(center_and_normalize))
+    if not h:
+        raise RuntimeError(f"native loader returned no result for {path}")
+    try:
+        err = lib.cge_error(h)
+        if err:
+            raise FileNotFoundError(f"{err.decode()}: {path}")
+        out = []
+        for i in range(lib.cge_n_submeshes(h)):
+            nv, nt = _I(), _I()
+            lib.cge_submesh_counts(h, i, ctypes.byref(nv), ctypes.byref(nt))
+            pos = np.empty((nv.value, 3), np.float32)
+            nrm = np.empty((nv.value, 3), np.float32)
+            uv = np.empty((nv.value, 2), np.float32)
+            tris = np.empty((nt.value, 3), np.uint32)
+            lib.cge_submesh_data(h, i, pos.ctypes.data, nrm.ctypes.data,
+                                 uv.ctypes.data, tris.ctypes.data)
+            mat8 = np.empty(8, np.float32)
+            map_kd = ctypes.create_string_buffer(4096)
+            default = lib.cge_submesh_material(h, i, mat8.ctypes.data,
+                                               map_kd, 4096)
+            out.append((pos, nrm, uv, tris, dict(
+                kd=mat8[:3].copy(), ks=mat8[3:6].copy(),
+                shininess=float(mat8[6]), dissolve=float(mat8[7]),
+                map_kd=map_kd.value.decode() or None,
+                default=bool(default))))
+        return out
+    finally:
+        lib.cge_release(h)
+
+
+def build_clusters(centers: np.ndarray, cluster_size: int) -> np.ndarray:
+    """Largest-extent median clusters of the [N, 3] centres: [L,
+    cluster_size] i32 positions into centers, -1 padded."""
+    lib = library()
+    centers = np.ascontiguousarray(centers, np.float32)
+    n = len(centers)
+    cap = max(1, 2 * (n // cluster_size + 1)) * cluster_size
+    perm = np.empty(cap, np.int32)
+    nc = lib.cge_build_clusters(centers.ctypes.data, n, cluster_size,
+                                perm.ctypes.data, cap)
+    if nc < 0:
+        raise RuntimeError(f"native cluster build of {n} centres overran "
+                           f"its {cap} slots")
+    return perm[: nc * cluster_size].reshape(nc, cluster_size).copy()
+
+
+def build_bvh(lo: np.ndarray, hi: np.ndarray, centers: np.ndarray,
+              sah: bool):
+    """The reference-parity BVH of N primitive boxes and centres: (node_lo
+    [K, 3], node_hi [K, 3], node_meta [K, 6] i32, perm [N] i32, (levels,
+    leaves, max_per_leaf)); the root is the last node."""
+    lib = library()
+    lo, hi, centers = (np.ascontiguousarray(x, np.float32)
+                       for x in (lo, hi, centers))
+    n = len(centers)
+    cap = max(1, 2 * n - 1)
+    node_lo = np.empty((cap, 3), np.float32)
+    node_hi = np.empty((cap, 3), np.float32)
+    node_meta = np.empty((cap, 6), np.int32)
+    perm = np.empty(n, np.int32)
+    stats = np.empty(3, np.int32)
+    count = lib.cge_build_bvh(lo.ctypes.data, hi.ctypes.data,
+                              centers.ctypes.data, n, int(sah), cap,
+                              node_lo.ctypes.data, node_hi.ctypes.data,
+                              node_meta.ctypes.data, perm.ctypes.data,
+                              stats.ctypes.data)
+    if count < 0:
+        raise RuntimeError(f"native BVH build of {n} primitives failed")
+    return (node_lo[:count].copy(), node_hi[:count].copy(),
+            node_meta[:count].copy(), perm,
+            (int(stats[0]), int(stats[1]), int(stats[2])))

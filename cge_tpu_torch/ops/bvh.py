@@ -8,18 +8,22 @@ Two structures, both built host-side in numpy once per scene:
    depth % 3, or SAH binning (a full sort per axis, at most NUM_OF_BINS
    stride-sampled candidate splits, cost SA_L * n_L + SA_R * n_R); a leaf
    at depth MAX_DEPTH - 1 or with one primitive; primitives are every
-   mesh triangle, then every sphere. It is the JAX package's pure-Python
-   builder (its `use_native=False` branch), node for node, with the same
-   dtypes and order; the debug views read it, and ops/bvh_traverse.py
-   walks it.
+   mesh triangle, then every sphere. The debug views read it, and
+   ops/bvh_traverse.py walks it.
 
 2. The cluster accel (`build_clusters`, cge_tpu/ops/bvh.py:282-332):
    triangles permuted into spatially-coherent clusters of CLUSTER_SIZE by
    largest-extent median splits. The split lands on the cluster-size
    multiple nearest the median, so every left descendant fills its
-   cluster. Member order inside a cluster follows `np.argpartition`, which
-   may differ from the JAX package's native builder (`std::nth_element`);
-   the clusters hold the same triangles.
+   cluster.
+
+Both default to the native host library (cge_tpu_torch.native, its
+`std::nth_element` splits), as the JAX package does, so the default
+cluster perm and BVH are the JAX defaults'. `use_native=False` runs the
+numpy twins here, node for node the JAX package's pure-Python builders:
+their splits follow `np.argpartition`, so members come in another order,
+and where a split plane cuts through equal centres the tied ones may
+land on the other side (the same node and cluster sizes).
 """
 
 from __future__ import annotations
@@ -149,11 +153,24 @@ class ReferenceBVH:
 
 
 def build_reference_bvh(scene, sah_binning: bool = False,
+                        use_native: bool = True,
                         record_sah_cuts: bool = False) -> ReferenceBVH:
     """The reference BVH of the scene (any device's SceneArrays; built on
     the host). sah_binning picks SAH binning over the median split;
-    record_sah_cuts keeps every SAH node's candidate planes."""
+    use_native the native builder over the numpy twin; record_sah_cuts
+    keeps every SAH node's candidate planes (the numpy twin only, as in
+    the JAX package)."""
     lo, hi, center, is_sphere, prim_idx = _primitive_soup(scene)
+    if use_native and not record_sah_cuts:
+        from cge_tpu_torch import native
+
+        node_lo, node_hi, node_meta, perm, (levels, leaves, mx) = \
+            native.build_bvh(lo, hi, center, sah_binning)
+        return ReferenceBVH(
+            node_lo=node_lo, node_hi=node_hi, node_meta=node_meta,
+            root=len(node_meta) - 1, perm_is_sphere=is_sphere[perm],
+            perm_index=prim_idx[perm], num_levels=levels, num_leaves=leaves,
+            max_per_leaf=mx)
     order = np.arange(len(center))
     node_lo, node_hi, node_meta = [], [], []
     stats = dict(levels=0, leaves=0, max_leaf=0)
@@ -253,9 +270,11 @@ def build_reference_bvh(scene, sah_binning: bool = False,
 
 
 def build_clusters(vertices, tris, tri_mask,
-                   cluster_size: int = CLUSTER_SIZE) -> np.ndarray:
+                   cluster_size: int = CLUSTER_SIZE,
+                   use_native: bool = True) -> np.ndarray:
     """Returns perm: [L, cluster_size] int32 triangle ids, -1 padded.
-    Cluster order follows the recursion (children adjacent)."""
+    Cluster order follows the recursion (children adjacent). use_native:
+    the native builder, else the numpy twin below."""
     v = to_numpy(vertices)
     t = to_numpy(tris)
     mask = to_numpy(tri_mask)
@@ -263,6 +282,11 @@ def build_clusters(vertices, tris, tri_mask,
     if len(ids) == 0:
         return np.full((1, cluster_size), -1, np.int32)
     centers = v[t[ids]].mean(axis=1)
+    if use_native:
+        from cge_tpu_torch import native
+
+        perm = native.build_clusters(centers, cluster_size)
+        return np.where(perm >= 0, ids[np.maximum(perm, 0)], -1)
 
     clusters: list = []
     stack = [np.arange(len(ids))]

@@ -13,6 +13,14 @@ without one, the K3 brute-force sweep (ops.sweep) over the packed [T, 16]
 table, which reports scene-order ids. Hit selection is a discrete oracle,
 so everything here runs under `torch.no_grad()`; the continuous hit
 quantities are recomputed from the ids by render.wavefront.hit_attributes.
+
+With `prims_axis` (inside a sharded entry point, cge_tpu_torch.parallel)
+each rank of the axis sweeps a contiguous slice of the clusters or of the
+packed table and reports global ids; the partial hits meet in one
+all-gather over the axis and a tie-aware reduction (cge_tpu/ops/
+intersect.py:355-409): the smallest t, and on equal t the largest global
+id. The ids stay in the space of the sweep (perm-space slots with the
+accel, scene-order ids without), so the attribute rows do not change.
 """
 
 from __future__ import annotations
@@ -134,11 +142,55 @@ def _sphere_hits(scene, o, d, budget):
     return torch.where(scene.sph_mask[None, :], ts, torch.inf)
 
 
+def _prims_reduce(t, ids, axis):
+    """All-gather (t, global id) over the prims axis in one collective and
+    keep the smallest t, and among equal t the largest global id (JAX's
+    rule, cge_tpu/ops/intersect.py:388-389 and :405-407)."""
+    from cge_tpu_torch.parallel import comm
+
+    both = comm.all_gather(torch.stack([t, ids.view(torch.float32)]),
+                           axis.group)                       # [P, 2, R]
+    ts, idx = both[:, 0], both[:, 1].contiguous().view(torch.int32)
+    best_t = ts.amin(dim=0)
+    best_i = torch.where(ts == best_t, idx, -1).amax(dim=0)
+    return best_t, best_i
+
+
+def _prims_cluster_tris(accel: Accel, o, d, tmax, axis, **kw):
+    """The cluster sweep over this rank's slice of the stack, padded to
+    ceil(L / P) * P clusters (pad_cluster_stack: inverted boxes, invalid
+    rows, never hit), in perm-id mode; the slots turned global."""
+    L, C = accel.perm.shape
+    shard = -(-L // axis.size)
+    lo = axis.index * shard
+    hi = min(L, lo + shard)
+    aabbs, tiles = accel.aabbs[lo:hi], accel.tiles[lo:hi]
+    if hi - lo < shard:
+        aabbs, tiles = cluster_sweep.pad_cluster_stack(
+            aabbs, tiles, shard - max(0, hi - lo), accel.layout)
+    t, slot, _ = cluster_sweep.cluster_tris(o, d, tmax, aabbs, tiles,
+                                            accel.layout, **kw)
+    return t, torch.where(slot >= 0, slot + lo * C, -1).to(torch.int32)
+
+
+def _prims_brute_tris(o, d, tmax, tri_table, axis):
+    """K3 over this rank's T / P rows of the packed table, ids global."""
+    T = tri_table.shape[0]
+    if T % axis.size:
+        raise ValueError(f"{T} triangles do not split over the "
+                         f"{axis.size} ranks of prims axis {axis.name!r}")
+    shard = T // axis.size
+    lo = axis.index * shard
+    t, i = sweep.closest_tris(o, d, tmax, tri_table[lo:lo + shard])
+    return t, torch.where(i >= 0, i + lo, -1).to(torch.int32)
+
+
 @torch.no_grad()
 def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
                 tri_table=None, shared_origin: bool = False, br: int = 512,
                 sc_n: int | None = None, exact_keys: bool = True,
-                sort_rays: bool = False) -> HitIds:
+                sort_rays: bool = False,
+                prims_axis: str | None = None) -> HitIds:
     """Closest hit over the scene's triangles and then its spheres, which
     test under the budget min(best_t, tmax) (ctor order,
     bounding_volume_hierarchy.cpp:158-171). With an accel the triangles go
@@ -147,8 +199,26 @@ def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
     shared_origin, br, sc_n, exact_keys and sort_rays tune the cluster
     sweep only. sort_rays runs it on coherent_sweep_order's permutation
     (without the shared-origin hoist, as the JAX package does); exact-t
-    ties then resolve in the permuted visit order."""
-    if uses_cluster_sweep(accel):
+    ties then resolve in the permuted visit order. prims_axis: the name
+    of a bound mesh axis (parallel.comm) over which the triangles are
+    sharded; the spheres then test replicated after the reduction, and
+    sort_rays is not taken (the JAX package's rule)."""
+    o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
+    if prims_axis is not None:
+        from cge_tpu_torch.parallel import comm
+
+        axis = comm.mesh_axis(prims_axis)
+        if uses_cluster_sweep(accel):
+            t, ids = _prims_cluster_tris(accel, o, d, tmax, axis, br=br,
+                                         sc_n=sc_n, exact_keys=exact_keys,
+                                         shared_origin=shared_origin)
+        else:
+            if tri_table is None:
+                tri_table = sweep.pack_tri_table(scene.vertices, scene.tris,
+                                                 scene.tri_mask)
+            t, ids = _prims_brute_tris(o, d, tmax, tri_table, axis)
+        best_t, best_i = _prims_reduce(t, ids, axis)
+    elif uses_cluster_sweep(accel):
         best_t, best_i, _ = _cluster_tris(
             accel, o, d, tmax, sort_rays, br=br, sc_n=sc_n,
             exact_keys=exact_keys,
@@ -157,8 +227,7 @@ def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
         if tri_table is None:
             tri_table = sweep.pack_tri_table(scene.vertices, scene.tris,
                                              scene.tri_mask)
-        best_t, best_i = sweep.closest_tris(
-            o.contiguous(), d.contiguous(), tmax.contiguous(), tri_table)
+        best_t, best_i = sweep.closest_tris(o, d, tmax, tri_table)
     ts = _sphere_hits(scene, o, d, torch.minimum(best_t, tmax))
     ts_min, s_idx = ts.min(dim=1)       # first index among equal minima
     sphere_wins = torch.isfinite(ts_min)

@@ -9,7 +9,10 @@ accel that query is the forward closest hit of the brute-force sweep (K3).
 With transparency on the visibility is the closest blocker's material
 transparency (light.cpp:65-68), so the query is a forward closest hit on
 either sweep, with the closest-hit knobs and no reversal or ray sort
-(cge_tpu/render/lights.py:95-106).
+(cge_tpu/render/lights.py:95-106). Under a prims axis (RenderParams.
+prims_axis) every shadow query is that forward closest hit through the
+prims-sharded sweep, as in the JAX package (lights.py:71-72): the any-hit
+walk and its reversal do not run.
 
 Segment and parallelogram lights (soft shadows) draw their jitter from
 threefry streams keyed per ray by global ray id (ops/rng.py), as the JAX
@@ -50,6 +53,12 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
     if features.enable_transparency:
         return blocker_transparency(scene, p, sdir, tmax, params, accel,
                                     tri_table)
+    if params.prims_axis is not None:
+        hit = closest_hit(scene, p, sdir, tmax, accel, tri_table=tri_table,
+                          br=params.sweep_br, sc_n=params.sweep_sc_n,
+                          exact_keys=params.sweep_exact_keys,
+                          prims_axis=params.prims_axis).hit
+        return torch.where(hit, 0.0, 1.0)
     # the cluster sweep runs reversed, from the light sample toward the
     # hit point: the same [p, sample] segment and budget-1 acceptance set,
     # with a tight origin hull per block; spheres test forward
@@ -74,7 +83,8 @@ def blocker_transparency(scene, p, sdir, tmax, params, accel=None,
     the sweep's no_grad, so mat_transparency gets its gradient."""
     ids = closest_hit(scene, p, sdir, tmax, accel, tri_table=tri_table,
                       br=params.sweep_br, sc_n=params.sweep_sc_n,
-                      exact_keys=params.sweep_exact_keys)
+                      exact_keys=params.sweep_exact_keys,
+                      prims_axis=params.prims_axis)
     tri = ids.prim
     if uses_cluster_sweep(accel):
         slots = accel.perm.reshape(-1)

@@ -54,17 +54,17 @@ def prepare_render(scene, features: Features,
 
 
 def _trace_rays(scene, o, d, features, params, key, shared_origin: bool,
-                ctx: RenderContext):
+                ctx: RenderContext, ray_ids=None):
     """Trace [N] rays under `key` in chunks of params.trace_chunk, passing
-    each chunk its global ray ids. The last chunk is padded with rays at
-    the origin along +z, as in the JAX package, so every chunk has one
-    shape."""
+    each chunk its global ray ids (ray_ids [N], arange(N) when None). The
+    last chunk is padded with rays at the origin along +z, as in the JAX
+    package, so every chunk has one shape."""
     N = o.shape[0]
     C = params.trace_chunk
     kw = dict(key=key, accel=ctx.accel, tables=ctx.tables,
               tri_table=ctx.tri_table, shared_origin=shared_origin)
     if N <= C:
-        return trace(scene, o, d, features, params, **kw)
+        return trace(scene, o, d, features, params, **kw, ray_ids=ray_ids)
     pad = (-N) % C
     if pad:
         o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype,
@@ -73,6 +73,8 @@ def _trace_rays(scene, o, d, features, params, key, shared_origin: bool,
         dpad[:, 2] = 1.0
         d = torch.cat([d, dpad])
     ids = torch.arange(N + pad, dtype=torch.int64, device=o.device)
+    if ray_ids is not None:
+        ids = torch.cat([ray_ids.to(torch.int64), ids[N:]])
     cols = [trace(scene, o[s:s + C], d[s:s + C], features, params, **kw,
                   ray_ids=ids[s:s + C])
             for s in range(0, N + pad, C)]

@@ -172,7 +172,8 @@ def _intersect_and_shade(scene, o, d, features, params, alive, accel,
                       shared_origin=shared_origin and params.sweep_shared_origin,
                       br=params.sweep_br, sc_n=params.sweep_sc_n,
                       exact_keys=params.sweep_exact_keys,
-                      sort_rays=bool(params.sweep_sort_bounce))
+                      sort_rays=bool(params.sweep_sort_bounce),
+                      prims_axis=params.prims_axis)
     attrs = hit_attributes(scene, o, d, ids, features, tables)
     local = light_contribution(scene, o, d, attrs.t, attrs.normal, attrs.kd,
                                attrs.ks, attrs.shininess, features, params,

@@ -13,8 +13,10 @@ reference's loadMesh, framework/src/mesh.cpp:52-149):
   - material defaults and the material-id -1 fallback (mesh.cpp:124-127);
   - optional centerAndScaleToUnitMesh (mesh.cpp:151-176).
 
-The statements are sorted in one pass over the lines; the numbers of the
-`v`/`vt`/`vn`/`f` lines are then parsed in bulk with numpy, and
+`load_mesh` runs the native loader (cge_tpu_torch.native) by default, as
+the JAX package does; `use_native=False` takes the numpy twin here. In
+it the statements are sorted in one pass over the lines; the numbers of
+the `v`/`vt`/`vn`/`f` lines are then parsed in bulk with numpy, and
 triangulation, run splitting and dedup are vectorised, so a 614k-triangle
 file loads in seconds instead of minutes.
 """
@@ -218,10 +220,14 @@ def _dedup(pos, nrm, uv):
     return keep, rank[inverse.ravel()]
 
 
-def load_mesh(path: str, center_and_normalize: bool = False) -> list[SubMesh]:
-    """loadMesh (mesh.cpp:52-149)."""
+def load_mesh(path: str, center_and_normalize: bool = False,
+              use_native: bool = True) -> list[SubMesh]:
+    """loadMesh (mesh.cpp:52-149): the native loader (cge_tpu_torch.native,
+    built at first use), or with use_native=False its numpy twin below."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"File {path} does not exist.")
+    if use_native:
+        return _load_mesh_native(path, center_and_normalize)
     base_dir = os.path.dirname(os.path.abspath(path))
 
     v_l, vt_l, vn_l, f_l = [], [], [], []
@@ -333,6 +339,31 @@ def load_mesh(path: str, center_and_normalize: bool = False) -> list[SubMesh]:
 
     if center_and_normalize:
         center_and_scale_to_unit(out)
+    return out
+
+
+def _load_mesh_native(path: str, center_and_normalize: bool) -> list[SubMesh]:
+    """The native loader's sub-meshes with their materials and map_Kd
+    textures (the textures decode here, as in the numpy loader)."""
+    from cge_tpu_torch import native
+
+    base_dir = os.path.dirname(os.path.abspath(path))
+    texture_cache: dict = {}
+    out: list[SubMesh] = []
+    for pos, nrm, uv, tris, mat in native.load_obj(path,
+                                                   center_and_normalize):
+        tex = None
+        if mat["map_kd"]:
+            tex_path = os.path.join(base_dir, mat["map_kd"])
+            if tex_path not in texture_cache:
+                texture_cache[tex_path] = load_image(tex_path)
+            tex = texture_cache[tex_path]
+        out.append(SubMesh(positions=pos, normals=nrm, texcoords=uv,
+                           triangles=tris, material=Material(
+                               kd=mat["kd"], ks=mat["ks"],
+                               shininess=mat["shininess"],
+                               transparency=mat["dissolve"],
+                               kd_texture=tex)))
     return out
 
 

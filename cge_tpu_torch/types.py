@@ -1,9 +1,10 @@
 """Core static configuration types (counterpart of cge_tpu/types.py).
 
 `Features` and `RenderParams` carry the same fields and defaults as the JAX
-package, so configs carry across unchanged. Knobs that only the JAX path
-implements are still accepted as fields; `check_supported` raises for the
-one this port cannot honour yet, so no knob is silently ignored.
+package, so configs carry across unchanged. `check_supported` raises for a
+`prims_axis` that names no axis of a mesh bound by a sharded entry point
+(cge_tpu_torch.parallel), as JAX fails on an axis name outside
+`shard_map`.
 """
 
 from __future__ import annotations
@@ -96,10 +97,18 @@ class RenderParams:
 
 
 def check_supported(params: RenderParams) -> None:
-    """Raise NotImplementedError for a knob outside the port: only
-    prims_axis (multi-device, ROADMAP 1.8). Every feature flag that changes
-    the JAX package's render renders here; the flags that change nothing
-    there (environment mapping, motion blur, SAH binning, the texture
-    filter modes without texture mapping) change nothing here either."""
-    if params.prims_axis is not None:
-        raise NotImplementedError("prims_axis: multi-device, ROADMAP 1.8")
+    """Raise ValueError for a prims_axis set outside a sharded entry point:
+    the axis must name an axis of the mesh that parallel.sharding binds,
+    of size prims_axis_size. Every feature flag that changes the JAX
+    package's render renders here; the flags that change nothing there
+    (environment mapping, motion blur, SAH binning, the texture filter
+    modes without texture mapping) change nothing here either."""
+    if params.prims_axis is None:
+        return
+    from cge_tpu_torch.parallel.comm import mesh_axis
+
+    axis = mesh_axis(params.prims_axis)
+    if axis.size != params.prims_axis_size:
+        raise ValueError(f"prims_axis {params.prims_axis!r} has "
+                         f"{axis.size} ranks, prims_axis_size says "
+                         f"{params.prims_axis_size}")

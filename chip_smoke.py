@@ -110,7 +110,34 @@ exits non-zero if any phase fails:
      the stand-in's OBJ on the card (a ray-traced frame through K1 and K2,
      a raster frame) served on a free port, its GET /api/frame PNG equal
      to state.frame(); utils.profiling.trace around one CLI frame naming
-     K2's kernel, and a checkpoint round trip of scene_params on the card.
+     K2's kernel, and a checkpoint round trip of scene_params on the card;
+ 14. the eighth path, multi-device on the one card
+     (cge_tpu_torch.parallel) and the native host library: the library
+     built anew with g++ and its flags (-Werror), the dragon's OBJ loaded
+     natively and by the numpy twin (seconds, same sub-meshes), its native
+     cluster perm and the stand-in's native reference BVH (median, SAH)
+     against the numpy twins; then worlds of rank processes of this script
+     (`--rank SPEC`, started by parallel.launch.run_ranks with a timeout):
+     a world of one on NCCL (the headline dragon frame through make_mesh
+     and render_image_sharded, bit for bit render_image's in the same
+     process, K1 and K2 launched); two ranks on NCCL, which refuses two
+     ranks on one card (its message printed); two ranks on gloo with CUDA
+     tensors: the dragon frame at rays = 2 (bit for bit) and at prims = 2
+     (each rank's K1 and K2 on 2,400 of the 4,800 clusters; the image
+     rule), the frame's primary rays through the prims-sharded sweep (hits
+     and t equal to the single-device sweep, ids off exact-t ties), the
+     same on the stand-in with the accel off (K3 on half the rows), and
+     the train step at rays = 2 and prims = 2 against loss_and_grads
+     (TRAIN_LOSS_REL, TRAIN_GRAD_REL); four ranks at rays x prims = 2 x 2,
+     the stand-in at 256x256 with the accel under the image rule. Every
+     rank's launches, frame ms, collectives' calls, bytes and ms, and each
+     world's wall seconds are printed.
+
+`python3 chip_smoke.py --cards N` (N even, on a machine with N cards) runs
+only the multi-card counterpart of phase 14: NCCL, one rank a card, the
+dragon frame at rays = N (every rank's frame bit for bit render_image's
+on its card) and at N/2 x 2, the prims sweep and the train step at N x 1
+and N/2 x 2, each against the single-card path.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; each phase's line ends with the seconds since the start.
@@ -1987,6 +2014,642 @@ def seventh_path(tmp, dragon, tobj, tscene, device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device on the one card, and the native host library
+# ---------------------------------------------------------------------------
+
+# (label, backend, world, timeout s, jobs): the worlds of phase 14, each
+# started as rank processes of this script (`--rank SPEC`). NCCL takes one
+# rank a card, so the multi-rank worlds on the one card run on gloo with
+# CUDA tensors.
+EIGHTH_SIDE = 512
+EIGHTH_FRAMES = 3
+GRID_SIDE = 256
+
+
+def eighth_worlds() -> tuple:
+    dragon = dict(features=HEADLINE, params=MAIN_PARAMS, side=EIGHTH_SIDE)
+    brute = dict(features=BRUTE, params={}, side=EIGHTH_SIDE)
+    return (
+        ("nccl world of 1", "nccl", 1, 240, [
+            dict(kind="frame", name="nccl_1x1", scene="dragon", mesh=(1, 1),
+                 single=True, **dragon)]),
+        ("nccl, 2 ranks on one card", "nccl", 2, 120, [
+            dict(kind="refuse", name="nccl_refuse")]),
+        ("gloo, 2 ranks on one card", "gloo", 2, 480, [
+            dict(kind="frame", name="rays_2x1", scene="dragon", mesh=(2, 1),
+                 **dragon),
+            dict(kind="frame", name="prims_1x2", scene="dragon", mesh=(1, 2),
+                 **dragon),
+            dict(kind="sweep", name="prims_sweep", scene="dragon",
+                 mesh=(1, 2), accel=True, side=EIGHTH_SIDE),
+            dict(kind="frame", name="prims_brute_1x2", scene="standin",
+                 mesh=(1, 2), **brute),
+            dict(kind="sweep", name="prims_brute_sweep", scene="standin",
+                 mesh=(1, 2), accel=False, side=EIGHTH_SIDE),
+            dict(kind="train", name="train_2x1", scene="standin",
+                 mesh=(2, 1)),
+            dict(kind="train", name="train_1x2", scene="standin",
+                 mesh=(1, 2))]),
+        ("gloo, 4 ranks on one card", "gloo", 4, 300, [
+            dict(kind="frame", name="grid_2x2", scene="standin", mesh=(2, 2),
+                 features=HEADLINE, params={}, side=GRID_SIDE)]),
+    )
+
+
+def _rank_frame(job, scene, mesh, device, rank):
+    """A sharded frame: the first with the launch counters and the
+    collectives' counts reset around it (an NCCL communicator is set up in
+    its first collective), then EIGHTH_FRAMES timed frames (host clock to
+    a synchronize) with their collectives a frame; with job["single"]
+    render_image of the same context in this process, bit for bit, and
+    its frames timed alike."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import parallel
+    from cge_tpu_torch.parallel import comm
+
+    feats = ct.Features(**job["features"])
+    params = ct.RenderParams(**job["params"])
+    side = job["side"]
+    ctx = ct.prepare_render(scene, feats, params)
+
+    def frame():
+        return parallel.render_image_sharded(scene, ct.Camera(), feats,
+                                             params, side, side, mesh,
+                                             ctx=ctx)
+
+    reset_launches()
+    before = dict(comm.COLLECTIVES)
+    t0 = time.perf_counter()
+    img = frame()
+    torch.cuda.synchronize()
+    stats = dict(first_s=time.perf_counter() - t0, launches=read_launches(),
+                 collectives={k: comm.COLLECTIVES[k] - before[k]
+                              for k in before})
+    def timed(fn):
+        frames = []
+        for _ in range(EIGHTH_FRAMES):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+        return frames
+
+    before = dict(comm.COLLECTIVES)
+    stats["frames_ms"] = timed(frame)
+    stats["median_ms"] = float(np.median(stats["frames_ms"]))
+    stats["collectives_frame"] = {
+        k: (comm.COLLECTIVES[k] - before[k]) / EIGHTH_FRAMES for k in before}
+    if ctx.accel is not None:
+        stats["clusters"] = int(ctx.accel.perm.shape[0])
+    if job.get("single"):
+        ref = ct.render_image(scene, ct.Camera(), feats, params, side, side,
+                              ctx=ctx)
+        stats["equal_single"] = bool(
+            torch.equal(torch.isnan(img), torch.isnan(ref))
+            and torch.equal(torch.nan_to_num(img), torch.nan_to_num(ref)))
+        stats["single_ms"] = timed(lambda: ct.render_image(
+            scene, ct.Camera(), feats, params, side, side, ctx=ctx))
+    out = {job["name"]: img.cpu().numpy()} if rank == 0 else {}
+    return stats, out
+
+
+def _rank_sweep(job, scene, mesh, device, rank):
+    """closest_hit over the frame's primary rays with the triangles sharded
+    over 'prims' (K1 + K2 on this rank's clusters, or K3 on its rows)."""
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.ops import intersect
+    from cge_tpu_torch.parallel import comm
+
+    feats = ct.Features(**(HEADLINE if job["accel"] else BRUTE))
+    ctx = ct.prepare_render(scene, feats, ct.RenderParams(**MAIN_PARAMS))
+    o, d = camera_rays(job["side"], device)
+    tmax = torch.full((o.shape[0],), torch.inf, device=device)
+    reset_launches()
+    with comm.bind_mesh(mesh):
+        ids = intersect.closest_hit(scene, o, d, tmax, ctx.accel,
+                                    tri_table=ctx.tri_table,
+                                    shared_origin=True, sc_n=1,
+                                    prims_axis="prims")
+    torch.cuda.synchronize()
+    axis = mesh.size(1)
+    rows = (ctx.accel.perm.shape[0] if ctx.accel is not None
+            else ctx.tri_table.shape[0])
+    stats = dict(launches=read_launches(), slice=-(-rows // axis),
+                 rows=int(rows),
+                 unit="clusters" if ctx.accel is not None else "rows")
+    out = ({f"{job['name']}/{k}": getattr(ids, k).cpu().numpy()
+            for k in ("hit", "t", "prim")} if rank == 0 else {})
+    return stats, out
+
+
+def _rank_train(job, scene, mesh, device, rank, target):
+    """loss_and_grads_sharded over TRAIN_SIDE^2 camera rays against the
+    phase's target, then train_step_sharded; their ms (host clock)."""
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import parallel
+    from cge_tpu_torch.parallel import comm
+
+    feats, params = ct.Features(**BRUTE), ct.RenderParams()
+    o, d = camera_rays(TRAIN_SIDE, device)
+    reset_launches()
+    before = dict(comm.COLLECTIVES)
+    t0 = time.perf_counter()
+    loss, grads = parallel.loss_and_grads_sharded(scene, o, d, target, feats,
+                                                  params, mesh)
+    torch.cuda.synchronize()
+    stats = dict(grads_ms=(time.perf_counter() - t0) * 1e3,
+                 launches=read_launches(),
+                 collectives={k: comm.COLLECTIVES[k] - before[k]
+                              for k in before})
+    t0 = time.perf_counter()
+    step_loss, new = parallel.train_step_sharded(scene, o, d, target, feats,
+                                                 params, mesh, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    stats["step_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["step_loss"] = float(step_loss)
+    out = {}
+    if rank == 0:
+        out[f"{job['name']}/loss"] = loss.cpu().numpy()
+        out.update({f"{job['name']}/grad/{k}": g.cpu().numpy()
+                    for k, g in grads.items()})
+    return stats, out
+
+
+def rank_main(spec_path: str) -> int:
+    """One rank of a phase-14 world (run_ranks sets RANK, WORLD_SIZE and
+    the env:// rendezvous): its jobs, its stats as rank{r}.json and, on
+    rank 0, the arrays as arrays.npz in the spec's directory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    import cge_tpu_torch as ct
+    from cge_tpu_torch import parallel
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["WORLD_SIZE"])))
+    backend = spec["backend"]
+    index = rank % torch.cuda.device_count() if backend == "nccl" else 0
+    torch.cuda.set_device(index)
+    device = torch.device("cuda", index)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    parallel.init_distributed(backend, init_method="env://")
+    scenes = {}
+
+    def scene_of(name):
+        if name not in scenes:
+            scenes[name] = ct.load_scene_from_file(
+                spec["objs"][name], [ct.PointLight(*LIGHT)], device=device)
+        return scenes[name]
+
+    stats, arrays = {}, {}
+    for job in spec["jobs"]:
+        t0 = time.perf_counter()
+        if job["kind"] == "refuse":
+            try:
+                x = torch.ones(1, device=device)
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                st = dict(refused=False)
+            except dist.DistBackendError as e:
+                st = dict(refused=True, error=" | ".join(
+                    ln.strip() for ln in str(e).splitlines()[:4]))
+            out = {}
+        else:
+            mesh = parallel.make_mesh(("rays", "prims"), tuple(job["mesh"]))
+            scene = scene_of(job["scene"])
+            if job["kind"] == "frame":
+                st, out = _rank_frame(job, scene, mesh, device, rank)
+            elif job["kind"] == "sweep":
+                st, out = _rank_sweep(job, scene, mesh, device, rank)
+            else:
+                target = torch.from_numpy(
+                    np.load(spec["target"])["target"]).to(device)
+                st, out = _rank_train(job, scene, mesh, device, rank, target)
+        st["job_s"] = time.perf_counter() - t0
+        stats[job["name"]] = st
+        arrays.update(out)
+    stats["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    if rank == 0:
+        np.savez(os.path.join(spec["dir"], "arrays.npz"), **arrays)
+    dist.destroy_process_group()
+    return 0
+
+
+def native_check(tmp, obj, dragon, tscene) -> dict:
+    """The native library built anew with its flags (-Werror) on this
+    machine; the dragon's OBJ loaded natively and by the numpy twin (the
+    same sub-meshes and vertices, rtol 1e-6 / atol 1e-7, and the same
+    triangles but for quads whose diagonals tie);
+    the dragon's native cluster perm against the twin's (the scene's perm;
+    same shape and cluster sizes, every triangle once; the clusters whose
+    members differ, where a split plane cuts through equal centres,
+    counted) and the stand-in's
+    native reference BVH (median, SAH) against the twin's (levels,
+    leaves, max per leaf, leaf spans)."""
+    import numpy as np
+
+    from cge_tpu_torch import native
+    from cge_tpu_torch.ops import bvh
+    from cge_tpu_torch.scene import mesh_io
+
+    lib = native.build(build_dir=os.path.join(tmp, "native_build"))
+    row = dict(build_s=lib.build_seconds)
+    t0 = time.perf_counter()
+    subs = mesh_io.load_mesh(obj)
+    row["load_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = mesh_io.load_mesh(obj, use_native=False)
+    row["load_numpy_s"] = time.perf_counter() - t0
+    if len(subs) != len(twin):
+        raise AssertionError(f"native loader: {len(subs)} sub-meshes, "
+                             f"numpy {len(twin)}")
+    # the two split a quad whose diagonals tie to rounding apart (float32
+    # against float64, ROADMAP section 3): the same vertices, and each
+    # triangle pair that differs covers the same quad
+    row["quads_apart"] = 0
+    for a, b in zip(subs, twin):
+        for k in ("positions", "normals", "texcoords"):
+            np.testing.assert_allclose(getattr(a, k), getattr(b, k),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        quads = np.unique(np.nonzero((a.triangles != b.triangles)
+                                     .any(axis=1))[0] // 2)
+        if not all(set(a.triangles[2 * q:2 * q + 2].ravel())
+                   == set(b.triangles[2 * q:2 * q + 2].ravel())
+                   for q in quads):
+            raise AssertionError("native and numpy loads differ beyond "
+                                 "the split of tied quads")
+        row["quads_apart"] += len(quads)
+    V, T, M = (x.cpu().numpy() for x in (dragon.vertices, dragon.tris,
+                                         dragon.tri_mask))
+    t0 = time.perf_counter()
+    perm = bvh.build_clusters(V, T, M)
+    row["clusters_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm_twin = bvh.build_clusters(V, T, M, use_native=False)
+    row["clusters_numpy_s"] = time.perf_counter() - t0
+    # the two partition ties at a split plane apart (nth_element against
+    # argpartition): the same cluster sizes, every triangle once
+    if (perm.shape != perm_twin.shape
+            or not np.array_equal((perm >= 0).sum(1), (perm_twin >= 0).sum(1))
+            or sorted(perm[perm >= 0].tolist()) != np.nonzero(M)[0].tolist()
+            or not np.array_equal(perm, dragon.cluster_perm.cpu().numpy())):
+        raise AssertionError("native cluster perm breaks the twin's "
+                             "invariants")
+    row["clusters_apart"] = sum(set(a) != set(b)
+                                for a, b in zip(perm, perm_twin))
+    for sah in (False, True):
+        t0 = time.perf_counter()
+        a = bvh.build_reference_bvh(tscene, sah_binning=sah)
+        t1 = time.perf_counter()
+        b = bvh.build_reference_bvh(tscene, sah_binning=sah, use_native=False)
+        t2 = time.perf_counter()
+        kind = "sah" if sah else "median"
+        row[f"bvh_{kind}_native_ms"] = (t1 - t0) * 1e3
+        row[f"bvh_{kind}_numpy_ms"] = (t2 - t1) * 1e3
+
+        def spans(x):
+            m = x.node_meta
+            return sorted(map(tuple, m[m[:, 0] == 1][:, 2:4].tolist()))
+        if ((a.num_levels, a.num_leaves, a.max_per_leaf)
+                != (b.num_levels, b.num_leaves, b.max_per_leaf)
+                or spans(a) != spans(b)):
+            raise AssertionError(f"native {kind} BVH differs from the twin")
+        row[f"bvh_{kind}"] = (a.num_levels, a.num_leaves, a.max_per_leaf)
+    log(f"    native library: built in {row['build_s']:.2f} s (g++ "
+        f"{' '.join(native.CXXFLAGS)}); dragon OBJ load native "
+        f"{row['load_native_s']:.2f} s, numpy {row['load_numpy_s']:.2f} s "
+        f"({row['quads_apart']} tied quads split apart); "
+        f"cluster perm ({perm.shape[0]} clusters, the scene's; "
+        f"{row['clusters_apart']} hold other members, split-plane ties) "
+        f"native "
+        f"{row['clusters_native_s']:.2f} s, numpy "
+        f"{row['clusters_numpy_s']:.2f} s; stand-in BVH median "
+        f"{row['bvh_median']} native {row['bvh_median_native_ms']:.1f} ms, "
+        f"numpy {row['bvh_median_numpy_ms']:.1f} ms; SAH {row['bvh_sah']} "
+        f"native {row['bvh_sah_native_ms']:.1f} ms, numpy "
+        f"{row['bvh_sah_numpy_ms']:.1f} ms; twins' invariants hold")
+    return row
+
+
+def _log_world(label, backend, wall, stats) -> None:
+    log(f"    {label} ({backend}): wall {wall:.1f} s")
+    for name in stats[0]:
+        if name == "wall_s":
+            continue
+        for r, st in enumerate(stats):
+            s = st[name]
+            parts = [f"{name} rank {r}:"]
+            if "launches" in s:
+                parts.append("launches " + str({k: v for k, v in
+                                                s["launches"].items() if v}))
+            if "median_ms" in s:
+                parts.append(f"first {s['first_s']:.2f} s, frames ms "
+                             f"{[round(x, 2) for x in s['frames_ms']]}, "
+                             f"median {s['median_ms']:.2f}")
+            if "grads_ms" in s:
+                parts.append(f"loss_and_grads {s['grads_ms']:.1f} ms, step "
+                             f"{s['step_ms']:.1f} ms")
+            if "collectives" in s:
+                c = s["collectives"]
+                parts.append(f"collectives {c['calls']} calls, "
+                             f"{c['bytes']} B, {c['ms']:.2f} ms")
+            if "collectives_frame" in s:
+                c = s["collectives_frame"]
+                parts.append(f"a timed frame's {c['calls']:.0f} calls, "
+                             f"{c['bytes']:.0f} B, {c['ms']:.2f} ms")
+            if "slice" in s:
+                parts.append(f"its slice: {s['slice']} of {s['rows']} "
+                             f"{s['unit']}")
+            if "refused" in s:
+                parts.append("NCCL refused: " + s.get("error", "")
+                             if s["refused"] else "NCCL accepted")
+            if "equal_single" in s:
+                parts.append(f"equal to render_image: {s['equal_single']}, "
+                             f"render_image frames ms "
+                             f"{[round(x, 2) for x in s['single_ms']]}")
+            log(f"      {parts[0]} {', '.join(parts[1:])}")
+
+
+def _need_launches(ranks, name, kernels, absent) -> None:
+    """Every rank of the run launched each of kernels and none of absent."""
+    for r, st in enumerate(ranks):
+        got = st["launches"]
+        if any(got[k] <= 0 for k in kernels) or any(got[k] for k in absent):
+            raise AssertionError(f"{name} rank {r} launches {got}")
+
+
+def run_world(tmp, label, backend, world, timeout, jobs, shared) -> tuple:
+    """One world of rank processes of this script over `jobs`; `shared`:
+    the spec's target and objs. Returns ({job: [each rank's stats]},
+    rank 0's arrays, wall s) and logs every rank's stats."""
+    import numpy as np
+
+    from cge_tpu_torch.parallel.launch import run_ranks
+
+    wdir = tempfile.mkdtemp(prefix=f"world_{backend}_{world}_", dir=tmp)
+    spec = os.path.join(wdir, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(backend=backend, dir=wdir, jobs=jobs, **shared), f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    run_ranks([sys.executable, os.path.abspath(__file__), "--rank", spec],
+              world, timeout, env=env, cwd=REPO)
+    wall = time.perf_counter() - t0
+    stats = []
+    for r in range(world):
+        with open(os.path.join(wdir, f"rank{r}.json")) as f:
+            stats.append(json.load(f))
+    _log_world(label, backend, wall, stats)
+    results = {name: [st[name] for st in stats]
+               for name in stats[0] if name != "wall_s"}
+    return results, dict(np.load(os.path.join(wdir, "arrays.npz"))), wall
+
+
+def _shared_inputs(tmp, obj, tobj) -> dict:
+    """The train steps' seeded target (saved for the ranks) and the OBJs."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    target = rng.uniform(0.0, 0.5, (TRAIN_SIDE ** 2, 3)).astype(np.float32)
+    path = os.path.join(tmp, "eighth_target.npz")
+    np.savez(path, target=target)
+    return dict(target=path, objs=dict(dragon=obj, standin=tobj))
+
+
+def check_exact(img, ref, what) -> str:
+    import numpy as np
+
+    if not (np.array_equal(np.isnan(img), np.isnan(ref))
+            and np.array_equal(np.nan_to_num(img), np.nan_to_num(ref))):
+        raise AssertionError(f"{what} differs from render_image")
+    return f"{what} equal to render_image bit for bit"
+
+
+def check_image(img, ref, what) -> str:
+    nan_agree, frac = compare_images(img, ref)
+    if nan_agree < 0.999 or frac < 0.995:
+        raise AssertionError(f"{what} differs from render_image")
+    return f"{what} NaN agree {nan_agree:.5f}, {frac:.4%} close"
+
+
+def check_prims_sweep(arrays, name, scene, c, device) -> str:
+    """A prims-sharded sweep's primary rays against the single-device
+    sweep: hits and t equal, ids off exact-t ties."""
+    import numpy as np
+    import torch
+
+    from cge_tpu_torch.ops import intersect
+
+    o, d = camera_rays(EIGHTH_SIDE, device)
+    tmax = torch.full((o.shape[0],), torch.inf, device=device)
+    one = intersect.closest_hit(scene, o, d, tmax, c.accel,
+                                tri_table=c.tri_table, shared_origin=True,
+                                sc_n=1)
+    hit, t, prim = (arrays[f"{name}/{k}"] for k in ("hit", "t", "prim"))
+    if not (np.array_equal(hit, one.hit.cpu().numpy())
+            and np.array_equal(t, one.t.cpu().numpy())):
+        raise AssertionError(f"{name}: hits or t differ from the "
+                             f"single-device sweep")
+    apart = int((prim != one.prim.cpu().numpy())[hit].sum())
+    if apart > 1e-3 * hit.sum():
+        raise AssertionError(f"{name}: {apart} ids apart")
+    return (f"{name}: {int(hit.sum())} hits and t equal to the "
+            f"single-device sweep, {apart} ids apart (exact-t ties)")
+
+
+def check_train(arrays, names, tscene, shared, device) -> list:
+    """The sharded steps' loss and gradients against loss_and_grads on
+    the same rays and target: TRAIN_LOSS_REL, TRAIN_GRAD_REL."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+
+    target = torch.from_numpy(np.load(shared["target"])["target"])
+    o, d = camera_rays(TRAIN_SIDE, device)
+    loss, grads = ct.loss_and_grads(tscene, o, d, target.to(device),
+                                    ct.Features(**BRUTE), ct.RenderParams())
+    lines = []
+    for name in names:
+        gl = float(arrays[f"{name}/loss"])
+        rel = {k: float(np.linalg.norm(arrays[f"{name}/grad/{k}"]
+                                       - g.cpu().numpy())
+                        / np.linalg.norm(g.cpu().numpy()))
+               for k, g in grads.items() if float(g.norm()) > 0}
+        worst = max(rel, key=rel.get)
+        lines.append(f"{name}: loss {gl:.8g} against {float(loss):.8g}, "
+                     f"worst gradient {worst} at {rel[worst]:.3g} of its "
+                     f"norm")
+        if (abs(gl - float(loss)) > TRAIN_LOSS_REL * abs(float(loss))
+                or rel[worst] > TRAIN_GRAD_REL):
+            raise AssertionError(f"{name} differs from the single step")
+    return lines
+
+
+def eighth_path(tmp, obj, tobj, dragon, ctx, tscene, tctx, device) -> dict:
+    """Phase 14: the sharded entry points in worlds of rank processes on
+    the one card, each result held to the single-device path here, and
+    the native library's build, load and builders."""
+    import cge_tpu_torch as ct
+
+    log(f"[14] eighth path: multi-device on one card (torch.distributed) "
+        f"and the native host library | {SMI['line']}")
+    nat = native_check(tmp, obj, dragon, tscene)
+    shared = _shared_inputs(tmp, obj, tobj)
+    results, arrays = {}, {}
+    for label, backend, world, timeout, jobs in eighth_worlds():
+        res, arr, wall = run_world(tmp, label, backend, world, timeout, jobs,
+                                   shared)
+        results.update(res)
+        results[f"{label}/wall_s"] = wall
+        arrays.update(arr)
+
+    accel_runs = ("nccl_1x1", "rays_2x1", "prims_1x2", "prims_sweep",
+                  "grid_2x2")
+    for name in accel_runs:
+        _need_launches(results[name], name, ("keys", "walk"), ("sweep",))
+    for name in ("prims_brute_1x2", "prims_brute_sweep", "train_2x1",
+                 "train_1x2"):
+        _need_launches(results[name], name, ("sweep",), ("keys", "walk"))
+    # (a) the NCCL world of one: render_image's frame in the same process
+    if not results["nccl_1x1"][0]["equal_single"]:
+        raise AssertionError("the NCCL sharded frame differs from "
+                             "render_image")
+    # (b) gloo, two ranks: rays = 2 bit for bit, prims = 2 under the image
+    # rule, every rank through its kernels on its own slice
+    feats, params = ct.Features(**HEADLINE), ct.RenderParams(**MAIN_PARAMS)
+    ref = ct.render_image(dragon, ct.Camera(), feats, params, EIGHTH_SIDE,
+                          EIGHTH_SIDE, ctx=ctx).cpu().numpy()
+    bref = ct.render_image(tscene, ct.Camera(), ct.Features(**BRUTE),
+                           ct.RenderParams(), EIGHTH_SIDE, EIGHTH_SIDE,
+                           ctx=tctx).cpu().numpy()
+    checks = [check_exact(arrays["rays_2x1"], ref, "rays = 2 frame"),
+              check_image(arrays["prims_1x2"], ref, "prims = 2 frame"),
+              check_prims_sweep(arrays, "prims_sweep", dragon, ctx,
+                                device),
+              check_prims_sweep(arrays, "prims_brute_sweep", tscene, tctx,
+                                device),
+              check_image(arrays["prims_brute_1x2"], bref,
+                          "prims = 2 accel-off frame")]
+    checks += check_train(arrays, ("train_2x1", "train_1x2"), tscene,
+                          shared, device)
+    # (c) four ranks, rays x prims = 2 x 2
+    gref = ct.render_image(tscene, ct.Camera(), feats, ct.RenderParams(),
+                           GRID_SIDE, GRID_SIDE).cpu().numpy()
+    checks.append(check_image(arrays["grid_2x2"], gref, "2 x 2 frame"))
+    checks.append("NCCL with 2 ranks on one card: " + (
+        "refused" if all(s["refused"] for s in results["nccl_refuse"])
+        else "accepted"))
+    for line in checks:
+        log("    " + line)
+    return dict(native=nat, worlds=results)
+
+
+def multi_card(cards: int) -> int:
+    """`python3 chip_smoke.py --cards N`: the sharded entry points on NCCL,
+    one rank a card, over N cards (N even): the headline dragon frame at
+    rays = N (each rank's frame bit for bit render_image's on its card,
+    and the gathered frame the one here), at rays x prims = N/2 x 2 (the
+    image rule) with its primary rays' prims sweep (hits and t equal to
+    the single sweep), and the train step at N x 1 and N/2 x 2 against
+    loss_and_grads; every rank's launches, frame ms and collectives."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        log(f"FAIL: --cards {cards} needs {cards} CUDA devices, "
+            f"{torch.cuda.device_count()} found")
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import cge_tpu_torch as ct
+        from cge_tpu_torch import _kernels
+        from tools.make_large_asset import write_obj
+    except ImportError as e:
+        log(f"FAIL: the port is not importable next to this script: {e}")
+        return 1
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    for ln in smi.stdout.strip().splitlines():
+        log(ln)
+    SMI["line"] = smi.stdout.strip().splitlines()[0]
+    lib = _kernels.library()
+    log(f"[1] kernels built in {lib.build_seconds:.1f} s")
+    half = cards // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "dragon.obj")
+        write_obj(obj)
+        tobj = os.path.join(tmp, "dragon_teapot.obj")
+        write_obj(tobj, *TEAPOT_GRID)
+        dragon = ct.load_scene_from_file(obj, [ct.PointLight(*LIGHT)],
+                                         device=device)
+        tscene = ct.load_scene_from_file(tobj, [ct.PointLight(*LIGHT)],
+                                         device=device)
+        feats, params = ct.Features(**HEADLINE), ct.RenderParams(**MAIN_PARAMS)
+        ctx = ct.prepare_render(dragon, feats, params)
+        frame = dict(features=HEADLINE, params=MAIN_PARAMS, side=EIGHTH_SIDE)
+        rays, grid = f"rays_{cards}x1", f"grid_{half}x2"
+        jobs = [dict(kind="frame", name=rays, scene="dragon",
+                     mesh=(cards, 1), single=True, **frame),
+                dict(kind="frame", name=grid, scene="dragon",
+                     mesh=(half, 2), **frame),
+                dict(kind="sweep", name="prims_sweep", scene="dragon",
+                     mesh=(half, 2), accel=True, side=EIGHTH_SIDE),
+                dict(kind="train", name=f"train_{cards}x1",
+                     scene="standin", mesh=(cards, 1)),
+                dict(kind="train", name=f"train_{half}x2", scene="standin",
+                     mesh=(half, 2))]
+        log(f"[14] the sharded entry points on {cards} cards, NCCL, one "
+            f"rank a card | {SMI['line']}")
+        shared = _shared_inputs(tmp, obj, tobj)
+        results, arrays, _ = run_world(tmp, f"nccl, {cards} ranks", "nccl",
+                                       cards, 600, jobs, shared)
+        for name in (rays, grid, "prims_sweep"):
+            _need_launches(results[name], name, ("keys", "walk"), ("sweep",))
+        for name in (f"train_{cards}x1", f"train_{half}x2"):
+            _need_launches(results[name], name, ("sweep",), ("keys", "walk"))
+        if not all(s["equal_single"] for s in results[rays]):
+            raise AssertionError("a rank's frame differs from its "
+                                 "render_image")
+        ref = ct.render_image(dragon, ct.Camera(), feats, params,
+                              EIGHTH_SIDE, EIGHTH_SIDE,
+                              ctx=ctx).cpu().numpy()
+        checks = [check_exact(arrays[rays], ref, f"rays = {cards} frame"),
+                  check_image(arrays[grid], ref, f"{half} x 2 frame"),
+                  check_prims_sweep(arrays, "prims_sweep", dragon, ctx,
+                                    device)]
+        checks += check_train(arrays, (f"train_{cards}x1",
+                                       f"train_{half}x2"), tscene, shared,
+                              device)
+        for line in checks:
+            log("    " + line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2148,6 +2811,9 @@ def main() -> int:
         # the preview and the app
         seventh_path(tmp, scene, tobj, tscene, device)
 
+        # phase 14: multi-device on the one card, the native library
+        eighth_path(tmp, obj, tobj, scene, ctx, tscene, tctx, device)
+
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"
     # (name, counter, source, the TPU kernel's pallas_call, its report);
@@ -2188,4 +2854,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cards":
+        sys.exit(multi_card(int(sys.argv[2])))
     sys.exit(main())

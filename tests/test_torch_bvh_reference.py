@@ -1,11 +1,11 @@
 """The port's reference-parity BVH and its traversal against the JAX
 package.
 
-build_reference_bvh (median split and SAH binning, with and without the
-recorded SAH cuts) equals the JAX package's pure-Python builder
-(`use_native=False`) node for node on the 41x32 dragon stand-in
-(tools/make_large_asset.py), on the Spheres scene and on the stand-in with
-two spheres; so do the debug exports. bvh_closest_hit agrees with JAX's
+build_reference_bvh's numpy twin (`use_native=False`; median split and
+SAH binning, with and without the recorded SAH cuts) equals the JAX
+package's pure-Python builder (`use_native=False`) node for node on the
+41x32 dragon stand-in (tools/make_large_asset.py), on the Spheres scene
+and on the stand-in with two spheres; so do the debug exports. bvh_closest_hit agrees with JAX's
 bvh_closest_hit: hit masks and sphere flags equal, t to rtol 5e-6 / atol
 1e-7 (tests/test_bvh_traverse.py's tolerance), ids equal except where both
 hits lie at the same t within that tolerance (an exact-t tie under another
@@ -72,7 +72,7 @@ MODES = {"median": dict(sah_binning=False),
 def _builds(scenes, which, mode):
     js, ps = scenes[which]
     return (jbvh.build_reference_bvh(js, use_native=False, **MODES[mode]),
-            pbvh.build_reference_bvh(ps, **MODES[mode]))
+            pbvh.build_reference_bvh(ps, use_native=False, **MODES[mode]))
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -166,7 +166,8 @@ def test_traversal_matches_jax(scenes, which, sah):
     js, ps = scenes[which]
     jb = jtrav.device_bvh(
         jbvh.build_reference_bvh(js, sah_binning=sah, use_native=False), js)
-    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps, sah_binning=sah), ps)
+    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps, sah_binning=sah,
+                                                   use_native=False), ps)
     for o, d, tm in _rays():
         got = ptrav.bvh_closest_hit(pb, o, d, tm)
         ref = jtrav.bvh_closest_hit(jb, jnp.asarray(o.numpy()),
@@ -185,7 +186,8 @@ def test_traversal_shadow_budget_matches_jax(scenes):
     sits ~3 away) and dead rays never hit."""
     js, ps = scenes["mixed"]
     jb = jtrav.device_bvh(jbvh.build_reference_bvh(js, use_native=False), js)
-    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps), ps)
+    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps, use_native=False),
+                          ps)
     rng = np.random.default_rng(11)
     p = torch.from_numpy(rng.uniform(-0.6, 0.6, (512, 3)).astype(np.float32))
     sdir = torch.tensor(LIGHT[0]) - p
@@ -259,7 +261,8 @@ def test_traversal_surface_shadow_rays_match_jax(scenes, which, offset):
     neither side's mask matches the witness there every time."""
     js, ps = scenes[which]
     jb = jtrav.device_bvh(jbvh.build_reference_bvh(js, use_native=False), js)
-    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps), ps)
+    pb = ptrav.device_bvh(pbvh.build_reference_bvh(ps, use_native=False),
+                          ps)
     grid = ct.camera.pixel_grid(64, 64, "cpu").reshape(-1, 2)
     light = np.float32(LIGHT[0])
     ps_, ds_ = [], []

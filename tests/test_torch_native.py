@@ -1,0 +1,302 @@
+"""The port's native host library (cge_tpu_torch.native) against its numpy
+twins and against the JAX package's library (cge_tpu.native).
+
+The library is built here with g++ at first use, as on any machine. On
+the 41x32 dragon stand-in (tools/make_large_asset.py), its textured and
+glass variants (cge_tpu_torch/tools/common.py):
+  - the loader equals cge_tpu.native's bit for bit (one C++ source) and
+    the numpy loader to f32 rounding (rtol 1e-6, atol 1e-7, the JAX
+    package's tests/test_native.py rule; triangles exactly), with and
+    without normalisation; a missing file raises FileNotFoundError;
+  - the cluster perm equals cge_tpu.native's, which is the JAX default's,
+    with the numpy twin's cluster sizes and, on these stand-ins (no split
+    plane through equal centres), its triangles cluster by cluster;
+  - the reference BVH (median, SAH) equals the JAX package's native build
+    node for node, and the numpy twin in levels, leaves, max per leaf and
+    leaf spans;
+  - a failed build raises with the compiler's output, never falls back;
+  - the loader and both builders run clean under ASan and UBSan.
+"""
+
+import os
+import subprocess
+
+import numpy as np
+import pytest
+
+from cge_tpu import native as jnative
+from cge_tpu.ops import bvh as jbvh
+from cge_tpu.scene.mesh_io import Material as JMaterial
+from cge_tpu.scene.mesh_io import load_mesh as jload_mesh
+from cge_tpu.scene.scene import PointLight as JPointLight
+from cge_tpu.scene.scene import SphereDef, build_scene_arrays
+from cge_tpu_torch import native
+from cge_tpu_torch.interop import TENSOR_FIELDS, scene_from_numpy
+from cge_tpu_torch.ops import bvh
+from cge_tpu_torch.scene import mesh_io
+from cge_tpu_torch.tools.common import write_textured_obj, write_variant_obj
+from tools.make_large_asset import write_obj
+
+LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+@pytest.fixture(scope="module")
+def objs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("native")
+    out = {"dragon": str(d / "dragon.obj"),
+           "textured": str(d / "textured" / "dragon.obj"),
+           "glass": str(d / "glass" / "dragon.obj")}
+    for p in out.values():
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+    write_obj(out["dragon"], 41, 32)
+    write_textured_obj(out["textured"], 41, 32)
+    write_variant_obj(out["glass"], 41, 32, "glass")
+    return out
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("which", ["dragon", "textured", "glass"])
+def test_loader_matches_jax_native_and_numpy(objs, which, normalize):
+    path = objs[which]
+    mine = native.load_obj(path, normalize)
+    ref = jnative.load_obj_native(path, normalize)
+    assert len(mine) == len(ref) > 1
+    for a, b in zip(mine, ref):
+        for x, y in zip(a[:4], b[:4]):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+        for k in ("kd", "ks"):
+            np.testing.assert_array_equal(a[4][k], b[4][k])
+        for k in ("shininess", "dissolve", "map_kd", "default"):
+            assert a[4][k] == b[4][k], k
+    subs = mesh_io.load_mesh(path, normalize)
+    twin = mesh_io.load_mesh(path, normalize, use_native=False)
+    assert len(subs) == len(twin) == len(mine)
+    for a, b in zip(subs, twin):
+        np.testing.assert_array_equal(a.triangles, b.triangles)
+        for k in ("positions", "normals", "texcoords"):
+            np.testing.assert_allclose(getattr(a, k), getattr(b, k),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        np.testing.assert_array_equal(a.material.kd, b.material.kd)
+        np.testing.assert_array_equal(a.material.ks, b.material.ks)
+        # the native loader hands over f32 values, the numpy twin Python
+        # floats; the scene stores both as f32
+        assert np.float32(a.material.shininess) == np.float32(
+            b.material.shininess)
+        assert np.float32(a.material.transparency) == np.float32(
+            b.material.transparency)
+        assert (a.material.kd_texture is None) == (b.material.kd_texture
+                                                   is None)
+        if a.material.kd_texture is not None:
+            np.testing.assert_array_equal(a.material.kd_texture.pixels,
+                                          b.material.kd_texture.pixels)
+    if which == "glass":
+        assert sorted({np.float32(m.material.transparency)
+                       for m in subs}) == [np.float32(0.45), 1.0]
+    if which == "textured":
+        assert any(m.material.kd_texture is not None for m in subs)
+
+
+def test_loader_missing_file_raises(tmp_path):
+    absent = str(tmp_path / "absent.obj")
+    with pytest.raises(FileNotFoundError, match="absent.obj"):
+        native.load_obj(absent, False)
+    with pytest.raises(FileNotFoundError):
+        mesh_io.load_mesh(absent)
+
+
+def _jax_scene(path, spheres=()):
+    return build_scene_arrays(jload_mesh(path), list(spheres),
+                              [JPointLight(*LIGHT)])
+
+
+def _port_scene(js):
+    return scene_from_numpy({k: np.asarray(getattr(js, k))
+                             for k in TENSOR_FIELDS},
+                            all_opaque=js.all_opaque,
+                            all_diffuse=js.all_diffuse, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def scenes(objs, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("native_big") / "dragon.obj")
+    write_obj(path, 121, 64)
+    mixed = _jax_scene(objs["dragon"], [
+        SphereDef((0.0, 0.1, 0.0), 0.3, JMaterial()),
+        SphereDef((0.55, 0.45, -0.7), 0.2, JMaterial())])
+    return {"small": _jax_scene(objs["dragon"]), "large": _jax_scene(path),
+            "mixed": mixed}
+
+
+@pytest.mark.parametrize("which", ["small", "large"])
+def test_cluster_perm_matches_jax_native(scenes, which):
+    js = scenes[which]
+    V, T, M = (np.asarray(x) for x in (js.vertices, js.tris, js.tri_mask))
+    mine = bvh.build_clusters(V, T, M)
+    np.testing.assert_array_equal(mine, jbvh.build_clusters(V, T, M))
+    np.testing.assert_array_equal(
+        mine, jbvh.build_clusters(V, T, M, use_native=True))
+    twin = bvh.build_clusters(V, T, M, use_native=False)
+    assert mine.shape == twin.shape
+    np.testing.assert_array_equal((mine >= 0).sum(1), (twin >= 0).sum(1))
+    assert sorted(mine[mine >= 0].tolist()) == np.nonzero(M)[0].tolist()
+    # no split plane of these stand-ins cuts through equal centres, so the
+    # clusters hold the same triangles (where one does, nth_element and
+    # argpartition put the tied ones on either side)
+    assert all(set(a) == set(b) for a, b in zip(mine, twin))
+
+
+def _spans(b):
+    m = b.node_meta
+    return sorted((int(x), int(y)) for x, y in m[m[:, 0] == 1][:, 2:4])
+
+
+@pytest.mark.parametrize("sah", [False, True])
+@pytest.mark.parametrize("which", ["small", "mixed"])
+def test_reference_bvh_matches_jax_native(scenes, which, sah):
+    js = scenes[which]
+    ps = _port_scene(js)
+    mine = bvh.build_reference_bvh(ps, sah_binning=sah)
+    ref = jbvh.build_reference_bvh(js, sah_binning=sah, use_native=True)
+    for k in ("node_lo", "node_hi", "node_meta", "perm_is_sphere",
+              "perm_index"):
+        a, b = getattr(mine, k), getattr(ref, k)
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert (mine.root, mine.num_levels, mine.num_leaves,
+            mine.max_per_leaf) == (ref.root, ref.num_levels, ref.num_leaves,
+                                   ref.max_per_leaf)
+    twin = bvh.build_reference_bvh(ps, sah_binning=sah, use_native=False)
+    assert (mine.num_levels, mine.num_leaves, mine.max_per_leaf) == (
+        twin.num_levels, twin.num_leaves, twin.max_per_leaf)
+    assert len(mine.node_meta) == len(twin.node_meta)
+    assert _spans(mine) == _spans(twin)
+    assert sorted(zip(mine.perm_is_sphere.tolist(),
+                      mine.perm_index.tolist())) == sorted(
+        zip(twin.perm_is_sphere.tolist(), twin.perm_index.tolist()))
+    # the recorded SAH cuts come from the numpy twin, as in the JAX package
+    cuts = bvh.build_reference_bvh(ps, sah_binning=sah, record_sah_cuts=True)
+    assert cuts.sah_cuts_per_level is not None
+
+
+@pytest.mark.parametrize("how", ["missing_compiler", "bad_flag"])
+def test_failed_build_raises(tmp_path, how):
+    kw = (dict(cxx=str(tmp_path / "no" / "g++")) if how == "missing_compiler"
+          else dict(flags=native.CXXFLAGS + ("-fno-such-flag-here",)))
+    with pytest.raises(RuntimeError, match="native build") as err:
+        native.build(build_dir=str(tmp_path / "build"), **kw)
+    if how == "bad_flag":
+        assert "no-such-flag-here" in str(err.value)
+    assert not any(f.endswith(".so") for f in os.listdir(tmp_path / "build"))
+
+
+def test_default_paths_raise_without_fallback(objs, monkeypatch):
+    """With the library unbuildable, the default loader and builders raise
+    instead of running the numpy twins."""
+    def broken():
+        raise RuntimeError("native build failed (test)")
+
+    monkeypatch.setattr(native, "library", broken)
+    with pytest.raises(RuntimeError, match="native build failed"):
+        mesh_io.load_mesh(objs["dragon"])
+    subs = mesh_io.load_mesh(objs["dragon"], use_native=False)
+    V = np.concatenate([s.positions for s in subs])
+    T = subs[0].triangles.astype(np.int64)
+    with pytest.raises(RuntimeError, match="native build failed"):
+        bvh.build_clusters(V, T, np.ones(len(T), bool))
+    assert bvh.build_clusters(V, T, np.ones(len(T), bool),
+                              use_native=False).shape[1] == bvh.CLUSTER_SIZE
+
+
+SANITIZED_MAIN = r"""
+#include <cstdio>
+#include <vector>
+extern "C" {
+void* cge_load_obj(const char*, int);
+const char* cge_error(void*);
+int cge_n_submeshes(void*);
+void cge_submesh_counts(void*, int, int*, int*);
+void cge_submesh_data(void*, int, float*, float*, float*, unsigned*);
+int cge_submesh_material(void*, int, float*, char*, int);
+void cge_release(void*);
+int cge_build_clusters(const float*, int, int, int*, int);
+int cge_build_bvh(const float*, const float*, const float*, int, int, int,
+                  float*, float*, int*, int*, int*);
+}
+int main(int argc, char** argv) {
+    if (argc != 2) return 2;
+    for (int norm = 0; norm < 2; ++norm) {
+        void* h = cge_load_obj(argv[1], norm);
+        if (cge_error(h)[0]) { std::fprintf(stderr, "load\n"); return 1; }
+        int n = cge_n_submeshes(h);
+        std::vector<float> centers;
+        std::vector<float> lo, hi;
+        for (int i = 0; i < n; ++i) {
+            int nv = 0, nt = 0;
+            cge_submesh_counts(h, i, &nv, &nt);
+            std::vector<float> pos(3 * nv), nrm(3 * nv), uv(2 * nv), m(8);
+            std::vector<unsigned> tri(3 * nt);
+            cge_submesh_data(h, i, pos.data(), nrm.data(), uv.data(),
+                             tri.data());
+            char map_kd[256];
+            cge_submesh_material(h, i, m.data(), map_kd, 256);
+            for (int t = 0; t < nt; ++t) {
+                float c[3] = {0, 0, 0}, l[3] = {1e30f, 1e30f, 1e30f},
+                      u[3] = {-1e30f, -1e30f, -1e30f};
+                for (int k = 0; k < 3; ++k)
+                    for (int a = 0; a < 3; ++a) {
+                        float v = pos[3 * tri[3 * t + k] + a];
+                        c[a] += v / 3;
+                        l[a] = v < l[a] ? v : l[a];
+                        u[a] = v > u[a] ? v : u[a];
+                    }
+                centers.insert(centers.end(), c, c + 3);
+                lo.insert(lo.end(), l, l + 3);
+                hi.insert(hi.end(), u, u + 3);
+            }
+        }
+        cge_release(h);
+        int N = (int)(centers.size() / 3);
+        std::vector<int> perm(2 * (N / 128 + 1) * 128);
+        int L = cge_build_clusters(centers.data(), N, 128, perm.data(),
+                                   (int)perm.size());
+        if (L <= 0) { std::fprintf(stderr, "clusters\n"); return 1; }
+        for (int sah = 0; sah < 2; ++sah) {
+            std::vector<float> nlo(3 * (2 * N - 1)), nhi(3 * (2 * N - 1));
+            std::vector<int> meta(6 * (2 * N - 1)), p(N), stats(3);
+            int nodes = cge_build_bvh(lo.data(), hi.data(), centers.data(),
+                                      N, sah, 2 * N - 1, nlo.data(),
+                                      nhi.data(), meta.data(), p.data(),
+                                      stats.data());
+            if (nodes <= 0) { std::fprintf(stderr, "bvh\n"); return 1; }
+        }
+        std::printf("SANITIZED_OK norm=%d submeshes=%d clusters=%d\n", norm,
+                    n, L);
+    }
+    return 0;
+}
+"""
+
+
+def test_host_library_under_asan_ubsan(objs, tmp_path):
+    """The port's copy of cge_host.cpp with its build flags plus
+    -fsanitize=address,undefined, linked to a main program that loads the
+    textured stand-in (with and without normalisation) and runs both
+    builders (median and SAH BVH) in a subprocess. At -O0 in place of -O2:
+    the sanitized build takes 5 s here against 25-30 s, and no
+    optimisation hides undefined behaviour."""
+    main = tmp_path / "main.cpp"
+    main.write_text(SANITIZED_MAIN)
+    exe = tmp_path / "san"
+    flags = [f for f in native.CXXFLAGS if f not in ("-fPIC", "-O2")]
+    flags.insert(0, "-O0")
+    subprocess.run([native.CXX, *flags, "-g", "-fno-omit-frame-pointer",
+                    "-fsanitize=address,undefined", native.SOURCE, str(main),
+                    "-o", str(exe)], check=True, timeout=300,
+                   capture_output=True)
+    r = subprocess.run([str(exe), objs["textured"]], capture_output=True,
+                       text=True, timeout=120,
+                       env=dict(os.environ, UBSAN_OPTIONS="halt_on_error=1",
+                                ASAN_OPTIONS="detect_leaks=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == 2

@@ -39,20 +39,16 @@ def jax_dragon(dragon_obj):
 
 
 def test_loader_matches_jax(dragon_obj, jax_dragon):
-    """Every geometry, material and light leaf equals the JAX package's
-    (native loader); the clusters hold the same triangles in the same
-    cluster order, members possibly reordered (argpartition vs
-    nth_element)."""
+    """Every geometry, material and light leaf equals the JAX package's,
+    the cluster perm included: both load and cluster with the native host
+    library by default."""
     mine = ct.load_scene_from_file(dragon_obj, [ct.PointLight(*LIGHT)],
                                    device="cpu")
     for k in TENSOR_FIELDS:
         got = getattr(mine, k).numpy()
         want = np.asarray(getattr(jax_dragon, k))
         assert got.shape == want.shape, k
-        if k == "cluster_perm":
-            assert all(set(a) == set(b) for a, b in zip(got, want))
-        else:
-            np.testing.assert_array_equal(got, want.astype(got.dtype), k)
+        np.testing.assert_array_equal(got, want.astype(got.dtype), k)
     assert (mine.all_opaque, mine.all_diffuse) == (jax_dragon.all_opaque,
                                                    jax_dragon.all_diffuse)
     assert mine.point_mask_host == (True,)
@@ -108,13 +104,14 @@ def test_loader_statement_variants_match_python_oracle(tmp_path):
     """Quads (shortest diagonal), an n-gon fan, v//vn, v/vt, negative
     indices, faces without normals (geometric fallback), two shapes,
     material runs including a last triangle that joins the previous run,
-    Tr, and center_and_scale_to_unit: submesh by submesh equal to the JAX
-    package's pure-Python loader, its semantic oracle."""
+    Tr, and center_and_scale_to_unit: the port's numpy loader
+    (use_native=False) submesh by submesh equal to the JAX package's
+    pure-Python loader, its semantic oracle."""
     (tmp_path / "variants.mtl").write_text(MTL_VARIANTS)
     path = tmp_path / "variants.obj"
     path.write_text(OBJ_VARIANTS)
     for normalize in (False, True):
-        mine = mesh_io.load_mesh(str(path), normalize)
+        mine = mesh_io.load_mesh(str(path), normalize, use_native=False)
         ref = jmesh._load_mesh_python(str(path), normalize)
         assert len(mine) == len(ref) == 3
         for a, b in zip(mine, ref):
@@ -245,7 +242,11 @@ def test_port_never_imports_jax():
             "cge_tpu_torch/ops/stream_probe.py", "cge_tpu_torch/ops/rng.py",
             "cge_tpu_torch/ops/texture.py", "cge_tpu_torch/render/bloom.py",
             "cge_tpu_torch/render/sampling.py",
-            "cge_tpu_torch/scene/image_io.py"} <= names
+            "cge_tpu_torch/scene/image_io.py",
+            "cge_tpu_torch/parallel/sharding.py",
+            "cge_tpu_torch/parallel/comm.py",
+            "cge_tpu_torch/parallel/launch.py",
+            "cge_tpu_torch/native/__init__.py"} <= names
     tools = {f"cge_tpu_torch/tools/{m}.py" for m in (
         "__init__", "common", "sweep_grid", "dragon_grid", "mxu_grid",
         "stream_layout")}
@@ -308,15 +309,19 @@ def test_unported_features_raise(flag, monkeypatch):
     dict(features=dict(enable_transparency=True), renders=True),
     # ported since: the frustum key pass and the coherence ray order
     dict(params=dict(sweep_exact_keys=False), renders=True),
+    # multi-device since: prims_axis renders inside the sharded entry
+    # points (cge_tpu_torch.parallel); outside them no mesh binds the
+    # axis, and the render raises a ValueError that names it
     dict(params=dict(prims_axis="prims")),
     dict(params=dict(sweep_sort_bounce=True), renders=True)])
 def test_unported_paths_raise(change, monkeypatch):
-    """Paths outside the port raise NotImplementedError: only prims_axis
-    (multi-device) is left. The cases marked `renders` were ported since
-    (transparency shadows, the TRANS+REC tree, frustum keys, the coherence
-    ray order): they render, and match the JAX package's render with its
-    cluster path in interpret mode under the image rules (NaN masks agree;
-    >= 99.5% of pixels within rtol 1e-4 / atol 2e-4)."""
+    """No path is left outside the port. prims_axis set on a plain render,
+    outside the sharded entry points, raises a ValueError naming the axis.
+    The cases marked `renders` were ported since (transparency shadows,
+    the TRANS+REC tree, frustum keys, the coherence ray order): they
+    render, and match the JAX package's render with its cluster path in
+    interpret mode under the image rules (NaN masks agree; >= 99.5% of
+    pixels within rtol 1e-4 / atol 2e-4)."""
     scene = ct.load_scene_prebuilt(ct.SceneType.Spheres, device="cpu")
     feats = {**dict(enable_shading=True, enable_recursive=True,
                     enable_accel_structure=True), **change.get("features", {})}
@@ -324,7 +329,7 @@ def test_unported_paths_raise(change, monkeypatch):
     f = ct.Features(**feats)
     p = ct.RenderParams().replace(**params)
     if not change.get("renders"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="'prims'"):
             ct.render_image(scene, ct.Camera(), f, p, 32, 16)
         return
     from cge_tpu.ops import intersect as jint

@@ -125,7 +125,7 @@ def test_timed_render(scenes):
 def test_timed_bvh_build(scenes, sah):
     js, ps = scenes["glass"]
     bvh, stats = pprof.timed_bvh_build(ps, sah_binning=sah)
-    ref = jbvh.build_reference_bvh(js, sah_binning=sah, use_native=False)
+    ref = jbvh.build_reference_bvh(js, sah_binning=sah)      # native, both
     np.testing.assert_array_equal(bvh.node_meta, ref.node_meta)
     assert (stats.num_levels, stats.num_leaves, stats.max_per_leaf) == (
         ref.num_levels, ref.num_leaves, ref.max_per_leaf)

@@ -134,7 +134,7 @@ def test_debug_trace_key(scenes):
 def test_traversal_debug_matches_jax(scenes, which, sah):
     js, ps = scenes[which]
     jb = jbvh.build_reference_bvh(js, sah_binning=sah, use_native=False)
-    pb = pbvh.build_reference_bvh(ps, sah_binning=sah)
+    pb = pbvh.build_reference_bvh(ps, sah_binning=sah, use_native=False)
     o, d = _fan(3)
     rays = [(o[i].numpy(), d[i].numpy()) for i in range(o.shape[0])]
     rays.append((np.array([3.0, 2.0, -3.0], np.float32),
