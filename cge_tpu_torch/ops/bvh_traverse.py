@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from cge_tpu_torch.ops import fp32
-from cge_tpu_torch.ops.cluster_sweep import FLT_MAX, FLT_MIN
 from cge_tpu_torch.ops.bvh import to_numpy
+from cge_tpu_torch.ops.intersect import slab_hit
 
 STACK = 24            # depth <= 16, so sp <= 17
 STEPS_PER_SYNC = 8    # lane steps between the checks for finished lanes
@@ -87,21 +87,6 @@ def device_bvh(bvh, scene) -> DeviceBVH:
         prim_index=t(idx, torch.int64))
 
 
-def _aabb_hit_tmax_inf(o, d, lo, hi):
-    """The child box test at ray.t = FLT_MAX (cpp:334-352), per lane: the
-    slab test with FLT_MIN / FLT_MAX for zero direction components;
-    accept iff (inside: tfar > 0) else tnear <= tfar, and t >= 0."""
-    zero = d == 0
-    safe_d = torch.where(zero, 1.0, d)
-    t_l = torch.where(zero, FLT_MIN, (lo - o) / safe_d)
-    t_u = torch.where(zero, FLT_MAX, (hi - o) / safe_d)
-    tnear = torch.minimum(t_l, t_u).amax(dim=-1)
-    tfar = torch.maximum(t_l, t_u).amin(dim=-1)
-    inside = tnear < 0
-    ok = torch.where(inside, tfar > 0, tnear <= tfar)
-    return ok & (torch.where(inside, tfar, tnear) >= 0)
-
-
 def _prim_t(bvh: DeviceBVH, p, o, d, ray_t):
     """Primitive p of each lane against its ray under the budget ray_t:
     (accepted, t). Triangles: the plane t in [0, ray_t], finite, and the
@@ -153,8 +138,8 @@ def _step(bvh: DeviceBVH, s: dict) -> None:
     internal = pop & ~is_leaf
     for child in (meta[:, 4], meta[:, 5]):          # left, then right
         c = child.clamp_min(0)
-        push = internal & _aabb_hit_tmax_inf(o, d, bvh.node_lo[c],
-                                             bvh.node_hi[c])
+        # the child box at ray.t = FLT_MAX (cpp:334-352): no budget test
+        push = internal & slab_hit(o, d, bvh.node_lo[c], bvh.node_hi[c])[0]
         slot = sp[:, None]
         stack.scatter_(1, slot, torch.where(push[:, None],
                                             c[:, None].to(stack.dtype),

@@ -154,8 +154,13 @@ def scene_exit_t(o, d, aabbs):
     can round the exit an ulp below their plane t); -inf where the ray
     provably misses the box. Any hit has t <= exit, so the walk's stop
     bound tightens exactly to min(best, tmax, exit)."""
-    u_lo = aabbs[:, 0:3].amin(dim=0)
-    u_hi = aabbs[:, 3:6].amax(dim=0)
+    return box_exit_t(o, d, aabbs[:, 0:3].amin(dim=0),
+                      aabbs[:, 3:6].amax(dim=0))
+
+
+def box_exit_t(o, d, u_lo, u_hi):
+    """scene_exit_t's padded exit t of rays [R, 3] from the box (u_lo,
+    u_hi), one box for all rays ([3]) or one a ray ([R, 3])."""
     nz = d != 0
     inv_d = torch.where(nz, 1.0 / torch.where(nz, d, 1.0), 0.0)
     t1 = torch.where(nz, (u_lo - o) * inv_d, -FLT_MAX)

@@ -6,21 +6,32 @@ the later triangle wins an exact tie; spheres solve the quadratic with
 a == 1 (unit direction assumed) and accept strictly t < ray.t, so a sphere
 never displaces an equal-t triangle.
 
+The primitives (`triangle_plane`, `point_in_triangle`,
+`intersect_ray_plane_t`, `intersect_triangles_t`, `intersect_spheres_t`,
+`intersect_aabb`, `normalize`) are plain torch ops in ops/fp32.py's forms,
+so the card and the CPU give the same bits; tests/
+test_torch_intersect_golden.py holds them to the reference's compiled
+library through tests/golden/golden_intersect.bin.
+
 `closest_hit` and `any_hit_occlusion` take one of two triangle sweeps,
 chosen by `uses_cluster_sweep`: with an `Accel`, the K1/K2 cluster sweep
-(ops.cluster_sweep), which reports triangle hits as perm-space slots;
+(ops.cluster_sweep), which finds triangle hits as perm-space slots;
 without one, the K3 brute-force sweep (ops.sweep) over the packed [T, 16]
-table, which reports scene-order ids. Hit selection is a discrete oracle,
-so everything here runs under `torch.no_grad()`; the continuous hit
-quantities are recomputed from the ids by render.wavefront.hit_attributes.
+table, which finds scene-order ids. `closest_hit` reports scene-order
+triangle ids, as the JAX package does, unless `perm_ids` asks for the
+slots (the renderer's attribute rows are in perm order). Hit selection is
+a discrete oracle, so the sweeps run under `torch.no_grad()`; the
+continuous hit quantities are recomputed from the ids by
+render.wavefront.hit_attributes.
 
 With `prims_axis` (inside a sharded entry point, cge_tpu_torch.parallel)
 each rank of the axis sweeps a contiguous slice of the clusters or of the
 packed table and reports global ids; the partial hits meet in one
 all-gather over the axis and a tie-aware reduction (cge_tpu/ops/
 intersect.py:355-409): the smallest t, and on equal t the largest global
-id. The ids stay in the space of the sweep (perm-space slots with the
-accel, scene-order ids without), so the attribute rows do not change.
+id, in the space of the sweep (perm-space slots with the accel,
+scene-order ids without); perm_ids then decides the reported space as on
+one device.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import dataclasses
 import torch
 
 from cge_tpu_torch.ops import cluster_sweep, fp32, sweep
+from cge_tpu_torch.ops.cluster_sweep import FLT_MAX, FLT_MIN
 
 
 def triangle_plane(v0, v1, v2):
@@ -59,6 +71,72 @@ def intersect_spheres_t(o, d, tmax, center, radius):
     return torch.where(ok, t, torch.inf)
 
 
+def point_in_triangle(v0, v1, v2, n, p):
+    """pointInTriangle: the three edge sign tests
+    dot(cross(v_{i+1} - v_i, p - v_i), n) >= 0, all passing."""
+    e0 = fp32.dot3(fp32.cross(v1 - v0, p - v0), n) >= 0
+    e1 = fp32.dot3(fp32.cross(v2 - v1, p - v1), n) >= 0
+    e2 = fp32.dot3(fp32.cross(v0 - v2, p - v2), n) >= 0
+    return e0 & e1 & e2
+
+
+def intersect_ray_plane_t(o, d, n, D):
+    """intersectRayWithPlane's t = (D - n.o) / n.d, with no acceptance
+    test."""
+    return (D - fp32.dot3(n, o)) / fp32.dot3(n, d)
+
+
+def intersect_triangles_t(o, d, tmax, v0, v1, v2):
+    """Batched ray x triangle. o, d: [R, 3]; tmax [R]; v0, v1, v2: [T, 3].
+    Returns t [R, T], +inf where rejected. Accept: 0 <= t <= tmax, the
+    hit point inside, t finite. o.n and d.n are dot3's products (K3's
+    form), where the JAX package takes HIGHEST-precision matmuls."""
+    n, D = triangle_plane(v0, v1, v2)
+    t = intersect_ray_plane_t(o[:, None], d[:, None], n[None], D[None])
+    p = o[:, None] + t[..., None] * d[:, None]              # [R, T, 3]
+    inside = point_in_triangle(v0[None], v1[None], v2[None], n[None], p)
+    ok = (t >= 0) & (t <= tmax[:, None]) & inside & torch.isfinite(t)
+    return torch.where(ok, t, torch.inf)
+
+
+def slab_hit(o, d, lo, hi):
+    """The compiled library's slab test with no budget, on operands that
+    broadcast over their last axis of 3: (hit, t). A zero direction
+    component takes the constants t_l = FLT_MIN, t_u = FLT_MAX, so a
+    parallel ray passes that slab even from outside it. tnear < 0 (origin
+    inside): hit iff tfar > 0, t = tfar; else hit iff tnear <= tfar,
+    t = tnear; and t >= 0."""
+    zero = d == 0
+    safe_d = torch.where(zero, 1.0, d)
+    t_l = torch.where(zero, FLT_MIN, (lo - o) / safe_d)
+    t_u = torch.where(zero, FLT_MAX, (hi - o) / safe_d)
+    tnear = torch.minimum(t_l, t_u).amax(dim=-1)
+    tfar = torch.maximum(t_l, t_u).amin(dim=-1)
+    inside = tnear < 0
+    t = torch.where(inside, tfar, tnear)
+    ok = torch.where(inside, tfar > 0, tnear <= tfar)
+    return ok & (t >= 0), t
+
+
+def intersect_aabb(o, d, tmax, lower, upper):
+    """Batched ray x AABB (cge_tpu/ops/intersect.py:114): slab_hit with
+    the reported t <= tmax. o, d: [R, 3]; tmax [R]; lower, upper: [B, 3].
+    Returns (hit [R, B], t [R, B])."""
+    hit, t = slab_hit(o[:, None], d[:, None], lower[None], upper[None])
+    return hit & (t <= tmax[:, None]), t
+
+
+def normalize(v, axis: int = -1):
+    """v / |v| along axis, the squares summed in index order and the root
+    rounded to nearest (ops/fp32.py), so every device gives the same bits;
+    a zero vector gives NaN, as in the JAX package."""
+    sq = (v * v).unbind(axis)
+    s = sq[0]
+    for x in sq[1:]:
+        s = s + x
+    return v / fp32.sqrt_rn(s).unsqueeze(axis)
+
+
 @dataclasses.dataclass(frozen=True)
 class HitIds:
     """Discrete closest-hit result."""
@@ -66,7 +144,9 @@ class HitIds:
     hit: torch.Tensor        # [R] bool
     t: torch.Tensor          # [R] f32, inf on miss
     is_sphere: torch.Tensor  # [R] bool
-    prim: torch.Tensor       # [R] i64: perm-space triangle slot or sphere index
+    prim: torch.Tensor       # [R] i64: triangle id (scene order; the
+    #                          perm-space slot under perm_ids with an
+    #                          accel) or sphere index; 0 on a miss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,10 +172,11 @@ def build_accel(scene, layout: str | None = None) -> Accel:
 
 def uses_cluster_sweep(accel: Accel | None) -> bool:
     """The one predicate that decides both which triangle sweep
-    closest_hit runs and the id space of its hits: perm-space slots from
-    the cluster sweep, scene-order ids from the brute sweep. The renderer
-    keys its attribute-row order off the same predicate
-    (render.wavefront.scene_tables), so the two cannot drift."""
+    closest_hit runs and the id space of its hits under perm_ids:
+    perm-space slots from the cluster sweep, scene-order ids from the
+    brute sweep. The renderer keys its attribute-row order off the same
+    predicate (render.wavefront.scene_tables), so the two cannot
+    drift."""
     return accel is not None
 
 
@@ -189,13 +270,16 @@ def _prims_brute_tris(o, d, tmax, tri_table, axis):
 def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
                 tri_table=None, shared_origin: bool = False, br: int = 512,
                 sc_n: int | None = None, exact_keys: bool = True,
-                sort_rays: bool = False,
-                prims_axis: str | None = None) -> HitIds:
+                sort_rays: bool = False, prims_axis: str | None = None,
+                perm_ids: bool = False) -> HitIds:
     """Closest hit over the scene's triangles and then its spheres, which
     test under the budget min(best_t, tmax) (ctor order,
     bounding_volume_hierarchy.cpp:158-171). With an accel the triangles go
-    through the cluster sweep (perm-space ids); without one through K3
-    over tri_table (scene-order ids), packed here when not given.
+    through the cluster sweep, whose perm-space slots go back to scene
+    triangle ids through accel.perm unless perm_ids keeps the slots (JAX's
+    meaning, cge_tpu/ops/intersect.py:390-395); without one through K3
+    over tri_table (scene-order ids, which perm_ids leaves alone), packed
+    here when not given.
     shared_origin, br, sc_n, exact_keys and sort_rays tune the cluster
     sweep only. sort_rays runs it on coherent_sweep_order's permutation
     (without the shared-origin hoist, as the JAX package does); exact-t
@@ -228,6 +312,10 @@ def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
             tri_table = sweep.pack_tri_table(scene.vertices, scene.tris,
                                              scene.tri_mask)
         best_t, best_i = sweep.closest_tris(o, d, tmax, tri_table)
+    if uses_cluster_sweep(accel) and not perm_ids:
+        slots = accel.perm.reshape(-1)
+        best_i = torch.where(best_i >= 0, slots[best_i.clamp(
+            0, slots.shape[0] - 1)], -1)
     ts = _sphere_hits(scene, o, d, torch.minimum(best_t, tmax))
     ts_min, s_idx = ts.min(dim=1)       # first index among equal minima
     sphere_wins = torch.isfinite(ts_min)
@@ -236,6 +324,34 @@ def closest_hit(scene, o, d, tmax, accel: Accel | None = None, *,
     prim = torch.where(sphere_wins, s_idx, best_i.long())
     return HitIds(hit=hit, t=t, is_sphere=sphere_wins,
                   prim=torch.where(hit, prim, 0))
+
+
+def closest_hit_chunked(scene, o, d, tmax, ray_chunk: int = 2048, *,
+                        accel: Accel | None = None,
+                        shared_origin: bool = False, br: int = 512,
+                        exact_keys: bool = True, perm_ids: bool = False,
+                        sc_n: int | None = None, sort_rays: bool = False,
+                        prims_axis: str | None = None) -> HitIds:
+    """Memory-bounded closest hit (cge_tpu/ops/intersect.py:431-471). With
+    an accel the whole batch goes through one closest_hit call: the ray
+    blocks set K2's visit order and with it which of two exact-t hits
+    wins, so the JAX package never chunks there. Without one the rays go
+    through closest_hit in chunks of ray_chunk over one packed table, with
+    the results of one call. The JAX package's tri_tile, prims_axis_size
+    and use_pallas have no counterpart: K3 tiles the triangles itself,
+    the axis size is the bound mesh's and the tensors' device picks the
+    kernel."""
+    kw = dict(shared_origin=shared_origin, br=br, exact_keys=exact_keys,
+              perm_ids=perm_ids, sc_n=sc_n, sort_rays=sort_rays,
+              prims_axis=prims_axis)
+    if uses_cluster_sweep(accel):
+        return closest_hit(scene, o, d, tmax, accel, **kw)
+    table = sweep.pack_tri_table(scene.vertices, scene.tris, scene.tri_mask)
+    parts = [closest_hit(scene, o[s:s + ray_chunk], d[s:s + ray_chunk],
+                         tmax[s:s + ray_chunk], tri_table=table, **kw)
+             for s in range(0, max(o.shape[0], 1), ray_chunk)]
+    return HitIds(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
+                     for f in dataclasses.fields(HitIds)})
 
 
 @torch.no_grad()

@@ -25,8 +25,7 @@ from __future__ import annotations
 import torch
 
 from cge_tpu_torch.ops import fp32, rng
-from cge_tpu_torch.ops.intersect import (any_hit_occlusion, closest_hit,
-                                         uses_cluster_sweep)
+from cge_tpu_torch.ops.intersect import any_hit_occlusion, closest_hit
 from cge_tpu_torch.ops.shading import compute_shading
 
 
@@ -76,20 +75,16 @@ def shadow_visibility(scene, ray_o, ray_d, ray_t, sample_pos, features,
 def blocker_transparency(scene, p, sdir, tmax, params, accel=None,
                          tri_table=None):
     """The closest blocker's material transparency on each segment, 1
-    where none blocks it. The hit ids are perm-space slots with the accel,
-    so they go back to scene triangles through accel.perm before the
-    material gather; every index is clamped into its own table (a miss
-    reports 0, a sphere index is no triangle id). The gathers sit outside
-    the sweep's no_grad, so mat_transparency gets its gradient."""
+    where none blocks it. The hit ids are scene triangle ids (closest_hit
+    maps the accel's slots back); every index is clamped into its own
+    table (a miss reports 0, a sphere index is no triangle id). The
+    gathers sit outside the sweep's no_grad, so mat_transparency gets its
+    gradient."""
     ids = closest_hit(scene, p, sdir, tmax, accel, tri_table=tri_table,
                       br=params.sweep_br, sc_n=params.sweep_sc_n,
                       exact_keys=params.sweep_exact_keys,
                       prims_axis=params.prims_axis)
-    tri = ids.prim
-    if uses_cluster_sweep(accel):
-        slots = accel.perm.reshape(-1)
-        tri = slots.index_select(0, tri.clamp(0, slots.shape[0] - 1))
-    tri = tri.clamp(0, scene.tri_mat.shape[0] - 1)
+    tri = ids.prim.clamp(0, scene.tri_mat.shape[0] - 1)
     sph = ids.prim.clamp(0, scene.sph_mat.shape[0] - 1)
     tr = scene.mat_transparency
     blocker = torch.where(ids.is_sphere,

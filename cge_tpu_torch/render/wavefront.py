@@ -173,7 +173,7 @@ def _intersect_and_shade(scene, o, d, features, params, alive, accel,
                       br=params.sweep_br, sc_n=params.sweep_sc_n,
                       exact_keys=params.sweep_exact_keys,
                       sort_rays=bool(params.sweep_sort_bounce),
-                      prims_axis=params.prims_axis)
+                      prims_axis=params.prims_axis, perm_ids=True)
     attrs = hit_attributes(scene, o, d, ids, features, tables)
     local = light_contribution(scene, o, d, attrs.t, attrs.normal, attrs.kd,
                                attrs.ks, attrs.shininess, features, params,

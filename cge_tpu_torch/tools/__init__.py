@@ -13,10 +13,15 @@
                  path's batches against their twins, with their bounds,
                  and every compiled shape;
   sass_count     K1's inner loops counted by instruction kind from the
-                 built library's SASS (the card's machine only).
+                 built library's SASS (the card's machine only);
+  frame_profile  a frame's device time op by op: wall and device-op ms,
+                 the device busy share, the top ops, the labelled parts
+                 (tools/xprof_dragon.py, tools/profile_bench.py).
 
 All but sass_count take `--device cpu` and small sizes for a run on the
 plain twins, which reports no times. Beside them, roofline.py holds the
-bounds and op_diff.py finds the first op at which two runs of the same
-code (the card and the CPU twins) part.
+bounds, op_diff.py finds the first op at which two runs of the same
+code (the card and the CPU twins) part, and golden_replay.py replays the
+compiled intersection library's cases (tests/golden/golden_intersect.bin)
+through the primitives, K3 and K1 + sort + K2.
 """

@@ -112,3 +112,7 @@ def check_supported(params: RenderParams) -> None:
         raise ValueError(f"prims_axis {params.prims_axis!r} has "
                          f"{axis.size} ranks, prims_axis_size says "
                          f"{params.prims_axis_size}")
+
+
+DEFAULT_FEATURES = Features()
+DEFAULT_PARAMS = RenderParams()

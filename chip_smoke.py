@@ -131,7 +131,19 @@ exits non-zero if any phase fails:
      (TRAIN_LOSS_REL, TRAIN_GRAD_REL); four ranks at rays x prims = 2 x 2,
      the stand-in at 256x256 with the accel under the image rule. Every
      rank's launches, frame ms, collectives' calls, bytes and ms, and each
-     world's wall seconds are printed.
+     world's wall seconds are printed;
+ 15. the ninth path, the compiled intersection library's cases
+     (tests/golden/golden_intersect.bin) and the per-op frame
+     attribution: its 4,096 triangle cases through K3 (a one-row table a
+     case) and through K1, the sort and K2 (a one-triangle cluster a case,
+     all cases in one sweep, each ray block's keys masked to its own
+     case's cluster) in both tile layouts, t and ids bit for bit the twins' on the card
+     and >= 99.9% of decisions the library's; the primitives of
+     ops/intersect.py on every case of the four kinds on the card against
+     the CPU bit for bit; then cge_tpu_torch/tools/frame_profile.py on
+     scale512 and brute512 (3 profiled frames each): the wall and
+     device-op ms a frame, the device busy share, the top ops, and the
+     profiler's count of K1 and K2 (K3) equal to their launch counters.
 
 `python3 chip_smoke.py --cards N` (N even, on a machine with N cards) runs
 only the multi-card counterpart of phase 14: NCCL, one rank a card, the
@@ -865,59 +877,6 @@ FIFTH_ROWS = (
 )
 
 
-def plain_labels() -> dict:
-    """torch.profiler label -> name of each plain-op part of a frame: the
-    threefry draws, the texel lookups and bloom (record_function spans)."""
-    from cge_tpu_torch.ops import rng, texture
-    from cge_tpu_torch.render import bloom
-
-    return {rng.LABELS["uniform"]: "threefry",
-            rng.LABELS["per_ray_uniform"]: "threefry per ray",
-            texture.LABEL: "texels", bloom.LABEL: "bloom"}
-
-
-def plain_ops(prof, labels) -> dict:
-    """name -> (calls, device ms, kernels) of each labelled part of one
-    frame profiled with torch.profiler, from its raw events (its own parse
-    of a 512x512 frame's events takes seconds): a CPU op that starts inside
-    a label's span, on its thread, owns the device events (kernels, copies,
-    fills) whose linked correlation id is its correlation id. Only ops
-    own: an event linked to an op (a CUDA runtime call) has a correlation
-    id of another count, which may equal an op's. Raises where a part ran
-    and the trace holds no kernel of it."""
-    import bisect
-
-    from torch.autograd import DeviceType
-
-    events = prof.profiler.kineto_results.events()
-    cpu = [e for e in events
-           if e.device_type() == DeviceType.CPU and not e.is_async()
-           and not e.linked_correlation_id()]
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(),
-                    e.start_thread_id(), labels[e.name()])
-                   for e in cpu if e.name() in labels)
-    starts = [s[0] for s in spans]
-    owner = {}
-    for e in cpu:
-        i = bisect.bisect_right(starts, e.start_ns()) - 1
-        if (i >= 0 and e.start_ns() < spans[i][1]
-                and e.start_thread_id() == spans[i][2]):
-            owner[e.correlation_id()] = spans[i][3]
-    out = {name: [0, 0.0, 0] for name in labels.values()}
-    for span in spans:
-        out[span[3]][0] += 1
-    for e in events:
-        if e.device_type() == DeviceType.CUDA:
-            name = owner.get(e.linked_correlation_id())
-            if name is not None:
-                out[name][1] += e.duration_ns() / 1e6
-                out[name][2] += 1
-    missing = [k for k, (calls, _, n) in out.items() if calls and not n]
-    if missing:
-        raise AssertionError(f"torch.profiler holds no kernel of {missing}")
-    return {k: tuple(v) for k, v in out.items()}
-
-
 def fifth_scenes(tmp, grid, device):
     """The stand-in at `grid` on `device` under each light set: textured
     with a point light, the parallelogram light, the segment light, the
@@ -945,13 +904,15 @@ def fifth_scenes(tmp, grid, device):
 
 def fifth_frame(label, scene, feats, labels):
     """One row of phase 11: the first frame with the counters reset around
-    it, under torch.profiler for its plain-op parts, then FIFTH_FRAMES
+    it, under torch.profiler for its plain-op parts (frame_profile's
+    reader; a part that ran with no kernel fails), then FIFTH_FRAMES
     timed frames (CUDA events) with peak memory. Returns the row."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import cge_tpu_torch as ct
+    from cge_tpu_torch.tools import frame_profile
 
     f, params = ct.Features(**feats), ct.RenderParams()
     ctx = ct.prepare_render(scene, f, params)
@@ -964,8 +925,11 @@ def fifth_frame(label, scene, feats, labels):
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = read_launches()
-    plain = plain_ops(prof, labels)
+    plain = frame_profile.plain_ops(frame_profile.read_events(prof), labels)
     del prof
+    missing = [k for k, (calls, _, n) in plain.items() if calls and not n]
+    if missing:
+        raise AssertionError(f"torch.profiler holds no kernel of {missing}")
     if img.shape != (H, W, 3) or img.dtype != torch.uint8:
         raise AssertionError(f"{label}: image {tuple(img.shape)} {img.dtype}")
     lit = float((img.float().sum(-1) > 0).float().mean())
@@ -1229,14 +1193,15 @@ def check_walk_batch(what, o, d, tmax, aabbs, tiles, layout, br, sc_n,
 
 
 def check_plain_ops_reader(tmp, device) -> None:
-    """plain_ops against torch.profiler's own parse of the same trace
-    (each label's events with their child ops' kernels) on two 64x64 frames
-    of the small stand-in that run every labelled part: equal calls and
-    kernels, and device ms within 1e-6."""
+    """frame_profile.plain_ops against torch.profiler's own parse of the
+    same trace (each label's events with their child ops' kernels) on two
+    64x64 frames of the small stand-in that run every labelled part: equal
+    calls and kernels, and device ms within 1e-6."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import cge_tpu_torch as ct
+    from cge_tpu_torch.tools import frame_profile as fp
 
     def parsed(prof, labels):
         def kernels(e):
@@ -1252,7 +1217,7 @@ def check_plain_ops_reader(tmp, device) -> None:
         return out
 
     scenes = fifth_scenes(tmp, (41, 32), device)
-    labels = plain_labels()
+    labels = fp.LABELS
     for which, feats in (("tex", dict(
             HEADLINE, enable_texture_mapping=True,
             enable_bilinear_texture_filtering=True, enable_bloom_effect=True,
@@ -1263,7 +1228,8 @@ def check_plain_ops_reader(tmp, device) -> None:
                             ct.RenderParams(), SMALL_SIDE, SMALL_SIDE,
                             FIFTH_SEED)
             torch.cuda.synchronize()
-        got, want = plain_ops(prof, labels), parsed(prof, labels)
+        got = fp.plain_ops(fp.read_events(prof), labels)
+        want = parsed(prof, labels)
         for k, (calls, ms, n) in got.items():
             w_calls, w_ms, w_n = want[k]
             if calls != w_calls or n != w_n or abs(ms - w_ms) > 1e-6:
@@ -1333,8 +1299,9 @@ def fifth_path(tmp, dragon, accel, device) -> list:
     tex = scenes["tex"]
     if tuple(tex.tex_hw[0].tolist()) != TEX_HW:
         raise AssertionError(f"texture loaded as {tex.tex_hw[0].tolist()}")
-    labels = plain_labels()
-    rows = [fifth_frame(label, scenes[which], feats, labels)
+    from cge_tpu_torch.tools.frame_profile import LABELS
+
+    rows = [fifth_frame(label, scenes[which], feats, LABELS)
             for label, which, feats in FIFTH_ROWS]
     check_shadow_k3(scenes["par"], device)
     check_shadow_walk(scenes["par"], device)
@@ -2135,7 +2102,7 @@ def _rank_sweep(job, scene, mesh, device, rank):
         ids = intersect.closest_hit(scene, o, d, tmax, ctx.accel,
                                     tri_table=ctx.tri_table,
                                     shared_origin=True, sc_n=1,
-                                    prims_axis="prims")
+                                    prims_axis="prims", perm_ids=True)
     torch.cuda.synchronize()
     axis = mesh.size(1)
     rows = (ctx.accel.perm.shape[0] if ctx.accel is not None
@@ -2463,7 +2430,7 @@ def check_prims_sweep(arrays, name, scene, c, device) -> str:
     tmax = torch.full((o.shape[0],), torch.inf, device=device)
     one = intersect.closest_hit(scene, o, d, tmax, c.accel,
                                 tri_table=c.tri_table, shared_origin=True,
-                                sc_n=1)
+                                sc_n=1, perm_ids=True)
     hit, t, prim = (arrays[f"{name}/{k}"] for k in ("hit", "t", "prim"))
     if not (np.array_equal(hit, one.hit.cpu().numpy())
             and np.array_equal(t, one.t.cpu().numpy())):
@@ -2562,6 +2529,130 @@ def eighth_path(tmp, obj, tobj, dragon, ctx, tscene, tctx, device) -> dict:
     for line in checks:
         log("    " + line)
     return dict(native=nat, worlds=results)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the compiled library's cases, the primitives, frame attribution
+# ---------------------------------------------------------------------------
+
+PROFILE_FRAMES = 3
+# (row, frame_profile's scene, its kernels: (name in the trace, counter))
+PROFILE_ROWS = (
+    ("scale512", "dragon", (("block_entry_keys_kernel", "keys"),
+                            ("cluster_walk_split_kernel", "walk"))),
+    ("brute512", "brute", (("closest_tris_sweep_kernel", "sweep"),)),
+)
+
+
+def oracle_replay(device) -> None:
+    """The compiled library's 4,096 triangle cases through K3 (a one-row
+    table a case, a call each) and through K1, the sort and K2 (a
+    one-triangle cluster a case, all in one sweep: golden_replay.
+    walk_cases_batched) in both tile layouts: t and ids equal to the
+    twins' on the card, and at least 99.9% of decisions agreeing with the
+    library; then
+    every primitive on every case on the card and on the CPU, bit for bit
+    (cge_tpu_torch/tools/golden_replay.py)."""
+    import torch
+
+    from cge_tpu_torch.ops import cluster_sweep as cs
+    from cge_tpu_torch.tools import golden_replay as gr
+
+    g = gr.load(device=device)
+    tri = g["tri"]
+    runs = [("K3", lambda plain: gr.sweep_cases(tri, plain))]
+    runs += [(f"K1 + sort + K2 ({layout} layout)",
+              lambda plain, layout=layout: gr.walk_cases_batched(
+                  tri, layout, plain)) for layout in cs.LAYOUTS]
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        got = fn(False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = fn(True)
+        t2 = time.perf_counter()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name} differs from its twin on the "
+                                 f"library's cases")
+        hit = torch.isfinite(got[0])
+        agree, dt = gr.agreement(hit, got[0], tri["hit"], tri["t"])
+        if agree < 0.999:
+            raise AssertionError(f"{name} agrees with the library on "
+                                 f"{agree:.5f} of its decisions")
+        log(f"    {name} on the library's {gr.N} triangle cases: t and ids "
+            f"equal to the twins' on the card; "
+            f"{int((hit == tri['hit']).sum())} of {gr.N} decisions agree "
+            f"with the library, |dt| <= {dt:.3g} on the "
+            f"{int((hit & tri['hit']).sum())} both hit; kernels "
+            f"{t1 - t0:.1f} s, twins {t2 - t1:.1f} s")
+    card = gr.primitives(g)
+    cpu = gr.primitives(gr.load())
+    apart = [k for k, v in card.items() if not gr.same(v.cpu(), cpu[k])]
+    if apart:
+        raise AssertionError(f"the card's primitives differ from the CPU's "
+                             f"on {apart}")
+    pln = g["pln"]
+    decisions = {
+        "triangle": (torch.isfinite(card["tri_t"]), tri["hit"]),
+        "sphere": (torch.isfinite(card["sph_t"]), g["sph"]["hit"]),
+        "box": (card["box_hit"], g["box"]["hit"]),
+        "plane": ((card["pln_t"] >= 0) & (card["pln_t"] <= pln["tmax"]),
+                  pln["hit"]),
+        "point in triangle": (card["pln_inside"], pln["inside"])}
+    shares = {k: float((a == b).float().mean())
+              for k, (a, b) in decisions.items()}
+    log(f"    the primitives on every case ({', '.join(card)}): the card's "
+        f"equal to the CPU's bit for bit; decisions agreeing with the "
+        f"library: " + ", ".join(f"{k} {v:.5f}" for k, v in shares.items()))
+
+
+def frame_attribution(scenes, device) -> dict:
+    """cge_tpu_torch/tools/frame_profile.py on scale512 and brute512 with
+    the contexts of phases 3 and 5, PROFILE_FRAMES profiled frames each:
+    the profiler's count of each kernel equal to its launch counter over
+    the same frames, device-op ms within the wall, the busy share and the
+    top ops."""
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.tools import frame_profile as fp
+
+    out = {}
+    for row, name, kernels in PROFILE_ROWS:
+        scene, ctx = scenes[name]
+        _, feats, params = fp.SCENES[name]
+        s = fp.profile_frames(scene, ct.Features(**feats),
+                              ct.RenderParams(**params), W, PROFILE_FRAMES,
+                              ctx=ctx)
+        counts = {k: fp.kernel_count(s, kname) for kname, k in kernels}
+        if any(not n or n != s["launches"][k] for k, n in counts.items()):
+            raise AssertionError(f"{row}: the profiler counted {counts}, "
+                                 f"the launch counters {s['launches']}")
+        if s["device_ms"] > s["wall_ms"]:
+            raise AssertionError(f"{row}: {s['device_ms']:.2f} device-op "
+                                 f"ms a frame past the wall's "
+                                 f"{s['wall_ms']:.2f}")
+        log(f"  {row}: the profiler's kernels {counts} equal the launch "
+            f"counters over {PROFILE_FRAMES} frames")
+        for line in fp.report(dict(s, title=f"{row} {W}x{H}"), 12):
+            log("    " + line)
+        out[row] = s
+    return out
+
+
+def ninth_path(dragon, ctx, tscene, tctx, device) -> dict:
+    """Phase 15; dragon, ctx and tscene, tctx: phase 3's and phase 5's
+    scenes and contexts."""
+    log(f"[15] ninth path: the compiled intersection library's cases on the "
+        f"card, the primitives on the card and the CPU, the per-op frame "
+        f"attribution | {SMI['line']}")
+    reset_launches()
+    oracle_replay(device)
+    rows = frame_attribution({"dragon": (dragon, ctx),
+                              "brute": (tscene, tctx)}, device)
+    launches = read_launches()
+    if any(launches[k] <= 0 for k in ("keys", "walk", "sweep")):
+        raise AssertionError(f"phase 15 launched {launches}")
+    log(f"  phase 15 launches {launches}")
+    return rows
 
 
 def multi_card(cards: int) -> int:
@@ -2813,6 +2904,9 @@ def main() -> int:
 
         # phase 14: multi-device on the one card, the native library
         eighth_path(tmp, obj, tobj, scene, ctx, tscene, tctx, device)
+
+        # phase 15: the compiled library's cases, frame attribution
+        ninth_path(scene, ctx, tscene, tctx, device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"

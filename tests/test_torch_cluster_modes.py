@@ -747,7 +747,8 @@ def test_sorted_hit_queries_match_jax(dragon, port_dragon, batches,
     pacc = intersect.build_accel(port_dragon)
     o, d, tmax = batches["bounce"]
     got = intersect.closest_hit(port_dragon, _t(o), _t(d), _t(tmax), pacc,
-                                exact_keys=exact_keys, sort_rays=True)
+                                exact_keys=exact_keys, sort_rays=True,
+                                perm_ids=True)
     ref = jint.closest_hit(dragon, jnp.asarray(o), jnp.asarray(d),
                            jnp.asarray(tmax), accel=jacc, perm_ids=True,
                            exact_keys=exact_keys, sort_rays=True)

@@ -112,7 +112,7 @@ def test_closest_hit_matches_jax(scenes, which, interpret):
     for oo, dd, tt, shared in ((o, d, inf, True),
                                (p, torch.from_numpy(sd), tm, False)):
         got = intersect.closest_hit(ps, oo, dd, tt, pacc,
-                                    shared_origin=shared)
+                                    shared_origin=shared, perm_ids=True)
         ref = jint.closest_hit(js, jnp.asarray(oo.numpy()),
                                jnp.asarray(dd.numpy()),
                                jnp.asarray(tt.numpy()), accel=jacc,
@@ -126,6 +126,46 @@ def test_closest_hit_matches_jax(scenes, which, interpret):
                                    rtol=1e-5, atol=2e-6)
     if which == "mixed":
         assert first.is_sphere.any() and (first.hit & ~first.is_sphere).any()
+
+
+@pytest.mark.parametrize("accel,perm_ids", [
+    (True, False), (True, True), (False, False), (False, True)])
+def test_hit_id_space_matches_jax(scenes, accel, perm_ids, interpret):
+    """closest_hit and closest_hit_chunked (300-ray chunks) against JAX's
+    on the mixed scene's primary rays, JAX's accel path in interpret
+    mode: with an accel, scene-order triangle ids by default and
+    perm-space slots under perm_ids; without one, scene-order ids either
+    way. Hits, sphere flags and ids on hits equal; t to rtol 1e-5 / atol
+    2e-6."""
+    js, ps = scenes["mixed"]
+    jacc = jint.build_accel(js) if accel else None
+    pacc = intersect.build_accel(ps) if accel else None
+    o, d = _primary()
+    tm = torch.where(torch.arange(o.shape[0]) % 7 == 0, -1.0, torch.inf)
+    jo, jd, jt = (jnp.asarray(x.numpy()) for x in (o, d, tm))
+    ref = jint.closest_hit(js, jo, jd, jt, accel=jacc, perm_ids=perm_ids)
+    ref_chunked = jint.closest_hit_chunked(js, jo, jd, jt, 300, accel=jacc,
+                                           perm_ids=perm_ids)
+    got = intersect.closest_hit(ps, o, d, tm, pacc, perm_ids=perm_ids)
+    got_chunked = intersect.closest_hit_chunked(ps, o, d, tm, 300,
+                                                accel=pacc, perm_ids=perm_ids)
+    for mine, theirs in ((got, ref), (got_chunked, ref_chunked)):
+        h = mine.hit.numpy()
+        np.testing.assert_array_equal(h, np.asarray(theirs.hit))
+        np.testing.assert_array_equal(mine.is_sphere.numpy(),
+                                      np.asarray(theirs.is_sphere))
+        np.testing.assert_array_equal(mine.prim.numpy()[h],
+                                      np.asarray(theirs.prim)[h])
+        np.testing.assert_allclose(mine.t.numpy()[h], np.asarray(theirs.t)[h],
+                                   rtol=1e-5, atol=2e-6)
+    tri = got.hit & ~got.is_sphere
+    assert tri.any() and got.is_sphere.any()
+    if accel and not perm_ids:
+        slots = intersect.closest_hit(ps, o, d, tm, pacc, perm_ids=True)
+        np.testing.assert_array_equal(
+            got.prim[tri].numpy(),
+            pacc.perm.reshape(-1)[slots.prim[tri]].numpy())
+        assert (got.prim[tri] != slots.prim[tri]).any()
 
 
 def test_shadow_query_keeps_spheres_forward(scenes, interpret):
@@ -186,7 +226,8 @@ def test_hit_attributes_clamp_mixed_ids(scenes):
     tables = wavefront.pack_attr_table(ps, tri_ids=acc.perm)
     o, d = _primary()
     ids = intersect.closest_hit(ps, o, d, torch.full((o.shape[0],),
-                                                     torch.inf), acc)
+                                                     torch.inf), acc,
+                                perm_ids=True)
     assert int(ids.prim[~ids.is_sphere].max()) >= ps.sph_center.shape[0]
     attrs = wavefront.hit_attributes(ps, o, d, ids, ct.Features(**HEADLINE),
                                      tables)

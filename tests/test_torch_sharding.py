@@ -263,7 +263,7 @@ def test_prims_sweep_against_single_device(scenes, results):
         accel = pint.build_accel(ps, layout) if layout else None
         o, d, tmax = (torch.from_numpy(v) for v in _rays(scenes[scene])
                       .values())
-        ref = pint.closest_hit(ps, o, d, tmax, accel)
+        ref = pint.closest_hit(ps, o, d, tmax, accel, perm_ids=True)
         got = {k: results[0][f"{name}/{k}"] for k in ("hit", "t", "prim")}
         np.testing.assert_array_equal(got["hit"], ref.hit.numpy())
         np.testing.assert_array_equal(got["t"], ref.t.numpy())

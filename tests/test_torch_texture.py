@@ -146,7 +146,8 @@ def test_hit_attributes_with_texture_match_jax(scenes, bilinear):
     o, d = ct.Camera().generate_rays(
         ct.camera.pixel_grid(32, 32, "cpu").reshape(-1, 2))
     ids = intersect.closest_hit(ps, o, d, torch.full((o.shape[0],),
-                                                     torch.inf), acc)
+                                                     torch.inf), acc,
+                                perm_ids=True)
     got = wavefront.hit_attributes(ps, o, d, ids, ct.Features(**f), tables)
     jids = jint.HitIds(hit=jnp.asarray(ids.hit.numpy()),
                        t=jnp.asarray(ids.t.numpy()),

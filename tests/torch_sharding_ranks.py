@@ -58,7 +58,7 @@ def sweep(job, scenes, rays):
     mesh = mesh_of(job)
     with comm.bind_mesh(mesh):
         ids = intersect.closest_hit(scene, o, d, tmax, accel,
-                                    prims_axis="prims")
+                                    prims_axis="prims", perm_ids=True)
     return {"hit": ids.hit.numpy(), "t": ids.t.numpy(),
             "is_sphere": ids.is_sphere.numpy(), "prim": ids.prim.numpy()}
 
