@@ -622,13 +622,20 @@ class SweepInputs(NamedTuple):
     aabbs: torch.Tensor    # [n_sc * sc_n, 8] member boxes, padded alike
 
 
+def visit_clusters(layout: str, sc_n: int | None) -> int:
+    """Clusters a visit takes: sc_n, or for None 1 with the triangle
+    layout and SUPERCLUSTER with the field layout, as in the JAX
+    package."""
+    if sc_n is None:
+        return SUPERCLUSTER if layout == "field" else 1
+    return sc_n
+
+
 def sweep_setup(o, d, tmax, aabbs, tiles, layout: str, br: int,
                 sc_n: int | None) -> SweepInputs:
     """Pack the rays and pad the stack to a multiple of sc_n clusters
-    (None: 1 for the triangle layout, SUPERCLUSTER for the field layout,
-    as in the JAX package)."""
-    if sc_n is None:
-        sc_n = SUPERCLUSTER if layout == "field" else 1
+    (visit_clusters)."""
+    sc_n = visit_clusters(layout, sc_n)
     L = tiles.shape[0]
     padL = (-L) % sc_n
     if padL:

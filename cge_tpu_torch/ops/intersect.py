@@ -153,12 +153,29 @@ class HitIds:
 class Accel:
     """The packed cluster stack, built once per scene and shared by every
     sweep. `layout` names the tile layout explicitly ("triangle": [L, C,
-    16]; "field": [L, 16, C])."""
+    16]; "field": [L, 16, C]). `padded` holds the stack padded for each
+    visit size a sweep asked for (padded_stack), built once."""
 
     perm: torch.Tensor     # [L, C] triangle ids, -1 pad
     aabbs: torch.Tensor    # [L, 8] cluster boxes (lo3, hi3, pad2)
     tiles: torch.Tensor    # packed triangle constants
     layout: str
+    padded: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
+
+
+def padded_stack(accel: Accel, sc_n: int | None) -> tuple:
+    """(aabbs, tiles, sc_n): accel's stack padded to a multiple of the
+    visit's clusters (cluster_sweep.visit_clusters), as sweep_setup would
+    pad it, built on the first sweep that asks and kept on the accel, so a
+    sweep copies no stack and no host data."""
+    sc_n = cluster_sweep.visit_clusters(accel.layout, sc_n)
+    if sc_n not in accel.padded:
+        padL = (-accel.tiles.shape[0]) % sc_n
+        accel.padded[sc_n] = (cluster_sweep.pad_cluster_stack(
+            accel.aabbs, accel.tiles, padL, accel.layout) if padL
+            else (accel.aabbs, accel.tiles))
+    return (*accel.padded[sc_n], sc_n)
 
 
 @torch.no_grad()
@@ -202,18 +219,20 @@ def coherent_sweep_order(point, d, tmax):
     return order, inv
 
 
-def _cluster_tris(accel: Accel, o, d, tmax, sort_rays: bool, **kw):
-    """The cluster sweep over accel; with sort_rays it runs on
-    coherent_sweep_order's permutation of the rays, and the per-ray
+def _cluster_tris(accel: Accel, o, d, tmax, sort_rays: bool, sc_n=None,
+                  **kw):
+    """The cluster sweep over accel's padded_stack; with sort_rays it runs
+    on coherent_sweep_order's permutation of the rays, and the per-ray
     results come back in the caller's order (visits stay per sorted
     block)."""
+    aabbs, tiles, sc_n = padded_stack(accel, sc_n)
     if not sort_rays:
-        return cluster_sweep.cluster_tris(o, d, tmax, accel.aabbs,
-                                          accel.tiles, accel.layout, **kw)
+        return cluster_sweep.cluster_tris(o, d, tmax, aabbs, tiles,
+                                          accel.layout, sc_n=sc_n, **kw)
     order, inv = coherent_sweep_order(o, d, tmax)
     *per_ray, visits = cluster_sweep.cluster_tris(
-        o[order], d[order], tmax[order], accel.aabbs, accel.tiles,
-        accel.layout, **kw)
+        o[order], d[order], tmax[order], aabbs, tiles, accel.layout,
+        sc_n=sc_n, **kw)
     return (*(x[inv] for x in per_ray), visits)
 
 

@@ -134,6 +134,33 @@ def _sampled_light(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
                     float(m))
 
 
+def draws_samples(scene, features) -> bool:
+    """Whether light_contribution reads its key: soft shadows over a live
+    segment or parallelogram light."""
+    return bool(features.enable_shading and features.enable_soft_shadow
+                and (any(scene.seg_mask_host) or any(scene.par_mask_host)))
+
+
+class DrawKeys(tuple):
+    """The keys light_contribution draws from, in the order it draws
+    (draw_keys), passed in place of the level's key."""
+
+
+def draw_keys(scene, key) -> DrawKeys:
+    """The keys of a level's light samples, derived on the host from its
+    key: fold_in(key, 1000 + li) for each live segment light, then
+    fold_in(k, 0) and fold_in(k, 1) of k = fold_in(key, 2000 + li) for each
+    live parallelogram light. A CUDA graph's replay passes them as device
+    tensors (render.graphs), so one graph draws under every key."""
+    keys = [rng.fold_in(key, 1000 + li)
+            for li, on in enumerate(scene.seg_mask_host) if on]
+    for li, on in enumerate(scene.par_mask_host):
+        if on:
+            k = rng.fold_in(key, 2000 + li)
+            keys += [rng.fold_in(k, 0), rng.fold_in(k, 1)]
+    return DrawKeys(keys)
+
+
 def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
                        features, params, key, alive=None, accel=None,
                        tri_table=None, ray_ids=None):
@@ -141,7 +168,8 @@ def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
     [N, 3]. Point lights, then (with soft shadows) segment lights of
     `segment_light_samples` jittered samples and parallelogram lights of
     `parallelogram_light_direction_samples`^2. key: the level's key
-    (ops.rng); ray_ids (global ray ids, arange(N) when None) key each
+    (ops.rng), or the keys draw_keys derives from it; ray_ids (global ray
+    ids, arange(N) when None) key each
     ray's samples, so chunking does not change them. Dead light slots are
     skipped from the host copies of the masks: no device sync."""
     if not features.enable_shading:
@@ -165,6 +193,7 @@ def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
         return result
     if ray_ids is None:
         ray_ids = torch.arange(N, dtype=torch.int64, device=dev)
+    keys = iter(key if isinstance(key, DrawKeys) else draw_keys(scene, key))
     shade = (scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
              features, params, alive, accel, tri_table)
 
@@ -173,7 +202,7 @@ def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
     for li, on in enumerate(scene.seg_mask_host):
         if not on:
             continue
-        r = rng.per_ray_uniform(rng.fold_in(key, 1000 + li), ray_ids, (ss,))
+        r = rng.per_ray_uniform(next(keys), ray_ids, (ss,))
         pos, col = sample_segment_light(
             scene.seg_p0[li], scene.seg_p1[li], scene.seg_c0[li],
             scene.seg_c1[li], idx, ss, r)
@@ -186,9 +215,8 @@ def light_contribution(scene, ray_o, ray_d, ray_t, normal, kd, ks, shininess,
     for li, on in enumerate(scene.par_mask_host):
         if not on:
             continue
-        k = rng.fold_in(key, 2000 + li)
-        r1 = rng.per_ray_uniform(rng.fold_in(k, 0), ray_ids, (ps * ps,))
-        r2 = rng.per_ray_uniform(rng.fold_in(k, 1), ray_ids, (ps * ps,))
+        r1 = rng.per_ray_uniform(next(keys), ray_ids, (ps * ps,))
+        r2 = rng.per_ray_uniform(next(keys), ray_ids, (ps * ps,))
         pos, col = sample_parallelogram_light(
             scene.par_v0[li], scene.par_e01[li], scene.par_e02[li],
             scene.par_c0[li], scene.par_c1[li], scene.par_c2[li],

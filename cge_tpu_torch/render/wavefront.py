@@ -39,6 +39,7 @@ from cge_tpu_torch.ops.intersect import (Accel, HitIds, build_accel,
 from cge_tpu_torch.ops.sweep import pack_tri_table
 from cge_tpu_torch.ops.shading import _normalize, compute_reflection_ray
 from cge_tpu_torch.ops.texture import acquire_texel
+from cge_tpu_torch.render import graphs
 from cge_tpu_torch.render.lights import light_contribution
 from cge_tpu_torch.types import check_supported
 
@@ -166,7 +167,20 @@ def _intersect_and_shade(scene, o, d, features, params, alive, accel,
                          ray_ids=None):
     """One bounce: closest hit, attributes, local radiance. Dead rays get
     tmax = -1, which the sweep treats as an unconditional miss. key: the
-    level's key for the light samples."""
+    level's key for the light samples. On the card with gradients off and
+    no prims axis it runs as a CUDA graph replay (render.graphs), whose
+    outputs a later bounce may overwrite: callers consume them before the
+    next bounce."""
+    args = (scene, o, d, features, params, alive, accel, tri_table,
+            shared_origin, tables, key, ray_ids)
+    if graphs.applies(o, params):
+        return graphs.bounce(_bounce, *args)
+    return _bounce(*args)
+
+
+def _bounce(scene, o, d, features, params, alive, accel, tri_table,
+            shared_origin, tables, key, ray_ids):
+    """_intersect_and_shade's eager body."""
     tmax = torch.where(alive, torch.inf, -1.0)
     ids = closest_hit(scene, o, d, tmax, accel, tri_table=tri_table,
                       shared_origin=shared_origin and params.sweep_shared_origin,
@@ -407,6 +421,9 @@ def trace_glossy(scene, o, d, features, params, accel: Accel | None, tables,
                                                   device=dev),
         accel, tri_table, shared_origin=shared_origin, tables=tables,
         key=k0, ray_ids=ray_ids)
+    # read after the level loop's bounces, which may overwrite a graph's
+    # outputs
+    local, hit0 = local.clone(), attrs.hit.clone()
     valid_mirror = (attrs.ks != 0.0).any(dim=-1)
     glossy = (valid_mirror & (attrs.shininess != 0.0))[:, None, None]
     mo, md, _ = compute_reflection_ray(o, d, attrs.t, attrs.normal, attrs.ks)
@@ -453,7 +470,7 @@ def trace_glossy(scene, o, d, features, params, accel: Accel | None, tables,
         fd = torch.where(spawn[:, None],
                          torch.where(ga[:, None], gdir[:, 0], md), fd)
     radiance = local + acc.reshape(N, S, 3).sum(dim=1)
-    return torch.where(attrs.hit[:, None], radiance, 0.0)
+    return torch.where(hit0[:, None], radiance, 0.0)
 
 
 def scene_accel(scene, features) -> Accel | None:

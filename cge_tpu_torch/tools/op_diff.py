@@ -16,18 +16,22 @@ written (`empty*`) or copy or alias their input (`clone`, `_to_copy`,
 (module, name) of `pause` is wrapped while the
 recorder is active: its own ops are not recorded (a sweep's CPU twin and
 its CUDA kernel run different ops) and its outputs become one entry named
-`name`.
+`name`. A CUDA graph's replay dispatches no op, so while a recorder is
+active every bounce of a trace runs eagerly (render.graphs).
 
 chip_smoke.py phase 7 runs it on the small train step's forward trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from cge_tpu_torch.render import graphs
 
 
 # op names (without leading underscores) that start so are not recorded
@@ -50,8 +54,10 @@ class Recorder(TorchDispatchMode):
         self._pause = tuple(pause)
         self._paused = 0
         self._saved: list = []
+        self._eager = contextlib.ExitStack()
 
     def __enter__(self):
+        self._eager.enter_context(graphs._eager_bounces())
         for module, name in self._pause:
             fn = getattr(module, name)
             self._saved.append((module, name, fn))
@@ -62,6 +68,7 @@ class Recorder(TorchDispatchMode):
         for module, name, fn in self._saved:
             setattr(module, name, fn)
         self._saved = []
+        self._eager.close()
         return super().__exit__(*exc)
 
     def _wrap(self, name, fn):

@@ -119,10 +119,11 @@ exits non-zero if any phase fails:
      against the numpy twins; then worlds of rank processes of this script
      (`--rank SPEC`, started by parallel.launch.run_ranks with a timeout):
      a world of one on NCCL (the headline dragon frame through make_mesh
-     and render_image_sharded, bit for bit render_image's in the same
-     process, K1 and K2 launched); two ranks on NCCL, which refuses two
-     ranks on one card (its message printed); two ranks on gloo with CUDA
-     tensors: the dragon frame at rays = 2 (bit for bit) and at prims = 2
+     and render_image_sharded, bit for bit its eager bounces' frame and
+     render_image's in the same process, K1 and K2 launched); two ranks
+     on NCCL, which refuses two ranks on one card (its message printed);
+     two ranks on gloo with CUDA tensors: the dragon frame at rays = 2
+     (bit for bit) and at prims = 2
      (each rank's K1 and K2 on 2,400 of the 4,800 clusters; the image
      rule), the frame's primary rays through the prims-sharded sweep (hits
      and t equal to the single-device sweep, ids off exact-t ties), the
@@ -150,12 +151,32 @@ exits non-zero if any phase fails:
      and one traced call each, every output held to its reference: the
      compiled reference renderer (tools/oracle/oracle) in the same run
      for scale512, transrec512 and brute512, the stored JAX references
-     (bench_torch/references/) for soft512 and train128.
+     (bench_torch/references/) for soft512 and train128;
+ 17. the bounces as CUDA graph replays (cge_tpu_torch/render/graphs.py):
+     the frames of scale512, brute512, soft512 and transrec512 at the
+     cells' own scenes, features, params and sizes, then the stand-in
+     textured (bilinear) and glossy256 with the accel, from one prepared
+     context each, rendered with eager bounces and through the graphs
+     (the capturing frame and the replayed ones), every graph frame equal
+     to the eager frame bit for bit (NaN masks too) with the same
+     launches; the graphs a row, the peak allocated and reserved memory
+     of each, and host ms a frame timed in turns (eager, graphs, graphs,
+     eager); then camera batches through render_images (camera i with
+     seed + i) at scale512, transrec512 and soft512, eager and through the
+     graphs, frames equal bit for bit, with the peak memory of each, the
+     entries the graph cache holds (at most its MAX_ENTRIES), and no
+     capture after the first camera (soft512's draws read their keys
+     from the graph's inputs).
+
+On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
+Phases 11-13 swap the trace's functions to record its batches and read
+torch.profiler's spans inside a frame, which a replay does not call, so
+they run with eager bounces (graphs._eager_bounces).
 
 `python3 chip_smoke.py --cards N` (N even, on a machine with N cards) runs
 only the multi-card counterpart of phase 14: NCCL, one rank a card, the
 dragon frame at rays = N (every rank's frame bit for bit render_image's
-on its card) and at N/2 x 2, the prims sweep and the train step at N x 1
+on its card and its own frame with eager bounces) and at N/2 x 2, the prims sweep and the train step at N x 1
 and N/2 x 2, each against the single-card path.
 
 Each path is driven with the launch counters set to 0 just before it and
@@ -2037,13 +2058,16 @@ def _rank_frame(job, scene, mesh, device, rank):
     its first collective), then EIGHTH_FRAMES timed frames (host clock to
     a synchronize) with their collectives a frame; with job["single"]
     render_image of the same context in this process, bit for bit, and
-    its frames timed alike."""
+    its frames timed alike, and the sharded frame with eager bounces
+    (render.graphs._eager_bounces), bit for bit the one its bounces
+    replayed from graphs, beside the graphs this rank holds."""
     import numpy as np
     import torch
 
     import cge_tpu_torch as ct
     from cge_tpu_torch import parallel
     from cge_tpu_torch.parallel import comm
+    from cge_tpu_torch.render import graphs
 
     feats = ct.Features(**job["features"])
     params = ct.RenderParams(**job["params"])
@@ -2080,6 +2104,10 @@ def _rank_frame(job, scene, mesh, device, rank):
     if ctx.accel is not None:
         stats["clusters"] = int(ctx.accel.perm.shape[0])
     if job.get("single"):
+        cache = getattr(graphs._LOCAL, "cache", None)
+        stats["graphs"] = 0 if cache is None else len(cache.graphs)
+        with graphs._eager_bounces():
+            stats["equal_eager"] = _same_frame(img, frame())
         ref = ct.render_image(scene, ct.Camera(), feats, params, side, side,
                               ctx=ctx)
         stats["equal_single"] = bool(
@@ -2355,6 +2383,9 @@ def _log_world(label, backend, wall, stats) -> None:
             if "refused" in s:
                 parts.append("NCCL refused: " + s.get("error", "")
                              if s["refused"] else "NCCL accepted")
+            if "equal_eager" in s:
+                parts.append(f"{s['graphs']} bounce graphs, equal to its "
+                             f"eager bounces: {s['equal_eager']}")
             if "equal_single" in s:
                 parts.append(f"equal to render_image: {s['equal_single']}, "
                              f"render_image frames ms "
@@ -2505,9 +2536,11 @@ def eighth_path(tmp, obj, tobj, dragon, ctx, tscene, tctx, device) -> dict:
                  "train_1x2"):
         _need_launches(results[name], name, ("sweep",), ("keys", "walk"))
     # (a) the NCCL world of one: render_image's frame in the same process
-    if not results["nccl_1x1"][0]["equal_single"]:
+    one = results["nccl_1x1"][0]
+    if not (one["equal_single"] and one["equal_eager"] and one["graphs"]):
         raise AssertionError("the NCCL sharded frame differs from "
-                             "render_image")
+                             "render_image or its eager bounces, or "
+                             "replayed no graph")
     # (b) gloo, two ranks: rays = 2 bit for bit, prims = 2 under the image
     # rule, every rank through its kernels on its own slice
     feats, params = ct.Features(**HEADLINE), ct.RenderParams(**MAIN_PARAMS)
@@ -2699,6 +2732,221 @@ def tenth_path(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: each bounce as a CUDA graph replay, against the eager bounce
+# ---------------------------------------------------------------------------
+
+# the benchmark's frame cells whose bounces replay as graphs (train128's
+# step runs under autograd: eager)
+GRAPH_CELLS = ("scale512", "brute512", "soft512", "transrec512")
+# frames a timed turn; the turns run eager, graphs, graphs, eager
+GRAPH_TURN_FRAMES = 3
+# phase 17's camera batches, cameras a cell (soft512's draws from a new
+# key a camera)
+GRAPH_BATCHES = {"scale512": 4, "transrec512": 4, "soft512": 16}
+
+
+def _same_frame(a, b) -> bool:
+    """torch.equal on the float frames, with equal NaN masks."""
+    import torch
+
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a),
+                            torch.where(b.isnan(), 0.0, b)))
+
+
+def graphs_row(label, scene, feats, params, side, seed) -> dict:
+    """One row of phase 17, from one prepared context: the eager frame
+    (render.graphs._eager_bounces) before any graph exists, then two frames
+    through the graphs (the first warms up each bounce's signature on its
+    first chunk and captures it on the second, the second only replays),
+    each equal to the eager frame bit for bit with the same launches; the
+    peak allocated and reserved memory of each; then the frames timed in
+    turns, eager, graphs, graphs, eager, GRAPH_TURN_FRAMES each, every
+    graph frame held to the eager one again."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.render import graphs
+
+    ctx = ct.prepare_render(scene, feats, params)
+
+    def frame():
+        before = graphs.launch_counts()
+        t0 = time.perf_counter()
+        img = ct.render_image(scene, ct.Camera(), feats, params, side, side,
+                              seed, ctx=ctx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return img, ms, graphs.launches_between(before,
+                                                graphs.launch_counts())
+
+    def peak():
+        return (torch.cuda.max_memory_allocated() / 2**20,
+                torch.cuda.max_memory_reserved() / 2**20)
+
+    torch.cuda.reset_peak_memory_stats()
+    with graphs._eager_bounces():
+        want, first_ms, want_n = frame()
+    eager_peak = peak()
+    torch.cuda.reset_peak_memory_stats()
+    warm = [frame() for _ in range(2)]
+    graph_peak = peak()
+    n_graphs = len(graphs._LOCAL.cache.graphs)
+
+    def held(img, n, what):
+        if not _same_frame(img, want) or n != want_n:
+            raise AssertionError(f"{label}: the {what} frame differs from "
+                                 f"the eager frame (launches {n} against "
+                                 f"{want_n})")
+
+    for i, (img, _, n) in enumerate(warm):
+        held(img, n, ("capturing", "replayed")[i])
+    turns = {"eager": [], "graphs": []}
+    for kind in ("eager", "graphs", "graphs", "eager"):
+        ctxm = (graphs._eager_bounces() if kind == "eager"
+                else contextlib.nullcontext())
+        with ctxm:
+            for _ in range(GRAPH_TURN_FRAMES):
+                img, ms, n = frame()
+                held(img, n, kind)
+                turns[kind].append(ms)
+    eager_ms = float(np.median(turns["eager"]))
+    graph_ms = float(np.median(turns["graphs"]))
+    row = dict(label=label, eager_ms=turns["eager"],
+               graph_ms=turns["graphs"], first_eager_ms=first_ms,
+               warm_ms=[w[1] for w in warm], graphs=n_graphs,
+               launches={k: v for m in want_n for k, v in m.items()},
+               eager_peak_mib=eager_peak, graph_peak_mib=graph_peak)
+    log(f"  {label}: {n_graphs} graphs; frames equal to the eager frame "
+        f"bit for bit, launches {row['launches']} a frame; host ms a frame, "
+        f"eager {[round(x, 2) for x in turns['eager']]} (median "
+        f"{eager_ms:.2f}), graphs {[round(x, 2) for x in turns['graphs']]} "
+        f"(median {graph_ms:.2f}), {eager_ms / graph_ms:.2f}x; the capturing "
+        f"frame {warm[0][1]:.1f} ms; peak MiB allocated / reserved: eager "
+        f"{eager_peak[0]:.0f} / {eager_peak[1]:.0f}, with the graphs "
+        f"{graph_peak[0]:.0f} / {graph_peak[1]:.0f}")
+    return row
+
+
+def graphs_batch(label, scene, feats, params, side, seed, cameras) -> dict:
+    """A camera batch of phase 17: render_images over `cameras` cameras
+    (camera i with seed + i) from a fresh context, with eager bounces (the
+    parent's path) and then through the graphs after one camera alone, the
+    frames equal bit for bit; the peak allocated and reserved MiB of each
+    run (the allocator's cache emptied before it); the graphs the context
+    holds after the first camera and after the batch, its entries at most
+    render.graphs.MAX_ENTRIES, and no capture after the first camera: the
+    cameras' keys, where the bounces draw samples, are graph inputs."""
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.render import graphs, lights
+
+    cams = [ct.Camera(rotation=(20.0, 20.0 + 10.0 * i, 0.0))
+            for i in range(cameras)]
+    ctx = ct.prepare_render(scene, feats, params)
+
+    def run(batch):
+        t0 = time.perf_counter()
+        imgs = ct.render_images(scene, batch, feats, params, side, side,
+                                seed, ctx=ctx)
+        torch.cuda.synchronize()
+        return imgs, (time.perf_counter() - t0) * 1e3
+
+    def measured(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated() / 2**20,
+                     torch.cuda.max_memory_reserved() / 2**20)
+
+    with graphs._eager_bounces():
+        (want, eager_ms), eager_peak = measured(lambda: run(cams))
+
+    def graphed():
+        run(cams[:1])
+        first = len(graphs._LOCAL.cache.graphs)
+        imgs, ms = run(cams)
+        cache = graphs._LOCAL.cache
+        return imgs, ms, first, len(cache.graphs), len(cache.entries)
+
+    (got, graph_ms, first, n_graphs, n_entries), graph_peak = measured(
+        graphed)
+    for i in range(cameras):
+        if not _same_frame(got[i], want[i]):
+            raise AssertionError(f"{label} batch: camera {i}'s graph frame "
+                                 f"differs from the eager frame")
+    sampled = lights.draws_samples(scene, feats)
+    if n_entries > graphs.MAX_ENTRIES or n_graphs != first:
+        raise AssertionError(f"{label} batch: {n_entries} entries, graphs "
+                             f"{first} after one camera, {n_graphs} after "
+                             f"{cameras}")
+    row = dict(label=label, cameras=cameras, sampled=sampled,
+               eager_ms=eager_ms, graph_ms=graph_ms, graphs_first=first,
+               graphs=n_graphs, entries=n_entries, eager_peak_mib=eager_peak,
+               graph_peak_mib=graph_peak)
+    log(f"  {label} batch of {cameras} cameras (seeds {seed}..."
+        f"{seed + cameras - 1}; samples drawn: {sampled}): frames equal to "
+        f"the eager frames; graphs {first} after one camera, {n_graphs} "
+        f"after the batch, {n_entries} entries (bound {graphs.MAX_ENTRIES}); "
+        f"host ms eager {eager_ms:.1f}, graphs {graph_ms:.1f}; peak MiB "
+        f"allocated / reserved: eager {eager_peak[0]:.0f} / "
+        f"{eager_peak[1]:.0f}, graphs (one camera, then the batch) "
+        f"{graph_peak[0]:.0f} / {graph_peak[1]:.0f}")
+    return row
+
+
+def graphs_path(device) -> dict:
+    """Phase 17: the frame cells of the benchmark (GRAPH_CELLS), each at
+    its own scene, features, params, size and seed, with their bounces
+    replayed from CUDA graphs against the eager bounces (graphs_row); then
+    the camera batches of GRAPH_BATCHES (graphs_batch); then the two paths
+    no other phase runs through the graphs: the stand-in textured
+    (bilinear, phase 11's scene) and glossy256 with the accel (phase
+    12's), whose first bounce's outputs outlive its level."""
+    import cge_tpu_torch as ct
+    from bench_torch import cells as bc
+    from cge_tpu_torch.tools.common import (write_textured_obj,
+                                            write_variant_obj)
+
+    log(f"[17] graphs: the bounces of {', '.join(GRAPH_CELLS)}, a textured "
+        f"and a glossy frame replayed from CUDA graphs against the eager "
+        f"bounces | {SMI['line']}")
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in GRAPH_CELLS:
+            cell = bc.BY_NAME[name]
+            obj = bc.obj_path(cell, tmp)
+            bc.write_scene(cell, obj)
+            scene = bc.load(cell, obj, device)
+            args = (scene, ct.Features(**cell.features),
+                    ct.RenderParams(**cell.params), cell.side, cell.seed)
+            rows[name] = graphs_row(name, *args)
+            if name in GRAPH_BATCHES:
+                rows[f"{name}-batch"] = graphs_batch(name, *args,
+                                                     GRAPH_BATCHES[name])
+            del scene, args
+        light = [ct.PointLight(*LIGHT)]
+        tex = os.path.join(tmp, "standin_tex.obj")
+        write_textured_obj(tex, *TEAPOT_GRID, tex_hw=TEX_HW, seed=SEED)
+        rows["tex512"] = graphs_row(
+            "tex512 (bilinear)", ct.load_scene_from_file(tex, light,
+                                                         device=device),
+            ct.Features(**BRUTE, enable_texture_mapping=True,
+                        enable_bilinear_texture_filtering=True),
+            ct.RenderParams(), W, FIFTH_SEED)
+        glossy = os.path.join(tmp, "standin_glossy.obj")
+        write_variant_obj(glossy, *TEAPOT_GRID, "glossy")
+        rows["glossy256"] = graphs_row(
+            "glossy256 (accel on)", ct.load_scene_from_file(
+                glossy, light, device=device),
+            ct.Features(**GLOSSY, enable_accel_structure=True),
+            ct.RenderParams(**GLOSSY_PARAMS), 256, FIFTH_SEED)
+    return rows
+
+
 def multi_card(cards: int) -> int:
     """`python3 chip_smoke.py --cards N`: the sharded entry points on NCCL,
     one rank a card, over N cards (N even): the headline dragon frame at
@@ -2764,9 +3012,11 @@ def multi_card(cards: int) -> int:
             _need_launches(results[name], name, ("keys", "walk"), ("sweep",))
         for name in (f"train_{cards}x1", f"train_{half}x2"):
             _need_launches(results[name], name, ("sweep",), ("keys", "walk"))
-        if not all(s["equal_single"] for s in results[rays]):
+        if not all(s["equal_single"] and s["equal_eager"] and s["graphs"]
+                   for s in results[rays]):
             raise AssertionError("a rank's frame differs from its "
-                                 "render_image")
+                                 "render_image or its eager bounces, or "
+                                 "replayed no graph")
         ref = ct.render_image(dragon, ct.Camera(), feats, params,
                               EIGHTH_SIDE, EIGHTH_SIDE,
                               ctx=ctx).cpu().numpy()
@@ -2799,6 +3049,7 @@ def main() -> int:
         import cge_tpu_torch as ct
         from cge_tpu_torch import _kernels
         from cge_tpu_torch.ops import cluster_sweep as cs
+        from cge_tpu_torch.render import graphs
         from cge_tpu_torch.scene.standin import write_obj
     except ImportError as e:
         log(f"FAIL: the port is not importable next to this script: {e}")
@@ -2936,15 +3187,19 @@ def main() -> int:
         tool_launches = tuning_path(tscene, device)
         report["stream"] = check_stream(device)
 
-        # phase 11: the sampling and image-space features
-        fifth_path(tmp, scene, ctx.accel, device)
+        # phases 11-13 spy on the trace's functions and read its
+        # record_function spans, which a graph replay does not call: they
+        # run with eager bounces
+        with graphs._eager_bounces():
+            # phase 11: the sampling and image-space features
+            fifth_path(tmp, scene, ctx.accel, device)
 
-        # phase 12: transparency shadows, the tree, glossy, batches
-        sixth_path(tmp, scene, ctx, device)
+            # phase 12: transparency shadows, the tree, glossy, batches
+            sixth_path(tmp, scene, ctx, device)
 
-        # phase 13: the CLI and config, the reference BVH, the debugger,
-        # the preview and the app
-        seventh_path(tmp, scene, tobj, tscene, device)
+            # phase 13: the CLI and config, the reference BVH, the
+            # debugger, the preview and the app
+            seventh_path(tmp, scene, tobj, tscene, device)
 
         # phase 14: multi-device on the one card, the native library
         eighth_path(tmp, obj, tobj, scene, ctx, tscene, tctx, device)
@@ -2954,6 +3209,9 @@ def main() -> int:
 
     # phase 16: the benchmark's cells
     tenth_path(device)
+
+    # phase 17: the bounces as CUDA graph replays against eager bounces
+    graphs_path(device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"
