@@ -1,14 +1,17 @@
 """The native host library: OBJ loader, cluster builder and reference BVH
-builder in C++ (counterpart of cge_tpu/native).
+builder in C++ (counterpart of cge_tpu/native), and the JPEG decoder of the
+texture loader.
 
-`cge_host.cpp` is this package's own copy of the JAX package's source. It
-is compiled at first use by `g++` with the flags of the JAX package's
-Makefile (CXXFLAGS, warnings as errors) into `build/cge_tpu_torch/` at the
-repository root, named by a hash of the source, compiler and flags, and
-loaded with ctypes; no binary is committed. A failed build raises with the
-compiler's output: nothing falls back to the numpy code. The numpy
-loader and builders (scene/mesh_io.py, ops/bvh.py) are the library's twins
-and run where a caller passes `use_native=False`.
+`cge_host.cpp` is this package's own copy of the JAX package's source, and
+`cge_image.cpp` the port's JPEG decoder (scene/jpeg.py). Both are compiled
+at first use by `g++` with the flags of the JAX package's Makefile
+(CXXFLAGS, warnings as errors) into one library in `build/cge_tpu_torch/`
+at the repository root, named by a hash of the sources, compiler and
+flags, and loaded with ctypes; no binary is committed. A failed build
+raises with the compiler's output: nothing falls back to the numpy code
+or to Pillow. The numpy loader and builders (scene/mesh_io.py,
+ops/bvh.py) are the library's twins and run where a caller passes
+`use_native=False`; the JPEG decoder has none.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ import numpy as np
 
 from cge_tpu_torch import _kernels
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "cge_host.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "cge_host.cpp")
+IMAGE_SOURCE = os.path.join(_HERE, "cge_image.cpp")
+SOURCES = (SOURCE, IMAGE_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -42,6 +47,11 @@ _SIGNATURES = {
     "cge_release": (None, [_P]),
     "cge_build_clusters": (_I, [_P, _I, _I, _P, _I]),
     "cge_build_bvh": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "cge_jpeg_info": (_I, [ctypes.c_char_p, ctypes.c_long,
+                           ctypes.POINTER(_I), ctypes.POINTER(_I),
+                           ctypes.c_char_p, _I]),
+    "cge_jpeg_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
+                             ctypes.c_long, ctypes.c_char_p, _I]),
 }
 
 
@@ -63,19 +73,20 @@ class HostLibrary:
 
 def build(cxx: str = CXX, flags=CXXFLAGS,
           build_dir: str = _kernels.BUILD_DIR) -> HostLibrary:
-    """Compile cge_host.cpp (unless a build of the same source, compiler
-    and flags is there) and load it. RuntimeError with the compiler's
-    output when the compiler is missing or fails."""
+    """Compile the sources (unless a build of the same sources, compiler
+    and flags is there) and load the library. RuntimeError with the
+    compiler's output when the compiler is missing or fails."""
     h = hashlib.sha256(" ".join((cxx,) + tuple(flags)).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     os.makedirs(build_dir, exist_ok=True)
     path = os.path.join(build_dir, f"libcge_host_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [cxx, *flags, "-shared", "-o", tmp, SOURCE]
+        cmd = [cxx, *flags, "-shared", "-o", tmp, *SOURCES]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True,
                                timeout=300)

@@ -1,15 +1,31 @@
-"""PNG and BMP images without Pillow (counterpart of
+"""PNG, BMP and JPEG images without Pillow (counterpart of
 cge_tpu/scene/image_io.py).
 
-`load_image` decodes PNG with zlib and struct alone, as the reference's
-stb_image loads a texture (framework/src/image.cpp:22-34): forced RGB, u8 /
-255 as float32, row 0 the top of the image. It reads 8-bit, non-interlaced
-PNG of colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6
-(RGBA) with any of the five row filters; alpha is dropped, as stb's and
-Pillow's RGB conversions drop it. Other PNGs raise an error that names
-their format. `png_bytes` and `write_png` write the same kinds, each row
-with a chosen filter. `write_bmp` writes the CLI's 24-bit BMP byte for
-byte as the JAX package does, and `read_bmp` reads it back.
+`load_image` decodes a texture as the JAX package's loader does, whose
+`convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
+float32, row 0 the top of the image (the reference's stb_image,
+framework/src/image.cpp:22-34). The format comes from the file's
+signature, never its name:
+
+  PNG   every bit depth of every colour type (1, 2, 4 and 8-bit grey and
+        palette, 16-bit grey, grey + alpha, RGB and RGBA), plain or Adam7
+        interlaced, any row filter; decoded with zlib and numpy here.
+        Pillow's conversions: 1-, 2- and 4-bit grey scaled by 255, 85 and
+        17; 16-bit grey saturated at 255; the other 16-bit samples keep
+        their high byte; alpha and tRNS dropped; a palette index past the
+        PLTE chunk's end is black.
+  BMP   1-, 4- and 8-bit palette (also RLE8 and RLE4), 16-bit 5-5-5 and
+        bitfields, 24-bit, 32-bit plain and bitfields; header sizes 12
+        (OS/2 core), 40, 52, 56, 64, 108 and 124; bottom-up or top-down
+        rows (`decode_bmp`).
+  JPEG  baseline and progressive Huffman, 8-bit, grey or three components
+        at 4:4:4, 4:2:2 or 4:2:0, as libjpeg-turbo decodes it
+        (scene/jpeg.py and the native library's cge_image.cpp).
+
+Any other format raises a ValueError that names it. `png_bytes` and
+`write_png` write 8-bit PNGs, each row with a chosen filter. `write_bmp`
+writes the CLI's 24-bit BMP byte for byte as the JAX package does, and
+`read_bmp` reads any BMP that `decode_bmp` reads.
 """
 
 from __future__ import annotations
@@ -20,10 +36,18 @@ import zlib
 
 import numpy as np
 
+from cge_tpu_torch.scene import jpeg
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _NAMES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey + alpha", 6: "RGBA"}
+# colour type -> the bit depths the PNG spec allows it
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 @dataclasses.dataclass
@@ -57,7 +81,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """The scanlines' bytes [height, stride] with each row's filter undone
     (PNG spec section 9); Sub and Up are vectorised, Average and Paeth
     run byte by byte."""
-    rows = np.frombuffer(raw, np.uint8)[:height * (stride + 1)]
+    rows = np.frombuffer(raw, np.uint8, height * (stride + 1))
     rows = rows.reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -90,8 +114,47 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, width: int, depth: int, ch: int):
+    """Unfiltered rows [h, stride] -> the samples [h, width, ch] as
+    integers (uint8, or uint16 at depth 16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        px = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        px = rows
+    else:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        px = (bits * weights).sum(-1, dtype=np.uint8)
+    return px[:, :width * ch].reshape(h, width, ch)
+
+
+def _pass_samples(raw: bytes, width: int, height: int, depth: int,
+                  ch: int, interlace: int) -> np.ndarray:
+    """The image's samples [height, width, ch] from the inflated IDAT
+    stream: one pass, or Adam7's seven, each with its own filters."""
+    bpp = max(1, depth * ch // 8)
+    if not interlace:
+        stride = (width * ch * depth + 7) // 8
+        return _samples(_unfilter(raw, height, stride, bpp), width, depth,
+                        ch)
+    out = np.zeros((height, width, ch), np.uint16 if depth == 16
+                   else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue                  # an empty pass has no scanlines
+        stride = (pw * ch * depth + 7) // 8
+        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
+        pos += ph * (stride + 1)
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+    """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
+    `convert("RGB")` gives them."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
     header, palette, idat = None, None, []
@@ -99,7 +162,8 @@ def decode_png(data: bytes) -> np.ndarray:
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)
+            palette = palette[:len(palette) // 3 * 3].reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
@@ -108,27 +172,83 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype not in CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is not a PNG colour type")
     fmt = f"{depth}-bit {_NAMES[ctype]} PNG"
-    if depth != 8:
-        raise ValueError(f"{fmt}: only 8-bit PNG is supported")
-    if interlace:
-        raise ValueError(f"interlaced (Adam7) {fmt}: only non-interlaced "
-                         f"PNG is supported")
-    ch = CHANNELS[ctype]
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, width * ch, ch)
-    px = rows.reshape(height, width, ch)
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{fmt}: the PNG spec allows {_NAMES[ctype]} at "
+                         f"{_DEPTHS[ctype]} bits only")
+    if interlace not in (0, 1):
+        raise ValueError(f"{fmt} with interlace method {interlace}: only "
+                         f"none and Adam7 exist")
+    px = _pass_samples(zlib.decompress(b"".join(idat)), width, height,
+                       depth, CHANNELS[ctype], interlace)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{fmt} without a PLTE chunk")
-        return palette[np.minimum(px[..., 0], len(palette) - 1)]
-    if ch <= 2:                                   # grey, grey + alpha
+        full = np.zeros((256, 3), np.uint8)    # past the end: black
+        full[:min(len(palette), 256)] = palette[:256]
+        return full[px[..., 0]]
+    if depth == 16:
+        # Pillow: 16-bit grey ("I;16") saturates, the rest keep the high
+        # byte
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(
+            np.uint8)
+    elif depth < 8:                               # grey at 1, 2 or 4 bits
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype in (0, 4):                           # grey, grey + alpha
         return np.repeat(px[..., :1], 3, axis=2)
-    return px[..., :3].copy()
+    return np.ascontiguousarray(px[..., :3])
+
+
+def format_of(data: bytes) -> str:
+    """The image format named by the file's signature: "PNG", "BMP" or
+    "JPEG" for the formats that decode here, else the name of another
+    known format, or "unknown"."""
+    head = data[:16]
+    if head.startswith(SIGNATURE):
+        return "PNG"
+    if head.startswith(b"BM"):
+        return "BMP"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    for sig, name in ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                      (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                      (b"DDS ", "DDS"), (b"qoif", "QOI"),
+                      (b"8BPS", "PSD"), (b"\x00\x00\x01\x00", "ICO"),
+                      (b"#?RADIANCE", "Radiance HDR"),
+                      (b"\x76\x2f\x31\x01", "OpenEXR")):
+        if head.startswith(sig):
+            return name
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    if head[:1] == b"P" and head[1:2] in b"1234567" and len(head) > 2:
+        return "PNM"
+    return "unknown"
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image file bytes -> [H, W, 3] uint8 RGB, row 0 = top, the decoder
+    chosen by the signature. ValueError naming the format for any other."""
+    fmt = format_of(data)
+    if fmt == "PNG":
+        return decode_png(data)
+    if fmt == "BMP":
+        return decode_bmp(data)
+    if fmt == "JPEG":
+        return jpeg.decode_jpeg(data)
+    what = ("an image of unknown format (its first bytes are "
+            f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
+    raise ValueError(f"{what}, not a PNG, BMP or JPEG file: {fmt} images "
+                     f"are not supported")
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load of a PNG: forced RGB, u8 -> f32 / 255."""
+    """stb_image-style load of a PNG, BMP or JPEG: forced RGB, u8 -> f32 /
+    255. ValueError naming the file and its format for any other."""
     with open(path, "rb") as f:
-        rgb = decode_png(f.read())
+        data = f.read()
+    try:
+        rgb = decode_image(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     h, w = rgb.shape[:2]
     return Image(width=w, height=h, pixels=rgb.astype(np.float32) / 255.0)
 
@@ -231,23 +351,156 @@ def write_bmp(path: str, img_f32: np.ndarray) -> None:
         f.write(header + rows.tobytes())
 
 
+def _rle_indices(data: bytes, pos: int, width: int, height: int,
+                 rle4: bool) -> np.ndarray:
+    """An RLE8 / RLE4 stream from data[pos:] -> palette indices [height *
+    width], rows in file order, as Pillow 12's BmpRleDecoder reads them
+    (the JAX loader's reference): runs past a row's end are cut, end of
+    line pads the row with index 0, end of bitmap stops, a delta skips
+    right + up x width pixels (set to 0) but reads its two offsets after
+    two other bytes, and an absolute run of n RLE4 pixels reads n // 2
+    bytes, realigned to an even offset in the file."""
+    out = bytearray()
+    total, x, n = width * height, 0, len(data)
+    while len(out) < total and pos + 2 <= n:
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:                                     # encoded run
+            count = min(count, max(0, width - x))
+            if rle4:
+                pair = bytes((byte >> 4, byte & 0x0F))
+                out += (pair * ((count + 1) // 2))[:count]
+            else:
+                out += bytes((byte,)) * count
+            x += count
+        elif byte == 0:                               # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:                               # end of bitmap
+            break
+        elif byte == 2:                               # delta
+            if pos + 2 > n:
+                break
+            pos += 2
+            right, up = data[pos:pos + 2]
+            pos += 2
+            out += bytes(right + up * width)
+            x = len(out) % width
+        else:                                         # absolute run
+            nbytes = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + nbytes]
+            pos += len(chunk)
+            if rle4:
+                out += bytes(v for b in chunk for v in (b >> 4, b & 0x0F))
+            else:
+                out += chunk
+            if len(chunk) < nbytes:
+                break
+            x += byte
+            pos += pos % 2
+    idx = np.zeros(total, np.uint8)
+    got = np.frombuffer(bytes(out[:total]), np.uint8)
+    idx[:len(got)] = got
+    return idx
+
+
+def _channel(px: np.ndarray, mask: int) -> np.ndarray:
+    """A bitfield channel of the pixels, expanded to 8 bits as Pillow's
+    unpackers do (v x 255 // max, the identity for 8-bit masks)."""
+    if not mask:
+        return np.zeros(px.shape, np.uint8)
+    shift = (mask & -mask).bit_length() - 1
+    top = mask >> shift
+    v = (px.astype(np.uint64) & mask) >> shift
+    return (v * 255 // top).astype(np.uint8)
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
+    `convert("RGB")` gives them. ValueError naming the format for a
+    BMP it cannot read (JPEG or PNG inside a BMP, other depths)."""
+    if len(data) < 26 or data[:2] != b"BM":
+        raise ValueError("not a BMP file")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    info = data[18:14 + hsize]
+    masks = None
+    if hsize == 12:                                   # OS/2 core header
+        w, h, _, bits = struct.unpack_from("<HHHH", info)
+        comp, colors, entry, top_down = 0, 0, 3, False
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        w, h, _, bits, comp = struct.unpack_from("<iiHHI", info)
+        colors = struct.unpack_from("<I", info, 28)[0]
+        entry, top_down = 4, h < 0
+        h = abs(h)
+        if comp == 3:                                 # BI_BITFIELDS
+            if hsize >= 52:
+                masks = struct.unpack_from("<III", info, 36)
+            else:
+                masks = struct.unpack_from("<III", data, 14 + hsize)
+    else:
+        raise ValueError(f"BMP with a {hsize}-byte header: only 12, 40, "
+                         f"52, 56, 64, 108 and 124 exist")
+    fmt = f"{bits}-bit BMP with compression {comp}"
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"{fmt}: only 1, 4, 8, 16, 24 and 32 bits a "
+                         f"pixel are supported")
+    if comp not in (0, 1, 2, 3) or (comp == 1 and bits != 8) or (
+            comp == 2 and bits != 4) or (comp == 3 and bits < 16):
+        names = {1: "RLE8", 2: "RLE4", 3: "bitfields", 4: "JPEG", 5: "PNG"}
+        raise ValueError(f"{fmt} ({names.get(comp, 'unknown')}): only "
+                         f"uncompressed, 8-bit RLE8, 4-bit RLE4 and 16- to "
+                         f"32-bit bitfield BMPs are supported")
+    colors = colors or 1 << bits
+    if offset == 14 + hsize and bits <= 8:            # as Pillow reads it
+        offset += 4 * colors
+    if comp in (1, 2):
+        idx = _rle_indices(data, offset, w, h, comp == 2)
+        px = idx.reshape(h, w)
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = np.frombuffer(data, np.uint8, stride * h, offset)
+        rows = rows.reshape(h, stride)
+        if bits < 8:
+            px = np.unpackbits(rows, axis=1).reshape(h, -1, bits)
+            px = (px * (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+                  ).sum(-1, dtype=np.uint8)[:, :w]
+        elif bits == 8:
+            px = rows[:, :w]
+        else:
+            raw = rows[:, :w * bits // 8].reshape(h, w, bits // 8)
+            px = (raw.astype(np.uint32)
+                  << (8 * np.arange(bits // 8, dtype=np.uint32))).sum(
+                -1, dtype=np.uint32)
+    if bits <= 8:
+        pal = np.frombuffer(data, np.uint8, entry * colors, 14 + hsize)
+        pal = pal.reshape(colors, entry)[:, 2::-1]
+        ramp = (0, 255) if colors == 2 else np.arange(colors)
+        if (pal == np.asarray(ramp)[:, None]).all() and colors <= 256:
+            # a grey palette: Pillow reads the indices as grey levels
+            rgb = np.repeat((px * np.uint8(255) if colors == 2
+                             else px)[..., None], 3, axis=2)
+        else:
+            full = np.zeros((256, 3), np.uint8)       # past the end: black
+            full[:min(colors, 256)] = pal[:256]
+            rgb = full[px]
+    else:
+        if masks is None:
+            masks = {16: (0x7C00, 0x3E0, 0x1F), 24: (0xFF0000, 0xFF00, 0xFF),
+                     32: (0xFF0000, 0xFF00, 0xFF)}[bits]
+        elif bits == 32 and masks == (0, 0, 0):       # Pillow: BGRA
+            masks = (0xFF0000, 0xFF00, 0xFF)
+        rgb = np.stack([_channel(px, m) for m in masks], axis=-1)
+    return np.ascontiguousarray(rgb if top_down else rgb[::-1])
+
+
 def read_bmp(path: str) -> np.ndarray:
-    """A BMP as write_bmp writes it (24-bit, uncompressed) back as
+    """A BMP (any that decode_bmp reads; write_bmp's among them) as
     [H, W, 3] float32 / 255, row 0 the top; other BMPs raise an error
     that names their format."""
     with open(path, "rb") as f:
         data = f.read()
-    if len(data) < 54 or data[:2] != b"BM":
-        raise ValueError(f"{path}: not a BMP file")
-    (_, _, _, _, offset, _, w, h, _, bpp, comp, *_) = struct.unpack(
-        _BMP_HEADER, data[:54])
-    if bpp != 24 or comp != 0:
-        raise ValueError(f"{path}: {bpp}-bit BMP with compression {comp}: "
-                         f"only uncompressed 24-bit BMP is supported")
-    stride = (w * 3 + 3) & ~3
-    rows = np.frombuffer(data, np.uint8, stride * abs(h), offset)
-    rgb = rows.reshape(abs(h), stride)[:, :w * 3].reshape(abs(h), w, 3)
-    rgb = rgb[:, :, ::-1]
-    if h > 0:                                   # bottom-up rows
-        rgb = rgb[::-1]
+    try:
+        rgb = decode_bmp(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     return rgb.astype(np.float32) / 255.0

@@ -34,22 +34,11 @@ from cge_tpu_torch.scene.image_io import Image
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load: forced RGB, u8 -> f32 / 255. PNG decodes
-    without Pillow (scene/image_io.py); any other format needs Pillow and
-    raises an error naming the format without it."""
-    if os.path.splitext(path)[1].lower() == ".png":
-        return image_io.load_image(path)
-    try:
-        from PIL import Image as PILImage
-    except ImportError:
-        raise ValueError(
-            f"{path}: {os.path.splitext(path)[1] or 'extensionless'} images "
-            f"need Pillow, which is not installed; only PNG decodes "
-            f"without it") from None
-    with PILImage.open(path) as im:
-        arr = np.asarray(im.convert("RGB"), np.uint8).astype(np.float32) / 255.0
-    h, w = arr.shape[:2]
-    return Image(width=w, height=h, pixels=arr)
+    """stb_image-style load: forced RGB, u8 -> f32 / 255. PNG, BMP and
+    JPEG decode without Pillow, the decoder chosen by the file's
+    signature (scene/image_io.py); another format raises an error naming
+    it."""
+    return image_io.load_image(path)
 
 
 @dataclasses.dataclass

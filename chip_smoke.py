@@ -166,7 +166,23 @@ exits non-zero if any phase fails:
      graphs, frames equal bit for bit, with the peak memory of each, the
      entries the graph cache holds (at most its MAX_ENTRIES), and no
      capture after the first camera (soft512's draws read their keys
-     from the graph's inputs).
+     from the graph's inputs);
+ 18. textures without Pillow (the card's machine has none): (a) every
+     fixture of tests/torch_textures/ (PNG at every depth, colour type and
+     interlace, BMP of every kind the port reads, baseline and
+     progressive JPEG; jax_references/make_textures.py) decoded through
+     the port's load_image, its u8 pixels' SHA-256 equal to the
+     manifest's (JAX's load_image through Pillow made them), each
+     decode's host ms; (b) scale512's 614,400-triangle dragon stand-in
+     with its body textured by the 1024x1024 progressive 4:2:0 JPEG
+     (map_Kd), loaded by load_scene_from_file on the card, rendered at
+     512x512 through render_image_u8 with scale512's features plus
+     texture mapping and bilinear filtering and the accel: the first
+     frame with eager bounces and the sort counted (K1, the sort and K2
+     must run), the rest through the graphs, every frame equal bit for
+     bit to the frame of the same scene textured by the 8-bit RGB PNG
+     that the port writes from the decoded texels; the scene's load s and
+     the frame ms.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -2947,6 +2963,166 @@ def graphs_path(device) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: textures decoded without Pillow
+# ---------------------------------------------------------------------------
+
+TEXTURES = os.path.join(REPO, "tests", "torch_textures")
+# the 1024x1024 progressive 4:2:0 JPEG the textured dragon wears
+TEX_JPEG = "jpeg_progressive_420_q90_1024.jpg"
+
+
+def texture_fixtures() -> list:
+    """Phase 18a: each fixture through the port's load_image, its u8
+    pixels' SHA-256 against the manifest's; (name, host ms) a fixture."""
+    import hashlib
+
+    import numpy as np
+
+    from cge_tpu_torch.scene import image_io
+
+    with open(os.path.join(TEXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    times, bad = [], []
+    for entry in manifest["files"]:
+        path = os.path.join(TEXTURES, entry["name"])
+        t0 = time.perf_counter()
+        img = image_io.load_image(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        u8 = np.rint(img.pixels * 255.0).astype(np.uint8)
+        if hashlib.sha256(u8.tobytes()).hexdigest() != entry["sha256"]:
+            bad.append(entry["name"])
+        times.append((entry["name"], ms))
+    if "PIL" in sys.modules:
+        raise AssertionError("decoding the textures imported Pillow")
+    if bad:
+        raise AssertionError(f"decoded textures differ from the manifest: "
+                             f"{bad}")
+    return times
+
+
+def textured_dragon(tmp, texture, grid, device):
+    """The dragon stand-in at `grid` with its body's map_Kd the file
+    `texture` (copied beside the OBJ), loaded on `device`; the load's
+    seconds."""
+    import shutil
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.scene.standin import write_obj
+
+    stem = os.path.splitext(os.path.basename(texture))[0]
+    os.makedirs(os.path.join(tmp, stem))
+    obj = os.path.join(tmp, stem, "dragon.obj")
+    write_obj(obj, *grid)
+    shutil.copy(texture, os.path.dirname(obj))
+    mtl = os.path.splitext(obj)[0] + ".mtl"
+    with open(mtl) as f:
+        text = f.read()
+    body = "newmtl dragonBody\n"
+    with open(mtl, "w") as f:
+        f.write(text.replace(
+            body, body + f"map_Kd {os.path.basename(texture)}\n"))
+    t0 = time.perf_counter()
+    scene = ct.load_scene_from_file(obj, [ct.PointLight(*LIGHT)],
+                                    device=device)
+    torch_sync(device)
+    return scene, time.perf_counter() - t0
+
+
+def torch_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def eleventh_path(device) -> dict:
+    """Phase 18: the texture fixtures (texture_fixtures), then the dragon
+    textured by the 1024x1024 JPEG at 512x512 with the accel against the
+    same dragon textured by the PNG the port writes from the decoded
+    texels."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from bench_torch import cells as bc
+    from cge_tpu_torch.ops import cluster_sweep
+    from cge_tpu_torch.render import graphs
+    from cge_tpu_torch.scene import image_io
+
+    log(f"[18] textures without Pillow: the fixtures, then the dragon "
+        f"textured by a 1024x1024 progressive JPEG | {SMI['line']} "
+        f"(decode and load times are the host's)")
+    times = texture_fixtures()
+    for i in range(0, len(times), 6):
+        log("  " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in times[i:i + 6]))
+    log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
+        f"manifest's, {sum(ms for _, ms in times):.1f} ms in all (host) | "
+        f"{SMI['line']}")
+    cell = bc.BY_NAME["scale512"]
+    feats = ct.Features(**dict(cell.features, enable_texture_mapping=True,
+                               enable_bilinear_texture_filtering=True))
+    params = ct.RenderParams(**cell.params)
+    jpeg = os.path.join(TEXTURES, TEX_JPEG)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, load_s = textured_dragon(tmp, jpeg, cell.grid, device)
+        sorts = []
+        real_sort = cluster_sweep.sort_keys
+
+        def counted_sort(keys):
+            sorts.append(keys.shape)
+            return real_sort(keys)
+
+        reset_launches()
+        cluster_sweep.sort_keys = counted_sort
+        try:
+            with graphs._eager_bounces():
+                first = ct.render_image_u8(scene, ct.Camera(), feats, params,
+                                           W, H)
+            torch_sync(device)
+        finally:
+            cluster_sweep.sort_keys = real_sort
+        launches = read_launches()
+        launches["sort"] = len(sorts)
+        if not (launches["keys"] and launches["walk"] and launches["sort"]):
+            raise AssertionError(f"the textured frame launched {launches}")
+        if launches["sweep"]:
+            raise AssertionError(f"the accel frame launched K3: {launches}")
+        frames, times_ms = [], []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            frames.append(ct.render_image_u8(scene, ct.Camera(), feats,
+                                             params, W, H))
+            end.record()
+            torch.cuda.synchronize()
+            times_ms.append(start.elapsed_time(end))
+        texels = image_io.load_image(jpeg).pixels
+        png = os.path.join(tmp, "texels.png")
+        image_io.write_png(png, np.rint(texels * 255).astype(np.uint8))
+        del scene
+        png_scene, png_load_s = textured_dragon(tmp, png, cell.grid,
+                                               device)
+        ref = ct.render_image_u8(png_scene, ct.Camera(), feats, params, W, H)
+        torch_sync(device)
+    same = [bool(torch.equal(f, ref)) for f in [first] + frames]
+    lit = float((ref.float().sum(-1) > 0).float().mean())
+    log(f"  18b: dragon ({cell.grid[0]}x{cell.grid[1]} grid) textured by "
+        f"{TEX_JPEG}: load {load_s:.2f} s (PNG texels: {png_load_s:.2f} s), "
+        f"launches of the first frame {launches}, frames ms "
+        f"{[round(x, 2) for x in times_ms]} median "
+        f"{float(np.median(times_ms)):.2f} ms, lit {lit:.3f}, equal to the "
+        f"PNG-textured frame: {same} | {SMI['line']}")
+    if not all(same):
+        raise AssertionError("the JPEG-textured frame differs from the "
+                             "frame textured by its PNG-written texels")
+    if lit < 0.05:
+        raise AssertionError(f"the textured frame is blank: {lit:.4f}")
+    return dict(fixtures=times, load_s=load_s, frame_ms=times_ms,
+                launches=launches)
+
+
 def multi_card(cards: int) -> int:
     """`python3 chip_smoke.py --cards N`: the sharded entry points on NCCL,
     one rank a card, over N cards (N even): the headline dragon frame at
@@ -3212,6 +3388,9 @@ def main() -> int:
 
     # phase 17: the bounces as CUDA graph replays against eager bounces
     graphs_path(device)
+
+    # phase 18: textures decoded without Pillow
+    eleventh_path(device)
 
     src = "cge_tpu_torch/csrc/cluster_sweep.cu"
     pallas = "cge_tpu/ops/pallas/cluster_sweep.py"

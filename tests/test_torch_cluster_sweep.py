@@ -9,6 +9,7 @@ sides; the scene and its packed tile stack are built once by JAX and
 carried across, so the walk is compared on identical constants.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from cge_tpu.scene.scene import load_scene_from_file as jload
 from cge_tpu_torch.ops import cluster_sweep as cs
 from cge_tpu_torch.ops.bvh import build_clusters
 from tools.make_large_asset import write_obj
+from torch_fused_tile import fma, tile_vpu_fused
 
 torch.set_num_threads(2)
 
@@ -319,6 +321,77 @@ def test_cluster_walk_twin_matches_pallas(dragon, batches, stacks, mode):
     if which != "primary":
         # the dead third of each block is skipped; some blocks stop early
         assert (visits.numpy() < (aabbs.shape[0] + sc_n - 1) // sc_n).any()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_walk_twin_equals_pallas_bits(dragon, batches, stacks, mode,
+                                            monkeypatch):
+    """With the dense tile's multiply-adds fused as XLA contracts the
+    interpreted kernel's (tests/torch_fused_tile.py patched over
+    cluster_sweep._tile_vpu), the twin's sweep equals
+    pallas_cluster_tris(interpret=True) bit for bit: hit mask, ids, visits,
+    and t exactly. The port's own tile rounds each product and sum apart,
+    and its t differs in the last bits (test_cluster_walk_twin_matches_
+    pallas): this op is the whole difference."""
+    which, layout, sc_n, any_hit, shared = MODES[mode]
+    o, d, tmax = batches[which]
+    aabbs, tiles = stacks[layout]
+    monkeypatch.setattr(cs, "_tile_vpu", tile_vpu_fused)
+    got = cs.cluster_tris(_t(o), _t(d), _t(tmax), _t(aabbs), _t(tiles),
+                          layout, br=BR, sc_n=sc_n, any_hit=any_hit,
+                          shared_origin=shared)
+    ref = [np.asarray(x) for x in pallas_cluster_tris(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jnp.asarray(aabbs),
+        jnp.asarray(tiles), dragon.cluster_perm, br=BR, sc_n=sc_n,
+        any_hit=any_hit, shared_origin=shared, interpret=True,
+        with_stats=True, perm_ids=True)]
+    np.testing.assert_array_equal(got[0].numpy(), ref[0])
+    if not any_hit:
+        np.testing.assert_array_equal(got[1].numpy(), ref[1])
+    np.testing.assert_array_equal(got[-1].numpy(), ref[2])
+
+
+def _jax_tile(tri, o, d):
+    """The JAX kernel's dense tile (cluster_sweep.py:409-432) as XLA
+    compiles it on this CPU: t and the edge tests of [C, 16] triangle rows
+    against [3, BR] rays."""
+    col = [tri[:, k:k + 1] for k in range(16)]
+    dn = d[0] * col[0] + d[1] * col[1] + d[2] * col[2]
+    on = o[0] * col[0] + o[1] * col[1] + o[2] * col[2]
+    t = (col[3] - on) / dn
+    p = [o[k] + t * d[k] for k in range(3)]
+    inside = None
+    for k in range(3):
+        mx, my, mz, b = col[4 * k + 4: 4 * k + 8]
+        e = (p[0] * mx - b) + p[1] * my + p[2] * mz >= 0
+        inside = e if inside is None else inside & e
+    return t, inside
+
+
+def test_dense_tile_fuses_as_the_jax_kernel(stacks, batches):
+    """The test's fused multiply-add rounds a * b + c as XLA's contracted
+    multiply-add on this CPU (a seeded sample over 24 decades, inside
+    float32's normal range: XLA flushes results under it to zero), and the
+    fused dense tile gives the jitted JAX tile's t bit for bit and its
+    edge tests exactly, on the dragon's triangle rows against the bounce
+    batch, origins per ray and shared."""
+    rng = np.random.default_rng(11)
+    a, b, c = ((rng.normal(size=1 << 16) * 10.0 ** rng.integers(
+        -6, 6, 1 << 16)).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
+    np.testing.assert_array_equal(fma(_t(a), _t(b), _t(c)).numpy(), want)
+    _, tiles = stacks["triangle"]
+    o, d, _ = batches["bounce"]
+    for shared in (False, True):
+        oo = np.repeat(o[:1], len(o), axis=0) if shared else o
+        r = np.zeros((1, 8, len(o)), np.float32)
+        r[0, 0:3], r[0, 3:6] = oo.T, d.T
+        for cl in (0, 7):
+            t, inside = tile_vpu_fused(_t(tiles[cl][None]), _t(r), shared)
+            jt, jin = jax.jit(_jax_tile)(tiles[cl], oo.T, d.T)
+            np.testing.assert_array_equal(t[0].numpy(), np.asarray(jt))
+            np.testing.assert_array_equal(inside[0].numpy(),
+                                          np.asarray(jin))
 
 
 @pytest.fixture(scope="module")

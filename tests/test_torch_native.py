@@ -15,7 +15,8 @@ glass variants (cge_tpu_torch/tools/common.py):
     node for node, and the numpy twin in levels, leaves, max per leaf and
     leaf spans;
   - a failed build raises with the compiler's output, never falls back;
-  - the loader and both builders run clean under ASan and UBSan.
+  - the loader and both builders run clean under ASan and UBSan, and so
+    does the JPEG decoder (cge_image.cpp) on whole and damaged files.
 """
 
 import os
@@ -300,3 +301,76 @@ def test_host_library_under_asan_ubsan(objs, tmp_path):
                                 ASAN_OPTIONS="detect_leaks=1"))
     assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
     assert r.stdout.count("SANITIZED_OK") == 2
+
+
+JPEG_MAIN = r"""
+#include <cstdio>
+#include <vector>
+extern "C" {
+int cge_jpeg_info(const unsigned char*, long, int*, int*, char*, int);
+int cge_jpeg_decode(const unsigned char*, long, unsigned char*, long, char*,
+                    int);
+}
+// Each file whole, then cut at eight lengths and with bytes flipped: a
+// whole file must decode; a damaged one may decode or fail, never fault.
+static int run(const std::vector<unsigned char>& d, bool whole) {
+    int w = 0, h = 0;
+    char err[256];
+    if (cge_jpeg_info(d.data(), (long)d.size(), &w, &h, err, 256))
+        return whole ? 1 : 0;
+    std::vector<unsigned char> rgb((size_t)w * h * 3);
+    int rc = cge_jpeg_decode(d.data(), (long)d.size(), rgb.data(),
+                             (long)rgb.size(), err, 256);
+    return whole && rc ? 1 : 0;
+}
+int main(int argc, char** argv) {
+    for (int i = 1; i < argc; ++i) {
+        FILE* f = std::fopen(argv[i], "rb");
+        if (!f) return 2;
+        std::vector<unsigned char> d;
+        int c;
+        while ((c = std::fgetc(f)) != EOF) d.push_back((unsigned char)c);
+        std::fclose(f);
+        if (run(d, true)) { std::fprintf(stderr, "%s\n", argv[i]); return 1; }
+        for (int k = 1; k <= 8; ++k) {
+            std::vector<unsigned char> cut(d.begin(),
+                                           d.begin() + d.size() * k / 9);
+            run(cut, false);
+            std::vector<unsigned char> flip = d;
+            for (size_t j = d.size() * k / 9; j < d.size(); j += 97)
+                flip[j] ^= (unsigned char)(0x5A + k);
+            run(flip, false);
+        }
+        std::printf("SANITIZED_OK %s\n", argv[i]);
+    }
+    return 0;
+}
+"""
+
+
+def test_jpeg_decoder_under_asan_ubsan(tmp_path):
+    """cge_image.cpp with the library's flags plus
+    -fsanitize=address,undefined at -O0, linked to a main program that
+    decodes every small JPEG fixture (tests/torch_textures/) whole, cut
+    short at eight lengths and with bytes flipped: whole files decode,
+    damaged ones decode or fail with a message, and none faults."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures")
+    files = sorted(os.path.join(fixtures, f) for f in os.listdir(fixtures)
+                   if f.endswith(".jpg") and "1024" not in f)
+    assert len(files) >= 16
+    main = tmp_path / "main.cpp"
+    main.write_text(JPEG_MAIN)
+    exe = tmp_path / "san"
+    flags = [f for f in native.CXXFLAGS if f not in ("-fPIC", "-O2")]
+    subprocess.run([native.CXX, "-O0", *flags, "-g",
+                    "-fno-omit-frame-pointer",
+                    "-fsanitize=address,undefined", native.IMAGE_SOURCE,
+                    str(main), "-o", str(exe)], check=True, timeout=300,
+                   capture_output=True)
+    r = subprocess.run([str(exe), *files], capture_output=True, text=True,
+                       timeout=120,
+                       env=dict(os.environ, UBSAN_OPTIONS="halt_on_error=1",
+                                ASAN_OPTIONS="detect_leaks=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(files)

@@ -18,11 +18,12 @@ carried across as numpy:
   (b) the prims-sharded brute sweep likewise (ids exactly, t to rtol
       1e-5 / atol 2e-6, ROADMAP section 3's brute-path rounding);
   (c) render_image_sharded at meshes (rays, prims) = (4, 1), (1, 2) and
-      (2, 2), accel on and off, against JAX's render_image_sharded on the
-      same mesh under the image rule (NaN masks agree, >= 99.5% of pixels
-      within rtol 1e-4 / atol 2e-4), one with soft shadows (samples keyed
-      by global ray id); the rays-only mesh equal bit for bit to the
-      port's own render_image with a trace_chunk that divides the shard;
+      (2, 2), accel on and off, and a 21x15 frame the rays axis does not
+      divide, each against JAX's render_image_sharded on the same mesh
+      under the image rule (NaN masks agree, >= 99.5% of pixels within
+      rtol 1e-4 / atol 2e-4), one with soft shadows (samples keyed by
+      global ray id); the rays-only mesh equal bit for bit to the port's
+      own render_image with a trace_chunk that divides the shard;
   (e) a prims_axis that no bound mesh names, or of the wrong size, raises.
 The train step is in test_torch_sharding_train.py.
 """
@@ -75,17 +76,19 @@ CHUNK = 64
 # frame keys pixel p's samples by (prng_key(seed), p), as JAX's sharded
 # render does, and render_image by (fold_in(key, 3), tile-order id), so the
 # soft frame is held to JAX's sharded frame only. Each JAX comparison
-# compiles a sharded render (13-22 s on this CPU), so JAX renders four of
-# the seven frames.
+# compiles a sharded render (13-22 s on this CPU, in threads beside the
+# rank worlds), and every frame meets JAX's.
 RENDERS = (
     ("off_4x1", "dragon", HEADLINE, False, (4, 1), ("jax", "exact")),
-    ("on_4x1", "dragon", HEADLINE, True, (4, 1), ("exact",)),
-    ("off_1x2", "dragon", HEADLINE, False, (1, 2), ("image",)),
+    ("on_4x1", "dragon", HEADLINE, True, (4, 1), ("jax", "exact")),
+    ("off_1x2", "dragon", HEADLINE, False, (1, 2), ("jax", "image")),
     ("on_1x2", "dragon", HEADLINE, True, (1, 2), ("jax", "image")),
     ("on_2x2", "dragon", HEADLINE, True, (2, 2), ("jax", "image")),
-    ("off_2x2", "dragon", HEADLINE, False, (2, 2), ("image",)),
+    ("off_2x2", "dragon", HEADLINE, False, (2, 2), ("jax", "image")),
     ("soft_2x2", "soft", SOFT, False, (2, 2), ("jax",)),
 )
+# the frame the rays axis does not divide: 21 x 15 = 315 rays over 4 ranks
+PAD = (21, 15)
 # (name, scene, accel layout or None for the brute sweep): 20 clusters in
 # shards of 10; 5 clusters padded to 6, shards of 3, field-major (4
 # clusters a visit: each shard pads to 4 again)
@@ -170,12 +173,12 @@ def _jax_sweep(js, layout):
             ("hit", "t", "is_sphere", "prim")}
 
 
-def _jax_render(js, feats, mesh):
+def _jax_render(js, feats, mesh, size=(W, H)):
     jmesh = jshard.make_mesh(("rays", "prims"), mesh,
                              devices=jax.devices()[:mesh[0] * mesh[1]])
     return np.asarray(jshard.render_image_sharded(
         js, cge_tpu.Camera(), cge_tpu.Features(**feats),
-        cge_tpu.RenderParams(trace_chunk=CHUNK), W, H, jmesh, seed=3))
+        cge_tpu.RenderParams(trace_chunk=CHUNK), *size, jmesh, seed=3))
 
 
 @pytest.fixture(scope="module")
@@ -195,10 +198,10 @@ def results(scenes, tmp_path_factory):
             kind="render", name=name, scene=scene, mesh=mesh, width=W,
             height=H, seed=3, params=dict(trace_chunk=CHUNK),
             features={**feats, "enable_accel_structure": accel}))
-    # a frame the rays axis does not divide: 21 x 15 = 315 rays
+    # a frame the rays axis does not divide
     jobs[4].append(dict(kind="render", name="pad_4x1", scene="dragon",
-                        mesh=(4, 1), width=21, height=15, features=HEADLINE,
-                        params=dict(trace_chunk=CHUNK)))
+                        mesh=(4, 1), width=PAD[0], height=PAD[1],
+                        features=HEADLINE, params=dict(trace_chunk=CHUNK)))
     for name, scene, layout in SWEEPS:
         jobs[2].append(dict(kind="sweep", name=name, scene=scene,
                             mesh=(1, 2), accel=layout is not None,
@@ -216,6 +219,8 @@ def results(scenes, tmp_path_factory):
             {**feats, "enable_accel_structure": accel}, mesh)
             for name, scene, feats, accel, mesh, compare in RENDERS
             if "jax" in compare})
+        ref["pad_4x1"] = ex.submit(_jax_render, scenes["dragon"], HEADLINE,
+                                   (4, 1), PAD)
         return ranks(), {k: v.result() for k, v in ref.items()}
 
 
@@ -295,14 +300,14 @@ def test_render_image_sharded(scenes, results, name, scene, feats, accel,
 
 def test_render_with_pad_rays(scenes, results):
     """315 rays over 4 rank shards of 79: the pad ray is cut away and the
-    frame is the single-device frame."""
+    frame is the single-device frame, and JAX's sharded frame."""
     img = results[0]["pad_4x1"]
     assert img.shape == (15, 21, 3)
     single = ct.render_image(_port(scenes["dragon"]), ct.Camera(),
                              ct.Features(**HEADLINE),
-                             ct.RenderParams(trace_chunk=CHUNK), 21,
-                             15).numpy()
+                             ct.RenderParams(trace_chunk=CHUNK), *PAD).numpy()
     _image_rule(img, single)
+    _image_rule(img, results[1]["pad_4x1"])
 
 
 def test_prims_axis_outside_a_mesh_raises(scenes, results):

@@ -13,11 +13,13 @@ port's single-device loss_and_grads + sgd_step: the loss within 1e-6
 relative, every gradient within 1e-4 of its norm (the mean's and the
 all-reduce's summation order), and the new leaves are sgd_step's. JAX's
 train_step_sharded (conftest's virtual CPU devices) compiles in 25-40 s a
-mesh and set on this CPU, the tree's in over 4 minutes, so three pairs
-meet it: the hard-shadow set at (2, 1)
+mesh and set on this CPU, the tree's in 191 s at (2, 1) (measured beside
+two other busy processes), so each set but the tree meets it, at one
+mesh: the hard-shadow set at (2, 1)
 with 11x11 rays (the rays axis does not divide them: one zero pad ray
 counts in the loss, as in JAX), the soft set at (1, 2) and the textured
-set at (2, 2); the others meet JAX through the single-device step, which
+set at (2, 2); the tree and the other meshes meet JAX through the
+single-device step, which
 test_torch_gradients.py holds to jax.value_and_grad. There the loss
 within test_torch_gradients.py's LOSS_RTOL and each updated leaf within
 its gradient rule (rtol 2e-3, atol 1e-4 x max |g|) times lr, plus the
