@@ -1,17 +1,20 @@
 """The native host library: OBJ loader, cluster builder and reference BVH
-builder in C++ (counterpart of cge_tpu/native), and the JPEG decoder of the
-texture loader.
+builder in C++ (counterpart of cge_tpu/native), and the byte-serial parts
+of the texture loader.
 
 `cge_host.cpp` is this package's own copy of the JAX package's source, and
-`cge_image.cpp` the port's JPEG decoder (scene/jpeg.py). Both are compiled
-at first use by `g++` with the flags of the JAX package's Makefile
-(CXXFLAGS, warnings as errors) into one library in `build/cge_tpu_torch/`
-at the repository root, named by a hash of the sources, compiler and
-flags, and loaded with ctypes; no binary is committed. A failed build
-raises with the compiler's output: nothing falls back to the numpy code
-or to Pillow. The numpy loader and builders (scene/mesh_io.py,
-ops/bvh.py) are the library's twins and run where a caller passes
-`use_native=False`; the JPEG decoder has none.
+`cge_image.cpp` the port's image decoding that runs byte by byte: JPEG
+(scene/jpeg.py), PNG row filters (scene/image_io.py), TGA run-length
+packets (scene/tga.py), GIF LZW (scene/gif.py) and PSD PackBits
+(scene/psd.py). Both are compiled at first use by `g++` with the flags of
+the JAX package's Makefile (CXXFLAGS, warnings as errors) into one library
+in `build/cge_tpu_torch/` at the repository root, named by a hash of the
+sources, compiler and flags, and loaded with ctypes; no binary is
+committed. A failed build raises with the compiler's output: nothing falls
+back to the numpy code or to Pillow. The numpy loader and builders
+(scene/mesh_io.py, ops/bvh.py) are the library's twins and run where a
+caller passes `use_native=False`; the image decoders have none (the PNG
+row filters' Python twin lives in the tests).
 """
 
 from __future__ import annotations
@@ -52,6 +55,14 @@ _SIGNATURES = {
                            ctypes.c_char_p, _I]),
     "cge_jpeg_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
                              ctypes.c_long, ctypes.c_char_p, _I]),
+    "cge_png_unfilter": (_I, [ctypes.c_char_p, ctypes.c_long, _I,
+                              ctypes.c_long, _I, _P, ctypes.c_char_p, _I]),
+    "cge_tga_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, _I,
+                         ctypes.c_long, _I, _P, ctypes.c_char_p, _I]),
+    "cge_packbits": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                          ctypes.c_long, _I, _P, ctypes.c_char_p, _I]),
+    "cge_gif_lzw": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, _I,
+                         _I, _I, _I, _P, ctypes.c_char_p, _I]),
 }
 
 
@@ -192,3 +203,70 @@ def build_bvh(lo: np.ndarray, hi: np.ndarray, centers: np.ndarray,
     return (node_lo[:count].copy(), node_hi[:count].copy(),
             node_meta[:count].copy(), perm,
             (int(stats[0]), int(stats[1]), int(stats[2])))
+
+
+# Pillow's decompression-bomb limit (twice Image.MAX_IMAGE_PIXELS), past
+# which its Image.open refuses an image: the decoders refuse such an image
+# before they allocate it
+MAX_PIXELS = 2 * 89478485
+
+
+def check_pixels(fmt: str, width: int, height: int) -> None:
+    """ValueError for an image of more than MAX_PIXELS pixels."""
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"{fmt} of {width}x{height} pixels: past Pillow's "
+                         f"limit of {MAX_PIXELS} pixels")
+
+
+def decode_call(fn, *args) -> None:
+    """Call an image entry point of the library; ValueError with its
+    message when it fails."""
+    err = ctypes.create_string_buffer(512)
+    if fn(*args, err, len(err)):
+        raise ValueError(err.value.decode())
+
+
+def png_unfilter(raw: bytes, height: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """PNG scanlines [height, 1 + stride] (filter byte first) -> the rows
+    [height, stride] uint8 with each filter undone (PNG spec section 9)."""
+    out = np.empty((height, stride), np.uint8)
+    decode_call(library().cge_png_unfilter, raw, len(raw), height, stride,
+                bpp, out.ctypes.data)
+    return out
+
+
+def tga_rle(data: bytes, offset: int, depth: int, row_bytes: int,
+            rows: int) -> np.ndarray:
+    """TGA run-length packets of depth-byte pixels from data[offset:] ->
+    rows [rows, row_bytes] uint8 in the file's order, as Pillow reads them:
+    a literal packet flows on into the next row, a run packet must end in
+    its row."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    decode_call(library().cge_tga_rle, data, len(data), offset, depth,
+                row_bytes, rows, out.ctypes.data)
+    return out
+
+
+def packbits(data: bytes, offset: int, row_bytes: int,
+             rows: int) -> np.ndarray:
+    """PackBits rows from data[offset:] -> [rows, row_bytes] uint8, as
+    Pillow reads them: a packet that runs past its row's end is cut."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    decode_call(library().cge_packbits, data, len(data), offset,
+                row_bytes, rows, out.ctypes.data)
+    return out
+
+
+def gif_lzw(data: bytes, offset: int, bits: int, out: np.ndarray,
+            interlace: bool) -> None:
+    """Decode a GIF image's LZW sub-blocks from data[offset:] (just past
+    its minimum code size `bits`) into out [h, w] uint8 in place: rows in
+    order or in the four interlaced passes, up to the last pixel (a stream
+    that ends before it is an error, as in Pillow)."""
+    if out.dtype != np.uint8 or out.ndim != 2 or not out.flags.c_contiguous:
+        raise ValueError("gif_lzw writes into a C-contiguous uint8 [h, w] "
+                         "array")
+    h, w = out.shape
+    decode_call(library().cge_gif_lzw, data, len(data), offset, bits, w,
+                h, int(interlace), out.ctypes.data)

@@ -1,8 +1,12 @@
-// JPEG decoding for the port's texture loader (cge_tpu_torch/scene/jpeg.py).
+// Byte-serial decoding for the port's texture loader
+// (cge_tpu_torch/scene/image_io.py and the format modules beside it).
 //
-// The JAX package loads a texture through Pillow, which decodes JPEG with
-// libjpeg-turbo and its defaults. This file decodes the same files to the
-// same bytes:
+// The JAX package loads a texture through Pillow. This file holds the parts
+// of decoding that run byte by byte, each giving the bytes Pillow 12's
+// decoders give; headers, palettes, orientation and colour conversion stay
+// in numpy.
+//
+// JPEG (scene/jpeg.py), as libjpeg-turbo decodes it with Pillow's defaults:
 //
 //   - baseline and extended sequential Huffman (SOF0, SOF1) and progressive
 //     Huffman (SOF2: spectral selection and successive approximation), 8-bit
@@ -22,13 +26,23 @@
 // YCCK), other samplings (4:4:0, 4:1:1, ...), and progressive files whose
 // scans leave a low coefficient unrefined (libjpeg smooths those blocks).
 //
+// The others, each a loop over a stream that numpy cannot split:
+//
+//   - PNG row filters (cge_png_unfilter): None, Sub, Up, Average and Paeth;
+//   - TGA run-length packets (cge_tga_rle), as Pillow's TgaRleDecode.c;
+//   - GIF LZW with its sub-blocks and interlaced rows (cge_gif_lzw), as
+//     Pillow's GifDecode.c;
+//   - PackBits rows of PSD (cge_packbits), as Pillow's PackDecode.c.
+//
 // Entry points (C ABI, loaded with ctypes): cge_jpeg_info parses the
 // headers and gives the size; cge_jpeg_decode writes [H][W][3] RGB bytes,
-// row 0 the top. Both return 0, or -1 with a message in err.
+// row 0 the top; the others write the bytes their comments name. Each
+// returns 0, or -1 with a message in err, and reads no byte past n.
 
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <exception>
 #include <string>
@@ -36,11 +50,11 @@
 
 namespace {
 
-struct JpegError {
+struct DecodeError {
     std::string what;
 };
 
-[[noreturn]] void fail(const std::string& what) { throw JpegError{what}; }
+[[noreturn]] void fail(const std::string& what) { throw DecodeError{what}; }
 
 // zigzag index -> natural (row-major) index
 const int kNatural[64] = {
@@ -866,8 +880,234 @@ void Decoder::decode(uint8_t* rgb) {
     }
 }
 
+// PNG spec section 9: rows [height][1 + stride] in, [height][stride] out.
+void png_unfilter(const uint8_t* raw, size_t n, int height, size_t stride,
+                  int bpp, uint8_t* out) {
+    if (height < 0 || bpp < 1) fail("bad PNG row geometry");
+    if (static_cast<size_t>(height) * (stride + 1) > n)
+        fail("PNG image data is truncated");
+    std::vector<uint8_t> zero(stride, 0);
+    const uint8_t* prior = zero.data();
+    const size_t b = static_cast<size_t>(bpp);
+    for (int y = 0; y < height; ++y) {
+        const uint8_t* line = raw + static_cast<size_t>(y) * (stride + 1);
+        const int kind = line[0];
+        ++line;
+        uint8_t* cur = out + static_cast<size_t>(y) * stride;
+        switch (kind) {
+        case 0:
+            std::memcpy(cur, line, stride);
+            break;
+        case 1:
+            for (size_t x = 0; x < stride; ++x)
+                cur[x] = static_cast<uint8_t>(line[x] +
+                                              (x >= b ? cur[x - b] : 0));
+            break;
+        case 2:
+            for (size_t x = 0; x < stride; ++x)
+                cur[x] = static_cast<uint8_t>(line[x] + prior[x]);
+            break;
+        case 3:
+            for (size_t x = 0; x < stride; ++x) {
+                const int a = x >= b ? cur[x - b] : 0;
+                cur[x] = static_cast<uint8_t>(line[x] + ((a + prior[x]) >> 1));
+            }
+            break;
+        case 4:
+            for (size_t x = 0; x < stride; ++x) {
+                const int a = x >= b ? cur[x - b] : 0;
+                const int up = prior[x];
+                const int c = x >= b ? prior[x - b] : 0;
+                const int p = a + up - c;
+                const int pa = std::abs(p - a), pb = std::abs(p - up),
+                          pc = std::abs(p - c);
+                const int pred = (pa <= pb && pa <= pc) ? a : pb <= pc ? up : c;
+                cur[x] = static_cast<uint8_t>(line[x] + pred);
+            }
+            break;
+        default:
+            fail("PNG row " + std::to_string(y) + " has unknown filter type " +
+                 std::to_string(kind));
+        }
+        prior = cur;
+    }
+}
+
+// Pillow's TgaRleDecode.c: rows of row_bytes in stream order. A run packet
+// must end within its row (Pillow: buffer overrun); a literal packet flows
+// on into the next rows. Bytes past the last row are not read.
+void tga_rle(const uint8_t* data, size_t n, size_t pos, int depth,
+             size_t row_bytes, int rows, uint8_t* out) {
+    if (depth < 1 || depth > 4 || rows < 0 || row_bytes == 0)
+        fail("bad TGA RLE geometry");
+    const size_t total = row_bytes * static_cast<size_t>(rows);
+    size_t done = 0;  // bytes written
+    while (done < total) {
+        if (pos >= n) fail("TGA image data is truncated");
+        const size_t count =
+            static_cast<size_t>((data[pos] & 0x7F) + 1) * depth;
+        const size_t x = done % row_bytes;
+        if (data[pos] & 0x80) {
+            if (pos + 1 + depth > n) fail("TGA image data is truncated");
+            if (x + count > row_bytes)
+                fail("a TGA run-length packet runs past the end of its row");
+            for (size_t i = 0; i < count; i += depth)
+                std::memcpy(out + done + i, data + pos + 1, depth);
+            done += count;
+            pos += 1 + depth;
+        } else {
+            if (pos + 1 + count > n) fail("TGA image data is truncated");
+            const size_t take = std::min(count, total - done);
+            std::memcpy(out + done, data + pos + 1, take);
+            done += take;
+            pos += 1 + count;
+        }
+    }
+}
+
+// Pillow's PackDecode.c: rows of row_bytes in stream order; a packet that
+// runs past its row's end is cut there, and 0x80 is a no-op.
+void packbits(const uint8_t* data, size_t n, size_t pos, size_t row_bytes,
+              int rows, uint8_t* out) {
+    if (rows < 0 || row_bytes == 0) fail("bad PackBits geometry");
+    for (int y = 0; y < rows; ++y) {
+        uint8_t* row = out + static_cast<size_t>(y) * row_bytes;
+        size_t x = 0;
+        while (x < row_bytes) {
+            if (pos >= n) fail("PackBits data is truncated");
+            const int head = data[pos];
+            if (head == 0x80) {
+                ++pos;
+            } else if (head & 0x80) {
+                if (pos + 2 > n) fail("PackBits data is truncated");
+                const size_t count =
+                    std::min<size_t>(257 - head, row_bytes - x);
+                std::memset(row + x, data[pos + 1], count);
+                x += count;
+                pos += 2;
+            } else {
+                const size_t count = head + 1;
+                if (pos + 1 + count > n) fail("PackBits data is truncated");
+                const size_t take = std::min(count, row_bytes - x);
+                std::memcpy(row + x, data + pos + 1, take);
+                x += take;
+                pos += 1 + count;
+            }
+        }
+    }
+}
+
+// Pillow's GifDecode.c: the LZW codes of the sub-blocks from pos (just past
+// the minimum code size), written as indices (the code's low byte) into
+// out [height][width] in row order, or in the four interlaced passes.
+// Codes are read until the last row is full; an end code, a terminator or
+// the end of the file before that is an error, as in Pillow.
+void gif_lzw(const uint8_t* data, size_t n, size_t pos, int bits, int width,
+             int height, bool interlace, uint8_t* out) {
+    if (bits < 0 || bits > 12 || width <= 0 || height <= 0)
+        fail("bad GIF image geometry");
+    const int kTable = 4096;
+    std::vector<uint16_t> prefix(kTable), length(kTable);
+    std::vector<uint8_t> suffix(kTable), first(kTable), stack(kTable);
+    const int clear = 1 << bits, end = clear + 1;
+    for (int c = 0; c < clear && c < kTable; ++c) {
+        suffix[c] = first[c] = static_cast<uint8_t>(c);
+        length[c] = 1;
+    }
+    int width_bits = bits + 1, next = end + 1, prev = -1;
+    // the output cursor
+    int x = 0, y = 0, pass = 0, step = interlace ? 8 : 1;
+    auto emit = [&](uint8_t v) -> bool {  // true once the last row is full
+        out[static_cast<size_t>(y) * width + x] = v;
+        if (++x < width) return false;
+        x = 0;
+        y += step;
+        while (y >= height) {
+            if (!interlace || pass == 3) return true;
+            static const int kStart[4] = {0, 4, 2, 1}, kStep[4] = {8, 8, 4, 2};
+            ++pass;
+            y = kStart[pass];
+            step = kStep[pass];
+        }
+        return false;
+    };
+    uint32_t acc = 0;
+    int nbits = 0;
+    size_t block_left = 0;
+    for (;;) {
+        // fill the bit buffer from the sub-blocks
+        while (nbits < width_bits) {
+            if (block_left == 0) {
+                if (pos >= n) fail("GIF image data is truncated");
+                block_left = data[pos++];
+                // Pillow decodes a sub-block only once all of it is there
+                if (block_left == 0 || block_left > n - pos)
+                    fail("GIF image data is truncated");
+            }
+            acc |= static_cast<uint32_t>(data[pos++]) << nbits;
+            nbits += 8;
+            --block_left;
+        }
+        const int code = static_cast<int>(acc & ((1u << width_bits) - 1));
+        acc >>= width_bits;
+        nbits -= width_bits;
+        if (code == clear) {
+            width_bits = bits + 1;
+            next = end + 1;
+            prev = -1;
+            continue;
+        }
+        if (code == end) fail("GIF image data ends before its last pixel");
+        int top = 0;
+        if (prev < 0) {
+            if (code > clear) fail("broken GIF data stream");
+            stack[top++] = static_cast<uint8_t>(code);
+        } else {
+            if (code > next || (code == next && next >= kTable))
+                fail("broken GIF data stream");
+            int c = code;
+            if (code == next) {  // KwKwK: prev's string and its first byte
+                stack[top++] = first[prev];
+                c = prev;
+            }
+            while (c >= clear) {
+                if (c >= kTable || top >= kTable)
+                    fail("broken GIF data stream");
+                stack[top++] = suffix[c];
+                c = prefix[c];
+            }
+            if (top >= kTable) fail("broken GIF data stream");
+            stack[top++] = static_cast<uint8_t>(c);
+            if (next < kTable) {
+                prefix[next] = static_cast<uint16_t>(prev);
+                suffix[next] = static_cast<uint8_t>(c);
+                first[next] = first[prev];
+                ++next;
+                if (next == (1 << width_bits) && width_bits < 12) ++width_bits;
+            }
+        }
+        while (top > 0)
+            if (emit(stack[--top])) return;
+        prev = code;
+    }
+}
+
 void copy_error(const std::string& what, char* err, int errlen) {
     if (err && errlen > 0) std::snprintf(err, errlen, "%s", what.c_str());
+}
+
+// Runs body; 0, or -1 with the message of what it threw in err.
+template <class Body>
+int guarded(char* err, int errlen, Body body) {
+    try {
+        body();
+        return 0;
+    } catch (const DecodeError& e) {
+        copy_error(e.what, err, errlen);
+    } catch (const std::exception& e) {
+        copy_error(e.what(), err, errlen);
+    }
+    return -1;
 }
 
 }  // namespace
@@ -876,35 +1116,59 @@ extern "C" {
 
 int cge_jpeg_info(const unsigned char* data, long n, int* width, int* height,
                   char* err, int errlen) {
-    try {
+    return guarded(err, errlen, [&] {
         Decoder d(data, static_cast<size_t>(n));
         d.parse_headers();
         *width = d.width;
         *height = d.height;
-        return 0;
-    } catch (const JpegError& e) {
-        copy_error(e.what, err, errlen);
-    } catch (const std::exception& e) {
-        copy_error(e.what(), err, errlen);
-    }
-    return -1;
+    });
 }
 
 int cge_jpeg_decode(const unsigned char* data, long n, unsigned char* rgb,
                     long capacity, char* err, int errlen) {
-    try {
+    return guarded(err, errlen, [&] {
         Decoder d(data, static_cast<size_t>(n));
         d.parse_headers();
         if (static_cast<long>(d.width) * d.height * 3 > capacity)
             fail("the output buffer is too small");
         d.decode(rgb);
-        return 0;
-    } catch (const JpegError& e) {
-        copy_error(e.what, err, errlen);
-    } catch (const std::exception& e) {
-        copy_error(e.what(), err, errlen);
-    }
-    return -1;
+    });
+}
+
+int cge_png_unfilter(const unsigned char* raw, long n, int height,
+                     long stride, int bpp, unsigned char* out, char* err,
+                     int errlen) {
+    return guarded(err, errlen, [&] {
+        png_unfilter(raw, static_cast<size_t>(n), height,
+                     static_cast<size_t>(stride), bpp, out);
+    });
+}
+
+int cge_tga_rle(const unsigned char* data, long n, long offset, int depth,
+                long row_bytes, int rows, unsigned char* out, char* err,
+                int errlen) {
+    return guarded(err, errlen, [&] {
+        tga_rle(data, static_cast<size_t>(n), static_cast<size_t>(offset),
+                depth, static_cast<size_t>(row_bytes), rows, out);
+    });
+}
+
+int cge_packbits(const unsigned char* data, long n, long offset,
+                 long row_bytes, int rows, unsigned char* out, char* err,
+                 int errlen) {
+    return guarded(err, errlen, [&] {
+        packbits(data, static_cast<size_t>(n), static_cast<size_t>(offset),
+                 static_cast<size_t>(row_bytes), rows, out);
+    });
+}
+
+int cge_gif_lzw(const unsigned char* data, long n, long offset, int bits,
+                int width, int height, int interlace, unsigned char* out,
+                char* err, int errlen) {
+    return guarded(err, errlen, [&] {
+        gif_lzw(data, static_cast<size_t>(n), static_cast<size_t>(offset),
+                bits, width, height, interlace != 0, out);
+    });
 }
 
 }  // extern "C"

@@ -1,19 +1,21 @@
-"""PNG, BMP and JPEG images without Pillow (counterpart of
-cge_tpu/scene/image_io.py).
+"""Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
+PNG, BMP, JPEG, GIF, TGA, PNM and PSD.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
 float32, row 0 the top of the image (the reference's stb_image,
-framework/src/image.cpp:22-34). The format comes from the file's
-signature, never its name:
+framework/src/image.cpp:22-34, which opens the same seven formats and
+HDR and PIC besides). The format comes from the file's signature, never
+its name, in Pillow's order (`format_of`):
 
   PNG   every bit depth of every colour type (1, 2, 4 and 8-bit grey and
         palette, 16-bit grey, grey + alpha, RGB and RGBA), plain or Adam7
-        interlaced, any row filter; decoded with zlib and numpy here.
-        Pillow's conversions: 1-, 2- and 4-bit grey scaled by 255, 85 and
-        17; 16-bit grey saturated at 255; the other 16-bit samples keep
-        their high byte; alpha and tRNS dropped; a palette index past the
-        PLTE chunk's end is black.
+        interlaced, any row filter; inflated with zlib, the filters undone
+        in the native library, the samples unpacked in numpy. Pillow's
+        conversions: 1-, 2- and 4-bit grey scaled by 255, 85 and 17;
+        16-bit grey saturated at 255; the other 16-bit samples keep their
+        high byte; alpha and tRNS dropped; a palette index past the PLTE
+        chunk's end is black.
   BMP   1-, 4- and 8-bit palette (also RLE8 and RLE4), 16-bit 5-5-5 and
         bitfields, 24-bit, 32-bit plain and bitfields; header sizes 12
         (OS/2 core), 40, 52, 56, 64, 108 and 124; bottom-up or top-down
@@ -21,11 +23,20 @@ signature, never its name:
   JPEG  baseline and progressive Huffman, 8-bit, grey or three components
         at 4:4:4, 4:2:2 or 4:2:0, as libjpeg-turbo decodes it
         (scene/jpeg.py and the native library's cge_image.cpp).
+  GIF   the first frame, every colour-table case, interlaced or not, at
+        its offset on the logical screen (scene/gif.py).
+  PSD   the merged image, raw or PackBits, in bitmap, grey, indexed, RGB
+        (A), CMYK, multichannel and duotone (scene/psd.py).
+  PNM   P1 to P6, plain and binary, at any maxval (scene/pnm.py).
+  TGA   colour-mapped, true-colour and grey, raw or run-length, in each
+        orientation (scene/tga.py); TGA has no signature, so it is tried
+        last, by Pillow's test of its header.
 
-Any other format raises a ValueError that names it. `png_bytes` and
-`write_png` write 8-bit PNGs, each row with a chosen filter. `write_bmp`
-writes the CLI's 24-bit BMP byte for byte as the JAX package does, and
-`read_bmp` reads any BMP that `decode_bmp` reads.
+Any other format (TIFF, WebP, DDS, ...) raises a ValueError that names it,
+as does a truncated or corrupt file. `png_bytes` and `write_png` write
+8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
+24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
+BMP that `decode_bmp` reads.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ import zlib
 
 import numpy as np
 
-from cge_tpu_torch.scene import jpeg
+from cge_tpu_torch import native
+from cge_tpu_torch.scene import gif, jpeg, pnm, psd, tga
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -69,51 +81,6 @@ def _chunks(data: bytes):
             return
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines' bytes [height, stride] with each row's filter undone
-    (PNG spec section 9); Sub and Up are vectorised, Average and Paeth
-    run byte by byte."""
-    rows = np.frombuffer(raw, np.uint8, height * (stride + 1))
-    rows = rows.reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:
-            pad = (-stride) % bpp
-            ext = np.concatenate([line, np.zeros(pad, np.uint8)])
-            cur = (np.cumsum(ext.reshape(-1, bpp), axis=0, dtype=np.uint64)
-                   & 0xFF).astype(np.uint8).reshape(-1)[:stride]
-        elif kind == 2:
-            cur = line + prior
-        elif kind in (3, 4):
-            cur = bytearray(line.tobytes())
-            up = prior.tobytes()
-            for x in range(stride):
-                a = cur[x - bpp] if x >= bpp else 0
-                if kind == 3:
-                    pred = (a + up[x]) >> 1
-                else:
-                    pred = _paeth(a, up[x], up[x - bpp] if x >= bpp else 0)
-                cur[x] = (cur[x] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"PNG row {y} has unknown filter type {kind}")
-        out[y] = cur
-        prior = out[y]
-    return out
-
-
 def _samples(rows: np.ndarray, width: int, depth: int, ch: int):
     """Unfiltered rows [h, stride] -> the samples [h, width, ch] as
     integers (uint8, or uint16 at depth 16)."""
@@ -136,8 +103,8 @@ def _pass_samples(raw: bytes, width: int, height: int, depth: int,
     bpp = max(1, depth * ch // 8)
     if not interlace:
         stride = (width * ch * depth + 7) // 8
-        return _samples(_unfilter(raw, height, stride, bpp), width, depth,
-                        ch)
+        return _samples(native.png_unfilter(raw, height, stride, bpp), width,
+                        depth, ch)
     out = np.zeros((height, width, ch), np.uint16 if depth == 16
                    else np.uint8)
     pos = 0
@@ -146,7 +113,7 @@ def _pass_samples(raw: bytes, width: int, height: int, depth: int,
         if pw <= 0 or ph <= 0:
             continue                  # an empty pass has no scanlines
         stride = (pw * ch * depth + 7) // 8
-        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        rows = native.png_unfilter(raw[pos:], ph, stride, bpp)
         out[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
         pos += ph * (stride + 1)
     return out
@@ -159,7 +126,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("not a PNG file (no PNG signature)")
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
-        if kind == b"IHDR":
+        if kind == b"IHDR" and len(body) >= 13:
             header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8)
@@ -178,8 +145,13 @@ def decode_png(data: bytes) -> np.ndarray:
     if interlace not in (0, 1):
         raise ValueError(f"{fmt} with interlace method {interlace}: only "
                          f"none and Adam7 exist")
-    px = _pass_samples(zlib.decompress(b"".join(idat)), width, height,
-                       depth, CHANNELS[ctype], interlace)
+    native.check_pixels(fmt, width, height)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{fmt}: the image data does not inflate ({e})") \
+            from None
+    px = _pass_samples(raw, width, height, depth, CHANNELS[ctype], interlace)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{fmt} without a PLTE chunk")
@@ -199,50 +171,59 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def format_of(data: bytes) -> str:
-    """The image format named by the file's signature: "PNG", "BMP" or
-    "JPEG" for the formats that decode here, else the name of another
-    known format, or "unknown"."""
+    """The image format that the file's first bytes name, tried in
+    Pillow's order: "PNG", "BMP", "JPEG", "GIF", "PNM", "PSD" or "TGA" for
+    the formats that decode here, else the name of another known format,
+    or "unknown". TGA, which has no signature, comes last, by Pillow's
+    test of its header."""
     head = data[:16]
-    if head.startswith(SIGNATURE):
-        return "PNG"
-    if head.startswith(b"BM"):
-        return "BMP"
-    if head.startswith(b"\xff\xd8\xff"):
-        return "JPEG"
-    for sig, name in ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+    for sig, name in ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                      (b"\xff\xd8\xff", "JPEG"), (SIGNATURE, "PNG"),
+                      (b"8BPS", "PSD"),
                       (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
                       (b"DDS ", "DDS"), (b"qoif", "QOI"),
-                      (b"8BPS", "PSD"), (b"\x00\x00\x01\x00", "ICO"),
+                      (b"\x00\x00\x01\x00", "ICO"),
                       (b"#?RADIANCE", "Radiance HDR"),
                       (b"\x76\x2f\x31\x01", "OpenEXR")):
         if head.startswith(sig):
             return name
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
-    if head[:1] == b"P" and head[1:2] in b"1234567" and len(head) > 2:
+    if head[:1] == b"P" and head[1:2] and head[1:2] in b"123456":
         return "PNM"
+    if head[:2] in (b"P7", b"Pf", b"PF"):
+        return {b"P7": "PAM"}.get(head[:2], "PFM")
+    if tga.header_ok(data):
+        return "TGA"
     return "unknown"
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """Image file bytes -> [H, W, 3] uint8 RGB, row 0 = top, the decoder
-    chosen by the signature. ValueError naming the format for any other."""
+    chosen by the signature. ValueError naming the format for any other,
+    and for a file its decoder cannot read."""
+    decoders = {"PNG": decode_png, "BMP": decode_bmp,
+                "JPEG": jpeg.decode_jpeg, "GIF": gif.decode_gif,
+                "PNM": pnm.decode_pnm, "PSD": psd.decode_psd,
+                "TGA": tga.decode_tga}
     fmt = format_of(data)
-    if fmt == "PNG":
-        return decode_png(data)
-    if fmt == "BMP":
-        return decode_bmp(data)
-    if fmt == "JPEG":
-        return jpeg.decode_jpeg(data)
-    what = ("an image of unknown format (its first bytes are "
-            f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
-    raise ValueError(f"{what}, not a PNG, BMP or JPEG file: {fmt} images "
-                     f"are not supported")
+    if fmt not in decoders:
+        what = ("an image of unknown format (its first bytes are "
+                f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
+        raise ValueError(f"{what}, not a PNG, BMP, JPEG, GIF, PNM, PSD or "
+                         f"TGA file: {fmt} images are not supported")
+    try:
+        return decoders[fmt](data)
+    except ValueError as e:
+        if fmt in str(e):                 # the message names the format
+            raise
+        raise ValueError(f"{fmt}: {e}") from None
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load of a PNG, BMP or JPEG: forced RGB, u8 -> f32 /
-    255. ValueError naming the file and its format for any other."""
+    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD or TGA file:
+    forced RGB, u8 -> f32 / 255. ValueError naming the file and its format
+    for any other, and for a file that does not decode."""
     with open(path, "rb") as f:
         data = f.read()
     try:

@@ -25,13 +25,10 @@ from cge_tpu_torch import native
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG file bytes -> [H, W, 3] uint8 RGB, row 0 the top."""
     lib = native.library()
-    err = ctypes.create_string_buffer(512)
     w, h = ctypes.c_int(), ctypes.c_int()
-    if lib.cge_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
-                         err, len(err)):
-        raise ValueError(err.value.decode())
+    native.decode_call(lib.cge_jpeg_info, data, len(data), ctypes.byref(w),
+                    ctypes.byref(h))
     out = np.empty((h.value, w.value, 3), np.uint8)
-    if lib.cge_jpeg_decode(data, len(data), out.ctypes.data, out.size, err,
-                           len(err)):
-        raise ValueError(err.value.decode())
+    native.decode_call(lib.cge_jpeg_decode, data, len(data), out.ctypes.data,
+                    out.size)
     return out

@@ -34,10 +34,10 @@ from cge_tpu_torch.scene.image_io import Image
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load: forced RGB, u8 -> f32 / 255. PNG, BMP and
-    JPEG decode without Pillow, the decoder chosen by the file's
-    signature (scene/image_io.py); another format raises an error naming
-    it."""
+    """stb_image-style load: forced RGB, u8 -> f32 / 255. PNG, BMP, JPEG,
+    GIF, PNM, PSD and TGA decode without Pillow, the decoder chosen by the
+    file's signature (scene/image_io.py); another format raises an error
+    naming it."""
     return image_io.load_image(path)
 
 

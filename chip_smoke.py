@@ -182,7 +182,17 @@ exits non-zero if any phase fails:
      must run), the rest through the graphs, every frame equal bit for
      bit to the frame of the same scene textured by the 8-bit RGB PNG
      that the port writes from the decoded texels; the scene's load s and
-     the frame ms.
+     the frame ms; (c) the same dragon textured by the JPEG's 1024x1024
+     texels written at run time by the small writers here in the four
+     formats added since, each loaded by load_scene_from_file and rendered
+     as in (b): TGA (24-bit run-length, literal packets across the rows),
+     PNM (P6), PSD (RGB, PackBits) and GIF (the texels' 3-3-2 quantisation
+     to 256 colours, LZW held at 9-bit codes by a clear code every 254);
+     each file's texels equal to the JPEG's (GIF: to their quantisation),
+     each frame equal bit for bit to the frame textured by the PNG of the
+     same texels ((b)'s for TGA, PNM and PSD), K1 and K2 launched; each
+     file's host decode ms, load s and frame ms, and the host decode ms
+     of the texels as an 8-bit RGB PNG with every row Paeth-filtered.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -2974,7 +2984,8 @@ TEX_JPEG = "jpeg_progressive_420_q90_1024.jpg"
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture through the port's load_image, its u8
-    pixels' SHA-256 against the manifest's; (name, host ms) a fixture."""
+    pixels' SHA-256 against the manifest's; (name, kind, host ms) a
+    fixture."""
     import hashlib
 
     import numpy as np
@@ -2992,13 +3003,66 @@ def texture_fixtures() -> list:
         u8 = np.rint(img.pixels * 255.0).astype(np.uint8)
         if hashlib.sha256(u8.tobytes()).hexdigest() != entry["sha256"]:
             bad.append(entry["name"])
-        times.append((entry["name"], ms))
+        times.append((entry["name"], entry["kind"], ms))
     if "PIL" in sys.modules:
         raise AssertionError("decoding the textures imported Pillow")
     if bad:
         raise AssertionError(f"decoded textures differ from the manifest: "
                              f"{bad}")
     return times
+
+
+def texture_writers(texels):
+    """Phase 18c's files of the texels [H, W, 3] u8 (row 0 the top):
+    {name: (file bytes, the texels the file holds)}, each written by a
+    plain numpy writer, none by the port."""
+    import struct
+
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    out = {"texels.ppm": (b"P6\n%d %d\n255\n" % (w, h) + texels.tobytes(),
+                          texels)}
+    # TGA type 10, top-left: literal packets of 100 pixels, across rows
+    bgr = texels[..., ::-1].reshape(-1, 3)
+    n, k = len(bgr), 100
+    full = n // k
+    body = np.concatenate([np.full((full, 1), k - 1, np.uint8),
+                           bgr[:full * k].reshape(full, 3 * k)], axis=1)
+    tail = bgr[full * k:]
+    tga = (struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24,
+                       0x20) + body.tobytes()
+           + (bytes((len(tail) - 1,)) + tail.tobytes() if len(tail) else b""))
+    out["texels.tga"] = (tga, texels)
+    # PSD RGB, PackBits: every row eight literal packets of w / 8 bytes
+    planes = np.moveaxis(texels, 2, 0)
+    step = w // 8
+    packed = np.concatenate([np.full((3, h, 8, 1), step - 1, np.uint8),
+                             planes.reshape(3, h, 8, step)], axis=3)
+    psd = (b"8BPS" + struct.pack(">H6xHIIHH", 1, 3, h, w, 8, 3)
+           + bytes(12) + struct.pack(">H", 1)
+           + np.full(3 * h, 8 * (step + 1), ">u2").tobytes()
+           + packed.tobytes())
+    out["texels.psd"] = (psd, texels)
+    # GIF: 3-3-2 colours, LZW at 9 bits (a clear code every 254 codes)
+    idx = ((texels[..., 0] >> 5) << 5 | (texels[..., 1] >> 5) << 2
+           | texels[..., 2] >> 6).reshape(-1).astype(np.uint32)
+    i = np.arange(256)
+    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
+                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    codes = np.concatenate(
+        [np.concatenate(([256], idx[j:j + 254])) for j in range(
+            0, len(idx), 254)] + [np.array([257], np.uint32)])
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint32)) & 1).astype(
+        np.uint8)
+    lzw = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = b"".join(bytes((len(lzw[j:j + 255]),)) + lzw[j:j + 255]
+                      for j in range(0, len(lzw), 255))
+    gif = (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+           + palette.tobytes() + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0)
+           + b"\x08" + blocks + b"\x00;")
+    out["texels.gif"] = (gif, palette[idx.reshape(h, w)])
+    return out
 
 
 def textured_dragon(tmp, texture, grid, device):
@@ -3040,7 +3104,8 @@ def eleventh_path(device) -> dict:
     """Phase 18: the texture fixtures (texture_fixtures), then the dragon
     textured by the 1024x1024 JPEG at 512x512 with the accel against the
     same dragon textured by the PNG the port writes from the decoded
-    texels."""
+    texels, then by those texels as TGA, PNM, PSD and GIF files
+    (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3051,13 +3116,16 @@ def eleventh_path(device) -> dict:
     from cge_tpu_torch.scene import image_io
 
     log(f"[18] textures without Pillow: the fixtures, then the dragon "
-        f"textured by a 1024x1024 progressive JPEG | {SMI['line']} "
-        f"(decode and load times are the host's)")
+        f"textured by a 1024x1024 progressive JPEG and by its texels as TGA, "
+        f"PNM, PSD and GIF | {SMI['line']} (decode and load times are the "
+        f"host's)")
     times = texture_fixtures()
-    for i in range(0, len(times), 6):
-        log("  " + ", ".join(f"{n} {ms:.2f} ms" for n, ms in times[i:i + 6]))
+    for kind in sorted({k for _, k, _ in times}):
+        ms = sorted((t, n) for n, k, t in times if k == kind)
+        log(f"  {kind}: {len(ms)} files, {ms[0][0]:.2f}-{ms[-1][0]:.2f} ms "
+            f"a file (the slowest {ms[-1][1]})")
     log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
-        f"manifest's, {sum(ms for _, ms in times):.1f} ms in all (host) | "
+        f"manifest's, {sum(t for _, _, t in times):.1f} ms in all (host) | "
         f"{SMI['line']}")
     cell = bc.BY_NAME["scale512"]
     feats = ct.Features(**dict(cell.features, enable_texture_mapping=True,
@@ -3106,21 +3174,102 @@ def eleventh_path(device) -> dict:
                                                device)
         ref = ct.render_image_u8(png_scene, ct.Camera(), feats, params, W, H)
         torch_sync(device)
-    same = [bool(torch.equal(f, ref)) for f in [first] + frames]
-    lit = float((ref.float().sum(-1) > 0).float().mean())
-    log(f"  18b: dragon ({cell.grid[0]}x{cell.grid[1]} grid) textured by "
-        f"{TEX_JPEG}: load {load_s:.2f} s (PNG texels: {png_load_s:.2f} s), "
-        f"launches of the first frame {launches}, frames ms "
-        f"{[round(x, 2) for x in times_ms]} median "
-        f"{float(np.median(times_ms)):.2f} ms, lit {lit:.3f}, equal to the "
-        f"PNG-textured frame: {same} | {SMI['line']}")
-    if not all(same):
-        raise AssertionError("the JPEG-textured frame differs from the "
-                             "frame textured by its PNG-written texels")
-    if lit < 0.05:
-        raise AssertionError(f"the textured frame is blank: {lit:.4f}")
+        del png_scene
+        same = [bool(torch.equal(f, ref)) for f in [first] + frames]
+        lit = float((ref.float().sum(-1) > 0).float().mean())
+        log(f"  18b: dragon ({cell.grid[0]}x{cell.grid[1]} grid) textured "
+            f"by {TEX_JPEG}: load {load_s:.2f} s (PNG texels: "
+            f"{png_load_s:.2f} s), launches of the first frame {launches}, "
+            f"frames ms {[round(x, 2) for x in times_ms]} median "
+            f"{float(np.median(times_ms)):.2f} ms, lit {lit:.3f}, equal to "
+            f"the PNG-textured frame: {same} | {SMI['line']}")
+        if not all(same):
+            raise AssertionError("the JPEG-textured frame differs from the "
+                                 "frame textured by its PNG-written texels")
+        if lit < 0.05:
+            raise AssertionError(f"the textured frame is blank: {lit:.4f}")
+        formats = new_format_frames(tmp, texels, ref, cell.grid, feats,
+                                    params, device)
     return dict(fixtures=times, load_s=load_s, frame_ms=times_ms,
-                launches=launches)
+                launches=launches, formats=formats)
+
+
+def new_format_frames(tmp, texels, png_frame, grid, feats, params,
+                      device) -> dict:
+    """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD and
+    GIF files (texture_writers), each frame against the PNG-textured
+    frame of the same texels; {file: (decode ms, load s, frame ms)}."""
+    import numpy as np
+    import torch
+
+    import cge_tpu_torch as ct
+    from cge_tpu_torch.scene import image_io
+
+    u8 = np.rint(texels * 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    paeth = image_io.png_bytes(u8, filters=(4,))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = image_io.decode_image(paeth)
+    paeth_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(back, u8):
+        raise AssertionError("the Paeth-filtered PNG decodes to other texels")
+    log(f"  18c: {u8.shape[1]}x{u8.shape[0]} texels as an RGB PNG, every "
+        f"row Paeth-filtered: decode {paeth_ms:.2f} ms (written in "
+        f"{write_ms:.0f} ms) | {SMI['line']} (host)")
+    out = {}
+    for name, (data, held) in texture_writers(u8).items():
+        t0 = time.perf_counter()
+        got = image_io.decode_image(data)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, held):
+            raise AssertionError(f"{name} decodes to other texels than the "
+                                 f"ones written")
+        stem, ext = os.path.splitext(name)
+        path = os.path.join(tmp, f"{stem}_{ext[1:]}{ext}")
+        with open(path, "wb") as f:
+            f.write(data)
+        ref = png_frame
+        if not np.array_equal(held, u8):             # GIF: its own PNG
+            png = os.path.join(tmp, f"{stem}_{ext[1:]}_png.png")
+            image_io.write_png(png, held)
+            png_scene, _ = textured_dragon(tmp, png, grid, device)
+            ref = ct.render_image_u8(png_scene, ct.Camera(), feats, params,
+                                     W, H)
+            del png_scene
+        scene, load_s = textured_dragon(tmp, path, grid, device)
+        reset_launches()
+        frames = [ct.render_image_u8(scene, ct.Camera(), feats, params, W,
+                                     H)]
+        torch_sync(device)
+        launches = read_launches()
+        times_ms = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            frames.append(ct.render_image_u8(scene, ct.Camera(), feats,
+                                             params, W, H))
+            end.record()
+            torch.cuda.synchronize()
+            times_ms.append(start.elapsed_time(end))
+        del scene
+        same = [bool(torch.equal(f, ref)) for f in frames]
+        log(f"  18c: dragon textured by {name} ({len(data)} bytes): decode "
+            f"{decode_ms:.2f} ms (host), load {load_s:.2f} s, launches of "
+            f"the first frame {launches}, frames ms "
+            f"{[round(x, 2) for x in times_ms]}, equal to the frame of the "
+            f"PNG of its texels: {same} | {SMI['line']}")
+        if not (launches["keys"] and launches["walk"]):
+            raise AssertionError(f"{name}: the textured frame launched "
+                                 f"{launches}")
+        if not all(same):
+            raise AssertionError(f"the {name}-textured frame differs from "
+                                 f"the frame textured by the PNG of its "
+                                 f"texels")
+        out[name] = (decode_ms, load_s, times_ms)
+    out["texels.png (Paeth)"] = (paeth_ms, None, None)
+    return out
 
 
 def multi_card(cards: int) -> int:

@@ -29,10 +29,21 @@ cluster kernels in interpret mode (the cell's own path, accel cells
 only), and the port's CPU twins at the cell's extra_transparency_unroll
 and at twice it; each beside the card's and the reference's u8 pixels.
 
+--tree-step runs the JAX package's train_step_sharded once on the
+TRANS+REC tree set of tests/test_torch_sharding_train.py (the 9x8 glass
+stand-in, ray_depth 3, 12x12 rays, lr 0.1, seed 0) at mesh (rays, prims) =
+(2, 1) on 8 virtual CPU devices, and stores its loss, the gradient of
+every DIFF_FIELDS leaf (read as the step multiplies it by the rate) and
+the new leaves in tests/torch_tree_step_jax.npz, with a hash of the
+scene's leaves and the rays, the command, the commit and the JAX version.
+Its compile takes about 200 s on a CPU; the test holds the port's 2-rank
+tree step to the file without compiling JAX.
+
     JAX_PLATFORMS=cpu python3 jax_references/make_references.py  # both
     JAX_PLATFORMS=cpu python3 jax_references/make_references.py soft512
     JAX_PLATFORMS=cpu python3 jax_references/make_references.py \
         --tail frames --cell transrec512
+    JAX_PLATFORMS=cpu python3 jax_references/make_references.py --tree-step
 """
 
 from __future__ import annotations
@@ -48,6 +59,11 @@ import time
 if __package__ in (None, ""):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+
+if "--tree-step" in sys.argv:
+    # the sharded step's mesh: tests/conftest.py's virtual CPU devices
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                               "--xla_force_host_platform_device_count=8")
 
 import jax  # noqa: E402
 
@@ -66,6 +82,9 @@ from cge_tpu.scene.scene import (ParallelogramLight, PointLight,  # noqa: E402
                                  load_scene_from_file)
 
 STORED = ("soft512", "train128")
+TREE_STEP = os.path.join(REPO, "tests", "torch_tree_step_jax.npz")
+TREE_COMMAND = ("JAX_PLATFORMS=cpu python3 jax_references/make_references.py "
+                "--tree-step")
 
 
 def jax_scene(cell: bc.Cell, obj: str):
@@ -184,6 +203,90 @@ def tail_pixels(cell: bc.Cell, obj: str, port: np.ndarray,
     return out
 
 
+class _Rate:
+    """A learning rate that keeps each gradient it multiplies:
+    train_step_sharded steps every leaf as `v - lr * g` over the sorted
+    keys of its parameter dict, so `lr * g` hands over the gradients."""
+
+    def __init__(self, value: float):
+        self.value = value
+        self.grads = []
+
+    def __rmul__(self, g):
+        return self * g
+
+    def __mul__(self, g):
+        self.grads.append(np.asarray(g))
+        return self.value * g
+
+
+def tree_scene_and_rays(tmp: str):
+    """The JAX scene and 12x12 rays of tests/test_torch_sharding_train.py's
+    TRANS+REC set (its `scenes` fixture and `_rays(12)`)."""
+    from cge_tpu.scene.mesh_io import Material, load_mesh
+    from cge_tpu.scene.scene import SphereDef, build_scene_arrays
+    from cge_tpu_torch.tools.common import write_variant_obj
+
+    spheres = [SphereDef((0.0, 0.1, 0.0), 0.3,
+                         Material(kd=np.float32([0.9, 0.3, 0.2]),
+                                  ks=np.float32([0.4, 0.4, 0.4]),
+                                  shininess=12.0)),
+               SphereDef((0.55, 0.45, -0.7), 0.2,
+                         Material(kd=np.float32([0.2, 0.3, 0.9])))]
+    path = os.path.join(tmp, "dragon.obj")
+    write_variant_obj(path, 9, 8, "glass")
+    scene = build_scene_arrays(load_mesh(path), spheres, [PointLight(
+        (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))])
+    o, d = cge_tpu.Camera().generate_rays(pixel_grid(12, 12).reshape(-1, 2))
+    target = np.random.default_rng(5).uniform(0.0, 0.5, (144, 3)).astype(
+        np.float32)
+    return scene, np.array(o), np.array(d), target
+
+
+def tree_inputs_sha256(leaves: dict, o, d, target) -> str:
+    """SHA-256 of the scene's TENSOR_FIELDS leaves (in that order) and the
+    rays and target, as C-order bytes."""
+    import hashlib
+
+    from cge_tpu_torch.interop import TENSOR_FIELDS
+
+    h = hashlib.sha256()
+    for a in [leaves[k] for k in TENSOR_FIELDS] + [o, d, target]:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def tree_step() -> dict:
+    """JAX's train_step_sharded on the tree set at mesh (2, 1): loss, the
+    gradients ("grad/<leaf>") and the new leaves ("new/<leaf>")."""
+    from cge_tpu.diff.gradients import DIFF_FIELDS
+    from cge_tpu.parallel import sharding as jshard
+    from cge_tpu_torch.interop import TENSOR_FIELDS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, o, d, target = tree_scene_and_rays(tmp)
+    mesh = jshard.make_mesh(("rays", "prims"), (2, 1),
+                            devices=jax.devices()[:2])
+    rate = _Rate(0.1)
+    feats = cge_tpu.Features(
+        enable_shading=True, enable_hard_shadow=True, enable_recursive=True,
+        enable_transparency=True, enable_normal_interp=True)
+    loss, new = jshard.train_step_sharded(
+        scene, jnp.asarray(o), jnp.asarray(d), jnp.asarray(target), feats,
+        cge_tpu.RenderParams(ray_depth=3, extra_transparency_unroll=2),
+        mesh, lr=rate, seed=0)
+    keys = sorted(DIFF_FIELDS)                 # jax.tree.map's dict order
+    assert len(rate.grads) == len(keys), len(rate.grads)
+    out = {"loss": np.float32(loss)}
+    for k, g in zip(keys, rate.grads):
+        assert g.shape == np.shape(getattr(scene, k)), k
+        out[f"grad/{k}"] = g
+        out[f"new/{k}"] = np.asarray(getattr(new, k))
+    leaves = {k: np.asarray(getattr(scene, k)) for k in TENSOR_FIELDS}
+    out["inputs_sha256"] = np.array(tree_inputs_sha256(leaves, o, d, target))
+    return out
+
+
 def _git(*args) -> str:
     return subprocess.run(["git", *args], cwd=REPO, capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -198,7 +301,24 @@ def main(argv=None) -> int:
                     "(control.py --save-frames DIR); makes no file")
     ap.add_argument("--cell", default="transrec512",
                     help="--tail's cell")
+    ap.add_argument("--tree-step", action="store_true",
+                    help="store JAX's sharded tree train step for "
+                    "tests/test_torch_sharding_train.py; makes no other "
+                    "file")
     args = ap.parse_args(argv)
+    if args.tree_step:
+        t0 = time.perf_counter()
+        arrays = tree_step()
+        meta = dict(command=TREE_COMMAND, commit=_git("rev-parse", "HEAD"),
+                    cge_tpu_unchanged_from_commit=not _git(
+                        "status", "--porcelain", "cge_tpu"),
+                    jax=jax.__version__, mesh=[2, 1], lr=0.1, seed=0,
+                    seconds=round(time.perf_counter() - t0, 1))
+        np.savez_compressed(TREE_STEP, meta=json.dumps(meta), **arrays)
+        print(f"tree step: loss {float(arrays['loss'])!r} -> "
+              f"{os.path.relpath(TREE_STEP, REPO)} ({meta['seconds']} s)",
+              flush=True)
+        return 0
     if args.tail:
         cell = bc.BY_NAME[args.cell]
         with tempfile.TemporaryDirectory() as tmp:

@@ -3,10 +3,14 @@
 `load_image` reads (PNG at every bit depth and colour type, plain and
 Adam7 interlaced; BMP of every depth, header and compression it reads;
 baseline and progressive JPEG in grey, 4:4:4, 4:2:2 and 4:2:0, with and
-without restart intervals, JFIF YCbCr and Adobe RGB / YCbCr), and one
-1024x1024 progressive 4:2:0 JPEG at quality 90, all from seeded numpy
-images. It is the JAX side: Pillow writes the JPEGs, the encoders below
-write the PNGs (with the port's row filters) and BMPs, and the JAX
+without restart intervals, JFIF YCbCr and Adobe RGB / YCbCr; TGA of every
+image type, depth and orientation, raw and run-length; P1 to P6 PNM with
+comments, odd maxvals and 16-bit samples; GIF with global and local
+tables, interlaced, offset and transparent frames; PSD raw and PackBits in
+every colour mode Pillow converts), and one 1024x1024 progressive 4:2:0
+JPEG at quality 90, all from seeded numpy images. It is the JAX side:
+Pillow writes the JPEGs and some TGA, PNM and GIF files, the encoders
+below write the rest (PNGs with the port's row filters), and the JAX
 package's `cge_tpu.scene.image_io.load_image` (Pillow's
 `convert("RGB")`) gives the reference pixels.
 
@@ -166,6 +170,175 @@ def rle_stream(idx: np.ndarray, rle4: bool, rng) -> bytes:
             x += n
         out += b"\x00\x00"
     return bytes(out[:-2]) + b"\x00\x01"
+
+
+# ---------------------------------------------------------------- TGA
+
+def tga_file(width: int, height: int, itype: int, depth: int,
+             pixel_data: bytes, colour_map: bytes = b"", map_start: int = 0,
+             map_depth: int = 0, descriptor: int = 0,
+             image_id: bytes = b"") -> bytes:
+    """A TGA around its pixel data (rows in file order) and colour map
+    (entries of map_depth bits from index map_start)."""
+    entries = len(colour_map) // (map_depth // 8) if colour_map else 0
+    return struct.pack("<BBBHHBHHHHBB", len(image_id), int(bool(colour_map)),
+                       itype, map_start, entries, map_depth, 0, 0, width,
+                       height, depth, descriptor) + image_id + colour_map + \
+        pixel_data
+
+
+def tga_rle_rows(px: np.ndarray, rng) -> bytes:
+    """[h, w, bytes] as run-length packets: runs of one pixel value within
+    a row, literal packets that run on across the row ends."""
+    h, w, b = px.shape
+    out = bytearray()
+    lit = []
+    for row in px:
+        x = 0
+        while x < w:
+            k = 1
+            while x + k < w and k < 128 and (row[x + k] == row[x]).all():
+                k += 1
+            if k >= 2 and rng.random() < 0.8:
+                for j in range(0, len(lit), 128):
+                    chunk = lit[j:j + 128]
+                    out += bytes((len(chunk) - 1,)) + b"".join(chunk)
+                lit = []
+                out += bytes((0x80 | (k - 1),)) + row[x].tobytes()
+            else:
+                lit += [row[x + j].tobytes() for j in range(k)]
+            x += k
+    for j in range(0, len(lit), 128):
+        chunk = lit[j:j + 128]
+        out += bytes((len(chunk) - 1,)) + b"".join(chunk)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------- GIF
+
+def lzw_codes(indices, min_size: int, clear_every: int = 0) -> bytes:
+    """GIF LZW code stream of palette indices (variable-width codes, a
+    clear code first and every `clear_every` codes, the end code last),
+    not yet cut into sub-blocks."""
+    clear = 1 << min_size
+
+    def fresh():
+        return {bytes((i,)): i for i in range(clear)}, clear + 2, min_size + 1
+
+    table, nxt, width = fresh()
+    codes = [(clear, width)]
+    cur, emitted = b"", 0
+    for v in indices:
+        c = cur + bytes((int(v),))
+        if c in table:
+            cur = c
+            continue
+        codes.append((table[cur], width))
+        emitted += 1
+        if nxt < 4096:
+            table[c] = nxt
+            nxt += 1
+            if nxt > 1 << width and width < 12:
+                width += 1
+        if clear_every and emitted % clear_every == 0:
+            codes.append((clear, width))
+            table, nxt, width = fresh()
+        cur = bytes((int(v),))
+    if cur:
+        codes.append((table[cur], width))
+    codes.append((clear + 1, width))
+    acc = nbits = 0
+    out = bytearray()
+    for code, w in codes:
+        acc |= code << nbits
+        nbits += w
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc)
+    return bytes(out)
+
+
+def _table(colours) -> tuple[int, bytes]:
+    """A GIF colour table's size field and bytes (padded with black)."""
+    colours = np.asarray(colours, np.uint8).reshape(-1, 3)
+    bits = max(1, (len(colours) - 1).bit_length())
+    return bits - 1, colours.tobytes() + bytes(3 * ((1 << bits) - len(
+        colours)))
+
+
+def gif_file(screen, frame: np.ndarray, global_table=None, local_table=None,
+             offset=(0, 0), transparent=None, interlace: bool = False,
+             min_size: int = 0, clear_every: int = 0,
+             extensions: bytes = b"") -> bytes:
+    """A one-frame GIF89a: a screen of (width, height), the frame's indices
+    [h, w] at `offset`, global and local tables [K, 3], a graphic control
+    extension with the transparent index, the rows interlaced or not."""
+    flags, gtab = 0, b""
+    if global_table is not None:
+        size, gtab = _table(global_table)
+        flags = 0x80 | size
+    out = b"GIF89a" + struct.pack("<HHBBB", *screen, flags, 0, 0) + gtab
+    out += extensions
+    if transparent is not None:
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1, 0, transparent) + b"\0"
+    h, w = frame.shape
+    iflags, ltab = 0x40 if interlace else 0, b""
+    if local_table is not None:
+        size, ltab = _table(local_table)
+        iflags |= 0x80 | size
+    out += b"," + struct.pack("<HHHHB", *offset, w, h, iflags) + ltab
+    rows = ([y for y0, dy in ((0, 8), (4, 8), (2, 4), (1, 2))
+             for y in range(y0, h, dy)] if interlace else range(h))
+    min_size = min_size or max(2, int(frame.max()).bit_length())
+    codes = lzw_codes(np.concatenate([frame[y] for y in rows]), min_size,
+                      clear_every)
+    blocks = b"".join(bytes((len(codes[i:i + 255]),)) + codes[i:i + 255]
+                      for i in range(0, len(codes), 255))
+    return out + bytes((min_size,)) + blocks + b"\0;"
+
+
+# ---------------------------------------------------------------- PSD
+
+def packbits_rows(plane: np.ndarray, rng) -> list:
+    """Each row of a plane [h, row_bytes] as PackBits packets (runs of a
+    repeated byte, literals, the odd no-op 0x80)."""
+    rows = []
+    for row in plane:
+        out, x, n = bytearray(), 0, len(row)
+        while x < n:
+            k = 1
+            while x + k < n and k < 128 and row[x + k] == row[x]:
+                k += 1
+            if k >= 2:
+                out += bytes((257 - k, int(row[x])))
+            else:
+                k = int(min(n - x, rng.integers(1, 6)))
+                out += bytes((k - 1,)) + row[x:x + k].tobytes()
+            if rng.random() < 0.05:
+                out += b"\x80"
+            x += k
+        rows.append(bytes(out))
+    return rows
+
+
+def psd_file(width: int, height: int, mode: int, depth: int,
+             planes: list, rle: bool = False, rng=None,
+             colour_data: bytes = b"", channels: int = 0,
+             resources: bytes = b"", layers: bytes = b"") -> bytes:
+    """A PSD of version 1: planes [h, row_bytes] one a channel, raw or
+    PackBits (each row's byte count in the table before the data)."""
+    out = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or len(planes),
+                                height, width, depth, mode)
+    for section in (colour_data, resources, layers):
+        out += struct.pack(">I", len(section)) + section
+    if not rle:
+        return out + b"\0\0" + b"".join(p.tobytes() for p in planes)
+    rows = [packbits_rows(p, rng) for p in planes]
+    counts = b"".join(struct.pack(">H", len(r)) for ch in rows for r in ch)
+    return out + b"\0\1" + counts + b"".join(r for ch in rows for r in ch)
 
 
 # ---------------------------------------------------------------- images
@@ -329,6 +502,213 @@ def fixtures() -> dict:
     big = PILImage.fromarray(smooth_image(rng, 1024, 1024, 4.0))
     out[BIG] = ("jpeg", _pillow(big, "JPEG", quality=90, subsampling=2,
                                 progressive=True))
+    out.update(tga_fixtures(np.random.default_rng(17)))
+    out.update(pnm_fixtures(np.random.default_rng(18)))
+    out.update(gif_fixtures(np.random.default_rng(19)))
+    out.update(psd_fixtures(np.random.default_rng(20)))
+    return out
+
+
+# descriptor bits 4 and 5 -> the corner of the first pixel
+ORIENTATIONS = {0x00: "bottom_left", 0x10: "bottom_right", 0x20: "top_left",
+                0x30: "top_right"}
+
+
+def tga_fixtures(rng) -> dict:
+    """Every TGA kind Pillow reads in all four orientations (raw), run
+    length with packets across row ends, Pillow's own files, an ID field
+    and grey through a colour map."""
+    h, w = 5, 7
+    cmap24 = rng.integers(0, 256, (12, 3), dtype=np.uint8)
+    cmap16 = rng.integers(0, 1 << 16, 12).astype("<u2")
+    idx = rng.integers(0, 16, (h, w)).astype(np.uint8)  # past the map too
+    kinds = {   # name: (image type, depth, pixels [h, w, bytes], map, bits)
+        "cmap24": (1, 8, idx[..., None], cmap24[:, ::-1].tobytes(), 24),
+        "cmap16": (1, 8, idx[..., None], cmap16.tobytes(), 16),
+        "rgb16": (2, 16, rng.integers(0, 1 << 16, (h, w)).astype(
+            "<u2").view(np.uint8).reshape(h, w, 2), b"", 0),
+        "rgb24": (2, 24, rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                  b"", 0),
+        "rgba32": (2, 32, rng.integers(0, 256, (h, w, 4), dtype=np.uint8),
+                   b"", 0),
+        "grey8": (3, 8, rng.integers(0, 256, (h, w, 1), dtype=np.uint8),
+                  b"", 0),
+        "grey_alpha16": (3, 16, rng.integers(0, 256, (h, w, 2),
+                                             dtype=np.uint8), b"", 0),
+    }
+    out = {}
+    for name, (itype, depth, px, cmap, bits) in kinds.items():
+        for flags, corner in ORIENTATIONS.items():
+            out[f"tga_{name}_{corner}.tga"] = ("tga", tga_file(
+                w, h, itype, depth, px.tobytes(), cmap, 3 if cmap else 0,
+                bits, flags))
+        # few distinct values, so that runs occur
+        few = px[rng.integers(0, 2, (h, w)), rng.integers(0, 2, (h, w))]
+        flags = list(ORIENTATIONS)[len(out) % 4]
+        out[f"tga_{name}_rle_{ORIENTATIONS[flags]}.tga"] = ("tga", tga_file(
+            w, h, itype | 8, depth, tga_rle_rows(few, rng), cmap,
+            3 if cmap else 0, bits, flags))
+    bits1 = np.packbits(rng.integers(0, 2, (h, w)).astype(np.uint8), axis=1)
+    for flags, corner in ORIENTATIONS.items():
+        out[f"tga_grey1_{corner}.tga"] = ("tga", tga_file(
+            w, h, 3, 1, bits1.tobytes(), descriptor=flags))
+    out["tga_rgb24_image_id.tga"] = ("tga", tga_file(
+        w, h, 2, 24, kinds["rgb24"][2].tobytes(), descriptor=0x20,
+        image_id=b"a 23-byte image ID here"))
+    out["tga_grey8_colour_map.tga"] = ("tga", tga_file(
+        w, h, 3, 8, idx.tobytes(), cmap24[:, ::-1].tobytes(), 2, 24))
+    rgb = PILImage.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    for mode in ("RGB", "RGBA", "L", "LA", "P", "1"):
+        for rle in (False, True):
+            if mode == "1" and rle:
+                continue          # Pillow writes it, but cannot read it
+            out[f"tga_pillow_{mode.lower()}{'_rle' if rle else ''}.tga"] = (
+                "tga", _pillow(rgb.convert(mode), "TGA", rle=rle))
+    return out
+
+
+def pnm_fixtures(rng) -> dict:
+    """P1 to P6: plain text with comments and odd whitespace, odd maxvals,
+    16-bit samples (Pillow's "I" saturation and 16-bit rounding), and the
+    files Pillow writes."""
+    h, w = 5, 7
+    out = {}
+
+    def plain(magic, maxval, values, per_line):
+        head = f"{magic}\n# a comment\n{w} #width\n  {h}\n"
+        if maxval:
+            head += f"{maxval}\n"
+        flat = [str(int(v)) for v in values.reshape(-1)]
+        lines = [" ".join(flat[i:i + per_line])
+                 for i in range(0, len(flat), per_line)]
+        body = "\n".join(f"{ln}\t# row {i}" if i % 2 else ln
+                         for i, ln in enumerate(lines))
+        return (head + body + "\n").encode()
+
+    bits = rng.integers(0, 2, (h, w))
+    out["pnm_p1.pbm"] = ("pnm", plain("P1", 0, bits, 5))
+    out["pnm_p1_packed.pbm"] = ("pnm", b"P1 7 5\n" + "".join(
+        map(str, bits.reshape(-1))).encode())
+    for maxval in (15, 255, 1000, 65535):
+        v = rng.integers(0, maxval + 1, (h, w))
+        v.reshape(-1)[:2] = (7, maxval // 2)     # 7 at 15 -> 119; 500 / 1000
+        out[f"pnm_p2_maxval{maxval}.pgm"] = ("pnm", plain("P2", maxval, v,
+                                                          6))
+        out[f"pnm_p3_maxval{maxval}.ppm"] = ("pnm", plain(
+            "P3", maxval, rng.integers(0, maxval + 1, (h, w, 3)), 9))
+    out["pnm_p4.pbm"] = ("pnm", b"P4\n# comment\n7 5\n" + np.packbits(
+        bits.astype(np.uint8), axis=1).tobytes())
+    for maxval in (1, 15, 255, 1000, 65535):
+        big = maxval > 255
+        v = rng.integers(0, maxval + 1, (h, w))
+        rgb = rng.integers(0, maxval + 1, (h, w, 3))
+        if maxval == 15:
+            v.reshape(-1)[:3] = (7, 16, 255)        # past maxval: saturate
+        if maxval == 65535:
+            rgb.reshape(-1)[:3] = (1000, 32767, 32768)   # 1000 -> 4
+        dt = ">u2" if big else np.uint8
+        p5 = f"P5 {w} {h} {maxval}\n".encode() + v.astype(dt).tobytes()
+        p6 = f"P6\n{w}\n{h}\n{maxval}\r".encode() + rgb.astype(dt).tobytes()
+        out[f"pnm_p5_maxval{maxval}.pgm"] = ("pnm", p5)
+        out[f"pnm_p6_maxval{maxval}.ppm"] = ("pnm", p6)
+    im = PILImage.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    out["pnm_pillow_p4.pbm"] = ("pnm", _pillow(im.convert("1"), "PPM"))
+    out["pnm_pillow_p5.pgm"] = ("pnm", _pillow(im.convert("L"), "PPM"))
+    out["pnm_pillow_p6.ppm"] = ("pnm", _pillow(im, "PPM"))
+    out["pnm_pillow_p5_16bit.pgm"] = ("pnm", _pillow(PILImage.fromarray(
+        rng.integers(0, 600, (h, w)).astype(np.uint16)), "PPM"))
+    return out
+
+
+def gif_fixtures(rng) -> dict:
+    """Pillow's plain and interlaced GIFs; global and local tables, an
+    offset frame with and without a transparent index, a frame past the
+    screen, no table, the identity ramp as the table, indices past the
+    table, clear codes, a full code table, extensions before the frame."""
+    h, w = 9, 11
+    out = {}
+    im = PILImage.fromarray(smooth_image(rng, 17, 19, 20.0))
+    out["gif_pillow.gif"] = ("gif", _pillow(im, "GIF", interlace=False))
+    out["gif_pillow_interlaced.gif"] = ("gif", _pillow(im, "GIF"))
+    pal = rng.integers(0, 256, (8, 3))
+    local = rng.integers(0, 256, (16, 3))
+    idx = rng.integers(0, 8, (h, w))
+    out["gif_global_table.gif"] = ("gif", gif_file((w, h), idx, pal))
+    out["gif_local_table.gif"] = ("gif", gif_file(
+        (w, h), rng.integers(0, 16, (h, w)), pal, local))
+    out["gif_interlaced.gif"] = ("gif", gif_file((w, h), idx, pal,
+                                                 interlace=True))
+    small = rng.integers(0, 8, (5, 6))
+    out["gif_offset.gif"] = ("gif", gif_file((w, h), small, pal,
+                                             offset=(3, 2)))
+    out["gif_offset_transparent.gif"] = ("gif", gif_file(
+        (w, h), small, pal, offset=(4, 1), transparent=5, interlace=True))
+    out["gif_past_the_screen.gif"] = ("gif", gif_file((5, 4), small, pal,
+                                                      offset=(2, 3)))
+    out["gif_no_table.gif"] = ("gif", gif_file((w, h), rng.integers(
+        0, 200, (h, w)), min_size=8))
+    ramp = np.repeat(np.arange(8)[:, None], 3, axis=1)
+    out["gif_ramp_table.gif"] = ("gif", gif_file((w, h), rng.integers(
+        0, 32, (h, w)), ramp, min_size=5))
+    out["gif_local_ramp_table.gif"] = ("gif", gif_file(
+        (w, h), rng.integers(0, 16, (h, w)), pal, ramp, min_size=4))
+    out["gif_index_past_table.gif"] = ("gif", gif_file(
+        (w, h), rng.integers(0, 16, (h, w)), pal[:3], min_size=4))
+    out["gif_clear_codes.gif"] = ("gif", gif_file(
+        (w, h), idx, pal, clear_every=7))
+    full = rng.integers(0, 4, (64, 80))                # the table fills up
+    out["gif_full_code_table.gif"] = ("gif", gif_file((80, 64), full,
+                                                      pal[:4]))
+    out["gif_extensions.gif"] = ("gif", gif_file(
+        (w, h), idx, pal, transparent=2, extensions=(
+            b"!\xfe\x05hello\x03abc\x00"
+            b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00")))
+    return out
+
+
+def psd_fixtures(rng) -> dict:
+    """Every colour mode Pillow converts, raw and PackBits; RGB with a
+    fifth channel, indexed without a table, and image resources and a
+    layer section to skip."""
+    h, w = 5, 9
+    out = {}
+
+    def planes(n, top=256):
+        return [rng.integers(0, top, (h, w), dtype=np.uint8)
+                for _ in range(n)]
+
+    table = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    resource = (b"8BIM" + struct.pack(">H", 1005) + b"\x00\x00" +
+                struct.pack(">I", 3) + b"abc\x00" + b"8BIM" +
+                struct.pack(">H", 1006) + b"\x03abc" + struct.pack(">I", 4)
+                + b"abcd")
+    layers = struct.pack(">I", 2) + b"\x00\x00\x00\x00\x00\x00"
+    modes = {   # name: (colour mode, depth, planes, colour data)
+        "bitmap": (0, 1, [np.packbits(rng.integers(0, 2, (h, w)).astype(
+            np.uint8), axis=1)], b""),
+        "grey": (1, 8, planes(1), b""),
+        "indexed": (2, 8, planes(1), table),
+        "rgb": (3, 8, planes(3), b""),
+        "rgba": (3, 8, planes(4), b""),
+        "cmyk": (4, 8, planes(4), b""),
+        "multichannel": (7, 8, planes(3), b""),
+        "duotone": (8, 8, planes(1), b"duotone data"),
+    }
+    for name, (mode, depth, ps, colour_data) in modes.items():
+        for rle in (False, True):
+            # PackBits finds runs where the planes repeat bytes
+            ps_ = [np.repeat(p[:, ::2], 2, axis=1)[:, :p.shape[1]]
+                   if rle else p for p in ps]
+            out[f"psd_{name}_{'rle' if rle else 'raw'}.psd"] = (
+                "psd", psd_file(w, h, mode, depth, ps_, rle, rng,
+                                colour_data, resources=resource if rle
+                                else b"", layers=layers if rle else b""))
+    out["psd_grey_in_bitmap_mode.psd"] = ("psd", psd_file(
+        w, h, 0, 8, planes(1)))
+    out["psd_rgb_5_channels.psd"] = ("psd", psd_file(w, h, 3, 8, planes(5),
+                                                     True, rng))
+    out["psd_indexed_no_table.psd"] = ("psd", psd_file(w, h, 2, 8,
+                                                       planes(1)))
     return out
 
 

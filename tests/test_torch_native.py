@@ -16,11 +16,14 @@ glass variants (cge_tpu_torch/tools/common.py):
     leaf spans;
   - a failed build raises with the compiler's output, never falls back;
   - the loader and both builders run clean under ASan and UBSan, and so
-    does the JPEG decoder (cge_image.cpp) on whole and damaged files.
+    do the image decoders of cge_image.cpp on whole and damaged files:
+    JPEG from a C++ main, the PNG row filters, TGA run-length packets,
+    GIF LZW and PSD PackBits through the Python decoders that call them.
 """
 
 import os
 import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -374,3 +377,66 @@ def test_jpeg_decoder_under_asan_ubsan(tmp_path):
                                 ASAN_OPTIONS="detect_leaks=1"))
     assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
     assert r.stdout.count("SANITIZED_OK") == len(files)
+
+
+IMAGES_SCRIPT = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, sys.argv[1])
+from cge_tpu_torch import native
+from cge_tpu_torch.scene import image_io
+
+build_dir, fixtures = sys.argv[2], sys.argv[3]
+flags = tuple(f for f in native.CXXFLAGS if f != "-O2") + (
+    "-O0", "-g", "-fno-omit-frame-pointer", "-fsanitize=address,undefined")
+native._LIBRARY = native.build(flags=flags, build_dir=build_dir)
+native.MAX_PIXELS = 1 << 20          # flipped sizes allocate little here
+manifest = {f["name"]: f for f in json.load(
+    open(os.path.join(fixtures, "manifest.json")))["files"]}
+for name in sys.argv[4:]:
+    data = open(os.path.join(fixtures, name), "rb").read()
+    rgb = image_io.decode_image(data)
+    assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
+        manifest[name]["sha256"], name
+    for k in range(1, 9):
+        flip = bytearray(data)
+        for j in range(len(data) * k // 9, len(data), 97):
+            flip[j] ^= 0x5A + k
+        for damaged in (data[:len(data) * k // 9], bytes(flip)):
+            try:
+                image_io.decode_image(damaged)
+            except ValueError:
+                pass
+    print("SANITIZED_OK", name, flush=True)
+"""
+
+
+def test_image_decoders_under_asan_ubsan(tmp_path):
+    """The library built with its flags plus -fsanitize=address,undefined
+    at -O0 and loaded into a Python with ASan preloaded (and every Python
+    object in malloc's memory, so that ASan fences each file's bytes):
+    every small TGA, GIF, PSD and PNG fixture (tests/torch_textures/)
+    decodes whole to its manifest hash, then cut short at eight lengths and
+    with bytes flipped; a damaged file decodes or raises a ValueError, and
+    nothing faults (UBSan halts on its first report)."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures")
+    names = sorted(f for f in os.listdir(fixtures)
+                   if f.split(".")[-1] in ("tga", "gif", "psd", "png"))
+    assert len(names) >= 80
+    # ASan first; libstdc++ loaded with it, or ASan cannot intercept the
+    # decoders' C++ exceptions
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "images.py"
+    script.write_text(IMAGES_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build"),
+         fixtures, *names], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(names)

@@ -295,10 +295,12 @@ def test_port_never_imports_jax():
     assert bad == []
     # no module of the port, of its benchmark or the smoke test imports
     # Pillow (the card's machine has none): textures decode through
-    # scene/image_io.py and scene/jpeg.py; the fixtures' generator in
+    # scene/image_io.py and its format modules; the fixtures' generator in
     # jax_references/ is the JAX side and may
     assert {"cge_tpu_torch/scene/jpeg.py", "cge_tpu_torch/scene/mesh_io.py",
-            "cge_tpu_torch/ops/texture.py"} <= names
+            "cge_tpu_torch/ops/texture.py", "cge_tpu_torch/scene/tga.py",
+            "cge_tpu_torch/scene/pnm.py", "cge_tpu_torch/scene/gif.py",
+            "cge_tpu_torch/scene/psd.py"} <= names
     assert [(f.name, m) for f in files for m in _imports(f)
             if m.startswith("PIL")] == []
 

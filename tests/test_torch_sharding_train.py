@@ -13,20 +13,24 @@ port's single-device loss_and_grads + sgd_step: the loss within 1e-6
 relative, every gradient within 1e-4 of its norm (the mean's and the
 all-reduce's summation order), and the new leaves are sgd_step's. JAX's
 train_step_sharded (conftest's virtual CPU devices) compiles in 25-40 s a
-mesh and set on this CPU, the tree's in 191 s at (2, 1) (measured beside
-two other busy processes), so each set but the tree meets it, at one
-mesh: the hard-shadow set at (2, 1)
-with 11x11 rays (the rays axis does not divide them: one zero pad ray
-counts in the loss, as in JAX), the soft set at (1, 2) and the textured
-set at (2, 2); the tree and the other meshes meet JAX through the
-single-device step, which
-test_torch_gradients.py holds to jax.value_and_grad. There the loss
-within test_torch_gradients.py's LOSS_RTOL and each updated leaf within
-its gradient rule (rtol 2e-3, atol 1e-4 x max |g|) times lr, plus the
-update's own f32 rounding.
+mesh and set on a CPU, so three sets meet it here, at one mesh each: the
+hard-shadow set at (2, 1) with 11x11 rays (the rays axis does not divide
+them: one zero pad ray counts in the loss, as in JAX), the soft set at
+(1, 2) and the textured set at (2, 2). The tree's step compiles in about
+200 s, so it meets JAX through a stored step instead:
+tests/torch_tree_step_jax.npz, JAX's train_step_sharded at (2, 1) with
+its loss, gradients and new leaves (`make_references.py --tree-step`),
+against the port's 2-rank tree step. The other meshes meet JAX through
+the single-device step, which test_torch_gradients.py holds to
+jax.value_and_grad. Against JAX: the loss within test_torch_gradients.py's
+LOSS_RTOL, each gradient within its rule (rtol 2e-3, atol 1e-4 x max |g|)
+and each updated leaf within that rule times lr, plus the update's own f32
+rounding.
 """
 
 import concurrent.futures
+import hashlib
+import json
 import os
 
 import jax
@@ -74,6 +78,8 @@ JAX_CASES = (("hard", (2, 1), 11), ("soft", (1, 2), 12),
              ("texture", (2, 2), 12))
 LR = 0.1
 SEED = 5
+TREE_STEP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "torch_tree_step_jax.npz")
 
 
 def _rays(side):
@@ -213,14 +219,9 @@ def test_pad_rays_count_in_the_loss(scenes, results):
                                loss * 121 / 122, rtol=1e-6)
 
 
-@pytest.mark.parametrize("which,mesh,side", JAX_CASES)
-def test_sharded_step_matches_jax(scenes, results, which, mesh, side):
-    ranks, jref = results
-    name = _name(which, mesh, side)
-    jloss, jnew = jref[name]
-    np.testing.assert_allclose(float(ranks[f"{name}/loss"]), jloss,
-                               rtol=LOSS_RTOL.get(which, 1e-5))
-    js = scenes[which]
+def _assert_new_leaves(js, ranks, name, jnew):
+    """Each leaf the port stepped within the gradient rule times lr of the
+    leaf JAX stepped, plus the update's own f32 rounding."""
     for k in ct.DIFF_FIELDS:
         old = np.asarray(getattr(js, k)).astype(np.float64)
         got, want = ranks[f"{name}/new/{k}"], jnew[k]
@@ -229,3 +230,48 @@ def test_sharded_step_matches_jax(scenes, results, which, mesh, side):
         tol = (LR * (2e-3 * np.abs(g) + 1e-4 * np.abs(g).max())
                + 2 * np.spacing(np.abs(want).astype(np.float32)))
         assert (np.abs(got - want.astype(np.float64)) <= tol).all(), k
+
+
+@pytest.mark.parametrize("which,mesh,side", JAX_CASES)
+def test_sharded_step_matches_jax(scenes, results, which, mesh, side):
+    ranks, jref = results
+    name = _name(which, mesh, side)
+    jloss, jnew = jref[name]
+    np.testing.assert_allclose(float(ranks[f"{name}/loss"]), jloss,
+                               rtol=LOSS_RTOL.get(which, 1e-5))
+    _assert_new_leaves(scenes[which], ranks, name, jnew)
+
+
+def test_tree_sharded_step_matches_stored_jax(scenes, results):
+    """The port's TRANS+REC tree step in a 2-rank world at (2, 1) against
+    JAX's train_step_sharded on the same scene and rays, stored with
+    `make_references.py --tree-step` (JAX does not compile here): the
+    loss, every DIFF_FIELDS gradient and every new leaf."""
+    ranks = results[0]
+    name = _name("transrec", (2, 1))
+    ref = np.load(TREE_STEP)
+    meta = json.loads(str(ref["meta"]))
+    assert meta["mesh"] == [2, 1] and meta["lr"] == LR and meta["seed"] == 0
+    # the stored step was made from this module's scene and rays
+    js = scenes["transrec"]
+    h = hashlib.sha256()
+    for a in [np.asarray(getattr(js, k)) for k in TENSOR_FIELDS] + list(
+            _rays(12)):
+        h.update(np.ascontiguousarray(a).tobytes())
+    assert h.hexdigest() == str(ref["inputs_sha256"])
+    np.testing.assert_allclose(float(ranks[f"{name}/loss"]),
+                               float(ref["loss"]),
+                               rtol=LOSS_RTOL["transrec"])
+    moved = []
+    for k in ct.DIFF_FIELDS:
+        got = ranks[f"{name}/grad/{k}"].astype(np.float64)
+        want = ref[f"grad/{k}"].astype(np.float64)
+        assert np.isfinite(got).all() and np.isfinite(want).all(), k
+        tol = 2e-3 * np.abs(want) + 1e-4 * np.abs(want).max()
+        assert (np.abs(got - want) <= tol).all(), k
+        if np.abs(want).max() > 0:
+            moved.append(k)
+    assert {"mat_kd", "mat_transparency", "vertices", "sph_center",
+            "point_pos"} <= set(moved)
+    _assert_new_leaves(js, ranks, name,
+                       {k: ref[f"new/{k}"] for k in ct.DIFF_FIELDS})
