@@ -2,11 +2,13 @@
 builder in C++ (counterpart of cge_tpu/native), and the byte-serial parts
 of the texture loader.
 
-`cge_host.cpp` is this package's own copy of the JAX package's source, and
+`cge_host.cpp` is this package's own copy of the JAX package's source,
 `cge_image.cpp` the port's image decoding that runs byte by byte: JPEG
 (scene/jpeg.py), PNG row filters (scene/image_io.py), TGA run-length
-packets (scene/tga.py), GIF LZW (scene/gif.py) and PSD PackBits
-(scene/psd.py). Both are compiled at first use by `g++` with the flags of
+packets (scene/tga.py), GIF LZW (scene/gif.py), PackBits (scene/psd.py and
+scene/tiff.py), TIFF LZW and predictors (scene/tiff.py); and
+`cge_webp.cpp` the WebP bitstreams (scene/webp.py). All are compiled at
+first use by `g++` with the flags of
 the JAX package's Makefile (CXXFLAGS, warnings as errors) into one library
 in `build/cge_tpu_torch/` at the repository root, named by a hash of the
 sources, compiler and flags, and loaded with ctypes; no binary is
@@ -32,7 +34,8 @@ from cge_tpu_torch import _kernels
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "cge_host.cpp")
 IMAGE_SOURCE = os.path.join(_HERE, "cge_image.cpp")
-SOURCES = (SOURCE, IMAGE_SOURCE)
+WEBP_SOURCE = os.path.join(_HERE, "cge_webp.cpp")
+SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -63,6 +66,13 @@ _SIGNATURES = {
                           ctypes.c_long, _I, _P, ctypes.c_char_p, _I]),
     "cge_gif_lzw": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, _I,
                          _I, _I, _I, _P, ctypes.c_char_p, _I]),
+    "cge_tiff_lzw": (_I, [ctypes.c_char_p, ctypes.c_long, _P, ctypes.c_long,
+                          ctypes.c_char_p, _I]),
+    "cge_tiff_predict": (_I, [_P, _I, ctypes.c_long, _I, _I, _I, _I,
+                              ctypes.c_char_p, _I]),
+    **{name: (_I, [ctypes.c_char_p, ctypes.c_long, _I, _I, _P,
+                   ctypes.c_char_p, _I])
+       for name in ("cge_webp_vp8", "cge_webp_vp8l", "cge_webp_alph")},
 }
 
 
@@ -270,3 +280,37 @@ def gif_lzw(data: bytes, offset: int, bits: int, out: np.ndarray,
     h, w = out.shape
     decode_call(library().cge_gif_lzw, data, len(data), offset, bits, w,
                 h, int(interlace), out.ctypes.data)
+
+
+def tiff_lzw(data: bytes, size: int) -> np.ndarray:
+    """A TIFF strip's or tile's LZW codes -> its first size bytes, as
+    libtiff decodes them (new- or old-style codes); an error where the
+    codes end first."""
+    out = np.empty(size, np.uint8)
+    decode_call(library().cge_tiff_lzw, data, len(data), out.ctypes.data,
+                size)
+    return out
+
+
+def tiff_predict(buf: np.ndarray, rows: int, bits: int, stride: int,
+                 predictor: int, big_endian: bool) -> None:
+    """Undo TIFF predictor 2 or 3 in place on buf (uint8 rows [rows,
+    row_bytes]), as libtiff does; the samples come out little-endian."""
+    if buf.dtype != np.uint8 or buf.ndim != 2 or not buf.flags.c_contiguous:
+        raise ValueError("tiff_predict works on a C-contiguous uint8 "
+                         "[rows, row_bytes] array")
+    decode_call(library().cge_tiff_predict, buf.ctypes.data, rows,
+                buf.shape[1], bits, stride, predictor, int(big_endian))
+
+
+def webp(kind: str, data: bytes, rgba: np.ndarray) -> None:
+    """Decode a WebP chunk's payload of kind "vp8" (a lossy key frame,
+    through libwebp's fancy upsampling to RGBA, alpha 255), "vp8l" (a
+    lossless image) or "alph" (an alpha plane, into the alpha bytes only)
+    into rgba [h, w, 4] uint8 in place, its size the frame's."""
+    if (rgba.dtype != np.uint8 or rgba.ndim != 3 or rgba.shape[2] != 4
+            or not rgba.flags.c_contiguous):
+        raise ValueError("the WebP decoders write into a C-contiguous uint8 "
+                         "[h, w, 4] array")
+    decode_call(getattr(library(), f"cge_webp_{kind}"), data, len(data),
+                rgba.shape[1], rgba.shape[0], rgba.ctypes.data)

@@ -32,7 +32,17 @@
 //   - TGA run-length packets (cge_tga_rle), as Pillow's TgaRleDecode.c;
 //   - GIF LZW with its sub-blocks and interlaced rows (cge_gif_lzw), as
 //     Pillow's GifDecode.c;
-//   - PackBits rows of PSD (cge_packbits), as Pillow's PackDecode.c.
+//   - PackBits rows of PSD (cge_packbits), as Pillow's PackDecode.c, and
+//     TIFF strips and tiles (one "row" of the whole chunk), as libtiff's
+//     PackBitsDecode cuts them;
+//   - TIFF LZW (cge_tiff_lzw), as libtiff's LZWDecode: MSB-first codes with
+//     the early code-width change, or the old LSB-first codes with the late
+//     one (LZWDecodeCompat), told apart by the first two bytes;
+//   - TIFF predictors (cge_tiff_predict), as libtiff's tif_predict.c: the
+//     horizontal differencing of 8-, 16-, 32- and 64-bit samples (2) and
+//     the byte-plane floating point one (3), each row on its own; the
+//     samples come out in little-endian order, as libtiff gives them on a
+//     little-endian host.
 //
 // Entry points (C ABI, loaded with ctypes): cge_jpeg_info parses the
 // headers and gives the size; cge_jpeg_decode writes [H][W][3] RGB bytes,
@@ -1092,6 +1102,129 @@ void gif_lzw(const uint8_t* data, size_t n, size_t pos, int bits, int width,
     }
 }
 
+// libtiff's LZWDecode: the codes of data[0, n) until out holds out_n
+// bytes. New-style streams (a Clear code first, MSB-first) widen their
+// codes one entry early; old-style ones (first bytes 0x00 and an odd
+// byte: a Clear code LSB-first) on the entry itself.
+void tiff_lzw(const uint8_t* data, size_t n, uint8_t* out, size_t out_n) {
+    const bool compat = n >= 2 && data[0] == 0 && (data[1] & 1);
+    const int kClear = 256, kEnd = 257, kTable = 4096;
+    std::vector<uint16_t> prefix(kTable), length(kTable);
+    std::vector<uint8_t> suffix(kTable), first(kTable);
+    for (int c = 0; c < 256; ++c) {
+        suffix[c] = first[c] = static_cast<uint8_t>(c);
+        length[c] = 1;
+    }
+    int width = 9, next = 258, prev = -1;
+    const int late = compat ? 1 : 0;
+    uint64_t acc = 0;
+    int nbits = 0;
+    size_t pos = 0, done = 0;
+    while (done < out_n) {
+        while (nbits < width) {
+            if (pos >= n) fail("TIFF LZW data ends before its strip is full");
+            if (compat)
+                acc |= static_cast<uint64_t>(data[pos++]) << nbits;
+            else
+                acc = (acc << 8) | data[pos++];
+            nbits += 8;
+        }
+        int code;
+        if (compat) {
+            code = static_cast<int>(acc & ((1u << width) - 1));
+            acc >>= width;
+        } else {
+            code = static_cast<int>((acc >> (nbits - width)) &
+                                    ((1u << width) - 1));
+        }
+        nbits -= width;
+        if (!compat) acc &= (static_cast<uint64_t>(1) << nbits) - 1;
+        if (code == kClear) {
+            width = 9;
+            next = 258;
+            prev = -1;
+            continue;
+        }
+        if (code == kEnd) fail("TIFF LZW data ends before its strip is full");
+        int c = code;
+        if (prev < 0) {
+            if (code > 255) fail("TIFF LZW code not yet in its table");
+        } else {
+            if (code > next || next >= kTable)
+                fail("TIFF LZW code not yet in its table");
+            prefix[next] = static_cast<uint16_t>(prev);
+            first[next] = first[prev];
+            length[next] = static_cast<uint16_t>(length[prev] + 1);
+            suffix[next] = code == next ? first[prev] : first[code];
+            ++next;
+            if (next + 1 - late >= (1 << width) && width < 12) ++width;
+        }
+        // write the string of c, cut where the strip is full
+        const size_t len = length[c];
+        const size_t take = std::min(len, out_n - done);
+        for (size_t i = len; i-- > 0;) {
+            if (i < take) out[done + i] = suffix[c];
+            c = prefix[c];
+        }
+        done += take;
+        prev = code;
+    }
+}
+
+// libtiff's horizontal (2) and floating point (3) predictors, undone in
+// place on rows of row_bytes; stride is in samples.
+void tiff_predict(uint8_t* buf, int rows, size_t row_bytes, int bits,
+                  int stride, int predictor, bool big_endian) {
+    if (rows < 0 || stride < 1) fail("bad TIFF predictor geometry");
+    const int bps = bits / 8;
+    if (predictor == 2) {
+        if (bits != 8 && bits != 16 && bits != 32 && bits != 64)
+            fail("TIFF horizontal predictor on " + std::to_string(bits) +
+                 "-bit samples: libtiff takes 8, 16, 32 and 64");
+        const size_t wc = row_bytes / bps;
+        for (int y = 0; y < rows; ++y) {
+            uint8_t* row = buf + static_cast<size_t>(y) * row_bytes;
+            std::vector<uint64_t> v(wc);
+            for (size_t i = 0; i < wc; ++i) {
+                uint64_t x = 0;
+                for (int b = 0; b < bps; ++b) {
+                    const int shift = big_endian ? 8 * (bps - 1 - b) : 8 * b;
+                    x |= static_cast<uint64_t>(row[i * bps + b]) << shift;
+                }
+                v[i] = x;
+            }
+            const uint64_t mask =
+                bits == 64 ? ~static_cast<uint64_t>(0)
+                           : (static_cast<uint64_t>(1) << bits) - 1;
+            for (size_t i = stride; i < wc; ++i) v[i] = (v[i] + v[i - stride]) & mask;
+            for (size_t i = 0; i < wc; ++i)
+                for (int b = 0; b < bps; ++b)
+                    row[i * bps + b] = static_cast<uint8_t>(v[i] >> (8 * b));
+        }
+    } else if (predictor == 3) {
+        if (bits != 16 && bits != 24 && bits != 32 && bits != 64)
+            fail("TIFF floating point predictor on " + std::to_string(bits) +
+                 "-bit samples");
+        const size_t wc = row_bytes / bps;
+        if (row_bytes % (static_cast<size_t>(bps) * stride))
+            fail("TIFF floating point predictor on a row of " +
+                 std::to_string(row_bytes) + " bytes");
+        std::vector<uint8_t> tmp(row_bytes);
+        for (int y = 0; y < rows; ++y) {
+            uint8_t* row = buf + static_cast<size_t>(y) * row_bytes;
+            for (size_t i = stride; i < row_bytes; ++i)
+                row[i] = static_cast<uint8_t>(row[i] + row[i - stride]);
+            std::memcpy(tmp.data(), row, row_bytes);
+            for (size_t i = 0; i < wc; ++i)
+                for (int b = 0; b < bps; ++b)
+                    row[bps * i + b] = tmp[(bps - b - 1) * wc + i];
+        }
+    } else {
+        fail("TIFF predictor " + std::to_string(predictor) +
+             ": libtiff knows 1, 2 and 3");
+    }
+}
+
 void copy_error(const std::string& what, char* err, int errlen) {
     if (err && errlen > 0) std::snprintf(err, errlen, "%s", what.c_str());
 }
@@ -1168,6 +1301,22 @@ int cge_gif_lzw(const unsigned char* data, long n, long offset, int bits,
     return guarded(err, errlen, [&] {
         gif_lzw(data, static_cast<size_t>(n), static_cast<size_t>(offset),
                 bits, width, height, interlace != 0, out);
+    });
+}
+
+int cge_tiff_lzw(const unsigned char* data, long n, unsigned char* out,
+                 long out_n, char* err, int errlen) {
+    return guarded(err, errlen, [&] {
+        tiff_lzw(data, static_cast<size_t>(n), out, static_cast<size_t>(out_n));
+    });
+}
+
+int cge_tiff_predict(unsigned char* buf, int rows, long row_bytes, int bits,
+                     int stride, int predictor, int big_endian, char* err,
+                     int errlen) {
+    return guarded(err, errlen, [&] {
+        tiff_predict(buf, rows, static_cast<size_t>(row_bytes), bits, stride,
+                     predictor, big_endian != 0);
     });
 }
 

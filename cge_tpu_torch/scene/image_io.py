@@ -1,10 +1,10 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
-PNG, BMP, JPEG, GIF, TGA, PNM and PSD.
+PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF and WebP.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
 float32, row 0 the top of the image (the reference's stb_image,
-framework/src/image.cpp:22-34, which opens the same seven formats and
+framework/src/image.cpp:22-34, which opens the first seven formats and
 HDR and PIC besides). The format comes from the file's signature, never
 its name, in Pillow's order (`format_of`):
 
@@ -28,11 +28,17 @@ its name, in Pillow's order (`format_of`):
   PSD   the merged image, raw or PackBits, in bitmap, grey, indexed, RGB
         (A), CMYK, multichannel and duotone (scene/psd.py).
   PNM   P1 to P6, plain and binary, at any maxval (scene/pnm.py).
+  TIFF  the first IFD, II or MM, classic or BigTIFF, strips or tiles,
+        either planar configuration, raw, LZW, Deflate or PackBits with
+        predictors 2 and 3, in every mode of Pillow's table that
+        convert("RGB") takes but YCbCr and LAB (scene/tiff.py).
+  WebP  the first frame: lossless VP8L, lossy VP8 with or without ALPH,
+        still or animated, as libwebp decodes it (scene/webp.py).
   TGA   colour-mapped, true-colour and grey, raw or run-length, in each
         orientation (scene/tga.py); TGA has no signature, so it is tried
         last, by Pillow's test of its header.
 
-Any other format (TIFF, WebP, DDS, ...) raises a ValueError that names it,
+Any other format (DDS, QOI, ICO, ...) raises a ValueError that names it,
 as does a truncated or corrupt file. `png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
 24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
@@ -48,7 +54,7 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import gif, jpeg, pnm, psd, tga
+from cge_tpu_torch.scene import gif, jpeg, pnm, psd, tga, tiff, webp
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -172,15 +178,16 @@ def decode_png(data: bytes) -> np.ndarray:
 
 def format_of(data: bytes) -> str:
     """The image format that the file's first bytes name, tried in
-    Pillow's order: "PNG", "BMP", "JPEG", "GIF", "PNM", "PSD" or "TGA" for
-    the formats that decode here, else the name of another known format,
-    or "unknown". TGA, which has no signature, comes last, by Pillow's
-    test of its header."""
+    Pillow's order: "PNG", "BMP", "JPEG", "GIF", "PNM", "PSD", "TIFF"
+    (Pillow's six prefixes, BigTIFF's among them), "WebP" or "TGA" for the
+    formats that decode here, else the name of another known format, or
+    "unknown". TGA, which has no signature, comes last, by Pillow's test
+    of its header."""
     head = data[:16]
     for sig, name in ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
                       (b"\xff\xd8\xff", "JPEG"), (SIGNATURE, "PNG"),
                       (b"8BPS", "PSD"),
-                      (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                      *((p, "TIFF") for p in tiff.PREFIXES),
                       (b"DDS ", "DDS"), (b"qoif", "QOI"),
                       (b"\x00\x00\x01\x00", "ICO"),
                       (b"#?RADIANCE", "Radiance HDR"),
@@ -205,13 +212,15 @@ def decode_image(data: bytes) -> np.ndarray:
     decoders = {"PNG": decode_png, "BMP": decode_bmp,
                 "JPEG": jpeg.decode_jpeg, "GIF": gif.decode_gif,
                 "PNM": pnm.decode_pnm, "PSD": psd.decode_psd,
-                "TGA": tga.decode_tga}
+                "TGA": tga.decode_tga, "TIFF": tiff.decode_tiff,
+                "WebP": webp.decode_webp}
     fmt = format_of(data)
     if fmt not in decoders:
         what = ("an image of unknown format (its first bytes are "
                 f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
-        raise ValueError(f"{what}, not a PNG, BMP, JPEG, GIF, PNM, PSD or "
-                         f"TGA file: {fmt} images are not supported")
+        raise ValueError(f"{what}, not a PNG, BMP, JPEG, GIF, PNM, PSD, "
+                         f"TGA, TIFF or WebP file: {fmt} images are not "
+                         f"supported")
     try:
         return decoders[fmt](data)
     except ValueError as e:
@@ -221,7 +230,8 @@ def decode_image(data: bytes) -> np.ndarray:
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD or TGA file:
+    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD, TGA, TIFF or
+    WebP file:
     forced RGB, u8 -> f32 / 255. ValueError naming the file and its format
     for any other, and for a file that does not decode."""
     with open(path, "rb") as f:

@@ -1,0 +1,575 @@
+"""TIFF textures without Pillow: the first image file directory, as Pillow
+12's TiffImagePlugin reads it and `convert("RGB")` converts it (the JAX
+package's loader).
+
+The header (II or MM; classic or BigTIFF, which Pillow knows by a third
+byte of 43, so a big-endian BigTIFF reads as classic and fails, as in
+Pillow) and the first IFD are parsed as Pillow parses them, and the mode
+and raw mode come from the key (byte order, photometric, sample format,
+fill order, bits, extra samples) through OPEN_INFO, the part of Pillow's
+table that this module converts. Two readers follow Pillow's two:
+
+  raw (compression 1)   Pillow's own: strips or tiles at their offsets,
+        rows of the raw mode's bits (a layer's raw mode, one letter of the
+        image's, for PlanarConfiguration 2), FillOrder 2 through the raw
+        modes that reverse bits; the Predictor tag is ignored.
+  libtiff (LZW 5, Deflate 8 and 32946, PackBits 32773)   as Pillow drives
+        libtiff: each strip or tile of StripByteCounts bytes, its bits
+        reversed first at FillOrder 2, inflated (zlib), LZW-decoded or
+        PackBits-decoded (native library) to its whole size, Predictor 2
+        or 3 undone row by row for LZW and Deflate (libtiff ignores it for
+        PackBits), samples in little-endian order, then Pillow's raw mode
+        with ";16B" and ";16L" (and "I;16") read as native, the others as
+        written, which is how Pillow reads them. PlanarConfiguration 2 at
+        8 or 16 bits reads one plane a band, its high byte at 16 bits, and
+        un-premultiplies RGBa after.
+
+`convert("RGB")` then: 1-bit to 0 / 255, 2- and 4-bit grey scaled by 85 and
+17, MinIsWhite inverted where the raw mode says so, the palette from the
+16-bit ColorMap's high bytes, 16-bit grey saturated at 255, signed and
+32-bit integers clipped to [0, 255], floats truncated and clipped (NaN to
+0), the other 16-bit samples' high bytes, associated alpha divided out
+(v x 255 // a), CMYK through Pillow's conversion (psd.py), alpha and extra
+samples dropped; the Orientation tag then transposes the image, as
+Pillow's exif_transpose does.
+
+What Pillow or libtiff refuses raises a ValueError that names the case, as
+do the cases not ported: JPEG in TIFF (6, 7), CCITT (2, 3, 4), LZMA, ZSTD,
+WebP in TIFF, SGILog, ThunderScan and the other compressions; YCbCr with
+three samples and LAB (which Pillow converts through LittleCMS); a key
+that Pillow does not know.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+from cge_tpu_torch import native
+from cge_tpu_torch.scene.psd import _cmyk_to_rgb
+
+II, MM = b"II", b"MM"
+PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+            b"MM\x00\x2b", b"II\x2b\x00")
+
+COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
+                4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG", 7: "JPEG",
+                8: "Adobe Deflate", 32771: "raw 16-bit padded",
+                32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
+                34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
+                50000: "ZSTD", 50001: "WebP"}
+DECODED = (1, 5, 8, 32773, 32946)
+
+
+def _open_info() -> dict:
+    """Pillow's OPEN_INFO, the keys this module reads: (byte order,
+    photometric, sample format, fill order, bits, extra samples) -> (mode,
+    raw mode)."""
+    table = {}
+
+    def both(photo, fmt, fill, bits, extra, mode, raw):
+        for order in (II, MM):
+            table[(order, photo, fmt, fill, bits, extra)] = (mode, raw)
+
+    for photo, inv in ((0, "I"), (1, "")):
+        both(photo, (1,), 1, (1,), (), "1", "1;" + inv if inv else "1")
+        both(photo, (1,), 2, (1,), (), "1", f"1;{inv}R")
+        for bits in (2, 4):
+            both(photo, (1,), 1, (bits,), (), "L", f"L;{bits}{inv}")
+            both(photo, (1,), 2, (bits,), (), "L", f"L;{bits}{inv}R")
+        both(photo, (1,), 1, (8,), (), "L", "L;" + inv if inv else "L")
+        both(photo, (1,), 2, (8,), (), "L", f"L;{inv}R")
+    both(1, (2,), 1, (8,), (), "L", "L")
+    table[(II, 1, (1,), 1, (12,), ())] = ("I;16", "I;12")
+    table[(II, 0, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    table[(II, 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    table[(MM, 1, (1,), 1, (16,), ())] = ("I;16B", "I;16B")
+    table[(II, 1, (1,), 2, (16,), ())] = ("I;16", "I;16R")
+    table[(II, 1, (2,), 1, (16,), ())] = ("I", "I;16S")
+    table[(MM, 1, (2,), 1, (16,), ())] = ("I", "I;16BS")
+    table[(II, 0, (3,), 1, (32,), ())] = ("F", "F;32F")
+    table[(MM, 0, (3,), 1, (32,), ())] = ("F", "F;32BF")
+    table[(II, 1, (1,), 1, (32,), ())] = ("I", "I;32N")
+    table[(II, 1, (2,), 1, (32,), ())] = ("I", "I;32S")
+    table[(MM, 1, (2,), 1, (32,), ())] = ("I", "I;32BS")
+    table[(II, 1, (3,), 1, (32,), ())] = ("F", "F;32F")
+    table[(MM, 1, (3,), 1, (32,), ())] = ("F", "F;32BF")
+    both(1, (1,), 1, (8, 8), (2,), "LA", "LA")
+    both(2, (1,), 1, (8, 8, 8), (), "RGB", "RGB")
+    both(2, (1,), 2, (8, 8, 8), (), "RGB", "RGB;R")
+    both(2, (1,), 1, (8,) * 4, (), "RGBA", "RGBA")
+    for extra, mode, raw in (((0,), "RGB", "RGBX"), ((0, 0), "RGB", "RGBXX"),
+                             ((0, 0, 0), "RGB", "RGBXXX"),
+                             ((1,), "RGBA", "RGBa"),
+                             ((1, 0), "RGBA", "RGBaX"),
+                             ((1, 0, 0), "RGBA", "RGBaXX"),
+                             ((2,), "RGBA", "RGBA"),
+                             ((2, 0), "RGBA", "RGBAX"),
+                             ((2, 0, 0), "RGBA", "RGBAXX"),
+                             ((999,), "RGBA", "RGBA")):
+        both(2, (1,), 1, (8,) * (3 + len(extra)), extra, mode, raw)
+    for order, end in ((II, "L"), (MM, "B")):
+        for extra, mode, raw in (((), "RGB", "RGB"), ((), "RGBA", "RGBA"),
+                                 ((0,), "RGB", "RGBX"),
+                                 ((1,), "RGBA", "RGBa"),
+                                 ((2,), "RGBA", "RGBA")):
+            n = len(raw)
+            table[(order, 2, (1,), 1, (16,) * n, extra)] = (mode,
+                                                            f"{raw};16{end}")
+        table[(order, 5, (1,), 1, (16,) * 4, ())] = ("CMYK", f"CMYK;16{end}")
+    for bits, raw in ((1, "P;1"), (2, "P;2"), (4, "P;4")):
+        both(3, (1,), 1, (bits,), (), "P", raw)
+        both(3, (1,), 2, (bits,), (), "P", raw + "R")
+    both(3, (1,), 1, (8,), (), "P", "P")
+    both(3, (1,), 1, (8, 8), (0,), "P", "PX")
+    both(3, (1,), 1, (8, 8), (2,), "PA", "PA")
+    both(3, (1,), 2, (8,), (), "P", "P;R")
+    both(5, (1,), 1, (8,) * 4, (), "CMYK", "CMYK")
+    both(5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX")
+    both(5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX")
+    both(6, (1,), 1, (8,), (), "L", "L")
+    return table
+
+
+OPEN_INFO = _open_info()
+# keys Pillow knows but converts through what is not ported
+REFUSED = {6: "YCbCr", 8: "CIE L*a*b*"}
+# (mode, raw mode) pairs that Pillow's table names but its unpackers lack,
+# and the layers of separate planes that it cannot unpack
+NO_UNPACKER = {("L", "L;IR"), ("P", "P;1R"), ("P", "P;2R"), ("P", "P;4R"),
+               ("I;16", "I"), ("I;16B", "I"), ("LA", "L"), ("LA", "A"),
+               ("PA", "P"), ("PA", "A"), ("RGBA", "a")}
+# Pillow's mode -> its bands
+BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "I;16": 1, "I;16B": 1, "F": 1,
+         "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}
+
+# IFD field types -> struct code (the others are skipped, as by Pillow)
+_FIELD = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q", 17: "q"}
+# tags Pillow gives as one value (TiffTags' length 1)
+_SCALAR = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
+_REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _ifd(data: bytes):
+    """(byte order, tags {tag: value}) of the first IFD."""
+    head = data[:8]
+    if not head.startswith(PREFIXES):
+        raise ValueError("not a TIFF file")
+    order = "<" if head[:2] == II else ">"
+    big = head[2] == 43                     # Pillow's test of the header
+    if big:
+        if len(data) < 16:
+            raise ValueError("TIFF file is truncated in its header")
+        pos = struct.unpack_from(order + "Q", data, 8)[0]
+    else:
+        pos = struct.unpack_from(order + "L", data, 4)[0]
+    count_fmt, entry_fmt, inline = ("Q", "HHQ8s", 8) if big else \
+        ("H", "HHL4s", 4)
+    try:
+        (n,) = struct.unpack_from(order + count_fmt, data, pos)
+        pos += struct.calcsize("<" + count_fmt)
+        tags = {}
+        for _ in range(n):
+            tag, typ, count, value = struct.unpack_from(order + entry_fmt,
+                                                        data, pos)
+            pos += struct.calcsize("<" + entry_fmt)
+            if typ not in _FIELD:
+                continue
+            size = count * struct.calcsize("<" + _FIELD[typ])
+            if size > inline:
+                (off,) = struct.unpack(order + ("Q" if big else "L"), value)
+                value = data[off:off + size]
+                if len(value) != size:
+                    continue                    # Pillow skips such a tag
+            vals = struct.unpack(order + _FIELD[typ] * count, value[:size])
+            if vals:
+                tags[tag] = vals[0] if tag in _SCALAR and count == 1 else vals
+    except struct.error:
+        raise ValueError("TIFF file is truncated in its first IFD") from None
+    return head[:2], order, tags
+
+
+def _unpack_bits(rows: np.ndarray, width: int, bits: int) -> np.ndarray:
+    """rows [h, n] uint8 -> [h, width] samples of bits (MSB first)."""
+    h = rows.shape[0]
+    b = np.unpackbits(rows, axis=1)[:, :width * bits].reshape(h, width, bits)
+    return (b.astype(np.uint32) << np.arange(bits - 1, -1, -1,
+                                             dtype=np.uint32)).sum(-1)
+
+
+def _samples(rows: np.ndarray, width: int, size: int, end: str,
+             kind: str = "u") -> np.ndarray:
+    """rows [h, n] uint8 -> [h, width x k] samples of size bytes."""
+    h = rows.shape[0]
+    n = rows.shape[1] // size * size
+    dt = np.dtype(f"{end}{kind}{size}")
+    return np.ascontiguousarray(rows[:, :n]).view(dt).reshape(h, -1)
+
+
+def _unpremultiply(rgb: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """Pillow's RGBa unpacking: v x 255 // a, clipped; 0 where a is 0."""
+    a = a.astype(np.int32)[..., None]
+    v = rgb.astype(np.int32) * 255 // np.maximum(a, 1)
+    return np.where(a == 0, 0, np.minimum(v, 255)).astype(np.uint8)
+
+
+# raw mode -> its bits a pixel (Pillow's unpackers)
+RAW_BITS = {"1": 1, "L": 8, "P": 8, "F": 32, "PX": 16, "PA": 16, "LA": 16,
+            "I;12": 12, "I;16": 16, "I;16N": 16, "I;16B": 16, "I;16R": 16,
+            "I;16S": 16, "I;16BS": 16, "I;32N": 32, "I;32S": 32,
+            "I;32BS": 32, "F;32F": 32, "F;32BF": 32, "RGB": 24, "RGB;R": 24,
+            "RGBA": 32, "RGBX": 32, "RGBXX": 40, "RGBXXX": 48, "RGBa": 32,
+            "RGBaX": 40, "RGBaXX": 48, "RGBAX": 40, "RGBAXX": 48,
+            "CMYK": 32, "CMYKX": 40, "CMYKXX": 48}
+
+
+def raw_bits(raw: str) -> int:
+    if raw in RAW_BITS:
+        return RAW_BITS[raw]
+    base = raw.split(";")[0]
+    if raw[:2] in ("L;", "P;") and raw[2:3].isdigit():
+        return int(raw[2])
+    if raw.startswith("1;"):
+        return 1
+    if raw in ("L;I", "L;R", "L;IR", "P;R"):
+        return 8
+    if raw.endswith(("16L", "16B", "16N")):
+        return 16 * len(base)
+    raise ValueError(f"TIFF raw mode {raw}")
+
+
+def unpack(rows: np.ndarray, width: int, raw: str) -> np.ndarray:
+    """Pillow's unpacker of raw mode raw: rows [h, n] uint8 -> the band
+    values [h, width, bands] of the image's mode."""
+    h = rows.shape[0]
+    name, _, opts = raw.partition(";")
+    if opts.endswith("R") and not opts.startswith("16"):
+        rows = _REV[rows]
+        opts = opts[:-1]
+    if name in ("1", "L", "P") and not opts.startswith(("12", "16", "32")):
+        bits = int(opts[0]) if opts[:1].isdigit() else (1 if name == "1"
+                                                        else 8)
+        px = (_unpack_bits(rows, width, bits) if bits < 8
+              else rows[:, :width].astype(np.uint32))
+        if name == "P":
+            return px[..., None].astype(np.uint8)
+        scale = 255 // ((1 << bits) - 1)
+        v = (px * scale).astype(np.uint8)
+        if "I" in opts:
+            v = 255 - v
+        return v[..., None]
+    if name in ("PX", "PA", "LA"):
+        return rows[:, :2 * width].reshape(h, width, 2)[..., :1 if name ==
+                                                          "PX" else 2]
+    if name == "I":
+        if opts == "12":
+            v = _unpack_bits(rows, width, 12)
+        elif opts == "16R":
+            v = _samples(_REV[rows], width, 2, "<")[:, :width]
+        elif opts.startswith("16"):
+            end = ">" if "B" in opts else "<"
+            kind = "i" if "S" in opts else "u"
+            v = _samples(rows, width, 2, end, kind)[:, :width]
+        else:
+            end = ">" if "B" in opts else "<"
+            v = _samples(rows, width, 4, end, "i")[:, :width]
+        return v.astype(np.int64)[..., None]
+    if name == "F":
+        end = ">" if "B" in opts else "<"
+        return _samples(rows, width, 4, end, "f")[:, :width, None].astype(
+            np.float32)
+    # RGB, RGBA, CMYK families: each sample's (high) byte
+    n = len(name)
+    if opts.startswith("16"):
+        hi = 0 if opts.endswith("B") else 1
+        b = rows[:, :2 * n * width].reshape(h, width, n, 2)[..., hi]
+    else:
+        b = rows[:, :n * width].reshape(h, width, n)
+    if name.startswith("RGBa"):
+        return np.concatenate([_unpremultiply(b[..., :3], b[..., 3]),
+                               b[..., 3:4]], -1)
+    keep = 3 if name.startswith("RGBX") or name == "RGB" else 4
+    return b[..., :keep]
+
+
+def to_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
+    """convert("RGB") of the band values [h, w, bands] in mode."""
+    v = px[..., 0]
+    if mode in ("1", "L", "LA"):
+        g = v.astype(np.uint8)
+    elif mode in ("P", "PA"):
+        return palette[v.astype(np.uint8)]
+    elif mode in ("I;16", "I;16B"):
+        g = np.minimum(v, 255).astype(np.uint8)
+    elif mode == "I":
+        g = np.clip(v, 0, 255).astype(np.uint8)
+    elif mode == "F":
+        f = np.where(np.isnan(v), 0.0, np.clip(v, 0.0, 255.0))
+        g = f.astype(np.uint8)
+    elif mode == "CMYK":
+        return _cmyk_to_rgb(*(px[..., k] for k in range(4)))
+    else:
+        return np.ascontiguousarray(px[..., :3]).astype(np.uint8)
+    return np.repeat(g[..., None], 3, axis=2)
+
+
+def _orient(rgb: np.ndarray, orientation) -> np.ndarray:
+    """Pillow's exif_transpose of the image by the Orientation tag."""
+    ops = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+           4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
+           6: lambda a: np.rot90(a, -1), 7: lambda a: np.rot90(a, 2)
+           .transpose(1, 0, 2), 8: lambda a: np.rot90(a, 1)}
+    if orientation in ops:
+        rgb = ops[orientation](rgb)
+    return np.ascontiguousarray(rgb)
+
+
+def _list(v) -> tuple:
+    return v if isinstance(v, tuple) else (v,)
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """TIFF bytes -> the first image as [H, W, 3] uint8 RGB, row 0 =
+    top."""
+    prefix, order, tags = _ifd(data)
+    if 0xBC01 in tags:
+        raise ValueError("TIFF of Windows Media Photo data")
+    comp = tags.get(259, 1)
+    if comp not in COMPRESSIONS:
+        raise ValueError(f"TIFF compression {comp} is not a TIFF "
+                         f"compression Pillow knows")
+    cname = COMPRESSIONS[comp]
+    if comp not in DECODED:
+        raise ValueError(f"TIFF with {cname} compression ({comp}): only "
+                         f"raw, LZW, Deflate and PackBits are supported")
+    planar = tags.get(284, 1)
+    photo = tags.get(262, 0)
+    fill = tags.get(266, 1)
+    if 256 not in tags or 257 not in tags:
+        raise ValueError("TIFF without its ImageWidth and ImageLength")
+    width, height = tags[256], tags[257]
+    if not isinstance(width, int) or not isinstance(height, int):
+        raise ValueError("TIFF with an invalid image size")
+    fmt_tag = _list(tags.get(339, (1,)))
+    if len(fmt_tag) > 1 and max(fmt_tag) == min(fmt_tag) == 1:
+        fmt_tag = (1,)
+    bits = _list(tags.get(258, (1,)))
+    extra = _list(tags.get(338, ()))
+    base = 3 if photo in (2, 6, 8) else 4 if photo == 5 else 1
+    n_bands = base + len(extra)
+    spp = tags.get(277, 1)
+    if not isinstance(spp, int) or spp > 6:
+        raise ValueError(f"TIFF with {spp} samples a pixel")
+    if spp < len(bits):
+        bits = bits[:spp]
+    elif spp > len(bits) and len(bits) == 1:
+        bits = bits * spp
+    if len(bits) != spp:
+        raise ValueError(f"TIFF of {spp} samples with BitsPerSample {bits}")
+    key = (prefix, photo, fmt_tag, fill, bits, extra)
+    desc = (f"{'x'.join(map(str, bits))}-bit photometric {photo} TIFF "
+            f"({cname})")
+    if key not in OPEN_INFO:
+        if photo in REFUSED and len(bits) > 1:
+            raise ValueError(f"{desc}: {REFUSED[photo]} is not ported")
+        raise ValueError(f"{desc} with sample format {fmt_tag}, fill order "
+                         f"{fill} and extra samples {extra}: not a mode "
+                         f"Pillow reads")
+    mode, raw = OPEN_INFO[key]
+    if not width or not height:
+        raise ValueError(f"{desc} of {width}x{height} pixels")
+    native.check_pixels(desc, width, height)
+    palette = None
+    if mode in ("P", "PA"):
+        if 320 not in tags:
+            raise ValueError(f"{desc} without a ColorMap")
+        cmap = np.asarray(_list(tags[320]), np.int64) // 256
+        k = len(cmap) // 3
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:min(k, 256)] = cmap[:3 * k].reshape(3, k).T[:256]
+    px = np.zeros((height, width, BANDS[mode]),
+                  {"I": np.int64, "I;16": np.int64, "I;16B": np.int64,
+                   "F": np.float32}.get(mode, np.uint8))
+    if comp == 1:
+        _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc)
+    else:
+        if photo == 6:
+            raise ValueError(f"{desc}: libtiff reads YCbCr compressed "
+                             f"TIFFs through its RGBA path, not ported")
+        if fill == 2:
+            mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
+        if raw == "I;16":
+            raw = "I;16N"
+        elif raw.endswith((";16B", ";16L")):
+            raw = raw[:-1] + "N"
+        _read_libtiff(data, tags, px, mode, raw.replace("16N", "16L"),
+                      planar, bits, extra, comp, fill, order, desc)
+    return _orient(to_rgb(px, mode, palette), tags.get(274))
+
+
+def _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc):
+    """Pillow's own reader of uncompressed strips or tiles into px."""
+    height, width = px.shape[:2]
+    if 273 in tags:
+        offsets = _list(tags[273])
+        h = tags.get(278, height)
+        w = width
+    elif 324 in tags:
+        offsets = _list(tags[324])
+        w, h = tags.get(322), tags.get(323)
+        if not isinstance(w, int) or not isinstance(h, int):
+            raise ValueError(f"{desc} with invalid tile dimensions")
+    else:
+        raise ValueError(f"{desc} without strips or tiles")
+    if not isinstance(w, int) or not isinstance(h, int) or w <= 0 or h <= 0:
+        raise ValueError(f"{desc} with {w}x{h} strips or tiles")
+    if w == width and h == height and planar != 2:
+        offsets = offsets[-1:]
+    x = y = layer = 0
+    for offset in offsets:
+        stride = w * sum(bits) / 8 if x + w > width else 0
+        tile_raw = raw
+        if planar == 2:
+            if layer >= len(raw):
+                raise ValueError(f"{desc}: more planes than bands")
+            tile_raw = raw[layer]
+            stride /= n_bands
+        stride = int(stride)
+        x1, y1 = min(x + w, width), min(y + h, height)
+        tw, th = x1 - x, y1 - y
+        if tw > 0 and th > 0:
+            if (mode, tile_raw) in NO_UNPACKER or (
+                    planar == 2 and tile_raw == "X"):
+                raise ValueError(f"{desc}: Pillow has no unpacker for raw "
+                                 f"mode {tile_raw} of mode {mode}")
+            layer_band = planar == 2 and px.shape[2] > 1
+            nbits = 8 if layer_band else raw_bits(tile_raw)
+            row = (tw * nbits + 7) // 8
+            if stride and stride < row:
+                raise ValueError(f"{desc}: tiles of {stride}-byte rows")
+            step = stride or row
+            need = step * (th - 1) + row
+            chunk = np.frombuffer(data, np.uint8, max(0, min(
+                need, len(data) - offset)), offset) if offset < len(
+                data) else np.zeros(0, np.uint8)
+            if len(chunk) < need:
+                raise ValueError(f"{desc}: the image data is truncated")
+            rows = np.ascontiguousarray(np.lib.stride_tricks.as_strided(
+                chunk, (th, row), (step, 1)))
+            if layer_band:
+                order = "RGBA" if mode in ("RGB", "RGBA") else mode
+                px[y:y1, x:x1, order.index(tile_raw)] = rows[:, :tw]
+            else:
+                px[y:y1, x:x1] = unpack(rows, tw, tile_raw)
+        x += w
+        if x >= width:
+            x, y = 0, y + h
+            if y >= height:
+                y = 0
+                layer += 1
+
+
+def _chunk(data, offsets, counts, index, size, comp, fill, desc):
+    """libtiff's TIFFReadEncodedStrip / TIFFReadTile: chunk index decoded
+    to size bytes."""
+    if index >= len(offsets) or index >= len(counts):
+        raise ValueError(f"{desc}: strip or tile {index} is missing")
+    off, n = offsets[index], counts[index]
+    if n == 0 or off + n > len(data):
+        raise ValueError(f"{desc}: strip or tile {index} of {n} bytes at "
+                         f"{off} is past the end of the file")
+    raw = np.frombuffer(data, np.uint8, n, off)
+    if fill == 2:
+        raw = _REV[raw]
+    raw = raw.tobytes()
+    try:
+        if comp == 5:
+            return native.tiff_lzw(raw, size)
+        if comp == 32773:
+            return native.packbits(raw, 0, size, 1)[0]
+        d = zlib.decompressobj()
+        out = d.decompress(raw, size)
+    except (ValueError, zlib.error) as e:
+        raise ValueError(f"{desc}: strip or tile {index}: {e}") from None
+    if len(out) < size:
+        raise ValueError(f"{desc}: strip or tile {index} inflates to "
+                         f"{len(out)} of its {size} bytes")
+    return np.frombuffer(out, np.uint8).copy()
+
+
+def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
+                  fill, order, desc):
+    """Pillow's libtiff reader: strips or tiles decoded whole, predictor
+    undone, then unpacked (one plane a band where planar)."""
+    height, width = px.shape[:2]
+    bps = bits[0]
+    if any(b != bps for b in bits):
+        raise ValueError(f"{desc}: libtiff takes one BitsPerSample")
+    spp = len(bits)
+    bands = px.shape[2]
+    planes = bands if planar == 2 and bands > 1 else 1
+    if planes > 1 and bps not in (8, 16):
+        raise ValueError(f"{desc}: Pillow reads separate planes at 8 or 16 "
+                         f"bits only")
+    samples = 1 if planar == 2 else spp
+    predictor = tags.get(317, 1) if comp in (5, 8, 32946) else 1
+    if predictor not in (1, 2, 3):
+        raise ValueError(f"{desc}: Predictor {predictor} is not one libtiff "
+                         f"knows")
+    if predictor == 3 and tags.get(339, (1,)) not in (3, (3,) * spp, (3,)):
+        raise ValueError(f"{desc}: floating point Predictor on integer "
+                         f"samples")
+    if 322 in tags:
+        cw, ch = tags[322], tags.get(323)
+        offsets, counts = _list(tags.get(324, ())), _list(tags.get(325, ()))
+    else:
+        cw, ch = width, tags.get(278, height)
+        if isinstance(ch, int):
+            ch = min(ch, height)
+        offsets, counts = _list(tags.get(273, ())), _list(tags.get(279, ()))
+    if not isinstance(cw, int) or not isinstance(ch, int) or cw <= 0 \
+            or ch <= 0:
+        raise ValueError(f"{desc} with {cw}x{ch} strips or tiles")
+    native.check_pixels(f"{desc}'s {cw}x{ch} tile", cw, ch)
+    row_bytes = (cw * bps * samples + 7) // 8
+    # Pillow's check of libtiff's strip rows against its unpacker's (a tile
+    # whose rows are shorter than the unpacker reads, Pillow reads past)
+    if (322 not in tags or planes == 1) and \
+            (cw * raw_bits(raw) // planes + 7) // 8 > row_bytes:
+        raise ValueError(f"{desc}: libtiff's rows are shorter than raw mode "
+                         f"{raw} reads")
+    across = -(-width // cw)
+    down = -(-height // ch)
+    for plane in range(planes):
+        for ty in range(down):
+            for tx in range(across):
+                y0, x0 = ty * ch, tx * cw
+                rows = ch if 322 in tags else min(ch, height - y0)
+                index = plane * across * down + ty * across + tx
+                buf = _chunk(data, offsets, counts, index, rows * row_bytes,
+                             comp, fill, desc).reshape(rows, row_bytes)
+                if predictor > 1:
+                    try:
+                        native.tiff_predict(buf, rows, bps, samples,
+                                            predictor, order == ">")
+                    except ValueError as e:
+                        raise ValueError(f"{desc}: {e}") from None
+                elif bps in (16, 32, 64) and order == ">":
+                    buf = buf.reshape(rows, -1, bps // 8)[..., ::-1] \
+                        .reshape(rows, row_bytes)
+                y1, x1 = min(y0 + ch, height), min(x0 + cw, width)
+                part = buf[:y1 - y0]
+                if planes == 1:
+                    px[y0:y1, x0:x1] = unpack(np.ascontiguousarray(part),
+                                              x1 - x0, raw)
+                else:
+                    step = bps // 8
+                    px[y0:y1, x0:x1, plane] = part[:, step - 1:step * (
+                        x1 - x0):step]
+    # libtiff's first extra sample: unspecified where the tag is missing,
+    # unassociated for Corel's 999
+    first_extra = (extra or (0,))[0]
+    if planes > 3 and mode == "RGBA" and first_extra in (0, 1):
+        px[..., :3] = _unpremultiply(px[..., :3], px[..., 3])

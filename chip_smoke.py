@@ -170,7 +170,9 @@ exits non-zero if any phase fails:
  18. textures without Pillow (the card's machine has none): (a) every
      fixture of tests/torch_textures/ (PNG at every depth, colour type and
      interlace, BMP of every kind the port reads, baseline and
-     progressive JPEG; jax_references/make_textures.py) decoded through
+     progressive JPEG, TGA, PNM, GIF, PSD, TIFF of every mode, compression,
+     predictor and organisation, lossy, lossless and animated WebP;
+     jax_references/make_textures.py) decoded through
      the port's load_image, its u8 pixels' SHA-256 equal to the
      manifest's (JAX's load_image through Pillow made them), each
      decode's host ms; (b) scale512's 614,400-triangle dragon stand-in
@@ -188,11 +190,18 @@ exits non-zero if any phase fails:
      as in (b): TGA (24-bit run-length, literal packets across the rows),
      PNM (P6), PSD (RGB, PackBits) and GIF (the texels' 3-3-2 quantisation
      to 256 colours, LZW held at 9-bit codes by a clear code every 254);
-     each file's texels equal to the JPEG's (GIF: to their quantisation),
-     each frame equal bit for bit to the frame textured by the PNG of the
-     same texels ((b)'s for TGA, PNM and PSD), K1 and K2 launched; each
-     file's host decode ms, load s and frame ms, and the host decode ms
-     of the texels as an 8-bit RGB PNG with every row Paeth-filtered.
+     and TIFF, raw, PackBits, Deflate with predictor 2 and LZW (literal
+     codes held at 9 bits by a clear code every 253), in strips of 16
+     rows; and the committed WebP files of those texels, the 1024x1024
+     lossy one at quality 90 and the lossless 256x256 crop of their
+     corner; each file's texels equal to the JPEG's (GIF: to their
+     quantisation; the crop: to the JPEG's corner; the lossy WebP: to
+     what it decodes to, which (a) holds to the manifest), each frame
+     equal bit for bit to the frame textured by the PNG of the same
+     texels ((b)'s where they are the JPEG's), K1 and K2 launched as
+     often as in (b)'s first frame; each file's host decode ms, load s
+     and frame ms, and the host decode ms of the texels as an 8-bit RGB
+     PNG with every row Paeth-filtered.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -2980,6 +2989,11 @@ def graphs_path(device) -> dict:
 TEXTURES = os.path.join(REPO, "tests", "torch_textures")
 # the 1024x1024 progressive 4:2:0 JPEG the textured dragon wears
 TEX_JPEG = "jpeg_progressive_420_q90_1024.jpg"
+# its texels as a lossy WebP at quality 90, and their top-left corner as a
+# lossless one (jax_references/make_textures.py)
+TEX_WEBP = "webp_lossy_q90_1024.webp"
+WEBP_CROP = 256
+TEX_WEBP_CROP = f"webp_lossless_crop{WEBP_CROP}.webp"
 
 
 def texture_fixtures() -> list:
@@ -3062,7 +3076,93 @@ def texture_writers(texels):
            + palette.tobytes() + b"," + struct.pack("<HHHHB", 0, 0, w, h, 0)
            + b"\x08" + blocks + b"\x00;")
     out["texels.gif"] = (gif, palette[idx.reshape(h, w)])
+    out.update(tiff_writers(texels))
+    for name in (TEX_WEBP, TEX_WEBP_CROP):
+        with open(os.path.join(TEXTURES, name), "rb") as f:
+            data = f.read()
+        if name == TEX_WEBP_CROP:
+            held = texels[:WEBP_CROP, :WEBP_CROP]
+        else:
+            from cge_tpu_torch.scene import image_io
+
+            held = image_io.decode_image(data)     # lossy: 18a holds it
+        out[name] = (data, held)
     return out
+
+
+def tiff_writers(texels) -> dict:
+    """The texels [H, W, 3] u8 as little-endian RGB TIFFs in strips of 16
+    rows: raw, PackBits (literal packets of 128 bytes), Deflate with
+    predictor 2, and LZW (every byte a literal code, held at 9 bits by a
+    clear code every 253 codes); {name: (file bytes, texels)}."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    rps = 16
+    strips = [texels[y:y + rps].reshape(-1, w * 3)
+              for y in range(0, h, rps)]
+
+    def packbits(rows):
+        flat = rows.reshape(-1)
+        n = len(flat) // 128 * 128
+        body = np.concatenate([np.full((n // 128, 1), 127, np.uint8),
+                               flat[:n].reshape(-1, 128)], axis=1).tobytes()
+        tail = flat[n:]
+        return body + (bytes((len(tail) - 1,)) + tail.tobytes()
+                       if len(tail) else b"")
+
+    def deflate_predictor2(rows):
+        d = rows.astype(np.int16)
+        d[:, 3:] -= rows[:, :-3]
+        return zlib.compress((d & 0xFF).astype(np.uint8).tobytes())
+
+    def lzw(rows):
+        flat = rows.reshape(-1).astype(np.uint32)
+        codes = np.concatenate(
+            [np.concatenate(([256], flat[j:j + 253])) for j in range(
+                0, len(flat), 253)] + [np.array([257], np.uint32)])
+        bits = ((codes[:, None] >> np.arange(8, -1, -1, dtype=np.uint32))
+                & 1).astype(np.uint8)
+        return np.packbits(bits.reshape(-1)).tobytes()
+
+    def tiff(chunks, compression, predictor=1):
+        data = bytearray(8)
+        offsets = []
+        for c in chunks:
+            offsets.append(len(data))
+            data += c
+        tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+                (259, 3, [compression]), (262, 3, [2]), (273, 4, offsets),
+                (277, 3, [3]), (278, 4, [rps]),
+                (279, 4, [len(c) for c in chunks]), (284, 3, [1])]
+        if predictor != 1:
+            tags.append((317, 3, [predictor]))
+        ifd = len(data) + (len(data) & 1)
+        data += bytes(ifd - len(data))
+        blob_at = ifd + 2 + 12 * len(tags) + 4
+        entries, blob = b"", b""
+        for tag, typ, vals in tags:
+            payload = struct.pack("<" + "HI"[typ == 4] * len(vals), *vals)
+            if len(payload) <= 4:
+                field = payload.ljust(4, b"\0")
+            else:
+                field = struct.pack("<I", blob_at + len(blob))
+                blob += payload
+            entries += struct.pack("<HHI", tag, typ, len(vals)) + field
+        data[:8] = b"II*\x00" + struct.pack("<I", ifd)
+        return bytes(data) + struct.pack("<H", len(tags)) + entries + \
+            bytes(4) + blob
+
+    return {"texels_raw.tif": (tiff([s.tobytes() for s in strips], 1),
+                               texels),
+            "texels_packbits.tif": (tiff([packbits(s) for s in strips],
+                                         32773), texels),
+            "texels_deflate_predictor2.tif": (tiff(
+                [deflate_predictor2(s) for s in strips], 8, 2), texels),
+            "texels_lzw.tif": (tiff([lzw(s) for s in strips], 5), texels)}
 
 
 def textured_dragon(tmp, texture, grid, device):
@@ -3104,8 +3204,8 @@ def eleventh_path(device) -> dict:
     """Phase 18: the texture fixtures (texture_fixtures), then the dragon
     textured by the 1024x1024 JPEG at 512x512 with the accel against the
     same dragon textured by the PNG the port writes from the decoded
-    texels, then by those texels as TGA, PNM, PSD and GIF files
-    (new_format_frames)."""
+    texels, then by those texels as TGA, PNM, PSD, GIF, TIFF and WebP
+    files (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3117,8 +3217,9 @@ def eleventh_path(device) -> dict:
 
     log(f"[18] textures without Pillow: the fixtures, then the dragon "
         f"textured by a 1024x1024 progressive JPEG and by its texels as TGA, "
-        f"PNM, PSD and GIF | {SMI['line']} (decode and load times are the "
-        f"host's)")
+        f"PNM, PSD, GIF, TIFF (raw, PackBits, Deflate + predictor 2, LZW) "
+        f"and WebP (lossy, and a lossless crop) | {SMI['line']} (decode and "
+        f"load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
         ms = sorted((t, n) for n, k, t in times if k == kind)
@@ -3189,16 +3290,18 @@ def eleventh_path(device) -> dict:
         if lit < 0.05:
             raise AssertionError(f"the textured frame is blank: {lit:.4f}")
         formats = new_format_frames(tmp, texels, ref, cell.grid, feats,
-                                    params, device)
+                                    params, device, launches)
     return dict(fixtures=times, load_s=load_s, frame_ms=times_ms,
                 launches=launches, formats=formats)
 
 
 def new_format_frames(tmp, texels, png_frame, grid, feats, params,
-                      device) -> dict:
-    """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD and
-    GIF files (texture_writers), each frame against the PNG-textured
-    frame of the same texels; {file: (decode ms, load s, frame ms)}."""
+                      device, first_launches) -> dict:
+    """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
+    TIFF and WebP files (texture_writers), each frame against the
+    PNG-textured frame of the same texels, each first frame's K1 and K2
+    launches against (b)'s (first_launches); {file: (decode ms, load s,
+    frame ms)}."""
     import numpy as np
     import torch
 
@@ -3260,9 +3363,11 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
             f"the first frame {launches}, frames ms "
             f"{[round(x, 2) for x in times_ms]}, equal to the frame of the "
             f"PNG of its texels: {same} | {SMI['line']}")
-        if not (launches["keys"] and launches["walk"]):
+        if not (launches["keys"] and launches["walk"]) or any(
+                launches[k] != first_launches[k] for k in ("keys", "walk")):
             raise AssertionError(f"{name}: the textured frame launched "
-                                 f"{launches}")
+                                 f"{launches}, the JPEG's first frame "
+                                 f"{first_launches}")
         if not all(same):
             raise AssertionError(f"the {name}-textured frame differs from "
                                  f"the frame textured by the PNG of its "

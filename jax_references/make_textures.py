@@ -48,6 +48,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "torch_textures")
 MANIFEST = os.path.join(OUT, "manifest.json")
 BIG = "jpeg_progressive_420_q90_1024.jpg"
+# BIG's texels as lossy WebP, and their top-left corner as lossless WebP
+WEBP_BIG = "webp_lossy_q90_1024.webp"
+WEBP_CROP = 256
+WEBP_CROP_NAME = f"webp_lossless_crop{WEBP_CROP}.webp"
 COMMAND = "JAX_PLATFORMS=cpu python3 jax_references/make_textures.py"
 
 # ---------------------------------------------------------------- PNG
@@ -341,6 +345,406 @@ def psd_file(width: int, height: int, mode: int, depth: int,
     return out + b"\0\1" + counts + b"".join(r for ch in rows for r in ch)
 
 
+# ---------------------------------------------------------------- TIFF
+
+_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+
+
+def tiff_lzw(data: bytes, lsb: bool = False) -> bytes:
+    """TIFF LZW codes of data: MSB-first with the early code-width change,
+    or the old LSB-first codes (the width changes one code later)."""
+    out = bytearray()
+    acc = nbits = 0
+
+    def put(code, width):
+        nonlocal acc, nbits
+        if lsb:
+            acc |= code << nbits
+            nbits += width
+            while nbits >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nbits -= 8
+        else:
+            acc = (acc << width) | code
+            nbits += width
+            while nbits >= 8:
+                out.append((acc >> (nbits - 8)) & 0xFF)
+                nbits -= 8
+                acc &= (1 << nbits) - 1
+
+    late = 1 if lsb else 0      # the decoder's table lags by one code
+    table = {bytes((i,)): i for i in range(256)}
+    nxt, width = 258, 9
+    put(256, width)
+    w = b""
+    for byte in data:
+        wc = w + bytes((byte,))
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            put(256, width)
+            table = {bytes((i,)): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt == (1 << width) + late:
+            width += 1
+        w = bytes((byte,))
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt == (1 << width) + late and width < 12:
+            width += 1
+    put(257, width)
+    if nbits:
+        put(0, 8 - nbits)
+    return bytes(out)
+
+
+def tiff_packbits(data: bytes) -> bytes:
+    """PackBits of data: runs of 3 or more as run packets, else literals."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes((257 - (j - i), data[i]))
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out.append(j - i - 1)
+        out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _pack_samples(values: np.ndarray, bits: int, order: str) -> bytes:
+    """One row of samples -> bytes: MSB-first bit packing below 8 bits,
+    else bits / 8 bytes each in the file's byte order."""
+    if bits < 8:
+        v = values.astype(np.uint8)
+        bitrow = ((v[:, None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(-1)
+        return np.packbits(bitrow).tobytes()
+    if bits == 12:
+        v = values.astype(np.uint32)
+        bitrow = ((v[:, None] >> np.arange(11, -1, -1)) & 1).reshape(-1)
+        return np.packbits(bitrow.astype(np.uint8)).tobytes()
+    dt = {8: "u1", 16: "u2", 32: "u4", 64: "u8"}[bits]
+    if values.dtype.kind == "f":
+        dt = {32: "f4", 64: "f8"}[bits]
+    elif values.dtype.kind == "i":
+        dt = dt.replace("u", "i")
+    return values.astype(order + dt).tobytes()
+
+
+def _predict2(values: np.ndarray, bits: int, stride: int) -> np.ndarray:
+    """Horizontal differencing of a row of samples, stride samples apart."""
+    v = values.astype(np.int64)
+    out = v.copy()
+    out[stride:] = v[stride:] - v[:-stride]
+    return out & ((1 << bits) - 1)
+
+
+def _predict3(row_bytes_native: bytes, bps: int, stride: int) -> bytes:
+    """libtiff's fpDiff of a row of little-endian floats."""
+    b = np.frombuffer(row_bytes_native, np.uint8)
+    wc = len(b) // bps
+    planes = b.reshape(wc, bps)[:, ::-1].T.reshape(-1).astype(np.int64)
+    out = planes.copy()
+    out[stride:] = planes[stride:] - planes[:-stride]
+    return (out & 0xFF).astype(np.uint8).tobytes()
+
+
+def tiff_file(samples: np.ndarray, bits, photometric: int, *,
+              order: str = "<", bigtiff: bool = False, compression: int = 1,
+              predictor: int = 1, planar: int = 1, rows_per_strip=None,
+              tile=None, sample_format=None, extra=(), colormap=None,
+              fill_order: int = 1, orientation=None, raw_strips=None,
+              extra_tags=()) -> bytes:
+    """A TIFF of samples [h, w, spp] (ints, or floats at SampleFormat 3)
+    in the given organisation; raw_strips, where given, replaces the
+    encoded chunks (for damaged files)."""
+    h, w, spp = samples.shape
+    bits = tuple(bits) if isinstance(bits, (tuple, list)) else (bits,) * spp
+    b0 = bits[0]
+    chunks = []                       # encoded strips or tiles
+
+    def encode(rows_samples, nsamp):
+        """rows [r, n] samples of one chunk (n = width x samples)."""
+        raw = bytearray()
+        for row in rows_samples:
+            vals = row
+            if predictor == 2:
+                vals = _predict2(row, b0, nsamp)
+            if predictor == 3:
+                raw += _predict3(row.astype("<f" + str(b0 // 8)).tobytes(),
+                                 b0 // 8, nsamp)
+            else:
+                raw += _pack_samples(vals, b0, order)
+        raw = bytes(raw)
+        if fill_order == 2 and compression == 1:
+            raw = bytes(int(f"{x:08b}"[::-1], 2) for x in raw)
+        if compression == 5:
+            out = tiff_lzw(raw)
+        elif compression in (8, 32946):
+            out = zlib.compress(raw)
+        elif compression == 32773:
+            out = tiff_packbits(raw)
+        else:
+            out = raw
+        if fill_order == 2 and compression != 1:   # libtiff reverses the
+            out = bytes(int(f"{x:08b}"[::-1], 2) for x in out)  # codes
+        return out
+
+    planes = [samples] if planar == 1 else [samples[..., k:k + 1]
+                                            for k in range(spp)]
+    for plane in planes:
+        n = plane.shape[2]
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    blk = np.zeros((th, tw, n), plane.dtype)
+                    part = plane[ty:ty + th, tx:tx + tw]
+                    blk[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(blk.reshape(th, tw * n), n))
+        else:
+            rps = rows_per_strip or h
+            for y in range(0, h, rps):
+                part = plane[y:y + rps]
+                chunks.append(encode(part.reshape(len(part), w * n), n))
+    if raw_strips is not None:
+        chunks = raw_strips
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, list(bits)),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if sample_format is not None:
+        tags[339] = (3, [sample_format] * spp)
+    if extra:
+        tags[338] = (3, list(extra))
+    if colormap is not None:
+        tags[320] = (3, [int(v) for v in colormap])
+    if orientation is not None:
+        tags[274] = (3, [orientation])
+    for tag, typ, vals in extra_tags:
+        tags[tag] = (typ, list(vals))
+    if tile:
+        tags[322] = (4, [tile[0]])
+        tags[323] = (4, [tile[1]])
+        off_tag, cnt_tag = 324, 325
+    else:
+        tags[278] = (4, [rows_per_strip or h])
+        off_tag, cnt_tag = 273, 279
+    # layout: header, chunk data, then the IFD and its out-of-line values
+    data = bytearray(16 if bigtiff else 8)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        if len(data) & 1:
+            data += b"\0"
+    off_type = 16 if bigtiff else 4
+    tags[off_tag] = (off_type, offsets)
+    tags[cnt_tag] = (off_type if bigtiff else 4, [len(c) for c in chunks])
+    ifd_pos = len(data)
+    entry = 20 if bigtiff else 12
+    inline = 8 if bigtiff else 4
+    n_tags = len(tags)
+    ifd_size = (8 if bigtiff else 2) + n_tags * entry + (8 if bigtiff else 4)
+    extra_pos = ifd_pos + ifd_size
+    ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"), n_tags))
+    blob = bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        payload = struct.pack(order + _TYPES[typ] * len(vals), *vals)
+        count = len(vals)
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\0")
+        else:
+            field = struct.pack(order + ("Q" if bigtiff else "I"),
+                                extra_pos + len(blob))
+            blob += payload
+            if len(blob) & 1:
+                blob += b"\0"
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHI"), tag, typ,
+                           count) + field
+    ifd += struct.pack(order + ("Q" if bigtiff else "I"), 0)
+    head = (b"II" if order == "<" else b"MM")
+    head += struct.pack(order + "HHHQ", 43, 8, 0, ifd_pos) if bigtiff else \
+        struct.pack(order + "HI", 42, ifd_pos)
+    data[:len(head)] = head
+    return bytes(data + ifd + blob)
+
+
+# ---------------------------------------------------------------- WebP
+
+_WEBP = None
+
+
+def _libwebp():
+    """Pillow's own libwebp (its encoder's advanced API, for the segment,
+    filter, partition and alpha settings that Pillow's save does not
+    take), loaded with ctypes."""
+    global _WEBP
+    if _WEBP is None:
+        import ctypes
+        import glob
+
+        import PIL
+        from PIL import _webp  # noqa: F401  (loads libwebp's dependencies)
+
+        libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                            "pillow.libs", "libwebp-*.so*")
+        _WEBP = ctypes.CDLL(sorted(glob.glob(libs))[0])
+    return _WEBP
+
+
+# WebPConfig's fields in order (encode.h), each 4 bytes
+_CONFIG = ("lossless", "quality", "method", "image_hint", "target_size",
+           "target_PSNR", "segments", "sns_strength", "filter_strength",
+           "filter_sharpness", "filter_type", "autofilter",
+           "alpha_compression", "alpha_filtering", "alpha_quality", "pass",
+           "show_compressed", "preprocessing", "partitions",
+           "partition_limit", "emulate_jpeg_size", "thread_level",
+           "low_memory", "near_lossless", "exact", "use_delta_palette",
+           "use_sharp_yuv", "qmin", "qmax")
+
+
+def webp_encode(px: np.ndarray, quality: float = 75.0, **config) -> bytes:
+    """px [h, w, 3 or 4] u8 through libwebp's WebPEncode with the given
+    WebPConfig fields; the RIFF file."""
+    import ctypes
+
+    lib = _libwebp()
+    P = ctypes.c_void_p
+
+    class Picture(ctypes.Structure):      # WebPPicture (encode.h), padded
+        _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                    ("width", ctypes.c_int), ("height", ctypes.c_int),
+                    ("y", P), ("u", P), ("v", P), ("y_stride", ctypes.c_int),
+                    ("uv_stride", ctypes.c_int), ("a", P),
+                    ("a_stride", ctypes.c_int), ("pad1", ctypes.c_uint32 * 2),
+                    ("argb", P), ("argb_stride", ctypes.c_int),
+                    ("pad2", ctypes.c_uint32 * 3), ("writer", P),
+                    ("custom_ptr", P), ("extra_info_type", ctypes.c_int),
+                    ("extra_info", P), ("stats", P),
+                    ("error_code", ctypes.c_int), ("progress_hook", P),
+                    ("user_data", P), ("pad3", ctypes.c_uint32 * 3),
+                    ("pad4", P), ("pad5", P), ("pad6", ctypes.c_uint32 * 8),
+                    ("memory_", P), ("memory_argb_", P), ("pad7", P * 2),
+                    ("spare", ctypes.c_char * 256)]
+
+    class Writer(ctypes.Structure):       # WebPMemoryWriter, padded
+        _fields_ = [("mem", P), ("size", ctypes.c_size_t),
+                    ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32 * 8)]
+
+    px = np.ascontiguousarray(px, np.uint8)
+    abi = 0x0209
+    conf = (ctypes.c_int32 * 128)()
+    assert lib.WebPConfigInitInternal(conf, 0, ctypes.c_float(quality), abi)
+    fconf = ctypes.cast(conf, ctypes.POINTER(ctypes.c_float))
+    for k, v in config.items():
+        i = _CONFIG.index(k)
+        if k == "target_PSNR":
+            fconf[i] = v
+        else:
+            conf[i] = v
+    pic = Picture()
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), abi)
+    pic.use_argb = int(config.get("lossless", 0))
+    pic.height, pic.width = px.shape[:2]
+    imp = (lib.WebPPictureImportRGBA if px.shape[2] == 4
+           else lib.WebPPictureImportRGB)
+    assert imp(ctypes.byref(pic), px.ctypes.data_as(P),
+               px.shape[1] * px.shape[2])
+    w = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(w))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, P).value
+    pic.custom_ptr = ctypes.addressof(w)
+    ok = lib.WebPEncode(conf, ctypes.byref(pic))
+    out = ctypes.string_at(w.mem, w.size)
+    lib.WebPPictureFree(ctypes.byref(pic))
+    lib.WebPMemoryWriterClear(ctypes.byref(w))
+    assert ok, f"WebPEncode failed ({pic.error_code})"
+    return out
+
+
+def riff_chunks(data: bytes) -> dict:
+    """A WebP file's top-level chunks: {fourcc: payload} (the first of
+    each)."""
+    out, pos = {}, 12
+    while pos + 8 <= len(data):
+        tag, n = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.setdefault(tag, data[pos + 8:pos + 8 + n])
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def chunk(tag: bytes, payload: bytes) -> bytes:
+    return (tag + struct.pack("<I", len(payload)) + payload
+            + (b"\0" if len(payload) & 1 else b""))
+
+
+def riff(*chunks_: bytes) -> bytes:
+    body = b"WEBP" + b"".join(chunks_)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x(w: int, h: int, flags: int) -> bytes:
+    return chunk(b"VP8X", bytes((flags, 0, 0, 0)) + (w - 1).to_bytes(3,
+                 "little") + (h - 1).to_bytes(3, "little"))
+
+
+def alpha_filtered(alpha: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's forward alpha filters: 0 none, 1 horizontal, 2 vertical,
+    3 gradient (the decoder's unfilter undoes them)."""
+    a = alpha.astype(np.int32)
+    out = a.copy()
+    h, w = a.shape
+    for y in range(h):
+        for x in range(w):
+            if method == 0:
+                pred = 0
+            elif y == 0:
+                pred = a[0, x - 1] if x else 0
+            elif method == 1:
+                pred = a[y, x - 1] if x else a[y - 1, 0]
+            elif method == 2:
+                pred = a[y - 1, x]
+            elif x == 0:
+                pred = a[y - 1, 0]
+            else:
+                pred = min(255, max(0, a[y, x - 1] + a[y - 1, x]
+                                    - a[y - 1, x - 1]))
+            out[y, x] = (a[y, x] - pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+def alph_chunk(alpha: np.ndarray, method: int, lossless: bool) -> bytes:
+    """An ALPH chunk of the alpha plane: filtered by method, raw or as a
+    headerless VP8L stream of the filtered levels in green."""
+    f = alpha_filtered(alpha, method)
+    if not lossless:
+        return chunk(b"ALPH", bytes((method << 2,)) + f.tobytes())
+    g = np.zeros(f.shape + (3,), np.uint8)
+    g[..., 1] = f
+    vp8l = riff_chunks(webp_encode(g, 100.0, lossless=1, exact=1))[b"VP8L"]
+    return chunk(b"ALPH", bytes((1 | method << 2,)) + vp8l[5:])
+
+
 # ---------------------------------------------------------------- images
 
 def smooth_image(rng, h: int, w: int, noise: float) -> np.ndarray:
@@ -506,6 +910,262 @@ def fixtures() -> dict:
     out.update(pnm_fixtures(np.random.default_rng(18)))
     out.update(gif_fixtures(np.random.default_rng(19)))
     out.update(psd_fixtures(np.random.default_rng(20)))
+    out.update(tiff_fixtures(np.random.default_rng(21)))
+    texels = np.asarray(PILImage.open(io.BytesIO(out[BIG][1])).convert("RGB"))
+    out.update(webp_fixtures(np.random.default_rng(22), texels))
+    return out
+
+
+TIFF_COMPRESSIONS = {"raw": 1, "lzw": 5, "deflate": 8, "packbits": 32773}
+
+
+def tiff_fixtures(rng) -> dict:
+    """Every mode of Pillow's table that convert("RGB") takes (but YCbCr
+    and LAB), raw, LZW, Deflate and PackBits; predictors 2 and 3, planar
+    configuration 2, tiles, FillOrder 2, MinIsWhite, associated and
+    unassociated alpha, BigTIFF, big-endian files, old-style LZW codes,
+    each Orientation, and files Pillow writes."""
+    h, w = 13, 11
+    out = {}
+
+    def draw(bits, spp, kind="u"):
+        if kind == "f":
+            v = rng.normal(100, 150, (h, w, spp)).astype(np.float32)
+            v.flat[:4] = (0.5, 254.9, np.inf, np.nan)  # truncation, clips
+            return v
+        if kind == "i":
+            dt = {16: np.int16, 32: np.int32}[bits]
+            return rng.integers(-600, 600, (h, w, spp)).astype(dt)
+        dt = np.uint32 if bits > 16 else np.uint16 if bits > 8 else np.uint8
+        top = 1 << bits
+        if bits in (12, 16, 32):       # around and past 255: saturation
+            return rng.choice([0, 7, 200, 255, 256, 1000, top - 1],
+                              (h, w, spp)).astype(dt)
+        return rng.integers(0, top, (h, w, spp)).astype(dt)
+
+    def cmap(bits):
+        return rng.integers(0, 65536, 3 << bits)
+
+    modes = {   # name: (samples, bits, photometric, options)
+        "bilevel": (draw(1, 1), 1, 1, {}),
+        "bilevel_min_is_white": (draw(1, 1), 1, 0, {}),
+        "grey2": (draw(2, 1), 2, 1, {}),
+        "grey2_min_is_white": (draw(2, 1), 2, 0, {}),
+        "grey4": (draw(4, 1), 4, 1, {}),
+        "grey4_min_is_white": (draw(4, 1), 4, 0, {}),
+        "grey8": (draw(8, 1), 8, 1, {}),
+        "grey8_min_is_white": (draw(8, 1), 8, 0, {}),
+        "grey8_signed": (draw(8, 1), 8, 1, dict(sample_format=2)),
+        "grey12": (draw(12, 1), 12, 1, {}),
+        "grey16": (draw(16, 1), 16, 1, {}),
+        "grey16_min_is_white": (draw(16, 1), 16, 0, {}),
+        "grey16_signed": (draw(16, 1, "i"), 16, 1, dict(sample_format=2)),
+        "grey32": (draw(32, 1), 32, 1, {}),
+        "grey32_signed": (draw(32, 1, "i"), 32, 1, dict(sample_format=2)),
+        "float": (draw(32, 1, "f"), 32, 1, dict(sample_format=3)),
+        "float_min_is_white": (draw(32, 1, "f"), 32, 0,
+                               dict(sample_format=3)),
+        "grey_alpha": (draw(8, 2), 8, 1, dict(extra=(2,))),
+        "rgb": (draw(8, 3), 8, 2, {}),
+        "rgba": (draw(8, 4), 8, 2, dict(extra=(2,))),
+        "rgba_no_extra_samples": (draw(8, 4), 8, 2, {}),
+        "rgba_associated": (draw(8, 4), 8, 2, dict(extra=(1,))),
+        "rgba_corel": (draw(8, 4), 8, 2, dict(extra=(999,))),
+        "rgbx": (draw(8, 4), 8, 2, dict(extra=(0,))),
+        "rgbxx": (draw(8, 5), 8, 2, dict(extra=(0, 0))),
+        "rgba_associated_x": (draw(8, 5), 8, 2, dict(extra=(1, 0))),
+        "rgba_x_x": (draw(8, 6), 8, 2, dict(extra=(2, 0, 0))),
+        "rgb16": (draw(16, 3), 16, 2, {}),
+        "rgba16": (draw(16, 4), 16, 2, dict(extra=(2,))),
+        "rgba16_associated": (draw(16, 4), 16, 2, dict(extra=(1,))),
+        "rgbx16": (draw(16, 4), 16, 2, dict(extra=(0,))),
+        "palette1": (draw(1, 1), 1, 3, dict(colormap=cmap(1))),
+        "palette2": (draw(2, 1), 2, 3, dict(colormap=cmap(2))),
+        "palette4": (draw(4, 1), 4, 3, dict(colormap=cmap(4))),
+        "palette8": (draw(8, 1), 8, 3, dict(colormap=cmap(8))),
+        "palette_x": (draw(8, 2), 8, 3, dict(extra=(0,), colormap=cmap(8))),
+        "palette_alpha": (draw(8, 2), 8, 3, dict(extra=(2,),
+                                                 colormap=cmap(8))),
+        "cmyk": (draw(8, 4), 8, 5, {}),
+        "cmykx": (draw(8, 5), 8, 5, dict(extra=(0,))),
+        "cmyk16": (draw(16, 4), 16, 5, {}),
+        "ycbcr_grey": (draw(8, 1), 8, 6, {}),
+    }
+    for name, (px, bits, photo, kw) in modes.items():
+        for cname, comp in TIFF_COMPRESSIONS.items():
+            if photo == 6 and comp != 1:
+                continue                  # libtiff refuses it compressed
+            out[f"tiff_{name}_{cname}.tif"] = ("tiff", tiff_file(
+                px, bits, photo, compression=comp, rows_per_strip=5, **kw))
+    big_endian = ("grey16", "grey16_signed", "grey32_signed", "float", "rgb",
+                  "rgb16", "rgba16_associated", "cmyk16", "palette8",
+                  "bilevel")
+    for name in big_endian:
+        px, bits, photo, kw = modes[name]
+        for cname in ("raw", "lzw"):
+            out[f"tiff_{name}_be_{cname}.tif"] = ("tiff", tiff_file(
+                px, bits, photo, order=">",
+                compression=TIFF_COMPRESSIONS[cname], **kw))
+    for name, cname, pred, order in (
+            ("rgb", "lzw", 2, "<"), ("rgb", "deflate", 2, ">"),
+            ("grey8", "lzw", 2, "<"), ("grey16", "lzw", 2, "<"),
+            ("grey16", "deflate", 2, ">"), ("grey32_signed", "lzw", 2, "<"),
+            ("rgba16", "deflate", 2, "<"), ("rgb16", "lzw", 2, ">"),
+            ("cmyk", "deflate", 2, "<"), ("rgb", "packbits", 2, "<"),
+            ("float", "deflate", 3, "<"), ("float", "lzw", 3, "<"),
+            ("float", "lzw", 3, ">")):
+        px, bits, photo, kw = modes[name]
+        end = "_be" if order == ">" else ""
+        out[f"tiff_{name}{end}_{cname}_predictor{pred}.tif"] = (
+            "tiff", tiff_file(px, bits, photo, order=order, predictor=pred,
+                              compression=TIFF_COMPRESSIONS[cname],
+                              rows_per_strip=4, **kw))
+    for name, cname, extra_kw in (
+            ("rgb", "raw", {}), ("rgb", "lzw", dict(predictor=2)),
+            ("rgba_associated", "deflate", {}), ("rgba_no_extra_samples",
+                                                 "lzw", {}),
+            ("cmyk", "packbits", {}), ("rgb16", "lzw", dict(predictor=2)),
+            ("rgba16_associated", "deflate", {}), ("grey_alpha", "lzw", {}),
+            ("grey8", "raw", {})):
+        px, bits, photo, kw = modes[name]
+        out[f"tiff_{name}_planar_{cname}.tif"] = ("tiff", tiff_file(
+            px, bits, photo, planar=2, rows_per_strip=6,
+            compression=TIFF_COMPRESSIONS[cname], **extra_kw, **kw))
+    big = smooth_image(rng, 40, 37, 6.0)
+    for cname, extra_kw in (("raw", {}), ("lzw", dict(predictor=2)),
+                            ("deflate", {}), ("packbits", {}),
+                            ("deflate", dict(planar=2))):
+        tag = "_planar" if extra_kw.get("planar") else ""
+        tag += "_predictor2" if extra_kw.get("predictor") else ""
+        out[f"tiff_rgb_tiles_{cname}{tag}.tif"] = ("tiff", tiff_file(
+            big, 8, 2, tile=(16, 32), compression=TIFF_COMPRESSIONS[cname],
+            **extra_kw))
+    for name, cname in (("grey8", "raw"), ("rgb", "raw"), ("bilevel", "raw"),
+                        ("grey4", "raw"), ("grey16", "raw"), ("rgb", "lzw"),
+                        ("bilevel", "packbits"), ("palette2", "deflate"),
+                        ("grey8_min_is_white", "lzw")):
+        px, bits, photo, kw = modes[name]
+        out[f"tiff_{name}_fill_order2_{cname}.tif"] = ("tiff", tiff_file(
+            px, bits, photo, fill_order=2,
+            compression=TIFF_COMPRESSIONS[cname], **kw))
+    rgb = modes["rgb"][0]
+    out["tiff_rgb_bigtiff_lzw.tif"] = ("tiff", tiff_file(
+        rgb, 8, 2, bigtiff=True, compression=5, predictor=2))
+    out["tiff_rgb_bigtiff_raw_strips.tif"] = ("tiff", tiff_file(
+        rgb, 8, 2, bigtiff=True, rows_per_strip=3))
+    lsb = tiff_file(rgb, 8, 2, compression=5, raw_strips=[tiff_lzw(
+        modes["rgb"][0].tobytes(), lsb=True)])
+    out["tiff_rgb_lzw_old_style.tif"] = ("tiff", lsb)
+    runs = np.repeat(rng.integers(0, 3, (60, 10, 3)), 9, axis=1).astype(
+        np.uint8)
+    out["tiff_rgb_lzw_long_codes.tif"] = ("tiff", tiff_file(
+        runs, 8, 2, compression=5))        # wide codes and Clear codes
+    for orientation in range(2, 9):
+        out[f"tiff_rgb_orientation{orientation}.tif"] = ("tiff", tiff_file(
+            rgb, 8, 2, orientation=orientation, compression=5))
+    im = PILImage.fromarray(smooth_image(rng, 9, 14, 10.0))
+    for mode in ("1", "L", "P", "RGB", "RGBA", "CMYK", "I;16", "I", "F"):
+        m = im.convert(mode) if mode not in ("I;16", "I", "F") else \
+            im.convert("L").convert(mode)
+        for comp in ("raw", "tiff_lzw", "tiff_adobe_deflate", "packbits"):
+            key = mode.replace(";", "").lower()
+            out[f"tiff_pillow_{key}_{comp}.tif"] = ("tiff", _pillow(
+                m, "TIFF", compression=comp))
+    out["tiff_pillow_rgb_lzw_predictor2.tif"] = ("tiff", _pillow(
+        im, "TIFF", compression="tiff_lzw", tiffinfo={317: 2}))
+    return out
+
+
+def webp_fixtures(rng, texels: np.ndarray) -> dict:
+    """Lossy WebP (sizes that are not multiples of 16, with and without
+    alpha, segment, filter, sharpness and partition settings, ALPH raw
+    and VP8L-coded under each filter), lossless WebP (natural images,
+    palettes of 2, 4, 16 and 256 colours, colour caches, exact and near
+    lossless), animations, and the texels as the 1024x1024 lossy file at
+    quality 90 and a lossless crop."""
+    out = {}
+    for h, w in ((13, 11), (17, 33), (64, 48), (1, 1), (5, 100)):
+        im = smooth_image(rng, h, w, 8.0)
+        out[f"webp_lossy_{w}x{h}.webp"] = ("webp", webp_encode(im, 80.0))
+    im = smooth_image(rng, 45, 61, 14.0)
+    for name, cfg in (
+            ("simple_filter", dict(filter_type=0)),
+            ("simple_filter_sharpness7", dict(filter_type=0,
+                                              filter_sharpness=7)),
+            ("strong_filter_sharpness3", dict(filter_strength=100,
+                                              filter_sharpness=3)),
+            ("no_filter", dict(filter_strength=0)),
+            ("autofilter", dict(autofilter=1)),
+            ("one_segment", dict(segments=1)),
+            ("two_segments", dict(segments=2, sns_strength=100)),
+            ("four_partitions", dict(partitions=2)),
+            ("eight_partitions", dict(partitions=3, method=6)),
+            ("quality5", dict(preprocessing=4)),
+            ("quality100", dict(sns_strength=0)),
+            ("method0", dict(method=0)),
+            ("sharp_yuv", dict(use_sharp_yuv=1))):
+        quality = {"quality5": 5.0, "quality100": 100.0}.get(name, 75.0)
+        out[f"webp_lossy_{name}.webp"] = ("webp", webp_encode(
+            im, quality, **cfg))
+    noise = rng.integers(0, 256, (24, 40, 3)).astype(np.uint8)
+    out["webp_lossy_noise.webp"] = ("webp", webp_encode(noise, 60.0))
+    rgba = np.concatenate([im, rng.integers(0, 256, im.shape[:2] + (1,))
+                           .astype(np.uint8)], axis=2)
+    rgba[10:20, :, 3] = 0
+    for name, cfg in (("alpha", {}), ("alpha_raw", dict(alpha_compression=0)),
+                      ("alpha_best_filter", dict(alpha_filtering=2)),
+                      ("alpha_quantised", dict(alpha_quality=30))):
+        out[f"webp_lossy_{name}.webp"] = ("webp", webp_encode(
+            rgba, 75.0, **cfg))
+    vp8 = riff_chunks(webp_encode(im, 75.0))[b"VP8 "]
+    ramp = np.add.outer(np.arange(45) * 3, np.arange(61) * 2).astype(
+        np.uint8)
+    for method in range(4):
+        for lossless in (False, True):
+            tag = "vp8l" if lossless else "raw"
+            out[f"webp_lossy_alph_{tag}_filter{method}.webp"] = (
+                "webp", riff(vp8x(61, 45, 0x10),
+                             alph_chunk(ramp, method, lossless),
+                             chunk(b"VP8 ", vp8)))
+    nat = smooth_image(rng, 37, 29, 6.0)
+    for name, cfg in (("method0", dict(method=0)), ("method6", dict(
+            method=6)), ("quality0", dict(method=4)), ("exact", dict(
+            exact=1)), ("near_lossless", dict(near_lossless=40)),
+            ("graph_hint", dict(image_hint=3))):
+        quality = 0.0 if name == "quality0" else 100.0
+        out[f"webp_lossless_{name}.webp"] = ("webp", webp_encode(
+            nat, quality, lossless=1, **cfg))
+    out["webp_lossless_alpha.webp"] = ("webp", webp_encode(
+        rgba, 90.0, lossless=1))
+    for colours in (2, 4, 16, 256):
+        pal = rng.integers(0, 256, (colours, 3)).astype(np.uint8)
+        idx = rng.integers(0, colours, (23, 35))
+        idx[:, ::3] = idx[:, :1]           # runs for the backward references
+        out[f"webp_lossless_palette{colours}.webp"] = ("webp", webp_encode(
+            pal[idx], 100.0, lossless=1, method=6))
+    tiles = np.tile(smooth_image(rng, 8, 8, 30.0), (6, 7, 1))
+    out["webp_lossless_repeats.webp"] = ("webp", webp_encode(
+        tiles, 100.0, lossless=1, method=6))
+    frames = [PILImage.fromarray(smooth_image(rng, 30, 40, 9.0))
+              for _ in range(3)]
+    for lossless in (False, True):
+        tag = "lossless" if lossless else "lossy"
+        out[f"webp_animated_{tag}.webp"] = ("webp", _pillow(
+            frames[0], "WEBP", save_all=True, append_images=frames[1:],
+            lossless=lossless, duration=40))
+    frame = riff_chunks(webp_encode(smooth_image(rng, 9, 12, 9.0), 100.0,
+                                    lossless=1))[b"VP8L"]
+    anmf = (bytes((1, 0, 0, 2, 0, 0)) + (11).to_bytes(3, "little")
+            + (8).to_bytes(3, "little") + (40).to_bytes(3, "little")
+            + b"\x00")
+    out["webp_animated_offset_frame.webp"] = ("webp", riff(
+        vp8x(20, 16, 0x12), chunk(b"ANIM", bytes(6)),
+        chunk(b"ANMF", anmf + chunk(b"VP8L", frame))))
+    out[WEBP_BIG] = ("webp", _pillow(PILImage.fromarray(texels), "WEBP",
+                                     quality=90))
+    crop = texels[:WEBP_CROP, :WEBP_CROP]
+    out[WEBP_CROP_NAME] = ("webp", _pillow(PILImage.fromarray(crop), "WEBP",
+                                           lossless=True))
     return out
 
 

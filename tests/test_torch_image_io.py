@@ -1,14 +1,16 @@
 """The port's texture decoders (cge_tpu_torch/scene/image_io.py: PNG and
-BMP; scene/jpeg.py: JPEG; scene/tga.py, pnm.py, gif.py and psd.py: TGA,
-PNM, GIF and PSD; the byte-serial parts in native/cge_image.cpp) against
-Pillow, which the JAX package's loader uses: seeded numpy images of every
-colour type, every row filter and odd sizes, written by the port's
-`write_png` and by Pillow; every fixture of tests/torch_textures/
-(jax_references/make_textures.py) against JAX's `load_image`; random
-images Pillow saves in random PNG, BMP and JPEG modes, and in random TGA,
-GIF and PNM modes; the native PNG row filters against their Python twin;
-damaged files of each new format. Pixels must be equal exactly (u8 / 255
-as float32, as stb_image and the JAX loader give them)."""
+BMP; scene/jpeg.py: JPEG; scene/tga.py, pnm.py, gif.py, psd.py, tiff.py
+and webp.py: TGA, PNM, GIF, PSD, TIFF and WebP; the byte-serial parts in
+native/cge_image.cpp and native/cge_webp.cpp) against Pillow, which the
+JAX package's loader uses: seeded numpy images of every colour type, every
+row filter and odd sizes, written by the port's `write_png` and by Pillow;
+every fixture of tests/torch_textures/ (jax_references/make_textures.py)
+against JAX's `load_image`; random images Pillow saves in random PNG, BMP
+and JPEG modes, in random TGA, GIF and PNM modes, and as random TIFF and
+WebP files; the native PNG row filters against their Python twin; damaged
+files of each format after PNG, BMP and JPEG. Pixels must be equal
+exactly (u8 / 255 as float32, as stb_image and the JAX loader give
+them)."""
 
 import hashlib
 import io
@@ -164,9 +166,13 @@ def test_fixtures_cover_every_kind():
     """The manifest names every PNG depth and colour type, plain and
     Adam7, each BMP kind, the JPEG kinds, every TGA kind in each
     orientation and run-length, P1 to P6 at each maxval case, the GIF
-    table, interlace, offset and transparency cases and every PSD colour
-    mode raw and PackBits; the set stays under 1 MB with the 1024x1024
-    progressive JPEG in it."""
+    table, interlace, offset and transparency cases, every PSD colour
+    mode raw and PackBits, every TIFF mode in each compression with the
+    predictor, planar, tile, fill order, byte order, BigTIFF, old-style
+    LZW and orientation cases, and the WebP lossy filter, segment,
+    partition and alpha cases, the lossless palettes and the animations;
+    the set stays under 1 MB with the 1024x1024 progressive JPEG, its
+    texels as a 1024x1024 lossy WebP and their lossless crop in it."""
     names = {f["name"] for f in MANIFEST["files"]}
     for kind in ("cmap24", "cmap16", "rgb16", "rgb24", "rgba32", "grey8",
                  "grey_alpha16", "grey1"):
@@ -208,6 +214,51 @@ def test_fixtures_cover_every_kind():
             make_textures.BIG} <= names
     big = next(f for f in MANIFEST["files"] if f["name"] == make_textures.BIG)
     assert big["shape"] == [1024, 1024, 3]
+    tiff_modes = (
+        "bilevel", "bilevel_min_is_white", "grey2", "grey2_min_is_white",
+        "grey4", "grey4_min_is_white", "grey8", "grey8_min_is_white",
+        "grey8_signed", "grey12", "grey16", "grey16_min_is_white",
+        "grey16_signed", "grey32", "grey32_signed", "float",
+        "float_min_is_white", "grey_alpha", "rgb", "rgba",
+        "rgba_no_extra_samples", "rgba_associated", "rgba_corel", "rgbx",
+        "rgbxx", "rgba_associated_x", "rgba_x_x", "rgb16", "rgba16",
+        "rgba16_associated", "rgbx16", "palette1", "palette2", "palette4",
+        "palette8", "palette_x", "palette_alpha", "cmyk", "cmykx", "cmyk16")
+    for mode in tiff_modes:
+        assert {f"tiff_{mode}_{c}.tif" for c in make_textures
+                .TIFF_COMPRESSIONS} <= names, mode
+    assert {"tiff_float_lzw_predictor3.tif",
+            "tiff_float_be_lzw_predictor3.tif",
+            "tiff_grey16_be_deflate_predictor2.tif",
+            "tiff_grey32_signed_lzw_predictor2.tif",
+            "tiff_rgb_planar_lzw.tif",
+            "tiff_rgba_associated_planar_deflate.tif",
+            "tiff_rgb_tiles_lzw_predictor2.tif",
+            "tiff_rgb_tiles_deflate_planar.tif",
+            "tiff_rgb_fill_order2_lzw.tif",
+            "tiff_bilevel_fill_order2_packbits.tif",
+            "tiff_rgb_bigtiff_lzw.tif", "tiff_rgb_lzw_old_style.tif",
+            "tiff_float_be_raw.tif", "tiff_grey16_signed_be_lzw.tif",
+            "tiff_pillow_rgb_lzw_predictor2.tif"} <= names
+    assert {f"tiff_rgb_orientation{k}.tif" for k in range(2, 9)} <= names
+    for k in ("11x13", "33x17", "1x1", "100x5", "simple_filter",
+              "simple_filter_sharpness7", "strong_filter_sharpness3",
+              "no_filter", "one_segment", "two_segments", "four_partitions",
+              "eight_partitions", "alpha", "alpha_raw", "alpha_best_filter",
+              "alpha_quantised"):
+        assert f"webp_lossy_{k}.webp" in names, k
+    for f in range(4):
+        assert {f"webp_lossy_alph_raw_filter{f}.webp",
+                f"webp_lossy_alph_vp8l_filter{f}.webp"} <= names
+    assert {f"webp_lossless_palette{k}.webp" for k in (2, 4, 16, 256)} <= \
+        names
+    assert {"webp_lossless_method6.webp", "webp_lossless_alpha.webp",
+            "webp_lossless_near_lossless.webp", "webp_animated_lossy.webp",
+            "webp_animated_lossless.webp", "webp_animated_offset_frame.webp",
+            make_textures.WEBP_BIG, make_textures.WEBP_CROP_NAME} <= names
+    webp_big = next(f for f in MANIFEST["files"]
+                    if f["name"] == make_textures.WEBP_BIG)
+    assert webp_big["shape"] == [1024, 1024, 3]
     assert sum(f["bytes"] for f in MANIFEST["files"]) < 1 << 20
 
 
@@ -310,11 +361,13 @@ def test_palette_index_past_the_end_is_black(tmp_path):
     ("pnm_p3_maxval1000.ppm", "texture.tga"),
     ("pnm_p6_maxval65535.ppm", "texture.jpg"),
     ("gif_offset_transparent.gif", "texture.psd"),
-    ("psd_cmyk_rle.psd", "texture.gif")])
+    ("psd_cmyk_rle.psd", "texture.gif"),
+    ("tiff_rgb_lzw_predictor2.tif", "texture.png"),
+    ("webp_lossy_alpha.webp", "texture.tif")])
 def test_swapped_extensions_decode_by_signature(tmp_path, fixture, name):
     """A PNG named .jpg, a JPEG named .png, a BMP named .tex, and TGA,
-    PNM, GIF and PSD files under other formats' names load through the
-    mesh loader's texture path as JAX loads them."""
+    PNM, GIF, PSD, TIFF and WebP files under other formats' names load
+    through the mesh loader's texture path as JAX loads them."""
     path = str(tmp_path / name)
     with open(os.path.join(FIXTURES, fixture), "rb") as src, \
             open(path, "wb") as dst:
@@ -355,8 +408,21 @@ def _pillow_saved(fmt, mode="RGB", **kw):
     ("cmyk", lambda: _pillow_saved("JPEG", "CMYK"), r"CMYK"),
     ("440", lambda: _jpeg_with(_set(11, 0x12)), r"4:4:0"),
     ("411", lambda: _jpeg_with(_set(11, 0x41)), r"4:1:1"),
-    ("tiff", lambda: _pillow_saved("TIFF"), r"TIFF"),
-    ("webp", lambda: _pillow_saved("WEBP"), r"WebP"),
+    ("tiff", lambda: _pillow_saved("TIFF", "1", compression="group4"),
+     r"TIFF with CCITT Group 4 compression"),
+    ("webp", lambda: _pillow_saved("TIFF", compression="jpeg"),
+     r"TIFF with JPEG compression"),
+    ("tiff_ycbcr", lambda: _pillow_saved("TIFF", "YCbCr",
+                                         compression="tiff_lzw"),
+     r"photometric 6 TIFF.*YCbCr"),
+    ("tiff_lab", lambda: _pillow_saved("TIFF", "LAB"),
+     r"photometric 8 TIFF.*L\*a\*b\* is not ported"),
+    ("tiff_lzma", lambda: make_textures.tiff_file(
+        np.zeros((2, 2, 1), np.uint8), 8, 1, compression=34925,
+        raw_strips=[b"\0"]), r"TIFF with LZMA compression"),
+    ("tiff_bigtiff_mm", lambda: make_textures.tiff_file(
+        np.zeros((2, 2, 1), np.uint8), 8, 1, bigtiff=True, order=">"),
+     r"TIFF"),
     ("gif", lambda: _pillow_saved("GIF")[:-8], r"GIF.*truncated"),
     ("dds", lambda: _pillow_saved("DDS", "RGBA"), r"DDS"),
     ("pam", lambda: b"P7\nWIDTH 4\nHEIGHT 4\n", r"PAM"),
@@ -367,8 +433,12 @@ def _pillow_saved(fmt, mode="RGB", **kw):
     ("unknown", lambda: b"\x00\x01\x02\x03 no image", r"unknown format")])
 def test_unsupported_formats_name_their_format(tmp_path, kind, make, words):
     """Formats the port does not read raise a ValueError that names them
-    (ROADMAP queue 6 lists them in order), whatever the file's name; so
-    does a GIF, which the port reads, cut short."""
+    (ROADMAP queue 6 lists them in order), whatever the file's name: among
+    them the TIFF compressions and photometrics left out (CCITT Group 4
+    and JPEG in TIFF, in the cases named "tiff" and "webp" since the port
+    reads both formats), and a big-endian BigTIFF, which Pillow reads as a
+    classic TIFF and refuses; so does a GIF, which the port reads, cut
+    short."""
     path = str(tmp_path / "t.png")
     with open(path, "wb") as f:
         f.write(make())
@@ -401,7 +471,7 @@ def test_loader_decodes_png_without_pillow(tmp_path, monkeypatch):
 
 def test_not_a_png_raises(tmp_path):
     path = tmp_path / "n.png"
-    path.write_bytes(b"II*\x00 a TIFF header")
+    path.write_bytes(b"DDS \x7c\x00\x00\x00 a DDS header")
     with pytest.raises(ValueError, match="not a PNG"):
         image_io.load_image(str(path))
 
@@ -488,12 +558,31 @@ def _damaged(name, how):
     ("psd_rgb_raw.psd", "cut", "PSD.*truncated"),
     ("psd_cmyk_rle.psd", "cut", "PSD.*truncated"),
     ("psd_grey_rle.psd", (23, 16), "16-bit.*PSD"),
-    ("psd_rgb_raw.psd", (13, 2), "PSD.*not enough channels")])
+    ("psd_rgb_raw.psd", (13, 2), "PSD.*not enough channels"),
+    ("tiff_rgb_raw.tif", "cut", "TIFF.*truncated"),
+    ("tiff_rgb_lzw.tif", "cut", "TIFF"),
+    ("tiff_grey16_be_deflate_predictor2.tif", "cut", "TIFF"),
+    ("tiff_cmyk_packbits.tif", "cut", "TIFF"),
+    ("tiff_rgb_tiles_lzw_predictor2.tif", "cut", "TIFF"),
+    # BitsPerSample 8 -> 3: a key Pillow does not know
+    ("tiff_grey8_raw.tif", (b"\x02\x01\x03\x00\x01\x00\x00\x00\x08",
+                            b"\x02\x01\x03\x00\x01\x00\x00\x00\x03"),
+     "3-bit.*TIFF.*not a mode"),
+    ("webp_lossy_11x13.webp", "cut", "WebP.*truncated"),
+    ("webp_lossless_method6.webp", "cut", "WebP.*truncated"),
+    ("webp_lossy_alpha.webp", "cut", "WebP.*truncated"),
+    ("webp_animated_lossy.webp", "cut", "WebP.*truncated"),
+    # the VP8 start code, the VP8L signature byte and version
+    ("webp_lossy_33x17.webp", (b"\x9d\x01\x2a", b"\x9d\x01\x2b"),
+     "WebP VP8 bitstream without a key-frame start code"),
+    ("webp_lossless_exact.webp", (b"VP8L", b"VP8X"), "WebP"),
+    # the ALPH header byte (after RIFF and VP8X) with its reserved bits set
+    ("webp_lossy_alph_raw_filter1.webp", (38, 0xC4), "WebP.*ALPH header")])
 def test_damaged_files_raise_naming_file_and_format(tmp_path, name, how,
                                                    words):
-    """A truncated or corrupt TGA, PNM, GIF or PSD raises a ValueError
-    that names the file and the format (and so does JAX's loader: Pillow
-    refuses each of them too)."""
+    """A truncated or corrupt TGA, PNM, GIF, PSD, TIFF or WebP raises a
+    ValueError that names the file and the format (and so does JAX's
+    loader: Pillow refuses each of them too)."""
     path = str(tmp_path / "texture.bin")
     with open(path, "wb") as f:
         f.write(_damaged(name, how))
@@ -534,4 +623,54 @@ def test_random_tga_gif_pnm_files_match_jax(scratch_dir, case):
     path = os.path.join(scratch_dir, "case.tex")
     with open(path, "wb") as f:
         f.write(data)
+    np.testing.assert_array_equal(_port_u8(path), _jax_u8(path))
+
+
+@st.composite
+def _tiff_webp_files(draw):
+    fmt = draw(st.sampled_from(["TIFF", "WEBP"]))
+    h, w = draw(st.integers(1, 40)), draw(st.integers(1, 40))
+    opts = {}
+    if fmt == "TIFF":
+        mode = draw(st.sampled_from(["1", "L", "P", "RGB", "RGBA", "CMYK",
+                                     "I;16", "LA"]))
+        opts["compression"] = draw(st.sampled_from(
+            ["raw", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate",
+             "packbits"]))
+        if mode not in ("1", "P") and opts["compression"] in (
+                "tiff_lzw", "tiff_adobe_deflate") and draw(st.booleans()):
+            opts["tiffinfo"] = {317: 2}                 # predictor 2
+    else:
+        mode = draw(st.sampled_from(["RGB", "RGBA"]))
+        opts["lossless"] = draw(st.booleans())
+        opts["quality"] = draw(st.integers(0, 100))
+        opts["method"] = draw(st.integers(0, 6))
+        if not opts["lossless"]:
+            opts["alpha_quality"] = draw(st.sampled_from([100, 50]))
+    seed = draw(st.integers(0, 2 ** 32 - 1))
+    return fmt, mode, h, w, opts, seed
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(case=_tiff_webp_files())
+def test_random_tiff_webp_files_match_jax(scratch_dir, case):
+    """Random small images that Pillow saves as TIFF (each mode, raw,
+    LZW, Deflate or PackBits, with or without predictor 2) or WebP
+    (lossless or lossy at any quality and method, RGB or RGBA) decode to
+    JAX's pixels exactly; the file is named .tex."""
+    fmt, mode, h, w, opts, seed = case
+    rng = np.random.default_rng(seed)
+    if mode == "I;16":
+        im = PIL.fromarray(rng.integers(0, 600, (h, w)).astype(np.uint16))
+    else:
+        rgb = make_textures.smooth_image(rng, h, w, 12.0)
+        im = PIL.fromarray(rgb).convert(mode)
+        if mode in ("RGBA", "LA"):
+            im.putalpha(PIL.fromarray(rng.integers(0, 256, (h, w)).astype(
+                np.uint8)))
+    buf = io.BytesIO()
+    im.save(buf, fmt, **opts)
+    path = os.path.join(scratch_dir, "case.tex")
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
     np.testing.assert_array_equal(_port_u8(path), _jax_u8(path))
