@@ -6,8 +6,10 @@ of the texture loader.
 `cge_image.cpp` the port's image decoding that runs byte by byte: JPEG
 (scene/jpeg.py), PNG row filters (scene/image_io.py), TGA run-length
 packets (scene/tga.py), GIF LZW (scene/gif.py), PackBits (scene/psd.py and
-scene/tiff.py), TIFF LZW and predictors (scene/tiff.py); and
-`cge_webp.cpp` the WebP bitstreams (scene/webp.py). All are compiled at
+scene/tiff.py), TIFF LZW and predictors (scene/tiff.py);
+`cge_webp.cpp` the WebP bitstreams (scene/webp.py); and `cge_bcn.cpp` the
+block-compressed (BC1 to BC7) textures of DDS files (scene/dds.py). All
+are compiled at
 first use by `g++` with the flags of
 the JAX package's Makefile (CXXFLAGS, warnings as errors) into one library
 in `build/cge_tpu_torch/` at the repository root, named by a hash of the
@@ -35,7 +37,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "cge_host.cpp")
 IMAGE_SOURCE = os.path.join(_HERE, "cge_image.cpp")
 WEBP_SOURCE = os.path.join(_HERE, "cge_webp.cpp")
-SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE)
+BCN_SOURCE = os.path.join(_HERE, "cge_bcn.cpp")
+SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE, BCN_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -73,6 +76,8 @@ _SIGNATURES = {
     **{name: (_I, [ctypes.c_char_p, ctypes.c_long, _I, _I, _P,
                    ctypes.c_char_p, _I])
        for name in ("cge_webp_vp8", "cge_webp_vp8l", "cge_webp_alph")},
+    "cge_bcn_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _I, _I, _I, _I,
+                            _P, ctypes.c_char_p, _I]),
 }
 
 
@@ -314,3 +319,18 @@ def webp(kind: str, data: bytes, rgba: np.ndarray) -> None:
                          "[h, w, 4] array")
     decode_call(getattr(library(), f"cge_webp_{kind}"), data, len(data),
                 rgba.shape[1], rgba.shape[0], rgba.ctypes.data)
+
+
+def bcn(data: bytes, kind: int, signed: bool, rgba: np.ndarray) -> None:
+    """Decode a grid of BCn blocks (kind 1 to 7: BC1 to BC7, signed for
+    BC5 and BC6H) from the start of data into rgba [4 * blocks_h,
+    4 * blocks_w, 4] uint8 in place, as Pillow's BCn decoder gives the
+    pixels; an error where data holds fewer bytes than the grid."""
+    if (rgba.dtype != np.uint8 or rgba.ndim != 3 or rgba.shape[2] != 4
+            or rgba.shape[0] % 4 or rgba.shape[1] % 4
+            or not rgba.flags.c_contiguous):
+        raise ValueError("the BCn decoder writes into a C-contiguous uint8 "
+                         "[4 * blocks_h, 4 * blocks_w, 4] array")
+    decode_call(library().cge_bcn_decode, data, len(data), kind,
+                int(signed), rgba.shape[1] // 4, rgba.shape[0] // 4,
+                rgba.ctypes.data)

@@ -1,5 +1,5 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
-PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF and WebP.
+PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP and DDS.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
@@ -34,11 +34,16 @@ its name, in Pillow's order (`format_of`):
         convert("RGB") takes but YCbCr and LAB (scene/tiff.py).
   WebP  the first frame: lossless VP8L, lossy VP8 with or without ALPH,
         still or animated, as libwebp decodes it (scene/webp.py).
+  DDS   the first surface: uncompressed RGB masks, luminance, 8-bit
+        palette, DX10 R8G8B8A8, and BC1 to BC5, BC5 signed, BC6H (UF16
+        and SF16) and BC7 blocks, as Pillow's DdsImagePlugin and BCn
+        decoder give them (scene/dds.py).
   TGA   colour-mapped, true-colour and grey, raw or run-length, in each
         orientation (scene/tga.py); TGA has no signature, so it is tried
         last, by Pillow's test of its header.
 
-Any other format (DDS, QOI, ICO, ...) raises a ValueError that names it,
+Any other format (QOI, ICO, Radiance HDR, OpenEXR, PAM, PFM, ...) raises a
+ValueError that names it,
 as does a truncated or corrupt file. `png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
 24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
@@ -54,7 +59,7 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import gif, jpeg, pnm, psd, tga, tiff, webp
+from cge_tpu_torch.scene import dds, gif, jpeg, pnm, psd, tga, tiff, webp
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -179,10 +184,10 @@ def decode_png(data: bytes) -> np.ndarray:
 def format_of(data: bytes) -> str:
     """The image format that the file's first bytes name, tried in
     Pillow's order: "PNG", "BMP", "JPEG", "GIF", "PNM", "PSD", "TIFF"
-    (Pillow's six prefixes, BigTIFF's among them), "WebP" or "TGA" for the
-    formats that decode here, else the name of another known format, or
-    "unknown". TGA, which has no signature, comes last, by Pillow's test
-    of its header."""
+    (Pillow's six prefixes, BigTIFF's among them), "DDS", "WebP" or "TGA"
+    for the formats that decode here, else the name of another known
+    format, or "unknown". TGA, which has no signature, comes last, by
+    Pillow's test of its header."""
     head = data[:16]
     for sig, name in ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
                       (b"\xff\xd8\xff", "JPEG"), (SIGNATURE, "PNG"),
@@ -213,13 +218,13 @@ def decode_image(data: bytes) -> np.ndarray:
                 "JPEG": jpeg.decode_jpeg, "GIF": gif.decode_gif,
                 "PNM": pnm.decode_pnm, "PSD": psd.decode_psd,
                 "TGA": tga.decode_tga, "TIFF": tiff.decode_tiff,
-                "WebP": webp.decode_webp}
+                "WebP": webp.decode_webp, "DDS": dds.decode_dds}
     fmt = format_of(data)
     if fmt not in decoders:
         what = ("an image of unknown format (its first bytes are "
                 f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
         raise ValueError(f"{what}, not a PNG, BMP, JPEG, GIF, PNM, PSD, "
-                         f"TGA, TIFF or WebP file: {fmt} images are not "
+                         f"TGA, TIFF, WebP or DDS file: {fmt} images are not "
                          f"supported")
     try:
         return decoders[fmt](data)
@@ -230,8 +235,8 @@ def decode_image(data: bytes) -> np.ndarray:
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD, TGA, TIFF or
-    WebP file:
+    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD, TGA, TIFF,
+    WebP or DDS file:
     forced RGB, u8 -> f32 / 255. ValueError naming the file and its format
     for any other, and for a file that does not decode."""
     with open(path, "rb") as f:

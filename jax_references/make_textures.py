@@ -913,6 +913,7 @@ def fixtures() -> dict:
     out.update(tiff_fixtures(np.random.default_rng(21)))
     texels = np.asarray(PILImage.open(io.BytesIO(out[BIG][1])).convert("RGB"))
     out.update(webp_fixtures(np.random.default_rng(22), texels))
+    out.update(dds_fixtures(np.random.default_rng(23)))
     return out
 
 
@@ -1168,6 +1169,188 @@ def webp_fixtures(rng, texels: np.ndarray) -> dict:
                                            lossless=True))
     return out
 
+
+
+# ---------------------------------------------------------------- DDS
+
+# DDS_PIXELFORMAT flags
+DDS_ALPHAPIXELS, DDS_FOURCC, DDS_PALETTE8, DDS_RGB, DDS_LUMINANCE = (
+    0x1, 0x4, 0x20, 0x40, 0x20000)
+
+
+def dds_file(width: int, height: int, body: bytes, *, pfflags=DDS_FOURCC,
+             fourcc=b"", bitcount=0, masks=(0, 0, 0, 0), dxgi=None,
+             mipmaps=0, cube=False, array_size=1) -> bytes:
+    """A DDS file: the 124-byte header (and the DX10 one where dxgi is
+    given), then body."""
+    flags = 0x1007 | (0x20000 if mipmaps else 0)
+    caps = 0x1000 | (0x400008 if mipmaps else 0) | (0x8 if cube else 0)
+    head = b"DDS " + struct.pack("<7I", 124, flags, height, width, 0, 0,
+                                 mipmaps) + bytes(44)
+    head += struct.pack("<2I4sI4I", 32, pfflags, fourcc.ljust(4, b"\0"),
+                        bitcount, *masks)
+    head += struct.pack("<5I", caps, 0xFE00 if cube else 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, array_size, 0)
+    return head + body
+
+
+def _bits(fields) -> np.ndarray:
+    """[(values [n], bits)] -> the fields packed least significant bit
+    first into [n, 16] bytes, one 128-bit block a row."""
+    rows = np.concatenate([(np.asarray(v, np.uint32)[:, None]
+                            >> np.arange(n, dtype=np.uint32)) & 1
+                           for v, n in fields], axis=1).astype(np.uint8)
+    assert rows.shape[1] == 128
+    return np.packbits(rows, axis=1, bitorder="little")
+
+
+def bc7_mode6(texels: np.ndarray) -> bytes:
+    """The texels [H, W, 3] u8 as BC7 mode 6 blocks (edges replicated to
+    whole blocks): each block's endpoints its own minimum (p-bit 0) and
+    maximum (p-bit 1) per channel, alpha opaque, and each pixel the index
+    of the nearest of the 16 colours between them, endpoints swapped where
+    the anchor's index would need its fourth bit."""
+    h, w = texels.shape[:2]
+    px = np.pad(texels, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge")
+    hb, wb = px.shape[0] // 4, px.shape[1] // 4
+    blocks = px.reshape(hb, 4, wb, 4, 3).transpose(0, 2, 1, 3, 4).reshape(
+        -1, 16, 3).astype(np.int32)
+    lo, hi = blocks.min(1) >> 1, blocks.max(1) >> 1      # 7-bit endpoints
+    e0, e1 = lo << 1, hi << 1 | 1
+    wt = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60,
+                   64])
+    pal = ((64 - wt)[None, :, None] * e0[:, None] + wt[None, :, None]
+           * e1[:, None] + 32) >> 6                       # [n, 16, 3]
+    idx = ((blocks[:, :, None] - pal[:, None]) ** 2).sum(-1).argmin(-1)
+    swap = idx[:, 0] >= 8
+    lo, hi = np.where(swap[:, None], hi, lo), np.where(swap[:, None], lo, hi)
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    n = len(blocks)
+    fields = [(np.full(n, 64), 7)]
+    for c in range(3):
+        fields += [(lo[:, c], 7), (hi[:, c], 7)]
+    fields += [(np.full(n, 127), 7), (np.full(n, 127), 7),
+               (swap.astype(int), 1), (1 - swap, 1), (idx[:, 0], 3)]
+    fields += [(idx[:, i], 4) for i in range(1, 16)]
+    return dds_file(w, h, _bits(fields).tobytes(), fourcc=b"DX10", dxgi=98)
+
+
+def dds_fixtures(rng) -> dict:
+    """DDS files of every kind Pillow reads: Pillow's own (DXT1, DXT3,
+    DXT5, BC2, BC3, BC5, L, LA, RGB, RGBA), and seeded random blocks of
+    DXT1 in both colour modes, DXT5 in both alpha modes, BC4 (ATI1, BC4U),
+    BC5 (ATI2, BC5U, BC5S), BC6H UF16 and SF16 in each of the 14 modes and
+    the reserved ones, BC7 in each mode, without one and as sRGB, the DX10
+    forms of BC1 to BC5 and R8G8B8A8, uncompressed RGB masks at 16, 24 and
+    32 bits (one mask zero), an 8-bit palette, the crops of 1x1, 5x3 and
+    13x9 images, and a file with mipmaps, a cube map and a DX10 array,
+    whose first surface is the image."""
+    out = {}
+
+    def blocks(n, size=16):
+        return rng.integers(0, 256, (n, size), dtype=np.uint8)
+
+    im = PILImage.fromarray(smooth_image(rng, 10, 14, 12.0))
+    rgba = im.convert("RGBA")
+    rgba.putalpha(PILImage.fromarray(rng.integers(0, 256, (10, 14)).astype(
+        np.uint8)))
+    for fmt in ("DXT1", "DXT3", "DXT5", "BC2", "BC3", "BC5"):
+        src = im if fmt == "BC5" else rgba
+        out[f"dds_pillow_{fmt.lower()}.dds"] = ("dds", _pillow(
+            src, "DDS", pixel_format=fmt))
+    for mode in ("L", "LA", "RGB", "RGBA"):
+        src = rgba if mode == "RGBA" else im.convert(mode)
+        out[f"dds_pillow_{mode.lower()}.dds"] = ("dds", _pillow(src, "DDS"))
+    # BC1 in four-colour (c0 > c1, the first block's endpoints (10, 20, 3)
+    # and (3, 50, 30)) and three-colour mode (c0 <= c1, one block c0 = c1)
+    b = blocks(4, 8)
+    c = b[:, :4].copy().view("<u2")
+    c.sort(axis=1)
+    four, three = c[:, ::-1].copy(), c.copy()
+    four[0] = (10 << 11 | 20 << 5 | 3, 3 << 11 | 50 << 5 | 30)
+    three[0, 1] = three[0, 0]
+    for name, ends in (("four_colour", four), ("three_colour", three)):
+        b[:, :4] = ends.view(np.uint8)
+        out[f"dds_dxt1_{name}.dds"] = ("dds", dds_file(
+            8, 8, b.tobytes(), fourcc=b"DXT1"))
+    b = blocks(4)
+    a = np.sort(b[:, :2], axis=1)
+    for name, ends in (("alpha8", a[:, ::-1]), ("alpha6", a)):
+        b[:, :2] = ends
+        out[f"dds_dxt5_{name}.dds"] = ("dds", dds_file(
+            8, 8, b.tobytes(), fourcc=b"DXT5"))
+    for fourcc in (b"ATI1", b"BC4U"):
+        out[f"dds_bc4_{fourcc.decode().lower()}.dds"] = ("dds", dds_file(
+            12, 8, blocks(6, 8).tobytes(), fourcc=fourcc))
+    for fourcc in (b"ATI2", b"BC5U", b"BC5S"):
+        out[f"dds_bc5_{fourcc.decode().lower()}.dds"] = ("dds", dds_file(
+            12, 8, blocks(6).tobytes(), fourcc=fourcc))
+    # BC6H: the 14 modes, the four reserved ones, two random blocks
+    modes = [0, 1] + [k << 2 | 2 for k in range(8)] + [
+        k << 2 | 3 for k in range(8)]
+    for dxgi, name in ((95, "uf16"), (96, "sf16")):
+        b = blocks(20)
+        for k, mode in enumerate(modes):    # 2 or 5 mode bits
+            keep = 0xFC if mode < 2 else 0xE0
+            b[k, 0] = (b[k, 0] & keep) | mode
+        out[f"dds_bc6h_{name}.dds"] = ("dds", dds_file(
+            20, 16, b.tobytes(), fourcc=b"DX10", dxgi=dxgi))
+    for mode in range(8):
+        b = blocks(16)
+        b[:, 0] = (b[:, 0] & ~np.uint8((2 << mode) - 1)) | (1 << mode)
+        out[f"dds_bc7_mode{mode}.dds"] = ("dds", dds_file(
+            16, 16, b.tobytes(), fourcc=b"DX10", dxgi=98))
+    b = blocks(2)
+    b[0, 0] = 0
+    out["dds_bc7_no_mode.dds"] = ("dds", dds_file(8, 4, b.tobytes(),
+                                                  fourcc=b"DX10", dxgi=98))
+    out["dds_bc7_srgb.dds"] = ("dds", dds_file(
+        12, 8, blocks(6).tobytes(), fourcc=b"DX10", dxgi=99))
+    for kind, codes in ((1, (70, 71)), (2, (73, 74)), (3, (76, 77)),
+                        (4, (79, 80)), (5, (82, 83, 84))):
+        for dxgi, form in zip(codes, ("typeless", "unorm", "snorm")):
+            out[f"dds_dx10_bc{kind}_{form}.dds"] = ("dds", dds_file(
+                8, 8, blocks(4, 8 if kind in (1, 4) else 16).tobytes(),
+                fourcc=b"DX10", dxgi=dxgi))
+    for dxgi, form in ((27, "typeless"), (28, "unorm"), (29, "srgb")):
+        out[f"dds_dx10_r8g8b8a8_{form}.dds"] = ("dds", dds_file(
+            5, 3, blocks(15, 4).tobytes(), fourcc=b"DX10", dxgi=dxgi))
+    rgb_masks = {   # name: (bitcount, masks r, g, b, a)
+        "rgb16_565": (16, (0xF800, 0x7E0, 0x1F, 0)),
+        "rgb16_1555": (16, (0x7C00, 0x3E0, 0x1F, 0x8000)),
+        "rgb16_4444": (16, (0xF00, 0xF0, 0xF, 0xF000)),
+        "rgb24": (24, (0xFF0000, 0xFF00, 0xFF, 0)),
+        "rgb32_a8r8g8b8": (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)),
+        "rgb32_x8r8g8b8": (32, (0xFF0000, 0xFF00, 0xFF, 0)),
+        "rgb32_a8b8g8r8": (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+        "rgb32_a2r10g10b10": (32, (0x3FF00000, 0xFFC00, 0x3FF,
+                                   0xC0000000)),
+        "rgb32_zero_mask": (32, (0xFF0000, 0, 0xFF, 0))}
+    for name, (bits, masks) in rgb_masks.items():
+        out[f"dds_{name}.dds"] = ("dds", dds_file(
+            7, 5, blocks(35, bits // 8).tobytes(),
+            pfflags=DDS_RGB | (DDS_ALPHAPIXELS if masks[3] else 0),
+            bitcount=bits, masks=masks))
+    out["dds_palette8.dds"] = ("dds", dds_file(
+        7, 5, blocks(64).tobytes() + rng.integers(0, 256, 35).astype(
+            np.uint8).tobytes(), pfflags=DDS_PALETTE8, bitcount=8))
+    # shapes: crops of the block grid, and surfaces past the first
+    out["dds_dxt1_1x1.dds"] = ("dds", dds_file(1, 1, blocks(1, 8).tobytes(),
+                                               fourcc=b"DXT1"))
+    out["dds_dxt5_5x3.dds"] = ("dds", dds_file(5, 3, blocks(2).tobytes(),
+                                               fourcc=b"DXT5"))
+    out["dds_bc7_13x9.dds"] = ("dds", dds_file(
+        13, 9, blocks(12).tobytes(), fourcc=b"DX10", dxgi=98))
+    out["dds_dxt1_mipmaps.dds"] = ("dds", dds_file(
+        16, 16, blocks(16 + 4 + 1 + 1 + 1, 8).tobytes(), fourcc=b"DXT1",
+        mipmaps=5))
+    out["dds_dxt5_cube.dds"] = ("dds", dds_file(
+        8, 8, blocks(6 * 4).tobytes(), fourcc=b"DXT5", cube=True))
+    out["dds_dx10_bc7_array2.dds"] = ("dds", dds_file(
+        8, 8, blocks(2 * 4).tobytes(), fourcc=b"DX10", dxgi=98,
+        array_size=2))
+    return out
 
 # descriptor bits 4 and 5 -> the corner of the first pixel
 ORIENTATIONS = {0x00: "bottom_left", 0x10: "bottom_right", 0x20: "top_left",

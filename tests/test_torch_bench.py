@@ -29,6 +29,7 @@ import torch
 
 import cge_tpu_torch as ct
 from bench_torch import bench, cells as bc, check
+from cge_tpu_torch.tools import frame_profile
 from jax_references import make_references as mr
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -270,6 +271,66 @@ def test_entry_point_needs_a_card():
 def test_control_entry_point_needs_a_card():
     """So does the controls' entry point."""
     _no_card("control.py")
+
+
+def _made_up_trace(k1_seen, launches):
+    """A _trace reading of one call whose profile holds k1_seen K1 and
+    launches["walk"] K2 kernels."""
+    ops = [dict(name="block_entry_keys_kernel(float const*)", count=k1_seen),
+           dict(name="void cluster_walk_split_kernel<8, 16, false>()",
+                count=launches["walk"])]
+    return dict(ops=ops, launches=dict(launches)), []
+
+
+@pytest.mark.parametrize("k1_seen", [[74], [73, 74], [73, 73, 74],
+                                     [73, 73, 73], [75, 0, 73]])
+def test_trace_taken_again_when_it_misses_a_counter(k1_seen, monkeypatch):
+    """On the card the traced run's kernel counts must equal the launch
+    counters: a trace that misses one (the profiler lost a record) is
+    taken again, its readings unused, up to TRACE_TAKES traces, and the
+    run fails when every take misses; a cell that launched a kernel not
+    its own fails at once."""
+    launches = dict(keys=74, walk=74, walk_refine=0, walk_mxu=0, sweep=0,
+                    stream_probe=0)
+    takes = iter(k1_seen)
+    monkeypatch.setattr(bench, "_trace", lambda call, calls, device:
+                        _made_up_trace(next(takes), launches))
+    cell = bc.BY_NAME["transrec512"]
+    card = torch.device("cuda", 0)      # _trace is made up: no card used
+    good = [i for i, n in enumerate(k1_seen) if n == 74]
+    if not good or good[0] >= frame_profile.TRACE_TAKES:
+        with pytest.raises(AssertionError, match=(
+                r"transrec512: in each of 3 traces the profiler counted "
+                r"\d+ keys kernels, the counter 74")):
+            bench._counted_trace(cell, None, card, 1)
+        return
+    prof, _, misses = bench._counted_trace(cell, None, card, 1)
+    assert prof["ops"][0]["count"] == 74
+    assert misses == [f"the profiler counted {n} keys kernels, the counter "
+                      f"74" for n in k1_seen[:good[0]]]
+    lines = []
+    bench.log_cell(_logged_with_misses(misses), lines.append)
+    assert sum("a trace taken again, its readings unused" in line
+               for line in lines) == len(misses)
+    monkeypatch.setattr(bench, "_trace", lambda call, calls, device:
+                        _made_up_trace(74, dict(launches, sweep=2)))
+    with pytest.raises(AssertionError, match="launches .* want"):
+        bench._counted_trace(cell, None, card, 1)
+
+
+def _logged_with_misses(misses):
+    """A minimal record of a frame cell for log_cell, its traced run with
+    these misses."""
+    metrics = dict.fromkeys(bench.LAYER_METRICS, 0.0)
+    return dict(cell="transrec512", config="c", device="cuda",
+                correct=True, check=dict(close_share=1.0, tail_levels=0),
+                frame_ms=None, rays_per_call=1,
+                setup=dict(write_s=0, load_s=0, oracle_wait_s=0),
+                graphs=dict(after_setup=0, after_window=0),
+                launches_per_call={}, layer_metrics=metrics,
+                layers=dict(profiled_calls=1, busy_over_plain_wall=None,
+                            trace_misses=misses, sort=None, top_ops=None,
+                            idle_gaps=None))
 
 
 @pytest.mark.parametrize("name", [c.name for c in bc.CELLS])

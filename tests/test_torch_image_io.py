@@ -1,13 +1,15 @@
 """The port's texture decoders (cge_tpu_torch/scene/image_io.py: PNG and
-BMP; scene/jpeg.py: JPEG; scene/tga.py, pnm.py, gif.py, psd.py, tiff.py
-and webp.py: TGA, PNM, GIF, PSD, TIFF and WebP; the byte-serial parts in
-native/cge_image.cpp and native/cge_webp.cpp) against Pillow, which the
-JAX package's loader uses: seeded numpy images of every colour type, every
-row filter and odd sizes, written by the port's `write_png` and by Pillow;
-every fixture of tests/torch_textures/ (jax_references/make_textures.py)
-against JAX's `load_image`; random images Pillow saves in random PNG, BMP
-and JPEG modes, in random TGA, GIF and PNM modes, and as random TIFF and
-WebP files; the native PNG row filters against their Python twin; damaged
+BMP; scene/jpeg.py: JPEG; scene/tga.py, pnm.py, gif.py, psd.py, tiff.py,
+webp.py and dds.py: TGA, PNM, GIF, PSD, TIFF, WebP and DDS; the
+byte-serial parts in native/cge_image.cpp, native/cge_webp.cpp and
+native/cge_bcn.cpp) against Pillow, which the JAX package's loader uses:
+seeded numpy images of every colour type, every row filter and odd sizes,
+written by the port's `write_png` and by Pillow; every fixture of
+tests/torch_textures/ (jax_references/make_textures.py) against JAX's
+`load_image`; random images Pillow saves in random PNG, BMP and JPEG
+modes, in random TGA, GIF and PNM modes, and as random TIFF and WebP
+files; seeded random DDS files of every block-compressed kind and random
+RGB masks; the native PNG row filters against their Python twin; damaged
 files of each format after PNG, BMP and JPEG. Pixels must be equal
 exactly (u8 / 255 as float32, as stb_image and the JAX loader give
 them)."""
@@ -170,7 +172,10 @@ def test_fixtures_cover_every_kind():
     mode raw and PackBits, every TIFF mode in each compression with the
     predictor, planar, tile, fill order, byte order, BigTIFF, old-style
     LZW and orientation cases, and the WebP lossy filter, segment,
-    partition and alpha cases, the lossless palettes and the animations;
+    partition and alpha cases, the lossless palettes and the animations,
+    and every DDS kind Pillow reads (Pillow's own files, BC1 to BC7 with
+    each BC1 colour mode, BC3 alpha mode, BC6H and BC7 mode, the DX10
+    forms, the RGB masks, the palette, crops and surfaces past the first);
     the set stays under 1 MB with the 1024x1024 progressive JPEG, its
     texels as a 1024x1024 lossy WebP and their lossless crop in it."""
     names = {f["name"] for f in MANIFEST["files"]}
@@ -259,6 +264,28 @@ def test_fixtures_cover_every_kind():
     webp_big = next(f for f in MANIFEST["files"]
                     if f["name"] == make_textures.WEBP_BIG)
     assert webp_big["shape"] == [1024, 1024, 3]
+    dds = {f"dds_pillow_{k}" for k in (
+        "dxt1", "dxt3", "dxt5", "bc2", "bc3", "bc5", "l", "la", "rgb", "rgba")}
+    dds |= {"dds_dxt1_four_colour", "dds_dxt1_three_colour",
+            "dds_dxt5_alpha8", "dds_dxt5_alpha6", "dds_bc4_ati1",
+            "dds_bc4_bc4u", "dds_bc5_ati2", "dds_bc5_bc5u", "dds_bc5_bc5s",
+            "dds_bc6h_uf16", "dds_bc6h_sf16", "dds_bc7_no_mode",
+            "dds_bc7_srgb", "dds_dx10_bc5_snorm", "dds_palette8",
+            "dds_dxt1_1x1", "dds_dxt5_5x3", "dds_bc7_13x9",
+            "dds_dxt1_mipmaps", "dds_dxt5_cube", "dds_dx10_bc7_array2"}
+    dds |= {f"dds_bc7_mode{m}" for m in range(8)}
+    dds |= {f"dds_dx10_bc{k}_{form}" for k in range(1, 6)
+            for form in ("typeless", "unorm")}
+    dds |= {f"dds_dx10_r8g8b8a8_{form}" for form in ("typeless", "unorm",
+                                                      "srgb")}
+    dds |= {f"dds_{k}" for k in (
+        "rgb16_565", "rgb16_1555", "rgb16_4444", "rgb24", "rgb32_a8r8g8b8",
+        "rgb32_x8r8g8b8", "rgb32_a8b8g8r8", "rgb32_a2r10g10b10",
+        "rgb32_zero_mask")}
+    assert {f"{k}.dds" for k in dds} <= names
+    shapes = {f["name"]: f["shape"] for f in MANIFEST["files"]}
+    assert shapes["dds_bc7_13x9.dds"] == [9, 13, 3]
+    assert shapes["dds_dxt5_5x3.dds"] == [3, 5, 3]
     assert sum(f["bytes"] for f in MANIFEST["files"]) < 1 << 20
 
 
@@ -363,10 +390,11 @@ def test_palette_index_past_the_end_is_black(tmp_path):
     ("gif_offset_transparent.gif", "texture.psd"),
     ("psd_cmyk_rle.psd", "texture.gif"),
     ("tiff_rgb_lzw_predictor2.tif", "texture.png"),
-    ("webp_lossy_alpha.webp", "texture.tif")])
+    ("webp_lossy_alpha.webp", "texture.tif"),
+    ("dds_bc7_mode6.dds", "texture.png")])
 def test_swapped_extensions_decode_by_signature(tmp_path, fixture, name):
     """A PNG named .jpg, a JPEG named .png, a BMP named .tex, and TGA,
-    PNM, GIF, PSD, TIFF and WebP files under other formats' names load
+    PNM, GIF, PSD, TIFF, WebP and DDS files under other formats' names load
     through the mesh loader's texture path as JAX loads them."""
     path = str(tmp_path / name)
     with open(os.path.join(FIXTURES, fixture), "rb") as src, \
@@ -424,7 +452,8 @@ def _pillow_saved(fmt, mode="RGB", **kw):
         np.zeros((2, 2, 1), np.uint8), 8, 1, bigtiff=True, order=">"),
      r"TIFF"),
     ("gif", lambda: _pillow_saved("GIF")[:-8], r"GIF.*truncated"),
-    ("dds", lambda: _pillow_saved("DDS", "RGBA"), r"DDS"),
+    ("dds", lambda: make_textures.dds_file(4, 4, bytes(8), fourcc=b"DXT2"),
+     r"DDS.*DXT2"),
     ("pam", lambda: b"P7\nWIDTH 4\nHEIGHT 4\n", r"PAM"),
     ("psd_lab", lambda: make_textures.psd_file(
         2, 1, 9, 8, [np.zeros((1, 2), np.uint8)] * 3), r"LAB PSD"),
@@ -438,7 +467,7 @@ def test_unsupported_formats_name_their_format(tmp_path, kind, make, words):
     and JPEG in TIFF, in the cases named "tiff" and "webp" since the port
     reads both formats), and a big-endian BigTIFF, which Pillow reads as a
     classic TIFF and refuses; so does a GIF, which the port reads, cut
-    short."""
+    short, and a DDS of the premultiplied DXT2, which Pillow refuses."""
     path = str(tmp_path / "t.png")
     with open(path, "wb") as f:
         f.write(make())
@@ -471,7 +500,7 @@ def test_loader_decodes_png_without_pillow(tmp_path, monkeypatch):
 
 def test_not_a_png_raises(tmp_path):
     path = tmp_path / "n.png"
-    path.write_bytes(b"DDS \x7c\x00\x00\x00 a DDS header")
+    path.write_bytes(b"qoif\x00\x00\x00\x04 a QOI header")
     with pytest.raises(ValueError, match="not a PNG"):
         image_io.load_image(str(path))
 
@@ -532,6 +561,8 @@ def _damaged(name, how):
         data = f.read()
     if how == "cut":
         return data[:len(data) * 2 // 3]
+    if isinstance(how, int):                          # cut at that length
+        return data[:how]
     if isinstance(how[0], bytes):
         return data.replace(*how, 1)
     data = bytearray(data)
@@ -577,12 +608,29 @@ def _damaged(name, how):
      "WebP VP8 bitstream without a key-frame start code"),
     ("webp_lossless_exact.webp", (b"VP8L", b"VP8X"), "WebP"),
     # the ALPH header byte (after RIFF and VP8X) with its reserved bits set
-    ("webp_lossy_alph_raw_filter1.webp", (38, 0xC4), "WebP.*ALPH header")])
+    ("webp_lossy_alph_raw_filter1.webp", (38, 0xC4), "WebP.*ALPH header"),
+    ("dds_pillow_dxt1.dds", "cut", "DDS DXT1.*truncated"),
+    ("dds_bc7_mode6.dds", "cut", "DDS DX10 DXGI format 98.*truncated"),
+    ("dds_bc6h_sf16.dds", "cut", "DDS DX10 DXGI format 96.*truncated"),
+    ("dds_bc4_ati1.dds", 140, "DDS ATI1.*truncated"),
+    ("dds_pillow_l.dds", "cut", "DDS 8-bit luminance.*truncated"),
+    ("dds_palette8.dds", "cut", "DDS 8-bit palette.*truncated"),
+    ("dds_dx10_r8g8b8a8_unorm.dds", "cut", "DDS.*DXGI format 28.*truncated"),
+    ("dds_pillow_dxt5.dds", 100, "DDS header.*truncated"),
+    ("dds_dx10_bc1_unorm.dds", 130, "DDS DX10 header.*truncated"),
+    # the header size, the FourCC, the DXGI format, the flags, the depth
+    ("dds_pillow_dxt1.dds", (4, 100), "DDS with a 100-byte header"),
+    ("dds_pillow_dxt1.dds", (b"DXT1", b"DXT4"), "DDS.*FourCC 'DXT4'"),
+    ("dds_dx10_bc4_unorm.dds", (128, 81), "DDS.*DXGI format 81"),
+    ("dds_pillow_dxt1.dds", (80, 0), "DDS.*pixel format flags 0x0"),
+    ("dds_pillow_l.dds", (88, 16), "DDS luminance at 16 bits without")])
 def test_damaged_files_raise_naming_file_and_format(tmp_path, name, how,
                                                    words):
-    """A truncated or corrupt TGA, PNM, GIF, PSD, TIFF or WebP raises a
-    ValueError that names the file and the format (and so does JAX's
-    loader: Pillow refuses each of them too)."""
+    """A truncated or corrupt TGA, PNM, GIF, PSD, TIFF, WebP or DDS
+    raises a ValueError that names the file and the format (and so does
+    JAX's loader: Pillow refuses each of them too); DDS files are cut at
+    several lengths, from the header to the blocks, and refused for their
+    header size, FourCC, DXGI format, flags and luminance depth."""
     path = str(tmp_path / "texture.bin")
     with open(path, "wb") as f:
         f.write(_damaged(name, how))
@@ -674,3 +722,54 @@ def test_random_tiff_webp_files_match_jax(scratch_dir, case):
     with open(path, "wb") as f:
         f.write(buf.getvalue())
     np.testing.assert_array_equal(_port_u8(path), _jax_u8(path))
+
+
+# DDS kind -> (FourCC, DXGI format or None, bytes a 4x4 block)
+_DDS_KINDS = {"dxt1": (b"DXT1", None, 8), "dxt3": (b"DXT3", None, 16),
+              "dxt5": (b"DXT5", None, 16), "ati1": (b"ATI1", None, 8),
+              "ati2": (b"ATI2", None, 16), "bc5s": (b"BC5S", None, 16),
+              "bc6h_uf16": (b"DX10", 95, 16), "bc6h_sf16": (b"DX10", 96, 16),
+              "bc7": (b"DX10", 98, 16)}
+
+
+def _random_mask(rng) -> int:
+    """A run of set bits anywhere in 32, none, or random bits."""
+    pick = rng.integers(0, 8)
+    if pick == 0:
+        return 0
+    if pick == 1:
+        return int(rng.integers(0, 2 ** 32))
+    lo = int(rng.integers(0, 32))
+    return ((1 << int(rng.integers(1, 33 - lo))) - 1) << lo
+
+
+@pytest.mark.parametrize("kind", [*_DDS_KINDS, "rgb_masks"])
+def test_random_dds_files_match_jax(tmp_path, kind):
+    """Seeded random DDS files decode to JAX's pixels exactly: random
+    block bytes at random sizes up to 64x64 for every block-compressed
+    kind (every BC6H and BC7 mode among them), and for uncompressed RGB
+    random masks, bit counts (8 to 48) and sizes, some bodies cut short
+    (Pillow reads the missing pixels as 0)."""
+    rng = np.random.default_rng(sorted([*_DDS_KINDS, "rgb_masks"]).index(
+        kind) + 190)
+    for case in range(6):
+        h, w = (int(x) for x in rng.integers(1, 65, 2))
+        if kind == "rgb_masks":
+            bits = int(rng.choice([8, 16, 24, 32, 48]))
+            masks = [_random_mask(rng) for _ in range(4)]
+            n = max(0, h * w * (bits // 8) - int(rng.integers(0, 3)) * 5)
+            data = make_textures.dds_file(
+                w, h, rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
+                pfflags=make_textures.DDS_RGB | int(rng.integers(0, 2)),
+                bitcount=bits, masks=masks)
+        else:
+            fourcc, dxgi, size = _DDS_KINDS[kind]
+            n = -(-h // 4) * -(-w // 4) * size
+            data = make_textures.dds_file(
+                w, h, rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
+                fourcc=fourcc, dxgi=dxgi)
+        path = str(tmp_path / f"{case}.tex")
+        with open(path, "wb") as f:
+            f.write(data)
+        np.testing.assert_array_equal(_port_u8(path), _jax_u8(path),
+                                      err_msg=f"{kind} case {case}")

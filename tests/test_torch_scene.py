@@ -273,6 +273,7 @@ def test_port_never_imports_jax():
             "cge_tpu_torch/render/sampling.py",
             "cge_tpu_torch/scene/image_io.py",
             "cge_tpu_torch/scene/tiff.py", "cge_tpu_torch/scene/webp.py",
+            "cge_tpu_torch/scene/dds.py",
             "cge_tpu_torch/parallel/sharding.py",
             "cge_tpu_torch/parallel/comm.py",
             "cge_tpu_torch/parallel/launch.py",

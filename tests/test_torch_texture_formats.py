@@ -1,9 +1,12 @@
-"""TIFF and WebP textures through the whole port against the JAX package:
-the 41x32 stand-in (tools/common.write_textured_obj) with its body's
-`map_Kd` pointed at its seeded texels saved by Pillow as an LZW TIFF with
-predictor 2, a Deflate TIFF, a lossless WebP and a lossy WebP. JAX loads
-the scene through Pillow (cge_tpu.load_scene_from_file), the port through
-its own decoders (scene/tiff.py, scene/webp.py, with device="cpu"): every
+"""TIFF, WebP and DDS textures through the whole port against the JAX
+package: the 41x32 stand-in (tools/common.write_textured_obj) with its
+body's `map_Kd` pointed at its seeded texels saved by Pillow as an LZW
+TIFF with predictor 2, a Deflate TIFF, a lossless WebP, a lossy WebP, and
+DXT1, DXT5, BC5 (red and green, blue 0) and uncompressed RGBA DDS files,
+and written as BC7 mode 6 blocks (jax_references/make_textures.bc7_mode6).
+JAX loads the scene through Pillow (cge_tpu.load_scene_from_file), the
+port through its own decoders (scene/tiff.py, webp.py and dds.py, with
+device="cpu"): every
 tensor of the scene, the texel stack among them, is equal. The 32x32
 textured render with the accel on (JAX's K1 and K2 in interpret mode, the
 port's twins) meets test_torch_texture.py's rule: NaN masks agree and >=
@@ -23,6 +26,7 @@ from cge_tpu.ops import intersect as jint
 from cge_tpu.scene.scene import PointLight as JPointLight
 from cge_tpu_torch.interop import TENSOR_FIELDS, scene_from_numpy
 from cge_tpu_torch.tools.common import write_textured_obj
+from jax_references import make_textures
 
 torch.set_num_threads(2)
 
@@ -32,13 +36,19 @@ FEATURES = dict(enable_shading=True, enable_hard_shadow=True,
                 enable_texture_mapping=True,
                 enable_bilinear_texture_filtering=True,
                 enable_accel_structure=True)
-# file name -> Pillow's save options
+# file name -> Pillow's save options (with the mode saved, RGB by
+# default), or the writer of the file's bytes from the texels
 FORMATS = {
     "kd_lzw_predictor2.tif": dict(format="TIFF", compression="tiff_lzw",
                                   tiffinfo={317: 2}),
     "kd_deflate.tif": dict(format="TIFF", compression="tiff_adobe_deflate"),
     "kd_lossless.webp": dict(format="WEBP", lossless=True),
     "kd_lossy.webp": dict(format="WEBP", quality=90),
+    "kd_dxt1.dds": dict(format="DDS", pixel_format="DXT1"),
+    "kd_dxt5.dds": dict(format="DDS", pixel_format="DXT5"),
+    "kd_bc5.dds": dict(format="DDS", pixel_format="BC5"),
+    "kd_rgba.dds": dict(format="DDS", mode="RGBA"),
+    "kd_bc7.dds": dict(writer=make_textures.bc7_mode6),
 }
 
 
@@ -61,7 +71,12 @@ def scenes(request, tmp_path_factory):
     png = write_textured_obj(obj, 41, 32)
     opts = dict(FORMATS[name])
     with PIL.open(png) as im:
-        im.convert("RGB").save(str(tmp / name), opts.pop("format"), **opts)
+        rgb = im.convert(opts.pop("mode", "RGB"))
+        if "writer" in opts:
+            with open(tmp / name, "wb") as f:
+                f.write(opts["writer"](np.asarray(rgb)))
+        else:
+            rgb.save(str(tmp / name), opts.pop("format"), **opts)
     mtl = os.path.splitext(obj)[0] + ".mtl"
     with open(mtl) as f:
         text = f.read()
