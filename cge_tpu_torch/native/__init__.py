@@ -7,9 +7,11 @@ of the texture loader.
 (scene/jpeg.py), PNG row filters (scene/image_io.py), TGA run-length
 packets (scene/tga.py), GIF LZW (scene/gif.py), PackBits (scene/psd.py and
 scene/tiff.py), TIFF LZW and predictors (scene/tiff.py);
-`cge_webp.cpp` the WebP bitstreams (scene/webp.py); and `cge_bcn.cpp` the
-block-compressed (BC1 to BC7) textures of DDS files (scene/dds.py). All
-are compiled at
+`cge_webp.cpp` the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the
+block-compressed (BC1 to BC7) textures of DDS files (scene/dds.py);
+`cge_fax.cpp` TIFF's CCITT fax rows and `cge_zstd.cpp` its Zstandard
+frames (scene/tiff.py, which also reads JPEG in TIFF through
+cge_image.cpp's decoder). All are compiled at
 first use by `g++` with the flags of
 the JAX package's Makefile (CXXFLAGS, warnings as errors) into one library
 in `build/cge_tpu_torch/` at the repository root, named by a hash of the
@@ -38,7 +40,10 @@ SOURCE = os.path.join(_HERE, "cge_host.cpp")
 IMAGE_SOURCE = os.path.join(_HERE, "cge_image.cpp")
 WEBP_SOURCE = os.path.join(_HERE, "cge_webp.cpp")
 BCN_SOURCE = os.path.join(_HERE, "cge_bcn.cpp")
-SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE, BCN_SOURCE)
+FAX_SOURCE = os.path.join(_HERE, "cge_fax.cpp")
+ZSTD_SOURCE = os.path.join(_HERE, "cge_zstd.cpp")
+SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE, BCN_SOURCE, FAX_SOURCE,
+           ZSTD_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -78,6 +83,15 @@ _SIGNATURES = {
        for name in ("cge_webp_vp8", "cge_webp_vp8l", "cge_webp_alph")},
     "cge_bcn_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _I, _I, _I, _I,
                             _P, ctypes.c_char_p, _I]),
+    **{name: (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p,
+                   ctypes.c_long, _I, _P, *rest])
+       for name, rest in (
+           ("cge_jpeg_tiff_info", [ctypes.c_char_p, _I]),
+           ("cge_jpeg_tiff_decode", [ctypes.c_long, ctypes.c_char_p, _I]))},
+    "cge_fax_decode": (_I, [ctypes.c_char_p, _P, _P, _I, _I, _I, _I, _P, _P,
+                            _P, ctypes.c_char_p, _I]),
+    "cge_zstd_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
+                             ctypes.c_long, _P, ctypes.c_char_p, _I]),
 }
 
 
@@ -263,13 +277,19 @@ def tga_rle(data: bytes, offset: int, depth: int, row_bytes: int,
     return out
 
 
-def packbits(data: bytes, offset: int, row_bytes: int,
-             rows: int) -> np.ndarray:
+def packbits(data: bytes, offset: int, row_bytes: int, rows: int,
+             partial: bool = False) -> np.ndarray:
     """PackBits rows from data[offset:] -> [rows, row_bytes] uint8, as
-    Pillow reads them: a packet that runs past its row's end is cut."""
-    out = np.empty((rows, row_bytes), np.uint8)
-    decode_call(library().cge_packbits, data, len(data), offset,
-                row_bytes, rows, out.ctypes.data)
+    Pillow reads them: a packet that runs past its row's end is cut; an
+    error where the data ends first, or with partial the packets that
+    were whole, zeros after."""
+    out = np.zeros((rows, row_bytes), np.uint8)
+    try:
+        decode_call(library().cge_packbits, data, len(data), offset,
+                    row_bytes, rows, out.ctypes.data)
+    except ValueError:
+        if not partial:
+            raise
     return out
 
 
@@ -287,13 +307,17 @@ def gif_lzw(data: bytes, offset: int, bits: int, out: np.ndarray,
                 h, int(interlace), out.ctypes.data)
 
 
-def tiff_lzw(data: bytes, size: int) -> np.ndarray:
+def tiff_lzw(data: bytes, size: int, partial: bool = False) -> np.ndarray:
     """A TIFF strip's or tile's LZW codes -> its first size bytes, as
     libtiff decodes them (new- or old-style codes); an error where the
-    codes end first."""
-    out = np.empty(size, np.uint8)
-    decode_call(library().cge_tiff_lzw, data, len(data), out.ctypes.data,
-                size)
+    codes end first, or with partial what was decoded, zeros after."""
+    out = np.zeros(size, np.uint8)
+    try:
+        decode_call(library().cge_tiff_lzw, data, len(data),
+                    out.ctypes.data, size)
+    except ValueError:
+        if not partial:
+            raise
     return out
 
 
@@ -334,3 +358,65 @@ def bcn(data: bytes, kind: int, signed: bool, rgba: np.ndarray) -> None:
     decode_call(library().cge_bcn_decode, data, len(data), kind,
                 int(signed), rgba.shape[1] // 4, rgba.shape[0] // 4,
                 rgba.ctypes.data)
+
+
+def jpeg_tiff_info(tables: bytes, data: bytes, color: int) -> tuple:
+    """A TIFF strip's or tile's JPEG stream (compression 7), read after the
+    tables-only stream `tables` (JPEGTables; b"" for none) in the colour
+    space the TIFF sets (color 0: none, 1: YCbCr -> RGB): (width, height,
+    components, the first component's h and v sampling, whether the
+    others are 1x1)."""
+    info = np.zeros(6, np.intc)
+    decode_call(library().cge_jpeg_tiff_info, tables, len(tables), data,
+                len(data), color, info.ctypes.data)
+    return tuple(int(v) for v in info)
+
+
+def jpeg_tiff(tables: bytes, data: bytes, color: int) -> np.ndarray:
+    """That stream's samples: [height, width, components] uint8 (3, RGB,
+    at color 1)."""
+    w, h, nc = jpeg_tiff_info(tables, data, color)[:3]
+    out = np.empty((h, w, 3 if color == 1 else nc), np.uint8)
+    decode_call(library().cge_jpeg_tiff_decode, tables, len(tables), data,
+                len(data), color, out.ctypes.data, out.size)
+    return out
+
+
+def fax(chunks: list, comp: int, options: int, width: int, rows: list,
+        events: np.ndarray | None = None) -> np.ndarray:
+    """The CCITT chunks (each strip's or tile's bytes, FillOrder already
+    undone) of one image, compression comp (2, 3 or 4) with T4Options
+    `options`, `rows[i]` rows of `width` pixels each -> their rows one
+    after another, [sum(rows), ceil(width / 8)] uint8, 1 bits black runs;
+    events, where given (int64 [6]), receives the decoder's counts (see
+    cge_fax.cpp)."""
+    data = b"".join(chunks)
+    sizes = np.array([len(c) for c in chunks], np.int_)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int_)
+    n_rows = np.array(rows, np.intc)
+    out = np.zeros((int(n_rows.sum()), (width + 7) // 8), np.uint8)
+    ev = np.zeros(6, np.int64)
+    decode_call(library().cge_fax_decode, data, starts.ctypes.data,
+                sizes.ctypes.data, len(chunks), comp, options, width,
+                n_rows.ctypes.data, out.ctypes.data, ev.ctypes.data)
+    if events is not None:
+        events[:] = ev
+    return out
+
+
+def zstd(data: bytes, size: int, stats: np.ndarray | None = None
+         ) -> np.ndarray:
+    """A TIFF strip's or tile's ZSTD frame -> its first size bytes, as
+    libtiff streams it through libzstd: an error where the first frame
+    ends, or the data does, before size bytes; stats, where given (int64
+    [25]), receives the decoder's counts of literal, table and block kinds
+    (see cge_zstd.cpp), also when it fails."""
+    out = np.empty(size, np.uint8)
+    st = np.zeros(25, np.int64)
+    try:
+        decode_call(library().cge_zstd_decode, data, len(data),
+                    out.ctypes.data, size, st.ctypes.data)
+    finally:
+        if stats is not None:
+            stats[:] = st
+    return out

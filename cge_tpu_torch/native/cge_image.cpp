@@ -44,9 +44,16 @@
 //     samples come out in little-endian order, as libtiff gives them on a
 //     little-endian host.
 //
+// JPEG in TIFF (scene/tiff.py, compression 7) runs the same decoder, as
+// libtiff's tif_jpeg.c drives libjpeg: a tables-only stream (JPEGTables)
+// first, then the strip's or tile's abbreviated stream, in the colour space
+// the TIFF sets (no conversion, 1 to 4 components at 1x1; or YCbCr ->
+// RGB), whatever its JFIF or Adobe markers say.
+//
 // Entry points (C ABI, loaded with ctypes): cge_jpeg_info parses the
 // headers and gives the size; cge_jpeg_decode writes [H][W][3] RGB bytes,
-// row 0 the top; the others write the bytes their comments name. Each
+// row 0 the top; cge_jpeg_tiff_info and cge_jpeg_tiff_decode the same for
+// JPEG in TIFF; the others write the bytes their comments name. Each
 // returns 0, or -1 with a message in err, and reads no byte past n.
 
 #include <algorithm>
@@ -112,10 +119,20 @@ class Decoder {
   public:
     Decoder(const uint8_t* data, size_t n) : data_(data), n_(n) {}
 
+    void load_tables(const uint8_t* tables, size_t n);
     void parse_headers();
     void decode(uint8_t* rgb);
 
     int width = 0, height = 0;
+    // the colour space: -1 chosen by the markers, as jdapimin.c does (the
+    // output RGB); 0 none (JCS_UNKNOWN: each component as it is, 1 to 4 of
+    // them at 1x1); 1 YCbCr (-> RGB), whatever the markers say
+    int color = -1;
+    int ncomp() const { return static_cast<int>(comps_.size()); }
+    // the first component's sampling factors as the frame header gives
+    // them, and whether all others are 1x1 (libtiff's checks)
+    int h0 = 1, v0 = 1;
+    bool rest_1x1 = true;
 
   private:
     const uint8_t* data_;
@@ -175,6 +192,30 @@ class Decoder {
 
     void idct_plane(const Component& c, std::vector<uint8_t>& plane) const;
 };
+
+// A tables-only stream (TIFF's JPEGTables): SOI, then quantisation and
+// Huffman tables (and restart intervals, application data, comments) up to
+// EOI, which stay defined for the image stream parsed after it.
+void Decoder::load_tables(const uint8_t* tables, size_t n) {
+    const uint8_t* data = data_;
+    const size_t size = n_;
+    data_ = tables;
+    n_ = n;
+    pos_ = 0;
+    if (n < 4 || tables[0] != 0xFF || tables[1] != 0xD8)
+        fail("bogus JPEGTables (no SOI marker)");
+    pos_ = 2;
+    while (true) {
+        int m = next_marker();
+        if (m == 0xD9) break;
+        if ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) || m == 0xDA)
+            fail("bogus JPEGTables (a frame or scan header in it)");
+        read_segment(m);
+    }
+    data_ = data;
+    n_ = size;
+    pos_ = 0;
+}
 
 int Decoder::next_marker() {
     // skip anything up to an 0xFF, then fill bytes
@@ -267,8 +308,9 @@ void Decoder::read_sof(int m, size_t end) {
     if (height == 0) fail("JPEG with height 0 (set by a DNL marker) is "
                           "not supported");
     if (width == 0) fail("corrupt JPEG data: width 0");
-    if (nc == 4) fail("4-component JPEG (CMYK or YCCK) is not supported");
-    if (nc != 1 && nc != 3)
+    if (nc == 4 && color != 0)
+        fail("4-component JPEG (CMYK or YCCK) is not supported");
+    if (color == 0 ? (nc < 1 || nc > 4) : (nc != 1 && nc != 3))
         fail(std::to_string(nc) + "-component JPEG is not supported");
     if (pos_ + 3 * nc > end) fail("corrupt JPEG data: short SOF");
     comps_.resize(nc);
@@ -281,7 +323,16 @@ void Decoder::read_sof(int m, size_t end) {
         if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
             fail("corrupt JPEG data: bad component parameters");
     }
+    h0 = comps_[0].h;
+    v0 = comps_[0].v;
+    for (int i = 1; i < nc; ++i)
+        rest_1x1 = rest_1x1 && comps_[i].h == 1 && comps_[i].v == 1;
     if (nc == 1) comps_[0].h = comps_[0].v = 1;  // one block an MCU
+    if (nc == 2 || nc == 4)
+        for (auto& c : comps_)
+            if (c.h != 1 || c.v != 1)
+                fail(std::to_string(nc) + "-component JPEG with subsampled "
+                     "components is not supported");
     for (auto& c : comps_) {
         hmax_ = std::max(hmax_, c.h);
         vmax_ = std::max(vmax_, c.v);
@@ -846,13 +897,21 @@ void Decoder::decode(uint8_t* rgb) {
                  height, planes[i]);
     }
     const size_t npx = static_cast<size_t>(width) * height;
+    if (color == 0) {                          // no conversion
+        const size_t nc = comps_.size();
+        for (size_t i = 0; i < npx; ++i)
+            for (size_t k = 0; k < nc; ++k) rgb[nc * i + k] = planes[k][i];
+        return;
+    }
     if (comps_.size() == 1) {
         for (size_t i = 0; i < npx; ++i)
             rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = planes[0][i];
         return;
     }
     bool ycc;
-    if (jfif_) {
+    if (color == 1) {
+        ycc = true;
+    } else if (jfif_) {
         ycc = true;
     } else if (adobe_) {
         ycc = adobe_transform_ != 0;
@@ -1265,6 +1324,46 @@ int cge_jpeg_decode(const unsigned char* data, long n, unsigned char* rgb,
         if (static_cast<long>(d.width) * d.height * 3 > capacity)
             fail("the output buffer is too small");
         d.decode(rgb);
+    });
+}
+
+// JPEG in TIFF (compression 7), as libtiff's tif_jpeg.c hands it to
+// libjpeg: the tables-only stream of the JPEGTables tag (tn 0: none), then
+// the strip's or tile's own stream, decoded in the colour space the TIFF
+// sets (color: 0 none, 1 YCbCr -> RGB). info: width, height, components,
+// the first component's sampling factors, and 1 if the others are 1x1.
+int cge_jpeg_tiff_info(const unsigned char* tables, long tn,
+                       const unsigned char* data, long n, int color,
+                       int* info, char* err, int errlen) {
+    return guarded(err, errlen, [&] {
+        Decoder d(data, static_cast<size_t>(n));
+        d.color = color;
+        if (tn > 0) d.load_tables(tables, static_cast<size_t>(tn));
+        d.parse_headers();
+        info[0] = d.width;
+        info[1] = d.height;
+        info[2] = d.ncomp();
+        info[3] = d.h0;
+        info[4] = d.v0;
+        info[5] = d.rest_1x1 ? 1 : 0;
+    });
+}
+
+// ... and its samples: [height][width][components] with color 0, [height]
+// [width][3] RGB with color 1.
+int cge_jpeg_tiff_decode(const unsigned char* tables, long tn,
+                         const unsigned char* data, long n, int color,
+                         unsigned char* out, long capacity, char* err,
+                         int errlen) {
+    return guarded(err, errlen, [&] {
+        Decoder d(data, static_cast<size_t>(n));
+        d.color = color;
+        if (tn > 0) d.load_tables(tables, static_cast<size_t>(tn));
+        d.parse_headers();
+        const long nc = color == 0 ? d.ncomp() : 3;
+        if (static_cast<long>(d.width) * d.height * nc > capacity)
+            fail("the output buffer is too small");
+        d.decode(out);
     });
 }
 

@@ -29,9 +29,11 @@ its name, in Pillow's order (`format_of`):
         (A), CMYK, multichannel and duotone (scene/psd.py).
   PNM   P1 to P6, plain and binary, at any maxval (scene/pnm.py).
   TIFF  the first IFD, II or MM, classic or BigTIFF, strips or tiles,
-        either planar configuration, raw, LZW, Deflate or PackBits with
-        predictors 2 and 3, in every mode of Pillow's table that
-        convert("RGB") takes but YCbCr and LAB (scene/tiff.py).
+        either planar configuration, raw, LZW, Deflate, PackBits, LZMA or
+        ZSTD with predictors 2 and 3, CCITT RLE, Group 3 and Group 4, and
+        JPEG, in every mode of Pillow's table that convert("RGB") takes
+        but LAB, YCbCr through libtiff's RGBA path (scene/tiff.py); old-
+        style JPEG, WebP in TIFF, SGILog and ThunderScan raise.
   WebP  the first frame: lossless VP8L, lossy VP8 with or without ALPH,
         still or animated, as libwebp decodes it (scene/webp.py).
   DDS   the first surface: uncompressed RGB masks, luminance, 8-bit

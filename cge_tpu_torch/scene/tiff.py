@@ -1,28 +1,50 @@
 """TIFF textures without Pillow: the first image file directory, as Pillow
-12's TiffImagePlugin reads it and `convert("RGB")` converts it (the JAX
-package's loader).
+12's TiffImagePlugin reads it (through libtiff 4.7 for every compression
+but raw) and `convert("RGB")` converts it (the JAX package's loader).
 
 The header (II or MM; classic or BigTIFF, which Pillow knows by a third
 byte of 43, so a big-endian BigTIFF reads as classic and fails, as in
-Pillow) and the first IFD are parsed as Pillow parses them, and the mode
-and raw mode come from the key (byte order, photometric, sample format,
-fill order, bits, extra samples) through OPEN_INFO, the part of Pillow's
-table that this module converts. Two readers follow Pillow's two:
+Pillow; libtiff, which reads the header again, refuses what it reads
+otherwise) and the first IFD are parsed as Pillow parses them, and the
+mode and raw mode come from the key (byte order, photometric, sample
+format, fill order, bits, extra samples) through OPEN_INFO, the part of
+Pillow's table that this module converts. Three readers follow Pillow's:
 
   raw (compression 1)   Pillow's own: strips or tiles at their offsets,
         rows of the raw mode's bits (a layer's raw mode, one letter of the
         image's, for PlanarConfiguration 2), FillOrder 2 through the raw
-        modes that reverse bits; the Predictor tag is ignored.
-  libtiff (LZW 5, Deflate 8 and 32946, PackBits 32773)   as Pillow drives
-        libtiff: each strip or tile of StripByteCounts bytes, its bits
-        reversed first at FillOrder 2, inflated (zlib), LZW-decoded or
-        PackBits-decoded (native library) to its whole size, Predictor 2
-        or 3 undone row by row for LZW and Deflate (libtiff ignores it for
-        PackBits), samples in little-endian order, then Pillow's raw mode
-        with ";16B" and ";16L" (and "I;16") read as native, the others as
-        written, which is how Pillow reads them. PlanarConfiguration 2 at
-        8 or 16 bits reads one plane a band, its high byte at 16 bits, and
-        un-premultiplies RGBa after.
+        modes that reverse bits; the Predictor tag is ignored; YCbCr as
+        raw mode RGBX, which reads past Pillow's own files' data.
+  libtiff   each strip or tile of StripByteCounts bytes, its bits reversed
+        first at FillOrder 2 (but JPEG's), decoded to its whole size:
+          LZW 5, PackBits 32773       native library (cge_image.cpp);
+          Deflate 8, 32946 and LZMA 34925 (an .xz stream)   zlib and lzma;
+          ZSTD 50000    native library (cge_zstd.cpp): the first frame,
+                        as libtiff streams it through libzstd;
+          CCITT RLE 2, Group 3 (1D, or 2D by T4Options bit 0, fill bits
+                        or none) and Group 4   native library
+                        (cge_fax.cpp), 1-bit samples, libtiff's repairs of
+                        damaged rows and its no-EOL mode;
+          JPEG 7        the JPEG decoder of cge_image.cpp after the
+                        JPEGTables stream, no colour conversion but YCbCr
+                        -> RGB at PlanarConfiguration 1 (Pillow's raw mode
+                        RGB there), each stream as tall as its strip (a last
+                        strip's may run past the image) or a whole tile;
+        Predictor 2 or 3 undone row by row for LZW, Deflate, LZMA and ZSTD
+        (libtiff ignores it for the others), samples in little-endian
+        order, then Pillow's raw mode with ";16B" and ";16L" (and "I;16")
+        read as native, the others as written, which is how Pillow reads
+        them. PlanarConfiguration 2 at 8 or 16 bits reads one plane a
+        band, its high byte at 16 bits, and un-premultiplies RGBa after.
+  RGBA (YCbCr, compressed but JPEG at PlanarConfiguration 1)   Pillow's
+        _decodeAsRGBA: libtiff's TIFFRGBAImage a strip or tile row at a
+        time, 8-bit samples subsampled 1x1, 1x2, 2x1, 2x2, 4x1, 4x2 or 4x4
+        (1x1 only in planes), tif_color.c's fixed-point YCbCrToRGB of
+        YCbCrCoefficients and ReferenceBlackWhite, chroma held over its
+        block, and libtiff's quirks (see _read_ycbcr); a strip that fails
+        to decode is read as libtiff hands it over, what was decoded and
+        zeros after, since Pillow asks libtiff not to stop there (but a
+        ZSTD one: that raises).
 
 `convert("RGB")` then: 1-bit to 0 / 255, 2- and 4-bit grey scaled by 85 and
 17, MinIsWhite inverted where the raw mode says so, the palette from the
@@ -33,15 +55,19 @@ table that this module converts. Two readers follow Pillow's two:
 samples dropped; the Orientation tag then transposes the image, as
 Pillow's exif_transpose does.
 
-What Pillow or libtiff refuses raises a ValueError that names the case, as
-do the cases not ported: JPEG in TIFF (6, 7), CCITT (2, 3, 4), LZMA, ZSTD,
-WebP in TIFF, SGILog, ThunderScan and the other compressions; YCbCr with
-three samples and LAB (which Pillow converts through LittleCMS); a key
-that Pillow does not know.
+What Pillow or libtiff refuses raises a ValueError that names the case,
+as do the cases not ported: old-style JPEG (6), WebP in TIFF (50001),
+SGILog (34676, 34677), ThunderScan (32809) and the other compressions;
+LAB (which Pillow converts through LittleCMS); JPEG YCbCr in separate
+planes; a key that Pillow does not know. So do three cases where Pillow
+returns pixels that no decoder wrote, or that libzstd's internals leave:
+a Group 4 strip that ends before its last row, a JPEG stream smaller than
+its strip or tile, and a ZSTD strip of the RGBA path that fails.
 """
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 
@@ -60,7 +86,10 @@ COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
                 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
                 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                 50000: "ZSTD", 50001: "WebP"}
-DECODED = (1, 5, 8, 32773, 32946)
+DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+FAX = (2, 3, 4)
+# compressions that undo a Predictor tag (libtiff's TIFFPredictorInit)
+PREDICTED = (5, 8, 32946, 34925, 50000)
 
 
 def _open_info() -> dict:
@@ -130,12 +159,13 @@ def _open_info() -> dict:
     both(5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX")
     both(5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX")
     both(6, (1,), 1, (8,), (), "L", "L")
+    both(6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX")
     return table
 
 
 OPEN_INFO = _open_info()
 # keys Pillow knows but converts through what is not ported
-REFUSED = {6: "YCbCr", 8: "CIE L*a*b*"}
+REFUSED = {8: "CIE L*a*b*"}
 # (mode, raw mode) pairs that Pillow's table names but its unpackers lack,
 # and the layers of separate planes that it cannot unpack
 NO_UNPACKER = {("L", "L;IR"), ("P", "P;1R"), ("P", "P;2R"), ("P", "P;4R"),
@@ -146,7 +176,8 @@ BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "I;16": 1, "I;16B": 1, "F": 1,
          "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}
 
 # IFD field types -> struct code (the others are skipped, as by Pillow)
-_FIELD = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q", 17: "q"}
+_FIELD = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q", 17: "q",
+          7: "s"}
 # tags Pillow gives as one value (TiffTags' length 1)
 _SCALAR = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
 _REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
@@ -175,17 +206,28 @@ def _ifd(data: bytes):
             tag, typ, count, value = struct.unpack_from(order + entry_fmt,
                                                         data, pos)
             pos += struct.calcsize("<" + entry_fmt)
-            if typ not in _FIELD:
+            if typ not in _FIELD and typ not in (5, 10):
                 continue
-            size = count * struct.calcsize("<" + _FIELD[typ])
+            size = count * (8 if typ in (5, 10) else 1 if typ == 7 else
+                            struct.calcsize("<" + _FIELD[typ]))
             if size > inline:
                 (off,) = struct.unpack(order + ("Q" if big else "L"), value)
                 value = data[off:off + size]
                 if len(value) != size:
                     continue                    # Pillow skips such a tag
-            vals = struct.unpack(order + _FIELD[typ] * count, value[:size])
+            if typ in (5, 10):               # libtiff's floats of rationals
+                pairs = struct.unpack(order + ("L" if typ == 5 else "l")
+                                      * (2 * count), value[:size])
+                vals = tuple(float(np.float32(a) / np.float32(b)) if b else
+                             0.0 for a, b in zip(pairs[::2], pairs[1::2]))
+            elif typ == 7:                   # UNDEFINED: the bytes
+                vals = (bytes(value[:size]),)
+            else:
+                vals = struct.unpack(order + _FIELD[typ] * count,
+                                     value[:size])
             if vals:
-                tags[tag] = vals[0] if tag in _SCALAR and count == 1 else vals
+                tags[tag] = vals[0] if (tag in _SCALAR and count == 1) or \
+                    typ == 7 else vals
     except struct.error:
         raise ValueError("TIFF file is truncated in its first IFD") from None
     return head[:2], order, tags
@@ -342,8 +384,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
                          f"compression Pillow knows")
     cname = COMPRESSIONS[comp]
     if comp not in DECODED:
-        raise ValueError(f"TIFF with {cname} compression ({comp}): only "
-                         f"raw, LZW, Deflate and PackBits are supported")
+        raise ValueError(f"TIFF with {cname} compression ({comp}) is not "
+                         f"ported (raw, CCITT RLE, Group 3 and 4, LZW, JPEG, "
+                         f"Deflate, PackBits, LZMA and ZSTD are)")
     planar = tags.get(284, 1)
     photo = tags.get(262, 0)
     fill = tags.get(266, 1)
@@ -370,10 +413,13 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"TIFF of {spp} samples with BitsPerSample {bits}")
     key = (prefix, photo, fmt_tag, fill, bits, extra)
     desc = (f"{'x'.join(map(str, bits))}-bit photometric {photo} TIFF "
-            f"({cname})")
+            f"with {cname} compression")
     if key not in OPEN_INFO:
         if photo in REFUSED and len(bits) > 1:
             raise ValueError(f"{desc}: {REFUSED[photo]} is not ported")
+        if photo == 6:
+            raise ValueError(f"{desc}: YCbCr of these samples is not a mode "
+                             f"Pillow reads")
         raise ValueError(f"{desc} with sample format {fmt_tag}, fill order "
                          f"{fill} and extra samples {extra}: not a mode "
                          f"Pillow reads")
@@ -392,15 +438,26 @@ def decode_tiff(data: bytes) -> np.ndarray:
     px = np.zeros((height, width, BANDS[mode]),
                   {"I": np.int64, "I;16": np.int64, "I;16B": np.int64,
                    "F": np.float32}.get(mode, np.uint8))
+    if comp != 1:
+        # libtiff reads the header again, by its own rules
+        version = struct.unpack_from(order + "H", data, 2)[0]
+        if version not in (42, 43) or (version == 43) != (data[2] == 43):
+            raise ValueError(f"{desc}: libtiff reads the header's version "
+                             f"{version} otherwise than Pillow (not a TIFF "
+                             f"to libtiff, or a BigTIFF)")
     if comp == 1:
         _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc)
+    elif photo == 6 and not (comp == 7 and planar == 1):
+        # Pillow reads these through libtiff's TIFFRGBAImage
+        rgb = _read_ycbcr(data, tags, height, width, comp, fill, planar,
+                          bits, desc)
+        return _orient(rgb, tags.get(274))
     else:
-        if photo == 6:
-            raise ValueError(f"{desc}: libtiff reads YCbCr compressed "
-                             f"TIFFs through its RGBA path, not ported")
         if fill == 2:
             mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
-        if raw == "I;16":
+        if comp == 7 and photo == 6:
+            raw = "RGB"      # libjpeg converts YCbCr to RGB (JPEGCOLORMODE)
+        elif raw == "I;16":
             raw = "I;16N"
         elif raw.endswith((";16B", ";16L")):
             raw = raw[:-1] + "N"
@@ -471,9 +528,9 @@ def _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc):
                 layer += 1
 
 
-def _chunk(data, offsets, counts, index, size, comp, fill, desc):
-    """libtiff's TIFFReadEncodedStrip / TIFFReadTile: chunk index decoded
-    to size bytes."""
+def _compressed(data, offsets, counts, index, comp, fill, desc):
+    """The bytes of strip or tile `index`, bits reversed at FillOrder 2
+    (libtiff leaves JPEG's as they are)."""
     if index >= len(offsets) or index >= len(counts):
         raise ValueError(f"{desc}: strip or tile {index} is missing")
     off, n = offsets[index], counts[index]
@@ -481,22 +538,293 @@ def _chunk(data, offsets, counts, index, size, comp, fill, desc):
         raise ValueError(f"{desc}: strip or tile {index} of {n} bytes at "
                          f"{off} is past the end of the file")
     raw = np.frombuffer(data, np.uint8, n, off)
-    if fill == 2:
+    if fill == 2 and comp != 7:
         raw = _REV[raw]
-    raw = raw.tobytes()
+    return raw.tobytes()
+
+
+def _inflate(raw: bytes, size: int, comp: int, partial: bool) -> bytes:
+    """Deflate or LZMA (libtiff's lzma_stream_decoder: .xz only) of raw to
+    at most size bytes; with partial, what the stream gave before an error
+    (fed a byte at a time, as far as the error)."""
+    def new():
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ) if comp == 34925 \
+            else zlib.decompressobj()
+
+    try:
+        return new().decompress(raw, size)
+    except (zlib.error, lzma.LZMAError):
+        if not partial:
+            raise
+    d, out = new(), b""
+    try:
+        for i in range(len(raw)):
+            out += d.decompress(raw[i:i + 1], size - len(out))
+            if len(out) >= size:
+                break
+    except (zlib.error, lzma.LZMAError):
+        pass
+    return out
+
+
+def _chunk(data, offsets, counts, index, size, comp, fill, desc,
+           partial=False):
+    """libtiff's TIFFReadEncodedStrip / TIFFReadTile: chunk index decoded
+    to size bytes (LZW, PackBits, Deflate, LZMA or ZSTD); an error where
+    it fails, or with partial (but ZSTD's) what libtiff decoded before the
+    failure, zeros after (the RGBA path goes on with it; what libzstd
+    leaves in its output on a failure is its internals', so ZSTD raises)."""
+    raw = _compressed(data, offsets, counts, index, comp, fill, desc)
     try:
         if comp == 5:
-            return native.tiff_lzw(raw, size)
+            return native.tiff_lzw(raw, size, partial)
         if comp == 32773:
-            return native.packbits(raw, 0, size, 1)[0]
-        d = zlib.decompressobj()
-        out = d.decompress(raw, size)
-    except (ValueError, zlib.error) as e:
+            return native.packbits(raw, 0, size, 1, partial)[0]
+        if comp == 50000:
+            return native.zstd(raw, size)
+        out = _inflate(raw, size, comp, partial)
+    except (ValueError, zlib.error, lzma.LZMAError) as e:
         raise ValueError(f"{desc}: strip or tile {index}: {e}") from None
     if len(out) < size:
+        if partial:
+            return np.concatenate([np.frombuffer(out, np.uint8),
+                                   np.zeros(size - len(out), np.uint8)])
         raise ValueError(f"{desc}: strip or tile {index} inflates to "
                          f"{len(out)} of its {size} bytes")
     return np.frombuffer(out, np.uint8).copy()
+
+
+def _jpeg_chunk(data, offsets, counts, index, tables, color, seg_w, seg_h,
+                ncomp, sampling, last_strip, desc):
+    """libtiff's JPEGPreDecode and JPEGDecode of strip or tile `index`:
+    [seg_h, seg_w x components] uint8 (RGB at color 1)."""
+    raw = _compressed(data, offsets, counts, index, 7, 1, desc)
+    where = f"{desc}: strip or tile {index}"
+    try:
+        w, h, nc, h0, v0, rest = native.jpeg_tiff_info(tables, raw, color)
+    except ValueError as e:
+        raise ValueError(f"{where}: {e}") from None
+    if (h0, v0) != sampling or not rest:
+        raise ValueError(f"{where}: improper JPEG sampling factors {h0},"
+                         f"{v0} (libtiff wants {sampling[0]},{sampling[1]} "
+                         f"and 1,1 after)")
+    if w > seg_w or h > seg_h:
+        # libtiff lets a last strip's stream run past the image, no more
+        if not (w == seg_w and last_strip):
+            raise ValueError(f"{where}: a {w}x{h} JPEG exceeds its {seg_w}x"
+                             f"{seg_h} strip or tile")
+    elif w < seg_w or h < seg_h:
+        raise ValueError(f"{where}: a {w}x{h} JPEG in a {seg_w}x{seg_h} "
+                         f"strip or tile leaves samples no decoder writes")
+    if nc != ncomp:
+        raise ValueError(f"{where}: improper JPEG component count {nc}")
+    try:
+        px = native.jpeg_tiff(tables, raw, color)
+    except ValueError as e:
+        raise ValueError(f"{where}: {e}") from None
+    return np.ascontiguousarray(px[:seg_h]).reshape(seg_h, -1)
+
+
+def _layout(tags, width, height, desc):
+    """(chunk width, chunk height, offsets, byte counts) of the strips or
+    tiles, as libtiff reads them."""
+    if 322 in tags:
+        cw, ch = tags[322], tags.get(323)
+        offsets, counts = _list(tags.get(324, ())), _list(tags.get(325, ()))
+    else:
+        cw, ch = width, tags.get(278, height)
+        if isinstance(ch, int):
+            ch = min(ch, height)
+        offsets, counts = _list(tags.get(273, ())), _list(tags.get(279, ()))
+    if not isinstance(cw, int) or not isinstance(ch, int) or cw <= 0 \
+            or ch <= 0:
+        raise ValueError(f"{desc} with {cw}x{ch} strips or tiles")
+    native.check_pixels(f"{desc}'s {cw}x{ch} tile", cw, ch)
+    return cw, ch, offsets, counts
+
+
+def _ycbcr_sampling(tags, data, offsets, counts, desc):
+    """YCbCrSubsampling of a JPEG-compressed YCbCr image: the tag, or
+    where it is missing the first stream's own (libtiff's
+    JPEGFixupTagsSubsampling), else libtiff's default 2, 2."""
+    if 530 in tags:
+        sub = _list(tags[530])
+        return (sub[0], sub[1]) if len(sub) >= 2 else (2, 2)
+    try:
+        raw = _compressed(data, offsets, counts, 0, 7, 1, desc)
+        _, _, _, h0, v0, rest = native.jpeg_tiff_info(_tables(tags), raw,
+                                                      1)
+    except ValueError:
+        return 2, 2
+    return (h0, v0) if h0 in (1, 2, 4) and v0 in (1, 2, 4) and rest \
+        else (2, 2)
+
+
+def _tables(tags) -> bytes:
+    """The JPEGTables tag's bytes (b"" where it is missing)."""
+    t = tags.get(347, b"")
+    return t if isinstance(t, bytes) else bytes(_list(t))
+
+
+# libtiff's putcontig8bitYCbCr*tile: the subsamplings (horizontal,
+# vertical) it has a put function for (in planes, 1x1 only)
+YCBCR_CONTIG = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
+
+
+def _ycbcr_tables(luma, rbw):
+    """tif_color.c TIFFYCbCrToRGBInit (8-bit, float32 arithmetic as C
+    does it): Y, Cr->R, Cb->B, Cr->G and Cb->G tables, int64 [256]."""
+    f = np.float32
+
+    def fix(x):                  # FIX(): float x * 65536, + 0.5 in double
+        return int(float(f(x) * f(65536)) + 0.5)
+
+    def clamp(v, lo, hi):
+        return lo if v < lo else hi if v > hi else v
+
+    def code2v(c, rb, rw, cr):
+        den = rw - rb
+        return f(f(c - int(rb)) * f(cr)) / (den if den != 0 else f(1))
+
+    lr, lg, lb = (f(v) for v in luma)
+    f1 = f(2) - f(2) * lr
+    d1 = fix(clamp(f1, f(0), f(2)))
+    f2 = lr * f1 / lg
+    d2 = -fix(clamp(f2, f(0), f(2)))
+    f3 = f(2) - f(2) * lb
+    d3 = fix(clamp(f3, f(0), f(2)))
+    f4 = lb * f3 / lg
+    d4 = -fix(clamp(f4, f(0), f(2)))
+    lo, hi = f(-128 * 32), f(128 * 32)
+    rb = [f(v) for v in rbw]
+    tabs = np.zeros((5, 256), np.int64)
+    for i in range(256):
+        x = i - 128
+        cr = int(clamp(code2v(x, rb[4] - f(128), rb[5] - f(128), 127), lo, hi))
+        cb = int(clamp(code2v(x, rb[2] - f(128), rb[3] - f(128), 127), lo, hi))
+        tabs[1, i] = (d1 * cr + 32768) >> 16
+        tabs[2, i] = (d3 * cb + 32768) >> 16
+        tabs[3, i] = d2 * cr
+        tabs[4, i] = d4 * cb + 32768
+        tabs[0, i] = int(clamp(code2v(x + 128, rb[0], rb[1], 255), lo, hi))
+    return tabs
+
+
+def _ycbcr_to_rgb(tabs, y, cb, cr) -> np.ndarray:
+    """TIFFYCbCrtoRGB of uint8 arrays -> [..., 3] uint8."""
+    yv = tabs[0][y]
+    r = yv + tabs[1][cr]
+    g = yv + ((tabs[4][cb] + tabs[3][cr]) >> 16)
+    b = yv + tabs[2][cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _read_ycbcr(data, tags, height, width, comp, fill, planar, bits,
+                desc) -> np.ndarray:
+    """Pillow's _decodeAsRGBA: libtiff's TIFFRGBAImageGet of YCbCr in
+    blocks of a strip's or a tile row's rows, converted by TIFFYCbCrtoRGB
+    with chroma held over each subsampling block -> [H, W, 3] uint8 (the
+    Orientation tag is left to Pillow's exif_transpose).
+
+    Pillow asks libtiff not to stop on a chunk's errors, and what libtiff
+    then hands over is followed: a chunk that fails to decode gives what
+    was decoded before the failure, zeros after (_chunk's partial); a
+    predictor that refuses the rows leaves them as decoded; a strip read
+    short by libtiff's truncated scanline size (4x4 subsampling, an odd
+    count of blocks across) reads zeros past it, from a buffer each block
+    of rows allocates zeroed; putcontig8bitYCbCr44tile skips a cut tile's
+    blocks at 10 bytes each."""
+    if bits != (8, 8, 8):
+        raise ValueError(f"{desc}: libtiff's RGBA path converts 8-bit YCbCr "
+                         f"only")
+    sub = _list(tags.get(530, (2, 2)))
+    hs, vs = (sub[0], sub[1]) if len(sub) >= 2 else (2, 2)
+    if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+        raise ValueError(f"{desc}: invalid YCbCr subsampling {hs},{vs}")
+    if (hs, vs) not in (YCBCR_CONTIG if planar == 1 else {(1, 1)}):
+        raise ValueError(f"{desc}: libtiff has no RGBA conversion of "
+                         f"YCbCr subsampled {hs},{vs} "
+                         f"({'contiguous' if planar == 1 else 'planar'})")
+    luma = _list(tags.get(529, ()))
+    rbw = _list(tags.get(532, ()))
+    luma = luma if len(luma) == 3 else (0.299, 0.587, 0.114)
+    rbw = rbw if len(rbw) == 6 else (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
+    f32 = np.float32
+    if any(np.isnan(v) for v in luma) or f32(luma[1]) == 0:
+        raise ValueError(f"{desc}: invalid YCbCrCoefficients {luma}")
+    if not all(f32(-0x7FFFFFFF + 128) < f32(v) < f32(0x7FFFFFFF)
+               for v in rbw):
+        raise ValueError(f"{desc}: invalid ReferenceBlackWhite {rbw}")
+    tabs = _ycbcr_tables(luma, rbw)
+    predictor = tags.get(317, 1) if comp in PREDICTED else 1
+    if predictor not in (1, 2):
+        raise ValueError(f"{desc}: Predictor {predictor} on YCbCr")
+    if comp == 7:
+        raise ValueError(f"{desc}: JPEG YCbCr in separate planes is not "
+                         f"ported")
+    cw, ch, offsets, counts = _layout(tags, width, height, desc)
+    tiled = 322 in tags
+    unit = hs * vs + 2
+    blocks = -(-cw // hs)
+    line = blocks * unit // vs if planar == 1 else cw  # libtiff's scanline
+    # the predictor's rows: the scanline, or a tile's unsubsampled row
+    pred_line = cw * (3 if planar == 1 else 1) if tiled else line
+    out = np.zeros((height, width, 3), np.uint8)
+    across = -(-width // cw)
+    down = -(-height // ch)
+    for ty in range(down):
+        y0 = ty * ch
+        nrow = min(ch, height - y0)
+        brows = -(-nrow // vs)
+        for tx in range(across):
+            x0 = tx * cw
+            tw = min(cw, width - x0)
+            if planar == 1:
+                held = -(-(ch if tiled else nrow) // vs) * blocks * unit
+                size = held if tiled else min(brows * vs * line, held)
+                buf = _chunk(data, offsets, counts, ty * across + tx, size,
+                             comp, fill, desc, partial=True)
+                _predict_rows(buf, pred_line, predictor)
+                if size < held:              # the rest of a zeroed buffer
+                    buf = np.concatenate([buf, np.zeros(held - size,
+                                                        np.uint8)])
+                stride = blocks * unit
+                if (hs, vs) == (4, 4) and tw < cw:
+                    stride = unit * -(-tw // 4) + (cw - tw) // 4 * 10
+                units = np.stack([buf[r * stride:r * stride + -(-tw // hs)
+                                      * unit] for r in range(brows)]) \
+                    .reshape(brows, -1, unit)
+                nb = units.shape[1]
+                yy = units[..., :hs * vs].reshape(brows, nb, vs, hs) \
+                    .transpose(0, 2, 1, 3).reshape(brows * vs, nb * hs)
+                cb = np.repeat(np.repeat(units[..., hs * vs], hs, 1), vs, 0)
+                cr = np.repeat(np.repeat(units[..., hs * vs + 1], hs, 1), vs,
+                               0)
+                rgb = _ycbcr_to_rgb(tabs, yy[:nrow, :tw], cb[:nrow, :tw],
+                                    cr[:nrow, :tw])
+            else:
+                planes = []
+                for k in range(3):
+                    index = k * across * down + ty * across + tx
+                    rows = ch if tiled else nrow
+                    buf = _chunk(data, offsets, counts, index, rows * line,
+                                 comp, fill, desc, partial=True)
+                    _predict_rows(buf, pred_line, predictor, stride=1)
+                    planes.append(buf.reshape(rows, line)[:nrow, :tw])
+                rgb = _ycbcr_to_rgb(tabs, *planes)
+            out[y0:y0 + nrow, x0:x0 + tw] = rgb
+    return out
+
+
+def _predict_rows(buf, line, predictor, stride=3):
+    """libtiff's PredictorDecodeTile over rows of `line` bytes (its
+    scanline size), samples `stride` apart, in place; rows it refuses
+    (not a whole count of rows, or of samples in a row) it leaves as they
+    are, as the RGBA path goes on with them."""
+    if predictor == 1 or len(buf) % line or line % stride:
+        return
+    native.tiff_predict(buf.reshape(-1, line), len(buf) // line, 8, stride,
+                        2, False)
 
 
 def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
@@ -514,25 +842,14 @@ def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
         raise ValueError(f"{desc}: Pillow reads separate planes at 8 or 16 "
                          f"bits only")
     samples = 1 if planar == 2 else spp
-    predictor = tags.get(317, 1) if comp in (5, 8, 32946) else 1
+    predictor = tags.get(317, 1) if comp in PREDICTED else 1
     if predictor not in (1, 2, 3):
         raise ValueError(f"{desc}: Predictor {predictor} is not one libtiff "
                          f"knows")
     if predictor == 3 and tags.get(339, (1,)) not in (3, (3,) * spp, (3,)):
         raise ValueError(f"{desc}: floating point Predictor on integer "
                          f"samples")
-    if 322 in tags:
-        cw, ch = tags[322], tags.get(323)
-        offsets, counts = _list(tags.get(324, ())), _list(tags.get(325, ()))
-    else:
-        cw, ch = width, tags.get(278, height)
-        if isinstance(ch, int):
-            ch = min(ch, height)
-        offsets, counts = _list(tags.get(273, ())), _list(tags.get(279, ()))
-    if not isinstance(cw, int) or not isinstance(ch, int) or cw <= 0 \
-            or ch <= 0:
-        raise ValueError(f"{desc} with {cw}x{ch} strips or tiles")
-    native.check_pixels(f"{desc}'s {cw}x{ch} tile", cw, ch)
+    cw, ch, offsets, counts = _layout(tags, width, height, desc)
     row_bytes = (cw * bps * samples + 7) // 8
     # Pillow's check of libtiff's strip rows against its unpacker's (a tile
     # whose rows are shorter than the unpacker reads, Pillow reads past)
@@ -542,14 +859,50 @@ def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
                          f"{raw} reads")
     across = -(-width // cw)
     down = -(-height // ch)
+    tiled = 322 in tags
+
+    def rows_of(ty):
+        return ch if tiled else min(ch, height - ty * ch)
+
+    if comp in FAX:
+        if bps != 1 or spp != 1:
+            raise ValueError(f"{desc}: libtiff's CCITT decoders take 1-bit "
+                             f"samples only")
+        n = across * down
+        chunks = [_compressed(data, offsets, counts, i, comp, fill, desc)
+                  for i in range(n)]
+        try:
+            fax = native.fax(chunks, comp, _list(tags.get(292, 0))[0], cw,
+                             [rows_of(i // across) for i in range(n)])
+        except ValueError as e:
+            raise ValueError(f"{desc}: {e}") from None
+        starts = np.cumsum([0] + [rows_of(i // across) for i in range(n)])
+    if comp == 7:
+        if bps != 8:
+            raise ValueError(f"{desc}: libjpeg in libtiff takes 8-bit "
+                             f"samples only")
+        sampling = (1, 1)
+        if tags.get(262, 0) == 6:
+            sampling = _ycbcr_sampling(tags, data, offsets, counts, desc)
+        tables = _tables(tags)
     for plane in range(planes):
         for ty in range(down):
             for tx in range(across):
                 y0, x0 = ty * ch, tx * cw
-                rows = ch if 322 in tags else min(ch, height - y0)
+                rows = rows_of(ty)
                 index = plane * across * down + ty * across + tx
-                buf = _chunk(data, offsets, counts, index, rows * row_bytes,
-                             comp, fill, desc).reshape(rows, row_bytes)
+                if comp in FAX:
+                    buf = fax[starts[index]:starts[index + 1]]
+                elif comp == 7:
+                    buf = _jpeg_chunk(
+                        data, offsets, counts, index, tables,
+                        1 if tags.get(262, 0) == 6 else 0, cw, rows,
+                        samples, sampling if planes == 1 else (1, 1),
+                        not tiled and y0 + rows >= height, desc)
+                else:
+                    buf = _chunk(data, offsets, counts, index,
+                                 rows * row_bytes, comp, fill, desc
+                                 ).reshape(rows, row_bytes)
                 if predictor > 1:
                     try:
                         native.tiff_predict(buf, rows, bps, samples,

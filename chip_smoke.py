@@ -170,8 +170,10 @@ exits non-zero if any phase fails:
  18. textures without Pillow (the card's machine has none): (a) every
      fixture of tests/torch_textures/ (PNG at every depth, colour type and
      interlace, BMP of every kind the port reads, baseline and
-     progressive JPEG, TGA, PNM, GIF, PSD, TIFF of every mode, compression,
-     predictor and organisation, lossy, lossless and animated WebP, DDS
+     progressive JPEG, TGA, PNM, GIF, PSD, TIFF of every mode, compression
+     (JPEG, CCITT RLE, Group 3 and 4, LZMA and ZSTD among them, and YCbCr
+     through libtiff's RGBA path), predictor and organisation, lossy,
+     lossless and animated WebP, DDS
      of every pixel format Pillow reads, BC1 to BC7 among them;
      jax_references/make_textures.py) decoded through
      the port's load_image, its u8 pixels' SHA-256 equal to the
@@ -191,12 +193,15 @@ exits non-zero if any phase fails:
      as in (b): TGA (24-bit run-length, literal packets across the rows),
      PNM (P6), PSD (RGB, PackBits) and GIF (the texels' 3-3-2 quantisation
      to 256 colours, LZW held at 9-bit codes by a clear code every 254);
-     and TIFF, raw, PackBits, Deflate with predictor 2 and LZW (literal
-     codes held at 9 bits by a clear code every 253), in strips of 16
-     rows; and the committed WebP files of those texels, the 1024x1024
-     lossy one at quality 90 and the lossless 256x256 crop of their
-     corner; and DDS, uncompressed A8R8G8B8, DXT1 and BC7 mode 6 (each
-     4x4 block's minimum and maximum as endpoints, each pixel the nearest
+     and TIFF, raw, PackBits, Deflate with predictor 2, LZW (literal
+     codes held at 9 bits by a clear code every 253) and LZMA with
+     predictor 2 (the standard library's lzma, which must import there),
+     in strips of 16 rows; and the committed WebP files of those texels,
+     the 1024x1024 lossy one at quality 90 and the lossless 256x256 crop
+     of their corner, and the committed 1024x1024 JPEG-in-TIFF of them
+     (YCbCr 2x2 at quality 85 in 256x256 tiles, its tables in
+     JPEGTables); and DDS, uncompressed A8R8G8B8, DXT1 and BC7 mode 6
+     (each 4x4 block's minimum and maximum as endpoints, each pixel the nearest
      of the block's colours); each file's texels equal to the JPEG's
      (GIF: to their quantisation; the crop: to the JPEG's corner; the
      lossy WebP, DXT1 and BC7: to what they decode to, which (a) holds
@@ -3006,6 +3011,8 @@ TEX_JPEG = "jpeg_progressive_420_q90_1024.jpg"
 TEX_WEBP = "webp_lossy_q90_1024.webp"
 WEBP_CROP = 256
 TEX_WEBP_CROP = f"webp_lossless_crop{WEBP_CROP}.webp"
+# the texels as a tiled YCbCr 2x2 JPEG-in-TIFF at quality 85
+TEX_TIFF_JPEG = "tiff_jpeg_ycbcr22_tiles_q85_1024.tif"
 
 
 def texture_fixtures() -> list:
@@ -3090,7 +3097,7 @@ def texture_writers(texels):
     out["texels.gif"] = (gif, palette[idx.reshape(h, w)])
     out.update(tiff_writers(texels))
     out.update(dds_writers(texels))
-    for name in (TEX_WEBP, TEX_WEBP_CROP):
+    for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
         if name == TEX_WEBP_CROP:
@@ -3099,6 +3106,10 @@ def texture_writers(texels):
             from cge_tpu_torch.scene import image_io
 
             held = image_io.decode_image(data)     # lossy: 18a holds it
+            if name == TEX_TIFF_JPEG:
+                err = np.abs(held.astype(int) - texels)
+                log(f"  18c: {name}'s texels against the JPEG's: max abs "
+                    f"error {int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
     return out
 
@@ -3106,8 +3117,10 @@ def texture_writers(texels):
 def tiff_writers(texels) -> dict:
     """The texels [H, W, 3] u8 as little-endian RGB TIFFs in strips of 16
     rows: raw, PackBits (literal packets of 128 bytes), Deflate with
-    predictor 2, and LZW (every byte a literal code, held at 9 bits by a
-    clear code every 253 codes); {name: (file bytes, texels)}."""
+    predictor 2, LZW (every byte a literal code, held at 9 bits by a clear
+    code every 253 codes), and LZMA with predictor 2 (an .xz stream a
+    strip, as libtiff writes it); {name: (file bytes, texels)}."""
+    import lzma
     import struct
     import zlib
 
@@ -3127,10 +3140,17 @@ def tiff_writers(texels) -> dict:
         return body + (bytes((len(tail) - 1,)) + tail.tobytes()
                        if len(tail) else b"")
 
-    def deflate_predictor2(rows):
+    def predictor2(rows):
         d = rows.astype(np.int16)
         d[:, 3:] -= rows[:, :-3]
-        return zlib.compress((d & 0xFF).astype(np.uint8).tobytes())
+        return (d & 0xFF).astype(np.uint8).tobytes()
+
+    def deflate_predictor2(rows):
+        return zlib.compress(predictor2(rows))
+
+    def lzma_predictor2(rows):
+        return lzma.compress(predictor2(rows), lzma.FORMAT_XZ,
+                             lzma.CHECK_NONE)
 
     def lzw(rows):
         flat = rows.reshape(-1).astype(np.uint32)
@@ -3175,7 +3195,9 @@ def tiff_writers(texels) -> dict:
                                          32773), texels),
             "texels_deflate_predictor2.tif": (tiff(
                 [deflate_predictor2(s) for s in strips], 8, 2), texels),
-            "texels_lzw.tif": (tiff([lzw(s) for s in strips], 5), texels)}
+            "texels_lzw.tif": (tiff([lzw(s) for s in strips], 5), texels),
+            "texels_lzma_predictor2.tif": (tiff(
+                [lzma_predictor2(s) for s in strips], 34925, 2), texels)}
 
 
 def dds_writers(texels) -> dict:
@@ -3327,8 +3349,9 @@ def eleventh_path(device) -> dict:
 
     log(f"[18] textures without Pillow: the fixtures, then the dragon "
         f"textured by a 1024x1024 progressive JPEG and by its texels as TGA, "
-        f"PNM, PSD, GIF, TIFF (raw, PackBits, Deflate + predictor 2, LZW), "
-        f"WebP (lossy, and a lossless crop) and DDS (A8R8G8B8, DXT1, BC7) | "
+        f"PNM, PSD, GIF, TIFF (raw, PackBits, Deflate + predictor 2, LZW, "
+        f"LZMA + predictor 2, tiled YCbCr JPEG), WebP (lossy, and a lossless "
+        f"crop) and DDS (A8R8G8B8, DXT1, BC7) | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):

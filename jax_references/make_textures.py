@@ -28,6 +28,7 @@ from __future__ import annotations
 import hashlib
 import io
 import json
+import lzma
 import os
 import struct
 import subprocess
@@ -48,6 +49,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "torch_textures")
 MANIFEST = os.path.join(OUT, "manifest.json")
 BIG = "jpeg_progressive_420_q90_1024.jpg"
+# BIG's texels as a tiled JPEG-in-TIFF, YCbCr 2x2 at quality 85
+TIFF_JPEG_BIG = "tiff_jpeg_ycbcr22_tiles_q85_1024.tif"
 # BIG's texels as lossy WebP, and their top-left corner as lossless WebP
 WEBP_BIG = "webp_lossy_q90_1024.webp"
 WEBP_CROP = 256
@@ -347,7 +350,7 @@ def psd_file(width: int, height: int, mode: int, depth: int,
 
 # ---------------------------------------------------------------- TIFF
 
-_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q", 5: "I", 7: "B"}
 
 
 def tiff_lzw(data: bytes, lsb: bool = False) -> bytes:
@@ -463,6 +466,193 @@ def _predict3(row_bytes_native: bytes, bps: int, stride: int) -> bytes:
     return (out & 0xFF).astype(np.uint8).tobytes()
 
 
+def compress_chunk(raw: bytes, compression: int, level=None) -> bytes:
+    """One strip's or tile's bytes as TIFF compression `compression` (1
+    raw, 5 LZW, 8 / 32946 Deflate, 32773 PackBits, 34925 LZMA in an .xz
+    stream as libtiff writes it, 50000 ZSTD at `level`, 3 by default)."""
+    if compression == 5:
+        return tiff_lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw)
+    if compression == 32773:
+        return tiff_packbits(raw)
+    if compression == 34925:
+        return lzma.compress(raw, lzma.FORMAT_XZ, lzma.CHECK_NONE)
+    if compression == 50000:
+        import zstandard
+
+        return zstandard.ZstdCompressor(level=level or 3).compress(raw)
+    return raw
+
+
+def ycbcr_units(px: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """px [h, w, 3] (Y, Cb, Cr) -> libtiff's packed YCbCr rows: for each
+    row of hs x vs blocks (partial ones at the right and bottom padded by
+    their edge), each block's Y samples row by row, then its top-left Cb
+    and Cr; [ceil(h / vs), ceil(w / hs) x (hs x vs + 2)] uint8."""
+    h, w, _ = px.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    full = np.pad(px, ((0, bh * vs - h), (0, bw * hs - w), (0, 0)),
+                  mode="edge")
+    ys = full[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3) \
+        .reshape(bh, bw, hs * vs)
+    chroma = full[::vs, ::hs, 1:]
+    return np.concatenate([ys, chroma], axis=2).reshape(bh, -1)
+
+
+def ycbcr_tiff(px: np.ndarray, hs: int, vs: int, compression: int, *,
+               rows_per_strip=None, tile=None, planar: int = 1,
+               predictor: int = 1, order: str = "<", extra_tags=()) -> bytes:
+    """A photometric 6 TIFF of px [h, w, 3] (Y, Cb, Cr), subsampled hs x
+    vs in libtiff's packed data units (or in three planes at 1 x 1 for
+    planar 2), in strips of rows_per_strip rows or tiles, each chunk
+    compressed by compress_chunk (predictor 2: the horizontal differences
+    of libtiff's scanline rows, samples 3 apart)."""
+    h, w, _ = px.shape
+    chunks = []
+    if planar == 2:
+        for k in range(3):
+            plane = px[..., k:k + 1]
+            if tile:
+                tw, th = tile
+                for ty in range(0, h, th):
+                    for tx in range(0, w, tw):
+                        blk = np.zeros((th, tw), np.uint8)
+                        part = plane[ty:ty + th, tx:tx + tw, 0]
+                        blk[:part.shape[0], :part.shape[1]] = part
+                        chunks.append(blk)
+            else:
+                rps = rows_per_strip or h
+                chunks += [plane[y:y + rps, :, 0] for y in range(0, h, rps)]
+    elif tile:
+        tw, th = tile
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                blk = np.pad(px[ty:ty + th, tx:tx + tw],
+                             ((0, max(0, ty + th - h)),
+                              (0, max(0, tx + tw - w)), (0, 0)), mode="edge")
+                chunks.append(ycbcr_units(blk, hs, vs))
+    else:
+        rps = rows_per_strip or h
+        chunks = [ycbcr_units(px[y:y + rps], hs, vs)
+                  for y in range(0, h, rps)]
+    raws = []
+    for c in chunks:
+        if predictor == 2:
+            # libtiff's predictor rows: the scanline (a block row over vs),
+            # a tile's unsubsampled row, or a plane's row
+            stride = 3 if planar == 1 else 1
+            line = (c.shape[1] if planar == 2 else
+                    3 * tile[0] if tile else c.shape[1] // vs)
+            rows = c.reshape(-1, line).astype(np.int64)
+            c = rows.copy()
+            c[:, stride:] = rows[:, stride:] - rows[:, :-stride]
+        raws.append(compress_chunk((c & 0xFF).astype(np.uint8).tobytes(),
+                                   compression))
+    tags = [(530, 3, (hs, vs))] + list(extra_tags)
+    return tiff_file(np.zeros((h, w, 3), np.uint8), 8, 6, order=order,
+                     compression=compression, planar=planar,
+                     predictor=predictor, rows_per_strip=rows_per_strip,
+                     tile=tile, raw_strips=raws, extra_tags=tags)
+
+
+_JPEG_TABLES = (0xC4, 0xDB)          # DHT, DQT
+
+
+def jpeg_split(jpeg: bytes) -> tuple:
+    """A JPEG -> (its tables as a tables-only stream: SOI, the DQT and DHT
+    segments, EOI; the abbreviated stream without them)."""
+    tables, rest = b"\xff\xd8", b"\xff\xd8"
+    pos = 2
+    while True:
+        marker = jpeg[pos + 1]
+        if marker == 0xDA:
+            rest += jpeg[pos:]
+            break
+        n = struct.unpack(">H", jpeg[pos + 2:pos + 4])[0]
+        seg = jpeg[pos:pos + 2 + n]
+        if marker in _JPEG_TABLES:
+            tables += seg
+        else:
+            rest += seg
+        pos += 2 + n
+    return tables + b"\xff\xd9", rest
+
+
+def jpeg_tiff(img: np.ndarray, photometric: int, *, rows_per_strip=None,
+              tile=None, subsampling: int = 0, quality: int = 80,
+              restart: int = 0, order: str = "<", tables: bool = True,
+              last_strip_full: bool = False, extra_tags=()) -> bytes:
+    """A JPEG-in-TIFF (compression 7) of img [h, w, k] u8 written as
+    libtiff lays it out: each strip or tile a JPEG of its own that Pillow's
+    JPEG writer makes (photometric 1: grey; 2: RGB as Adobe RGB, no
+    transform; 5: CMYK; 6: JFIF YCbCr at `subsampling` 0, 1 or 2 for 1x1,
+    2x1 and 2x2, with YCbCrSubsampling to match), a tile's of the whole
+    tile (its edge repeated past the image), and with tables the quality's
+    DQT and DHT moved into the JPEGTables tag, each stream abbreviated;
+    restart: a restart marker every that many MCUs; last_strip_full: the
+    last strip's JPEG as tall as the others, as libtiff allows."""
+    h, w, k = img.shape
+    mode = {1: "L", 2: "RGB", 5: "CMYK", 6: "RGB"}[photometric]
+    kw = dict(quality=quality)
+    if photometric == 2:
+        kw.update(keep_rgb=True, subsampling=0)
+    if photometric == 6:
+        kw.update(subsampling=subsampling)
+    if restart:
+        kw["restart_marker_blocks"] = restart
+
+    def one(part):
+        im = PILImage.fromarray(part[..., 0] if mode == "L" else part,
+                                "CMYK" if mode == "CMYK" else None)
+        return _pillow(im, "JPEG", **kw)
+
+    parts = []
+    if tile:
+        tw, th = tile
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                parts.append(np.pad(img[ty:ty + th, tx:tx + tw],
+                                    ((0, max(0, ty + th - h)),
+                                     (0, max(0, tx + tw - w)), (0, 0)),
+                                    mode="edge"))
+    else:
+        rps = rows_per_strip or h
+        for y in range(0, h, rps):
+            part = img[y:y + rps]
+            if last_strip_full and len(part) < rps:
+                part = np.pad(part, ((0, rps - len(part)), (0, 0), (0, 0)),
+                              mode="edge")
+            parts.append(part)
+    streams = [one(p) for p in parts]
+    extra = list(extra_tags)
+    if tables:
+        split = [jpeg_split(s) for s in streams]
+        assert len({t for t, _ in split}) == 1
+        streams = [r for _, r in split]
+        extra.append((347, 7, split[0][0]))
+    if photometric == 6:
+        sub = {0: (1, 1), 1: (2, 1), 2: (2, 2)}[subsampling]
+        extra.append((530, 3, sub))
+    return tiff_file(np.zeros((h, w, k), np.uint8), 8, photometric,
+                     order=order, compression=7,
+                     rows_per_strip=rows_per_strip, tile=tile,
+                     raw_strips=streams, extra_tags=extra)
+
+
+def pillow_strip(im, compression: str, tiffinfo=None) -> bytes:
+    """The one strip Pillow's libtiff writes for the image im: for a
+    tile of another TIFF (fax chunks)."""
+    from PIL import TiffImagePlugin
+
+    data = _pillow(im, "TIFF", compression=compression,
+                   tiffinfo={**(tiffinfo or {}), 278: im.height})
+    t = PILImage.open(io.BytesIO(data))
+    assert isinstance(t, TiffImagePlugin.TiffImageFile)
+    (off,), (n,) = t.tag_v2[273], t.tag_v2[279]
+    return data[off:off + n]
+
+
 def tiff_file(samples: np.ndarray, bits, photometric: int, *,
               order: str = "<", bigtiff: bool = False, compression: int = 1,
               predictor: int = 1, planar: int = 1, rows_per_strip=None,
@@ -492,14 +682,7 @@ def tiff_file(samples: np.ndarray, bits, photometric: int, *,
         raw = bytes(raw)
         if fill_order == 2 and compression == 1:
             raw = bytes(int(f"{x:08b}"[::-1], 2) for x in raw)
-        if compression == 5:
-            out = tiff_lzw(raw)
-        elif compression in (8, 32946):
-            out = zlib.compress(raw)
-        elif compression == 32773:
-            out = tiff_packbits(raw)
-        else:
-            out = raw
+        out = compress_chunk(raw, compression)
         if fill_order == 2 and compression != 1:   # libtiff reverses the
             out = bytes(int(f"{x:08b}"[::-1], 2) for x in out)  # codes
         return out
@@ -569,7 +752,7 @@ def tiff_file(samples: np.ndarray, bits, photometric: int, *,
     for tag in sorted(tags):
         typ, vals = tags[tag]
         payload = struct.pack(order + _TYPES[typ] * len(vals), *vals)
-        count = len(vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)  # num, den pairs
         if len(payload) <= inline:
             field = payload.ljust(inline, b"\0")
         else:
@@ -914,6 +1097,9 @@ def fixtures() -> dict:
     texels = np.asarray(PILImage.open(io.BytesIO(out[BIG][1])).convert("RGB"))
     out.update(webp_fixtures(np.random.default_rng(22), texels))
     out.update(dds_fixtures(np.random.default_rng(23)))
+    out.update(tiff_codec_fixtures(np.random.default_rng(24)))
+    out[TIFF_JPEG_BIG] = ("tiff", jpeg_tiff(texels, 6, tile=(256, 256),
+                                            subsampling=2, quality=85))
     return out
 
 
@@ -1074,6 +1260,239 @@ def tiff_fixtures(rng) -> dict:
                 m, "TIFF", compression=comp))
     out["tiff_pillow_rgb_lzw_predictor2.tif"] = ("tiff", _pillow(
         im, "TIFF", compression="tiff_lzw", tiffinfo={317: 2}))
+    return out
+
+
+def zstd_runs_frame(data: bytes) -> bytes:
+    """A ZSTD frame of data written block by block here: runs of 8 or
+    more equal bytes alternately as RLE blocks and as compressed blocks of
+    RLE literals and no sequences, the bytes between as raw blocks (1 KiB
+    window, no content size)."""
+    blocks = []
+    i, n, flip = 0, len(data), False
+    while i < n:
+        j = i
+        while j < n and j - i < 1024 and data[j] == data[i]:
+            j += 1
+        if j - i >= 8:
+            size = j - i
+            if flip:
+                blocks.append((1, size, bytes((data[i],))))
+            else:
+                lit = bytes((((size & 15) << 4) | 0b0101, size >> 4,
+                             data[i], 0))
+                blocks.append((2, len(lit), lit))
+            flip = not flip
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 1024 and not (
+                j + 8 <= n and len(set(data[j:j + 8])) == 1):
+            j += 1
+        blocks.append((0, j - i, data[i:j]))
+        i = j
+    out = bytearray(struct.pack("<IBB", 0xFD2FB528, 0, 0))
+    for k, (typ, size, body) in enumerate(blocks):
+        head = (size << 3) | (typ << 1) | (k == len(blocks) - 1)
+        out += struct.pack("<I", head)[:3] + body
+    return bytes(out)
+
+
+def tiff_codec_fixtures(rng) -> dict:
+    """TIFF's JPEG (7), CCITT (2, 3, 4), LZMA and ZSTD compressions and
+    YCbCr through libtiff's RGBA path: JPEG in grey, RGB, CMYK and YCbCr at
+    1x1, 2x1 and 2x2 in strips and tiles, with and without JPEGTables,
+    restart markers, a last strip's stream past the image, a missing
+    YCbCrSubsampling; CCITT RLE, Group 3 1D and 2D with and without fill
+    bits, Group 4, both photometrics, FillOrder 2, strips, tiles, wide rows
+    (the extended make-up codes), rows without EOLs and damaged rows that
+    libtiff repairs; LZMA and ZSTD in several modes with predictors, tiles,
+    planes and both byte orders, a hand-made ZSTD frame of RLE literals,
+    RLE and raw blocks; YCbCr at 1x1 to 4x4 under LZW, Deflate, PackBits,
+    LZMA and ZSTD, in strips (a 4x4 strip that libtiff reads short) and
+    tiles (a cut 4x4 tile), planar, with predictor 2 (refused quietly by
+    libtiff at 2x1), ReferenceBlackWhite and YCbCrCoefficients set, an
+    Orientation; and Pillow's own JPEG, CCITT, LZMA and ZSTD files. Odd
+    sizes throughout (no whole JPEG MCU or YCbCr block)."""
+    out = {}
+    img = smooth_image(rng, 21, 19, 14.0)
+    grey = img[..., :1]
+    cmyk = np.concatenate([img, 255 - img[..., :1]], -1)
+    for name, src, photo, sub in (("grey", grey, 1, 0), ("rgb", img, 2, 0),
+                                  ("cmyk", cmyk, 5, 0),
+                                  ("ycbcr11", img, 6, 0),
+                                  ("ycbcr21", img, 6, 1),
+                                  ("ycbcr22", img, 6, 2)):
+        out[f"tiff_jpeg_{name}.tif"] = ("tiff", jpeg_tiff(
+            src, photo, rows_per_strip=16, subsampling=sub))
+    for name, src, photo, sub in (("grey", grey, 1, 0), ("rgb", img, 2, 0),
+                                  ("ycbcr22", img, 6, 2)):
+        out[f"tiff_jpeg_{name}_tiles.tif"] = ("tiff", jpeg_tiff(
+            src, photo, tile=(16, 16), subsampling=sub))
+    for tag, kw in (("be", dict(order=">")), ("restart", dict(restart=1)),
+                    ("no_tables", dict(tables=False)),
+                    ("last_strip_full", dict(last_strip_full=True)),
+                    ("q30", dict(quality=30))):
+        out[f"tiff_jpeg_ycbcr22_{tag}.tif"] = ("tiff", jpeg_tiff(
+            img, 6, rows_per_strip=16, subsampling=2, **kw))
+    out["tiff_jpeg_ycbcr21_restart3_tiles.tif"] = ("tiff", jpeg_tiff(
+        img, 6, tile=(16, 16), subsampling=1, restart=3))
+    # no YCbCrSubsampling tag: libtiff takes the first stream's sampling
+    no_sub = jpeg_tiff(img, 6, rows_per_strip=16, subsampling=1)
+    entry = struct.pack("<HHIHH", 530, 3, 2, 2, 1)
+    assert no_sub.count(entry) == 1
+    out["tiff_jpeg_ycbcr21_no_subsampling_tag.tif"] = ("tiff", no_sub.replace(
+        entry, struct.pack("<HHIHH", 32999, 3, 2, 2, 1)))
+    # FillOrder 2: libtiff leaves JPEG bytes as they are
+    out["tiff_jpeg_rgb_fill_order2.tif"] = ("tiff", jpeg_tiff(
+        img, 2, rows_per_strip=16, extra_tags=[(266, 3, [2])]))
+    # CCITT: runs of black and white, one wide image for the long codes
+    bw = np.repeat(rng.random((23, 12)) < 0.4, 4, axis=1)[:, :45]
+    bw ^= rng.random(bw.shape) < 0.05
+    im1 = PILImage.fromarray(bw)
+    wide = PILImage.fromarray(np.repeat(rng.random((3, 14)) < 0.5, 200,
+                                        axis=1)[:, :2700])
+    ccitt = {"rle": ("tiff_ccitt", {}), "group3": ("group3", {292: 0}),
+             "group3_2d": ("group3", {292: 1}),
+             "group3_fill": ("group3", {292: 4}),
+             "group3_2d_fill": ("group3", {292: 5}),
+             "group4": ("group4", {})}
+    for name, (comp, info) in ccitt.items():
+        out[f"tiff_bilevel_{name}.tif"] = ("tiff", _pillow(
+            im1, "TIFF", compression=comp, tiffinfo=info))
+    for name, comp, info in (
+            ("group4_min_is_white", "group4", {262: 0}),
+            ("group3_2d_min_is_white", "group3", {292: 1, 262: 0}),
+            ("rle_fill_order2", "tiff_ccitt", {266: 2}),
+            ("group3_2d_fill_order2", "group3", {292: 5, 266: 2}),
+            ("group4_fill_order2", "group4", {266: 2}),
+            ("group3_2d_strips", "group3", {292: 1, 278: 5}),
+            ("group4_strips", "group4", {278: 4}),
+            ("rle_strips", "tiff_ccitt", {278: 6})):
+        out[f"tiff_bilevel_{name}.tif"] = ("tiff", _pillow(
+            im1, "TIFF", compression=comp, tiffinfo=info))
+    for name, comp in (("group3", "group3"), ("group4", "group4")):
+        out[f"tiff_bilevel_wide_{name}.tif"] = ("tiff", _pillow(
+            wide, "TIFF", compression=comp))
+    # tiles and big-endian files of Pillow's own CCITT streams
+    px1 = np.asarray(im1)[..., None].astype(np.uint8)
+    for name, comp, num, info in (("group4", "group4", 4, {}),
+                                  ("group3_2d", "group3", 3, {292: 1})):
+        tiles = []
+        for ty in range(0, 23, 16):
+            for tx in range(0, 45, 16):
+                blk = np.zeros((16, 16), bool)
+                part = bw[ty:ty + 16, tx:tx + 16]
+                blk[:part.shape[0], :part.shape[1]] = part
+                tiles.append(pillow_strip(PILImage.fromarray(blk), comp,
+                                          info))
+        extra = [(292, 4, [info[292]])] if 292 in info else []
+        out[f"tiff_bilevel_{name}_tiles.tif"] = ("tiff", tiff_file(
+            px1, 1, 1, compression=num, tile=(16, 16), raw_strips=tiles,
+            extra_tags=extra))
+        strip = pillow_strip(im1, comp, info)
+        out[f"tiff_bilevel_{name}_be.tif"] = ("tiff", tiff_file(
+            px1, 1, 1, order=">", compression=num, raw_strips=[strip],
+            extra_tags=extra))
+    # Group 3 without EOLs (libtiff's no-EOL mode), and damaged rows
+    g3 = pillow_strip(im1, "group3", {292: 0})
+    bits = "".join(f"{b:08b}" for b in g3).replace("000000000001", "")
+    bits += "0" * (-len(bits) % 8)
+    no_eol = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    out["tiff_bilevel_group3_no_eol.tif"] = ("tiff", tiff_file(
+        px1, 1, 1, compression=3, raw_strips=[no_eol],
+        extra_tags=[(292, 4, [0])]))
+    for name, comp, num, info, flips in (
+            ("group3_damaged", "group3", 3, {292: 0}, (40, 41, 97)),
+            ("group3_2d_damaged", "group3", 3, {292: 1}, (60, 150)),
+            ("rle_damaged", "tiff_ccitt", 2, {}, (30,))):
+        data = bytearray(pillow_strip(im1, comp, info))
+        for j in flips:
+            data[j] ^= 0x24
+        extra = [(292, 4, [info[292]])] if 292 in info else []
+        out[f"tiff_bilevel_{name}.tif"] = ("tiff", tiff_file(
+            px1, 1, 1, compression=num, raw_strips=[bytes(data)],
+            extra_tags=extra))
+    # LZMA and ZSTD
+    small = smooth_image(rng, 13, 11, 10.0)
+    samples = {"grey8": (small[..., :1], 8, 1, {}),
+               "rgb": (small, 8, 2, {}),
+               "rgba": (np.concatenate([small, small[..., :1]], -1), 8, 2,
+                        dict(extra=(2,))),
+               "grey16": ((small[..., :1].astype(np.uint16) * 257), 16, 1,
+                          {}),
+               "float": (small[..., :1].astype(np.float32) * 1.5, 32, 1,
+                         dict(sample_format=3)),
+               "cmyk": (cmyk[:13, :11], 8, 5, {}),
+               "bilevel": ((small[..., :1] > 127).astype(np.uint8), 1, 1,
+                           {})}
+    for cname, num in (("lzma", 34925), ("zstd", 50000)):
+        for name, (px, bits_, photo, kw) in samples.items():
+            out[f"tiff_{name}_{cname}.tif"] = ("tiff", tiff_file(
+                px, bits_, photo, compression=num, rows_per_strip=5, **kw))
+        for name, pred, order in (("rgb", 2, "<"), ("grey16", 2, ">"),
+                                  ("float", 3, "<")):
+            px, bits_, photo, kw = samples[name]
+            end = "_be" if order == ">" else ""
+            out[f"tiff_{name}{end}_{cname}_predictor{pred}.tif"] = (
+                "tiff", tiff_file(px, bits_, photo, order=order,
+                                  compression=num, predictor=pred,
+                                  rows_per_strip=4, **kw))
+        out[f"tiff_rgb_tiles_{cname}.tif"] = ("tiff", tiff_file(
+            small, 8, 2, tile=(16, 16), compression=num))
+        out[f"tiff_rgb_planar_{cname}.tif"] = ("tiff", tiff_file(
+            small, 8, 2, planar=2, compression=num))
+        out[f"tiff_grey16_be_{cname}.tif"] = ("tiff", tiff_file(
+            samples["grey16"][0], 16, 1, order=">", compression=num))
+    runs = np.repeat(rng.integers(0, 4, (20, 3)) * 60, [12, 2, 9], axis=1)
+    out["tiff_grey8_zstd_rle_literals.tif"] = ("tiff", tiff_file(
+        runs[..., None].astype(np.uint8), 8, 1, compression=50000,
+        raw_strips=[zstd_runs_frame(runs.astype(np.uint8).tobytes())]))
+    out["tiff_grey8_zstd_level19.tif"] = ("tiff", tiff_file(
+        samples["grey8"][0], 8, 1, compression=50000, raw_strips=[
+            __import__("zstandard").ZstdCompressor(level=19).compress(
+                samples["grey8"][0].tobytes())]))
+    # YCbCr through libtiff's RGBA path
+    ycc = smooth_image(rng, 23, 19, 20.0)
+    for hs, vs in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)):
+        out[f"tiff_ycbcr{hs}{vs}_lzw.tif"] = ("tiff", ycbcr_tiff(
+            ycc, hs, vs, 5, rows_per_strip=8))
+    for cname, num in (("deflate", 8), ("packbits", 32773),
+                       ("lzma", 34925), ("zstd", 50000)):
+        out[f"tiff_ycbcr22_{cname}.tif"] = ("tiff", ycbcr_tiff(
+            ycc, 2, 2, num, rows_per_strip=8))
+    for (hs, vs), kw, tag in (
+            ((2, 2), dict(tile=(16, 16)), "tiles"),
+            ((4, 4), dict(tile=(16, 16)), "tiles"),
+            ((4, 4), dict(rows_per_strip=5), "strips5"),
+            ((4, 2), dict(rows_per_strip=4, order=">"), "be"),
+            ((1, 1), dict(planar=2, rows_per_strip=8), "planar"),
+            ((2, 2), dict(rows_per_strip=4, predictor=2), "predictor2"),
+            ((2, 1), dict(rows_per_strip=4, predictor=2), "predictor2"),
+            ((2, 2), dict(rows_per_strip=8, extra_tags=[(274, 3, [6])]),
+             "orientation6"),
+            ((2, 1), dict(extra_tags=[
+                (532, 5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1]),
+                (529, 5, [2126, 10000, 7152, 10000, 722, 10000])]),
+             "bt709_studio")):
+        comp = 8 if kw.get("planar") or kw.get("predictor") else 5
+        out[f"tiff_ycbcr{hs}{vs}_{tag}.tif"] = ("tiff", ycbcr_tiff(
+            ycc, hs, vs, comp, **kw))
+    # Pillow's own files
+    im = PILImage.fromarray(smooth_image(rng, 9, 14, 10.0))
+    for mode in ("L", "RGB", "CMYK", "YCbCr"):
+        out[f"tiff_pillow_{mode.lower()}_jpeg.tif"] = ("tiff", _pillow(
+            im.convert(mode), "TIFF", compression="jpeg"))
+    for mode in ("1", "L", "RGB", "RGBA", "I;16", "YCbCr"):
+        m = im.convert(mode) if mode != "I;16" else \
+            im.convert("L").convert(mode)
+        for comp in ("lzma", "zstd"):
+            key = mode.replace(";", "").lower()
+            out[f"tiff_pillow_{key}_{comp}.tif"] = ("tiff", _pillow(
+                m, "TIFF", compression=comp))
+    for comp in ("tiff_ccitt", "group3", "group4"):
+        out[f"tiff_pillow_1_{comp}.tif"] = ("tiff", _pillow(
+            im.convert("1"), "TIFF", compression=comp))
     return out
 
 

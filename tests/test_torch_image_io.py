@@ -175,9 +175,14 @@ def test_fixtures_cover_every_kind():
     partition and alpha cases, the lossless palettes and the animations,
     and every DDS kind Pillow reads (Pillow's own files, BC1 to BC7 with
     each BC1 colour mode, BC3 alpha mode, BC6H and BC7 mode, the DX10
-    forms, the RGB masks, the palette, crops and surfaces past the first);
-    the set stays under 1 MB with the 1024x1024 progressive JPEG, its
-    texels as a 1024x1024 lossy WebP and their lossless crop in it."""
+    forms, the RGB masks, the palette, crops and surfaces past the first),
+    and TIFF's JPEG (each photometric and YCbCr subsampling, tiles,
+    restarts, no tables), CCITT (RLE, Group 3 1D and 2D with fill bits,
+    Group 4, tiles, wide rows, rows without EOLs, damaged rows), LZMA and
+    ZSTD (each layout, a frame of RLE literals) and YCbCr through the RGBA
+    path (1x1 to 4x4 and libtiff's quirks); the set stays under 1 MB with
+    the 1024x1024 progressive JPEG, its texels as a 1024x1024 lossy WebP,
+    their lossless crop and a 1024x1024 tiled JPEG-in-TIFF in it."""
     names = {f["name"] for f in MANIFEST["files"]}
     for kind in ("cmap24", "cmap16", "rgb16", "rgb24", "rgba32", "grey8",
                  "grey_alpha16", "grey1"):
@@ -283,7 +288,43 @@ def test_fixtures_cover_every_kind():
         "rgb32_x8r8g8b8", "rgb32_a8b8g8r8", "rgb32_a2r10g10b10",
         "rgb32_zero_mask")}
     assert {f"{k}.dds" for k in dds} <= names
+    codecs = {f"tiff_jpeg_{k}.tif" for k in (
+        "grey", "rgb", "cmyk", "ycbcr11", "ycbcr21", "ycbcr22", "grey_tiles",
+        "rgb_tiles", "ycbcr22_tiles", "ycbcr22_be", "ycbcr22_restart",
+        "ycbcr22_no_tables", "ycbcr22_last_strip_full",
+        "ycbcr21_no_subsampling_tag", "rgb_fill_order2",
+        "ycbcr21_restart3_tiles")}
+    codecs |= {f"tiff_bilevel_{k}.tif" for k in (
+        "rle", "group3", "group3_2d", "group3_fill", "group3_2d_fill",
+        "group4", "group4_min_is_white", "group4_tiles", "group3_2d_tiles",
+        "group4_be", "rle_fill_order2", "group3_2d_fill_order2",
+        "group4_fill_order2", "wide_group3", "wide_group4", "group4_strips",
+        "group3_no_eol", "group3_damaged", "group3_2d_damaged",
+        "rle_damaged")}
+    codecs |= {f"tiff_{k}_{c}.tif" for c in ("lzma", "zstd") for k in (
+        "grey8", "rgb", "rgba", "grey16", "float", "cmyk", "bilevel",
+        "rgb_tiles", "rgb_planar", "grey16_be")}
+    codecs |= {f"tiff_{k}_{c}_{p}.tif" for c in ("lzma", "zstd") for k, p in (
+        ("rgb", "predictor2"), ("grey16_be", "predictor2"),
+        ("float", "predictor3"))}
+    codecs |= {f"tiff_ycbcr{k}_lzw.tif" for k in (
+        "11", "12", "21", "22", "41", "42", "44")}
+    codecs |= {f"tiff_ycbcr22_{c}.tif" for c in ("deflate", "packbits",
+                                                  "lzma", "zstd")}
+    codecs |= {f"tiff_pillow_{m}_{c}.tif" for m in ("1", "l", "rgb", "i16",
+                                                     "ycbcr")
+               for c in ("lzma", "zstd")}
+    codecs |= {"tiff_ycbcr22_tiles.tif", "tiff_ycbcr44_tiles.tif",
+               "tiff_ycbcr44_strips5.tif", "tiff_ycbcr11_planar.tif",
+               "tiff_ycbcr22_predictor2.tif", "tiff_ycbcr21_predictor2.tif",
+               "tiff_ycbcr22_orientation6.tif",
+               "tiff_ycbcr21_bt709_studio.tif", "tiff_ycbcr42_be.tif",
+               "tiff_grey8_zstd_rle_literals.tif",
+               "tiff_pillow_ycbcr_jpeg.tif", "tiff_pillow_1_group4.tif",
+               make_textures.TIFF_JPEG_BIG}
+    assert codecs <= names, sorted(codecs - names)
     shapes = {f["name"]: f["shape"] for f in MANIFEST["files"]}
+    assert shapes[make_textures.TIFF_JPEG_BIG] == [1024, 1024, 3]
     assert shapes["dds_bc7_13x9.dds"] == [9, 13, 3]
     assert shapes["dds_dxt5_5x3.dds"] == [3, 5, 3]
     assert sum(f["bytes"] for f in MANIFEST["files"]) < 1 << 20
@@ -436,12 +477,16 @@ def _pillow_saved(fmt, mode="RGB", **kw):
     ("cmyk", lambda: _pillow_saved("JPEG", "CMYK"), r"CMYK"),
     ("440", lambda: _jpeg_with(_set(11, 0x12)), r"4:4:0"),
     ("411", lambda: _jpeg_with(_set(11, 0x41)), r"4:1:1"),
-    ("tiff", lambda: _pillow_saved("TIFF", "1", compression="group4"),
-     r"TIFF with CCITT Group 4 compression"),
-    ("webp", lambda: _pillow_saved("TIFF", compression="jpeg"),
+    ("tiff", lambda: make_textures.tiff_file(
+        np.zeros((2, 2, 1), np.uint8), 8, 1, compression=4,
+        raw_strips=[b"\x80"]), r"TIFF with CCITT Group 4 compression"),
+    ("webp", lambda: make_textures.jpeg_tiff(
+        np.zeros((16, 16, 3), np.uint8), 6, subsampling=2).replace(
+        struct.pack("<HHIHH", 530, 3, 2, 2, 2),
+        struct.pack("<HHIHH", 530, 3, 2, 1, 1)),
      r"TIFF with JPEG compression"),
-    ("tiff_ycbcr", lambda: _pillow_saved("TIFF", "YCbCr",
-                                         compression="tiff_lzw"),
+    ("tiff_ycbcr", lambda: make_textures.ycbcr_tiff(
+        np.zeros((4, 6, 3), np.uint8), 3, 1, 5),
      r"photometric 6 TIFF.*YCbCr"),
     ("tiff_lab", lambda: _pillow_saved("TIFF", "LAB"),
      r"photometric 8 TIFF.*L\*a\*b\* is not ported"),
@@ -462,10 +507,12 @@ def _pillow_saved(fmt, mode="RGB", **kw):
     ("unknown", lambda: b"\x00\x01\x02\x03 no image", r"unknown format")])
 def test_unsupported_formats_name_their_format(tmp_path, kind, make, words):
     """Formats the port does not read raise a ValueError that names them
-    (ROADMAP queue 6 lists them in order), whatever the file's name: among
-    them the TIFF compressions and photometrics left out (CCITT Group 4
-    and JPEG in TIFF, in the cases named "tiff" and "webp" since the port
-    reads both formats), and a big-endian BigTIFF, which Pillow reads as a
+    (ROADMAP queue 6 lists them in order), whatever the file's name, and
+    so do files that Pillow refuses too: a Group 4 TIFF of 8-bit samples
+    (libtiff's CCITT decoders take 1-bit ones), a JPEG-in-TIFF whose
+    stream's sampling is not its YCbCrSubsampling, a YCbCr TIFF
+    subsampled 3x1, a TIFF whose LZMA strip is no .xz stream, CIE L*a*b*
+    (not ported), and a big-endian BigTIFF, which Pillow reads as a
     classic TIFF and refuses; so does a GIF, which the port reads, cut
     short, and a DDS of the premultiplied DXT2, which Pillow refuses."""
     path = str(tmp_path / "t.png")
@@ -595,6 +642,13 @@ def _damaged(name, how):
     ("tiff_grey16_be_deflate_predictor2.tif", "cut", "TIFF"),
     ("tiff_cmyk_packbits.tif", "cut", "TIFF"),
     ("tiff_rgb_tiles_lzw_predictor2.tif", "cut", "TIFF"),
+    ("tiff_jpeg_ycbcr22.tif", "cut", "TIFF with JPEG compression"),
+    ("tiff_pillow_rgb_jpeg.tif", "cut",
+     "TIFF with JPEG compression.*corrupt JPEG"),
+    # a big-endian classic file under BigTIFF's version, which libtiff
+    # reads as a BigTIFF (Pillow as classic)
+    ("tiff_grey16_be_lzma.tif", (b"\x00\x2a", b"\x00\x2b"),
+     "TIFF with LZMA compression.*BigTIFF"),
     # BitsPerSample 8 -> 3: a key Pillow does not know
     ("tiff_grey8_raw.tif", (b"\x02\x01\x03\x00\x01\x00\x00\x00\x08",
                             b"\x02\x01\x03\x00\x01\x00\x00\x00\x03"),
@@ -773,3 +827,433 @@ def test_random_dds_files_match_jax(tmp_path, kind):
             f.write(data)
         np.testing.assert_array_equal(_port_u8(path), _jax_u8(path),
                                       err_msg=f"{kind} case {case}")
+
+
+@st.composite
+def _tiff_codec_files(draw):
+    comp = draw(st.sampled_from(["jpeg", "tiff_ccitt", "group3", "group4",
+                                 "lzma", "zstd"]))
+    h, w = draw(st.integers(1, 40)), draw(st.integers(1, 40))
+    info = {}
+    if comp == "jpeg":
+        mode = draw(st.sampled_from(["L", "RGB", "CMYK", "YCbCr"]))
+        info[278] = draw(st.sampled_from([8, 16, 24, h]))
+        opts = dict(quality=draw(st.integers(5, 100)))
+    elif comp in ("tiff_ccitt", "group3", "group4"):
+        mode, opts = "1", {}
+        if comp == "group3":
+            info[292] = draw(st.sampled_from([0, 1, 4, 5]))
+        info[262] = draw(st.sampled_from([0, 1]))
+        info[266] = draw(st.sampled_from([1, 2]))
+        info[278] = draw(st.integers(1, h))
+    else:
+        mode = draw(st.sampled_from(["1", "L", "P", "RGB", "RGBA", "CMYK",
+                                     "I;16", "LA", "YCbCr"]))
+        opts = {}
+        if mode not in ("1", "P") and draw(st.booleans()):
+            info[317] = 2
+        info[278] = draw(st.integers(1, h))
+    seed = draw(st.integers(0, 2 ** 32 - 1))
+    return comp, mode, h, w, info, opts, seed
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(case=_tiff_codec_files())
+def test_random_tiff_codec_files_match_jax(scratch_dir, case):
+    """Random small images that Pillow saves as JPEG-in-TIFF (grey, RGB,
+    CMYK or YCbCr, any quality, strips of 8 to 24 rows), CCITT RLE, Group
+    3 (1D or 2D, with or without fill bits) or Group 4 (either
+    photometric, either fill order, any strip height), LZMA or ZSTD (each
+    mode, with or without predictor 2) decode to JAX's pixels exactly;
+    the file is named .tex."""
+    comp, mode, h, w, info, opts, seed = case
+    rng = np.random.default_rng(seed)
+    if mode == "I;16":
+        im = PIL.fromarray(rng.integers(0, 600, (h, w)).astype(np.uint16))
+    elif mode == "1":
+        im = PIL.fromarray(np.repeat(rng.random((h, w)) < 0.4, 1 + seed % 5,
+                                     axis=1)[:, :w])
+    else:
+        im = PIL.fromarray(make_textures.smooth_image(rng, h, w, 12.0)) \
+            .convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", compression=comp, tiffinfo=info, **opts)
+    path = os.path.join(scratch_dir, "case.tex")
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+    np.testing.assert_array_equal(_port_u8(path), _jax_u8(path))
+
+
+def _seeded_writer_files():
+    """Seeded random files of make_textures' JPEG-in-TIFF and YCbCr
+    writers: (name, bytes), each layout and subsampling at random sizes."""
+    rng = np.random.default_rng(2020)
+    out = []
+    for k in range(12):
+        h, w = (int(v) for v in rng.integers(1, 48, 2))
+        img = make_textures.smooth_image(rng, h, w, 18.0)
+        tiled = bool(k % 3 == 0)
+        rows = int(rng.choice([8, 16, 32])) if not tiled else None
+        sub = int(rng.integers(0, 3))
+        photo = int(rng.choice([1, 2, 5, 6]))
+        src = {1: img[..., :1], 2: img, 5: np.concatenate(
+            [img, img[..., :1]], -1), 6: img}[photo]
+        out.append((f"jpeg p{photo} s{sub} {h}x{w}", make_textures.jpeg_tiff(
+            src, photo, rows_per_strip=rows if photo != 6 or sub < 2 or
+            rows is None else max(16, rows), tile=(16, 16) if tiled else None,
+            subsampling=sub if photo == 6 else 0,
+            quality=int(rng.integers(20, 100)),
+            restart=int(rng.choice([0, 1, 2])),
+            order=str(rng.choice(["<", ">"])))))
+        hs, vs = [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2),
+                  (4, 4)][k % 7]
+        comp = int(rng.choice([5, 8, 32773, 34925, 50000]))
+        out.append((f"ycbcr {hs}x{vs} {comp} {h}x{w}", make_textures
+                    .ycbcr_tiff(img, hs, vs, comp, tile=(16, 16) if tiled
+                                else None, rows_per_strip=None if tiled else
+                                int(rng.integers(1, h + 1)),
+                                order=str(rng.choice(["<", ">"])))))
+    return out
+
+
+@pytest.mark.parametrize("name,data", _seeded_writer_files(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_seeded_jpeg_and_ycbcr_tiffs_match_jax(tmp_path, name, data):
+    """Seeded random JPEG-in-TIFF files (photometric 1, 2, 5 or 6 at 1x1,
+    2x1 or 2x2, strips or tiles, any quality, restart markers, either byte
+    order) and YCbCr files of libtiff's RGBA path (1x1 to 4x4, each
+    compression, strips of any height or tiles, either byte order) decode
+    to JAX's pixels exactly."""
+    path = str(tmp_path / "case.tex")
+    with open(path, "wb") as f:
+        f.write(data)
+    np.testing.assert_array_equal(_port_u8(path), _jax_u8(path), name)
+
+
+def _zstd_stream_files():
+    """Test-time ZSTD TIFFs whose frames reach the modes a small fixture
+    does not: [(name, bytes)] of 8-bit grey images of 300 to 600 KB."""
+    rng = np.random.default_rng(2021)
+    pre = rng.integers(0, 256, 2000, dtype=np.uint8)
+    starts, lens = rng.integers(0, 1900, 8000), rng.integers(20, 60, 8000)
+    slices = np.frombuffer((pre.tobytes() + b"".join(
+        b"\xff" + pre[a:a + n].tobytes() for a, n in zip(starts, lens)))
+        [:300000], np.uint8)
+    rng = np.random.default_rng(2021)
+    gap = np.frombuffer((b"\xff" + bytes(20)) * 15000, np.uint8)
+    blocks = np.repeat(rng.integers(0, 8, 60000).astype(np.uint8), 5)
+    noise = rng.integers(0, 256, 5000, dtype=np.uint8)
+    flat = np.zeros(300000, np.uint8)
+    out = []
+    import zstandard
+
+    for name, data, level in (("gap", gap, 1), ("blocks", blocks, 10),
+                              ("noise", noise, 3), ("flat", flat, 3),
+                              ("slices", slices, 9)):
+        w = 500
+        img = np.resize(data, (len(data) // w, w))
+        frame = zstandard.ZstdCompressor(level=level).compress(img.tobytes())
+        out.append((name, frame, make_textures.tiff_file(
+            img[..., None], 8, 1, compression=50000, raw_strips=[frame])))
+    return out
+
+
+def test_zstd_and_fax_coverage(tmp_path):
+    """The fixtures and the test-time files reach every ZSTD literals type
+    (raw, RLE, compressed and treeless, in one and four streams), every
+    sequence mode of the literal length, offset and match length codes
+    (predefined, RLE, FSE, repeat), raw, RLE and compressed blocks, blocks
+    without sequences and both forms of Huffman weights; and Group 3 rows
+    of both codings, with repairs of damaged rows. The test-time files
+    decode to JAX's pixels."""
+    from cge_tpu_torch.scene import tiff
+
+    zstd = np.zeros(25, np.int64)
+    fax = np.zeros(6, np.int64)
+    for entry in MANIFEST["files"]:
+        with open(os.path.join(FIXTURES, entry["name"]), "rb") as f:
+            data = f.read()
+        if not entry["name"].endswith(".tif"):
+            continue
+        _, order, tags = tiff._ifd(data)
+        comp = tags.get(259, 1)
+        offsets, counts = tiff._list(tags[273 if 273 in tags else 324]), \
+            tiff._list(tags[279 if 279 in tags else 325])
+        if comp == 50000:
+            for off, n in zip(offsets, counts):
+                st_ = np.zeros(25, np.int64)
+                try:
+                    native.zstd(data[off:off + n], 1 << 20, st_)
+                except ValueError:
+                    pass             # more asked for than the strip holds
+                zstd += st_
+        if comp == 3 and 322 not in tags:
+            ev = np.zeros(6, np.int64)
+            fill = tags.get(266, 1)
+            chunks = [data[off:off + n] for off, n in zip(offsets, counts)]
+            if fill == 2:
+                chunks = [tiff._REV[np.frombuffer(c, np.uint8)].tobytes()
+                          for c in chunks]
+            h, w = tags[257], tags[256]
+            rps = tags.get(278, h)
+            native.fax(chunks, 3, tiff._list(tags.get(292, 0))[0], w,
+                       [min(rps, h - i * rps) for i in range(len(chunks))],
+                       ev)
+            fax += ev
+    for name, frame, data in _zstd_stream_files():
+        st_ = np.zeros(25, np.int64)
+        path = str(tmp_path / f"{name}.tif")
+        with open(path, "wb") as f:
+            f.write(data)
+        np.testing.assert_array_equal(_port_u8(path), _jax_u8(path), name)
+        _, _, tags = tiff._ifd(data)
+        native.zstd(frame, tags[256] * tags[257], st_)
+        zstd += st_
+    kinds = ["literals raw", "literals RLE", "Huffman 1 stream",
+             "Huffman 4 streams", "treeless 1 stream", "treeless 4 streams"]
+    kinds += [f"{c} {m}" for c in ("literal lengths", "offsets",
+                                   "match lengths")
+              for m in ("predefined", "RLE", "FSE", "repeat")]
+    kinds += ["no sequences", "skippable", "FSE weights", "direct weights",
+              "raw block", "RLE block", "compressed block"]
+    missing = [k for k, n in zip(kinds, zstd) if n == 0 and k != "skippable"]
+    assert not missing, missing
+    assert fax[4] > 0 and fax[5] > 0, fax          # 1D and 2D rows
+    assert fax[0] > 0 and fax[1] > 0, fax          # repaired rows
+
+
+def _zstd_tiff(frame: bytes, n: int = 64) -> bytes:
+    return make_textures.tiff_file(np.zeros((8, n // 8, 1), np.uint8), 8, 1,
+                                   compression=50000, raw_strips=[frame])
+
+
+def _zstd_frame(data: bytes = bytes(range(64))) -> bytes:
+    import zstandard
+
+    return zstandard.ZstdCompressor(level=3).compress(data)
+
+
+@pytest.mark.parametrize("kind,make", [
+    ("skippable_first", lambda: struct.pack("<II", 0x184D2A50, 4) + b"abcd"
+     + _zstd_frame()),
+    ("dictionary", lambda: _zstd_frame()[:4] + bytes((0x01,)) + b"\x07"
+     + _zstd_frame()[5:]),
+    ("reserved_bit", lambda: _zstd_frame()[:4] + bytes(
+        (_zstd_frame()[4] | 8,)) + _zstd_frame()[5:]),
+    ("not_zstd", lambda: b"\x28\xb5\x2f\xfe" + _zstd_frame()[4:]),
+    ("cut", lambda: _zstd_frame(bytes(range(64)) * 4)[:-9]),
+    ("frame_too_short", lambda: _zstd_frame(bytes(range(40)))),
+    ("two_frames", lambda: _zstd_frame(bytes(32)) + _zstd_frame(bytes(32)))])
+def test_zstd_frames_libzstd_refuses(tmp_path, kind, make):
+    """ZSTD strips that libtiff's streaming loop refuses raise a ValueError
+    naming the TIFF and ZSTD, and JAX's loader raises too: a skippable
+    frame first (libzstd returns 0 after it, and the strip is empty), a
+    frame naming a dictionary, a reserved header bit, a wrong magic
+    number, a cut frame, a frame shorter than its strip, and two frames
+    (only the first is read)."""
+    path = str(tmp_path / "texture.tif")
+    with open(path, "wb") as f:
+        f.write(_zstd_tiff(make()))
+    with pytest.raises(ValueError, match="TIFF with ZSTD.*ZSTD") as e:
+        mesh_io.load_image(path)
+    assert path in str(e.value)
+    with pytest.raises(Exception):
+        jax_image_io.load_image(path)
+
+
+def _damaged_fax_files():
+    """Seeded CCITT files of Pillow's with bits flipped, strips cut or
+    bytes appended: [(name, bytes)]."""
+    rng = np.random.default_rng(2022)
+    out = []
+    for case in range(45):
+        h, w = int(rng.integers(2, 30)), int(rng.integers(2, 70))
+        a = np.repeat(rng.random((h, w)) < 0.4, 3, axis=1)[:, :w]
+        comp = ["tiff_ccitt", "group3", "group4"][case % 3]
+        info = {278: int(rng.integers(1, h + 1))}
+        if comp == "group3":
+            info[292] = int(rng.choice([0, 1, 4, 5]))
+        data = make_textures._pillow(PIL.fromarray(a), "TIFF",
+                                     compression=comp, tiffinfo=info)
+        t = PIL.open(io.BytesIO(data))
+        chunks = [bytearray(data[o:o + n]) for o, n in zip(
+            t.tag_v2[273], t.tag_v2[279])]
+        k = int(rng.integers(0, len(chunks)))
+        how = ["flip", "cut", "append"][case // 3 % 3]
+        if how == "flip":
+            for _ in range(int(rng.integers(1, 4))):
+                j = int(rng.integers(0, len(chunks[k])))
+                chunks[k][j] ^= 1 << int(rng.integers(0, 8))
+        elif how == "cut":
+            chunks[k] = chunks[k][:max(1, int(rng.integers(0, len(
+                chunks[k]))))]
+        else:
+            chunks[k] += rng.integers(0, 256, 3, dtype=np.uint8).tobytes()
+        num = {"tiff_ccitt": 2, "group3": 3, "group4": 4}[comp]
+        extra = [(292, 4, [info[292]])] if 292 in info else []
+        out.append((f"{comp} {how} {h}x{w}", make_textures.tiff_file(
+            a[..., None].astype(np.uint8), 1, 1, compression=num,
+            rows_per_strip=info[278], raw_strips=[bytes(c) for c in chunks],
+            extra_tags=extra)))
+    return out
+
+
+@pytest.mark.parametrize("name,data", _damaged_fax_files(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_damaged_fax_files_match_jax(tmp_path, name, data):
+    """Damaged CCITT files decode as libtiff repairs them for Pillow (rows
+    cut or padded to their width, rows after a lost EOL searched for, no-
+    EOL mode where a strip has none), or raise where Pillow raises; a
+    Group 4 strip that ends before its last row, for which Pillow returns
+    rows no decoder wrote, raises in the port."""
+    path = str(tmp_path / "texture.tif")
+    with open(path, "wb") as f:
+        f.write(data)
+    try:
+        ref = _jax_u8(path)
+    except Exception:
+        ref = None
+    try:
+        port = _port_u8(path)
+    except ValueError as e:
+        assert path in str(e)
+        assert ref is None or "Group 4 data ends" in str(e), (name, str(e))
+        return
+    assert ref is not None, name
+    np.testing.assert_array_equal(port, ref, name)
+
+
+def _damaged_ycbcr_files():
+    """Seeded YCbCr files of libtiff's RGBA path (each subsampling and
+    compression) with one strip cut short, bytes flipped or bytes
+    appended: [(name, bytes)]."""
+    rng = np.random.default_rng(2023)
+    out = []
+    for case in range(35):
+        h, w = (int(v) for v in rng.integers(4, 30, 2))
+        px = make_textures.smooth_image(rng, h, w, 20.0)
+        hs, vs = [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2),
+                  (4, 4)][case % 7]
+        comp = [5, 8, 32773, 34925, 50000][case % 5]
+        rps = int(rng.integers(1, h + 1))
+        raws = [bytearray(make_textures.compress_chunk(
+            make_textures.ycbcr_units(px[y:y + rps], hs, vs).tobytes(),
+            comp)) for y in range(0, h, rps)]
+        k = int(rng.integers(0, len(raws)))
+        how = ["cut", "flip", "append"][case % 3]
+        if how == "cut":
+            raws[k] = raws[k][:int(rng.integers(1, len(raws[k]) + 1))]
+        elif how == "flip":
+            for _ in range(2):
+                j = int(rng.integers(0, len(raws[k])))
+                raws[k][j] ^= 1 << int(rng.integers(0, 8))
+        else:
+            raws[k] += rng.integers(0, 256, 5, dtype=np.uint8).tobytes()
+        out.append((f"ycbcr {hs}x{vs} {comp} {how} {h}x{w}",
+                    make_textures.tiff_file(
+                        np.zeros((h, w, 3), np.uint8), 8, 6, compression=comp,
+                        rows_per_strip=rps,
+                        raw_strips=[bytes(r) for r in raws],
+                        extra_tags=[(530, 3, (hs, vs))])))
+    return out
+
+
+@pytest.mark.parametrize("name,data", _damaged_ycbcr_files(),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_damaged_ycbcr_files_match_jax(tmp_path, name, data):
+    """YCbCr strips of the RGBA path that fail to decode (LZW, Deflate,
+    PackBits and LZMA cut short or with bytes flipped) read as Pillow
+    reads them: libtiff hands over what it decoded before the failure and
+    zeros after, and Pillow goes on; where Pillow raises, so does the port,
+    and so it does for a ZSTD strip that fails (what libzstd leaves in its
+    output then is its internals')."""
+    path = str(tmp_path / "texture.tif")
+    with open(path, "wb") as f:
+        f.write(data)
+    try:
+        ref = _jax_u8(path)
+    except Exception:
+        ref = None
+    if ref is None:
+        with pytest.raises(ValueError, match=path):
+            _port_u8(path)
+        return
+    try:
+        port = _port_u8(path)
+    except ValueError as e:
+        assert " 50000 " in name and "ZSTD" in str(e), (name, str(e))
+        return
+    np.testing.assert_array_equal(port, ref, name)
+
+
+def _jpeg_streams(photo, rows=16, **kw):
+    """(strips, tables) of a make_textures JPEG-in-TIFF of a seeded image
+    (photometric 1, 2, 5 or 6) in strips of `rows` rows."""
+    img = make_textures.smooth_image(np.random.default_rng(2024), 21, 19,
+                                     14.0)
+    src = {1: img[..., :1], 2: img, 5: np.concatenate(
+        [img, img[..., :1]], -1), 6: img}[photo]
+    data = make_textures.jpeg_tiff(src, photo, rows_per_strip=rows, **kw)
+    t = PIL.open(io.BytesIO(data))
+    return [data[o:o + n] for o, n in zip(t.tag_v2[273], t.tag_v2[279])], \
+        t.tag_v2[347]
+
+
+def _jpeg_tiff_of(streams, photo, spp, rows=16, extra=()):
+    strips, tables = streams
+    return make_textures.tiff_file(
+        np.zeros((21, 19, spp), np.uint8), 8, photo, compression=7,
+        rows_per_strip=rows, raw_strips=strips,
+        extra_tags=[(347, 7, tables), *extra])
+
+
+@pytest.mark.parametrize("kind,make,words", [
+    ("jpeg_p1_three_components", lambda: _jpeg_tiff_of(
+        _jpeg_streams(2), 1, 1), "JPEG.*component count 3"),
+    ("jpeg_p2_subsampled", lambda: _jpeg_tiff_of(
+        _jpeg_streams(6, subsampling=2), 2, 3), "JPEG sampling factors 2,2"),
+    ("jpeg_p5_three_components", lambda: _jpeg_tiff_of(
+        _jpeg_streams(2), 5, 4), "JPEG.*component count 3"),
+    ("jpeg_p6_stream_past_its_strip", lambda: _jpeg_tiff_of(
+        (_jpeg_streams(6, rows=32, subsampling=2)[0]
+         + _jpeg_streams(6, subsampling=2)[0][1:],
+         _jpeg_streams(6, subsampling=2)[1]), 6, 3,
+        extra=[(530, 3, (2, 2))]), "JPEG exceeds its 19x16 strip"),
+    ("jpeg_p6_no_tables", lambda: make_textures.jpeg_tiff(
+        np.zeros((16, 16, 3), np.uint8), 6, subsampling=2).replace(
+        struct.pack("<HH", 347, 7), struct.pack("<HH", 32998, 7)),
+     "quantisation table is undefined"),
+    ("group3_8bit", lambda: make_textures.tiff_file(
+        np.zeros((2, 2, 1), np.uint8), 8, 1, compression=3,
+        raw_strips=[b"\x00\x01\x80"]), "CCITT decoders take 1-bit"),
+    ("group4_first_row", lambda: make_textures.tiff_file(
+        np.zeros((2, 8, 1), np.uint8), 1, 1, compression=4,
+        raw_strips=[b"\x00"]), "CCITT data ends inside row 0"),
+    ("rle_cut", lambda: make_textures.tiff_file(
+        np.zeros((4, 8, 1), np.uint8), 1, 1, compression=2,
+        raw_strips=[b"\x35"]), "CCITT data ends inside row 1"),
+    ("group3_2d_fill_cut", lambda: make_textures.tiff_file(
+        np.zeros((4, 8, 1), np.uint8), 1, 1, compression=3,
+        raw_strips=[b"\x00\x18"], extra_tags=[(292, 4, [5])]),
+     "CCITT data ends inside row 3"),
+    ("ycbcr22_planar", lambda: make_textures.ycbcr_tiff(
+        np.zeros((6, 5, 3), np.uint8), 2, 2, 5, planar=2),
+     "no RGBA conversion of YCbCr subsampled 2,2"),
+    ("ycbcr_16bit", lambda: make_textures.tiff_file(
+        np.zeros((4, 4, 3), np.uint16), 16, 6, compression=5),
+     "YCbCr of these samples")])
+def test_tiff_codec_refusals_match_pillow(tmp_path, kind, make, words):
+    """Where Pillow (through libtiff) refuses a JPEG-in-TIFF at each
+    photometric (a stream of the wrong component count or sampling, one
+    taller than its strip, tables missing), a CCITT file (8-bit samples,
+    data that ends inside a row of RLE, Group 3 2D with fill bits and the
+    first row of Group 4) or a YCbCr file (subsampled in planes, 16-bit),
+    the port raises a ValueError naming the file and the case."""
+    path = str(tmp_path / "texture.tif")
+    with open(path, "wb") as f:
+        f.write(make())
+    with pytest.raises(ValueError, match=words) as e:
+        mesh_io.load_image(path)
+    assert path in str(e.value)
+    with pytest.raises(Exception):
+        jax_image_io.load_image(path)

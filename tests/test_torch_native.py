@@ -448,3 +448,127 @@ def test_image_decoders_under_asan_ubsan(tmp_path):
                  UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
     assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
     assert r.stdout.count("SANITIZED_OK") == len(names)
+
+
+CODECS_SCRIPT = r"""
+import ctypes, io, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from cge_tpu_torch import native
+from jax_references import make_textures
+from PIL import Image
+import zstandard
+
+flags = tuple(f for f in native.CXXFLAGS if f != "-O2") + (
+    "-O0", "-g", "-fno-omit-frame-pointer", "-fsanitize=address,undefined")
+lib = native.build(flags=flags, build_dir=sys.argv[2])
+err = ctypes.create_string_buffer(512)
+
+
+def exact(b):
+    # a buffer of exactly len(b) bytes, so that ASan sees a read past it
+    return (ctypes.c_char * max(1, len(b))).from_buffer_copy(b or b"\0")
+
+
+def damaged(data, rng):
+    yield data
+    for k in range(1, 9):
+        yield data[:len(data) * k // 9]
+        flip = bytearray(data)
+        for j in rng.integers(0, len(data), 1 + k // 3):
+            flip[j] ^= int(rng.integers(1, 256))
+        yield bytes(flip)
+
+
+rng = np.random.default_rng(9)
+counts = {"zstd": 0, "fax": 0, "jpeg": 0, "ok": 0}
+sources = [bytes(rng.integers(0, 256, 3000, dtype=np.uint8)), bytes(40000),
+           np.repeat(rng.integers(0, 8, 30000).astype(np.uint8), 5)
+           .tobytes(), (b"\xff" + bytes(20)) * 3000]
+for src in sources:
+    for level in (1, 3, 19):
+        frame = zstandard.ZstdCompressor(level=level).compress(src)
+        for d in damaged(frame, rng):
+            for size in (len(src), len(src) + 7):
+                out = np.empty(size, np.uint8)
+                st = np.zeros(25, np.int64)
+                rc = lib.cge_zstd_decode(exact(d), len(d), out.ctypes.data,
+                                         size, st.ctypes.data, err, 512)
+                counts["zstd"] += 1
+                counts["ok"] += rc == 0
+runs = make_textures.zstd_runs_frame(bytes(300) + b"abc" * 50 + bytes(9))
+for d in damaged(runs, rng):
+    out = np.empty(459, np.uint8)
+    lib.cge_zstd_decode(exact(d), len(d), out.ctypes.data, 459, None, err,
+                        512)
+for comp, num, info in (("tiff_ccitt", 2, {}), ("group3", 3, {292: 0}),
+                        ("group3", 3, {292: 1}), ("group3", 3, {292: 5}),
+                        ("group4", 4, {})):
+    for h, w in ((17, 45), (3, 2700), (9, 7)):
+        bw = np.repeat(rng.random((h, -(-w // 3))) < 0.4, 3, 1)[:, :w]
+        strip = make_textures.pillow_strip(Image.fromarray(bw), comp, info)
+        for d in damaged(strip, rng):
+            out = np.empty((h, (w + 7) // 8), np.uint8)
+            starts = np.zeros(1, np.int_)
+            sizes = np.array([len(d)], np.int_)
+            rows = np.array([h], np.intc)
+            lib.cge_fax_decode(exact(d), starts.ctypes.data,
+                               sizes.ctypes.data, 1, num, info.get(292, 0),
+                               w, rows.ctypes.data, out.ctypes.data, None,
+                               err, 512)
+            counts["fax"] += 1
+img = make_textures.smooth_image(rng, 37, 29, 14.0)
+for photo, sub, src in ((1, 0, img[..., :1]), (2, 0, img), (6, 1, img),
+                        (6, 2, img), (5, 0, np.concatenate(
+                            [img, img[..., :1]], -1))):
+    mode = {1: "L", 2: "RGB", 5: "CMYK", 6: "RGB"}[photo]
+    im = Image.fromarray(src[..., 0] if mode == "L" else src,
+                         "CMYK" if mode == "CMYK" else None)
+    jpeg = make_textures._pillow(im, "JPEG", quality=70, subsampling=sub,
+                                 restart_marker_blocks=2)
+    tables, stream = make_textures.jpeg_split(jpeg)
+    color = 1 if photo == 6 else 0
+    for t in damaged(tables, rng):
+        for d in damaged(stream, rng):
+            info = np.zeros(6, np.intc)
+            if lib.cge_jpeg_tiff_info(exact(t), len(t), exact(d), len(d),
+                                      color, info.ctypes.data, err, 512):
+                continue
+            n = int(info[0]) * int(info[1]) * (3 if color else int(info[2]))
+            if n > 1 << 22:
+                continue
+            out = np.empty(max(n, 1), np.uint8)
+            lib.cge_jpeg_tiff_decode(exact(t), len(t), exact(d), len(d),
+                                     color, out.ctypes.data, n, err, 512)
+            counts["jpeg"] += 1
+print("SANITIZED_OK", counts, flush=True)
+"""
+
+
+def test_zstd_fax_and_jpeg_tiff_under_asan_ubsan(tmp_path):
+    """cge_zstd.cpp, cge_fax.cpp and the JPEG-in-TIFF entry points of
+    cge_image.cpp built with -fsanitize=address,undefined at -O0, in a
+    Python with ASan preloaded, each input in a buffer of exactly its size:
+    ZSTD frames of libzstd's at levels 1, 3 and 19 (raw, RLE and
+    compressed blocks, every literal and sequence mode among them) and a
+    frame of RLE literals, CCITT strips of Pillow's (RLE, Group 3 1D, 2D
+    and with fill bits, Group 4; a 2700-pixel row among them), and JPEG
+    tables and abbreviated streams (grey, RGB, CMYK, YCbCr 2x1 and 2x2,
+    restart markers), each whole, cut at eight lengths and with bytes
+    flipped: every call returns, whole inputs decode, and nothing faults
+    (UBSan halts on its first report)."""
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "codecs.py"
+    script.write_text(CODECS_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build")],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert "SANITIZED_OK" in r.stdout

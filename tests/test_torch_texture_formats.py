@@ -1,9 +1,11 @@
 """TIFF, WebP and DDS textures through the whole port against the JAX
 package: the 41x32 stand-in (tools/common.write_textured_obj) with its
 body's `map_Kd` pointed at its seeded texels saved by Pillow as an LZW
-TIFF with predictor 2, a Deflate TIFF, a lossless WebP, a lossy WebP, and
+TIFF with predictor 2, a Deflate TIFF, an LZMA TIFF with predictor 2, a
+ZSTD TIFF, a bilevel Group 4 TIFF, a lossless WebP, a lossy WebP, and
 DXT1, DXT5, BC5 (red and green, blue 0) and uncompressed RGBA DDS files,
-and written as BC7 mode 6 blocks (jax_references/make_textures.bc7_mode6).
+and written as BC7 mode 6 blocks (jax_references/make_textures.bc7_mode6)
+and as a tiled JPEG-in-TIFF of YCbCr 2x2 (make_textures.jpeg_tiff).
 JAX loads the scene through Pillow (cge_tpu.load_scene_from_file), the
 port through its own decoders (scene/tiff.py, webp.py and dds.py, with
 device="cpu"): every
@@ -42,6 +44,13 @@ FORMATS = {
     "kd_lzw_predictor2.tif": dict(format="TIFF", compression="tiff_lzw",
                                   tiffinfo={317: 2}),
     "kd_deflate.tif": dict(format="TIFF", compression="tiff_adobe_deflate"),
+    "kd_lzma_predictor2.tif": dict(format="TIFF", compression="lzma",
+                                   tiffinfo={317: 2}),
+    "kd_zstd.tif": dict(format="TIFF", compression="zstd"),
+    "kd_group4.tif": dict(format="TIFF", mode="1", compression="group4"),
+    "kd_jpeg_ycbcr22_tiles.tif": dict(writer=lambda px: make_textures
+                                      .jpeg_tiff(px, 6, tile=(16, 16),
+                                                 subsampling=2)),
     "kd_lossless.webp": dict(format="WEBP", lossless=True),
     "kd_lossy.webp": dict(format="WEBP", quality=90),
     "kd_dxt1.dds": dict(format="DDS", pixel_format="DXT1"),
