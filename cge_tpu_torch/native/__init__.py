@@ -3,24 +3,25 @@ builder in C++ (counterpart of cge_tpu/native), and the byte-serial parts
 of the texture loader.
 
 `cge_host.cpp` is this package's own copy of the JAX package's source,
-`cge_image.cpp` the port's image decoding that runs byte by byte: JPEG
-(scene/jpeg.py), PNG row filters (scene/image_io.py), TGA run-length
-packets (scene/tga.py), GIF LZW (scene/gif.py), PackBits (scene/psd.py and
-scene/tiff.py), TIFF LZW and predictors (scene/tiff.py);
-`cge_webp.cpp` the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the
-block-compressed (BC1 to BC7) textures of DDS files (scene/dds.py);
-`cge_fax.cpp` TIFF's CCITT fax rows and `cge_zstd.cpp` its Zstandard
-frames (scene/tiff.py, which also reads JPEG in TIFF through
-cge_image.cpp's decoder). All are compiled at
-first use by `g++` with the flags of
-the JAX package's Makefile (CXXFLAGS, warnings as errors) into one library
-in `build/cge_tpu_torch/` at the repository root, named by a hash of the
-sources, compiler and flags, and loaded with ctypes; no binary is
-committed. A failed build raises with the compiler's output: nothing falls
-back to the numpy code or to Pillow. The numpy loader and builders
-(scene/mesh_io.py, ops/bvh.py) are the library's twins and run where a
-caller passes `use_native=False`; the image decoders have none (the PNG
-row filters' Python twin lives in the tests).
+`cge_jpeg.cpp` the JPEG decoder (scene/jpeg.py, and JPEG in TIFF for
+scene/tiff.py), `cge_image.cpp` the rest of the image decoding that runs
+byte by byte: PNG row filters (scene/image_io.py), TGA run-length packets
+(scene/tga.py), GIF LZW (scene/gif.py), PackBits (scene/psd.py and
+scene/tiff.py), TIFF LZW and predictors (scene/tiff.py); `cge_webp.cpp`
+the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
+(BC1 to BC7) textures of DDS files (scene/dds.py); `cge_fax.cpp` TIFF's
+CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py).
+Each source is compiled at first use by `g++` with the flags of the JAX
+package's Makefile (CXXFLAGS, warnings as errors) into an object of its
+own, all at once in parallel, in `build/cge_tpu_torch/objects/` at the
+repository root, named by a hash of the source, compiler and flags; the
+objects are linked into one library named by a hash of theirs and loaded
+with ctypes. A change to one source so rebuilds one object and the link;
+no binary is committed. A failed build raises with the compiler's output:
+nothing falls back to the numpy code or to Pillow. The numpy loader and
+builders (scene/mesh_io.py, ops/bvh.py) are the library's twins and run
+where a caller passes `use_native=False`; the image decoders have none
+(the PNG row filters' Python twin lives in the tests).
 """
 
 from __future__ import annotations
@@ -38,12 +39,13 @@ from cge_tpu_torch import _kernels
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "cge_host.cpp")
 IMAGE_SOURCE = os.path.join(_HERE, "cge_image.cpp")
+JPEG_SOURCE = os.path.join(_HERE, "cge_jpeg.cpp")
 WEBP_SOURCE = os.path.join(_HERE, "cge_webp.cpp")
 BCN_SOURCE = os.path.join(_HERE, "cge_bcn.cpp")
 FAX_SOURCE = os.path.join(_HERE, "cge_fax.cpp")
 ZSTD_SOURCE = os.path.join(_HERE, "cge_zstd.cpp")
-SOURCES = (SOURCE, IMAGE_SOURCE, WEBP_SOURCE, BCN_SOURCE, FAX_SOURCE,
-           ZSTD_SOURCE)
+SOURCES = (SOURCE, IMAGE_SOURCE, JPEG_SOURCE, WEBP_SOURCE, BCN_SOURCE,
+           FAX_SOURCE, ZSTD_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -61,8 +63,7 @@ _SIGNATURES = {
     "cge_release": (None, [_P]),
     "cge_build_clusters": (_I, [_P, _I, _I, _P, _I]),
     "cge_build_bvh": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
-    "cge_jpeg_info": (_I, [ctypes.c_char_p, ctypes.c_long,
-                           ctypes.POINTER(_I), ctypes.POINTER(_I),
+    "cge_jpeg_info": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
                            ctypes.c_char_p, _I]),
     "cge_jpeg_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
                              ctypes.c_long, ctypes.c_char_p, _I]),
@@ -96,12 +97,16 @@ _SIGNATURES = {
 
 
 class HostLibrary:
-    """The loaded library and what its build took."""
+    """The loaded library and what its build took: the seconds, the
+    compilers' output and the sources compiled in this build (the others'
+    objects were there)."""
 
-    def __init__(self, path: str, build_seconds: float, build_log: str):
+    def __init__(self, path: str, build_seconds: float, build_log: str,
+                 compiled: tuple = ()):
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log
+        self.compiled = compiled
         lib = ctypes.CDLL(path)
         for name, (restype, argtypes) in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -111,36 +116,86 @@ class HostLibrary:
         self._lib = lib
 
 
+def _run(cmds: list, what: str) -> str:
+    """Run the commands at once; their output, or RuntimeError with it
+    when one cannot start or fails."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    except OSError as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"native build: cannot run {cmds[0][0]!r}: {e}") \
+            from e
+    logs, failed = [], []
+    for cmd, p in zip(cmds, procs):
+        try:
+            out, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out += "\n(killed after 300 s)"
+        logs.append(out)
+        if p.returncode:
+            failed.append(f"{' '.join(cmd)}:\n{out}")
+    if failed:
+        raise RuntimeError(f"native build failed ({what}):\n" +
+                           "\n".join(failed))
+    return "".join(logs)
+
+
 def build(cxx: str = CXX, flags=CXXFLAGS,
-          build_dir: str = _kernels.BUILD_DIR) -> HostLibrary:
-    """Compile the sources (unless a build of the same sources, compiler
-    and flags is there) and load the library. RuntimeError with the
-    compiler's output when the compiler is missing or fails."""
-    h = hashlib.sha256(" ".join((cxx,) + tuple(flags)).encode())
-    for src in SOURCES:
+          build_dir: str = _kernels.BUILD_DIR,
+          sources: tuple = SOURCES) -> HostLibrary:
+    """Compile each source whose object (named by the hash of the source,
+    compiler and flags) is not there yet, all in parallel, link the
+    objects unless a library of the same objects is there, and load it.
+    RuntimeError with the compiler's output when the compiler is missing
+    or fails."""
+    prefix = " ".join((cxx,) + tuple(flags)).encode()
+    obj_dir = os.path.join(build_dir, "objects")
+    os.makedirs(obj_dir, exist_ok=True)
+    objs, todo = [], []
+    for src in sources:
         with open(src, "rb") as f:
-            h.update(f.read())
-    os.makedirs(build_dir, exist_ok=True)
+            key = hashlib.sha256(prefix + b"\0" + f.read()).hexdigest()[:16]
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj = os.path.join(obj_dir, f"{stem}_{key}.o")
+        objs.append(obj)
+        if not os.path.exists(obj):
+            todo.append((src, obj))
+    h = hashlib.sha256(prefix + "".join(objs).encode())
     path = os.path.join(build_dir, f"libcge_host_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
     log = ""
+    if todo:
+        tmps = [f"{obj}.{os.getpid()}.tmp" for _, obj in todo]
+        try:
+            log = _run([[cxx, *flags, "-c", "-o", tmp, src]
+                        for (src, _), tmp in zip(todo, tmps)],
+                       "compiling " + ", ".join(
+                           os.path.basename(s) for s, _ in todo))
+            for (_, obj), tmp in zip(todo, tmps):
+                os.replace(tmp, obj)      # atomic: concurrent builds agree
+        finally:
+            for tmp in tmps:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [cxx, *flags, "-shared", "-o", tmp, *SOURCES]
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=300)
-        except OSError as e:
-            raise RuntimeError(f"native build: cannot run {cxx!r}: {e}") \
-                from e
-        log = r.stdout + r.stderr
-        if r.returncode:
+            log += _run([[cxx, *flags, "-shared", "-o", tmp, *objs]],
+                        "linking")
+            os.replace(tmp, path)
+        finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n"
-                               f"{log}")
-        os.replace(tmp, path)     # atomic: concurrent builds agree
-    return HostLibrary(path, time.perf_counter() - t0, log)
+    return HostLibrary(path, time.perf_counter() - t0, log,
+                       tuple(src for src, _ in todo))
 
 
 _LIBRARY: HostLibrary | None = None

@@ -20,9 +20,11 @@ its name, in Pillow's order (`format_of`):
         bitfields, 24-bit, 32-bit plain and bitfields; header sizes 12
         (OS/2 core), 40, 52, 56, 64, 108 and 124; bottom-up or top-down
         rows (`decode_bmp`).
-  JPEG  baseline and progressive Huffman, 8-bit, grey or three components
-        at 4:4:4, 4:2:2 or 4:2:0, as libjpeg-turbo decodes it
-        (scene/jpeg.py and the native library's cge_image.cpp).
+  JPEG  every kind Pillow opens, as libjpeg-turbo decodes it: Huffman or
+        arithmetic, sequential, progressive (smoothed where scans leave
+        coefficients unrefined) or lossless, 8-bit, grey, YCbCr, RGB,
+        CMYK or YCCK at every whole sampling (scene/jpeg.py and the
+        native library's cge_jpeg.cpp).
   GIF   the first frame, every colour-table case, interlaced or not, at
         its offset on the logical screen (scene/gif.py).
   PSD   the merged image, raw or PackBits, in bitmap, grey, indexed, RGB

@@ -25,7 +25,7 @@ Pillow's table that this module converts. Three readers follow Pillow's:
                         or none) and Group 4   native library
                         (cge_fax.cpp), 1-bit samples, libtiff's repairs of
                         damaged rows and its no-EOL mode;
-          JPEG 7        the JPEG decoder of cge_image.cpp after the
+          JPEG 7        the JPEG decoder of cge_jpeg.cpp after the
                         JPEGTables stream, no colour conversion but YCbCr
                         -> RGB at PlanarConfiguration 1 (Pillow's raw mode
                         RGB there), each stream as tall as its strip (a last

@@ -67,20 +67,21 @@ exits non-zero if any phase fails:
      stand-in textured through map_Kd by a 96x64 PNG (nearest, bilinear),
      soft shadows from a 5x5 parallelogram light (accel off: K3; accel on:
      K1 and K2) and from a 25-sample segment light, the headline frame
-     without and with bloom, MSAA 3x3, DoF 5 and both; K3, and K1 and K2,
+     without and with bloom, MSAA 3x3, DoF 5 and both (these three at
+     256x256), one timed frame each; K3, and K1 and K2,
      on one full 1,638,400-ray shadow batch of the soft frames (recorded
      as the frame hands it over) and K1 and K2 on one of that size over
      the dragon's 4,800 clusters, each timed, with the key table's bytes,
      and held to the twins on blocks spread over the batch; the reader of
-     the plain-op parts against torch.profiler's own parse on two 64x64
+     the plain-op parts against torch.profiler's own parse on two 32x32
      frames; then the card's threefry draws against the CPU's bit for
-     bit, and each feature set on the 41x32 stand-in at 64x64 on the card
+     bit, and each feature set on the 41x32 stand-in at 32x32 on the card
      against the CPU twins under phase 4's rule;
  12. the sixth path, transparency shadows, the TRANS+REC tree, glossy and
      batched cameras: frames of the 15,360-triangle stand-in in its
      material variants (cge_tpu_torch/tools/common.py MATERIAL_VARIANTS)
      through render_image_u8, each with its launches, lit share, first
-     frame, median of 2 timed frames, peak memory and rays per level: the
+     frame, one timed frame, peak memory and rays per level: the
      tree with hard shadows (glass: the body at d 0.45) at 512x512 with
      the accel off (K3 only) and on (K1 and K2 only), its all-diffuse
      collapse (Ks 0, d 0.45) with the accel off, glossy (the belly at Ns
@@ -90,7 +91,7 @@ exits non-zero if any phase fails:
      timed and held to the twins on blocks spread over it; three headline
      cameras of the dragon through render_images_u8, equal to three
      render_image_u8 calls; each feature set on the 41x32 stand-in at
-     64x64 on the card against the CPU twins under phase 4's rule;
+     32x32 on the card against the CPU twins under phase 4's rule;
  13. the seventh path, the CLI and config, the reference BVH, the debugger,
      the preview and the app: `python -m cge_tpu_torch.cli` on a config of
      the dragon (512x512, the headline features with the accel, three
@@ -101,7 +102,7 @@ exits non-zero if any phase fails:
      the CLI's "Rendering took" lines; two cameras of the 41x32 stand-in
      at 64x64 through the CLI on the card against the CPU twins; the
      reference BVH of the stand-in (median and SAH, build ms) and its
-     parity traversal of 256x256 primary rays on the card against K3
+     parity traversal of 128x128 primary rays on the card against K3
      (hit masks equal, t within rtol 5e-6 / atol 1e-7, ids off exact-t
      ties) and the CPU run bit for bit, with its ms; debug_trace of a 4x4
      fan into the dragon with mirrors on against the CPU twins; the
@@ -113,7 +114,8 @@ exits non-zero if any phase fails:
      K2's kernel, and a checkpoint round trip of scene_params on the card;
  14. the eighth path, multi-device on the one card
      (cge_tpu_torch.parallel) and the native host library: the library
-     built anew with g++ and its flags (-Werror), the dragon's OBJ loaded
+     built anew with g++ and its flags (-Werror), one object a source in
+     parallel (its seconds), the dragon's OBJ loaded
      natively and by the numpy twin (seconds, same sub-meshes), its native
      cluster perm and the stand-in's native reference BVH (median, SAH)
      against the numpy twins; then worlds of rank processes of this script
@@ -169,8 +171,11 @@ exits non-zero if any phase fails:
      from the graph's inputs);
  18. textures without Pillow (the card's machine has none): (a) every
      fixture of tests/torch_textures/ (PNG at every depth, colour type and
-     interlace, BMP of every kind the port reads, baseline and
-     progressive JPEG, TGA, PNM, GIF, PSD, TIFF of every mode, compression
+     interlace, BMP of every kind the port reads, JPEG of every kind
+     Pillow opens (baseline and progressive, every whole sampling, CMYK
+     and YCCK, arithmetic coding, block smoothing and lossless, each
+     kind's host ms summed up), TGA, PNM, GIF, PSD, TIFF of
+     every mode, compression
      (JPEG, CCITT RLE, Group 3 and 4, LZMA and ZSTD among them, and YCbCr
      through libtiff's RGBA path), predictor and organisation, lossy,
      lossless and animated WebP, DDS
@@ -200,11 +205,15 @@ exits non-zero if any phase fails:
      the 1024x1024 lossy one at quality 90 and the lossless 256x256 crop
      of their corner, and the committed 1024x1024 JPEG-in-TIFF of them
      (YCbCr 2x2 at quality 85 in 256x256 tiles, its tables in
-     JPEGTables); and DDS, uncompressed A8R8G8B8, DXT1 and BC7 mode 6
+     JPEGTables), and the committed 256x256 crop of their corner as an
+     arithmetic-coded progressive YCCK JPEG at 4:4:0 whose scans leave a
+     coefficient unrefined (block smoothing); and DDS, uncompressed
+     A8R8G8B8, DXT1 and BC7 mode 6
      (each 4x4 block's minimum and maximum as endpoints, each pixel the nearest
      of the block's colours); each file's texels equal to the JPEG's
      (GIF: to their quantisation; the crop: to the JPEG's corner; the
-     lossy WebP, DXT1 and BC7: to what they decode to, which (a) holds
+     lossy WebP, DXT1, BC7 and the JPEG crop: to what they decode to,
+     which (a) holds
      to the manifest through the same decoders), each frame
      equal bit for bit to the frame textured by the PNG of the same
      texels ((b)'s where they are the JPEG's), K1 and K2 launched as
@@ -224,7 +233,9 @@ on its card and its own frame with eager bounces) and at N/2 x 2, the prims swee
 and N/2 x 2, each against the single-card path.
 
 Each path is driven with the launch counters set to 0 just before it and
-read just after; each phase's line ends with the seconds since the start.
+read just after; each phase's line ends with the host's CPU (model, or
+its family and model numbers where the host hides the name; its clock)
+and the seconds since the start.
 A summary gives each kernel's time beside its earlier design's (PERF.md),
 its bound, share and launches per frame. The line before the last is a
 JSON object with one entry per kernel; the last line is {"ok": true,
@@ -291,11 +302,36 @@ TOOL_RUNS = (
 START = time.perf_counter()
 
 
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo's first processor gives it: its
+    model name (or, where the host hides it as "unknown", its vendor,
+    family and model numbers and cache), the processors, and the first
+    one's clock now."""
+    info, count = {}, 0
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                count += key == "processor"
+                if count == 1:
+                    info.setdefault(key, value.strip())
+    except OSError:
+        return "unknown CPU (no /proc/cpuinfo)"
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')}"
+                f", {info.get('cache size', '?')} cache")
+    return f"{name}, {count} CPUs, {info.get('cpu MHz', '?')} MHz"
+
+
 def log(msg: str) -> None:
     """Print a line; a phase's line (and the summary's) ends with the
-    seconds since the start."""
+    host's CPU model and clock and the seconds since the start."""
     if msg.startswith("["):
-        msg = f"{msg} [t = {time.perf_counter() - START:.1f} s]"
+        msg = (f"{msg} [host {host_cpu()}; t = "
+               f"{time.perf_counter() - START:.1f} s]")
     print(msg, flush=True)
 
 
@@ -925,9 +961,13 @@ TEX_HW = (64, 96)               # (height, width): a swapped pair shows
 SHADOW_BATCH = 65536 * 25
 # the 512-ray blocks the twins check of a full shadow batch (slice_blocks)
 SLICE_BLOCKS = 8
-FIFTH_FRAMES = 2
+FIFTH_FRAMES = 1
 FIFTH_SEED = 1
-SMALL_SIDE = 64
+# the side of the card-against-CPU-twin frames of phases 11 and 12
+SMALL_SIDE = 32
+# the rows rendered at 256x256 rather than 512x512: the most primary rays
+# a frame, and the profiled first frame's cost with them
+FIFTH_SIDES = {"MSAA 3x3": 256, "DoF 5": 256, "MSAA 3x3 + DoF 5": 256}
 # (label, scene, features) of each 512x512 frame; accel off must launch K3
 # only, accel on K1 and K2 only; bloom's row is timed beside the same frame
 # without it
@@ -975,10 +1015,11 @@ def fifth_scenes(tmp, grid, device):
 
 
 def fifth_frame(label, scene, feats, labels):
-    """One row of phase 11: the first frame with the counters reset around
-    it, under torch.profiler for its plain-op parts (frame_profile's
-    reader; a part that ran with no kernel fails), then FIFTH_FRAMES
-    timed frames (CUDA events) with peak memory. Returns the row."""
+    """One row of phase 11 at 512x512 (FIFTH_SIDES: 256x256): the first
+    frame with the counters reset around it, under torch.profiler for its
+    plain-op parts (frame_profile's reader; a part that ran with no kernel
+    fails), then FIFTH_FRAMES timed frames (CUDA events) with peak memory.
+    Returns the row."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -987,12 +1028,13 @@ def fifth_frame(label, scene, feats, labels):
     from cge_tpu_torch.tools import frame_profile
 
     f, params = ct.Features(**feats), ct.RenderParams()
+    side = FIFTH_SIDES.get(label, W)
     ctx = ct.prepare_render(scene, f, params)
     reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        img = ct.render_image_u8(scene, ct.Camera(), f, params, W, H,
+        img = ct.render_image_u8(scene, ct.Camera(), f, params, side, side,
                                  FIFTH_SEED, ctx=ctx)
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1002,7 +1044,7 @@ def fifth_frame(label, scene, feats, labels):
     missing = [k for k, (calls, _, n) in plain.items() if calls and not n]
     if missing:
         raise AssertionError(f"torch.profiler holds no kernel of {missing}")
-    if img.shape != (H, W, 3) or img.dtype != torch.uint8:
+    if img.shape != (side, side, 3) or img.dtype != torch.uint8:
         raise AssertionError(f"{label}: image {tuple(img.shape)} {img.dtype}")
     lit = float((img.float().sum(-1) > 0).float().mean())
     if lit < 0.05:
@@ -1019,14 +1061,14 @@ def fifth_frame(label, scene, feats, labels):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ct.render_image_u8(scene, ct.Camera(), f, params, W, H, FIFTH_SEED,
-                           ctx=ctx)
+        ct.render_image_u8(scene, ct.Camera(), f, params, side, side,
+                           FIFTH_SEED, ctx=ctx)
         end.record()
         torch.cuda.synchronize()
         frames.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated() / 2**20
     ms = float(np.median(frames))
-    n_px = W * H
+    n_px = side * side
     spp = (params.rays_per_pixel_side ** 2
            if feats.get("enable_multiple_rays_per_pixel") else 0) + (
         params.samples_dof if feats.get("enable_depth_of_field") else 0)
@@ -1042,7 +1084,7 @@ def fifth_frame(label, scene, feats, labels):
     rays = (f", {shadow} shadow rays a frame (5x5 a primary ray), "
             f"{n_px * (1 + 25) / ms / 1e3:.3f} Mrays/s as bench.py:206 "
             f"counts" if shadow else "")
-    log(f"  {label}: {primary} primary rays, launches "
+    log(f"  {label} ({side}x{side}): {primary} primary rays, launches "
         f"{row['launches']}, lit {lit:.3f}, first frame (profiled) "
         f"{first_s:.2f} s, frames ms {[round(x, 2) for x in frames]}, "
         f"median {ms:.2f} ms{rays}, peak memory {peak:.0f} MiB | plain ops "
@@ -1307,8 +1349,8 @@ def check_plain_ops_reader(tmp, device) -> None:
             if calls != w_calls or n != w_n or abs(ms - w_ms) > 1e-6:
                 raise AssertionError(f"plain_ops read {k} as {got[k]}, "
                                      f"torch.profiler's parse as {want[k]}")
-    log("    plain_ops equals torch.profiler's own parse on two 64x64 frames "
-        "that run every labelled part")
+    log(f"    plain_ops equals torch.profiler's own parse on two "
+        f"{SMALL_SIDE}x{SMALL_SIDE} frames that run every labelled part")
 
 
 def threefry_check(device) -> None:
@@ -1356,7 +1398,7 @@ def fifth_small_check(tmp, device) -> list:
         if nan_agree < 0.999 or frac < 0.995:
             raise AssertionError(f"{label}: card and CPU disagree "
                                  f"({nan_agree:.4f} NaN, {frac:.4%} close)")
-    log("    64x64 card vs CPU twins: " + "; ".join(
+    log(f"    {SMALL_SIDE}x{SMALL_SIDE} card vs CPU twins: " + "; ".join(
         f"{label} {frac:.2%}" for label, _, frac in out))
     return out
 
@@ -1364,7 +1406,8 @@ def fifth_small_check(tmp, device) -> list:
 def fifth_path(tmp, dragon, accel, device) -> list:
     """Phase 11; dragon and accel: the main path's scene and accel."""
     log(f"[11] fifth path: texture, soft shadows, bloom, MSAA, DoF at "
-        f"{W}x{H} on the {2 * (TEAPOT_GRID[0] - 1) * TEAPOT_GRID[1]}-"
+        f"{W}x{H} (MSAA and DoF at 256x256) on the "
+        f"{2 * (TEAPOT_GRID[0] - 1) * TEAPOT_GRID[1]}-"
         f"triangle stand-in (seed {FIFTH_SEED}; texture {TEX_HW[1]}x"
         f"{TEX_HW[0]})")
     scenes = fifth_scenes(tmp, TEAPOT_GRID, device)
@@ -1397,7 +1440,7 @@ GLOSSY = dict(enable_shading=True, enable_hard_shadow=True,
 # bench.py:230-234: glossy at 256x256 in 16,384-ray chunks, 40 cone
 # samples a reflection (the default rays_per_reflection)
 GLOSSY_PARAMS = dict(trace_chunk=16384)
-SIXTH_FRAMES = 2
+SIXTH_FRAMES = 1
 BATCH_CAMERAS = (dict(), dict(rotation=(0.5, -0.4, 0.0)),
                  dict(distance=2.4, rotation=(0.2, 1.1, 0.0)))
 # (label, material variant of the stand-in (tools/common.py
@@ -1623,7 +1666,7 @@ def sixth_small_check(tmp, device) -> list:
         if nan_agree < 0.999 or frac < 0.995:
             raise AssertionError(f"{label}: card and CPU disagree "
                                  f"({nan_agree:.4f} NaN, {frac:.4%} close)")
-    log("    64x64 card vs CPU twins: " + "; ".join(
+    log(f"    {SMALL_SIDE}x{SMALL_SIDE} card vs CPU twins: " + "; ".join(
         f"{label} {frac:.2%} ({s:.1f} s)" for label, _, frac, s in out))
     return out
 
@@ -1817,18 +1860,24 @@ def to_cpu(scene):
                                          for k in TENSOR_FIELDS})
 
 
+# the primary rays the reference BVH's traversal checks, a side (the
+# traversal took 6-8 s on the card and 11 s on the CPU at 256)
+BVH_SIDE = 128
+
+
 def bvh_check(tscene, device) -> dict:
     """The reference BVH of the stand-in, median and SAH, and its parity
-    traversal for 256x256 primary rays on the card: against K3's closest
-    hit (hit masks equal, t within the traversal tolerance, ids equal off
-    exact-t ties) and, for the median BVH, the CPU run bit for bit."""
+    traversal for BVH_SIDE x BVH_SIDE primary rays on the card: against
+    K3's closest hit (hit masks equal, t within the traversal tolerance,
+    ids equal off exact-t ties) and, for the median BVH, the CPU run bit
+    for bit."""
     import torch
 
     from cge_tpu_torch.ops import bvh_traverse as bt
     from cge_tpu_torch.ops.intersect import closest_hit
     from cge_tpu_torch.utils.profiling import timed_bvh_build
 
-    o, d = camera_rays(256, device)
+    o, d = camera_rays(BVH_SIDE, device)
     tm = torch.full((o.shape[0],), torch.inf, device=device)
     reset_launches()
     k3 = closest_hit(tscene, o, d, tm)
@@ -2062,7 +2111,7 @@ def seventh_path(tmp, dragon, tobj, tscene, device) -> dict:
 # rank a card, so the multi-rank worlds on the one card run on gloo with
 # CUDA tensors.
 EIGHTH_SIDE = 512
-EIGHTH_FRAMES = 3
+EIGHTH_FRAMES = 1
 GRID_SIDE = 256
 
 
@@ -2379,7 +2428,9 @@ def native_check(tmp, obj, dragon, tscene) -> dict:
                 or spans(a) != spans(b)):
             raise AssertionError(f"native {kind} BVH differs from the twin")
         row[f"bvh_{kind}"] = (a.num_levels, a.num_leaves, a.max_per_leaf)
-    log(f"    native library: built in {row['build_s']:.2f} s (g++ "
+    log(f"    native library: built in {row['build_s']:.2f} s, "
+        f"{len(lib.compiled)} sources compiled in parallel, one object each "
+        f"(the earlier single g++ call of every source: 21.08 s) (g++ "
         f"{' '.join(native.CXXFLAGS)}); dragon OBJ load native "
         f"{row['load_native_s']:.2f} s, numpy {row['load_numpy_s']:.2f} s "
         f"({row['quads_apart']} tied quads split apart); "
@@ -3011,6 +3062,18 @@ TEX_JPEG = "jpeg_progressive_420_q90_1024.jpg"
 TEX_WEBP = "webp_lossy_q90_1024.webp"
 WEBP_CROP = 256
 TEX_WEBP_CROP = f"webp_lossless_crop{WEBP_CROP}.webp"
+# the texels' 256x256 crop as an arithmetic-coded progressive YCCK JPEG at
+# 4:4:0 whose scans leave a coefficient unrefined (block smoothing):
+# make_textures.JPEG_CROP_NAME
+TEX_JPEG_CROP = "jpeg_ycck_440_arith_progressive_smoothed_256.jpg"
+# the JPEG fixtures of the variants Pillow does not write, by kind (name
+# prefixes), for phase 18a's decode times
+JPEG_VARIANT_KINDS = (
+    ("sampling", ("jpeg_sampling_",)), ("CMYK / YCCK", ("jpeg_cmyk_",
+                                                        "jpeg_ycck")),
+    ("arithmetic", ("jpeg_arith_",)),
+    ("smoothed", ("jpeg_smooth_", "jpeg_arith_smooth_")),
+    ("lossless", ("jpeg_lossless_",)))
 # the texels as a tiled YCbCr 2x2 JPEG-in-TIFF at quality 85
 TEX_TIFF_JPEG = "tiff_jpeg_ycbcr22_tiles_q85_1024.tif"
 
@@ -3097,7 +3160,7 @@ def texture_writers(texels):
     out["texels.gif"] = (gif, palette[idx.reshape(h, w)])
     out.update(tiff_writers(texels))
     out.update(dds_writers(texels))
-    for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG):
+    for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG, TEX_JPEG_CROP):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
         if name == TEX_WEBP_CROP:
@@ -3106,8 +3169,9 @@ def texture_writers(texels):
             from cge_tpu_torch.scene import image_io
 
             held = image_io.decode_image(data)     # lossy: 18a holds it
-            if name == TEX_TIFF_JPEG:
-                err = np.abs(held.astype(int) - texels)
+            if name in (TEX_TIFF_JPEG, TEX_JPEG_CROP):
+                h, w = held.shape[:2]
+                err = np.abs(held.astype(int) - texels[:h, :w])
                 log(f"  18c: {name}'s texels against the JPEG's: max abs "
                     f"error {int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
@@ -3351,13 +3415,19 @@ def eleventh_path(device) -> dict:
         f"textured by a 1024x1024 progressive JPEG and by its texels as TGA, "
         f"PNM, PSD, GIF, TIFF (raw, PackBits, Deflate + predictor 2, LZW, "
         f"LZMA + predictor 2, tiled YCbCr JPEG), WebP (lossy, and a lossless "
-        f"crop) and DDS (A8R8G8B8, DXT1, BC7) | "
+        f"crop), DDS (A8R8G8B8, DXT1, BC7) and a crop as an arithmetic, "
+        f"progressive, smoothed YCCK 4:4:0 JPEG | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
         ms = sorted((t, n) for n, k, t in times if k == kind)
         log(f"  {kind}: {len(ms)} files, {ms[0][0]:.2f}-{ms[-1][0]:.2f} ms "
             f"a file (the slowest {ms[-1][1]})")
+    for kind, prefixes in JPEG_VARIANT_KINDS:
+        ms = sorted(t for n, _, t in times if n.startswith(prefixes)
+                    and not (kind == "arithmetic" and "_smooth_" in n))
+        log(f"  JPEG {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms "
+            f"a file, median {ms[len(ms) // 2]:.2f} ms")
     log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
         f"manifest's, {sum(t for _, _, t in times):.1f} ms in all (host) | "
         f"{SMI['line']}")

@@ -8,9 +8,13 @@ image type, depth and orientation, raw and run-length; P1 to P6 PNM with
 comments, odd maxvals and 16-bit samples; GIF with global and local
 tables, interlaced, offset and transparent frames; PSD raw and PackBits in
 every colour mode Pillow converts), and one 1024x1024 progressive 4:2:0
-JPEG at quality 90, all from seeded numpy images. It is the JAX side:
-Pillow writes the JPEGs and some TGA, PNM and GIF files, the encoders
-below write the rest (PNGs with the port's row filters), and the JAX
+JPEG at quality 90, all from seeded numpy images; and the JPEG variants
+Pillow opens but does not write (every whole sampling, CMYK and YCCK,
+arithmetic coding, scans that leave coefficients unrefined, lossless).
+It is the JAX side: Pillow writes the JPEGs and some TGA, PNM and GIF
+files, Pillow's own libjpeg-turbo compressor (jpeg_encoder.py) the JPEG
+variants, the encoders below the rest (PNGs with the port's row
+filters), and the JAX
 package's `cge_tpu.scene.image_io.load_image` (Pillow's
 `convert("RGB")`) gives the reference pixels.
 
@@ -44,6 +48,7 @@ from PIL import Image as PILImage  # noqa: E402
 from PIL import features  # noqa: E402
 
 from cge_tpu_torch.scene.image_io import _chunk, _filter_rows  # noqa: E402
+from jax_references.jpeg_encoder import jpeg_encode  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "torch_textures")
@@ -1100,7 +1105,268 @@ def fixtures() -> dict:
     out.update(tiff_codec_fixtures(np.random.default_rng(24)))
     out[TIFF_JPEG_BIG] = ("tiff", jpeg_tiff(texels, 6, tile=(256, 256),
                                             subsampling=2, quality=85))
+    out.update(jpeg_variant_fixtures(np.random.default_rng(25), texels))
     return out
+
+
+def cmyk_of(rgb: np.ndarray) -> np.ndarray:
+    """[h, w, 3] u8 RGB -> [h, w, 4] u8 CMYK as Adobe stores it (inverted,
+    as Pillow's "CMYK;I" reads it back): K takes all the grey, 255 less
+    the largest channel, and C, M, Y what Pillow's cmyk2rgb turns back
+    into the channels, nk - v x nk / 255 with nk = 255 - K."""
+    x = rgb.astype(np.float64)
+    top = x.max(-1, keepdims=True)
+    cmy = np.where(top > 0, 255.0 * (1.0 - x / np.maximum(top, 1.0)), 0.0)
+    cmyk = np.concatenate([np.rint(cmy), 255.0 - top], -1)
+    return (255 - cmyk).astype(np.uint8)
+
+
+# the 18c crop: the 1024x1024 texels' top-left 256x256, arithmetic-coded,
+# progressive, YCCK at 4:4:0 (Y and K 1x2), with a scan script that leaves
+# the first AC band of Y approximate (one bit unrefined), so that block
+# smoothing runs too
+JPEG_CROP = 256
+JPEG_CROP_NAME = f"jpeg_ycck_440_arith_progressive_smoothed_{JPEG_CROP}.jpg"
+JPEG_CROP_SCANS = [((0, 1, 2, 3), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                   ((0,), 6, 63, 0, 1), ((1,), 1, 63, 0, 0),
+                   ((2,), 1, 63, 0, 0), ((3,), 1, 63, 0, 1),
+                   ((0,), 1, 5, 2, 1), ((0, 1, 2, 3), 0, 0, 1, 0)]
+# scan scripts that leave coefficients unrefined (block smoothing), by name
+SMOOTH_SCANS = {
+    "dc_only": [((0, 1, 2), 0, 0, 0, 0)],
+    "dc_al1": [((0, 1, 2), 0, 0, 0, 1)],
+    "ac_al2": [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 5, 0, 2),
+               ((1,), 1, 63, 0, 0), ((2,), 1, 63, 0, 0)],
+    "partial_bands": [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 2, 0, 0),
+                      ((1,), 1, 9, 0, 1), ((2,), 3, 63, 0, 0),
+                      ((0, 1, 2), 0, 0, 1, 0)],
+}
+# sampling factors of each component, by name
+SAMPLINGS = {
+    "440": [(1, 2), (1, 1), (1, 1)], "411": [(4, 1), (1, 1), (1, 1)],
+    "410": [(4, 2), (1, 1), (1, 1)], "311": [(3, 1), (1, 1), (1, 1)],
+    "mixed": [(2, 2), (2, 1), (1, 1)], "chroma_up": [(1, 1), (1, 2), (2, 1)],
+    "441": [(1, 4), (1, 1), (1, 1)], "421_12": [(2, 2), (1, 2), (2, 1)],
+}
+
+
+def jpeg_variant_fixtures(rng, texels: np.ndarray) -> dict:
+    """The JPEG variants Pillow opens but does not write, through
+    Pillow's own libjpeg-turbo (jpeg_encode): every whole sampling ratio,
+    CMYK and YCCK, arithmetic coding, scan scripts that leave coefficients
+    unrefined (block smoothing) and lossless, and the 18c crop."""
+    out = {}
+    px = smooth_image(rng, 21, 19, 12.0)
+
+    def add(name, img, **kw):
+        out[f"jpeg_{name}.jpg"] = ("jpeg", jpeg_encode(img, quality=75, **kw))
+
+    for name, samp in SAMPLINGS.items():
+        add(f"sampling_{name}", px, sampling=samp)
+    add("sampling_440_narrow", px[:, :3], sampling=SAMPLINGS["440"])
+    add("sampling_422_narrow", px[:, :4], sampling=[(2, 1), (1, 1), (1, 1)])
+    add("sampling_adobe_rgb_440", px, colorspace="rgb",
+        sampling=SAMPLINGS["440"])
+    add("sampling_progressive_411", px, progressive=True,
+        sampling=SAMPLINGS["411"])
+    cmyk = cmyk_of(px)
+    add("cmyk_adobe", cmyk)
+    add("cmyk_no_adobe", cmyk, adobe=False)
+    add("cmyk_progressive", cmyk, progressive=True)
+    add("ycck", cmyk, colorspace="ycck")
+    add("ycck_420", cmyk, colorspace="ycck",
+        sampling=[(2, 2), (1, 1), (1, 1), (2, 2)])
+    out["jpeg_cmyk_pillow.jpg"] = ("jpeg", _pillow(
+        PILImage.fromarray(cmyk, "CMYK"), "JPEG", quality=75))
+    add("arith_sequential", px, arithmetic=True,
+        sampling=[(2, 2), (1, 1), (1, 1)])
+    add("arith_progressive", px, arithmetic=True, progressive=True)
+    add("arith_restart", px, arithmetic=True, restart=2)
+    add("arith_dac", px, arithmetic=True, tables=[(0, 0), (1, 1), (1, 1)],
+        conditioning={0: (2, 4, 3), 1: (0, 0, 20)})
+    add("arith_grey", px[..., :1], arithmetic=True)
+    add("arith_progressive_restart_dac", px, arithmetic=True,
+        progressive=True, restart=3, conditioning={0: (1, 3, 1)})
+    for name, scans in SMOOTH_SCANS.items():
+        add(f"smooth_{name}", px, scans=scans)
+        add(f"arith_smooth_{name}", px, scans=scans, arithmetic=True)
+    add("smooth_grey_dc_only", px[..., :1], scans=[((0,), 0, 0, 0, 0)])
+    grey = px[:13, :17, :1]
+    for psv in range(1, 8):
+        add(f"lossless_p{psv}", grey, lossless=(psv, 0))
+    add("lossless_grey_pt3", grey, lossless=(6, 3))
+    add("lossless_rgb_pt2", px[:13, :17], lossless=(4, 2))
+    add("lossless_cmyk", cmyk[:13, :17], lossless=(7, 0))
+    add("lossless_restart", px[:13, :17], lossless=(5, 1), restart_rows=2)
+    crop = cmyk_of(texels[:JPEG_CROP, :JPEG_CROP])
+    out[JPEG_CROP_NAME] = ("jpeg", jpeg_encode(
+        crop, quality=70, colorspace="ycck", arithmetic=True,
+        sampling=[(1, 2), (1, 1), (1, 1), (1, 2)], scans=JPEG_CROP_SCANS))
+    return out
+
+
+def _sof(data: bytes) -> int:
+    """The offset of a JPEG's frame header marker."""
+    for m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+        i = data.find(bytes((0xFF, m)))
+        if i > 0:
+            return i
+    raise ValueError("no frame header")
+
+
+def _patched(data: bytes, changes: dict) -> bytes:
+    out = bytearray(data)
+    for pos, value in changes.items():
+        out[pos] = value
+    return bytes(out)
+
+
+def _lossless_diffs(plane: np.ndarray, psv: int, pt: int,
+                    restart_rows: int) -> np.ndarray:
+    """The differences of a component's samples [h, w] >> pt under
+    predictor psv (T.81 H.1.2.1): the first row of the plane and of each
+    restart segment from 2^(7 - pt) and the left neighbour, each other
+    row's first sample from the one above; modulo 2^16."""
+    x = plane.astype(np.int64) >> pt
+    h, w = x.shape
+    d = np.zeros_like(x)
+    for y in range(h):
+        first = y == 0 or (restart_rows and y % restart_rows == 0)
+        for c in range(w):
+            if first:
+                p = (1 << (7 - pt)) if c == 0 else x[y, c - 1]
+            elif c == 0:
+                p = x[y - 1, 0]
+            else:
+                ra, rb, rc = x[y, c - 1], x[y - 1, c], x[y - 1, c - 1]
+                p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                     5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                     7: (ra + rb) >> 1}[psv]
+            d[y, c] = (x[y, c] - p) & 0xFFFF
+    return d
+
+
+def lossless_jpeg(planes, factors, psv: int, pt: int = 0,
+                  restart_mcu_rows: int = 0) -> bytes:
+    """An 8-bit lossless JPEG (SOF3, Adobe RGB) of one interleaved scan
+    whose components [h_i, w_i] u8 have the sampling factors `factors`:
+    libjpeg's compressor writes lossless at 1x1 only. Huffman table 0
+    codes every category (0-16) in 5 bits; samples past a component's
+    edge in the MCUs have difference 0."""
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    top = [i for i, f in enumerate(factors) if f == (hmax, vmax)][0]
+    height, width = planes[top].shape
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    ids = (82, 71, 66)
+    sof = struct.pack(">BHHB", 8, height, width, len(planes)) + b"".join(
+        bytes((cid, h << 4 | v, 0)) for cid, (h, v) in zip(ids, factors))
+    dht = bytes((0,)) + bytes((0, 0, 0, 0, 17) + (0,) * 11) + bytes(range(17))
+    sos = (bytes((len(planes),)) + b"".join(bytes((cid, 0))
+                                            for cid in ids[:len(planes)])
+           + bytes((psv, 0, pt)))
+    out = bytearray(b"\xff\xd8\xff\xee\x00\x0eAdobe\x00\x64" + bytes(5))
+    for marker, body in ((0xC3, sof), (0xC4, dht)):
+        out += bytes((0xFF, marker)) + struct.pack(">H", 2 + len(body)) + body
+    if restart_mcu_rows:
+        out += b"\xff\xdd\x00\x04" + struct.pack(">H", restart_mcu_rows * mcux)
+    out += b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+    diffs = [_lossless_diffs(p, psv, pt, restart_mcu_rows * v)
+             for p, (_, v) in zip(planes, factors)]
+    bits = []
+
+    def flush():
+        bits.extend([1] * (-len(bits) % 8))
+        for i in range(0, len(bits), 8):
+            byte = int("".join(map(str, bits[i:i + 8])), 2)
+            out.extend(b"\xff\x00" if byte == 0xFF else bytes((byte,)))
+        bits.clear()
+
+    for my in range(mcuy):
+        if restart_mcu_rows and my and my % restart_mcu_rows == 0:
+            flush()
+            out.extend(bytes((0xFF, 0xD0 + (my // restart_mcu_rows - 1) % 8)))
+        for mx in range(mcux):
+            for d, (h, v) in zip(diffs, factors):
+                for y in range(my * v, my * v + v):
+                    for x in range(mx * h, mx * h + h):
+                        val = int(d[y, x]) if y < d.shape[0] and \
+                            x < d.shape[1] else 0
+                        sv = val - 65536 if val >= 32768 else val
+                        s = 16 if val == 32768 else abs(sv).bit_length()
+                        bits.extend(int(b) for b in f"{s:05b}")
+                        if 0 < s < 16:
+                            raw = sv if sv >= 0 else sv + (1 << s) - 1
+                            bits.extend(int(b) for b in f"{raw:0{s}b}")
+    flush()
+    return bytes(out + b"\xff\xd9")
+
+
+# the JPEGs that Pillow 12 (libjpeg-turbo 3.1) refuses, by case
+JPEG_REFUSED = (
+    "arithmetic_64k", "lossless_ycc", "lossless_ycck", "lossless_restart",
+    "cmyk_mcu", "440_mcu", "411_mcu", "fractional_h", "fractional_v",
+    "12-bit", "16-bit", "two_components", "sof5", "sof6", "sof7", "sof11",
+    "sof13", "sof14", "sof15", "dnl_height0", "reserved_marker")
+
+
+def jpeg_refused(case: str) -> bytes:
+    """A JPEG of case `case` (JPEG_REFUSED): an arithmetic-coded scan past
+    Pillow's first 64 KB block, lossless YCbCr or YCCK (libjpeg converts no
+    colours there) or with restarts that are no whole MCU rows, MCUs of
+    more than 10 blocks (CMYK, 4:4:0, 4:1:1), fractional sampling ratios,
+    12- and 16-bit samples, two components, hierarchical (SOF5-7, SOF13-15)
+    and lossless arithmetic (SOF11) frames, a height left to a DNL marker,
+    a reserved marker; written by libjpeg where it writes them, else
+    patched from a file it writes."""
+    rng = np.random.default_rng(JPEG_REFUSED.index(case))
+    px = smooth_image(rng, 21, 19, 12.0)
+    if case == "arithmetic_64k":
+        noise = rng.integers(0, 256, (320, 320, 3), dtype=np.uint8)
+        return jpeg_encode(noise, quality=90, arithmetic=True)
+    if case.startswith("lossless"):
+        if case == "lossless_restart":
+            data = jpeg_encode(px, lossless=(1, 0), restart_rows=1)
+            dri = data.find(b"\xff\xdd")
+            return _patched(data, {dri + 5: 3})       # 3 MCUs, rows of 19
+        img = cmyk_of(px) if case == "lossless_ycck" else px
+        data = jpeg_encode(img, lossless=(1, 0))
+        adobe = data.find(b"Adobe")
+        return _patched(data, {adobe + 11: 2 if case == "lossless_ycck"
+                               else 1})
+    if case == "cmyk_mcu":
+        data = jpeg_encode(cmyk_of(px))
+        i = _sof(data)
+        return _patched(data, {i + 11 + 3 * k: 0x22 for k in range(4)})
+    if case in ("440_mcu", "411_mcu"):
+        data = jpeg_encode(px)
+        i = _sof(data)
+        y, c = (0x24, 0x22) if case == "440_mcu" else (0x42, 0x12)
+        return _patched(data, {i + 11: y, i + 14: c, i + 17: c})
+    if case.startswith("fractional"):
+        data = jpeg_encode(px, sampling=[(3, 1), (1, 1), (1, 1)]
+                           if case == "fractional_h"
+                           else [(1, 3), (1, 1), (1, 1)])
+        return _patched(data, {_sof(data) + 14: 0x21 if case ==
+                               "fractional_h" else 0x12})
+    if case in ("12-bit", "16-bit"):
+        data = jpeg_encode(px)
+        return _patched(data, {_sof(data) + 4: int(case[:2])})
+    if case == "two_components":
+        return jpeg_encode(px[..., :2])
+    if case.startswith("sof"):
+        data = jpeg_encode(px[..., :1], lossless=(1, 0)) if case == "sof11" \
+            else jpeg_encode(px)
+        return _patched(data, {_sof(data) + 1: 0xC0 + int(case[3:])})
+    if case == "dnl_height0":
+        data = jpeg_encode(px)
+        i = _sof(data)
+        return _patched(data, {i + 5: 0, i + 6: 0})
+    if case == "reserved_marker":
+        data = jpeg_encode(px)
+        sos = data.find(b"\xff\xda")
+        return data[:sos] + b"\xff\xf1\x00\x04ab" + data[sos:]
+    raise ValueError(f"no refused JPEG case {case!r}")
 
 
 TIFF_COMPRESSIONS = {"raw": 1, "lzw": 5, "deflate": 8, "packbits": 32773}

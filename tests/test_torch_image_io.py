@@ -180,7 +180,11 @@ def test_fixtures_cover_every_kind():
     restarts, no tables), CCITT (RLE, Group 3 1D and 2D with fill bits,
     Group 4, tiles, wide rows, rows without EOLs, damaged rows), LZMA and
     ZSTD (each layout, a frame of RLE literals) and YCbCr through the RGBA
-    path (1x1 to 4x4 and libtiff's quirks); the set stays under 1 MB with
+    path (1x1 to 4x4 and libtiff's quirks), and the JPEG variants Pillow
+    does not write (each whole sampling ratio, CMYK and YCCK, arithmetic
+    coding, unrefined scans under both codings, lossless at each
+    predictor, the 256x256 arithmetic YCCK 4:4:0 crop of the texels);
+    the set stays under 1 MB with
     the 1024x1024 progressive JPEG, its texels as a 1024x1024 lossy WebP,
     their lossless crop and a 1024x1024 tiled JPEG-in-TIFF in it."""
     names = {f["name"] for f in MANIFEST["files"]}
@@ -323,7 +327,23 @@ def test_fixtures_cover_every_kind():
                "tiff_pillow_ycbcr_jpeg.tif", "tiff_pillow_1_group4.tif",
                make_textures.TIFF_JPEG_BIG}
     assert codecs <= names, sorted(codecs - names)
+    variants = {f"jpeg_sampling_{k}.jpg" for k in make_textures.SAMPLINGS}
+    variants |= {f"jpeg_{k}.jpg" for k in (
+        "sampling_440_narrow", "sampling_422_narrow",
+        "sampling_adobe_rgb_440", "sampling_progressive_411", "cmyk_adobe",
+        "cmyk_no_adobe", "cmyk_progressive", "cmyk_pillow", "ycck",
+        "ycck_420", "arith_sequential", "arith_progressive",
+        "arith_restart", "arith_dac", "arith_grey",
+        "arith_progressive_restart_dac", "smooth_grey_dc_only",
+        "lossless_grey_pt3", "lossless_rgb_pt2", "lossless_cmyk",
+        "lossless_restart")}
+    variants |= {f"jpeg_{c}smooth_{k}.jpg" for c in ("", "arith_")
+                 for k in make_textures.SMOOTH_SCANS}
+    variants |= {f"jpeg_lossless_p{k}.jpg" for k in range(1, 8)}
+    variants.add(make_textures.JPEG_CROP_NAME)
+    assert variants <= names, sorted(variants - names)
     shapes = {f["name"]: f["shape"] for f in MANIFEST["files"]}
+    assert shapes[make_textures.JPEG_CROP_NAME] == [256, 256, 3]
     assert shapes[make_textures.TIFF_JPEG_BIG] == [1024, 1024, 3]
     assert shapes["dds_bc7_13x9.dds"] == [9, 13, 3]
     assert shapes["dds_dxt5_5x3.dds"] == [3, 5, 3]
@@ -470,13 +490,14 @@ def _pillow_saved(fmt, mode="RGB", **kw):
 
 
 @pytest.mark.parametrize("kind,make,words", [
-    ("arithmetic", lambda: _jpeg_with(_set(1, 0xC9)),
+    ("arithmetic", lambda: make_textures.jpeg_refused("arithmetic_64k"),
      r"arithmetic-coded JPEG \(SOF9\)"),
-    ("lossless", lambda: _jpeg_with(_set(1, 0xC3)), r"lossless JPEG"),
+    ("lossless", lambda: make_textures.jpeg_refused("lossless_ycc"),
+     r"lossless JPEG"),
     ("12-bit", lambda: _jpeg_with(_set(4, 12)), r"12-bit JPEG"),
-    ("cmyk", lambda: _pillow_saved("JPEG", "CMYK"), r"CMYK"),
-    ("440", lambda: _jpeg_with(_set(11, 0x12)), r"4:4:0"),
-    ("411", lambda: _jpeg_with(_set(11, 0x41)), r"4:1:1"),
+    ("cmyk", lambda: make_textures.jpeg_refused("cmyk_mcu"), r"CMYK"),
+    ("440", lambda: make_textures.jpeg_refused("440_mcu"), r"4:4:0"),
+    ("411", lambda: make_textures.jpeg_refused("411_mcu"), r"4:1:1"),
     ("tiff", lambda: make_textures.tiff_file(
         np.zeros((2, 2, 1), np.uint8), 8, 1, compression=4,
         raw_strips=[b"\x80"]), r"TIFF with CCITT Group 4 compression"),
@@ -508,7 +529,11 @@ def _pillow_saved(fmt, mode="RGB", **kw):
 def test_unsupported_formats_name_their_format(tmp_path, kind, make, words):
     """Formats the port does not read raise a ValueError that names them
     (ROADMAP queue 6 lists them in order), whatever the file's name, and
-    so do files that Pillow refuses too: a Group 4 TIFF of 8-bit samples
+    so do files that Pillow refuses too: JPEGs of each case the port read
+    none of before (arithmetic: a SOF9 scan past Pillow's first 64 KB
+    block; lossless: lossless YCbCr; 12-bit; cmyk, 440 and 411: MCUs of
+    more than 10 blocks at those samplings; tests/test_torch_jpeg_variants.py
+    holds Pillow to refusing each), a Group 4 TIFF of 8-bit samples
     (libtiff's CCITT decoders take 1-bit ones), a JPEG-in-TIFF whose
     stream's sampling is not its YCbCrSubsampling, a YCbCr TIFF
     subsampled 3x1, a TIFF whose LZMA strip is no .xz stream, CIE L*a*b*

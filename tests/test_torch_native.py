@@ -16,9 +16,14 @@ glass variants (cge_tpu_torch/tools/common.py):
     leaf spans;
   - a failed build raises with the compiler's output, never falls back;
   - the loader and both builders run clean under ASan and UBSan, and so
-    do the image decoders of cge_image.cpp on whole and damaged files:
-    JPEG from a C++ main, the PNG row filters, TGA run-length packets,
-    GIF LZW and PSD PackBits through the Python decoders that call them.
+    do the image decoders on whole and damaged files: cge_jpeg.cpp from a
+    C++ main (every JPEG fixture, and files of each of its paths written
+    here: each upsampler, YCCK, arithmetic coding, block smoothing,
+    lossless, the cases Pillow refuses), the PNG row filters, TGA
+    run-length packets, GIF LZW and PSD PackBits through the Python
+    decoders that call them;
+  - one object a source: a change to one source rebuilds its object only,
+    with the same flags.
 """
 
 import os
@@ -37,8 +42,9 @@ from cge_tpu.scene.scene import SphereDef, build_scene_arrays
 from cge_tpu_torch import native
 from cge_tpu_torch.interop import TENSOR_FIELDS, scene_from_numpy
 from cge_tpu_torch.ops import bvh
-from cge_tpu_torch.scene import mesh_io
+from cge_tpu_torch.scene import jpeg, mesh_io
 from cge_tpu_torch.tools.common import write_textured_obj, write_variant_obj
+from jax_references import make_textures
 from tools.make_large_asset import write_obj
 
 LIGHT = ((-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
@@ -183,6 +189,28 @@ def test_reference_bvh_matches_jax_native(scenes, which, sah):
     assert cuts.sah_cuts_per_level is not None
 
 
+def test_one_changed_source_rebuilds_one_object(tmp_path):
+    """native.build compiles each source into an object of its own, named
+    by the source, the compiler and the flags (-Werror among them): a
+    second build compiles nothing and loads the same library; one with a
+    source changed compiles that source only and links a new library."""
+    build_dir = str(tmp_path / "build")
+    first = native.build(build_dir=build_dir)
+    assert sorted(first.compiled) == sorted(native.SOURCES)
+    assert len(os.listdir(os.path.join(build_dir, "objects"))) == len(
+        native.SOURCES)
+    again = native.build(build_dir=build_dir)
+    assert again.compiled == () and again.path == first.path
+    changed = tmp_path / "cge_zstd.cpp"
+    changed.write_text(open(native.ZSTD_SOURCE).read() + "// changed\n")
+    sources = tuple(str(changed) if src == native.ZSTD_SOURCE else src
+                    for src in native.SOURCES)
+    third = native.build(build_dir=build_dir, sources=sources)
+    assert third.compiled == (str(changed),)
+    assert third.path != first.path
+    assert "-Werror" in native.CXXFLAGS
+
+
 @pytest.mark.parametrize("how", ["missing_compiler", "bad_flag"])
 def test_failed_build_raises(tmp_path, how):
     kw = (dict(cxx=str(tmp_path / "no" / "g++")) if how == "missing_compiler"
@@ -308,33 +336,42 @@ def test_host_library_under_asan_ubsan(objs, tmp_path):
 
 JPEG_MAIN = r"""
 #include <cstdio>
+#include <string>
 #include <vector>
 extern "C" {
-int cge_jpeg_info(const unsigned char*, long, int*, int*, char*, int);
+int cge_jpeg_info(const unsigned char*, long, int*, char*, int);
 int cge_jpeg_decode(const unsigned char*, long, unsigned char*, long, char*,
                     int);
 }
 // Each file whole, then cut at eight lengths and with bytes flipped: a
 // whole file must decode; a damaged one may decode or fail, never fault.
 static int run(const std::vector<unsigned char>& d, bool whole) {
-    int w = 0, h = 0;
+    int info[3] = {0, 0, 0};
     char err[256];
-    if (cge_jpeg_info(d.data(), (long)d.size(), &w, &h, err, 256))
+    if (cge_jpeg_info(d.data(), (long)d.size(), info, err, 256))
         return whole ? 1 : 0;
-    std::vector<unsigned char> rgb((size_t)w * h * 3);
+    std::vector<unsigned char> rgb((size_t)info[0] * info[1] * info[2]);
     int rc = cge_jpeg_decode(d.data(), (long)d.size(), rgb.data(),
                              (long)rgb.size(), err, 256);
     return whole && rc ? 1 : 0;
 }
 int main(int argc, char** argv) {
+    bool refused = false;  // files after --refused may fail whole too
     for (int i = 1; i < argc; ++i) {
+        if (std::string(argv[i]) == "--refused") {
+            refused = true;
+            continue;
+        }
         FILE* f = std::fopen(argv[i], "rb");
         if (!f) return 2;
         std::vector<unsigned char> d;
         int c;
         while ((c = std::fgetc(f)) != EOF) d.push_back((unsigned char)c);
         std::fclose(f);
-        if (run(d, true)) { std::fprintf(stderr, "%s\n", argv[i]); return 1; }
+        if (run(d, !refused)) {
+            std::fprintf(stderr, "%s\n", argv[i]);
+            return 1;
+        }
         for (int k = 1; k <= 8; ++k) {
             std::vector<unsigned char> cut(d.begin(),
                                            d.begin() + d.size() * k / 9);
@@ -351,8 +388,38 @@ int main(int argc, char** argv) {
 """
 
 
-def test_jpeg_decoder_under_asan_ubsan(tmp_path):
-    """cge_image.cpp with the library's flags plus
+def _sanitized_jpeg_main(tmp_path):
+    """cge_jpeg.cpp with the library's flags plus -fsanitize=address,
+    undefined at -O0, linked to JPEG_MAIN."""
+    main = tmp_path / "main.cpp"
+    main.write_text(JPEG_MAIN)
+    exe = tmp_path / "san"
+    flags = [f for f in native.CXXFLAGS if f not in ("-fPIC", "-O2")]
+    subprocess.run([native.CXX, "-O0", *flags, "-g",
+                    "-fno-omit-frame-pointer",
+                    "-fsanitize=address,undefined", native.JPEG_SOURCE,
+                    str(main), "-o", str(exe)], check=True, timeout=300,
+                   capture_output=True)
+    return exe
+
+
+def _run_sanitized(exe, files):
+    r = subprocess.run([str(exe), *files], capture_output=True, text=True,
+                       timeout=300,
+                       env=dict(os.environ, UBSAN_OPTIONS="halt_on_error=1",
+                                ASAN_OPTIONS="detect_leaks=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(
+        [f for f in files if f != "--refused"])
+
+
+@pytest.fixture(scope="module")
+def jpeg_san(tmp_path_factory):
+    return _sanitized_jpeg_main(tmp_path_factory.mktemp("jpeg_san"))
+
+
+def test_jpeg_decoder_under_asan_ubsan(jpeg_san):
+    """cge_jpeg.cpp with the library's flags plus
     -fsanitize=address,undefined at -O0, linked to a main program that
     decodes every small JPEG fixture (tests/torch_textures/) whole, cut
     short at eight lengths and with bytes flipped: whole files decode,
@@ -362,21 +429,63 @@ def test_jpeg_decoder_under_asan_ubsan(tmp_path):
     files = sorted(os.path.join(fixtures, f) for f in os.listdir(fixtures)
                    if f.endswith(".jpg") and "1024" not in f)
     assert len(files) >= 16
-    main = tmp_path / "main.cpp"
-    main.write_text(JPEG_MAIN)
-    exe = tmp_path / "san"
-    flags = [f for f in native.CXXFLAGS if f not in ("-fPIC", "-O2")]
-    subprocess.run([native.CXX, "-O0", *flags, "-g",
-                    "-fno-omit-frame-pointer",
-                    "-fsanitize=address,undefined", native.IMAGE_SOURCE,
-                    str(main), "-o", str(exe)], check=True, timeout=300,
-                   capture_output=True)
-    r = subprocess.run([str(exe), *files], capture_output=True, text=True,
-                       timeout=120,
-                       env=dict(os.environ, UBSAN_OPTIONS="halt_on_error=1",
-                                ASAN_OPTIONS="detect_leaks=1"))
-    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
-    assert r.stdout.count("SANITIZED_OK") == len(files)
+    _run_sanitized(jpeg_san, files)
+
+
+def _variant_jpegs(group):
+    """Files written here through libjpeg (make_textures.jpeg_encode) for
+    one group of the JPEG decoder's paths."""
+    rng = np.random.default_rng(len(group))
+    px = make_textures.smooth_image(rng, 37, 29, 20.0)
+    cmyk = make_textures.cmyk_of(px)
+    if group == "upsampling":
+        return [make_textures.jpeg_encode(img, sampling=s)
+                for s in make_textures.SAMPLINGS.values()
+                for img in (px, px[:2, :3], px[:1], px[:, :1])]
+    if group == "ycck":
+        return [make_textures.jpeg_encode(cmyk, colorspace="ycck", **kw)
+                for kw in (dict(), dict(adobe=False), dict(
+                    sampling=[(1, 2), (1, 1), (1, 1), (1, 2)]))]
+    if group == "arithmetic":
+        return [make_textures.jpeg_encode(px, arithmetic=True, **kw)
+                for kw in (dict(), dict(progressive=True, restart=2),
+                           dict(conditioning={0: (3, 9, 2)}),
+                           dict(sampling=[(2, 2), (1, 1), (1, 1)]))]
+    if group == "smoothing":
+        return [make_textures.jpeg_encode(px, scans=sc, arithmetic=a)
+                for sc in make_textures.SMOOTH_SCANS.values()
+                for a in (False, True)]
+    if group == "lossless":
+        sub = [px[..., 0], px[::2, ::2, 1], px[::2, ::2, 2]]
+        return [make_textures.jpeg_encode(img, lossless=(p, p % 3),
+                                          restart_rows=p % 2)
+                for p in range(1, 8) for img in (px[..., :1], px, cmyk)] + [
+            make_textures.lossless_jpeg(sub, [(2, 2), (1, 1), (1, 1)], p,
+                                        0, p % 2) for p in (1, 4, 7)]
+    return [make_textures.jpeg_refused(c) for c in make_textures.JPEG_REFUSED
+            if c != "arithmetic_64k"]
+
+
+@pytest.mark.parametrize("group", ["upsampling", "ycck", "arithmetic",
+                                   "smoothing", "lossless", "refused"])
+def test_jpeg_variants_under_asan_ubsan(tmp_path, jpeg_san, group):
+    """The JPEG decoder's new paths under ASan and UBSan, each file whole,
+    cut short at eight lengths and with bytes flipped (JPEG_MAIN): every
+    sampling's upsampler, YCCK, arithmetic coding with restarts and DAC,
+    block smoothing under both codings, lossless at each predictor, and
+    the files Pillow refuses (which may fail, never fault)."""
+    files = []
+    for i, data in enumerate(_variant_jpegs(group)):
+        path = tmp_path / f"{group}_{i}.jpg"
+        path.write_bytes(data)
+        files.append(str(path))
+    if group == "refused":
+        # whole files raise, as in Pillow: decoded as damaged ones
+        for f in files:
+            with pytest.raises(ValueError):
+                jpeg.decode_jpeg(open(f, "rb").read())
+        files.insert(0, "--refused")
+    _run_sanitized(jpeg_san, files)
 
 
 IMAGES_SCRIPT = r"""
