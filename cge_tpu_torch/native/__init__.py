@@ -10,7 +10,9 @@ byte by byte: PNG row filters (scene/image_io.py), TGA run-length packets
 scene/tiff.py), TIFF LZW and predictors (scene/tiff.py); `cge_webp.cpp`
 the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
 (BC1 to BC7) textures of DDS files (scene/dds.py); `cge_fax.cpp` TIFF's
-CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py).
+CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py);
+`cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files and
+the QOI op stream (scene/sgi.py, pcx.py, sun.py, qoi.py).
 Each source is compiled at first use by `g++` with the flags of the JAX
 package's Makefile (CXXFLAGS, warnings as errors) into an object of its
 own, all at once in parallel, in `build/cge_tpu_torch/objects/` at the
@@ -44,8 +46,9 @@ WEBP_SOURCE = os.path.join(_HERE, "cge_webp.cpp")
 BCN_SOURCE = os.path.join(_HERE, "cge_bcn.cpp")
 FAX_SOURCE = os.path.join(_HERE, "cge_fax.cpp")
 ZSTD_SOURCE = os.path.join(_HERE, "cge_zstd.cpp")
+RASTER_SOURCE = os.path.join(_HERE, "cge_raster.cpp")
 SOURCES = (SOURCE, IMAGE_SOURCE, JPEG_SOURCE, WEBP_SOURCE, BCN_SOURCE,
-           FAX_SOURCE, ZSTD_SOURCE)
+           FAX_SOURCE, ZSTD_SOURCE, RASTER_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
@@ -93,6 +96,13 @@ _SIGNATURES = {
                             _P, ctypes.c_char_p, _I]),
     "cge_zstd_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _P,
                              ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    "cge_sgi_rle": (_I, [ctypes.c_char_p, ctypes.c_long, _I, _I, _I, _I, _P,
+                         ctypes.c_char_p, _I]),
+    **{name: (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                   ctypes.c_long, _I, _P, ctypes.c_char_p, _I])
+       for name in ("cge_pcx_rle", "cge_sun_rle")},
+    "cge_qoi": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                     ctypes.c_long, _P, ctypes.c_char_p, _I]),
 }
 
 
@@ -295,11 +305,38 @@ def build_bvh(lo: np.ndarray, hi: np.ndarray, centers: np.ndarray,
 MAX_PIXELS = 2 * 89478485
 
 
+class NotOpened(ValueError):
+    """A file that its format's test of the first bytes accepts but whose
+    header Pillow's plugin cannot open (its _open raises SyntaxError,
+    IndexError, TypeError, KeyError, EOFError or struct.error, or gives an
+    empty image): Image.open then tries the formats after it in its order,
+    and so does image_io.decode_image."""
+
+
 def check_pixels(fmt: str, width: int, height: int) -> None:
     """ValueError for an image of more than MAX_PIXELS pixels."""
     if width * height > MAX_PIXELS:
         raise ValueError(f"{fmt} of {width}x{height} pixels: past Pillow's "
                          f"limit of {MAX_PIXELS} pixels")
+
+
+def raw_rows(data: bytes, offset: int, rows: int, stride: int, used: int,
+             fmt: str) -> np.ndarray:
+    """The rows [rows, stride] uint8 of an uncompressed image at
+    data[offset:], as Pillow's raw decoder reads them: each row's first
+    `used` bytes, the padding after them skipped, so the last row's padding
+    may be missing from the file (zeros here); ValueError naming fmt where
+    the data end before the last row's used bytes."""
+    need = (rows - 1) * stride + used if rows else 0
+    if offset + need > len(data):
+        have = max(0, len(data) - offset)
+        raise ValueError(f"{fmt}: the image data is truncated ({have} of "
+                         f"{need} bytes)")
+    buf = np.zeros(rows * stride, np.uint8)
+    got = np.frombuffer(data, np.uint8, min(rows * stride, len(data) - offset),
+                        offset)
+    buf[:len(got)] = got
+    return buf.reshape(rows, stride)
 
 
 def decode_call(fn, *args) -> None:
@@ -474,4 +511,49 @@ def zstd(data: bytes, size: int, stats: np.ndarray | None = None
     finally:
         if stats is not None:
             stats[:] = st
+    return out
+
+
+def sgi_rle(data: bytes, width: int, height: int, bands: int,
+            bpc: int) -> np.ndarray:
+    """An SGI file's run-length rows (the whole file, its tables after the
+    512-byte header) -> [height, width, bands * bpc] uint8 in the tables'
+    row order (the image's last row first), each channel's bpc-byte atoms
+    interleaved, as Pillow's SgiRleDecode gives them; zeros after a last
+    packet that ends the image early; an error on an overrun."""
+    out = np.zeros((height, width, bands * bpc), np.uint8)
+    decode_call(library().cge_sgi_rle, data, len(data), width, height,
+                bands, bpc, out.ctypes.data)
+    return out
+
+
+def pcx_rle(data: bytes, offset: int, row_bytes: int,
+            rows: int) -> np.ndarray:
+    """PCX run-length data from data[offset:] -> rows [rows, row_bytes]
+    uint8, as Pillow's PcxDecode reads them: an error where a run crosses
+    a row's end or the data ends first."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    decode_call(library().cge_pcx_rle, data, len(data), offset, row_bytes,
+                rows, out.ctypes.data)
+    return out
+
+
+def sun_rle(data: bytes, offset: int, row_bytes: int,
+            rows: int) -> np.ndarray:
+    """Sun raster run-length data from data[offset:] -> rows [rows,
+    row_bytes] uint8, as Pillow's SunRleDecode reads them (runs flow on
+    across rows); an error where the data ends first."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    decode_call(library().cge_sun_rle, data, len(data), offset, row_bytes,
+                rows, out.ctypes.data)
+    return out
+
+
+def qoi(data: bytes, offset: int, pixels: int) -> np.ndarray:
+    """A QOI op stream from data[offset:] -> [pixels, 4] uint8 RGBA, as
+    Pillow's QoiDecoder gives them; an error where the stream ends before
+    the last pixel."""
+    out = np.empty((pixels, 4), np.uint8)
+    decode_call(library().cge_qoi, data, len(data), offset, pixels,
+                out.ctypes.data)
     return out

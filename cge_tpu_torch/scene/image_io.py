@@ -1,12 +1,17 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
-PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP and DDS.
+PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, and the formats of
+model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR, BLP, FTEX
+and Sun raster.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
 float32, row 0 the top of the image (the reference's stb_image,
 framework/src/image.cpp:22-34, which opens the first seven formats and
-HDR and PIC besides). The format comes from the file's signature, never
-its name, in Pillow's order (`format_of`):
+HDR and PIC besides). The format comes from the file's first bytes, never
+its name, tried in the order of Pillow's plugins (`format_of`); where a
+format's test takes a file whose header its plugin cannot open
+(native.NotOpened), the next format is tried, as Image.open does
+(`decode_image`):
 
   PNG   every bit depth of every colour type (1, 2, 4 and 8-bit grey and
         palette, 16-bit grey, grey + alpha, RGB and RGBA), plain or Adam7
@@ -15,11 +20,14 @@ its name, in Pillow's order (`format_of`):
         conversions: 1-, 2- and 4-bit grey scaled by 255, 85 and 17;
         16-bit grey saturated at 255; the other 16-bit samples keep their
         high byte; alpha and tRNS dropped; a palette index past the PLTE
-        chunk's end is black.
+        chunk's end is black. Pillow's checks of the chunks before the
+        first IDAT (their CRCs and type names) are followed; a zlib
+        stream cut after the last scanline decodes.
   BMP   1-, 4- and 8-bit palette (also RLE8 and RLE4), 16-bit 5-5-5 and
         bitfields, 24-bit, 32-bit plain and bitfields; header sizes 12
         (OS/2 core), 40, 52, 56, 64, 108 and 124; bottom-up or top-down
-        rows (`decode_bmp`).
+        rows (`decode_bmp`); a bare device-independent bitmap (DIB) too
+        (`decode_dib`, which ICO and CUR entries share).
   JPEG  every kind Pillow opens, as libjpeg-turbo decodes it: Huffman or
         arithmetic, sequential, progressive (smoothed where scans leave
         coefficients unrefined) or lossless, 8-bit, grey, YCbCr, RGB,
@@ -44,11 +52,24 @@ its name, in Pillow's order (`format_of`):
         decoder give them (scene/dds.py).
   TGA   colour-mapped, true-colour and grey, raw or run-length, in each
         orientation (scene/tga.py); TGA has no signature, so it is tried
-        last, by Pillow's test of its header.
+        by Pillow's test of its header, in its place in Pillow's order.
+  SGI   raw or run-length, grey, RGB and RGBA at 8 or 16 bits
+        (scene/sgi.py).
+  PCX   1 bit in 1, 2 or 4 planes, 8-bit grey or palette, RGB in 3
+        planes; DCX's first page (scene/pcx.py).
+  QOI   RGB and RGBA (scene/qoi.py).
+  ICO   the entry Pillow picks, a PNG or a bitmap; CUR's (scene/ico.py).
+  BLP   BLP1 JPEG and palettes, BLP2 palettes and DXT1 / DXT3 / DXT5
+        through the plugin's own decoders (scene/blp.py).
+  FTEX  DXT1 and raw RGB (scene/ftex.py).
+  Sun   raster at 1, 4, 8, 24 and 32 bits, with colour maps, raw or
+        run-length (scene/sun.py).
+The byte-serial parts of SGI, PCX, QOI and Sun raster run in the native
+library's cge_raster.cpp.
 
-Any other format (QOI, ICO, Radiance HDR, OpenEXR, PAM, PFM, ...) raises a
-ValueError that names it,
-as does a truncated or corrupt file. `png_bytes` and `write_png` write
+Any other format (GBR, ICNS, JPEG 2000, Radiance HDR, OpenEXR, PAM, PFM,
+...) raises a ValueError that names it, as does a truncated or corrupt
+file. `png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
 24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
 BMP that `decode_bmp` reads.
@@ -63,7 +84,8 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import dds, gif, jpeg, pnm, psd, tga, tiff, webp
+from cge_tpu_torch.scene import (blp, dds, ftex, gif, ico, jpeg, pcx, pnm,
+                                 psd, qoi, sgi, sun, tga, tiff, webp)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -134,11 +156,84 @@ def _pass_samples(raw: bytes, width: int, height: int, depth: int,
     return out
 
 
+def _open_chunks(data: bytes) -> None:
+    """Pillow's PngImageFile._open over the chunks before the first IDAT:
+    native.NotOpened where a chunk header is cut short, a chunk type is no
+    four letters, digits or underscores, a CRC is cut short or wrong, or
+    the IHDR names a filter method other than 0; ValueError where a chunk's
+    data is cut short."""
+    pos = len(SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise native.NotOpened("PNG chunk header cut short")
+        n, kind = struct.unpack_from(">I4s", data, pos)
+        if not all(c in _CHUNK_TYPE for c in kind):
+            raise native.NotOpened(f"broken PNG file (chunk {kind!r})")
+        if kind in (b"IDAT", b"IEND"):
+            return
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ValueError(f"PNG {kind.decode()} chunk is truncated")
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(
+                kind + body):
+            raise native.NotOpened(f"broken PNG file (bad or incomplete "
+                                   f"checksum in {kind!r})")
+        if kind == b"IHDR" and n >= 13:
+            _png_format(struct.unpack(">IIBBBBB", body[:13]))
+            if body[11]:
+                raise native.NotOpened("PNG of an unknown filter category")
+        pos += 12 + n
+
+
+def _png_format(header: tuple) -> str:
+    """The IHDR's format, as "8-bit RGB PNG"; native.NotOpened for a colour
+    type, bit depth or interlace method the PNG spec has not."""
+    _, _, depth, ctype, _, _, interlace = header
+    if ctype not in CHANNELS:
+        raise native.NotOpened(f"PNG colour type {ctype} is not a PNG "
+                               f"colour type")
+    fmt = f"{depth}-bit {_NAMES[ctype]} PNG"
+    if depth not in _DEPTHS[ctype]:
+        raise native.NotOpened(f"{fmt}: the PNG spec allows {_NAMES[ctype]} "
+                               f"at {_DEPTHS[ctype]} bits only")
+    if interlace not in (0, 1):
+        raise native.NotOpened(f"{fmt} with interlace method {interlace}: "
+                               f"only none and Adam7 exist")
+    return fmt
+
+
+# the bytes of a chunk type Pillow's is_cid takes (regular expression \w)
+_CHUNK_TYPE = frozenset(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+                        b"0123456789_")
+
+
+def _inflate(idat: list, need: int, fmt: str) -> bytes:
+    """The IDAT stream inflated as far as the image needs, as Pillow's
+    decoder reads it: a stream cut, or broken, after the last scanline's
+    bytes still gives the image; ValueError where it gives fewer."""
+    d = zlib.decompressobj()
+    out, got = [], 0
+    try:
+        for chunk in idat:
+            for i in range(0, len(chunk), 1 << 16):
+                out.append(d.decompress(chunk[i:i + (1 << 16)]))
+                got += len(out[-1])
+                if got >= need:
+                    return b"".join(out)
+    except zlib.error as e:
+        raise ValueError(f"{fmt}: the image data does not inflate ({e})") \
+            from None
+    raise ValueError(f"{fmt}: the image data is truncated ({got} of the "
+                     f"{need} bytes of its scanlines)")
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
     `convert("RGB")` gives them."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
+    _open_chunks(data)
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR" and len(body) >= 13:
@@ -151,21 +246,14 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without an IHDR chunk")
     width, height, depth, ctype, _, _, interlace = header
-    if ctype not in CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not a PNG colour type")
-    fmt = f"{depth}-bit {_NAMES[ctype]} PNG"
-    if depth not in _DEPTHS[ctype]:
-        raise ValueError(f"{fmt}: the PNG spec allows {_NAMES[ctype]} at "
-                         f"{_DEPTHS[ctype]} bits only")
-    if interlace not in (0, 1):
-        raise ValueError(f"{fmt} with interlace method {interlace}: only "
-                         f"none and Adam7 exist")
+    fmt = _png_format(header)
     native.check_pixels(fmt, width, height)
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as e:
-        raise ValueError(f"{fmt}: the image data does not inflate ({e})") \
-            from None
+    ch = CHANNELS[ctype]
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    need = sum(ph * (1 + (pw * ch * depth + 7) // 8) for pw, ph in (
+        (-(-(width - x0) // dx), -(-(height - y0) // dy))
+        for x0, y0, dx, dy in passes) if pw > 0 and ph > 0)
+    raw = _inflate(idat, need, fmt)
     px = _pass_samples(raw, width, height, depth, CHANNELS[ctype], interlace)
     if ctype == 3:
         if palette is None:
@@ -185,62 +273,141 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
+def _u32(data: bytes, order: str = "<") -> int:
+    return struct.unpack_from(order + "I", data)[0] if len(data) >= 4 else -1
+
+
+def _gbr_opens(data: bytes) -> bool:
+    """GbrImagePlugin's test and header: a header size of at least 20,
+    version 1 or 2, width and height above 0, depth 1 or 4, and version
+    2's "GIMP" magic."""
+    if len(data) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack_from(">5I", data)
+    return (size >= 20 and version in (1, 2) and w > 0 and h > 0
+            and depth in (1, 4)
+            and (version == 1 or (data[20:24] == b"GIMP"
+                                  and len(data) >= 28)))
+
+
+def _is_pnm(data: bytes) -> bool:
+    return data[:1] == b"P" and len(data) > 1 and data[1] in b"123456"
+
+
+_DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
+# Pillow 12's image plugins in the order Image.open tries them (its six
+# preinit plugins, then Image.ID's registration order), each with its test
+# of the first bytes; the formats this loader reads have a decoder, the
+# others (None) refuse the file. IM, IMT, IPTC, PCD and SPIDER, which test
+# whole headers no image of the other formats has, are left out. BMP's and
+# DIB's decoders are defined below, so they are called through lambdas.
+_PILLOW_ORDER = (
+    ("BMP", lambda d: d[:2] == b"BM", lambda d: decode_bmp(d)),
+    ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif.decode_gif),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.decode_jpeg),
+    ("PNM", _is_pnm, pnm.decode_pnm),
+    ("PNG", lambda d: d[:8] == SIGNATURE, decode_png),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
+        b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", blp.accept, blp.decode_blp),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
+    ("CUR", ico.accept_cur, ico.decode_cur),
+    ("PCX", pcx.accept, pcx.decode_pcx),
+    ("DCX", pcx.accept_dcx, pcx.decode_dcx),
+    ("DDS", lambda d: d[:4] == dds.MAGIC, dds.decode_dds),
+    ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, None),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FLI", lambda d: len(d) >= 16 and struct.unpack_from("<H", d, 4)[0] in (
+        0xAF11, 0xAF12) and struct.unpack_from("<H", d, 14)[0] in (0, 3),
+     None),
+    ("FTEX", ftex.accept, ftex.decode_ftex),
+    ("GBR", _gbr_opens, None),
+    ("GRIB", lambda d: d[:4] == b"GRIB" and len(d) >= 8 and d[7] == 1, None),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", None),
+    ("JPEG 2000", lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == (
+        b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
+    ("ICNS", lambda d: d[:4] == b"icns", None),
+    ("ICO", ico.accept_ico, ico.decode_ico),
+    ("McIdas", lambda d: d[:8] == b"\x00" * 7 + b"\x04", None),
+    ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
+    ("TIFF", lambda d: d[:4] in tiff.PREFIXES, tiff.decode_tiff),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00", None),
+    ("PSD", lambda d: d[:4] == b"8BPS", psd.decode_psd),
+    ("QOI", qoi.accept, qoi.decode_qoi),
+    ("SGI", sgi.accept, sgi.decode_sgi),
+    ("Sun raster", sun.accept, sun.decode_sun),
+    ("TGA", tga.header_ok, tga.decode_tga),
+    ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
+     webp.decode_webp),
+    ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00"
+     or d[:4] == b"\x01\x00\x00\x00", None),
+    ("XBM", lambda d: d.lstrip()[:7] == b"#define", None),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", None),
+    ("XV thumbnail", lambda d: d[:6] == b"P7 332", None))
+# formats Pillow has no plugin for, named in the refusal
+_OTHERS = ((b"#?RADIANCE", "Radiance HDR"), (b"\x76\x2f\x31\x01", "OpenEXR"),
+           (b"P7", "PAM"), (b"Pf", "PFM"), (b"PF", "PFM"))
+READ = tuple(n for n, _, dec in _PILLOW_ORDER if dec is not None)
+
+
 def format_of(data: bytes) -> str:
-    """The image format that the file's first bytes name, tried in
-    Pillow's order: "PNG", "BMP", "JPEG", "GIF", "PNM", "PSD", "TIFF"
-    (Pillow's six prefixes, BigTIFF's among them), "DDS", "WebP" or "TGA"
-    for the formats that decode here, else the name of another known
-    format, or "unknown". TGA, which has no signature, comes last, by
-    Pillow's test of its header."""
-    head = data[:16]
-    for sig, name in ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                      (b"\xff\xd8\xff", "JPEG"), (SIGNATURE, "PNG"),
-                      (b"8BPS", "PSD"),
-                      *((p, "TIFF") for p in tiff.PREFIXES),
-                      (b"DDS ", "DDS"), (b"qoif", "QOI"),
-                      (b"\x00\x00\x01\x00", "ICO"),
-                      (b"#?RADIANCE", "Radiance HDR"),
-                      (b"\x76\x2f\x31\x01", "OpenEXR")):
-        if head.startswith(sig):
+    """The image format that the file's first bytes name: the first of
+    Pillow's plugins, in the order Image.open tries them, whose test of the
+    first bytes takes the file ("PNG", "BMP", "DIB", "JPEG", "GIF", "PNM",
+    "PSD", "TIFF", "DDS", "WebP", "TGA", "SGI", "PCX", "DCX", "QOI", "ICO",
+    "CUR", "BLP", "FTEX" or "Sun raster" for the formats that decode here),
+    else the name of another known format, or "unknown". TGA, which has
+    no signature, comes by Pillow's test of its header. decode_image goes
+    on to the next format where this one's header cannot be opened, as
+    Image.open does."""
+    for name, accept, _ in _PILLOW_ORDER:
+        if accept(data):
             return name
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "WebP"
-    if head[:1] == b"P" and head[1:2] and head[1:2] in b"123456":
-        return "PNM"
-    if head[:2] in (b"P7", b"Pf", b"PF"):
-        return {b"P7": "PAM"}.get(head[:2], "PFM")
-    if tga.header_ok(data):
-        return "TGA"
+    for sig, name in _OTHERS:
+        if data.startswith(sig):
+            return name
     return "unknown"
+
+
+def _refusal(fmt: str, data: bytes) -> str:
+    what = ("an image of unknown format (its first bytes are "
+            f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
+    names = ("PNG",) + tuple(n for n in READ if n != "PNG")
+    return (f"{what}, not a {', '.join(names[:-1])} or {names[-1]} file: "
+            f"{fmt} images are not supported")
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """Image file bytes -> [H, W, 3] uint8 RGB, row 0 = top, the decoder
-    chosen by the signature. ValueError naming the format for any other,
-    and for a file its decoder cannot read."""
-    decoders = {"PNG": decode_png, "BMP": decode_bmp,
-                "JPEG": jpeg.decode_jpeg, "GIF": gif.decode_gif,
-                "PNM": pnm.decode_pnm, "PSD": psd.decode_psd,
-                "TGA": tga.decode_tga, "TIFF": tiff.decode_tiff,
-                "WebP": webp.decode_webp, "DDS": dds.decode_dds}
-    fmt = format_of(data)
-    if fmt not in decoders:
-        what = ("an image of unknown format (its first bytes are "
-                f"{data[:8]!r})" if fmt == "unknown" else f"a {fmt} file")
-        raise ValueError(f"{what}, not a PNG, BMP, JPEG, GIF, PNM, PSD, "
-                         f"TGA, TIFF, WebP or DDS file: {fmt} images are not "
-                         f"supported")
-    try:
-        return decoders[fmt](data)
-    except ValueError as e:
-        if fmt in str(e):                 # the message names the format
-            raise
-        raise ValueError(f"{fmt}: {e}") from None
+    chosen by the signature, in Pillow's order: where a format's test takes
+    the file but its header cannot be opened (native.NotOpened), the next
+    format whose test takes it is tried, as Image.open does. ValueError
+    naming the format for any other format, and for a file its decoder
+    cannot read."""
+    failed = []
+    for name, accept, decoder in _PILLOW_ORDER:
+        if not accept(data):
+            continue
+        if decoder is None:
+            raise ValueError(_refusal(name, data))
+        try:
+            return decoder(data)
+        except native.NotOpened as e:
+            failed.append(f"{name}: {e}")
+        except ValueError as e:
+            if name in str(e):                # the message names the format
+                raise
+            raise ValueError(f"{name}: {e}") from None
+    if failed:
+        raise ValueError(f"{'; '.join(failed)}: not opened, and no other "
+                         f"format opens the file")
+    raise ValueError(_refusal(format_of(data), data))
 
 
 def load_image(path: str) -> Image:
-    """stb_image-style load of a PNG, BMP, JPEG, GIF, PNM, PSD, TGA, TIFF,
-    WebP or DDS file:
+    """stb_image-style load of a file of any format decode_image reads:
     forced RGB, u8 -> f32 / 255. ValueError naming the file and its format
     for any other, and for a file that does not decode."""
     with open(path, "rb") as f:
@@ -359,7 +526,8 @@ def _rle_indices(data: bytes, pos: int, width: int, height: int,
     line pads the row with index 0, end of bitmap stops, a delta skips
     right + up x width pixels (set to 0) but reads its two offsets after
     two other bytes, and an absolute run of n RLE4 pixels reads n // 2
-    bytes, realigned to an even offset in the file."""
+    bytes, realigned to an even offset in the file; a stream that ends, or
+    stops, before the last pixel is an error."""
     out = bytearray()
     total, x, n = width * height, 0, len(data)
     while len(out) < total and pos + 2 <= n:
@@ -398,10 +566,11 @@ def _rle_indices(data: bytes, pos: int, width: int, height: int,
                 break
             x += byte
             pos += pos % 2
-    idx = np.zeros(total, np.uint8)
-    got = np.frombuffer(bytes(out[:total]), np.uint8)
-    idx[:len(got)] = got
-    return idx
+    if len(out) < total:
+        # Pillow's set_as_raw: "not enough image data"
+        raise ValueError(f"BMP run-length data end after {len(out)} of "
+                         f"the {total} pixels")
+    return np.frombuffer(bytes(out[:total]), np.uint8)
 
 
 def _channel(px: np.ndarray, mask: int) -> np.ndarray:
@@ -421,9 +590,39 @@ def decode_bmp(data: bytes) -> np.ndarray:
     BMP it cannot read (JPEG or PNG inside a BMP, other depths)."""
     if len(data) < 26 or data[:2] != b"BM":
         raise ValueError("not a BMP file")
-    offset, hsize = struct.unpack_from("<II", data, 10)
-    info = data[18:14 + hsize]
-    masks = None
+    return decode_dib(data, 14, struct.unpack_from("<I", data, 10)[0])
+
+
+# Pillow's BmpImagePlugin: the bitfield masks it reads, by depth (32-bit:
+# red, green, blue, alpha)
+_BITFIELDS = {
+    32: ((0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+         (0xFF000000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+         (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+         (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)),
+    24: ((0xFF0000, 0xFF00, 0xFF),),
+    16: ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))}
+
+
+def decode_dib(data: bytes, pos: int, offset: int = 0,
+               halve: str = "") -> np.ndarray:
+    """The device-independent bitmap whose header starts at data[pos] ->
+    [H, W, 3] uint8 RGB, row 0 = top, as Pillow's BmpImageFile._bitmap
+    reads it: the pixels at `offset` (a BMP file's), or where none is given
+    (0: a bare DIB, an icon's or a cursor's entry) right after the header,
+    its bitfield masks and its palette. halve ("ICO" or "CUR"): an entry of
+    an icon or a cursor, whose height counts the AND mask's rows too, so is
+    halved (after Pillow's test of an empty image for an icon, before it for
+    a cursor). native.NotOpened where Pillow's plugin cannot open it: a
+    header cut before its size, an empty image."""
+    if pos + 4 > len(data):
+        raise native.NotOpened("the bitmap header is cut before its size")
+    hsize = struct.unpack_from("<I", data, pos)[0]
+    if pos + hsize > len(data):
+        raise ValueError(f"the {hsize}-byte bitmap header is truncated")
+    info = data[pos + 4:pos + hsize]
+    masks, extra = None, 0
     if hsize == 12:                                   # OS/2 core header
         w, h, _, bits = struct.unpack_from("<HHHH", info)
         comp, colors, entry, top_down = 0, 0, 3, False
@@ -435,8 +634,14 @@ def decode_bmp(data: bytes) -> np.ndarray:
         if comp == 3:                                 # BI_BITFIELDS
             if hsize >= 52:
                 masks = struct.unpack_from("<III", info, 36)
+                alpha = (struct.unpack_from("<I", info, 48)[0]
+                         if hsize >= 56 else 0)
             else:
-                masks = struct.unpack_from("<III", data, 14 + hsize)
+                if pos + hsize + 12 > len(data):
+                    raise ValueError("the bitmap's bitfield masks are "
+                                     "truncated")
+                masks = struct.unpack_from("<III", data, pos + hsize)
+                alpha, extra = 0, 12
     else:
         raise ValueError(f"BMP with a {hsize}-byte header: only 12, 40, "
                          f"52, 56, 64, 108 and 124 exist")
@@ -450,16 +655,31 @@ def decode_bmp(data: bytes) -> np.ndarray:
         raise ValueError(f"{fmt} ({names.get(comp, 'unknown')}): only "
                          f"uncompressed, 8-bit RLE8, 4-bit RLE4 and 16- to "
                          f"32-bit bitfield BMPs are supported")
+    if comp == 3 and (masks + (alpha,) if bits == 32 else masks) not in \
+            _BITFIELDS[bits]:
+        raise ValueError(f"{fmt}: bitfield masks {masks} are not a layout "
+                         f"Pillow reads")
+    if halve == "CUR":
+        h //= 2
+    if w <= 0 or h <= 0:
+        raise native.NotOpened(f"{fmt} of {w}x{h} pixels")
+    if halve == "ICO":
+        h //= 2
+        if not h:
+            raise ValueError(f"{fmt}: an icon entry of one row, which holds "
+                             f"no image rows")
     colors = colors or 1 << bits
-    if offset == 14 + hsize and bits <= 8:            # as Pillow reads it
+    pal_at = pos + hsize
+    if not offset:
+        offset = pal_at + extra + (entry * colors if bits <= 8 else 0)
+    elif offset == 14 + hsize and bits <= 8:          # as Pillow reads it
         offset += 4 * colors
     if comp in (1, 2):
         idx = _rle_indices(data, offset, w, h, comp == 2)
         px = idx.reshape(h, w)
     else:
-        stride = ((w * bits + 31) >> 3) & ~3
-        rows = np.frombuffer(data, np.uint8, stride * h, offset)
-        rows = rows.reshape(h, stride)
+        rows = native.raw_rows(data, offset, h, ((w * bits + 31) >> 3) & ~3,
+                               (w * bits + 7) // 8, fmt)
         if bits < 8:
             px = np.unpackbits(rows, axis=1).reshape(h, -1, bits)
             px = (px * (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
@@ -472,7 +692,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
                   << (8 * np.arange(bits // 8, dtype=np.uint32))).sum(
                 -1, dtype=np.uint32)
     if bits <= 8:
-        pal = np.frombuffer(data, np.uint8, entry * colors, 14 + hsize)
+        pal = np.frombuffer(data, np.uint8, entry * colors, pal_at)
         pal = pal.reshape(colors, entry)[:, 2::-1]
         ramp = (0, 255) if colors == 2 else np.arange(colors)
         if (pal == np.asarray(ramp)[:, None]).all() and colors <= 256:

@@ -3160,6 +3160,7 @@ def texture_writers(texels):
     out["texels.gif"] = (gif, palette[idx.reshape(h, w)])
     out.update(tiff_writers(texels))
     out.update(dds_writers(texels))
+    out.update(asset_writers(texels))
     for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG, TEX_JPEG_CROP):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
@@ -3355,6 +3356,91 @@ def dds_writers(texels) -> dict:
     return out
 
 
+def asset_writers(texels) -> dict:
+    """The texels [H, W, 3] u8 (W a multiple of 2) as the formats of model
+    and game asset sets: SGI run-length (copy packets of up to 127 bytes),
+    PCX of three 8-bit planes (bytes of 0xC0 and above as runs of one), QOI
+    (an RGB op a pixel), Sun raster run-length (each 0x80 escaped), BLP2
+    of a 3-3-2 palette, FTEX raw RGB and a 256x256 24-bit ICO entry with its
+    AND mask; {name: (file bytes, the texels the file holds)}."""
+    import struct
+
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    # SGI: rows bottom-up, each channel's row as copy packets, then 0
+    planes = np.ascontiguousarray(texels[::-1].transpose(2, 0, 1)).reshape(
+        3 * h, w)
+    full, rem = divmod(w, 127)
+    parts = [np.concatenate([np.full((3 * h, full, 1), 0xFF, np.uint8),
+                             planes[:, :full * 127].reshape(3 * h, full,
+                                                            127)],
+                            axis=2).reshape(3 * h, -1)]
+    if rem:
+        parts += [np.full((3 * h, 1), 0x80 | rem, np.uint8),
+                  planes[:, full * 127:]]
+    rows = np.concatenate(parts + [np.zeros((3 * h, 1), np.uint8)], axis=1)
+    n = rows.shape[1]
+    starts = 512 + 24 * h + n * np.arange(3 * h, dtype=np.int64)
+    sgi = (struct.pack(">HBBHHHH", 474, 1, 1, 3, w, h, 3).ljust(512, b"\0")
+           + starts.astype(">u4").tobytes()
+           + np.full(3 * h, n, ">u4").tobytes() + rows.tobytes())
+    out = {"texels.sgi": (sgi, texels)}
+
+    def escaped(flat, mark, lead):
+        """flat with each byte that `mark` selects preceded by lead."""
+        at = np.arange(len(flat)) + np.cumsum(mark)
+        body = np.empty(len(flat) + int(mark.sum()), np.uint8)
+        body[at] = flat
+        body[at[mark] - 1] = lead
+        return body.tobytes()
+
+    pcx_rows = np.ascontiguousarray(texels.transpose(0, 2, 1)).reshape(-1)
+    pcx = (struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, w - 1, h - 1, 72,
+                       72) + bytes(49) + bytes((3,))
+           + struct.pack("<HH", w, 1) + bytes(58)
+           + escaped(pcx_rows, pcx_rows >= 0xC0, 0xC1))
+    out["texels.pcx"] = (pcx, texels)
+    ops = np.concatenate([np.full((h * w, 1), 0xFE, np.uint8),
+                          texels.reshape(-1, 3)], axis=1)
+    qoi = (b"qoif" + struct.pack(">IIBB", w, h, 3, 0) + ops.tobytes()
+           + bytes(7) + b"\x01")
+    out["texels.qoi"] = (qoi, texels)
+    bgr = np.ascontiguousarray(texels[..., ::-1]).reshape(-1)
+    mark = bgr == 0x80                     # each 0x80 as 0x80 0x00
+    body = escaped(np.where(mark, 0, bgr).astype(np.uint8), mark, 0x80)
+    sun = struct.pack(">8I", 0x59A66A95, w, h, 24, len(body), 2, 0,
+                      0) + body
+    out["texels.ras"] = (sun, texels)
+    idx = ((texels[..., 0] >> 5) << 5 | (texels[..., 1] >> 5) << 2
+           | texels[..., 2] >> 6).astype(np.uint8)
+    i = np.arange(256)
+    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
+                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    bgra = np.concatenate([palette[:, ::-1], np.zeros((256, 1), np.uint8)],
+                          axis=1)
+    blp = (b"BLP2" + struct.pack("<ibbbbII", 1, 1, 0, 0, 0, w, h)
+           + struct.pack("<16I", 20 + 128 + 1024, *[0] * 15)
+           + struct.pack("<16I", h * w, *[0] * 15) + bgra.tobytes()
+           + idx.tobytes())
+    out["texels.blp"] = (blp, palette[idx])
+    ftex = (b"FTEX" + struct.pack("<5i", 1, w, h, 1, 1)
+            + struct.pack("<2ii", 1, 32, h * w * 3) + texels.tobytes())
+    out["texels.ftu"] = (ftex, texels)
+    side = min(256, h, w)
+    crop = texels[:side, :side]
+    stride = side * 3
+    dib = (struct.pack("<IiiHHIIiiII", 40, side, 2 * side, 1, 24, 0,
+                       stride * side, 0, 0, 0, 0)
+           + np.ascontiguousarray(crop[::-1, :, ::-1]).tobytes()
+           + bytes(side // 8 * side))
+    ico = struct.pack("<HHH", 0, 1, 1) + struct.pack(
+        "<BBBBHHII", side % 256, side % 256, 0, 0, 1, 24, len(dib),
+        22) + dib
+    out[f"texels_{side}.ico"] = (ico, crop)
+    return out
+
+
 def textured_dragon(tmp, texture, grid, device):
     """The dragon stand-in at `grid` with its body's map_Kd the file
     `texture` (copied beside the OBJ), loaded on `device`; the load's
@@ -3400,8 +3486,9 @@ def eleventh_path(device) -> dict:
     """Phase 18: the texture fixtures (texture_fixtures), then the dragon
     textured by the 1024x1024 JPEG at 512x512 with the accel against the
     same dragon textured by the PNG the port writes from the decoded
-    texels, then by those texels as TGA, PNM, PSD, GIF, TIFF, WebP and
-    DDS files (new_format_frames)."""
+    texels, then by those texels as TGA, PNM, PSD, GIF, TIFF, WebP, DDS,
+    SGI, PCX, QOI, Sun raster, BLP, FTEX and ICO files
+    (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3415,8 +3502,9 @@ def eleventh_path(device) -> dict:
         f"textured by a 1024x1024 progressive JPEG and by its texels as TGA, "
         f"PNM, PSD, GIF, TIFF (raw, PackBits, Deflate + predictor 2, LZW, "
         f"LZMA + predictor 2, tiled YCbCr JPEG), WebP (lossy, and a lossless "
-        f"crop), DDS (A8R8G8B8, DXT1, BC7) and a crop as an arithmetic, "
-        f"progressive, smoothed YCCK 4:4:0 JPEG | "
+        f"crop), DDS (A8R8G8B8, DXT1, BC7), a crop as an arithmetic, "
+        f"progressive, smoothed YCCK 4:4:0 JPEG, SGI run-length, PCX, QOI, "
+        f"Sun raster run-length, BLP2 palette, FTEX and a 256x256 ICO | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3501,7 +3589,8 @@ def eleventh_path(device) -> dict:
 def new_format_frames(tmp, texels, png_frame, grid, feats, params,
                       device, first_launches) -> dict:
     """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
-    TIFF, WebP and DDS files (texture_writers), each frame against the
+    TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX and ICO files
+    (texture_writers), each frame against the
     PNG-textured frame of the same texels, each first frame's K1 and K2
     launches against (b)'s (first_launches); {file: (decode ms, load s,
     frame ms)}."""
@@ -3536,7 +3625,7 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
         with open(path, "wb") as f:
             f.write(data)
         ref = png_frame
-        if not np.array_equal(held, u8):     # GIF, lossy: their own PNG
+        if not np.array_equal(held, u8):    # palettes, crops, lossy: own PNG
             png = os.path.join(tmp, f"{stem}_{ext[1:]}_png.png")
             image_io.write_png(png, held)
             png_scene, _ = textured_dragon(tmp, png, grid, device)

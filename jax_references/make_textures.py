@@ -1106,6 +1106,7 @@ def fixtures() -> dict:
     out[TIFF_JPEG_BIG] = ("tiff", jpeg_tiff(texels, 6, tile=(256, 256),
                                             subsampling=2, quality=85))
     out.update(jpeg_variant_fixtures(np.random.default_rng(25), texels))
+    out.update(asset_fixtures(np.random.default_rng(26)))
     return out
 
 
@@ -2237,6 +2238,314 @@ def psd_fixtures(rng) -> dict:
                                                      True, rng))
     out["psd_indexed_no_table.psd"] = ("psd", psd_file(w, h, 2, 8,
                                                        planes(1)))
+    return out
+
+
+# ------------------------------------------------ SGI, PCX, DCX, QOI, ICO,
+# CUR, BLP, FTEX and Sun raster: the formats of model and game asset sets
+
+
+def sgi_rle_row(values: np.ndarray, bpc: int, rng) -> bytes:
+    """One channel of one row as SGI run-length packets of bpc-byte atoms,
+    runs and copies of random lengths up to 127, then the zero
+    terminator."""
+    atom = ">u2" if bpc == 2 else "u1"
+    out, i, n = [], 0, len(values)
+    while i < n:
+        run = 1
+        while i + run < n and values[i + run] == values[i] and run < 127:
+            run += 1
+        if run > 1 and rng.random() < 0.8:
+            out.append(np.array([run, values[i]], atom).tobytes())
+            i += run
+            continue
+        k = int(min(n - i, rng.integers(1, 128)))
+        out.append(np.array([0x80 | k], atom).tobytes()
+                   + np.asarray(values[i:i + k], atom).tobytes())
+        i += k
+    return b"".join(out) + np.array([0], atom).tobytes()
+
+
+def sgi_file(px: np.ndarray, bpc: int = 1, rle: bool = False, rng=None,
+             dim: int | None = None) -> bytes:
+    """An SGI file of px [h, w, z] (values below 256 ** bpc, row 0 the
+    top): raw planes, or run-length rows (sgi_rle_row) after their start
+    and length tables."""
+    h, w, z = px.shape
+    dim = dim or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHii", 474, int(rle), bpc, dim, w, h, z, 0,
+                       256 ** bpc - 1).ljust(512, b"\0")
+    rows = px[::-1]                               # the file's rows bottom-up
+    if not rle:
+        atom = ">u2" if bpc == 2 else "u1"
+        return head + np.ascontiguousarray(
+            rows.transpose(2, 0, 1)).astype(atom).tobytes()
+    packed = [[sgi_rle_row(rows[y, :, c], bpc, rng) for y in range(h)]
+              for c in range(z)]
+    start, starts, lengths = 512 + 8 * h * z, [], []
+    for chan in packed:
+        for row in chan:
+            starts.append(start)
+            lengths.append(len(row))
+            start += len(row)
+    return (head + struct.pack(f">{h * z}I", *starts)
+            + struct.pack(f">{h * z}I", *lengths)
+            + b"".join(row for chan in packed for row in chan))
+
+
+def pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX run-length rows: runs of up to 63 bytes, single bytes as
+    themselves unless their top two bits are set."""
+    out = bytearray()
+    for row in rows:
+        i, n = 0, len(row)
+        while i < n:
+            run = 1
+            while i + run < n and row[i + run] == row[i] and run < 63:
+                run += 1
+            if run > 1 or row[i] >= 0xC0:
+                out += bytes((0xC0 | run, row[i]))
+            else:
+                out.append(row[i])
+            i += run
+    return bytes(out)
+
+
+def pcx_file(w: int, h: int, bits: int, planes: int, rows: np.ndarray, *,
+             version: int = 5, palette16=None, palette256=None,
+             stride: int | None = None, origin=(0, 0)) -> bytes:
+    """A PCX file: rows [h, planes * stride] (each row its planes one after
+    another), run-length coded, and the 769-byte palette where given."""
+    stride = stride or rows.shape[1] // planes
+    pal16 = bytes(48) if palette16 is None else np.asarray(
+        palette16, np.uint8).tobytes()
+    x0, y0 = origin
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0,
+                        x0 + w - 1, y0 + h - 1, 72, 72) + pal16
+            + bytes((0, planes)) + struct.pack("<HH", stride, 1)
+            + bytes(58))
+    tail = b"" if palette256 is None else b"\x0c" + np.asarray(
+        palette256, np.uint8).tobytes()
+    return head + pcx_rle(np.asarray(rows, np.uint8)) + tail
+
+
+def dcx_file(pages: list) -> bytes:
+    """A DCX file of the PCX files `pages`."""
+    at, table = 4 + 4 * (len(pages) + 1), []
+    for page in pages:
+        table.append(at)
+        at += len(page)
+    return (struct.pack(f"<{len(pages) + 2}I", 987654321, *table, 0)
+            + b"".join(pages))
+
+
+def dib_bytes(px: np.ndarray, bits: int, palette=None,
+              and_mask: bool = True) -> bytes:
+    """An icon or cursor entry's bitmap: a 40-byte header whose height is
+    twice px's ([h, w] indices at 1, 4 or 8 bits with palette [k, 3], or
+    [h, w, 3] RGB at 24 or 32 bits), rows bottom-up, then the AND mask."""
+    h, w = px.shape[:2]
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    if bits <= 8:
+        per = 8 // bits
+        idx = np.zeros((h, -(-w // per) * per), np.uint8)
+        idx[:, :w] = px
+        packed = np.zeros((h, idx.shape[1] // per), np.uint8)
+        for k in range(per):
+            packed |= idx[:, k::per] << np.uint8(8 - bits * (k + 1))
+        rows[:, :packed.shape[1]] = packed
+    else:
+        ch = bits // 8
+        bgr = np.zeros((h, w, ch), np.uint8)
+        bgr[..., :3] = px[..., ::-1]
+        if ch == 4:
+            bgr[..., 3] = 255
+        rows[:, :w * ch] = bgr.reshape(h, -1)
+    colours = 0 if palette is None else len(palette)
+    head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0,
+                       stride * h, 0, 0, colours, 0)
+    pal = b"" if palette is None else np.concatenate(
+        [np.asarray(palette, np.uint8)[:, ::-1],
+         np.zeros((colours, 1), np.uint8)], axis=1).tobytes()
+    mask = bytes((-(-w // 32) * 4) * h) if and_mask else b""
+    return head + pal + rows[::-1].tobytes() + mask
+
+
+def icon_file(entries: list, cursor: bool = False) -> bytes:
+    """An ICO (or CUR) file of entries [(width byte, height byte, colour
+    count, bits a pixel, data)], the data one after another."""
+    at = 6 + 16 * len(entries)
+    head = struct.pack("<HHH", 0, 2 if cursor else 1, len(entries))
+    body = b""
+    for wb, hb, ncol, bpp, data in entries:
+        head += struct.pack("<BBBBHHII", wb, hb, ncol, 0, 1, bpp, len(data),
+                            at + len(body))
+        body += data
+    return head + body
+
+
+def ftex_file(w: int, h: int, fmt: int, body: bytes, *, count: int = 1,
+              where: int | None = None, size: int | None = None) -> bytes:
+    """An FTEX file: the header, one format entry and its mipmap."""
+    where = 32 if where is None else where
+    head = b"FTEX" + struct.pack("<5i", 1, w, h, 1, count) + struct.pack(
+        "<2i", fmt, where)
+    return head.ljust(where, b"\0") + struct.pack(
+        "<i", len(body) if size is None else size) + body
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun raster run-length data: runs of 2 to 256 bytes as 0x80 n v, a
+    single 0x80 as 0x80 0x00, other bytes as themselves."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and data[i + run] == data[i] and run < 256:
+            run += 1
+        if run > 2 or (run == 2 and data[i] == 0x80):
+            out += bytes((0x80, run - 1, data[i]))
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            run = 1
+        else:
+            out.append(data[i])
+            run = 1
+        i += run
+    return bytes(out)
+
+
+def sun_file(w: int, h: int, depth: int, rows: np.ndarray, ftype: int = 1,
+             palette=None, maptype: int = 1) -> bytes:
+    """A Sun raster file of rows [h, row bytes] (padded to 16 bits, or
+    Pillow's unpadded rows for run-length type 2) and an optional RGB
+    colour map [k, 3] (stored as its planes)."""
+    body = np.asarray(rows, np.uint8).tobytes()
+    if ftype == 2:
+        body = sun_rle(body)
+    cmap = b"" if palette is None else np.ascontiguousarray(
+        np.asarray(palette, np.uint8).T).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype,
+                       maptype if cmap else 0, len(cmap)) + cmap + body
+
+
+def blp_file(version: int, w: int, h: int, mip: bytes, *, compression=1,
+             encoding=1, alpha=0, alpha_encoding=0, palette=None,
+             jpeg_header: bytes | None = None) -> bytes:
+    """A BLP1 or BLP2 file of one mipmap: BLP1 with a JPEG (compression 0,
+    the stream split into jpeg_header and mip) or palette indices; BLP2 of
+    encoding 1 (indices), 2 (DXT blocks, alpha_encoding 0, 1 or 7) or
+    another; palette [256, 4] BGRA (zeros where None)."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h,
+                                     encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding,
+                                     alpha, alpha_encoding, 0, w, h)
+    pal = bytes(1024) if palette is None else np.asarray(
+        palette, np.uint8).tobytes()
+    if jpeg_header is not None:
+        pre = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        pre = pal
+    at = len(head) + 128 + len(pre)
+    return (head + struct.pack("<16I", at, *[0] * 15)
+            + struct.pack("<16I", len(mip), *[0] * 15) + pre + mip)
+
+
+def dxt_blocks(rng, n: int, kind: str) -> bytes:
+    """n random DXT1 (8-byte) or DXT3 / DXT5 (16-byte) blocks, half of the
+    DXT1 ones in three-colour mode (c0 <= c1)."""
+    size = 8 if kind == "DXT1" else 16
+    blk = rng.integers(0, 256, (n, size), dtype=np.uint8)
+    if kind == "DXT1":
+        c = blk[:, :4].copy().view("<u2")
+        lo, hi = np.minimum(c[:, 0], c[:, 1]), np.maximum(c[:, 0], c[:, 1])
+        three = rng.random(n) < 0.5
+        c[:, 0] = np.where(three, lo, hi)
+        c[:, 1] = np.where(three, hi, lo)
+        blk[:, :4] = c.view(np.uint8).reshape(n, 4)
+    return blk.tobytes()
+
+
+def asset_fixtures(rng) -> dict:
+    """Small SGI, PCX, DCX, QOI, ICO, CUR, BLP, FTEX and Sun raster files:
+    Pillow's own (SGI raw, PCX in each mode it saves, QOI, ICO of bitmaps
+    and of PNGs, BLP1 and BLP2 palettes) and hand-made ones of what Pillow
+    does not write (SGI run-length at 8 and 16 bits, PCX's 1-bit planes,
+    DCX, CUR, FTEX, Sun raster of each depth, type and run-length, BLP2
+    DXT1 / DXT3 / DXT5 and BLP1 JPEG and palette)."""
+    out = {}
+    h, w = 5, 7
+    img = PILImage.fromarray(smooth_image(rng, h, w, 30.0))
+    rgba = img.convert("RGBA")
+    rgba.putalpha(PILImage.fromarray(rng.integers(0, 256, (h, w)).astype(
+        np.uint8)))
+    out["sgi_pillow_rgb.sgi"] = ("sgi", _pillow(img, "SGI"))
+    out["sgi_pillow_rgba16.sgi"] = ("sgi", _pillow(rgba, "SGI", bpc=2))
+    few = rng.integers(0, 3, (h, w, 4)) * 100
+    out["sgi_rgba_rle.sgi"] = ("sgi", sgi_file(few, 1, True, rng))
+    out["sgi_grey16_rle.bw"] = ("sgi", sgi_file(
+        (few[..., :1] * 257 + rng.integers(0, 2, (h, w, 1))), 2, True, rng))
+    for mode in ("1", "L", "P", "RGB"):
+        out[f"pcx_pillow_{mode.lower()}.pcx"] = ("pcx", _pillow(
+            img.convert(mode), "PCX"))
+    pal16 = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    for planes in (2, 4):
+        rows = rng.integers(0, 4, (h, planes * 2), dtype=np.uint8) * 0x55
+        out[f"pcx_1bit_{planes}planes.pcx"] = ("pcx", pcx_file(
+            w, h, 1, planes, rows, version=2, palette16=pal16))
+    page = _pillow(img, "PCX")
+    out["dcx_two_pages.dcx"] = ("pcx", dcx_file([page, _pillow(
+        img.convert("1"), "PCX")]))
+    out["qoi_pillow_rgb.qoi"] = ("qoi", _pillow(img, "QOI"))
+    out["qoi_pillow_rgba.qoi"] = ("qoi", _pillow(rgba, "QOI"))
+    icon = PILImage.fromarray(smooth_image(rng, 8, 8, 30.0))
+    out["ico_pillow_bmp.ico"] = ("ico", _pillow(
+        icon, "ICO", sizes=[(8, 8), (4, 4)], bitmap_format="bmp"))
+    out["ico_pillow_png.ico"] = ("ico", _pillow(
+        icon.convert("RGBA"), "ICO", sizes=[(8, 8), (6, 6)]))
+    idx = rng.integers(0, 16, (h, w), dtype=np.uint8)
+    pal = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    cur_big = dib_bytes(idx, 4, pal)
+    out["cur_4bit.cur"] = ("ico", icon_file(
+        [(3, 2, 16, 4, dib_bytes(idx[:2, :3], 4, pal)), (w, h, 16, 4,
+                                                         cur_big)],
+        cursor=True))
+    out["blp1_pillow.blp"] = ("blp", _pillow(
+        img.convert("P"), "BLP", blp_version="BLP1"))
+    out["blp2_pillow.blp"] = ("blp", _pillow(img.convert("P"), "BLP"))
+    bgra = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    for kind, enc in (("dxt1", 0), ("dxt3", 1), ("dxt5", 7)):
+        out[f"blp2_{kind}_8x8.blp"] = ("blp", blp_file(
+            2, 8, 8, dxt_blocks(rng, 4, kind.upper()), encoding=2,
+            alpha=int(kind != "dxt1"), alpha_encoding=enc, palette=bgra))
+    jpg = _pillow(img, "JPEG", quality=90)
+    out["blp1_jpeg.blp"] = ("blp", blp_file(
+        1, w, h, jpg[160:], compression=0, jpeg_header=jpg[:160]))
+    out["blp1_palette.blp"] = ("blp", blp_file(
+        1, w, h, idx.tobytes(), encoding=4, palette=bgra))
+    bc1 = dxt_blocks(rng, 4, "DXT1")
+    out["ftex_dxt1.ftc"] = ("ftex", ftex_file(7, 6, 0, bc1))
+    out["ftex_rgb.ftu"] = ("ftex", ftex_file(
+        w, h, 1, np.asarray(img).tobytes()))
+    rgb = np.asarray(img)
+    stride = (w * 3 + 1) // 2 * 2
+    rows24 = np.zeros((h, stride), np.uint8)
+    rows24[:, :w * 3] = rgb[..., ::-1].reshape(h, -1)
+    out["sun_24bit.ras"] = ("sun", sun_file(w, h, 24, rows24))
+    out["sun_32bit_rgb.ras"] = ("sun", sun_file(w, h, 32, np.concatenate(
+        [np.zeros((h, w, 1), np.uint8), rgb], axis=2)[..., [1, 2, 3, 0]]
+        .reshape(h, -1), ftype=3))
+    out["sun_24bit_rle.ras"] = ("sun", sun_file(
+        w, h, 24, (few[..., :3] // 2).astype(np.uint8)[..., ::-1].reshape(
+            h, -1), ftype=2))
+    out["sun_8bit_colour_map_rle.ras"] = ("sun", sun_file(
+        w, h, 8, idx, ftype=2, palette=pal[:12]))
+    bits1 = np.packbits(rng.integers(0, 2, (h, 16)).astype(np.uint8), axis=1)
+    out["sun_1bit.ras"] = ("sun", sun_file(w, h, 1, bits1))
+    out["sun_4bit.ras"] = ("sun", sun_file(w, h, 4, rng.integers(
+        0, 256, (h, 4), dtype=np.uint8)))
     return out
 
 

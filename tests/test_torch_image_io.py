@@ -572,9 +572,21 @@ def test_loader_decodes_png_without_pillow(tmp_path, monkeypatch):
 
 def test_not_a_png_raises(tmp_path):
     path = tmp_path / "n.png"
-    path.write_bytes(b"qoif\x00\x00\x00\x04 a QOI header")
+    path.write_bytes(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
     with pytest.raises(ValueError, match="not a PNG"):
         image_io.load_image(str(path))
+
+
+def test_truncated_qoi_header_raises_naming_qoi(tmp_path):
+    """The QOI header test_not_a_png_raises once fed: QOI now decodes,
+    and this header (a height read from the text after it, past Pillow's
+    pixel limit) raises a QOI error, as Pillow refuses it."""
+    path = tmp_path / "n.png"
+    path.write_bytes(b"qoif\x00\x00\x00\x04 a QOI header")
+    with pytest.raises(ValueError, match="QOI"):
+        image_io.load_image(str(path))
+    with pytest.raises(Exception):
+        jax_image_io.load_image(str(path))
 
 
 def _unfilter_twin(raw: bytes, height: int, stride: int,
