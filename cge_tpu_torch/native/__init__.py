@@ -11,19 +11,23 @@ scene/tiff.py), TIFF LZW and predictors (scene/tiff.py); `cge_webp.cpp`
 the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
 (BC1 to BC7) textures of DDS files (scene/dds.py); `cge_fax.cpp` TIFF's
 CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py);
-`cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files and
-the QOI op stream (scene/sgi.py, pcx.py, sun.py, qoi.py).
+`cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files, the
+QOI op stream and ICNS's run-length channels (scene/sgi.py, pcx.py,
+sun.py, qoi.py, icns.py); `cge_j2k.cpp` JPEG 2000 codestreams
+(scene/jpeg2000.py).
 Each source is compiled at first use by `g++` with the flags of the JAX
-package's Makefile (CXXFLAGS, warnings as errors) into an object of its
-own, all at once in parallel, in `build/cge_tpu_torch/objects/` at the
-repository root, named by a hash of the source, compiler and flags; the
-objects are linked into one library named by a hash of theirs and loaded
-with ctypes. A change to one source so rebuilds one object and the link;
-no binary is committed. A failed build raises with the compiler's output:
-nothing falls back to the numpy code or to Pillow. The numpy loader and
-builders (scene/mesh_io.py, ops/bvh.py) are the library's twins and run
-where a caller passes `use_native=False`; the image decoders have none
-(the PNG row filters' Python twin lives in the tests).
+package's Makefile (CXXFLAGS, warnings as errors; cge_j2k.cpp also with
+SOURCE_FLAGS' -ffp-contract=off and -fwrapv, so that its float and integer
+arithmetic is OpenJPEG's) into an object of its own, all at once in
+parallel, in `build/cge_tpu_torch/objects/` at the repository root, named
+by a hash of the source, compiler and flags; the objects are linked into
+one library named by a hash of theirs and loaded with ctypes. A change to
+one source so rebuilds one object and the link; no binary is committed. A
+failed build raises with the compiler's output: nothing falls back to the
+numpy code or to Pillow. The numpy loader and builders (scene/mesh_io.py,
+ops/bvh.py) are the library's twins and run where a caller passes
+`use_native=False`; the image decoders have none (the PNG row filters'
+Python twin lives in the tests).
 """
 
 from __future__ import annotations
@@ -47,10 +51,13 @@ BCN_SOURCE = os.path.join(_HERE, "cge_bcn.cpp")
 FAX_SOURCE = os.path.join(_HERE, "cge_fax.cpp")
 ZSTD_SOURCE = os.path.join(_HERE, "cge_zstd.cpp")
 RASTER_SOURCE = os.path.join(_HERE, "cge_raster.cpp")
+J2K_SOURCE = os.path.join(_HERE, "cge_j2k.cpp")
 SOURCES = (SOURCE, IMAGE_SOURCE, JPEG_SOURCE, WEBP_SOURCE, BCN_SOURCE,
-           FAX_SOURCE, ZSTD_SOURCE, RASTER_SOURCE)
+           FAX_SOURCE, ZSTD_SOURCE, RASTER_SOURCE, J2K_SOURCE)
 CXX = "g++"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror")
+# flags a source adds to CXXFLAGS, by its file name
+SOURCE_FLAGS = {"cge_j2k.cpp": ("-ffp-contract=off", "-fwrapv")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,6 +110,17 @@ _SIGNATURES = {
        for name in ("cge_pcx_rle", "cge_sun_rle")},
     "cge_qoi": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                      ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    "cge_icns_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                          ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    "cge_j2k_open": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                          ctypes.POINTER(_P), ctypes.c_char_p, _I]),
+    "cge_j2k_info": (None, [_P, _P]),
+    "cge_j2k_comp": (None, [_P, _I, _P]),
+    "cge_j2k_decode": (_I, [_P, ctypes.POINTER(_I), ctypes.c_char_p, _I]),
+    "cge_j2k_tile": (None, [_P, _I, _P, _P]),
+    "cge_j2k_free": (None, [_P]),
+    "cge_j2k_idwt53": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_char_p, _I]),
 }
 
 
@@ -171,25 +189,27 @@ def build(cxx: str = CXX, flags=CXXFLAGS,
     os.makedirs(obj_dir, exist_ok=True)
     objs, todo = [], []
     for src in sources:
+        extra = SOURCE_FLAGS.get(os.path.basename(src), ())
         with open(src, "rb") as f:
-            key = hashlib.sha256(prefix + b"\0" + f.read()).hexdigest()[:16]
+            key = hashlib.sha256(prefix + " ".join(extra).encode() + b"\0"
+                                 + f.read()).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(src))[0]
         obj = os.path.join(obj_dir, f"{stem}_{key}.o")
         objs.append(obj)
         if not os.path.exists(obj):
-            todo.append((src, obj))
+            todo.append((src, obj, extra))
     h = hashlib.sha256(prefix + "".join(objs).encode())
     path = os.path.join(build_dir, f"libcge_host_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
     log = ""
     if todo:
-        tmps = [f"{obj}.{os.getpid()}.tmp" for _, obj in todo]
+        tmps = [f"{obj}.{os.getpid()}.tmp" for _, obj, _ in todo]
         try:
-            log = _run([[cxx, *flags, "-c", "-o", tmp, src]
-                        for (src, _), tmp in zip(todo, tmps)],
+            log = _run([[cxx, *flags, *extra, "-c", "-o", tmp, src]
+                        for (src, _, extra), tmp in zip(todo, tmps)],
                        "compiling " + ", ".join(
-                           os.path.basename(s) for s, _ in todo))
-            for (_, obj), tmp in zip(todo, tmps):
+                           os.path.basename(s) for s, _, _ in todo))
+            for (_, obj, _), tmp in zip(todo, tmps):
                 os.replace(tmp, obj)      # atomic: concurrent builds agree
         finally:
             for tmp in tmps:
@@ -205,7 +225,7 @@ def build(cxx: str = CXX, flags=CXXFLAGS,
             if os.path.exists(tmp):
                 os.remove(tmp)
     return HostLibrary(path, time.perf_counter() - t0, log,
-                       tuple(src for src, _ in todo))
+                       tuple(src for src, _, _ in todo))
 
 
 _LIBRARY: HostLibrary | None = None
@@ -556,4 +576,87 @@ def qoi(data: bytes, offset: int, pixels: int) -> np.ndarray:
     out = np.empty((pixels, 4), np.uint8)
     decode_call(library().cge_qoi, data, len(data), offset, pixels,
                 out.ctypes.data)
+    return out
+
+
+def icns_rle(data: bytes, offset: int, pixels: int) -> np.ndarray:
+    """An ICNS run-length colour entry from data[offset:] -> [pixels, 3]
+    uint8 RGB, as Pillow's
+    IcnsImagePlugin.read_32 reads it: channel after channel, a byte b >=
+    0x80 repeating the next byte b - 125 times, any other b + 1 literal
+    bytes; an error where a channel's runs overrun its pixels or the data
+    end first."""
+    out = np.zeros((3, pixels), np.uint8)
+    decode_call(library().cge_icns_rle, data, len(data), offset, pixels,
+                out.ctypes.data)
+    return np.ascontiguousarray(out.T)
+
+
+class J2k:
+    """A JPEG 2000 codestream at data[start:] (data: the whole file, whose
+    end is the stream's end, as OpenJPEG is given it) opened by
+    cge_j2k.cpp: its main header read (ValueError where OpenJPEG's reading
+    fails); x0, y0, x1, y1 its image area on the reference grid and comps
+    each component's (precision, signed, dx, dy). tiles() decodes every
+    tile: [(index, (x0, y0, x1, y1), [int32 [h, w] samples of each
+    component])] in the order OpenJPEG hands them to Pillow. A context
+    manager: the decoder is released on exit."""
+
+    def __init__(self, data: bytes, start: int = 0):
+        self._lib = library()
+        self._data = data
+        handle = _P()
+        decode_call(self._lib.cge_j2k_open, data, len(data), start,
+                    ctypes.byref(handle))
+        self._handle = handle
+        info = np.zeros(8, np.int64)
+        self._lib.cge_j2k_info(handle, info.ctypes.data)
+        self.x0, self.y0, self.x1, self.y1 = (int(v) for v in info[:4])
+        self.comps = []
+        for c in range(int(info[4])):
+            self._lib.cge_j2k_comp(handle, c, info.ctypes.data)
+            self.comps.append((int(info[0]), bool(info[1]), int(info[2]),
+                               int(info[3])))
+
+    def tiles(self) -> list:
+        count = _I()
+        decode_call(self._lib.cge_j2k_decode, self._handle,
+                    ctypes.byref(count))
+        out = []
+        nc = len(self.comps)
+        box = np.zeros(5 + 4 * nc, np.int64)
+        for k in range(count.value):
+            self._lib.cge_j2k_tile(self._handle, k, box.ctypes.data, None)
+            planes = [np.empty((max(0, int(y1 - y0)), max(0, int(x1 - x0))),
+                               np.int32)
+                      for x0, y0, x1, y1 in box[5:].reshape(nc, 4)]
+            ptrs = (_P * nc)(*(p.ctypes.data for p in planes))
+            self._lib.cge_j2k_tile(self._handle, k, box.ctypes.data, ptrs)
+            out.append((int(box[0]), tuple(int(v) for v in box[1:5]),
+                        planes))
+        return out
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.cge_j2k_free(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def j2k_idwt53(coef: np.ndarray, x0: int, y0: int, low: tuple,
+               rct: bool = False) -> np.ndarray:
+    """One level of the decoder's inverse 5/3 transform on int32 planes
+    coef [P, h, w] (each holding its low band's low[1] x low[0] samples top
+    left, then the high bands, as the decoder lays them out) of a
+    resolution whose top-left sample is (x0, y0) on its grid; then, with
+    rct, the reversible component transform of the three planes. A copy."""
+    out = np.ascontiguousarray(coef, np.int32).copy()
+    p, h, w = out.shape
+    decode_call(library().cge_j2k_idwt53, out.ctypes.data, w, h, x0, y0,
+                low[0], low[1], p, int(rct))
     return out

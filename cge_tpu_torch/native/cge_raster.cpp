@@ -25,12 +25,18 @@
 //     index, diff, luma and run ops from black opaque, the index hash
 //     (3r + 5g + 7b + 11a) % 64 updated by every op but the run, a missing
 //     index entry read as transparent black; the stream must hold every
-//     op's bytes up to the last pixel.
+//     op's bytes up to the last pixel;
+//   - ICNS run-length colour entries (cge_icns_rle), as Pillow's
+//     IcnsImagePlugin.read_32: the red, green and blue channels one after
+//     another, a byte b >= 0x80 repeating the next byte b - 125 times, any
+//     other b + 1 literal bytes; a channel whose runs overrun its pixels,
+//     or whose data end first (a read cut short included), is an error.
 //
 // Entry points (C ABI, loaded with ctypes): each writes the bytes its
 // comment names and returns 0, or -1 with a message in err, and reads no
 // byte past n.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -298,6 +304,53 @@ int cge_qoi(const unsigned char* data, long n, long offset, long pixels,
         qoi(data, static_cast<size_t>(n), static_cast<size_t>(offset),
             pixels, out);
     });
+}
+
+int cge_icns_rle(const unsigned char* data, long n, long offset, long pixels,
+                 unsigned char* out, char* err, int errlen) {
+    long pos = offset;
+    for (int band = 0; band < 3; ++band) {
+        unsigned char* dst = out + band * pixels;
+        long left = pixels, got = 0;
+        bool short_read = false;
+        while (left > 0) {
+            if (pos >= n) break;
+            const int b = data[pos++];
+            long size;
+            if (b & 0x80) {
+                size = b - 125;
+                if (pos >= n) {
+                    short_read = true;
+                } else {
+                    const unsigned char v = data[pos++];
+                    for (long i = 0; i < size && got + i < pixels; ++i)
+                        dst[got + i] = v;
+                }
+            } else {
+                size = b + 1;
+                if (pos + size > n) short_read = true;
+                const long have = std::min(size, n - pos);
+                for (long i = 0; i < have && got + i < pixels; ++i)
+                    dst[got + i] = data[pos + i];
+                pos += have;
+            }
+            if (!short_read) got += size;
+            left -= size;
+        }
+        if (left != 0) {
+            std::snprintf(err, static_cast<size_t>(errlen),
+                          "ICNS run-length channel %d: error reading channel "
+                          "[%ld left]", band, left);
+            return -1;
+        }
+        if (short_read) {
+            std::snprintf(err, static_cast<size_t>(errlen),
+                          "ICNS run-length channel %d: the data end before "
+                          "its last run (not enough image data)", band);
+            return -1;
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
-PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, and the formats of
-model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR, BLP, FTEX
-and Sun raster.
+PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, JPEG 2000, and the
+formats of model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR,
+ICNS, BLP, FTEX and Sun raster.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
@@ -50,6 +50,12 @@ format's test takes a file whose header its plugin cannot open
         palette, DX10 R8G8B8A8, and BC1 to BC5, BC5 signed, BC6H (UF16
         and SF16) and BC7 blocks, as Pillow's DdsImagePlugin and BCn
         decoder give them (scene/dds.py).
+  JPEG 2000  J2K codestreams and JP2 files as OpenJPEG 2.5.4 under Pillow
+        decodes them: 5/3 and 9/7, layers, every progression order and POC,
+        tiles and tile-parts, precincts, every code-block style, ROI,
+        PPT / PPM, subsampled components, 1 to 16 bits, palettes, CMYK and
+        sYCC (scene/jpeg2000.py, the codestream in the native library's
+        cge_j2k.cpp); HTJ2K and Part 2 codestreams raise.
   TGA   colour-mapped, true-colour and grey, raw or run-length, in each
         orientation (scene/tga.py); TGA has no signature, so it is tried
         by Pillow's test of its header, in its place in Pillow's order.
@@ -59,16 +65,18 @@ format's test takes a file whose header its plugin cannot open
         planes; DCX's first page (scene/pcx.py).
   QOI   RGB and RGBA (scene/qoi.py).
   ICO   the entry Pillow picks, a PNG or a bitmap; CUR's (scene/ico.py).
+  ICNS  the largest icon: a PNG or JPEG 2000 entry, or run-length colour
+        (scene/icns.py).
   BLP   BLP1 JPEG and palettes, BLP2 palettes and DXT1 / DXT3 / DXT5
         through the plugin's own decoders (scene/blp.py).
   FTEX  DXT1 and raw RGB (scene/ftex.py).
   Sun   raster at 1, 4, 8, 24 and 32 bits, with colour maps, raw or
         run-length (scene/sun.py).
-The byte-serial parts of SGI, PCX, QOI and Sun raster run in the native
-library's cge_raster.cpp.
+The byte-serial parts of SGI, PCX, QOI, Sun raster and ICNS run in the
+native library's cge_raster.cpp.
 
-Any other format (GBR, ICNS, JPEG 2000, Radiance HDR, OpenEXR, PAM, PFM,
-...) raises a ValueError that names it, as does a truncated or corrupt
+Any other format (GBR, AVIF, Radiance HDR, OpenEXR, PAM, PFM, ...) raises
+a ValueError that names it, as does a truncated or corrupt
 file. `png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
 24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
@@ -84,8 +92,9 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import (blp, dds, ftex, gif, ico, jpeg, pcx, pnm,
-                                 psd, qoi, sgi, sun, tga, tiff, webp)
+from cge_tpu_torch.scene import (blp, dds, ftex, gif, icns, ico, jpeg,
+                                 jpeg2000, pcx, pnm, psd, qoi, sgi, sun, tga,
+                                 tiff, webp)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -325,9 +334,8 @@ _PILLOW_ORDER = (
     ("GBR", _gbr_opens, None),
     ("GRIB", lambda d: d[:4] == b"GRIB" and len(d) >= 8 and d[7] == 1, None),
     ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", None),
-    ("JPEG 2000", lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == (
-        b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
-    ("ICNS", lambda d: d[:4] == b"icns", None),
+    ("JPEG 2000", jpeg2000.accept, jpeg2000.decode_jp2),
+    ("ICNS", icns.accept, icns.decode_icns),
     ("ICO", ico.accept_ico, ico.decode_ico),
     ("McIdas", lambda d: d[:8] == b"\x00" * 7 + b"\x04", None),
     ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
@@ -357,7 +365,8 @@ def format_of(data: bytes) -> str:
     Pillow's plugins, in the order Image.open tries them, whose test of the
     first bytes takes the file ("PNG", "BMP", "DIB", "JPEG", "GIF", "PNM",
     "PSD", "TIFF", "DDS", "WebP", "TGA", "SGI", "PCX", "DCX", "QOI", "ICO",
-    "CUR", "BLP", "FTEX" or "Sun raster" for the formats that decode here),
+    "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX" or "Sun raster" for the formats
+    that decode here),
     else the name of another known format, or "unknown". TGA, which has
     no signature, comes by Pillow's test of its header. decode_image goes
     on to the next format where this one's header cannot be opened, as

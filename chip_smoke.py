@@ -2366,6 +2366,9 @@ def native_check(tmp, obj, dragon, tscene) -> dict:
     from cge_tpu_torch.scene import mesh_io
 
     lib = native.build(build_dir=os.path.join(tmp, "native_build"))
+    if sorted(lib.compiled) != sorted(native.SOURCES):
+        raise AssertionError(f"the native build compiled {lib.compiled}, "
+                             f"not its {len(native.SOURCES)} sources")
     row = dict(build_s=lib.build_seconds)
     t0 = time.perf_counter()
     subs = mesh_io.load_mesh(obj)
@@ -2431,7 +2434,8 @@ def native_check(tmp, obj, dragon, tscene) -> dict:
     log(f"    native library: built in {row['build_s']:.2f} s, "
         f"{len(lib.compiled)} sources compiled in parallel, one object each "
         f"(the earlier single g++ call of every source: 21.08 s) (g++ "
-        f"{' '.join(native.CXXFLAGS)}); dragon OBJ load native "
+        f"{' '.join(native.CXXFLAGS)}; {native.SOURCE_FLAGS}); dragon OBJ "
+        f"load native "
         f"{row['load_native_s']:.2f} s, numpy {row['load_numpy_s']:.2f} s "
         f"({row['quads_apart']} tied quads split apart); "
         f"cluster perm ({perm.shape[0]} clusters, the scene's; "
@@ -3076,23 +3080,35 @@ JPEG_VARIANT_KINDS = (
     ("lossless", ("jpeg_lossless_",)))
 # the texels as a tiled YCbCr 2x2 JPEG-in-TIFF at quality 85
 TEX_TIFF_JPEG = "tiff_jpeg_ycbcr22_tiles_q85_1024.tif"
+# the texels as JPEG 2000 (jax_references/make_textures.j2k_chip_files),
+# with a manifest of their own: their top-left 512x512 crop as a lossless
+# J2K codestream (5/3, RCT, RPCL, 256x256 tiles, SOP / EPH), the texels as
+# a lossy JP2 (9/7, ICT, three quality layers, 32x32 code-blocks) and an
+# ICNS whose ic10 entry is that JP2
+TEX_J2K_DIR = os.path.join(TEXTURES, "j2k_chip")
+J2K_CROP = 512
+TEX_J2K = f"j2k_lossless_rpcl_tiles256_crop{J2K_CROP}.j2k"
+TEX_JP2 = "jp2_lossy_97_3layers_cb32_1024.jp2"
+TEX_ICNS = "icns_ic10_jp2_1024.icns"
 
 
 def texture_fixtures() -> list:
-    """Phase 18a: each fixture through the port's load_image, its u8
-    pixels' SHA-256 against the manifest's; (name, kind, host ms) a
-    fixture."""
+    """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/)
+    through the port's load_image, its u8 pixels' SHA-256 against its
+    manifest's; (name, kind, host ms) a fixture."""
     import hashlib
 
     import numpy as np
 
     from cge_tpu_torch.scene import image_io
 
-    with open(os.path.join(TEXTURES, "manifest.json")) as f:
-        manifest = json.load(f)
+    entries = []
+    for folder in (TEXTURES, TEX_J2K_DIR):
+        with open(os.path.join(folder, "manifest.json")) as f:
+            entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
-    for entry in manifest["files"]:
-        path = os.path.join(TEXTURES, entry["name"])
+    for folder, entry in entries:
+        path = os.path.join(folder, entry["name"])
         t0 = time.perf_counter()
         img = image_io.load_image(path)
         ms = (time.perf_counter() - t0) * 1e3
@@ -3175,6 +3191,19 @@ def texture_writers(texels):
                 err = np.abs(held.astype(int) - texels[:h, :w])
                 log(f"  18c: {name}'s texels against the JPEG's: max abs "
                     f"error {int(err.max())}, mean {float(err.mean()):.3f}")
+        out[name] = (data, held)
+    for name in (TEX_J2K, TEX_JP2, TEX_ICNS):
+        with open(os.path.join(TEX_J2K_DIR, name), "rb") as f:
+            data = f.read()
+        if name == TEX_J2K:
+            held = texels[:J2K_CROP, :J2K_CROP]       # lossless
+        else:
+            from cge_tpu_torch.scene import image_io
+
+            held = image_io.decode_image(data)     # lossy: 18a holds it
+            err = np.abs(held.astype(int) - texels)
+            log(f"  18c: {name}'s texels against the JPEG's: max abs error "
+                f"{int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
     return out
 
@@ -3504,7 +3533,8 @@ def eleventh_path(device) -> dict:
         f"LZMA + predictor 2, tiled YCbCr JPEG), WebP (lossy, and a lossless "
         f"crop), DDS (A8R8G8B8, DXT1, BC7), a crop as an arithmetic, "
         f"progressive, smoothed YCCK 4:4:0 JPEG, SGI run-length, PCX, QOI, "
-        f"Sun raster run-length, BLP2 palette, FTEX and a 256x256 ICO | "
+        f"Sun raster run-length, BLP2 palette, FTEX, a 256x256 ICO, a "
+        f"lossless 512x512 J2K crop, a lossy JP2 and an ICNS of it | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3589,7 +3619,8 @@ def eleventh_path(device) -> dict:
 def new_format_frames(tmp, texels, png_frame, grid, feats, params,
                       device, first_launches) -> dict:
     """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
-    TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX and ICO files
+    TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000
+    (J2K and JP2) and ICNS files
     (texture_writers), each frame against the
     PNG-textured frame of the same texels, each first frame's K1 and K2
     launches against (b)'s (first_launches); {file: (decode ms, load s,

@@ -10,7 +10,13 @@ tables, interlaced, offset and transparent frames; PSD raw and PackBits in
 every colour mode Pillow converts), and one 1024x1024 progressive 4:2:0
 JPEG at quality 90, all from seeded numpy images; and the JPEG variants
 Pillow opens but does not write (every whole sampling, CMYK and YCCK,
-arithmetic coding, scans that leave coefficients unrefined, lossless).
+arithmetic coding, scans that leave coefficients unrefined, lossless);
+JPEG 2000 codestreams and JP2 files (Pillow's saves, OpenJPEG's own
+encoder through ctypes in j2k_encoder.py for what Pillow's save cannot
+set, JP2 boxes and PPT / PPM headers rewritten by hand) and ICNS icons;
+and, in tests/torch_textures/j2k_chip/ with a manifest of its own, the
+1024x1024 JPEG's texels as a lossless J2K crop, a lossy JP2 and an ICNS
+of it for chip_smoke.py phase 18c.
 It is the JAX side: Pillow writes the JPEGs and some TGA, PNM and GIF
 files, Pillow's own libjpeg-turbo compressor (jpeg_encoder.py) the JPEG
 variants, the encoders below the rest (PNGs with the port's row
@@ -48,6 +54,7 @@ from PIL import Image as PILImage  # noqa: E402
 from PIL import features  # noqa: E402
 
 from cge_tpu_torch.scene.image_io import _chunk, _filter_rows  # noqa: E402
+from jax_references.j2k_encoder import STYLE, j2k_encode  # noqa: E402
 from jax_references.jpeg_encoder import jpeg_encode  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1107,6 +1114,7 @@ def fixtures() -> dict:
                                             subsampling=2, quality=85))
     out.update(jpeg_variant_fixtures(np.random.default_rng(25), texels))
     out.update(asset_fixtures(np.random.default_rng(26)))
+    out.update(j2k_fixtures(np.random.default_rng(27)))
     return out
 
 
@@ -2549,6 +2557,302 @@ def asset_fixtures(rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- JPEG 2000
+
+# the chip path's files of BIG's texels (chip_smoke.py phase 18c), with a
+# manifest of their own beside the fixtures'
+J2K_CHIP_DIR = os.path.join(OUT, "j2k_chip")
+J2K_CROP = 512
+J2K_LOSSLESS = f"j2k_lossless_rpcl_tiles256_crop{J2K_CROP}.j2k"
+JP2_LOSSY = "jp2_lossy_97_3layers_cb32_1024.jp2"
+ICNS_JP2 = "icns_ic10_jp2_1024.icns"
+
+
+def box(kind: bytes, body: bytes) -> bytes:
+    """A JP2 box."""
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_file(codestream: bytes, *, ihdr=None, colr=((1, 16),), pclr=None,
+             cmap=None, cdef=None, res=False, bpcc=None) -> bytes:
+    """A JP2 file around a codestream: the signature, ftyp, jp2h (ihdr
+    (height, width, components, bit-depth byte) from the SIZ by default,
+    None's False leaves it out; colr boxes (1, enumcs) or (2, ICC bytes);
+    pclr (entries [N, C] and each column's bit-depth byte); cmap [(component,
+    type, column)]; cdef [(channel, type, association)]; res a resc box)
+    and jp2c."""
+    if ihdr is None:
+        xsiz, ysiz, xo, yo = struct.unpack_from(">IIII", codestream, 8)
+        nc = struct.unpack_from(">H", codestream, 40)[0]
+        ihdr = (ysiz - yo, xsiz - xo, nc, codestream[42])
+    head = b""
+    if ihdr is not False:
+        head += box(b"ihdr", struct.pack(">IIHBBBB", *ihdr, 7, 0, 0))
+    if bpcc is not None:
+        head += box(b"bpcc", bytes(bpcc))
+    for meth, what in colr:
+        head += box(b"colr", struct.pack(">BBB", meth, 0, 0) + (
+            struct.pack(">I", what) if meth == 1 else what))
+    if pclr is not None:
+        entries, depths = pclr
+        entries = np.asarray(entries, np.uint8)
+        head += box(b"pclr", struct.pack(">HB", *entries.shape)
+                    + bytes(depths) + entries.tobytes())
+    if cmap is not None:
+        head += box(b"cmap", b"".join(struct.pack(">HBB", *c) for c in cmap))
+    if cdef is not None:
+        head += box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *c) for c in cdef))
+    if res:
+        head += box(b"res ", box(b"resc", struct.pack(">HHHHbb", 2835, 1,
+                                                       2835, 1, 0, 0)))
+    return (box(b"jP  ", b"\x0d\x0a\x87\x0a")
+            + box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ")
+            + box(b"jp2h", head) + box(b"jp2c", codestream))
+
+
+def _marker_segments(data: bytes, pos: int):
+    """(marker, start, end) of each marker segment from pos to a SOT or
+    SOD marker (excluded)."""
+    while True:
+        m = struct.unpack_from(">H", data, pos)[0]
+        if m in (0xFF90, 0xFF93):
+            return
+        n = struct.unpack_from(">H", data, pos + 2)[0]
+        yield m, pos, pos + 2 + n
+        pos += 2 + n
+
+
+def packed_headers(codestream: bytes, where: str) -> bytes:
+    """A codestream written with SOP and EPH markers rewritten with its
+    packet headers (each to its EPH) moved into PPT markers of each
+    tile-part ("ppt") or PPM markers of the main header ("ppm"); the SOP
+    markers stay with the packet bodies."""
+    main_end = codestream.index(b"\xff\x90")
+    parts = []
+    pos = main_end
+    while codestream[pos:pos + 2] == b"\xff\x90":
+        psot = struct.unpack_from(">I", codestream, pos + 6)[0]
+        segs = list(_marker_segments(codestream, pos + 12))
+        sod = segs[-1][2] if segs else pos + 12
+        end = pos + psot
+        body = codestream[sod + 2:end]
+        headers, bodies = [], []
+        starts = [i for i in range(len(body) - 5) if body[i:i + 4]
+                  == b"\xff\x91\x00\x04"] + [len(body)]
+        for a, b in zip(starts, starts[1:]):
+            eph = body.index(b"\xff\x92", a + 6) + 2
+            headers.append(body[a + 6:eph])
+            bodies.append(body[a:a + 6] + body[eph:b])
+        extra = b"".join(codestream[a:b] for _, a, b in segs)
+        parts.append((codestream[pos:pos + 6], codestream[pos + 10:pos + 12],
+                      extra, b"".join(headers), b"".join(bodies)))
+        pos = end
+
+    def chunks(data, first):
+        return [data[i:i + first] for i in range(0, len(data), first)] or [
+            b""]
+
+    main = codestream[:main_end]
+    if where == "ppm":
+        stream = b"".join(struct.pack(">I", len(h)) + h
+                          for _, _, _, h, _ in parts)
+        main += b"".join(struct.pack(">HHB", 0xFF60, 3 + len(c), z) + c
+                         for z, c in enumerate(chunks(stream, 60000)))
+    out = [main]
+    for sot, rest, extra, headers, bodies in parts:
+        if where == "ppt":
+            extra += b"".join(struct.pack(">HHB", 0xFF61, 3 + len(c), z) + c
+                              for z, c in enumerate(chunks(headers, 60000))
+                              if headers)
+        psot = 12 + len(extra) + 2 + len(bodies)
+        out.append(sot + struct.pack(">I", psot) + rest + extra + b"\xff\x93"
+                   + bodies)
+    return b"".join(out) + b"\xff\xd9"
+
+
+def icns_rle(channel: bytes) -> bytes:
+    """An ICNS run-length channel: runs of 3 to 130 equal bytes as 0x80 +
+    n - 3 and the byte, the rest as literal packets of up to 128 bytes."""
+    out, lit, i = bytearray(), bytearray(), 0
+    while i < len(channel):
+        j = i
+        while j < len(channel) and j - i < 130 and channel[j] == channel[i]:
+            j += 1
+        if j - i >= 3:
+            if lit:
+                out += bytes((len(lit) - 1,)) + lit
+                lit = bytearray()
+            out += bytes((0x80 + j - i - 3, channel[i]))
+            i = j
+        else:
+            lit.append(channel[i])
+            i += 1
+            if len(lit) == 128:
+                out += bytes((127,)) + lit
+                lit = bytearray()
+    if lit:
+        out += bytes((len(lit) - 1,)) + lit
+    return bytes(out)
+
+
+def icns_file(entries: list) -> bytes:
+    """An ICNS file of (type, data) entries."""
+    body = b"".join(t + struct.pack(">I", 8 + len(d)) + d for t, d in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(px: np.ndarray, lead: bool = False) -> bytes:
+    """An it32 / ih32 / il32 / is32 entry's data: each channel run-length
+    coded (it32's 4-byte zero lead with lead)."""
+    return (bytes(4) if lead else b"") + b"".join(
+        icns_rle(px[..., c].tobytes()) for c in range(3))
+
+
+def j2k_fixtures(rng) -> dict:
+    """Small JPEG 2000 and ICNS files: Pillow's saves across its options;
+    codestreams from OpenJPEG's own encoder (j2k_encoder.py) for what
+    Pillow's save cannot set (each code-block style, ROI, POC, subsampled
+    components, precisions 1 to 16, image and tile offsets, tile-parts);
+    PPT and PPM forms of such a stream; JP2 boxes wrapped by hand (a pclr
+    with repeated colours and its cmap, cdef, colr 12, 16, 17, 18, res);
+    ICNS files of PNG, JP2 and run-length entries."""
+    out = {}
+    h, w = 5, 7
+    rgb = smooth_image(rng, h, w, 25.0)
+    im = PILImage.fromarray(rgb)
+
+    def j2k(name, img, **kw):
+        out[name] = ("j2k", _pillow(img, "JPEG2000", no_jp2=True, **kw))
+
+    j2k("j2k_pillow_l_5x7.j2k", im.convert("L"))
+    j2k("j2k_pillow_rgb_5x7.j2k", im)
+    rgba = im.convert("RGBA")
+    rgba.putalpha(PILImage.fromarray(rng.integers(0, 256, (h, w)).astype(
+        np.uint8)))
+    j2k("j2k_pillow_rgba_5x7.j2k", rgba)
+    j2k("j2k_pillow_la_5x7.j2k", rgba.convert("LA"))
+    i16 = PILImage.fromarray(rng.choice([0, 9, 200, 255, 256, 4000, 65535],
+                                        (h, w)).astype(np.uint16))
+    j2k("j2k_pillow_i16_5x7.j2k", i16)
+    j2k("j2k_pillow_l_signed_5x7.j2k", im.convert("L"), signed=True)
+    j2k("j2k_pillow_rgb_mct1_5x7.j2k", im, mct=1)
+    big = PILImage.fromarray(smooth_image(rng, 13, 15, 25.0))
+    j2k("j2k_pillow_97_13x15.j2k", big, irreversible=True, num_resolutions=3)
+    j2k("j2k_pillow_97_layers_13x15.j2k", big, irreversible=True,
+        num_resolutions=3, quality_layers=[60, 20, 5])
+    for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        j2k(f"j2k_pillow_{prog.lower()}_13x15.j2k", big, progression=prog,
+            num_resolutions=3, precinct_size=(8, 8), codeblock_size=(4, 4),
+            quality_layers=[30, 10])
+    j2k("j2k_pillow_tiles_11x13.j2k", PILImage.fromarray(
+        smooth_image(rng, 11, 13, 25.0)), tile_size=(8, 8), num_resolutions=2)
+    j2k("j2k_pillow_plt_comment_5x7.j2k", im, plt=True, comment="texels")
+    out["jp2_pillow_rgb_5x7.jp2"] = ("jp2", _pillow(im, "JPEG2000"))
+    out["jp2_pillow_l_97_13x15.jp2"] = ("jp2", _pillow(
+        big.convert("L"), "JPEG2000", irreversible=True, num_resolutions=3))
+    # OpenJPEG's encoder
+    planes = [p.astype(np.int32) for p in np.moveaxis(
+        smooth_image(rng, 9, 11, 20.0), 2, 0)]
+    for style in STYLE:
+        out[f"j2k_style_{style}_9x11.j2k"] = ("j2k", j2k_encode(
+            planes, styles=[style], codeblock=(4, 4), layers=[2.5, 1.2]))
+    out["j2k_style_all_97_9x11.j2k"] = ("j2k", j2k_encode(
+        planes, styles=list(STYLE), codeblock=(4, 4),
+        irreversible=True, layers=[2.5, 1.2]))
+    out["j2k_roi_shift_9x11.j2k"] = ("j2k", j2k_encode(
+        planes, roi=(0, 5), codeblock=(4, 4), layers=[2.5, 1.2]))
+    out["j2k_poc_9x11.j2k"] = ("j2k", j2k_encode(
+        planes, resolutions=3, layers=[2.5, 1.5, 1.2],
+        pocs=[(0, 0, 2, 2, 3, "RLCP", 1), (1, 0, 3, 3, 3, "CPRL", 1)]))
+    sub = [planes[0], planes[1][::2, ::2], planes[2][::2, ::2]]
+    out["j2k_subsampled_420_9x11.j2k"] = ("j2k", j2k_encode(
+        sub, sampling=[(1, 1), (2, 2), (2, 2)], mct=False))
+    out["jp2_subsampled_422_srgb_9x11.jp2"] = ("jp2", j2k_encode(
+        [planes[0], planes[1][:, ::2], planes[2][:, ::2]],
+        sampling=[(1, 1), (2, 1), (2, 1)], mct=False, jp2=True, colour=1))
+    for prec, signed in ((1, False), (4, False), (12, False), (16, False),
+                         (5, True), (13, True)):
+        lo = -(1 << (prec - 1)) if signed else 0
+        px = rng.integers(lo, lo + (1 << prec), (3, 5, 6))
+        out[f"j2k_prec{prec}{'_signed' if signed else ''}_5x6.j2k"] = (
+            "j2k", j2k_encode(list(px), precision=prec, signed=signed))
+    out["j2k_grey_prec10_5x6.j2k"] = ("j2k", j2k_encode(
+        [rng.integers(0, 1024, (5, 6))], precision=10))
+    out["j2k_offsets_9x11.j2k"] = ("j2k", j2k_encode(
+        planes, image_offset=(5, 3), tiles=(6, 5), tile_offset=(2, 1)))
+    for flag in ("R", "C"):
+        out[f"j2k_tile_parts_{flag}_9x11.j2k"] = ("j2k", j2k_encode(
+            planes, tiles=(8, 8), tile_parts=flag, resolutions=2,
+            layers=[2.5, 1.2]))
+    marked = j2k_encode(planes, sop=True, eph=True, tiles=(8, 8),
+                        resolutions=2, layers=[2.5, 1.2])
+    out["j2k_sop_eph_9x11.j2k"] = ("j2k", marked)
+    for where in ("ppt", "ppm"):
+        out[f"j2k_{where}_9x11.j2k"] = ("j2k", packed_headers(marked, where))
+    # JP2 boxes by hand
+    idx = rng.integers(0, 6, (h, w))
+    grey = j2k_encode([idx], precision=3)
+    entries = rng.integers(0, 256, (6, 3))
+    entries[4] = entries[1]                       # a repeated colour
+    out["jp2_pclr_repeated_5x7.jp2"] = ("jp2", jp2_file(
+        grey, pclr=(entries, (7, 7, 7)), cmap=[(0, 1, 0), (0, 1, 1),
+                                               (0, 1, 2)]))
+    out["jp2_pclr_rgba_5x7.jp2"] = ("jp2", jp2_file(
+        grey, pclr=(np.concatenate([entries, np.full((6, 1), 255)], 1),
+                    (7, 7, 7, 7)),
+        cmap=[(0, 1, c) for c in range(4)]))
+    rgb_cs = j2k_encode(planes)
+    small = [p[:5, :6] for p in planes]
+    out["jp2_cdef_alpha_first_5x6.jp2"] = ("jp2", jp2_file(
+        j2k_encode(small + small[:1]),
+        cdef=[(0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)]))
+    cmyk = [rng.integers(0, 256, (5, 6)) for _ in range(4)]
+    out["jp2_colr12_cmyk_5x6.jp2"] = ("jp2", jp2_file(
+        j2k_encode(cmyk, mct=False), colr=((1, 12),)))
+    out["jp2_colr16_res_9x11.jp2"] = ("jp2", jp2_file(rgb_cs, res=True))
+    out["jp2_colr17_grey_9x11.jp2"] = ("jp2", jp2_file(
+        j2k_encode(planes[:1]), colr=((1, 17),)))
+    out["jp2_colr18_sycc_9x11.jp2"] = ("jp2", jp2_file(
+        j2k_encode(planes, mct=False), colr=((1, 18),)))
+    out["jp2_two_colr_9x11.jp2"] = ("jp2", jp2_file(
+        rgb_cs, colr=((1, 16), (2, b"not read"))))
+    # ICNS
+    # icons of few colours in runs, so that the run-length entries are short
+    icon = np.repeat(rng.integers(0, 4, (16, 4, 3)) * 80, 4, axis=1).astype(
+        np.uint8)
+    out["icns_is32_s8mk.icns"] = ("icns", icns_file([
+        (b"is32", icns_rgb(icon)), (b"s8mk", icon[..., 0].tobytes())]))
+    icon32 = np.repeat(np.repeat(icon, 2, axis=0), 2, axis=1)
+    out["icns_il32_icp4_png.icns"] = ("icns", icns_file([
+        (b"il32", icns_rgb(icon32)), (b"icp4", png_file(icon, 8, 2))]))
+    icon128 = np.repeat(rng.integers(0, 4, (128, 1, 3)) * 80, 128,
+                        axis=1).astype(np.uint8)
+    out["icns_it32.icns"] = ("icns", icns_file([
+        (b"it32", icns_rgb(icon128, lead=True))]))
+    out["icns_icp5_jp2.icns"] = ("icns", icns_file([
+        (b"is32", icns_rgb(icon)), (b"icp5", _pillow(
+            PILImage.fromarray(icon32), "JPEG2000", irreversible=True,
+            quality_layers=[40]))]))
+    return out
+
+
+def j2k_chip_files(texels: np.ndarray) -> dict:
+    """The chip path's files of BIG's texels: their top-left 512x512 crop
+    as a lossless J2K codestream (5/3, RPCL, 256x256 tiles, SOP / EPH),
+    the texels as a lossy JP2 (9/7, ICT, three quality layers, 32x32
+    code-blocks) and an ICNS whose ic10 entry is that JP2."""
+    crop = texels[:J2K_CROP, :J2K_CROP]
+    lossless = j2k_encode(list(np.moveaxis(crop, 2, 0)), mct=True,
+                          progression="RPCL", tiles=(256, 256), sop=True,
+                          eph=True)
+    lossy = _pillow(PILImage.fromarray(texels), "JPEG2000",
+                    irreversible=True, mct=1, quality_layers=[200, 80, 40],
+                    codeblock_size=(32, 32))
+    return {J2K_LOSSLESS: ("j2k", lossless), JP2_LOSSY: ("jp2", lossy),
+            ICNS_JP2: ("icns", icns_file([(b"ic10", lossy)]))}
+
+
 def jax_pixels(path: str) -> np.ndarray:
     """cge_tpu's load_image of the file, quantised to u8 [H, W, 3]."""
     from cge_tpu.scene.image_io import load_image
@@ -2561,28 +2865,48 @@ def sha256(u8: np.ndarray) -> str:
                           .tobytes()).hexdigest()
 
 
-def main() -> int:
-    os.makedirs(OUT, exist_ok=True)
+def _write(directory: str, made: dict) -> list:
+    """Write each (kind, bytes) of made into directory; the manifest's
+    entries, with JAX's pixels' hashes."""
+    os.makedirs(directory, exist_ok=True)
     files = []
-    for name, (kind, data) in fixtures().items():
-        path = os.path.join(OUT, name)
+    for name, (kind, data) in made.items():
+        path = os.path.join(directory, name)
         with open(path, "wb") as f:
             f.write(data)
         u8 = jax_pixels(path)
         files.append(dict(name=name, kind=kind, bytes=len(data),
                           shape=list(u8.shape), sha256=sha256(u8)))
+    return files
+
+
+def _manifest(path: str, files: list) -> None:
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO,
                             capture_output=True, text=True).stdout.strip()
     meta = dict(pillow=PILImage.__version__,
                 libjpeg_turbo=features.version("libjpeg_turbo"),
+                openjpeg=features.version("jpg_2000"),
                 commit=commit, command=COMMAND, seed=16, files=files)
-    with open(MANIFEST, "w") as f:
+    with open(path, "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
+
+
+def main() -> int:
+    made = fixtures()
+    files = _write(OUT, made)
+    _manifest(MANIFEST, files)
     total = sum(x["bytes"] for x in files)
     print(f"{len(files)} fixtures, {total} bytes, in "
           f"{os.path.relpath(OUT, REPO)} ({BIG}: "
           f"{next(x['bytes'] for x in files if x['name'] == BIG)} bytes)")
+    texels = np.asarray(PILImage.open(io.BytesIO(made[BIG][1])).convert(
+        "RGB"))
+    chip = _write(J2K_CHIP_DIR, j2k_chip_files(texels))
+    _manifest(os.path.join(J2K_CHIP_DIR, "manifest.json"), chip)
+    print(f"{len(chip)} chip-path files, "
+          f"{sum(x['bytes'] for x in chip)} bytes, in "
+          f"{os.path.relpath(J2K_CHIP_DIR, REPO)}")
     return 0
 
 

@@ -524,11 +524,12 @@ def test_image_decoders_under_asan_ubsan(tmp_path):
     at -O0 and loaded into a Python with ASan preloaded (and every Python
     object in malloc's memory, so that ASan fences each file's bytes):
     every small TGA, GIF, PSD, PNG, TIFF, WebP, DDS, SGI, PCX, DCX, QOI,
-    ICO, CUR, BLP, FTEX and Sun raster fixture (tests/torch_textures/; the
-    TIFF LZW and predictors, the VP8, VP8L and ALPH bit readers, the BC6H
-    and BC7 bit readers and partition tables of cge_bcn_decode, and the
-    SGI, PCX and Sun run-length rows and the QOI op stream of
-    cge_raster.cpp among the entries) decodes whole to its manifest
+    ICO, CUR, BLP, FTEX, Sun raster, JPEG 2000 and ICNS fixture
+    (tests/torch_textures/; the TIFF LZW and predictors, the VP8, VP8L and
+    ALPH bit readers, the BC6H and BC7 bit readers and partition tables of
+    cge_bcn_decode, the SGI, PCX, Sun and ICNS run-length rows and the QOI
+    op stream of cge_raster.cpp, and the JPEG 2000 codestreams of
+    cge_j2k.cpp among the entries) decodes whole to its manifest
     hash, then cut short at eight lengths and with bytes flipped; a
     damaged file decodes or raises a ValueError, and nothing faults (UBSan
     halts on its first report)."""
@@ -538,7 +539,8 @@ def test_image_decoders_under_asan_ubsan(tmp_path):
                    if f.split(".")[-1] in ("tga", "gif", "psd", "png", "tif",
                                            "webp", "dds", "sgi", "bw", "pcx",
                                            "dcx", "qoi", "ico", "cur", "blp",
-                                           "ftc", "ftu", "ras")
+                                           "ftc", "ftu", "ras", "j2k", "jp2",
+                                           "icns")
                    and os.path.getsize(os.path.join(fixtures, f)) < 20000)
     assert len(names) >= 80
     assert sum(f.endswith(".tif") for f in names) >= 250
@@ -546,6 +548,7 @@ def test_image_decoders_under_asan_ubsan(tmp_path):
     assert sum(f.endswith(".dds") for f in names) >= 60
     assert sum(f.endswith((".sgi", ".bw", ".pcx", ".dcx", ".qoi", ".ras"))
                for f in names) >= 19
+    assert sum(f.endswith((".j2k", ".jp2", ".icns")) for f in names) >= 50
     # ASan first; libstdc++ loaded with it, or ASan cannot intercept the
     # decoders' C++ exceptions
     preload = " ".join(subprocess.run(

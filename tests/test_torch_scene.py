@@ -302,7 +302,8 @@ def test_port_never_imports_jax():
     assert {"cge_tpu_torch/scene/jpeg.py", "cge_tpu_torch/scene/mesh_io.py",
             "cge_tpu_torch/ops/texture.py", "cge_tpu_torch/scene/tga.py",
             "cge_tpu_torch/scene/pnm.py", "cge_tpu_torch/scene/gif.py",
-            "cge_tpu_torch/scene/psd.py"} <= names
+            "cge_tpu_torch/scene/psd.py", "cge_tpu_torch/scene/jpeg2000.py",
+            "cge_tpu_torch/scene/icns.py"} <= names
     assert [(f.name, m) for f in files for m in _imports(f)
             if m.startswith("PIL")] == []
 
