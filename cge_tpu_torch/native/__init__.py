@@ -112,6 +112,8 @@ _SIGNATURES = {
                      ctypes.c_long, _P, ctypes.c_char_p, _I]),
     "cge_icns_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    "cge_thunder": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                         ctypes.c_long, _P, ctypes.c_char_p, _I]),
     "cge_j2k_open": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.POINTER(_P), ctypes.c_char_p, _I]),
     "cge_j2k_info": (None, [_P, _P]),
@@ -590,6 +592,46 @@ def icns_rle(data: bytes, offset: int, pixels: int) -> np.ndarray:
     decode_call(library().cge_icns_rle, data, len(data), offset, pixels,
                 out.ctypes.data)
     return np.ascontiguousarray(out.T)
+
+
+# a colour flag of the JPEG-in-TIFF entry points: libtiff's old-style JPEG
+# source, under which a restart marker out of place is an error
+OJPEG_SOURCE = 4
+
+
+def jpeg_tiff_planes(data: bytes) -> tuple:
+    """A JPEG stream's raw data (jpeg_read_raw_data, as libtiff's old-style
+    JPEG codec reads YCbCr), read through that codec's source
+    (OJPEG_SOURCE): (each component's uint8 plane of every block in the MCU
+    grid, [MCU rows x v x 8, MCU columns x h x 8], neither upsampled nor
+    converted; the MCU row at whose restart marker the source failed, after
+    which nothing was decoded, or -1). The first component must hold the
+    largest factors and the others 1x1."""
+    w, h, nc, h0, v0, rest = jpeg_tiff_info(b"", data, 2 | OJPEG_SOURCE)
+    if not rest:
+        raise ValueError("raw JPEG data of components sampled other than "
+                         "1x1 after the first")
+    mx, my = -(-w // (8 * h0)), -(-h // (8 * v0))
+    sizes = [(my * v0 * 8, mx * h0 * 8)] + [(my * 8, mx * 8)] * (nc - 1)
+    total = sum(a * b for a, b in sizes)
+    out = np.zeros(max(total + 4, w * h * nc), np.uint8)
+    decode_call(library().cge_jpeg_tiff_decode, b"", 0, data, len(data),
+                2 | OJPEG_SOURCE, out.ctypes.data, out.size)
+    planes, at = [], 0
+    for a, b in sizes:
+        planes.append(out[at:at + a * b].reshape(a, b))
+        at += a * b
+    return planes, int(out[total:total + 4].view(np.int32)[0])
+
+
+def thunder(data: bytes, width: int, rows: int) -> np.ndarray:
+    """A ThunderScan strip (TIFF compression 32809) -> rows [rows, (width
+    + 1) / 2] uint8 of 4-bit pixels, as libtiff's ThunderDecode gives them;
+    an error where a row's data run short or over."""
+    out = np.zeros((rows, (width + 1) // 2), np.uint8)
+    decode_call(library().cge_thunder, data, len(data), width, rows,
+                out.ctypes.data)
+    return out
 
 
 class J2k:

@@ -39,12 +39,23 @@
 //   - RCT and ICT (float32, opj_mct_decode_real's order), the DC level
 //     shift, lrintf rounding and the clamp to each component's range.
 //
-// HTJ2K (Part 15: a CAP or CPF marker, or code-block style bit 6 or 7) and
-// Part 2 (MCT / MCC / MCO / CBD / ATK / ADS markers, transforms past 5/3
-// and 9/7, an MCT of 2) are refused by name; Rsiz's Part 2 and Part 15 bits
-// alone are not, as OpenJPEG decodes such a stream as Part 1. The file is
-// built with -ffp-contract=off (no fused multiply-add) and -fwrapv, as
-// OpenJPEG's float and integer paths compute.
+// Part 2 goes as far as OpenJPEG takes it: MCT records (each element
+// type), MCC collections and the MCO order are read with OpenJPEG's checks
+// (what it warns about and passes over is passed over); an MCO sets each
+// component's DC level shift to 0, then to its first MCC record's offsets
+// where that record is the stage named (OpenJPEG's search looks no
+// further) and matches the image, offsets converted as OpenJPEG does (int16
+// read unsigned, floats truncated); a CBD sets the components' precision
+// and sign after SIZ (the level shifts keep SIZ's); ATK and ADS, which
+// OpenJPEG does not know, are skipped as unknown markers. OpenJPEG refuses
+// a COD's or COC's transform past 5/3 and 9/7 and a COD's MCT of 2 (Part
+// 2's custom transform), and so does this file, so no custom transform is
+// ever applied. HTJ2K (Part 15: a CAP or CPF marker, or code-block style
+// bit 6 or 7) is refused by name: it waits for the context VLC tables of
+// ITU-T T.814. Rsiz's Part 2 and Part 15 bits alone are not refused, as
+// OpenJPEG decodes such a stream as Part 1. The file is built with
+// -ffp-contract=off (no fused multiply-add) and -fwrapv, as OpenJPEG's float
+// and integer paths compute.
 //
 // Entry points (C ABI, loaded with ctypes): cge_j2k_open parses the main
 // header into a handle, cge_j2k_info and cge_j2k_comp read it,
@@ -97,8 +108,8 @@ enum Marker : uint32_t {
     kSOC = 0xFF4F, kCAP = 0xFF50, kSIZ = 0xFF51, kCOD = 0xFF52, kCOC = 0xFF53,
     kTLM = 0xFF55, kPLM = 0xFF57, kPLT = 0xFF58, kCPF = 0xFF59, kQCD = 0xFF5C,
     kQCC = 0xFF5D, kRGN = 0xFF5E, kPOC = 0xFF5F, kPPM = 0xFF60, kPPT = 0xFF61,
-    kCRG = 0xFF63, kCOM = 0xFF64, kADS = 0xFF73, kMCT = 0xFF74,
-    kMCC = 0xFF75, kMCO = 0xFF77, kCBD = 0xFF78, kATK = 0xFF79,
+    kCRG = 0xFF63, kCOM = 0xFF64, kMCT = 0xFF74, kMCC = 0xFF75,
+    kMCO = 0xFF77, kCBD = 0xFF78,
     kSOT = 0xFF90, kSOP = 0xFF91, kEPH = 0xFF92, kSOD = 0xFF93, kEOC = 0xFFD9,
 };
 
@@ -121,6 +132,8 @@ struct StepSize {
 struct CompCoding {                 // opj_tccp_t
     uint32_t csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0;
     uint32_t qmfbid = 0, qntsty = 0, numgbits = 0, roishift = 0;
+    // m_dc_level_shift: set from SIZ's precision and sign, and by an MCO
+    int32_t dc_shift = 0;
     uint32_t prcw[kMaxRes] = {}, prch[kMaxRes] = {};
     StepSize steps[kMaxBands];
 };
@@ -129,6 +142,21 @@ struct Poc {
     uint32_t resno0 = 0, compno0 = 0, layno1 = 0, resno1 = 0, compno1 = 0;
     uint32_t prg = 0;
 };
+
+// Part 2 multiple component transform records (opj_mct_data_t and
+// opj_simple_mcc_decorrelation_data_t); an MCC names its arrays by their
+// place among the MCT records (-1: none)
+struct MctRecord {
+    uint32_t index = 0;
+    int element_type = 0;
+    std::vector<uint8_t> data;
+};
+struct MccRecord {
+    uint32_t index = 0, nb_comps = 0;
+    int deco = -1, offset = -1;
+};
+// OpenJPEG's first allocation of MCC records (OPJ_J2K_MCC_DEFAULT_NB_RECORDS)
+constexpr size_t kMccSlots = 10;
 
 struct TileCoding {                 // opj_tcp_t
     uint32_t csty = 0, prg = 0, numlayers = 0, mct = 0;
@@ -146,6 +174,11 @@ struct TileCoding {                 // opj_tcp_t
     std::vector<uint8_t> ppt_data;
     size_t ppt_pos = 0;
     bool decoded = false;
+    std::vector<MctRecord> mct_records;
+    // the MCC records, the first nb_mcc of them read; the slot after them
+    // keeps what a reading that stopped early wrote there
+    std::vector<MccRecord> mcc = std::vector<MccRecord>(kMccSlots);
+    size_t nb_mcc = 0;
 };
 
 struct Comp {
@@ -705,6 +738,9 @@ struct Decoder {
         if (!tw || !th || tw > 65535 / th)
             fail("JPEG 2000 SIZ marker: an invalid number of tiles");
         defaults.comps.assign(csiz, CompCoding());
+        for (uint32_t i = 0; i < csiz; ++i)
+            defaults.comps[i].dc_shift =
+                comps[i].sgnd ? 0 : int32_t(1) << (comps[i].prec - 1);
         resno_decoded.assign(csiz, 0);
         state = kMH;
     }
@@ -725,12 +761,12 @@ struct Decoder {
         if (t.cblksty & 0xC0)
             fail("JPEG 2000 HTJ2K (Part 15) code-blocks (style " +
                  hex4(t.cblksty) + "): high-throughput code-blocks are not "
-                 "supported");
+                 "ported (they wait for ITU-T T.814's context VLC tables)");
         t.qmfbid = p[4];
         if (t.qmfbid > 1)
             fail(std::string("JPEG 2000 ") + what + " marker: transform " +
-                 std::to_string(t.qmfbid) + " (Part 2 kernels are not "
-                 "supported)");
+                 std::to_string(t.qmfbid) + " (a Part 2 kernel): OpenJPEG "
+                 "refuses it (Invalid transformation found)");
         p += 5;
         n -= 5;
         if (t.csty & 1) {
@@ -764,7 +800,8 @@ struct Decoder {
         tcp.mct = p[4];
         if (tcp.mct > 1)
             fail("JPEG 2000 COD marker: multiple component transform " +
-                 std::to_string(tcp.mct) + " (Part 2) is not supported");
+                 std::to_string(tcp.mct) + " (Part 2's custom one): OpenJPEG "
+                 "refuses it (Invalid multiple component transformation)");
         p += 5;
         n -= 5;
         for (auto& c : tcp.comps) c.csty = tcp.csty & 1;
@@ -987,6 +1024,182 @@ struct Decoder {
         if (packet) fail("JPEG 2000 PLT marker: a packet length cut short");
     }
 
+    // -------------------------------------------------- Part 2 (MCT, MCC,
+    // MCO, CBD), as OpenJPEG reads them: what it warns about and passes over
+    // is passed over, what it fails on fails
+
+    static uint32_t be(const uint8_t* p, int n) {
+        uint32_t v = 0;
+        for (int i = 0; i < n; ++i) v = v << 8 | p[i];
+        return v;
+    }
+
+    void read_mct(const uint8_t* p, uint32_t n) {
+        TileCoding& tcp = coding();
+        if (n < 2) fail("JPEG 2000: Error reading MCT marker (too short)");
+        if (be(p, 2)) return;           // Zmct: multiple MCT records
+        if (n <= 6) fail("JPEG 2000: Error reading MCT marker (too short)");
+        const uint32_t imct = be(p + 2, 2), index = imct & 0xFF;
+        MctRecord* rec = nullptr;
+        for (MctRecord& r : tcp.mct_records)
+            if (r.index == index) {
+                rec = &r;
+                break;
+            }
+        if (!rec) {
+            tcp.mct_records.emplace_back();
+            rec = &tcp.mct_records.back();
+        }
+        rec->data.clear();
+        rec->index = index;
+        rec->element_type = static_cast<int>((imct >> 10) & 3);
+        if (be(p + 4, 2)) return;       // Ymct: the record left empty
+        rec->data.assign(p + 6, p + n);
+    }
+
+    int find_mct(const TileCoding& tcp, uint32_t index) const {
+        for (size_t j = 0; j < tcp.mct_records.size(); ++j)
+            if (tcp.mct_records[j].index == index) return static_cast<int>(j);
+        return -1;
+    }
+
+    void read_mcc(const uint8_t* p, uint32_t n) {
+        TileCoding& tcp = coding();
+        const std::string bad = "JPEG 2000: Error reading MCC marker";
+        if (n < 2) fail(bad + " (too short)");
+        if (be(p, 2)) return;           // Zmcc: data spanning markers
+        if (n < 7) fail(bad + " (too short)");
+        const uint32_t index = p[2];
+        size_t at = 0;
+        while (at < tcp.nb_mcc && tcp.mcc[at].index != index) ++at;
+        const bool fresh = at == tcp.nb_mcc;
+        if (fresh && tcp.nb_mcc == tcp.mcc.size())
+            tcp.mcc.resize(tcp.mcc.size() + kMccSlots);
+        MccRecord& rec = tcp.mcc[at];
+        rec.index = index;
+        if (be(p + 3, 2)) return;       // Ymcc: data spanning markers
+        const uint32_t collections = be(p + 5, 2);
+        if (collections > 1) return;    // more than one collection
+        const uint8_t* q = p + 7;
+        uint32_t size = n - 7;
+        for (uint32_t c = 0; c < collections; ++c) {
+            if (size < 3) fail(bad + " (too short)");
+            if (q[0] != 1) return;      // not an array decorrelation
+            const uint32_t nb = be(q + 1, 2);
+            q += 3;
+            size -= 3;
+            uint32_t width = 1 + (nb >> 15);
+            rec.nb_comps = nb & 0x7FFF;
+            if (size < width * rec.nb_comps + 2) fail(bad + " (too short)");
+            size -= width * rec.nb_comps + 2;
+            for (uint32_t j = 0; j < rec.nb_comps; ++j, q += width)
+                if (be(q, static_cast<int>(width)) != j) return;  // shuffled
+            const uint32_t nb2 = be(q, 2);
+            q += 2;
+            width = 1 + (nb2 >> 15);
+            if ((nb2 & 0x7FFF) != rec.nb_comps) return;
+            if (size < width * rec.nb_comps + 3) fail(bad + " (too short)");
+            size -= width * rec.nb_comps + 3;
+            for (uint32_t j = 0; j < rec.nb_comps; ++j, q += width)
+                if (be(q, static_cast<int>(width)) != j) return;  // shuffled
+            const uint32_t t = be(q, 3);
+            q += 3;
+            rec.deco = rec.offset = -1;
+            if (t & 0xFF) {
+                rec.deco = find_mct(tcp, t & 0xFF);
+                if (rec.deco < 0)
+                    fail(bad + " (its decorrelation array " +
+                         std::to_string(t & 0xFF) + " is no MCT record)");
+            }
+            if ((t >> 8) & 0xFF) {
+                rec.offset = find_mct(tcp, (t >> 8) & 0xFF);
+                if (rec.offset < 0)
+                    fail(bad + " (its offset array " +
+                         std::to_string((t >> 8) & 0xFF) +
+                         " is no MCT record)");
+            }
+        }
+        if (size) fail(bad + " (its size does not match)");
+        if (fresh) ++tcp.nb_mcc;
+    }
+
+    // opj_j2k_add_mct: a stage of the MCO. OpenJPEG's search looks at the
+    // first MCC record only; its offsets become the level shifts.
+    void add_mct(TileCoding& tcp, uint32_t index) {
+        static const uint32_t kSize[4] = {2, 4, 4, 8};
+        if (!tcp.nb_mcc || tcp.mcc[0].index != index) return;
+        const MccRecord& rec = tcp.mcc[0];
+        const uint32_t nc = static_cast<uint32_t>(comps.size());
+        if (rec.nb_comps != nc) return;
+        if (rec.deco >= 0) {
+            const MctRecord& d = tcp.mct_records[rec.deco];
+            if (d.data.size() != kSize[d.element_type] * nc * nc)
+                fail("JPEG 2000 MCO marker: its decorrelation array holds " +
+                     std::to_string(d.data.size()) + " bytes, not " +
+                     std::to_string(kSize[d.element_type] * nc * nc));
+        }
+        if (rec.offset < 0) return;
+        const MctRecord& o = tcp.mct_records[rec.offset];
+        const uint32_t size = kSize[o.element_type];
+        if (o.data.size() != size * nc)
+            fail("JPEG 2000 MCO marker: its offset array holds " +
+                 std::to_string(o.data.size()) + " bytes, not " +
+                 std::to_string(size * nc));
+        for (uint32_t i = 0; i < nc; ++i) {
+            const uint8_t* v = o.data.data() + size * i;
+            int32_t shift;
+            if (o.element_type == 0) {          // int16, read unsigned
+                shift = static_cast<int32_t>(be(v, 2));
+            } else if (o.element_type == 1) {   // int32
+                shift = static_cast<int32_t>(be(v, 4));
+            } else {                            // float32, float64: (int)
+                double f;
+                if (o.element_type == 2) {
+                    const uint32_t bits = be(v, 4);
+                    float g;
+                    std::memcpy(&g, &bits, 4);
+                    f = g;
+                } else {
+                    const uint64_t bits =
+                        static_cast<uint64_t>(be(v, 4)) << 32 | be(v + 4, 4);
+                    std::memcpy(&f, &bits, 8);
+                }
+                // x86's truncating conversion: out of range or NaN gives
+                // INT32_MIN
+                shift = (f > -2147483649.0 && f < 2147483648.0)
+                            ? static_cast<int32_t>(f) : INT32_MIN;
+            }
+            tcp.comps[i].dc_shift = shift;
+        }
+    }
+
+    void read_mco(const uint8_t* p, uint32_t n) {
+        TileCoding& tcp = coding();
+        if (n < 1) fail("JPEG 2000: Error reading MCO marker (too short)");
+        const uint32_t stages = p[0];
+        if (stages > 1) return;         // multiple transformation stages
+        if (n != stages + 1)
+            fail("JPEG 2000: Error reading MCO marker (its size does not "
+                 "match)");
+        for (CompCoding& c : tcp.comps) c.dc_shift = 0;
+        for (uint32_t i = 0; i < stages; ++i) add_mct(tcp, p[1 + i]);
+    }
+
+    void read_cbd(const uint8_t* p, uint32_t n) {
+        const uint32_t nc = static_cast<uint32_t>(comps.size());
+        if (n != nc + 2 || be(p, 2) != nc)
+            fail("JPEG 2000: Error reading CBD marker (OpenJPEG: 'Crror "
+                 "reading CBD marker')");
+        for (uint32_t i = 0; i < nc; ++i) {
+            comps[i].sgnd = (p[2 + i] >> 7) & 1;
+            comps[i].prec = (p[2 + i] & 0x7F) + 1u;
+            if (comps[i].prec > 31)
+                fail("JPEG 2000 CBD marker: component " + std::to_string(i) +
+                     " of " + std::to_string(comps[i].prec) + " bits: "
+                     "OpenJPEG reads up to 31");
+        }
+    }
+
     // the handler of a marker and the states it may come in; false for one
     // OpenJPEG does not know
     bool handler(uint32_t m, uint32_t* states) {
@@ -1029,12 +1242,12 @@ struct Decoder {
         case kCAP: case kCPF:
             fail("JPEG 2000 HTJ2K (Part 15) codestream (a " +
                  std::string(m == kCAP ? "CAP" : "CPF") + " marker): "
-                 "high-throughput code-blocks are not supported");
-        case kMCT: case kMCC: case kMCO: case kCBD:
-            fail("JPEG 2000 Part 2 codestream (an " +
-                 std::string(m == kMCT ? "MCT" : m == kMCC ? "MCC"
-                             : m == kMCO ? "MCO" : "CBD") +
-                 " marker): Part 2 extensions are not supported");
+                 "high-throughput code-blocks are not ported (they wait for "
+                 "ITU-T T.814's context VLC tables)");
+        case kMCT: read_mct(p, n); break;
+        case kMCC: read_mcc(p, n); break;
+        case kMCO: read_mco(p, n); break;
+        case kCBD: read_cbd(p, n); break;
         case kSOT: read_sot(p, n); break;
         default: fail("JPEG 2000 marker " + hex4(m) + " has no reader");
         }
@@ -1046,10 +1259,6 @@ struct Decoder {
             uint32_t m;
             if (!read16(&m)) fail("JPEG 2000: the stream is cut short in an "
                                   "unknown marker segment");
-            if (m == kATK || m == kADS)
-                fail(std::string("JPEG 2000 Part 2 codestream (an ") +
-                     (m == kATK ? "ATK" : "ADS") + " marker): Part 2 "
-                     "extensions are not supported");
             if (m >= 0xFF00) {
                 uint32_t states;
                 const bool known = handler(m, &states);
@@ -1070,10 +1279,6 @@ struct Decoder {
             if (m < 0xFF00)
                 fail("JPEG 2000: a marker was expected, not " + hex4(m));
             uint32_t states;
-            if (m == kATK || m == kADS)
-                fail(std::string("JPEG 2000 Part 2 codestream (an ") +
-                     (m == kATK ? "ATK" : "ADS") + " marker): Part 2 "
-                     "extensions are not supported");
             if (!handler(m, &states)) {
                 m = skip_unknown();
                 if (m == kSOT) break;
@@ -1193,10 +1398,6 @@ struct Decoder {
                 size -= 2;
                 uint32_t states;
                 const bool known = handler(m, &states);
-                if (m == kATK || m == kADS)
-                    fail(std::string("JPEG 2000 Part 2 codestream (an ") +
-                         (m == kATK ? "ATK" : "ADS") + " marker): Part 2 "
-                         "extensions are not supported");
                 if (!(state & states))
                     fail("JPEG 2000 marker " + hex4(m) + " out of place");
                 if (left() < size) {
@@ -1928,7 +2129,7 @@ struct Decoder {
                 lo = 0;
                 hi = static_cast<int32_t>((1u << comp.prec) - 1);
             }
-            const int32_t shift = comp.sgnd ? 0 : 1 << (comp.prec - 1);
+            const int32_t shift = tcp.comps[c].dc_shift;
             const size_t n = tc.idata.size();
             if (tcp.comps[c].qmfbid == 1) {
                 for (size_t i = 0; i < n; ++i) {

@@ -54,7 +54,10 @@
 // first, then the strip's or tile's abbreviated stream, in the colour space
 // the TIFF sets (no conversion, 1 to 4 components; or YCbCr -> RGB),
 // whatever its JFIF or Adobe markers say, from one buffer (no 64 KB
-// blocks).
+// blocks). Old-style JPEG in TIFF (scene/ojpeg.py, compression 6) runs it
+// on the stream libtiff's tif_ojpeg.c rebuilds, through that codec's
+// source, whose resync_to_restart is an error, and YCbCr as raw data
+// (jpeg_read_raw_data: each component's samples as the IDCT gives them).
 //
 // Entry points (C ABI, loaded with ctypes): cge_jpeg_info parses the
 // headers and gives the size and the channels of the output (3: RGB, 4:
@@ -76,6 +79,9 @@ namespace {
 struct DecodeError {
     std::string what;
 };
+
+// a restart marker out of place under libtiff's old-style JPEG source
+struct ResyncFailed {};
 
 // The end of the data where libjpeg takes it as the end of the image: a
 // source that supplies an EOI there (libtiff's), or Pillow's once the
@@ -198,18 +204,26 @@ class Decoder {
     int width = 0, height = 0;
     // the colour space: -1 chosen by the markers, as jdapimin.c does (the
     // output RGB or CMYK); 0 none (JCS_UNKNOWN: each component as it is, 1
-    // to 4 of them); 1 YCbCr (-> RGB), whatever the markers say
+    // to 4 of them); 1 YCbCr (-> RGB), whatever the markers say; 2 raw
+    // data (jpeg_read_raw_data: each component's samples at its own
+    // sampling, neither upsampled nor converted, one plane after another)
     int color = -1;
     int ncomp() const { return static_cast<int>(comps_.size()); }
     // the bytes of an output pixel: 3 (RGB), or 4 (CMYK) for four
     // components under color -1; the components themselves under color 0
+    // (and at most that under color 2)
     int channels() const {
-        return color == 0 ? ncomp() : (ncomp() == 4 ? 4 : 3);
+        return color == 0 || color == 2 ? ncomp() : (ncomp() == 4 ? 4 : 3);
     }
     // the first component's sampling factors as the frame header gives
     // them, and whether all others are 1x1 (libtiff's checks)
     int h0 = 1, v0 = 1;
     bool rest_1x1 = true;
+    // libtiff's old-style JPEG source: its resync_to_restart is an error;
+    // under raw data (libtiff's RGBA path, which goes on past a strip that
+    // fails) the decoding stops there and the MCU row is given after the
+    // planes, otherwise the decoding fails
+    bool resync_fails = false;
 
   private:
     const uint8_t* data_;
@@ -238,6 +252,9 @@ class Decoder {
     // whole (Huffman's insufficient_data), past which smoothing takes
     // each component's coefficient bits from before its last scan
     int last_good_row_ = 0;
+    // the MCU row whose restart failed under libtiff's old-style JPEG
+    // source (-1: none)
+    int resync_row_ = -1;
 
     // Huffman entropy-coded segment reader
     uint32_t bitbuf_ = 0;
@@ -317,7 +334,7 @@ class Decoder {
 
     bool smoothing_ok() const;
     void idct_plane(const Component& c, bool smooth,
-                    std::vector<uint8_t>& plane) const;
+                    std::vector<uint8_t>& plane, bool padded = false) const;
     void undifference(Component& c, int psv, int pt,
                       const std::vector<char>& first_rows);
 };
@@ -456,7 +473,8 @@ void Decoder::read_sof(int m, size_t end) {
     if (height == 0) fail("JPEG with height 0 (set by a DNL marker) is "
                           "not supported");
     if (width == 0) fail("corrupt JPEG data: width 0");
-    if (color == 0 ? (nc < 1 || nc > 4) : (nc != 1 && nc != 3 && nc != 4))
+    if (color == 0 || color == 2 ? (nc < 1 || nc > 4)
+                                 : (nc != 1 && nc != 3 && nc != 4))
         fail(std::to_string(nc) + "-component JPEG is not supported "
              "(Pillow reads 1, 3 and 4 components)");
     if (pos_ + 3 * nc > end) fail("corrupt JPEG data: short SOF");
@@ -712,6 +730,7 @@ void Decoder::read_restart_marker() {
         unread_ = 0;
         return;
     }
+    if (resync_fails) throw ResyncFailed{};
     for (;;) {
         const int m = unread_;
         int action;
@@ -1211,7 +1230,16 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
             // restart) keeps its iMCU row good
             if (!insufficient_) last_good_row_ = one ? my / scomps[0]->v : my;
             if (restart_interval_ && done && done % restart_interval_ == 0) {
-                restart(scomps, ss, ah);
+                try {
+                    restart(scomps, ss, ah);
+                } catch (const ResyncFailed&) {
+                    if (color != 2)
+                        fail("LibJpeg: Unexpected error (libtiff's "
+                             "old-style JPEG source does not resynchronise "
+                             "at a restart marker)");
+                    resync_row_ = my;
+                    return;
+                }
                 failed = false;
                 if (lossless_ && mx == 0)
                     for (size_t i = 0; i < scomps.size(); ++i)
@@ -1449,7 +1477,7 @@ void smooth_block(const int* dcv, const uint16_t* q, const int* coef_bits,
 // a row can reach the padding rows of the last iMCU row, and the last
 // iMCU row's rows other neighbours than the plain clamp would give.
 void Decoder::idct_plane(const Component& c, bool smooth,
-                         std::vector<uint8_t>& plane) const {
+                         std::vector<uint8_t>& plane, bool padded) const {
     const int pw = c.bw * 8;
     std::vector<uint8_t> full(static_cast<size_t>(pw) * c.bh * 8);
     auto block = [&](int by, int bx) {
@@ -1503,6 +1531,10 @@ void Decoder::idct_plane(const Component& c, bool smooth,
                 }
             }
         }
+    }
+    if (padded) {              // every block of the MCU grid, as it is
+        plane.swap(full);
+        return;
     }
     plane.resize(static_cast<size_t>(c.width) * c.height);
     for (int y = 0; y < c.height; ++y)
@@ -1624,6 +1656,7 @@ void Decoder::decode(uint8_t* out) {
                 if (scans_ == 1)
                     multiscan_ = progressive_ || scomps.size() < comps_.size();
                 decode_scan(scomps, ss, se, ah, al);
+                if (resync_row_ >= 0) break;    // libjpeg stops here
                 if (!multiscan_) end_is_eoi_ = true;
                 // on to the next marker (unread_, or past the scan's last
                 // bytes)
@@ -1666,6 +1699,13 @@ void Decoder::decode(uint8_t* out) {
     for (size_t i = 0; i < comps_.size(); ++i) {
         std::vector<uint8_t> plane;
         const Component& c = comps_[i];
+        if (color == 2) {      // raw data: the MCU grid's blocks, as they are
+            if (lossless_) fail("raw data of a lossless JPEG");
+            idct_plane(c, smooth, plane, true);
+            std::memcpy(out, plane.data(), plane.size());
+            out += plane.size();
+            continue;
+        }
         if (lossless_)
             plane = c.samples;
         else
@@ -1674,6 +1714,11 @@ void Decoder::decode(uint8_t* out) {
             fail("corrupt JPEG data: a component was never coded");
         upsample(plane, c.width, c.height, hmax_ / c.h, vmax_ / c.v,
                  !lossless_, width, height, planes[i]);
+    }
+    if (color == 2) {           // then the MCU row whose restart failed
+        const int32_t row = resync_row_;
+        std::memcpy(out, &row, sizeof row);
+        return;
     }
     const size_t npx = static_cast<size_t>(width) * height;
     if (space == kNone || space == kRgb || space == kCmyk) {
@@ -1769,14 +1814,16 @@ int cge_jpeg_decode(const unsigned char* data, long n, unsigned char* out,
 // JPEG in TIFF (compression 7), as libtiff's tif_jpeg.c hands it to
 // libjpeg: the tables-only stream of the JPEGTables tag (tn 0: none), then
 // the strip's or tile's own stream, decoded in the colour space the TIFF
-// sets (color: 0 none, 1 YCbCr -> RGB). info: width, height, components,
+// sets (color: 0 none, 1 YCbCr -> RGB; 2 raw data, as libtiff's
+// old-style JPEG codec reads YCbCr). info: width, height, components,
 // the first component's sampling factors, and 1 if the others are 1x1.
 int cge_jpeg_tiff_info(const unsigned char* tables, long tn,
                        const unsigned char* data, long n, int color,
                        int* info, char* err, int errlen) {
     return guarded(err, errlen, [&] {
         Decoder d(data, static_cast<size_t>(n));
-        d.color = color;
+        d.color = color & 3;
+        d.resync_fails = (color & 4) != 0;
         if (tn > 0) d.load_tables(tables, static_cast<size_t>(tn));
         d.parse_headers();
         info[0] = d.width;
@@ -1789,14 +1836,19 @@ int cge_jpeg_tiff_info(const unsigned char* tables, long tn,
 }
 
 // ... and its samples: [height][width][components] with color 0, [height]
-// [width][3] RGB with color 1.
+// [width][3] RGB with color 1, each component's plane of its blocks in the
+// MCU grid ([MCU rows x v x 8][MCU columns x h x 8], the blocks past the
+// component's own size included) in turn with color 2, then an int32: the
+// MCU row at whose restart libtiff's old-style JPEG source failed (-1:
+// none).
 int cge_jpeg_tiff_decode(const unsigned char* tables, long tn,
                          const unsigned char* data, long n, int color,
                          unsigned char* out, long capacity, char* err,
                          int errlen) {
     return guarded(err, errlen, [&] {
         Decoder d(data, static_cast<size_t>(n));
-        d.color = color;
+        d.color = color & 3;
+        d.resync_fails = (color & 4) != 0;
         if (tn > 0) d.load_tables(tables, static_cast<size_t>(tn));
         d.parse_headers();
         if (static_cast<long>(d.width) * d.height * d.channels() > capacity)

@@ -30,7 +30,14 @@
 //     IcnsImagePlugin.read_32: the red, green and blue channels one after
 //     another, a byte b >= 0x80 repeating the next byte b - 125 times, any
 //     other b + 1 literal bytes; a channel whose runs overrun its pixels,
-//     or whose data end first (a read cut short included), is an error.
+//     or whose data end first (a read cut short included), is an error;
+//   - ThunderScan 4-bit rows (cge_thunder), as libtiff 4.7's tif_thunder.c
+//     ThunderDecode: each row from a last pixel of 0, a byte's top two bits
+//     choosing a run of the last pixel (its low six bits the count), three
+//     2-bit or two 3-bit deltas from it (the skip codes 2 and 4 writing
+//     none), or a raw pixel; a row that the data leave short, or that a run
+//     overruns (it then writes none of its pixels), is an error (libtiff's
+//     "Not enough" / "Too much data").
 //
 // Entry points (C ABI, loaded with ctypes): each writes the bytes its
 // comment names and returns 0, or -1 with a message in err, and reads no
@@ -347,6 +354,78 @@ int cge_icns_rle(const unsigned char* data, long n, long offset, long pixels,
             std::snprintf(err, static_cast<size_t>(errlen),
                           "ICNS run-length channel %d: the data end before "
                           "its last run (not enough image data)", band);
+            return -1;
+        }
+    }
+    return 0;
+}
+
+// ThunderScan: rows of width 4-bit pixels, (width + 1) / 2 bytes each,
+// from data[0, n)
+int cge_thunder(const unsigned char* data, long n, long width, long rows,
+                unsigned char* out, char* err, int errlen) {
+    static const int kDelta2[4] = {0, 1, 0, -1};
+    static const int kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+    const long line = (width + 1) / 2;
+    long pos = 0;
+    for (long row = 0; row < rows; ++row) {
+        unsigned char* op0 = out + row * line;
+        unsigned char* op = op0;
+        unsigned lastpixel = 0;
+        long npixels = 0;
+        auto set = [&](int v) {
+            lastpixel = static_cast<unsigned>(v) & 0xF;
+            if (npixels < width) {
+                if (npixels++ & 1)
+                    *op++ |= static_cast<unsigned char>(lastpixel);
+                else
+                    op[0] = static_cast<unsigned char>(lastpixel << 4);
+            }
+        };
+        while (pos < n && npixels < width) {
+            int c = data[pos++];
+            switch (c & 0xC0) {
+            case 0x00: {                                  // run
+                long k = c & 0x3F;
+                if (npixels & 1) {
+                    op[0] |= static_cast<unsigned char>(lastpixel);
+                    lastpixel = *op++;
+                    ++npixels;
+                    --k;
+                } else {
+                    lastpixel |= lastpixel << 4;
+                }
+                npixels += k;
+                if (npixels <= width) {
+                    for (; k > 0; k -= 2)
+                        *op++ = static_cast<unsigned char>(lastpixel);
+                }
+                if (k == -1) *--op &= 0xF0;
+                lastpixel &= 0xF;
+                break;
+            }
+            case 0x40:                                    // 2-bit deltas
+                for (int sh = 4; sh >= 0; sh -= 2) {
+                    const int d = (c >> sh) & 3;
+                    if (d != 2) set(static_cast<int>(lastpixel) + kDelta2[d]);
+                }
+                break;
+            case 0x80:                                    // 3-bit deltas
+                for (int sh = 3; sh >= 0; sh -= 3) {
+                    const int d = (c >> sh) & 7;
+                    if (d != 4) set(static_cast<int>(lastpixel) + kDelta3[d]);
+                }
+                break;
+            default:                                      // raw
+                set(c);
+                break;
+            }
+        }
+        if (npixels != width) {
+            std::snprintf(err, static_cast<size_t>(errlen),
+                          "ThunderScan: %s data at scanline %ld (%ld != %ld)",
+                          npixels < width ? "Not enough" : "Too much", row,
+                          npixels, width);
             return -1;
         }
     }

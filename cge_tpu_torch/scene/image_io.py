@@ -36,14 +36,19 @@ format's test takes a file whose header its plugin cannot open
   GIF   the first frame, every colour-table case, interlaced or not, at
         its offset on the logical screen (scene/gif.py).
   PSD   the merged image, raw or PackBits, in bitmap, grey, indexed, RGB
-        (A), CMYK, multichannel and duotone (scene/psd.py).
+        (A), CMYK, multichannel, duotone and LAB (scene/psd.py; LAB
+        through LittleCMS's Lab -> sRGB transform, scene/lcms.py).
   PNM   P1 to P6, plain and binary, at any maxval (scene/pnm.py).
   TIFF  the first IFD, II or MM, classic or BigTIFF, strips or tiles,
         either planar configuration, raw, LZW, Deflate, PackBits, LZMA or
-        ZSTD with predictors 2 and 3, CCITT RLE, Group 3 and Group 4, and
-        JPEG, in every mode of Pillow's table that convert("RGB") takes
-        but LAB, YCbCr through libtiff's RGBA path (scene/tiff.py); old-
-        style JPEG, WebP in TIFF, SGILog and ThunderScan raise.
+        ZSTD with predictors 2 and 3, CCITT RLE, Group 3 and Group 4,
+        ThunderScan, JPEG (YCbCr in planes too) and old-style JPEG
+        (scene/ojpeg.py: a stream in the strips, a JPEGInterchangeFormat
+        header or tables in tags; grey or YCbCr), in every mode of
+        Pillow's table that convert("RGB") takes, YCbCr through libtiff's
+        RGBA path and CIE L*a*b* through LittleCMS (scene/tiff.py,
+        scene/lcms.py); SGILog and WebP in TIFF raise, as Pillow refuses
+        them (it has no mode for LogLuv, and its libtiff has no WebP).
   WebP  the first frame: lossless VP8L, lossy VP8 with or without ALPH,
         still or animated, as libwebp decodes it (scene/webp.py).
   DDS   the first surface: uncompressed RGB masks, luminance, 8-bit
@@ -54,8 +59,11 @@ format's test takes a file whose header its plugin cannot open
         decodes them: 5/3 and 9/7, layers, every progression order and POC,
         tiles and tile-parts, precincts, every code-block style, ROI,
         PPT / PPM, subsampled components, 1 to 16 bits, palettes, CMYK and
-        sYCC (scene/jpeg2000.py, the codestream in the native library's
-        cge_j2k.cpp); HTJ2K and Part 2 codestreams raise.
+        sYCC, Part 2 MCT, MCC, MCO and CBD markers as far as OpenJPEG
+        reads them (scene/jpeg2000.py, the codestream in the native
+        library's cge_j2k.cpp); HTJ2K codestreams raise (they wait for
+        ITU-T T.814's tables), and so does what OpenJPEG refuses (a custom
+        multiple component transform, a Part 2 wavelet kernel).
   TGA   colour-mapped, true-colour and grey, raw or run-length, in each
         orientation (scene/tga.py); TGA has no signature, so it is tried
         by Pillow's test of its header, in its place in Pillow's order.

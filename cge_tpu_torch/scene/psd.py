@@ -15,12 +15,14 @@ colour modes are those of Pillow's MODES, at 8 bits (bitmap at 1):
                 planes); black without one;
   RGB           three channels, a fourth (RGBA) and any more dropped;
   CMYK          stored inverted, through Pillow's CMYK -> RGB
-                (255 - k - c (255 - k) / 255, rounded as Pillow does).
+                (255 - k - c (255 - k) / 255, rounded as Pillow does);
+  LAB           three channels (L, then a and b offset by 128, as
+                Photoshop stores them and Pillow reads them) through
+                LittleCMS's Lab -> sRGB transform (lcms.py).
 
 What Pillow refuses raises a ValueError that names the format: 16- and
 32-bit channels, too few channels for the mode, compression 2 and 3 (ZIP),
-a truncated file. LAB, which Pillow converts through LittleCMS, raises
-too: its transform is not ported.
+a truncated file.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import lcms
 
 SIGNATURE = b"8BPS"
 # colour mode -> its name
@@ -86,9 +89,6 @@ def decode_psd(data: bytes) -> np.ndarray:
         raise ValueError(f"{fmt}: Pillow reads PSD at 8 bits a channel "
                          f"(bitmap at 1) only")
     mode, used = MODES[(cmode, depth)]
-    if mode == "LAB":
-        raise ValueError(f"{fmt}: Pillow converts LAB to RGB through "
-                         f"LittleCMS, which is not ported")
     if used > channels:
         raise ValueError(f"{fmt} of {channels} channels: not enough "
                          f"channels")
@@ -154,4 +154,6 @@ def decode_psd(data: bytes) -> np.ndarray:
         return palette[planes[0]]
     if mode == "CMYK":
         return _cmyk_to_rgb(*(255 - p for p in planes))
+    if mode == "LAB":
+        return lcms.lab_to_rgb(np.stack(planes, axis=-1))
     return np.ascontiguousarray(np.stack(planes[:3], axis=-1))

@@ -30,6 +30,8 @@ Pillow's table that this module converts. Three readers follow Pillow's:
                         -> RGB at PlanarConfiguration 1 (Pillow's raw mode
                         RGB there), each stream as tall as its strip (a last
                         strip's may run past the image) or a whole tile;
+          ThunderScan 32809   native library (cge_raster.cpp), 4-bit
+                        samples in strips;
         Predictor 2 or 3 undone row by row for LZW, Deflate, LZMA and ZSTD
         (libtiff ignores it for the others), samples in little-endian
         order, then Pillow's raw mode with ";16B" and ";16L" (and "I;16")
@@ -44,22 +46,31 @@ Pillow's table that this module converts. Three readers follow Pillow's:
         block, and libtiff's quirks (see _read_ycbcr); a strip that fails
         to decode is read as libtiff hands it over, what was decoded and
         zeros after, since Pillow asks libtiff not to stop there (but a
-        ZSTD one: that raises).
+        ZSTD one: that raises). JPEG in planes is a one-component stream a
+        plane.
+  old-style JPEG (6)   ojpeg.py: the JPEG stream libtiff's OJPEG codec
+        builds (from a JPEGInterchangeFormat header, the strips' own
+        markers or the tables in tags) through cge_jpeg.cpp; grey as it
+        comes, YCbCr (Pillow takes every such file as YCbCr; libtiff takes
+        photometric RGB as YCbCr) as raw data through the RGBA path.
 
 `convert("RGB")` then: 1-bit to 0 / 255, 2- and 4-bit grey scaled by 85 and
 17, MinIsWhite inverted where the raw mode says so, the palette from the
 16-bit ColorMap's high bytes, 16-bit grey saturated at 255, signed and
 32-bit integers clipped to [0, 255], floats truncated and clipped (NaN to
 0), the other 16-bit samples' high bytes, associated alpha divided out
-(v x 255 // a), CMYK through Pillow's conversion (psd.py), alpha and extra
-samples dropped; the Orientation tag then transposes the image, as
+(v x 255 // a), CMYK through Pillow's conversion (psd.py), CIE L*a*b*
+(photometric 8, 8 bits; a* and b* signed, as Pillow's LAB unpacker reads
+them) through LittleCMS's Lab -> sRGB transform (lcms.py), alpha and
+extra samples dropped; the Orientation tag then transposes the image, as
 Pillow's exif_transpose does.
 
-What Pillow or libtiff refuses raises a ValueError that names the case,
-as do the cases not ported: old-style JPEG (6), WebP in TIFF (50001),
-SGILog (34676, 34677), ThunderScan (32809) and the other compressions;
-LAB (which Pillow converts through LittleCMS); JPEG YCbCr in separate
-planes; a key that Pillow does not know. So do three cases where Pillow
+What Pillow or libtiff refuses raises a ValueError that names the case:
+SGILog (34676, 34677: Pillow has no mode for LogL or LogLuv, and libtiff's
+codec takes nothing else), WebP in TIFF (50001: Pillow's libtiff is built
+without it), a key that Pillow does not know. So do the cases not ported:
+the other compressions, old-style JPEG and ThunderScan in tiles or
+planes. So do three cases where Pillow
 returns pixels that no decoder wrote, or that libzstd's internals leave:
 a Group 4 strip that ends before its last row, a JPEG stream smaller than
 its strip or tile, and a ZSTD strip of the RGBA path that fails.
@@ -74,6 +85,7 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import lcms, ojpeg
 from cge_tpu_torch.scene.psd import _cmyk_to_rgb
 
 II, MM = b"II", b"MM"
@@ -86,7 +98,7 @@ COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3",
                 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
                 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                 50000: "ZSTD", 50001: "WebP"}
-DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+DECODED = (1, 2, 3, 4, 5, 6, 7, 8, 32773, 32809, 32946, 34925, 50000)
 FAX = (2, 3, 4)
 # compressions that undo a Predictor tag (libtiff's TIFFPredictorInit)
 PREDICTED = (5, 8, 32946, 34925, 50000)
@@ -160,12 +172,11 @@ def _open_info() -> dict:
     both(5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX")
     both(6, (1,), 1, (8,), (), "L", "L")
     both(6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX")
+    both(8, (1,), 1, (8, 8, 8), (), "LAB", "LAB")
     return table
 
 
 OPEN_INFO = _open_info()
-# keys Pillow knows but converts through what is not ported
-REFUSED = {8: "CIE L*a*b*"}
 # (mode, raw mode) pairs that Pillow's table names but its unpackers lack,
 # and the layers of separate planes that it cannot unpack
 NO_UNPACKER = {("L", "L;IR"), ("P", "P;1R"), ("P", "P;2R"), ("P", "P;4R"),
@@ -173,7 +184,7 @@ NO_UNPACKER = {("L", "L;IR"), ("P", "P;1R"), ("P", "P;2R"), ("P", "P;4R"),
                ("PA", "P"), ("PA", "A"), ("RGBA", "a")}
 # Pillow's mode -> its bands
 BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "I;16": 1, "I;16B": 1, "F": 1,
-         "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}
+         "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3}
 
 # IFD field types -> struct code (the others are skipped, as by Pillow)
 _FIELD = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 16: "Q", 17: "q",
@@ -264,7 +275,7 @@ RAW_BITS = {"1": 1, "L": 8, "P": 8, "F": 32, "PX": 16, "PA": 16, "LA": 16,
             "I;32BS": 32, "F;32F": 32, "F;32BF": 32, "RGB": 24, "RGB;R": 24,
             "RGBA": 32, "RGBX": 32, "RGBXX": 40, "RGBXXX": 48, "RGBa": 32,
             "RGBaX": 40, "RGBaXX": 48, "RGBAX": 40, "RGBAXX": 48,
-            "CMYK": 32, "CMYKX": 40, "CMYKXX": 48}
+            "CMYK": 32, "CMYKX": 40, "CMYKXX": 48, "LAB": 24}
 
 
 def raw_bits(raw: str) -> int:
@@ -322,6 +333,9 @@ def unpack(rows: np.ndarray, width: int, raw: str) -> np.ndarray:
         end = ">" if "B" in opts else "<"
         return _samples(rows, width, 4, end, "f")[:, :width, None].astype(
             np.float32)
+    if name == "LAB":                # signed a* and b* offset by 128
+        return rows[:, :3 * width].reshape(h, width, 3) ^ np.array(
+            [0, 128, 128], np.uint8)
     # RGB, RGBA, CMYK families: each sample's (high) byte
     n = len(name)
     if opts.startswith("16"):
@@ -352,6 +366,8 @@ def to_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
         g = f.astype(np.uint8)
     elif mode == "CMYK":
         return _cmyk_to_rgb(*(px[..., k] for k in range(4)))
+    elif mode == "LAB":
+        return lcms.lab_to_rgb(px)
     else:
         return np.ascontiguousarray(px[..., :3]).astype(np.uint8)
     return np.repeat(g[..., None], 3, axis=2)
@@ -383,12 +399,27 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"TIFF compression {comp} is not a TIFF "
                          f"compression Pillow knows")
     cname = COMPRESSIONS[comp]
+    if comp in (34676, 34677):
+        photo = tags.get(262, 0)
+        raise ValueError(
+            f"TIFF with {cname} compression ({comp}) and photometric {photo}:"
+            f" Pillow refuses it ("
+            + ("its OPEN_INFO has no key for LogL or LogLuv: "
+               "UnidentifiedImageError)" if photo in (32844, 32845) else
+               "libtiff's SGILog codec takes LogL or LogLuv only)"))
+    if comp == 50001:
+        raise ValueError("TIFF with WebP compression (50001): Pillow's "
+                         "libtiff refuses it (WEBP compression support is "
+                         "not configured)")
     if comp not in DECODED:
         raise ValueError(f"TIFF with {cname} compression ({comp}) is not "
-                         f"ported (raw, CCITT RLE, Group 3 and 4, LZW, JPEG, "
-                         f"Deflate, PackBits, LZMA and ZSTD are)")
+                         f"ported (raw, CCITT RLE, Group 3 and 4, LZW, "
+                         f"old-style JPEG, JPEG, Deflate, PackBits, "
+                         f"ThunderScan, LZMA and ZSTD are)")
     planar = tags.get(284, 1)
     photo = tags.get(262, 0)
+    if comp == 6:                 # Pillow: old-style JPEG is YCbCr
+        photo = 6
     fill = tags.get(266, 1)
     if 256 not in tags or 257 not in tags:
         raise ValueError("TIFF without its ImageWidth and ImageLength")
@@ -402,7 +433,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
     extra = _list(tags.get(338, ()))
     base = 3 if photo in (2, 6, 8) else 4 if photo == 5 else 1
     n_bands = base + len(extra)
-    spp = tags.get(277, 1)
+    spp = tags.get(277, 3 if comp == 6 else 1)
     if not isinstance(spp, int) or spp > 6:
         raise ValueError(f"TIFF with {spp} samples a pixel")
     if spp < len(bits):
@@ -415,8 +446,6 @@ def decode_tiff(data: bytes) -> np.ndarray:
     desc = (f"{'x'.join(map(str, bits))}-bit photometric {photo} TIFF "
             f"with {cname} compression")
     if key not in OPEN_INFO:
-        if photo in REFUSED and len(bits) > 1:
-            raise ValueError(f"{desc}: {REFUSED[photo]} is not ported")
         if photo == 6:
             raise ValueError(f"{desc}: YCbCr of these samples is not a mode "
                              f"Pillow reads")
@@ -445,6 +474,9 @@ def decode_tiff(data: bytes) -> np.ndarray:
             raise ValueError(f"{desc}: libtiff reads the header's version "
                              f"{version} otherwise than Pillow (not a TIFF "
                              f"to libtiff, or a BigTIFF)")
+    if comp == 6:
+        return _orient(_read_ojpeg(data, tags, width, height, spp, bits,
+                                   desc), tags.get(274))
     if comp == 1:
         _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc)
     elif photo == 6 and not (comp == 7 and planar == 1):
@@ -710,6 +742,48 @@ def _ycbcr_tables(luma, rbw):
     return tabs
 
 
+def _ycbcr_conversion(tags, desc):
+    """TIFFYCbCrToRGBInit's tables of the YCbCrCoefficients and
+    ReferenceBlackWhite tags (their defaults where missing), with libtiff's
+    checks of them."""
+    luma = _list(tags.get(529, ()))
+    rbw = _list(tags.get(532, ()))
+    luma = luma if len(luma) == 3 else (0.299, 0.587, 0.114)
+    rbw = rbw if len(rbw) == 6 else (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
+    f32 = np.float32
+    if any(np.isnan(v) for v in luma) or f32(luma[1]) == 0:
+        raise ValueError(f"{desc}: invalid YCbCrCoefficients {luma}")
+    if not all(f32(-0x7FFFFFFF + 128) < f32(v) < f32(0x7FFFFFFF)
+               for v in rbw):
+        raise ValueError(f"{desc}: invalid ReferenceBlackWhite {rbw}")
+    return _ycbcr_tables(luma, rbw)
+
+
+def _read_ojpeg(data, tags, width, height, spp, bits, desc) -> np.ndarray:
+    """Old-style JPEG (ojpeg.py) -> [H, W, 3] uint8: grey as libjpeg gives
+    it through TIFFReadEncodedStrip, YCbCr (libtiff takes photometric RGB
+    or a missing one for it) through the RGBA path, chroma held over each
+    block of the frame's sampling."""
+    file_photo = tags.get(262)
+    ycbcr = file_photo in (None, 2, 6)
+    if bits != (8,) * spp or spp != (3 if ycbcr else 1):
+        raise ValueError(f"{desc}: old-style JPEG of photometric "
+                         f"{file_photo} and {spp} samples is not ported "
+                         f"(grey: 1 sample; YCbCr or RGB: 3)")
+    if not ycbcr:
+        grey = ojpeg.decode(data, tags, width, height, 1, False, desc)
+        return np.repeat(grey[..., None], 3, axis=2)
+    tabs = _ycbcr_conversion(tags, desc)
+    y, cb, cr, (hs, vs) = ojpeg.decode(data, tags, width, height, 3, True,
+                                       desc)
+    if (hs, vs) not in YCBCR_CONTIG:
+        raise ValueError(f"{desc}: libtiff has no RGBA conversion of YCbCr "
+                         f"subsampled {hs},{vs}")
+    up = [np.repeat(np.repeat(c, vs, 0), hs, 1)[:height, :width]
+          for c in (cb, cr)]
+    return _ycbcr_to_rgb(tabs, y, *up)
+
+
 def _ycbcr_to_rgb(tabs, y, cb, cr) -> np.ndarray:
     """TIFFYCbCrtoRGB of uint8 arrays -> [..., 3] uint8."""
     yv = tabs[0][y]
@@ -745,23 +819,10 @@ def _read_ycbcr(data, tags, height, width, comp, fill, planar, bits,
         raise ValueError(f"{desc}: libtiff has no RGBA conversion of "
                          f"YCbCr subsampled {hs},{vs} "
                          f"({'contiguous' if planar == 1 else 'planar'})")
-    luma = _list(tags.get(529, ()))
-    rbw = _list(tags.get(532, ()))
-    luma = luma if len(luma) == 3 else (0.299, 0.587, 0.114)
-    rbw = rbw if len(rbw) == 6 else (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
-    f32 = np.float32
-    if any(np.isnan(v) for v in luma) or f32(luma[1]) == 0:
-        raise ValueError(f"{desc}: invalid YCbCrCoefficients {luma}")
-    if not all(f32(-0x7FFFFFFF + 128) < f32(v) < f32(0x7FFFFFFF)
-               for v in rbw):
-        raise ValueError(f"{desc}: invalid ReferenceBlackWhite {rbw}")
-    tabs = _ycbcr_tables(luma, rbw)
+    tabs = _ycbcr_conversion(tags, desc)
     predictor = tags.get(317, 1) if comp in PREDICTED else 1
     if predictor not in (1, 2):
         raise ValueError(f"{desc}: Predictor {predictor} on YCbCr")
-    if comp == 7:
-        raise ValueError(f"{desc}: JPEG YCbCr in separate planes is not "
-                         f"ported")
     cw, ch, offsets, counts = _layout(tags, width, height, desc)
     tiled = 322 in tags
     unit = hs * vs + 2
@@ -807,6 +868,13 @@ def _read_ycbcr(data, tags, height, width, comp, fill, planar, bits,
                 for k in range(3):
                     index = k * across * down + ty * across + tx
                     rows = ch if tiled else nrow
+                    if comp == 7:         # a one-component JPEG a plane
+                        buf = _jpeg_chunk(
+                            data, offsets, counts, index, _tables(tags), 0,
+                            cw, rows, 1, (1, 1),
+                            not tiled and y0 + rows >= height, desc)
+                        planes.append(buf[:nrow, :tw])
+                        continue
                     buf = _chunk(data, offsets, counts, index, rows * line,
                                  comp, fill, desc, partial=True)
                     _predict_rows(buf, pred_line, predictor, stride=1)
@@ -864,6 +932,15 @@ def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
     def rows_of(ty):
         return ch if tiled else min(ch, height - ty * ch)
 
+    if comp == 32809:
+        if bps != 4:
+            raise ValueError(f"{desc}: Wrong bitspersample value ({bps}), "
+                             f"libtiff's Thunder decoder only supports 4 "
+                             f"bits per sample")
+        if tiled or spp != 1:
+            raise ValueError(f"{desc}: ThunderScan in tiles or of {spp} "
+                             f"samples a pixel is not ported (libtiff decodes "
+                             f"an image width a row there)")
     if comp in FAX:
         if bps != 1 or spp != 1:
             raise ValueError(f"{desc}: libtiff's CCITT decoders take 1-bit "
@@ -893,6 +970,14 @@ def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
                 index = plane * across * down + ty * across + tx
                 if comp in FAX:
                     buf = fax[starts[index]:starts[index + 1]]
+                elif comp == 32809:
+                    coded = _compressed(data, offsets, counts, index, comp,
+                                        fill, desc)
+                    try:
+                        buf = native.thunder(coded, cw, rows)
+                    except ValueError as e:
+                        raise ValueError(f"{desc}: strip {index}: {e}") \
+                            from None
                 elif comp == 7:
                     buf = _jpeg_chunk(
                         data, offsets, counts, index, tables,

@@ -219,7 +219,16 @@ exits non-zero if any phase fails:
      texels ((b)'s where they are the JPEG's), K1 and K2 launched as
      often as in (b)'s first frame; each file's host decode ms, load s
      and frame ms, and the host decode ms of the texels as an 8-bit RGB
-     PNG with every row Paeth-filtered.
+     PNG with every row Paeth-filtered. (a) also reads the fixtures of
+     tests/torch_textures/j2k_chip/, pillow_tail/ (old-style JPEG and
+     ThunderScan TIFFs, JPEG YCbCr in planes, CIE L*a*b* TIFF and PSD,
+     JPEG 2000 Part 2 markers: each kind's host ms summed up) and
+     tail_chip/; (c) also the committed files of tail_chip/: the texels'
+     512x512 crop as a Deflate L*a*b* TIFF (through the port's LittleCMS
+     transform), the texels as a lossy JP2 with Part 2 MCT, MCC and MCO
+     markers and as an old-style JPEG TIFF (YCbCr 2x2, a
+     JPEGInterchangeFormat header, 64-row strips), each against the PNG of
+     what it decodes to.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -3090,12 +3099,31 @@ J2K_CROP = 512
 TEX_J2K = f"j2k_lossless_rpcl_tiles256_crop{J2K_CROP}.j2k"
 TEX_JP2 = "jp2_lossy_97_3layers_cb32_1024.jp2"
 TEX_ICNS = "icns_ic10_jp2_1024.icns"
+# small files of TIFF's, PSD's and JPEG 2000's tail (make_textures
+# tail_fixtures), and the chip path's files of the texels with a manifest of
+# their own (make_textures.tail_chip_files): their 512x512 crop as a
+# Deflate CIE L*a*b* TIFF, a lossy JP2 with Part 2 MCT / MCC / MCO markers,
+# an old-style JPEG TIFF
+TEX_TAIL_DIR = os.path.join(TEXTURES, "pillow_tail")
+TEX_TAIL_CHIP_DIR = os.path.join(TEXTURES, "tail_chip")
+LAB_CROP = 512
+TEX_LAB = f"tiff_lab_deflate_pred2_crop{LAB_CROP}.tif"
+TEX_MCT = "jp2_part2_mct_offsets_97_1024.jp2"
+TEX_OJPEG = "tiff_ojpeg_ycbcr22_jif_strips_q85_1024.tif"
+# the tail's fixtures by kind (name prefixes), for phase 18a's decode times
+TAIL_KINDS = (
+    ("old-style JPEG", ("tiff_ojpeg_",)),
+    ("ThunderScan", ("tiff_thunderscan_",)),
+    ("JPEG YCbCr planes", ("tiff_jpeg_ycbcr_planes",)),
+    ("Lab", ("tiff_lab_", "psd_lab_")),
+    ("JPEG 2000 Part 2", ("j2k_part2_", "jp2_part2_")))
 
 
 def texture_fixtures() -> list:
-    """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/)
-    through the port's load_image, its u8 pixels' SHA-256 against its
-    manifest's; (name, kind, host ms) a fixture."""
+    """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
+    pillow_tail/ and tail_chip/) through the port's load_image, its u8
+    pixels' SHA-256 against its manifest's; (name, kind, host ms) a
+    fixture."""
     import hashlib
 
     import numpy as np
@@ -3103,7 +3131,7 @@ def texture_fixtures() -> list:
     from cge_tpu_torch.scene import image_io
 
     entries = []
-    for folder in (TEXTURES, TEX_J2K_DIR):
+    for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
@@ -3204,6 +3232,17 @@ def texture_writers(texels):
             err = np.abs(held.astype(int) - texels)
             log(f"  18c: {name}'s texels against the JPEG's: max abs error "
                 f"{int(err.max())}, mean {float(err.mean()):.3f}")
+        out[name] = (data, held)
+    from cge_tpu_torch.scene import image_io
+
+    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG):
+        with open(os.path.join(TEX_TAIL_CHIP_DIR, name), "rb") as f:
+            data = f.read()
+        held = image_io.decode_image(data)     # lossy: 18a holds it
+        h, w = held.shape[:2]
+        err = np.abs(held.astype(int) - texels[:h, :w])
+        log(f"  18c: {name}'s texels against the JPEG's: max abs error "
+            f"{int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
     return out
 
@@ -3534,7 +3573,9 @@ def eleventh_path(device) -> dict:
         f"crop), DDS (A8R8G8B8, DXT1, BC7), a crop as an arithmetic, "
         f"progressive, smoothed YCCK 4:4:0 JPEG, SGI run-length, PCX, QOI, "
         f"Sun raster run-length, BLP2 palette, FTEX, a 256x256 ICO, a "
-        f"lossless 512x512 J2K crop, a lossy JP2 and an ICNS of it | "
+        f"lossless 512x512 J2K crop, a lossy JP2 and an ICNS of it, a "
+        f"512x512 L*a*b* TIFF crop, a JP2 with Part 2 MCT markers and an "
+        f"old-style JPEG TIFF | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3546,6 +3587,13 @@ def eleventh_path(device) -> dict:
                     and not (kind == "arithmetic" and "_smooth_" in n))
         log(f"  JPEG {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms "
             f"a file, median {ms[len(ms) // 2]:.2f} ms")
+    for kind, prefixes in TAIL_KINDS:
+        ms = sorted(t for n, _, t in times if n.startswith(prefixes))
+        log(f"  {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms a "
+            f"file, median {ms[len(ms) // 2]:.2f} ms")
+    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG):
+        log(f"  18a: {name}: decode "
+            f"{next(t for n, _, t in times if n == name):.2f} ms (host)")
     log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
         f"manifest's, {sum(t for _, _, t in times):.1f} ms in all (host) | "
         f"{SMI['line']}")
@@ -3620,7 +3668,8 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
                       device, first_launches) -> dict:
     """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
     TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000
-    (J2K and JP2) and ICNS files
+    (J2K and JP2) and ICNS files, a L*a*b* TIFF, a JP2 with Part 2
+    markers and an old-style JPEG TIFF
     (texture_writers), each frame against the
     PNG-textured frame of the same texels, each first frame's K1 and K2
     launches against (b)'s (first_launches); {file: (decode ms, load s,

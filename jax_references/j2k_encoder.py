@@ -114,6 +114,7 @@ def _lib():
     lib.opj_stream_destroy.argtypes = [P]
     lib.opj_destroy_codec.argtypes = [P]
     lib.opj_image_destroy.argtypes = [ctypes.POINTER(Image)]
+    lib.opj_set_MCT.argtypes = [ctypes.POINTER(Params), P, P, U]
     return lib
 
 
@@ -133,7 +134,7 @@ def _compress(lib, planes: list, *, image_offset=(0, 0), sampling=None,
               progression="LRCP", pocs=(), layers=None, irreversible=False,
               mct=None, styles=(), roi=None, sop=False, eph=False,
               tile_parts=None, plt=False, tlm=False, jp2=False,
-              colour=1) -> bytes:
+              colour=1, mct_matrix=None, mct_shift=None) -> bytes:
     n = len(planes)
     sampling = sampling or [(1, 1)] * n
     prec = precision if isinstance(precision, (list, tuple)) else [
@@ -201,6 +202,13 @@ def _compress(lib, planes: list, *, image_offset=(0, 0), sampling=None,
         p.cp_disto_alloc = 1
     p.irreversible = int(irreversible)
     p.tcp_mct = bytes([(1 if n >= 3 else 0) if mct is None else int(mct)])
+    if mct_matrix is not None:
+        matrix = np.asarray(mct_matrix, np.float32).ravel()
+        shift = np.asarray(mct_shift if mct_shift is not None else [0] * n,
+                           np.int32)
+        if not lib.opj_set_MCT(ctypes.byref(p), matrix.ctypes.data,
+                               shift.ctypes.data, n):
+            raise ValueError("opj_set_MCT failed")
     p.mode = sum(STYLE[s] for s in styles)
     if roi:
         p.roi_compno, p.roi_shift = roi

@@ -497,6 +497,146 @@ def compress_chunk(raw: bytes, compression: int, level=None) -> bytes:
     return raw
 
 
+def thunder_row(row, rng) -> bytes:
+    """A ThunderScan row (TIFF compression 32809) of 4-bit pixels: runs of
+    the last pixel, three 2-bit or two 3-bit deltas (with skip codes where
+    fewer fit), and raw pixels, each where it applies and rng picks it."""
+    out, last, i, w = bytearray(), 0, 0, len(row)
+    d2 = {0: 0, 1: 1, 15: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+
+    def deltas(table, most):
+        codes, prev, j = [], last, i
+        while j < w and len(codes) < most and (int(row[j]) - prev) % 16 \
+                in table:
+            codes.append(table[(int(row[j]) - prev) % 16])
+            prev = int(row[j])
+            j += 1
+        return codes, prev, j
+
+    while i < w:
+        k = 0
+        while i + k < w and row[i + k] == last and k < 63:
+            k += 1
+        if k and rng.random() < 0.7:
+            out.append(k)
+            i += k
+            continue
+        codes, prev, j = deltas(d2, 3)
+        if len(codes) >= 2 and rng.random() < 0.8:
+            codes += [2] * (3 - len(codes))
+            out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+            last, i = prev, j
+            continue
+        codes, prev, j = deltas(d3, 2)
+        if codes and rng.random() < 0.8:
+            codes += [4] * (2 - len(codes))
+            out.append(0x80 | codes[0] << 3 | codes[1])
+            last, i = prev, j
+            continue
+        out.append(0xC0 | int(row[i]))
+        last, i = int(row[i]), i + 1
+    return bytes(out)
+
+
+def ojpeg_tiff(img: np.ndarray, photometric: int, *, form: str = "stream",
+               rows_per_strip=None, subsampling: int = 0, quality: int = 80,
+               restart: int = 0, order: str = "<", extra_tags=(),
+               jif_length: bool = True) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of img [h, w, k] u8: one
+    baseline JPEG of the whole image that Pillow's writer makes (grey at
+    photometric 0 or 1, else JFIF YCbCr at subsampling 0, 1 or 2 for 1x1,
+    2x1 and 2x2, YCbCrSubsampling to match), with a restart marker after
+    each strip's MCU rows where there are several strips (or every restart
+    MCUs), laid out as libtiff's OJPEG codec reads it:
+      "stream"  the strips hold the stream: the first from SOI, each after
+                the restart marker that ends the one before it;
+      "jif"     JPEGInterchangeFormat (and, with jif_length, its Length)
+                the stream's header (SOI to the end of SOS), the strips its
+                scan data between the strips' restart markers;
+      "tables"  JPEGProc 1, JPEGQTables, JPEGDCTables and JPEGACTables (and
+                JPEGRestartInterval with restart) from the stream's tables,
+                the strips its scan data.
+    The restart markers between strips are left out (libtiff puts them
+    back); those inside a strip stay."""
+    h, w, k = img.shape
+    kw = dict(quality=quality, optimize=False)
+    grey = photometric in (0, 1)
+    if not grey:
+        kw["subsampling"] = subsampling
+    hs, vs = (1, 1) if grey else {0: (1, 1), 1: (2, 1), 2: (2, 2)}[
+        subsampling]
+    rps = rows_per_strip or h
+    if rps < h:
+        if restart:
+            raise ValueError("restart is for a single strip")
+        kw["restart_marker_rows"] = rps // (8 * vs)
+    elif restart:
+        kw["restart_marker_blocks"] = restart
+    im = PILImage.fromarray(img[..., 0] if grey else img,
+                            "L" if grey else "RGB")
+    jpeg = _pillow(im, "JPEG", **kw)
+    sos = jpeg.index(b"\xff\xda")
+    head_end = sos + 2 + struct.unpack_from(">H", jpeg, sos + 2)[0]
+    head, scan = jpeg[:head_end], jpeg[head_end:]
+    # the scan split at the restart markers that end strips
+    pieces = [scan]
+    if rps < h:
+        pieces, start = [], 0
+        for i in range(len(scan) - 1):
+            if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
+                pieces.append(scan[start:i])
+                start = i + 2
+        pieces.append(scan[start:])
+    tags = list(extra_tags)
+    if not grey:
+        tags.append((530, 3, (hs, vs)))
+    blobs = []
+    if form == "stream":
+        strips = [head + pieces[0]] + pieces[1:]
+    elif form == "jif":
+        strips = pieces
+        blobs.append((513, [head]))
+        if jif_length:
+            tags.append((514, 4, (len(head),)))
+    elif form == "tables":
+        strips = pieces
+        q, dc, ac, pos = {}, {}, {}, 2
+        while pos < len(head):
+            m = head[pos + 1]
+            n = struct.unpack_from(">H", head, pos + 2)[0]
+            body = head[pos + 4:pos + 2 + n]
+            if m == 0xDB:
+                i = 0
+                while i < len(body):
+                    q[body[i] & 15] = body[i + 1:i + 65]
+                    i += 65
+            elif m == 0xC4:
+                i = 0
+                while i < len(body):
+                    cls, tid = body[i] >> 4, body[i] & 15
+                    count = sum(body[i + 1:i + 17])
+                    (ac if cls else dc)[tid] = body[i + 1:i + 17 + count]
+                    i += 17 + count
+            elif m == 0xC0:
+                comps = [(body[6 + 3 * c], body[8 + 3 * c])
+                         for c in range(body[5])]
+            elif m == 0xDA:
+                sel = [body[2 + 2 * c] for c in range(body[0])]
+            pos += 2 + n
+        blobs += [(519, [q[t] for _, t in comps]),
+                  (520, [dc[s >> 4] for s in sel]),
+                  (521, [ac[s & 15] for s in sel])]
+        tags.append((512, 3, (1,)))
+        if restart:
+            tags.append((515, 3, (restart,)))
+    else:
+        raise ValueError(f"form {form}")
+    return tiff_file(np.zeros((h, w, k), np.uint8), 8, photometric,
+                     order=order, compression=6, rows_per_strip=rps,
+                     raw_strips=strips, extra_tags=tags, blobs=blobs)
+
+
 def ycbcr_units(px: np.ndarray, hs: int, vs: int) -> np.ndarray:
     """px [h, w, 3] (Y, Cb, Cr) -> libtiff's packed YCbCr rows: for each
     row of hs x vs blocks (partial ones at the right and bottom padded by
@@ -670,10 +810,12 @@ def tiff_file(samples: np.ndarray, bits, photometric: int, *,
               predictor: int = 1, planar: int = 1, rows_per_strip=None,
               tile=None, sample_format=None, extra=(), colormap=None,
               fill_order: int = 1, orientation=None, raw_strips=None,
-              extra_tags=()) -> bytes:
+              extra_tags=(), blobs=()) -> bytes:
     """A TIFF of samples [h, w, spp] (ints, or floats at SampleFormat 3)
     in the given organisation; raw_strips, where given, replaces the
-    encoded chunks (for damaged files)."""
+    encoded chunks (for damaged files); blobs, (tag, [bytes, ...]) pairs,
+    are written before the chunks, each tag holding their offsets (LONG),
+    or a (tag, 0) pair's offset as 0."""
     h, w, spp = samples.shape
     bits = tuple(bits) if isinstance(bits, (tuple, list)) else (bits,) * spp
     b0 = bits[0]
@@ -742,8 +884,17 @@ def tiff_file(samples: np.ndarray, bits, photometric: int, *,
     else:
         tags[278] = (4, [rows_per_strip or h])
         off_tag, cnt_tag = 273, 279
-    # layout: header, chunk data, then the IFD and its out-of-line values
+    # layout: header, blobs, chunk data, then the IFD and its out-of-line
+    # values
     data = bytearray(16 if bigtiff else 8)
+    for tag, parts in blobs:
+        where = []
+        for part in parts:
+            where.append(len(data) if part else 0)
+            data += part
+            if len(data) & 1:
+                data += b"\0"
+        tags[tag] = (4, where)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
@@ -2853,6 +3004,239 @@ def j2k_chip_files(texels: np.ndarray) -> dict:
             ICNS_JP2: ("icns", icns_file([(b"ic10", lossy)]))}
 
 
+# ------------------------------------------------- Part 2, TIFF's tail, Lab
+
+def marker_segment(marker: int, body: bytes) -> bytes:
+    """A JPEG 2000 marker segment."""
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def mct_segment(index: int, values, element: int = 0, array: int = 2,
+                zmct: int = 0, ymct: int = 0) -> bytes:
+    """An MCT marker (Part 2): record index, its values as element type 0-3
+    (int16, int32, float32, float64), array type 0-2 (dependency,
+    decorrelation, offset)."""
+    fmt = (">h", ">i", ">f", ">d")[element]
+    data = b"".join(struct.pack(fmt, v) for v in values)
+    return marker_segment(0xFF74, struct.pack(
+        ">HHH", zmct, element << 10 | array << 8 | index, ymct) + data)
+
+
+def mcc_segment(index: int, n: int, deco: int = 0, offset: int = 0,
+                reversible: bool = False, wide: bool = False,
+                collections: int = 1, kind: int = 1) -> bytes:
+    """An MCC marker (Part 2): collection index over components 0..n-1
+    (two bytes a component index with wide), its decorrelation and offset
+    MCT record indices (0: none)."""
+    width = 2 if wide else 1
+
+    def comps():
+        return struct.pack(">H", n | (0x8000 if wide else 0)) + b"".join(
+            j.to_bytes(width, "big") for j in range(n))
+
+    body = struct.pack(">HBHH", 0, index, 0, collections)
+    if collections:
+        body += bytes((kind,)) + comps() + comps() + bytes(
+            (int(reversible), offset, deco))
+    return marker_segment(0xFF75, body)
+
+
+def mco_segment(*stages: int) -> bytes:
+    """An MCO marker (Part 2): the MCC collections applied, in order."""
+    return marker_segment(0xFF77, bytes((len(stages),)) + bytes(stages))
+
+
+def cbd_segment(*depths: int) -> bytes:
+    """A CBD marker (Part 2): each component's bit depth byte (sign in bit
+    7, precision - 1 below)."""
+    return marker_segment(0xFF78, struct.pack(">H", len(depths))
+                          + bytes(depths))
+
+
+def with_segments(codestream: bytes, *segments: bytes, tile: int = -1,
+                  rsiz: int = None) -> bytes:
+    """A codestream with marker segments put in its main header before the
+    first SOT, or with tile >= 0 into that tile-part's header (its Psot
+    grown); rsiz sets SIZ's Rsiz."""
+    extra = b"".join(segments)
+    if rsiz is not None:
+        codestream = codestream[:6] + struct.pack(">H", rsiz) + \
+            codestream[8:]
+    pos = codestream.index(b"\xff\x90")
+    if tile < 0:
+        return codestream[:pos] + extra + codestream[pos:]
+    for _ in range(tile):
+        pos += struct.unpack_from(">I", codestream, pos + 6)[0]
+    psot = struct.unpack_from(">I", codestream, pos + 6)[0]
+    return (codestream[:pos + 6] + struct.pack(">I", psot + len(extra))
+            + codestream[pos + 10:pos + 12] + extra + codestream[pos + 12:])
+
+
+def cod_mct(codestream: bytes, mct: int) -> bytes:
+    """The codestream with its main COD's SGcod MCT byte set."""
+    cod = codestream.index(b"\xff\x52")
+    return codestream[:cod + 8] + bytes((mct,)) + codestream[cod + 9:]
+
+
+def lab_of(rgb: np.ndarray) -> np.ndarray:
+    """sRGB u8 [h, w, 3] -> Pillow's LAB bands (L, a + 128, b + 128)
+    through Pillow's own LittleCMS transform (the bands as they are: an
+    array of the image would pack a and b signed)."""
+    lab = PILImage.fromarray(rgb).convert("LAB")
+    return np.stack([np.asarray(band) for band in lab.split()], -1)
+
+
+def tail_fixtures(rng) -> dict:
+    """Small files of what Pillow opens and the port decodes since
+    the tail of TIFF, PSD and JPEG 2000 was ported: JPEG 2000 Part 2
+    markers (MCT records of each element type, MCC collections, MCO orders
+    in the main and a tile-part header, OpenJPEG's own custom-transform
+    stream with its COD's MCT set to 1, a CBD, ATK and ADS markers);
+    old-style JPEG TIFFs in each form (a stream in the strips, a
+    JPEGInterchangeFormat header, tables in tags), grey and YCbCr 1x1, 2x1
+    and 2x2, several strips and restart intervals; ThunderScan TIFFs; JPEG
+    YCbCr in separate planes; CIE L*a*b* TIFFs and LAB PSDs."""
+    out = {}
+    planes = [p.astype(np.int32) for p in np.moveaxis(
+        smooth_image(rng, 6, 7, 25.0), 2, 0)]
+    rgb = j2k_encode(planes)
+    irr = j2k_encode(planes, irreversible=True)
+    offsets = [(0, [10, 20, 30]), (1, [-5, 140, 300]),
+               (2, [120.7, -3.2, 64.5]), (3, [100.25, 128.0, 150.9])]
+    for element, values in offsets:
+        kind = ("int16", "int32", "float32", "float64")[element]
+        out[f"j2k_part2_mct_offsets_{kind}_6x7.j2k"] = ("j2k", with_segments(
+            rgb, mct_segment(1, values, element), mcc_segment(0, 3, offset=1),
+            mco_segment(0), rsiz=0x8100))
+    eye = np.eye(3).ravel().tolist()
+    out["j2k_part2_deco3x3_float_offsets_97_6x7.j2k"] = ("j2k", with_segments(
+        irr, mct_segment(1, eye, 2, 1), mct_segment(2, [90, 128, 170], 1),
+        mcc_segment(0, 3, deco=1, offset=2), mco_segment(0), rsiz=0x8100))
+    out["j2k_part2_mcc_mco_no_offsets_6x7.j2k"] = ("j2k", with_segments(
+        rgb, mct_segment(1, eye, 2, 1), mcc_segment(0, 3, deco=1),
+        mco_segment(0)))
+    out["j2k_part2_mco_in_tile_6x7.j2k"] = ("j2k", with_segments(
+        rgb, mct_segment(3, [30, 60, 90]), mcc_segment(4, 3, offset=3),
+        mco_segment(4), tile=0))
+    matrix = [[0.5, 0.25, 0.25], [0.0, 1.0, -1.0], [1.0, 0.0, -1.0]]
+    custom = j2k_encode(planes, mct_matrix=matrix, mct_shift=[4, 8, 12])
+    out["j2k_part2_opj_mct3x3_cod_mct1_6x7.j2k"] = ("j2k", cod_mct(custom, 1))
+    rgba = planes + [planes[0] // 2 + 60]
+    custom4 = j2k_encode(rgba, mct_matrix=np.eye(4) * 0.5 + 0.125,
+                         mct_shift=[1, 2, 3, 4])
+    out["j2k_part2_opj_mct4x4_cod_mct0_6x7.j2k"] = ("j2k", cod_mct(custom4,
+                                                                   0))
+    out["j2k_part2_cbd_signed_6x7.j2k"] = ("j2k", with_segments(
+        rgb, cbd_segment(0x87, 0x87, 0x87)))
+    out["j2k_part2_cbd12_97_6x7.j2k"] = ("j2k", with_segments(
+        irr, cbd_segment(11, 11, 11)))
+    out["j2k_part2_atk_ads_6x7.j2k"] = ("j2k", with_segments(
+        rgb, marker_segment(0xFF79, bytes((0, 2, 0, 1))),
+        marker_segment(0xFF73, bytes((0, 1, 2, 3, 4, 5)))))
+    out["jp2_part2_mct_offsets_6x7.jp2"] = ("jp2", jp2_file(with_segments(
+        rgb, mct_segment(1, [64, 128, 192]), mcc_segment(0, 3, offset=1),
+        mco_segment(0))))
+    # old-style JPEG
+    img = smooth_image(rng, 24, 32, 20.0)
+    odd = smooth_image(rng, 13, 11, 20.0)
+    for name, px, kw in (
+            ("grey_stream_13x11", odd[..., :1], dict(photometric=1)),
+            ("grey_jif_3strips_24x32", img[..., :1],
+             dict(photometric=1, form="jif", rows_per_strip=8)),
+            ("grey_tables_restart2_24x32", img[..., :1],
+             dict(photometric=0, form="tables", restart=2)),
+            ("ycbcr22_stream_13x11", odd, dict(photometric=6, subsampling=2)),
+            ("ycbcr22_jif_2strips_24x32", img,
+             dict(photometric=6, subsampling=2, form="jif",
+                  rows_per_strip=16)),
+            ("ycbcr11_tables_mm_13x11", odd,
+             dict(photometric=6, subsampling=0, form="tables", order=">")),
+            ("ycbcr21_tables_restart3_24x32", img,
+             dict(photometric=6, subsampling=1, form="tables", restart=3)),
+            ("rgb_as_ycbcr22_tables_2strips_24x32", img,
+             dict(photometric=2, subsampling=2, form="tables",
+                  rows_per_strip=16))):
+        out[f"tiff_ojpeg_{name}.tif"] = ("tiff", ojpeg_tiff(px, **kw))
+    # ThunderScan
+    for name, w, h, rps, photo in (("odd_7x5", 7, 5, None, 1),
+                                   ("strips_33x9", 33, 9, 4, 1),
+                                   ("miniswhite_16x6", 16, 6, 3, 0)):
+        px = (np.cumsum(rng.integers(-2, 3, (h, w)), 1) % 16).astype(
+            np.uint8)
+        step = rps or h
+        strips = [b"".join(thunder_row(r, rng) for r in px[y:y + step])
+                  for y in range(0, h, step)]
+        out[f"tiff_thunderscan_{name}.tif"] = ("tiff", tiff_file(
+            px[..., None], 4, photo, compression=32809, raw_strips=strips,
+            rows_per_strip=rps))
+    # JPEG YCbCr in separate planes
+    strips = [_pillow(PILImage.fromarray(odd[y:y + 8, :, k]), "JPEG",
+                      quality=90)
+              for k in range(3) for y in range(0, 13, 8)]
+    out["tiff_jpeg_ycbcr_planes_13x11.tif"] = ("tiff", tiff_file(
+        np.zeros((13, 11, 3), np.uint8), 8, 6, compression=7, planar=2,
+        rows_per_strip=8, raw_strips=strips, extra_tags=[(530, 3, (1, 1))]))
+    # CIE L*a*b*
+    lab = lab_of(odd)
+    signed = lab ^ np.array([0, 128, 128], np.uint8)
+    out["tiff_lab_ii_13x11.tif"] = ("tiff", tiff_file(signed, 8, 8))
+    out["tiff_lab_mm_deflate_pred2_13x11.tif"] = ("tiff", tiff_file(
+        signed, 8, 8, order=">", compression=8, predictor=2))
+    out["tiff_lab_planar_lzw_13x11.tif"] = ("tiff", tiff_file(
+        lab, 8, 8, planar=2, compression=5))
+    for rle in (False, True):
+        out[f"psd_lab_{'packbits' if rle else 'raw'}_13x11.psd"] = (
+            "psd", psd_file(11, 13, 9, 8, list(np.moveaxis(lab, 2, 0)),
+                            rle=rle, rng=rng))
+    return out
+
+
+TAIL_DIR = os.path.join(OUT, "pillow_tail")
+TAIL_CHIP_DIR = os.path.join(OUT, "tail_chip")
+LAB_CROP = 512
+TAIL_LAB = f"tiff_lab_deflate_pred2_crop{LAB_CROP}.tif"
+TAIL_MCT = "jp2_part2_mct_offsets_97_1024.jp2"
+TAIL_OJPEG = "tiff_ojpeg_ycbcr22_jif_strips_q85_1024.tif"
+
+
+def tail_chip_files(texels: np.ndarray) -> dict:
+    """The chip path's files of BIG's texels: their top-left 512x512 crop
+    as a Deflate CIE L*a*b* TIFF (predictor 2; the Lab of Pillow's own
+    transform), the texels as a lossy JP2 whose codestream carries Part 2
+    MCT, MCC and MCO markers (offsets 126, 128 and 130 in place of the
+    level shift), and as an old-style JPEG TIFF (YCbCr 2x2 at quality 85,
+    a JPEGInterchangeFormat header and 64-row strips)."""
+    crop = texels[:LAB_CROP, :LAB_CROP]
+    lab = lab_of(crop) ^ np.array([0, 128, 128], np.uint8)
+    lab_tiff = tiff_file(lab, 8, 8, compression=8, predictor=2,
+                         rows_per_strip=32)
+    planes = list(np.moveaxis(texels, 2, 0).astype(np.int32))
+    lossy = j2k_encode(planes, irreversible=True, mct=True,
+                       layers=[40.0], codeblock=(32, 32))
+    mct = jp2_file(with_segments(
+        lossy, mct_segment(1, [126, 128, 130]), mcc_segment(0, 3, offset=1),
+        mco_segment(0), rsiz=0x8100))
+    ojpeg = ojpeg_tiff(texels, 6, form="jif", subsampling=2, quality=85,
+                       rows_per_strip=64)
+    return {TAIL_LAB: ("tiff", lab_tiff), TAIL_MCT: ("jp2", mct),
+            TAIL_OJPEG: ("tiff", ojpeg)}
+
+
+def write_tail() -> None:
+    """Write tail_fixtures and tail_chip_files, each folder with its
+    manifest."""
+    files = _write(TAIL_DIR, tail_fixtures(np.random.default_rng(25)))
+    _manifest(os.path.join(TAIL_DIR, "manifest.json"), files)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(TAIL_DIR, REPO)}")
+    with PILImage.open(os.path.join(OUT, BIG)) as im:
+        texels = np.asarray(im.convert("RGB"))
+    chip = _write(TAIL_CHIP_DIR, tail_chip_files(texels))
+    _manifest(os.path.join(TAIL_CHIP_DIR, "manifest.json"), chip)
+    print(f"{len(chip)} chip-path files, {sum(x['bytes'] for x in chip)} "
+          f"bytes, in {os.path.relpath(TAIL_CHIP_DIR, REPO)}")
+
+
 def jax_pixels(path: str) -> np.ndarray:
     """cge_tpu's load_image of the file, quantised to u8 [H, W, 3]."""
     from cge_tpu.scene.image_io import load_image
@@ -2907,6 +3291,7 @@ def main() -> int:
     print(f"{len(chip)} chip-path files, "
           f"{sum(x['bytes'] for x in chip)} bytes, in "
           f"{os.path.relpath(J2K_CHIP_DIR, REPO)}")
+    write_tail()
     return 0
 
 

@@ -509,8 +509,9 @@ def _pillow_saved(fmt, mode="RGB", **kw):
     ("tiff_ycbcr", lambda: make_textures.ycbcr_tiff(
         np.zeros((4, 6, 3), np.uint8), 3, 1, 5),
      r"photometric 6 TIFF.*YCbCr"),
-    ("tiff_lab", lambda: _pillow_saved("TIFF", "LAB"),
-     r"photometric 8 TIFF.*L\*a\*b\* is not ported"),
+    ("tiff_lab", lambda: make_textures.tiff_file(
+        np.zeros((2, 2, 3), np.uint16), 16, 8),
+     r"16x16x16-bit photometric 8 TIFF.*not a mode Pillow reads"),
     ("tiff_lzma", lambda: make_textures.tiff_file(
         np.zeros((2, 2, 1), np.uint8), 8, 1, compression=34925,
         raw_strips=[b"\0"]), r"TIFF with LZMA compression"),
@@ -522,7 +523,8 @@ def _pillow_saved(fmt, mode="RGB", **kw):
      r"DDS.*DXT2"),
     ("pam", lambda: b"P7\nWIDTH 4\nHEIGHT 4\n", r"PAM"),
     ("psd_lab", lambda: make_textures.psd_file(
-        2, 1, 9, 8, [np.zeros((1, 2), np.uint8)] * 3), r"LAB PSD"),
+        2, 1, 9, 8, [np.zeros((1, 2), np.uint8)] * 2),
+     r"LAB PSD of 2 channels: not enough"),
     ("bmp_jpeg", lambda: make_textures.bmp_file(1, 1, 24, b"\xff\xd8",
                                                 compression=4), r"JPEG"),
     ("unknown", lambda: b"\x00\x01\x02\x03 no image", r"unknown format")])
@@ -536,8 +538,10 @@ def test_unsupported_formats_name_their_format(tmp_path, kind, make, words):
     holds Pillow to refusing each), a Group 4 TIFF of 8-bit samples
     (libtiff's CCITT decoders take 1-bit ones), a JPEG-in-TIFF whose
     stream's sampling is not its YCbCrSubsampling, a YCbCr TIFF
-    subsampled 3x1, a TIFF whose LZMA strip is no .xz stream, CIE L*a*b*
-    (not ported), and a big-endian BigTIFF, which Pillow reads as a
+    subsampled 3x1, a TIFF whose LZMA strip is no .xz stream, a 16-bit
+    CIE L*a*b* TIFF and a LAB PSD of two channels (Pillow has no mode for
+    the one and too few channels for the other; 8-bit Lab decodes,
+    tests/test_torch_lab.py), and a big-endian BigTIFF, which Pillow reads as a
     classic TIFF and refuses; so does a GIF, which the port reads, cut
     short, and a DDS of the premultiplied DXT2, which Pillow refuses."""
     path = str(tmp_path / "t.png")

@@ -35,7 +35,7 @@ with open(os.path.join(FIXTURES, "j2k_chip", "manifest.json")) as _f:
 J2K_FIXTURES = [f["name"] for f in MANIFEST["files"]
                 if f["kind"] in ("j2k", "jp2")]
 # what the port refuses though Pillow decodes it (ROADMAP queue 3)
-KNOWN_GAPS = r"HTJ2K|Part 2"
+KNOWN_GAPS = r"HTJ2K"
 
 
 def _jax_u8(path):
@@ -399,11 +399,7 @@ def _refusals():
     return {
         "htj2k_cap": (_with_marker(rgb, 0xFF50, bytes(6)), r"HTJ2K.*CAP"),
         "htj2k_code_blocks": (bytes(ht), r"HTJ2K.*code-blocks"),
-        **{f"part2_{m.lower()}": (_with_marker(rgb, code, bytes(4)),
-                                  rf"Part 2.*{m} marker")
-           for m, code in (("MCT", 0xFF74), ("MCC", 0xFF75), ("MCO", 0xFF77),
-                           ("CBD", 0xFF78), ("ATK", 0xFF79),
-                           ("ADS", 0xFF73))},
+        **_part2_cases(rgb),
         "unknown_progression": (bytes(prog), r"unknown progression order 9"),
         "missing_eph": (no_eph, r"EPH marker"),
         "five_components_j2k": (five, r"JPEG 2000.*unable to determine J2K "
@@ -426,6 +422,31 @@ def _refusals():
     }
 
 
+def _part2_cases(rgb):
+    """The six Part 2 cases, held to Pillow: (stream, the words of the
+    port's error where Pillow refuses it too, else None). An MCT offset
+    array through an MCC and an MCO (the level shifts replaced), an MCC
+    naming no MCT record, an MCO of no stage (level shifts 0), a CBD
+    making the components signed, an ATK and an ADS of odd length (markers
+    OpenJPEG skips two bytes at a time)."""
+    return {
+        "part2_mct": (mt.with_segments(
+            rgb, mt.mct_segment(1, [10, 20, 30]),
+            mt.mcc_segment(0, 3, offset=1), mt.mco_segment(0)), None),
+        "part2_mcc": (mt.with_segments(
+            rgb, mt.mcc_segment(0, 3, offset=4), mt.mco_segment(0)),
+            r"Error reading MCC marker"),
+        "part2_mco": (mt.with_segments(rgb, mt.mco_segment()), None),
+        "part2_cbd": (mt.with_segments(
+            rgb, mt.cbd_segment(0x87, 0x87, 0x87)), None),
+        "part2_atk": (mt.with_segments(
+            rgb, mt.marker_segment(0xFF79, bytes(4))), None),
+        "part2_ads": (mt.with_segments(
+            rgb, mt.marker_segment(0xFF73, bytes(3))),
+            r"cut short in an unknown marker segment"),
+    }
+
+
 def _tile_part_out_of_order(codestream: bytes) -> bytes:
     sot = codestream.index(b"\xff\x90")
     return codestream[:sot + 10] + b"\x01" + codestream[sot + 11:]
@@ -434,19 +455,114 @@ def _tile_part_out_of_order(codestream: bytes) -> bytes:
 @pytest.mark.parametrize("case", sorted(_refusals()))
 def test_refusals_name_their_case(tmp_path, case):
     """Each refusal raises a ValueError naming JPEG 2000 and its case: the
-    Part 15 and Part 2 streams the port does not decode (Pillow decodes the
-    CAP and MCT-marker ones, ROADMAP queue 3), and what Pillow refuses too
-    (held to Pillow by _same_as_jax)."""
+    Part 15 streams the port does not decode (Pillow decodes the CAP one,
+    ROADMAP queue 3), and what Pillow refuses too (held to Pillow by
+    _same_as_jax). The Part 2 cases are held to Pillow: equal pixels, or
+    an error naming the case where Pillow refuses the stream."""
     data, words = _refusals()[case]
+    if case.startswith("part2"):
+        want = _same_as_jax(tmp_path, data, "part2.j2k")
+        assert (want is None) == (words is not None)
+        if words is None:
+            return
     path = str(tmp_path / "refused.j2k")
     with open(path, "wb") as f:
         f.write(data)
     with pytest.raises(ValueError, match=words) as e:
         mesh_io.load_image(path)
     assert "JPEG 2000" in str(e.value)
-    if not case.startswith(("htj2k", "part2")):
+    if not case.startswith("htj2k"):
         with pytest.raises(Exception):
             _jax_u8(path)
+
+
+@pytest.mark.parametrize("mct", [2, 1, 0])
+@pytest.mark.parametrize("n", [3, 4])
+def test_part2_custom_transforms_match_jax(tmp_path, n, mct):
+    """Streams OpenJPEG's encoder writes with a custom multiple component
+    transform (opj_set_MCT: a 3x3 or 4x4 float decorrelation matrix with
+    offsets, as MCT, MCC and MCO markers, Rsiz Part 2): OpenJPEG refuses
+    the COD's MCT of 2, and the port too; with the COD's MCT set to 1 or 0
+    the markers' offsets replace the level shifts, in Pillow as in the
+    port."""
+    rng = np.random.default_rng(n * 10 + mct)
+    planes = _planes(rng, [(1, 1)] * n, 6, 9)
+    matrix = np.eye(n) * 0.75 + rng.uniform(-0.2, 0.2, (n, n))
+    shift = rng.integers(-20, 40, n)
+    data = mt.cod_mct(j2k_encode(planes, mct_matrix=matrix,
+                                 mct_shift=shift), mct)
+    want = _same_as_jax(tmp_path, data, f"mct{n}_{mct}.j2k")
+    assert (want is None) == (mct == 2)
+    if mct == 2:
+        with pytest.raises(ValueError, match=r"Invalid multiple component "
+                                             r"transformation"):
+            jpeg2000.decode_jpeg2000(data)
+
+
+def _random_part2(rng, stream, ncomp):
+    """Seeded Part 2 marker segments in the main header and a tile-part
+    header: MCT records of each element and array type (some of a wrong
+    size, some with Zmct or Ymct set), MCC collections naming records or
+    not (component indices in one or two bytes, some shuffled, of other
+    counts), MCO orders of 0 to 2 stages, a CBD, ATK and ADS of even or
+    odd length."""
+    def segs():
+        out = []
+        for _ in range(int(rng.integers(1, 6))):
+            kind = int(rng.integers(0, 7))
+            if kind in (0, 1):
+                element = int(rng.integers(0, 4))
+                count = int(rng.choice([ncomp, ncomp * ncomp,
+                                        int(rng.integers(1, 5))]))
+                values = (rng.uniform(-300, 300, count) if element >= 2
+                          else rng.integers(-300, 300, count))
+                out.append(mt.mct_segment(
+                    int(rng.integers(0, 4)), values.tolist(), element,
+                    int(rng.integers(0, 3)),
+                    zmct=int(rng.random() < 0.1),
+                    ymct=int(rng.random() < 0.1)))
+            elif kind == 2:
+                out.append(mt.mcc_segment(
+                    int(rng.integers(0, 3)),
+                    int(rng.choice([ncomp, ncomp, 2])),
+                    deco=int(rng.integers(0, 4)),
+                    offset=int(rng.integers(0, 4)),
+                    wide=bool(rng.random() < 0.3),
+                    collections=int(rng.choice([1, 1, 1, 0, 2])),
+                    kind=int(rng.choice([1, 1, 1, 2]))))
+            elif kind == 3:
+                out.append(mt.mco_segment(*rng.integers(
+                    0, 3, int(rng.choice([0, 1, 1, 1, 2]))).tolist()))
+            elif kind == 4:
+                out.append(mt.cbd_segment(*rng.choice(
+                    [7, 7, 0x87, 11, 3], ncomp).tolist()))
+            else:
+                out.append(mt.marker_segment(
+                    int(rng.choice([0xFF79, 0xFF73])),
+                    rng.integers(0, 256, int(rng.integers(0, 6))).astype(
+                        np.uint8).tobytes()))
+        return out
+
+    data = mt.with_segments(stream, *segs())
+    if rng.random() < 0.5:
+        data = mt.with_segments(data, *[s for s in segs()
+                                        if s[1] in (0x74, 0x75, 0x77)],
+                                tile=0)
+    return data
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_random_part2_markers_match_jax(tmp_path, seed):
+    """Seeded sets of Part 2 markers over reversible and irreversible RGB,
+    RGBA and grey streams, one tile or four: the port gives Pillow's
+    pixels, or raises where Pillow raises."""
+    rng = np.random.default_rng(1000 + seed)
+    ncomp = int(rng.choice([1, 3, 4]))
+    stream = j2k_encode(_planes(rng, [(1, 1)] * ncomp, 6, 9),
+                        irreversible=bool(rng.random() < 0.5),
+                        tiles=(4, 4) if rng.random() < 0.3 else None)
+    _same_as_jax(tmp_path, _random_part2(rng, stream, ncomp),
+                 f"part2_{seed}.j2k")
 
 
 def _idwt53_twin(coef, x0, y0, sw, sh):

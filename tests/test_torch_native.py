@@ -568,6 +568,34 @@ def test_image_decoders_under_asan_ubsan(tmp_path):
     assert r.stdout.count("SANITIZED_OK") == len(names)
 
 
+def test_tail_decoders_under_asan_ubsan(tmp_path):
+    """The sanitized library of test_image_decoders_under_asan_ubsan over
+    every fixture of tests/torch_textures/pillow_tail/: the ThunderScan rows
+    of cge_raster.cpp, the Part 2 marker readers of cge_j2k.cpp and the raw
+    data of cge_jpeg.cpp under libtiff's old-style JPEG source among the
+    entries, each whole, cut short at eight lengths and with bytes flipped;
+    nothing faults."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures", "pillow_tail")
+    names = sorted(f for f in os.listdir(fixtures) if f != "manifest.json")
+    assert len(names) >= 30
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "images.py"
+    script.write_text(IMAGES_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build"),
+         fixtures, *names], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(names)
+
+
 CODECS_SCRIPT = r"""
 import ctypes, io, sys
 import numpy as np
