@@ -12,8 +12,9 @@ the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
 (BC1 to BC7) textures of DDS files (scene/dds.py); `cge_fax.cpp` TIFF's
 CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py);
 `cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files, the
-QOI op stream and ICNS's run-length channels (scene/sgi.py, pcx.py,
-sun.py, qoi.py, icns.py); `cge_j2k.cpp` JPEG 2000 codestreams
+QOI op stream, ICNS's run-length channels, ThunderScan rows and XBM's hex
+bytes (scene/sgi.py, pcx.py, sun.py, qoi.py, icns.py, tiff.py, xbm.py);
+`cge_j2k.cpp` JPEG 2000 codestreams
 (scene/jpeg2000.py).
 Each source is compiled at first use by `g++` with the flags of the JAX
 package's Makefile (CXXFLAGS, warnings as errors; cge_j2k.cpp also with
@@ -112,8 +113,9 @@ _SIGNATURES = {
                      ctypes.c_long, _P, ctypes.c_char_p, _I]),
     "cge_icns_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.c_long, _P, ctypes.c_char_p, _I]),
-    "cge_thunder": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
-                         ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    **{name: (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                   ctypes.c_long, _P, ctypes.c_char_p, _I])
+       for name in ("cge_thunder", "cge_xbm")},
     "cge_j2k_open": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.POINTER(_P), ctypes.c_char_p, _I]),
     "cge_j2k_info": (None, [_P, _P]),
@@ -599,6 +601,19 @@ def icns_rle(data: bytes, offset: int, pixels: int) -> np.ndarray:
 OJPEG_SOURCE = 4
 
 
+def jpeg_tiff_lines(data: bytes) -> tuple:
+    """A grey JPEG stream's lines as libtiff's old-style JPEG codec reads
+    them, through its source (OJPEG_SOURCE): ([height, width] uint8; the
+    MCU row at whose restart marker the source failed, after which nothing
+    was decoded, or -1)."""
+    w, h, nc = jpeg_tiff_info(b"", data, OJPEG_SOURCE)[:3]
+    out = np.zeros(w * h * nc + 4, np.uint8)
+    decode_call(library().cge_jpeg_tiff_decode, b"", 0, data, len(data),
+                OJPEG_SOURCE, out.ctypes.data, out.size)
+    lines = out[:w * h * nc].reshape(h, w, nc)[..., 0]
+    return lines, int(out[w * h * nc:].view(np.int32)[0])
+
+
 def jpeg_tiff_planes(data: bytes) -> tuple:
     """A JPEG stream's raw data (jpeg_read_raw_data, as libtiff's old-style
     JPEG codec reads YCbCr), read through that codec's source
@@ -622,6 +637,15 @@ def jpeg_tiff_planes(data: bytes) -> tuple:
         planes.append(out[at:at + a * b].reshape(a, b))
         at += a * b
     return planes, int(out[total:total + 4].view(np.int32)[0])
+
+
+def xbm_bytes(data: bytes, offset: int, count: int) -> np.ndarray:
+    """XBM's hex bytes from data[offset] on, as Pillow's XbmDecode.c reads
+    them: count bytes uint8; an error where the data end first."""
+    out = np.zeros(count, np.uint8)
+    decode_call(library().cge_xbm, data, len(data), offset, count,
+                out.ctypes.data)
+    return out
 
 
 def thunder(data: bytes, width: int, rows: int) -> np.ndarray:

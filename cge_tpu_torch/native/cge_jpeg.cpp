@@ -35,6 +35,13 @@
 // through a suspending source; jdarith.c cannot suspend, so an arithmetic
 // scan that needs a byte past the blocks handed over by then fails
 // ("broken data stream"), and so does the decoder here (kPillowBlock).
+// The Huffman decoders read as jdhuff.c's bit buffer does: 57 bits or
+// more a fill (jpeg_fill_bit_buffer), and on a sequential scan's fast path
+// (no restart interval, no marker met, 512 bytes a block of the MCU in
+// hand) six bytes at 16 bits or fewer; a suspended MCU is decoded again
+// once Pillow's next block is there. Where a fill needs a byte past the
+// end of the file (no EOI), Pillow reads the file as truncated, and so
+// does the decoder here; a file of several scans needs its EOI.
 //
 // Damaged data goes as in libjpeg, whose warnings Pillow ignores: zeros
 // past a marker met inside a scan (a Huffman segment cut short skips its
@@ -42,6 +49,14 @@
 // markers, a Huffman code of 17 bits taken as 0, a run past the block's
 // end on its last coefficient, an arithmetic decoding error skipping the
 // rest of its restart interval; a reserved marker is an error.
+//
+// Headers as jdmarker.c reads them: APPn, COM and DNL segments of length
+// below 2 skip nothing, DHT, DQT, DAC, SOF and SOS ones fail; DQT entries
+// are 16-bit at any nonzero precision, and a DQT or SOF whose length is
+// not that of its tables or components fails; DC and AC tables 0 and 1
+// that no DHT before the first scan defined are T.81's standard tables in
+// a sequential Huffman file (std_huff_tables); a table whose codes reach
+// the all-ones code fails only where a scan uses it.
 //
 // Anything Pillow or libjpeg refuses raises with the case named: 12- and
 // 16-bit samples, two components, hierarchical JPEG (SOF5-7, SOF13-15),
@@ -82,6 +97,10 @@ struct DecodeError {
 
 // a restart marker out of place under libtiff's old-style JPEG source
 struct ResyncFailed {};
+
+// libjpeg suspended by Pillow's source inside an MCU, at the end of the
+// bytes handed over so far
+struct Suspend {};
 
 // The end of the data where libjpeg takes it as the end of the image: a
 // source that supplies an EOI there (libtiff's), or Pillow's once the
@@ -144,8 +163,59 @@ const uint32_t kAritab[114] = {
 // (D_MAX_BLOCKS_IN_MCU)
 constexpr int kMaxBlocksInMcu = 10;
 
+// The tables of T.81 Annex K.3 (jstdhuff.c): 16 counts, then the values.
+// libjpeg-turbo gives them to DC and AC tables 0 and 1 that no DHT before
+// the first scan defined (std_huff_tables, for Motion-JPEG frames).
+const uint8_t kStdDc0[] = {
+    0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07,
+    0x08, 0x09, 0x0a, 0x0b,
+};
+const uint8_t kStdDc1[] = {
+    0x00, 0x03, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07,
+    0x08, 0x09, 0x0a, 0x0b,
+};
+const uint8_t kStdAc0[] = {
+    0x00, 0x02, 0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04, 0x04,
+    0x00, 0x00, 0x01, 0x7d, 0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12,
+    0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32,
+    0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a,
+    0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55,
+    0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85,
+    0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98,
+    0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2,
+    0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea,
+    0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa,
+};
+const uint8_t kStdAc1[] = {
+    0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05, 0x04, 0x04,
+    0x00, 0x01, 0x02, 0x77, 0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21,
+    0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81,
+    0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17,
+    0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54,
+    0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96,
+    0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9,
+    0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9,
+    0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa,
+};
+
 struct Huffman {
     bool defined = false;
+    // jdhuff.c jpeg_make_d_derived_tbl: a code of some length reaches the
+    // all-ones code; an error only where a scan uses the table
+    bool bad = false;
     int count = 0;
     int32_t maxcode[18];  // largest code of each length, -1 if none
     int32_t valoffset[17];
@@ -156,16 +226,23 @@ struct Huffman {
         count = n;
         int32_t code = 0;
         int k = 0;
+        bad = false;
         for (int len = 1; len <= 16; ++len) {
             valoffset[len] = k - code;
             k += counts[len - 1];
             code += counts[len - 1];
             maxcode[len] = counts[len - 1] ? code - 1 : -1;
-            if (code > (1 << len)) fail("corrupt JPEG data: bad Huffman table");
+            if (code >= (1 << len)) bad = true;
             code <<= 1;
         }
         maxcode[17] = 0x7FFFFFFF;
         defined = true;
+    }
+
+    void build_std(const uint8_t* table) {
+        int n = 0;
+        for (int i = 0; i < 16; ++i) n += table[i];
+        build(table, table + 16, n);
     }
 };
 
@@ -256,9 +333,14 @@ class Decoder {
     // source (-1: none)
     int resync_row_ = -1;
 
-    // Huffman entropy-coded segment reader
-    uint32_t bitbuf_ = 0;
+    // Huffman entropy-coded segment reader: libjpeg's 64-bit bit buffer;
+    // fast_: jdhuff.c decode_mcu_fast's reads (an MCU of a sequential scan
+    // with 512 bytes a block in hand); retry_: a read past the bytes
+    // Pillow has handed over suspends the MCU (Suspend), which is decoded
+    // again from its start once the next block is there
+    uint64_t bitbuf_ = 0;
     int bitcnt_ = 0;
+    bool fast_ = false, retry_ = false;
     int eobrun_ = 0;
     // libjpeg's unread_marker: a marker an entropy decoder ran into, pos_
     // past it (0 none); insufficient_data: the Huffman decoder needed bits
@@ -303,10 +385,13 @@ class Decoder {
     void decode_scan(const std::vector<Component*>& scomps, int ss, int se,
                      int ah, int al);
 
-    void fill(int need);
+    int source_byte();
+    void fill(int nbits);
+    void fill_fast();
     int bits(int n);
     int bit();
     int huff(const Huffman& t);
+    int huff_slow(const Huffman& t, int min_bits);
     static int extend(int v, int s) {
         return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
     }
@@ -404,8 +489,13 @@ void Decoder::read_segment(int m) {
             return std::string(b);
         }());
     int len = u16();
-    if (len < 2 || (m == 0xDD && len != 4))
+    if (m == 0xDD && len != 4) fail("corrupt JPEG data: bad DRI length");
+    if (len < 2) {
+        // jdmarker.c: APPn, COM and DNL skip nothing more; the tables' and
+        // headers' readers end at a length that is not 0
+        if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) return;
         fail("corrupt JPEG data: bad marker length");
+    }
     if (pos_ + len - 2 > n_) {
         // libjpeg waits for the rest of the segment
         if (end_is_eoi_) throw EndOfImage{};
@@ -477,7 +567,8 @@ void Decoder::read_sof(int m, size_t end) {
                                  : (nc != 1 && nc != 3 && nc != 4))
         fail(std::to_string(nc) + "-component JPEG is not supported "
              "(Pillow reads 1, 3 and 4 components)");
-    if (pos_ + 3 * nc > end) fail("corrupt JPEG data: short SOF");
+    // jdmarker.c get_sof: the length is that of nc components exactly
+    if (pos_ + 3 * nc != end) fail("corrupt JPEG data: bad SOF length");
     comps_.resize(nc);
     for (auto& c : comps_) {
         c.id = byte();
@@ -557,15 +648,20 @@ void Decoder::read_dht(size_t end) {
     }
 }
 
+// jdmarker.c get_dqt: 16-bit entries for any nonzero precision, the tables
+// read on past the segment's end where its length falls short, which is
+// then an error
 void Decoder::read_dqt(size_t end) {
     while (pos_ < end) {
         int pq_tq = byte();
         int pq = pq_tq >> 4, tq = pq_tq & 15;
-        if (pq > 1 || tq > 3) fail("corrupt JPEG data: bad DQT");
+        if (tq > 3) fail("corrupt JPEG data: bad DQT table index");
         for (int k = 0; k < 64; ++k)
-            quant_[tq][kNatural[k]] = pq ? u16() : byte();
+            quant_[tq][kNatural[k]] = static_cast<uint16_t>(pq ? u16()
+                                                               : byte());
         quant_defined_[tq] = true;
     }
+    if (pos_ != end) fail("corrupt JPEG data: bad DQT length");
 }
 
 // jdmarker.c get_dac: (table, value) pairs; tables 0-15 DC (L in the low
@@ -633,54 +729,136 @@ void Decoder::read_sos(std::vector<Component*>& scomps, int& ss, int& se,
     }
 }
 
-// jdhuff.c jpeg_fill_bit_buffer: a stuffed 0xFF is 0xFF; a marker (or the
-// end of the data, as an EOI) stops the input, and bits wanted past it
-// are zeros
-void Decoder::fill(int need) {
-    while (bitcnt_ < need) {
-        uint32_t c = 0;
-        if (!unread_) {
-            if (pos_ < n_) {
-                c = data_[pos_++];
-                if (c == 0xFF) {
-                    int d = -1;
-                    while (pos_ < n_ && (d = data_[pos_++]) == 0xFF) {}
-                    if (d == 0) {
-                        c = 0xFF;                 // stuffed 0xFF
-                    } else {
-                        unread_ = d < 0 ? 0xD9 : d;
-                        c = 0;
-                    }
+// A byte of the entropy-coded data for the Huffman bit buffer: -1 at the
+// end of the data where libtiff's source supplies an EOI there. Pillow's
+// source suspends libjpeg at the end of the bytes handed over so far:
+// Pillow reads its next block (Suspend, or on at once where the MCU need
+// not be decoded again), and at the end of the file it reads the file as
+// truncated.
+int Decoder::source_byte() {
+    if (pos_ >= n_) {
+        if (fed_ == SIZE_MAX) return -1;
+        fail("corrupt JPEG data: the data end inside a scan, where libjpeg's "
+             "bit buffer reads ahead (a file Pillow reads as truncated)");
+    }
+    if (pos_ >= fed_) {
+        if (retry_) throw Suspend{};
+        fed_ += kPillowBlock;
+    }
+    return data_[pos_++];
+}
+
+// jdhuff.c jpeg_fill_bit_buffer: the buffer loaded to 57 bits or more
+// (MIN_GET_BITS of a 64-bit buffer), a stuffed 0xFF read as 0xFF; a
+// marker (or the end of libtiff's data, an EOI) stops the input, and where
+// nbits are wanted past it they are zeros (insufficient_data)
+void Decoder::fill(int nbits) {
+    if (!unread_) {
+        while (bitcnt_ < 57) {
+            int c = source_byte();
+            if (c == 0xFF) {
+                do {
+                    c = source_byte();
+                } while (c == 0xFF);
+                if (c == 0) {
+                    c = 0xFF;                     // stuffed 0xFF
+                } else {
+                    unread_ = c < 0 ? 0xD9 : c;
+                    break;
                 }
-            } else {
+            } else if (c < 0) {
                 unread_ = 0xD9;
+                break;
+            }
+            bitbuf_ = (bitbuf_ << 8) | static_cast<uint64_t>(c);
+            bitcnt_ += 8;
+        }
+    }
+    if (unread_ && nbits > bitcnt_) {
+        insufficient_ = true;
+        bitbuf_ <<= 57 - bitcnt_;
+        bitcnt_ = 57;
+    }
+}
+
+// jdhuff.h FILL_BIT_BUFFER_FAST: six bytes at 16 bits or fewer, without a
+// check of the end; a marker is backed out and read as a zero byte (the
+// MCU is then decoded again the slow way)
+void Decoder::fill_fast() {
+    if (bitcnt_ > 16) return;
+    for (int i = 0; i < 6; ++i) {
+        // the fast path runs with 512 bytes a block in hand; past the
+        // data's end (damaged data only) zeros are read in place of what
+        // lies past libjpeg's buffer
+        const int c0 = pos_ < n_ ? data_[pos_] : 0;
+        const int c1 = pos_ + 1 < n_ ? data_[pos_ + 1] : 0;
+        if (pos_ < n_) ++pos_;
+        bitbuf_ = (bitbuf_ << 8) | static_cast<uint64_t>(c0);
+        bitcnt_ += 8;
+        if (c0 == 0xFF) {
+            if (pos_ < n_) ++pos_;
+            if (c1 != 0) {
+                unread_ = c1;
+                pos_ -= 2;
+                bitbuf_ &= ~static_cast<uint64_t>(0xFF);
             }
         }
-        if (unread_) insufficient_ = true;
-        bitbuf_ = (bitbuf_ << 8) | c;
-        bitcnt_ += 8;
     }
 }
 
 int Decoder::bits(int n) {
     if (n == 0) return 0;
-    fill(n);
+    if (fast_)
+        fill_fast();
+    else if (bitcnt_ < n)
+        fill(n);
     bitcnt_ -= n;
     return static_cast<int>((bitbuf_ >> bitcnt_) & ((1u << n) - 1));
 }
 
 int Decoder::bit() { return bits(1); }
 
+// jdhuff.h HUFF_DECODE (HUFF_DECODE_FAST under fast_): a code of 8 bits
+// or fewer from the next 8 bits, a longer one from 9 bits on, bit by bit
+// (jpeg_huff_decode); below 8 bits in the buffer after a fill, bit by bit
+// from the first
 int Decoder::huff(const Huffman& t) {
-    int32_t code = bit();
-    int len = 1;
+    if (fast_) {
+        fill_fast();
+    } else if (bitcnt_ < 8) {
+        fill(0);
+        if (bitcnt_ < 8) return huff_slow(t, 1);
+    }
+    const int look = static_cast<int>((bitbuf_ >> (bitcnt_ - 8)) & 0xFF);
+    for (int len = 1; len <= 8; ++len) {
+        const int code = look >> (8 - len);
+        if (code <= t.maxcode[len]) {
+            bitcnt_ -= len;
+            return t.vals[(t.valoffset[len] + code) & 0xFF];
+        }
+    }
+    if (!fast_) return huff_slow(t, 9);
+    bitcnt_ -= 9;
+    int32_t code = static_cast<int32_t>((bitbuf_ >> bitcnt_) & 0x1FF);
+    int len = 9;
+    while (code > t.maxcode[len]) {
+        --bitcnt_;
+        code = (code << 1) | static_cast<int32_t>((bitbuf_ >> bitcnt_) & 1);
+        ++len;
+    }
+    // libjpeg warns of a code of 17 bits and takes it as 0
+    return len > 16 ? 0 : t.vals[(t.valoffset[len] + code) & 0xFF];
+}
+
+// jdhuff.c jpeg_huff_decode: min_bits at once, then bit by bit
+int Decoder::huff_slow(const Huffman& t, int min_bits) {
+    int32_t code = bits(min_bits);
+    int len = min_bits;
     while (code > t.maxcode[len]) {
         code = (code << 1) | bit();
         ++len;
     }
-    // libjpeg warns of a code of 17 bits and takes it as 0
-    if (len > 16) return 0;
-    return t.vals[(t.valoffset[len] + code) & 0xFF];
+    return len > 16 ? 0 : t.vals[(t.valoffset[len] + code) & 0xFF];
 }
 
 // A byte the entropy decoders' marker search reads (jdmarker.c
@@ -692,11 +870,14 @@ int Decoder::entropy_byte() {
         if (fed_ == SIZE_MAX) return -1;
         fail("corrupt JPEG data: premature end of file");
     }
-    if (arithmetic_ && pos_ >= fed_)
-        fail(std::string("arithmetic-coded JPEG (SOF") +
-             (progressive_ ? "10" : "9") + ") whose scan runs past the 64 KB "
-             "blocks Pillow has read at its start: Pillow refuses it (broken "
-             "data stream)");
+    if (pos_ >= fed_) {
+        if (arithmetic_)
+            fail(std::string("arithmetic-coded JPEG (SOF") +
+                 (progressive_ ? "10" : "9") + ") whose scan runs past the 64 "
+                 "KB blocks Pillow has read at its start: Pillow refuses it "
+                 "(broken data stream)");
+        fed_ += kPillowBlock;              // the Huffman decoder suspends
+    }
     return data_[pos_++];
 }
 
@@ -1132,8 +1313,8 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
             c->coef_bits[0] = 0;
         }
         // jdhuff.c jpeg_make_d_derived_tbl for the tables the scan uses: 4
-        // of them, defined, a DC table's symbols categories (lossless: up
-        // to 16)
+        // of them, defined, codes short of the all-ones code, a DC table's
+        // symbols categories (lossless: up to 16)
         const bool dc_used = lossless_ || !progressive_ || (ss == 0 && ah == 0);
         const bool ac_used = !lossless_ && (!progressive_ || ss > 0);
         if (!arithmetic_) {
@@ -1141,6 +1322,10 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
                 (ac_used && (c->ac_table > 3 || !ac_[c->ac_table].defined)))
                 fail("corrupt JPEG data: a scan uses an undefined Huffman "
                      "table");
+            if ((dc_used && dc_[c->dc_table].bad) ||
+                (ac_used && ac_[c->ac_table].bad))
+                fail("corrupt JPEG data: bad Huffman table (a code reaches "
+                     "the all-ones code)");
             if (dc_used) {
                 const Huffman& t = dc_[c->dc_table];
                 for (int i = 0; i < t.count; ++i)
@@ -1177,8 +1362,7 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
     // restart; Huffman: so does a segment cut short by a marker
     // (insufficient_data), the blocks left as they are
     bool failed = false;
-    auto mcu = [&](int my, int mx) {
-        if (failed || (!arithmetic_ && !lossless_ && insufficient_)) return;
+    auto mcu_blocks = [&](int my, int mx) {
         for (Component* c : scomps) {
             const int bv = one ? 1 : c->v, bh = one ? 1 : c->h;
             for (int v = 0; v < bv; ++v)
@@ -1221,6 +1405,56 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
                 }
         }
     };
+    // jdhuff.c decode_mcu of a sequential Huffman scan: the fast path
+    // where no restart interval is set, no marker has been met and 512
+    // bytes a block of the MCU are in hand (of the bytes Pillow has handed
+    // over), else the slow one; suspended, the MCU is decoded again from
+    // its start, as libjpeg does once Pillow has read its next block
+    int mcu_size = 0;
+    for (Component* c : scomps) mcu_size += one ? 1 : c->h * c->v;
+    const bool sequential_huffman =
+        !arithmetic_ && !lossless_ && !progressive_;
+    std::vector<int> preds(scomps.size());
+    auto mcu = [&](int my, int mx) {
+        if (failed || (!arithmetic_ && !lossless_ && insufficient_)) return;
+        if (!sequential_huffman) {
+            mcu_blocks(my, mx);
+            return;
+        }
+        const size_t pos = pos_;
+        const uint64_t buf = bitbuf_;
+        const int cnt = bitcnt_, unread = unread_;
+        const bool insufficient = insufficient_;
+        for (size_t i = 0; i < scomps.size(); ++i) preds[i] = scomps[i]->pred;
+        auto restore = [&] {
+            pos_ = pos;
+            bitbuf_ = buf;
+            bitcnt_ = cnt;
+            unread_ = unread;
+            insufficient_ = insufficient;
+            for (size_t i = 0; i < scomps.size(); ++i)
+                scomps[i]->pred = preds[i];
+        };
+        retry_ = true;
+        for (;;) {
+            const size_t held = std::min(fed_, n_);
+            fast_ = !restart_interval_ && !unread_ && held > pos_ &&
+                    held - pos_ >= static_cast<size_t>(512) * mcu_size;
+            try {
+                mcu_blocks(my, mx);
+                if (fast_ && unread_) {         // a marker: the slow way
+                    fast_ = false;
+                    restore();
+                    mcu_blocks(my, mx);
+                }
+                break;
+            } catch (const Suspend&) {
+                restore();
+                fed_ += kPillowBlock;
+            }
+        }
+        fast_ = retry_ = false;
+    };
     int done = 0;
     bool skip_row = false;
     for (int my = 0; my < nby; ++my)
@@ -1233,10 +1467,8 @@ void Decoder::decode_scan(const std::vector<Component*>& scomps, int ss,
                 try {
                     restart(scomps, ss, ah);
                 } catch (const ResyncFailed&) {
-                    if (color != 2)
-                        fail("LibJpeg: Unexpected error (libtiff's "
-                             "old-style JPEG source does not resynchronise "
-                             "at a restart marker)");
+                    // libjpeg stops here; whether libtiff's reads came this
+                    // far, the caller decides
                     resync_row_ = my;
                     return;
                 }
@@ -1638,6 +1870,14 @@ void Decoder::decode(uint8_t* out) {
         if (!lossless_) c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
     pos_ = first_scan_;
     end_is_eoi_ = fed_ == SIZE_MAX;
+    // jstdhuff.c std_huff_tables, which jdhuff.c's decoder (sequential
+    // Huffman only) calls at jpeg_start_decompress: the tables no DHT
+    // defined before the first scan
+    if (!arithmetic_ && !progressive_ && !lossless_)
+        for (int t = 0; t < 2; ++t) {
+            if (!dc_[t].defined) dc_[t].build_std(t ? kStdDc1 : kStdDc0);
+            if (!ac_[t].defined) ac_[t].build_std(t ? kStdAc1 : kStdAc0);
+        }
     try {
         for (;;) {
             int m = unread_;
@@ -1725,6 +1965,10 @@ void Decoder::decode(uint8_t* out) {
         const size_t k = comps_.size();        // no conversion
         for (size_t i = 0; i < npx; ++i)
             for (size_t j = 0; j < k; ++j) out[k * i + j] = planes[j][i];
+        if (resync_fails) {     // then the MCU row whose restart failed
+            const int32_t row = resync_row_;
+            std::memcpy(out + npx * k, &row, sizeof row);
+        }
         return;
     }
     if (space == kGrey) {
@@ -1838,9 +2082,10 @@ int cge_jpeg_tiff_info(const unsigned char* tables, long tn,
 // ... and its samples: [height][width][components] with color 0, [height]
 // [width][3] RGB with color 1, each component's plane of its blocks in the
 // MCU grid ([MCU rows x v x 8][MCU columns x h x 8], the blocks past the
-// component's own size included) in turn with color 2, then an int32: the
-// MCU row at whose restart libtiff's old-style JPEG source failed (-1:
-// none).
+// component's own size included) in turn with color 2; with color 2, and
+// color 0 under libtiff's old-style JPEG source (color | 4), then an
+// int32: the MCU row at whose restart that source failed, after which
+// nothing was decoded (-1: none).
 int cge_jpeg_tiff_decode(const unsigned char* tables, long tn,
                          const unsigned char* data, long n, int color,
                          unsigned char* out, long capacity, char* err,
@@ -1851,7 +2096,11 @@ int cge_jpeg_tiff_decode(const unsigned char* tables, long tn,
         d.resync_fails = (color & 4) != 0;
         if (tn > 0) d.load_tables(tables, static_cast<size_t>(tn));
         d.parse_headers();
-        if (static_cast<long>(d.width) * d.height * d.channels() > capacity)
+        // (color 0 under libtiff's old-style JPEG source: then the failed
+        // row's int32)
+        const long row = d.resync_fails && d.color == 0 ? 4 : 0;
+        if (static_cast<long>(d.width) * d.height * d.channels() + row >
+            capacity)
             fail("the output buffer is too small");
         d.decode(out);
     });

@@ -37,7 +37,12 @@
 //     2-bit or two 3-bit deltas from it (the skip codes 2 and 4 writing
 //     none), or a raw pixel; a row that the data leave short, or that a run
 //     overruns (it then writes none of its pixels), is an error (libtiff's
-//     "Not enough" / "Too much data").
+//     "Not enough" / "Too much data");
+//   - XBM's hex bytes (cge_xbm), as Pillow's XbmDecode.c: from the end of
+//     the header on, each byte from the two characters after the next
+//     'x' (a character that is no hex digit reads 0, so "0x1," is 0x10),
+//     the search going on past them; the data must hold the bytes of the
+//     last row, the two characters after its last 'x' included.
 //
 // Entry points (C ABI, loaded with ctypes): each writes the bytes its
 // comment names and returns 0, or -1 with a message in err, and reads no
@@ -428,6 +433,31 @@ int cge_thunder(const unsigned char* data, long n, long width, long rows,
                           npixels, width);
             return -1;
         }
+    }
+    return 0;
+}
+
+// XBM: count bytes into out from data[offset] on
+int cge_xbm(const unsigned char* data, long n, long offset, long count,
+            unsigned char* out, char* err, int errlen) {
+    auto hex = [](unsigned char v) -> int {
+        return v >= '0' && v <= '9'   ? v - '0'
+               : v >= 'a' && v <= 'f' ? v - 'a' + 10
+               : v >= 'A' && v <= 'F' ? v - 'A' + 10
+                                      : 0;
+    };
+    long pos = offset, k = 0;
+    while (k < count) {
+        while (pos < n && data[pos] != 'x') ++pos;
+        if (n - pos < 3) {
+            std::snprintf(err, static_cast<size_t>(errlen),
+                          "XBM data end after %ld of the %ld bytes of its "
+                          "rows (image file is truncated)", k, count);
+            return -1;
+        }
+        out[k++] = static_cast<unsigned char>((hex(data[pos + 1]) << 4) +
+                                              hex(data[pos + 2]));
+        pos += 3;
     }
     return 0;
 }

@@ -1,7 +1,7 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
-PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, JPEG 2000, and the
+PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, JPEG 2000, the
 formats of model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR,
-ICNS, BLP, FTEX and Sun raster.
+ICNS, BLP, FTEX and Sun raster, and the X11 icons XBM and XPM.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
@@ -20,9 +20,16 @@ format's test takes a file whose header its plugin cannot open
         conversions: 1-, 2- and 4-bit grey scaled by 255, 85 and 17;
         16-bit grey saturated at 255; the other 16-bit samples keep their
         high byte; alpha and tRNS dropped; a palette index past the PLTE
-        chunk's end is black. Pillow's checks of the chunks before the
-        first IDAT (their CRCs and type names) are followed; a zlib
-        stream cut after the last scanline decodes.
+        chunk's end, or no PLTE, is black. The chunks are walked as
+        Pillow's PngImageFile walks them (_Png): before the first image
+        data their CRCs, type names and handlers' checks (IHDR, PLTE in
+        a palette image only, tRNS, gAMA, cHRM, sRGB, pHYs, iCCP's and
+        zTXt's compression methods, iTXt, text sizes, acTL, fcTL's
+        sequence and bounds, fdAT); the image data from the data chunks
+        that follow one another (into an fcTL's frame where one comes
+        first, the rest 0); after it the handlers of the chunks that
+        follow, whose errors raise. A zlib stream cut after the last
+        scanline decodes.
   BMP   1-, 4- and 8-bit palette (also RLE8 and RLE4), 16-bit 5-5-5 and
         bitfields, 24-bit, 32-bit plain and bitfields; header sizes 12
         (OS/2 core), 40, 52, 56, 64, 108 and 124; bottom-up or top-down
@@ -38,7 +45,11 @@ format's test takes a file whose header its plugin cannot open
   PSD   the merged image, raw or PackBits, in bitmap, grey, indexed, RGB
         (A), CMYK, multichannel, duotone and LAB (scene/psd.py; LAB
         through LittleCMS's Lab -> sRGB transform, scene/lcms.py).
-  PNM   P1 to P6, plain and binary, at any maxval (scene/pnm.py).
+  PNM   P1 to P6, plain and binary, at any maxval; grey PFM ("Pf"),
+        P0CMYK and Pillow's PyP, PyRGBA and PyCMYK (scene/pnm.py).
+  XBM   X11 bitmaps, the header from the first 512 bytes (scene/xbm.py).
+  XPM   X11 pixmaps of "c #rrggbb" colours, palette or RGB
+        (scene/xpm.py).
   TIFF  the first IFD, II or MM, classic or BigTIFF, strips or tiles,
         either planar configuration, raw, LZW, Deflate, PackBits, LZMA or
         ZSTD with predictors 2 and 3, CCITT RLE, Group 3 and Group 4,
@@ -80,12 +91,12 @@ format's test takes a file whose header its plugin cannot open
   FTEX  DXT1 and raw RGB (scene/ftex.py).
   Sun   raster at 1, 4, 8, 24 and 32 bits, with colour maps, raw or
         run-length (scene/sun.py).
-The byte-serial parts of SGI, PCX, QOI, Sun raster and ICNS run in the
-native library's cge_raster.cpp.
+The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS and XBM run in
+the native library's cge_raster.cpp.
 
-Any other format (GBR, AVIF, Radiance HDR, OpenEXR, PAM, PFM, ...) raises
-a ValueError that names it, as does a truncated or corrupt
-file. `png_bytes` and `write_png` write
+Any other format (GBR, AVIF, Radiance HDR, OpenEXR, PAM, colour PFM, ...)
+raises a ValueError that names it, as does a truncated or corrupt file.
+`png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
 24-bit BMP byte for byte as the JAX package does, and `read_bmp` reads any
 BMP that `decode_bmp` reads.
@@ -102,7 +113,7 @@ import numpy as np
 from cge_tpu_torch import native
 from cge_tpu_torch.scene import (blp, dds, ftex, gif, icns, ico, jpeg,
                                  jpeg2000, pcx, pnm, psd, qoi, sgi, sun, tga,
-                                 tiff, webp)
+                                 tiff, webp, xbm, xpm)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -123,16 +134,6 @@ class Image:
     width: int
     height: int
     pixels: np.ndarray  # [H, W, 3] f32 in [0, 1], row 0 = top
-
-
-def _chunks(data: bytes):
-    pos = len(SIGNATURE)
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        yield kind, data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IEND":
-            return
 
 
 def _samples(rows: np.ndarray, width: int, depth: int, ch: int):
@@ -173,71 +174,301 @@ def _pass_samples(raw: bytes, width: int, height: int, depth: int,
     return out
 
 
-def _open_chunks(data: bytes) -> None:
-    """Pillow's PngImageFile._open over the chunks before the first IDAT:
-    native.NotOpened where a chunk header is cut short, a chunk type is no
-    four letters, digits or underscores, a CRC is cut short or wrong, or
-    the IHDR names a filter method other than 0; ValueError where a chunk's
-    data is cut short."""
-    pos = len(SIGNATURE)
-    while True:
-        if pos + 8 > len(data):
-            raise native.NotOpened("PNG chunk header cut short")
-        n, kind = struct.unpack_from(">I4s", data, pos)
-        if not all(c in _CHUNK_TYPE for c in kind):
-            raise native.NotOpened(f"broken PNG file (chunk {kind!r})")
-        if kind in (b"IDAT", b"IEND"):
-            return
-        body = data[pos + 8:pos + 8 + n]
-        if len(body) < n:
-            raise ValueError(f"PNG {kind.decode()} chunk is truncated")
-        crc = data[pos + 8 + n:pos + 12 + n]
-        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(
-                kind + body):
-            raise native.NotOpened(f"broken PNG file (bad or incomplete "
-                                   f"checksum in {kind!r})")
-        if kind == b"IHDR" and n >= 13:
-            _png_format(struct.unpack(">IIBBBBB", body[:13]))
-            if body[11]:
-                raise native.NotOpened("PNG of an unknown filter category")
-        pos += 12 + n
-
-
-def _png_format(header: tuple) -> str:
-    """The IHDR's format, as "8-bit RGB PNG"; native.NotOpened for a colour
-    type, bit depth or interlace method the PNG spec has not."""
-    _, _, depth, ctype, _, _, interlace = header
-    if ctype not in CHANNELS:
-        raise native.NotOpened(f"PNG colour type {ctype} is not a PNG "
-                               f"colour type")
-    fmt = f"{depth}-bit {_NAMES[ctype]} PNG"
-    if depth not in _DEPTHS[ctype]:
-        raise native.NotOpened(f"{fmt}: the PNG spec allows {_NAMES[ctype]} "
-                               f"at {_DEPTHS[ctype]} bits only")
-    if interlace not in (0, 1):
-        raise native.NotOpened(f"{fmt} with interlace method {interlace}: "
-                               f"only none and Adam7 exist")
-    return fmt
-
-
+# Pillow's PngImagePlugin._MODES: (bit depth, colour type) -> mode
+_PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L",
+              (16, 0): "I;16", (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P",
+              (2, 3): "P", (4, 3): "P", (8, 3): "P", (8, 4): "LA",
+              (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
 # the bytes of a chunk type Pillow's is_cid takes (regular expression \w)
 _CHUNK_TYPE = frozenset(b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
                         b"0123456789_")
+# the chunk types PngStream has a handler for
+_PNG_HANDLED = frozenset((b"IHDR", b"IDAT", b"IEND", b"PLTE", b"tRNS",
+                          b"gAMA", b"cHRM", b"sRGB", b"pHYs", b"tEXt",
+                          b"zTXt", b"iTXt", b"eXIf", b"acTL", b"fcTL",
+                          b"fdAT", b"iCCP"))
+# the data lengths below which a handler raises "Truncated ... chunk"
+_PNG_SHORT = {b"IHDR": 13, b"sRGB": 1, b"pHYs": 9, b"acTL": 8, b"fcTL": 26}
+# PngImagePlugin.MAX_TEXT_CHUNK and MAX_TEXT_MEMORY
+_TEXT_CHUNK = 1 << 20
+_TEXT_MEMORY = 64 << 20
 
 
-def _inflate(idat: list, need: int, fmt: str) -> bytes:
-    """The IDAT stream inflated as far as the image needs, as Pillow's
+class _Png:
+    """Pillow's PngStream over the chunks: its handlers' reads and checks,
+    in _open (the chunks before the first image data, each CRC checked) and
+    in load_end (the chunks after it, no CRC checked). A handler raises
+    native.NotOpened where Pillow's raises SyntaxError, IndexError or
+    struct.error, ValueError where it raises ValueError or OSError."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.size = (0, 0)
+        self.key = None                    # (depth, colour type) of the mode
+        self.interlace = False
+        self.palette = None
+        self.n_frames = None
+        self.seq = None
+        self.bbox = None
+        self.default_image = False
+        self.text = 0
+        self.loaded = False                # the handlers of load_end
+        self.ihdr = None                   # the last IHDR's depth, type and
+                                           # interlace method, for messages
+
+    def header(self, pos: int) -> tuple[bytes, int]:
+        """ChunkStream.read: the type and length of the chunk at pos."""
+        s = self.data[pos:pos + 8]
+        if len(s) < 4:
+            raise native.NotOpened("PNG chunk header cut short")
+        cid = s[4:]
+        if len(cid) < 4 or not all(c in _CHUNK_TYPE for c in cid):
+            raise native.NotOpened(f"broken PNG file (chunk {cid!r})")
+        return cid, struct.unpack_from(">I", s)[0]
+
+    def body(self, cid: bytes, pos: int, length: int) -> bytes:
+        """ImageFile._safe_read of a chunk's data."""
+        s = self.data[pos:pos + length]
+        if len(s) < length:
+            raise ValueError(f"PNG {cid.decode()} chunk is truncated")
+        return s
+
+    def _text(self, n: int) -> None:
+        self.text += n
+        if self.text > _TEXT_MEMORY:
+            raise ValueError("PNG text chunks hold more than Pillow's "
+                             "MAX_TEXT_MEMORY")
+
+    @staticmethod
+    def _inflate_text(cid: bytes, s: bytes):
+        """_safe_zlib_decompress: None where zlib fails."""
+        d = zlib.decompressobj()
+        try:
+            out = d.decompress(s, _TEXT_CHUNK)
+        except zlib.error:
+            return None
+        if d.unconsumed_tail:
+            raise ValueError(f"PNG {cid.decode()} chunk inflates past "
+                             f"Pillow's MAX_TEXT_CHUNK")
+        return out
+
+    def call(self, cid: bytes, pos: int, length: int) -> bool:
+        """The handler of the chunk whose data start at pos: True where it
+        is image data or the end (Pillow's EOFError)."""
+        if cid == b"IEND":
+            return True
+        if cid == b"fdAT":
+            if length < 4:
+                raise ValueError("APNG contains truncated fdAT chunk")
+            seq = struct.unpack(">I", self.body(cid, pos, 4))[0]
+            if self.seq != seq - 1:
+                raise native.NotOpened("APNG contains frame sequence errors "
+                                       "(fdAT)")
+            self.seq = seq
+        if cid in (b"IDAT", b"fdAT"):
+            if self.bbox is None and self.n_frames is not None:
+                self.default_image = True
+            return True
+        if cid not in _PNG_HANDLED:
+            return False
+        s = self.body(cid, pos, length)
+        if length < _PNG_SHORT.get(cid, 0):
+            raise ValueError(f"Truncated PNG {cid.decode()} chunk")
+        mode = _PNG_MODES.get(self.key)
+        if cid == b"IHDR":
+            self.size = struct.unpack_from(">II", s)
+            self.ihdr = (s[8], s[9], s[12])
+            if (s[8], s[9]) in _PNG_MODES:
+                self.key = (s[8], s[9])
+            self.interlace = self.interlace or bool(s[12])
+            if s[11]:
+                raise native.NotOpened("PNG of an unknown filter category")
+        elif cid == b"PLTE":
+            if mode == "P" and not self.loaded:   # load_end's is not used
+                self.palette = s
+        elif cid == b"tRNS":
+            want = {"1": 2, "L": 2, "I;16": 2, "RGB": 6}.get(mode, 0)
+            if len(s) < want:
+                raise native.NotOpened(f"PNG tRNS chunk of {len(s)} bytes in "
+                                       f"a {mode} image")
+        elif cid == b"gAMA":
+            if len(s) < 4:
+                raise native.NotOpened("PNG gAMA chunk of fewer than 4 bytes")
+        elif cid == b"cHRM":
+            if len(s) % 4:
+                raise native.NotOpened("PNG cHRM chunk of no whole number of "
+                                       "4-byte values")
+        elif cid == b"iCCP":
+            i = s.find(b"\0")
+            if i + 1 >= len(s):
+                raise native.NotOpened("PNG iCCP chunk cut before its "
+                                       "compression method")
+            if s[i + 1]:
+                raise native.NotOpened(f"Unknown compression method "
+                                       f"{s[i + 1]} in PNG iCCP chunk")
+            self._inflate_text(cid, s[i + 2:])
+        elif cid in (b"tEXt", b"zTXt"):
+            k, _, v = s.partition(b"\0")
+            if cid == b"zTXt":
+                if v and v[0]:
+                    raise native.NotOpened(f"Unknown compression method "
+                                           f"{v[0]} in PNG zTXt chunk")
+                v = self._inflate_text(cid, v[1:]) or b""
+            if k:
+                self._text(len(v))
+        elif cid == b"iTXt":
+            self._itxt(s)
+        elif cid == b"acTL":
+            if self.n_frames is not None:
+                self.n_frames = None
+            else:
+                n = struct.unpack_from(">I", s)[0]
+                if 0 < n <= 0x80000000:
+                    self.n_frames = n
+        elif cid == b"fcTL":
+            seq, w, h, x, y = struct.unpack_from(">5I", s)
+            if (self.seq is None and seq != 0) or (
+                    self.seq is not None and self.seq != seq - 1):
+                raise native.NotOpened("APNG contains frame sequence errors "
+                                       "(fcTL)")
+            self.seq = seq
+            if x + w > self.size[0] or y + h > self.size[1]:
+                raise native.NotOpened(f"APNG contains invalid frames (a "
+                                       f"{w}x{h} frame at {x}, {y} in "
+                                       f"{self.size[0]}x{self.size[1]})")
+            self.bbox = (x, y, x + w, y + h)
+        return False
+
+    def what(self) -> str:
+        """The last IHDR's format for messages, as "16-bit palette PNG",
+        whether Pillow has a mode for it or not."""
+        if self.ihdr is None:
+            return "PNG"
+        depth, ctype, interlace = self.ihdr
+        if ctype not in _NAMES:
+            return f"PNG colour type {ctype}"
+        return f"{depth}-bit {_NAMES[ctype]} PNG" + (
+            f" with interlace method {interlace}" if interlace > 1 else "")
+
+    def _itxt(self, s: bytes) -> None:
+        """chunk_iTXt: what it cannot read it passes over; only a text that
+        inflates past MAX_TEXT_CHUNK raises."""
+        _, sep, r = s.partition(b"\0")
+        if not sep or len(r) < 2:
+            return
+        cf, cm, parts = r[0], r[1], r[2:].split(b"\0", 2)
+        if len(parts) < 3:
+            return
+        v = parts[2]
+        if cf:
+            if cm:
+                return
+            v = self._inflate_text(b"iTXt", v)
+            if v is None:
+                return
+        try:
+            parts[0].decode("utf-8")
+            parts[1].decode("utf-8")
+            n = len(v.decode("utf-8"))
+        except UnicodeError:
+            return
+        self._text(n)
+
+    def open(self) -> tuple[bytes, int, int]:
+        """PngImageFile._open: the chunks up to the first image data (an
+        IDAT, or an fdAT after its sequence number) or IEND; the type,
+        position and length of the chunk that stopped it."""
+        pos = len(SIGNATURE)
+        while True:
+            cid, length = self.header(pos)
+            if self.call(cid, pos + 8, length):
+                return cid, pos, length
+            body = self.body(cid, pos + 8, length)
+            crc = self.data[pos + 8 + length:pos + 12 + length]
+            if len(crc) < 4:
+                raise native.NotOpened(f"broken PNG file (incomplete "
+                                       f"checksum in {cid!r})")
+            if struct.unpack(">I", crc)[0] != zlib.crc32(cid + body):
+                raise native.NotOpened(f"broken PNG file (bad header "
+                                       f"checksum in {cid!r})")
+            pos += 12 + length
+
+    def image(self, pos: int, length: int):
+        """ImageFile.load through PngImageFile.load_read: the data of the
+        chunks of image data from the one at pos on (IDAT, DDAT or fdAT,
+        their CRCs not checked), in Pillow's reads of at most 64 KB, each
+        with the end of the chunk it was read from; it stops at any other
+        chunk, or where the file does."""
+        cid = self.data[pos + 4:pos + 8]
+        skip = 4 if cid == b"fdAT" else 0
+        start, left = pos + 8 + skip, length - skip
+        while True:
+            while left > 0:
+                piece = self.data[start:start + min(left, 1 << 16)]
+                if not piece:
+                    return
+                start += len(piece)
+                left -= len(piece)
+                yield piece, start + left
+            pos = start + 4                           # past the CRC
+            try:
+                cid, length = self.header(pos)
+            except native.NotOpened:
+                return
+            if cid not in (b"IDAT", b"DDAT", b"fdAT"):
+                return
+            if cid == b"fdAT":
+                self.call(cid, pos + 8, length)
+            skip = 4 if cid == b"fdAT" else 0
+            start, left = pos + 8 + skip, length - skip
+
+    def end(self, pos: int, animated: bool) -> None:
+        """PngImageFile.load_end from the end of the chunk the last data
+        were read from (pos): the chunks after it up to IEND, a chunk
+        header cut short or broken, or an APNG's next fcTL, each through
+        its handler, whose errors raise."""
+        self.loaded = True
+        while True:
+            pos += 4                                  # the CRC, unread
+            try:
+                cid, length = self.header(pos)
+            except native.NotOpened:
+                return
+            if cid == b"IEND" or (cid == b"fcTL" and animated):
+                return
+            try:
+                data = self.call(cid, pos + 8, length)
+            except native.NotOpened as e:
+                raise ValueError(f"{e} (after the image data)") from None
+            if data or cid not in _PNG_HANDLED:
+                self.body(cid, pos + 8, length)
+            pos += 8 + length
+
+
+def _png_format(key, interlace: bool) -> str:
+    """The IHDR's format, as "8-bit RGB PNG"; native.NotOpened where no
+    IHDR named a colour type and bit depth Pillow has a mode for."""
+    if key is None:
+        raise native.NotOpened("PNG whose IHDR names no colour type and bit "
+                               "depth Pillow has a mode for")
+    depth, ctype = key
+    return f"{depth}-bit {_NAMES[ctype]} PNG" + (" (Adam7)" if interlace
+                                                 else "")
+
+
+def _inflate(pieces, need: int, fmt: str) -> tuple[bytes, int]:
+    """The image data inflated as far as the image needs, as Pillow's
     decoder reads it: a stream cut, or broken, after the last scanline's
-    bytes still gives the image; ValueError where it gives fewer."""
+    bytes still gives the image; ValueError where it gives fewer. Also the
+    end of the chunk of the last data read."""
     d = zlib.decompressobj()
     out, got = [], 0
     try:
-        for chunk in idat:
-            for i in range(0, len(chunk), 1 << 16):
-                out.append(d.decompress(chunk[i:i + (1 << 16)]))
-                got += len(out[-1])
-                if got >= need:
-                    return b"".join(out)
+        for piece, end in pieces:
+            out.append(d.decompress(piece))
+            got += len(out[-1])
+            if got >= need:
+                return b"".join(out), end
     except zlib.error as e:
         raise ValueError(f"{fmt}: the image data does not inflate ({e})") \
             from None
@@ -247,36 +478,48 @@ def _inflate(idat: list, need: int, fmt: str) -> bytes:
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
-    `convert("RGB")` gives them."""
+    `convert("RGB")` gives them: the chunks walked as PngImageFile walks
+    them (_Png), the image data of the data chunks that follow one another
+    from the first (into an APNG's fcTL frame where one comes before it,
+    the rest of the image 0), then the chunks after them through their
+    handlers."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
-    _open_chunks(data)
-    header, palette, idat = None, None, []
-    for kind, body in _chunks(data):
-        if kind == b"IHDR" and len(body) >= 13:
-            header = struct.unpack(">IIBBBBB", body[:13])
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8)
-            palette = palette[:len(palette) // 3 * 3].reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    width, height, depth, ctype, _, _, interlace = header
-    fmt = _png_format(header)
+    png = _Png(data)
+    try:
+        cid, pos, length = png.open()
+    except ValueError as e:
+        raise type(e)(f"{png.what()}: {e}") from None
+    fmt = _png_format(png.key, png.interlace)
+    if cid == b"IEND":
+        raise ValueError(f"{fmt} without image data (IEND before IDAT): "
+                         f"cannot load this image")
+    depth, ctype = png.key
+    width, height = png.size
     native.check_pixels(fmt, width, height)
+    x0, y0, x1, y1 = png.bbox or (0, 0, width, height)
+    fw, fh = x1 - x0, y1 - y0
+    if fw <= 0 or fh <= 0:
+        raise ValueError(f"{fmt}: an APNG frame of {fw}x{fh} pixels (tile "
+                         f"cannot extend outside image)")
     ch = CHANNELS[ctype]
-    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    passes = _ADAM7 if png.interlace else ((0, 0, 1, 1),)
     need = sum(ph * (1 + (pw * ch * depth + 7) // 8) for pw, ph in (
-        (-(-(width - x0) // dx), -(-(height - y0) // dy))
-        for x0, y0, dx, dy in passes) if pw > 0 and ph > 0)
-    raw = _inflate(idat, need, fmt)
-    px = _pass_samples(raw, width, height, depth, CHANNELS[ctype], interlace)
+        (-(-(fw - px) // dx), -(-(fh - py) // dy))
+        for px, py, dx, dy in passes) if pw > 0 and ph > 0)
+    raw, end = _inflate(png.image(pos, length), need, fmt)
+    frame = _pass_samples(raw, fw, fh, depth, ch, png.interlace)
+    frames = (png.n_frames or 1) + int(png.n_frames is not None
+                                       and png.default_image)
+    png.end(end, frames > 1)
+    px = np.zeros((height, width, ch), frame.dtype)
+    px[y0:y1, x0:x1] = frame
     if ctype == 3:
-        if palette is None:
-            raise ValueError(f"{fmt} without a PLTE chunk")
-        full = np.zeros((256, 3), np.uint8)    # past the end: black
-        full[:min(len(palette), 256)] = palette[:256]
+        full = np.zeros((256, 3), np.uint8)   # past the end, or none: black
+        if png.palette is not None:
+            pal = np.frombuffer(png.palette, np.uint8)
+            pal = pal[:len(pal) // 3 * 3].reshape(-1, 3)[:256]
+            full[:len(pal)] = pal
         return full[px[..., 0]]
     if depth == 16:
         # Pillow: 16-bit grey ("I;16") saturates, the rest keep the high
@@ -307,10 +550,6 @@ def _gbr_opens(data: bytes) -> bool:
                                   and len(data) >= 28)))
 
 
-def _is_pnm(data: bytes) -> bool:
-    return data[:1] == b"P" and len(data) > 1 and data[1] in b"123456"
-
-
 _DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
 # Pillow 12's image plugins in the order Image.open tries them (its six
 # preinit plugins, then Image.ID's registration order), each with its test
@@ -323,7 +562,7 @@ _PILLOW_ORDER = (
     ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
     ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif.decode_gif),
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.decode_jpeg),
-    ("PNM", _is_pnm, pnm.decode_pnm),
+    ("PNM", pnm.accept, pnm.decode_pnm),
     ("PNG", lambda d: d[:8] == SIGNATURE, decode_png),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
         b"avif", b"avis", b"mif1", b"msf1"), None),
@@ -359,12 +598,12 @@ _PILLOW_ORDER = (
      webp.decode_webp),
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00"
      or d[:4] == b"\x01\x00\x00\x00", None),
-    ("XBM", lambda d: d.lstrip()[:7] == b"#define", None),
-    ("XPM", lambda d: d[:9] == b"/* XPM */", None),
+    ("XBM", xbm.accept, xbm.decode_xbm),
+    ("XPM", xpm.accept, xpm.decode_xpm),
     ("XV thumbnail", lambda d: d[:6] == b"P7 332", None))
 # formats Pillow has no plugin for, named in the refusal
 _OTHERS = ((b"#?RADIANCE", "Radiance HDR"), (b"\x76\x2f\x31\x01", "OpenEXR"),
-           (b"P7", "PAM"), (b"Pf", "PFM"), (b"PF", "PFM"))
+           (b"P7", "PAM"), (b"PF", "colour PFM"))
 READ = tuple(n for n, _, dec in _PILLOW_ORDER if dec is not None)
 
 
@@ -373,8 +612,8 @@ def format_of(data: bytes) -> str:
     Pillow's plugins, in the order Image.open tries them, whose test of the
     first bytes takes the file ("PNG", "BMP", "DIB", "JPEG", "GIF", "PNM",
     "PSD", "TIFF", "DDS", "WebP", "TGA", "SGI", "PCX", "DCX", "QOI", "ICO",
-    "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX" or "Sun raster" for the formats
-    that decode here),
+    "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX", "Sun raster", "XBM" or "XPM"
+    for the formats that decode here),
     else the name of another known format, or "unknown". TGA, which has
     no signature, comes by Pillow's test of its header. decode_image goes
     on to the next format where this one's header cannot be opened, as

@@ -51,6 +51,16 @@ def _list(v) -> tuple:
     return v if isinstance(v, tuple) else (v,)
 
 
+def _scalar(tags, tag: int, default: int, top: int) -> int:
+    """A tag libtiff reads as one integer (TIFFReadDirEntryShort or
+    Long8): one value of an integer type from 0 to top, or the tag is not
+    set (count, type or range refused) and reads as its default."""
+    v = _list(tags.get(tag, default))
+    if len(v) != 1 or not isinstance(v[0], int) or not 0 <= v[0] <= top:
+        return default
+    return v[0]
+
+
 class _Stream:
     """libtiff's OJPEG byte stream: the JPEGInterchangeFormat bytes, then
     each strip's, read a byte at a time."""
@@ -84,6 +94,12 @@ class _Stream:
     def block(self, n: int) -> bytes:
         return bytes(self.byte() for _ in range(n))
 
+    def skip(self, n: int) -> None:
+        """OJPEGReadSkip: n bytes, but none past the end of the part being
+        read (libtiff does not skip into the next block)."""
+        if self.part < len(self.parts):
+            self.pos = min(self.pos + n, len(self.parts[self.part][1]))
+
     def rest(self) -> bytes:
         """What is left, a restart marker after each strip but the last
         (numbered from RST0), and EOI."""
@@ -105,9 +121,9 @@ class _Stream:
 def _parts(data, tags, desc) -> list:
     """(kind, bytes) in libtiff's reading order."""
     parts = []
-    jif = _list(tags.get(513, 0))[0]
+    jif = _scalar(tags, 513, 0, (1 << 64) - 1)
     if jif and jif < len(data):
-        n = _list(tags.get(514, 0))[0]
+        n = _scalar(tags, 514, 0, (1 << 64) - 1)
         if not n or jif + n > len(data):
             n = len(data) - jif
         parts.append(("jif", data[jif:jif + n]))
@@ -132,6 +148,12 @@ def _tag_tables(data, tags, n, desc):
     for tag, what in ((519, "JPEGQTables"), (520, "JPEGDCTables"),
                       (521, "JPEGACTables")):
         offs = list(_list(tags.get(tag, (0,))))
+        # not set: more than 3 offsets (OJPEGVSetField: "incorrect count"),
+        # or values TIFFReadDirEntryLong8Array refuses (a type other than
+        # an integer one, a negative one)
+        if len(offs) > 3 or not all(isinstance(o, int) and o >= 0
+                                    for o in offs):
+            offs = []
         offs += [0] * (n - len(offs))
         if not offs[0]:
             raise ValueError(f"{desc}: Missing JPEG tables ({what})")
@@ -180,12 +202,12 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
     if spp not in (1, 3):
         raise ValueError(f"{desc}: SamplesPerPixel {spp} not supported for "
                          f"this compression scheme (libtiff)")
-    proc = _list(tags.get(512, 1))[0]
+    proc = _scalar(tags, 512, 1, 65535)
     if proc != 1:
         raise ValueError(f"{desc}: JPEGProc {proc} (lossless) is not ported")
     rps = _list(tags.get(278, height))[0]
     rps = min(rps, height) if isinstance(rps, int) and rps > 0 else height
-    restart = _list(tags.get(515, 0))[0]
+    restart = _scalar(tags, 515, 0, 65535)
     dri = None
     parts = _parts(data, tags, desc)
     s = _Stream(parts)
@@ -203,7 +225,7 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
                 n = s.word()
                 if n < 2:
                     raise ValueError("Corrupt JPEG data")
-                s.block(n - 2)
+                s.skip(n - 2)
             elif m == 0xDD:                                 # DRI
                 if s.word() != 4:
                     raise ValueError("Corrupt DRI marker in JPEG data")
@@ -259,7 +281,7 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
                 if s.word() != 6 + 2 * spp or s.byte() != spp:
                     raise ValueError("Corrupt SOS marker in JPEG data")
                 sos = [s.block(2) for _ in range(spp)]
-                s.block(3)
+                s.skip(3)                            # Ss, Se, Ah and Al
                 break
             else:
                 raise ValueError(f"Unknown marker type {m} in JPEG data")
@@ -350,10 +372,13 @@ def decode(data, tags, width, height, spp, ycbcr, desc):
     last leaving the row Pillow's strip buffer held; or YCbCr as (Y
     [height, width], Cb, Cr [ceil(height / v), ceil(width / h)], (h, v)),
     a line past the last iMCU row read as the conversion buffer keeps that
-    row. Where the source fails at a restart marker, grey raises (Pillow's
-    strip reader stops), and YCbCr reads as zeros from the strip whose
-    reads reach the failing MCU row on (libtiff clears a strip it fails to
-    decode, and every later one fails; Pillow's RGBA path goes on). A line
+    row. Where the source fails at a restart marker that a strip's reads
+    reach (a frame taller than the image may fail past them, unread), grey
+    raises (Pillow's strip reader stops), and so does YCbCr, unless the
+    failing MCU row is reached in the decoding of the last strip, which
+    then reads as zeros (libtiff leaves a strip it fails to decode as it
+    cleared it, and Pillow's RGBA path goes on; a later strip's skip fails
+    again, and Pillow's RGBA path stops there). A line
     of blocks that libjpeg leaves out of its raw data (past a component's
     own height) is libtiff's uninitialised buffer: an error here."""
     jpeg, (hs, vs) = stream(data, tags, width, height, spp, ycbcr, desc)
@@ -366,13 +391,20 @@ def decode(data, tags, width, height, spp, ycbcr, desc):
             raise ValueError(f"jpeg_start_decompress() returned image_width "
                              f"= {w}, expected {width}")
         if spp == 1:
-            rows = native.jpeg_tiff(b"", jpeg, native.OJPEG_SOURCE)[..., 0]
+            rows, failed = native.jpeg_tiff_lines(jpeg)
         else:
             (y, cb, cr), failed = native.jpeg_tiff_planes(jpeg)
     except ValueError as e:
         raise ValueError(f"{desc}: {e}") from None
     strips = strip_lines(height, rps, 1 if spp == 1 else vs, swapped)
     if spp == 1:
+        # grey: Pillow's strip reader stops at a strip whose reads reach the
+        # failing MCU row (those past the frame's lines read nothing)
+        if failed >= 0 and any(min(first + n, sof_y) > 8 * failed
+                               for _, _, first, n in strips):
+            raise ValueError(f"{desc}: LibJpeg: Unexpected error (libtiff's "
+                             f"old-style JPEG source does not resynchronise "
+                             f"at a restart marker)")
         out = np.empty((height, width), np.uint8)
         buf = np.zeros((rps, width), np.uint8)       # Pillow's strip buffer
         for top, _, first, n in strips:
@@ -386,12 +418,19 @@ def decode(data, tags, width, height, spp, ycbcr, desc):
     cw = -(-width // hs)
     out_y = np.zeros((height, width), np.uint8)
     out_c = np.zeros((2, -(-height // vs), cw), np.uint8)
-    dead = False
-    for top, start, first, n in strips:
+    for k, (top, start, first, n) in enumerate(strips):
         if failed >= 0 and max(start, 8 * failed) < min(first + n, total):
-            dead = True
-        if dead:
-            continue
+            # libtiff fails the strip whose reads reach the failing row;
+            # where a skip of OJPEGPreDecode reaches it, or a strip follows
+            # (whose skip calls libjpeg again), TIFFFillStrip fails and
+            # Pillow's TIFFRGBAImageGet with it
+            if 8 * failed < first or k + 1 < len(strips):
+                raise ValueError(f"{desc}: LibJpeg: Unexpected error "
+                                 f"(libtiff's old-style JPEG source does not "
+                                 f"resynchronise at a restart marker, and "
+                                 f"the strip after the one that fails cannot "
+                                 f"be read)")
+            break
         for j in range(n):
             i = first + j
             if i >= total:                    # the last iMCU row again

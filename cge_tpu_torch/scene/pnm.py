@@ -1,13 +1,15 @@
-"""PNM textures (PBM, PGM, PPM: P1 to P6) without Pillow, as Pillow 12's
-PpmImagePlugin reads them and `convert("RGB")` converts them (the JAX
-package's loader).
+"""PNM textures without Pillow, as Pillow 12's PpmImagePlugin reads them and
+`convert("RGB")` converts them (the JAX package's loader): PBM, PGM and
+PPM (P1 to P6) and the plugin's other modes, grey PFM ("Pf"), "P0CMYK" and
+Pillow's own test formats "PyP", "PyRGBA" and "PyCMYK".
 
 The header's tokens are read as Pillow reads them: any whitespace between
 them, a '#' comment running to the next CR or LF anywhere (even inside a
 token), at most 10 characters a token, and the image data starting just
-past the one whitespace character that ends the last token. P1 to P3 are
-plain text (comments allowed in the data too; P1's digits need no
-whitespace between them), P4 to P6 binary.
+past the one whitespace character that ends the last token (the magic
+number is up to 6 characters, ended by whitespace or its sixth). P1 to P3
+are plain text (comments allowed in the data too; P1's digits need no
+whitespace between them), the others binary.
 
   P1 / P4   bitmaps: 1 is black, 0 white.
   P2 / P5   grey. A maxval up to 255 is rescaled to 255 (round(v / maxval
@@ -15,13 +17,26 @@ whitespace between them), P4 to P6 binary.
             "I" scaled to 65,535, which convert("RGB") saturates at 255
             (P5 at maxval 65,535: the sample itself, saturated).
   P3 / P6   RGB, rescaled to 255 at any maxval (16-bit samples too).
+  P0CMYK, PyCMYK   CMYK samples, rescaled to 255 as P6's are, through
+            Pillow's CMYK -> RGB (scene/psd.py's copy of cmyk2rgb).
+  PyRGBA    RGBA samples so rescaled, the alpha dropped.
+  PyP       palette indices so rescaled, in an image with no palette:
+            convert("RGB") gives black.
+  Pf        grey PFM: a scale token in place of the maxval (finite, not 0;
+            its sign gives the byte order, negative little-endian), 32-bit
+            floats, the rows bottom-up; convert("RGB") goes through "L" as
+            Pillow's f2l does: at most 0 -> 0, at least 255 -> 255, else
+            truncated. A NaN sample, which f2l casts as C leaves undefined,
+            raises.
 
 Binary samples past maxval saturate at 255; plain ones raise, as do
 negative ones and tokens that Python's int() does not read, samples
-missing at the end of the file, a maxval outside 1 to 65,535, and the
-other PNM-like formats, which Pillow reads (PFM "Pf", "P0CMYK", Pillow's
-own "Py" test formats; not ported) or does not (PAM "P7"): each
-ValueError names the format.
+missing at the end of the file, a maxval outside 1 to 65,535, a scale
+Python's float() does not read, 0 or not finite: each ValueError names the
+format. A magic number Pillow's table has not (its test takes "P" and one
+of 0-6, f, y) raises native.NotOpened, as Pillow's plugin cannot open it;
+colour PFM ("PF") and PAM ("P7") are no PNM to Pillow (image_io names
+them).
 """
 
 from __future__ import annotations
@@ -29,11 +44,15 @@ from __future__ import annotations
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene.psd import _cmyk_to_rgb
 
 WHITESPACE = b" \t\n\x0b\x0c\r"
-# magic number -> Pillow's mode
+# magic number -> Pillow's mode (PpmImagePlugin.MODES)
 MAGIC = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
-         b"P6": "RGB"}
+         b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+         b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+# the bands of each mode
+BANDS = {"1": 1, "L": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}
 # Pillow's plain decoder reads the data in blocks of this many bytes
 # (ImageFile.SAFEBLOCK)
 _BLOCK = 1 << 20
@@ -175,23 +194,51 @@ def _rescale(v: np.ndarray, maxval: int, top: int) -> np.ndarray:
     return np.minimum(np.round(v.astype(np.float64) / maxval * top), top)
 
 
+def accept(data: bytes) -> bool:
+    """PpmImagePlugin's test of the first bytes: "P" and one of 0-6, f, y."""
+    return data[:1] == b"P" and len(data) > 1 and data[1] in b"0123456fy"
+
+
+def _pfm(data: bytes, pos: int, w: int, h: int, fmt: str) -> np.ndarray:
+    """Pf: the scale token, then h rows of w 32-bit floats, bottom-up;
+    convert("RGB") through f2l."""
+    token, pos = _token(data, pos)
+    try:
+        scale = float(token)
+    except ValueError:
+        raise ValueError(f"{fmt} scale {token!r} is not a number") from None
+    if scale == 0.0 or not np.isfinite(scale):
+        raise ValueError(f"{fmt} scale {token!r}: scale must be finite and "
+                         f"non-zero")
+    body = data[pos:]
+    if len(body) < 4 * w * h:
+        raise ValueError(f"{fmt} data is truncated")
+    v = np.frombuffer(body, "<f4" if scale < 0 else ">f4", w * h)
+    if np.isnan(v).any():
+        raise ValueError(f"{fmt} holds a NaN sample, which Pillow's f2l casts "
+                         f"to 8 bits as C leaves undefined")
+    grey = np.trunc(np.clip(v, 0, 255)).astype(np.uint8).reshape(h, w)[::-1]
+    return np.repeat(grey[..., None], 3, axis=2)
+
+
 def decode_pnm(data: bytes) -> np.ndarray:
-    """P1-P6 bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+    """PNM bytes of any magic number Pillow's table has -> [H, W, 3] uint8
+    RGB, row 0 = top."""
     magic, pos = _magic(data)
     if magic not in MAGIC:
-        names = {b"P7": "PAM", b"Pf": "PFM", b"PF": "PFM",
-                 b"P0CMYK": "CMYK PNM"}
-        name = names.get(magic, f"a PNM-like {magic!r}")
-        raise ValueError(f"{name} file: only P1 to P6 PNM is supported")
+        raise native.NotOpened(f"not a PPM file (magic number {magic!r} is "
+                               f"not one of Pillow's)")
     fmt, mode = f"{magic.decode()} PNM", MAGIC[magic]
     w, pos = _header_int(data, pos, "width")
     h, pos = _header_int(data, pos, "height")
-    if w <= 0 or h <= 0:
-        raise ValueError(f"{fmt} of {w}x{h} pixels")
+    if w <= 0 or h <= 0:                # ImageFile: "not identified"
+        raise native.NotOpened(f"{fmt} of {w}x{h} pixels")
     native.check_pixels(fmt, w, h)
-    bands = 3 if mode == "RGB" else 1
+    bands = BANDS[mode]
     count = w * h * bands
     body = data[pos:]
+    if mode == "F":
+        return _pfm(data, pos, w, h, fmt)
     if mode == "1":
         if magic == b"P1":
             px = _plain_bits(body, w * h, fmt).reshape(h, w)
@@ -222,5 +269,10 @@ def decode_pnm(data: bytes) -> np.ndarray:
         else:
             v = _rescale(raw, maxval, top)
     px = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)
-    return np.ascontiguousarray(np.repeat(px, 3, axis=2) if bands == 1
-                                else px)
+    if mode == "CMYK":
+        return _cmyk_to_rgb(*(px[..., k] for k in range(4)))
+    if mode == "P":                           # no palette: black
+        return np.zeros((h, w, 3), np.uint8)
+    if bands == 1:
+        return np.repeat(px, 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])

@@ -228,7 +228,14 @@ exits non-zero if any phase fails:
      transform), the texels as a lossy JP2 with Part 2 MCT, MCC and MCO
      markers and as an old-style JPEG TIFF (YCbCr 2x2, a
      JPEGInterchangeFormat header, 64-row strips), each against the PNG of
-     what it decodes to.
+     what it decodes to. (a) also reads tests/torch_textures/x11_pnm/
+     (Pillow's other PNM modes, XBM, XPM, and the damaged JPEG, PNG and
+     old-style JPEG TIFF files the port once parted from Pillow on: each
+     kind's host ms summed up); (c) also writes the texels as P0CMYK,
+     PyRGBA and Pf (their red channel) PNM files and their crops as an
+     XBM (thresholded), an XPM of their 3-3-2 colours and an RGB XPM of
+     more than 256 colours (x11_writers). Each frame of (c) is the first
+     and one timed, and the PNG frame of a set of texels is rendered once.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -3110,6 +3117,14 @@ LAB_CROP = 512
 TEX_LAB = f"tiff_lab_deflate_pred2_crop{LAB_CROP}.tif"
 TEX_MCT = "jp2_part2_mct_offsets_97_1024.jp2"
 TEX_OJPEG = "tiff_ojpeg_ycbcr22_jif_strips_q85_1024.tif"
+# small files of Pillow's other PNM modes, XBM and XPM, and the damaged
+# files the port once parted from Pillow on and now decodes as it does
+# (make_textures.x11_pnm_fixtures, fault_fixtures), with a manifest of
+# their own: phase 18a's decode times by kind
+TEX_X11_DIR = os.path.join(TEXTURES, "x11_pnm")
+# the crops phase 18c writes as the text formats
+X11_CROP = 256
+XPM_RGB_CROP = 96
 # the tail's fixtures by kind (name prefixes), for phase 18a's decode times
 TAIL_KINDS = (
     ("old-style JPEG", ("tiff_ojpeg_",)),
@@ -3121,9 +3136,9 @@ TAIL_KINDS = (
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
-    pillow_tail/ and tail_chip/) through the port's load_image, its u8
-    pixels' SHA-256 against its manifest's; (name, kind, host ms) a
-    fixture."""
+    pillow_tail/, tail_chip/ and x11_pnm/) through the port's load_image,
+    its u8 pixels' SHA-256 against its manifest's; (name, kind, host ms)
+    a fixture."""
     import hashlib
 
     import numpy as np
@@ -3131,7 +3146,8 @@ def texture_fixtures() -> list:
     from cge_tpu_torch.scene import image_io
 
     entries = []
-    for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR):
+    for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR,
+                   TEX_X11_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
@@ -3205,6 +3221,7 @@ def texture_writers(texels):
     out.update(tiff_writers(texels))
     out.update(dds_writers(texels))
     out.update(asset_writers(texels))
+    out.update(x11_writers(texels))
     for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG, TEX_JPEG_CROP):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
@@ -3424,6 +3441,76 @@ def dds_writers(texels) -> dict:
     return out
 
 
+def x11_writers(texels) -> dict:
+    """The texels [H, W, 3] u8 as Pillow's other PNM modes, XBM and XPM:
+    P0CMYK of their complements (k 0, which Pillow's CMYK -> RGB turns
+    back into them), PyRGBA of a ramp of alpha, Pf of their red channel
+    plus 0.25 (little-endian, bottom-up; f2l truncates it back), and
+    their top-left X11_CROP crop as an XBM of its thresholded grey and an
+    XPM of its 3-3-2 colours (2 characters a pixel), and an XPM_RGB_CROP
+    crop as an XPM of all its colours (an RGB image, 3 characters a
+    pixel); {name: (file bytes, the texels the file holds)}."""
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    out = {}
+    cmyk = np.concatenate([255 - texels, np.zeros((h, w, 1), np.uint8)], 2)
+    out["texels_p0cmyk.pnm"] = (b"P0CMYK\n%d %d\n255\n" % (w, h)
+                                + cmyk.tobytes(), texels)
+    alpha = (np.arange(w * h, dtype=np.uint32) % 251).astype(np.uint8)
+    rgba = np.concatenate([texels, alpha.reshape(h, w, 1)], 2)
+    out["texels_pyrgba.pnm"] = (b"PyRGBA %d %d 255\n" % (w, h)
+                                + rgba.tobytes(), texels)
+    red = texels[..., 0]
+    pf = (red.astype(np.float32) + np.float32(0.25))[::-1]
+    out["texels_red.pfm"] = (b"Pf\n%d %d\n-1.0\n" % (w, h)
+                             + pf.astype("<f4").tobytes(),
+                             np.repeat(red[..., None], 3, axis=2))
+    crop = texels[:X11_CROP, :X11_CROP]
+    ch, cw = crop.shape[:2]
+    grey = crop.astype(np.uint32).sum(2) > 3 * 127
+    rows = np.packbits(grey.astype(np.uint8), axis=1, bitorder="little")
+    hexes = ",".join("0x%02x" % v for v in rows.reshape(-1).tolist())
+    xbm = (b"#define texels_width %d\n#define texels_height %d\n"
+           b"static char texels_bits[] = {\n" % (cw, ch)
+           + hexes.encode() + b"\n};\n")
+    out["texels_crop.xbm"] = (xbm, np.repeat(
+        (grey * np.uint8(255)).astype(np.uint8)[..., None], 3, axis=2))
+    chars = [bytes((c,)) for c in range(35, 127) if c != 92]
+
+    def keys(n, k):
+        return [b"".join(chars[i // len(chars) ** j % len(chars)]
+                         for j in range(k)) for i in range(n)]
+
+    def xpm(idx, colours, k):
+        names = keys(len(colours), k)
+        lines = [b"/* XPM */", b"static char *texels[] = {",
+                 b'"%d %d %d %d",' % (idx.shape[1], idx.shape[0],
+                                      len(colours), k)]
+        lines += [b'"%s c #%02x%02x%02x",' % ((names[i],) + tuple(
+            int(v) for v in c)) for i, c in enumerate(colours)]
+        table = np.array(names, dtype=f"S{k}")
+        lines += [b'"' + table[row].tobytes() + b'",' for row in idx]
+        return b"\n".join(lines) + b"\n};\n"
+
+    i = np.arange(256)
+    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
+                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    idx = ((crop[..., 0] >> 5) << 5 | (crop[..., 1] >> 5) << 2
+           | crop[..., 2] >> 6).astype(np.int64)
+    out["texels_crop_332.xpm"] = (xpm(idx, palette, 2), palette[idx])
+    small = texels[:XPM_RGB_CROP, :XPM_RGB_CROP]
+    colours, inv = np.unique(small.reshape(-1, 3), axis=0,
+                             return_inverse=True)
+    if len(colours) <= 256:
+        raise AssertionError(f"the {XPM_RGB_CROP}x{XPM_RGB_CROP} crop has "
+                             f"{len(colours)} colours, too few for an RGB "
+                             f"XPM")
+    out["texels_crop_rgb.xpm"] = (xpm(inv.reshape(small.shape[:2]), colours,
+                                      3), small)
+    return out
+
+
 def asset_writers(texels) -> dict:
     """The texels [H, W, 3] u8 (W a multiple of 2) as the formats of model
     and game asset sets: SGI run-length (copy packets of up to 127 bytes),
@@ -3555,8 +3642,8 @@ def eleventh_path(device) -> dict:
     textured by the 1024x1024 JPEG at 512x512 with the accel against the
     same dragon textured by the PNG the port writes from the decoded
     texels, then by those texels as TGA, PNM, PSD, GIF, TIFF, WebP, DDS,
-    SGI, PCX, QOI, Sun raster, BLP, FTEX and ICO files
-    (new_format_frames)."""
+    SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000, ICNS, XBM and
+    XPM files, and Pillow's other PNM modes (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3574,8 +3661,9 @@ def eleventh_path(device) -> dict:
         f"progressive, smoothed YCCK 4:4:0 JPEG, SGI run-length, PCX, QOI, "
         f"Sun raster run-length, BLP2 palette, FTEX, a 256x256 ICO, a "
         f"lossless 512x512 J2K crop, a lossy JP2 and an ICNS of it, a "
-        f"512x512 L*a*b* TIFF crop, a JP2 with Part 2 MCT markers and an "
-        f"old-style JPEG TIFF | "
+        f"512x512 L*a*b* TIFF crop, a JP2 with Part 2 MCT markers, an "
+        f"old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM, and XBM and XPM "
+        f"(palette and RGB) crops | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3669,10 +3757,11 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
     """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
     TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000
     (J2K and JP2) and ICNS files, a L*a*b* TIFF, a JP2 with Part 2
-    markers and an old-style JPEG TIFF
-    (texture_writers), each frame against the
-    PNG-textured frame of the same texels, each first frame's K1 and K2
-    launches against (b)'s (first_launches); {file: (decode ms, load s,
+    markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, and
+    XBM and XPM crops (texture_writers), each frame (the first, then one
+    timed) against the PNG-textured frame of the same texels (rendered
+    once for each set of texels), each first frame's K1 and K2 launches
+    against (b)'s (first_launches); {file: (decode ms, load s,
     frame ms)}."""
     import numpy as np
     import torch
@@ -3693,6 +3782,7 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
         f"row Paeth-filtered: decode {paeth_ms:.2f} ms (written in "
         f"{write_ms:.0f} ms) | {SMI['line']} (host)")
     out = {}
+    refs = {}               # the frames of the PNGs of texels held so far
     for name, (data, held) in texture_writers(u8).items():
         t0 = time.perf_counter()
         got = image_io.decode_image(data)
@@ -3706,28 +3796,29 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
             f.write(data)
         ref = png_frame
         if not np.array_equal(held, u8):    # palettes, crops, lossy: own PNG
-            png = os.path.join(tmp, f"{stem}_{ext[1:]}_png.png")
-            image_io.write_png(png, held)
-            png_scene, _ = textured_dragon(tmp, png, grid, device)
-            ref = ct.render_image_u8(png_scene, ct.Camera(), feats, params,
-                                     W, H)
-            del png_scene
+            key = (held.shape, held.tobytes())
+            if key not in refs:             # (one a set of texels)
+                png = os.path.join(tmp, f"{stem}_{ext[1:]}_png.png")
+                image_io.write_png(png, held)
+                png_scene, _ = textured_dragon(tmp, png, grid, device)
+                refs[key] = ct.render_image_u8(png_scene, ct.Camera(), feats,
+                                               params, W, H)
+                del png_scene
+            ref = refs[key]
         scene, load_s = textured_dragon(tmp, path, grid, device)
         reset_launches()
         frames = [ct.render_image_u8(scene, ct.Camera(), feats, params, W,
                                      H)]
         torch_sync(device)
         launches = read_launches()
-        times_ms = []
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            frames.append(ct.render_image_u8(scene, ct.Camera(), feats,
-                                             params, W, H))
-            end.record()
-            torch.cuda.synchronize()
-            times_ms.append(start.elapsed_time(end))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        frames.append(ct.render_image_u8(scene, ct.Camera(), feats, params,
+                                         W, H))
+        end.record()
+        torch.cuda.synchronize()
+        times_ms = [start.elapsed_time(end)]
         del scene
         same = [bool(torch.equal(f, ref)) for f in frames]
         log(f"  18c: dragon textured by {name} ({len(data)} bytes): decode "

@@ -3237,6 +3237,263 @@ def write_tail() -> None:
           f"bytes, in {os.path.relpath(TAIL_CHIP_DIR, REPO)}")
 
 
+def pnm_ext_file(magic: str, samples: np.ndarray, maxval: int,
+                 sep: str = "\n") -> bytes:
+    """A binary PNM of one of Pillow's other PpmImagePlugin modes (P0CMYK,
+    PyP, PyRGBA, PyCMYK): samples [h, w] or [h, w, k] at maxval, 2 bytes a
+    sample past 255."""
+    h, w = samples.shape[:2]
+    head = sep.join([magic, f"{w} {h}", str(maxval)]) + "\n"
+    dt = ">u2" if maxval > 255 else np.uint8
+    return head.encode() + np.asarray(samples).astype(dt).tobytes()
+
+
+def pfm_file(v: np.ndarray, scale: float = -1.0, head: str = "") -> bytes:
+    """A grey PFM ("Pf") of float32 v [h, w], rows bottom-up as PFM keeps
+    them, little-endian at a negative scale."""
+    h, w = v.shape
+    head = head or f"Pf\n{w} {h}\n{scale!r}\n"
+    dt = "<f4" if scale < 0 else ">f4"
+    return head.encode() + np.asarray(v, np.float32)[::-1].astype(
+        dt).tobytes()
+
+
+def xbm_file(bits: np.ndarray, name: str = "t", hotspot=None,
+             fmt: str = "0x{:02x}", per_line: int = 12,
+             lead: bytes = b"", tail: bytes = b"};\n") -> bytes:
+    """An XBM of bits [h, w] (1 white): each row's bytes least significant
+    bit first, each written with fmt."""
+    h, w = bits.shape
+    rows = np.packbits(np.asarray(bits, np.uint8), axis=1, bitorder="little")
+    head = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot:
+        head += (f"#define {name}_x_hot {hotspot[0]}\n"
+                 f"#define {name}_y_hot {hotspot[1]}\n")
+    vals = [fmt.format(int(b)) for b in rows.reshape(-1)]
+    body = ",\n".join(", ".join(vals[i:i + per_line])
+                      for i in range(0, len(vals), per_line))
+    return (lead + head.encode() + f"static char {name}_bits[] = {{\n"
+            .encode() + body.encode() + b"\n" + tail)
+
+
+def xpm_file(idx: np.ndarray, keys: list, specs: list, *,
+             pixels_comment: bool = False, name: str = "t",
+             extra_rows: list = ()) -> bytes:
+    """An XPM of palette indices idx [h, w]: colour i's key keys[i] (bytes,
+    all of one length) and spec specs[i] (bytes, as "c #rrggbb"), the
+    pixel rows after them (and after a "/* pixels */" line if asked), then
+    extra_rows as they are."""
+    h, w = idx.shape
+    bpp = len(keys[0])
+    out = [b"/* XPM */", f"static char *{name}[] = {{".encode(),
+           f'"{w} {h} {len(keys)} {bpp}",'.encode()]
+    out += [b'"' + k + b" " + s + b'",' for k, s in zip(keys, specs)]
+    if pixels_comment:
+        out.append(b"/* pixels */")
+    out += [b'"' + b"".join(keys[i] for i in row) + b'",' for row in idx]
+    out += list(extra_rows)
+    return b"\n".join(out) + b"\n};\n"
+
+
+def rgb_specs(colours: np.ndarray) -> list:
+    return [b"c #%02x%02x%02x" % tuple(int(v) for v in c) for c in colours]
+
+
+def xpm_keys(n: int, bpp: int) -> list:
+    """n distinct keys of bpp printable characters (no quote or
+    backslash)."""
+    chars = [bytes((c,)) for c in range(35, 127) if c != 92]
+    keys = []
+    for i in range(n):
+        k = b""
+        for _ in range(bpp):
+            k += chars[i % len(chars)]
+            i //= len(chars)
+        keys.append(k)
+    return keys
+
+
+def x11_pnm_fixtures(rng) -> dict:
+    """Pillow's other PNM modes, XBM and XPM: Pillow-written files where
+    Pillow writes them (XBM of mode 1, PPM of mode F), and hand-made ones
+    of every quirk the port follows: Pf in either byte order with
+    fractions, negatives, values past 255 and infinities; P0CMYK and PyCMYK
+    at maxvals 255, 1000 and 65535; PyRGBA; PyP (black, as it has no
+    palette); XBM with a hotspot, one-digit and upper-case hex bytes,
+    leading whitespace and "x" alone in front; XPM of 1 and 2 characters a
+    pixel, several keys a colour, a "/* pixels */" line, an unused "None"
+    colour, quotes inside a pixel row, rows past the image, and 300
+    colours (an RGB image)."""
+    out = {}
+    h, w = 6, 9
+    f = rng.uniform(-40.0, 300.0, (h, w)).astype(np.float32)
+    f.reshape(-1)[:6] = (np.inf, -np.inf, 254.999, 0.5, 255.0, -0.0)
+    out["pfm_le_6x9.pfm"] = ("pnm_pf", pfm_file(f, -1.0))
+    out["pfm_be_scale2_6x9.pfm"] = ("pnm_pf", pfm_file(f, 2.5))
+    out["pfm_pillow_6x9.pfm"] = ("pnm_pf", _pillow(PILImage.fromarray(
+        rng.uniform(-5.0, 260.0, (h, w)).astype(np.float32), "F"), "PPM"))
+    cmyk = rng.integers(0, 256, (h, w, 4))
+    out["pnm_p0cmyk_255.pnm"] = ("pnm_cmyk", pnm_ext_file("P0CMYK", cmyk,
+                                                          255))
+    out["pnm_p0cmyk_maxval1000.pnm"] = ("pnm_cmyk", pnm_ext_file(
+        "P0CMYK", rng.integers(0, 1001, (h, w, 4)), 1000, " "))
+    out["pnm_pycmyk_65535.pnm"] = ("pnm_cmyk", pnm_ext_file(
+        "PyCMYK", rng.integers(0, 65536, (h, w, 4)), 65535))
+    out["pnm_pyrgba_255.pnm"] = ("pnm_rgba", pnm_ext_file(
+        "PyRGBA", rng.integers(0, 256, (h, w, 4)), 255))
+    out["pnm_pyrgba_maxval15.pnm"] = ("pnm_rgba", pnm_ext_file(
+        "PyRGBA", rng.integers(0, 16, (h, w, 4)), 15, "\t"))
+    out["pnm_pyp_255.pnm"] = ("pnm_p", pnm_ext_file(
+        "PyP", rng.integers(0, 256, (h, w)), 255))
+    for hw in ((1, 1), (5, 10), (7, 17)):
+        im = PILImage.fromarray(rng.integers(0, 2, hw).astype(bool))
+        out[f"xbm_pillow_{hw[0]}x{hw[1]}.xbm"] = ("xbm", _pillow(im, "XBM"))
+    out["xbm_pillow_hotspot.xbm"] = ("xbm", _pillow(PILImage.fromarray(
+        rng.integers(0, 2, (4, 12)).astype(bool)), "XBM", hotspot=(3, 2)))
+    bits = rng.integers(0, 2, (5, 13))
+    out["xbm_one_digit_upper.xbm"] = ("xbm", xbm_file(
+        bits, "icon", fmt="0x{:X}", per_line=3, lead=b"  \n"))
+    out["xbm_no_zero_prefix.xbm"] = ("xbm", xbm_file(
+        bits, "b", hotspot=(1, 1), fmt="x{:02x}", per_line=40,
+        tail=b"};\n/* x */\n"))
+    idx = rng.integers(0, 4, (h, w))
+    colours = rng.integers(0, 256, (4, 3))
+    out["xpm_1char.xpm"] = ("xpm", xpm_file(idx, [b"a", b"b", b".", b"#"],
+                                            rgb_specs(colours)))
+    specs = [b"s one m white c #%02x%02x%02x g #000000" % tuple(c)
+             for c in colours.tolist()]
+    out["xpm_2char_keys_pixels.xpm"] = ("xpm", xpm_file(
+        idx, [b"aa", b"ab", b"ba", b"  "], specs, pixels_comment=True))
+    keys = [b"a", b"b", b"c", b"d", b"n"]
+    out["xpm_none_unused_extra_rows.xpm"] = ("xpm", xpm_file(
+        idx, keys, rgb_specs(colours) + [b"c None"],
+        extra_rows=[b'"abcd",', b"junk without quotes"]))
+    # quotes inside the rows: the text between the first and the last
+    # quote, '"' a key of its own
+    out["xpm_inner_quotes.xpm"] = ("xpm", b'/* XPM */\nstatic char *q[] = '
+                                   b'{\n"3 2 3 1",\n"a c #ff0000",\n"b c '
+                                   b'#00ff00",\n"" c #0000ff",\n"a"b",\n'
+                                   b'"b""",\n};\n')
+    many = rng.integers(0, 256, (300, 3))
+    big = rng.integers(0, 300, (5, 7))
+    out["xpm_300_colours_rgb.xpm"] = ("xpm_rgb", xpm_file(
+        big, xpm_keys(300, 2), rgb_specs(many)))
+    return out
+
+
+def fault_fixtures(rng) -> dict:
+    """Damaged files on which the port once parted from JAX's loader and
+    which Pillow decodes: a Huffman JPEG without its EOI whose data, with
+    the bytes after them, stay within libjpeg's read-ahead; JPEG headers
+    damaged as Pillow's marker walk and libjpeg take them (a comment
+    of length 0, 16-bit quantisation entries under precision 2, the
+    Huffman tables left out and libjpeg's standard ones used, an all-ones
+    code in a table no scan uses); PNGs whose chunks Pillow's handlers
+    pass (a palette image whose PLTE comes after its data, an APNG frame
+    smaller than the image, text and profile chunks, interlace method 2);
+    an old-style JPEG TIFF of one strip whose JPEGInterchangeFormatLength
+    is 0, so that libtiff reads its header on to the end of the file."""
+    out = {}
+    px = smooth_image(rng, 40, 56, 30.0)
+    jpeg = _pillow(PILImage.fromarray(px), "JPEG", quality=90)
+    cut = jpeg[:-2]
+    for k in range(64):
+        data = cut + bytes((i * 37 + 11) % 250 + 1 for i in range(k))
+        try:
+            PILImage.open(io.BytesIO(data)).convert("RGB")
+        except OSError:
+            continue
+        out[f"jpeg_no_eoi_tail{k}.jpg"] = ("jpeg_no_eoi", data)
+        break
+    rst = _pillow(PILImage.fromarray(px), "JPEG", quality=85,
+                  restart_marker_blocks=3)[:-2]
+    for k in range(64):
+        data = rst + bytes(k)
+        try:
+            PILImage.open(io.BytesIO(data)).convert("RGB")
+        except OSError:
+            continue
+        out[f"jpeg_no_eoi_restarts_tail{k}.jpg"] = ("jpeg_no_eoi", data)
+        break
+    sos = jpeg.index(b"\xff\xdb")
+    out["jpeg_com_length0.jpg"] = ("jpeg_header", jpeg[:sos] + b"\xff\xfe"
+                                   b"\x00\x00" + jpeg[sos:])
+    dqt = jpeg.index(b"\xff\xdb")
+    table = jpeg[dqt + 5:dqt + 69]
+    wide = (b"\xff\xdb\x00\x83\x20" + np.frombuffer(table, np.uint8)
+            .astype(">u2").tobytes())
+    out["jpeg_dqt_precision2.jpg"] = ("jpeg_header", jpeg[:dqt] + wide
+                                      + jpeg[dqt + 69:])
+    segs, pos = [], 2
+    while True:
+        m, n = jpeg[pos + 1], struct.unpack_from(">H", jpeg, pos + 2)[0]
+        segs.append((m, jpeg[pos:pos + 2 + n]))
+        if m == 0xDA:
+            break
+        pos += 2 + n
+    head = b"".join(seg for m, seg in segs if m != 0xC4)
+    out["jpeg_std_huffman_tables.jpg"] = ("jpeg_header", b"\xff\xd8" + head
+                                          + jpeg[pos + 2 + n:])
+    # AC table 3: two codes of 1 bit, the second all ones
+    bogus = (b"\xff\xc4" + struct.pack(">H", 21) + b"\x13" + bytes((2,))
+             + bytes(15) + b"\x00\x01")
+    out["jpeg_unused_bad_dht.jpg"] = ("jpeg_header", jpeg[:dqt] + bogus
+                                      + jpeg[dqt:])
+    pal = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    ind = rng.integers(0, 16, (9, 11)).astype(np.uint8)
+    ihdr = _chunk(b"IHDR", struct.pack(">IIBBBBB", 11, 9, 8, 3, 0, 0, 0))
+    idat = _chunk(b"IDAT", zlib.compress(_filter_rows(ind, 1, (0, 1, 2))))
+    sig = b"\x89PNG\r\n\x1a\n"
+    out["png_plte_after_idat.png"] = ("png_chunks", sig + ihdr + idat
+                                      + _chunk(b"PLTE", pal.tobytes())
+                                      + _chunk(b"IEND", b""))
+    rgb = smooth_image(rng, 12, 14, 20.0)
+    frame = rgb[:7, :9]
+    fctl = struct.pack(">IIIIIHHBB", 0, 9, 7, 3, 4, 1, 10, 0, 0)
+    out["png_apng_frame_3_4.png"] = ("png_chunks", sig + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", 14, 12, 8, 2, 0, 0, 0))
+        + _chunk(b"acTL", struct.pack(">II", 1, 0)) + _chunk(b"fcTL", fctl)
+        + _chunk(b"IDAT", zlib.compress(_filter_rows(frame.reshape(7, 27),
+                                                     3, (4,))))
+        + _chunk(b"IEND", b""))
+    text = (_chunk(b"zTXt", b"k\x00\x00" + zlib.compress(b"zipped"))
+            + _chunk(b"iTXt", b"t\x00\x01\x00en\x00T\x00" + zlib.compress(
+                "été".encode()))
+            + _chunk(b"iCCP", b"icc\x00\x00" + zlib.compress(b"p" * 40)))
+    grey = rng.integers(0, 256, (6, 8), dtype=np.uint8)
+    out["png_text_profile_chunks.png"] = ("png_chunks", sig + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", 8, 6, 8, 0, 0, 0, 0)) + text
+        + _chunk(b"IDAT", zlib.compress(_filter_rows(grey, 1, (0,))))
+        + _chunk(b"IEND", b""))
+    adam7 = png_file(grey[..., None], 8, 0, interlace=True)
+    out["png_interlace_method2.png"] = ("png_chunks", adam7[:28] + b"\x02"
+                                        + struct.pack(">I", zlib.crc32(
+                                            adam7[12:28] + b"\x02"))
+                                        + adam7[33:])
+    oj = ojpeg_tiff(smooth_image(rng, 24, 16, 25.0)[..., :1], 1, form="jif")
+    ifd = struct.unpack_from("<I", oj, 4)[0]
+    for i in range(struct.unpack_from("<H", oj, ifd)[0]):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", oj, e)[0] == 514:
+            oj = oj[:e + 8] + struct.pack("<I", 0) + oj[e + 12:]
+    out["tiff_ojpeg_jif_to_the_end.tif"] = ("ojpeg_tables", oj)
+    return out
+
+
+X11_DIR = os.path.join(OUT, "x11_pnm")
+
+
+def write_x11() -> None:
+    """Write x11_pnm_fixtures and fault_fixtures into X11_DIR, with its
+    manifest (the main one's 1 MiB cap is nearly reached)."""
+    made = dict(x11_pnm_fixtures(np.random.default_rng(26)))
+    made.update(fault_fixtures(np.random.default_rng(126)))
+    files = _write(X11_DIR, made)
+    _manifest(os.path.join(X11_DIR, "manifest.json"), files)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(X11_DIR, REPO)}")
+
+
 def jax_pixels(path: str) -> np.ndarray:
     """cge_tpu's load_image of the file, quantised to u8 [H, W, 3]."""
     from cge_tpu.scene.image_io import load_image
@@ -3292,6 +3549,7 @@ def main() -> int:
           f"{sum(x['bytes'] for x in chip)} bytes, in "
           f"{os.path.relpath(J2K_CHIP_DIR, REPO)}")
     write_tail()
+    write_x11()
     return 0
 
 

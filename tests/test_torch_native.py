@@ -455,6 +455,15 @@ def _variant_jpegs(group):
         return [make_textures.jpeg_encode(px, scans=sc, arithmetic=a)
                 for sc in make_textures.SMOOTH_SCANS.values()
                 for a in (False, True)]
+    if group == "no_eoi":
+        # no EOI: the cut copies JPEG_MAIN makes end inside the scan data,
+        # where the bit buffer reads ahead; the whole files decode
+        out = []
+        for kw in (dict(), dict(restart=2), dict(sampling=[(1, 1)] * 3)):
+            data = make_textures.jpeg_encode(px, **kw)[:-2]
+            out += [data + bytes(i % 250 + 1 for i in range(k))
+                    for k in (40, 300)]
+        return out
     if group == "lossless":
         sub = [px[..., 0], px[::2, ::2, 1], px[::2, ::2, 2]]
         return [make_textures.jpeg_encode(img, lossless=(p, p % 3),
@@ -467,13 +476,15 @@ def _variant_jpegs(group):
 
 
 @pytest.mark.parametrize("group", ["upsampling", "ycck", "arithmetic",
-                                   "smoothing", "lossless", "refused"])
+                                   "smoothing", "lossless", "refused",
+                                   "no_eoi"])
 def test_jpeg_variants_under_asan_ubsan(tmp_path, jpeg_san, group):
     """The JPEG decoder's new paths under ASan and UBSan, each file whole,
     cut short at eight lengths and with bytes flipped (JPEG_MAIN): every
     sampling's upsampler, YCCK, arithmetic coding with restarts and DAC,
-    block smoothing under both codings, lossless at each predictor, and
-    the files Pillow refuses (which may fail, never fault)."""
+    block smoothing under both codings, lossless at each predictor, the
+    files Pillow refuses (which may fail, never fault), and files without
+    their EOI (the bit buffer's read-ahead to the end of the data)."""
     files = []
     for i, data in enumerate(_variant_jpegs(group)):
         path = tmp_path / f"{group}_{i}.jpg"
@@ -579,6 +590,36 @@ def test_tail_decoders_under_asan_ubsan(tmp_path):
                             "torch_textures", "pillow_tail")
     names = sorted(f for f in os.listdir(fixtures) if f != "manifest.json")
     assert len(names) >= 30
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "images.py"
+    script.write_text(IMAGES_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build"),
+         fixtures, *names], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(names)
+
+
+def test_x11_and_fault_decoders_under_asan_ubsan(tmp_path):
+    """The sanitized library of test_image_decoders_under_asan_ubsan over
+    every fixture of tests/torch_textures/x11_pnm/: XBM's hex bytes of
+    cge_raster.cpp, and cge_jpeg.cpp's bit buffer as libjpeg fills it
+    (JPEGs without their EOI, whose cut copies end inside the scan data)
+    and its header rules (standard Huffman tables, 16-bit DQT entries, an
+    unused table's all-ones code), each whole, cut short at eight lengths
+    and with bytes flipped; nothing faults."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures", "x11_pnm")
+    names = sorted(f for f in os.listdir(fixtures) if f != "manifest.json")
+    assert len(names) >= 30
+    assert sum(f.endswith(".jpg") for f in names) >= 6
     preload = " ".join(subprocess.run(
         [native.CXX, f"-print-file-name={lib}"], capture_output=True,
         text=True, check=True).stdout.strip()

@@ -439,6 +439,21 @@ def test_refusals_name_their_format(tmp_path, kind, make, words):
     # a DCX with no pages: Pillow's seek to the first raises, so it is no
     # DCX
     ("dcx_no_pages", lambda: struct.pack("<II", 987654321, 0), "DCX"),
+    # "P" and a letter PNM's test takes, but no magic number of its table:
+    # its plugin cannot open it, and no other format takes it
+    ("pnm_unknown_magic", lambda: b"PyX 2 1 255\n" + bytes(6), "PNM"),
+    # Pillow's other PNM modes, "Pf" among them, are PNM now
+    ("pnm_pf", lambda: mt.pfm_file(np.ones((2, 3), np.float32)), "PNM"),
+    # "#define" after whitespace within the first 16 bytes: XBM, whose
+    # header is read from the first 512 bytes only
+    ("xbm_header_past_512", lambda: b" #define i_width 8\n#define "
+     b"i_height 1\n" + b" " * 500 + b"static char i_bits[] = {0x0f};",
+     "XBM"),
+    ("xbm_after_whitespace", lambda: b"\t\n #define i_width 8\n#define "
+     b"i_height 1\nstatic char i_bits[] = {0x0f};", "XBM"),
+    # ... and past them, no format's test takes it
+    ("xbm_past_16_bytes", lambda: b" " * 12 + b"#define i_width 8\n"
+     b"#define i_height 1\nstatic char i_bits[] = {0x0f};", "unknown"),
 ])
 def test_dispatch_follows_pillows_order(tmp_path, kind, make, fmt):
     """format_of names the first format whose test takes the file, in
@@ -471,12 +486,20 @@ def test_not_opened_goes_on_to_the_next_format(tmp_path):
 
 def test_loader_decodes_new_formats_without_pillow(tmp_path, monkeypatch):
     """The mesh loader's texture path with Pillow blocked: a file of every
-    new format and kind decodes through image_io.format_of to JAX's
-    pixels, computed before Pillow was blocked."""
+    new format and kind (Pillow's other PNM modes, XBM and XPM too) decodes
+    through image_io.format_of to JAX's pixels, computed before Pillow was
+    blocked."""
     import builtins
 
     cases = [(n, d) for n, d in PILLOW_WRITTEN[::7] + HAND_MADE[::5]
              if image_io.format_of(d) != "GBR"]
+    # and Pillow's other PNM modes, XBM and XPM (tests/torch_textures/
+    # x11_pnm/), each of which decodes
+    x11 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_textures", "x11_pnm")
+    cases += [(n, open(os.path.join(x11, n), "rb").read())
+              for n in sorted(os.listdir(x11))
+              if n.startswith(("pfm", "pnm", "xbm", "xpm"))]
     paths = [_write(tmp_path, data, f"{i}.tex")
              for i, (_, data) in enumerate(cases)]
     want = {}
