@@ -12,8 +12,9 @@ the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
 (BC1 to BC7) textures of DDS files (scene/dds.py); `cge_fax.cpp` TIFF's
 CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py);
 `cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files, the
-QOI op stream, ICNS's run-length channels, ThunderScan rows and XBM's hex
-bytes (scene/sgi.py, pcx.py, sun.py, qoi.py, icns.py, tiff.py, xbm.py);
+QOI op stream, ICNS's run-length channels, ThunderScan rows, XBM's hex
+bytes, FLI / FLC frame chunks and Windows Paint 2.x rows (scene/sgi.py,
+pcx.py, sun.py, qoi.py, icns.py, tiff.py, xbm.py, fli.py, msp.py);
 `cge_j2k.cpp` JPEG 2000 codestreams
 (scene/jpeg2000.py).
 Each source is compiled at first use by `g++` with the flags of the JAX
@@ -116,6 +117,11 @@ _SIGNATURES = {
     **{name: (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                    ctypes.c_long, _P, ctypes.c_char_p, _I])
        for name in ("cge_thunder", "cge_xbm")},
+    "cge_fli_frame": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                           ctypes.c_long, _P, ctypes.c_char_p, _I]),
+    "cge_msp_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, _P,
+                         ctypes.c_long, ctypes.c_long, _P, ctypes.c_char_p,
+                         _I]),
     "cge_j2k_open": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.POINTER(_P), ctypes.c_char_p, _I]),
     "cge_j2k_info": (None, [_P, _P]),
@@ -655,6 +661,36 @@ def thunder(data: bytes, width: int, rows: int) -> np.ndarray:
     out = np.zeros((rows, (width + 1) // 2), np.uint8)
     decode_call(library().cge_thunder, data, len(data), width, rows,
                 out.ctypes.data)
+    return out
+
+
+def fli_frame(frame: bytes, im: np.ndarray) -> None:
+    """An FLI / FLC frame chunk's bytes (its 16-byte header first, as many
+    bytes as Pillow's reads gave its decoder) decoded into the palette
+    indices im [height, width] uint8, as Pillow's FliDecode.c decodes
+    them; ValueError where it fails."""
+    if not (im.flags.c_contiguous and im.dtype == np.uint8):
+        raise ValueError("fli_frame writes a C-contiguous uint8 array")
+    h, w = im.shape
+    decode_call(library().cge_fli_frame, frame, len(frame), w, h,
+                im.ctypes.data)
+
+
+def msp_rle(data: bytes, offset: int, lengths, stride: int,
+            fmt: str) -> np.ndarray:
+    """Windows Paint 2.x rows from data[offset:], each of its row map's
+    length, -> the image's rows [len(lengths), stride] uint8, as Pillow's
+    MspDecoder and its read of the joined rows give them; ValueError naming
+    fmt where a row is cut short or corrupted, or the rows decode to
+    fewer bytes than the image."""
+    lengths = np.ascontiguousarray(lengths, np.uint16)
+    out = np.zeros((len(lengths), stride), np.uint8)
+    try:
+        decode_call(library().cge_msp_rle, data, len(data), offset,
+                    lengths.ctypes.data, len(lengths), stride,
+                    out.ctypes.data)
+    except ValueError as e:
+        raise ValueError(f"{fmt}: {e}") from None
     return out
 
 

@@ -1,6 +1,6 @@
 // Byte-serial decoding of the raster formats of model and game asset sets
-// for the port's texture loader (cge_tpu_torch/scene/sgi.py, pcx.py, sun.py
-// and qoi.py).
+// for the port's texture loader (cge_tpu_torch/scene/sgi.py, pcx.py, sun.py,
+// qoi.py, icns.py, tiff.py, xbm.py, fli.py and msp.py).
 //
 // The JAX package loads a texture through Pillow. This file holds the loops
 // over a stream that numpy cannot split, each giving the bytes Pillow 12's
@@ -42,7 +42,26 @@
 //     the header on, each byte from the two characters after the next
 //     'x' (a character that is no hex digit reads 0, so "0x1," is 0x10),
 //     the search going on past them; the data must hold the bytes of the
-//     last row, the two characters after its last 'x' included.
+//     last row, the two characters after its last 'x' included;
+//   - an FLI / FLC frame chunk (cge_fli_frame), as Pillow's FliDecode.c
+//     walks it: its sub-chunks in turn, each moved past by its own size
+//     (0, or past the frame, is an error), SS2 word deltas (7: skip and
+//     last-byte flag words, runs of byte pairs), LC byte deltas (12: a
+//     start line and a count of lines), BLACK (13), BRUN (15: byte runs,
+//     each line's packet count byte passed over), COPY (16: the raw
+//     image), the palette and stamp chunks (4, 11, 18) passed over and any
+//     other type an error; a packet that overruns its line ends the line's
+//     packets, after which SS2 and LC stop with an error and BRUN fails
+//     unless the line is whole; data that the frame's bytes do not hold
+//     are an error, as is a COPY chunk cut short (after which Pillow reads
+//     on and never finds another frame);
+//   - Windows Paint 2.x rows (cge_msp_rle), as Pillow's MspDecoder: each
+//     row's encoded length from the row map, a length of 0 a white row, a
+//     byte 0 a run (a count, then the byte), any other byte n that many
+//     literal bytes (as many as the row still holds); the rows joined into
+//     one stream whose first rows x stride bytes are the image; a row that
+//     the file cuts short, a run cut after its 0, and a stream too short
+//     for the image are errors.
 //
 // Entry points (C ABI, loaded with ctypes): each writes the bytes its
 // comment names and returns 0, or -1 with a message in err, and reads no
@@ -261,6 +280,228 @@ void qoi(const uint8_t* data, size_t n, size_t offset, int64_t pixels,
     }
 }
 
+uint16_t le16(const uint8_t* p) {
+    return static_cast<uint16_t>(p[0] | (p[1] << 8));
+}
+
+uint32_t le32(const uint8_t* p) {
+    return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+           (static_cast<uint32_t>(p[2]) << 16) |
+           (static_cast<uint32_t>(p[3]) << 24);
+}
+
+std::string printed(const char* fmt, long a, long b = 0) {
+    char buf[160];
+    std::snprintf(buf, sizeof buf, fmt, a, b);
+    return buf;
+}
+
+// The frame chunk buf[0:n] into im [ys][xs], whose bytes the earlier
+// chunks left.
+void fli_frame(const uint8_t* buf, int64_t n, int64_t xs, int64_t ys,
+               uint8_t* im) {
+    if (n < 8) fail("FLI frame of fewer than 8 bytes (buffer overrun)");
+    if (le16(buf + 4) != 0xF1FA)
+        fail(printed("FLI frame chunk of type 0x%04lx, not 0xF1FA "
+                     "(unrecognized data stream contents)",
+                     le16(buf + 4)));
+    const int chunks = le16(buf + 6);
+    int64_t ptr = 16, left = n - 16;
+    for (int c = 0; c < chunks; ++c) {
+        if (left < 10)
+            fail(printed("FLI sub-chunk %ld's header past the frame's end "
+                         "(buffer overrun)", c));
+        int64_t data = ptr + 6;
+        const int64_t end = ptr + left;
+        const int type = le16(buf + ptr + 4);
+        auto need = [&](int64_t k) {
+            if (data + k > end)
+                fail(printed("FLI sub-chunk %ld of type %ld overruns the "
+                             "frame (buffer overrun)", c, type));
+        };
+        switch (type) {
+        case 4:
+        case 11:
+        case 18:
+            break;                          // palettes, the postage stamp
+        case 7: {                           // SS2: word deltas
+            const int64_t lines = le16(buf + data);
+            data += 2;
+            int64_t l = 0, y = 0;
+            for (; l < lines && y < ys; ++l, ++y) {
+                uint8_t* row = im + y * xs;
+                need(2);
+                int64_t packets = le16(buf + data);
+                data += 2;
+                while (packets & 0x8000) {
+                    if (packets & 0x4000) {
+                        y += 65536 - packets;       // lines skipped
+                        if (y >= ys)
+                            fail("FLI SS2 chunk skips past the last line "
+                                 "(buffer overrun)");
+                        row = im + y * xs;
+                    } else {
+                        row[xs - 1] = static_cast<uint8_t>(packets);
+                    }
+                    need(2);
+                    packets = le16(buf + data);
+                    data += 2;
+                }
+                int64_t p = 0, x = 0;
+                for (; p < packets; ++p) {
+                    need(2);
+                    x += buf[data];
+                    if (buf[data + 1] >= 128) {
+                        need(4);
+                        const int64_t i = 256 - buf[data + 1];
+                        if (x + 2 * i > xs) break;
+                        for (int64_t j = 0; j < i; ++j, x += 2) {
+                            row[x] = buf[data + 2];
+                            row[x + 1] = buf[data + 3];
+                        }
+                        data += 4;
+                    } else {
+                        const int64_t i = 2 * buf[data + 1];
+                        if (x + i > xs) break;
+                        need(2 + i);
+                        std::memcpy(row + x, buf + data + 2, i);
+                        data += 2 + i;
+                        x += i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (l < lines)
+                fail("FLI SS2 chunk's lines overrun the image (buffer "
+                     "overrun)");
+            break;
+        }
+        case 12: {                          // LC: byte deltas
+            int64_t y = le16(buf + data);
+            const int64_t ymax = y + le16(buf + data + 2);
+            data += 4;
+            for (; y < ymax && y < ys; ++y) {
+                uint8_t* row = im + y * xs;
+                need(1);
+                const int64_t packets = buf[data++];
+                int64_t p = 0, x = 0, i = 0;
+                for (; p < packets; ++p, x += i) {
+                    need(2);
+                    x += buf[data];
+                    if (buf[data + 1] & 0x80) {
+                        i = 256 - buf[data + 1];
+                        if (x + i > xs) break;
+                        need(3);
+                        std::memset(row + x, buf[data + 2], i);
+                        data += 3;
+                    } else {
+                        i = buf[data + 1];
+                        if (x + i > xs) break;
+                        need(2 + i);
+                        std::memcpy(row + x, buf + data + 2, i);
+                        data += 2 + i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (y < ymax)
+                fail("FLI LC chunk's lines overrun the image (buffer "
+                     "overrun)");
+            break;
+        }
+        case 13:                            // BLACK
+            std::memset(im, 0, static_cast<size_t>(xs * ys));
+            break;
+        case 15:                            // BRUN: byte runs
+            for (int64_t y = 0; y < ys; ++y) {
+                uint8_t* row = im + y * xs;
+                data += 1;                  // the line's packet count
+                int64_t x = 0, i = 0;
+                for (; x < xs; x += i) {
+                    need(2);
+                    if (buf[data] & 0x80) {
+                        i = 256 - buf[data];
+                        if (x + i > xs) break;
+                        need(1 + i);
+                        std::memcpy(row + x, buf + data + 1, i);
+                        data += 1 + i;
+                    } else {
+                        i = buf[data];
+                        if (x + i > xs) break;
+                        std::memset(row + x, buf[data + 1], i);
+                        data += 2;
+                    }
+                }
+                if (x != xs)
+                    fail(printed("FLI BRUN chunk's line %ld is not whole "
+                                 "(buffer overrun)", y));
+            }
+            break;
+        case 16:                            // COPY
+            if (data + xs * ys > end)
+                fail("FLI COPY chunk cut short: its image is not in the "
+                     "frame (image file is truncated)");
+            std::memcpy(im, buf + data, static_cast<size_t>(xs * ys));
+            break;
+        default:
+            fail(printed("FLI sub-chunk of unknown type %ld", type));
+        }
+        const int32_t advance = static_cast<int32_t>(le32(buf + ptr));
+        if (advance == 0)
+            fail(printed("FLI sub-chunk %ld of size 0 (broken data "
+                         "stream)", c));
+        if (advance < 0 || advance > left)
+            fail(printed("FLI sub-chunk %ld's size goes past the frame's "
+                         "end (buffer overrun)", c));
+        ptr += advance;
+        left -= advance;
+    }
+}
+
+// LinS rows from data[offset:] as the row map's lengths say, into out
+// [rows * stride].
+void msp_rle(const uint8_t* data, int64_t n, int64_t offset,
+             const uint16_t* lengths, int64_t rows, int64_t stride,
+             uint8_t* out) {
+    const int64_t total = rows * stride;
+    int64_t pos = offset, got = 0;
+    auto put = [&](const uint8_t* src, int64_t k, int fill) {
+        const int64_t m = std::min(k, total - got);
+        if (m > 0) {
+            if (src) std::memcpy(out + got, src, m);
+            else std::memset(out + got, fill, m);
+        }
+        got += k;
+    };
+    for (int64_t r = 0; r < rows; ++r) {
+        const int64_t len = lengths[r];
+        if (!len) {
+            put(nullptr, stride, 0xFF);
+            continue;
+        }
+        if (pos + len > n)
+            fail(printed("Truncated MSP file, expected %ld bytes on row %ld",
+                         len, r));
+        const uint8_t* row = data + pos;
+        pos += len;
+        for (int64_t i = 0; i < len;) {
+            const int type = row[i++];
+            if (!type) {
+                if (i + 2 > len)
+                    fail(printed("Corrupted MSP file in row %ld", r));
+                put(nullptr, row[i], row[i + 1]);
+                i += 2;
+            } else {
+                put(row + i, std::min<int64_t>(type, len - i), 0);
+                i += type;
+            }
+        }
+    }
+    if (got < total)
+        fail(printed("MSP rows decode to %ld of the %ld bytes of the image "
+                     "(not enough image data)", got, total));
+}
+
 void copy_error(const std::string& what, char* err, int errlen) {
     if (err && errlen > 0) std::snprintf(err, errlen, "%s", what.c_str());
 }
@@ -460,6 +701,20 @@ int cge_xbm(const unsigned char* data, long n, long offset, long count,
         pos += 3;
     }
     return 0;
+}
+
+int cge_fli_frame(const unsigned char* data, long n, long width, long height,
+                  unsigned char* im, char* err, int errlen) {
+    return guarded(err, errlen,
+                   [&] { fli_frame(data, n, width, height, im); });
+}
+
+int cge_msp_rle(const unsigned char* data, long n, long offset,
+                const unsigned short* lengths, long rows, long stride,
+                unsigned char* out, char* err, int errlen) {
+    return guarded(err, errlen, [&] {
+        msp_rle(data, n, offset, lengths, rows, stride, out);
+    });
 }
 
 }  // extern "C"

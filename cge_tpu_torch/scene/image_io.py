@@ -1,7 +1,9 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
 PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, JPEG 2000, the
 formats of model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR,
-ICNS, BLP, FTEX and Sun raster, and the X11 icons XBM and XPM.
+ICNS, BLP, FTEX and Sun raster, the X11 icons XBM and XPM, and the legacy
+formats GIMP brush, FLI / FLC, Windows Paint, Kodak PhotoCD, PIXAR and XV
+thumbnail.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
@@ -91,10 +93,18 @@ format's test takes a file whose header its plugin cannot open
   FTEX  DXT1 and raw RGB (scene/ftex.py).
   Sun   raster at 1, 4, 8, 24 and 32 bits, with colour maps, raw or
         run-length (scene/sun.py).
-The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS and XBM run in
-the native library's cge_raster.cpp.
+  GBR   GIMP brushes, versions 1 and 2, grey or RGBA (scene/gbr.py).
+  FLI   FLI and FLC animations' first frame: SS2, LC, BLACK, BRUN and COPY
+        chunks under a COLOR_256 or COLOR_64 palette (scene/fli.py).
+  MSP   Windows Paint 1.x (raw) and 2.x (run-length rows) (scene/msp.py).
+  PCD   Kodak PhotoCD's 768x512 base image, PhotoYCC through Pillow's
+        tables, in each orientation (scene/pcd.py).
+  PIXAR raster images of 14 channels at depth 2, RGB (scene/pixar.py).
+  XV thumbnail  RGB332 thumbnails (scene/xvthumb.py).
+The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS, XBM, FLI and MSP
+run in the native library's cge_raster.cpp.
 
-Any other format (GBR, AVIF, Radiance HDR, OpenEXR, PAM, colour PFM, ...)
+Any other format (AVIF, EPS, Radiance HDR, OpenEXR, PAM, colour PFM, ...)
 raises a ValueError that names it, as does a truncated or corrupt file.
 `png_bytes` and `write_png` write
 8-bit PNGs, each row with a chosen filter. `write_bmp` writes the CLI's
@@ -111,9 +121,10 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import (blp, dds, ftex, gif, icns, ico, jpeg,
-                                 jpeg2000, pcx, pnm, psd, qoi, sgi, sun, tga,
-                                 tiff, webp, xbm, xpm)
+from cge_tpu_torch.scene import (blp, dds, fli, ftex, gbr, gif, icns, ico,
+                                 jpeg, jpeg2000, msp, pcd, pcx, pixar, pnm,
+                                 psd, qoi, sgi, sun, tga, tiff, webp, xbm,
+                                 xpm, xvthumb)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -537,26 +548,15 @@ def _u32(data: bytes, order: str = "<") -> int:
     return struct.unpack_from(order + "I", data)[0] if len(data) >= 4 else -1
 
 
-def _gbr_opens(data: bytes) -> bool:
-    """GbrImagePlugin's test and header: a header size of at least 20,
-    version 1 or 2, width and height above 0, depth 1 or 4, and version
-    2's "GIMP" magic."""
-    if len(data) < 20:
-        return False
-    size, version, w, h, depth = struct.unpack_from(">5I", data)
-    return (size >= 20 and version in (1, 2) and w > 0 and h > 0
-            and depth in (1, 4)
-            and (version == 1 or (data[20:24] == b"GIMP"
-                                  and len(data) >= 28)))
-
-
 _DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
 # Pillow 12's image plugins in the order Image.open tries them (its six
 # preinit plugins, then Image.ID's registration order), each with its test
 # of the first bytes; the formats this loader reads have a decoder, the
-# others (None) refuse the file. IM, IMT, IPTC, PCD and SPIDER, which test
-# whole headers no image of the other formats has, are left out. BMP's and
-# DIB's decoders are defined below, so they are called through lambdas.
+# others (None) refuse the file. IM, IMT, IPTC and SPIDER, which test
+# whole headers no image of the other formats has, are left out; PCD, which
+# has no test of the first bytes either, is in by its plugin's test of
+# "PCD_" at byte 2048. BMP's and DIB's decoders are defined below, so they
+# are called through lambdas.
 _PILLOW_ORDER = (
     ("BMP", lambda d: d[:2] == b"BM", lambda d: decode_bmp(d)),
     ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
@@ -574,11 +574,9 @@ _PILLOW_ORDER = (
     ("DDS", lambda d: d[:4] == dds.MAGIC, dds.decode_dds),
     ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, None),
     ("FITS", lambda d: d[:6] == b"SIMPLE", None),
-    ("FLI", lambda d: len(d) >= 16 and struct.unpack_from("<H", d, 4)[0] in (
-        0xAF11, 0xAF12) and struct.unpack_from("<H", d, 14)[0] in (0, 3),
-     None),
+    ("FLI", fli.accept, fli.decode_fli),
     ("FTEX", ftex.accept, ftex.decode_ftex),
-    ("GBR", _gbr_opens, None),
+    ("GBR", gbr.accept, gbr.decode_gbr),
     ("GRIB", lambda d: d[:4] == b"GRIB" and len(d) >= 8 and d[7] == 1, None),
     ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", None),
     ("JPEG 2000", jpeg2000.accept, jpeg2000.decode_jp2),
@@ -587,8 +585,9 @@ _PILLOW_ORDER = (
     ("McIdas", lambda d: d[:8] == b"\x00" * 7 + b"\x04", None),
     ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
     ("TIFF", lambda d: d[:4] in tiff.PREFIXES, tiff.decode_tiff),
-    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
-    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\x00\x00", None),
+    ("MSP", msp.accept, msp.decode_msp),
+    ("PCD", pcd.accept, pcd.decode_pcd),
+    ("PIXAR", pixar.accept, pixar.decode_pixar),
     ("PSD", lambda d: d[:4] == b"8BPS", psd.decode_psd),
     ("QOI", qoi.accept, qoi.decode_qoi),
     ("SGI", sgi.accept, sgi.decode_sgi),
@@ -600,7 +599,7 @@ _PILLOW_ORDER = (
      or d[:4] == b"\x01\x00\x00\x00", None),
     ("XBM", xbm.accept, xbm.decode_xbm),
     ("XPM", xpm.accept, xpm.decode_xpm),
-    ("XV thumbnail", lambda d: d[:6] == b"P7 332", None))
+    ("XV thumbnail", xvthumb.accept, xvthumb.decode_xvthumb))
 # formats Pillow has no plugin for, named in the refusal
 _OTHERS = ((b"#?RADIANCE", "Radiance HDR"), (b"\x76\x2f\x31\x01", "OpenEXR"),
            (b"P7", "PAM"), (b"PF", "colour PFM"))
@@ -612,8 +611,9 @@ def format_of(data: bytes) -> str:
     Pillow's plugins, in the order Image.open tries them, whose test of the
     first bytes takes the file ("PNG", "BMP", "DIB", "JPEG", "GIF", "PNM",
     "PSD", "TIFF", "DDS", "WebP", "TGA", "SGI", "PCX", "DCX", "QOI", "ICO",
-    "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX", "Sun raster", "XBM" or "XPM"
-    for the formats that decode here),
+    "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX", "Sun raster", "XBM", "XPM",
+    "GBR", "FLI", "MSP", "PCD", "PIXAR" or "XV thumbnail" for the formats
+    that decode here),
     else the name of another known format, or "unknown". TGA, which has
     no signature, comes by Pillow's test of its header. decode_image goes
     on to the next format where this one's header cannot be opened, as

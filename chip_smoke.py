@@ -3125,6 +3125,14 @@ TEX_X11_DIR = os.path.join(TEXTURES, "x11_pnm")
 # the crops phase 18c writes as the text formats
 X11_CROP = 256
 XPM_RGB_CROP = 96
+# small files of GIMP brushes, FLI / FLC, Windows Paint, Kodak PhotoCD,
+# PIXAR and XV thumbnails (make_textures.legacy_fixtures), those JAX's
+# loader refuses listed without a hash, with a manifest of their own: phase
+# 18a's decode times by kind; its PCD of the texels in orientation 0 (their
+# PhotoYCC samples: Y the green of the top-left 768x512, C1 and C2 the
+# blue and red of every other texel) is phase 18c's PCD row
+TEX_LEGACY_DIR = os.path.join(TEXTURES, "legacy")
+TEX_PCD = "pcd_texels_o0.pcd"
 # the tail's fixtures by kind (name prefixes), for phase 18a's decode times
 TAIL_KINDS = (
     ("old-style JPEG", ("tiff_ojpeg_",)),
@@ -3136,9 +3144,10 @@ TAIL_KINDS = (
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
-    pillow_tail/, tail_chip/ and x11_pnm/) through the port's load_image,
-    its u8 pixels' SHA-256 against its manifest's; (name, kind, host ms)
-    a fixture."""
+    pillow_tail/, tail_chip/, x11_pnm/ and legacy/) through the port's
+    load_image, its u8 pixels' SHA-256 against its manifest's, or, where
+    the manifest has no hash (JAX's loader refuses the file), a ValueError
+    naming the file; (name, kind, host ms) a fixture."""
     import hashlib
 
     import numpy as np
@@ -3147,13 +3156,25 @@ def texture_fixtures() -> list:
 
     entries = []
     for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR,
-                   TEX_X11_DIR):
+                   TEX_X11_DIR, TEX_LEGACY_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
     for folder, entry in entries:
         path = os.path.join(folder, entry["name"])
         t0 = time.perf_counter()
+        if entry["sha256"] is None:
+            try:
+                image_io.load_image(path)
+            except ValueError as e:
+                if path not in str(e):
+                    bad.append(f"{entry['name']} (refused without its "
+                               f"name)")
+            else:
+                bad.append(f"{entry['name']} (decoded; JAX refuses it)")
+            times.append((entry["name"], entry["kind"],
+                          (time.perf_counter() - t0) * 1e3))
+            continue
         img = image_io.load_image(path)
         ms = (time.perf_counter() - t0) * 1e3
         u8 = np.rint(img.pixels * 255.0).astype(np.uint8)
@@ -3166,6 +3187,20 @@ def texture_fixtures() -> list:
         raise AssertionError(f"decoded textures differ from the manifest: "
                              f"{bad}")
     return times
+
+
+def rgb332(texels):
+    """The 3-3-2 colour indices [H, W] uint8 of the texels [H, W, 3] u8
+    (red's top three bits first) and the 256-colour palette [256, 3] they
+    index: the GIF's, BLP's, XPM's, FLC's and XV thumbnail's."""
+    import numpy as np
+
+    idx = ((texels[..., 0] >> 5) << 5 | (texels[..., 1] >> 5) << 2
+           | texels[..., 2] >> 6).astype(np.uint8)
+    i = np.arange(256)
+    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
+                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    return idx, palette
 
 
 def texture_writers(texels):
@@ -3201,11 +3236,8 @@ def texture_writers(texels):
            + packed.tobytes())
     out["texels.psd"] = (psd, texels)
     # GIF: 3-3-2 colours, LZW at 9 bits (a clear code every 254 codes)
-    idx = ((texels[..., 0] >> 5) << 5 | (texels[..., 1] >> 5) << 2
-           | texels[..., 2] >> 6).reshape(-1).astype(np.uint32)
-    i = np.arange(256)
-    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
-                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    idx, palette = rgb332(texels)
+    idx = idx.reshape(-1).astype(np.uint32)
     codes = np.concatenate(
         [np.concatenate(([256], idx[j:j + 254])) for j in range(
             0, len(idx), 254)] + [np.array([257], np.uint32)])
@@ -3222,6 +3254,7 @@ def texture_writers(texels):
     out.update(dds_writers(texels))
     out.update(asset_writers(texels))
     out.update(x11_writers(texels))
+    out.update(legacy_writers(texels))
     for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG, TEX_JPEG_CROP):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
@@ -3261,6 +3294,9 @@ def texture_writers(texels):
         log(f"  18c: {name}'s texels against the JPEG's: max abs error "
             f"{int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
+    with open(os.path.join(TEX_LEGACY_DIR, TEX_PCD), "rb") as f:
+        data = f.read()
+    out[TEX_PCD] = (data, image_io.decode_image(data))  # 18a holds it
     return out
 
 
@@ -3493,11 +3529,7 @@ def x11_writers(texels) -> dict:
         lines += [b'"' + table[row].tobytes() + b'",' for row in idx]
         return b"\n".join(lines) + b"\n};\n"
 
-    i = np.arange(256)
-    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
-                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
-    idx = ((crop[..., 0] >> 5) << 5 | (crop[..., 1] >> 5) << 2
-           | crop[..., 2] >> 6).astype(np.int64)
+    idx, palette = rgb332(crop)
     out["texels_crop_332.xpm"] = (xpm(idx, palette, 2), palette[idx])
     small = texels[:XPM_RGB_CROP, :XPM_RGB_CROP]
     colours, inv = np.unique(small.reshape(-1, 3), axis=0,
@@ -3508,6 +3540,66 @@ def x11_writers(texels) -> dict:
                              f"XPM")
     out["texels_crop_rgb.xpm"] = (xpm(inv.reshape(small.shape[:2]), colours,
                                       3), small)
+    return out
+
+
+def legacy_writers(texels) -> dict:
+    """The texels [H, W, 3] u8 as the legacy formats:
+    PIXAR RGB and a version 2 GIMP brush of RGBA (the alpha a ramp) of the
+    texels; an FLC (a COLOR_256 palette, BRUN lines of literal packets of
+    up to 128) and an XV thumbnail of their 3-3-2 colours (the GIF's
+    texels); their top-left X11_CROP crop's thresholded grey (the XBM's
+    texels) as a Windows Paint 2.x file, each row one literal packet, or
+    of length 0 where it is white; {name: (file bytes, the texels the file
+    holds)}."""
+    import struct
+
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    pxr = bytearray(1024)
+    pxr[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", pxr, 416, h, w)
+    struct.pack_into("<HH", pxr, 424, 14, 2)
+    out = {"texels.pxr": (bytes(pxr) + texels.tobytes(), texels)}
+    alpha = (np.arange(h * w, dtype=np.uint32) % 253).astype(np.uint8)
+    rgba = np.concatenate([texels, alpha.reshape(h, w, 1)], axis=2)
+    out["texels.gbr"] = (struct.pack(">5I", 35, 2, w, h, 4) + b"GIMP"
+                         + struct.pack(">I", 25) + b"texels\0"
+                         + rgba.tobytes(), texels)
+    idx, palette = rgb332(texels)
+    cols = [(x, min(128, w - x)) for x in range(0, w, 128)]
+    lines = np.concatenate([np.full((h, 1), len(cols), np.uint8)] + [
+        part for x, k in cols for part in (
+            np.full((h, 1), 256 - k, np.uint8), idx[:, x:x + k])], axis=1)
+    colour = struct.pack("<HBB", 1, 0, 0) + palette.tobytes()
+    chunks = (struct.pack("<IH", 6 + len(colour), 4) + colour
+              + struct.pack("<IH", 6 + lines.size, 15) + lines.tobytes())
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + 16 + len(chunks), 0xAF12,
+                     1, w, h, 8, 3, 5)
+    out["texels_332.flc"] = (bytes(head) + struct.pack(
+        "<IHH8x", 16 + len(chunks), 0xF1FA, 2) + chunks, palette[idx])
+    out["texels_332.xv"] = (b"P7 332\n#XVVERSION:Version 2.28\n"
+                            b"#END_OF_COMMENTS\n%d %d 255\n" % (w, h)
+                            + idx.tobytes(), palette[idx])
+    crop = texels[:X11_CROP, :X11_CROP]
+    ch, cw = crop.shape[:2]
+    grey = crop.astype(np.uint32).sum(2) > 3 * 127
+    rows = np.packbits(grey.astype(np.uint8), axis=1)
+    stride = rows.shape[1]
+    white = (rows == 0xFF).all(axis=1)
+    head = bytearray(32)
+    head[:4] = b"LinS"
+    struct.pack_into("<HH", head, 4, cw, ch)
+    struct.pack_into("<H", head, 30, int(np.bitwise_xor.reduce(
+        np.frombuffer(bytes(head), "<u2"))))
+    body = np.concatenate([np.full((ch, 1), stride, np.uint8), rows],
+                          axis=1)[~white]
+    msp = (bytes(head) + np.where(white, 0, stride + 1).astype("<u2")
+           .tobytes() + body.tobytes())
+    out["texels_crop.msp"] = (msp, np.repeat(
+        (grey * np.uint8(255)).astype(np.uint8)[..., None], 3, axis=2))
     return out
 
 
@@ -3567,11 +3659,7 @@ def asset_writers(texels) -> dict:
     sun = struct.pack(">8I", 0x59A66A95, w, h, 24, len(body), 2, 0,
                       0) + body
     out["texels.ras"] = (sun, texels)
-    idx = ((texels[..., 0] >> 5) << 5 | (texels[..., 1] >> 5) << 2
-           | texels[..., 2] >> 6).astype(np.uint8)
-    i = np.arange(256)
-    palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
-                        (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+    idx, palette = rgb332(texels)
     bgra = np.concatenate([palette[:, ::-1], np.zeros((256, 1), np.uint8)],
                           axis=1)
     blp = (b"BLP2" + struct.pack("<ibbbbII", 1, 1, 0, 0, 0, w, h)
@@ -3599,8 +3687,8 @@ def asset_writers(texels) -> dict:
 def textured_dragon(tmp, texture, grid, device):
     """The dragon stand-in at `grid` with its body's map_Kd the file
     `texture` (copied beside the OBJ), loaded on `device`; the load's
-    seconds. The OBJ and MTL are written once a grid into tmp and copied
-    for each texture."""
+    seconds. The OBJ and MTL are written once a grid into tmp; each
+    texture's folder holds a hard link to the OBJ and a copy of the MTL."""
     import shutil
 
     import cge_tpu_torch as ct
@@ -3613,8 +3701,8 @@ def textured_dragon(tmp, texture, grid, device):
     stem = os.path.splitext(os.path.basename(texture))[0]
     os.makedirs(os.path.join(tmp, stem))
     obj = os.path.join(tmp, stem, "dragon.obj")
-    for name in ("dragon.obj", "dragon.mtl"):
-        shutil.copy(os.path.join(base, name), os.path.dirname(obj))
+    os.link(os.path.join(base, "dragon.obj"), obj)    # 45 MB, read only
+    shutil.copy(os.path.join(base, "dragon.mtl"), os.path.dirname(obj))
     shutil.copy(texture, os.path.dirname(obj))
     mtl = os.path.splitext(obj)[0] + ".mtl"
     with open(mtl) as f:
@@ -3642,8 +3730,9 @@ def eleventh_path(device) -> dict:
     textured by the 1024x1024 JPEG at 512x512 with the accel against the
     same dragon textured by the PNG the port writes from the decoded
     texels, then by those texels as TGA, PNM, PSD, GIF, TIFF, WebP, DDS,
-    SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000, ICNS, XBM and
-    XPM files, and Pillow's other PNM modes (new_format_frames)."""
+    SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000, ICNS, XBM, XPM,
+    PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint files, Pillow's
+    other PNM modes, and a PhotoCD of them (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3662,8 +3751,9 @@ def eleventh_path(device) -> dict:
         f"Sun raster run-length, BLP2 palette, FTEX, a 256x256 ICO, a "
         f"lossless 512x512 J2K crop, a lossy JP2 and an ICNS of it, a "
         f"512x512 L*a*b* TIFF crop, a JP2 with Part 2 MCT markers, an "
-        f"old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM, and XBM and XPM "
-        f"(palette and RGB) crops | "
+        f"old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM, XBM and XPM "
+        f"(palette and RGB) crops, PIXAR, a GIMP brush, a 3-3-2 FLC and XV "
+        f"thumbnail, a Windows Paint crop and a 768x512 PhotoCD | "
         f"{SMI['line']} (decode and load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3757,12 +3847,12 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
     """Phase 18c: the dragon textured by the texels as TGA, PNM, PSD, GIF,
     TIFF, WebP, DDS, SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000
     (J2K and JP2) and ICNS files, a L*a*b* TIFF, a JP2 with Part 2
-    markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, and
-    XBM and XPM crops (texture_writers), each frame (the first, then one
-    timed) against the PNG-textured frame of the same texels (rendered
-    once for each set of texels), each first frame's K1 and K2 launches
-    against (b)'s (first_launches); {file: (decode ms, load s,
-    frame ms)}."""
+    markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, XBM
+    and XPM crops, PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint
+    files and a PhotoCD (texture_writers), each one first frame, timed,
+    against the PNG-textured frame of the same texels (rendered once for
+    each set of texels), its K1 and K2 launches against (b)'s
+    (first_launches); {file: (decode ms, load s, first frame ms)}."""
     import numpy as np
     import torch
 
@@ -3807,35 +3897,31 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
             ref = refs[key]
         scene, load_s = textured_dragon(tmp, path, grid, device)
         reset_launches()
-        frames = [ct.render_image_u8(scene, ct.Camera(), feats, params, W,
-                                     H)]
-        torch_sync(device)
-        launches = read_launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        frames.append(ct.render_image_u8(scene, ct.Camera(), feats, params,
-                                         W, H))
+        frame = ct.render_image_u8(scene, ct.Camera(), feats, params, W, H)
         end.record()
         torch.cuda.synchronize()
-        times_ms = [start.elapsed_time(end)]
+        launches = read_launches()
+        frame_ms = start.elapsed_time(end)
         del scene
-        same = [bool(torch.equal(f, ref)) for f in frames]
+        same = bool(torch.equal(frame, ref))
         log(f"  18c: dragon textured by {name} ({len(data)} bytes): decode "
             f"{decode_ms:.2f} ms (host), load {load_s:.2f} s, launches of "
-            f"the first frame {launches}, frames ms "
-            f"{[round(x, 2) for x in times_ms]}, equal to the frame of the "
-            f"PNG of its texels: {same} | {SMI['line']}")
+            f"the first frame {launches}, first frame {frame_ms:.2f} ms, "
+            f"equal to the frame of the PNG of its texels: {same} | "
+            f"{SMI['line']}")
         if not (launches["keys"] and launches["walk"]) or any(
                 launches[k] != first_launches[k] for k in ("keys", "walk")):
             raise AssertionError(f"{name}: the textured frame launched "
                                  f"{launches}, the JPEG's first frame "
                                  f"{first_launches}")
-        if not all(same):
+        if not same:
             raise AssertionError(f"the {name}-textured frame differs from "
                                  f"the frame textured by the PNG of its "
                                  f"texels")
-        out[name] = (decode_ms, load_s, times_ms)
+        out[name] = (decode_ms, load_s, frame_ms)
     out["texels.png (Paeth)"] = (paeth_ms, None, None)
     return out
 

@@ -29,8 +29,12 @@ JAX's pixels quantised to u8 ([H, W, 3] C order), with the Pillow and
 libjpeg-turbo versions, the commit and the command. The port's tests hold
 its decoders to JAX's pixels on every file; chip_smoke.py holds them to
 the manifest's hashes on the card's machine, which has no Pillow.
+tests/torch_textures/legacy/ holds the GIMP brushes, FLI / FLC, Windows
+Paint, Kodak PhotoCD, PIXAR and XV thumbnail files of legacy_fixtures,
+those JAX's loader refuses listed with its error's name; `--legacy` writes
+that folder alone.
 
-    JAX_PLATFORMS=cpu python3 jax_references/make_textures.py
+    JAX_PLATFORMS=cpu python3 jax_references/make_textures.py [--legacy]
 """
 
 from __future__ import annotations
@@ -3480,6 +3484,380 @@ def fault_fixtures(rng) -> dict:
     return out
 
 
+# ------------------------------------------- GBR, FLI, MSP, PCD, PIXAR, XV
+
+
+def gbr_file(px: np.ndarray, version: int = 2, comment: bytes = b"brush\0",
+             spacing: int = 25, header_size=None, tail: bytes = b"") -> bytes:
+    """A GIMP brush of px [h, w] (grey, depth 1) or [h, w, 4] (RGBA,
+    depth 4), with a comment; header_size overrides the header's size
+    field (the comment's length follows from it)."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else px.shape[2]
+    fixed = 20 if version == 1 else 28
+    size = fixed + len(comment) if header_size is None else header_size
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + comment + px.tobytes() + tail
+
+
+def fli_header(w: int, h: int, *, flc: bool = True, frames: int = 1,
+               flags: int = 3) -> bytes:
+    """The 128-byte FLI (0xAF11) or FLC (0xAF12) header."""
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 0, 0xAF12 if flc else 0xAF11,
+                     frames, w, h, 8, flags, 5)
+    return bytes(head)
+
+
+def fli_chunk(kind: int, body: bytes, size=None) -> bytes:
+    """A sub-chunk: its size (6 + the body's, unless given) and type."""
+    return struct.pack("<IH", 6 + len(body) if size is None else size,
+                       kind) + body
+
+
+def fli_frame(chunks: list, size=None, count=None, kind: int = 0xF1FA,
+              pad: bool = False) -> bytes:
+    """A frame chunk of the sub-chunks (a pad byte after them if asked)."""
+    body = b"".join(chunks) + (b"\0" if pad else b"")
+    return struct.pack("<IHH8x", 16 + len(body) if size is None else size,
+                       kind, len(chunks) if count is None else count) + body
+
+
+def fli_colors(packets: list, shift: int = 0) -> bytes:
+    """A COLOR_256 (shift 0) or COLOR_64 (shift 2) body: each packet
+    (entries skipped, [n, 3] colours; 256 colours are written as a count
+    of 0)."""
+    out = struct.pack("<H", len(packets))
+    for skip, colours in packets:
+        colours = np.asarray(colours, np.uint8)
+        out += bytes((skip, len(colours) % 256)) + (
+            colours >> np.uint8(shift)).tobytes()
+    return out
+
+
+def _runs(row: np.ndarray, most_run: int, most_literal: int) -> list:
+    """Greedy packets of a row: ("run", n, v) for 3 or more equal bytes,
+    else ("literal", bytes)."""
+    out, x, w = [], 0, len(row)
+    while x < w:
+        n = 1
+        while x + n < w and n < most_run and row[x + n] == row[x]:
+            n += 1
+        if n >= 3:
+            out.append(("run", n, int(row[x])))
+            x += n
+            continue
+        start = x
+        while x < w and x - start < most_literal:
+            if x + 2 < w and row[x] == row[x + 1] == row[x + 2]:
+                break
+            x += 1
+        out.append(("literal", row[start:x].tobytes()))
+    return out
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """A BRUN body of palette indices idx [h, w]: each line a packet count
+    byte (not read) and runs (count, byte) or literals (256 - n, bytes)."""
+    out = bytearray()
+    for row in np.asarray(idx, np.uint8):
+        packets = _runs(row, 127, 128)
+        out.append(len(packets) % 256)
+        for p in packets:
+            if p[0] == "run":
+                out += bytes((p[1], p[2]))
+            else:
+                out += bytes((256 - len(p[1]),)) + p[1]
+    return bytes(out)
+
+
+def fli_lc(prev: np.ndarray, new: np.ndarray) -> bytes:
+    """An LC (byte delta) body turning prev [h, w] into new: the first
+    changed line, the count of lines through the last changed one, each a
+    packet count, then (skip, count, bytes) or (skip, 256 - n, byte)
+    packets over its changed spans."""
+    changed = np.nonzero((prev != new).any(axis=1))[0]
+    if not len(changed):
+        return struct.pack("<HH", 0, 0)
+    y0, y1 = int(changed[0]), int(changed[-1]) + 1
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        packets, x, w = [], 0, new.shape[1]
+        diff = prev[y] != new[y]
+        while x < w:
+            start = x
+            while x < w and not diff[x]:
+                x += 1
+            if x == w:
+                break
+            while x - start > 255:                 # a skip of 255 alone
+                packets.append(bytes((255, 0)))
+                start += 255
+            end = x
+            while end < w and diff[end]:
+                end += 1
+            for kind, *rest in _runs(new[y, x:end], 128, 127):
+                if kind == "run":
+                    packets.append(bytes((x - start, 256 - rest[0],
+                                          rest[1])))
+                    x += rest[0]
+                else:
+                    packets.append(bytes((x - start, len(rest[0])))
+                                   + rest[0])
+                    x += len(rest[0])
+                start = x
+        out.append(len(packets))
+        out += b"".join(packets)
+    return bytes(out)
+
+
+def fli_ss2(prev: np.ndarray, new: np.ndarray) -> bytes:
+    """An SS2 (word delta) body turning prev [h, w] into new: lines
+    skipped by skip words, an odd width's last byte by a flag word, each
+    changed line's word pairs as (skip, count, words) or (skip, 256 - n,
+    word) packets."""
+    h, w = new.shape
+    even = w - w % 2
+    lines, out, gap = 0, bytearray(), 0
+    for y in range(h):
+        if (prev[y] == new[y]).all():
+            gap += 1
+            continue
+        if gap:
+            out += struct.pack("<H", 65536 - gap)
+            gap = 0
+        if w % 2:
+            out += struct.pack("<H", 0x8000 | int(new[y, -1]))
+        words = new[y, :even].reshape(-1, 2)
+        diff = (prev[y, :even] != new[y, :even]).reshape(-1, 2).any(axis=1)
+        packets, i, x = [], 0, 0
+        while i < len(words):
+            while i < len(words) and not diff[i]:
+                i += 1
+            if i == len(words):
+                break
+            while 2 * i - x > 255:
+                packets.append(bytes((254, 0)))
+                x += 254
+            j = i
+            while j < len(words) and diff[j]:
+                j += 1
+            k = i
+            while k < j:
+                n = 1
+                while k + n < j and n < 128 and (words[k + n] ==
+                                                  words[k]).all():
+                    n += 1
+                if n >= 2:
+                    packets.append(bytes((2 * k - x, 256 - n))
+                                   + words[k].tobytes())
+                else:
+                    n = min(j - k, 127)
+                    packets.append(bytes((2 * k - x, n))
+                                   + words[k:k + n].tobytes())
+                k += n
+                x = 2 * k
+            i = j
+        out += struct.pack("<H", len(packets)) + b"".join(packets)
+        lines += 1
+    return struct.pack("<H", lines) + bytes(out)
+
+
+def fli_file(frames_of_chunks: list, w: int, h: int, **kw) -> bytes:
+    """An FLI / FLC of the frames, each a list of sub-chunks."""
+    return fli_header(w, h, frames=len(frames_of_chunks), **kw) + b"".join(
+        fli_frame(c) for c in frames_of_chunks)
+
+
+def msp_file(bits: np.ndarray, kind: bytes = b"LinS", rows=None,
+             checksum: bool = True) -> bytes:
+    """A Windows Paint file of bits [h, w] (1 white): DanM raw rows, or
+    LinS with a row map; rows overrides the encoded rows (bytes each, b""
+    for a row of length 0)."""
+    h, w = bits.shape
+    head = bytearray(32)
+    head[:4] = kind
+    struct.pack_into("<HH", head, 4, w, h)
+    if checksum:
+        words = np.frombuffer(bytes(head), "<u2")
+        struct.pack_into("<H", head, 30, int(np.bitwise_xor.reduce(words)))
+    packed = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    if kind == b"DanM":
+        return bytes(head) + packed.tobytes()
+    if rows is None:
+        rows = [msp_row(r) for r in packed]
+    return (bytes(head) + struct.pack(f"<{len(rows)}H", *map(len, rows))
+            + b"".join(rows))
+
+
+def msp_row(row: np.ndarray) -> bytes:
+    """A LinS row: runs (0, count, byte), literals (n, bytes)."""
+    out = bytearray()
+    for p in _runs(np.asarray(row, np.uint8), 255, 255):
+        if p[0] == "run":
+            out += bytes((0, p[1], p[2]))
+        else:
+            out += bytes((len(p[1]),)) + p[1]
+    return bytes(out)
+
+
+def pcd_file(y: np.ndarray, c1: np.ndarray, c2: np.ndarray,
+             orientation: int = 0) -> bytes:
+    """A Kodak PhotoCD file of its base image: y [512, 768] and c1, c2
+    [256, 384] PhotoYCC samples, "PCD_" at 2048 and the orientation byte
+    at 3586, in chunks of two luma rows and a half row of each chroma."""
+    head = bytearray(b"\xff" * 2048) + b"PCD_" + bytes(1535)
+    head[3586] = orientation
+    chunks = np.concatenate([np.asarray(y, np.uint8).reshape(256, 1536),
+                             np.asarray(c1, np.uint8),
+                             np.asarray(c2, np.uint8)], axis=1)
+    return bytes(head).ljust(96 * 2048, b"\0") + chunks.tobytes()
+
+
+def pixar_file(rgb: np.ndarray, channels: int = 14, depth: int = 2,
+               tail: bytes = b"") -> bytes:
+    """A PIXAR raster of rgb [h, w, 3] after its 1024-byte header."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, channels, depth)
+    return bytes(head) + np.asarray(rgb, np.uint8).tobytes() + tail
+
+
+def xv_file(idx: np.ndarray, comments=(b"#XVVERSION:Version 2.28",
+                                       b"#END_OF_COMMENTS"),
+            size_line: bytes = b"", rest: bytes = b"") -> bytes:
+    """An XV thumbnail of RGB332 indices idx [h, w]: "P7 332" and the rest
+    of its line, comment lines, the size line, the bytes."""
+    h, w = idx.shape
+    lines = [b"P7 332" + rest] + list(comments) + [
+        size_line or b"%d %d 255" % (w, h)]
+    return b"\n".join(lines) + b"\n" + np.asarray(idx, np.uint8).tobytes()
+
+
+def rgb332(rgb: np.ndarray) -> np.ndarray:
+    """The 3-3-2 indices of rgb [..., 3] (red's top three bits first)."""
+    rgb = np.asarray(rgb, np.uint8)
+    return (rgb[..., 0] >> 5 << 5 | rgb[..., 1] >> 5 << 2
+            | rgb[..., 2] >> 6).astype(np.uint8)
+
+
+def legacy_fixtures(rng, texels: np.ndarray) -> dict:
+    """GIMP brushes, FLI / FLC, Windows Paint, Kodak PhotoCD, PIXAR and XV
+    thumbnails, written by hand (Pillow writes only MSP's DanM): GBR
+    versions 1 and 2, grey and RGBA, with comments; FLI and FLC of every
+    chunk FliDecode takes (BRUN, COPY, LC, SS2 with skipped lines and an
+    odd width's last byte, BLACK, a postage stamp) under COLOR_256 and
+    COLOR_64 palettes of several packets, a palette after the image
+    chunks, no palette, a frame whose pad byte is missing, and the files
+    Pillow refuses (a prefix chunk, a palette past entry 255, an unknown
+    chunk); MSP DanM and LinS (rows of length 0, a row that decodes long, a
+    literal past a row's end); PCD of the texels (the 1024x1024 JPEG's)
+    in orientations 0, 1 and 3; PIXAR RGB, and of another channel and
+    depth code, which Pillow cannot open; XV thumbnails with comments and
+    an extra field. {name: (kind, bytes)}."""
+    out = {}
+    out["gbr_v1_grey_7x5.gbr"] = ("gbr", gbr_file(
+        rng.integers(0, 256, (5, 7)), 1, b"old brush\0"))
+    out["gbr_v2_grey_9x4.gbr"] = ("gbr", gbr_file(
+        rng.integers(0, 256, (4, 9)), 2, b"pencil\0", spacing=10))
+    out["gbr_v2_rgba_6x8.gbr"] = ("gbr", gbr_file(
+        rng.integers(0, 256, (8, 6, 4)), 2, b"colour brush\0"))
+    out["gbr_v1_rgba_no_comment_tail.gbr"] = ("gbr", gbr_file(
+        rng.integers(0, 256, (3, 3, 4)), 1, b"", tail=b"after the data"))
+    pal = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    w, h = 13, 7
+    a = rng.integers(0, 8, (h, w)).astype(np.uint8) * 3
+    a[2, :] = 200                                      # a long run
+    out["fli_color64_brun_13x7.fli"] = ("fli", fli_file(
+        [[fli_chunk(11, fli_colors([(0, pal[:64] & 0xFC)], 2)),
+          fli_chunk(15, fli_brun(a))]], w, h, flc=False, flags=0))
+    out["flc_color256_brun_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(4, fli_colors([(0, pal)])), fli_chunk(15, fli_brun(a))]],
+        w, h))
+    b = a.copy()
+    b[1:5, 3:9] = rng.integers(0, 256, (4, 6))
+    b[6, :] = 17
+    out["flc_copy_then_lc_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(4, fli_colors([(5, pal[:40]), (10, pal[100:200])])),
+          fli_chunk(16, a.tobytes()), fli_chunk(12, fli_lc(a, b))]], w, h))
+    c = a.copy()
+    c[0, :12] = rng.integers(0, 256, 12)
+    c[3, 4:10] = 9
+    c[3, -1] = 250
+    c[6, 2:4] = 77
+    out["flc_brun_then_ss2_odd_width_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(4, fli_colors([(0, pal)])), fli_chunk(15, fli_brun(a)),
+          fli_chunk(12, fli_lc(a, b)), fli_chunk(7, fli_ss2(b, c))]], w, h))
+    out["flc_black_stamp_lc_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(16, a.tobytes()), fli_chunk(13, b""),
+          fli_chunk(18, bytes(20)), fli_chunk(12, fli_lc(np.zeros_like(b),
+                                                        b))]], w, h))
+    out["flc_palette_after_image_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(15, fli_brun(a)),
+          fli_chunk(11, fli_colors([(3, pal[:20] & 0xFC)], 2))]], w, h))
+    wide = rng.integers(0, 4, (3, 300)).astype(np.uint8)
+    wide[1] = np.arange(300) % 256
+    out["flc_grey_brun_ss2_300x3.flc"] = ("fli", fli_file(
+        [[fli_chunk(15, fli_brun(wide)),
+          fli_chunk(7, fli_ss2(wide, wide[::-1].copy()))]], 300, 3))
+    odd = fli_header(w, h) + fli_frame([fli_chunk(16, a.tobytes()[:-1] +
+                                                  b"\x05")])
+    out["flc_copy_odd_frame_no_pad_13x7.flc"] = ("fli", odd)
+    out["flc_two_frames_13x7.flc"] = ("fli", fli_file(
+        [[fli_chunk(4, fli_colors([(0, pal)])), fli_chunk(16, a.tobytes())],
+         [fli_chunk(12, fli_lc(a, b))]], w, h))
+    prefix = (fli_header(w, h) + struct.pack("<IH", 16, 0xF100) + bytes(10)
+              + fli_frame([fli_chunk(4, fli_colors([(0, pal)])),
+                           fli_chunk(16, a.tobytes())]))
+    out["flc_prefix_chunk_13x7.flc"] = ("fli_refused", prefix)
+    out["flc_palette_past_255_13x7.flc"] = ("fli_refused", fli_file(
+        [[fli_chunk(4, fli_colors([(250, pal[:10])])),
+          fli_chunk(16, a.tobytes())]], w, h))
+    out["flc_unknown_chunk_13x7.flc"] = ("fli_refused", fli_file(
+        [[fli_chunk(16, a.tobytes()), fli_chunk(99, bytes(4))]], w, h))
+    bits = rng.integers(0, 2, (5, 13))
+    out["msp_danm_13x5.msp"] = ("msp", msp_file(bits, b"DanM"))
+    out["msp_pillow_danm_10x3.msp"] = ("msp", _pillow(PILImage.fromarray(
+        rng.integers(0, 2, (3, 10)).astype(bool)), "MSP"))
+    bits = rng.integers(0, 2, (6, 20))
+    bits[2] = 1
+    bits[3, :16] = 0
+    out["msp_lins_20x6.msp"] = ("msp", msp_file(bits))
+    packed = np.packbits(bits.astype(np.uint8), axis=1)
+    rows = [msp_row(r) for r in packed]
+    rows[1] = b""                                   # a white row
+    rows[4] = msp_row(packed[4]) + bytes((0, 3, 0x0F))   # decodes long
+    out["msp_lins_white_and_long_rows_20x6.msp"] = ("msp", msp_file(
+        bits, rows=rows))
+    rows = [msp_row(r) for r in packed]
+    rows[2] = bytes((9,)) + packed[2, :2].tobytes()     # literal past end
+    rows[4] = msp_row(packed[4]) + bytes((0, 1, 0xAA))  # and one byte more
+    out["msp_lins_literal_past_row_20x6.msp"] = ("msp", msp_file(
+        bits, rows=rows))
+    y = texels[:512, :768, 1]
+    c1 = texels[:512:2, :768:2, 2]
+    c2 = texels[1:512:2, 1:768:2, 0]
+    for o in (0, 1, 3):
+        out[f"pcd_texels_o{o}.pcd"] = ("pcd", pcd_file(y, c1, c2, o))
+    rgb = rng.integers(0, 256, (5, 7, 3))
+    out["pixar_rgb_7x5.pxr"] = ("pixar", pixar_file(rgb))
+    out["pixar_rgb_tail_3x9.pxr"] = ("pixar", pixar_file(
+        rng.integers(0, 256, (9, 3, 3)), tail=bytes(7)))
+    out["pixar_channels_14_depth_1_7x5.pxr"] = ("pixar_refused", pixar_file(
+        rgb, 14, 1))
+    idx = rgb332(rng.integers(0, 256, (6, 9, 3)))
+    out["xv_comments_9x6.xv"] = ("xv", xv_file(idx))
+    out["xv_fields_8x3.xv"] = ("xv", xv_file(
+        idx[:3, :8], (b"#IMGINFO:8x3 RGB", b"# more"), b"  8\t3 255 x",
+        b" is a thumbnail"))
+    return out
+
+
 X11_DIR = os.path.join(OUT, "x11_pnm")
 
 
@@ -3492,6 +3870,24 @@ def write_x11() -> None:
     _manifest(os.path.join(X11_DIR, "manifest.json"), files)
     print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
           f"in {os.path.relpath(X11_DIR, REPO)}")
+
+
+LEGACY_DIR = os.path.join(OUT, "legacy")
+LEGACY_SEED = 27
+
+
+def write_legacy() -> None:
+    """Write legacy_fixtures (of BIG's texels) into LEGACY_DIR, with its
+    manifest; the files JAX's loader refuses are listed with the name of
+    its error and no hash."""
+    with PILImage.open(os.path.join(OUT, BIG)) as im:
+        texels = np.asarray(im.convert("RGB"))
+    files = _write(LEGACY_DIR, legacy_fixtures(
+        np.random.default_rng(LEGACY_SEED), texels))
+    _manifest(os.path.join(LEGACY_DIR, "manifest.json"), files,
+              COMMAND + " --legacy", LEGACY_SEED)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(LEGACY_DIR, REPO)}")
 
 
 def jax_pixels(path: str) -> np.ndarray:
@@ -3515,25 +3911,41 @@ def _write(directory: str, made: dict) -> list:
         path = os.path.join(directory, name)
         with open(path, "wb") as f:
             f.write(data)
-        u8 = jax_pixels(path)
+        try:
+            u8 = jax_pixels(path)
+        except Exception as e:
+            # a "_refused" kind: JAX's loader raises, and so must the port
+            if not kind.endswith("_refused"):
+                raise
+            files.append(dict(name=name, kind=kind, bytes=len(data),
+                              shape=None, sha256=None,
+                              jax_error=type(e).__name__))
+            continue
+        if kind.endswith("_refused"):
+            raise AssertionError(f"{name}: JAX's loader decodes it")
         files.append(dict(name=name, kind=kind, bytes=len(data),
                           shape=list(u8.shape), sha256=sha256(u8)))
     return files
 
 
-def _manifest(path: str, files: list) -> None:
+def _manifest(path: str, files: list, command: str = COMMAND,
+              seed: int = 16) -> None:
     commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO,
                             capture_output=True, text=True).stdout.strip()
     meta = dict(pillow=PILImage.__version__,
                 libjpeg_turbo=features.version("libjpeg_turbo"),
                 openjpeg=features.version("jpg_2000"),
-                commit=commit, command=COMMAND, seed=16, files=files)
+                commit=commit, command=command, seed=seed, files=files)
     with open(path, "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """Every folder, or with --legacy only tests/torch_textures/legacy/."""
+    if "--legacy" in argv:
+        write_legacy()
+        return 0
     made = fixtures()
     files = _write(OUT, made)
     _manifest(MANIFEST, files)
@@ -3550,8 +3962,9 @@ def main() -> int:
           f"{os.path.relpath(J2K_CHIP_DIR, REPO)}")
     write_tail()
     write_x11()
+    write_legacy()
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

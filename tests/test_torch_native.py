@@ -26,6 +26,7 @@ glass variants (cge_tpu_torch/tools/common.py):
     with the same flags.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -620,6 +621,35 @@ def test_x11_and_fault_decoders_under_asan_ubsan(tmp_path):
     names = sorted(f for f in os.listdir(fixtures) if f != "manifest.json")
     assert len(names) >= 30
     assert sum(f.endswith(".jpg") for f in names) >= 6
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "images.py"
+    script.write_text(IMAGES_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build"),
+         fixtures, *names], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(names)
+
+
+def test_legacy_decoders_under_asan_ubsan(tmp_path):
+    """The sanitized library of test_image_decoders_under_asan_ubsan over
+    the FLI / FLC and Windows Paint fixtures of tests/torch_textures/legacy/
+    that JAX decodes: cge_raster.cpp's FLI frame chunks (BRUN, LC, SS2,
+    COPY, BLACK) and MSP run-length rows, each whole, cut short at eight
+    lengths and with bytes flipped; nothing faults."""
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures", "legacy")
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        names = sorted(e["name"] for e in json.load(f)["files"]
+                       if e["kind"] in ("fli", "msp"))
+    assert len(names) >= 12
     preload = " ".join(subprocess.run(
         [native.CXX, f"-print-file-name={lib}"], capture_output=True,
         text=True, check=True).stdout.strip()

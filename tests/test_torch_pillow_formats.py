@@ -454,6 +454,30 @@ def test_refusals_name_their_format(tmp_path, kind, make, words):
     # ... and past them, no format's test takes it
     ("xbm_past_16_bytes", lambda: b" " * 12 + b"#define i_width 8\n"
      b"#define i_height 1\nstatic char i_bits[] = {0x0f};", "unknown"),
+    # a Windows Paint header over a PhotoCD: MSP comes before PCD
+    ("msp_over_pcd", lambda: mt.msp_file(np.ones((1, 8), np.uint8), b"DanM")
+     + mt.pcd_file(np.zeros((512, 768)), np.zeros((256, 384)),
+                   np.zeros((256, 384)))[33:], "MSP"),
+    # a PIXAR magic over a PhotoCD: PCD comes before PIXAR
+    ("pixar_over_pcd", lambda: b"\x80\xe8\x00\x00" + mt.pcd_file(
+        np.zeros((512, 768)), np.zeros((256, 384)),
+        np.zeros((256, 384)))[4:], "PCD"),
+    # a PIXAR of another channel and depth code: no mode, and no other
+    # plugin opens it
+    ("pixar_other_mode", lambda: mt.pixar_file(np.ones((2, 2, 3)), 14, 1),
+     "PIXAR"),
+    # an FLC whose reserved bytes are not 0: not opened, nothing else takes
+    # it
+    ("fli_reserved_bytes", lambda: mt.fli_header(2, 1)[:50] + b"\x01"
+     + mt.fli_header(2, 1)[51:] + mt.fli_frame([mt.fli_chunk(16, b"ab")]),
+     "FLI"),
+    # a GIMP brush cut before its spacing: not a brush, nor anything else
+    ("gbr_cut_before_spacing", lambda: mt.gbr_file(np.ones((1, 1)))[:27],
+     "unknown"),
+    # "P7 332": not PNM (whose test takes P0-P6, Pf and Py), an XV
+    # thumbnail
+    ("xv_not_pnm", lambda: mt.xv_file(np.ones((2, 3), np.uint8)),
+     "XV thumbnail"),
 ])
 def test_dispatch_follows_pillows_order(tmp_path, kind, make, fmt):
     """format_of names the first format whose test takes the file, in
