@@ -13,8 +13,9 @@ the WebP bitstreams (scene/webp.py); `cge_bcn.cpp` the block-compressed
 CCITT fax rows and `cge_zstd.cpp` its Zstandard frames (scene/tiff.py);
 `cge_raster.cpp` the run-length rows of SGI, PCX and Sun raster files, the
 QOI op stream, ICNS's run-length channels, ThunderScan rows, XBM's hex
-bytes, FLI / FLC frame chunks and Windows Paint 2.x rows (scene/sgi.py,
-pcx.py, sun.py, qoi.py, icns.py, tiff.py, xbm.py, fli.py, msp.py);
+bytes, FLI / FLC frame chunks, Windows Paint 2.x rows and IM's packed
+samples (scene/sgi.py, pcx.py, sun.py, qoi.py, icns.py, tiff.py, xbm.py,
+fli.py, msp.py, im.py);
 `cge_j2k.cpp` JPEG 2000 codestreams
 (scene/jpeg2000.py).
 Each source is compiled at first use by `g++` with the flags of the JAX
@@ -122,6 +123,9 @@ _SIGNATURES = {
     "cge_msp_rle": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long, _P,
                          ctypes.c_long, ctypes.c_long, _P, ctypes.c_char_p,
                          _I]),
+    "cge_bit_decode": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                            ctypes.c_long, ctypes.c_long, ctypes.c_long, _P,
+                            ctypes.c_char_p, _I]),
     "cge_j2k_open": (_I, [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
                           ctypes.POINTER(_P), ctypes.c_char_p, _I]),
     "cge_j2k_info": (None, [_P, _P]),
@@ -689,6 +693,24 @@ def msp_rle(data: bytes, offset: int, lengths, stride: int,
         decode_call(library().cge_msp_rle, data, len(data), offset,
                     lengths.ctypes.data, len(lengths), stride,
                     out.ctypes.data)
+    except ValueError as e:
+        raise ValueError(f"{fmt}: {e}") from None
+    return out
+
+
+def bit_decode(data: bytes, offset: int, bits: int, width: int,
+               height: int, fmt: str) -> np.ndarray:
+    """IM's samples of bits (2 to 31) bits from data[offset:] -> [height,
+    width] float32, row 0 the top, as Pillow's BitDecode.c reads them with
+    IM's arguments (pad 8, fill 3, unsigned, rows from the bottom);
+    ValueError naming fmt where the data end first."""
+    if not 2 <= bits <= 31:
+        raise ValueError(f"{fmt}: {bits}-bit samples (the bit decoder reads "
+                         f"2 to 31)")
+    out = np.zeros((height, width), np.float32)
+    try:
+        decode_call(library().cge_bit_decode, data, len(data), offset, bits,
+                    width, height, out.ctypes.data)
     except ValueError as e:
         raise ValueError(f"{fmt}: {e}") from None
     return out

@@ -1,6 +1,6 @@
 // Byte-serial decoding of the raster formats of model and game asset sets
 // for the port's texture loader (cge_tpu_torch/scene/sgi.py, pcx.py, sun.py,
-// qoi.py, icns.py, tiff.py, xbm.py, fli.py and msp.py).
+// qoi.py, icns.py, tiff.py, xbm.py, fli.py, msp.py and im.py).
 //
 // The JAX package loads a texture through Pillow. This file holds the loops
 // over a stream that numpy cannot split, each giving the bytes Pillow 12's
@@ -61,7 +61,16 @@
 //     literal bytes (as many as the row still holds); the rows joined into
 //     one stream whose first rows x stride bytes are the image; a row that
 //     the file cuts short, a run cut after its 0, and a stream too short
-//     for the image are errors.
+//     for the image are errors;
+//   - IM's packed samples of 2 to 31 bits (cge_bit_decode), as Pillow's
+//     BitDecode.c with IM's arguments (pad 8, fill 3, unsigned): each byte
+//     ORed into a 64-bit buffer above the bits it holds, a sample taken
+//     from its low bits, the buffer shifted down by the sample's bits (or,
+//     where it held more than 32, set to the last byte's bits left over);
+//     at a row's end the count of buffered bits is set to 0 but not the
+//     buffer, whose leftover bits so reach the next row's first sample;
+//     rows from the bottom; data that end before the last sample are an
+//     error.
 //
 // Entry points (C ABI, loaded with ctypes): each writes the bytes its
 // comment names and returns 0, or -1 with a message in err, and reads no
@@ -715,6 +724,40 @@ int cge_msp_rle(const unsigned char* data, long n, long offset,
     return guarded(err, errlen, [&] {
         msp_rle(data, n, offset, lengths, rows, stride, out);
     });
+}
+
+// IM: width x height samples of bits bits from data[offset, n), as floats
+// into out, rows from the bottom
+int cge_bit_decode(const unsigned char* data, long n, long offset, long bits,
+                   long width, long height, float* out, char* err,
+                   int errlen) {
+    const uint64_t mask = (uint64_t{1} << bits) - 1;
+    uint64_t buffer = 0;
+    long count = 0, x = 0, y = height - 1;
+    for (long pos = offset; pos < n; ++pos) {
+        const uint64_t byte = data[pos];
+        buffer |= byte << count;
+        count += 8;
+        while (count >= bits) {
+            const uint64_t v = buffer & mask;
+            if (count > 32)
+                buffer = byte >> (8 - (count - bits));
+            else
+                buffer >>= bits;
+            count -= bits;
+            out[y * width + x] = static_cast<float>(v);
+            if (++x >= width) {
+                if (--y < 0) return 0;
+                x = 0;
+                count = 0;
+            }
+        }
+    }
+    std::snprintf(err, static_cast<size_t>(errlen),
+                  "IM data end after %ld of the %ld samples of its %ld-bit "
+                  "rows (image file is truncated)",
+                  (height - 1 - y) * width + x, width * height, bits);
+    return -1;
 }
 
 }  // extern "C"

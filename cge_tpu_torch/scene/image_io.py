@@ -1,9 +1,10 @@
 """Textures without Pillow (counterpart of cge_tpu/scene/image_io.py):
 PNG, BMP, JPEG, GIF, TGA, PNM, PSD, TIFF, WebP, DDS, JPEG 2000, the
 formats of model and game asset sets: SGI, PCX and DCX, QOI, ICO and CUR,
-ICNS, BLP, FTEX and Sun raster, the X11 icons XBM and XPM, and the legacy
+ICNS, BLP, FTEX and Sun raster, the X11 icons XBM and XPM, the legacy
 formats GIMP brush, FLI / FLC, Windows Paint, Kodak PhotoCD, PIXAR and XV
-thumbnail.
+thumbnail, and the science formats FITS, McIdas, SPIDER, IM, IM Tools and
+IPTC/NAA.
 
 `load_image` decodes a texture as the JAX package's loader does, whose
 `convert("RGB")` through Pillow is the reference: forced RGB, u8 / 255 as
@@ -13,7 +14,11 @@ HDR and PIC besides). The format comes from the file's first bytes, never
 its name, tried in the order of Pillow's plugins (`format_of`); where a
 format's test takes a file whose header its plugin cannot open
 (native.NotOpened), the next format is tried, as Image.open does
-(`decode_image`):
+(`decode_image`). IM, IM Tools, IPTC and SPIDER have no test of the first
+bytes: their header checks run on every file that reaches them, in their
+place in that order. What escapes Image.open (an exception other than
+Pillow's SyntaxError, IndexError, TypeError and struct.error) raises a
+ValueError here, as it ends the JAX loader's load. The formats:
 
   PNG   every bit depth of every colour type (1, 2, 4 and 8-bit grey and
         palette, 16-bit grey, grey + alpha, RGB and RGBA), plain or Adam7
@@ -101,8 +106,19 @@ format's test takes a file whose header its plugin cannot open
         tables, in each orientation (scene/pcd.py).
   PIXAR raster images of 14 channels at depth 2, RGB (scene/pixar.py).
   XV thumbnail  RGB332 thumbnails (scene/xvthumb.py).
-The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS, XBM, FLI and MSP
-run in the native library's cge_raster.cpp.
+  FITS  8-, 16- and 32-bit and float images, read little-endian and from
+        the bottom as Pillow reads them, and GZIP_1 tables (scene/fits.py).
+  McIdas  areas of 1-, 2- and 4-byte elements (scene/mcidas.py).
+  SPIDER  float images of either byte order, a stack's first image
+        (scene/spider.py).
+  IM    IFUNC Image Memory in every raw layout of Pillow's table, palettes
+        and 2- to 31-bit samples (scene/im.py).
+  IMT   IM Tools grey images (scene/imt.py).
+  IPTC  IPTC/NAA streams, raw or holding a file of any format read here,
+        grey or one band of RGB or CMYK (scene/iptc.py).
+The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS, XBM, FLI, MSP and
+IM's bit-packed samples run in the native library's cge_raster.cpp;
+Pillow's conversions of its modes to RGB are shared in scene/modes.py.
 
 Any other format (AVIF, EPS, Radiance HDR, OpenEXR, PAM, colour PFM, ...)
 raises a ValueError that names it, as does a truncated or corrupt file.
@@ -121,10 +137,11 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import (blp, dds, fli, ftex, gbr, gif, icns, ico,
-                                 jpeg, jpeg2000, msp, pcd, pcx, pixar, pnm,
-                                 psd, qoi, sgi, sun, tga, tiff, webp, xbm,
-                                 xpm, xvthumb)
+from cge_tpu_torch.scene import (blp, dds, fits, fli, ftex, gbr, gif, icns,
+                                 ico, im, imt, iptc, jpeg, jpeg2000, mcidas,
+                                 msp, pcd, pcx, pixar, pnm, psd, qoi, sgi,
+                                 spider, sun, tga, tiff, webp, xbm, xpm,
+                                 xvthumb)
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel
@@ -548,15 +565,32 @@ def _u32(data: bytes, order: str = "<") -> int:
     return struct.unpack_from(order + "I", data)[0] if len(data) >= 4 else -1
 
 
+def _tried(header):
+    """The test of a plugin that has no test of the first bytes: whether
+    Image.open's try of it takes the file, its header opening or raising
+    what escapes Image.open (a ValueError but native.NotOpened)."""
+    def takes(data: bytes) -> bool:
+        try:
+            header(data)
+        except native.NotOpened:
+            return False
+        except ValueError:
+            pass
+        return True
+    return takes
+
+
 _DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
 # Pillow 12's image plugins in the order Image.open tries them (its six
 # preinit plugins, then Image.ID's registration order), each with its test
 # of the first bytes; the formats this loader reads have a decoder, the
-# others (None) refuse the file. IM, IMT, IPTC and SPIDER, which test
-# whole headers no image of the other formats has, are left out; PCD, which
-# has no test of the first bytes either, is in by its plugin's test of
-# "PCD_" at byte 2048. BMP's and DIB's decoders are defined below, so they
-# are called through lambdas.
+# others (None) refuse the file. IM, IMT, IPTC and SPIDER have no test of
+# the first bytes: Image.open runs their header check on every file that
+# reaches them, so their row's test is that check (`_tried`: the header
+# opens, or raises what escapes Image.open); PCD, which has none either,
+# is in by its plugin's test of "PCD_" at byte 2048. BMP's and DIB's, and
+# IPTC's (which decodes its nested image through decode_image), decoders
+# are defined below, so they are called through lambdas.
 _PILLOW_ORDER = (
     ("BMP", lambda d: d[:2] == b"BM", lambda d: decode_bmp(d)),
     ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
@@ -573,7 +607,7 @@ _PILLOW_ORDER = (
     ("DCX", pcx.accept_dcx, pcx.decode_dcx),
     ("DDS", lambda d: d[:4] == dds.MAGIC, dds.decode_dds),
     ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, None),
-    ("FITS", lambda d: d[:6] == b"SIMPLE", None),
+    ("FITS", fits.accept, fits.decode_fits),
     ("FLI", fli.accept, fli.decode_fli),
     ("FTEX", ftex.accept, ftex.decode_ftex),
     ("GBR", gbr.accept, gbr.decode_gbr),
@@ -582,7 +616,11 @@ _PILLOW_ORDER = (
     ("JPEG 2000", jpeg2000.accept, jpeg2000.decode_jp2),
     ("ICNS", icns.accept, icns.decode_icns),
     ("ICO", ico.accept_ico, ico.decode_ico),
-    ("McIdas", lambda d: d[:8] == b"\x00" * 7 + b"\x04", None),
+    ("IM", _tried(im.header), im.decode_im),
+    ("IMT", _tried(imt.header), imt.decode_imt),
+    ("IPTC", _tried(iptc.header),
+     lambda d: iptc.decode_iptc(d, decode_image)),
+    ("McIdas", mcidas.accept, mcidas.decode_mcidas),
     ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
     ("TIFF", lambda d: d[:4] in tiff.PREFIXES, tiff.decode_tiff),
     ("MSP", msp.accept, msp.decode_msp),
@@ -591,6 +629,7 @@ _PILLOW_ORDER = (
     ("PSD", lambda d: d[:4] == b"8BPS", psd.decode_psd),
     ("QOI", qoi.accept, qoi.decode_qoi),
     ("SGI", sgi.accept, sgi.decode_sgi),
+    ("SPIDER", _tried(spider.header), spider.decode_spider),
     ("Sun raster", sun.accept, sun.decode_sun),
     ("TGA", tga.header_ok, tga.decode_tga),
     ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
@@ -612,12 +651,13 @@ def format_of(data: bytes) -> str:
     first bytes takes the file ("PNG", "BMP", "DIB", "JPEG", "GIF", "PNM",
     "PSD", "TIFF", "DDS", "WebP", "TGA", "SGI", "PCX", "DCX", "QOI", "ICO",
     "CUR", "ICNS", "JPEG 2000", "BLP", "FTEX", "Sun raster", "XBM", "XPM",
-    "GBR", "FLI", "MSP", "PCD", "PIXAR" or "XV thumbnail" for the formats
-    that decode here),
+    "GBR", "FLI", "MSP", "PCD", "PIXAR", "XV thumbnail", "FITS", "McIdas",
+    "SPIDER", "IM", "IMT" or "IPTC" for the formats that decode here),
     else the name of another known format, or "unknown". TGA, which has
-    no signature, comes by Pillow's test of its header. decode_image goes
-    on to the next format where this one's header cannot be opened, as
-    Image.open does."""
+    no signature, comes by Pillow's test of its header; IM, IMT, IPTC and
+    SPIDER by their header checks, where Image.open runs them. decode_image
+    goes on to the next format where this one's header cannot be opened,
+    as Image.open does."""
     for name, accept, _ in _PILLOW_ORDER:
         if accept(data):
             return name

@@ -14,7 +14,7 @@ libjpeg smooths them. Entropy decoding is byte-serial, so all of it runs
 in C++: the islow IDCT, the upsampling libjpeg picks for each component
 and the fixed-point YCbCr -> RGB and YCCK -> CMYK tables. Four components
 come out as CMYK, and Pillow's reading of them ("CMYK;I", Adobe's
-inverted CMYK) and its conversion to RGB follow here, with scene/psd.py's
+inverted CMYK) and its conversion to RGB follow here, with scene/modes.py's
 copy of Pillow's cmyk2rgb.
 
 Before libjpeg reads a file, Pillow walks its markers up to the first
@@ -41,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene.psd import _cmyk_to_rgb
+from cge_tpu_torch.scene import modes
 
 
 # the markers JpegImagePlugin's table names (MARKER), each with the handler
@@ -106,7 +106,7 @@ def _app(marker: int, s: bytes, icc: list) -> None:
             offset += offset & 1
 
 
-def pillow_open(data: bytes) -> None:
+def pillow_open(data: bytes) -> str:
     """JpegImagePlugin.JpegImageFile._open, Pillow's own walk of the
     markers before the first scan, in Python, before libjpeg reads any:
     junk bytes skipped to an 0xFF, fill bytes (0xFFFF) and escaped 0xFF
@@ -119,8 +119,10 @@ def pillow_open(data: bytes) -> None:
     8-bit samples or 1, 3 or 4 components or cut short, a DQT table cut
     short, a JFIF or Adobe segment cut before its version, an ICC profile
     chunk cut before its sequence numbers, a Photoshop resource cut before
-    its name; ValueError where a segment is cut by the end of the file."""
-    pos, s = 3, b"\xff"
+    its name; ValueError where a segment is cut by the end of the file.
+    Pillow's mode, the last frame header's: L, RGB or CMYK for 1, 3 or 4
+    components."""
+    pos, s, mode = 3, b"\xff", ""
     icc: list = []
     while True:
         if not s:
@@ -144,12 +146,12 @@ def pillow_open(data: bytes) -> None:
                 if kind == "app":
                     _app(m, seg, icc)
                 elif kind == "sof":
-                    _sof(m, seg, icc)
+                    mode = _sof(m, seg, icc)
                     icc = []
                 elif kind == "dqt":
                     _dqt(seg)
             if m == 0xDA:
-                return
+                return mode
             s = data[pos:pos + 1]
             pos += len(s)
         elif m == 0xFF:
@@ -163,7 +165,7 @@ def pillow_open(data: bytes) -> None:
                                    f"found)")
 
 
-def _sof(marker: int, s: bytes, icc: list) -> None:
+def _sof(marker: int, s: bytes, icc: list) -> str:
     name = "DHP" if marker == 0xDE else f"SOF{marker - 0xC0}"
     if len(s) < 5:
         raise native.NotOpened(f"JPEG {name} segment of {len(s)} bytes is "
@@ -181,6 +183,7 @@ def _sof(marker: int, s: bytes, icc: list) -> None:
     if icc and len(sorted(icc)[0]) < 14:
         raise native.NotOpened("JPEG ICC profile chunk cut before its "
                                "sequence numbers")
+    return {1: "L", 3: "RGB", 4: "CMYK"}[s[5]]
 
 
 def _dqt(s: bytes) -> None:
@@ -205,5 +208,5 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                        out.size)
     if channels == 4:
         # Pillow: rawmode "CMYK;I" (inverted), then convert("RGB")
-        return _cmyk_to_rgb(*(255 - out[..., k] for k in range(4)))
+        return modes.cmyk_to_rgb(*(255 - out[..., k] for k in range(4)))
     return out

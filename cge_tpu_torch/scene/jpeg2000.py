@@ -35,10 +35,10 @@ order OpenJPEG hands the tiles to Pillow. This module holds Pillow's side:
               bits (a left shift, or a right shift after adding half of the
               step), signed samples offset by 2^(prec - 1), everything
               wrapping to the byte; sYCC through Pillow's fixed-point YCbCr
-              table;
+              table (modes.ycbcr_to_rgb);
   convert     I;16 saturated at 255, P and PA through the palette (black
               past its last entry), CMYK through Pillow's cmyk2rgb
-              (psd._cmyk_to_rgb), alpha dropped.
+              (modes.cmyk_to_rgb), alpha dropped.
 
 What Pillow refuses raises a ValueError that names JPEG 2000 and the case;
 a file whose first bytes are JPEG 2000's but whose header Pillow's plugin
@@ -53,7 +53,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import psd
+from cge_tpu_torch.scene import modes
 
 J2K_MAGIC = b"\xff\x4f\xff\x51"
 JP2_MAGIC = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
@@ -516,109 +516,6 @@ def openjpeg_jp2(data: bytes) -> tuple:
 
 # ------------------------------------------------------------ unpacking
 
-# Pillow's fixed-point YCbCr -> RGB (ConvertYCbCr.c, SCALE 6): r = y +
-# _R_CR[cr], g = y + ((_G_CB[cb] + _G_CR[cr]) >> 6), b = y + _B_CB[cb]
-_R_CR = np.array([
-    -180, -179, -177, -176, -174, -173, -172, -170, -169, -167, -166, -165,
-    -163, -162, -160, -159, -158, -156, -155, -153, -152, -150, -149, -148,
-    -146, -145, -143, -142, -141, -139, -138, -136, -135, -134, -132, -131,
-    -129, -128, -127, -125, -124, -122, -121, -120, -118, -117, -115, -114,
-    -113, -111, -110, -108, -107, -106, -104, -103, -101, -100, -99, -97,
-    -96, -94, -93, -92, -90, -89, -87, -86, -85, -83, -82, -80, -79, -78,
-    -76, -75, -73, -72, -71, -69, -68, -66, -65, -64, -62, -61, -59, -58,
-    -57, -55, -54, -52, -51, -50, -48, -47, -45, -44, -43, -41, -40, -38,
-    -37, -36, -34, -33, -31, -30, -29, -27, -26, -24, -23, -22, -20, -19,
-    -17, -16, -14, -13, -12, -10, -9, -7, -6, -5, -3, -2, 0, 1, 2, 4, 5, 7,
-    8, 9, 11, 12, 14, 15, 16, 18, 19, 21, 22, 23, 25, 26, 28, 29, 30, 32,
-    33, 35, 36, 37, 39, 40, 42, 43, 44, 46, 47, 49, 50, 51, 53, 54, 56, 57,
-    58, 60, 61, 63, 64, 65, 67, 68, 70, 71, 72, 74, 75, 77, 78, 79, 81, 82,
-    84, 85, 86, 88, 89, 91, 92, 93, 95, 96, 98, 99, 100, 102, 103, 105, 106,
-    107, 109, 110, 112, 113, 114, 116, 117, 119, 120, 121, 123, 124, 126,
-    127, 128, 130, 131, 133, 134, 136, 137, 138, 140, 141, 143, 144, 145,
-    147, 148, 150, 151, 152, 154, 155, 157, 158, 159, 161, 162, 164, 165,
-    166, 168, 169, 171, 172, 173, 175, 176, 178])
-_B_CB = np.array([
-    -227, -226, -224, -222, -220, -218, -217, -215, -213, -211, -210, -208,
-    -206, -204, -202, -201, -199, -197, -195, -194, -192, -190, -188, -187,
-    -185, -183, -181, -179, -178, -176, -174, -172, -171, -169, -167, -165,
-    -164, -162, -160, -158, -156, -155, -153, -151, -149, -148, -146, -144,
-    -142, -140, -139, -137, -135, -133, -132, -130, -128, -126, -125, -123,
-    -121, -119, -117, -116, -114, -112, -110, -109, -107, -105, -103, -101,
-    -100, -98, -96, -94, -93, -91, -89, -87, -86, -84, -82, -80, -78, -77,
-    -75, -73, -71, -70, -68, -66, -64, -62, -61, -59, -57, -55, -54, -52,
-    -50, -48, -47, -45, -43, -41, -39, -38, -36, -34, -32, -31, -29, -27,
-    -25, -24, -22, -20, -18, -16, -15, -13, -11, -9, -8, -6, -4, -2, 0, 1,
-    3, 5, 7, 8, 10, 12, 14, 15, 17, 19, 21, 23, 24, 26, 28, 30, 31, 33, 35,
-    37, 38, 40, 42, 44, 46, 47, 49, 51, 53, 54, 56, 58, 60, 62, 63, 65, 67,
-    69, 70, 72, 74, 76, 77, 79, 81, 83, 85, 86, 88, 90, 92, 93, 95, 97, 99,
-    101, 102, 104, 106, 108, 109, 111, 113, 115, 116, 118, 120, 122, 124,
-    125, 127, 129, 131, 132, 134, 136, 138, 139, 141, 143, 145, 147, 148,
-    150, 152, 154, 155, 157, 159, 161, 163, 164, 166, 168, 170, 171, 173,
-    175, 177, 178, 180, 182, 184, 186, 187, 189, 191, 193, 194, 196, 198,
-    200, 202, 203, 205, 207, 209, 210, 212, 214, 216, 217, 219, 221, 223,
-    225])
-_G_CB = np.array([
-    2817, 2807, 2761, 2753, 2707, 2697, 2687, 2643, 2633, 2621, 2579, 2567,
-    2557, 2514, 2501, 2493, 2448, 2437, 2428, 2382, 2373, 2362, 2318, 2308,
-    2297, 2254, 2242, 2233, 2187, 2177, 2168, 2121, 2113, 2102, 2057, 2048,
-    2003, 1993, 1982, 1939, 1928, 1917, 1875, 1862, 1853, 1809, 1797, 1789,
-    1743, 1733, 1723, 1678, 1669, 1657, 1614, 1603, 1593, 1549, 1537, 1529,
-    1483, 1473, 1464, 1417, 1409, 1398, 1353, 1344, 1299, 1289, 1277, 1235,
-    1223, 1213, 1170, 1157, 1149, 1104, 1093, 1084, 1038, 1029, 1018, 974,
-    964, 953, 910, 898, 889, 844, 833, 825, 778, 769, 759, 713, 705, 659,
-    649, 639, 595, 585, 573, 531, 519, 509, 466, 453, 445, 399, 389, 379,
-    334, 325, 313, 270, 259, 249, 205, 193, 185, 139, 129, 120, 73, 65, 54,
-    9, 0, -45, -55, -65, -109, -119, -131, -173, -185, -195, -238, -251,
-    -259, -304, -315, -324, -370, -379, -390, -434, -444, -455, -499, -511,
-    -519, -565, -575, -584, -631, -639, -650, -695, -704, -749, -759, -770,
-    -813, -824, -835, -877, -890, -899, -943, -955, -963, -1009, -1019,
-    -1029, -1074, -1083, -1095, -1138, -1149, -1159, -1203, -1215, -1223,
-    -1269, -1279, -1288, -1335, -1343, -1389, -1399, -1409, -1453, -1463,
-    -1475, -1517, -1529, -1539, -1582, -1595, -1603, -1648, -1659, -1668,
-    -1714, -1723, -1734, -1778, -1788, -1799, -1842, -1854, -1863, -1908,
-    -1919, -1927, -1974, -1983, -1993, -2039, -2047, -2093, -2103, -2113,
-    -2157, -2167, -2179, -2221, -2234, -2243, -2287, -2299, -2307, -2353,
-    -2363, -2373, -2418, -2427, -2439, -2482, -2493, -2503, -2547, -2559,
-    -2567, -2613, -2623, -2632, -2679, -2687, -2698, -2743, -2752, -2797,
-    -2807])
-_G_CR = np.array([
-    5869, 5815, 5759, 5703, 5682, 5627, 5571, 5549, 5495, 5439, 5383, 5362,
-    5307, 5251, 5229, 5175, 5119, 5063, 5043, 4987, 4931, 4909, 4855, 4799,
-    4743, 4723, 4667, 4611, 4589, 4535, 4479, 4423, 4403, 4347, 4291, 4270,
-    4215, 4159, 4103, 4083, 4027, 3971, 3950, 3895, 3839, 3784, 3763, 3707,
-    3651, 3630, 3575, 3519, 3464, 3443, 3387, 3331, 3310, 3255, 3199, 3144,
-    3123, 3067, 3012, 2990, 2935, 2879, 2824, 2803, 2747, 2692, 2670, 2615,
-    2559, 2504, 2483, 2427, 2372, 2350, 2295, 2240, 2184, 2163, 2107, 2052,
-    2030, 1975, 1920, 1864, 1843, 1787, 1732, 1710, 1655, 1600, 1544, 1523,
-    1468, 1412, 1390, 1335, 1280, 1224, 1203, 1148, 1092, 1070, 1016, 960,
-    904, 883, 828, 772, 750, 696, 640, 584, 563, 508, 452, 430, 376, 320,
-    264, 244, 188, 132, 110, 56, 0, -55, -75, -131, -187, -209, -263, -319,
-    -375, -395, -451, -507, -528, -583, -639, -695, -715, -771, -827, -848,
-    -903, -959, -1015, -1035, -1091, -1147, -1168, -1223, -1279, -1334,
-    -1355, -1411, -1467, -1488, -1543, -1599, -1654, -1675, -1731, -1786,
-    -1808, -1863, -1919, -1974, -1995, -2051, -2106, -2128, -2183, -2239,
-    -2294, -2315, -2371, -2426, -2448, -2503, -2558, -2614, -2635, -2691,
-    -2746, -2768, -2823, -2878, -2934, -2955, -3011, -3066, -3088, -3143,
-    -3198, -3254, -3275, -3330, -3386, -3408, -3463, -3518, -3574, -3595,
-    -3650, -3706, -3728, -3783, -3838, -3894, -3915, -3970, -4026, -4048,
-    -4102, -4158, -4214, -4235, -4290, -4346, -4368, -4422, -4478, -4534,
-    -4554, -4610, -4666, -4688, -4742, -4798, -4854, -4874, -4930, -4986,
-    -5008, -5062, -5118, -5174, -5194, -5250, -5306, -5327, -5382, -5438,
-    -5494, -5514, -5570, -5626, -5647, -5702, -5758, -5780])
-
-
-def _ycbcr_to_rgb(px: np.ndarray) -> None:
-    """ImagingConvertYCbCr2RGB in place on the first three bytes of px
-    [..., 4] uint8."""
-    y = px[..., 0].astype(np.int32)
-    cb, cr = px[..., 1], px[..., 2]
-    r = y + _R_CR[cr]
-    g = y + ((_G_CB[cb] + _G_CR[cr]) >> 6)
-    b = y + _B_CB[cb]
-    for i, v in enumerate((r, g, b)):
-        px[..., i] = np.clip(v, 0, 255)
-
-
 def _words(buf: np.ndarray, at: np.ndarray, size: int) -> np.ndarray:
     """The little-endian words of size bytes at byte offsets `at` of buf."""
     out = np.zeros(at.shape, np.uint64)
@@ -697,7 +594,8 @@ def _unpack_tile(kind: str, buf: np.ndarray, comps, w: int, h: int,
     if n == 3:
         region[..., 3] = 255
     if kind.startswith("sycc"):
-        _ycbcr_to_rgb(region)
+        region[..., :3] = modes.ycbcr_to_rgb(
+            region[..., 0], region[..., 1], region[..., 2])
 
 
 def decode_jpeg2000(data: bytes, opened: tuple | None = None) -> tuple:
@@ -771,7 +669,7 @@ def to_rgb(mode: str, px: np.ndarray, palette) -> np.ndarray:
     if mode in ("P", "PA"):
         return palette.rgb()[px if mode == "P" else px[..., 0]]
     if mode == "CMYK":
-        return psd._cmyk_to_rgb(*(px[..., i] for i in range(4)))
+        return modes.cmyk_to_rgb(*(px[..., i] for i in range(4)))
     if mode == "LA":
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])

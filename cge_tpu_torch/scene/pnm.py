@@ -18,7 +18,7 @@ whitespace between them), the others binary.
             (P5 at maxval 65,535: the sample itself, saturated).
   P3 / P6   RGB, rescaled to 255 at any maxval (16-bit samples too).
   P0CMYK, PyCMYK   CMYK samples, rescaled to 255 as P6's are, through
-            Pillow's CMYK -> RGB (scene/psd.py's copy of cmyk2rgb).
+            Pillow's CMYK -> RGB (scene/modes.py's copy of cmyk2rgb).
   PyRGBA    RGBA samples so rescaled, the alpha dropped.
   PyP       palette indices so rescaled, in an image with no palette:
             convert("RGB") gives black.
@@ -44,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene.psd import _cmyk_to_rgb
+from cge_tpu_torch.scene import modes
 
 WHITESPACE = b" \t\n\x0b\x0c\r"
 # magic number -> Pillow's mode (PpmImagePlugin.MODES)
@@ -214,11 +214,22 @@ def _pfm(data: bytes, pos: int, w: int, h: int, fmt: str) -> np.ndarray:
     if len(body) < 4 * w * h:
         raise ValueError(f"{fmt} data is truncated")
     v = np.frombuffer(body, "<f4" if scale < 0 else ">f4", w * h)
-    if np.isnan(v).any():
-        raise ValueError(f"{fmt} holds a NaN sample, which Pillow's f2l casts "
-                         f"to 8 bits as C leaves undefined")
-    grey = np.trunc(np.clip(v, 0, 255)).astype(np.uint8).reshape(h, w)[::-1]
-    return np.repeat(grey[..., None], 3, axis=2)
+    return modes.grey(modes.f_to_u8(v, fmt).reshape(h, w)[::-1])
+
+
+def mode_of(data: bytes) -> str:
+    """The mode Pillow opens the PNM file in: its magic number's, I for
+    grey past a maxval of 255; "" where the header does not read."""
+    magic, pos = _magic(data)
+    mode = MAGIC.get(magic, "")
+    if mode == "L":
+        try:
+            for what in ("width", "height", "maxval"):
+                maxval, pos = _header_int(data, pos, what)
+        except ValueError:
+            return ""
+        return "I" if maxval > 255 else "L"
+    return mode
 
 
 def decode_pnm(data: bytes) -> np.ndarray:
@@ -270,7 +281,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
             v = _rescale(raw, maxval, top)
     px = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)
     if mode == "CMYK":
-        return _cmyk_to_rgb(*(px[..., k] for k in range(4)))
+        return modes.cmyk_to_rgb(*(px[..., k] for k in range(4)))
     if mode == "P":                           # no palette: black
         return np.zeros((h, w, 3), np.uint8)
     if bands == 1:

@@ -32,7 +32,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import lcms
+from cge_tpu_torch.scene import lcms, modes
 
 SIGNATURE = b"8BPS"
 # colour mode -> its name
@@ -61,18 +61,6 @@ class _Reader:
         if len(b) < size:
             raise ValueError("PSD file is truncated")
         return int.from_bytes(b, "big")
-
-
-def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
-    """Pillow's cmyk2rgb: nk - c x nk / 255 with its rounding, nk = 255 -
-    k."""
-    nk = 255 - k.astype(np.int32)
-
-    def channel(v):
-        t = v.astype(np.int32) * nk + 128
-        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
-
-    return np.stack([channel(v) for v in (c, m, y)], -1).astype(np.uint8)
 
 
 def decode_psd(data: bytes) -> np.ndarray:
@@ -153,7 +141,7 @@ def decode_psd(data: bytes) -> np.ndarray:
             return np.zeros((h, w, 3), np.uint8)      # Pillow: black
         return palette[planes[0]]
     if mode == "CMYK":
-        return _cmyk_to_rgb(*(255 - p for p in planes))
+        return modes.cmyk_to_rgb(*(255 - p for p in planes))
     if mode == "LAB":
         return lcms.lab_to_rgb(np.stack(planes, axis=-1))
     return np.ascontiguousarray(np.stack(planes[:3], axis=-1))

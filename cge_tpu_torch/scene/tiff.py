@@ -59,7 +59,7 @@ Pillow's table that this module converts. Three readers follow Pillow's:
 16-bit ColorMap's high bytes, 16-bit grey saturated at 255, signed and
 32-bit integers clipped to [0, 255], floats truncated and clipped (NaN to
 0), the other 16-bit samples' high bytes, associated alpha divided out
-(v x 255 // a), CMYK through Pillow's conversion (psd.py), CIE L*a*b*
+(v x 255 // a), CMYK through Pillow's conversion (modes.py), CIE L*a*b*
 (photometric 8, 8 bits; a* and b* signed, as Pillow's LAB unpacker reads
 them) through LittleCMS's Lab -> sRGB transform (lcms.py), alpha and
 extra samples dropped; the Orientation tag then transposes the image, as
@@ -85,8 +85,7 @@ import zlib
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import lcms, ojpeg
-from cge_tpu_torch.scene.psd import _cmyk_to_rgb
+from cge_tpu_torch.scene import lcms, modes, ojpeg
 
 II, MM = b"II", b"MM"
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
@@ -365,7 +364,7 @@ def to_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
         f = np.where(np.isnan(v), 0.0, np.clip(v, 0.0, 255.0))
         g = f.astype(np.uint8)
     elif mode == "CMYK":
-        return _cmyk_to_rgb(*(px[..., k] for k in range(4)))
+        return modes.cmyk_to_rgb(*(px[..., k] for k in range(4)))
     elif mode == "LAB":
         return lcms.lab_to_rgb(px)
     else:

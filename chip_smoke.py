@@ -234,8 +234,18 @@ exits non-zero if any phase fails:
      kind's host ms summed up); (c) also writes the texels as P0CMYK,
      PyRGBA and Pf (their red channel) PNM files and their crops as an
      XBM (thresholded), an XPM of their 3-3-2 colours and an RGB XPM of
-     more than 256 colours (x11_writers). Each frame of (c) is the first
-     and one timed, and the PNG frame of a set of texels is rendered once.
+     more than 256 colours (x11_writers). (a) also reads
+     tests/torch_textures/legacy/ (GIMP brushes, FLI / FLC, Windows Paint,
+     PhotoCD, PIXAR, XV thumbnails) and science/ (FITS, McIdas, SPIDER,
+     IM, IM Tools, IPTC; the refused files of both must raise a ValueError
+     naming the file); (c) also writes the texels as PIXAR, a GIMP brush,
+     a 3-3-2 FLC and XV thumbnail and a Windows Paint crop
+     (legacy_writers), as an RGB IM and their green as FITS, SPIDER,
+     McIdas, IM Tools and raw IPTC files (science_writers), and reads the
+     committed PhotoCD of legacy/ and IPTC stream of science/ (a grey JPEG
+     crop in band 2 of RGB), each against the PNG of what it decodes to.
+     Each frame of (c) is the first and one timed, and the PNG frame of a
+     set of texels is rendered once.
 
 On the card a bounce replays a CUDA graph (phases 3-10 and 14-17).
 Phases 11-13 swap the trace's functions to record its batches and read
@@ -3133,6 +3143,13 @@ XPM_RGB_CROP = 96
 # blue and red of every other texel) is phase 18c's PCD row
 TEX_LEGACY_DIR = os.path.join(TEXTURES, "legacy")
 TEX_PCD = "pcd_texels_o0.pcd"
+# small FITS, McIdas, SPIDER, IM, IM Tools and IPTC files
+# (make_textures.science_fixtures), those JAX's loader refuses listed
+# without a hash, with a manifest of their own: phase 18a's decode times by
+# kind; its IPTC stream of the texels' 256x256 crop's green as a grey JPEG
+# in band 2 of RGB is phase 18c's IPTC JPEG row
+TEX_SCIENCE_DIR = os.path.join(TEXTURES, "science")
+TEX_IPTC_JPEG = "iptc_jpeg_band2_crop256.iim"
 # the tail's fixtures by kind (name prefixes), for phase 18a's decode times
 TAIL_KINDS = (
     ("old-style JPEG", ("tiff_ojpeg_",)),
@@ -3144,7 +3161,8 @@ TAIL_KINDS = (
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
-    pillow_tail/, tail_chip/, x11_pnm/ and legacy/) through the port's
+    pillow_tail/, tail_chip/, x11_pnm/, legacy/ and science/) through the
+    port's
     load_image, its u8 pixels' SHA-256 against its manifest's, or, where
     the manifest has no hash (JAX's loader refuses the file), a ValueError
     naming the file; (name, kind, host ms) a fixture."""
@@ -3156,7 +3174,7 @@ def texture_fixtures() -> list:
 
     entries = []
     for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR,
-                   TEX_X11_DIR, TEX_LEGACY_DIR):
+                   TEX_X11_DIR, TEX_LEGACY_DIR, TEX_SCIENCE_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
@@ -3255,6 +3273,7 @@ def texture_writers(texels):
     out.update(asset_writers(texels))
     out.update(x11_writers(texels))
     out.update(legacy_writers(texels))
+    out.update(science_writers(texels))
     for name in (TEX_WEBP, TEX_WEBP_CROP, TEX_TIFF_JPEG, TEX_JPEG_CROP):
         with open(os.path.join(TEXTURES, name), "rb") as f:
             data = f.read()
@@ -3294,9 +3313,11 @@ def texture_writers(texels):
         log(f"  18c: {name}'s texels against the JPEG's: max abs error "
             f"{int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
-    with open(os.path.join(TEX_LEGACY_DIR, TEX_PCD), "rb") as f:
-        data = f.read()
-    out[TEX_PCD] = (data, image_io.decode_image(data))  # 18a holds it
+    for folder, name in ((TEX_LEGACY_DIR, TEX_PCD),
+                         (TEX_SCIENCE_DIR, TEX_IPTC_JPEG)):
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        out[name] = (data, image_io.decode_image(data))  # 18a holds it
     return out
 
 
@@ -3603,6 +3624,61 @@ def legacy_writers(texels) -> dict:
     return out
 
 
+def science_writers(texels) -> dict:
+    """The texels [H, W, 3] u8 as the science formats: an IM "RGB image"
+    (RGB;L: each row's red, green and blue planes, rows from the bottom),
+    and their green channel (one set of grey texels) as a FITS of BITPIX 8
+    (rows from the bottom), a big-endian SPIDER image (each sample plus
+    0.25, which the cast to 8 bits truncates), an McIdas area of 1 byte an
+    element with a 4-byte prefix a line, an IM Tools file and a raw L IPTC
+    stream (8,000 bytes an (8,10) field); {name: (file bytes, the texels
+    the file holds)}."""
+    import struct
+
+    import numpy as np
+
+    h, w = texels.shape[:2]
+    head = (b"Image type: RGB image\r\nImage size (x*y): %d*%d\r\n"
+            b"Name: texels.im\r\n" % (w, h))
+    planes = np.moveaxis(texels[::-1], 2, 1)             # [H, 3, W]
+    out = {"texels_rgb_l.im": (head + bytes(511 - len(head)) + b"\x1a"
+                               + planes.tobytes(), texels)}
+    grey = np.ascontiguousarray(texels[..., 1])
+    held = np.repeat(grey[..., None], 3, axis=2)
+    cards = [b"SIMPLE  = %20s" % b"T", b"BITPIX  = %20d" % 8,
+             b"NAXIS   = %20d" % 2, b"NAXIS1  = %20d" % w,
+             b"NAXIS2  = %20d" % h, b"END"]
+    fits = b"".join(c.ljust(80) for c in cards)
+    fits += b" " * (-len(fits) % 2880) + grey[::-1].tobytes()
+    out["texels_green.fits"] = (fits + bytes(-len(fits) % 2880), held)
+    hdr = [0.0] * 28
+    hdr[1], hdr[2], hdr[5], hdr[12] = 1.0, h, 1.0, w
+    labrec = -(-1024 // (4 * w))
+    hdr[13], hdr[22], hdr[23] = labrec, labrec * 4 * w, 4 * w
+    spi = struct.pack(">27f", *hdr[1:]).ljust(labrec * 4 * w, b"\0")
+    out["texels_green.spi"] = (spi + (grey.astype(">f4") + np.float32(
+        0.25)).astype(">f4").tobytes(), held)
+    words = [0] * 65
+    words[2], words[9], words[10], words[11], words[14], words[15] = (
+        4, h, w, 1, 1, 4)
+    words[34] = 256
+    lines = np.concatenate([np.full((h, 4), 0xA5, np.uint8), grey], axis=1)
+    out["texels_green.mcidas"] = (struct.pack("!64i", *words[1:])
+                                  + lines.tobytes(), held)
+    out["texels_green.imt"] = (b"width %d\nheight %d\npixel n8\n\x0c" % (
+        w, h) + grey.tobytes(), held)
+    raw = grey.tobytes()
+    iptc = b"".join(b"\x1c" + bytes(rt) + struct.pack(">H", len(v)) + v for
+                    rt, v in (((3, 60), b"\x01\x00"),
+                              ((3, 20), struct.pack(">I", w)),
+                              ((3, 30), struct.pack(">I", h)),
+                              ((3, 120), b"\x01")))
+    iptc += b"".join(b"\x1c\x08\x0a" + struct.pack(">H", len(raw[i:i + 8000]))
+                     + raw[i:i + 8000] for i in range(0, len(raw), 8000))
+    out["texels_green_raw.iim"] = (iptc, held)
+    return out
+
+
 def asset_writers(texels) -> dict:
     """The texels [H, W, 3] u8 (W a multiple of 2) as the formats of model
     and game asset sets: SGI run-length (copy packets of up to 127 bytes),
@@ -3732,7 +3808,9 @@ def eleventh_path(device) -> dict:
     texels, then by those texels as TGA, PNM, PSD, GIF, TIFF, WebP, DDS,
     SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000, ICNS, XBM, XPM,
     PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint files, Pillow's
-    other PNM modes, and a PhotoCD of them (new_format_frames)."""
+    other PNM modes, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and
+    IPTC files of them, and an IPTC stream of a grey JPEG crop in its
+    green band (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3753,8 +3831,10 @@ def eleventh_path(device) -> dict:
         f"512x512 L*a*b* TIFF crop, a JP2 with Part 2 MCT markers, an "
         f"old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM, XBM and XPM "
         f"(palette and RGB) crops, PIXAR, a GIMP brush, a 3-3-2 FLC and XV "
-        f"thumbnail, a Windows Paint crop and a 768x512 PhotoCD | "
-        f"{SMI['line']} (decode and load times are the host's)")
+        f"thumbnail, a Windows Paint crop, a 768x512 PhotoCD, an RGB IM, "
+        f"FITS, SPIDER, McIdas, IM Tools and raw IPTC of their green, and an "
+        f"IPTC of a grey JPEG crop in band 2 | {SMI['line']} (decode and "
+        f"load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
         ms = sorted((t, n) for n, k, t in times if k == kind)
@@ -3849,7 +3929,8 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
     (J2K and JP2) and ICNS files, a L*a*b* TIFF, a JP2 with Part 2
     markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, XBM
     and XPM crops, PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint
-    files and a PhotoCD (texture_writers), each one first frame, timed,
+    files, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and IPTC files
+    (texture_writers), each one first frame, timed,
     against the PNG-textured frame of the same texels (rendered once for
     each set of texels), its K1 and K2 launches against (b)'s
     (first_launches); {file: (decode ms, load s, first frame ms)}."""

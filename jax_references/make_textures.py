@@ -39,6 +39,7 @@ that folder alone.
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import io
 import json
@@ -3858,6 +3859,422 @@ def legacy_fixtures(rng, texels: np.ndarray) -> dict:
     return out
 
 
+# ------------------------------------------------ science and legacy tools
+
+
+def fits_card(key: bytes, value=None, comment: bytes = b"") -> bytes:
+    """An 80-byte FITS header card: the keyword, "= " and the value
+    right-aligned to column 30 where one is given, " / " and a comment."""
+    card = key.ljust(8)
+    if value is not None:
+        card += b"= " + value.rjust(20)
+    if comment:
+        card += b" / " + comment
+    return card.ljust(80)[:80]
+
+
+def fits_hdu(cards: list) -> bytes:
+    """A header unit: the cards, then END, padded with spaces to 2880
+    bytes."""
+    s = b"".join(cards) + fits_card(b"END")
+    return s + b" " * (-len(s) % 2880)
+
+
+FITS_TYPES = {8: "u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def fits_file(px: np.ndarray, bitpix: int = 8, cards=(), pad: bool = True,
+              naxis=None) -> bytes:
+    """A FITS primary image of px [h, w] as FITS orders it: rows from the
+    bottom (the file's first row is the image's last), big-endian samples
+    of BITPIX (8 unsigned, 16 and 32 signed, -32 and -64 IEEE), the data
+    padded to 2880 bytes; cards go after NAXIS2 (naxis overrides the
+    NAXIS cards)."""
+    px = np.asarray(px)
+    h, w = px.shape
+    axes = naxis if naxis is not None else [
+        fits_card(b"NAXIS", b"2"), fits_card(b"NAXIS1", b"%d" % w),
+        fits_card(b"NAXIS2", b"%d" % h)]
+    data = px[::-1].astype(FITS_TYPES[bitpix]).tobytes()
+    return fits_hdu([fits_card(b"SIMPLE", b"T", b"a primary image"),
+                     fits_card(b"BITPIX", b"%d" % bitpix), *axes,
+                     *cards]) + data + (b"\0" * (-len(data) % 2880)
+                                        if pad else b"")
+
+
+def fits_gzip_file(samples: bytes, w: int, h: int, zbitpix: int = 8,
+                   table: tuple = (8, 3), primary_cards=(),
+                   member: bool = True) -> bytes:
+    """A FITS of NAXIS 0 whose BINTABLE extension has ZIMAGE T and
+    ZCMPTYPE 'GZIP_1  ' as Pillow's FitsGzipDecoder reads it: the table's
+    NAXIS1 x NAXIS2 bytes (table, BITPIX 8), then one gzip stream of
+    samples (4 bytes a pixel, of which Pillow keeps the last ZBITPIX / 8,
+    rows from the bottom)."""
+    head = fits_hdu([fits_card(b"SIMPLE", b"T"), fits_card(b"BITPIX", b"8"),
+                     fits_card(b"NAXIS", b"0"), *primary_cards])
+    ext = fits_hdu([
+        fits_card(b"XTENSION", b"'BINTABLE'"), fits_card(b"BITPIX", b"8"),
+        fits_card(b"NAXIS", b"2"), fits_card(b"NAXIS1", b"%d" % table[0]),
+        fits_card(b"NAXIS2", b"%d" % table[1]), fits_card(b"ZIMAGE", b"T"),
+        fits_card(b"ZBITPIX", b"%d" % zbitpix), fits_card(b"ZNAXIS", b"2"),
+        fits_card(b"ZNAXIS1", b"%d" % w), fits_card(b"ZNAXIS2", b"%d" % h),
+        fits_card(b"ZCMPTYPE", b"'GZIP_1  '")])
+    body = gzip.compress(samples, mtime=0) if member else samples
+    return head + ext + bytes(range(table[0] * table[1])) + body
+
+
+def mcidas_file(px: np.ndarray, nbytes: int = 1, prefix: int = 0,
+                offset: int = 256, words=None, tail: bytes = b"") -> bytes:
+    """An McIdas area of px [h, w] or [h, w, bands] (each line holding
+    its elements' bands one after another): the 256-byte directory of 64
+    big-endian words (w[k] is word k, 1-based, as Pillow numbers them:
+    w[2] = 4, w[9] lines, w[10] elements, w[11] bytes an element, w[14]
+    bands, w[15] a line's prefix bytes, w[34] the first line's offset;
+    words {k: value} sets any), zeros up to w[34], then each line's prefix
+    and its samples, big-endian."""
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    d = [0] * 65
+    d[2], d[9], d[10], d[11], d[15], d[34] = 4, h, w, nbytes, prefix, offset
+    d[14] = px.shape[2] if px.ndim == 3 else 1
+    for k, v in (words or {}).items():
+        d[k] = v
+    dt = {1: "u1", 2: ">u2", 4: ">u4"}[nbytes]
+    lines = px.reshape(h, -1).astype(dt).view(np.uint8).reshape(h, -1)
+    lines = np.concatenate([np.full((h, prefix), 0xA5, np.uint8), lines], 1)
+    return (struct.pack("!64i", *d[1:]) + bytes(max(0, offset - 256))
+            + lines.tobytes() + tail)
+
+
+def spider_header(w: int, h: int, *, big: bool = True, iform: float = 1,
+                  istack: float = 0, imgnumber: float = 0, maxim: float = 0,
+                  lenbyt=None, labrec=None, values=None) -> bytes:
+    """A SPIDER header (floats, 1-based as SPIDER numbers them: 1 nslice,
+    2 nrow, 5 iform, 12 nsam, 13 labrec, 22 labbyt, 23 lenbyt, 24 istack,
+    26 maxim, 27 imgnumber; values {k: v} sets others) padded to labbyt
+    bytes, big- or little-endian."""
+    lenbyt = w * 4 if lenbyt is None else lenbyt
+    labrec = -(-1024 // lenbyt) if labrec is None else labrec
+    labbyt = labrec * lenbyt
+    hdr = [0.0] * max(28, labbyt // 4 + 1)
+    hdr[1], hdr[2], hdr[3], hdr[5], hdr[12] = 1.0, h, h, iform, w
+    hdr[13], hdr[22], hdr[23] = labrec, labbyt, lenbyt
+    hdr[24], hdr[26], hdr[27] = istack, maxim, imgnumber
+    for k, v in (values or {}).items():
+        hdr[k] = v
+    out = struct.pack((">" if big else "<") + f"{len(hdr) - 1}f", *hdr[1:])
+    return out[:max(labbyt, 108)].ljust(max(labbyt, 108), b"\0")
+
+
+def spider_file(px: np.ndarray, big: bool = True, **kw) -> bytes:
+    """A SPIDER image of px [h, w] (float32 samples, rows from the top),
+    its header from spider_header."""
+    px = np.asarray(px, np.float32)
+    h, w = px.shape
+    return spider_header(w, h, big=big, **kw) + px.astype(
+        ">f4" if big else "<f4").tobytes()
+
+
+def im_file(image_type: bytes, w: int, h: int, body: bytes, lut=None,
+            lines=(), eol: bytes = b"\r\n", pad: bool = True,
+            size=None) -> bytes:
+    """An IFUNC IM file: its header lines ("Image type", "Image size
+    (x*y)" unless size gives that line's value, then lines, then "Lut"
+    where lut [768] bytes is given: 256 reds, 256 greens, 256 blues),
+    padded with NULs to 511 bytes as Pillow's writer pads it, 0x1A, the
+    palette, the body."""
+    head = [b"Image type: " + image_type,
+            b"Image size (x*y): " + (b"%d*%d" % (w, h) if size is None
+                                     else size), *lines]
+    if lut is not None:
+        head.append(b"Lut: 1")
+    s = b"".join(x + eol for x in head)
+    s += b"\0" * max(0, 511 - len(s)) if pad else b""
+    return s + b"\x1a" + (bytes(lut) if lut is not None else b"") + body
+
+
+# the bits a pixel of each of Pillow's IM raw layouts (ImImagePlugin.OPEN;
+# F;N for the others), for the bodies' lengths
+IM_BITS = {"1": 1, "L": 8, "P": 8, "P;2": 2, "P;4": 4, "RGB;L": 24,
+           "RLB": 24, "RGB": 24, "I;32": 32, "F;32": 32, "RGB;T": 24,
+           "RYB;T": 24, "LA;L": 16, "PA;L": 16, "RGBA;L": 32, "RGBX;L": 32,
+           "CMYK;L": 32, "YCbCr;L": 24, "F;8": 8, "F;8S": 8, "F;16": 16,
+           "F;16S": 16, "F;32F": 32, "I;16": 16, "I;16L": 16, "I;16B": 16,
+           "I;32S": 32}
+
+
+def im_body_size(rawmode: str, w: int, h: int) -> int:
+    """The bytes of a w x h image in an IM raw layout: rows of whole bytes
+    (three planes of the image for RGB;T and RYB;T)."""
+    bits = IM_BITS.get(rawmode) or int(rawmode[2:])
+    return -(-w * bits // 8) * h * (3 if rawmode.endswith(";T") else 1)
+
+
+def imt_file(w: int, h: int, body: bytes, lines=None) -> bytes:
+    """An IM Tools file: "width", "height" and "pixel n8" lines (or the
+    lines given), a form feed, the body."""
+    if lines is None:
+        lines = [b"width %d" % w, b"height %d" % h, b"pixel n8"]
+    return b"".join(x + b"\n" for x in lines) + b"\x0c" + body
+
+
+def iptc_field(record: int, tag: int, data: bytes, long: bool = False
+               ) -> bytes:
+    """An IPTC/NAA field: 0x1C, its record and tag, its size in 2 bytes
+    (or 0x84 and 4 bytes, long), the data."""
+    size = (bytes((0x84,)) + struct.pack(">I", len(data)) if long
+            else struct.pack(">H", len(data)))
+    return bytes((0x1C, record, tag)) + size + data
+
+
+def iptc_file(payload: bytes, w: int, h: int, layers: int = 1,
+              component: int = 0, compression: int = 1, band=None,
+              chunk: int = 8000, fields=(), tail: bytes = b"") -> bytes:
+    """An IPTC/NAA stream: fields (3,60) layers and component, (3,20)
+    and (3,30) the width and height, (3,120) the compression (1 raw, 5
+    JPEG), (3,65) the band (1-based) where given, the extra fields, then
+    the payload in (8,10) fields of chunk bytes (4-byte sizes past 32767),
+    then tail."""
+    head = [iptc_field(3, 60, bytes((layers, component))),
+            iptc_field(3, 20, struct.pack(">I", w)),
+            iptc_field(3, 30, struct.pack(">I", h)),
+            iptc_field(3, 120, bytes((compression,)))]
+    if band is not None:
+        head.append(iptc_field(3, 65, bytes((band + 1,))))
+    body = [iptc_field(8, 10, payload[i:i + chunk], long=chunk > 32767)
+            for i in range(0, len(payload), chunk)]
+    return b"".join(head) + b"".join(fields) + b"".join(body) + tail
+
+
+
+def _grey_jpeg(px: np.ndarray, quality: int = 90) -> bytes:
+    return _pillow(PILImage.fromarray(np.asarray(px, np.uint8)), "JPEG",
+                   quality=quality)
+
+
+SCIENCE_CROP = 256
+SCIENCE_CHIP = f"iptc_jpeg_band2_crop{SCIENCE_CROP}.iim"
+
+
+def science_fixtures(rng, texels: np.ndarray) -> dict:
+    """FITS, McIdas, SPIDER, IM, IM Tools and IPTC/NAA files, written by
+    hand but for Pillow's own IM and SPIDER saves: FITS at each BITPIX,
+    NAXIS 1, an image extension after an empty primary unit and GZIP_1
+    tables; McIdas of 1, 2 and 4 bytes, line prefixes, bands and strides
+    shorter than a line; SPIDER of both byte orders and a stack; IM of
+    every raw layout of Pillow's OPEN table, bit depths, a palette (Lut)
+    of colour or of grey, odd headers; IM Tools with comments; IPTC raw and
+    JPEG, L and with a band of RGB and CMYK, long and chunked fields;
+    and the files Pillow refuses (listed by their error's name). Then
+    SCIENCE_CHIP, the texels' (the 1024x1024 JPEG's) top-left crop's
+    green as a grey JPEG in band 2 of an RGB IPTC stream, for chip_smoke.py
+    phase 18c. {name: (kind, bytes)}."""
+    out = {}
+
+    def body(rawmode, w, h):
+        return rng.integers(0, 256, im_body_size(rawmode, w, h)).astype(
+            np.uint8).tobytes()
+
+    px = rng.integers(0, 256, (5, 7))
+    out["fits_bitpix8_7x5.fits"] = ("fits", fits_file(px, 8))
+    v = rng.integers(-300, 3000, (4, 6))
+    v[0, 0] = 300                                       # reads as 11265
+    out["fits_bitpix16_6x4.fits"] = ("fits", fits_file(v, 16))
+    out["fits_bitpix32_5x3.fits"] = ("fits", fits_file(
+        rng.integers(-2 ** 31, 2 ** 31, (3, 5)), 32))
+    f = rng.uniform(-5, 300, (4, 5)).astype(np.float32)
+    f[0, 0] = 1.0                                       # reads as 4.6e-41
+    out["fits_bitpix-32_5x4.fits"] = ("fits", fits_file(f, -32))
+    # read as float32 pairs: whole numbers leave no NaN among them
+    out["fits_bitpix-64_4x3.fits"] = ("fits", fits_file(
+        rng.integers(-300, 300, (3, 4)).astype(np.float64) / 4, -64))
+    out["fits_naxis1_9.fits"] = ("fits", fits_file(
+        rng.integers(0, 256, (9, 1)), 8, naxis=[
+            fits_card(b"NAXIS", b"1"), fits_card(b"NAXIS1", b"9")]))
+    ext = fits_hdu([fits_card(b"SIMPLE", b"T"), fits_card(b"BITPIX", b"8"),
+                    fits_card(b"NAXIS", b"0"), fits_card(b"EXTEND", b"T")])
+    img = rng.integers(0, 256, (3, 6)).astype(np.uint8)
+    out["fits_image_extension_6x3.fits"] = ("fits", ext + fits_hdu([
+        fits_card(b"XTENSION", b"'IMAGE   '", b"an image extension"),
+        fits_card(b"BITPIX", b"8"), fits_card(b"NAXIS", b"2"),
+        fits_card(b"NAXIS1", b"6"), fits_card(b"NAXIS2", b"3")])
+        + img.tobytes() + bytes(2880 - 18))
+    out["fits_bscale_comments_6x2.fits"] = ("fits", fits_file(
+        rng.integers(0, 256, (2, 6)), 8, cards=[
+            fits_card(b"BSCALE", b"2.0", b"ignored by Pillow"),
+            fits_card(b"BZERO", b"100"), fits_card(b"COMMENT")]))
+    for zbits, (w, h) in ((8, (6, 5)), (16, (5, 4)), (32, (4, 3))):
+        out[f"fits_gzip1_{zbits}bit_{w}x{h}.fits"] = ("fits", fits_gzip_file(
+            rng.integers(0, 256, 4 * w * h).astype(np.uint8).tobytes(), w, h,
+            zbits))
+    out["fits_no_image_data.fits"] = ("fits_refused", ext + b"x" * 80)
+    # Pillow keeps the last -32 // 8 = -4 bytes of each 4: none
+    out["fits_gzip1_float.fits"] = ("fits_refused", fits_gzip_file(
+        bytes(4 * 6), 3, 2, -32, table=(8, 8)))
+    # the table and stream end within 80 bytes of the header: the data
+    # offset is 80 bytes back from the file's end
+    out["fits_gzip1_short_unit_offset_back.fits"] = ("fits_refused",
+                                                     fits_gzip_file(
+        bytes(4 * 6), 3, 2, 8))
+    # the data's first read is 60 bytes short of a card: Pillow's offset
+    # (80 bytes back from where it ended) is 20 bytes into the header
+    out["fits_data_read_short_offset_back_8x8.fits"] = ("fits", fits_file(
+        rng.integers(0, 256, (8, 8)), 8)[:2880 + 60])
+    out["fits_data_cut_short_16x16.fits"] = ("fits_refused", fits_file(
+        rng.integers(0, 256, (16, 16)), 8)[:2880 + 100])
+    out["fits_naxis_not_an_int.fits"] = ("fits_refused", fits_file(
+        px, 8, naxis=[fits_card(b"NAXIS", b"2.0")]))
+
+    out["mcidas_8bit_7x5.mcidas"] = ("mcidas", mcidas_file(
+        rng.integers(0, 256, (5, 7)), 1))
+    out["mcidas_16bit_prefix_bands_6x4.mcidas"] = ("mcidas", mcidas_file(
+        rng.integers(0, 600, (4, 6, 2)), 2, prefix=3, offset=300))
+    out["mcidas_32bit_5x3.mcidas"] = ("mcidas", mcidas_file(
+        rng.integers(0, 2 ** 32, (3, 5)), 4))
+    out["mcidas_8bit_no_bands_overlapping_lines_6x4.mcidas"] = (
+        "mcidas", mcidas_file(rng.integers(0, 256, (4, 6)), 1, prefix=2,
+                              words={14: 0}, tail=bytes(30)))
+    out["mcidas_16bit_stride_0_5x3.mcidas"] = ("mcidas", mcidas_file(
+        rng.integers(0, 600, (3, 5)), 2, words={14: 0}, tail=bytes(40)))
+    out["mcidas_8bit_cut_short_6x4.mcidas"] = ("mcidas_refused", mcidas_file(
+        rng.integers(0, 256, (4, 6)), 1)[:-3])
+    out["mcidas_32bit_stride_short.mcidas"] = ("mcidas_refused", mcidas_file(
+        rng.integers(0, 256, (3, 4)), 4, words={14: 0, 15: 1}))
+
+    sp = rng.uniform(-20, 300, (5, 7)).astype(np.float32)
+    out["spider_pillow_7x5.spi"] = ("spider", _pillow(
+        PILImage.fromarray(sp, "F"), "SPIDER"))
+    out["spider_big_endian_6x4.spi"] = ("spider", spider_file(
+        rng.uniform(0, 255, (4, 6))))
+    out["spider_little_endian_5x9.spi"] = ("spider", spider_file(
+        rng.uniform(0, 400, (9, 5)), big=False))
+    stack = spider_header(5, 3, istack=2, maxim=2) + spider_file(
+        rng.uniform(0, 255, (3, 5)))
+    out["spider_stack_first_image_5x3.spi"] = ("spider", stack)
+    out["spider_image_in_stack.spi"] = ("spider_refused", spider_file(
+        rng.uniform(0, 255, (3, 5)), imgnumber=1))
+    out["spider_cut_short_6x4.spi"] = ("spider_refused", spider_file(
+        rng.uniform(0, 255, (4, 6)))[:-5])
+
+    w, h = 5, 3
+    names = {"1": b"0 1", "L": b"Greyscale", "P;2": b"B2", "P;4": b"B4",
+             "RGB;L": b"RGB", "RGB": b"X 24", "I;32": b"L 32 S",
+             "F;32": b"L 32 F", "RGB;T": b"RGB3", "RYB;T": b"RYB3",
+             "LA;L": b"LA", "RGBA;L": b"RGBA", "RGBX;L": b"RGBX",
+             "CMYK;L": b"CMYK", "YCbCr;L": b"YCC", "F;8": b"L 8",
+             "F;8S": b"L*8S", "F;16": b"L*16", "F;16S": b"L 16S",
+             "F;32F": b"L 32F", "I;16": b"L 16", "I;16L": b"L 16L",
+             "I;16B": b"L*16B", "I;32S": b"L 32S", "F;3": b"L*3",
+             "F;12": b"L*12", "F;24": b"L*24", "F;31": b"L*31"}
+    for raw, kind in names.items():
+        tag = raw.replace(";", "_")
+        out[f"im_{tag}_{w}x{h}.im"] = ("im", im_file(
+            kind + b" image", w, h, body(raw, w, h)))
+    colour = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+    grey = np.tile(np.arange(256, dtype=np.uint8)[::-1], 3).tobytes()
+    out["im_L_colour_lut_6x4.im"] = ("im", im_file(
+        b"Greyscale image", 6, 4, body("L", 6, 4), lut=colour))
+    out["im_LA_colour_lut_6x4.im"] = ("im", im_file(
+        b"LA image", 6, 4, body("LA;L", 6, 4), lut=colour))
+    out["im_B2_colour_lut_reads_8bit_6x4.im"] = ("im", im_file(
+        b"B2 image", 6, 4, body("P", 6, 4), lut=colour))
+    out["im_L_grey_lut_ignored_6x4.im"] = ("im", im_file(
+        b"Greyscale image", 6, 4, body("L", 6, 4), lut=grey))
+    out["im_header_lf_comments_unpadded_4x3.im"] = ("im", im_file(
+        b"RGB image", 4, 3, body("RGB;L", 4, 3), eol=b"\n", pad=False,
+        lines=(b"Name: t.im", b"Comment: one", b"Comment: two",
+               b"Scale (x,y): 1.5,2", b"Custom key: value"), size=b"4,3"))
+    for mode in ("L", "RGB", "P", "CMYK", "YCbCr", "LA", "I", "F", "I;16B",
+                 "1"):
+        pim = PILImage.fromarray(rng.integers(0, 256, (4, 6, 3)).astype(
+            np.uint8)).convert(mode)
+        out[f"im_pillow_{mode.replace(';', '_')}_6x4.im"] = ("im", _pillow(
+            pim, "IM"))
+    out["im_RLB_no_unpacker.im"] = ("im_refused", im_file(
+        b"RLB image", w, h, body("RLB", w, h)))
+    out["im_PA_into_LA.im"] = ("im_refused", im_file(
+        b"PA image", w, h, body("PA;L", w, h)))
+    out["im_size_not_a_number.im"] = ("im_refused", im_file(
+        b"Greyscale image", w, h, body("L", w, h), size=b"five*3"))
+    out["im_cut_short_5x3.im"] = ("im_refused", im_file(
+        b"RGB image", w, h, body("RGB;L", w, h)[:-1]))
+    out["im_F_12_cut_short.im"] = ("im_refused", im_file(
+        b"L*12 image", w, h, body("F;12", w, h)[:-2]))
+
+    g = rng.integers(0, 256, (5, 8)).astype(np.uint8)
+    out["imt_8x5.imt"] = ("imt", imt_file(8, 5, g.tobytes()))
+    out["imt_comments_7x3.imt"] = ("imt", imt_file(7, 3, g[:3, :7].tobytes(),
+                                   [b"* IM Tools", b"pixel n8", b"name x",
+                                    b"height 3", b"width 7"]))
+    out["imt_width_not_a_number.imt"] = ("imt_refused", imt_file(
+        2, 2, bytes(4), [b"width abc", b"height 2", b"pixel n8"]))
+    out["imt_no_form_feed.imt"] = ("imt_refused", b"width 2\nheight 2\n"
+                                   b"pixel n8\n\n" + bytes(4))
+    out["imt_cut_short_8x5.imt"] = ("imt_refused", imt_file(
+        8, 5, g.tobytes()[:-1]))
+
+    g = rng.integers(0, 256, (5, 7)).astype(np.uint8)
+    out["iptc_raw_L_7x5.iim"] = ("iptc", iptc_file(g.tobytes(), 7, 5))
+    out["iptc_raw_rgb_band1_7x5.iim"] = ("iptc", iptc_file(
+        g.tobytes(), 7, 5, 3, 1, band=1, chunk=6,
+        fields=[iptc_field(2, 5, b"title"), iptc_field(2, 25, b"k1"),
+                iptc_field(2, 25, b"k2")]))
+    out["iptc_raw_cmyk_band3_7x5.iim"] = ("iptc", iptc_file(
+        g.tobytes(), 7, 5, 4, 1, band=3))
+    # field() reads 5 bytes before a long size's own bytes: the size is
+    # read one byte late, and the data with it
+    out["iptc_long_size_read_a_byte_late.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes(), 7, 5, 4, 1, band=3, chunk=40000))
+    out["iptc_raw_rgb_no_band_field_7x5.iim"] = ("iptc", iptc_file(
+        g.tobytes(), 7, 5, 3, 2))
+    out["iptc_raw_rgb_band_minus1_7x5.iim"] = ("iptc", iptc_file(
+        g.tobytes(), 7, 5, 3, 1, band=-1))
+    jg = _grey_jpeg(rng.integers(0, 256, (9, 10)))
+    out["iptc_jpeg_L_10x9.iim"] = ("iptc", iptc_file(jg, 10, 9,
+                                                     compression=5))
+    out["iptc_jpeg_rgb_band2_10x9.iim"] = ("iptc", iptc_file(
+        jg, 10, 9, 3, 1, 5, band=2, chunk=100))
+    rgbj = _pillow(PILImage.fromarray(rng.integers(0, 256, (6, 8, 3)).astype(
+        np.uint8)), "JPEG", quality=85)
+    out["iptc_jpeg_of_rgb_in_L_8x6.iim"] = ("iptc", iptc_file(
+        rgbj, 99, 1, compression=5))
+    out["iptc_raw_extra_data_7x5.iim"] = ("iptc", iptc_file(
+        g.tobytes() + bytes(10), 7, 5))
+    out["iptc_unknown_compression.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes(), 7, 5, compression=2))
+    out["iptc_field_size_byte_133.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes(), 7, 5, fields=[bytes((0x1C, 2, 5, 133, 0))]))
+    out["iptc_junk_after_data.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes(), 7, 5, tail=b"junk!"))
+    out["iptc_band_past_rgb.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes(), 7, 5, 3, 1, band=4))
+    out["iptc_rgb_jpeg_as_band.iim"] = ("iptc_refused", iptc_file(
+        rgbj, 8, 6, 3, 1, 5, band=0))
+    out["iptc_raw_cut_short.iim"] = ("iptc_refused", iptc_file(
+        g.tobytes()[:-1], 7, 5))
+    crop = texels[:SCIENCE_CROP, :SCIENCE_CROP, 1]
+    out[SCIENCE_CHIP] = ("iptc", iptc_file(
+        _grey_jpeg(crop), SCIENCE_CROP, SCIENCE_CROP, 3, 1, 5, band=2))
+    return out
+
+
+SCIENCE_DIR = os.path.join(OUT, "science")
+SCIENCE_SEED = 28
+
+
+def write_science() -> None:
+    """Write science_fixtures (of BIG's texels) into SCIENCE_DIR, with its
+    manifest; the files JAX's loader refuses are listed with the name of
+    its error and no hash."""
+    with PILImage.open(os.path.join(OUT, BIG)) as img:
+        texels = np.asarray(img.convert("RGB"))
+    files = _write(SCIENCE_DIR, science_fixtures(
+        np.random.default_rng(SCIENCE_SEED), texels))
+    _manifest(os.path.join(SCIENCE_DIR, "manifest.json"), files,
+              COMMAND + " --science", SCIENCE_SEED)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(SCIENCE_DIR, REPO)}")
+
 X11_DIR = os.path.join(OUT, "x11_pnm")
 
 
@@ -3942,9 +4359,13 @@ def _manifest(path: str, files: list, command: str = COMMAND,
 
 
 def main(argv=()) -> int:
-    """Every folder, or with --legacy only tests/torch_textures/legacy/."""
+    """Every folder, or with --legacy only tests/torch_textures/legacy/,
+    with --science only tests/torch_textures/science/."""
     if "--legacy" in argv:
         write_legacy()
+        return 0
+    if "--science" in argv:
+        write_science()
         return 0
     made = fixtures()
     files = _write(OUT, made)
@@ -3963,6 +4384,7 @@ def main(argv=()) -> int:
     write_tail()
     write_x11()
     write_legacy()
+    write_science()
     return 0
 
 

@@ -667,6 +667,40 @@ def test_legacy_decoders_under_asan_ubsan(tmp_path):
     assert r.stdout.count("SANITIZED_OK") == len(names)
 
 
+def test_im_bit_decoder_under_asan_ubsan(tmp_path):
+    """The sanitized library of test_image_decoders_under_asan_ubsan over
+    the IM fixtures of tests/torch_textures/science/ that go through
+    cge_raster.cpp's bit decoder (F;3, F;12, F;24, F;31: IM's packed
+    samples, the leftover bits carried into the next row, more than 32
+    buffered bits), each whole, cut short at eight lengths and with bytes
+    flipped; nothing faults."""
+    import re
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "torch_textures", "science")
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        names = sorted(e["name"] for e in json.load(f)["files"]
+                       if e["kind"] == "im"
+                       and re.fullmatch(r"im_F_\d+_\d+x\d+\.im", e["name"])
+                       and e["name"].split("_")[2] not in ("8", "16", "32"))
+    assert len(names) == 4
+    preload = " ".join(subprocess.run(
+        [native.CXX, f"-print-file-name={lib}"], capture_output=True,
+        text=True, check=True).stdout.strip()
+        for lib in ("libasan.so", "libstdc++.so.6"))
+    script = tmp_path / "images.py"
+    script.write_text(IMAGES_SCRIPT)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, str(script), repo, str(tmp_path / "build"),
+         fixtures, *names], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, LD_PRELOAD=preload, PYTHONMALLOC="malloc",
+                 ASAN_OPTIONS="detect_leaks=0",
+                 UBSAN_OPTIONS="halt_on_error=1:print_stacktrace=1"))
+    assert r.returncode == 0, f"sanitized run failed:\n{r.stdout}\n{r.stderr}"
+    assert r.stdout.count("SANITIZED_OK") == len(names)
+
+
 CODECS_SCRIPT = r"""
 import ctypes, io, sys
 import numpy as np

@@ -478,6 +478,35 @@ def test_refusals_name_their_format(tmp_path, kind, make, words):
     # thumbnail
     ("xv_not_pnm", lambda: mt.xv_file(np.ones((2, 3), np.uint8)),
      "XV thumbnail"),
+    # IM, IMT, IPTC and SPIDER have no test of the first bytes: their
+    # header checks are tried on every file that reaches them. An IM
+    # header whose first line starts with TIFF's "II*\0": IM comes first
+    ("im_header_over_tiff_magic", lambda: b"II*\0: a key\nImage type: "
+     b"Greyscale image\nImage size (x*y): 3*2\n\x1a" + bytes(range(6)),
+     "IM"),
+    # a TGA of a 28-byte image id starts with 0x1C: IPTC's check refuses
+    # its record byte (the colour-map type, 0), TGA decodes it
+    ("tga_id_0x1c_not_iptc", lambda: mt.tga_file(
+        2, 2, 2, 24, bytes(range(12)), image_id=bytes(range(28))), "TGA"),
+    # an McIdas area starts with five NULs, which end IPTC's fields before
+    # its mode field: not opened, so McIdas decodes it
+    ("mcidas_after_iptcs_try", lambda: mt.mcidas_file(
+        np.arange(6).reshape(2, 3), 1), "McIdas"),
+    # a TGA's header read as SPIDER's floats is no SPIDER header: SPIDER's
+    # try (before Sun raster and TGA) refuses it
+    ("tga_after_spiders_try", lambda: mt.tga_file(
+        3, 2, 3, 8, bytes(range(6)) + bytes(200)), "TGA"),
+    # a SPIDER image no format's test before it takes
+    ("spider_no_prefix", lambda: mt.spider_file(np.ones((2, 3)) * 7),
+     "SPIDER"),
+    # IMT's int() of "abc" escapes Image.open: refused as IMT, never
+    # passed on
+    ("imt_width_abc", lambda: mt.imt_file(2, 2, bytes(4), [
+        b"width abc", b"height 2", b"pixel n8"]), "IMT"),
+    # IM's check before IMT's: an IM Tools file's lines have no "key:",
+    # so IM's check refuses them and IMT decodes it
+    ("imt_after_ims_try", lambda: mt.imt_file(3, 1, bytes(range(3))),
+     "IMT"),
 ])
 def test_dispatch_follows_pillows_order(tmp_path, kind, make, fmt):
     """format_of names the first format whose test takes the file, in
