@@ -1897,6 +1897,10 @@ void Decoder::decode(uint8_t* out) {
                     multiscan_ = progressive_ || scomps.size() < comps_.size();
                 decode_scan(scomps, ss, se, ah, al);
                 if (resync_row_ >= 0) break;    // libjpeg stops here
+                // libtiff's old-style JPEG codec reads the scanlines it
+                // needs and never finishes: what follows a scan of every
+                // component (the next plane's SOS) is left unread
+                if (resync_fails && !multiscan_) break;
                 if (!multiscan_) end_is_eoi_ = true;
                 // on to the next marker (unread_, or past the scan's last
                 // bytes)

@@ -595,7 +595,7 @@ _PILLOW_ORDER = (
     ("BMP", lambda d: d[:2] == b"BM", lambda d: decode_bmp(d)),
     ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
     ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif.decode_gif),
-    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.decode_jpeg),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.decode_file),
     ("PNM", pnm.accept, pnm.decode_pnm),
     ("PNG", lambda d: d[:8] == SIGNATURE, decode_png),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (

@@ -137,7 +137,7 @@ def _nested_mode(data: bytes) -> str:
     """The mode Pillow opens the nested file in (it decodes), where the
     port can tell: JPEG's by its frame header, PNM's by its magic."""
     if data[:3] == b"\xff\xd8\xff":
-        return jpeg.pillow_open(data)
+        return jpeg.pillow_open(data)[0]
     if pnm.accept(data):
         return pnm.mode_of(data)
     return ""

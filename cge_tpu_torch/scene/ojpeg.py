@@ -1,38 +1,46 @@
 """Old-style JPEG in TIFF (compression 6), as libtiff 4.7's tif_ojpeg.c
 reads it under Pillow 12: the JPEG stream the codec builds from the TIFF's
-tags and strips, decoded by the port's JPEG decoder (native/cge_jpeg.cpp)
-as libjpeg decodes it there.
+tags and striles (strips or tiles), decoded by the port's JPEG decoder
+(native/cge_jpeg.cpp) as libjpeg decodes it there.
 
 libtiff reads one byte stream: the JPEGInterchangeFormat bytes (tag 513,
 JPEGInterchangeFormatLength bytes or to the end of the file), then each
-strip's bytes in turn. It parses markers from its start while they come
+strile's bytes in turn. It parses markers from its start while they come
 (SOI, APPn and COM skipped, DRI, DQT, DHT, SOF0, SOF1 or SOF3 with its
-checks against the image, SOS); where the stream holds no frame header it
-takes the tables from the tags instead: JPEGQTables (519, 64 bytes each),
-JPEGDCTables and JPEGACTables (520, 521: 16 counts and the values), a
-table a sample, one at an offset shared with the sample before reused,
-under a baseline frame of the strips' width and the image's height with
-component ids 0, 1, 2. It then hands libjpeg SOI, the quantisation
-tables, the DC and AC tables, DRI, the frame and scan headers it rebuilt
-(Ss 0, Se 63, Ah Al 0), what is left of the byte stream with a restart
-marker after each strip but the last, and EOI. Where the image has more
-than one strip, the restart interval is the MCUs of a strip (which must
-be a whole number of MCU rows) unless the stream's DRI says otherwise;
-with one strip it is JPEGRestartInterval's (515), or the stream's.
+checks against the image and the strile, SOS); where the stream holds no
+frame header it takes the tables from the tags instead: JPEGQTables (519,
+64 bytes each), JPEGDCTables and JPEGACTables (520, 521: 16 counts and the
+values), a table a sample, one at an offset shared with the sample before
+reused, under a baseline frame of the strile's width and the strile rows'
+height with component ids 0, 1, 2. It then hands libjpeg SOI, the
+quantisation tables, the DC and AC tables, DRI, the frame and scan
+headers it rebuilt (Ss 0, Se 63, Ah Al 0), what is left of the byte
+stream with a restart marker after each strile but the last, and EOI.
+Where a strile is shorter than the image, the restart interval is the
+MCUs of a strile (which must be a whole number of MCU rows) unless the
+stream's DRI says otherwise; else it is JPEGRestartInterval's (515), or
+the stream's. Tiles lie one under another in a frame one tile wide.
 
 Grey (one sample) comes out as libjpeg decodes it, no colour conversion;
 three samples are YCbCr (libtiff takes photometric RGB, and a missing one,
 for YCbCr) and come out as raw data (jpeg_read_raw_data: each component
 at its own sampling, which the frame gives, whatever YCbCrSubsampling
-says), which tiff.py converts as libtiff's TIFFRGBAImage does. Pillow
-reads the strips in order, and each takes its lines from where libtiff's
-decoding stands (strip_lines): in a big-endian file libtiff skips a strip
-before each strip after the first, so later strips hold later lines, or
-none (a grey row then keeps what Pillow's buffer held, raw YCbCr repeats
-the last iMCU row). Tiles, separate planes, other sample counts and a
-frame whose sampling libtiff would undo inside libjpeg are not ported and
-raise; what libtiff refuses raises too, and so do raw lines of blocks
-libjpeg never writes (libtiff's uninitialised buffer in Pillow).
+says), which tiff.py converts as libtiff's TIFFRGBAImage does. A frame
+whose first factors are not 1, 2 or 4, or whose other components are not
+1x1, libtiff would have libjpeg desubsample, but it then expects factors
+of 1 from jpeg_start_decompress and refuses the frame: so does this
+module. In separate planes each plane is a one-component stream from its
+own SOS (OJPEGReadSecondarySos), 1x1 only (libtiff's RGBA path converts
+no other planes). Pillow reads the striles in order, and each takes its
+lines from where libtiff's decoding stands (strip_lines): in a big-endian
+file libtiff skips a strile before each strile after the first, so later
+striles hold later lines, or none (a grey row then keeps what Pillow's
+buffer held, raw YCbCr repeats the last iMCU row). Other sample counts
+and lossless JPEGProc raise; what libtiff refuses raises too, and so do
+raw lines of blocks libjpeg never writes (libtiff's uninitialised buffer
+in Pillow) and a planar file whose plane 1 has no SOS libtiff finds in
+several striles (libtiff then reads plane 0 on from where its search
+ended: not ported).
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ def _scalar(tags, tag: int, default: int, top: int) -> int:
 
 class _Stream:
     """libtiff's OJPEG byte stream: the JPEGInterchangeFormat bytes, then
-    each strip's, read a byte at a time."""
+    each strip's or tile's, read a byte at a time."""
 
     def __init__(self, parts: list):
         self.parts = parts
@@ -100,10 +108,12 @@ class _Stream:
         if self.part < len(self.parts):
             self.pos = min(self.pos + n, len(self.parts[self.part][1]))
 
-    def rest(self) -> bytes:
-        """What is left, a restart marker after each strip but the last
-        (numbered from RST0), and EOI."""
+    def rest(self, at: tuple) -> bytes:
+        """What is left from the place `at` (part, position) on, a restart
+        marker after each strile but the last (numbered from RST0), and
+        EOI."""
         out, rst = bytearray(), 0
+        self.part, self.pos = at
         self._skip_empty()
         while self.part < len(self.parts):
             kind, part = self.parts[self.part]
@@ -118,8 +128,9 @@ class _Stream:
         return bytes(out) + b"\xff\xd9"
 
 
-def _parts(data, tags, desc) -> list:
-    """(kind, bytes) in libtiff's reading order."""
+def _parts(data, tags, desc, off_tag, cnt_tag) -> list:
+    """(kind, bytes) in libtiff's reading order: the JPEGInterchangeFormat
+    bytes, then each strile's ("strip")."""
     parts = []
     jif = _scalar(tags, 513, 0, (1 << 64) - 1)
     if jif and jif < len(data):
@@ -127,9 +138,11 @@ def _parts(data, tags, desc) -> list:
         if not n or jif + n > len(data):
             n = len(data) - jif
         parts.append(("jif", data[jif:jif + n]))
-    offsets, counts = _list(tags.get(273, ())), _list(tags.get(279, ()))
+    offsets = _list(tags.get(off_tag, ()))
+    counts = _list(tags.get(cnt_tag, ()))
     if len(counts) < len(offsets):
-        raise ValueError(f"{desc}: fewer StripByteCounts than StripOffsets")
+        raise ValueError(f"{desc}: fewer byte counts than offsets of its "
+                         f"strips or tiles")
     for off, n in zip(offsets, counts):
         if not off or off >= len(data):
             parts.append(("strip", b""))
@@ -138,6 +151,24 @@ def _parts(data, tags, desc) -> list:
             n = len(data) - off
         parts.append(("strip", data[off:off + n]))
     return parts
+
+
+def _striles(tags, width, height, desc) -> tuple:
+    """libtiff's striles (OJPEGReadHeaderInfo): (strile width, strile
+    length, the lines of all strile rows, striles a plane, offset and
+    byte count tags): strips of RowsPerStrip (the image's height where
+    missing, not one positive integer or taller), or tiles."""
+    if 322 in tags:
+        tw, th = tags[322], tags.get(323)
+        if not isinstance(tw, int) or not isinstance(th, int) or tw <= 0 \
+                or th <= 0:
+            raise ValueError(f"{desc} with {tw}x{th} tiles")
+        native.check_pixels(f"{desc}'s {tw}x{th} tile", tw, th)
+        down = -(-height // th)
+        return tw, th, down * th, -(-width // tw) * down, 324, 325
+    rps = _list(tags.get(278, height))[0]
+    rps = min(rps, height) if isinstance(rps, int) and rps > 0 else height
+    return width, rps, height, -(-height // rps), 273, 279
 
 
 def _tag_tables(data, tags, n, desc):
@@ -191,26 +222,26 @@ def _tag_tables(data, tags, n, desc):
     return segs, tq, tda
 
 
-def stream(data, tags, width, height, spp, ycbcr, desc):
-    """The JPEG stream libtiff hands libjpeg: (stream bytes, the frame's
-    first sampling factors (h, v))."""
-    if 322 in tags:
-        raise ValueError(f"{desc}: old-style JPEG in tiles is not ported")
-    if tags.get(284, 1) != 1 and len(_list(tags.get(273, ()))) > 1:
-        raise ValueError(f"{desc}: old-style JPEG in separate planes is not "
-                         f"ported")
+def streams(data, tags, width, height, spp, ycbcr, desc):
+    """The JPEG streams libtiff hands libjpeg, one a plane (one for
+    PlanarConfiguration 1, one a sample for 2): (streams, the frame's
+    first sampling factors (h, v), _striles(...)). A plane after the first
+    starts at the next SOS that OJPEGReadSecondarySos finds in the byte
+    stream after the one before it; None where it finds none, or one that
+    names another component than the plane's (libjpeg refuses it)."""
+    sw, sl, total, _, off_tag, cnt_tag = layout = _striles(tags, width,
+                                                           height, desc)
+    planar = spp > 1 and tags.get(284, 1) == 2
+    per_plane = 1 if planar else spp
     if spp not in (1, 3):
         raise ValueError(f"{desc}: SamplesPerPixel {spp} not supported for "
                          f"this compression scheme (libtiff)")
     proc = _scalar(tags, 512, 1, 65535)
     if proc != 1:
         raise ValueError(f"{desc}: JPEGProc {proc} (lossless) is not ported")
-    rps = _list(tags.get(278, height))[0]
-    rps = min(rps, height) if isinstance(rps, int) and rps > 0 else height
     restart = _scalar(tags, 515, 0, 65535)
     dri = None
-    parts = _parts(data, tags, desc)
-    s = _Stream(parts)
+    s = _Stream(_parts(data, tags, desc, off_tag, cnt_tag))
     tables = {}                          # ("dqt" / "dht", id) -> segment
     sof = sos = None
     try:
@@ -265,23 +296,22 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
                     raise ValueError("JPEG compressed data indicates "
                                      "unexpected number of bits per sample")
                 y, x = s.word(), s.word()
-                if y < height:
+                if y < height and y < total:
                     raise ValueError("JPEG compressed data indicates "
                                      "unexpected height")
-                if x != width:
-                    raise ValueError(f"JPEG compressed data indicates a "
-                                     f"width of {x}, not {width}")
+                if x < width and x < sw:
+                    raise ValueError(f"JPEG compressed data indicates "
+                                     f"unexpected width ({x}, not {sw})")
+                if x > sw:
+                    raise ValueError(f"JPEG compressed data image width "
+                                     f"exceeds expected image width ({x}, "
+                                     f"not {sw})")
                 if s.byte() != spp:
                     raise ValueError("Corrupt SOF marker in JPEG data")
                 comps = [s.block(3) for _ in range(spp)]
                 sof = (m, y, x, comps)
             elif m == 0xDA:                                 # SOS
-                if not sof:
-                    raise ValueError("Corrupt SOS marker in JPEG data")
-                if s.word() != 6 + 2 * spp or s.byte() != spp:
-                    raise ValueError("Corrupt SOS marker in JPEG data")
-                sos = [s.block(2) for _ in range(spp)]
-                s.skip(3)                            # Ss, Se, Ah and Al
+                sos = _sos(s, sof, per_plane)
                 break
             else:
                 raise ValueError(f"Unknown marker type {m} in JPEG data")
@@ -292,28 +322,38 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
         hs, vs = _sampling(tags, ycbcr, spp)
         comps = [bytes((c, (hs << 4 | vs) if c == 0 else 0x11, tq[c]))
                  for c in range(spp)]
-        sof = (0xC0, height, width, comps)
-        sos = [bytes((c, tda[c])) for c in range(spp)]
+        sof = (0xC0, total, sw, comps)
+        sos = [bytes((c, tda[c])) for c in range(per_plane)]
         tables = {(kind, key): seg for kind, key, seg in segs}
     if sos is None:                      # no SOS read: OJPEGState's zeros
-        sos = [bytes(2)] * spp
+        sos = [bytes(2)] * per_plane
     marker, y, x, comps = sof
     hs, vs = comps[0][1] >> 4, comps[0][1] & 15
+    factors = ",".join(f"{c[1] >> 4}x{c[1] & 15}" for c in comps)
     if spp == 1 or not ycbcr:
         if comps[0][1] != 0x11:
             raise ValueError(f"{desc}: JPEG compressed data indicates "
                              f"unexpected subsampling values")
     elif hs not in (1, 2, 4) or vs not in (1, 2, 4) or any(
             c[1] != 0x11 for c in comps[1:]):
-        factors = ",".join(f"{c[1] >> 4}x{c[1] & 15}" for c in comps)
-        raise ValueError(f"{desc}: a JPEG sampled {factors}, which libtiff "
-                         f"desubsamples inside libjpeg: not ported")
-    if rps < height:
-        # OJPEGReadHeaderInfo: a restart interval of a strip's MCUs
-        if rps % (vs * 8):
+        # OJPEGSubsamplingCorrect would have libjpeg desubsample, with the
+        # subsampling taken as 1x1, which jpeg_start_decompress's factors
+        # then contradict
+        raise ValueError(
+            f"{desc}: a JPEG sampled {factors}: libtiff refuses it "
+            f"(jpeg_start_decompress() returned max_h_samp_factor = "
+            f"{max(c[1] >> 4 for c in comps)} and max_v_samp_factor = "
+            f"{max(c[1] & 15 for c in comps)}, expected 1 and 1)")
+    elif planar and (hs, vs) != (1, 1):
+        raise ValueError(f"{desc}: a JPEG sampled {factors} in separate "
+                         f"planes: libtiff has no RGBA conversion of YCbCr "
+                         f"subsampled {hs},{vs} (planar)")
+    if sl < height:
+        # OJPEGReadHeaderInfo: a restart interval of a strile's MCUs
+        if sl % (vs * 8):
             raise ValueError(f"{desc}: Incompatible vertical subsampling and "
                              f"image strip/tile length")
-        restart = -(-width // (hs * 8)) * (rps // (vs * 8))
+        restart = -(-sw // (hs * 8)) * (sl // (vs * 8))
     if dri is not None:
         restart = dri
     head = b"\xff\xd8" + b"".join(
@@ -322,11 +362,61 @@ def stream(data, tags, width, height, spp, ycbcr, desc):
         if key in tables)
     if restart:
         head += struct.pack(">HHH", 0xFFDD, 4, restart)
-    head += struct.pack(">BBHBHHB", 0xFF, marker, 8 + 3 * spp, 8, y, x, spp)
-    head += b"".join(comps)
-    head += struct.pack(">HHB", 0xFFDA, 6 + 2 * spp, spp) + b"".join(sos) \
-        + b"\x00\x3f\x00"
-    return head + s.rest(), (hs, vs)
+    # where each plane's data start (OJPEGReadSecondarySos's sos_end),
+    # and whether libjpeg takes its header
+    ends, usable = [(s.part, s.pos)], [True]
+    for k in range(1, spp if planar else 1):
+        sos += [None]
+        at = None
+        if ends[-1] is not None:
+            try:
+                s.part, s.pos = ends[-1]
+                if _find_sos(s):
+                    sos[-1] = _sos(s, sof, 1)[0]
+                    at = (s.part, s.pos)
+            except ValueError:
+                pass
+        ends.append(at)
+        # jpeg_read_header's "Invalid component ID": the plane's reads fail
+        usable.append(at is not None and sos[-1][0] == comps[k][0])
+    out = []
+    for k, at in enumerate(ends):
+        if not usable[k]:
+            out.append(None)
+            continue
+        plane = comps[k:k + 1] if planar else comps
+        out.append(head + struct.pack(
+            ">BBHBHHB", 0xFF, marker, 8 + 3 * per_plane, 8, y, x, per_plane)
+            + b"".join(plane)
+            + struct.pack(">HHB", 0xFFDA, 6 + 2 * per_plane, per_plane)
+            + b"".join(sos[k:k + 1] if planar else sos) + b"\x00\x3f\x00"
+            + s.rest(at))
+    return out, (hs, vs), layout
+
+
+def _sos(s: _Stream, sof, n: int) -> list:
+    """OJPEGReadHeaderInfoSecStreamSos: the Cs, Td / Ta pairs of an SOS of
+    n components, Ss, Se, Ah and Al skipped."""
+    if not sof:
+        raise ValueError("Corrupt SOS marker in JPEG data")
+    if s.word() != 6 + 2 * n or s.byte() != n:
+        raise ValueError("Corrupt SOS marker in JPEG data")
+    sos = [s.block(2) for _ in range(n)]
+    s.skip(3)
+    return sos
+
+
+def _find_sos(s: _Stream) -> bool:
+    """OJPEGReadSecondarySos's search: on to the next 0xFF (0xFF...) 0xDA;
+    False where the stream ends first."""
+    while s.peek() is not None:
+        if s.byte() == 0xFF:
+            m = s.byte() if s.peek() is not None else 0
+            while m == 0xFF and s.peek() is not None:
+                m = s.byte()
+            if m == 0xDA:
+                return True
+    return False
 
 
 def _sampling(tags, ycbcr, spp):
@@ -366,81 +456,137 @@ def strip_lines(height: int, rps: int, per_line: int, swapped: bool):
     return out
 
 
+def _origin(k: int, sw: int, sl: int, width: int, tiled: bool) -> tuple:
+    """The image row and column where strile k of a plane starts."""
+    if not tiled:
+        return k * sl, 0
+    ty, tx = divmod(k, -(-width // sw))
+    return ty * sl, tx * sw
+
+
 def decode(data, tags, width, height, spp, ycbcr, desc):
-    """The image's samples as libtiff hands them to Pillow, strip by strip
-    (strip_lines): grey [height, width] uint8, a line past the decoding's
-    last leaving the row Pillow's strip buffer held; or YCbCr as (Y
-    [height, width], Cb, Cr [ceil(height / v), ceil(width / h)], (h, v)),
-    a line past the last iMCU row read as the conversion buffer keeps that
-    row. Where the source fails at a restart marker that a strip's reads
-    reach (a frame taller than the image may fail past them, unread), grey
-    raises (Pillow's strip reader stops), and so does YCbCr, unless the
-    failing MCU row is reached in the decoding of the last strip, which
-    then reads as zeros (libtiff leaves a strip it fails to decode as it
-    cleared it, and Pillow's RGBA path goes on; a later strip's skip fails
-    again, and Pillow's RGBA path stops there). A line
-    of blocks that libjpeg leaves out of its raw data (past a component's
-    own height) is libtiff's uninitialised buffer: an error here."""
-    jpeg, (hs, vs) = stream(data, tags, width, height, spp, ycbcr, desc)
-    rps = _list(tags.get(278, height))[0]
-    rps = min(rps, height) if isinstance(rps, int) and rps > 0 else height
+    """The image's samples as libtiff hands them to Pillow, strile by
+    strile, each placed where it lies in the image: grey [height, width]
+    uint8, or YCbCr (Y, Cb, Cr) [height, width] uint8 each, the chroma
+    held over each block of the frame's sampling (h, v) within its strile,
+    and (h, v).
+
+    Grey and planes read their striles' lines (strip_lines) as scanlines,
+    a line past the decoding's last keeping what the buffer held: Pillow's
+    strip or tile buffer for grey, libtiff's buffer of the RGBA path's
+    band for planes (zeroed a band). Each strile of a plane restarts its
+    stream (TIFFRGBAImage reads the planes in turn), so it reads from its
+    own lines on; where libtiff finds no SOS of a plane after the first
+    (or a corrupt one, or one libjpeg refuses), that plane's reads fail
+    and its buffer stays zeroed, but where that is plane 1 and the planes
+    have more than one strile, this raises.
+    YCbCr in one plane is raw data, a line past the last iMCU row read as
+    the conversion buffer keeps that row. Where the source fails at a
+    restart marker that a strile's reads reach (a frame taller than the
+    image may fail past them, unread), grey and planes raise (Pillow's
+    strip reader stops), and so does YCbCr, unless the failing MCU row is
+    reached in the decoding of the last strile, which then reads as zeros
+    (libtiff leaves a strile it fails to decode as it cleared it, and
+    Pillow's RGBA path goes on; a later strile's skip fails again, and
+    Pillow's RGBA path stops there). A line of blocks that libjpeg leaves
+    out of its raw data (past a component's own height) is libtiff's
+    uninitialised buffer: an error here."""
+    jpegs, (hs, vs), (sw, sl, _, count, _, _) = streams(
+        data, tags, width, height, spp, ycbcr, desc)
+    tiled = 322 in tags
     swapped = data[:2] == b"MM"
-    try:
-        w, sof_y = native.jpeg_tiff_info(b"", jpeg, 2 if spp == 3 else 0)[:2]
-        if w != width:
-            raise ValueError(f"jpeg_start_decompress() returned image_width "
-                             f"= {w}, expected {width}")
-        if spp == 1:
+    # the striles' lines in one column: strips as they are, each tile full
+    column = count * sl if tiled else height
+    planes = []
+    for jpeg in jpegs if len(jpegs) > 1 or spp == 1 else ():
+        out = np.zeros((height, width), np.uint8)
+        planes.append(out)
+        if jpeg is None and len(planes) == 2 and count > 1:
+            # the failed search or header leaves libtiff's stream where it
+            # ended, and plane 0's session, which it does not restart,
+            # reads its next strile on from there
+            raise ValueError(f"{desc}: libtiff finds no SOS marker of plane "
+                             f"1 that libjpeg takes (OJPEGReadSecondarySos), "
+                             f"and its reading of plane 0 goes on from where "
+                             f"that search ended (not ported)")
+        if jpeg is None:                # its reads fail: zeros
+            continue
+        try:
+            w, sof_y = native.jpeg_tiff_info(b"", jpeg, 0)[:2]
+            if w != sw:
+                raise ValueError(f"jpeg_start_decompress() returned "
+                                 f"image_width = {w}, expected {sw}")
             rows, failed = native.jpeg_tiff_lines(jpeg)
+        except ValueError as e:
+            raise ValueError(f"{desc}: {e}") from None
+        if len(jpegs) > 1:              # a plane: each strile from its own
+            strips = [(k * sl, k * sl, k * sl, min(sl, column - k * sl))
+                      for k in range(-(-column // sl))]
         else:
-            (y, cb, cr), failed = native.jpeg_tiff_planes(jpeg)
-    except ValueError as e:
-        raise ValueError(f"{desc}: {e}") from None
-    strips = strip_lines(height, rps, 1 if spp == 1 else vs, swapped)
-    if spp == 1:
-        # grey: Pillow's strip reader stops at a strip whose reads reach the
+            strips = strip_lines(column, sl, 1, swapped)
+        # Pillow's strip reader stops at a strile whose reads reach the
         # failing MCU row (those past the frame's lines read nothing)
         if failed >= 0 and any(min(first + n, sof_y) > 8 * failed
                                for _, _, first, n in strips):
             raise ValueError(f"{desc}: LibJpeg: Unexpected error (libtiff's "
                              f"old-style JPEG source does not resynchronise "
                              f"at a restart marker)")
-        out = np.empty((height, width), np.uint8)
-        buf = np.zeros((rps, width), np.uint8)       # Pillow's strip buffer
-        for top, _, first, n in strips:
+        buf = np.zeros((sl, sw), np.uint8)
+        for k, (_, _, first, n) in enumerate(strips):
+            if len(jpegs) > 1:
+                buf[:] = 0
             for j in range(n):
                 if first + j < sof_y:
                     buf[j] = rows[first + j]
-            out[top:top + n] = buf[:n]
-        return out
+            r0, c0 = _origin(k, sw, sl, width, tiled)
+            part = buf[:min(n, height - r0), :width - c0]
+            out[r0:r0 + part.shape[0], c0:c0 + part.shape[1]] = part
+    if spp == 1:
+        return planes[0]
+    if planes:
+        return (*planes, (hs, vs))
+    jpeg = jpegs[0]
+    try:
+        w, sof_y = native.jpeg_tiff_info(b"", jpeg, 2)[:2]
+        if w != sw:
+            raise ValueError(f"jpeg_start_decompress() returned image_width "
+                             f"= {w}, expected {sw}")
+        (y, cb, cr), failed = native.jpeg_tiff_planes(jpeg)
+    except ValueError as e:
+        raise ValueError(f"{desc}: {e}") from None
+    strips = strip_lines(column, sl, vs, swapped)
     total = cb.shape[0]                     # the iMCU rows' lines
     y_blocks, c_blocks = -(-sof_y // 8), -(-(-(-sof_y // vs)) // 8)
-    cw = -(-width // hs)
-    out_y = np.zeros((height, width), np.uint8)
-    out_c = np.zeros((2, -(-height // vs), cw), np.uint8)
+    cw = -(-sw // hs)
+    out = np.zeros((3, height, width), np.uint8)
     for k, (top, start, first, n) in enumerate(strips):
         if failed >= 0 and max(start, 8 * failed) < min(first + n, total):
-            # libtiff fails the strip whose reads reach the failing row;
-            # where a skip of OJPEGPreDecode reaches it, or a strip follows
-            # (whose skip calls libjpeg again), TIFFFillStrip fails and
-            # Pillow's TIFFRGBAImageGet with it
+            # libtiff fails the strile whose reads reach the failing row;
+            # where a skip of OJPEGPreDecode reaches it, or a strile
+            # follows (whose skip calls libjpeg again), TIFFFillStrip fails
+            # and Pillow's TIFFRGBAImageGet with it
             if 8 * failed < first or k + 1 < len(strips):
                 raise ValueError(f"{desc}: LibJpeg: Unexpected error "
                                  f"(libtiff's old-style JPEG source does not "
                                  f"resynchronise at a restart marker, and "
-                                 f"the strip after the one that fails cannot "
-                                 f"be read)")
+                                 f"the strile after the one that fails "
+                                 f"cannot be read)")
             break
+        rows = min(sl, column - top)
+        tile = np.zeros((3, n * vs, sw), np.uint8)
         for j in range(n):
             i = first + j
             if i >= total:                    # the last iMCU row again
                 i = total - 8 + i % 8
             if (i * vs) // 8 >= y_blocks or i // 8 >= c_blocks:
-                raise ValueError(f"{desc}: a strip reads raw data past a "
+                raise ValueError(f"{desc}: a strile reads raw data past a "
                                  f"component's blocks, which libjpeg leaves "
                                  f"unwritten (undefined in Pillow)")
-            r = top + j * vs
-            k = min(vs, height - r)
-            out_y[r:r + k] = y[i * vs:i * vs + k, :width]
-            out_c[:, top // vs + j] = (cb[i, :cw], cr[i, :cw])
-    return out_y, out_c[0], out_c[1], (hs, vs)
+            tile[0, j * vs:(j + 1) * vs] = y[i * vs:(i + 1) * vs, :sw]
+            for c, plane in ((1, cb), (2, cr)):
+                tile[c, j * vs:(j + 1) * vs] = np.repeat(
+                    plane[i, :cw], hs)[:sw]
+        r0, c0 = _origin(k, sw, sl, width, tiled)
+        part = tile[:, :min(rows, height - r0), :width - c0]
+        out[:, r0:r0 + part.shape[1], c0:c0 + part.shape[2]] = part
+    return out[0], out[1], out[2], (hs, vs)

@@ -31,7 +31,7 @@ Pillow's table that this module converts. Three readers follow Pillow's:
                         RGB there), each stream as tall as its strip (a last
                         strip's may run past the image) or a whole tile;
           ThunderScan 32809   native library (cge_raster.cpp), 4-bit
-                        samples in strips;
+                        samples in strips (libtiff has no tile decoder);
         Predictor 2 or 3 undone row by row for LZW, Deflate, LZMA and ZSTD
         (libtiff ignores it for the others), samples in little-endian
         order, then Pillow's raw mode with ";16B" and ";16L" (and "I;16")
@@ -49,10 +49,11 @@ Pillow's table that this module converts. Three readers follow Pillow's:
         ZSTD one: that raises). JPEG in planes is a one-component stream a
         plane.
   old-style JPEG (6)   ojpeg.py: the JPEG stream libtiff's OJPEG codec
-        builds (from a JPEGInterchangeFormat header, the strips' own
-        markers or the tables in tags) through cge_jpeg.cpp; grey as it
-        comes, YCbCr (Pillow takes every such file as YCbCr; libtiff takes
-        photometric RGB as YCbCr) as raw data through the RGBA path.
+        builds (from a JPEGInterchangeFormat header, the strips' or tiles'
+        own markers or the tables in tags; a stream a plane in separate
+        planes) through cge_jpeg.cpp; grey as it comes, YCbCr (Pillow
+        takes every such file as YCbCr; libtiff takes photometric RGB as
+        YCbCr) as raw data through the RGBA path.
 
 `convert("RGB")` then: 1-bit to 0 / 255, 2- and 4-bit grey scaled by 85 and
 17, MinIsWhite inverted where the raw mode says so, the palette from the
@@ -68,9 +69,10 @@ Pillow's exif_transpose does.
 What Pillow or libtiff refuses raises a ValueError that names the case:
 SGILog (34676, 34677: Pillow has no mode for LogL or LogLuv, and libtiff's
 codec takes nothing else), WebP in TIFF (50001: Pillow's libtiff is built
-without it), a key that Pillow does not know. So do the cases not ported:
-the other compressions, old-style JPEG and ThunderScan in tiles or
-planes. So do three cases where Pillow
+without it), a key that Pillow does not know, ThunderScan in tiles
+(libtiff has no decoder for them), an old-style JPEG frame libtiff would
+have libjpeg desubsample. So do the cases not ported: the other
+compressions. So do three cases where Pillow
 returns pixels that no decoder wrote, or that libzstd's internals leave:
 a Group 4 strip that ends before its last row, a JPEG stream smaller than
 its strip or tile, and a ZSTD strip of the RGBA path that fails.
@@ -193,6 +195,38 @@ _SCALAR = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
 _REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
+def ifd_entries(data: bytes, pos: int, order: str, sizes: dict,
+                big: bool = False):
+    """The entries of the IFD at data[pos], in file order: (tag, type,
+    count, the value's count x sizes[type] bytes, or None where its value
+    lies out of line and is cut by the end of data); entries of a type not
+    in sizes are left out. struct.error where the count or an entry is
+    cut (Pillow's ImageFileDirectory_v2.load stops there, and at a value
+    cut short)."""
+    count_fmt, entry_fmt, inline = ("Q", "HHQ8s", 8) if big else \
+        ("H", "HHL4s", 4)
+    (n,) = struct.unpack_from(order + count_fmt, data, pos)
+    pos += struct.calcsize("<" + count_fmt)
+    for _ in range(n):
+        tag, typ, count, value = struct.unpack_from(order + entry_fmt, data,
+                                                    pos)
+        pos += struct.calcsize("<" + entry_fmt)
+        if typ not in sizes:
+            continue
+        size = count * sizes[typ]
+        if size > inline:
+            (off,) = struct.unpack(order + ("Q" if big else "L"), value)
+            value = data[off:off + size]
+            yield tag, typ, count, value if len(value) == size else None
+        else:
+            yield tag, typ, count, value[:size]
+
+
+# the value sizes of the field types the TIFF reader takes
+_SIZES = {typ: struct.calcsize("<" + code) for typ, code in _FIELD.items()}
+_SIZES.update({5: 8, 10: 8})
+
+
 def _ifd(data: bytes):
     """(byte order, tags {tag: value}) of the first IFD."""
     head = data[:8]
@@ -206,35 +240,21 @@ def _ifd(data: bytes):
         pos = struct.unpack_from(order + "Q", data, 8)[0]
     else:
         pos = struct.unpack_from(order + "L", data, 4)[0]
-    count_fmt, entry_fmt, inline = ("Q", "HHQ8s", 8) if big else \
-        ("H", "HHL4s", 4)
+    tags = {}
     try:
-        (n,) = struct.unpack_from(order + count_fmt, data, pos)
-        pos += struct.calcsize("<" + count_fmt)
-        tags = {}
-        for _ in range(n):
-            tag, typ, count, value = struct.unpack_from(order + entry_fmt,
-                                                        data, pos)
-            pos += struct.calcsize("<" + entry_fmt)
-            if typ not in _FIELD and typ not in (5, 10):
-                continue
-            size = count * (8 if typ in (5, 10) else 1 if typ == 7 else
-                            struct.calcsize("<" + _FIELD[typ]))
-            if size > inline:
-                (off,) = struct.unpack(order + ("Q" if big else "L"), value)
-                value = data[off:off + size]
-                if len(value) != size:
-                    continue                    # Pillow skips such a tag
+        for tag, typ, count, value in ifd_entries(data, pos, order, _SIZES,
+                                                  big):
+            if value is None:
+                break             # Pillow's loader stops at a value cut short
             if typ in (5, 10):               # libtiff's floats of rationals
                 pairs = struct.unpack(order + ("L" if typ == 5 else "l")
-                                      * (2 * count), value[:size])
+                                      * (2 * count), value)
                 vals = tuple(float(np.float32(a) / np.float32(b)) if b else
                              0.0 for a, b in zip(pairs[::2], pairs[1::2]))
             elif typ == 7:                   # UNDEFINED: the bytes
-                vals = (bytes(value[:size]),)
+                vals = (bytes(value),)
             else:
-                vals = struct.unpack(order + _FIELD[typ] * count,
-                                     value[:size])
+                vals = struct.unpack(order + _FIELD[typ] * count, value)
             if vals:
                 tags[tag] = vals[0] if (tag in _SCALAR and count == 1) or \
                     typ == 7 else vals
@@ -778,9 +798,7 @@ def _read_ojpeg(data, tags, width, height, spp, bits, desc) -> np.ndarray:
     if (hs, vs) not in YCBCR_CONTIG:
         raise ValueError(f"{desc}: libtiff has no RGBA conversion of YCbCr "
                          f"subsampled {hs},{vs}")
-    up = [np.repeat(np.repeat(c, vs, 0), hs, 1)[:height, :width]
-          for c in (cb, cr)]
-    return _ycbcr_to_rgb(tabs, y, *up)
+    return _ycbcr_to_rgb(tabs, y, cb, cr)
 
 
 def _ycbcr_to_rgb(tabs, y, cb, cr) -> np.ndarray:
@@ -936,10 +954,9 @@ def _read_libtiff(data, tags, px, mode, raw, planar, bits, extra, comp,
             raise ValueError(f"{desc}: Wrong bitspersample value ({bps}), "
                              f"libtiff's Thunder decoder only supports 4 "
                              f"bits per sample")
-        if tiled or spp != 1:
-            raise ValueError(f"{desc}: ThunderScan in tiles or of {spp} "
-                             f"samples a pixel is not ported (libtiff decodes "
-                             f"an image width a row there)")
+        if tiled:
+            raise ValueError(f"{desc}: ThunderScan tile decoding is not "
+                             f"implemented (libtiff)")
     if comp in FAX:
         if bps != 1 or spp != 1:
             raise ValueError(f"{desc}: libtiff's CCITT decoders take 1-bit "

@@ -3150,6 +3150,18 @@ TEX_PCD = "pcd_texels_o0.pcd"
 # in band 2 of RGB is phase 18c's IPTC JPEG row
 TEX_SCIENCE_DIR = os.path.join(TEXTURES, "science")
 TEX_IPTC_JPEG = "iptc_jpeg_band2_crop256.iim"
+# small JPEGs with EXIF and MPF segments, MPOs, and old-style JPEG TIFFs in
+# tiles, planes and other samplings (make_textures.jpeg_corner_fixtures),
+# those JAX's loader refuses listed without a hash, with a manifest of their
+# own; its tiled old-style JPEG TIFF of the texels (YCbCr 2x2, quality 85,
+# 512x256 tiles) is phase 18c's, and so is an MPO whose frame 0 is the
+# 1024x1024 JPEG (mpo_of)
+TEX_CORNERS_DIR = os.path.join(TEXTURES, "jpeg_corners")
+TEX_TILED_OJPEG = "tiff_ojpeg_ycbcr22_tiles512x256_q85_1024.tif"
+TEX_MPO_SECOND = "jpeg_baseline_420_tiny.jpg"
+CORNER_KINDS = (
+    ("JPEG EXIF / MPF", ("jpeg_exif_", "jpeg_mpf_", "mpo_")),
+    ("old-style JPEG tiles, planes, samplings", ("tiff_ojpeg_",)))
 # the tail's fixtures by kind (name prefixes), for phase 18a's decode times
 TAIL_KINDS = (
     ("old-style JPEG", ("tiff_ojpeg_",)),
@@ -3161,8 +3173,8 @@ TAIL_KINDS = (
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
-    pillow_tail/, tail_chip/, x11_pnm/, legacy/ and science/) through the
-    port's
+    pillow_tail/, tail_chip/, x11_pnm/, legacy/, science/ and
+    jpeg_corners/) through the port's
     load_image, its u8 pixels' SHA-256 against its manifest's, or, where
     the manifest has no hash (JAX's loader refuses the file), a ValueError
     naming the file; (name, kind, host ms) a fixture."""
@@ -3174,7 +3186,8 @@ def texture_fixtures() -> list:
 
     entries = []
     for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR,
-                   TEX_X11_DIR, TEX_LEGACY_DIR, TEX_SCIENCE_DIR):
+                   TEX_X11_DIR, TEX_LEGACY_DIR, TEX_SCIENCE_DIR,
+                   TEX_CORNERS_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
@@ -3219,6 +3232,28 @@ def rgb332(texels):
     palette = np.stack([(i >> 5 & 7) * 255 // 7, (i >> 2 & 7) * 255 // 7,
                         (i & 3) * 255 // 3], axis=1).astype(np.uint8)
     return idx, palette
+
+
+def mpo_of(first: bytes, second: bytes) -> bytes:
+    """An MPO of two JPEG files: an APP2 MPF segment after the first's SOI
+    (a little-endian MP index: version, 2 images, their MP entries, the
+    second's offset from the index's TIFF header), then the second file;
+    Pillow decodes frame 0, the first file's image."""
+    import struct
+
+    head = 2 + 2 + 2 + 4                    # SOI, APP2, length, "MPF\0"
+    body_len = 8 + 2 + 3 * 12 + 4 + 32
+    size0 = len(first) + 2 + 2 + 4 + body_len
+    entries = struct.pack("<IIIHH", 0x20030000, size0, 0, 0, 0) + \
+        struct.pack("<IIIHH", 0x00020002, len(second), size0 - head, 0, 0)
+    ifd = b"II*\0" + struct.pack("<IH", 8, 3) + b"".join(
+        struct.pack("<HHI", tag, typ, count) + value for tag, typ, count,
+        value in ((0xB000, 7, 4, b"0100"), (0xB001, 4, 1,
+                                            struct.pack("<I", 2)),
+                  (0xB002, 7, 32, struct.pack("<I", 8 + 2 + 36 + 4)))) + \
+        bytes(4) + entries
+    app2 = b"\xff\xe2" + struct.pack(">H", 2 + 4 + len(ifd)) + b"MPF\0" + ifd
+    return first[:2] + app2 + first[2:] + second
 
 
 def texture_writers(texels):
@@ -3314,10 +3349,19 @@ def texture_writers(texels):
             f"{int(err.max())}, mean {float(err.mean()):.3f}")
         out[name] = (data, held)
     for folder, name in ((TEX_LEGACY_DIR, TEX_PCD),
-                         (TEX_SCIENCE_DIR, TEX_IPTC_JPEG)):
+                         (TEX_SCIENCE_DIR, TEX_IPTC_JPEG),
+                         (TEX_CORNERS_DIR, TEX_TILED_OJPEG)):
         with open(os.path.join(folder, name), "rb") as f:
             data = f.read()
         out[name] = (data, image_io.decode_image(data))  # 18a holds it
+    err = np.abs(out[TEX_TILED_OJPEG][1].astype(int) - texels)
+    log(f"  18c: {TEX_TILED_OJPEG}'s texels against the JPEG's: max abs "
+        f"error {int(err.max())}, mean {float(err.mean()):.3f}")
+    parts = []
+    for name in (TEX_JPEG, TEX_MPO_SECOND):
+        with open(os.path.join(TEXTURES, name), "rb") as f:
+            parts.append(f.read())
+    out["texels.mpo"] = (mpo_of(*parts), texels)   # frame 0: the JPEG's
     return out
 
 
@@ -3809,8 +3853,9 @@ def eleventh_path(device) -> dict:
     SGI, PCX, QOI, Sun raster, BLP, FTEX, ICO, JPEG 2000, ICNS, XBM, XPM,
     PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint files, Pillow's
     other PNM modes, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and
-    IPTC files of them, and an IPTC stream of a grey JPEG crop in its
-    green band (new_format_frames)."""
+    IPTC files of them, an IPTC stream of a grey JPEG crop in its green
+    band, a tiled old-style JPEG TIFF and an MPO whose frame 0 is the
+    JPEG (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3832,8 +3877,9 @@ def eleventh_path(device) -> dict:
         f"old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM, XBM and XPM "
         f"(palette and RGB) crops, PIXAR, a GIMP brush, a 3-3-2 FLC and XV "
         f"thumbnail, a Windows Paint crop, a 768x512 PhotoCD, an RGB IM, "
-        f"FITS, SPIDER, McIdas, IM Tools and raw IPTC of their green, and an "
-        f"IPTC of a grey JPEG crop in band 2 | {SMI['line']} (decode and "
+        f"FITS, SPIDER, McIdas, IM Tools and raw IPTC of their green, an "
+        f"IPTC of a grey JPEG crop in band 2, an old-style JPEG TIFF in "
+        f"512x256 tiles and an MPO of the JPEG | {SMI['line']} (decode and "
         f"load times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
@@ -3845,11 +3891,15 @@ def eleventh_path(device) -> dict:
                     and not (kind == "arithmetic" and "_smooth_" in n))
         log(f"  JPEG {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms "
             f"a file, median {ms[len(ms) // 2]:.2f} ms")
-    for kind, prefixes in TAIL_KINDS:
-        ms = sorted(t for n, _, t in times if n.startswith(prefixes))
-        log(f"  {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms a "
-            f"file, median {ms[len(ms) // 2]:.2f} ms")
-    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG):
+    with open(os.path.join(TEX_CORNERS_DIR, "manifest.json")) as f:
+        corners = {e["name"] for e in json.load(f)["files"]}
+    for kinds, ours in ((TAIL_KINDS, False), (CORNER_KINDS, True)):
+        for kind, prefixes in kinds:
+            ms = sorted(t for n, _, t in times if n.startswith(prefixes)
+                        and (n in corners) == ours and n != TEX_TILED_OJPEG)
+            log(f"  {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms a "
+                f"file, median {ms[len(ms) // 2]:.2f} ms")
+    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG, TEX_TILED_OJPEG):
         log(f"  18a: {name}: decode "
             f"{next(t for n, _, t in times if n == name):.2f} ms (host)")
     log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
@@ -3929,8 +3979,9 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
     (J2K and JP2) and ICNS files, a L*a*b* TIFF, a JP2 with Part 2
     markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, XBM
     and XPM crops, PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint
-    files, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and IPTC files
-    (texture_writers), each one first frame, timed,
+    files, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and IPTC files,
+    a tiled old-style JPEG TIFF and an MPO (texture_writers), each one
+    first frame, timed,
     against the PNG-textured frame of the same texels (rendered once for
     each set of texels), its K1 and K2 launches against (b)'s
     (first_launches); {file: (decode ms, load s, first frame ms)}."""

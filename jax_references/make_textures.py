@@ -544,10 +544,45 @@ def thunder_row(row, rng) -> bytes:
     return bytes(out)
 
 
+def thunder_tiles(px: np.ndarray, tile, rng) -> list:
+    """ThunderScan tiles of 4-bit pixels px [h, w]: each (edge-padded)
+    tile's rows coded by thunder_row."""
+    h, w = px.shape
+    tw, th = tile
+    return [b"".join(thunder_row(r, rng) for r in np.pad(
+        px[ty:ty + th, tx:tx + tw],
+        ((0, max(0, ty + th - h)), (0, max(0, tx + tw - w))), mode="edge"))
+        for ty in range(0, h, th) for tx in range(0, w, tw)]
+
+
+def _scan_parts(jpeg: bytes) -> tuple:
+    """A JPEG -> (its bytes to the end of the first SOS; each scan as
+    (the marker segments before it, through its SOS, b"" for the first;
+    its entropy-coded data, EOI kept at the end of the last))."""
+    sos = jpeg.index(b"\xff\xda")
+    head_end = sos + 2 + struct.unpack_from(">H", jpeg, sos + 2)[0]
+    scans, prefix, pos = [], b"", head_end
+    while True:
+        start = pos
+        while not (jpeg[pos] == 0xFF and jpeg[pos + 1] not in (
+                0x00, 0xD0, 0xD1, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7)):
+            pos += 1
+        if jpeg[pos + 1] == 0xD9:
+            scans.append((prefix, jpeg[start:]))
+            return jpeg[:head_end], scans
+        scans.append((prefix, jpeg[start:pos]))
+        seg_start = pos
+        while jpeg[pos + 1] != 0xDA:
+            pos += 2 + struct.unpack_from(">H", jpeg, pos + 2)[0]
+        pos += 2 + struct.unpack_from(">H", jpeg, pos + 2)[0]
+        prefix = jpeg[seg_start:pos]
+
+
 def ojpeg_tiff(img: np.ndarray, photometric: int, *, form: str = "stream",
                rows_per_strip=None, subsampling: int = 0, quality: int = 80,
                restart: int = 0, order: str = "<", extra_tags=(),
-               jif_length: bool = True) -> bytes:
+               jif_length: bool = True, tile=None, planar: int = 1,
+               sampling=None, subsampling_tag=None) -> bytes:
     """An old-style JPEG TIFF (compression 6) of img [h, w, k] u8: one
     baseline JPEG of the whole image that Pillow's writer makes (grey at
     photometric 0 or 1, else JFIF YCbCr at subsampling 0, 1 or 2 for 1x1,
@@ -563,39 +598,76 @@ def ojpeg_tiff(img: np.ndarray, photometric: int, *, form: str = "stream",
                 JPEGRestartInterval with restart) from the stream's tables,
                 the strips its scan data.
     The restart markers between strips are left out (libtiff puts them
-    back); those inside a strip stay."""
+    back); those inside a strip stay.
+    tile (width, height): tiles, the stream's frame one tile wide and the
+    tiles (edge-padded) one under another in the order libtiff reads
+    them, a restart marker after each. planar 2: separate planes, the
+    JPEG one scan a component (libjpeg-turbo's compressor), each plane's
+    strips from its scan, the first after the marker segments and SOS
+    that start it (restart markers a strip's blocks apart, 1x1 sampling
+    for several strips). sampling: the components' (h, v) factors through
+    libjpeg-turbo's compressor (YCbCr, or grey); subsampling_tag: the
+    YCbCrSubsampling tag's (h, v) in place of the frame's, or () for
+    none."""
     h, w, k = img.shape
-    kw = dict(quality=quality, optimize=False)
     grey = photometric in (0, 1)
-    if not grey:
-        kw["subsampling"] = subsampling
-    hs, vs = (1, 1) if grey else {0: (1, 1), 1: (2, 1), 2: (2, 2)}[
-        subsampling]
-    rps = rows_per_strip or h
-    if rps < h:
+    if sampling is not None:
+        hs, vs = sampling[0]
+    else:
+        hs, vs = (1, 1) if grey else {0: (1, 1), 1: (2, 1), 2: (2, 2)}[
+            subsampling]
+    src, rps = img, rows_per_strip or h
+    if tile:
+        tw, rps = tile
+        src = np.concatenate([
+            np.pad(img[ty:ty + rps, tx:tx + tw],
+                   ((0, max(0, ty + rps - h)), (0, max(0, tx + tw - w)),
+                    (0, 0)), mode="edge")
+            for ty in range(0, h, rps) for tx in range(0, w, tw)])
+    split = rps < src.shape[0]
+    if split and restart:
+        raise ValueError("restart is for a single strip")
+    if planar == 2 or sampling is not None:
+        kw = dict(quality=quality, colorspace="grey" if grey else "ycc")
+        if sampling is not None:
+            kw["sampling"] = sampling
+        if planar == 2:
+            kw["scans"] = [((c,), 0, 63, 0, 0) for c in range(k)]
+            if split:
+                kw["restart"] = -(-src.shape[1] // 8) * (rps // 8)
+        elif split:
+            kw["restart_rows"] = rps // (8 * vs)
         if restart:
-            raise ValueError("restart is for a single strip")
-        kw["restart_marker_rows"] = rps // (8 * vs)
-    elif restart:
-        kw["restart_marker_blocks"] = restart
-    im = PILImage.fromarray(img[..., 0] if grey else img,
-                            "L" if grey else "RGB")
-    jpeg = _pillow(im, "JPEG", **kw)
-    sos = jpeg.index(b"\xff\xda")
-    head_end = sos + 2 + struct.unpack_from(">H", jpeg, sos + 2)[0]
-    head, scan = jpeg[:head_end], jpeg[head_end:]
-    # the scan split at the restart markers that end strips
-    pieces = [scan]
-    if rps < h:
-        pieces, start = [], 0
-        for i in range(len(scan) - 1):
-            if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
-                pieces.append(scan[start:i])
-                start = i + 2
-        pieces.append(scan[start:])
+            kw["restart"] = restart
+        jpeg = jpeg_encode(src[..., :1] if grey else src, **kw)
+    else:
+        kw = dict(quality=quality, optimize=False)
+        if not grey:
+            kw["subsampling"] = subsampling
+        if split:
+            kw["restart_marker_rows"] = rps // (8 * vs)
+        elif restart:
+            kw["restart_marker_blocks"] = restart
+        im = PILImage.fromarray(src[..., 0] if grey else src,
+                                "L" if grey else "RGB")
+        jpeg = _pillow(im, "JPEG", **kw)
+    head, scans = _scan_parts(jpeg)
+    # each scan split at the restart markers that end strips
+    planes = []
+    for prefix, scan in scans:
+        pieces = [scan]
+        if split:
+            pieces, start = [], 0
+            for i in range(len(scan) - 1):
+                if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
+                    pieces.append(scan[start:i])
+                    start = i + 2
+            pieces.append(scan[start:])
+        planes.append([prefix + pieces[0]] + pieces[1:])
+    pieces = [p for plane in planes for p in plane]
     tags = list(extra_tags)
-    if not grey:
-        tags.append((530, 3, (hs, vs)))
+    if not grey and subsampling_tag != ():
+        tags.append((530, 3, subsampling_tag or (hs, vs)))
     blobs = []
     if form == "stream":
         strips = [head + pieces[0]] + pieces[1:]
@@ -639,7 +711,8 @@ def ojpeg_tiff(img: np.ndarray, photometric: int, *, form: str = "stream",
         raise ValueError(f"form {form}")
     return tiff_file(np.zeros((h, w, k), np.uint8), 8, photometric,
                      order=order, compression=6, rows_per_strip=rps,
-                     raw_strips=strips, extra_tags=tags, blobs=blobs)
+                     raw_strips=strips, extra_tags=tags, blobs=blobs,
+                     tile=tile, planar=planar)
 
 
 def ycbcr_units(px: np.ndarray, hs: int, vs: int) -> np.ndarray:
@@ -1125,6 +1198,58 @@ def adobe_transform_1(jfif_jpeg: bytes) -> bytes:
     app14 = b"\xff\xee" + struct.pack(">H", 14) + b"Adobe" + bytes(
         (0, 100, 0, 0, 0, 0, 1))
     return jfif_jpeg[:2] + app14 + jfif_jpeg[4 + n:]
+
+
+def tiff_directory(entries, order: str = "<", head=None) -> bytes:
+    """A TIFF header (of `order`, or the bytes `head`) with its offset of 8
+    and one IFD of entries (tag, type, count, value bytes), each value of
+    over 4 bytes placed after the IFD (its offset from the header's
+    start), an `int` value its offset as given; a next-IFD offset of 0."""
+    head = head or (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
+        order + "I", 8)
+    tail = bytearray()
+    body = struct.pack(order + "H", len(entries))
+    at = 8 + 2 + 12 * len(entries) + 4
+    for tag, typ, count, value in entries:
+        if isinstance(value, int):
+            field = struct.pack(order + "I", value)
+        elif len(value) <= 4:
+            field = value.ljust(4, b"\0")
+        else:
+            field = struct.pack(order + "I", at + len(tail))
+            tail += value
+        body += struct.pack(order + "HHI", tag, typ, count) + field
+    return head + body + struct.pack(order + "I", 0) + bytes(tail)
+
+
+def jpeg_with_segments(jpeg: bytes, segments, jfif: bool = False) -> bytes:
+    """A Pillow JPEG with its JFIF APP0 dropped (or kept, jfif) and the
+    segments (marker, payload) put after it, before the rest."""
+    assert jpeg[2:4] == b"\xff\xe0"
+    n = struct.unpack(">H", jpeg[4:6])[0]
+    head = jpeg[:4 + n] if jfif else jpeg[:2]
+    return head + b"".join(
+        bytes((0xFF, m)) + struct.pack(">H", len(p) + 2) + p
+        for m, p in segments) + jpeg[4 + n:]
+
+
+def exif_segment(entries, order: str = "<") -> tuple:
+    """An APP1 Exif segment of tiff_directory(entries)."""
+    return 0xE1, b"Exif\0\0" + tiff_directory(entries, order)
+
+
+def mpf_segment(entries, order: str = "<", head=None) -> tuple:
+    """An APP2 MPF segment of tiff_directory(entries)."""
+    return 0xE2, b"MPF\0" + tiff_directory(entries, order, head)
+
+
+def mp_entries(offsets_sizes, order: str = "<", fmt: int = 0) -> bytes:
+    """MP entries of (data offset, size) images: attribute (the image data
+    format `fmt` in bits 24-26, the first a baseline primary image), size,
+    offset, two entry numbers of 0."""
+    return b"".join(struct.pack(order + "IIIHH", (fmt << 24) | (
+        0x030000 if k == 0 else 0x020002), size, off, 0, 0)
+        for k, (off, size) in enumerate(offsets_sizes))
 
 
 def fixtures() -> dict:
@@ -4307,6 +4432,188 @@ def write_legacy() -> None:
           f"in {os.path.relpath(LEGACY_DIR, REPO)}")
 
 
+CORNERS_DIR = os.path.join(OUT, "jpeg_corners")
+CORNERS_SEED = 29
+CORNERS_OJPEG = "tiff_ojpeg_ycbcr22_tiles512x256_q85_1024.tif"
+# the JPEG segment cases: (name, segments, JFIF kept, JAX's loader opens)
+_SHORT_MPF = (0xB001, 4, 1, struct.pack("<I", 2)), (0xB002, 7, 20,
+                                                     bytes(20))
+
+
+def _xres(typ: int, count: int, value: bytes, unit=True) -> tuple:
+    """An Exif segment of ResolutionUnit 2 (or none) and XResolution."""
+    entries = [(0x0128, 3, 1, struct.pack("<H", 2))] if unit else []
+    return exif_segment(entries + [(0x011A, typ, count, value)])
+
+
+def jpeg_corner_fixtures(rng, texels: np.ndarray) -> dict:
+    """The cases of JpegImagePlugin's _read_dpi_from_exif and jpeg_factory
+    (_getmp) and of libtiff's old-style JPEG in tiles, in separate planes
+    and of other samplings, and ThunderScan in tiles or of two samples
+    (each refused where JAX's loader refuses it); and the chip path's
+    tiled old-style JPEG TIFF of BIG's texels (YCbCr 2x2 at quality 85,
+    512x256 tiles)."""
+    out = {}
+    base = _pillow(PILImage.fromarray(smooth_image(rng, 8, 8, 25.0)),
+                   "JPEG", quality=90)
+    seg = {
+        "jpeg_mpf_short_entries_8x8.jpg": ([mpf_segment(_SHORT_MPF)], False,
+                                           False),
+        "jpeg_exif_xres_ascii_7_8x8.jpg": ([_xres(2, 2, b"7\0")], False,
+                                           False),
+        "jpeg_exif_xres_ascii_empty_8x8.jpg": ([_xres(2, 1, b"\0")], False,
+                                               False),
+        "jpeg_exif_xres_ascii_72_8x8.jpg": ([_xres(2, 3, b"72\0")], False,
+                                            True),
+        "jpeg_exif_xres_byte_8x8.jpg": ([_xres(1, 1, b"\x48")], False,
+                                        False),
+        "jpeg_exif_xres_undefined_zero_8x8.jpg": (
+            [_xres(7, 2, b"\x48\0")], False, True),
+        "jpeg_exif_xres_ascii_letter_8x8.jpg": ([_xres(2, 2, b"x\0")],
+                                                False, True),
+        "jpeg_exif_xres_rational_8x8.jpg": (
+            [_xres(5, 1, struct.pack("<II", 72, 1))], False, True),
+        "jpeg_exif_short_xres_jfif_dpi_8x8.jpg": ([_xres(2, 2, b"7\0")],
+                                                  True, True),
+        "jpeg_exif_short_xres_no_unit_8x8.jpg": (
+            [_xres(2, 2, b"7\0", unit=False)], False, True),
+        "jpeg_exif_short_xres_cut_8x8.jpg": (
+            [(0xE1, _xres(2, 2, b"7\0")[1][:6 + 8 + 2 + 12])], False, True),
+        # the second Exif segment's directory after the first's "Exif\0\0"
+        "jpeg_exif_two_segments_8x8.jpg": (
+            [(0xE1, b"Exif\0\0"), _xres(2, 2, b"7\0")], False, False),
+        "jpeg_mpf_ultra_hdr_8x8.jpg": (
+            [(0xE1, b"http://ns.adobe.com/xap/1.0/\0<x:xmpmeta hdrgm:"
+              b"Version=\"1.0\"/>"),
+             mpf_segment([(0xB001, 4, 1, struct.pack("<I", 2)),
+                          (0xB002, 7, 32, mp_entries([(0, 9), (9, 9)]))])],
+            False, True),
+        "jpeg_mpf_ultra_hdr_short_entries_8x8.jpg": (
+            [(0xE1, b"<x hdrgm:Version=\"1.0\"/>"), mpf_segment(_SHORT_MPF)],
+            False, False),
+        "jpeg_mpf_png_entry_8x8.jpg": (
+            [mpf_segment([(0xB001, 4, 1, struct.pack("<I", 2)),
+                          (0xB002, 7, 20, mp_entries([(0, 9)], fmt=1)
+                           + bytes(4))])], False, True),
+        "jpeg_mpf_count_rational_8x8.jpg": (
+            [mpf_segment([(0xB001, 5, 1, struct.pack("<II", 2, 1)),
+                          (0xB002, 7, 4, bytes(4))])], False, True),
+        "jpeg_mpf_entries_ascii_8x8.jpg": (
+            [mpf_segment([(0xB001, 4, 1, struct.pack("<I", 2)),
+                          (0xB002, 2, 5, b"abcd\0")])], False, True),
+        "jpeg_mpf_no_entries_8x8.jpg": (
+            [mpf_segment([(0xB001, 4, 1, struct.pack("<I", 3))])], False,
+            True),
+        "jpeg_mpf_one_image_short_8x8.jpg": (
+            [mpf_segment([(0xB001, 3, 1, struct.pack("<H", 1)),
+                          (0xB002, 7, 15, bytes(15))])], False, False),
+        "jpeg_mpf_big_endian_short_8x8.jpg": (
+            [mpf_segment([(0xB001, 4, 1, struct.pack(">I", 2)),
+                          (0xB002, 7, 24, mp_entries([(0, 9)], ">")
+                           + bytes(8))], ">")], False, False),
+        "jpeg_mpf_bad_header_8x8.jpg": (
+            [(0xE2, b"MPF\0XX*\0" + bytes(8))], False, True),
+    }
+    for name, (segments, jfif, opens) in seg.items():
+        data = jpeg_with_segments(base, segments, jfif=jfif)
+        if jfif:                                # density unit 1 (dots/inch)
+            data = data[:13] + b"\x01" + data[14:]
+        out[name] = ("jpeg" if opens else "jpeg_refused", data)
+    # an MPO: Pillow's writer, two frames that differ
+    a, b = smooth_image(rng, 16, 24, 20.0), smooth_image(rng, 16, 24, 20.0)
+    buf = io.BytesIO()
+    PILImage.fromarray(a).save(buf, "MPO", save_all=True,
+                               append_images=[PILImage.fromarray(b)],
+                               quality=90)
+    out["mpo_two_frames_24x16.mpo"] = ("mpo", buf.getvalue())
+    short = jpeg_with_segments(base, [mpf_segment(_SHORT_MPF)])
+    out["blp1_jpeg_mpf_short_8x8.blp"] = ("blp", blp_file(
+        1, 8, 8, short[160:], compression=0, jpeg_header=short[:160]))
+    exif = jpeg_with_segments(base, [_xres(2, 2, b"7\0")])
+    out["blp1_jpeg_exif_short_xres.blp"] = ("blp_refused", blp_file(
+        1, 8, 8, exif[120:], compression=0, jpeg_header=exif[:120]))
+    grey = jpeg_with_segments(_grey_jpeg(rng.integers(0, 256, (9, 10))),
+                              [mpf_segment(_SHORT_MPF)])
+    out["iptc_jpeg_mpf_short.iim"] = ("iptc_refused", iptc_file(
+        grey, 10, 9, compression=5))
+
+    px = smooth_image(rng, 40, 48, 25.0)
+    tiles = {
+        "grey_tiles_jif_48x40": (px[..., :1], 1, dict(form="jif",
+                                                       tile=(16, 16))),
+        "grey_tiles_tables_across_48x40": (px[..., :1], 1, dict(
+            form="tables", tile=(16, 16))),
+        "ycbcr22_tiles_stream_48x40": (px, 6, dict(subsampling=2,
+                                                    tile=(32, 16))),
+        "ycbcr21_tiles_tables_across_48x40": (px, 6, dict(
+            subsampling=1, form="tables", tile=(16, 16))),
+        "ycbcr11_tiles_jif_mm_48x40": (px, 6, dict(form="jif", order=">",
+                                                    tile=(16, 32))),
+        "ycbcr_planes_stream_48x40": (px, 6, dict(
+            planar=2, sampling=((1, 1),) * 3)),
+        "ycbcr_planes_jif_strips_mm_48x40": (px, 6, dict(
+            planar=2, sampling=((1, 1),) * 3, form="jif",
+            rows_per_strip=8, order=">")),
+        "ycbcr_planes_tiles_48x40": (px, 6, dict(
+            planar=2, sampling=((1, 1),) * 3, tile=(16, 16))),
+        "ycbcr12_stream_48x40": (px, 6, dict(sampling=((1, 2), (1, 1),
+                                                         (1, 1)))),
+        "ycbcr41_strips_48x40": (px, 6, dict(
+            sampling=((4, 1), (1, 1), (1, 1)), rows_per_strip=8)),
+        "ycbcr42_tiles_48x40": (px, 6, dict(
+            sampling=((4, 2), (1, 1), (1, 1)), tile=(32, 16))),
+        "ycbcr22_tag21_48x40": (px, 6, dict(
+            sampling=((2, 2), (1, 1), (1, 1)), subsampling_tag=(2, 1))),
+        "ycbcr21_tag22_strips_48x40": (px, 6, dict(
+            sampling=((2, 1), (1, 1), (1, 1)), subsampling_tag=(2, 2),
+            rows_per_strip=16)),
+        "ycbcr22_no_tag_tiles_48x40": (px, 6, dict(
+            sampling=((2, 2), (1, 1), (1, 1)), subsampling_tag=(),
+            tile=(16, 16))),
+    }
+    refused = {
+        "ycbcr_planes_sampled22_48x40": (px, 6, dict(
+            planar=2, sampling=((2, 2), (1, 1), (1, 1)))),
+        "sampled31_48x40": (px, 6, dict(sampling=((3, 1), (1, 1),
+                                                   (1, 1)))),
+        "chroma_up_11_22_22_48x40": (px, 6, dict(
+            sampling=((1, 1), (2, 2), (2, 2)))),
+        "mixed_22_11_21_tiles_48x40": (px, 6, dict(
+            sampling=((2, 2), (1, 1), (2, 1)), tile=(16, 16))),
+    }
+    for kind, cases in (("tiff", tiles), ("tiff_refused", refused)):
+        for name, (img, photo, kw) in cases.items():
+            out[f"tiff_ojpeg_{name}.tif"] = (kind, ojpeg_tiff(
+                img, photo, quality=85, **kw))
+    four = (np.cumsum(rng.integers(-2, 3, (32, 32)), 1) % 16).astype(
+        np.uint8)
+    out["tiff_thunderscan_tiles_32x32.tif"] = ("tiff_refused", tiff_file(
+        four[..., None], 4, 1, compression=32809, tile=(16, 16),
+        raw_strips=thunder_tiles(four, (16, 16), rng)))
+    out["tiff_thunderscan_two_samples_32x32.tif"] = ("tiff_refused",
+                                                     tiff_file(
+        np.stack([four, four], -1), 4, 1, compression=32809,
+        raw_strips=[b"".join(thunder_row(r, rng) for r in np.repeat(
+            four, 2, axis=1))]))
+    out[CORNERS_OJPEG] = ("tiff", ojpeg_tiff(texels, 6, subsampling=2,
+                                             quality=85, tile=(512, 256)))
+    return out
+
+
+def write_jpeg_corners() -> None:
+    """Write jpeg_corner_fixtures (of BIG's texels) into CORNERS_DIR, with
+    its manifest; the files JAX's loader refuses are listed with the name
+    of its error and no hash."""
+    with PILImage.open(os.path.join(OUT, BIG)) as im:
+        texels = np.asarray(im.convert("RGB"))
+    files = _write(CORNERS_DIR, jpeg_corner_fixtures(
+        np.random.default_rng(CORNERS_SEED), texels))
+    _manifest(os.path.join(CORNERS_DIR, "manifest.json"), files,
+              COMMAND + " --jpeg-corners", CORNERS_SEED)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(CORNERS_DIR, REPO)}")
+
+
 def jax_pixels(path: str) -> np.ndarray:
     """cge_tpu's load_image of the file, quantised to u8 [H, W, 3]."""
     from cge_tpu.scene.image_io import load_image
@@ -4360,7 +4667,11 @@ def _manifest(path: str, files: list, command: str = COMMAND,
 
 def main(argv=()) -> int:
     """Every folder, or with --legacy only tests/torch_textures/legacy/,
-    with --science only tests/torch_textures/science/."""
+    with --science only tests/torch_textures/science/, with --jpeg-corners
+    only tests/torch_textures/jpeg_corners/."""
+    if "--jpeg-corners" in argv:
+        write_jpeg_corners()
+        return 0
     if "--legacy" in argv:
         write_legacy()
         return 0
@@ -4385,6 +4696,7 @@ def main(argv=()) -> int:
     write_x11()
     write_legacy()
     write_science()
+    write_jpeg_corners()
     return 0
 
 
