@@ -35,6 +35,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import modes
 
 MAGIC = b"DDS "
 HEADER = 124
@@ -51,6 +52,9 @@ DXGI = {70: (1, False), 71: (1, False), 73: (2, False), 74: (2, False),
         82: (5, False), 83: (5, False), 84: (5, True), 95: (6, False),
         96: (6, True), 97: (7, False), 98: (7, False), 99: (7, False),
         27: (0, False), 28: (0, False), 29: (0, False)}
+# BCn kind -> Pillow's mode
+_BC_MODES = {1: "RGBA", 2: "RGBA", 3: "RGBA", 4: "L", 5: "RGB", 6: "RGB",
+             7: "RGBA"}
 
 
 def _body(data: bytes, pos: int, need: int, what: str) -> np.ndarray:
@@ -92,9 +96,10 @@ def _masked(data: bytes, width: int, height: int, bitcount: int,
     return out.reshape(height, width, 3)
 
 
-def decode_dds(data: bytes) -> np.ndarray:
-    """DDS bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
-    `convert("RGB")` gives them."""
+def open_dds(data: bytes) -> tuple:
+    """DDS bytes -> the first surface as Pillow opens it (mode, pixels,
+    palette; modes.rgb): 8-bit luminance and BC4 as L, the palette image
+    as P."""
     if data[:4] != MAGIC:
         raise ValueError("not a DDS file (no DDS signature)")
     size = struct.unpack_from("<I", data, 4)[0] if len(data) >= 8 else HEADER
@@ -111,20 +116,23 @@ def decode_dds(data: bytes) -> np.ndarray:
     native.check_pixels("DDS", width, height)
     n, pos = width * height, 4 + HEADER
     if pfflags & RGB:
-        return _masked(data, width, height, bitcount, masks)
+        return ("RGBA" if pfflags & ALPHAPIXELS else "RGB",
+                _masked(data, width, height, bitcount, masks), None)
     if pfflags & LUMINANCE:
         alpha = bool(pfflags & ALPHAPIXELS)
         if bitcount == 8 or (bitcount == 16 and alpha):
             ch = bitcount // 8
             grey = _body(data, pos, n * ch, f"{bitcount}-bit luminance")
-            return np.repeat(grey[::ch].reshape(height, width, 1), 3, axis=2)
+            grey = grey[::ch].reshape(height, width)
+            return ("L", grey, None) if ch == 1 else (
+                "LA", modes.grey(grey), None)
         raise ValueError(f"DDS luminance at {bitcount} bits "
                          f"{'with' if alpha else 'without'} alpha: only "
                          f"8-bit L and 16-bit L with alpha exist")
     if pfflags & PALETTEINDEXED8:
         body = _body(data, pos, 1024 + n, "8-bit palette image")
         palette = body[:1024].reshape(256, 4)[:, :3]
-        return palette[body[1024:]].reshape(height, width, 3)
+        return "P", body[1024:].reshape(height, width), palette
     if not pfflags & FOURCC:
         raise ValueError(f"DDS with pixel format flags 0x{pfflags:x}: none "
                          f"of RGB, luminance, 8-bit palette and FourCC")
@@ -144,10 +152,13 @@ def decode_dds(data: bytes) -> np.ndarray:
                          f"ATI1, BC4U, ATI2, BC5U, BC5S and DX10 are read")
     if kind == 0:
         rgba = _body(data, pos, n * 4, f"{name} image")
-        return rgba.reshape(height, width, 4)[..., :3].copy()
+        return "RGBA", rgba.reshape(height, width, 4)[..., :3].copy(), None
     rgba = np.empty((-(-height // 4) * 4, -(-width // 4) * 4, 4), np.uint8)
     try:
         native.bcn(data[pos:], kind, signed, rgba)
     except ValueError as e:
         raise ValueError(f"DDS {name}: {e}") from None
-    return np.ascontiguousarray(rgba[:height, :width, :3])
+    if kind == 4:                                     # BC4: L
+        return "L", np.ascontiguousarray(rgba[:height, :width, 0]), None
+    return (_BC_MODES[kind], np.ascontiguousarray(rgba[:height, :width, :3]),
+            None)

@@ -133,8 +133,9 @@ def _open(data: bytes) -> dict:
     return image
 
 
-def decode_fits(data: bytes) -> np.ndarray:
-    """FITS bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_fits(data: bytes) -> tuple:
+    """FITS bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): L and I;16 as their band, I and F converted."""
     if not accept(data):
         raise ValueError("not a FITS file (no SIMPLE card)")
     image = _open(data)
@@ -163,5 +164,7 @@ def decode_fits(data: bytes) -> np.ndarray:
         rows = native.raw_rows(data, offset, h, rb, rb, fmt)
         px = rows.view(dt).reshape(h, w)[::-1]
     if mode == "F":
-        return modes.grey(modes.f_to_u8(px, fmt))
-    return modes.grey(px if mode == "L" else modes.i_to_u8(px))
+        return mode, modes.grey(modes.f_to_u8(px, fmt)), None
+    if mode == "I":
+        return mode, modes.grey(modes.i_to_u8(px)), None
+    return mode, px, None

@@ -123,9 +123,9 @@ def _frame_bytes(data: bytes, fmt: str) -> bytes:
     return data[HEADER:HEADER + got]
 
 
-def decode_fli(data: bytes) -> np.ndarray:
-    """FLI / FLC bytes -> [H, W, 3] uint8 RGB of the first frame, row 0 =
-    top."""
+def open_fli(data: bytes) -> tuple:
+    """FLI / FLC bytes -> the first frame as Pillow opens it: P (modes.rgb
+    converts it)."""
     if not accept(data):
         raise ValueError("not an FLI file (no FLI magic and flags)")
     head = data[:HEADER]
@@ -149,4 +149,4 @@ def decode_fli(data: bytes) -> np.ndarray:
         if fmt in str(e):
             raise
         raise ValueError(f"{fmt}: {e}") from None
-    return pal[im]
+    return "P", im, pal

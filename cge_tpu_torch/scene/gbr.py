@@ -13,7 +13,7 @@ Pillow's test of the first bytes takes any header size of at least 20 and
 version 1 or 2; its plugin then refuses a width or height of 0, another
 depth, version 2 without the magic, and a header cut short. `accept` is
 the test and those checks together, so that `format_of` names the format
-that opens the file; `decode_gbr` raises native.NotOpened for them, as
+that opens the file; `open_gbr` raises native.NotOpened for them, as
 Pillow's plugin does (Image.open then tries the next format). Data cut
 short is Pillow's "not enough image data", a ValueError naming GBR.
 """
@@ -53,8 +53,9 @@ def accept(data: bytes) -> bool:
     return not isinstance(_header(data), str)
 
 
-def decode_gbr(data: bytes) -> np.ndarray:
-    """GBR bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_gbr(data: bytes) -> tuple:
+    """GBR bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): L as its band, or RGBA converted."""
     head = _header(data)
     if isinstance(head, str):
         raise native.NotOpened(head)
@@ -71,5 +72,5 @@ def decode_gbr(data: bytes) -> np.ndarray:
                          f"{need} bytes)")
     px = np.frombuffer(body, np.uint8).reshape(h, w, depth)
     if depth == 1:
-        return np.repeat(px, 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+        return "L", px[..., 0], None
+    return "RGBA", np.ascontiguousarray(px[..., :3]), None

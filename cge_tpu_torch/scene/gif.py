@@ -68,8 +68,10 @@ def _table(r: _Reader, flags: int, what: str) -> np.ndarray | None:
     return None if (table == ramp).all() else table
 
 
-def decode_gif(data: bytes) -> np.ndarray:
-    """GIF bytes -> the first frame as [H, W, 3] uint8 RGB, row 0 = top."""
+def open_gif(data: bytes) -> tuple:
+    """GIF bytes -> the first frame as Pillow opens it (mode, pixels,
+    palette; modes.rgb): L where its colour table is the grey ramp (or
+    there is none), else P."""
     if len(data) < 13 or data[:6] not in SIGNATURES:
         raise ValueError("not a GIF file (no GIF87a / GIF89a signature)")
     width, height, flags = struct.unpack_from("<HHB", data, 6)
@@ -108,7 +110,12 @@ def decode_gif(data: bytes) -> np.ndarray:
     local = iflags & 0x80
     table = _table(r, iflags, "local") if local else None
     bits = r.byte("LZW code size")
-    if not (local and table is not None):
+    if not local:
+        table = global_table
+    # a local grey ramp makes the frame L to Pillow, which still loads it
+    # through the global table (an L image with a palette)
+    mode = "L" if table is None else "P"
+    if table is None:
         table = global_table
     if w == 0 or h == 0:
         raise ValueError(f"GIF image of {w}x{h} pixels")
@@ -122,7 +129,7 @@ def decode_gif(data: bytes) -> np.ndarray:
     native.gif_lzw(data, r.pos, bits, frame, bool(iflags & 0x40))
     canvas[y0:y0 + h, x0:x0 + w] = frame
     if table is None:
-        return np.repeat(canvas[..., None], 3, axis=2)
+        return mode, canvas, None
     full = np.zeros((256, 3), np.uint8)               # past the end: black
     full[:len(table)] = table
-    return full[canvas]
+    return mode, canvas, full

@@ -32,7 +32,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import jpeg2000
+from cge_tpu_torch.scene import jpeg2000, modes
 
 MAGIC = b"icns"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -96,13 +96,14 @@ def best_size(found: dict) -> tuple:
     return max(sizes)
 
 
-def _compressed(data: bytes, start: int, length: int) -> np.ndarray:
-    """read_png_or_jpeg2000, converted to RGB."""
+def _compressed(data: bytes, start: int, length: int) -> tuple:
+    """read_png_or_jpeg2000: (mode, pixels, palette; modes.rgb), a PNG in
+    its own mode, a JPEG 2000 converted to RGBA."""
     from cge_tpu_torch.scene import image_io
 
     sig = data[start:start + 12]
     if sig.startswith(PNG_SIGNATURE):
-        return image_io.decode_png(data[start:])
+        return image_io.open_png(data[start:])
     if sig.startswith((jpeg2000.J2K_MAGIC, b"\x0d\x0a\x87\x0a")) or \
             sig == jpeg2000.JP2_MAGIC:
         stream = data[start:start + length]
@@ -111,7 +112,8 @@ def _compressed(data: bytes, start: int, length: int) -> np.ndarray:
         except native.NotOpened as e:
             raise ValueError(f"ICNS JPEG 2000 entry: {e}") from None
         native.check_pixels("ICNS JPEG 2000 entry", *opened[1])
-        return jpeg2000.to_rgb(*jpeg2000.decode_jpeg2000(stream, opened))
+        return "RGBA", jpeg2000.to_rgb(*jpeg2000.decode_jpeg2000(
+            stream, opened)), None
     raise ValueError(f"ICNS entry of an unsupported subimage format (its "
                      f"first bytes are {sig[:8]!r})")
 
@@ -132,12 +134,19 @@ def _runs(data: bytes, start: int, length: int, side: int) -> np.ndarray:
 def decode_icns(data: bytes) -> np.ndarray:
     """ICNS bytes -> the image Pillow loads as [H, W, 3] uint8 RGB, row 0 =
     top."""
+    return modes.rgb(*open_icns(data))
+
+
+def open_icns(data: bytes) -> tuple:
+    """ICNS bytes -> the image Pillow loads (mode, pixels, palette;
+    modes.rgb): a PNG entry in the PNG's mode, the others RGB or RGBA."""
     if not accept(data):
         raise ValueError("not an ICNS file (no icns magic)")
     found = entries(data)
     size = best_size(found)
     side = size[0] * size[2]
     rgb = compressed = None
+    mode = "RGB"
     for kind, reader in SIZES[size]:
         if kind not in found:
             continue
@@ -145,6 +154,7 @@ def decode_icns(data: bytes) -> np.ndarray:
         if reader == _COMPRESSED:
             compressed = _compressed(data, start, length)
         elif reader == _MASK:
+            mode = "RGBA"                     # Pillow puts it in as alpha
             if start + side * side > len(data):
                 raise ValueError(f"ICNS mask {kind!r} cut short (not enough "
                                  f"image data)")
@@ -159,8 +169,8 @@ def decode_icns(data: bytes) -> np.ndarray:
         if rgb is None:
             raise ValueError(f"ICNS size {size} with a mask but no colour "
                              f"entry")
-        return rgb
-    h, w = compressed.shape[:2]
+        return mode, rgb, None
+    h, w = compressed[1].shape[:2]
     if not any(_scales_to(s, (w, h)) for s in SIZES if any(
             k in found for k, _ in SIZES[s])):
         raise ValueError(f"ICNS entry of {w}x{h} pixels: not one of the "

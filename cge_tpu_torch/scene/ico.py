@@ -32,6 +32,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import modes
 
 ICO_MAGIC = b"\x00\x00\x01\x00"
 CUR_MAGIC = b"\x00\x00\x02\x00"
@@ -73,16 +74,17 @@ def _icon_entry(data: bytes) -> tuple:
     return keys[0][2:]
 
 
-def decode_ico(data: bytes) -> np.ndarray:
-    """ICO bytes -> the entry Pillow opens as [H, W, 3] uint8 RGB, row 0 =
-    top."""
+def open_ico(data: bytes) -> tuple:
+    """ICO bytes -> the entry as Pillow opens it (mode, pixels, palette;
+    modes.rgb): a PNG entry in the PNG's mode, a bitmap as RGBA (Pillow
+    puts the AND mask or the alpha bytes in as alpha)."""
     from cge_tpu_torch.scene import image_io
 
     if not accept_ico(data):
         raise ValueError("not an ICO file (no ICO signature)")
     offset, size, bpp = _icon_entry(data)
     if data[offset:offset + 8] == PNG_SIGNATURE:
-        return image_io.decode_png(data[offset:])
+        return image_io.open_png(data[offset:])
     rgb = image_io.decode_dib(data, offset, halve="ICO")
     h, w = rgb.shape[:2]
     if bpp == 32:
@@ -99,7 +101,7 @@ def decode_ico(data: bytes) -> np.ndarray:
             raise ValueError(f"ICO {what} starts before the file")
     if end > len(data):
         raise ValueError(f"ICO {what} is truncated")
-    return rgb
+    return "RGBA", rgb, None
 
 
 def _pixels_at(data: bytes, pos: int) -> int:
@@ -119,6 +121,12 @@ def _pixels_at(data: bytes, pos: int) -> int:
 def decode_cur(data: bytes) -> np.ndarray:
     """CUR bytes -> the entry Pillow opens as [H, W, 3] uint8 RGB, row 0 =
     top."""
+    return modes.rgb(*open_cur(data))
+
+
+def open_cur(data: bytes) -> tuple:
+    """CUR bytes -> the entry's bitmap as Pillow opens it (in the bitmap's
+    mode: image_io.open_dib)."""
     from cge_tpu_torch.scene import image_io
 
     if not accept_cur(data):
@@ -140,4 +148,4 @@ def decode_cur(data: bytes) -> np.ndarray:
     at = struct.unpack_from("<I", m, 12)[0]
     if not at:            # no seek: the bitmap is read where the file is
         at = min(len(data), 6 + 16 * len(entries))
-    return image_io.decode_dib(data, at, halve="CUR")
+    return image_io.open_dib(data, at, halve="CUR")

@@ -22,10 +22,12 @@ row a plane a band), P;2 and P;4 (a P image of no palette, so black),
 I;16 / I;16L / I;16B, I;32 / I;32S, F;8, F;8S, F;16, F;16S, F;32 and
 F;32F; RGB;T and RYB;T (three planes of the whole image, read as green,
 then red, then blue); and F;2 to F;31 but 8 and 16, through Pillow's bit
-decoder (native.bit_decode, in cge_raster.cpp). The samples become RGB as
+decoder (native.bit_decode, in cge_raster.cpp); and a bare "LAB" type
+read with the L layout (Pillow's band 0 unpacker: the bytes are L, a and b
+stay 0; a Lut is skipped and changes nothing). The samples become RGB as
 convert("RGB") makes them (modes.py): F clamped and truncated (a NaN
 refused), I and I;16 saturated, CMYK and YCbCr through Pillow's tables,
-alpha dropped.
+alpha dropped, LAB through LittleCMS's Lab -> sRGB (lcms.lab_to_rgb).
 
 A header Pillow's plugin does not open (no newline in the first 100
 bytes, a line too long or of no key, no standard key, no 0x1A, a palette
@@ -34,9 +36,8 @@ an empty image) is native.NotOpened, so Image.open goes on to the next
 format. What escapes Image.open raises a ValueError naming IM: a size,
 scale or frame count neither int() nor float() reads, a size past
 Pillow's limit, a size that is not two whole numbers, a type whose layout
-Pillow has no unpacker for (RLB, PA;L into LA), a type outside its table
-whose mode and layout the port does not read (LAB from L, which Pillow
-reads: not ported), data cut short.
+Pillow has no unpacker for (RLB, PA;L into LA, a bare mode name whose
+layout it cannot unpack into), data cut short.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import re
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import modes
+from cge_tpu_torch.scene import lcms, modes
 
 # ImImagePlugin's standard keys
 COMMENT, DATE, EQUIPMENT = "Comment", "Date", "Digitalization equipment"
@@ -95,7 +96,8 @@ _LAYOUTS = {
     ("I;16L", "I;16L"): (16, "<u2"), ("I;16B", "I;16B"): (16, ">u2"),
     ("I;16", "I;16B"): (16, ">u2"), ("I", "I;16"): (16, "<u2"),
     ("I", "I;16B"): (16, ">u2"), ("I", "I;32"): (32, "<i4"),
-    ("I", "I;32S"): (32, "<i4"), ("F", "F;8"): (8, "u1"),
+    ("I", "I;32S"): (32, "<i4"), ("LAB", "L"): (8, "u1"),
+    ("F", "F;8"): (8, "u1"),
     ("F", "F;8S"): (8, "i1"), ("F", "F;16"): (16, "<u2"),
     ("F", "F;16S"): (16, "<i2"), ("F", "F;32"): (32, "<u4"),
     ("F", "F;32F"): (32, "<f4")}
@@ -202,8 +204,10 @@ def _planes(rows: np.ndarray, w: int, n: int) -> list:
     return [rows[:, k * w:(k + 1) * w] for k in range(n)]
 
 
-def decode_im(data: bytes) -> np.ndarray:
-    """IM bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_im(data: bytes) -> tuple:
+    """IM bytes -> the first frame as Pillow opens it (mode, pixels,
+    palette; modes.rgb), row 0 = top: 1, L, P (black without a Lut) and
+    the I;16 modes as their band, the other modes converted."""
     head = header(data)
     size, mode, rawmode = head["size"], head["mode"], head["rawmode"]
     fmt = f"IM ({head['type']!r}, {mode} from {rawmode})"
@@ -215,11 +219,11 @@ def decode_im(data: bytes) -> np.ndarray:
     if rawmode in ("RGB;T", "RYB;T") and mode in ("RGB", "RGBA", "RGBX"):
         planes = native.raw_rows(data, offset, 3 * h, w, w, fmt)
         g, r, b = (planes[k * h:(k + 1) * h][::-1] for k in range(3))
-        return np.stack([r, g, b], -1)
+        return mode, np.stack([r, g, b], -1), None
     if mode == "F" and rawmode.startswith("F;") and rawmode[2:].isdigit() \
             and int(rawmode[2:]) not in (8, 16, 32):
         px = native.bit_decode(data, offset, int(rawmode[2:]), w, h, fmt)
-        return modes.grey(modes.f_to_u8(px, fmt))
+        return mode, modes.grey(modes.f_to_u8(px, fmt)), None
     if (mode, rawmode) not in _LAYOUTS:
         raise ValueError(f"{fmt}: Pillow has no unpacker of {rawmode} into "
                          f"{mode} (unknown raw mode for given image mode)")
@@ -227,30 +231,38 @@ def decode_im(data: bytes) -> np.ndarray:
     rb = (w * bits + 7) // 8
     rows = native.raw_rows(data, offset, h, rb, rb, fmt)[::-1]
     if layout == "bits":
-        return modes.grey(np.unpackbits(rows, axis=1)[:, :w] * np.uint8(255))
-    if layout == "black":
-        return np.zeros((h, w, 3), np.uint8)
+        return mode, np.unpackbits(rows, axis=1)[:, :w] * np.uint8(255), None
+    if layout == "black":                 # P;2 and P;4: indices, no palette
+        idx = np.unpackbits(rows, axis=1)[:, :w * bits].reshape(h, w, bits)
+        idx = (idx << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)
+        return mode, idx, _palette(None)
     if layout == "packed":
-        return np.ascontiguousarray(rows.reshape(h, w, 3))
+        return mode, np.ascontiguousarray(rows.reshape(h, w, 3)), None
     if layout == "planes":
         p = _planes(rows, w, bits // 8)
         if mode == "CMYK":
-            return modes.cmyk_to_rgb(*p)
+            return mode, modes.cmyk_to_rgb(*p), None
         if mode == "YCbCr":
-            return modes.ycbcr_to_rgb(*p)
+            return mode, modes.ycbcr_to_rgb(*p), None
         if mode in ("RGB", "RGBA", "RGBX"):
-            return np.stack(p[:3], -1)
+            return mode, np.stack(p[:3], -1), None
         if mode == "LA":
-            return modes.grey(p[0])
-        return _palette(head["palette"])[p[0]]            # PA
+            return mode, modes.grey(p[0]), None
+        return mode, _palette(head["palette"])[p[0]], None    # PA
     px = np.ascontiguousarray(rows).view(layout).reshape(h, w)
     if mode == "P":
-        return _palette(head["palette"])[px]
-    if mode == "L":
-        return modes.grey(px)
+        return mode, px, _palette(head["palette"])
+    if mode == "L" or mode in modes.WORD_MODES:
+        return mode, px, None
+    if mode == "LAB":                     # the L band; a and b stay 0
+        lab = np.zeros((256, 3), np.uint8)
+        lab[:, 0] = np.arange(256)
+        return mode, lcms.lab_to_rgb(lab)[px], None
     if mode == "F":
-        return modes.grey(modes.f_to_u8(px.astype(np.float32), fmt))
-    return modes.grey(modes.i_to_u8(px))
+        return mode, modes.grey(modes.f_to_u8(px.astype(np.float32), fmt)), \
+            None
+    return mode, modes.grey(modes.i_to_u8(px)), None
 
 
 def _palette(lut) -> np.ndarray:

@@ -14,11 +14,14 @@ HDR and PIC besides). The format comes from the file's first bytes, never
 its name, tried in the order of Pillow's plugins (`format_of`); where a
 format's test takes a file whose header its plugin cannot open
 (native.NotOpened), the next format is tried, as Image.open does
-(`decode_image`). IM, IM Tools, IPTC and SPIDER have no test of the first
-bytes: their header checks run on every file that reaches them, in their
-place in that order. What escapes Image.open (an exception other than
-Pillow's SyntaxError, IndexError, TypeError and struct.error) raises a
-ValueError here, as it ends the JAX loader's load. The formats:
+(`open_image`, which gives the image as Pillow opens it: its mode, and
+for 1, L, P and I;16 its band before any palette or conversion, which
+`modes.rgb` converts for `decode_image`). IM, IM Tools, IPTC and SPIDER
+have no test of the first bytes: their header checks run on every file
+that reaches them, in their place in that order. What escapes Image.open
+(an exception other than Pillow's SyntaxError, IndexError, TypeError and
+struct.error) raises a ValueError here, as it ends the JAX loader's load.
+The formats:
 
   PNG   every bit depth of every colour type (1, 2, 4 and 8-bit grey and
         palette, 16-bit grey, grey + alpha, RGB and RGBA), plain or Adam7
@@ -111,11 +114,12 @@ ValueError here, as it ends the JAX loader's load. The formats:
   McIdas  areas of 1-, 2- and 4-byte elements (scene/mcidas.py).
   SPIDER  float images of either byte order, a stack's first image
         (scene/spider.py).
-  IM    IFUNC Image Memory in every raw layout of Pillow's table, palettes
-        and 2- to 31-bit samples (scene/im.py).
+  IM    IFUNC Image Memory in every raw layout of Pillow's table, palettes,
+        2- to 31-bit samples and the bare type LAB (scene/im.py).
   IMT   IM Tools grey images (scene/imt.py).
   IPTC  IPTC/NAA streams, raw or holding a file of any format read here,
-        grey or one band of RGB or CMYK (scene/iptc.py).
+        grey or one band of RGB or CMYK, the band any image of one band as
+        Image.merge reads it (scene/iptc.py).
 The byte-serial parts of SGI, PCX, QOI, Sun raster, ICNS, XBM, FLI, MSP and
 IM's bit-packed samples run in the native library's cge_raster.cpp;
 Pillow's conversions of its modes to RGB are shared in scene/modes.py.
@@ -139,6 +143,7 @@ import numpy as np
 from cge_tpu_torch import native
 from cge_tpu_torch.scene import (blp, dds, fits, fli, ftex, gbr, gif, icns,
                                  ico, im, imt, iptc, jpeg, jpeg2000, mcidas,
+                                 modes,
                                  msp, pcd, pcx, pixar, pnm, psd, qoi, sgi,
                                  spider, sun, tga, tiff, webp, xbm, xpm,
                                  xvthumb)
@@ -504,12 +509,12 @@ def _inflate(pieces, need: int, fmt: str) -> tuple[bytes, int]:
                      f"{need} bytes of its scanlines)")
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
-    `convert("RGB")` gives them: the chunks walked as PngImageFile walks
-    them (_Png), the image data of the data chunks that follow one another
-    from the first (into an APNG's fcTL frame where one comes before it,
-    the rest of the image 0), then the chunks after them through their
+def open_png(data: bytes) -> tuple:
+    """PNG bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb), row 0 = top: the chunks walked as PngImageFile walks them
+    (_Png), the image data of the data chunks that follow one another from
+    the first (into an APNG's fcTL frame where one comes before it, the
+    rest of the image 0), then the chunks after them through their
     handlers."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file (no PNG signature)")
@@ -542,23 +547,31 @@ def decode_png(data: bytes) -> np.ndarray:
     png.end(end, frames > 1)
     px = np.zeros((height, width, ch), frame.dtype)
     px[y0:y1, x0:x1] = frame
+    mode = _PNG_MODES[png.key]
     if ctype == 3:
         full = np.zeros((256, 3), np.uint8)   # past the end, or none: black
         if png.palette is not None:
             pal = np.frombuffer(png.palette, np.uint8)
             pal = pal[:len(pal) // 3 * 3].reshape(-1, 3)[:256]
             full[:len(pal)] = pal
-        return full[px[..., 0]]
-    if depth == 16:
-        # Pillow: 16-bit grey ("I;16") saturates, the rest keep the high
-        # byte
-        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(
-            np.uint8)
+        return mode, px[..., 0], full
+    if ctype == 0 and depth == 16:                # I;16
+        return mode, px[..., 0], None
+    if depth == 16:                               # Pillow keeps the high byte
+        px = (px >> 8).astype(np.uint8)
     elif depth < 8:                               # grey at 1, 2 or 4 bits
         px = px * np.uint8(255 // ((1 << depth) - 1))
-    if ctype in (0, 4):                           # grey, grey + alpha
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    if ctype == 0:
+        return mode, px[..., 0], None
+    if ctype == 4:                                # grey + alpha
+        return mode, modes.grey(px[..., 0]), None
+    return mode, np.ascontiguousarray(px[..., :3]), None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
+    `convert("RGB")` gives them."""
+    return modes.rgb(*open_png(data))
 
 
 def _u32(data: bytes, order: str = "<") -> int:
@@ -581,64 +594,73 @@ def _tried(header):
 
 
 _DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
+def _converted(decoder, mode: str):
+    """The opener of a format whose files Pillow opens only in modes of
+    several bands (mode names them): (mode, decoder's RGB, None)."""
+    return lambda d: (mode, decoder(d), None)
+
+
 # Pillow 12's image plugins in the order Image.open tries them (its six
 # preinit plugins, then Image.ID's registration order), each with its test
-# of the first bytes; the formats this loader reads have a decoder, the
-# others (None) refuse the file. IM, IMT, IPTC and SPIDER have no test of
-# the first bytes: Image.open runs their header check on every file that
-# reaches them, so their row's test is that check (`_tried`: the header
-# opens, or raises what escapes Image.open); PCD, which has none either,
-# is in by its plugin's test of "PCD_" at byte 2048. BMP's and DIB's, and
-# IPTC's (which decodes its nested image through decode_image), decoders
-# are defined below, so they are called through lambdas.
+# of the first bytes and, for the formats this loader reads, its opener:
+# the image as Pillow opens it, (mode, pixels, palette) as modes.rgb takes
+# it (a format whose files open only in modes of several bands: its RGB,
+# `_converted`); the others (None) refuse the file. IM, IMT, IPTC and
+# SPIDER have no test of the first bytes: Image.open runs their header
+# check on every file that reaches them, so their row's test is that
+# check (`_tried`: the header opens, or raises what escapes Image.open);
+# PCD, which has none either, is in by its plugin's test of "PCD_" at
+# byte 2048. IPTC opens its nested image through this walk (open_image).
 _PILLOW_ORDER = (
-    ("BMP", lambda d: d[:2] == b"BM", lambda d: decode_bmp(d)),
-    ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: decode_dib(d, 0)),
-    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif.decode_gif),
-    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.decode_file),
-    ("PNM", pnm.accept, pnm.decode_pnm),
-    ("PNG", lambda d: d[:8] == SIGNATURE, decode_png),
+    ("BMP", lambda d: d[:2] == b"BM", lambda d: open_bmp(d)),
+    ("DIB", lambda d: _u32(d) in _DIB_SIZES, lambda d: open_dib(d, 0)),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif.open_gif),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", jpeg.open_file),
+    ("PNM", pnm.accept, pnm.open_pnm),
+    ("PNG", lambda d: d[:8] == SIGNATURE, lambda d: open_png(d)),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
         b"avif", b"avis", b"mif1", b"msf1"), None),
-    ("BLP", blp.accept, blp.decode_blp),
+    ("BLP", blp.accept, _converted(blp.decode_blp, "RGB or RGBA")),
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
-    ("CUR", ico.accept_cur, ico.decode_cur),
-    ("PCX", pcx.accept, pcx.decode_pcx),
-    ("DCX", pcx.accept_dcx, pcx.decode_dcx),
-    ("DDS", lambda d: d[:4] == dds.MAGIC, dds.decode_dds),
+    ("CUR", ico.accept_cur, ico.open_cur),
+    ("PCX", pcx.accept, pcx.open_pcx),
+    ("DCX", pcx.accept_dcx, pcx.open_dcx),
+    ("DDS", lambda d: d[:4] == dds.MAGIC, dds.open_dds),
     ("EPS", lambda d: d[:4] == b"%!PS" or _u32(d) == 0xC6D3D0C5, None),
-    ("FITS", fits.accept, fits.decode_fits),
-    ("FLI", fli.accept, fli.decode_fli),
-    ("FTEX", ftex.accept, ftex.decode_ftex),
-    ("GBR", gbr.accept, gbr.decode_gbr),
+    ("FITS", fits.accept, fits.open_fits),
+    ("FLI", fli.accept, fli.open_fli),
+    ("FTEX", ftex.accept, _converted(ftex.decode_ftex, "RGB or RGBA")),
+    ("GBR", gbr.accept, gbr.open_gbr),
     ("GRIB", lambda d: d[:4] == b"GRIB" and len(d) >= 8 and d[7] == 1, None),
     ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", None),
-    ("JPEG 2000", jpeg2000.accept, jpeg2000.decode_jp2),
-    ("ICNS", icns.accept, icns.decode_icns),
-    ("ICO", ico.accept_ico, ico.decode_ico),
-    ("IM", _tried(im.header), im.decode_im),
-    ("IMT", _tried(imt.header), imt.decode_imt),
+    ("JPEG 2000", jpeg2000.accept, jpeg2000.open_jp2),
+    ("ICNS", icns.accept, icns.open_icns),
+    ("ICO", ico.accept_ico, ico.open_ico),
+    ("IM", _tried(im.header), im.open_im),
+    ("IMT", _tried(imt.header), imt.open_imt),
     ("IPTC", _tried(iptc.header),
-     lambda d: iptc.decode_iptc(d, decode_image)),
-    ("McIdas", mcidas.accept, mcidas.decode_mcidas),
+     lambda d: iptc.open_iptc(d, lambda n: open_image(n, in_memory=True))),
+    ("McIdas", mcidas.accept, mcidas.open_mcidas),
     ("MPEG", lambda d: d[:4] == b"\x00\x00\x01\xb3", None),
-    ("TIFF", lambda d: d[:4] in tiff.PREFIXES, tiff.decode_tiff),
-    ("MSP", msp.accept, msp.decode_msp),
-    ("PCD", pcd.accept, pcd.decode_pcd),
-    ("PIXAR", pixar.accept, pixar.decode_pixar),
-    ("PSD", lambda d: d[:4] == b"8BPS", psd.decode_psd),
-    ("QOI", qoi.accept, qoi.decode_qoi),
-    ("SGI", sgi.accept, sgi.decode_sgi),
-    ("SPIDER", _tried(spider.header), spider.decode_spider),
-    ("Sun raster", sun.accept, sun.decode_sun),
-    ("TGA", tga.header_ok, tga.decode_tga),
+    ("TIFF", lambda d: d[:4] in tiff.PREFIXES, tiff.open_tiff),
+    ("MSP", msp.accept, msp.open_msp),
+    ("PCD", pcd.accept, _converted(pcd.decode_pcd, "RGB")),
+    ("PIXAR", pixar.accept, _converted(pixar.decode_pixar, "RGB")),
+    ("PSD", lambda d: d[:4] == b"8BPS", psd.open_psd),
+    ("QOI", qoi.accept, _converted(qoi.decode_qoi, "RGB or RGBA")),
+    ("SGI", sgi.accept, sgi.open_sgi),
+    ("SPIDER", _tried(spider.header), spider.open_spider),
+    ("Sun raster", sun.accept, sun.open_sun),
+    ("TGA", tga.header_ok, tga.open_tga),
     ("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP",
-     webp.decode_webp),
+     _converted(webp.decode_webp, "RGB or RGBA")),
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00"
      or d[:4] == b"\x01\x00\x00\x00", None),
-    ("XBM", xbm.accept, xbm.decode_xbm),
-    ("XPM", xpm.accept, xpm.decode_xpm),
-    ("XV thumbnail", xvthumb.accept, xvthumb.decode_xvthumb))
+    ("XBM", xbm.accept, xbm.open_xbm),
+    ("XPM", xpm.accept, xpm.open_xpm),
+    ("XV thumbnail", xvthumb.accept, xvthumb.open_xvthumb))
 # formats Pillow has no plugin for, named in the refusal
 _OTHERS = ((b"#?RADIANCE", "Radiance HDR"), (b"\x76\x2f\x31\x01", "OpenEXR"),
            (b"P7", "PAM"), (b"PF", "colour PFM"))
@@ -676,20 +698,36 @@ def _refusal(fmt: str, data: bytes) -> str:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image file bytes -> [H, W, 3] uint8 RGB, row 0 = top, the decoder
-    chosen by the signature, in Pillow's order: where a format's test takes
-    the file but its header cannot be opened (native.NotOpened), the next
-    format whose test takes it is tried, as Image.open does. ValueError
-    naming the format for any other format, and for a file its decoder
-    cannot read."""
+    """Image file bytes -> [H, W, 3] uint8 RGB, row 0 = top: open_image's
+    image, as Pillow's convert("RGB") converts it."""
+    return modes.rgb(*open_image(data))
+
+
+# the openers of bytes Pillow opens from memory, where they read other
+# than from a file: McIdas maps a file, and never bytes in memory
+_IN_MEMORY = {"McIdas": lambda d: mcidas.open_mcidas(d, from_file=False)}
+
+
+def open_image(data: bytes, in_memory: bool = False) -> tuple:
+    """Image file bytes -> the image as Pillow's Image.open opens it:
+    (mode, pixels, palette) as modes.rgb takes them (the pixels of one
+    band for 1, L, P and the I;16 modes, RGB for the others). The format
+    is chosen by the signature, in Pillow's order: where a format's test
+    takes the file but its header cannot be opened (native.NotOpened), the
+    next format whose test takes it is tried, as Image.open does.
+    ValueError naming the format for any other format, and for a file its
+    decoder cannot read. in_memory: bytes Pillow opens from memory (an
+    IPTC stream's nested image), not from a file."""
     failed = []
-    for name, accept, decoder in _PILLOW_ORDER:
+    for name, accept, opener in _PILLOW_ORDER:
         if not accept(data):
             continue
-        if decoder is None:
+        if opener is None:
             raise ValueError(_refusal(name, data))
+        if in_memory:
+            opener = _IN_MEMORY.get(name, opener)
         try:
-            return decoder(data)
+            return opener(data)
         except native.NotOpened as e:
             failed.append(f"{name}: {e}")
         except ValueError as e:
@@ -884,9 +922,14 @@ def decode_bmp(data: bytes) -> np.ndarray:
     """BMP bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
     `convert("RGB")` gives them. ValueError naming the format for a
     BMP it cannot read (JPEG or PNG inside a BMP, other depths)."""
+    return modes.rgb(*open_bmp(data))
+
+
+def open_bmp(data: bytes) -> tuple:
+    """BMP bytes -> the image as Pillow opens it (open_dib)."""
     if len(data) < 26 or data[:2] != b"BM":
         raise ValueError("not a BMP file")
-    return decode_dib(data, 14, struct.unpack_from("<I", data, 10)[0])
+    return open_dib(data, 14, struct.unpack_from("<I", data, 10)[0])
 
 
 # Pillow's BmpImagePlugin: the bitfield masks it reads, by depth (32-bit:
@@ -904,8 +947,15 @@ _BITFIELDS = {
 def decode_dib(data: bytes, pos: int, offset: int = 0,
                halve: str = "") -> np.ndarray:
     """The device-independent bitmap whose header starts at data[pos] ->
-    [H, W, 3] uint8 RGB, row 0 = top, as Pillow's BmpImageFile._bitmap
-    reads it: the pixels at `offset` (a BMP file's), or where none is given
+    [H, W, 3] uint8 RGB, row 0 = top (open_dib's image, converted)."""
+    return modes.rgb(*open_dib(data, pos, offset, halve))
+
+
+def open_dib(data: bytes, pos: int, offset: int = 0, halve: str = "",
+             ) -> tuple:
+    """The device-independent bitmap whose header starts at data[pos] ->
+    the image (mode, pixels, palette; modes.rgb), row 0 = top, as Pillow's
+    BmpImageFile._bitmap reads it: the pixels at `offset` (a BMP file's), or where none is given
     (0: a bare DIB, an icon's or a cursor's entry) right after the header,
     its bitfield masks and its palette. halve ("ICO" or "CUR"): an entry of
     an icon or a cursor, whose height counts the AND mask's rows too, so is
@@ -987,26 +1037,29 @@ def decode_dib(data: bytes, pos: int, offset: int = 0,
             px = (raw.astype(np.uint32)
                   << (8 * np.arange(bits // 8, dtype=np.uint32))).sum(
                 -1, dtype=np.uint32)
+    palette = None
     if bits <= 8:
         pal = np.frombuffer(data, np.uint8, entry * colors, pal_at)
         pal = pal.reshape(colors, entry)[:, 2::-1]
         ramp = (0, 255) if colors == 2 else np.arange(colors)
         if (pal == np.asarray(ramp)[:, None]).all() and colors <= 256:
             # a grey palette: Pillow reads the indices as grey levels
-            rgb = np.repeat((px * np.uint8(255) if colors == 2
-                             else px)[..., None], 3, axis=2)
+            mode, rgb = ("1", px * np.uint8(255)) if colors == 2 else (
+                "L", px)
         else:
-            full = np.zeros((256, 3), np.uint8)       # past the end: black
-            full[:min(colors, 256)] = pal[:256]
-            rgb = full[px]
+            mode, rgb = "P", px
+            palette = np.zeros((256, 3), np.uint8)    # past the end: black
+            palette[:min(colors, 256)] = pal[:256]
     else:
+        mode = "RGBA" if bits == 32 and comp == 3 and alpha else "RGB"
         if masks is None:
             masks = {16: (0x7C00, 0x3E0, 0x1F), 24: (0xFF0000, 0xFF00, 0xFF),
                      32: (0xFF0000, 0xFF00, 0xFF)}[bits]
         elif bits == 32 and masks == (0, 0, 0):       # Pillow: BGRA
             masks = (0xFF0000, 0xFF00, 0xFF)
         rgb = np.stack([_channel(px, m) for m in masks], axis=-1)
-    return np.ascontiguousarray(rgb if top_down else rgb[::-1])
+    return mode, np.ascontiguousarray(rgb if top_down else rgb[::-1]), \
+        palette
 
 
 def read_bmp(path: str) -> np.ndarray:

@@ -26,7 +26,6 @@ import re
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import modes
 
 _FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
 
@@ -82,8 +81,9 @@ def header(data: bytes) -> tuple:
     return size[0], size[1], offset
 
 
-def decode_imt(data: bytes) -> np.ndarray:
-    """IM Tools bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_imt(data: bytes) -> tuple:
+    """IM Tools bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): L."""
     w, h, offset = header(data)
     fmt = "IMT (IM Tools, L)"
     native.check_pixels(fmt, w, h)
@@ -91,4 +91,4 @@ def decode_imt(data: bytes) -> np.ndarray:
         raise ValueError(f"{fmt}: its header ends before a form feed, so "
                          f"Pillow has no image to load (cannot load this "
                          f"image)")
-    return modes.grey(native.raw_rows(data, offset, h, w, w, fmt))
+    return "L", native.raw_rows(data, offset, h, w, w, fmt), None

@@ -13,26 +13,32 @@ or CMYK, with the band (3,65) - 1, or 0), (3,20) and (3,30) the width and
 height, (3,120) the compression: 1 raw, 5 JPEG, anything else an OSError.
 
 The image is the data of the (8,10) fields that follow one another from
-the first, decoded as Pillow decodes it, by Image.open of those bytes (a
-P5 header of the declared size before raw data): here decode_image, the
-whole dispatch. An L image is that image as it decodes (its own size and
-mode); an RGB or CMYK one puts its single band (which must be L: a grey
-JPEG, or raw data) in the band's place of an otherwise black image of its
-size, a band of -1 the last, as Python indexes Image.merge's list
-(band 2 of RGB is green only), CMYK then through cmyk2rgb.
+the first, opened as Pillow opens it, by Image.open of those bytes (a P5
+header of the declared size before raw data): here image_io.open_image,
+the whole dispatch, which gives Pillow's mode and, for a mode of one band,
+the band as Pillow's image holds it. An L image is that image as it
+decodes (its own size and mode), but one of F, I;16L, I;16B or LAB, which
+Pillow converts to RGB through their base mode L, which the IPTC image's
+mode L hides (so Pillow refuses it); an RGB or CMYK one puts that band in the
+band's place of an otherwise black image of its size, a band of -1 the
+last, as Python indexes Image.merge's list (band 2 of RGB is green only),
+CMYK then through cmyk2rgb. Image.merge holds every band but the first to
+mode L; the first may be any image of one band, whose rows ImagingMerge
+reads a byte a pixel: the pixels of 1 (0 or 255), L and P (its indices),
+and of the I;16 modes the first width bytes of each row as stored (pixel
+x takes byte x of the little-endian or big-endian row).
 
 A field of a record not in the list, a header cut short, no (3,60),
 (3,20) or (3,30) field (KeyError is Pillow's SyntaxError here), no mode
 and an empty image are not IPTC streams to Pillow (native.NotOpened).
 What escapes Image.open raises a ValueError naming IPTC: a field size
 over 0x84, a compression other than 1 and 5 (and none), no (8,10) field,
-a field after the image data that is not one, a band past the mode's,
-a nested image that does not decode, or, in an RGB or CMYK image, is not
-L (the first band, which Pillow's merge does not check, may be any image
-of one band: a 1-bit PNM reads as its 0 and 255). A nested file whose mode
-the port cannot tell (one of no JPEG or PNM signature, in an RGB or CMYK
-stream) or whose band it cannot rebuild from RGB (P, I, F) is refused as
-not ported.
+a field after the image data that is not one, a band past the mode's, a
+nested image that does not decode, a band after the first whose image is
+not L ("mode mismatch"), a first band of several ("image has wrong
+mode"). A first band of mode I or F, whose rows ImagingMerge reads through
+a pointer Pillow never sets for four-byte pixels, ends JAX's process
+(Pillow segfaults): the port refuses it, naming why.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ from __future__ import annotations
 import numpy as np
 
 from cge_tpu_torch import native
-from cge_tpu_torch.scene import jpeg, modes, pnm
+from cge_tpu_torch.scene import modes
 
 RECORDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
+# the modes Pillow's core converts to RGB only through another mode
+_NO_RGB = ("F", "I;16L", "I;16B", "LAB")
 COMPRESSION = {1: "raw", 5: "jpeg"}
 
 
@@ -133,19 +141,10 @@ def header(data: bytes) -> dict:
                 offset=offset if tag == (8, 10) else None)
 
 
-def _nested_mode(data: bytes) -> str:
-    """The mode Pillow opens the nested file in (it decodes), where the
-    port can tell: JPEG's by its frame header, PNM's by its magic."""
-    if data[:3] == b"\xff\xd8\xff":
-        return jpeg.pillow_open(data)[0]
-    if pnm.accept(data):
-        return pnm.mode_of(data)
-    return ""
-
-
-def decode_iptc(data: bytes, decode) -> np.ndarray:
-    """IPTC bytes -> [H, W, 3] uint8 RGB, row 0 = top; decode: the whole
-    dispatch (image_io.decode_image) for the nested image."""
+def open_iptc(data: bytes, open_nested) -> tuple:
+    """IPTC bytes -> the image as Pillow loads it (mode, pixels, palette;
+    modes.rgb), row 0 = top; open_nested: the whole dispatch
+    (image_io.open_image) for the nested image."""
     head = header(data)
     mode, (w, h), band = head["mode"], head["size"], head["band"]
     fmt = f"{mode} IPTC ({head['compression']})"
@@ -167,25 +166,33 @@ def decode_iptc(data: bytes, decode) -> np.ndarray:
     if head["compression"] == "raw":
         nested = b"P5\n%d %d\n255\n" % (w, h) + nested
     try:
-        rgb = decode(nested)
+        inner, px, palette = open_nested(nested)
     except ValueError as e:
         raise ValueError(f"{fmt}: its image data: {e}") from None
     if band is None:
-        return rgb
+        if inner in _NO_RGB:
+            # the image is L to Pillow, so convert("RGB") finds no base
+            # mode to convert the nested image through
+            raise ValueError(f"{fmt}: its nested image is {inner} "
+                             f"(conversion from {inner} to RGB not "
+                             f"supported)")
+        return inner, px, palette
     n = len(mode)
     if not -n <= band < n:
         raise ValueError(f"{fmt}: band {band} of a {n}-band image")
-    inner = _nested_mode(nested)
-    first = band in (0, -n)
-    if inner != "L" and not (first and inner == "1"):
-        if not inner or (first and inner in ("P", "I", "F")):
-            raise ValueError(f"{fmt}: a nested {inner or 'image'} of a mode "
-                             f"the port does not merge as a band (not "
-                             f"ported)")
-        raise ValueError(f"{fmt}: its nested image is {inner}, not one band "
-                         f"(mode mismatch)")
-    bands = [np.zeros(rgb.shape[:2], np.uint8)] * n
-    bands[band] = rgb[..., 0]
+    if band not in (0, -n) and inner != "L":
+        raise ValueError(f"{fmt}: its nested image is {inner}, not L (mode "
+                         f"mismatch)")
+    if inner in ("I", "F"):
+        raise ValueError(f"{fmt}: a nested {inner} image as band 0, whose "
+                         f"rows Pillow's merge reads as bytes through a "
+                         f"pointer it never set (the process dies)")
+    merged = modes.merge_band(inner, px)
+    if merged is None:
+        raise ValueError(f"{fmt}: its nested image is {inner}, not of one "
+                         f"band (image has wrong mode)")
+    bands = [np.zeros(merged.shape, np.uint8)] * n
+    bands[band] = merged
     if mode == "CMYK":
-        return modes.cmyk_to_rgb(*bands)
-    return np.stack(bands, -1)
+        return mode, modes.cmyk_to_rgb(*bands), None
+    return mode, np.stack(bands, -1), None

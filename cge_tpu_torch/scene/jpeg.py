@@ -339,8 +339,16 @@ def _dqt(s: bytes) -> None:
 def decode_file(data: bytes) -> np.ndarray:
     """A file Image.open opens as JPEG or MPO (jpeg_factory) -> [H, W, 3]
     uint8 RGB: an MPO's frame 0 is the same bytes as the JPEG's."""
+    return modes.rgb(*open_file(data))
+
+
+def open_file(data: bytes) -> tuple:
+    """That file as Pillow opens it (mode, pixels, palette; modes.rgb): L
+    as its band, RGB and CMYK converted."""
     jpeg_factory(data)
-    return decode_jpeg(data)
+    mode = pillow_open(data)[0]
+    rgb = decode_jpeg(data)
+    return (mode, rgb[..., 0], None) if mode == "L" else (mode, rgb, None)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:

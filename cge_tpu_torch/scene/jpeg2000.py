@@ -16,12 +16,19 @@ order OpenJPEG hands the tiles to Pillow. This module holds Pillow's side:
               drops repeated colours) and res; then OpenJPEG's own reading
               of the JP2 boxes (signature, ftyp, jp2h with ihdr, colr,
               bpcc, pclr, cmap, cdef; jp2c; the ihdr's size the SIZ's),
-              whose first enumerated colr gives the colour space (16 sRGB,
-              17 grey, 18 sYCC, 12 CMYK, 24 e-YCC; any other, an ICC
-              profile or none leave it unspecified, as in a bare
+              whose first colr of method 1 or 2 gives the colour space
+              (16 sRGB, 17 grey, 18 sYCC, 12 CMYK, 24 e-YCC; any other, an
+              ICC profile or none leave it unspecified, as in a bare
               codestream: grey for one or two components, sRGB for three
               or four, but sYCC where the first component is whole and the
-              second or third subsampled);
+              second or third subsampled; a colr of another method is
+              passed over; a CIELab colr (14) of any size from 7 bytes is
+              the first colr, its parameters read only at 35 bytes and
+              used for no pixel). JPX files read the same way: a "jpx "
+              brand with or without "jp2 " in its list, and boxes OpenJPEG
+              passes over (rreq, jpch, jplh, cgrp, ftbl, dtbl, asoc, a
+              second jp2c), the colr, pclr and cdef inside a jpch
+              ignored; a file with no jp2h fails Pillow's header walk;
   the checks  one to four components and an unpacker for the mode, colour
               space and component count (one that reads subsampled
               components where any is subsampled);
@@ -377,10 +384,9 @@ class _Jp2State:
             if meth == 1:
                 if n < 7:
                     raise ValueError("JPEG 2000 JP2 colr box: bad size")
+                # CIELab (14) of any size but 35 takes the default
+                # parameters, which set no colour space either way
                 (self.enumcs,) = struct.unpack_from(">I", body, 3)
-                if self.enumcs == 14 and n not in (7, 35):
-                    raise ValueError("JPEG 2000 JP2 colr box of CIELab: bad "
-                                     "size")
                 self.colr = True
             elif meth == 2:
                 self.colr = True
@@ -675,9 +681,15 @@ def to_rgb(mode: str, px: np.ndarray, palette) -> np.ndarray:
     return np.ascontiguousarray(px[..., :3])
 
 
-def decode_jp2(data: bytes) -> np.ndarray:
-    """J2K or JP2 bytes -> [H, W, 3] uint8 RGB, row 0 = top, as Pillow's
-    `convert("RGB")` gives them."""
+def open_jp2(data: bytes) -> tuple:
+    """J2K or JP2 bytes -> the image as Pillow opens it (mode, pixels,
+    palette; modes.rgb): L, I;16 and P as their band, the rest
+    converted."""
     if not accept(data):
         raise ValueError("not a JPEG 2000 file (no J2K or JP2 signature)")
-    return to_rgb(*decode_jpeg2000(data))
+    mode, px, palette = decode_jpeg2000(data)
+    if mode in ("L", "I;16"):
+        return mode, px, None
+    if mode == "P":
+        return mode, px, palette.rgb()
+    return mode, to_rgb(mode, px, palette), None

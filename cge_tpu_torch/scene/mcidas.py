@@ -77,8 +77,11 @@ def _lines(data: bytes, offset: int, h: int, rb: int, stride: int,
     return native.raw_rows(data, offset, h, step, rb, fmt)[:, :rb]
 
 
-def decode_mcidas(data: bytes) -> np.ndarray:
-    """McIdas bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_mcidas(data: bytes, from_file: bool = True) -> tuple:
+    """McIdas bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): L and I;16B as their band, I converted. from_file False:
+    bytes Pillow opens from memory, which it never maps (the raw decoder
+    reads every mode)."""
     if not accept(data):
         raise ValueError("not an McIdas area file (no 00 x 7, 04 prefix)")
     if len(data) < DIRECTORY:
@@ -95,6 +98,9 @@ def decode_mcidas(data: bytes) -> np.ndarray:
     native.check_pixels(fmt, width, height)
     rb = width * w[11]
     lines = _lines(data, w[34] + w[15], height, rb,
-                   w[15] + w[10] * w[11] * w[14], mode != "I", fmt)
+                   w[15] + w[10] * w[11] * w[14], from_file and mode != "I",
+                   fmt)
     px = np.ascontiguousarray(lines).view(dt).reshape(height, width)
-    return modes.grey(px if mode == "L" else modes.i_to_u8(px))
+    if mode == "I":
+        return mode, modes.grey(modes.i_to_u8(px)), None
+    return mode, px, None

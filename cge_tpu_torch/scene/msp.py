@@ -38,8 +38,9 @@ def accept(data: bytes) -> bool:
     return data[:4] in MAGICS
 
 
-def decode_msp(data: bytes) -> np.ndarray:
-    """MSP bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_msp(data: bytes) -> tuple:
+    """MSP bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): 1."""
     if not accept(data):
         raise ValueError("not an MSP file (no DanM or LinS magic)")
     if len(data) < HEADER:
@@ -62,4 +63,4 @@ def decode_msp(data: bytes) -> np.ndarray:
         lengths = struct.unpack_from(f"<{h}H", data, HEADER)
         rows = native.msp_rle(data, HEADER + 2 * h, lengths, stride, fmt)
     bits = np.unpackbits(rows, axis=1)[:, :w]
-    return np.repeat((bits * np.uint8(255))[..., None], 3, axis=2)
+    return "1", bits * np.uint8(255), None

@@ -38,9 +38,12 @@ striles hold later lines, or none (a grey row then keeps what Pillow's
 buffer held, raw YCbCr repeats the last iMCU row). Other sample counts
 and lossless JPEGProc raise; what libtiff refuses raises too, and so do
 raw lines of blocks libjpeg never writes (libtiff's uninitialised buffer
-in Pillow) and a planar file whose plane 1 has no SOS libtiff finds in
-several striles (libtiff then reads plane 0 on from where its search
-ended: not ported).
+in Pillow). Where libtiff's search for plane 1's SOS fails, plane 0's
+libjpeg session stays live and reads each later strile of plane 0 from
+where that search stopped (_planes follows OJPEGPreDecode's rules); the
+one case not followed, a stop before the last OJPEG_BUFFER bytes of its
+strile with a third strile to read, where libjpeg's read-ahead points into
+the buffer each search refills, is refused, naming it.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from cge_tpu_torch import native
 
 # the frame headers libtiff takes: SOF0, SOF1, SOF3
 SOF = (0xC0, 0xC1, 0xC3)
+# tif_ojpeg.c's OJPEG_BUFFER: the bytes of a strile libtiff reads at a time
+_BUFFER = 2048
 
 
 def _list(v) -> tuple:
@@ -225,10 +230,15 @@ def _tag_tables(data, tags, n, desc):
 def streams(data, tags, width, height, spp, ycbcr, desc):
     """The JPEG streams libtiff hands libjpeg, one a plane (one for
     PlanarConfiguration 1, one a sample for 2): (streams, the frame's
-    first sampling factors (h, v), _striles(...)). A plane after the first
-    starts at the next SOS that OJPEGReadSecondarySos finds in the byte
-    stream after the one before it; None where it finds none, or one that
-    names another component than the plane's (libjpeg refuses it)."""
+    first sampling factors (h, v), _striles(...), resumed). A plane after
+    the first starts at the next SOS that OJPEGReadSecondarySos finds in
+    the byte stream after the one before it; None where it finds none,
+    b"" where the SOS names another component than the plane's (libjpeg
+    refuses its header). resumed, where plane 1's search stops in a corrupt
+    SOS: the stream plane 0's libjpeg session reads on from there (plane
+    0's headers, then the bytes from where the search stopped), and
+    whether that is in the last OJPEG_BUFFER bytes of its strile; else
+    None."""
     sw, sl, total, _, off_tag, cnt_tag = layout = _striles(tags, width,
                                                            height, desc)
     planar = spp > 1 and tags.get(284, 1) == 2
@@ -362,9 +372,9 @@ def streams(data, tags, width, height, spp, ycbcr, desc):
         if key in tables)
     if restart:
         head += struct.pack(">HHH", 0xFFDD, 4, restart)
-    # where each plane's data start (OJPEGReadSecondarySos's sos_end),
-    # and whether libjpeg takes its header
-    ends, usable = [(s.part, s.pos)], [True]
+    # where each plane's data start (OJPEGReadSecondarySos's sos_end);
+    # where plane 1's search fails, where it stopped
+    ends, lost = [(s.part, s.pos)], None
     for k in range(1, spp if planar else 1):
         sos += [None]
         at = None
@@ -377,21 +387,28 @@ def streams(data, tags, width, height, spp, ycbcr, desc):
             except ValueError:
                 pass
         ends.append(at)
-        # jpeg_read_header's "Invalid component ID": the plane's reads fail
-        usable.append(at is not None and sos[-1][0] == comps[k][0])
-    out = []
-    for k, at in enumerate(ends):
-        if not usable[k]:
-            out.append(None)
-            continue
+        if k == 1 and at is None and s.peek() is not None:
+            lost = (s.part, s.pos)
+
+    def stream(k: int, at: tuple) -> bytes:
         plane = comps[k:k + 1] if planar else comps
-        out.append(head + struct.pack(
+        return (head + struct.pack(
             ">BBHBHHB", 0xFF, marker, 8 + 3 * per_plane, 8, y, x, per_plane)
             + b"".join(plane)
             + struct.pack(">HHB", 0xFFDA, 6 + 2 * per_plane, per_plane)
             + b"".join(sos[k:k + 1] if planar else sos) + b"\x00\x3f\x00"
             + s.rest(at))
-    return out, (hs, vs), layout
+
+    # jpeg_read_header's "Invalid component ID": b"", which no header takes
+    out = [None if at is None else stream(k, at) if sos[k][0] == comps[k][0]
+           else b"" for k, at in enumerate(ends)]
+    if lost:
+        # libtiff reads a strile into its buffer OJPEG_BUFFER bytes at a
+        # time: whether the search stopped in the last window of its strile
+        part, pos = lost
+        lost = stream(0, lost), (len(s.parts[part][1]) - pos // _BUFFER
+                                 * _BUFFER <= _BUFFER)
+    return out, (hs, vs), layout, lost
 
 
 def _sos(s: _Stream, sof, n: int) -> list:
@@ -464,6 +481,111 @@ def _origin(k: int, sw: int, sl: int, width: int, tiled: bool) -> tuple:
     return ty * sl, tx * sw
 
 
+_RESYNC = ("{}: LibJpeg: Unexpected error (libtiff's old-style JPEG source "
+           "does not resynchronise at a restart marker)")
+
+
+def _lines(jpeg: bytes, sw: int) -> tuple:
+    """A one-component stream's lines through libtiff's source: (lines,
+    the MCU row where the source failed or -1, the frame's height);
+    ValueError where libjpeg refuses its header or its start."""
+    w, sof_y = native.jpeg_tiff_info(b"", jpeg, 0)[:2]
+    if w != sw:
+        raise ValueError(f"jpeg_start_decompress() returned image_width = "
+                         f"{w}, expected {sw}")
+    return (*native.jpeg_tiff_lines(jpeg), sof_y)
+
+
+def _planes(jpegs, resumed, sw, sl, count, column, width, height, tiled,
+            desc) -> list:
+    """The planes of a planar file as Pillow's RGBA path reads them
+    (TIFFRGBAImageGet a strip, or a row of tiles, each call reading each
+    strile's planes in turn) through libtiff's
+    OJPEGPreDecode: a plane's read starts its own libjpeg session, which
+    ends that of another plane (or of a later strile of its own), and
+    skips to its strile; a session stays where it is between striles. A
+    plane whose SOS OJPEGReadSecondarySos does not find fails before that
+    (plane 2's search goes through plane 1's), so a failed search of plane
+    1 leaves plane 0's session live, reading its next strile (a restart
+    interval) from where the search stopped: in a corrupt SOS (resumed),
+    or at the end, where the strile's decoding fails and the skip to the
+    next one fails. Once libjpeg refuses a header, libtiff starts no
+    session again. A read that fails leaves zeros (libtiff clears the
+    buffer), but where it fails before decoding and is the call's first
+    (plane 0 of its first strile), TIFFRGBAImageGet fails and Pillow with
+    it."""
+    lines = []
+    for p, jpeg in enumerate(jpegs):
+        try:
+            lines.append(_lines(jpeg, sw) if jpeg else None)
+        except ValueError as e:
+            if p == 0:
+                raise ValueError(f"{desc}: {e}") from None
+            lines.append(None)
+    last_window = True
+    if resumed is not None:
+        resumed, last_window = resumed
+        try:
+            resumed = _lines(resumed, sw)
+        except ValueError as e:
+            raise ValueError(f"{desc}: plane 0's libjpeg session reading on "
+                             f"from plane 1's corrupt SOS marker: {e}") \
+                from None
+    out = [np.zeros((height, width), np.uint8) for _ in jpegs]
+    session, stuck, moved = None, False, False
+    per_call = -(-width // sw) if tiled else 1
+    for k in range(count):
+        n = min(sl, column - k * sl)
+        r0, c0 = _origin(k, sw, sl, width, tiled)
+        for p, jpeg in enumerate(jpegs):
+            # the lines read, and whether OJPEGPreDecode passed (a read
+            # that fails leaves zeros)
+            got, started = None, False
+            if jpeg is None:
+                moved |= p == 1
+            else:
+                if session and (session[0] != p or session[1] > k):
+                    session = None
+                if session is None and not stuck:
+                    stuck = lines[p] is None
+                    session, moved = (None if stuck else [p, 0]), False
+                if session is None:
+                    pass
+                elif moved and resumed is None:
+                    # at the stream's end: the strile's decoding fails, and
+                    # so does every later skip to the next one
+                    started = session[1] == k
+                elif moved and not last_window and session[1] > 1:
+                    # the strile before read on from where the search
+                    # stopped, and may have read past its window: libjpeg's
+                    # read-ahead then points into the buffer each search
+                    # refills with that window
+                    raise ValueError(
+                        f"{desc}: plane 1's corrupt SOS marker lies before "
+                        f"the last {_BUFFER}-byte window of its strile, and "
+                        f"plane 0's libjpeg session reads its strile {k} "
+                        f"on from bytes each search of libtiff's refills "
+                        f"(not followed)")
+                else:
+                    rows, failed, sof_y = resumed if moved else lines[p]
+                    first = 0 if moved else k * sl
+                    if failed >= 0 and min(first + n, sof_y) > 8 * failed:
+                        raise ValueError(_RESYNC.format(desc))
+                    got = rows[first:min(first + n, sof_y)]
+                    session[1], started = k + 1, True
+            if not started and p == 0 and k % per_call == 0:
+                raise ValueError(f"{desc}: libtiff cannot start plane 0's "
+                                 f"strile {k} (its libjpeg session cannot "
+                                 f"start, or skip to it, after plane 1's "
+                                 f"reads failed), so TIFFRGBAImageGet fails")
+            buf = np.zeros((n, sw), np.uint8)
+            if got is not None:
+                buf[:len(got)] = got
+            part = buf[:height - r0, :width - c0]
+            out[p][r0:r0 + part.shape[0], c0:c0 + part.shape[1]] = part
+    return out
+
+
 def decode(data, tags, width, height, spp, ycbcr, desc):
     """The image's samples as libtiff hands them to Pillow, strile by
     strile, each placed where it lies in the image: grey [height, width]
@@ -471,15 +593,14 @@ def decode(data, tags, width, height, spp, ycbcr, desc):
     held over each block of the frame's sampling (h, v) within its strile,
     and (h, v).
 
-    Grey and planes read their striles' lines (strip_lines) as scanlines,
-    a line past the decoding's last keeping what the buffer held: Pillow's
-    strip or tile buffer for grey, libtiff's buffer of the RGBA path's
-    band for planes (zeroed a band). Each strile of a plane restarts its
-    stream (TIFFRGBAImage reads the planes in turn), so it reads from its
-    own lines on; where libtiff finds no SOS of a plane after the first
-    (or a corrupt one, or one libjpeg refuses), that plane's reads fail
-    and its buffer stays zeroed, but where that is plane 1 and the planes
-    have more than one strile, this raises.
+    Grey reads its striles' lines (strip_lines) as scanlines, a line past
+    the decoding's last keeping what Pillow's strip or tile buffer held.
+    Planes are read as Pillow's RGBA path reads them (_planes): each
+    strile of a plane restarts its stream, so it reads from its own lines
+    on (a line past the decoding's last zeroed); a plane after the first
+    whose SOS libtiff does not find or libjpeg refuses reads as zeros, and
+    where plane 1's search fails plane 0's later striles read on from
+    where it stopped.
     YCbCr in one plane is raw data, a line past the last iMCU row read as
     the conversion buffer keeps that row. Where the source fails at a
     restart marker that a strile's reads reach (a frame taller than the
@@ -491,60 +612,37 @@ def decode(data, tags, width, height, spp, ycbcr, desc):
     Pillow's RGBA path stops there). A line of blocks that libjpeg leaves
     out of its raw data (past a component's own height) is libtiff's
     uninitialised buffer: an error here."""
-    jpegs, (hs, vs), (sw, sl, _, count, _, _) = streams(
+    jpegs, (hs, vs), (sw, sl, _, count, _, _), resumed = streams(
         data, tags, width, height, spp, ycbcr, desc)
     tiled = 322 in tags
     swapped = data[:2] == b"MM"
     # the striles' lines in one column: strips as they are, each tile full
     column = count * sl if tiled else height
-    planes = []
-    for jpeg in jpegs if len(jpegs) > 1 or spp == 1 else ():
-        out = np.zeros((height, width), np.uint8)
-        planes.append(out)
-        if jpeg is None and len(planes) == 2 and count > 1:
-            # the failed search or header leaves libtiff's stream where it
-            # ended, and plane 0's session, which it does not restart,
-            # reads its next strile on from there
-            raise ValueError(f"{desc}: libtiff finds no SOS marker of plane "
-                             f"1 that libjpeg takes (OJPEGReadSecondarySos), "
-                             f"and its reading of plane 0 goes on from where "
-                             f"that search ended (not ported)")
-        if jpeg is None:                # its reads fail: zeros
-            continue
+    if len(jpegs) > 1:
+        planes = _planes(jpegs, resumed, sw, sl, count, column, width,
+                         height, tiled, desc)
+        return (*planes, (hs, vs))
+    if spp == 1:
         try:
-            w, sof_y = native.jpeg_tiff_info(b"", jpeg, 0)[:2]
-            if w != sw:
-                raise ValueError(f"jpeg_start_decompress() returned "
-                                 f"image_width = {w}, expected {sw}")
-            rows, failed = native.jpeg_tiff_lines(jpeg)
+            rows, failed, sof_y = _lines(jpegs[0], sw)
         except ValueError as e:
             raise ValueError(f"{desc}: {e}") from None
-        if len(jpegs) > 1:              # a plane: each strile from its own
-            strips = [(k * sl, k * sl, k * sl, min(sl, column - k * sl))
-                      for k in range(-(-column // sl))]
-        else:
-            strips = strip_lines(column, sl, 1, swapped)
+        strips = strip_lines(column, sl, 1, swapped)
         # Pillow's strip reader stops at a strile whose reads reach the
         # failing MCU row (those past the frame's lines read nothing)
         if failed >= 0 and any(min(first + n, sof_y) > 8 * failed
                                for _, _, first, n in strips):
-            raise ValueError(f"{desc}: LibJpeg: Unexpected error (libtiff's "
-                             f"old-style JPEG source does not resynchronise "
-                             f"at a restart marker)")
+            raise ValueError(_RESYNC.format(desc))
+        out = np.zeros((height, width), np.uint8)
         buf = np.zeros((sl, sw), np.uint8)
         for k, (_, _, first, n) in enumerate(strips):
-            if len(jpegs) > 1:
-                buf[:] = 0
             for j in range(n):
                 if first + j < sof_y:
                     buf[j] = rows[first + j]
             r0, c0 = _origin(k, sw, sl, width, tiled)
             part = buf[:min(n, height - r0), :width - c0]
             out[r0:r0 + part.shape[0], c0:c0 + part.shape[1]] = part
-    if spp == 1:
-        return planes[0]
-    if planes:
-        return (*planes, (hs, vs))
+        return out
     jpeg = jpegs[0]
     try:
         w, sof_y = native.jpeg_tiff_info(b"", jpeg, 2)[:2]

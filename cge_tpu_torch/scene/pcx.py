@@ -72,8 +72,8 @@ def _unpack(buf: np.ndarray, mode: str, planes: int, w: int,
     return idx
 
 
-def _decode_page(data: bytes, pos: int, name: str) -> np.ndarray:
-    """The PCX image whose header is at data[pos]."""
+def _decode_page(data: bytes, pos: int, name: str) -> tuple:
+    """The PCX image whose header is at data[pos], as Pillow opens it."""
     s = data[pos:pos + 68]
     if not accept(s):
         raise native.NotOpened(f"not a {name} page (no PCX signature)")
@@ -130,19 +130,20 @@ def _decode_page(data: bytes, pos: int, name: str) -> np.ndarray:
     if mode == "1":
         px = px * np.uint8(255)
     if palette is not None:
-        return palette[px]
-    if px.ndim == 2:
-        return np.repeat(px[..., None], 3, axis=2)
-    return np.ascontiguousarray(px)
+        full = np.zeros((256, 3), np.uint8)           # past the end: black
+        full[:len(palette)] = palette
+        return "P", px, full
+    return mode, np.ascontiguousarray(px), None
 
 
-def decode_pcx(data: bytes) -> np.ndarray:
-    """PCX bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_pcx(data: bytes) -> tuple:
+    """PCX bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb)."""
     return _decode_page(data, 0, "PCX")
 
 
-def decode_dcx(data: bytes) -> np.ndarray:
-    """DCX bytes -> its first page as [H, W, 3] uint8 RGB, row 0 = top."""
+def open_dcx(data: bytes) -> tuple:
+    """DCX bytes -> its first page as Pillow opens it (open_pcx)."""
     if not accept_dcx(data):
         raise ValueError("not a DCX file (no DCX magic)")
     offsets = []

@@ -217,24 +217,10 @@ def _pfm(data: bytes, pos: int, w: int, h: int, fmt: str) -> np.ndarray:
     return modes.grey(modes.f_to_u8(v, fmt).reshape(h, w)[::-1])
 
 
-def mode_of(data: bytes) -> str:
-    """The mode Pillow opens the PNM file in: its magic number's, I for
-    grey past a maxval of 255; "" where the header does not read."""
-    magic, pos = _magic(data)
-    mode = MAGIC.get(magic, "")
-    if mode == "L":
-        try:
-            for what in ("width", "height", "maxval"):
-                maxval, pos = _header_int(data, pos, what)
-        except ValueError:
-            return ""
-        return "I" if maxval > 255 else "L"
-    return mode
-
-
-def decode_pnm(data: bytes) -> np.ndarray:
-    """PNM bytes of any magic number Pillow's table has -> [H, W, 3] uint8
-    RGB, row 0 = top."""
+def open_pnm(data: bytes) -> tuple:
+    """PNM bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): 1, L and P (black: no palette) as their band, I (grey past
+    a maxval of 255), F and the modes of several bands converted."""
     magic, pos = _magic(data)
     if magic not in MAGIC:
         raise native.NotOpened(f"not a PPM file (magic number {magic!r} is "
@@ -249,7 +235,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
     count = w * h * bands
     body = data[pos:]
     if mode == "F":
-        return _pfm(data, pos, w, h, fmt)
+        return mode, _pfm(data, pos, w, h, fmt), None
     if mode == "1":
         if magic == b"P1":
             px = _plain_bits(body, w * h, fmt).reshape(h, w)
@@ -260,8 +246,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
             rows = np.frombuffer(body, np.uint8, stride * h).reshape(h,
                                                                      stride)
             px = np.unpackbits(rows, axis=1)[:, :w]
-        grey = (1 - px).astype(np.uint8) * np.uint8(255)
-        return np.repeat(grey[..., None], 3, axis=2)
+        return mode, (1 - px).astype(np.uint8) * np.uint8(255), None
     maxval, pos = _header_int(data, pos, "maxval")
     if not 0 < maxval < 65536:
         raise ValueError(f"{fmt} maxval {maxval}: it must be 1 to 65535")
@@ -281,9 +266,11 @@ def decode_pnm(data: bytes) -> np.ndarray:
             v = _rescale(raw, maxval, top)
     px = np.minimum(v, 255).astype(np.uint8).reshape(h, w, bands)
     if mode == "CMYK":
-        return modes.cmyk_to_rgb(*(px[..., k] for k in range(4)))
+        return mode, modes.cmyk_to_rgb(*(px[..., k] for k in range(4))), None
     if mode == "P":                           # no palette: black
-        return np.zeros((h, w, 3), np.uint8)
+        return mode, px[..., 0], np.zeros((256, 3), np.uint8)
+    if top > 255:
+        return "I", modes.grey(px[..., 0]), None
     if bands == 1:
-        return np.repeat(px, 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+        return mode, px[..., 0], None
+    return mode, np.ascontiguousarray(px[..., :3]), None

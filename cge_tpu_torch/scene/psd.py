@@ -63,8 +63,9 @@ class _Reader:
         return int.from_bytes(b, "big")
 
 
-def decode_psd(data: bytes) -> np.ndarray:
-    """PSD bytes -> the merged image as [H, W, 3] uint8 RGB, row 0 = top."""
+def open_psd(data: bytes) -> tuple:
+    """PSD bytes -> the merged image as Pillow opens it (mode, pixels,
+    palette; modes.rgb)."""
     if len(data) < 26 or not data.startswith(SIGNATURE):
         raise ValueError("not a PSD file (no 8BPS signature)")
     version, channels, h, w, depth, cmode = struct.unpack_from(
@@ -132,16 +133,16 @@ def decode_psd(data: bytes) -> np.ndarray:
         raise ValueError(f"{fmt} with compression {compression} (ZIP): only "
                          f"raw and PackBits are supported, as in Pillow")
     if mode == "1":
-        grey = np.unpackbits(planes[0], axis=1)[:, :w] * np.uint8(255)
-        return np.repeat(grey[..., None], 3, axis=2)
+        return mode, np.unpackbits(planes[0], axis=1)[:, :w] * np.uint8(
+            255), None
     if mode == "L":
-        return np.repeat(planes[0][..., None], 3, axis=2)
-    if mode == "P":
-        if palette is None:
-            return np.zeros((h, w, 3), np.uint8)      # Pillow: black
-        return palette[planes[0]]
+        return mode, planes[0], None
+    if mode == "P":                                   # no palette: black
+        return mode, planes[0], (np.zeros((256, 3), np.uint8)
+                                 if palette is None else palette)
     if mode == "CMYK":
-        return modes.cmyk_to_rgb(*(255 - p for p in planes))
+        return mode, modes.cmyk_to_rgb(*(255 - p for p in planes)), None
     if mode == "LAB":
-        return lcms.lab_to_rgb(np.stack(planes, axis=-1))
-    return np.ascontiguousarray(np.stack(planes[:3], axis=-1))
+        return mode, lcms.lab_to_rgb(np.stack(planes, axis=-1)), None
+    return ("RGBA" if used == 4 else mode,
+            np.ascontiguousarray(np.stack(planes[:3], axis=-1)), None)

@@ -40,8 +40,9 @@ def accept(data: bytes) -> bool:
     return len(data) >= 2 and data[:2] == b"\x01\xda"
 
 
-def decode_sgi(data: bytes) -> np.ndarray:
-    """SGI bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_sgi(data: bytes) -> tuple:
+    """SGI bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): L as its band (16-bit ones by their high bytes), RGB and RGBA converted."""
     if not accept(data):
         raise ValueError("not an SGI file (no magic 474)")
     if len(data) < 12:
@@ -67,5 +68,7 @@ def decode_sgi(data: bytes) -> np.ndarray:
             raise ValueError(f"{fmt}: the image data is truncated")
         planes = np.frombuffer(data, np.uint8, z * page, HEADER)
         px = planes.reshape(z, h, w, bpc)[..., 0].transpose(1, 2, 0)
-    rgb = px[..., :3] if z >= 3 else np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(rgb[::-1])
+    if z == 1:
+        return "L", np.ascontiguousarray(px[::-1, :, 0]), None
+    return ("RGB" if z == 3 else "RGBA",
+            np.ascontiguousarray(px[::-1, :, :3]), None)

@@ -89,8 +89,9 @@ def header(data: bytes) -> tuple:
     return width, height, offset, big
 
 
-def decode_spider(data: bytes) -> np.ndarray:
-    """SPIDER bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_spider(data: bytes) -> tuple:
+    """SPIDER bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): F, converted."""
     width, height, offset, big = header(data)
     fmt = f"SPIDER ({'big' if big else 'little'}-endian)"
     native.check_pixels(fmt, width, height)
@@ -98,4 +99,4 @@ def decode_spider(data: bytes) -> np.ndarray:
         raise ValueError(f"{fmt}: its data offset {offset} is negative")
     rows = native.raw_rows(data, offset, height, 4 * width, 4 * width, fmt)
     px = rows.view(">f4" if big else "<f4")
-    return modes.grey(modes.f_to_u8(px, fmt))
+    return "F", modes.grey(modes.f_to_u8(px, fmt)), None

@@ -37,8 +37,9 @@ def accept(data: bytes) -> bool:
     return len(data) >= 4 and struct.unpack_from(">I", data)[0] == MAGIC
 
 
-def decode_sun(data: bytes) -> np.ndarray:
-    """Sun raster bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_sun(data: bytes) -> tuple:
+    """Sun raster bytes -> the image as Pillow opens it (mode, pixels,
+    palette; modes.rgb): 1, L, P with a colour map, RGB."""
     if not accept(data):
         raise ValueError("not a Sun raster file (no Sun raster magic)")
     if len(data) < HEADER:
@@ -89,7 +90,7 @@ def decode_sun(data: bytes) -> np.ndarray:
     else:
         ch = depth // 8
         px = rows[:, :w * ch].reshape(h, w, ch)[..., :3]
-        return np.ascontiguousarray(px if ftype == 3 else px[..., ::-1])
-    if palette is not None:
-        return palette[px]
-    return np.repeat(px[..., None], 3, axis=2)
+        return "RGB", np.ascontiguousarray(
+            px if ftype == 3 else px[..., ::-1]), None
+    mode = "1" if depth == 1 else "L" if palette is None else "P"
+    return mode, np.ascontiguousarray(px), palette

@@ -27,6 +27,7 @@ import struct
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import modes
 
 # id length, colour-map type, image type, map start, map length, map
 # depth, x origin, y origin, width, height, depth, descriptor
@@ -35,6 +36,9 @@ HEADER = "<BBBHHBHHHHBB"
 _KINDS = {(1, 8): "palette", (3, 1): "1-bit grey", (3, 8): "grey",
           (3, 16): "grey + alpha", (2, 16): "5-5-5", (2, 24): "BGR",
           (2, 32): "BGRA"}
+# what Pillow reads -> its mode
+_MODES = {"palette": "P", "1-bit grey": "1", "grey": "L", "grey + alpha":
+          "LA", "5-5-5": "RGBA", "BGR": "RGB", "BGRA": "RGBA"}
 
 
 def header_ok(data: bytes) -> bool:
@@ -74,8 +78,10 @@ def _colour_map(data: bytes, pos: int, start: int, length: int,
     return full
 
 
-def decode_tga(data: bytes) -> np.ndarray:
-    """TGA bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_tga(data: bytes) -> tuple:
+    """TGA bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb), row 0 = top: grey with a colour map stays L, its palette
+    applied (Pillow's load makes it P underneath)."""
     if not header_ok(data):
         raise ValueError("not a TGA file (its header fails Pillow's test)")
     (id_len, cmtype, itype, start, length, cmdepth, _, _, w, h, depth,
@@ -119,21 +125,21 @@ def decode_tga(data: bytes) -> np.ndarray:
             raise ValueError(f"{fmt}: the image data is truncated")
         rows = np.frombuffer(data, np.uint8, h * row_bytes, pos).reshape(
             h, row_bytes)
+    mode = _MODES[kind]
     if kind == "1-bit grey":
-        rgb = np.repeat(np.unpackbits(rows, axis=1)[:, :w, None] * np.uint8(
-            255), 3, axis=2)
+        px = np.unpackbits(rows, axis=1)[:, :w] * np.uint8(255)
     else:
         px = rows.reshape(h, w, depth // 8)
-        if kind in ("palette", "grey", "grey + alpha"):
-            idx = px[..., 0]
-            rgb = pal[idx] if pal is not None else np.repeat(
-                idx[..., None], 3, axis=2)
+        if kind in ("palette", "grey"):
+            px = px[..., 0]
+        elif kind == "grey + alpha":
+            px = modes.rgb(mode, px[..., 0], pal)
         elif kind == "5-5-5":
-            rgb = _rgb555(px.reshape(h, -1).view("<u2"))
+            px = _rgb555(px.reshape(h, -1).view("<u2"))
         else:                                         # BGR, BGRA
-            rgb = px[..., 2::-1]
+            px = px[..., 2::-1]
     if not flags & 0x20:                              # bottom-up rows
-        rgb = rgb[::-1]
+        px = px[::-1]
     if flags & 0x10:                                  # right to left
-        rgb = rgb[:, ::-1]
-    return np.ascontiguousarray(rgb)
+        px = px[:, ::-1]
+    return mode, np.ascontiguousarray(px), pal

@@ -51,7 +51,9 @@ Pillow's table that this module converts. Three readers follow Pillow's:
   old-style JPEG (6)   ojpeg.py: the JPEG stream libtiff's OJPEG codec
         builds (from a JPEGInterchangeFormat header, the strips' or tiles'
         own markers or the tables in tags; a stream a plane in separate
-        planes) through cge_jpeg.cpp; grey as it comes, YCbCr (Pillow
+        planes, read by OJPEGPreDecode's rules of libjpeg sessions, so
+        that plane 0 reads on from where a failed search for plane 1's SOS
+        stopped) through cge_jpeg.cpp; grey as it comes, YCbCr (Pillow
         takes every such file as YCbCr; libtiff takes photometric RGB as
         YCbCr) as raw data through the RGBA path.
 
@@ -71,8 +73,10 @@ SGILog (34676, 34677: Pillow has no mode for LogL or LogLuv, and libtiff's
 codec takes nothing else), WebP in TIFF (50001: Pillow's libtiff is built
 without it), a key that Pillow does not know, ThunderScan in tiles
 (libtiff has no decoder for them), an old-style JPEG frame libtiff would
-have libjpeg desubsample. So do the cases not ported: the other
-compressions. So do three cases where Pillow
+have libjpeg desubsample, a planar old-style JPEG whose plane 0 would
+read on from a failed search for plane 1's SOS into libtiff's refilled
+buffer (ojpeg.py). So does the one compression of Pillow's table the port
+has no decoder for: 32771 (CCITT RLE/W). So do three cases where Pillow
 returns pixels that no decoder wrote, or that libzstd's internals leave:
 a Group 4 strip that ends before its last row, a JPEG stream smaller than
 its strip or tile, and a ZSTD strip of the RGBA path that fails.
@@ -395,9 +399,9 @@ def to_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
 def _orient(rgb: np.ndarray, orientation) -> np.ndarray:
     """Pillow's exif_transpose of the image by the Orientation tag."""
     ops = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
-           4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
+           4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
            6: lambda a: np.rot90(a, -1), 7: lambda a: np.rot90(a, 2)
-           .transpose(1, 0, 2), 8: lambda a: np.rot90(a, 1)}
+           .swapaxes(0, 1), 8: lambda a: np.rot90(a, 1)}
     if orientation in ops:
         rgb = ops[orientation](rgb)
     return np.ascontiguousarray(rgb)
@@ -410,6 +414,14 @@ def _list(v) -> tuple:
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes -> the first image as [H, W, 3] uint8 RGB, row 0 =
     top."""
+    return modes.rgb(*open_tiff(data))
+
+
+def open_tiff(data: bytes) -> tuple:
+    """TIFF bytes -> the first image as Pillow opens it (mode, pixels,
+    palette; modes.rgb), row 0 = top: 1, L, P, I;16 and I;16B as their
+    band, the other modes converted (YCbCr read as RGB through libtiff's
+    RGBA path)."""
     prefix, order, tags = _ifd(data)
     if 0xBC01 in tags:
         raise ValueError("TIFF of Windows Media Photo data")
@@ -494,15 +506,16 @@ def decode_tiff(data: bytes) -> np.ndarray:
                              f"{version} otherwise than Pillow (not a TIFF "
                              f"to libtiff, or a BigTIFF)")
     if comp == 6:
-        return _orient(_read_ojpeg(data, tags, width, height, spp, bits,
-                                   desc), tags.get(274))
+        rgb = _read_ojpeg(data, tags, width, height, spp, bits, desc)
+        return (_opened("L", rgb[..., :1], None, tags) if spp == 1
+                else _opened("RGB", rgb, None, tags))
     if comp == 1:
         _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc)
     elif photo == 6 and not (comp == 7 and planar == 1):
         # Pillow reads these through libtiff's TIFFRGBAImage
         rgb = _read_ycbcr(data, tags, height, width, comp, fill, planar,
                           bits, desc)
-        return _orient(rgb, tags.get(274))
+        return _opened("RGB", rgb, None, tags)
     else:
         if fill == 2:
             mode, raw = OPEN_INFO[key[:3] + (1,) + key[4:]]
@@ -514,7 +527,21 @@ def decode_tiff(data: bytes) -> np.ndarray:
             raw = raw[:-1] + "N"
         _read_libtiff(data, tags, px, mode, raw.replace("16N", "16L"),
                       planar, bits, extra, comp, fill, order, desc)
-    return _orient(to_rgb(px, mode, palette), tags.get(274))
+    return _opened(mode, px, palette, tags)
+
+
+def _opened(mode: str, px: np.ndarray, palette, tags) -> tuple:
+    """(mode, pixels, palette) of the bands px [h, w, bands] in mode,
+    oriented by the Orientation tag: the band of 1, L, P, I;16 and I;16B
+    (uint8, or uint16 for the last two), any other mode converted."""
+    if mode in ("1", "L", "P"):
+        band = px[..., 0].astype(np.uint8)
+    elif mode in ("I;16", "I;16B"):
+        band = px[..., 0].astype(np.uint16)
+    else:
+        band = to_rgb(px, mode, palette)
+        mode = "RGB" if mode == "YCbCr" else mode
+    return mode, _orient(band, tags.get(274)), palette
 
 
 def _read_raw(data, tags, px, mode, raw, planar, bits, n_bands, desc):

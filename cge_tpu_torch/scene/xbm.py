@@ -22,6 +22,7 @@ import re
 import numpy as np
 
 from cge_tpu_torch import native
+from cge_tpu_torch.scene import modes
 
 # XbmImagePlugin.xbm_head
 HEAD = re.compile(
@@ -42,6 +43,12 @@ def accept(data: bytes) -> bool:
 
 def decode_xbm(data: bytes) -> np.ndarray:
     """XBM bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+    return modes.rgb(*open_xbm(data))
+
+
+def open_xbm(data: bytes) -> tuple:
+    """XBM bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): 1."""
     m = HEAD.match(data[:512])
     if not m:
         raise native.NotOpened("not a XBM file (no width, height and _bits[] "
@@ -53,4 +60,4 @@ def decode_xbm(data: bytes) -> np.ndarray:
     stride = (w + 7) // 8
     rows = native.xbm_bytes(data, m.end(), stride * h).reshape(h, stride)
     bits = np.unpackbits(rows, axis=1, bitorder="little")[:, :w]
-    return np.repeat((bits * np.uint8(255))[..., None], 3, axis=2)
+    return "1", bits * np.uint8(255), None

@@ -89,8 +89,9 @@ def _palette(lines, n: int, bpp: int) -> dict:
     return palette
 
 
-def decode_xpm(data: bytes) -> np.ndarray:
-    """XPM bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_xpm(data: bytes) -> tuple:
+    """XPM bytes -> the image as Pillow opens it (mode, pixels, palette;
+    modes.rgb): P of up to 256 colours, RGB of more."""
     if not accept(data):
         raise native.NotOpened("not an XPM file")
     lines = _lines(data, len(SIGNATURE))
@@ -131,4 +132,8 @@ def decode_xpm(data: bytes) -> np.ndarray:
         raise ValueError(f"XPM pixel lines end after {got} of its {want} "
                          f"pixels (not enough image data)")
     idx = np.concatenate(parts)[:want].reshape(h, w)
-    return colours[idx]
+    if kind == "RGB":
+        return "RGB", colours[idx], None
+    full = np.zeros((256, 3), np.uint8)
+    full[:len(colours)] = colours
+    return "P", idx.astype(np.uint8), full

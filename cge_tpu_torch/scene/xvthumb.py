@@ -40,8 +40,9 @@ def _line(data: bytes, pos: int) -> tuple[bytes, int]:
     return data[pos:end], end
 
 
-def decode_xvthumb(data: bytes) -> np.ndarray:
-    """XV thumbnail bytes -> [H, W, 3] uint8 RGB, row 0 = top."""
+def open_xvthumb(data: bytes) -> tuple:
+    """XV thumbnail bytes -> the image as Pillow opens it: P of the 3-3-2
+    palette (modes.rgb converts it)."""
     if not accept(data):
         raise ValueError("not an XV thumbnail (no P7 332 magic)")
     _, pos = _line(data, len(MAGIC))
@@ -64,5 +65,4 @@ def decode_xvthumb(data: bytes) -> np.ndarray:
         raise native.NotOpened(f"XV thumbnail of {w}x{h} pixels")
     fmt = "XV thumbnail"
     native.check_pixels(fmt, w, h)
-    idx = native.raw_rows(data, pos, h, w, w, fmt)
-    return PALETTE[idx]
+    return "P", native.raw_rows(data, pos, h, w, w, fmt), PALETTE

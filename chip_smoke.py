@@ -3162,6 +3162,24 @@ TEX_MPO_SECOND = "jpeg_baseline_420_tiny.jpg"
 CORNER_KINDS = (
     ("JPEG EXIF / MPF", ("jpeg_exif_", "jpeg_mpf_", "mpo_")),
     ("old-style JPEG tiles, planes, samplings", ("tiff_ojpeg_",)))
+# small JP2 files with CIELab colr boxes of each size, JPX files, IM files of
+# type LAB, IPTC streams of every nested format and mode, planar old-style
+# JPEG TIFFs whose plane 1 SOS libtiff cannot take
+# (make_textures.tails_fixtures), those JAX's loader refuses (or dies on)
+# listed without a hash, with a manifest of their own; its IPTC stream
+# whose band 1 is a PNG of the texels' 256x256 crop's green is phase 18c's,
+# and so are a JPX of the lossy JP2's codestream (jpx_of) and an IM of
+# type LAB of the texels' green (its L values' Lab -> sRGB from the IM
+# fixture of all 256)
+TEX_TAILS_DIR = os.path.join(TEXTURES, "jpx_lab_iptc")
+TEX_IPTC_PNG = "iptc_png_green_band1_crop256.iim"
+TEX_IM_LAB = "im_lab_16x16.im"
+TAILS_KINDS = (
+    ("JP2 CIELab colr", ("jp2_lab_",)),
+    ("JPX", ("jpx_",)),
+    ("IM LAB", ("im_",)),
+    ("IPTC bands", ("iptc_",)),
+    ("planar old-style JPEG, plane 1 SOS", ("tiff_ojpeg_planes_plane1_",)))
 # the tail's fixtures by kind (name prefixes), for phase 18a's decode times
 TAIL_KINDS = (
     ("old-style JPEG", ("tiff_ojpeg_",)),
@@ -3173,8 +3191,8 @@ TAIL_KINDS = (
 
 def texture_fixtures() -> list:
     """Phase 18a: each fixture (tests/torch_textures/ and its j2k_chip/,
-    pillow_tail/, tail_chip/, x11_pnm/, legacy/, science/ and
-    jpeg_corners/) through the port's
+    pillow_tail/, tail_chip/, x11_pnm/, legacy/, science/, jpeg_corners/
+    and jpx_lab_iptc/) through the port's
     load_image, its u8 pixels' SHA-256 against its manifest's, or, where
     the manifest has no hash (JAX's loader refuses the file), a ValueError
     naming the file; (name, kind, host ms) a fixture."""
@@ -3187,7 +3205,7 @@ def texture_fixtures() -> list:
     entries = []
     for folder in (TEXTURES, TEX_J2K_DIR, TEX_TAIL_DIR, TEX_TAIL_CHIP_DIR,
                    TEX_X11_DIR, TEX_LEGACY_DIR, TEX_SCIENCE_DIR,
-                   TEX_CORNERS_DIR):
+                   TEX_CORNERS_DIR, TEX_TAILS_DIR):
         with open(os.path.join(folder, "manifest.json")) as f:
             entries += [(folder, e) for e in json.load(f)["files"]]
     times, bad = [], []
@@ -3254,6 +3272,32 @@ def mpo_of(first: bytes, second: bytes) -> bytes:
         bytes(4) + entries
     app2 = b"\xff\xe2" + struct.pack(">H", 2 + 4 + len(ifd)) + b"MPF\0" + ifd
     return first[:2] + app2 + first[2:] + second
+
+
+def jpx_of(jp2: bytes) -> bytes:
+    """A JPX file of a JP2 file's codestream: the "jpx " brand (with "jp2 "
+    in its compatibility list), a reader requirements box, and the JP2's
+    header box with a CIELab colr box of 11 bytes before its own colr
+    boxes (OpenJPEG keeps the first colr, and CIELab sets no colour
+    space: three components read as sRGB)."""
+    import struct
+
+    def box(kind, body):
+        return struct.pack(">I", 8 + len(body)) + kind + body
+
+    boxes, at = {}, 0
+    while at < len(jp2):
+        n, kind = struct.unpack_from(">I4s", jp2, at)
+        boxes[kind] = jp2[at + 8:at + n]
+        at += n
+    head = boxes[b"jp2h"]
+    ihdr = struct.unpack_from(">I", head)[0]
+    lab = box(b"colr", struct.pack(">BBBI", 1, 0, 0, 14) + bytes(4))
+    return (box(b"jP  ", boxes[b"jP  "])
+            + box(b"ftyp", b"jpx " + bytes(4) + b"jpx jp2 ")
+            + box(b"rreq", bytes((1, 0x80, 0)) + bytes(4))
+            + box(b"jp2h", head[:ihdr] + lab + head[ihdr:])
+            + box(b"jp2c", boxes[b"jp2c"]))
 
 
 def texture_writers(texels):
@@ -3350,10 +3394,21 @@ def texture_writers(texels):
         out[name] = (data, held)
     for folder, name in ((TEX_LEGACY_DIR, TEX_PCD),
                          (TEX_SCIENCE_DIR, TEX_IPTC_JPEG),
-                         (TEX_CORNERS_DIR, TEX_TILED_OJPEG)):
+                         (TEX_CORNERS_DIR, TEX_TILED_OJPEG),
+                         (TEX_TAILS_DIR, TEX_IPTC_PNG)):
         with open(os.path.join(folder, name), "rb") as f:
             data = f.read()
         out[name] = (data, image_io.decode_image(data))  # 18a holds it
+    out["texels_jpx.jp2"] = (jpx_of(out[TEX_JP2][0]), out[TEX_JP2][1])
+    # the IM fixture of all 256 L values (16 rows of 16, from the bottom),
+    # whose Lab -> sRGB 18a holds to JAX's, as a table
+    with open(os.path.join(TEX_TAILS_DIR, TEX_IM_LAB), "rb") as f:
+        lab = image_io.decode_image(f.read())[::-1].reshape(256, 3)
+    green = np.ascontiguousarray(texels[..., 1])
+    head = b"Image type: LAB\r\nImage size (x*y): %d*%d\r\n" % (
+        green.shape[1], green.shape[0])
+    out["texels_green_lab.im"] = (head + bytes(511 - len(head)) + b"\x1a"
+                                  + green[::-1].tobytes(), lab[green])
     err = np.abs(out[TEX_TILED_OJPEG][1].astype(int) - texels)
     log(f"  18c: {TEX_TILED_OJPEG}'s texels against the JPEG's: max abs "
         f"error {int(err.max())}, mean {float(err.mean()):.3f}")
@@ -3854,8 +3909,9 @@ def eleventh_path(device) -> dict:
     PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint files, Pillow's
     other PNM modes, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and
     IPTC files of them, an IPTC stream of a grey JPEG crop in its green
-    band, a tiled old-style JPEG TIFF and an MPO whose frame 0 is the
-    JPEG (new_format_frames)."""
+    band, a tiled old-style JPEG TIFF, an MPO whose frame 0 is the JPEG, a
+    JPX of the lossy JP2, an IM of type LAB of their green and an IPTC
+    stream whose band 1 is a PNG of a crop's green (new_format_frames)."""
     import numpy as np
     import torch
 
@@ -3879,8 +3935,10 @@ def eleventh_path(device) -> dict:
         f"thumbnail, a Windows Paint crop, a 768x512 PhotoCD, an RGB IM, "
         f"FITS, SPIDER, McIdas, IM Tools and raw IPTC of their green, an "
         f"IPTC of a grey JPEG crop in band 2, an old-style JPEG TIFF in "
-        f"512x256 tiles and an MPO of the JPEG | {SMI['line']} (decode and "
-        f"load times are the host's)")
+        f"512x256 tiles, an MPO of the JPEG, a JPX of the lossy JP2 (CIELab "
+        f"colr of 11 bytes), an IM LAB of their green and an IPTC of a PNG "
+        f"of a crop's green in band 1 | {SMI['line']} (decode and load "
+        f"times are the host's)")
     times = texture_fixtures()
     for kind in sorted({k for _, k, _ in times}):
         ms = sorted((t, n) for n, k, t in times if k == kind)
@@ -3891,15 +3949,20 @@ def eleventh_path(device) -> dict:
                     and not (kind == "arithmetic" and "_smooth_" in n))
         log(f"  JPEG {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms "
             f"a file, median {ms[len(ms) // 2]:.2f} ms")
-    with open(os.path.join(TEX_CORNERS_DIR, "manifest.json")) as f:
-        corners = {e["name"] for e in json.load(f)["files"]}
-    for kinds, ours in ((TAIL_KINDS, False), (CORNER_KINDS, True)):
+    names = {}
+    for folder in (TEX_CORNERS_DIR, TEX_TAILS_DIR):
+        with open(os.path.join(folder, "manifest.json")) as f:
+            names[folder] = {e["name"] for e in json.load(f)["files"]}
+    for kinds, folder in ((TAIL_KINDS, None), (CORNER_KINDS, TEX_CORNERS_DIR),
+                          (TAILS_KINDS, TEX_TAILS_DIR)):
         for kind, prefixes in kinds:
             ms = sorted(t for n, _, t in times if n.startswith(prefixes)
-                        and (n in corners) == ours and n != TEX_TILED_OJPEG)
+                        and all((n in v) == (f == folder)
+                                for f, v in names.items())
+                        and n not in (TEX_TILED_OJPEG, TEX_IPTC_PNG))
             log(f"  {kind}: {len(ms)} files, {ms[0]:.2f}-{ms[-1]:.2f} ms a "
                 f"file, median {ms[len(ms) // 2]:.2f} ms")
-    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG, TEX_TILED_OJPEG):
+    for name in (TEX_LAB, TEX_MCT, TEX_OJPEG, TEX_TILED_OJPEG, TEX_IPTC_PNG):
         log(f"  18a: {name}: decode "
             f"{next(t for n, _, t in times if n == name):.2f} ms (host)")
     log(f"  18a: {len(times)} fixtures decoded, every SHA-256 equal to the "
@@ -3980,8 +4043,8 @@ def new_format_frames(tmp, texels, png_frame, grid, feats, params,
     markers, an old-style JPEG TIFF, P0CMYK, PyRGBA and Pf PNM files, XBM
     and XPM crops, PIXAR, GIMP brush, FLC, XV thumbnail and Windows Paint
     files, a PhotoCD, IM, FITS, SPIDER, McIdas, IM Tools and IPTC files,
-    a tiled old-style JPEG TIFF and an MPO (texture_writers), each one
-    first frame, timed,
+    a tiled old-style JPEG TIFF, an MPO, a JPX, an IM LAB and an IPTC of a
+    PNG (texture_writers), each one first frame, timed,
     against the PNG-textured frame of the same texels (rendered once for
     each set of texels), its K1 and K2 launches against (b)'s
     (first_launches); {file: (decode ms, load s, first frame ms)}."""

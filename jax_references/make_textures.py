@@ -48,6 +48,7 @@ import os
 import struct
 import subprocess
 import sys
+import warnings
 import zlib
 
 if __package__ in (None, ""):
@@ -2855,13 +2856,18 @@ def box(kind: bytes, body: bytes) -> bytes:
 
 
 def jp2_file(codestream: bytes, *, ihdr=None, colr=((1, 16),), pclr=None,
-             cmap=None, cdef=None, res=False, bpcc=None) -> bytes:
-    """A JP2 file around a codestream: the signature, ftyp, jp2h (ihdr
+             cmap=None, cdef=None, res=False, bpcc=None, brand=b"jp2 ",
+             compat=(b"jp2 ",), before=(), inside=(), after=(),
+             jp2h=True, jp2c=True, tail=()) -> bytes:
+    """A JP2 file around a codestream: the signature, ftyp (brand and the
+    compatibility list compat), the boxes before (raw bytes), jp2h (ihdr
     (height, width, components, bit-depth byte) from the SIZ by default,
-    None's False leaves it out; colr boxes (1, enumcs) or (2, ICC bytes);
-    pclr (entries [N, C] and each column's bit-depth byte); cmap [(component,
-    type, column)]; cdef [(channel, type, association)]; res a resc box)
-    and jp2c."""
+    None's False leaves it out; colr boxes (1, enumcs) or (2, ICC bytes), or
+    a colr box's raw body as bytes; pclr (entries [N, C] and each column's
+    bit-depth byte); cmap [(component, type, column)]; cdef [(channel, type,
+    association)]; res a resc box; then the boxes inside, raw) unless jp2h
+    is False, the boxes after, jp2c unless jp2c is False, and the boxes of
+    tail."""
     if ihdr is None:
         xsiz, ysiz, xo, yo = struct.unpack_from(">IIII", codestream, 8)
         nc = struct.unpack_from(">H", codestream, 40)[0]
@@ -2871,7 +2877,11 @@ def jp2_file(codestream: bytes, *, ihdr=None, colr=((1, 16),), pclr=None,
         head += box(b"ihdr", struct.pack(">IIHBBBB", *ihdr, 7, 0, 0))
     if bpcc is not None:
         head += box(b"bpcc", bytes(bpcc))
-    for meth, what in colr:
+    for c in colr:
+        if isinstance(c, bytes):
+            head += box(b"colr", c)
+            continue
+        meth, what = c
         head += box(b"colr", struct.pack(">BBB", meth, 0, 0) + (
             struct.pack(">I", what) if meth == 1 else what))
     if pclr is not None:
@@ -2887,9 +2897,12 @@ def jp2_file(codestream: bytes, *, ihdr=None, colr=((1, 16),), pclr=None,
     if res:
         head += box(b"res ", box(b"resc", struct.pack(">HHHHbb", 2835, 1,
                                                        2835, 1, 0, 0)))
+    head += b"".join(inside)
     return (box(b"jP  ", b"\x0d\x0a\x87\x0a")
-            + box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ")
-            + box(b"jp2h", head) + box(b"jp2c", codestream))
+            + box(b"ftyp", brand + bytes(4) + b"".join(compat))
+            + b"".join(before) + (box(b"jp2h", head) if jp2h else b"")
+            + b"".join(after) + (box(b"jp2c", codestream) if jp2c else b"")
+            + b"".join(tail))
 
 
 def _marker_segments(data: bytes, pos: int):
@@ -4614,6 +4627,242 @@ def write_jpeg_corners() -> None:
           f"in {os.path.relpath(CORNERS_DIR, REPO)}")
 
 
+TAILS_DIR = os.path.join(OUT, "jpx_lab_iptc")
+TAILS_SEED = 30
+TAILS_CROP = 256
+TAILS_CHIP = f"iptc_png_green_band1_crop{TAILS_CROP}.iim"
+
+
+def _lab_colr(size: int) -> bytes:
+    """A colr box's body of CIELab (method 1, EnumCS 14) of size bytes,
+    its parameters (past the 7 bytes of the method, precedence,
+    approximation and EnumCS) counting up from 1."""
+    return (struct.pack(">BBBI", 1, 0, 0, 14)
+            + bytes(range(1, 34)))[:size]
+
+
+def _saved(im, fmt: str, **kw) -> bytes:
+    """Pillow's save of im as fmt, its deprecation warnings quiet."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return _pillow(im, fmt, **kw)
+
+
+def tails_fixtures(rng, texels: np.ndarray) -> dict:
+    """The last tails of Pillow's plugins: JP2 files with a CIELab colr
+    box of each size (alone, and before an sYCC colr), JPX files (the jpx
+    brand, rreq, jpch, jplh, cgrp, ftbl, dtbl, asoc, two codestreams, colr
+    methods and EnumCS 19-25), IM files of type LAB, IPTC streams whose
+    band images are files of each format and mode Pillow merges (or
+    refuses to, or dies on: "_dies", refused by the port), planar
+    old-style JPEG TIFFs whose plane 1 SOS libtiff cannot take; and
+    TAILS_CHIP, an RGB IPTC stream whose band 1 is a PNG of the texels'
+    (BIG's) top-left crop's green, for chip_smoke.py phase 18c."""
+    out = {}
+    rgb = smooth_image(rng, 6, 9, 25.0)
+
+    def codestream(img, **kw):
+        return _pillow(PILImage.fromarray(img), "JPEG2000", no_jp2=True,
+                       **kw)
+
+    cs = {"rgb": codestream(rgb), "grey": codestream(rgb[..., 1]),
+          "rgba": codestream(np.dstack([rgb, rgb[..., :1]]))}
+    for size in (7, 11, 34, 35, 39):
+        out[f"jp2_lab_colr{size}_rgb_9x6.jp2"] = ("jp2", jp2_file(
+            cs["rgb"], colr=(_lab_colr(size),)))
+    out["jp2_lab_colr11_then_sycc_9x6.jp2"] = ("jp2", jp2_file(
+        cs["rgb"], colr=(_lab_colr(11), (1, 18))))
+    out["jp2_lab_colr6_9x6.jp2"] = ("jp2_refused", jp2_file(
+        cs["rgb"], colr=(_lab_colr(6),)))
+    for kind in ("grey", "rgba"):
+        out[f"jp2_lab_colr11_{kind}_9x6.jp2"] = ("jp2", jp2_file(
+            cs[kind], colr=(_lab_colr(11),)))
+    jpx = dict(brand=b"jpx ", compat=(b"jpx ", b"jp2 "))
+    rreq = box(b"rreq", bytes((1, 0x80, 0)) + bytes(4))
+    colr = {n: box(b"colr", struct.pack(">BBBI", 1, 0, 0, n))
+            for n in (16, 17, 18)}
+    ftbl = box(b"ftbl", box(b"flst", struct.pack(">HHIIH", 1, 0, 0, 0, 0)))
+    cases = {
+        "brand": ({}, "jpx"), "only_jpx_compat": (dict(compat=(b"jpx ",)),
+                                                  "jpx"),
+        "rreq": (dict(before=[rreq]), "jpx"),
+        "jpch_colr17_after": (dict(after=[box(b"jpch", colr[17])]), "jpx"),
+        "jpch_pclr_before": (dict(before=[box(b"jpch", box(
+            b"pclr", struct.pack(">HB", 2, 3) + bytes(9)))]), "jpx"),
+        "jpch_cdef_after": (dict(after=[box(b"jpch", box(
+            b"cdef", struct.pack(">HHHH", 1, 0, 0, 1)))]), "jpx"),
+        "jplh_cgrp_before": (dict(before=[box(b"jplh", box(
+            b"cgrp", colr[18]))]), "jpx"),
+        "cgrp_inside": (dict(inside=[box(b"cgrp", colr[18])]), "jpx"),
+        "asoc_lbl_xml": (dict(after=[box(b"asoc", box(b"lbl ", b"name")
+                                         + box(b"xml ", b"<a/>"))]), "jpx"),
+        "ftbl": (dict(after=[ftbl]), "jpx"),
+        "ftbl_no_jp2c": (dict(after=[ftbl], jp2c=False), "jpx_refused"),
+        "dtbl": (dict(after=[box(b"dtbl", struct.pack(">H", 1) + box(
+            b"url ", bytes(4) + b"a\0"))]), "jpx"),
+        "two_jp2c": (dict(tail=[box(b"jp2c", cs["grey"])]), "jpx"),
+        "jpch_no_jp2h": (dict(before=[box(b"jpch", colr[17])],
+                              jp2h=False), "jpx_refused"),
+        "jplh_no_jp2h": (dict(after=[box(b"jplh", colr[17])], jp2h=False),
+                         "jpx_refused"),
+        "colr_method0_then_sycc": (dict(colr=(struct.pack(
+            ">BBBI", 0, 0, 0, 16), (1, 18))), "jpx"),
+        "colr_method3_then_sycc": (dict(colr=(struct.pack(
+            ">BBB", 3, 0, 0) + bytes(8), (1, 18))), "jpx"),
+        "colr_method4_then_sycc": (dict(colr=(struct.pack(
+            ">BBB", 4, 0, 0), (1, 18))), "jpx"),
+        "colr_method5_then_sycc": (dict(colr=(struct.pack(
+            ">BBB", 5, 0, 0) + bytes(12), (1, 18))), "jpx"),
+        "icc_then_sycc": (dict(colr=((2, bytes(16)), (1, 18))), "jpx"),
+    }
+    for name, (kw, kind) in cases.items():
+        out[f"jpx_{name}_rgb_9x6.jp2"] = (kind, jp2_file(
+            cs["rgb"], **dict(jpx, **kw)))
+    for comps in ("grey", "rgb", "rgba"):
+        for enumcs in range(19, 26):
+            out[f"jpx_enumcs{enumcs}_{comps}_9x6.jp2"] = (
+                "jpx_refused" if enumcs == 24 else "jpx",
+                jp2_file(cs[comps], colr=((1, enumcs),), **jpx))
+    # IM of type LAB: all 256 L values, alone, after a type line that left
+    # the L layout, with Luts of grey and of colour, after one that left
+    # another layout (no unpacker: refused)
+    ramp = np.arange(256, dtype=np.uint8).tobytes()
+    colour = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+    for name, (kind, lut) in {
+            "lab": (b"LAB", None),
+            "lab_lut_grey": (b"LAB", np.tile(np.arange(256, dtype=np.uint8),
+                                             3).tobytes()),
+            "lab_lut_colour": (b"LAB", colour),
+            "greyscale_then_lab": (b"Greyscale image\r\nImage type: LAB",
+                                   None)}.items():
+        out[f"im_{name}_16x16.im"] = ("im", im_file(kind, 16, 16, ramp,
+                                                    lut=lut))
+    out["im_rgb_then_lab_16x16.im"] = ("im_refused", im_file(
+        b"RGB image\r\nImage type: LAB", 16, 16, ramp * 3))
+    # IPTC band images: Pillow's saves of each format and mode, nested
+    w, h = 6, 5
+    grey = smooth_image(rng, h, w, 25.0)[..., 1]
+    pal = PILImage.fromarray((grey % 7).astype(np.uint8)).convert("P")
+    pal.putpalette(rng.integers(0, 256, 21).astype(np.uint8).tobytes())
+    bits = PILImage.fromarray(grey).convert("1")
+    i16 = PILImage.fromarray(rng.integers(0, 65536, (h, w)).astype(
+        np.uint16))
+    l8 = PILImage.fromarray(grey)
+    f32 = PILImage.fromarray(rng.uniform(-5, 300, (h, w)).astype(
+        np.float32))
+    i32 = PILImage.fromarray(rng.integers(-5, 70000, (h, w)).astype(
+        np.int32))
+    nested = {   # name: (nested file, IPTC layers, band, kind)
+        "png_p_band0": (_saved(pal, "PNG"), 3, 0, "iptc"),
+        "png_1_band0": (_saved(bits, "PNG"), 3, 0, "iptc"),
+        "png_i16_band0": (_saved(i16, "PNG"), 3, 0, "iptc"),
+        "png_l_band1": (_saved(l8, "PNG"), 3, 1, "iptc"),
+        "png_p_band1": (_saved(pal, "PNG"), 3, 1, "iptc_refused"),
+        "bmp_p_band0": (_saved(pal, "BMP"), 3, 0, "iptc"),
+        "bmp_l_band1": (_saved(l8, "BMP"), 3, 1, "iptc"),
+        "gif_p_band0": (_saved(pal, "GIF"), 3, 0, "iptc"),
+        "gif_1_band2": (_saved(bits, "GIF"), 3, 2, "iptc"),
+        "tiff_l_band2": (_saved(l8, "TIFF"), 3, 2, "iptc"),
+        "tiff_p_band0": (_saved(pal, "TIFF"), 3, 0, "iptc"),
+        "tiff_i16b_band0": (_saved(i16.convert("I;16B"), "TIFF"), 3, 0,
+                            "iptc"),
+        "tga_p_band0": (_saved(pal, "TGA"), 3, 0, "iptc"),
+        "tga_l_band1": (_saved(l8, "TGA"), 3, 1, "iptc"),
+        "sgi_l_band1": (_saved(l8, "SGI"), 3, 1, "iptc"),
+        "pcx_p_band0": (_saved(pal, "PCX"), 3, 0, "iptc"),
+        "msp_1_band0": (_saved(bits, "MSP"), 3, 0, "iptc"),
+        "xbm_1_cmyk_band0": (_saved(bits, "XBM"), 4, 0, "iptc"),
+        "ppm_1_band0": (_saved(bits, "PPM"), 3, 0, "iptc"),
+        "im_p_band0": (_saved(pal, "IM"), 3, 0, "iptc"),
+        "im_i16l_band0": (_saved(i16.convert("I;16L"), "IM"), 3, 0,
+                          "iptc"),
+        "jp2_i16_band0": (_saved(i16, "JPEG2000"), 3, 0, "iptc"),
+        "dds_l_cmyk_band3": (_saved(l8, "DDS"), 4, 3, "iptc"),
+        "qoi_rgb_band0": (_saved(l8.convert("RGB"), "QOI"), 3, 0,
+                          "iptc_refused"),
+        "tiff_f_band0": (_saved(f32, "TIFF"), 3, 0, "iptc_dies"),
+        "tiff_i_band0": (_saved(i32, "TIFF"), 3, 0, "iptc_dies"),
+        "spider_band0": (_saved(f32, "SPIDER"), 3, 0, "iptc_dies"),
+        "tiff_f_band1": (_saved(f32, "TIFF"), 3, 1, "iptc_refused"),
+        "l_of_tiff_f": (_saved(f32, "TIFF"), 1, None, "iptc_refused"),
+        "l_of_tiff_i16b": (_saved(i16.convert("I;16B"), "TIFF"), 1, None,
+                           "iptc_refused"),
+        "l_of_tiff_i": (_saved(i32, "TIFF"), 1, None, "iptc"),
+        "mcidas_overlapping_band0": (mcidas_file(grey, prefix=2,
+                                                 words={14: 0}), 3, 0,
+                                     "iptc_refused"),
+    }
+    for name, (data, layers, band, kind) in nested.items():
+        out[f"iptc_{name}.iim"] = (kind, iptc_file(
+            data, w, h, layers=layers, component=int(layers > 1),
+            compression=5, band=band))
+    # planar old-style JPEG TIFFs whose plane 1 SOS is corrupt, cut or
+    # names another component
+    px = smooth_image(rng, 40, 48, 25.0)
+    planes = dict(planar=2, sampling=((1, 1),) * 3, form="jif",
+                  rows_per_strip=8, quality=85)
+
+    def damaged(how, kw):
+        b = bytearray(ojpeg_tiff(px, 6, **dict(planes, **kw)))
+        at = [i for i in range(len(b) - 1) if b[i:i + 2] == b"\xff\xda"]
+        if how == "length":
+            b[at[1] + 3] ^= 0x10
+        elif how == "count":
+            b[at[1] + 4] = 3
+        elif how == "component":
+            b[at[1] + 5] = 9
+        else:                                    # both later SOS markers
+            for i in at[1:]:
+                b[i + 1] = 0
+        return bytes(b)
+
+    for name, (how, kw, kind) in {
+            "length_strips": ("length", {}, "tiff"),
+            "count_tiles": ("count", dict(tile=(16, 16), rows_per_strip=None),
+                            "tiff"),
+            "count_strips_stream": ("count", dict(form="stream"), "tiff"),
+            "missing_two_strips": ("missing", dict(rows_per_strip=24),
+                                   "tiff"),
+            "missing_strips": ("missing", {}, "tiff_refused"),
+            "component_strips": ("component", {}, "tiff_refused"),
+            "component_one_tile_row": ("component", dict(
+                tile=(16, 48), rows_per_strip=None), "tiff")}.items():
+        out[f"tiff_ojpeg_planes_plane1_sos_{name}_48x40.tif"] = (
+            kind, damaged(how, kw))
+    crop = texels[:TAILS_CROP, :TAILS_CROP, 1]
+    out[TAILS_CHIP] = ("iptc", iptc_file(
+        _pillow(PILImage.fromarray(np.ascontiguousarray(crop)), "PNG"),
+        TAILS_CROP, TAILS_CROP, layers=3, component=1, compression=5,
+        band=1))
+    return out
+
+
+def write_tails() -> None:
+    """Write tails_fixtures (of BIG's texels) into TAILS_DIR, with its
+    manifest; the files JAX's loader refuses are listed with the name of
+    its error and no hash, those on which its process dies with
+    "died"."""
+    with PILImage.open(os.path.join(OUT, BIG)) as im:
+        texels = np.asarray(im.convert("RGB"))
+    files = _write(TAILS_DIR, tails_fixtures(
+        np.random.default_rng(TAILS_SEED), texels))
+    _manifest(os.path.join(TAILS_DIR, "manifest.json"), files,
+              COMMAND + " --tails", TAILS_SEED)
+    print(f"{len(files)} fixtures, {sum(x['bytes'] for x in files)} bytes, "
+          f"in {os.path.relpath(TAILS_DIR, REPO)}")
+
+
+def jax_dies(path: str) -> bool:
+    """Whether the process of JAX's load_image of the file dies (by a
+    signal), in a process of its own."""
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from cge_tpu.scene.image_io import load_image; "
+         "load_image(sys.argv[2])", REPO, path],
+        capture_output=True, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return run.returncode < 0
+
+
 def jax_pixels(path: str) -> np.ndarray:
     """cge_tpu's load_image of the file, quantised to u8 [H, W, 3]."""
     from cge_tpu.scene.image_io import load_image
@@ -4635,6 +4884,13 @@ def _write(directory: str, made: dict) -> list:
         path = os.path.join(directory, name)
         with open(path, "wb") as f:
             f.write(data)
+        if kind.endswith("_dies"):
+            # JAX's process dies: the port must refuse the file
+            if not jax_dies(path):
+                raise AssertionError(f"{name}: JAX's loader survives it")
+            files.append(dict(name=name, kind=kind, bytes=len(data),
+                              shape=None, sha256=None, jax_error="died"))
+            continue
         try:
             u8 = jax_pixels(path)
         except Exception as e:
@@ -4668,7 +4924,11 @@ def _manifest(path: str, files: list, command: str = COMMAND,
 def main(argv=()) -> int:
     """Every folder, or with --legacy only tests/torch_textures/legacy/,
     with --science only tests/torch_textures/science/, with --jpeg-corners
-    only tests/torch_textures/jpeg_corners/."""
+    only tests/torch_textures/jpeg_corners/, with --tails only
+    tests/torch_textures/jpx_lab_iptc/."""
+    if "--tails" in argv:
+        write_tails()
+        return 0
     if "--jpeg-corners" in argv:
         write_jpeg_corners()
         return 0
@@ -4697,6 +4957,7 @@ def main(argv=()) -> int:
     write_legacy()
     write_science()
     write_jpeg_corners()
+    write_tails()
     return 0
 
 

@@ -315,10 +315,12 @@ def test_ojpeg_samplings_match_jax(tmp_path, sampling, tag):
                 tiff.decode_tiff(data)
 
 
-# damaged layouts, and whether the port is known to part from Pillow on
-# them: a corrupt SOS of plane 1 leaves libtiff's stream where its search
-# ended and plane 0's unrestarted session reads on from there, which the
-# port does not follow (it refuses, naming the case)
+# damaged layouts: a corrupt SOS of plane 1 leaves libtiff's stream where
+# its search ended and plane 0's unrestarted session reads on from there,
+# which the port follows; where that stop lies before the last 2,048-byte
+# window of its strile and a third strile reads on, it refuses, naming the
+# case (a standing record: libjpeg's read-ahead points into the buffer the
+# next search refills)
 DAMAGED = {
     "tiles_grey": (1, dict(form="jif", tile=(16, 16))),
     "tiles_ycbcr22": (6, dict(subsampling=2, tile=(16, 16))),
@@ -327,16 +329,16 @@ DAMAGED = {
                               rows_per_strip=8)),
     "planes": (6, dict(planar=2, sampling=((1, 1),) * 3)),
 }
-KNOWN_GAP = "its reading of plane 0 goes on from where that search"
+KNOWN_GAP = "not followed"
 
 
 @pytest.mark.parametrize("case", sorted(DAMAGED))
 def test_ojpeg_damaged_tiles_and_planes_match_jax(tmp_path, case):
     """Tiled and planar files whose striles are zeroed from a point on or
     have bytes changed: the port gives Pillow's pixels or raises where
-    Pillow raises (a plane whose SOS libtiff cannot find: plane 2 reads
-    as zeros, and so does plane 1 where each plane is one strile; the one
-    known gap is named above)."""
+    Pillow raises (a plane whose SOS libtiff cannot find reads as zeros,
+    and where that is plane 1 plane 0's later striles read on from where
+    the search stopped; the one standing refusal is named above)."""
     photo, kw = DAMAGED[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     px = mt.smooth_image(rng, 32, 32, 25.0)
@@ -372,7 +374,7 @@ def test_ojpeg_planes_without_a_plane_sos(tmp_path):
     plane2 = tiff._list(tags[273])[6]
     ifd = struct.unpack_from("<I", data, 4)[0]
     cut = data[:plane2] + bytes(ifd - plane2) + data[ifd:]
-    jpegs, _, _ = ojpeg.streams(cut, tags, 24, 24, 3, True, "t")
+    jpegs, _, _, _ = ojpeg.streams(cut, tags, 24, 24, 3, True, "t")
     assert [j is None for j in jpegs] == [False, False, True]
     want = _same_as_jax(tmp_path, cut, "p.tif")
     assert want is not None
